@@ -1,0 +1,574 @@
+"""Drive the PyTorch port (spark_rapids_tpu_torch) on one CUDA card.
+
+    python3 chip_smoke.py [--rows N] [--profile DIR]
+
+Phases, in order; any failure exits non-zero:
+
+1. the card: ``nvidia-smi`` name and power limit, torch version, compute
+   capability (must be 9.0, an H100);
+2. build the CUDA kernels from ``spark_rapids_tpu_torch/kernels/csrc``;
+3. each kernel against its plain torch version on the card, at the shapes
+   q1 gives it, at one large shape and on edge inputs, with times (CUDA
+   events, warm median) beside the least time the card could take and
+   one PyTorch library call computing the same function;
+4. TPC-H q1 end to end through ``TorchSession`` at ``--rows`` lineitem rows
+   (default 6,001,215 = TPC-H SF 1), checked against a numpy oracle, with
+   every kernel's launch counter read around the query;
+5. the summary lines: one ``{"kernels": [...]}`` JSON line, the card line,
+   and last ``{"ok": true, "device": {...}}``.
+
+It needs one CUDA card and exits non-zero without one. ``--profile DIR``
+also writes a torch.profiler table and trace of one warm q1 run.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+#: NVIDIA H100 SXM data sheet: HBM3 bandwidth, FP64 (non-tensor) rate; the
+#: INT32 rate is half the 67 TFLOP/s FP32 rate (64 INT32 lanes per SM
+#: against 128 FP32 lanes)
+HBM_BYTES_PER_S = 3.35e12
+FP64_OPS_PER_S = 34e12
+INT32_OPS_PER_S = 33.5e12
+
+#: every tensor of the script lives on the card
+DEV = torch.device("cuda")
+
+TPU_KERNELS = {
+    "onehot_partials": "spark_rapids_tpu/kernels/segreduce.py:145",
+    "gather_compact": "spark_rapids_tpu/kernels/compact.py:112",
+    "sort_with_payload": "spark_rapids_tpu/kernels/sort.py:84",
+}
+SOURCES = {
+    "onehot_partials": "spark_rapids_tpu_torch/kernels/csrc/segreduce.cu",
+    "gather_compact": "spark_rapids_tpu_torch/kernels/csrc/compact.cu",
+    "sort_with_payload": "spark_rapids_tpu_torch/kernels/csrc/sort.cu",
+}
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def fail(msg: str) -> None:
+    raise SystemExit(f"chip_smoke: FAILED: {msg}")
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def time_ms(fn, iters: int = 15, warmup: int = 3) -> float:
+    """Median milliseconds of ``fn`` on the card (CUDA events, warm)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(iters):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def bound_ms(nbytes: float, ops: float, ops_rate: float):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / ops_rate * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def bits(t: torch.Tensor) -> torch.Tensor:
+    """An integer view with the same bits, for exact comparison."""
+    view = {torch.float64: torch.int64, torch.float32: torch.int32,
+            torch.uint32: torch.int32}.get(t.dtype)
+    return t.view(view) if view is not None else t
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return a.dtype == b.dtype and a.shape == b.shape and \
+        torch.equal(bits(a), bits(b))
+
+
+# ---------------------------------------------------------------------------
+# phase 3: kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def q1_like_partials_input(capacity: int, nrows: int, gen: torch.Generator):
+    """The aggregate's f64 stack as q1 builds it: 7 value columns (4 SUM,
+    3 AVG; column-major), zero where the filter or the padding drops a
+    row, and the gid over 4 x 3 key slots (flag/status codes, null slot
+    last) padded to 16; padding rows land in the (null, null) slot 11."""
+    dev = DEV
+    live = torch.arange(capacity, device=dev) < nrows
+    flag = torch.randint(0, 3, (capacity,), generator=gen, device=dev)
+    status = torch.randint(0, 2, (capacity,), generator=gen, device=dev)
+    gid = torch.where(live, flag * 3 + status, torch.full_like(flag, 11))
+    keep = live & (torch.rand(capacity, generator=gen, device=dev) < 0.986)
+    qty = torch.randint(1, 51, (capacity,), generator=gen,
+                        device=dev).to(torch.float64)
+    price = torch.round(torch.rand(capacity, generator=gen, device=dev,
+                                   dtype=torch.float64) * 1e7) / 100.0
+    disc = torch.randint(0, 11, (capacity,), generator=gen,
+                         device=dev).to(torch.float64) / 100.0
+    tax = torch.randint(0, 9, (capacity,), generator=gen,
+                        device=dev).to(torch.float64) / 100.0
+    dp = price * (1.0 - disc)
+    cols = [qty, price, dp, dp * (1.0 + tax), qty, price, disc]
+    zero = torch.zeros((), dtype=torch.float64, device=dev)
+    # column-major (capacity, 7), as ops/segsum.py hands it to the kernel
+    x = torch.stack([torch.where(keep, c, zero) for c in cols], 0).t()
+    return x, gid.to(torch.int32).contiguous()
+
+
+def partials_error(got, ref, x, gid, nseg, nb, block):
+    """(max abs error, max error relative to each partial's absolute
+    mass) with NaN positions required to agree."""
+    from spark_rapids_tpu_torch.kernels.segreduce import onehot_partials_plain
+    mass = onehot_partials_plain(x.abs().to(torch.float64), gid, nseg, nb,
+                                 block)
+    g, r = got.to(torch.float64), ref.to(torch.float64)
+    if not torch.equal(torch.isnan(g), torch.isnan(r)):
+        fail("onehot_partials: NaN positions differ from the plain version")
+    fin = ~torch.isnan(g) & ~torch.isinf(g) & ~torch.isinf(r)
+    if not torch.equal(g[~fin & ~torch.isnan(g)], r[~fin & ~torch.isnan(g)]):
+        fail("onehot_partials: infinite partials differ")
+    err = (g - r).abs().where(fin, torch.zeros_like(g))
+    rel = (err / mass.clamp(min=1e-300)).where(fin, torch.zeros_like(g))
+    return float(err.max()), float(rel.max())
+
+
+def check_segreduce(capacity: int, nrows: int, gen) -> dict:
+    from spark_rapids_tpu_torch.kernels.segreduce import (
+        onehot_partials,
+        onehot_partials_plain,
+    )
+    dev = DEV
+    block = 1024
+    nb = capacity // block
+
+    def run_case(name, x, gid, nseg, rtol):
+        k_nb = x.shape[0] // block
+        a = onehot_partials(x, gid, nseg, k_nb, block)
+        b = onehot_partials(x, gid, nseg, k_nb, block)
+        torch.cuda.synchronize()
+        if not same_bits(a, b):
+            fail(f"onehot_partials {name}: two runs differ in their bits")
+        ref = onehot_partials_plain(x, gid, nseg, k_nb, block)
+        abs_err, rel = partials_error(a, ref, x, gid, nseg, k_nb, block)
+        ok = rel <= rtol
+        log(f"  segreduce {name}: max_abs_err={abs_err:.3e} "
+            f"max_err/mass={rel:.3e} (tol rtol {rtol:.3g} of each partial's "
+            f"absolute mass) bit-identical-rerun=True {'OK' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"onehot_partials {name} disagrees with its plain version")
+        return abs_err
+
+    x, gid = q1_like_partials_input(capacity, nrows, gen)
+    q1_err = run_case(f"q1 ({capacity}x7 f64, nseg 16)", x, gid, 16, 1e-12)
+    small = 1 << 20
+    # f32: two summation orders over a 1024-row block each err by at most
+    # (block - 1) * 2^-24 of the absolute mass (recursive summation)
+    run_case("f32 (2^20x7, nseg 16)", x[:small].to(torch.float32).contiguous(),
+             gid[:small].contiguous(), 16, 2 * (block - 1) * 2.0 ** -24)
+    # edges: NaN, +-inf, -0.0, ties (all rows in one segment), nseg 1 / 32
+    e = torch.randn((small, 5), generator=gen, device=dev,
+                    dtype=torch.float64) * 1e6
+    e[:, 1] = -0.0
+    e[5, 0], e[70000, 2], e[9, 3], e[10, 3] = (float("nan"), float("inf"),
+                                               float("inf"), float("-inf"))
+    g32 = torch.randint(0, 32, (small,), generator=gen, device=dev,
+                        dtype=torch.int32)
+    run_case("edges nseg 32 (row-major x)", e, g32, 32, 1e-12)
+    run_case("edges nseg 1", e, torch.zeros_like(g32), 1, 1e-12)
+    run_case("ties (one segment of 8)", e, torch.full_like(g32, 3), 8, 1e-12)
+
+    ids = (torch.arange(capacity, device=dev) // block) * 16 + gid.to(torch.int64)
+    lib_out = torch.zeros(nb * 16, 7, dtype=torch.float64, device=dev)
+    ms = time_ms(lambda: onehot_partials(x, gid, 16, nb, block))
+    x_rows = x.contiguous()  # the same values row-major
+    rows_ms = time_ms(lambda: onehot_partials(x_rows, gid, 16, nb, block))
+    plain_ms = time_ms(lambda: onehot_partials_plain(x, gid, 16, nb, block))
+    lib_ms = time_ms(lambda: lib_out.zero_().index_add_(0, ids, x))
+    nbytes = capacity * (7 * 8 + 4) + nb * 16 * 7 * 8
+    bnd, by = bound_ms(nbytes, capacity * 7, FP64_OPS_PER_S)
+    log(f"  segreduce time at q1 shape: kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, index_add_ {lib_ms:.4f} ms, bound {bnd:.4f} ms "
+        f"({by}), {nbytes / ms / 1e6:.1f} GB/s; on row-major x "
+        f"{rows_ms:.4f} ms")
+    return {"name": "onehot_partials", "max_abs_err": q1_err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
+            "library_ms": lib_ms}
+
+
+def compact_inputs(capacity, nkeep_frac, dtypes, gen):
+    dev = DEV
+    datas = []
+    for dt in dtypes:
+        if dt == torch.float64:
+            d = torch.randn(capacity, generator=gen, device=dev,
+                            dtype=torch.float64) * 1e6
+            d[:4] = torch.tensor([float("nan"), -0.0, float("inf"),
+                                  float("-inf")], dtype=torch.float64)
+        elif dt == torch.int64:
+            d = torch.randint(-(2 ** 62), 2 ** 62, (capacity,), generator=gen,
+                              device=dev, dtype=torch.int64)
+        else:
+            d = torch.randint(0, 3, (capacity,), generator=gen, device=dev,
+                              dtype=torch.int32)
+        datas.append(d)
+    valids = [torch.rand(capacity, generator=gen, device=dev) < 0.97
+              for _ in dtypes]
+    keep = torch.rand(capacity, generator=gen, device=dev) < nkeep_frac
+    return datas, valids, keep
+
+
+def compact_args(keep):
+    keep_i = keep.to(torch.int32)
+    return (torch.cumsum(keep_i, 0, dtype=torch.int32) - 1,
+            keep_i.sum(dtype=torch.int32))
+
+
+def check_compact(gen) -> dict:
+    from spark_rapids_tpu_torch.kernels.compact import (
+        gather_compact,
+        gather_compact_plain,
+    )
+
+    def run_case(name, datas, valids, keep, capacity):
+        pos, new_n = compact_args(keep)
+        got = gather_compact(datas, valids, keep, pos, new_n, capacity)
+        ref = gather_compact_plain(datas, valids, keep, pos, new_n, capacity)
+        torch.cuda.synchronize()
+        ok = all(same_bits(gd, rd) and same_bits(gv, rv)
+                 for (gd, gv), (rd, rv) in zip(got, ref))
+        log(f"  compact {name}: kept {int(new_n)}/{capacity} exact="
+            f"{ok} (tol: bit-identical) {'OK' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"gather_compact {name} disagrees with its plain version")
+        return pos, new_n
+
+    # q1's group packing: 16 slots, 6 groups, 2 i32 codes + 7 f64 + 1 i64
+    q1_types = [torch.int32] * 2 + [torch.float64] * 7 + [torch.int64]
+    datas, valids, _ = compact_inputs(16, 1.0, q1_types, gen)
+    keep = torch.zeros(16, dtype=torch.bool, device=DEV)
+    keep[[0, 1, 3, 4, 6, 7]] = True
+    pos, new_n = run_case("q1 (16 slots, 10 columns)", datas, valids, keep, 16)
+    q1 = (datas, valids, keep, pos, new_n)
+    for name, frac in (("all kept", 1.0), ("all dropped", 0.0),
+                       ("half kept", 0.5)):
+        d, v, k = compact_inputs(4096, frac, q1_types, gen)
+        run_case(f"{name} (4096 rows)", d, v, k, 4096)
+    big = 1 << 23
+    bd, bv, bk = compact_inputs(big, 0.98, [torch.float64] * 7, gen)
+    bpos, bnew = run_case("large (2^23 rows x 7 f64, 98% kept)", bd, bv, bk,
+                          big)
+
+    def timings(d, v, k, p, nn, cap):
+        ms = time_ms(lambda: gather_compact(d, v, k, p, nn, cap))
+        plain = time_ms(lambda: gather_compact_plain(d, v, k, p, nn, cap))
+        lib = time_ms(lambda: [t[k] for t in list(d) + list(v)])
+        row_bytes = sum(t.element_size() for t in list(d) + list(v))
+        # every stream, keep and pos read once; every stream written once
+        nbytes = cap * (row_bytes + 1 + 4) + cap * row_bytes
+        bnd, by = bound_ms(nbytes, 0, INT32_OPS_PER_S)
+        return ms, plain, lib, bnd, by, nbytes
+
+    ms, plain, lib, bnd, by, nbytes = timings(*q1, 16)
+    log(f"  compact time at q1 shape: kernel {ms:.4f} ms, plain {plain:.4f} "
+        f"ms, mask indexing {lib:.4f} ms, bound {bnd:.6f} ms ({by})")
+    lms, lplain, llib, lbnd, lby, lbytes = timings(bd, bv, bk, bpos, bnew, big)
+    log(f"  compact time at large shape: kernel {lms:.4f} ms, plain "
+        f"{lplain:.4f} ms, mask indexing {llib:.4f} ms, bound {lbnd:.4f} ms "
+        f"({lby}), {lbytes / lms / 1e6:.1f} GB/s")
+    return {"name": "gather_compact", "max_abs_err": 0.0, "ms": ms,
+            "plain_ms": plain, "bound_ms": bnd, "bound_by": by,
+            "library_ms": lib}
+
+
+def sort_operands(n, nops, hi, gen):
+    return [torch.randint(0, hi, (n,), generator=gen, device=DEV,
+                          dtype=torch.int32) for _ in range(nops)]
+
+
+def packed_key(ops, hi_bits):
+    key = torch.zeros_like(ops[0], dtype=torch.int64)
+    for o in ops:
+        key = (key << hi_bits) | o.to(torch.int64)
+    return key
+
+
+def check_sort(gen) -> dict:
+    from spark_rapids_tpu_torch.kernels.sort import (
+        sort_with_payload,
+        sort_with_payload_plain,
+    )
+    from spark_rapids_tpu_torch.ops.ordering import (
+        comparable_operands,
+        descending_operands,
+    )
+
+    def run_case(name, ops, quiet=False):
+        n = ops[0].shape[0]
+        payload = torch.arange(n, dtype=torch.int32, device=DEV)
+        got = sort_with_payload(ops, payload)
+        ref = sort_with_payload_plain(ops, payload)
+        torch.cuda.synchronize()
+        ok = all(same_bits(g, r) for g, r in zip(got, ref))
+        if not quiet or not ok:
+            log(f"  sort {name}: exact={ok} (tol: bit-identical) "
+                f"{'OK' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"sort_with_payload {name} disagrees with its plain version")
+
+    # q1's ORDER BY: 16 rows, live flag + 2 x (null flag, dictionary code)
+    live = (torch.arange(16, device=DEV) >= 6).to(torch.int32)
+    q1_ops = [live, torch.zeros(16, dtype=torch.int32, device=DEV),
+              torch.randint(0, 3, (16,), generator=gen, device=DEV,
+                            dtype=torch.int32),
+              torch.zeros(16, dtype=torch.int32, device=DEV),
+              torch.randint(0, 2, (16,), generator=gen, device=DEV,
+                            dtype=torch.int32)]
+    run_case("q1 (16 rows, 5 int32 operands)", q1_ops)
+    # edges: f64 sortable words (uint32) with NaN, -0.0, +-inf and ties,
+    # ascending and descending, beside int32 ties
+    f = torch.randn(4096, generator=gen, device=DEV, dtype=torch.float64)
+    f[:6] = torch.tensor([float("nan"), -0.0, 0.0, float("inf"),
+                          float("-inf"), float("nan")], dtype=torch.float64)
+    f[6:2048] = f[:6].repeat(400)[:2042]
+    words = comparable_operands(f)
+    run_case("edges (4096 rows, uint32 f64 words asc+desc, int32 ties)",
+             [sort_operands(4096, 1, 3, gen)[0]] + words
+             + descending_operands(words))
+    # every power of two from 2 to 2^24 (tile boundaries included)
+    for p in range(1, 25):
+        run_case(f"n=2^{p}", sort_operands(1 << p, 2, 7, gen), quiet=True)
+    log("  sort n=2^1..2^24 (2 int32 operands): exact=True (tol: "
+        "bit-identical) OK")
+    big = 1 << 20
+    big_ops = sort_operands(big, 5, 1 << 12, gen)
+    run_case("large (2^20 rows, 5 int32 operands)", big_ops)
+
+    def timings(ops, key_bits):
+        n = ops[0].shape[0]
+        payload = torch.arange(n, dtype=torch.int32, device=DEV)
+        ms = time_ms(lambda: sort_with_payload(ops, payload))
+        plain = time_ms(lambda: sort_with_payload_plain(ops, payload))
+        key = packed_key(ops, key_bits)
+        lib = time_ms(lambda: torch.sort(key, stable=True))
+        narr = len(ops) + 1
+        nbytes = 2 * narr * n * 4
+        ops_needed = n * math.log2(n) * narr
+        bnd, by = bound_ms(nbytes, ops_needed, INT32_OPS_PER_S)
+        return ms, plain, lib, bnd, by
+
+    ms, plain, lib, bnd, by = timings(q1_ops, 2)
+    log(f"  sort time at q1 shape: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
+        f"torch.sort(packed int64) {lib:.4f} ms, bound {bnd:.6f} ms ({by})")
+    lms, lplain, llib, lbnd, lby = timings(big_ops, 12)
+    log(f"  sort time at large shape: kernel {lms:.4f} ms, plain "
+        f"{lplain:.4f} ms, torch.sort(packed int64) {llib:.4f} ms, bound "
+        f"{lbnd:.4f} ms ({lby})")
+    return {"name": "sort_with_payload", "max_abs_err": 0.0, "ms": ms,
+            "plain_ms": plain, "bound_ms": bnd, "bound_by": by,
+            "library_ms": lib}
+
+
+# ---------------------------------------------------------------------------
+# phase 4: q1 end to end
+# ---------------------------------------------------------------------------
+
+def q1_oracle(table):
+    """q1 in plain numpy: rows sorted by (flag, status) with exact counts."""
+    from spark_rapids_tpu_torch.models.tpch import Q1_CUTOFF_DAYS
+    col = {n: c.data for n, c in zip(table.names, table.columns)}
+    m = col["l_shipdate"] <= Q1_CUTOFF_DAYS
+    rf_u, rf_i = np.unique(col["l_returnflag"][m].astype(str),
+                           return_inverse=True)
+    ls_u, ls_i = np.unique(col["l_linestatus"][m].astype(str),
+                           return_inverse=True)
+    g = rf_i * len(ls_u) + ls_i
+    ng = len(rf_u) * len(ls_u)
+    qty, price = col["l_quantity"][m], col["l_extendedprice"][m]
+    disc, tax = col["l_discount"][m], col["l_tax"][m]
+    dp = price * (1.0 - disc)
+    cnt = np.bincount(g, minlength=ng)
+
+    def s(v):
+        return np.bincount(g, weights=v, minlength=ng)
+
+    present = np.nonzero(cnt)[0]
+    n = np.maximum(cnt, 1)
+    cols = {
+        "l_returnflag": rf_u[present // len(ls_u)].astype(object),
+        "l_linestatus": ls_u[present % len(ls_u)].astype(object),
+        "sum_qty": s(qty)[present], "sum_base_price": s(price)[present],
+        "sum_disc_price": s(dp)[present],
+        "sum_charge": s(dp * (1.0 + tax))[present],
+        "avg_qty": (s(qty) / n)[present], "avg_price": (s(price) / n)[present],
+        "avg_disc": (s(disc) / n)[present],
+        "count_order": cnt[present].astype(np.int64),
+    }
+    return cols
+
+
+def check_q1_result(got, oracle) -> None:
+    if list(got.names) != list(oracle):
+        fail(f"q1 columns {got.names}")
+    for name, c in zip(got.names, got.columns):
+        want = oracle[name]
+        if len(c.data) != len(want) or not c.validity.all():
+            fail(f"q1 {name}: {len(c.data)} rows / validity, want "
+                 f"{len(want)} valid rows")
+        if c.data.dtype.kind == "f":
+            if not np.isfinite(c.data).all() or not np.allclose(
+                    c.data, want, rtol=1e-9, atol=0):
+                fail(f"q1 {name}: {c.data} vs oracle {want} (rtol 1e-9)")
+        elif not (c.data == want).all() or c.data.dtype != want.dtype:
+            fail(f"q1 {name}: {c.data} vs oracle {want} (exact)")
+
+
+def run_q1(rows: int, profile_dir) -> dict:
+    from spark_rapids_tpu_torch import kernels as K
+    from spark_rapids_tpu_torch.models.tpch import lineitem_table, q1_dataframe
+    from spark_rapids_tpu_torch.session import TorchSession
+
+    t0 = time.perf_counter()
+    table = lineitem_table(rows, seed=0)
+    log(f"  generated {rows} lineitem rows in "
+        f"{time.perf_counter() - t0:.2f} s (host)")
+    oracle = q1_oracle(table)
+    session = TorchSession()
+    if session.device.type != DEV.type:
+        fail(f"session device {session.device}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    got = q1_dataframe(session, table).collect_table()
+    torch.cuda.synchronize()
+    cold = time.perf_counter() - t0
+    launches = K.launch_counts()
+    log(f"  q1 launches during the query: {launches}")
+    for name, n in launches.items():
+        if n < 1:
+            fail(f"q1 did not launch {name}")
+    check_q1_result(got, oracle)
+    log(f"  q1 result matches the numpy oracle ({got.num_rows} groups; keys "
+        "and counts exact, floats rtol 1e-9)")
+
+    warm = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        again = q1_dataframe(session, table).collect_table()
+        torch.cuda.synchronize()
+        warm.append(time.perf_counter() - t0)
+        check_q1_result(again, oracle)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  q1 at {rows} rows: cold {cold * 1e3:.1f} ms (host dictionary "
+        f"encoding + upload included), warm median "
+        f"{statistics.median(warm) * 1e3:.2f} ms (scan cache hit; runs "
+        f"{[round(w * 1e3, 2) for w in warm]}), peak device memory "
+        f"{peak / 2**30:.2f} GiB")
+    if profile_dir:
+        profile_q1(session, table, profile_dir)
+    return launches
+
+
+def profile_q1(session, table, out_dir) -> None:
+    from torch.profiler import ProfilerActivity, profile
+    from spark_rapids_tpu_torch.models.tpch import q1_dataframe
+    os.makedirs(out_dir, exist_ok=True)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        q1_dataframe(session, table).collect_table()
+        torch.cuda.synchronize()
+    table_txt = prof.key_averages().table(sort_by="cuda_time_total",
+                                          row_limit=40)
+    with open(os.path.join(out_dir, "q1_profile.txt"), "w") as f:
+        f.write(table_txt)
+    prof.export_chrome_trace(os.path.join(out_dir, "q1_trace.json"))
+    log("  profile of one warm q1 run (top by device time):")
+    for line in table_txt.splitlines()[:25]:
+        log("    " + line)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--rows", type=int, default=6_001_215,
+                    help="lineitem rows for q1 (default: TPC-H SF 1)")
+    ap.add_argument("--profile", default=None,
+                    help="directory for a torch.profiler table and trace of "
+                         "one warm q1 run")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device: this script runs on the card",
+              file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from spark_rapids_tpu_torch.columnar import bucket_for
+    from spark_rapids_tpu_torch.kernels.build import build
+
+    log("phase 1: the card")
+    card = card_line()
+    cap = torch.cuda.get_device_capability(0)
+    log(f"  {card}")
+    log(f"  torch {torch.__version__} cuda {torch.version.cuda} "
+        f"capability {cap} devices {torch.cuda.device_count()}")
+    if cap != (9, 0):
+        fail(f"compute capability {cap}, want (9, 0)")
+
+    log("phase 2: build the kernels")
+    t0 = time.perf_counter()
+    reports = build()
+    log(f"  built {sorted(reports)} in {time.perf_counter() - t0:.1f} s")
+    for name, rep in reports.items():
+        for line in rep.splitlines():
+            if "registers" in line or "spill" in line or "error" in line:
+                log(f"    {name}: {line.strip()}")
+
+    log("phase 3: kernels against their plain versions")
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(0)
+    capacity = bucket_for(args.rows)
+    rows = [check_segreduce(capacity, args.rows, gen), check_compact(gen),
+            check_sort(gen)]
+
+    log("phase 4: TPC-H q1 through TorchSession")
+    launches = run_q1(args.rows, args.profile)
+
+    for r in rows:
+        r.update(route="cuda", source=SOURCES[r["name"]],
+                 replaces=TPU_KERNELS[r["name"]],
+                 launches=launches[r["name"]])
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
+    print(card_line())
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

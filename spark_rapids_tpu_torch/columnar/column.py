@@ -1,0 +1,196 @@
+"""Host and device column representations (port of
+``spark_rapids_tpu/columnar/column.py``).
+
+Device columns are torch tensors padded to a power-of-two capacity bucket;
+the live row count rides beside them. Strings are dictionary encoded per
+column with a SORTED dictionary, so int32 code order is Spark's UTF-8 byte
+order; the dictionary stays on the host.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from spark_rapids_tpu_torch import types as T
+from spark_rapids_tpu_torch.errors import ColumnarProcessingError
+
+#: smallest capacity bucket (the reference's TPU lane width; kept so both
+#: packages pad a batch to the same capacity)
+MIN_BUCKET = 128
+
+
+class BucketPolicy:
+    """Capacity buckets: powers of two from ``min_bucket``. Every device
+    batch's capacity is drawn from this set; the port's kernels take
+    power-of-two capacities, so the reference's 'pow4' and explicit-list
+    policies (``spark.rapids.sql.shapeBuckets``) are not offered."""
+
+    __slots__ = ("min_bucket",)
+
+    def __init__(self, min_bucket: int = MIN_BUCKET):
+        self.min_bucket = int(min_bucket)
+        if (self.min_bucket < 1 or self.min_bucket % MIN_BUCKET
+                or self.min_bucket & (self.min_bucket - 1)):
+            raise ColumnarProcessingError(
+                f"spark.rapids.sql.shapeBuckets.minBucket must be a power of "
+                f"two multiple of {MIN_BUCKET}, got {min_bucket}")
+
+    def bucket_for(self, n: int) -> int:
+        """Smallest bucket >= n (and >= the min bucket)."""
+        b = self.min_bucket
+        while b < n:
+            b *= 2
+        return b
+
+
+_DEFAULT_POLICY = BucketPolicy()
+
+
+def bucket_for(n: int) -> int:
+    """Smallest default-policy bucket >= n."""
+    return _DEFAULT_POLICY.bucket_for(n)
+
+
+def encode_sorted_dict(values: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """Order-preserving dictionary encode of an object array of str.
+    Returns (codes int32, sorted-unique dictionary object array). Python
+    str order is code-point order, which is UTF-8 byte order (Spark's
+    UTF8String.compareTo), so sorting the distinct keys gives the same
+    dictionary as the reference's encoder."""
+    n = len(values)
+    if n == 0:
+        return np.zeros(0, dtype=np.int32), np.array([], dtype=object)
+    table: dict = {}
+    setd = table.setdefault
+    raw = np.fromiter((setd(s, len(table)) for s in values),
+                      dtype=np.int32, count=n)
+    keys = np.fromiter(table.keys(), dtype=object, count=len(table))
+    order = np.argsort(keys)
+    rank = np.empty(len(keys), dtype=np.int32)
+    rank[order] = np.arange(len(keys), dtype=np.int32)
+    dictionary = np.empty(len(keys), dtype=object)
+    dictionary[rank] = keys
+    return rank[raw], dictionary
+
+
+class HostColumn:
+    """A column on the host: numpy values + validity mask. STRING data is
+    an object array of str (None allowed at invalid slots); everything
+    else holds the Spark internal representation (see types.py)."""
+
+    __slots__ = ("dtype", "data", "validity", "_cache")
+
+    def __init__(self, dtype: T.DataType, data: np.ndarray,
+                 validity: Optional[np.ndarray] = None):
+        self.dtype = dtype
+        self.data = data
+        if validity is None:
+            validity = np.ones(len(data), dtype=np.bool_)
+        self.validity = validity
+        self._cache = {}
+        if len(data) != len(validity):
+            raise ColumnarProcessingError("data/validity length mismatch")
+
+    def __len__(self) -> int:
+        return len(self.data)
+
+    def slice(self, start: int, length: int) -> "HostColumn":
+        return HostColumn(self.dtype, self.data[start:start + length],
+                          self.validity[start:start + length])
+
+    def encoded(self) -> Tuple[np.ndarray, np.ndarray]:
+        """(codes, dictionary) of a STRING column, computed once."""
+        got = self._cache.get("encode")
+        if got is None:
+            vals = np.where(self.validity, self.data, "")
+            got = encode_sorted_dict(np.asarray(vals, dtype=object))
+            self._cache["encode"] = got
+        return got
+
+    def to_pylist(self):
+        return [(v.item() if isinstance(v, np.generic) else v) if ok else None
+                for v, ok in zip(self.data, self.validity)]
+
+
+class DeviceColumn:
+    """A column on a torch device.
+
+    ``data``      : tensor of length ``capacity`` (the padded bucket)
+    ``validity``  : bool tensor, True = valid; the padding is False at upload
+    ``dictionary``: for STRING, the host object array such that row i's
+                    value is dictionary[data[i]]; with ``dict_sorted`` the
+                    dictionary is sorted-unique, so code order is string
+                    order.
+    """
+
+    __slots__ = ("dtype", "data", "validity", "dictionary", "dict_sorted")
+
+    def __init__(self, dtype: T.DataType, data: torch.Tensor,
+                 validity: torch.Tensor,
+                 dictionary: Optional[np.ndarray] = None,
+                 dict_sorted: bool = True):
+        self.dtype = dtype
+        self.data = data
+        self.validity = validity
+        self.dictionary = dictionary
+        self.dict_sorted = dict_sorted
+
+    @property
+    def capacity(self) -> int:
+        return int(self.validity.shape[0])
+
+    @staticmethod
+    def from_host(host: HostColumn, capacity: int,
+                  device: torch.device) -> "DeviceColumn":
+        n = len(host)
+        if capacity < n:
+            raise ColumnarProcessingError(f"capacity {capacity} < rows {n}")
+        if isinstance(host.dtype, (T.ArrayType, T.StructType, T.MapType,
+                                   T.DecimalType, T.NullType)):
+            raise NotImplementedError(
+                f"upload of {host.dtype.simple_string()} columns is not "
+                "ported")
+        validity = np.zeros(capacity, dtype=np.bool_)
+        validity[:n] = host.validity
+        dictionary = None
+        if isinstance(host.dtype, T.StringType):
+            codes, dictionary = host.encoded()
+            data = np.zeros(capacity, dtype=np.int32)
+            data[:n] = codes
+        else:
+            data = np.zeros(capacity, dtype=host.dtype.np_dtype)
+            data[:n] = host.data
+        return DeviceColumn(host.dtype, torch.from_numpy(data).to(device),
+                            torch.from_numpy(validity).to(device),
+                            dictionary=dictionary, dict_sorted=True)
+
+    def decode_host(self, data: np.ndarray, validity: np.ndarray) -> HostColumn:
+        """The logical HostColumn from downloaded raw arrays."""
+        if isinstance(self.dtype, T.StringType):
+            if self.dictionary is None:
+                raise ColumnarProcessingError("string column missing "
+                                              "dictionary")
+            # padding/invalid slots may hold arbitrary codes
+            codes = np.clip(data, 0, max(len(self.dictionary) - 1, 0))
+            vals = np.empty(len(data), dtype=object)
+            if len(self.dictionary):
+                vals[:] = self.dictionary[codes]
+            vals[~validity] = None
+            return HostColumn(self.dtype, vals, validity)
+        arr = np.ascontiguousarray(data)
+        if arr.dtype != self.dtype.np_dtype:
+            arr = arr.astype(self.dtype.np_dtype)
+        return HostColumn(self.dtype, arr, validity)
+
+    def to_host(self, num_rows: int) -> HostColumn:
+        data = self.data[:num_rows].cpu().numpy()
+        validity = np.ascontiguousarray(self.validity[:num_rows].cpu().numpy())
+        return self.decode_host(data, validity)
+
+    def with_arrays(self, data: torch.Tensor,
+                    validity: torch.Tensor) -> "DeviceColumn":
+        return DeviceColumn(self.dtype, data, validity, self.dictionary,
+                            self.dict_sorted)

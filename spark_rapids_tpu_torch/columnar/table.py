@@ -1,0 +1,126 @@
+"""Host and device tables (port of ``spark_rapids_tpu/columnar/table.py``).
+
+A DeviceTable is the unit that flows between execs: named device columns
+padded to one capacity bucket, with the live row count as a 0-d int32
+tensor on the device (``nrows_dev``, read on the host only when needed).
+A MASKED table (``live`` set) keeps its live rows at their original slots;
+``compacted()`` packs them into the prefix through the compaction kernel.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from spark_rapids_tpu_torch import types as T
+from spark_rapids_tpu_torch.columnar.column import (
+    DeviceColumn,
+    HostColumn,
+    bucket_for,
+)
+from spark_rapids_tpu_torch.errors import ColumnarProcessingError
+
+
+class HostTable:
+    """Named host columns with a shared row count. ``_cache`` holds derived
+    artifacts, notably the uploaded device image (execs/basic.TpuScanExec)."""
+
+    __slots__ = ("names", "columns", "_cache")
+
+    def __init__(self, names: Sequence[str], columns: Sequence[HostColumn]):
+        self.names: Tuple[str, ...] = tuple(names)
+        self.columns: Tuple[HostColumn, ...] = tuple(columns)
+        self._cache = {}
+        if len(self.names) != len(self.columns):
+            raise ColumnarProcessingError("names/columns mismatch")
+        lens = {len(c) for c in self.columns}
+        if len(lens) > 1:
+            raise ColumnarProcessingError(f"ragged columns: {lens}")
+
+    @property
+    def num_rows(self) -> int:
+        return len(self.columns[0]) if self.columns else 0
+
+    def schema(self) -> List[Tuple[str, T.DataType]]:
+        return [(n, c.dtype) for n, c in zip(self.names, self.columns)]
+
+    def slice(self, start: int, length: int) -> "HostTable":
+        return HostTable(self.names,
+                         [c.slice(start, length) for c in self.columns])
+
+    def to_arrays(self):
+        """(names, type names, [(data, validity)...]) as plain numpy — the
+        form interop.host_table_from_arrays takes back."""
+        return (list(self.names),
+                [c.dtype.simple_string() for c in self.columns],
+                [(c.data, c.validity) for c in self.columns])
+
+
+class DeviceTable:
+    """Named device columns padded to a common capacity bucket.
+
+    ``nrows`` may be a host int or a 0-d int32 tensor on the device;
+    ``num_rows`` reads it on the host (a sync for a device count)."""
+
+    __slots__ = ("names", "columns", "nrows_dev", "_nrows_host", "capacity",
+                 "live", "device")
+
+    def __init__(self, names: Sequence[str], columns: Sequence[DeviceColumn],
+                 nrows, capacity: int, device: torch.device, live=None):
+        self.names: Tuple[str, ...] = tuple(names)
+        self.columns: Tuple[DeviceColumn, ...] = tuple(columns)
+        self.live = live
+        self.device = torch.device(device)
+        caps = {c.capacity for c in self.columns}
+        if len(caps) > 1:
+            raise ColumnarProcessingError(f"ragged capacities {caps}")
+        self.capacity = caps.pop() if caps else int(capacity)
+        if isinstance(nrows, (int, np.integer)):
+            self._nrows_host: Optional[int] = int(nrows)
+            self.nrows_dev = torch.tensor(int(nrows), dtype=torch.int32,
+                                          device=self.device)
+        else:
+            self._nrows_host = None
+            self.nrows_dev = nrows
+
+    @property
+    def num_rows(self) -> int:
+        if self._nrows_host is None:
+            self._nrows_host = int(self.nrows_dev.item())
+        return self._nrows_host
+
+    @staticmethod
+    def from_host(host: HostTable, device: torch.device,
+                  capacity: Optional[int] = None) -> "DeviceTable":
+        cap = capacity or bucket_for(host.num_rows)
+        cols = [DeviceColumn.from_host(c, cap, device) for c in host.columns]
+        return DeviceTable(host.names, cols, host.num_rows, cap, device)
+
+    def row_mask(self) -> torch.Tensor:
+        """Bool mask of live rows (no host sync)."""
+        if self.live is not None:
+            return self.live
+        return torch.arange(self.capacity, dtype=torch.int32,
+                            device=self.device) < self.nrows_dev
+
+    def compacted(self) -> "DeviceTable":
+        """Prefix form: live rows moved to [0, nrows) in their order. A
+        prefix table returns itself."""
+        if self.live is None:
+            return self
+        from spark_rapids_tpu_torch.ops.scatter32 import compact_pairs
+        outs, new_n = compact_pairs([c.data for c in self.columns],
+                                    [c.validity for c in self.columns],
+                                    self.live, self.capacity)
+        cols = [c.with_arrays(d, v) for c, (d, v) in zip(self.columns, outs)]
+        out = DeviceTable(self.names, cols, new_n, self.capacity, self.device)
+        out._nrows_host = self._nrows_host
+        return out
+
+    def to_host(self) -> HostTable:
+        if self.live is not None:
+            return self.compacted().to_host()
+        n = self.num_rows
+        return HostTable(self.names, [c.to_host(n) for c in self.columns])

@@ -1,0 +1,44 @@
+"""Exec base (port of ``spark_rapids_tpu/execs/base.py``).
+
+Two output protocols, as in the reference: ``execute()`` always yields
+PREFIX tables (live rows at [0, nrows)); ``execute_masked()`` may yield
+MASKED tables (liveness as a device bool mask), letting mask-aware
+consumers skip the compaction. An exec implements one of the two; the
+defaults tie them together."""
+
+from __future__ import annotations
+
+from typing import Iterator, Tuple
+
+from spark_rapids_tpu_torch.columnar import DeviceTable
+
+
+class TpuExec:
+    """Base of device operators. ``execute`` yields DeviceTable batches."""
+
+    children: Tuple["TpuExec", ...] = ()
+
+    #: set by mask-producing execs that implement execute_masked directly
+    produces_masked = False
+
+    def output_schema(self):
+        raise NotImplementedError
+
+    def execute(self) -> Iterator[DeviceTable]:
+        if not self.produces_masked:
+            raise NotImplementedError
+        for b in self.execute_masked():
+            yield b.compacted()
+
+    def execute_masked(self) -> Iterator[DeviceTable]:
+        return self.execute()
+
+
+def single_batch(batches: Iterator[DeviceTable], what: str):
+    """The one batch of ``batches`` (None when there is none). The port
+    has no multi-batch merge yet: a second batch raises."""
+    first = next(batches, None)
+    if first is not None and next(batches, None) is not None:
+        raise NotImplementedError(f"{what} over more than one input batch "
+                                  "is not ported")
+    return first

@@ -1,0 +1,366 @@
+"""Expression base classes and the device evaluation walk (port of
+``spark_rapids_tpu/ops/expr.py``).
+
+Evaluation is two walks over a bound expression tree, as in the reference:
+a host-side prep walk (``_walk_prep``, one :class:`NodePrep` per node in
+post-order: string dictionaries) and a device walk (``_walk_eval``)
+that consumes the preps in the same order. PyTorch runs eagerly, so there
+is no trace cache: the device walk runs the tensor ops directly.
+
+Operators the port has not ported raise NotImplementedError naming the
+operator, never a wrong answer.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Iterator, List, NamedTuple, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from spark_rapids_tpu_torch import types as T
+from spark_rapids_tpu_torch.columnar import DeviceColumn, DeviceTable
+from spark_rapids_tpu_torch.errors import ColumnarProcessingError
+
+
+class DevVal(NamedTuple):
+    """An intermediate on the device: data tensor + validity (bool)."""
+
+    data: torch.Tensor
+    validity: torch.Tensor
+
+
+@dataclass
+class NodePrep:
+    """Host-side per-batch preparation result for one expression node
+    (the reference also registers aux device arrays here; no ported
+    expression needs one)."""
+
+    out_dict: Optional[np.ndarray] = None  # dictionary if output is STRING
+    dict_sorted: bool = True
+
+
+class PrepCtx:
+    """Context of the host prep walk over one table."""
+
+    def __init__(self, table: DeviceTable):
+        self.table = table
+
+
+class EvalCtx:
+    """Device-side context handed to eval_dev. ``live`` carries a masked
+    batch's liveness (DeviceTable.live)."""
+
+    def __init__(self, cols: Sequence[DevVal], nrows: torch.Tensor,
+                 capacity: int, device: torch.device, live=None):
+        self.cols = tuple(cols)
+        self.nrows = nrows
+        self.capacity = capacity
+        self.device = device
+        self.live = live
+        self._prep_iter: Optional[Iterator[NodePrep]] = None
+
+    def next_prep(self) -> NodePrep:
+        return next(self._prep_iter)  # type: ignore[arg-type]
+
+
+def _not_ported(what: str):
+    raise NotImplementedError(f"{what} is not ported to "
+                              "spark_rapids_tpu_torch yet")
+
+
+class Expression:
+    """Base expression. Subclasses set ``children`` and implement
+    ``data_type``, ``with_children`` and ``eval_dev``. Expressions are
+    immutable; ``with_children`` rebuilds."""
+
+    children: Tuple["Expression", ...] = ()
+
+    @property
+    def data_type(self) -> T.DataType:
+        raise NotImplementedError(type(self).__name__)
+
+    @property
+    def name(self) -> str:
+        return type(self).__name__
+
+    def with_children(self, children: Sequence["Expression"]) -> "Expression":
+        raise NotImplementedError(type(self).__name__)
+
+    def __repr__(self):
+        args = ", ".join(repr(c) for c in self.children)
+        return f"{self.name}({args})"
+
+    # --- binding -----------------------------------------------------------
+    def bind(self, schema: Sequence[Tuple[str, T.DataType]]) -> "Expression":
+        bound = [c.bind(schema) for c in self.children]
+        return self.resolve(bound)
+
+    def resolve(self, bound_children: Sequence["Expression"]) -> "Expression":
+        """Hook for type checks and coercion; default rebuilds."""
+        return self.with_children(bound_children)
+
+    # --- device path -------------------------------------------------------
+    def prep(self, pctx: PrepCtx, child_preps: Sequence[NodePrep]) -> NodePrep:
+        return NodePrep()
+
+    def eval_dev(self, ctx: EvalCtx, child_vals: Sequence[DevVal],
+                 prep: NodePrep) -> DevVal:
+        _not_ported(f"{self.name} on the device")
+
+    # --- operator sugar for the DataFrame API ------------------------------
+    def _bin(self, opcls, other, reflect=False):
+        other = other if isinstance(other, Expression) else Literal(other)
+        return opcls(other, self) if reflect else opcls(self, other)
+
+    def __add__(self, o):
+        from spark_rapids_tpu_torch.ops.arithmetic import Add
+        return self._bin(Add, o)
+
+    def __radd__(self, o):
+        from spark_rapids_tpu_torch.ops.arithmetic import Add
+        return self._bin(Add, o, True)
+
+    def __sub__(self, o):
+        from spark_rapids_tpu_torch.ops.arithmetic import Subtract
+        return self._bin(Subtract, o)
+
+    def __rsub__(self, o):
+        from spark_rapids_tpu_torch.ops.arithmetic import Subtract
+        return self._bin(Subtract, o, True)
+
+    def __mul__(self, o):
+        from spark_rapids_tpu_torch.ops.arithmetic import Multiply
+        return self._bin(Multiply, o)
+
+    def __rmul__(self, o):
+        from spark_rapids_tpu_torch.ops.arithmetic import Multiply
+        return self._bin(Multiply, o, True)
+
+    def __truediv__(self, o):
+        from spark_rapids_tpu_torch.ops.arithmetic import Divide
+        return self._bin(Divide, o)
+
+    def __le__(self, o):
+        from spark_rapids_tpu_torch.ops.predicates import LessThanOrEqual
+        return self._bin(LessThanOrEqual, o)
+
+    # operators of the reference that the port has not ported: raising
+    # here keeps `col(a) == lit(1)` from silently becoming a Python bool
+    def __eq__(self, o):  # type: ignore[override]
+        _not_ported("EqualTo")
+
+    def __ne__(self, o):  # type: ignore[override]
+        _not_ported("Not(EqualTo)")
+
+    def __lt__(self, o):
+        _not_ported("LessThan")
+
+    def __gt__(self, o):
+        _not_ported("GreaterThan")
+
+    def __ge__(self, o):
+        _not_ported("GreaterThanOrEqual")
+
+    def __and__(self, o):
+        _not_ported("And")
+
+    def __or__(self, o):
+        _not_ported("Or")
+
+    def __invert__(self):
+        _not_ported("Not")
+
+    def __neg__(self):
+        _not_ported("UnaryMinus")
+
+    def __mod__(self, o):
+        _not_ported("Remainder")
+
+    def alias(self, name: str) -> "Alias":
+        return Alias(self, name)
+
+    def cast(self, dtype) -> "Expression":
+        _not_ported("Cast")
+
+
+class AttributeReference(Expression):
+    """Unresolved column-by-name (pre-binding)."""
+
+    def __init__(self, col_name: str):
+        self.col_name = col_name
+
+    @property
+    def name(self):
+        return f"'{self.col_name}"
+
+    @property
+    def data_type(self):
+        raise ColumnarProcessingError(f"unresolved attribute {self.col_name}")
+
+    def bind(self, schema):
+        for i, (n, dt) in enumerate(schema):
+            if n == self.col_name:
+                return BoundReference(i, dt, name_hint=self.col_name)
+        raise ColumnarProcessingError(
+            f"column {self.col_name!r} not in {[n for n, _ in schema]}")
+
+    def __repr__(self):
+        return f"col({self.col_name!r})"
+
+
+class BoundReference(Expression):
+    """Input column by ordinal (post-binding)."""
+
+    def __init__(self, ordinal: int, dtype: T.DataType, name_hint: str = ""):
+        self.ordinal = ordinal
+        self._dtype = dtype
+        self.name_hint = name_hint
+
+    @property
+    def data_type(self):
+        return self._dtype
+
+    def with_children(self, children):
+        return self
+
+    def prep(self, pctx: PrepCtx, child_preps) -> NodePrep:
+        c = pctx.table.columns[self.ordinal]
+        return NodePrep(out_dict=c.dictionary, dict_sorted=c.dict_sorted)
+
+    def eval_dev(self, ctx: EvalCtx, child_vals, prep) -> DevVal:
+        return ctx.cols[self.ordinal]
+
+    def __repr__(self):
+        return f"#{self.ordinal}:{self._dtype}"
+
+
+class Literal(Expression):
+    def __init__(self, value, dtype: Optional[T.DataType] = None):
+        self._dtype = dtype if dtype is not None else T.python_to_spark_type(value)
+        import datetime as _dt
+        if isinstance(value, _dt.datetime):
+            _not_ported("TIMESTAMP literal")
+        if isinstance(value, _dt.date):
+            value = (value - _dt.date(1970, 1, 1)).days
+        self.value = value
+
+    @property
+    def data_type(self):
+        return self._dtype
+
+    def with_children(self, children):
+        return self
+
+    def eval_dev(self, ctx: EvalCtx, child_vals, prep) -> DevVal:
+        if not isinstance(self._dtype, (T.NumericType, T.DateType,
+                                        T.BooleanType)) or isinstance(
+                self._dtype, T.DecimalType):
+            _not_ported(f"{self._dtype.simple_string()} literal")
+        fill = self.value if self.value is not None else 0
+        data = torch.full((ctx.capacity,), fill,
+                          dtype=T.torch_dtype(self._dtype), device=ctx.device)
+        validity = torch.full((ctx.capacity,), self.value is not None,
+                              dtype=torch.bool, device=ctx.device)
+        return DevVal(data, validity)
+
+    def __repr__(self):
+        return f"lit({self.value!r})"
+
+
+class Alias(Expression):
+    def __init__(self, child: Expression, out_name: str):
+        self.children = (child,)
+        self.out_name = out_name
+
+    @property
+    def data_type(self):
+        return self.children[0].data_type
+
+    def with_children(self, children):
+        return Alias(children[0], self.out_name)
+
+    def prep(self, pctx, child_preps):
+        return child_preps[0]
+
+    def eval_dev(self, ctx, child_vals, prep):
+        return child_vals[0]
+
+    def __repr__(self):
+        return f"{self.children[0]!r} AS {self.out_name}"
+
+
+def col(name: str) -> AttributeReference:
+    return AttributeReference(name)
+
+
+def lit(value, dtype: Optional[T.DataType] = None) -> Literal:
+    return Literal(value, dtype)
+
+
+def output_name(expr: Expression, default: str) -> str:
+    if isinstance(expr, Alias):
+        return expr.out_name
+    if isinstance(expr, AttributeReference):
+        return expr.col_name
+    if isinstance(expr, BoundReference) and expr.name_hint:
+        return expr.name_hint
+    return default
+
+
+def bind(expr: Expression, schema: Sequence[Tuple[str, T.DataType]]) -> Expression:
+    return expr.bind(schema)
+
+
+# ---------------------------------------------------------------------------
+# Evaluation walks
+# ---------------------------------------------------------------------------
+
+def _walk_prep(expr: Expression, pctx: PrepCtx, out: List[NodePrep]) -> NodePrep:
+    child_preps = [_walk_prep(c, pctx, out) for c in expr.children]
+    p = expr.prep(pctx, child_preps)
+    out.append(p)
+    return p
+
+
+def _walk_eval(expr: Expression, ctx: EvalCtx) -> DevVal:
+    child_vals = [_walk_eval(c, ctx) for c in expr.children]
+    p = ctx.next_prep()
+    return expr.eval_dev(ctx, child_vals, p)
+
+
+def table_vals(table: DeviceTable) -> Tuple[DevVal, ...]:
+    return tuple(DevVal(c.data, c.validity) for c in table.columns)
+
+
+def prep_expr(expr: Expression, pctx: PrepCtx) -> List[NodePrep]:
+    """The host prep walk of ``expr``: one NodePrep per node, post-order."""
+    preps: List[NodePrep] = []
+    _walk_prep(expr, pctx, preps)
+    return preps
+
+
+def eval_expr(expr: Expression, preps: List[NodePrep], cols, nrows,
+              capacity: int, device, live=None) -> DevVal:
+    """One device walk of ``expr`` over prepared ``preps``."""
+    ctx = EvalCtx(cols, nrows, capacity, device, live=live)
+    ctx._prep_iter = iter(preps)
+    return _walk_eval(expr, ctx)
+
+
+def compile_project(exprs: Sequence[Expression],
+                    table: DeviceTable) -> List[DeviceColumn]:
+    """Evaluate bound expressions over a device table into device columns
+    (the reference jits and caches this; eager torch just runs it)."""
+    pctx = PrepCtx(table)
+    all_preps = [prep_expr(e, pctx) for e in exprs]
+    cols = table_vals(table)
+    out = []
+    for e, preps in zip(exprs, all_preps):
+        dv = eval_expr(e, preps, cols, table.nrows_dev, table.capacity,
+                       table.device, live=table.live)
+        out.append(DeviceColumn(e.data_type, dv.data, dv.validity,
+                                dictionary=preps[-1].out_dict,
+                                dict_sorted=preps[-1].dict_sorted))
+    return out

@@ -1,0 +1,115 @@
+"""Import hygiene and device rules of the PyTorch port
+(spark_rapids_tpu_torch): it imports neither JAX nor the JAX package,
+never runs on the CPU unless asked, and raises NotImplementedError for
+what it has not ported instead of answering wrongly."""
+
+import ast
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import spark_rapids_tpu_torch
+from spark_rapids_tpu_torch.columnar import HostColumn, HostTable
+from spark_rapids_tpu_torch.session import TorchSession
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+PORT = ROOT / "spark_rapids_tpu_torch"
+
+
+def _port_files():
+    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+def _forbidden(mod: str) -> bool:
+    top = mod.split(".")[0]
+    return top in ("jax", "jaxlib", "spark_rapids_tpu")
+
+
+@pytest.mark.parametrize("path", _port_files(),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_reference_import(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    bad = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            bad += [a.name for a in node.names if _forbidden(a.name)]
+        elif isinstance(node, ast.ImportFrom) and node.module and \
+                node.level == 0 and _forbidden(node.module):
+            bad.append(node.module)
+    assert not bad, f"{path.name} imports {bad}"
+
+
+def test_every_module_imports_without_jax():
+    code = (
+        "import sys, pkgutil, importlib\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['spark_rapids_tpu'] = None\n"
+        "import spark_rapids_tpu_torch as p\n"
+        "names = [m.name for m in pkgutil.walk_packages(p.__path__, "
+        "'spark_rapids_tpu_torch.')]\n"
+        "for n in names: importlib.import_module(n)\n"
+        "import chip_smoke\n"
+        "assert not [m for m in sys.modules if m.startswith('jax')"
+        " and sys.modules[m] is not None]\n"
+        "print(len(names))\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.strip().splitlines()[-1]) >= 25
+
+
+def test_session_without_cuda_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TorchSession()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        TorchSession(device="cuda")
+    with pytest.raises(RuntimeError):
+        spark_rapids_tpu_torch.default_device()
+    assert TorchSession(device="cpu").device.type == "cpu"
+
+
+def test_kernel_wrappers_refuse_non_cuda_devices():
+    """A wrapper takes its plain version only for CPU tensors; any other
+    device must launch the kernel or raise (here: raise)."""
+    from spark_rapids_tpu_torch.kernels.compact import gather_compact
+    from spark_rapids_tpu_torch.kernels.segreduce import onehot_partials
+    from spark_rapids_tpu_torch.kernels.sort import sort_with_payload
+    meta = torch.device("meta")
+    x = torch.zeros((128, 2), dtype=torch.float64, device=meta)
+    gid = torch.zeros(128, dtype=torch.int32, device=meta)
+    with pytest.raises(RuntimeError, match="CUDA or CPU"):
+        onehot_partials(x, gid, 8, 1, 128)
+    keep = torch.zeros(128, dtype=torch.bool, device=meta)
+    with pytest.raises(RuntimeError, match="CUDA or CPU"):
+        gather_compact([gid], [keep], keep, gid,
+                       torch.zeros((), dtype=torch.int32, device=meta), 128)
+    with pytest.raises(RuntimeError, match="CUDA or CPU"):
+        sort_with_payload([gid], gid)
+
+
+def test_unported_pieces_raise_not_implemented():
+    from spark_rapids_tpu_torch import functions as F
+    from spark_rapids_tpu_torch.conf import RapidsConf
+    from spark_rapids_tpu_torch.ops.expr import col, lit
+    from spark_rapids_tpu_torch.plan import from_host_table
+    with pytest.raises(NotImplementedError, match="EqualTo"):
+        col("a") == lit(1)  # noqa: B015
+    with pytest.raises(NotImplementedError, match="conf keys"):
+        RapidsConf({"spark.rapids.sql.enabled": "false"})
+    s = TorchSession(device="cpu")
+    t = HostTable(["k", "v"], [
+        HostColumn(spark_rapids_tpu_torch.types.LONG,
+                   np.arange(10, dtype=np.int64)),
+        HostColumn(spark_rapids_tpu_torch.types.DOUBLE, np.ones(10))])
+    df = from_host_table(t, s)
+    with pytest.raises(NotImplementedError, match="sort-segment"):
+        df.group_by("k").agg(F.sum(col("v"))).collect_table()
+    with pytest.raises(NotImplementedError, match="Sum"):
+        df.group_by("k").agg(F.sum(col("k"))).collect_table()
+    with pytest.raises(NotImplementedError, match="double arithmetic"):
+        df.select((col("k") + col("v")).alias("x"))
