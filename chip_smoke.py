@@ -8,17 +8,24 @@ Phases, in order; any failure exits non-zero:
    capability (must be 9.0, an H100);
 2. build the CUDA kernels from ``spark_rapids_tpu_torch/kernels/csrc``;
 3. each kernel against its plain torch version on the card, at the shapes
-   q1 gives it, at one large shape and on edge inputs, with times (CUDA
+   q1 and q3 give it, at one large shape and on edge inputs, with times (CUDA
    events, warm median) beside the least time the card could take and
    one PyTorch library call computing the same function;
 4. TPC-H q1 end to end through ``TorchSession`` at ``--rows`` lineitem rows
    (default 6,001,215 = TPC-H SF 1), checked against a numpy oracle, with
    every kernel's launch counter read around the query;
-5. the summary lines: one ``{"kernels": [...]}`` JSON line, the card line,
+5. TPC-H q3 end to end at the same lineitem rows, in two data forms: the
+   dense keys of models/tpch.py (direct-address joins) and the same tables
+   with their keys mapped to a sparse 40-bit range (hash-probe joins,
+   after a replay), the latter with 4 (the default) and with 8 hash-probe
+   attempts; cold and warm times, replays, peak memory and every kernel's
+   launches in one warm run, each result against a numpy oracle;
+6. the summary lines: one ``{"kernels": [...]}`` JSON line, the card line,
    and last ``{"ok": true, "device": {...}}``.
 
 It needs one CUDA card and exits non-zero without one. ``--profile DIR``
-also writes a torch.profiler table and trace of one warm q1 run.
+also writes a torch.profiler table and trace of one warm run of q1 and of
+each q3 form.
 """
 
 from __future__ import annotations
@@ -49,11 +56,13 @@ TPU_KERNELS = {
     "onehot_partials": "spark_rapids_tpu/kernels/segreduce.py:145",
     "gather_compact": "spark_rapids_tpu/kernels/compact.py:112",
     "sort_with_payload": "spark_rapids_tpu/kernels/sort.py:84",
+    "probe_rowids": "spark_rapids_tpu/kernels/hashprobe.py:139",
 }
 SOURCES = {
     "onehot_partials": "spark_rapids_tpu_torch/kernels/csrc/segreduce.cu",
     "gather_compact": "spark_rapids_tpu_torch/kernels/csrc/compact.cu",
     "sort_with_payload": "spark_rapids_tpu_torch/kernels/csrc/sort.cu",
+    "probe_rowids": "spark_rapids_tpu_torch/kernels/csrc/hashprobe.cu",
 }
 
 
@@ -392,6 +401,117 @@ def check_sort(gen) -> dict:
             "library_ms": lib}
 
 
+def sparse_keys(k: torch.Tensor) -> torch.Tensor:
+    """The sparse key form of q3: k -> (k * 0x9E3779B1) mod 2^40, a
+    bijection on [0, 2^40) (the multiplier is odd)."""
+    return (k * 0x9E3779B1) & ((1 << 40) - 1)
+
+
+def hashprobe_case(n_probe, build_cap, n_build, live_share, match_share,
+                   gen):
+    """A join's key streams: a build table of ``build_cap`` slots holding
+    ``n_build`` sparse unique keys, ``live_share`` of them live (the date
+    or segment filter), and ``n_probe`` probe keys of which
+    ``match_share`` draw from the build keys; 5% of probe keys null."""
+    dev = DEV
+    rkeys = sparse_keys(torch.arange(build_cap, device=dev,
+                                     dtype=torch.int64))
+    live_r = (torch.arange(build_cap, device=dev) < n_build) & (
+        torch.rand(build_cap, generator=gen, device=dev) < live_share)
+    pick = torch.randint(0, n_build, (n_probe,), generator=gen, device=dev)
+    miss = sparse_keys(torch.randint(build_cap, 1 << 40, (n_probe,),
+                                     generator=gen, device=dev))
+    hit = torch.rand(n_probe, generator=gen, device=dev) < match_share
+    lkeys = torch.where(hit, rkeys[pick], miss)
+    lvalid = torch.rand(n_probe, generator=gen, device=dev) < 0.95
+    return lkeys, lvalid, rkeys, live_r
+
+
+def check_hashprobe(gen) -> dict:
+    from spark_rapids_tpu_torch.kernels import hashprobe as H
+
+    def to_cpu(*ts):
+        return [t.cpu() for t in ts]
+
+    def run_ranges(name, lkeys, lvalid, rkeys, live_r, tbl, attempts,
+                   want_fail=None):
+        """probe_ranges on the card (kernel) against probe_ranges on CPU
+        copies (plain version): all six outputs bit-identical, and the
+        table the card built equal to the CPU's."""
+        live_l = torch.ones_like(lvalid)
+        args = ((lkeys, lvalid), (rkeys, live_r), live_l, live_r, tbl,
+                attempts)
+        got = H.probe_ranges(*args)
+        cl, clv, cr, clr, cll = to_cpu(lkeys, lvalid, rkeys, live_r, live_l)
+        ref = H.probe_ranges((cl, clv), (cr, clr), cll, clr, tbl, attempts)
+        g_tab = H.build_table(rkeys, live_r, tbl, attempts)
+        r_tab = H.build_table(cr, clr, tbl, attempts)
+        torch.cuda.synchronize()
+        ok = all(same_bits(g.cpu(), r) for g, r in zip(got, ref)) and all(
+            same_bits(g.cpu(), r) for g, r in zip(g_tab, r_tab))
+        fail_flag = bool(got[-1])
+        if want_fail is not None and fail_flag != want_fail:
+            ok = False
+        log(f"  hashprobe {name}: matched {int(got[2])}/{lkeys.shape[0]} "
+            f"fail={fail_flag} exact={ok} (tol: bit-identical rowids, "
+            f"table and fail) {'OK' if ok else 'FAIL'}")
+        if not ok:
+            fail(f"probe_rowids {name} disagrees with its plain version")
+        return got
+
+    big = 1 << 23
+    # join 1 of sparse q3 at SF 1: lineitem probes orders (capacity 2^21,
+    # 1,500,303 rows, ~40% before the order-date cut), H = 2^22
+    j1 = hashprobe_case(big, 1 << 21, 1_500_303, 0.402, 0.4, gen)
+    # ~600k live keys at load 0.14: with 4 attempts some 10^2 rows stay
+    # homeless (fail set, as in the reference); 8 attempts place them all
+    run_ranges("q3 join 1 (2^23 probe rows, H 2^22, 4 attempts)", *j1,
+               1 << 22, 4)
+    run_ranges("q3 join 1 (2^23 probe rows, H 2^22, 8 attempts)", *j1,
+               1 << 22, 8, want_fail=False)
+    # join 2: the join 1 output probes customer (capacity 2^18, 150,030
+    # rows, 1 in 5 in the segment), H = 2^19
+    j2 = hashprobe_case(big, 1 << 18, 150_030, 0.2, 0.2, gen)
+    run_ranges("q3 join 2 (2^23 probe rows, H 2^19, 4 attempts)", *j2,
+               1 << 19, 4, want_fail=False)
+    # edges: extreme keys and nulls; a duplicated build key; homeless rows
+    e_l, e_lv, e_r, e_lr = hashprobe_case(4096, 2048, 2048, 0.9, 0.5, gen)
+    edges = torch.tensor([-(2 ** 63), 2 ** 63 - 1, 0, -1, -(2 ** 31)],
+                         dtype=torch.int64, device=DEV)
+    e_r[:5] = edges
+    e_l[:5] = edges
+    e_l[5:10] = edges
+    e_lv[5:10] = False
+    run_ranges("edges (INT64_MIN/MAX, 0, -1, -2^31, null probe keys)", e_l,
+               e_lv, e_r, e_lr, 4096, 8)
+    d_r, d_lr = e_r.clone(), e_lr.clone()
+    d_r[100] = d_r[1500]
+    d_lr[100] = d_lr[1500] = True
+    run_ranges("duplicated build key", e_l, e_lv, d_r, d_lr, 4096, 4,
+               want_fail=True)
+    run_ranges("homeless rows (H 64, 1 attempt)", e_l, e_lv, e_r, e_lr, 64,
+               1, want_fail=True)
+
+    lkeys, lvalid, rkeys, live_r = j1
+    tr, tk, _ = H.build_table(rkeys, live_r, 1 << 22, 4)
+    ms = time_ms(lambda: H.probe_rowids(lkeys, lvalid, tr, tk, 4))
+    plain = time_ms(lambda: H.probe_rowids_plain(lkeys, lvalid, tr, tk, 4))
+    sorted_build = torch.sort(rkeys[live_r]).values
+    lib = time_ms(lambda: torch.searchsorted(sorted_build, lkeys))
+    n = lkeys.shape[0]
+    # each probe row: key 8 B + validity 1 B read, rowid 4 B written; the
+    # table (rowid 4 B + key 8 B per slot) read once
+    nbytes = n * (8 + 1 + 4) + (1 << 22) * 12
+    bnd, by = bound_ms(nbytes, 0, INT32_OPS_PER_S)
+    log(f"  hashprobe time at q3 join 1 shape: kernel {ms:.4f} ms, plain "
+        f"{plain:.4f} ms, torch.searchsorted into the sorted build keys "
+        f"{lib:.4f} ms, bound {bnd:.4f} ms ({by}), "
+        f"{nbytes / ms / 1e6:.1f} GB/s")
+    return {"name": "probe_rowids", "max_abs_err": 0.0, "ms": ms,
+            "plain_ms": plain, "bound_ms": bnd, "bound_by": by,
+            "library_ms": lib}
+
+
 # ---------------------------------------------------------------------------
 # phase 4: q1 end to end
 # ---------------------------------------------------------------------------
@@ -469,8 +589,8 @@ def run_q1(rows: int, profile_dir) -> dict:
     cold = time.perf_counter() - t0
     launches = K.launch_counts()
     log(f"  q1 launches during the query: {launches}")
-    for name, n in launches.items():
-        if n < 1:
+    for name in ("onehot_partials", "gather_compact", "sort_with_payload"):
+        if launches[name] < 1:
             fail(f"q1 did not launch {name}")
     check_q1_result(got, oracle)
     log(f"  q1 result matches the numpy oracle ({got.num_rows} groups; keys "
@@ -495,30 +615,188 @@ def run_q1(rows: int, profile_dir) -> dict:
 
 
 def profile_q1(session, table, out_dir) -> None:
-    from torch.profiler import ProfilerActivity, profile
     from spark_rapids_tpu_torch.models.tpch import q1_dataframe
+    profile_run("q1", lambda: q1_dataframe(session, table).collect_table(),
+                out_dir)
+
+
+def profile_run(name, run, out_dir) -> None:
+    """One warm run of ``run`` under torch.profiler: the table of device
+    time by operator and a chrome trace under ``out_dir``."""
+    from torch.profiler import ProfilerActivity, profile
     os.makedirs(out_dir, exist_ok=True)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        q1_dataframe(session, table).collect_table()
+        run()
         torch.cuda.synchronize()
     table_txt = prof.key_averages().table(sort_by="cuda_time_total",
                                           row_limit=40)
-    with open(os.path.join(out_dir, "q1_profile.txt"), "w") as f:
+    tag = name.replace(" ", "_").replace(",", "")
+    with open(os.path.join(out_dir, f"{tag}_profile.txt"), "w") as f:
         f.write(table_txt)
-    prof.export_chrome_trace(os.path.join(out_dir, "q1_trace.json"))
-    log("  profile of one warm q1 run (top by device time):")
+    prof.export_chrome_trace(os.path.join(out_dir, f"{tag}_trace.json"))
+    log(f"  profile of one warm {name} run (top by device time):")
     for line in table_txt.splitlines()[:25]:
         log("    " + line)
+
+
+# ---------------------------------------------------------------------------
+# phase 5: q3 end to end, dense and sparse keys
+# ---------------------------------------------------------------------------
+
+Q3_SPARSE_KEYS = ("c_custkey", "o_orderkey", "o_custkey", "l_orderkey")
+
+
+def sparse_form(table):
+    """The table with its q3 key columns mapped k -> (k * 0x9E3779B1)
+    mod 2^40 (a bijection: unique keys stay unique, but their range no
+    longer fits a direct-address table)."""
+    from spark_rapids_tpu_torch.columnar import HostColumn, HostTable
+    cols = []
+    for name, c in zip(table.names, table.columns):
+        if name in Q3_SPARSE_KEYS:
+            c = HostColumn(c.dtype, (c.data.astype(np.int64) * 0x9E3779B1)
+                           & ((1 << 40) - 1), c.validity)
+        cols.append(c)
+    return HostTable(table.names, cols)
+
+
+def q3_oracle(cust, orders, lineitem):
+    """q3 in plain numpy: (l_orderkey, revenue, n) of the top 10 by
+    revenue, ties in ascending key order."""
+    from spark_rapids_tpu_torch.models.tpch import Q3_DATE
+
+    def cols(t):
+        return {n: c.data for n, c in zip(t.names, t.columns)}
+
+    c, o, li = cols(cust), cols(orders), cols(lineitem)
+    ckeys = c["c_custkey"][c["c_mktsegment"].astype(str) == "BUILDING"]
+    om = (o["o_orderdate"] < Q3_DATE) & np.isin(o["o_custkey"], ckeys)
+    lm = (li["l_shipdate"] > Q3_DATE) & np.isin(li["l_orderkey"],
+                                                o["o_orderkey"][om])
+    keys, inv = np.unique(li["l_orderkey"][lm], return_inverse=True)
+    vol = li["l_extendedprice"][lm] * (1.0 - li["l_discount"][lm])
+    rev = np.bincount(inv, weights=vol, minlength=len(keys))
+    cnt = np.bincount(inv, minlength=len(keys)).astype(np.int64)
+    top = np.argsort(-rev, kind="stable")[:10]
+    return {"l_orderkey": keys[top], "revenue": rev[top], "n": cnt[top]}
+
+
+def check_q3_result(got, oracle, what) -> None:
+    if list(got.names) != list(oracle):
+        fail(f"{what} columns {got.names}")
+    for name, c in zip(got.names, got.columns):
+        want = oracle[name]
+        if len(c.data) != len(want) or not c.validity.all():
+            fail(f"{what} {name}: {len(c.data)} rows / validity, want "
+                 f"{len(want)} valid rows")
+        if c.data.dtype.kind == "f":
+            if not np.isfinite(c.data).all() or not np.allclose(
+                    c.data, want, rtol=1e-9, atol=0):
+                fail(f"{what} {name}: {c.data} vs oracle {want} (rtol 1e-9)")
+        elif not (c.data == want).all() or c.data.dtype != want.dtype:
+            fail(f"{what} {name}: {c.data} vs oracle {want} (exact)")
+
+
+def run_q3_form(what, tables, oracle, conf, expect, profile_dir) -> dict:
+    """Cold run (replays counted), three warm runs, and one more warm run
+    between launch-counter reads; every result against the oracle."""
+    from spark_rapids_tpu_torch import kernels as K
+    from spark_rapids_tpu_torch.models.tpch import q3_dataframe
+    from spark_rapids_tpu_torch.runtime import speculation
+    from spark_rapids_tpu_torch.session import TorchSession
+
+    # the blocklist is process-wide and both forms share the join sites
+    speculation.clear_blocklist()
+    session = TorchSession(conf)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    got = q3_dataframe(session, *tables).collect_table()
+    torch.cuda.synchronize()
+    cold = time.perf_counter() - t0
+    cold_m = session.last_metrics()
+    check_q3_result(got, oracle, what)
+    warm = []
+    revenue_bits = {got.columns[1].data.tobytes()}
+    for _ in range(3):
+        t0 = time.perf_counter()
+        again = q3_dataframe(session, *tables).collect_table()
+        torch.cuda.synchronize()
+        warm.append(time.perf_counter() - t0)
+        check_q3_result(again, oracle, what)
+        revenue_bits.add(again.columns[1].data.tobytes())
+    K.reset_launch_counts()
+    again = q3_dataframe(session, *tables).collect_table()
+    torch.cuda.synchronize()
+    launches = K.launch_counts()
+    warm_m = session.last_metrics()
+    check_q3_result(again, oracle, what)
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  {what}: cold {cold * 1e3:.1f} ms ({cold_m['speculationReplays']} "
+        f"replays), warm median {statistics.median(warm) * 1e3:.2f} ms (runs "
+        f"{[round(w * 1e3, 2) for w in warm]}), peak device memory "
+        f"{peak / 2**30:.2f} GiB")
+    log(f"  {what}: cold metrics {cold_m}")
+    log(f"  {what}: warm metrics {warm_m}")
+    log(f"  {what}: launches during one warm query: {launches}")
+    log(f"  {what}: result matches the numpy oracle (keys and counts exact, "
+        "revenue rtol 1e-9); the revenue bits of the cold and 3 warm runs "
+        f"are {'identical' if len(revenue_bits) == 1 else 'NOT identical'} "
+        "(f64 index_add_ adds in atomic order)")
+    if warm_m["speculationReplays"] != 0:
+        fail(f"{what}: a warm run replayed")
+    observed = dict(launches, speculationReplays=cold_m["speculationReplays"])
+    for key, allowed in expect.items():
+        if observed[key] not in allowed:
+            fail(f"{what}: {key} = {observed[key]}, expected one of {allowed}")
+    for name in ("gather_compact", "sort_with_payload"):
+        if launches[name] < 1:
+            fail(f"{what} did not launch {name}")
+    if profile_dir:
+        profile_run(what, lambda: q3_dataframe(session, *tables)
+                    .collect_table(), profile_dir)
+    return launches
+
+
+def run_q3(rows: int, profile_dir) -> int:
+    """Dense q3, sparse q3 with the default 4 hash-probe attempts, and
+    sparse q3 with 8. Returns probe_rowids' launches in one warm run of
+    the 8-attempt sparse form (the form in which both joins probe)."""
+    from spark_rapids_tpu_torch.models.tpch import q3_tables
+    t0 = time.perf_counter()
+    dense = q3_tables(rows, seed=0)
+    sparse = tuple(sparse_form(t) for t in dense)
+    o_dense, o_sparse = q3_oracle(*dense), q3_oracle(*sparse)
+    log(f"  generated q3 tables ({rows} lineitem, {dense[1].num_rows} "
+        f"orders, {dense[0].num_rows} customer rows) and both oracles in "
+        f"{time.perf_counter() - t0:.2f} s (host)")
+    # dense: both joins direct. Sparse: the direct joins fail (one
+    # replay); a join whose hash table leaves a build row homeless replays
+    # once more onto the sort-based probe, which 4 attempts may do at SF 1
+    run_q3_form("q3 dense", dense, o_dense, None,
+                {"speculationReplays": (0,), "probe_rowids": (0,)},
+                profile_dir)
+    default = run_q3_form("q3 sparse", sparse, o_sparse, None,
+                          {"speculationReplays": (1, 2),
+                           "probe_rowids": (2, 4)}, profile_dir)
+    eight = run_q3_form(
+        "q3 sparse, 8 attempts", sparse, o_sparse,
+        {"spark.rapids.tpu.kernels.hashprobe.attempts": "8"},
+        {"speculationReplays": (1,), "probe_rowids": (4,)}, None)
+    log(f"  probe_rowids launches per warm sparse q3: "
+        f"{default['probe_rowids']} with 4 attempts, {eight['probe_rowids']} "
+        "with 8")
+    return eight["probe_rowids"]
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rows", type=int, default=6_001_215,
-                    help="lineitem rows for q1 (default: TPC-H SF 1)")
+                    help="lineitem rows for q1 and q3 (default: TPC-H SF 1)")
     ap.add_argument("--profile", default=None,
-                    help="directory for a torch.profiler table and trace of "
-                         "one warm q1 run")
+                    help="directory for torch.profiler tables and traces of "
+                         "one warm run of q1 and of each q3 form")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device: this script runs on the card",
@@ -551,10 +829,13 @@ def main(argv=None) -> int:
     gen.manual_seed(0)
     capacity = bucket_for(args.rows)
     rows = [check_segreduce(capacity, args.rows, gen), check_compact(gen),
-            check_sort(gen)]
+            check_sort(gen), check_hashprobe(gen)]
 
     log("phase 4: TPC-H q1 through TorchSession")
     launches = run_q1(args.rows, args.profile)
+
+    log("phase 5: TPC-H q3 through TorchSession, dense and sparse keys")
+    launches["probe_rowids"] = run_q3(args.rows, args.profile)
 
     for r in rows:
         r.update(route="cuda", source=SOURCES[r["name"]],

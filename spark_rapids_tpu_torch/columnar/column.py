@@ -17,6 +17,10 @@ import torch
 from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.errors import ColumnarProcessingError
 
+#: integer-family types whose upload carries a (min, max) domain statistic
+_DOMAIN_TYPES = (T.ByteType, T.ShortType, T.IntegerType, T.LongType,
+                 T.DateType, T.TimestampType)
+
 #: smallest capacity bucket (the reference's TPU lane width; kept so both
 #: packages pad a batch to the same capacity)
 MIN_BUCKET = 128
@@ -114,6 +118,35 @@ class HostColumn:
         return [(v.item() if isinstance(v, np.generic) else v) if ok else None
                 for v, ok in zip(self.data, self.validity)]
 
+    def nbytes(self) -> int:
+        """Host size in bytes (strings: UTF-8 bytes of the valid values
+        plus one byte a row), computed once."""
+        got = self._cache.get("nbytes")
+        if got is None:
+            if isinstance(self.dtype, T.StringType):
+                got = int(sum(len(s.encode("utf-8")) for s, v in
+                              zip(self.data, self.validity) if v)) + len(self)
+            else:
+                got = int(self.data.nbytes + self.validity.nbytes)
+            self._cache["nbytes"] = got
+        return got
+
+    def int_domain(self) -> Optional[Tuple[int, int]]:
+        """(min, max) over VALID rows of an integer-family column, else
+        None; computed once. A superset contract: every valid value lies
+        in [min, max]. The aggregate's no-sort layout reads it
+        (execs/aggregate.py)."""
+        if "int_domain" in self._cache:
+            return self._cache["int_domain"]
+        dom = None
+        if (isinstance(self.dtype, _DOMAIN_TYPES)
+                and self.data.dtype.kind in "iu"):
+            vals = self.data[self.validity]
+            if len(vals):
+                dom = (int(vals.min()), int(vals.max()))
+        self._cache["int_domain"] = dom
+        return dom
+
 
 class DeviceColumn:
     """A column on a torch device.
@@ -124,19 +157,26 @@ class DeviceColumn:
                     value is dictionary[data[i]]; with ``dict_sorted`` the
                     dictionary is sorted-unique, so code order is string
                     order.
+    ``domain``    : for integer-family columns, (min, max) of the valid
+                    values at upload (HostColumn.int_domain), carried
+                    through gathers and compactions, which only drop or
+                    repeat values; None when unknown.
     """
 
-    __slots__ = ("dtype", "data", "validity", "dictionary", "dict_sorted")
+    __slots__ = ("dtype", "data", "validity", "dictionary", "dict_sorted",
+                 "domain")
 
     def __init__(self, dtype: T.DataType, data: torch.Tensor,
                  validity: torch.Tensor,
                  dictionary: Optional[np.ndarray] = None,
-                 dict_sorted: bool = True):
+                 dict_sorted: bool = True,
+                 domain: Optional[Tuple[int, int]] = None):
         self.dtype = dtype
         self.data = data
         self.validity = validity
         self.dictionary = dictionary
         self.dict_sorted = dict_sorted
+        self.domain = domain
 
     @property
     def capacity(self) -> int:
@@ -165,7 +205,8 @@ class DeviceColumn:
             data[:n] = host.data
         return DeviceColumn(host.dtype, torch.from_numpy(data).to(device),
                             torch.from_numpy(validity).to(device),
-                            dictionary=dictionary, dict_sorted=True)
+                            dictionary=dictionary, dict_sorted=True,
+                            domain=host.int_domain())
 
     def decode_host(self, data: np.ndarray, validity: np.ndarray) -> HostColumn:
         """The logical HostColumn from downloaded raw arrays."""
@@ -193,4 +234,8 @@ class DeviceColumn:
     def with_arrays(self, data: torch.Tensor,
                     validity: torch.Tensor) -> "DeviceColumn":
         return DeviceColumn(self.dtype, data, validity, self.dictionary,
-                            self.dict_sorted)
+                            self.dict_sorted, self.domain)
+
+    def sliced_rows(self, k: int) -> "DeviceColumn":
+        """The first ``k`` slots (a smaller capacity bucket)."""
+        return self.with_arrays(self.data[:k], self.validity[:k])

@@ -50,6 +50,9 @@ class HostTable:
         return HostTable(self.names,
                          [c.slice(start, length) for c in self.columns])
 
+    def nbytes(self) -> int:
+        return sum(c.nbytes() for c in self.columns)
+
     def to_arrays(self):
         """(names, type names, [(data, validity)...]) as plain numpy — the
         form interop.host_table_from_arrays takes back."""
@@ -119,8 +122,85 @@ class DeviceTable:
         out._nrows_host = self._nrows_host
         return out
 
+    def shrink(self) -> "DeviceTable":
+        """Re-bucket to the smallest capacity holding the live rows (reads
+        the row count on the host)."""
+        if self.live is not None:
+            return self.compacted().shrink()
+        n = self.num_rows
+        k = bucket_for(max(n, 1))
+        if k >= self.capacity:
+            return self
+        return DeviceTable(self.names, [c.sliced_rows(k)
+                                        for c in self.columns], n, k,
+                           self.device)
+
     def to_host(self) -> HostTable:
         if self.live is not None:
             return self.compacted().to_host()
         n = self.num_rows
         return HostTable(self.names, [c.to_host(n) for c in self.columns])
+
+
+def _union_domain(cols: Sequence[DeviceColumn]):
+    doms = [c.domain for c in cols]
+    if any(d is None for d in doms):
+        return None
+    return (min(d[0] for d in doms), max(d[1] for d in doms))
+
+
+def concat_device(tables: Sequence[DeviceTable]) -> DeviceTable:
+    """Concatenate device tables on the device (no host round trip).
+
+    Each table's live rows land at the running offset (the sum of the
+    predecessors' live counts, a device scalar); a masked input's deferred
+    compaction fuses into that scatter. String columns are remapped into
+    the union dictionary first (host work O(dictionary size)). The output
+    capacity is the bucket of the capacity sum, a static upper bound."""
+    if not tables:
+        raise ColumnarProcessingError("concat of zero tables")
+    if len(tables) == 1:
+        return tables[0]
+    dev = tables[0].device
+    out_cap = bucket_for(sum(t.capacity for t in tables))
+    ncols = len(tables[0].columns)
+    # each table's target slot per row (out_cap = dropped)
+    tgts = []
+    offset = torch.zeros((), dtype=torch.int64, device=dev)
+    for t in tables:
+        live = t.row_mask()
+        pos = torch.cumsum(live.to(torch.int64), 0) - 1 + offset
+        tgts.append(torch.where(live, pos, out_cap))
+        offset = offset + live.sum(dtype=torch.int64)
+    cols: List[DeviceColumn] = []
+    for ci in range(ncols):
+        parts = [t.columns[ci] for t in tables]
+        c0 = parts[0]
+        dictionary, dict_sorted = c0.dictionary, c0.dict_sorted
+        datas = [c.data for c in parts]
+        if isinstance(c0.dtype, T.StringType) and not all(
+                c.dictionary is c0.dictionary for c in parts):
+            dicts = [c.dictionary if c.dictionary is not None
+                     else np.array([], dtype=object) for c in parts]
+            dictionary = (np.unique(np.concatenate(
+                [d.astype(object) for d in dicts]))
+                if any(len(d) for d in dicts) else np.array([], dtype=object))
+            dict_sorted = True
+            remapped = []
+            for c, d in zip(parts, dicts):
+                m = (np.searchsorted(dictionary, d).astype(np.int32)
+                     if len(d) else np.zeros(1, np.int32))
+                m_d = torch.from_numpy(m).to(dev)
+                remapped.append(m_d[c.data.clamp(0, len(m) - 1).long()])
+            datas = remapped
+        od = torch.zeros(out_cap + 1, dtype=c0.data.dtype, device=dev)
+        ov = torch.zeros(out_cap + 1, dtype=torch.bool, device=dev)
+        for d, c, tgt in zip(datas, parts, tgts):
+            od[tgt] = d
+            ov[tgt] = c.validity
+        cols.append(DeviceColumn(c0.dtype, od[:out_cap], ov[:out_cap],
+                                 dictionary=dictionary,
+                                 dict_sorted=dict_sorted,
+                                 domain=_union_domain(parts)))
+    return DeviceTable(tables[0].names, cols, offset.to(torch.int32),
+                       out_cap, dev)

@@ -34,10 +34,59 @@ SHAPE_BUCKETS_MIN = _conf(
     "Smallest capacity bucket of the power-of-two bucket policy (a "
     "power-of-two multiple of 128).", int)
 
+def _to_bool(v) -> bool:
+    if isinstance(v, bool):
+        return v
+    return str(v).strip().lower() in ("true", "1", "yes", "on")
+
+
+def _attempts(v) -> int:
+    n = int(v)
+    if not 1 <= n <= 8:
+        raise ValueError(
+            f"spark.rapids.tpu.kernels.hashprobe.attempts={n} outside [1, 8]: "
+            "the port has no sorted-probe route for it")
+    return n
+
+
 AGG_MAX_DICT_GROUPS = _conf(
     "spark.rapids.tpu.agg.maxDictGroups", 1 << 16,
     "Max key-domain product for the no-sort dictionary-code aggregation "
     "fast path.", int)
+
+AGG_MAX_KEY_DOMAIN_GROUPS = _conf(
+    "spark.rapids.tpu.agg.maxKeyDomainGroups", 1 << 21,
+    "Max key-domain product for the no-sort INTEGER-key aggregation fast "
+    "path (keys whose (min, max) is known from upload-time column "
+    "statistics); wider domains take the sort-segment path. 0 disables.",
+    int)
+
+SPECULATIVE_SIZING = _conf(
+    "spark.rapids.tpu.speculativeSizing.enabled", True,
+    "Size data-dependent outputs (join outputs, direct-address join "
+    "tables, hash-probe tables, the sort-segment aggregate's output) "
+    "speculatively with device validation flags, read once at collect; a "
+    "failed speculation blocklists its site and replays the query.",
+    _to_bool)
+
+JOIN_DIRECT_TABLE_MULT = _conf(
+    "spark.rapids.tpu.join.directTableMultiplier", 4,
+    "Direct-address join: the key-range table is this multiple of the "
+    "build side's capacity; wider build key ranges fail the speculation "
+    "and replay on the hash probe.", int)
+
+BROADCAST_SIZE_BYTES = _conf(
+    "spark.rapids.sql.broadcastSizeBytes", 10 << 20,
+    "Join build sides whose plan-size estimate is at or below this are "
+    "materialized once through a broadcast exchange; larger ones are "
+    "coalesced into one batch per query.", int)
+
+KERNELS_HASHPROBE_ATTEMPTS = _conf(
+    "spark.rapids.tpu.kernels.hashprobe.attempts", 4,
+    "Rehash attempts of the hash-probe table: build rows that cannot place "
+    "within this many salted slots (or duplicate build keys) set the "
+    "failure flag and the join replays on the sort-based probe. Must lie "
+    "in [1, 8].", _attempts)
 
 
 

@@ -8,7 +8,7 @@ defaults tie them together."""
 
 from __future__ import annotations
 
-from typing import Iterator, Tuple
+from typing import Dict, Iterator, Tuple
 
 from spark_rapids_tpu_torch.columnar import DeviceTable
 
@@ -20,6 +20,21 @@ class TpuExec:
 
     #: set by mask-producing execs that implement execute_masked directly
     produces_masked = False
+
+    #: plan-position id, assigned by overrides/rules.convert in plan order
+    #: (the reference's lore id): speculation sites of two look-alike
+    #: operators stay distinct, and a repeated query gets the same ids
+    _lore_id = 0
+
+    @property
+    def metrics(self) -> Dict[str, int]:
+        m = self.__dict__.get("_metrics")
+        if m is None:
+            m = self.__dict__["_metrics"] = {}
+        return m
+
+    def add_metric(self, name: str, value: int) -> None:
+        self.metrics[name] = self.metrics.get(name, 0) + value
 
     def output_schema(self):
         raise NotImplementedError

@@ -1,5 +1,5 @@
-"""Scan, project and filter execs (port of the TpuScanExec,
-TpuProjectExec and TpuFilterExec parts of
+"""Scan, project, filter and coalesce execs (port of the TpuScanExec,
+TpuProjectExec, TpuFilterExec and TpuCoalesceExec parts of
 ``spark_rapids_tpu/execs/basic.py``)."""
 
 from __future__ import annotations
@@ -8,7 +8,12 @@ from typing import Sequence
 
 import torch
 
-from spark_rapids_tpu_torch.columnar import BucketPolicy, DeviceTable, HostTable
+from spark_rapids_tpu_torch.columnar import (
+    BucketPolicy,
+    DeviceTable,
+    HostTable,
+)
+from spark_rapids_tpu_torch.columnar.table import concat_device
 from spark_rapids_tpu_torch.execs.base import TpuExec
 from spark_rapids_tpu_torch.ops.expr import (
     Expression,
@@ -88,3 +93,44 @@ class TpuFilterExec(TpuExec):
             new_n = keep.sum(dtype=torch.int32)
             yield DeviceTable(table.names, table.columns, new_n,
                               table.capacity, table.device, live=keep)
+
+
+class TpuCoalesceExec(TpuExec):
+    """Concatenate child batches into one (the RequireSingleBatch goal) or
+    up to a target size. The port has no spill framework or memory budget
+    yet, so batches are held as device tables; a lone batch passes
+    through as it is (masked or not), and several concatenate on the
+    device (columnar/table.concat_device)."""
+
+    produces_masked = True
+
+    def __init__(self, child: TpuExec, target_bytes: int = 1 << 30,
+                 require_single: bool = False):
+        self.children = (child,)
+        self.target_bytes = target_bytes
+        self.require_single = require_single
+
+    def output_schema(self):
+        return self.children[0].output_schema()
+
+    def execute_masked(self):
+        pending, pending_bytes = [], 0
+        for batch in self.children[0].execute_masked():
+            pending.append(batch)
+            pending_bytes += device_nbytes(batch)
+            if not self.require_single and pending_bytes >= self.target_bytes:
+                yield self._flush(pending)
+                pending, pending_bytes = [], 0
+        if pending:
+            yield self._flush(pending)
+
+    def _flush(self, batches) -> DeviceTable:
+        if len(batches) == 1:
+            return batches[0]
+        self.add_metric("concatBatches", len(batches))
+        return concat_device(batches)
+
+
+def device_nbytes(table: DeviceTable) -> int:
+    return sum(c.data.numel() * c.data.element_size() + c.validity.numel()
+               for c in table.columns)

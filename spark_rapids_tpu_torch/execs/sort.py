@@ -1,5 +1,6 @@
-"""Device sort (port of ``spark_rapids_tpu/execs/sort.py``: ``_directional``
-and ``TpuSortExec``).
+"""Device sort and top-k (port of ``spark_rapids_tpu/execs/sort.py``:
+``_directional``, ``TpuSortExec`` with ``_topk``, and
+``TpuTakeOrderedAndProjectExec``).
 
 Each sort key becomes ascending 32-bit operands (ops/ordering.py): a
 null-placement flag first, descending order by complement. Padding and
@@ -13,7 +14,7 @@ from typing import List, Sequence
 
 import torch
 
-from spark_rapids_tpu_torch.columnar import DeviceTable
+from spark_rapids_tpu_torch.columnar import DeviceTable, bucket_for
 from spark_rapids_tpu_torch.execs.base import TpuExec, single_batch
 from spark_rapids_tpu_torch.ops.expr import (
     PrepCtx,
@@ -61,6 +62,32 @@ class TpuSortExec(TpuExec):
             yield self._sort(table)
 
     def _sort(self, table: DeviceTable) -> DeviceTable:
+        perm = self._sorted_perm(table)
+        new_cols = [c.with_arrays(c.data[perm], c.validity[perm])
+                    for c in table.columns]
+        return DeviceTable(table.names, new_cols, table.nrows_dev,
+                           table.capacity, table.device)
+
+    def _topk(self, table: DeviceTable, k: int) -> DeviceTable:
+        """The first ``k`` rows in sort order at a k-sized capacity: the
+        sort carries only the key operands and a row-index payload, then
+        the k winning rows of every column are gathered."""
+        capacity = table.capacity
+        kcap = min(bucket_for(max(k, 1)), capacity)
+        idx = self._sorted_perm(table)[:kcap]
+        if table.live is not None:
+            n_live = table.live.sum(dtype=torch.int32)
+        else:
+            n_live = table.nrows_dev
+        n_out = torch.clamp(n_live, max=k).to(torch.int32)
+        out_live = torch.arange(kcap, dtype=torch.int32,
+                                device=table.device) < n_out
+        cols = [c.with_arrays(c.data[idx], c.validity[idx] & out_live)
+                for c in table.columns]
+        return DeviceTable(table.names, cols, n_out, kcap, table.device)
+
+    def _sorted_perm(self, table: DeviceTable) -> torch.Tensor:
+        """int64 row permutation into sort order; dead rows last."""
         from spark_rapids_tpu_torch.ops.ordering import lex_sort
         pctx = PrepCtx(table)
         key_preps = [prep_expr(o.expr, pctx) for o in self.orders]
@@ -77,8 +104,34 @@ class TpuSortExec(TpuExec):
             operands.extend(_directional(kv.data, kv.validity, o.ascending,
                                          o.resolved_nulls_first()))
         payload = torch.arange(capacity, dtype=torch.int32, device=dev)
-        perm = lex_sort(operands, payload)[-1].to(torch.int64)
-        new_cols = [c.with_arrays(c.data[perm], c.validity[perm])
-                    for c in table.columns]
-        return DeviceTable(table.names, new_cols, table.nrows_dev, capacity,
-                           dev)
+        return lex_sort(operands, payload)[-1].to(torch.int64)
+
+
+class TpuTakeOrderedAndProjectExec(TpuExec):
+    """ORDER BY + LIMIT n: a device top-k per batch, then one sort of the
+    concatenated top-k rows when there are several batches; the full
+    sorted input never materializes."""
+
+    def __init__(self, child: TpuExec, orders: Sequence[SortOrder],
+                 limit: int):
+        self.children = (child,)
+        self.orders = list(orders)
+        self.limit = int(limit)
+        self._sorter = TpuSortExec(child, orders)
+
+    def output_schema(self):
+        return self.children[0].output_schema()
+
+    def execute(self):
+        from spark_rapids_tpu_torch.columnar.table import concat_device
+        k = self.limit
+        tops = [self._sorter._topk(b, k)
+                for b in self.children[0].execute_masked()]
+        if not tops:
+            return
+        # a single top-k batch is already sorted
+        final = tops[0] if len(tops) == 1 else self._sorter._sort(
+            concat_device(tops))
+        nrows = torch.clamp(final.nrows_dev, max=k).to(torch.int32)
+        yield DeviceTable(final.names, final.columns, nrows, final.capacity,
+                          final.device)

@@ -24,6 +24,7 @@ KERNELS = (
     ("segreduce", "onehot_partials"),
     ("compact", "gather_compact"),
     ("sort", "sort_with_payload"),
+    ("hashprobe", "probe_rowids"),
 )
 
 

@@ -1,6 +1,7 @@
-"""TPC-H q1 through the port's engine (port of the lineitem/q1 part of
-``spark_rapids_tpu/models/tpch.py``). The generator is the reference's,
-draw for draw, so one seed gives the same table in both packages."""
+"""TPC-H q1 and q3 through the port's engine (port of the lineitem/q1 and
+q3 parts of ``spark_rapids_tpu/models/tpch.py``). The generators are the
+reference's, draw for draw, so one seed gives the same tables in both
+packages."""
 
 from __future__ import annotations
 
@@ -66,3 +67,75 @@ def q1_dataframe(session, table: HostTable, num_batches: int = 1):
         )
         .sort("l_returnflag", "l_linestatus")
     )
+
+
+# ---------------------------------------------------------------------------
+# q3: customer JOIN orders JOIN lineitem with filters, a group-by and a
+# top-10 by revenue
+# ---------------------------------------------------------------------------
+
+SEGMENTS = np.array(["AUTOMOBILE", "BUILDING", "FURNITURE", "HOUSEHOLD",
+                     "MACHINERY"], dtype=object)
+Q3_DATE = 9204  # 1995-03-15
+
+
+def q3_tables(num_rows: int, seed: int = 0):
+    """lineitem (num_rows), orders (num_rows // 4), customer
+    (num_rows // 40). Keys are dense: ``np.arange`` for the primary keys,
+    uniform draws over them for the foreign keys."""
+    rng = np.random.default_rng(seed)
+    n_ord = max(num_rows // 4, 1)
+    n_cust = max(num_rows // 40, 1)
+
+    cust = HostTable(["c_custkey", "c_mktsegment"], [
+        HostColumn(T.LONG, np.arange(n_cust, dtype=np.int64)),
+        HostColumn(T.STRING, SEGMENTS[rng.integers(0, len(SEGMENTS), n_cust)]),
+    ])
+    orders = HostTable(["o_orderkey", "o_custkey", "o_orderdate"], [
+        HostColumn(T.LONG, np.arange(n_ord, dtype=np.int64)),
+        HostColumn(T.LONG, rng.integers(0, n_cust, n_ord)),
+        HostColumn(T.DATE, rng.integers(8766, 9855, n_ord).astype(np.int32)),
+    ])
+    lineitem = HostTable(
+        ["l_orderkey", "l_extendedprice", "l_discount", "l_shipdate"], [
+            HostColumn(T.LONG, rng.integers(0, n_ord, num_rows)),
+            HostColumn(T.DOUBLE, (rng.random(num_rows) * 100000.0).round(2)),
+            HostColumn(T.DOUBLE, rng.integers(0, 11, num_rows) / 100.0),
+            HostColumn(T.DATE,
+                       rng.integers(8766, 9855, num_rows).astype(np.int32)),
+        ])
+    return cust, orders, lineitem
+
+
+def P_REV_DESC():
+    from spark_rapids_tpu_torch.ops.expr import col
+    from spark_rapids_tpu_torch.plan.nodes import SortOrder
+    return SortOrder(col("revenue"), ascending=False)
+
+
+def q3_dataframe(session, cust, orders, lineitem, segment: str = "BUILDING"):
+    """TPC-H q3: two inner joins, a group-by on l_orderkey, the top 10 by
+    revenue."""
+    from spark_rapids_tpu_torch import functions as F
+    from spark_rapids_tpu_torch.ops.expr import col, lit
+    from spark_rapids_tpu_torch.plan import from_host_table
+
+    c = from_host_table(cust, session).filter(
+        col("c_mktsegment") == lit(segment))
+    o = from_host_table(orders, session).filter(
+        col("o_orderdate") < lit(Q3_DATE, T.DATE))
+    li = from_host_table(lineitem, session).filter(
+        col("l_shipdate") > lit(Q3_DATE, T.DATE))
+    joined = (li.join(o.with_column("l_orderkey", col("o_orderkey")),
+                      on="l_orderkey", how="inner")
+              .join(c.with_column("o_custkey", col("c_custkey")),
+                    on="o_custkey", how="inner"))
+    return (joined
+            .select(col("l_orderkey"), col("o_orderdate"),
+                    (col("l_extendedprice") * (lit(1.0) - col("l_discount")))
+                    .alias("volume"))
+            .group_by("l_orderkey")
+            .agg(F.sum(col("volume")).alias("revenue"),
+                 F.count().alias("n"))
+            .sort(P_REV_DESC())
+            .limit(10))

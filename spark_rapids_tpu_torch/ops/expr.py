@@ -39,6 +39,11 @@ class NodePrep:
 
     out_dict: Optional[np.ndarray] = None  # dictionary if output is STRING
     dict_sorted: bool = True
+    #: (min, max) of an integer column (DeviceColumn.domain) carried
+    #: through the prep walk
+    out_domain: Optional[Tuple[int, int]] = None
+    #: a dictionary code found on the host (string == literal)
+    lookup_code: Optional[int] = None
 
 
 class PrepCtx:
@@ -146,19 +151,22 @@ class Expression:
         from spark_rapids_tpu_torch.ops.predicates import LessThanOrEqual
         return self._bin(LessThanOrEqual, o)
 
-    # operators of the reference that the port has not ported: raising
-    # here keeps `col(a) == lit(1)` from silently becoming a Python bool
-    def __eq__(self, o):  # type: ignore[override]
-        _not_ported("EqualTo")
-
-    def __ne__(self, o):  # type: ignore[override]
-        _not_ported("Not(EqualTo)")
-
     def __lt__(self, o):
-        _not_ported("LessThan")
+        from spark_rapids_tpu_torch.ops.predicates import LessThan
+        return self._bin(LessThan, o)
 
     def __gt__(self, o):
-        _not_ported("GreaterThan")
+        from spark_rapids_tpu_torch.ops.predicates import GreaterThan
+        return self._bin(GreaterThan, o)
+
+    def __eq__(self, o):  # type: ignore[override]
+        from spark_rapids_tpu_torch.ops.predicates import EqualTo
+        return self._bin(EqualTo, o)
+
+    # operators of the reference that the port has not ported: raising
+    # here keeps `col(a) != lit(1)` from silently becoming a Python bool
+    def __ne__(self, o):  # type: ignore[override]
+        _not_ported("Not(EqualTo)")
 
     def __ge__(self, o):
         _not_ported("GreaterThanOrEqual")
@@ -227,7 +235,8 @@ class BoundReference(Expression):
 
     def prep(self, pctx: PrepCtx, child_preps) -> NodePrep:
         c = pctx.table.columns[self.ordinal]
-        return NodePrep(out_dict=c.dictionary, dict_sorted=c.dict_sorted)
+        return NodePrep(out_dict=c.dictionary, dict_sorted=c.dict_sorted,
+                        out_domain=c.domain)
 
     def eval_dev(self, ctx: EvalCtx, child_vals, prep) -> DevVal:
         return ctx.cols[self.ordinal]
@@ -362,5 +371,6 @@ def compile_project(exprs: Sequence[Expression],
                        table.device, live=table.live)
         out.append(DeviceColumn(e.data_type, dv.data, dv.validity,
                                 dictionary=preps[-1].out_dict,
-                                dict_sorted=preps[-1].dict_sorted))
+                                dict_sorted=preps[-1].dict_sorted,
+                                domain=preps[-1].out_domain))
     return out

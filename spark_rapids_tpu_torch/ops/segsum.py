@@ -8,6 +8,12 @@ the native f64 column stack and sums the block partials over the block
 axis (the reference's ``p64.sum(axis=0)``). Addition order differs from
 the reference's row-order ``segment_sum``, so the last bits of a sum may
 differ; the kernel itself repeats its bits from run to run.
+
+Over more than ``MATMUL_MAX_SEGMENTS`` segments (an int-domain group-by,
+the sort-segment aggregate) the sums are one ``index_add_`` (the
+reference's CPU branch, ``jax.ops.segment_sum``). On the CPU it adds rows
+in order; on CUDA its f64 atomics add in an order that may change from
+run to run, so those sums are compared within rtol 1e-9, not bitwise.
 """
 
 from __future__ import annotations
@@ -34,9 +40,8 @@ def batched_segment_sum_f64(cols: Sequence[torch.Tensor], gid: torch.Tensor,
         return torch.zeros((num_segments, 0), dtype=torch.float64,
                            device=gid.device)
     if num_segments > MATMUL_MAX_SEGMENTS:
-        raise NotImplementedError(
-            f"segment sums over {num_segments} segments (> "
-            f"{MATMUL_MAX_SEGMENTS}): the blocked scatter path is not ported")
+        return segment_sum(torch.stack([c.to(torch.float64) for c in cols],
+                                       dim=1), gid, num_segments)
     block = min(BLOCK, capacity)
     nb = max(capacity // block, 1)
     if nb * block != capacity:
@@ -49,3 +54,13 @@ def batched_segment_sum_f64(cols: Sequence[torch.Tensor], gid: torch.Tensor,
     x = torch.stack([c.to(torch.float64) for c in cols], dim=0).t()
     parts = kseg.onehot_partials(x, gid, num_segments, nb, block)
     return parts.sum(dim=0)
+
+
+def segment_sum(x: torch.Tensor, gid: torch.Tensor,
+                num_segments: int) -> torch.Tensor:
+    """Sums of the rows of ``x`` ((n,) or (n, m)) by segment id ``gid`` in
+    [0, num_segments): one ``index_add_`` (a torch op, as the reference
+    leaves ``jax.ops.segment_sum`` to XLA)."""
+    out = torch.zeros((num_segments,) + tuple(x.shape[1:]), dtype=x.dtype,
+                      device=x.device)
+    return out.index_add_(0, gid.to(torch.int64), x)

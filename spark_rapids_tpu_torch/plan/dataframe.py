@@ -1,6 +1,7 @@
 """DataFrame API (port of the DataFrame/GroupedData/from_host_table part
-of ``spark_rapids_tpu/plan/dataframe.py``): builds plan nodes; a session
-executes them."""
+of ``spark_rapids_tpu/plan/dataframe.py``: select, with_column, filter,
+group_by, sort, limit, join on column names): builds plan nodes; a
+session executes them."""
 
 from __future__ import annotations
 
@@ -23,6 +24,10 @@ class DataFrame:
         exprs = [col(e) if isinstance(e, str) else e for e in exprs]
         return self._wrap(P.Project(self.plan, exprs))
 
+    def with_column(self, name: str, expr: Expression) -> "DataFrame":
+        existing = [col(n) for n, _ in self.plan.output_schema() if n != name]
+        return self.select(*existing, expr.alias(name))
+
     def filter(self, condition: Expression) -> "DataFrame":
         return self._wrap(P.Filter(self.plan, condition))
 
@@ -38,6 +43,27 @@ class DataFrame:
             sos.append(o if isinstance(o, P.SortOrder)
                        else P.SortOrder(o, ascending))
         return self._wrap(P.Sort(self.plan, sos))
+
+    def limit(self, n: int) -> "DataFrame":
+        if isinstance(self.plan, P.Sort):
+            # ORDER BY + LIMIT plans as TakeOrderedAndProject (per-batch
+            # top-k, no full sorted materialization: Spark's planner rule)
+            return self._wrap(P.TakeOrderedAndProject(
+                self.plan.children[0], self.plan.orders, n))
+        return self._wrap(P.Limit(self.plan, n))
+
+    def join(self, other: "DataFrame", on=None,
+             how: str = "inner") -> "DataFrame":
+        """Equi-join on one or more column names present on both sides."""
+        if isinstance(on, str):
+            on = [on]
+        if not (isinstance(on, (list, tuple)) and on
+                and all(isinstance(k, str) for k in on)):
+            raise NotImplementedError(
+                "join without column-name keys (a cross join or a join "
+                "condition) is not ported")
+        return self._wrap(P.Join(self.plan, other.plan, how,
+                                 [col(k) for k in on], [col(k) for k in on]))
 
     def collect_table(self) -> HostTable:
         if self.session is None:

@@ -1,5 +1,6 @@
-"""Plan nodes (port of the LocalScan, Project, Filter, Aggregate, Sort and
-SortOrder parts of ``spark_rapids_tpu/plan/nodes.py``). Nodes bind their
+"""Plan nodes (port of the LocalScan, Project, Filter, Aggregate, Sort,
+SortOrder, Limit, Join and TakeOrderedAndProject parts of
+``spark_rapids_tpu/plan/nodes.py``). Nodes bind their
 expressions against the child's schema at construction; the overrides
 layer (overrides/rules.py) turns them into device execs. The reference's
 CPU execution of these nodes is not ported: the port has no CPU
@@ -25,6 +26,12 @@ class PlanNode:
     def output_schema(self) -> Schema:
         raise NotImplementedError
 
+    def estimate_bytes(self) -> Optional[int]:
+        """Rough output-size upper bound for physical planning (broadcast
+        or not). None = unknown. Row-preserving or shrinking unary nodes
+        propagate their child's estimate."""
+        return None
+
     @property
     def name(self) -> str:
         return type(self).__name__
@@ -41,6 +48,9 @@ class LocalScan(PlanNode):
     def output_schema(self):
         return self.batches[0].schema()
 
+    def estimate_bytes(self):
+        return sum(b.nbytes() for b in self.batches)
+
 
 class Project(PlanNode):
     def __init__(self, child: PlanNode, exprs: Sequence[Expression]):
@@ -55,6 +65,16 @@ class Project(PlanNode):
 
     def output_schema(self):
         return [(n, e.data_type) for n, e in zip(self.names, self.exprs)]
+
+    def estimate_bytes(self):
+        # projections can WIDEN rows: scale the child's estimate by the
+        # column-count ratio
+        est = self.children[0].estimate_bytes()
+        if est is None:
+            return None
+        n_in = max(len(self.children[0].output_schema()), 1)
+        return int(est * max(len(self.names), 1) / n_in) \
+            if len(self.names) > n_in else est
 
 
 class Filter(PlanNode):
@@ -71,6 +91,9 @@ class Filter(PlanNode):
 
     def output_schema(self):
         return self.children[0].output_schema()
+
+    def estimate_bytes(self):
+        return self.children[0].estimate_bytes()
 
 
 class Aggregate(PlanNode):
@@ -124,6 +147,61 @@ class Sort(PlanNode):
     @property
     def child(self):
         return self.children[0]
+
+    def output_schema(self):
+        return self.children[0].output_schema()
+
+
+class Limit(PlanNode):
+    """LIMIT n without an ordering (the port plans ORDER BY + LIMIT as
+    TakeOrderedAndProject and has no exec for a bare limit yet)."""
+
+    def __init__(self, child: PlanNode, limit: int):
+        self.children = (child,)
+        self.limit = int(limit)
+
+    def output_schema(self):
+        return self.children[0].output_schema()
+
+    def estimate_bytes(self):
+        return self.children[0].estimate_bytes()
+
+
+class Join(PlanNode):
+    """Equi-join. The output schema is the left schema then the right one
+    (a join on a column name keeps both key columns, as the reference)."""
+
+    def __init__(self, left: PlanNode, right: PlanNode, join_type: str,
+                 left_keys: Sequence[Expression],
+                 right_keys: Sequence[Expression],
+                 condition: Optional[Expression] = None):
+        self.children = (left, right)
+        self.join_type = join_type
+        ls, rs = left.output_schema(), right.output_schema()
+        self.left_keys = [bind(k, ls) for k in left_keys]
+        self.right_keys = [bind(k, rs) for k in right_keys]
+        self.condition = (bind(condition, ls + rs)
+                          if condition is not None else None)
+
+    def output_schema(self):
+        ls = self.children[0].output_schema()
+        rs = self.children[1].output_schema()
+        if self.join_type in ("leftsemi", "leftanti"):
+            return ls
+        return ls + rs
+
+
+class TakeOrderedAndProject(PlanNode):
+    """ORDER BY ... LIMIT n: per-batch top-k (the reference's optional
+    projection on top is not ported; no DataFrame call builds one)."""
+
+    def __init__(self, child: PlanNode, orders: Sequence[SortOrder],
+                 limit: int):
+        self.children = (child,)
+        schema = child.output_schema()
+        self.orders = [SortOrder(bind(o.expr, schema), o.ascending,
+                                 o.nulls_first) for o in orders]
+        self.limit = int(limit)
 
     def output_schema(self):
         return self.children[0].output_schema()

@@ -56,10 +56,20 @@ def test_batched_segment_sum_f64_vs_reference(capacity, nseg, m):
 
 
 def test_batched_segment_sum_over_32_segments_is_not_ported():
-    with pytest.raises(NotImplementedError, match="segments"):
-        tsegsum.batched_segment_sum_f64(
-            [torch.zeros(128, dtype=torch.float64)],
-            torch.zeros(128, dtype=torch.int32), 64, 128)
+    """Over 32 segments the sums are one index_add_ (the reference's CPU
+    segment_sum), which adds rows in order on the CPU: bit-identical to
+    the reference (the name dates from the slice that refused this)."""
+    rng = np.random.default_rng(43)
+    capacity, nseg = 4096, 3000
+    gid = rng.integers(0, nseg, capacity).astype(np.int32)
+    cols = [rng.standard_normal(capacity) * 1e6 for _ in range(3)]
+    ref = np.asarray(jsegsum.batched_segment_sum_f64(
+        [jnp.asarray(c) for c in cols], jnp.asarray(gid), nseg, capacity,
+        use_split=False))
+    got = tsegsum.batched_segment_sum_f64(
+        [torch.from_numpy(c) for c in cols], torch.from_numpy(gid), nseg,
+        capacity).numpy()
+    assert _bits_equal(got, ref)
 
 
 @pytest.mark.parametrize("mask", ["random", "all_kept", "all_dropped"])

@@ -136,22 +136,17 @@ def test_q1_with_null_keys_and_values(sessions):
 def test_q1_conf_keys_carry_over(sessions):
     """spark.rapids.sql.shapeBuckets.minBucket pads both packages alike;
     spark.rapids.tpu.agg.maxDictGroups below q1's 12-slot key domain takes
-    the reference to its sort-segment path, which the port has not
-    ported and refuses by name."""
-    conf = {"spark.rapids.sql.shapeBuckets.minBucket": "2048"}
+    both packages to their sort-segment path, with the same answer."""
     names, types, arrays = _arrays_of(jtpch.lineitem_table(700, seed=6))
-    ref = jtpch.q1_dataframe(
-        TpuSession(conf), _reference_table(names, types, arrays)
-    ).collect_table()
-    got = ttpch.q1_dataframe(
-        TorchSession(conf, device="cpu"),
-        host_table_from_arrays(names, types, arrays)).collect_table()
-    _assert_q1_matches(ref, _reference_table(*got.to_arrays()))
-    with pytest.raises(NotImplementedError, match="sort-segment"):
-        ttpch.q1_dataframe(
-            TorchSession({"spark.rapids.tpu.agg.maxDictGroups": "8"},
-                         device="cpu"),
+    for conf in ({"spark.rapids.sql.shapeBuckets.minBucket": "2048"},
+                 {"spark.rapids.tpu.agg.maxDictGroups": "8"}):
+        ref = jtpch.q1_dataframe(
+            TpuSession(conf), _reference_table(names, types, arrays)
+        ).collect_table()
+        got = ttpch.q1_dataframe(
+            TorchSession(conf, device="cpu"),
             host_table_from_arrays(names, types, arrays)).collect_table()
+        _assert_q1_matches(ref, _reference_table(*got.to_arrays()))
 
 
 @pytest.mark.parametrize("sort", [True, False])
