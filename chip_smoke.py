@@ -1,6 +1,6 @@
 """Drive the PyTorch port (spark_rapids_tpu_torch) on one CUDA card.
 
-    python3 chip_smoke.py [--rows N] [--profile DIR]
+    python3 chip_smoke.py [--rows N] [--sf SF] [--seed S] [--profile DIR]
 
 Phases, in order; any failure exits non-zero:
 
@@ -8,9 +8,10 @@ Phases, in order; any failure exits non-zero:
    capability (must be 9.0, an H100);
 2. build the CUDA kernels from ``spark_rapids_tpu_torch/kernels/csrc``;
 3. each kernel against its plain torch version on the card, at the shapes
-   q1 and q3 give it, at one large shape and on edge inputs, with times (CUDA
-   events, warm median) beside the least time the card could take and
-   one PyTorch library call computing the same function;
+   q1, q3 and the corpus's q2 and q8 give it, at one large shape and on
+   edge inputs, with times (CUDA events, warm median) beside the least
+   time the card could take and one PyTorch library call computing the
+   same function;
 4. TPC-H q1 end to end through ``TorchSession`` at ``--rows`` lineitem rows
    (default 6,001,215 = TPC-H SF 1), checked against a numpy oracle, with
    every kernel's launch counter read around the query;
@@ -20,12 +21,21 @@ Phases, in order; any failure exits non-zero:
    after a replay), the latter with 4 (the default) and with 8 hash-probe
    attempts; cold and warm times, replays, peak memory and every kernel's
    launches in one warm run, each result against a numpy oracle;
-6. the summary lines: one ``{"kernels": [...]}`` JSON line, the card line,
+6. the golden corpus's q2 and q8 through ``TorchSession`` at
+   ``scale_test_specs(--sf)`` (default 10: 2,500,000 orders under an
+   Exponential o_custkey skew over 250,000 customers, 10,000,000 lineitem
+   rows), seed ``--seed`` (default 7), beside q8's inner group-by (dense
+   keys, and o_custkey mapped by ``sparse_keys``: the sort-segment path),
+   a MIN/MAX group-by of orders and a global MIN/MAX over lineitem; cold
+   and warm times, replays, peak memory and every kernel's launches in one
+   warm run, each result against a numpy oracle (MIN, MAX and counts
+   exact, q2's sum rtol 1e-9);
+7. the summary lines: one ``{"kernels": [...]}`` JSON line, the card line,
    and last ``{"ok": true, "device": {...}}``.
 
 It needs one CUDA card and exits non-zero without one. ``--profile DIR``
-also writes a torch.profiler table and trace of one warm run of q1 and of
-each q3 form.
+also writes a torch.profiler table and trace of one warm run of q1, of
+each q3 form and of each phase-6 query.
 """
 
 from __future__ import annotations
@@ -54,12 +64,14 @@ DEV = torch.device("cuda")
 
 TPU_KERNELS = {
     "onehot_partials": "spark_rapids_tpu/kernels/segreduce.py:145",
+    "fused_minmax": "spark_rapids_tpu/kernels/segreduce.py:108",
     "gather_compact": "spark_rapids_tpu/kernels/compact.py:112",
     "sort_with_payload": "spark_rapids_tpu/kernels/sort.py:84",
     "probe_rowids": "spark_rapids_tpu/kernels/hashprobe.py:139",
 }
 SOURCES = {
     "onehot_partials": "spark_rapids_tpu_torch/kernels/csrc/segreduce.cu",
+    "fused_minmax": "spark_rapids_tpu_torch/kernels/csrc/minmax.cu",
     "gather_compact": "spark_rapids_tpu_torch/kernels/csrc/compact.cu",
     "sort_with_payload": "spark_rapids_tpu_torch/kernels/csrc/sort.cu",
     "probe_rowids": "spark_rapids_tpu_torch/kernels/csrc/hashprobe.cu",
@@ -512,6 +524,169 @@ def check_hashprobe(gen) -> dict:
             "library_ms": lib}
 
 
+INT64_MAX = (1 << 63) - 1
+INT64_MIN = -(1 << 63)
+#: a NaN with a payload and the sign bit set (the kernel must still give
+#: the canonical NaN)
+NEG_NAN_BITS = 0xFFF8_0000_0000_0001 - (1 << 64)
+
+
+Q8_SHAPE = "q8 (Exponential skew)"
+
+
+def minmax_values(n, dtype, gen):
+    """int64 values with the extremes, or doubles with NaN (two payloads),
+    -0.0, 0.0 and +-inf sprinkled in."""
+    if dtype == torch.int64:
+        v = torch.randint(-(2 ** 62), 2 ** 62, (n,), generator=gen,
+                          device=DEV, dtype=torch.int64)
+        v[:4] = torch.tensor([INT64_MAX, INT64_MIN, 0, -1], dtype=torch.int64)
+        return v
+    v = torch.randn(n, generator=gen, device=DEV, dtype=torch.float64) * 1e6
+    u = torch.rand(n, generator=gen, device=DEV)
+    v = torch.where(u < 1e-3, float("nan"), v)
+    v = torch.where((u >= 1e-3) & (u < 2e-3), -0.0, v)
+    v = torch.where((u >= 2e-3) & (u < 3e-3), 0.0, v)
+    v[:3] = torch.tensor([float("inf"), float("-inf"), 0.0],
+                         dtype=torch.float64)
+    v[3:4] = torch.tensor([NEG_NAN_BITS], dtype=torch.int64).view(
+        torch.float64)
+    return v
+
+
+def minmax_edges(v, valid, gid, segs):
+    """Rows 8..31 become edge segments ``segs`` = (all-NaN, all-null,
+    -0.0 then 0.0, 0.0 then -0.0); for int64 the NaN segment holds the
+    extremes instead."""
+    s_nan, s_null, s_z1, s_z2 = segs
+    rows = torch.arange(8, 32, device=DEV)
+    gid[8:14], gid[14:20], gid[20:26], gid[26:32] = s_nan, s_null, s_z1, s_z2
+    valid[8:32] = True
+    valid[14:20] = False
+    if v.dtype == torch.float64:
+        v[8:14] = float("nan")
+        v[20:26] = torch.where(rows[12:18] % 2 == 0, -0.0, 0.0).to(v.dtype)
+        v[26:32] = torch.where(rows[18:24] % 2 == 0, 0.0, -0.0).to(v.dtype)
+    else:
+        v[8:14] = torch.tensor([INT64_MAX, INT64_MIN] * 3, dtype=torch.int64)
+
+
+def exponential_keys(n, domain, gen):
+    """ForeignKey(parent_rows=domain, distribution=Exponential()) of
+    datagen.py, drawn on the card: floor(min(Exp(rate 4), 1-) * domain)."""
+    u = torch.empty(n, device=DEV, dtype=torch.float64).exponential_(
+        4.0, generator=gen).clamp_(max=1.0 - 2.0 ** -53)
+    return (u * domain).to(torch.int64)
+
+
+def minmax_shapes(gen, global_rows=10_000_000, q8_rows=2_500_000,
+                  domain=250_000):
+    """{name: (nrows, capacity, nseg, valid, gid, edge segments)} at the
+    three shapes the main path gives the kernel."""
+    from spark_rapids_tpu_torch.columnar import bucket_for
+    shapes = {}
+    # q2-style global aggregate over lineitem at SF 10: 10M rows in a
+    # 2^24 bucket, all in segment 0 of the global layout's 8, half kept
+    # by the filter; the edge segments use the padding slots 1-4
+    cap, nrows = bucket_for(global_rows), global_rows
+    live = torch.arange(cap, device=DEV) < nrows
+    valid = live & (torch.rand(cap, generator=gen, device=DEV) < 0.5)
+    gid = torch.zeros(cap, dtype=torch.int32, device=DEV)
+    shapes["global (all rows in segment 0 of 8)"] = (
+        nrows, cap, 8, valid, gid, (1, 2, 3, 4))
+    # q8's inner group-by at SF 10: 2,500,000 orders in a 2^22 bucket,
+    # o_custkey under the Exponential skew over 250,000 keys, gpad 2^18;
+    # padding rows on the null slot 250,000 (never valid)
+    cap, nrows, dom = bucket_for(q8_rows), q8_rows, domain
+    gpad = 1 << dom.bit_length()  # the key domain + its null slot, padded
+    live = torch.arange(cap, device=DEV) < nrows
+    keys = exponential_keys(cap, dom, gen)
+    gid = torch.where(live, keys, dom).to(torch.int32)
+    shapes[Q8_SHAPE] = (nrows, cap, gpad, live.clone(), gid,
+                        tuple(range(gpad - 4, gpad)))
+    # the sort-segment path: the same keys sorted and densely ranked,
+    # nseg = capacity, dead rows parked past it (never valid)
+    srt = torch.sort(keys[:nrows]).values
+    rank = torch.cumsum((srt != torch.roll(srt, 1)).to(torch.int64), 0)
+    rank = rank - rank[0]
+    rows = torch.arange(cap, device=DEV)
+    gid = torch.where(live, torch.cat([rank, rank.new_zeros(cap - nrows)]),
+                      cap + rows).to(torch.int32)
+    ng = int(rank[-1]) + 1
+    shapes["sort-segment (nseg = capacity, sorted gid)"] = (
+        nrows, cap, cap, live.clone(), gid, (ng, ng + 1, ng + 2, ng + 3))
+    return shapes
+
+
+def check_minmax(seed: int = 3, **shape_args) -> dict:
+    """fused_minmax against its plain version at the main path's three
+    shapes, on inputs from its own generator (``seed``)."""
+    from spark_rapids_tpu_torch.kernels.segreduce import (
+        _f64_keys,
+        fused_minmax,
+        fused_minmax_plain,
+    )
+    gen = torch.Generator(device=DEV)
+    gen.manual_seed(seed)
+    times = {}
+    for name, (nrows, cap, nseg, valid0, gid0, segs) in \
+            minmax_shapes(gen, **shape_args).items():
+        for dtype in (torch.int64, torch.float64):
+            v = minmax_values(cap, dtype, gen)
+            valid, gid = valid0.clone(), gid0.clone()
+            minmax_edges(v, valid, gid, segs)
+            for is_min in (True, False):
+                a = fused_minmax(is_min, v, valid, gid, nseg)
+                b = fused_minmax(is_min, v, valid, gid, nseg)
+                ref = fused_minmax_plain(is_min, v, valid, gid, nseg)
+                torch.cuda.synchronize()
+                ok = same_bits(a, b) and same_bits(a, ref)
+                if dtype == torch.float64:
+                    nan = a[segs[0]].view(torch.int64)
+                    ok = ok and int(nan) == 0x7FF8_0000_0000_0000
+                    z1, z2 = (a[list(segs[2:])].view(torch.int64)
+                              .tolist())
+                    zero = -(1 << 63) if is_min else 0
+                    ok = ok and z1 == z2 == zero
+                what = (f"{name} {cap} rows {nseg} segments "
+                        f"{str(dtype)[6:]} "
+                        f"{'min' if is_min else 'max'}")
+                log(f"  minmax {what}: exact={ok} (tol: bit-identical to "
+                    f"the plain version and across two launches; NaN "
+                    f"canonical, -0.0 < 0.0) {'OK' if ok else 'FAIL'}")
+                if not ok:
+                    fail(f"fused_minmax {what} disagrees with its plain "
+                         "version")
+        # times of a double max (q8's aggregate)
+        v = minmax_values(cap, torch.float64, gen)
+        valid, gid = valid0, gid0
+        ms = time_ms(lambda: fused_minmax(False, v, valid, gid, nseg))
+        plain = time_ms(lambda: fused_minmax_plain(False, v, valid, gid,
+                                                   nseg))
+        use = valid & (gid >= 0) & (gid < nseg)
+        k_use, g_use = _f64_keys(v)[use], gid[use].to(torch.int64)
+        lib_out = torch.full((nseg,), INT64_MIN, dtype=torch.int64,
+                             device=DEV)
+        lib = time_ms(lambda: lib_out.scatter_reduce_(
+            0, g_use, k_use, "amax", include_self=True))
+        # what the function needs: every row's validity (1 B), a valid
+        # row's gid (4 B), the value (8 B) of a valid row inside the
+        # segments, each segment's result (8 B) written once; one compare
+        # per used row
+        n_valid, n_use = int(valid.sum()), int(use.sum())
+        nbytes = cap + n_valid * 4 + n_use * 8 + nseg * 8
+        bnd, by = bound_ms(nbytes, n_use, INT32_OPS_PER_S)
+        times[name] = (ms, plain, lib, bnd, by)
+        log(f"  minmax time at {name} (f64 max, {cap} rows, {nseg} "
+            f"segments, {n_use} valid rows): kernel {ms:.4f} ms, "
+            f"plain {plain:.4f} ms, scatter_reduce_ amax on the valid rows' int64 keys {lib:.4f} "
+            f"ms, bound {bnd:.4f} ms ({by}), {nbytes / ms / 1e6:.1f} GB/s")
+    ms, plain, lib, bnd, by = times[Q8_SHAPE]
+    return {"name": "fused_minmax", "max_abs_err": 0.0, "ms": ms,
+            "plain_ms": plain, "bound_ms": bnd, "bound_by": by,
+            "library_ms": lib}
+
+
 # ---------------------------------------------------------------------------
 # phase 4: q1 end to end
 # ---------------------------------------------------------------------------
@@ -631,7 +806,8 @@ def profile_run(name, run, out_dir) -> None:
         torch.cuda.synchronize()
     table_txt = prof.key_averages().table(sort_by="cuda_time_total",
                                           row_limit=40)
-    tag = name.replace(" ", "_").replace(",", "")
+    tag = "_".join("".join(ch if ch.isalnum() else " "
+                           for ch in name).split())
     with open(os.path.join(out_dir, f"{tag}_profile.txt"), "w") as f:
         f.write(table_txt)
     prof.export_chrome_trace(os.path.join(out_dir, f"{tag}_trace.json"))
@@ -790,13 +966,210 @@ def run_q3(rows: int, profile_dir) -> int:
     return eight["probe_rowids"]
 
 
+# ---------------------------------------------------------------------------
+# phase 6: the corpus's q2 and q8, MIN/MAX group-bys and global aggregates
+# ---------------------------------------------------------------------------
+
+def host_cols(t):
+    return {n: c.data for n, c in zip(t.names, t.columns)}
+
+
+def sparse_custkey(orders):
+    """The orders table with o_custkey mapped by ``sparse_keys``: its range
+    no longer fits the no-sort layout, so the group-by takes the
+    sort-segment path."""
+    from spark_rapids_tpu_torch.columnar import HostColumn, HostTable
+    cols = []
+    for name, c in zip(orders.names, orders.columns):
+        if name == "o_custkey":
+            c = HostColumn(c.dtype, sparse_keys(torch.from_numpy(
+                c.data.astype(np.int64))).numpy(), c.validity)
+        cols.append(c)
+    return HostTable(orders.names, cols)
+
+
+def grouped_oracle(keys, values):
+    """{column: per-key MIN/MAX} over the distinct keys in ascending order,
+    in numpy (reduceat over the key-sorted rows)."""
+    order = np.argsort(keys, kind="stable")
+    uniq, starts = np.unique(keys[order], return_index=True)
+    out = {"key": uniq}
+    for name, (fn, v) in values.items():
+        out[name] = fn.reduceat(v[order], starts)
+    return out
+
+
+def check_grouped(got, want, what) -> None:
+    """The port's group-by output sorted by its key against the oracle:
+    keys, MIN and MAX bit for bit, every value valid."""
+    cols = host_cols(got)
+    key = cols[got.names[0]]
+    if len(key) != len(want["key"]):
+        fail(f"{what}: {len(key)} groups, oracle {len(want['key'])}")
+    order = np.argsort(key, kind="stable")
+    if not (key[order] == want["key"]).all():
+        fail(f"{what}: group keys differ from the oracle")
+    for name in got.names[1:]:
+        c = got.columns[got.names.index(name)]
+        if not c.validity.all():
+            fail(f"{what} {name}: null results")
+        g, w = c.data[order], want[name]
+        if g.dtype != w.dtype or g.tobytes() != w.tobytes():
+            fail(f"{what} {name}: differs from the oracle (bitwise)")
+
+
+def check_scalars(got, want, what, rtol=0.0) -> None:
+    """One output row against the oracle's scalars: exact, or within
+    ``rtol`` where a sum is compared."""
+    if got.num_rows != 1:
+        fail(f"{what}: {got.num_rows} rows, want 1")
+    for name, w in want.items():
+        c = got.columns[got.names.index(name)]
+        g = c.data[0]
+        if not c.validity[0]:
+            fail(f"{what} {name}: null")
+        if rtol:
+            ok = np.isfinite(g) and abs(g - w) <= rtol * abs(w)
+        else:
+            ok = np.asarray(g).tobytes() == \
+                np.asarray(w, c.data.dtype).tobytes()
+        if not ok:
+            fail(f"{what} {name}: {g!r} vs oracle {w!r}"
+                 f"{f' (rtol {rtol})' if rtol else ' (exact)'}")
+
+
+def corpus_cases(session, tables, sparse_orders):
+    """{name: (() -> DataFrame, oracle check, expected fused_minmax
+    launches in one warm run)}."""
+    from spark_rapids_tpu_torch import functions as F
+    from spark_rapids_tpu_torch.models.corpus import build_queries
+    from spark_rapids_tpu_torch.plan import from_host_table
+
+    q = build_queries(session, tables)
+    o, li = host_cols(tables["orders"]), host_cols(tables["lineitem"])
+    so = host_cols(sparse_orders)
+    n_custs = len(np.unique(o["o_custkey"]))
+    m = (li["l_discount"] > 0.05) & (li["l_quantity"] < 25)
+    q2_total = float(np.sum(li["l_extendedprice"][m] * li["l_discount"][m]))
+    inner = grouped_oracle(o["o_custkey"], {
+        "m": (np.maximum, o["o_totalprice"])})
+    inner_sparse = grouped_oracle(so["o_custkey"], {
+        "m": (np.maximum, so["o_totalprice"])})
+    mm = grouped_oracle(o["o_custkey"], {
+        "min_key": (np.minimum, o["o_orderkey"]),
+        "max_key": (np.maximum, o["o_orderkey"]),
+        "min_price": (np.minimum, o["o_totalprice"]),
+        "max_price": (np.maximum, o["o_totalprice"])})
+    glob = {"max_price": li["l_extendedprice"].max(),
+            "min_price": li["l_extendedprice"].min(),
+            "max_key": li["l_orderkey"].max()}
+
+    def inner_q(t):
+        return lambda: from_host_table(t, session).group_by(
+            "o_custkey").agg(F.max("o_totalprice").alias("m"))
+
+    return {
+        "q8": (q["q8"], lambda g: check_scalars(
+            g, {"n_custs": np.int64(n_custs)}, "q8"), 1),
+        "q2": (q["q2"], lambda g: check_scalars(
+            g, {"total": q2_total}, "q2", rtol=1e-9), 0),
+        "q8 inner": (inner_q(tables["orders"]), lambda g: check_grouped(
+            g, inner, "q8 inner"), 1),
+        "q8 inner, sparse keys": (inner_q(sparse_orders),
+                                  lambda g: check_grouped(
+                                      g, inner_sparse, "q8 inner sparse"),
+                                  1),
+        "min/max group-by": (
+            lambda: from_host_table(tables["orders"], session).group_by(
+                "o_custkey").agg(
+                F.min("o_orderkey").alias("min_key"),
+                F.max("o_orderkey").alias("max_key"),
+                F.min("o_totalprice").alias("min_price"),
+                F.max("o_totalprice").alias("max_price")),
+            lambda g: check_grouped(g, mm, "min/max group-by"), 4),
+        "global min/max": (
+            lambda: from_host_table(tables["lineitem"], session).agg(
+                F.max("l_extendedprice").alias("max_price"),
+                F.min("l_extendedprice").alias("min_price"),
+                F.max("l_orderkey").alias("max_key")),
+            lambda g: check_scalars(g, glob, "global min/max"), 3),
+    }
+
+
+def run_corpus(sf: float, seed: int, profile_dir) -> int:
+    """Every phase-6 query: a cold run (replays counted), three warm runs,
+    and one more warm run between launch-counter reads; each result
+    against its oracle. Returns fused_minmax's launches in one warm q8."""
+    from spark_rapids_tpu_torch import kernels as K
+    from spark_rapids_tpu_torch.models.corpus import corpus_tables
+    from spark_rapids_tpu_torch.session import TorchSession
+
+    t0 = time.perf_counter()
+    tables = corpus_tables(sf, seed)
+    sparse_orders = sparse_custkey(tables["orders"])
+    session = TorchSession()
+    cases = corpus_cases(session, tables, sparse_orders)
+    log(f"  generated scale_test_specs({sf}) seed {seed}: "
+        f"{tables['orders'].num_rows} orders, "
+        f"{tables['lineitem'].num_rows} lineitem rows (the columns q2 and "
+        f"q8 read) and the oracles in {time.perf_counter() - t0:.2f} s "
+        "(host)")
+    q8_launches = None
+    for name, (build, check, want_minmax) in cases.items():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        got = build().collect_table()
+        torch.cuda.synchronize()
+        cold = time.perf_counter() - t0
+        replays = session.last_metrics()["speculationReplays"]
+        check(got)
+        warm = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            again = build().collect_table()
+            torch.cuda.synchronize()
+            warm.append(time.perf_counter() - t0)
+            check(again)
+        K.reset_launch_counts()
+        again = build().collect_table()
+        torch.cuda.synchronize()
+        launches = K.launch_counts()
+        warm_replays = session.last_metrics()["speculationReplays"]
+        check(again)
+        peak = torch.cuda.max_memory_allocated()
+        log(f"  {name}: cold {cold * 1e3:.1f} ms ({replays} replays), warm "
+            f"median {statistics.median(warm) * 1e3:.2f} ms (runs "
+            f"{[round(w * 1e3, 2) for w in warm]}), peak device memory "
+            f"{peak / 2**30:.2f} GiB, {got.num_rows} rows")
+        log(f"  {name}: launches during one warm query: {launches}")
+        log(f"  {name}: result matches the numpy oracle (MIN, MAX and "
+            "counts exact, sums rtol 1e-9)")
+        if warm_replays != 0:
+            fail(f"{name}: a warm run replayed")
+        if launches["fused_minmax"] != want_minmax:
+            fail(f"{name}: fused_minmax launched {launches['fused_minmax']} "
+                 f"times, expected {want_minmax}")
+        if name == "q8":
+            q8_launches = launches["fused_minmax"]
+        if profile_dir:
+            profile_run(name, lambda: build().collect_table(), profile_dir)
+    return q8_launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rows", type=int, default=6_001_215,
                     help="lineitem rows for q1 and q3 (default: TPC-H SF 1)")
+    ap.add_argument("--sf", type=float, default=10.0,
+                    help="scale factor of the corpus tables of phase 6 "
+                         "(default 10)")
+    ap.add_argument("--seed", type=int, default=7,
+                    help="seed of the corpus tables of phase 6 (default 7)")
     ap.add_argument("--profile", default=None,
                     help="directory for torch.profiler tables and traces of "
-                         "one warm run of q1 and of each q3 form")
+                         "one warm run of q1, of each q3 form and of each "
+                         "phase-6 query")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device: this script runs on the card",
@@ -828,14 +1201,17 @@ def main(argv=None) -> int:
     gen = torch.Generator(device=DEV)
     gen.manual_seed(0)
     capacity = bucket_for(args.rows)
-    rows = [check_segreduce(capacity, args.rows, gen), check_compact(gen),
-            check_sort(gen), check_hashprobe(gen)]
+    rows = [check_segreduce(capacity, args.rows, gen), check_minmax(),
+            check_compact(gen), check_sort(gen), check_hashprobe(gen)]
 
     log("phase 4: TPC-H q1 through TorchSession")
     launches = run_q1(args.rows, args.profile)
 
     log("phase 5: TPC-H q3 through TorchSession, dense and sparse keys")
     launches["probe_rowids"] = run_q3(args.rows, args.profile)
+
+    log("phase 6: the corpus's q2 and q8 and MIN/MAX through TorchSession")
+    launches["fused_minmax"] = run_corpus(args.sf, args.seed, args.profile)
 
     for r in rows:
         r.update(route="cuda", source=SOURCES[r["name"]],

@@ -1,7 +1,7 @@
 """Hash aggregate (port of ``spark_rapids_tpu/execs/aggregate.py``:
 ``_fast_layout``, ``_build_fast_kernel``, the sort-segment
-``_build_kernel`` with ``_agg_one``'s Sum/Average/Count, and the
-speculative output shrink).
+``_build_kernel`` with ``_agg_one``'s Sum/Average/Count/Min/Max, the
+global aggregate and the speculative output shrink).
 
 NO-SORT PATH. When every grouping key has a small domain known on the
 host (a dictionary-encoded string: its dictionary; an integer-family
@@ -16,8 +16,16 @@ padded domain product) segments:
   ``index_add_`` (a torch op, as the reference leaves it to XLA);
 * every f64 SUM/AVG rides one batched pass (ops/segsum.py): the one-hot
   partials kernel up to 32 segments, one ``index_add_`` above;
+* every MIN/MAX is one ``segment_minmax_64`` (the ``fused_minmax``
+  kernel), INT and DATE values widened to int64 for it;
 * the group slots that exist are packed through the compaction kernel
   (ops/scatter32.py).
+
+GLOBAL AGGREGATE (no grouping keys): the no-sort layout with one segment
+padded to 8, also with maxDictGroups 0 (where the reference takes its
+sort-segment path); slot 0 exists whatever the input, so the output is
+exactly one row, with count 0 and every SUM/AVG/MIN/MAX null on empty
+input.
 
 SORT-SEGMENT PATH, for keys whose domain is unknown or too wide: one
 lexicographic sort of (dead-last, per key: null flag + sortable words)
@@ -29,9 +37,9 @@ validated at collect; a miss replays on the exact shrink).
 
 Filters fused from the input chain (execs/fuse.py) are the row weight
 mask: a dropped row, or a padding row past ``nrows``, adds to no sum,
-count or group. What the slice does not reach raises NotImplementedError:
-the global aggregate, MIN/MAX, variance, integer sums and multi-batch
-merge.
+count, extreme or group. What the slice does not reach raises
+NotImplementedError: variance, integer sums, MIN/MAX of other types than
+LONG, DOUBLE, INT and DATE, and multi-batch merge.
 """
 
 from __future__ import annotations
@@ -57,6 +65,7 @@ from spark_rapids_tpu_torch.ops.expr import (
 )
 from spark_rapids_tpu_torch.ops.segsum import (
     batched_segment_sum_f64,
+    segment_minmax_64,
     segment_sum,
 )
 from spark_rapids_tpu_torch.runtime import speculation as spec
@@ -70,6 +79,9 @@ EMBED_NROWS_CAP = 1 << 16
 _INT_KEY_TYPES = (T.ByteType, T.ShortType, T.IntegerType, T.LongType,
                   T.DateType, T.TimestampType)
 
+#: value types MIN/MAX take (INT and DATE widen to int64 for the kernel)
+_MINMAX_TYPES = (T.LongType, T.DoubleType, T.IntegerType, T.DateType)
+
 
 def check_agg_supported(fn: agg.AggregateFunction) -> None:
     """Raise NotImplementedError for an aggregate the port does not run."""
@@ -82,10 +94,27 @@ def check_agg_supported(fn: agg.AggregateFunction) -> None:
     elif isinstance(fn, agg.Sum):
         if isinstance(fn.child.data_type, (T.FloatType, T.DoubleType)):
             return
+    elif isinstance(fn, (agg.Min, agg.Max)):
+        if isinstance(fn.child.data_type, _MINMAX_TYPES):
+            return
     raise NotImplementedError(
         f"aggregate {fn.name} over "
         f"{fn.child.data_type.simple_string() if fn.child is not None else '*'}"
         " is not ported")
+
+
+def _minmax(fn: agg.AggregateFunction, data: torch.Tensor,
+            valid: torch.Tensor, gid: torch.Tensor, nseg: int,
+            has_any: torch.Tensor):
+    """(data, validity) of one MIN/MAX over ``nseg`` segments: INT and DATE
+    values widen to int64 for the kernel and narrow back; slots without a
+    non-null value hold 0 and are null."""
+    wide = data if data.dtype in (torch.int64, torch.float64) else \
+        data.to(torch.int64)
+    r = segment_minmax_64(isinstance(fn, agg.Min), wide, valid, gid, nseg)
+    r = torch.where(has_any, r, torch.zeros((), dtype=r.dtype,
+                                            device=r.device))
+    return r.to(data.dtype), has_any
 
 
 class TpuHashAggregateExec(TpuExec):
@@ -127,8 +156,12 @@ class TpuHashAggregateExec(TpuExec):
 
     def _fast_layout(self, key_preps, capacity: int) -> Optional[tuple]:
         """(kinds, sizes, strides, gpad, bases) when every key has a small
-        known domain, else None (the sort-segment path)."""
-        if self.max_dict_groups <= 0 or not self.grouping:
+        known domain, else None (the sort-segment path). The global
+        aggregate is one segment padded to 8, whatever maxDictGroups is:
+        it holds no dictionary groups."""
+        if not self.grouping:
+            return [], [], [], 8, []
+        if self.max_dict_groups <= 0:
             return None
         kinds: List[str] = []
         sizes: List[int] = []
@@ -168,9 +201,6 @@ class TpuHashAggregateExec(TpuExec):
 
     def _aggregate(self, table: DeviceTable) -> DeviceTable:
         filter_preps, key_preps, val_preps = self._prep_all(table)
-        if not self.grouping:
-            raise NotImplementedError("a global (ungrouped) aggregate is not "
-                                      "ported")
         fast = self._fast_layout(key_preps, table.capacity)
         if fast is None:
             out_arrays, ngroups = self._sort_kernel(
@@ -281,9 +311,18 @@ class TpuHashAggregateExec(TpuExec):
             if sv is not None:
                 mix[j] = len(mix) + 1
         mcnt = torch.zeros((gpad, len(masks)), dtype=torch.int32, device=dev)
-        mcnt.index_add_(0, gid, torch.stack(masks, dim=1).to(torch.int32))
+        stacked = torch.stack(masks, dim=1).to(torch.int32)
+        if self.grouping:
+            mcnt.index_add_(0, gid, stacked)
+        else:
+            # one segment: a column sum, not atomics all aimed at slot 0
+            mcnt[0] = stacked.sum(dim=0, dtype=torch.int32)
         nonnulls = {j: mcnt[:, i] for j, i in mix.items()}
         exists = mcnt[:, 0] > 0
+        if not self.grouping:
+            # exactly one output row even on empty input (count 0, the
+            # rest null: Spark's semantics)
+            exists = torch.arange(gpad, device=dev) == 0
         ngroups = exists.sum(dtype=torch.int32)
 
         pairs = []
@@ -314,6 +353,10 @@ class TpuHashAggregateExec(TpuExec):
                 continue
             nonnull = nonnulls[j]
             has_any = (nonnull > 0) & exists
+            if isinstance(fn, (agg.Min, agg.Max)):
+                pairs.append(_minmax(fn, vvs[j][0].data, svs[j], gid, gpad,
+                                     has_any))
+                continue
             s = fsums[j]
             if isinstance(fn, agg.Average):
                 s = s / nonnull.clamp(min=1).to(torch.float64)
@@ -376,23 +419,40 @@ class TpuHashAggregateExec(TpuExec):
             kvv[gid] = kv.validity[perm]
             outs.append((kd[:capacity], kvv[:capacity] & group_live))
 
+        vvs = [[type(x)(x.data[perm], x.validity[perm]) for x in vv]
+               for vv in vvs]
+        outs += self._segment_aggs(vvs, s_live, gid, nseg, capacity,
+                                   group_live)
+        return outs, ngroups
+
+    def _segment_aggs(self, vvs, live, gid, nseg, capacity, group_live):
+        """Every spec over int64 segment ids ``gid`` (live rows in
+        [0, capacity), dead rows past it): sums and counts by
+        ``segment_sum`` over ``nseg`` segments, MIN/MAX by
+        ``segment_minmax_64`` over the first ``capacity``."""
         def seg(x):
             return segment_sum(x, gid, nseg)[:capacity]
 
-        zero = torch.zeros((), dtype=torch.float64, device=dev)
+        zero = torch.zeros((), dtype=torch.float64, device=gid.device)
+        outs = []
         for (_, fn), vv in zip(self.agg_specs, vvs):
             if isinstance(fn, agg.Count):
-                w = s_live if fn.child is None else \
-                    vv[0].validity[perm] & s_live
+                w = live if fn.child is None else vv[0].validity & live
                 outs.append((seg(w.to(torch.int32)).to(torch.int64),
                              group_live))
                 continue
-            sv = vv[0].validity[perm] & s_live
+            sv = vv[0].validity & live
             nonnull = seg(sv.to(torch.int32))
             has_any = (nonnull > 0) & group_live
-            v = torch.where(sv, vv[0].data[perm].to(torch.float64), zero)
+            if isinstance(fn, (agg.Min, agg.Max)):
+                # dead rows are not valid, so their gid past the segments
+                # is never read
+                outs.append(_minmax(fn, vv[0].data, sv, gid, capacity,
+                                    has_any))
+                continue
+            v = torch.where(sv, vv[0].data.to(torch.float64), zero)
             s = seg(v)
             if isinstance(fn, agg.Average):
                 s = s / nonnull.clamp(min=1).to(torch.float64)
             outs.append((torch.where(has_any, s, zero), has_any))
-        return outs, ngroups
+        return outs

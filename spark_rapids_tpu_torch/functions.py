@@ -15,6 +15,14 @@ def sum(e):  # noqa: A001
     return _agg.Sum(_e(e))
 
 
+def min(e):  # noqa: A001
+    return _agg.Min(_e(e))
+
+
+def max(e):  # noqa: A001
+    return _agg.Max(_e(e))
+
+
 def count(e="*"):
     # type-guarded star check: col("x") == "*" would build an expression
     if (isinstance(e, str) and e == "*") or (isinstance(e, int) and e == 1):

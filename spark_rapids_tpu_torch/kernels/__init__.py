@@ -22,6 +22,7 @@ import torch
 #: PERF.md use
 KERNELS = (
     ("segreduce", "onehot_partials"),
+    ("segreduce", "fused_minmax"),
     ("compact", "gather_compact"),
     ("sort", "sort_with_payload"),
     ("hashprobe", "probe_rowids"),

@@ -1,11 +1,18 @@
-"""Per-(block, segment) partial sums (port of
-``spark_rapids_tpu/kernels/segreduce.py::onehot_partials``).
+"""Segmented reductions: per-(block, segment) partial sums and per-segment
+64-bit MIN/MAX (port of ``spark_rapids_tpu/kernels/segreduce.py``:
+``onehot_partials`` and ``fused_minmax``).
 
-The TPU kernel built each row block's one-hot in VMEM and contracted it on
-the MXU. The CUDA kernel (``csrc/segreduce.cu``) keeps the same function
-and output shape, with a fixed reduction order and no float atomics, so
-its bits repeat from run to run. ``fused_minmax``, the module's other TPU
-kernel, is not ported yet (MIN/MAX aggregates are off the q1 path).
+``onehot_partials``: the TPU kernel built each row block's one-hot in VMEM
+and contracted it on the MXU. The CUDA kernel (``csrc/segreduce.cu``)
+keeps the same function and output shape, with a fixed reduction order and
+no float atomics, so its bits repeat from run to run.
+
+``fused_minmax``: the TPU kernel reduced the two 32-bit limbs of a 64-bit
+value in two passes. The CUDA kernel (``csrc/minmax.cu``) reduces native
+int64 values, and doubles as order-preserving int64 keys, with one pass of
+64-bit atomics, and computes what the TPU kernel and its caller
+(``ops/segsum.py::segment_minmax_64``) compute together: Spark's NaN rule,
+the canonical NaN, ordered signed zeros and identities in empty segments.
 """
 
 from __future__ import annotations
@@ -25,6 +32,17 @@ from spark_rapids_tpu_torch.kernels import (
 MAX_BLOCK = 1024
 #: segments the CUDA kernel takes at most (ops/segsum.MATMUL_MAX_SEGMENTS)
 MAX_SEGMENTS = 32
+
+_I64_MAX = (1 << 63) - 1
+_I64_MIN = -(1 << 63)
+#: the magnitude bits of a double
+_MAG = _I64_MAX
+#: the bits of +inf, and the key of every NaN (the canonical NaN's bits,
+#: the greatest key of any double)
+_INF_BITS = 0x7FF0_0000_0000_0000
+_NAN_KEY = 0x7FF8_0000_0000_0000
+#: the key of -inf: its bits 0xfff0... xor _MAG
+_NEG_INF_KEY = 0x800F_FFFF_FFFF_FFFF - (1 << 64)
 
 
 def onehot_partials_plain(x: torch.Tensor, gid: torch.Tensor, nseg: int,
@@ -89,3 +107,89 @@ def onehot_partials(x: torch.Tensor, gid: torch.Tensor, nseg: int, nb: int,
 
 
 onehot_partials.launches = 0
+
+
+def _f64_keys(values: torch.Tensor) -> torch.Tensor:
+    """Order-preserving int64 keys of doubles: b ^ (b < 0 ? _MAG : 0) on
+    the bits b (so -0.0 < 0.0), and every NaN the canonical NaN's key."""
+    b = values.view(torch.int64)
+    keys = b ^ ((b >> 63) & _MAG)
+    return torch.where(torch.isnan(values),
+                       torch.full((), _NAN_KEY, dtype=torch.int64,
+                                  device=values.device), keys)
+
+
+def _minmax_identity(is_min: bool, f64: bool) -> int:
+    """The identity key: a double min's is INT64_MAX, above the NaN key,
+    and ends as +inf; a double max's is -inf's key."""
+    if is_min:
+        return _I64_MAX
+    return _NEG_INF_KEY if f64 else _I64_MIN
+
+
+def fused_minmax_plain(is_min: bool, values: torch.Tensor,
+                       valid: torch.Tensor, gid: torch.Tensor,
+                       nseg: int) -> torch.Tensor:
+    """The plain version: the same keys reduced by one int64
+    ``scatter_reduce_`` ("amin"/"amax", include_self=True) over the rows
+    that are valid and inside [0, nseg)."""
+    f64 = values.dtype == torch.float64
+    keys = _f64_keys(values) if f64 else values
+    g = gid.to(torch.int64)
+    use = valid & (g >= 0) & (g < nseg)
+    out = torch.full((nseg,), _minmax_identity(is_min, f64),
+                     dtype=torch.int64, device=values.device)
+    out.scatter_reduce_(0, g[use], keys[use], "amin" if is_min else "amax",
+                        include_self=True)
+    if not f64:
+        return out
+    bits = out ^ ((out >> 63) & _MAG)
+    if is_min:
+        bits = torch.where(out == _I64_MAX,
+                           torch.full((), _INF_BITS, dtype=torch.int64,
+                                      device=out.device), bits)
+    return bits.view(torch.float64)
+
+
+def fused_minmax(is_min: bool, values: torch.Tensor, valid: torch.Tensor,
+                 gid: torch.Tensor, nseg: int) -> torch.Tensor:
+    """(nseg,) per-segment min (``is_min``) or max of ``values`` (n,) int64
+    or float64 over the rows with ``valid`` (n,) bool and ``gid`` (n,)
+    int32 in [0, nseg), in ``values``' dtype; empty segments hold the
+    identity (INT64_MAX/MIN, +inf/-inf). Doubles order as Spark does:
+    -0.0 < 0.0, NaN greater than every other value (canonical NaN out)."""
+    if values.ndim != 1 or valid.shape != values.shape or \
+            gid.shape != values.shape:
+        raise ValueError("fused_minmax: values, valid and gid must be (n,)")
+    if values.dtype not in (torch.int64, torch.float64):
+        raise TypeError(f"fused_minmax: values dtype {values.dtype}")
+    if valid.dtype != torch.bool:
+        raise TypeError(f"fused_minmax: valid dtype {valid.dtype}")
+    if gid.dtype != torch.int32:
+        raise TypeError(f"fused_minmax: gid dtype {gid.dtype}")
+    if not 1 <= nseg < (1 << 31):
+        raise ValueError(f"fused_minmax: {nseg} segments (takes 1..2^31-1)")
+    if values.device.type == "cpu":
+        return fused_minmax_plain(is_min, values, valid, gid, nseg)
+    require_cuda(values, "fused_minmax")
+    if valid.device != values.device or gid.device != values.device:
+        raise ValueError("fused_minmax: inputs on different devices")
+    for t, what in ((values, "values"), (valid, "valid"), (gid, "gid")):
+        require_contiguous(t, f"fused_minmax {what}")
+    out = torch.empty(nseg, dtype=values.dtype, device=values.device)
+    from spark_rapids_tpu_torch.kernels.build import load_library
+    lib = load_library("minmax")
+    fn = lib.srt_fused_minmax
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
+                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    rc = fn(values.data_ptr(), valid.data_ptr(), gid.data_ptr(),
+            out.data_ptr(), int(values.shape[0]), nseg, int(is_min),
+            int(values.dtype == torch.float64), stream_handle(values))
+    check_launch(lib, rc, "fused_minmax")
+    fused_minmax.launches += 1
+    return out
+
+
+fused_minmax.launches = 0

@@ -1,7 +1,8 @@
-"""Aggregate function declarations (port of the Sum/Count/Average part of
-``spark_rapids_tpu/ops/aggregates.py``). The aggregate exec interprets
-them; Spark's result types: sum(float/double) -> DOUBLE, sum(integral) ->
-LONG, avg -> DOUBLE, count -> LONG (never null)."""
+"""Aggregate function declarations (port of the Sum/Min/Max/Count/Average
+part of ``spark_rapids_tpu/ops/aggregates.py``). The aggregate exec
+interprets them; Spark's result types: sum(float/double) -> DOUBLE,
+sum(integral) -> LONG, min/max -> the child's type, avg -> DOUBLE,
+count -> LONG (never null)."""
 
 from __future__ import annotations
 
@@ -35,6 +36,18 @@ class Sum(AggregateFunction):
             return T.DOUBLE
         raise NotImplementedError(f"sum of {ct.simple_string()} is not "
                                   "ported")
+
+
+class Min(AggregateFunction):
+    @property
+    def data_type(self):
+        return self.child.data_type
+
+
+class Max(AggregateFunction):
+    @property
+    def data_type(self):
+        return self.child.data_type
 
 
 class Count(AggregateFunction):

@@ -172,7 +172,8 @@ class Expression:
         _not_ported("GreaterThanOrEqual")
 
     def __and__(self, o):
-        _not_ported("And")
+        from spark_rapids_tpu_torch.ops.predicates import And
+        return self._bin(And, o)
 
     def __or__(self, o):
         _not_ported("Or")

@@ -1,5 +1,6 @@
-"""Batched f64 segmented sums (port of
-``spark_rapids_tpu/ops/segsum.py::batched_segment_sum_f64``).
+"""Batched f64 segmented sums and 64-bit segment MIN/MAX (port of
+``spark_rapids_tpu/ops/segsum.py``: ``batched_segment_sum_f64`` and
+``segment_minmax_64``).
 
 The H100 adds f64 natively, so the port reproduces the reference's CPU
 branch (``resolve_split_mode`` false there): no hi/lo f32 split and no
@@ -14,6 +15,10 @@ the sort-segment aggregate) the sums are one ``index_add_`` (the
 reference's CPU branch, ``jax.ops.segment_sum``). On the CPU it adds rows
 in order; on CUDA its f64 atomics add in an order that may change from
 run to run, so those sums are compared within rtol 1e-9, not bitwise.
+
+``segment_minmax_64`` is the reference's split route (its ``splitF64``
+on): Spark's NaN rule on every device. It needs no hi/lo limbs: the
+``fused_minmax`` kernel reduces native 64-bit values, with no segment cap.
 """
 
 from __future__ import annotations
@@ -64,3 +69,20 @@ def segment_sum(x: torch.Tensor, gid: torch.Tensor,
     out = torch.zeros((num_segments,) + tuple(x.shape[1:]), dtype=x.dtype,
                       device=x.device)
     return out.index_add_(0, gid.to(torch.int64), x)
+
+
+def segment_minmax_64(is_min: bool, values: torch.Tensor, valid: torch.Tensor,
+                      gid: torch.Tensor, num_segments: int) -> torch.Tensor:
+    """Exact per-segment min (``is_min``) or max of int64 or float64
+    ``values`` over the rows with ``valid`` and ``gid`` in
+    [0, num_segments). Doubles order as Spark does: NaN is greater than
+    every other value (max is NaN if any; min ignores NaN unless the
+    segment is all-NaN; a NaN result is the canonical NaN) and -0.0 < 0.0.
+    Empty segments hold the identity (INT64_MAX/MIN, +inf/-inf); callers
+    mask them by their own ``has_any``."""
+    if values.dtype not in (torch.int64, torch.float64):
+        raise TypeError(f"segment_minmax_64 of {values.dtype}: int64 or "
+                        "float64 values only")
+    from spark_rapids_tpu_torch.kernels import segreduce as kseg
+    return kseg.fused_minmax(is_min, values, valid, gid.to(torch.int32),
+                             num_segments)

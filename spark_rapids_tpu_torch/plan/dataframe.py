@@ -1,6 +1,6 @@
 """DataFrame API (port of the DataFrame/GroupedData/from_host_table part
 of ``spark_rapids_tpu/plan/dataframe.py``: select, with_column, filter,
-group_by, sort, limit, join on column names): builds plan nodes; a
+group_by, agg, sort, limit, join on column names): builds plan nodes; a
 session executes them."""
 
 from __future__ import annotations
@@ -34,6 +34,10 @@ class DataFrame:
     def group_by(self, *keys) -> "GroupedData":
         keys = [col(k) if isinstance(k, str) else k for k in keys]
         return GroupedData(self, keys)
+
+    def agg(self, *aggs) -> "DataFrame":
+        """The global (ungrouped) aggregate: one output row."""
+        return GroupedData(self, []).agg(*aggs)
 
     def sort(self, *orders, ascending: bool = True) -> "DataFrame":
         sos = []

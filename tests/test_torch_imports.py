@@ -107,8 +107,10 @@ def test_unported_pieces_raise_not_implemented():
                    np.arange(10, dtype=np.int64)),
         HostColumn(spark_rapids_tpu_torch.types.DOUBLE, np.ones(10))])
     df = from_host_table(t, s)
-    with pytest.raises(NotImplementedError, match="global"):
-        df.group_by().agg(F.sum(col("v"))).collect_table()
+    # the global aggregate is ported: one row
+    assert df.agg(F.sum(col("v")), F.max(col("k"))).collect() == [(10.0, 9)]
+    with pytest.raises(NotImplementedError, match="Min over boolean"):
+        df.group_by("k").agg(F.min(col("k") > lit(3))).collect_table()
     with pytest.raises(NotImplementedError, match="Sum"):
         df.group_by("k").agg(F.sum(col("k"))).collect_table()
     with pytest.raises(NotImplementedError, match="double arithmetic"):

@@ -127,7 +127,8 @@ def test_wrapper_on_cpu_is_the_plain_version_and_launches_nothing():
     b = tseg.onehot_partials_plain(torch.from_numpy(x),
                                    torch.from_numpy(gid), nseg, nb, block)
     assert torch.equal(a, b)
-    assert K.launch_counts() == {"onehot_partials": 0, "gather_compact": 0,
+    assert K.launch_counts() == {"onehot_partials": 0, "fused_minmax": 0,
+                                 "gather_compact": 0,
                                  "sort_with_payload": 0, "probe_rowids": 0}
 
 
