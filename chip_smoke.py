@@ -14,7 +14,9 @@ Phases, in order; any failure exits non-zero:
    same function;
 4. TPC-H q1 end to end through ``TorchSession`` at ``--rows`` lineitem rows
    (default 6,001,215 = TPC-H SF 1), checked against a numpy oracle, with
-   every kernel's launch counter read around the query;
+   every kernel's launch counter read around the query (phases 4-6 also log
+   each sort's rows, operands, varying bits B and digit passes, and the
+   sort's host syncs);
 5. TPC-H q3 end to end at the same lineitem rows, in two data forms: the
    dense keys of models/tpch.py (direct-address joins) and the same tables
    with their keys mapped to a sparse 40-bit range (hash-probe joins,
@@ -330,17 +332,37 @@ def sort_operands(n, nops, hi, gen):
                           dtype=torch.int32) for _ in range(nops)]
 
 
-def packed_key(ops, hi_bits):
+def packed_key(ops, widths):
+    """One int64 key with the order of the operand tuples: each operand's
+    low ``widths[i]`` bits (its flipped word for a uint32 view), first
+    operand most significant."""
     key = torch.zeros_like(ops[0], dtype=torch.int64)
-    for o in ops:
-        key = (key << hi_bits) | o.to(torch.int64)
+    for o, w in zip(ops, widths):
+        v = o.view(torch.int32).to(torch.int64) & ((1 << w) - 1)
+        key = (key << w) | v
     return key
+
+
+def sparse_q8_inner_operands(gen, rows=2_500_000, domain=250_000,
+                             capacity=1 << 22):
+    """The sort-segment aggregate's operands at sparse q8 inner's shape:
+    [dead, null, hi, lo] of ``sparse_keys(o_custkey)``, o_custkey under
+    the Exponential skew, 2,500,000 orders in a 2^22 bucket (the padding
+    rows dead and null, their key zeroed)."""
+    from spark_rapids_tpu_torch.ops.ordering import comparable_operands
+    live = torch.arange(capacity, device=DEV) < rows
+    key = sparse_keys(exponential_keys(capacity, domain, gen))
+    dead = (~live).to(torch.int32)
+    return [dead, dead.clone()] + comparable_operands(
+        torch.where(live, key, torch.zeros_like(key)))
 
 
 def check_sort(gen) -> dict:
     from spark_rapids_tpu_torch.kernels.sort import (
+        radix_plan,
         sort_with_payload,
         sort_with_payload_plain,
+        survey_words,
     )
     from spark_rapids_tpu_torch.ops.ordering import (
         comparable_operands,
@@ -350,13 +372,17 @@ def check_sort(gen) -> dict:
     def run_case(name, ops, quiet=False):
         n = ops[0].shape[0]
         payload = torch.arange(n, dtype=torch.int32, device=DEV)
+        sort_with_payload.trace = []
         got = sort_with_payload(ops, payload)
+        (_, m, survey), = sort_with_payload.trace
+        sort_with_payload.trace = None
         ref = sort_with_payload_plain(ops, payload)
         torch.cuda.synchronize()
         ok = all(same_bits(g, r) for g, r in zip(got, ref))
         if not quiet or not ok:
-            log(f"  sort {name}: exact={ok} (tol: bit-identical) "
-                f"{'OK' if ok else 'FAIL'}")
+            plan = radix_plan(*survey_words(survey.tolist(), m))
+            log(f"  sort {name}: B={plan.bits} passes={len(plan.passes)} "
+                f"exact={ok} (tol: bit-identical) {'OK' if ok else 'FAIL'}")
         if not ok:
             fail(f"sort_with_payload {name} disagrees with its plain version")
 
@@ -369,48 +395,93 @@ def check_sort(gen) -> dict:
               torch.randint(0, 2, (16,), generator=gen, device=DEV,
                             dtype=torch.int32)]
     run_case("q1 (16 rows, 5 int32 operands)", q1_ops)
+
     # edges: f64 sortable words (uint32) with NaN, -0.0, +-inf and ties,
-    # ascending and descending, beside int32 ties
-    f = torch.randn(4096, generator=gen, device=DEV, dtype=torch.float64)
-    f[:6] = torch.tensor([float("nan"), -0.0, 0.0, float("inf"),
-                          float("-inf"), float("nan")], dtype=torch.float64)
-    f[6:2048] = f[:6].repeat(400)[:2042]
-    words = comparable_operands(f)
+    # ascending and descending, beside int32 ties: B > 64 (multiword), in
+    # one CTA and on the planned path
+    def f64_edges(n):
+        f = torch.randn(n, generator=gen, device=DEV, dtype=torch.float64)
+        f[:6] = torch.tensor([float("nan"), -0.0, 0.0, float("inf"),
+                              float("-inf"), float("nan")],
+                             dtype=torch.float64)
+        f[6:n // 2] = f[:6].repeat(n // 12 + 1)[:n // 2 - 6]
+        words = comparable_operands(f)
+        return ([sort_operands(n, 1, 3, gen)[0]] + words
+                + descending_operands(words))
+
     run_case("edges (4096 rows, uint32 f64 words asc+desc, int32 ties)",
-             [sort_operands(4096, 1, 3, gen)[0]] + words
-             + descending_operands(words))
-    # every power of two from 2 to 2^24 (tile boundaries included)
+             f64_edges(4096))
+    run_case("edges (2^20 rows, uint32 f64 words asc+desc, int32 ties)",
+             f64_edges(1 << 20))
+    # every power of two from 2 to 2^24 (one CTA up to 4096 rows)
     for p in range(1, 25):
         run_case(f"n=2^{p}", sort_operands(1 << p, 2, 7, gen), quiet=True)
-    log("  sort n=2^1..2^24 (2 int32 operands): exact=True (tol: "
+    log("  sort n=2^1..2^24 (2 int32 operands of 7 values): exact=True (tol: "
         "bit-identical) OK")
+    for n in (3, 384, 1_000_003):
+        run_case(f"n={n} (2 int32 operands of 7 values, 1 uint32)",
+                 sort_operands(n, 2, 7, gen)
+                 + [torch.randint(-(2 ** 31), 2 ** 31 - 1, (n,),
+                                  generator=gen, device=DEV,
+                                  dtype=torch.int32).view(torch.uint32)])
+    for n in (16, 1 << 20):
+        run_case(f"B=0 ({n} equal rows, 3 operands)",
+                 [torch.full((n,), v, dtype=torch.int32, device=DEV)
+                  for v in (-5, 0, 2 ** 31 - 1)])
     big = 1 << 20
     big_ops = sort_operands(big, 5, 1 << 12, gen)
-    run_case("large (2^20 rows, 5 int32 operands)", big_ops)
+    run_case("large (2^20 rows, 5 int32 operands of 12 bits)", big_ops)
+    sq8_ops = sparse_q8_inner_operands(gen)
+    run_case("sparse q8 inner (2^22 rows, [dead, null, hi, lo] of "
+             "sparse_keys(o_custkey))", sq8_ops)
 
-    def timings(ops, key_bits):
+    def timings(name, ops, widths):
         n = ops[0].shape[0]
         payload = torch.arange(n, dtype=torch.int32, device=DEV)
         ms = time_ms(lambda: sort_with_payload(ops, payload))
         plain = time_ms(lambda: sort_with_payload_plain(ops, payload))
-        key = packed_key(ops, key_bits)
+        key = packed_key(ops, widths)
         lib = time_ms(lambda: torch.sort(key, stable=True))
         narr = len(ops) + 1
         nbytes = 2 * narr * n * 4
         ops_needed = n * math.log2(n) * narr
         bnd, by = bound_ms(nbytes, ops_needed, INT32_OPS_PER_S)
+        log(f"  sort time at {name}: kernel {ms:.4f} ms, plain {plain:.4f} "
+            f"ms, torch.sort(packed int64, stable=True) {lib:.4f} ms, bound "
+            f"{bnd:.6f} ms ({by})")
         return ms, plain, lib, bnd, by
 
-    ms, plain, lib, bnd, by = timings(q1_ops, 2)
-    log(f"  sort time at q1 shape: kernel {ms:.4f} ms, plain {plain:.4f} ms, "
-        f"torch.sort(packed int64) {lib:.4f} ms, bound {bnd:.6f} ms ({by})")
-    lms, lplain, llib, lbnd, lby = timings(big_ops, 12)
-    log(f"  sort time at large shape: kernel {lms:.4f} ms, plain "
-        f"{lplain:.4f} ms, torch.sort(packed int64) {llib:.4f} ms, bound "
-        f"{lbnd:.4f} ms ({lby})")
+    ms, plain, lib, bnd, by = timings("q1 shape", q1_ops, [1, 1, 2, 1, 1])
+    timings("large shape (2^20 x 5)", big_ops, [12] * 5)
+    timings("sparse q8 inner shape (2^22 x 4)", sq8_ops, [1, 1, 8, 32])
     return {"name": "sort_with_payload", "max_abs_err": 0.0, "ms": ms,
             "plain_ms": plain, "bound_ms": bnd, "bound_by": by,
             "library_ms": lib}
+
+
+def sort_trace_start() -> int:
+    """Record every sort from here on; returns the host syncs so far."""
+    from spark_rapids_tpu_torch.kernels.sort import sort_with_payload
+    sort_with_payload.trace = []
+    return sort_with_payload.host_syncs
+
+
+def sort_trace_end(what: str, syncs_before: int) -> None:
+    """Log each sort since sort_trace_start: rows, operands, varying bits
+    B and digit passes, and the survey read-backs (host syncs)."""
+    from spark_rapids_tpu_torch.kernels.sort import (
+        radix_plan,
+        sort_with_payload,
+        survey_words,
+    )
+    trace, sort_with_payload.trace = sort_with_payload.trace, None
+    sorts = []
+    for n, m, survey in trace:
+        plan = radix_plan(*survey_words(survey.tolist(), m))
+        sorts.append(f"(n={n}, operands={m}, B={plan.bits}, "
+                     f"passes={len(plan.passes)})")
+    log(f"  {what}: sorts {', '.join(sorts) or 'none'}; sort host syncs "
+        f"{sort_with_payload.host_syncs - syncs_before}")
 
 
 def sparse_keys(k: torch.Tensor) -> torch.Tensor:
@@ -758,12 +829,14 @@ def run_q1(rows: int, profile_dir) -> dict:
     torch.cuda.reset_peak_memory_stats()
 
     K.reset_launch_counts()
+    syncs = sort_trace_start()
     t0 = time.perf_counter()
     got = q1_dataframe(session, table).collect_table()
     torch.cuda.synchronize()
     cold = time.perf_counter() - t0
     launches = K.launch_counts()
     log(f"  q1 launches during the query: {launches}")
+    sort_trace_end("q1", syncs)
     for name in ("onehot_partials", "gather_compact", "sort_with_payload"):
         if launches[name] < 1:
             fail(f"q1 did not launch {name}")
@@ -795,9 +868,34 @@ def profile_q1(session, table, out_dir) -> None:
                 out_dir)
 
 
+#: the radix sort's kernels (csrc/sort.cu), for its share of device time
+SORT_KERNELS = ("survey_bits", "pack_hist", "onesweep_pass", "finish_rows",
+                "sort_small")
+
+
+def trace_times(path):
+    """(device busy ms, span ms from the first device event to the end of
+    the last, sort kernels ms) of a chrome trace's kernels, copies and
+    memsets."""
+    with open(path) as f:
+        events = json.load(f)
+    events = events["traceEvents"] if isinstance(events, dict) else events
+    dev = [e for e in events if e.get("ph") == "X" and e.get("cat") in (
+        "kernel", "gpu_memcpy", "gpu_memset")]
+    if not dev:
+        fail(f"{path}: no device event in the trace")
+    busy = sum(e["dur"] for e in dev) / 1e3
+    span = (max(e["ts"] + e["dur"] for e in dev)
+            - min(e["ts"] for e in dev)) / 1e3
+    sort = sum(e["dur"] for e in dev
+               if any(k in e["name"] for k in SORT_KERNELS)) / 1e3
+    return busy, span, sort
+
+
 def profile_run(name, run, out_dir) -> None:
     """One warm run of ``run`` under torch.profiler: the table of device
-    time by operator and a chrome trace under ``out_dir``."""
+    time by operator and a chrome trace under ``out_dir``, and the run's
+    device busy time, idle share and sort share from that trace."""
     from torch.profiler import ProfilerActivity, profile
     os.makedirs(out_dir, exist_ok=True)
     with profile(activities=[ProfilerActivity.CPU,
@@ -810,7 +908,12 @@ def profile_run(name, run, out_dir) -> None:
                            for ch in name).split())
     with open(os.path.join(out_dir, f"{tag}_profile.txt"), "w") as f:
         f.write(table_txt)
-    prof.export_chrome_trace(os.path.join(out_dir, f"{tag}_trace.json"))
+    trace = os.path.join(out_dir, f"{tag}_trace.json")
+    prof.export_chrome_trace(trace)
+    busy, span, sort = trace_times(trace)
+    log(f"  {name}: device busy {busy:.3f} ms over a span of {span:.3f} ms "
+        f"({100 * (1 - busy / span):.1f}% idle); sort kernels {sort:.3f} ms "
+        f"({100 * sort / busy:.1f}% of busy)")
     log(f"  profile of one warm {name} run (top by device time):")
     for line in table_txt.splitlines()[:25]:
         log("    " + line)
@@ -903,9 +1006,11 @@ def run_q3_form(what, tables, oracle, conf, expect, profile_dir) -> dict:
         check_q3_result(again, oracle, what)
         revenue_bits.add(again.columns[1].data.tobytes())
     K.reset_launch_counts()
+    syncs = sort_trace_start()
     again = q3_dataframe(session, *tables).collect_table()
     torch.cuda.synchronize()
     launches = K.launch_counts()
+    sort_trace_end(what, syncs)
     warm_m = session.last_metrics()
     check_q3_result(again, oracle, what)
     peak = torch.cuda.max_memory_allocated()
@@ -951,15 +1056,18 @@ def run_q3(rows: int, profile_dir) -> int:
     # replay); a join whose hash table leaves a build row homeless replays
     # once more onto the sort-based probe, which 4 attempts may do at SF 1
     run_q3_form("q3 dense", dense, o_dense, None,
-                {"speculationReplays": (0,), "probe_rowids": (0,)},
+                {"speculationReplays": (0,), "probe_rowids": (0,),
+                 "sort_with_payload": (1,)},
                 profile_dir)
     default = run_q3_form("q3 sparse", sparse, o_sparse, None,
                           {"speculationReplays": (1, 2),
-                           "probe_rowids": (2, 4)}, profile_dir)
+                           "probe_rowids": (2, 4),
+                           "sort_with_payload": (2, 4)}, profile_dir)
     eight = run_q3_form(
         "q3 sparse, 8 attempts", sparse, o_sparse,
         {"spark.rapids.tpu.kernels.hashprobe.attempts": "8"},
-        {"speculationReplays": (1,), "probe_rowids": (4,)}, None)
+        {"speculationReplays": (1,), "probe_rowids": (4,),
+         "sort_with_payload": (2,)}, None)
     log(f"  probe_rowids launches per warm sparse q3: "
         f"{default['probe_rowids']} with 4 attempts, {eight['probe_rowids']} "
         "with 8")
@@ -1096,6 +1204,11 @@ def corpus_cases(session, tables, sparse_orders):
     }
 
 
+#: sorts in one warm run of a phase-6 query (0 where not listed): only
+#: the sort-segment aggregate sorts
+CORPUS_SORTS = {"q8 inner, sparse keys": 1}
+
+
 def run_corpus(sf: float, seed: int, profile_dir) -> int:
     """Every phase-6 query: a cold run (replays counted), three warm runs,
     and one more warm run between launch-counter reads; each result
@@ -1132,9 +1245,11 @@ def run_corpus(sf: float, seed: int, profile_dir) -> int:
             warm.append(time.perf_counter() - t0)
             check(again)
         K.reset_launch_counts()
+        syncs = sort_trace_start()
         again = build().collect_table()
         torch.cuda.synchronize()
         launches = K.launch_counts()
+        sort_trace_end(name, syncs)
         warm_replays = session.last_metrics()["speculationReplays"]
         check(again)
         peak = torch.cuda.max_memory_allocated()
@@ -1150,6 +1265,11 @@ def run_corpus(sf: float, seed: int, profile_dir) -> int:
         if launches["fused_minmax"] != want_minmax:
             fail(f"{name}: fused_minmax launched {launches['fused_minmax']} "
                  f"times, expected {want_minmax}")
+        want_sorts = CORPUS_SORTS.get(name, 0)
+        if launches["sort_with_payload"] != want_sorts:
+            fail(f"{name}: sort_with_payload launched "
+                 f"{launches['sort_with_payload']} times, expected "
+                 f"{want_sorts}")
         if name == "q8":
             q8_launches = launches["fused_minmax"]
         if profile_dir:

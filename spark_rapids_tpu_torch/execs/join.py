@@ -65,34 +65,24 @@ def _as(like: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return x.view(torch.uint32) if like.dtype == torch.uint32 else x
 
 
-def _pad(x: torch.Tensor, n: int, fill) -> torch.Tensor:
-    if x.shape[0] == n:
-        return x
-    tail = torch.full((n - x.shape[0],), fill, dtype=x.dtype, device=x.device)
-    return torch.cat([x, tail])
-
-
 def _dense_rank_ops(ops: Sequence[torch.Tensor],
                     valid: torch.Tensor) -> torch.Tensor:
     """Dense ranks [0, nvalid) of the operand tuples over valid rows, -1
     for invalid ones: one lexicographic sort (ops/ordering.lex_sort), an
-    adjacent-change cumsum and a scatter back. The sort kernel takes
-    power-of-two lengths, so the rows pad with invalid ones, which sort
-    after every real row and rank -1."""
+    adjacent-change cumsum and a scatter back. Invalid rows sort after
+    every valid one."""
     from spark_rapids_tpu_torch.ops.ordering import lex_sort
     n = int(ops[0].shape[0])
-    m = max(2, 1 << (n - 1).bit_length())
-    valid_p = _pad(valid, m, False)
     zops = []
     for o in ops:
         z = torch.where(valid, _i32(o), torch.zeros((), dtype=_i32(o).dtype,
                                                      device=o.device))
-        zops.append(_as(o, _pad(z, m, 0)))
-    res = lex_sort([(~valid_p).to(torch.int32)] + zops,
-                   torch.arange(m, dtype=torch.int32, device=valid.device))
+        zops.append(_as(o, z))
+    res = lex_sort([(~valid).to(torch.int32)] + zops,
+                   torch.arange(n, dtype=torch.int32, device=valid.device))
     perm = res[-1].to(torch.int64)
     s_valid = res[0] == 0
-    changed = torch.arange(m, device=valid.device) == 0
+    changed = torch.arange(n, device=valid.device) == 0
     for so in res[1:-1]:
         s = _i32(so)
         changed = changed | (s != torch.roll(s, 1))
@@ -100,9 +90,9 @@ def _dense_rank_ops(ops: Sequence[torch.Tensor],
                                dtype=torch.int32) - 1
     rank_sorted = torch.where(s_valid, rank_sorted,
                               torch.full_like(rank_sorted, -1))
-    out = torch.empty(m, dtype=torch.int32, device=valid.device)
+    out = torch.empty(n, dtype=torch.int32, device=valid.device)
     out[perm] = rank_sorted
-    return out[:n]
+    return out
 
 
 def sort_probe(lkeys: Sequence[KeyVal], rkeys: Sequence[KeyVal],

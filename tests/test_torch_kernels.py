@@ -208,7 +208,22 @@ def test_sort_with_payload_plain_vs_pallas(n, kind):
         assert _bits_equal(r, _np(g))
 
 
-def test_sort_rejects_non_power_of_two():
-    with pytest.raises(ValueError, match="power of two"):
-        tsort.sort_with_payload([torch.zeros(384, dtype=torch.int32)],
-                                torch.arange(384, dtype=torch.int32))
+@pytest.mark.parametrize("n", [1, 3, 384])
+def test_sort_takes_any_length(n):
+    """The wrapper has no power-of-two envelope: a length that is not a
+    power of two sorts (CPU tensors: the plain version) and equals
+    lax.sort(operands + [payload], num_keys=m) bit for bit."""
+    rng = np.random.default_rng(37 + n)
+    ops = [rng.integers(0, 3, n).astype(np.int32),
+           rng.integers(0, 2 ** 32, n, dtype=np.uint64).astype(np.uint32),
+           rng.integers(-2, 2, n).astype(np.int32)]
+    payload = np.arange(n, dtype=np.int32)
+    ref = jax.lax.sort([jnp.asarray(o) for o in ops] + [jnp.asarray(payload)],
+                       num_keys=len(ops))
+    tops = [torch.from_numpy(ops[0]),
+            torch.from_numpy(ops[1].view(np.int32)).view(torch.uint32),
+            torch.from_numpy(ops[2])]
+    got = tsort.sort_with_payload(tops, torch.from_numpy(payload))
+    assert len(ref) == len(got) == len(ops) + 1
+    for r, g in zip(ref, got):
+        assert _bits_equal(r, _np(g))
