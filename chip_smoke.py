@@ -6,23 +6,28 @@ Phases, in order; any failure exits non-zero:
 
 1. the card: ``nvidia-smi`` name and power limit, torch version, compute
    capability (must be 9.0, an H100);
-2. build the CUDA kernels from ``spark_rapids_tpu_torch/kernels/csrc``;
+2. build the CUDA kernels from ``spark_rapids_tpu_torch/kernels/csrc``,
+   with ``csrc/yardstick.cu`` (the kernels before their redesigns, which
+   the port does not call, timed beside the port's own);
 3. each kernel against its plain torch version on the card, at the shapes
-   q1, q3 and the corpus's q2 and q8 give it, at one large shape and on
-   edge inputs, with times (CUDA events, warm median) beside the least
-   time the card could take and one PyTorch library call computing the
-   same function;
+   q1, q3 and the corpus's q2 and q8 give it, at large shapes and on edge
+   inputs, with times (CUDA events, warm median) beside the least time the
+   card could take, one PyTorch library call computing the same function
+   and, for the probe and the compaction, the yardstick kernels; the
+   probe and the compaction run under torch's sync debug mode set to
+   raise, and the first one-pass compaction under a watchdog;
 4. TPC-H q1 end to end through ``TorchSession`` at ``--rows`` lineitem rows
    (default 6,001,215 = TPC-H SF 1), checked against a numpy oracle, with
    every kernel's launch counter read around the query (phases 4-6 also log
-   each sort's rows, operands, varying bits B and digit passes, and the
-   sort's host syncs);
+   each sort's rows, operands, varying bits B and digit passes, the sort's
+   host syncs, and every host sync of the counted run);
 5. TPC-H q3 end to end at the same lineitem rows, in two data forms: the
    dense keys of models/tpch.py (direct-address joins) and the same tables
    with their keys mapped to a sparse 40-bit range (hash-probe joins,
    after a replay), the latter with 4 (the default) and with 8 hash-probe
    attempts; cold and warm times, replays, peak memory and every kernel's
-   launches in one warm run, each result against a numpy oracle;
+   launches in one warm run, each result against a numpy oracle; dense
+   q3's compactions checked and timed again on their own inputs;
 6. the golden corpus's q2 and q8 through ``TorchSession`` at
    ``scale_test_specs(--sf)`` (default 10: 2,500,000 orders under an
    Exponential o_custkey skew over 250,000 customers, 10,000,000 lineitem
@@ -43,13 +48,17 @@ each q3 form and of each phase-6 query.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import ctypes
 import json
 import math
 import os
 import statistics
 import subprocess
 import sys
+import threading
 import time
+import warnings
 
 import numpy as np
 import torch
@@ -96,8 +105,11 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, iters: int = 15, warmup: int = 3) -> float:
-    """Median milliseconds of ``fn`` on the card (CUDA events, warm)."""
+def time_ms(fn, iters: int = 15, warmup: int = 3, calls: int = 1) -> float:
+    """Median milliseconds of ``fn`` on the card (CUDA events, warm). With
+    ``calls`` > 1, the events hold that many calls back to back and the
+    time is per call: the host's time to launch overlaps the device's
+    work, so a kernel slower than its launch shows its device time."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
@@ -106,11 +118,16 @@ def time_ms(fn, iters: int = 15, warmup: int = 3) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(calls):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / calls)
     return statistics.median(times)
+
+
+#: calls back to back for the per-call device times of the logs
+BACK_TO_BACK = 20
 
 
 def bound_ms(nbytes: float, ops: float, ops_rate: float):
@@ -249,8 +266,9 @@ def compact_inputs(capacity, nkeep_frac, dtypes, gen):
         if dt == torch.float64:
             d = torch.randn(capacity, generator=gen, device=dev,
                             dtype=torch.float64) * 1e6
-            d[:4] = torch.tensor([float("nan"), -0.0, float("inf"),
-                                  float("-inf")], dtype=torch.float64)
+            edge = torch.tensor([float("nan"), -0.0, float("inf"),
+                                 float("-inf")], dtype=torch.float64)
+            d[:4] = edge[:capacity]
         elif dt == torch.int64:
             d = torch.randint(-(2 ** 62), 2 ** 62, (capacity,), generator=gen,
                               device=dev, dtype=torch.int64)
@@ -264,64 +282,190 @@ def compact_inputs(capacity, nkeep_frac, dtypes, gen):
     return datas, valids, keep
 
 
-def compact_args(keep):
+_YARDSTICK = None
+
+
+def yardstick():
+    """csrc/yardstick.cu: the probe before its early exit, the compaction
+    before its one pass, and the probe over 16-byte slots; the port calls
+    none of them."""
+    global _YARDSTICK
+    if _YARDSTICK is None:
+        from spark_rapids_tpu_torch.kernels.build import load_library
+        lib = load_library("yardstick")
+        p, i64, i = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+        lib.srt_probe_full_walk.restype = ctypes.c_int
+        lib.srt_probe_full_walk.argtypes = [p, p, p, p, p, i64, i64, i, p]
+        lib.srt_probe_slot16.restype = ctypes.c_int
+        lib.srt_probe_slot16.argtypes = [p, p, p, p, p, p, i64, i64, i, p]
+        _YARDSTICK = lib
+    return _YARDSTICK
+
+
+def two_pass_compact_pairs(datas, valids, keep, capacity):
+    """compact_pairs as it was before the one-pass kernel, the yardstick:
+    the torch prologue (keep as int32, its sum, cumsum - 1), a CPU tensor
+    of stream descriptors copied to the card, the ctypes signature set on
+    the call, then the scatter and the gather launch."""
+    from spark_rapids_tpu_torch.kernels import check_launch, stream_handle
     keep_i = keep.to(torch.int32)
-    return (torch.cumsum(keep_i, 0, dtype=torch.int32) - 1,
-            keep_i.sum(dtype=torch.int32))
+    new_n = keep_i.sum(dtype=torch.int32)
+    pos = torch.cumsum(keep_i, 0, dtype=torch.int32) - 1
+    streams = list(datas) + list(valids)
+    outs = [torch.empty_like(t) for t in streams]
+    sel = torch.empty(capacity, dtype=torch.int32, device=keep.device)
+    desc = torch.tensor([[s.data_ptr(), o.data_ptr(), s.element_size()]
+                         for s, o in zip(streams, outs)] or [[0, 0, 0]],
+                        dtype=torch.int64).to(keep.device)
+    lib = yardstick()
+    fn = lib.srt_gather_compact_two_pass
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_int64, ctypes.c_void_p]
+    rc = fn(keep.data_ptr(), pos.data_ptr(), sel.data_ptr(), new_n.data_ptr(),
+            desc.data_ptr(), len(streams), capacity, stream_handle(keep))
+    check_launch(lib, rc, "two-pass compaction")
+    n = len(datas)
+    return list(zip(outs[:n], outs[n:])), new_n
 
 
-def check_compact(gen) -> dict:
+@contextlib.contextmanager
+def no_host_sync():
+    """Raise on any synchronizing torch CUDA call inside the block."""
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+@contextlib.contextmanager
+def host_sync_count():
+    """Count the synchronizing torch CUDA calls inside the block (torch's
+    sync debug mode: item/tolist/cpu reads, pageable copies, stream
+    syncs); ``box["syncs"]`` holds the count afterwards."""
+    box = {"syncs": None}
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            yield box
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    box["messages"] = [str(w.message) for w in caught
+                       if "called a synchronizing" in str(w.message)]
+    box["syncs"] = len(box["messages"])
+
+
+def watchdog(seconds: float, what: str) -> threading.Timer:
+    """Ends the process (exit 4) unless cancelled within ``seconds``: a
+    look-back that waits on a tile that never publishes would hang the
+    card, and no CUDA call returns to say so."""
+    def fire():
+        print(f"chip_smoke: FAILED: {what} did not finish within "
+              f"{seconds} s", flush=True)
+        os._exit(4)
+    timer = threading.Timer(seconds, fire)
+    timer.daemon = True
+    timer.start()
+    return timer
+
+
+def compact_case(name, datas, valids, keep, capacity, quiet=False):
+    """gather_compact (under no_host_sync) against gather_compact_plain on
+    the card: outputs and new_n bit-identical, and no output stream holds
+    a nonzero byte past new_n."""
     from spark_rapids_tpu_torch.kernels.compact import (
         gather_compact,
         gather_compact_plain,
     )
+    with no_host_sync():
+        got, got_n = gather_compact(datas, valids, keep, capacity)
+    ref, ref_n = gather_compact_plain(datas, valids, keep, capacity)
+    torch.cuda.synchronize()
+    n = int(got_n)
+    ok = same_bits(got_n, ref_n) and all(
+        same_bits(gd, rd) and same_bits(gv, rv)
+        for (gd, gv), (rd, rv) in zip(got, ref))
+    tails_zero = not any(bool(t[n:].view(torch.uint8).any())
+                         for pair in got for t in pair)
+    ok = ok and tails_zero
+    if not quiet or not ok:
+        log(f"  compact {name}: kept {n}/{capacity} new_n exact="
+            f"{same_bits(got_n, ref_n)} tails zero={tails_zero} exact={ok} "
+            f"(tol: bit-identical) {'OK' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"gather_compact {name} disagrees with its plain version")
 
-    def run_case(name, datas, valids, keep, capacity):
-        pos, new_n = compact_args(keep)
-        got = gather_compact(datas, valids, keep, pos, new_n, capacity)
-        ref = gather_compact_plain(datas, valids, keep, pos, new_n, capacity)
-        torch.cuda.synchronize()
-        ok = all(same_bits(gd, rd) and same_bits(gv, rv)
-                 for (gd, gv), (rd, rv) in zip(got, ref))
-        log(f"  compact {name}: kept {int(new_n)}/{capacity} exact="
-            f"{ok} (tol: bit-identical) {'OK' if ok else 'FAIL'}")
-        if not ok:
-            fail(f"gather_compact {name} disagrees with its plain version")
-        return pos, new_n
 
+def compact_times(name, datas, valids, keep, capacity):
+    """(kernel, two-pass, plain, library, bound ms, bound_by): compact_pairs
+    as a whole, from keep to outputs, in each form."""
+    from spark_rapids_tpu_torch.kernels.compact import (
+        gather_compact,
+        gather_compact_plain,
+    )
+    d, v, k, cap = datas, valids, keep, capacity
+    ms = time_ms(lambda: gather_compact(d, v, k, cap))
+    old = time_ms(lambda: two_pass_compact_pairs(d, v, k, cap))
+    ms_b2b = time_ms(lambda: gather_compact(d, v, k, cap), iters=7,
+                     calls=BACK_TO_BACK)
+    old_b2b = time_ms(lambda: two_pass_compact_pairs(d, v, k, cap), iters=7,
+                      calls=BACK_TO_BACK)
+    plain = time_ms(lambda: gather_compact_plain(d, v, k, cap))
+    lib = time_ms(lambda: [t[k] for t in list(d) + list(v)])
+    row_bytes = sum(t.element_size() for t in list(d) + list(v))
+    # the function: keep and every stream read once, every output slot
+    # written once; the two-pass form's bound also read pos (4 B a row)
+    nbytes = cap * (1 + 2 * row_bytes)
+    bnd, by = bound_ms(nbytes, 0, INT32_OPS_PER_S)
+    old_bnd, _ = bound_ms(cap * (row_bytes + 1 + 4) + cap * row_bytes, 0,
+                          INT32_OPS_PER_S)
+    log(f"  compact time at {name} ({cap} rows, {len(d)} columns, "
+        f"{row_bytes} B a row, {int(k.sum())} kept): kernel {ms:.4f} ms, "
+        f"two-pass (before) {old:.4f} ms, {BACK_TO_BACK} back to back "
+        f"{ms_b2b:.4f} / {old_b2b:.4f} ms a call, plain {plain:.4f} ms, mask "
+        f"indexing {lib:.4f} ms, bound {bnd:.6f} ms ({by}; with pos read "
+        f"{old_bnd:.6f}), {nbytes / ms / 1e6:.1f} GB/s")
+    return ms, old, plain, lib, bnd, by
+
+
+def check_compact(gen) -> dict:
     # q1's group packing: 16 slots, 6 groups, 2 i32 codes + 7 f64 + 1 i64
     q1_types = [torch.int32] * 2 + [torch.float64] * 7 + [torch.int64]
     datas, valids, _ = compact_inputs(16, 1.0, q1_types, gen)
     keep = torch.zeros(16, dtype=torch.bool, device=DEV)
     keep[[0, 1, 3, 4, 6, 7]] = True
-    pos, new_n = run_case("q1 (16 slots, 10 columns)", datas, valids, keep, 16)
-    q1 = (datas, valids, keep, pos, new_n)
+    dog = watchdog(120, "the first one-pass compaction")
+    compact_case("q1 (16 slots, 10 columns)", datas, valids, keep, 16)
+    dog.cancel()
+    q1 = (datas, valids, keep)
     for name, frac in (("all kept", 1.0), ("all dropped", 0.0),
                        ("half kept", 0.5)):
         d, v, k = compact_inputs(4096, frac, q1_types, gen)
-        run_case(f"{name} (4096 rows)", d, v, k, 4096)
+        compact_case(f"{name} (4096 rows)", d, v, k, 4096)
+    pair = [torch.int64, torch.float64]
+    for p in range(1, 25):
+        d, v, k = compact_inputs(1 << p, 0.5, pair, gen)
+        compact_case(f"n=2^{p}", d, v, k, 1 << p, quiet=True)
+    log("  compact n=2^1..2^24 (i64 + f64, half kept): exact=True (tol: "
+        "bit-identical, new_n and zero tails included) OK")
+    for n in (1, 3, 4097, 1_000_003):
+        d, v, k = compact_inputs(n, 0.7, q1_types, gen)
+        compact_case(f"n={n} (10 columns)", d, v, k, n)
+    # more streams than one launch takes: the gather map and its launches
+    wide = [torch.int32, torch.float64, torch.int64, torch.float64] * 10
+    for n in (10_000, 1 << 20):
+        d, v, k = compact_inputs(n, 0.6, wide, gen)
+        compact_case(f"{len(wide)} columns = {2 * len(wide)} streams "
+                     f"({n} rows)", d, v, k, n)
     big = 1 << 23
     bd, bv, bk = compact_inputs(big, 0.98, [torch.float64] * 7, gen)
-    bpos, bnew = run_case("large (2^23 rows x 7 f64, 98% kept)", bd, bv, bk,
-                          big)
+    compact_case("large (2^23 rows x 7 f64, 98% kept)", bd, bv, bk, big)
 
-    def timings(d, v, k, p, nn, cap):
-        ms = time_ms(lambda: gather_compact(d, v, k, p, nn, cap))
-        plain = time_ms(lambda: gather_compact_plain(d, v, k, p, nn, cap))
-        lib = time_ms(lambda: [t[k] for t in list(d) + list(v)])
-        row_bytes = sum(t.element_size() for t in list(d) + list(v))
-        # every stream, keep and pos read once; every stream written once
-        nbytes = cap * (row_bytes + 1 + 4) + cap * row_bytes
-        bnd, by = bound_ms(nbytes, 0, INT32_OPS_PER_S)
-        return ms, plain, lib, bnd, by, nbytes
-
-    ms, plain, lib, bnd, by, nbytes = timings(*q1, 16)
-    log(f"  compact time at q1 shape: kernel {ms:.4f} ms, plain {plain:.4f} "
-        f"ms, mask indexing {lib:.4f} ms, bound {bnd:.6f} ms ({by})")
-    lms, lplain, llib, lbnd, lby, lbytes = timings(bd, bv, bk, bpos, bnew, big)
-    log(f"  compact time at large shape: kernel {lms:.4f} ms, plain "
-        f"{lplain:.4f} ms, mask indexing {llib:.4f} ms, bound {lbnd:.4f} ms "
-        f"({lby}), {lbytes / lms / 1e6:.1f} GB/s")
+    ms, _, plain, lib, bnd, by = compact_times("q1 shape", *q1, 16)
+    compact_times("large shape", bd, bv, bk, big)
     return {"name": "gather_compact", "max_abs_err": 0.0, "ms": ms,
             "plain_ms": plain, "bound_ms": bnd, "bound_by": by,
             "library_ms": lib}
@@ -510,6 +654,99 @@ def hashprobe_case(n_probe, build_cap, n_build, live_share, match_share,
     return lkeys, lvalid, rkeys, live_r
 
 
+def probe_library(lkeys, lvalid, rkeys, valid_r):
+    """The probe's function in PyTorch library calls, the yardstick: the
+    valid build keys sorted (``torch.sort``), ``torch.searchsorted``, and
+    the gather and equality mask that turn a position into a rowid or -1
+    (with unique build keys, the kernel's answer)."""
+    rows = torch.nonzero(valid_r).squeeze(1)
+    sorted_keys, order = torch.sort(rkeys[rows])
+    at = torch.searchsorted(sorted_keys, lkeys).clamp_(
+        max=sorted_keys.shape[0] - 1)
+    hit = lvalid & (sorted_keys[at] == lkeys)
+    return torch.where(hit, rows[order[at]].to(torch.int32), -1)
+
+
+def yardstick_probe(slot16, lkeys, lvalid, trow, tkey, attempts):
+    """The full walk before the early exit, or (``slot16``) the walk over
+    16-byte {key, rowid} slots packed from build_table's two arrays, the
+    packing in the same call: rowids of csrc/yardstick.cu."""
+    from spark_rapids_tpu_torch.kernels import check_launch, stream_handle
+    lib = yardstick()
+    n, tbl = lkeys.shape[0], trow.shape[0]
+    out = torch.empty(n, dtype=torch.int32, device=DEV)
+    args = (lkeys.data_ptr(), lvalid.data_ptr(), trow.data_ptr(),
+            tkey.data_ptr())
+    if slot16:
+        slots = torch.empty((tbl, 2), dtype=torch.int64, device=DEV)
+        rc = lib.srt_probe_slot16(*args, slots.data_ptr(), out.data_ptr(), n,
+                                  tbl, attempts, stream_handle(lkeys))
+    else:
+        rc = lib.srt_probe_full_walk(*args, out.data_ptr(), n, tbl, attempts,
+                                     stream_handle(lkeys))
+    check_launch(lib, rc, "yardstick probe")
+    return out
+
+
+def probe_forms(lkeys, lvalid, rkeys, live_r, tbl, attempts):
+    """{form: () -> rowids} of the probe at one shape: the kernel, the
+    full walk before the early exit, the 16-byte-slot layout (its packing
+    included), the plain version and the library calls."""
+    from spark_rapids_tpu_torch.kernels import hashprobe as H
+    trow, tkey, _ = H.build_table(rkeys, live_r, tbl, attempts)
+    return {
+        "kernel": lambda: H.probe_rowids(lkeys, lvalid, trow, rkeys,
+                                         attempts),
+        "full walk (before)": lambda: yardstick_probe(
+            False, lkeys, lvalid, trow, tkey, attempts),
+        "16-byte slots": lambda: yardstick_probe(
+            True, lkeys, lvalid, trow, tkey, attempts),
+        "plain": lambda: H.probe_rowids_plain(lkeys, lvalid, trow, rkeys,
+                                              attempts),
+        "library": lambda: probe_library(lkeys, lvalid, rkeys, live_r),
+    }
+
+
+def probe_shape(name, lkeys, lvalid, rkeys, live_r, tbl, attempts,
+                timed=True):
+    """At one shape: every form's rowids against the plain version's (the
+    library's only where the build keys are unique), the kernel under
+    no_host_sync; then each form's time beside the bound. Returns
+    {form: ms}."""
+    forms = probe_forms(lkeys, lvalid, rkeys, live_r, tbl, attempts)
+    with no_host_sync():
+        got = forms["kernel"]()
+    ref = forms["plain"]()
+    outs = {f: forms[f]() for f in ("full walk (before)", "16-byte slots",
+                                    "library")}
+    torch.cuda.synchronize()
+    ok = same_bits(got, ref) and same_bits(outs["full walk (before)"], ref) \
+        and same_bits(outs["16-byte slots"], ref)
+    lib_same = same_bits(outs["library"], ref)
+    log(f"  hashprobe {name}: matched {int((got >= 0).sum())}/"
+        f"{lkeys.shape[0]} kernel exact={ok} (tol: bit-identical to the "
+        f"plain version, both yardstick kernels too; library calls "
+        f"{'equal' if lib_same else 'differ'}) {'OK' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"probe_rowids {name} disagrees with its plain version")
+    if not timed:
+        return None
+    times = {f: time_ms(fn) for f, fn in forms.items()}
+    b2b = {f: time_ms(forms[f], iters=7, calls=BACK_TO_BACK)
+           for f in ("kernel", "full walk (before)", "16-byte slots")}
+    n = lkeys.shape[0]
+    # each probe row: key 8 B + validity 1 B read, rowid 4 B written; the
+    # table (rowid 4 B + key 8 B per slot) read once, whatever the layout
+    nbytes = n * (8 + 1 + 4) + tbl * 12
+    bnd, by = bound_ms(nbytes, 0, INT32_OPS_PER_S)
+    log(f"  hashprobe time at {name}: " + ", ".join(
+        f"{f} {t:.4f} ms" for f, t in times.items())
+        + f", bound {bnd:.4f} ms ({by}), {nbytes / times['kernel'] / 1e6:.1f}"
+        f" GB/s; {BACK_TO_BACK} back to back, a call: " + ", ".join(
+            f"{f} {t:.4f} ms" for f, t in b2b.items()))
+    return dict(times, bound=bnd, bound_by=by)
+
+
 def check_hashprobe(gen) -> dict:
     from spark_rapids_tpu_torch.kernels import hashprobe as H
 
@@ -567,32 +804,37 @@ def check_hashprobe(gen) -> dict:
     e_lv[5:10] = False
     run_ranges("edges (INT64_MIN/MAX, 0, -1, -2^31, null probe keys)", e_l,
                e_lv, e_r, e_lr, 4096, 8)
+    probe_shape("edges, 8 attempts", e_l, e_lv, e_r, e_lr, 4096, 8,
+                timed=False)
     d_r, d_lr = e_r.clone(), e_lr.clone()
     d_r[100] = d_r[1500]
     d_lr[100] = d_lr[1500] = True
     run_ranges("duplicated build key", e_l, e_lv, d_r, d_lr, 4096, 4,
                want_fail=True)
+    probe_shape("duplicated build key, self-probe", d_r, d_lr, d_r, d_lr,
+                4096, 4, timed=False)
     run_ranges("homeless rows (H 64, 1 attempt)", e_l, e_lv, e_r, e_lr, 64,
                1, want_fail=True)
+    probe_shape("homeless rows, probe", e_l, e_lv, e_r, e_lr, 64, 1,
+                timed=False)
 
-    lkeys, lvalid, rkeys, live_r = j1
-    tr, tk, _ = H.build_table(rkeys, live_r, 1 << 22, 4)
-    ms = time_ms(lambda: H.probe_rowids(lkeys, lvalid, tr, tk, 4))
-    plain = time_ms(lambda: H.probe_rowids_plain(lkeys, lvalid, tr, tk, 4))
-    sorted_build = torch.sort(rkeys[live_r]).values
-    lib = time_ms(lambda: torch.searchsorted(sorted_build, lkeys))
-    n = lkeys.shape[0]
-    # each probe row: key 8 B + validity 1 B read, rowid 4 B written; the
-    # table (rowid 4 B + key 8 B per slot) read once
-    nbytes = n * (8 + 1 + 4) + (1 << 22) * 12
-    bnd, by = bound_ms(nbytes, 0, INT32_OPS_PER_S)
-    log(f"  hashprobe time at q3 join 1 shape: kernel {ms:.4f} ms, plain "
-        f"{plain:.4f} ms, torch.searchsorted into the sorted build keys "
-        f"{lib:.4f} ms, bound {bnd:.4f} ms ({by}), "
-        f"{nbytes / ms / 1e6:.1f} GB/s")
-    return {"name": "probe_rowids", "max_abs_err": 0.0, "ms": ms,
-            "plain_ms": plain, "bound_ms": bnd, "bound_by": by,
-            "library_ms": lib}
+    # every shape the joins give the kernel: the probes and the self-probes
+    # of join 1 and join 2 with 4 attempts (sparse q3) and 8 (sparse-8)
+    times = {}
+    for att in (4, 8):
+        times[("join 1", att)] = probe_shape(
+            f"q3 join 1 (2^23 probes, H 2^22, {att} attempts)", *j1, 1 << 22,
+            att)
+        probe_shape(f"q3 join 1 self-probe (2^21 rows, H 2^22, {att} "
+                    "attempts)", j1[2], j1[3], j1[2], j1[3], 1 << 22, att)
+        probe_shape(f"q3 join 2 (2^23 probes, H 2^19, {att} attempts)", *j2,
+                    1 << 19, att)
+        probe_shape(f"q3 join 2 self-probe (2^18 rows, H 2^19, {att} "
+                    "attempts)", j2[2], j2[3], j2[2], j2[3], 1 << 19, att)
+    t = times[("join 1", 4)]
+    return {"name": "probe_rowids", "max_abs_err": 0.0, "ms": t["kernel"],
+            "plain_ms": t["plain"], "bound_ms": t["bound"],
+            "bound_by": t["bound_by"], "library_ms": t["library"]}
 
 
 INT64_MAX = (1 << 63) - 1
@@ -831,12 +1073,15 @@ def run_q1(rows: int, profile_dir) -> dict:
     K.reset_launch_counts()
     syncs = sort_trace_start()
     t0 = time.perf_counter()
-    got = q1_dataframe(session, table).collect_table()
+    with host_sync_count() as box:
+        got = q1_dataframe(session, table).collect_table()
     torch.cuda.synchronize()
     cold = time.perf_counter() - t0
     launches = K.launch_counts()
     log(f"  q1 launches during the query: {launches}")
     sort_trace_end("q1", syncs)
+    log(f"  q1 (cold): host syncs {box['syncs']} (torch's sync debug mode, "
+        "the upload's pageable copies included)")
     for name in ("onehot_partials", "gather_compact", "sort_with_payload"):
         if launches[name] < 1:
             fail(f"q1 did not launch {name}")
@@ -868,15 +1113,21 @@ def profile_q1(session, table, out_dir) -> None:
                 out_dir)
 
 
-#: the radix sort's kernels (csrc/sort.cu), for its share of device time
-SORT_KERNELS = ("survey_bits", "pack_hist", "onesweep_pass", "finish_rows",
-                "sort_small")
+#: kernels by family, for their shares of device time: the radix sort's
+#: (csrc/sort.cu), the probe's (csrc/hashprobe.cu) and the compaction's
+#: (csrc/compact.cu, and the two-pass form's scatter, invert_positions)
+KERNEL_FAMILIES = {
+    "sort": ("survey_bits", "pack_hist", "onesweep_pass", "finish_rows",
+             "sort_small"),
+    "probe": ("probe_rows",),
+    "compaction": ("compact_tiles", "gather_streams", "invert_positions"),
+}
 
 
 def trace_times(path):
     """(device busy ms, span ms from the first device event to the end of
-    the last, sort kernels ms) of a chrome trace's kernels, copies and
-    memsets."""
+    the last, {family: ms of its kernels}) of a chrome trace's kernels,
+    copies and memsets."""
     with open(path) as f:
         events = json.load(f)
     events = events["traceEvents"] if isinstance(events, dict) else events
@@ -887,9 +1138,10 @@ def trace_times(path):
     busy = sum(e["dur"] for e in dev) / 1e3
     span = (max(e["ts"] + e["dur"] for e in dev)
             - min(e["ts"] for e in dev)) / 1e3
-    sort = sum(e["dur"] for e in dev
-               if any(k in e["name"] for k in SORT_KERNELS)) / 1e3
-    return busy, span, sort
+    families = {f: sum(e["dur"] for e in dev
+                       if any(k in e["name"] for k in names)) / 1e3
+                for f, names in KERNEL_FAMILIES.items()}
+    return busy, span, families
 
 
 def profile_run(name, run, out_dir) -> None:
@@ -910,10 +1162,11 @@ def profile_run(name, run, out_dir) -> None:
         f.write(table_txt)
     trace = os.path.join(out_dir, f"{tag}_trace.json")
     prof.export_chrome_trace(trace)
-    busy, span, sort = trace_times(trace)
+    busy, span, families = trace_times(trace)
     log(f"  {name}: device busy {busy:.3f} ms over a span of {span:.3f} ms "
-        f"({100 * (1 - busy / span):.1f}% idle); sort kernels {sort:.3f} ms "
-        f"({100 * sort / busy:.1f}% of busy)")
+        f"({100 * (1 - busy / span):.1f}% idle); " + ", ".join(
+            f"{f} kernels {ms:.3f} ms ({100 * ms / busy:.1f}% of busy)"
+            for f, ms in families.items()))
     log(f"  profile of one warm {name} run (top by device time):")
     for line in table_txt.splitlines()[:25]:
         log("    " + line)
@@ -977,10 +1230,14 @@ def check_q3_result(got, oracle, what) -> None:
             fail(f"{what} {name}: {c.data} vs oracle {want} (exact)")
 
 
-def run_q3_form(what, tables, oracle, conf, expect, profile_dir) -> dict:
+def run_q3_form(what, tables, oracle, conf, expect, profile_dir,
+                time_compactions=False) -> dict:
     """Cold run (replays counted), three warm runs, and one more warm run
-    between launch-counter reads; every result against the oracle."""
+    between launch-counter reads (host syncs counted); every result
+    against the oracle. ``time_compactions``: each compaction of that warm
+    run is checked and timed again on its own inputs."""
     from spark_rapids_tpu_torch import kernels as K
+    from spark_rapids_tpu_torch.kernels.compact import gather_compact
     from spark_rapids_tpu_torch.models.tpch import q3_dataframe
     from spark_rapids_tpu_torch.runtime import speculation
     from spark_rapids_tpu_torch.session import TorchSession
@@ -1007,10 +1264,16 @@ def run_q3_form(what, tables, oracle, conf, expect, profile_dir) -> dict:
         revenue_bits.add(again.columns[1].data.tobytes())
     K.reset_launch_counts()
     syncs = sort_trace_start()
-    again = q3_dataframe(session, *tables).collect_table()
+    gather_compact.trace = []
+    with host_sync_count() as box:
+        again = q3_dataframe(session, *tables).collect_table()
     torch.cuda.synchronize()
     launches = K.launch_counts()
+    compactions, gather_compact.trace = gather_compact.trace, None
     sort_trace_end(what, syncs)
+    log(f"  {what}: host syncs in one warm query {box['syncs']} (torch's "
+        f"sync debug mode); compactions (capacity, columns, kept): "
+        f"{[(c, len(d), int(k.sum())) for d, _, k, c in compactions]}")
     warm_m = session.last_metrics()
     check_q3_result(again, oracle, what)
     peak = torch.cuda.max_memory_allocated()
@@ -1034,6 +1297,11 @@ def run_q3_form(what, tables, oracle, conf, expect, profile_dir) -> dict:
     for name in ("gather_compact", "sort_with_payload"):
         if launches[name] < 1:
             fail(f"{what} did not launch {name}")
+    if time_compactions:
+        for i, (d, v, k, c) in enumerate(compactions):
+            compact_case(f"{what} call {i + 1}", d, v, k, c)
+            compact_times(f"{what} call {i + 1}", d, v, k, c)
+    del compactions
     if profile_dir:
         profile_run(what, lambda: q3_dataframe(session, *tables)
                     .collect_table(), profile_dir)
@@ -1058,7 +1326,7 @@ def run_q3(rows: int, profile_dir) -> int:
     run_q3_form("q3 dense", dense, o_dense, None,
                 {"speculationReplays": (0,), "probe_rowids": (0,),
                  "sort_with_payload": (1,)},
-                profile_dir)
+                profile_dir, time_compactions=True)
     default = run_q3_form("q3 sparse", sparse, o_sparse, None,
                           {"speculationReplays": (1, 2),
                            "probe_rowids": (2, 4),
@@ -1246,10 +1514,13 @@ def run_corpus(sf: float, seed: int, profile_dir) -> int:
             check(again)
         K.reset_launch_counts()
         syncs = sort_trace_start()
-        again = build().collect_table()
+        with host_sync_count() as box:
+            again = build().collect_table()
         torch.cuda.synchronize()
         launches = K.launch_counts()
         sort_trace_end(name, syncs)
+        log(f"  {name}: host syncs in one warm query {box['syncs']} "
+            "(torch's sync debug mode)")
         warm_replays = session.last_metrics()["speculationReplays"]
         check(again)
         peak = torch.cuda.max_memory_allocated()
@@ -1297,6 +1568,7 @@ def main(argv=None) -> int:
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     from spark_rapids_tpu_torch.columnar import bucket_for
+    from spark_rapids_tpu_torch.kernels.build import SOURCES as CU_SOURCES
     from spark_rapids_tpu_torch.kernels.build import build
 
     log("phase 1: the card")
@@ -1310,7 +1582,7 @@ def main(argv=None) -> int:
 
     log("phase 2: build the kernels")
     t0 = time.perf_counter()
-    reports = build()
+    reports = build(CU_SOURCES + ("yardstick",))
     log(f"  built {sorted(reports)} in {time.perf_counter() - t0:.1f} s")
     for name, rep in reports.items():
         for line in rep.splitlines():
@@ -1318,6 +1590,12 @@ def main(argv=None) -> int:
                 log(f"    {name}: {line.strip()}")
 
     log("phase 3: kernels against their plain versions")
+    with host_sync_count() as box:
+        torch.ones(1, device=DEV).item()
+    log(f"  sync debug mode: one item() counts {box['syncs']} "
+        f"({sorted(set(m.splitlines()[0] for m in box['messages']))})")
+    if box["syncs"] < 1:
+        fail("sync debug mode counted no sync for one item()")
     gen = torch.Generator(device=DEV)
     gen.manual_seed(0)
     capacity = bucket_for(args.rows)

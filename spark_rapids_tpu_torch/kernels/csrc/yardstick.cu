@@ -1,0 +1,216 @@
+// Yardsticks: kernels the port does not call. chip_smoke.py builds this
+// file beside the port's kernels and times these at the main path's shapes,
+// next to the port's own kernels, so that one run measures both forms on
+// the same card:
+//
+// * srt_probe_full_walk: the hash probe before the early exit (one thread
+//   per probe row; a rowid load and, on an occupied slot, a load from a
+//   separate int64 key table per attempt; stops only at a hit);
+// * srt_probe_slot16: the probe over 16-byte {int64 key, int32 rowid, pad}
+//   slots packed from build_table's two arrays (one sector per attempt,
+//   64 MiB at H = 2^22), stopping at the first empty slot like
+//   csrc/hashprobe.cu; the packing pass runs in the same call;
+// * srt_gather_compact_two_pass: the compaction that takes pos =
+//   cumsum(keep) - 1 and new_n from the caller and a device array of
+//   (src, dst, itemsize) descriptors, and runs a scatter that inverts pos
+//   and then a gather of one thread per (row, stream).
+//
+// The salts and the slot function are csrc/hashprobe.cu's.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kMaxAttempts = 8;
+
+__constant__ uint32_t kSaltHi[kMaxAttempts] = {
+    0x9E3779B1u, 0xC2B2AE3Du, 0x165667B1u, 0xD6E8FEB9u,
+    0x2545F491u, 0xB5297A4Du, 0x1B56C4E9u, 0x846CA68Bu};
+__constant__ uint32_t kSaltLo[kMaxAttempts] = {
+    0x85EBCA77u, 0x27D4EB2Fu, 0x9E3779B9u, 0xCA9B0A93u,
+    0x8F4C2D17u, 0x68E31DA5u, 0x7FEB352Du, 0xC2B2AE35u};
+
+__device__ __forceinline__ uint32_t slot_of(uint32_t hi, uint32_t lo,
+                                            int attempt, uint32_t mask) {
+  uint32_t h = (hi * kSaltHi[attempt]) ^ (lo * kSaltLo[attempt]);
+  h ^= h >> 16;
+  h *= 0x85EBCA6Bu;
+  h ^= h >> 13;
+  return h & mask;
+}
+
+__global__ void probe_full_walk(const int64_t* __restrict__ keys,
+                                const uint8_t* __restrict__ valid,
+                                const int32_t* __restrict__ table_row,
+                                const int64_t* __restrict__ table_key,
+                                int32_t* __restrict__ out, int64_t n,
+                                uint32_t mask, int attempts) {
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+       i < n; i += stride) {
+    int32_t rowid = -1;
+    if (valid[i]) {
+      const int64_t x = keys[i];
+      const uint32_t hi = static_cast<uint32_t>(static_cast<uint64_t>(x) >> 32);
+      const uint32_t lo = static_cast<uint32_t>(static_cast<uint64_t>(x));
+      for (int a = 0; a < attempts; ++a) {
+        const uint32_t s = slot_of(hi, lo, a, mask);
+        const int32_t r = __ldg(table_row + s);
+        if (r >= 0 && __ldg(table_key + s) == x) {
+          rowid = r;
+          break;
+        }
+      }
+    }
+    out[i] = rowid;
+  }
+}
+
+__global__ void pack_slots(const int32_t* __restrict__ table_row,
+                           const int64_t* __restrict__ table_key,
+                           longlong2* __restrict__ slots, int64_t H) {
+  const int64_t s = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (s < H) slots[s] = make_longlong2(table_key[s], table_row[s]);
+}
+
+__global__ void probe_slot16(const int64_t* __restrict__ keys,
+                             const uint8_t* __restrict__ valid,
+                             const longlong2* __restrict__ slots,
+                             int32_t* __restrict__ out, int64_t n,
+                             uint32_t mask, int attempts) {
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * blockDim.x;
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+       i < n; i += stride) {
+    int32_t rowid = -1;
+    if (valid[i]) {
+      const int64_t x = keys[i];
+      const uint32_t hi = static_cast<uint32_t>(static_cast<uint64_t>(x) >> 32);
+      const uint32_t lo = static_cast<uint32_t>(static_cast<uint64_t>(x));
+      for (int a = 0; a < attempts; ++a) {
+        const longlong2 e = __ldg(slots + slot_of(hi, lo, a, mask));
+        const int32_t r = static_cast<int32_t>(e.y);
+        if (r < 0) break;
+        if (e.x == x) {
+          rowid = r;
+          break;
+        }
+      }
+    }
+    out[i] = rowid;
+  }
+}
+
+struct StreamDesc {
+  int64_t src;
+  int64_t dst;
+  int64_t itemsize;
+};
+
+__global__ void invert_positions(const uint8_t* __restrict__ keep,
+                                 const int32_t* __restrict__ pos,
+                                 int32_t* __restrict__ sel, int64_t capacity) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i < capacity && keep[i]) sel[pos[i]] = static_cast<int32_t>(i);
+}
+
+template <typename U>
+__device__ __forceinline__ void move(const StreamDesc& d, int64_t j, int32_t s,
+                                     bool live) {
+  U* dst = reinterpret_cast<U*>(d.dst);
+  dst[j] = live ? reinterpret_cast<const U*>(d.src)[s] : U(0);
+}
+
+__global__ void gather_desc_streams(const StreamDesc* __restrict__ descs,
+                                    const int32_t* __restrict__ sel,
+                                    const int32_t* __restrict__ new_n,
+                                    int64_t capacity) {
+  const int64_t j = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (j >= capacity) return;
+  const StreamDesc d = descs[blockIdx.y];
+  const bool live = j < static_cast<int64_t>(*new_n);
+  const int32_t s = live ? sel[j] : 0;
+  switch (d.itemsize) {
+    case 1: move<uint8_t>(d, j, s, live); break;
+    case 2: move<uint16_t>(d, j, s, live); break;
+    case 4: move<uint32_t>(d, j, s, live); break;
+    default: move<uint64_t>(d, j, s, live); break;
+  }
+}
+
+int probe_blocks(int64_t n) {
+  int64_t blocks = (n + kThreads - 1) / kThreads;
+  return static_cast<int>(blocks > 132 * 64 ? 132 * 64 : blocks);
+}
+
+}  // namespace
+
+extern "C" {
+
+// keys: (n,) int64; valid: (n,) bool; table_row: (H,) int32; table_key:
+// (H,) int64 (build_table's outputs); out: (n,) int32.
+int srt_probe_full_walk(const void* keys, const void* valid, const void* table_row,
+                        const void* table_key, void* out, int64_t n, int64_t H,
+                        int attempts, void* stream) {
+  if (n <= 0) return static_cast<int>(cudaSuccess);
+  if (attempts < 1 || attempts > kMaxAttempts || H < 1 || (H & (H - 1))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  probe_full_walk<<<probe_blocks(n), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int64_t*>(keys), static_cast<const uint8_t*>(valid),
+      static_cast<const int32_t*>(table_row), static_cast<const int64_t*>(table_key),
+      static_cast<int32_t*>(out), n, static_cast<uint32_t>(H - 1), attempts);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// As srt_probe_full_walk, with slots: (H,) 16-byte scratch that the call
+// fills from table_row and table_key before it probes.
+int srt_probe_slot16(const void* keys, const void* valid, const void* table_row,
+                     const void* table_key, void* slots, void* out, int64_t n,
+                     int64_t H, int attempts, void* stream) {
+  if (attempts < 1 || attempts > kMaxAttempts || H < 1 || (H & (H - 1))) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  pack_slots<<<static_cast<unsigned>((H + kThreads - 1) / kThreads), kThreads, 0, st>>>(
+      static_cast<const int32_t*>(table_row), static_cast<const int64_t*>(table_key),
+      static_cast<longlong2*>(slots), H);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || n <= 0) return static_cast<int>(err);
+  probe_slot16<<<probe_blocks(n), kThreads, 0, st>>>(
+      static_cast<const int64_t*>(keys), static_cast<const uint8_t*>(valid),
+      static_cast<const longlong2*>(slots), static_cast<int32_t*>(out), n,
+      static_cast<uint32_t>(H - 1), attempts);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// keep: (capacity,) bool; pos: (capacity,) int32; sel: (capacity,) int32
+// scratch; new_n: device int32; descs: device array of nstreams (src, dst,
+// itemsize) int64 triples.
+int srt_gather_compact_two_pass(const void* keep, const void* pos, void* sel,
+                                const void* new_n, const void* descs, int nstreams,
+                                int64_t capacity, void* stream) {
+  if (capacity <= 0) return static_cast<int>(cudaSuccess);
+  if (nstreams < 0 || nstreams > 65535 || capacity > 0x7fffffffLL) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const unsigned nblk = static_cast<unsigned>((capacity + kThreads - 1) / kThreads);
+  invert_positions<<<nblk, kThreads, 0, st>>>(
+      static_cast<const uint8_t*>(keep), static_cast<const int32_t*>(pos),
+      static_cast<int32_t*>(sel), capacity);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || nstreams == 0) return static_cast<int>(err);
+  const dim3 grid(nblk, static_cast<unsigned>(nstreams));
+  gather_desc_streams<<<grid, kThreads, 0, st>>>(
+      static_cast<const StreamDesc*>(descs), static_cast<const int32_t*>(sel),
+      static_cast<const int32_t*>(new_n), capacity);
+  return static_cast<int>(cudaGetLastError());
+}
+
+const char* srt_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+}  // extern "C"

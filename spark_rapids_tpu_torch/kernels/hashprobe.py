@@ -14,17 +14,20 @@ probe row's build match in one pass, with no sort:
   duplicated key (found by a self-probe: a placed row whose probe finds a
   DIFFERENT row), raise the device ``fail`` flag; the join then replays on
   the sort-based probe (execs/join.py).
-* PROBE (the CUDA kernel ``csrc/hashprobe.cu``): one thread per probe row
-  walks its salted slots and keeps the first rowid whose stored key equals
-  its own.
+* PROBE (the CUDA kernel ``csrc/hashprobe.cu``): each probe row walks its
+  salted slots, keeps the first rowid whose build key equals its own, and
+  stops at the first empty slot, which the build's rounds make exact (the
+  kernel's source note gives the argument).
 
-The table is (rowid int32, key int64) per slot; the reference keeps the
-key as (hi int32, lo uint32) limbs, which are the key's two words, so the
-slots, the table and the flag are the reference's bit for bit. The
-reference's route to the sorted probe for an ineligible call
-(``KernelIneligible``: more attempts than salts, a table over the VMEM
-budget) is not ported: an attempts value outside [1, 8] raises, and the
-table has no size envelope.
+``build_table`` returns the reference's table, (rowid int32, key int64) per
+slot; the reference keeps the key as (hi int32, lo uint32) limbs, which are
+the key's two words, so the slots, the table and the flag are the
+reference's bit for bit. The probe reads only the rowid table and the
+build keys (``build_keys[rowid]`` is the key of an occupied slot), so
+``probe_ranges`` never materializes the key table. The reference's route
+to the sorted probe for an ineligible call (``KernelIneligible``: more
+attempts than salts, a table over the VMEM budget) is not ported: an
+attempts value outside [1, 8] raises, and the table has no size envelope.
 """
 
 from __future__ import annotations
@@ -82,12 +85,10 @@ def _slot(keys: torch.Tensor, attempt: int, mask: int) -> torch.Tensor:
     return h & mask
 
 
-def build_table(keys: torch.Tensor, valid: torch.Tensor, H: int,
-                attempts: int
-                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Open-addressing build over int64 ``keys`` (rows where ``valid``).
-    Returns (table_row int32 with -1 empties, table_key int64 with 0
-    empties, fail_build 0-d bool)."""
+def _place_rows(keys: torch.Tensor, valid: torch.Tensor, H: int,
+                attempts: int):
+    """The build's rounds. Returns (table_row over H slots and one drop
+    slot per row past them, placed, myslot, drop)."""
     check_attempts(attempts)
     dev = keys.device
     cap = int(keys.shape[0])
@@ -108,70 +109,101 @@ def build_table(keys: torch.Tensor, valid: torch.Tensor, H: int,
         won = want & (table_row[slots] == rowid)
         placed = placed | won
         myslot = torch.where(won, slots, myslot)
+    return table_row, placed, myslot, drop
+
+
+def build_table(keys: torch.Tensor, valid: torch.Tensor, H: int,
+                attempts: int
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Open-addressing build over int64 ``keys`` (rows where ``valid``).
+    Returns (table_row int32 with -1 empties, table_key int64 with 0
+    empties, fail_build 0-d bool)."""
+    table_row, placed, myslot, drop = _place_rows(keys, valid, H, attempts)
     fail_build = (valid & ~placed).any()
-    table_key = torch.zeros(H + cap, dtype=torch.int64, device=dev)
+    table_key = torch.zeros(table_row.shape, dtype=torch.int64,
+                            device=keys.device)
     table_key[torch.where(placed, myslot, drop)] = keys
     return table_row[:H], table_key[:H], fail_build
 
 
-def _check_probe_args(keys, valid, table_row, table_key, attempts):
+def _check_probe_args(keys, valid, table_row, build_keys, attempts):
     check_attempts(attempts)
     if keys.dtype != torch.int64 or valid.dtype != torch.bool:
         raise TypeError("probe_rowids: keys must be int64 and valid bool")
-    if table_row.dtype != torch.int32 or table_key.dtype != torch.int64:
+    if table_row.dtype != torch.int32 or build_keys.dtype != torch.int64:
         raise TypeError("probe_rowids: table_row must be int32 and "
-                        "table_key int64")
-    if keys.ndim != 1 or valid.shape != keys.shape:
-        raise ValueError("probe_rowids: keys and valid must be (n,)")
+                        "build_keys int64")
+    if keys.ndim != 1 or valid.shape != keys.shape or build_keys.ndim != 1:
+        raise ValueError("probe_rowids: keys and valid must be (n,), "
+                         "build_keys one-dimensional")
     H = int(table_row.shape[0])
-    if table_key.shape != table_row.shape or H < 1 or H & (H - 1):
+    if table_row.ndim != 1 or H < 1 or H & (H - 1):
         raise ValueError(f"probe_rowids: table of {H} slots (a power of "
-                         "two, rowid and key alike)")
+                         "two)")
     return H
 
 
 def probe_rowids_plain(keys: torch.Tensor, valid: torch.Tensor,
-                       table_row: torch.Tensor, table_key: torch.Tensor,
+                       table_row: torch.Tensor, build_keys: torch.Tensor,
                        attempts: int) -> torch.Tensor:
     """The plain version: the reference kernel's body over the whole
-    array (every attempt for every row; the first hit wins)."""
+    array (every attempt for every row; the first hit wins). An occupied
+    slot's key is ``build_keys[rowid]``, the key ``build_table`` stores
+    there."""
     mask = int(table_row.shape[0]) - 1
     ri = torch.full(keys.shape, -1, dtype=torch.int32, device=keys.device)
+    if build_keys.numel() == 0:
+        return ri  # no build row: every slot is empty
     found = torch.zeros(keys.shape, dtype=torch.bool, device=keys.device)
     for a in range(attempts):
         slots = _slot(keys, a, mask)
         r = table_row[slots]
-        hit = valid & ~found & (r >= 0) & (table_key[slots] == keys)
+        occupied = r >= 0
+        slot_key = build_keys[torch.where(occupied, r, 0)]
+        hit = valid & ~found & occupied & (slot_key == keys)
         ri = torch.where(hit, r, ri)
         found = found | hit
     return ri
 
 
+_LIB = None
+
+
+def _library():
+    """The loaded ``csrc/hashprobe.cu`` with its argument types set, built
+    at first use."""
+    global _LIB
+    if _LIB is None:
+        from spark_rapids_tpu_torch.kernels.build import load_library
+        lib = load_library("hashprobe")
+        p = ctypes.c_void_p
+        lib.srt_probe_rowids.restype = ctypes.c_int
+        lib.srt_probe_rowids.argtypes = [p, p, p, p, p, ctypes.c_int64,
+                                         ctypes.c_int64, ctypes.c_int, p]
+        _LIB = lib
+    return _LIB
+
+
 def probe_rowids(keys: torch.Tensor, valid: torch.Tensor,
-                 table_row: torch.Tensor, table_key: torch.Tensor,
+                 table_row: torch.Tensor, build_keys: torch.Tensor,
                  attempts: int) -> torch.Tensor:
     """Per probe row the matching build rowid (int32), -1 when unmatched
-    or invalid."""
-    H = _check_probe_args(keys, valid, table_row, table_key, attempts)
+    or invalid. ``table_row`` is ``build_table``'s over ``build_keys``."""
+    H = _check_probe_args(keys, valid, table_row, build_keys, attempts)
     if keys.device.type == "cpu":
-        return probe_rowids_plain(keys, valid, table_row, table_key,
+        return probe_rowids_plain(keys, valid, table_row, build_keys,
                                   attempts)
     require_cuda(keys, "probe_rowids")
-    for t in (keys, valid, table_row, table_key):
+    for t in (keys, valid, table_row, build_keys):
         if t.device != keys.device:
             raise ValueError("probe_rowids: all tensors must share a device")
         require_contiguous(t, "probe_rowids")
     out = torch.empty(keys.shape, dtype=torch.int32, device=keys.device)
-    from spark_rapids_tpu_torch.kernels.build import load_library
-    lib = load_library("hashprobe")
-    fn = lib.srt_probe_rowids
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
-                   ctypes.c_int64, ctypes.c_int, ctypes.c_void_p]
-    rc = fn(keys.data_ptr(), valid.data_ptr(), table_row.data_ptr(),
-            table_key.data_ptr(), out.data_ptr(), int(keys.shape[0]), H,
-            attempts, stream_handle(keys))
+    lib = _library()
+    rc = lib.srt_probe_rowids(keys.data_ptr(), valid.data_ptr(),
+                              table_row.data_ptr(), build_keys.data_ptr(),
+                              out.data_ptr(), int(keys.shape[0]), H, attempts,
+                              stream_handle(keys))
     check_launch(lib, rc, "probe_rowids")
     probe_rowids.launches += 1
     return out
@@ -192,15 +224,16 @@ def probe_ranges(lkey, rkey, live_l: torch.Tensor, live_r: torch.Tensor,
     rd = rd.to(torch.int64).contiguous()
     valid_r = (rv & live_r).contiguous()
     valid_l = (lv & live_l).contiguous()
-    trow, tkey, fail_build = build_table(rd, valid_r, H, attempts)
-    trow = trow.contiguous()
-    tkey = tkey.contiguous()
+    # build_table's rowid table and flag; the probe reads keys from rd
+    table_row, placed, _, _ = _place_rows(rd, valid_r, H, attempts)
+    fail_build = (valid_r & ~placed).any()
+    trow = table_row[:H]
     # duplicate-key detection: a placed row whose own probe resolves to a
     # DIFFERENT row shares its key with that row
-    self_ri = probe_rowids(rd, valid_r, trow, tkey, attempts)
+    self_ri = probe_rowids(rd, valid_r, trow, rd, attempts)
     rowid_r = torch.arange(rd.shape[0], dtype=torch.int32, device=rd.device)
     dup = (valid_r & (self_ri >= 0) & (self_ri != rowid_r)).any()
-    ri = probe_rowids(ld, valid_l, trow, tkey, attempts)
+    ri = probe_rowids(ld, valid_l, trow, rd, attempts)
     matched = ri >= 0
     counts = matched.to(torch.int32)
     lo = torch.where(matched, ri, torch.zeros_like(ri))

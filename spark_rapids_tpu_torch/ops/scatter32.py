@@ -3,7 +3,8 @@
 
 The reference splits 64-bit payloads into 32-bit scatters on the TPU; its
 CPU backend scatters natively, which is what the port reproduces: every
-compaction goes through the gather-compact kernel at native widths."""
+compaction goes through the gather-compact kernel at native widths, which
+on the card also scans ``keep`` (no torch op runs before it)."""
 
 from __future__ import annotations
 
@@ -20,9 +21,4 @@ def compact_pairs(datas: Sequence[torch.Tensor], valids: Sequence[torch.Tensor],
     Returns ([(data, validity)...], new_n) with new_n a 0-d int32 tensor
     that stays on the device."""
     from spark_rapids_tpu_torch.kernels import compact as kcompact
-    keep_i = keep.to(torch.int32)
-    new_n = keep_i.sum(dtype=torch.int32)
-    pos = torch.cumsum(keep_i, 0, dtype=torch.int32) - 1
-    outs = kcompact.gather_compact(list(datas), list(valids), keep, pos,
-                                   new_n, capacity)
-    return outs, new_n
+    return kcompact.gather_compact(list(datas), list(valids), keep, capacity)

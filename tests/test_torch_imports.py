@@ -86,8 +86,7 @@ def test_kernel_wrappers_refuse_non_cuda_devices():
         onehot_partials(x, gid, 8, 1, 128)
     keep = torch.zeros(128, dtype=torch.bool, device=meta)
     with pytest.raises(RuntimeError, match="CUDA or CPU"):
-        gather_compact([gid], [keep], keep, gid,
-                       torch.zeros((), dtype=torch.int32, device=meta), 128)
+        gather_compact([gid], [keep], keep, 128)
     with pytest.raises(RuntimeError, match="CUDA or CPU"):
         sort_with_payload([gid], gid)
 
