@@ -13,8 +13,9 @@ Phases, in order; any failure exits non-zero:
    q1, q3 and the corpus's q2 and q8 give it, at large shapes and on edge
    inputs, with times (CUDA events, warm median) beside the least time the
    card could take, one PyTorch library call computing the same function
-   and, for the probe and the compaction, the yardstick kernels; the
-   probe and the compaction run under torch's sync debug mode set to
+   and the yardstick kernels (the forms before each redesign: probe,
+   compaction, partial sums, MIN/MAX), each also 20 calls back to back;
+   the probe and the compaction run under torch's sync debug mode set to
    raise, and the first one-pass compaction under a watchdog;
 4. TPC-H q1 end to end through ``TorchSession`` at ``--rows`` lineitem rows
    (default 6,001,215 = TPC-H SF 1), checked against a numpy oracle, with
@@ -205,15 +206,15 @@ def check_segreduce(capacity: int, nrows: int, gen) -> dict:
     block = 1024
     nb = capacity // block
 
-    def run_case(name, x, gid, nseg, rtol):
-        k_nb = x.shape[0] // block
-        a = onehot_partials(x, gid, nseg, k_nb, block)
-        b = onehot_partials(x, gid, nseg, k_nb, block)
+    def run_case(name, x, gid, nseg, rtol, blk=block):
+        k_nb = x.shape[0] // blk
+        a = onehot_partials(x, gid, nseg, k_nb, blk)
+        b = onehot_partials(x, gid, nseg, k_nb, blk)
         torch.cuda.synchronize()
         if not same_bits(a, b):
             fail(f"onehot_partials {name}: two runs differ in their bits")
-        ref = onehot_partials_plain(x, gid, nseg, k_nb, block)
-        abs_err, rel = partials_error(a, ref, x, gid, nseg, k_nb, block)
+        ref = onehot_partials_plain(x, gid, nseg, k_nb, blk)
+        abs_err, rel = partials_error(a, ref, x, gid, nseg, k_nb, blk)
         ok = rel <= rtol
         log(f"  segreduce {name}: max_abs_err={abs_err:.3e} "
             f"max_err/mass={rel:.3e} (tol rtol {rtol:.3g} of each partial's "
@@ -240,20 +241,53 @@ def check_segreduce(capacity: int, nrows: int, gen) -> dict:
     run_case("edges nseg 32 (row-major x)", e, g32, 32, 1e-12)
     run_case("edges nseg 1", e, torch.zeros_like(g32), 1, 1e-12)
     run_case("ties (one segment of 8)", e, torch.full_like(g32, 3), 8, 1e-12)
+    # nine columns; gids outside [0, nseg); blocks shorter than 1024
+    # rows and not a multiple of 32
+    w = torch.randn((small, 9), generator=gen, device=dev,
+                    dtype=torch.float64).t().contiguous().t() * 1e3
+    run_case("9 columns nseg 32 (column-major x)", w, g32, 32, 1e-12)
+    g_out = torch.randint(-3, 12, (small,), generator=gen, device=dev,
+                          dtype=torch.int32)
+    run_case("gids outside [0, 8)", w, g_out, 8, 1e-12)
+    n96 = 96 * 1000
+    run_case("96-row blocks", w[:n96], g_out[:n96].contiguous(), 8, 1e-12,
+             blk=96)
 
     ids = (torch.arange(capacity, device=dev) // block) * 16 + gid.to(torch.int64)
     lib_out = torch.zeros(nb * 16, 7, dtype=torch.float64, device=dev)
-    ms = time_ms(lambda: onehot_partials(x, gid, 16, nb, block))
+    ms, ms_b2b, old, old_b2b = new_and_old_times(
+        lambda: onehot_partials(x, gid, 16, nb, block),
+        lambda: yardstick_partials(x, gid, 16, nb, block))
     x_rows = x.contiguous()  # the same values row-major
     rows_ms = time_ms(lambda: onehot_partials(x_rows, gid, 16, nb, block))
     plain_ms = time_ms(lambda: onehot_partials_plain(x, gid, 16, nb, block))
     lib_ms = time_ms(lambda: lib_out.zero_().index_add_(0, ids, x))
     nbytes = capacity * (7 * 8 + 4) + nb * 16 * 7 * 8
     bnd, by = bound_ms(nbytes, capacity * 7, FP64_OPS_PER_S)
-    log(f"  segreduce time at q1 shape: kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, index_add_ {lib_ms:.4f} ms, bound {bnd:.4f} ms "
-        f"({by}), {nbytes / ms / 1e6:.1f} GB/s; on row-major x "
+    log(f"  segreduce time at q1 shape: kernel {ms:.4f} ms "
+        f"[{ms_b2b:.4f} {BACK_TO_BACK} back to back], select-add (before) "
+        f"{old:.4f} [{old_b2b:.4f}] ms, plain {plain_ms:.4f} ms, index_add_ "
+        f"{lib_ms:.4f} ms, bound {bnd:.4f} ms ({by}), "
+        f"{nbytes / ms_b2b / 1e6:.1f} GB/s back to back; on row-major x "
         f"{rows_ms:.4f} ms")
+    # q2's global sum: one f64 column over 2^24 rows, all in segment 0 of 8
+    cap2 = 1 << 24
+    x2 = torch.randn((cap2, 1), generator=gen, device=dev,
+                     dtype=torch.float64)
+    g2 = torch.zeros(cap2, dtype=torch.int32, device=dev)
+    nb2 = cap2 // block
+    run_case(f"q2 global sum ({cap2}x1 f64, nseg 8)", x2, g2, 8, 1e-12)
+    q2 = new_and_old_times(lambda: onehot_partials(x2, g2, 8, nb2, block),
+                           lambda: yardstick_partials(x2, g2, 8, nb2, block))
+    ids2 = (torch.arange(cap2, device=dev) // block) * 8
+    lib2_out = torch.zeros(nb2 * 8, 1, dtype=torch.float64, device=dev)
+    plain2 = time_ms(lambda: onehot_partials_plain(x2, g2, 8, nb2, block))
+    lib2 = time_ms(lambda: lib2_out.zero_().index_add_(0, ids2, x2))
+    bnd2, by2 = bound_ms(cap2 * 12 + nb2 * 8 * 8, cap2, FP64_OPS_PER_S)
+    log(f"  segreduce time at q2 shape: kernel {q2[0]:.4f} ms "
+        f"[{q2[1]:.4f}], select-add (before) {q2[2]:.4f} [{q2[3]:.4f}] ms, "
+        f"plain {plain2:.4f} ms, index_add_ {lib2:.4f} ms, bound "
+        f"{bnd2:.4f} ms ({by2})")
     return {"name": "onehot_partials", "max_abs_err": q1_err, "ms": ms,
             "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
             "library_ms": lib_ms}
@@ -287,7 +321,8 @@ _YARDSTICK = None
 
 def yardstick():
     """csrc/yardstick.cu: the probe before its early exit, the compaction
-    before its one pass, and the probe over 16-byte slots; the port calls
+    before its one pass, the probe over 16-byte slots, the partial sums
+    before the ranked form and MIN/MAX before the runs; the port calls
     none of them."""
     global _YARDSTICK
     if _YARDSTICK is None:
@@ -298,6 +333,12 @@ def yardstick():
         lib.srt_probe_full_walk.argtypes = [p, p, p, p, p, i64, i64, i, p]
         lib.srt_probe_slot16.restype = ctypes.c_int
         lib.srt_probe_slot16.argtypes = [p, p, p, p, p, p, i64, i64, i, p]
+        lib.srt_onehot_partials_select_add.restype = ctypes.c_int
+        lib.srt_onehot_partials_select_add.argtypes = [
+            p, p, p, i64, i, i, i, i64, i64, i, p]
+        lib.srt_fused_minmax_row_atomics.restype = ctypes.c_int
+        lib.srt_fused_minmax_row_atomics.argtypes = [p, p, p, p, i64, i, i, i,
+                                                     p]
         _YARDSTICK = lib
     return _YARDSTICK
 
@@ -328,6 +369,42 @@ def two_pass_compact_pairs(datas, valids, keep, capacity):
     check_launch(lib, rc, "two-pass compaction")
     n = len(datas)
     return list(zip(outs[:n], outs[n:])), new_n
+
+
+def yardstick_partials(x, gid, nseg, nb, block):
+    """onehot_partials before the ranked form: csrc/yardstick.cu's
+    select-add kernel, one CTA of 128 threads a block."""
+    from spark_rapids_tpu_torch.kernels import check_launch, stream_handle
+    lib = yardstick()
+    out = torch.empty((nb, nseg, x.shape[1]), dtype=x.dtype, device=x.device)
+    rc = lib.srt_onehot_partials_select_add(
+        x.data_ptr(), gid.data_ptr(), out.data_ptr(), nb, nseg, x.shape[1],
+        block, x.stride(0), x.stride(1), int(x.dtype == torch.float64),
+        stream_handle(x))
+    check_launch(lib, rc, "yardstick partials")
+    return out
+
+
+def yardstick_minmax(is_min, v, valid, gid, nseg):
+    """fused_minmax before the runs: csrc/yardstick.cu's fill, row-atomic
+    and finishing kernels."""
+    from spark_rapids_tpu_torch.kernels import check_launch, stream_handle
+    lib = yardstick()
+    out = torch.empty(nseg, dtype=v.dtype, device=v.device)
+    rc = lib.srt_fused_minmax_row_atomics(
+        v.data_ptr(), valid.data_ptr(), gid.data_ptr(), out.data_ptr(),
+        v.shape[0], nseg, int(is_min), int(v.dtype == torch.float64),
+        stream_handle(v))
+    check_launch(lib, rc, "yardstick minmax")
+    return out
+
+
+def new_and_old_times(new, old):
+    """(new, new back to back, old, old back to back) ms: event medians of
+    single calls, then per call over BACK_TO_BACK calls (device time where
+    the host launches faster than the card runs)."""
+    return (time_ms(new), time_ms(new, iters=7, calls=BACK_TO_BACK),
+            time_ms(old), time_ms(old, iters=7, calls=BACK_TO_BACK))
 
 
 @contextlib.contextmanager
@@ -931,6 +1008,69 @@ def minmax_shapes(gen, global_rows=10_000_000, q8_rows=2_500_000,
     return shapes
 
 
+def minmax_run_case(n, nseg, dtype, gen):
+    """n rows whose gids come in runs of 1-40 rows, so a thread's 8-row
+    run crosses segment boundaries and holds several runs; about 80%
+    valid, 2% of gids outside [0, nseg); the edge segments (minmax_edges)
+    at the top of the range where n >= 32."""
+    lengths = torch.randint(1, 41, (n,), generator=gen, device=DEV)
+    keys = torch.randint(0, nseg - 4, (n,), generator=gen, device=DEV)
+    gid = torch.repeat_interleave(keys, lengths)[:n]
+    out = torch.rand(n, generator=gen, device=DEV) < 0.02
+    gid = torch.where(out, torch.full_like(gid, nseg + 3), gid)
+    gid = torch.where(out & (torch.rand(n, generator=gen, device=DEV) < 0.5),
+                      torch.full_like(gid, -1), gid).to(torch.int32)
+    valid = torch.rand(n, generator=gen, device=DEV) < 0.8
+    v = minmax_values(max(n, 4), dtype, gen)[:n].contiguous()
+    if n >= 32:
+        minmax_edges(v, valid, gid, tuple(range(nseg - 4, nseg)))
+    return v, valid, gid
+
+
+def minmax_exact(what, v, valid, gid, nseg, is_min, quiet=False):
+    """fused_minmax bit-identical to its plain version and across two
+    launches."""
+    from spark_rapids_tpu_torch.kernels.segreduce import (
+        fused_minmax,
+        fused_minmax_plain,
+    )
+    a = fused_minmax(is_min, v, valid, gid, nseg)
+    b = fused_minmax(is_min, v, valid, gid, nseg)
+    ref = fused_minmax_plain(is_min, v, valid, gid, nseg)
+    torch.cuda.synchronize()
+    ok = same_bits(a, b) and same_bits(a, ref)
+    if not quiet or not ok:
+        log(f"  minmax {what}: exact={ok} (tol: bit-identical to the plain "
+            f"version and across two launches) {'OK' if ok else 'FAIL'}")
+    if not ok:
+        fail(f"fused_minmax {what} disagrees with its plain version")
+    return a
+
+
+def check_minmax_runs(gen) -> None:
+    """Runs of rows that cross segment boundaries or are part valid, n not
+    a multiple of the 8-row run, few segments (the finishing map in the
+    last CTA) and many (a second launch), and inputs that are not 16-byte
+    aligned (row by row loads)."""
+    for n in (1, 3, 17, 4097, 1_000_003):
+        for nseg in (24, 5000):
+            for dtype in (torch.int64, torch.float64):
+                v, valid, gid = minmax_run_case(n, nseg, dtype, gen)
+                for is_min in (True, False):
+                    minmax_exact(f"runs n={n} nseg={nseg}", v, valid, gid,
+                                 nseg, is_min, quiet=True)
+    log("  minmax runs across segment boundaries, part valid, n = 1, 3, 17, "
+        "4097, 1,000,003, nseg 24 and 5000, int64 and f64, min and max: "
+        "exact=True (tol: bit-identical to the plain version and across "
+        "two launches) OK")
+    for dtype in (torch.int64, torch.float64):
+        v, valid, gid = minmax_run_case(1_000_004, 5000, dtype, gen)
+        for is_min in (True, False):
+            minmax_exact(f"unaligned (views at row 1) {str(dtype)[6:]} "
+                         f"{'min' if is_min else 'max'}", v[1:], valid[1:],
+                         gid[1:], 5000, is_min)
+
+
 def check_minmax(seed: int = 3, **shape_args) -> dict:
     """fused_minmax against its plain version at the main path's three
     shapes, on inputs from its own generator (``seed``)."""
@@ -949,31 +1089,34 @@ def check_minmax(seed: int = 3, **shape_args) -> dict:
             valid, gid = valid0.clone(), gid0.clone()
             minmax_edges(v, valid, gid, segs)
             for is_min in (True, False):
-                a = fused_minmax(is_min, v, valid, gid, nseg)
-                b = fused_minmax(is_min, v, valid, gid, nseg)
-                ref = fused_minmax_plain(is_min, v, valid, gid, nseg)
-                torch.cuda.synchronize()
-                ok = same_bits(a, b) and same_bits(a, ref)
+                what = (f"{name} {cap} rows {nseg} segments "
+                        f"{str(dtype)[6:]} "
+                        f"{'min' if is_min else 'max'}")
+                a = minmax_exact(what, v, valid, gid, nseg, is_min,
+                                 quiet=True)
+                ok = True
                 if dtype == torch.float64:
                     nan = a[segs[0]].view(torch.int64)
-                    ok = ok and int(nan) == 0x7FF8_0000_0000_0000
+                    ok = int(nan) == 0x7FF8_0000_0000_0000
                     z1, z2 = (a[list(segs[2:])].view(torch.int64)
                               .tolist())
                     zero = -(1 << 63) if is_min else 0
                     ok = ok and z1 == z2 == zero
-                what = (f"{name} {cap} rows {nseg} segments "
-                        f"{str(dtype)[6:]} "
-                        f"{'min' if is_min else 'max'}")
-                log(f"  minmax {what}: exact={ok} (tol: bit-identical to "
-                    f"the plain version and across two launches; NaN "
-                    f"canonical, -0.0 < 0.0) {'OK' if ok else 'FAIL'}")
+                log(f"  minmax {what}: exact=True (tol: bit-identical to "
+                    f"the plain version and across two launches); edges "
+                    f"ok={ok} (NaN canonical, -0.0 < 0.0) "
+                    f"{'OK' if ok else 'FAIL'}")
                 if not ok:
-                    fail(f"fused_minmax {what} disagrees with its plain "
-                         "version")
+                    fail(f"fused_minmax {what}: wrong edge segments")
         # times of a double max (q8's aggregate)
         v = minmax_values(cap, torch.float64, gen)
         valid, gid = valid0, gid0
-        ms = time_ms(lambda: fused_minmax(False, v, valid, gid, nseg))
+        got = fused_minmax(False, v, valid, gid, nseg)
+        if not same_bits(got, yardstick_minmax(False, v, valid, gid, nseg)):
+            fail(f"fused_minmax at {name}: the yardstick kernel disagrees")
+        ms, ms_b2b, old, old_b2b = new_and_old_times(
+            lambda: fused_minmax(False, v, valid, gid, nseg),
+            lambda: yardstick_minmax(False, v, valid, gid, nseg))
         plain = time_ms(lambda: fused_minmax_plain(False, v, valid, gid,
                                                    nseg))
         use = valid & (gid >= 0) & (gid < nseg)
@@ -991,9 +1134,13 @@ def check_minmax(seed: int = 3, **shape_args) -> dict:
         bnd, by = bound_ms(nbytes, n_use, INT32_OPS_PER_S)
         times[name] = (ms, plain, lib, bnd, by)
         log(f"  minmax time at {name} (f64 max, {cap} rows, {nseg} "
-            f"segments, {n_use} valid rows): kernel {ms:.4f} ms, "
-            f"plain {plain:.4f} ms, scatter_reduce_ amax on the valid rows' int64 keys {lib:.4f} "
-            f"ms, bound {bnd:.4f} ms ({by}), {nbytes / ms / 1e6:.1f} GB/s")
+            f"segments, {n_use} valid rows): kernel {ms:.4f} ms "
+            f"[{ms_b2b:.4f} {BACK_TO_BACK} back to back], row atomics "
+            f"(before) {old:.4f} [{old_b2b:.4f}] ms, plain {plain:.4f} ms, "
+            f"scatter_reduce_ amax on the valid rows' int64 keys {lib:.4f} "
+            f"ms, bound {bnd:.4f} ms ({by}), {nbytes / ms_b2b / 1e6:.1f} "
+            "GB/s back to back")
+    check_minmax_runs(gen)
     ms, plain, lib, bnd, by = times[Q8_SHAPE]
     return {"name": "fused_minmax", "max_abs_err": 0.0, "ms": ms,
             "plain_ms": plain, "bound_ms": bnd, "bound_by": by,
@@ -1114,13 +1261,19 @@ def profile_q1(session, table, out_dir) -> None:
 
 
 #: kernels by family, for their shares of device time: the radix sort's
-#: (csrc/sort.cu), the probe's (csrc/hashprobe.cu) and the compaction's
-#: (csrc/compact.cu, and the two-pass form's scatter, invert_positions)
+#: (csrc/sort.cu), the probe's (csrc/hashprobe.cu), the compaction's
+#: (csrc/compact.cu), the partial sums' (csrc/segreduce.cu) and MIN/MAX's
+#: (csrc/minmax.cu; its output memset is not a kernel), each with the
+#: names of the form before its redesign (csrc/yardstick.cu), so that the
+#: traces of an older commit read the same way
 KERNEL_FAMILIES = {
     "sort": ("survey_bits", "pack_hist", "onesweep_pass", "finish_rows",
              "sort_small"),
     "probe": ("probe_rows",),
     "compaction": ("compact_tiles", "gather_streams", "invert_positions"),
+    "partials": ("partials_block", "onehot_partials_kernel"),
+    "minmax": ("minmax_runs", "minmax_finish", "minmax_rows",
+               "fill_identity", "keys_to_f64"),
 }
 
 

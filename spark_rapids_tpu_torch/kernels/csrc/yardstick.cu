@@ -14,6 +14,13 @@
 //   cumsum(keep) - 1 and new_n from the caller and a device array of
 //   (src, dst, itemsize) descriptors, and runs a scatter that inverts pos
 //   and then a gather of one thread per (row, stream).
+// * srt_onehot_partials_select_add: the partial sums before the ranked
+//   form: one CTA of 128 threads a 1024-row block, nseg select-adds per
+//   element and a shuffle tree per (warp, segment, column);
+// * srt_fused_minmax_row_atomics: MIN/MAX before the runs: a fill kernel,
+//   one row a thread per grid-stride step (validity, gid, value, a read of
+//   the current result and the atomic, one after another) on signed keys,
+//   and a finishing kernel for doubles.
 //
 // The salts and the slot function are csrc/hashprobe.cu's.
 
@@ -144,6 +151,200 @@ int probe_blocks(int64_t n) {
   return static_cast<int>(blocks > 132 * 64 ? 132 * 64 : blocks);
 }
 
+// the partial sums before the ranked form (csrc/segreduce.cu)
+namespace select_add {
+
+constexpr int kThreads = 128;
+constexpr int kWarps = kThreads / 32;
+constexpr int kRowsPerThread = 8;  // kThreads * kRowsPerThread = 1024 rows
+constexpr int kMaxSegments = 32;
+constexpr int kColChunk = 8;
+
+template <typename T>
+__device__ __forceinline__ T warp_sum(T v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    v += __shfl_down_sync(0xffffffffu, v, off);
+  }
+  return v;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+onehot_partials_kernel(const T* __restrict__ x, const int32_t* __restrict__ gid,
+                       T* __restrict__ out, int nseg, int c, int block,
+                       int64_t row_stride, int64_t col_stride) {
+  __shared__ T wpart[kWarps * kMaxSegments * kColChunk];
+  const int b = blockIdx.x;
+  const int j0 = blockIdx.y * kColChunk;
+  const int nj = min(kColChunk, c - j0);
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int64_t row0 = static_cast<int64_t>(b) * block;
+
+  int g[kRowsPerThread];
+#pragma unroll
+  for (int i = 0; i < kRowsPerThread; ++i) {
+    const int r = threadIdx.x + i * kThreads;
+    g[i] = r < block ? gid[row0 + r] : -1;
+  }
+
+  for (int jj = 0; jj < nj; ++jj) {
+    const int j = j0 + jj;
+    T v[kRowsPerThread];
+#pragma unroll
+    for (int i = 0; i < kRowsPerThread; ++i) {
+      const int r = threadIdx.x + i * kThreads;
+      v[i] = r < block ? x[(row0 + r) * row_stride + j * col_stride] : T(0);
+    }
+    for (int s = 0; s < nseg; ++s) {
+      T acc = T(0);
+#pragma unroll
+      for (int i = 0; i < kRowsPerThread; ++i) {
+        acc += (g[i] == s) ? v[i] : T(0);
+      }
+      acc = warp_sum(acc);
+      if (lane == 0) wpart[(warp * kMaxSegments + s) * kColChunk + jj] = acc;
+    }
+  }
+  __syncthreads();
+  for (int k = threadIdx.x; k < nseg * nj; k += kThreads) {
+    const int s = k / nj;
+    const int jj = k % nj;
+    T acc = wpart[s * kColChunk + jj];
+#pragma unroll
+    for (int w = 1; w < kWarps; ++w) {
+      acc += wpart[(w * kMaxSegments + s) * kColChunk + jj];
+    }
+    out[(static_cast<int64_t>(b) * nseg + s) * c + j0 + jj] = acc;
+  }
+}
+
+
+}  // namespace select_add
+
+// MIN/MAX before the runs (csrc/minmax.cu)
+namespace row_atomics {
+
+constexpr int kThreads = 256;
+constexpr int kMaxBlocks = 132 * 8;
+constexpr long long kMag = 0x7fffffffffffffffLL;
+constexpr long long kI64Min = -0x7fffffffffffffffLL - 1;
+constexpr long long kInfBits = 0x7ff0000000000000LL;
+constexpr long long kNanKey = 0x7ff8000000000000LL;  // its own key
+// key(-inf): bits 0xfff0000000000000 ^ kMag
+constexpr long long kNegInfKey = static_cast<long long>(0x800fffffffffffffULL);
+
+__device__ __forceinline__ long long f64_key(long long b) {
+  if ((b & kMag) > kInfBits) return kNanKey;  // any NaN, either sign
+  return b ^ ((b >> 63) & kMag);
+}
+
+template <bool kMin>
+__device__ __forceinline__ long long pick(long long a, long long b) {
+  return kMin ? (b < a ? b : a) : (b > a ? b : a);
+}
+
+template <bool kMin>
+__device__ __forceinline__ void reduce_into(long long* p, long long v) {
+  const long long cur = *reinterpret_cast<volatile long long*>(p);
+  if (kMin ? v < cur : v > cur) {
+    if (kMin) {
+      atomicMin(p, v);
+    } else {
+      atomicMax(p, v);
+    }
+  }
+}
+
+template <bool kMin, bool kF64>
+__host__ __device__ __forceinline__ long long identity() {
+  return kMin ? kMag : (kF64 ? kNegInfKey : kI64Min);
+}
+
+template <bool kMin, bool kF64>
+__global__ void __launch_bounds__(kThreads)
+minmax_rows(const long long* __restrict__ vals,
+            const uint8_t* __restrict__ valid,
+            const int32_t* __restrict__ gid, long long* __restrict__ out,
+            int64_t n, int nseg) {
+  const long long ident = identity<kMin, kF64>();
+  const int lane = threadIdx.x & 31;
+  int pend_g = -1;
+  long long pend = ident;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
+  // base is uniform over the CTA, so every lane of a warp runs the same
+  // iterations and the full-mask shuffles below are safe
+  for (int64_t base = static_cast<int64_t>(blockIdx.x) * kThreads; base < n;
+       base += stride) {
+    const int64_t i = base + threadIdx.x;
+    int g = -1;
+    long long k = ident;
+    if (i < n && valid[i]) {
+      const int gi = gid[i];
+      if (gi >= 0 && gi < nseg) {
+        g = gi;
+        k = kF64 ? f64_key(vals[i]) : vals[i];
+      }
+    }
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const long long ko = __shfl_up_sync(0xffffffffu, k, off);
+      const int go = __shfl_up_sync(0xffffffffu, g, off);
+      if (lane >= off && go == g) k = pick<kMin>(k, ko);
+    }
+    const int g_next = __shfl_down_sync(0xffffffffu, g, 1);
+    if (g >= 0 && (lane == 31 || g_next != g)) {
+      if (g == pend_g) {
+        pend = pick<kMin>(pend, k);
+      } else {
+        if (pend_g >= 0) reduce_into<kMin>(out + pend_g, pend);
+        pend_g = g;
+        pend = k;
+      }
+    }
+  }
+  if (pend_g >= 0) reduce_into<kMin>(out + pend_g, pend);
+}
+
+__global__ void fill_identity(long long* __restrict__ out, int nseg,
+                              long long ident) {
+  const int s = blockIdx.x * blockDim.x + threadIdx.x;
+  if (s < nseg) out[s] = ident;
+}
+
+// keys -> double bits; a min's identity key becomes +inf
+template <bool kMin>
+__global__ void keys_to_f64(long long* __restrict__ out, int nseg) {
+  const int s = blockIdx.x * blockDim.x + threadIdx.x;
+  if (s >= nseg) return;
+  const long long k = out[s];
+  out[s] = (kMin && k == kMag) ? kInfBits : (k ^ ((k >> 63) & kMag));
+}
+
+template <bool kMin, bool kF64>
+cudaError_t launch(const void* vals, const void* valid, const void* gid,
+                   void* out, int64_t n, int nseg, cudaStream_t st) {
+  long long* o = static_cast<long long*>(out);
+  const int seg_blocks = (nseg + kThreads - 1) / kThreads;
+  fill_identity<<<seg_blocks, kThreads, 0, st>>>(o, nseg,
+                                                 identity<kMin, kF64>());
+  if (n > 0) {
+    int64_t blocks = (n + kThreads - 1) / kThreads;
+    if (blocks > kMaxBlocks) blocks = kMaxBlocks;
+    const auto* v = static_cast<const long long*>(vals);
+    const auto* ok = static_cast<const uint8_t*>(valid);
+    const auto* g = static_cast<const int32_t*>(gid);
+    minmax_rows<kMin, kF64><<<static_cast<unsigned>(blocks), kThreads, 0,
+                              st>>>(v, ok, g, o, n, nseg);
+  }
+  if (kF64) keys_to_f64<kMin><<<seg_blocks, kThreads, 0, st>>>(o, nseg);
+  return cudaGetLastError();
+}
+
+
+}  // namespace row_atomics
+
 }  // namespace
 
 extern "C" {
@@ -207,6 +408,51 @@ int srt_gather_compact_two_pass(const void* keep, const void* pos, void* sel,
       static_cast<const StreamDesc*>(descs), static_cast<const int32_t*>(sel),
       static_cast<const int32_t*>(new_n), capacity);
   return static_cast<int>(cudaGetLastError());
+}
+
+// As csrc/segreduce.cu's srt_onehot_partials.
+int srt_onehot_partials_select_add(const void* x, const void* gid, void* out,
+                                   int64_t nb, int nseg, int c, int block,
+                                   int64_t row_stride, int64_t col_stride,
+                                   int is_f64, void* stream) {
+  namespace sa = select_add;
+  if (nb <= 0 || c <= 0) return static_cast<int>(cudaSuccess);
+  if (nseg < 1 || nseg > sa::kMaxSegments || block < 1 ||
+      block > sa::kThreads * sa::kRowsPerThread || nb > 0x7fffffff) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const dim3 grid(static_cast<unsigned>(nb),
+                  (c + sa::kColChunk - 1) / sa::kColChunk);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (is_f64) {
+    sa::onehot_partials_kernel<double><<<grid, sa::kThreads, 0, st>>>(
+        static_cast<const double*>(x), static_cast<const int32_t*>(gid),
+        static_cast<double*>(out), nseg, c, block, row_stride, col_stride);
+  } else {
+    sa::onehot_partials_kernel<float><<<grid, sa::kThreads, 0, st>>>(
+        static_cast<const float*>(x), static_cast<const int32_t*>(gid),
+        static_cast<float*>(out), nseg, c, block, row_stride, col_stride);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// As csrc/minmax.cu's srt_fused_minmax, without the ticket.
+int srt_fused_minmax_row_atomics(const void* vals, const void* valid,
+                                 const void* gid, void* out, int64_t n,
+                                 int nseg, int is_min, int is_f64,
+                                 void* stream) {
+  namespace ra = row_atomics;
+  if (nseg < 1 || n < 0) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t rc;
+  if (is_min) {
+    rc = is_f64 ? ra::launch<true, true>(vals, valid, gid, out, n, nseg, st)
+                : ra::launch<true, false>(vals, valid, gid, out, n, nseg, st);
+  } else {
+    rc = is_f64 ? ra::launch<false, true>(vals, valid, gid, out, n, nseg, st)
+                : ra::launch<false, false>(vals, valid, gid, out, n, nseg, st);
+  }
+  return static_cast<int>(rc);
 }
 
 const char* srt_error_string(int code) {

@@ -4,20 +4,25 @@
 
 ``onehot_partials``: the TPU kernel built each row block's one-hot in VMEM
 and contracted it on the MXU. The CUDA kernel (``csrc/segreduce.cu``)
-keeps the same function and output shape, with a fixed reduction order and
-no float atomics, so its bits repeat from run to run.
+keeps the same function and output shape, but does work per element that
+does not depend on the segment count: it ranks each block's rows by gid
+(a stable counting sort in shared memory), stages the columns in that
+order and sums each segment's contiguous range in a fixed order, with no
+float atomics, so its bits repeat from run to run.
 
 ``fused_minmax``: the TPU kernel reduced the two 32-bit limbs of a 64-bit
 value in two passes. The CUDA kernel (``csrc/minmax.cu``) reduces native
-int64 values, and doubles as order-preserving int64 keys, with one pass of
-64-bit atomics, and computes what the TPU kernel and its caller
-(``ops/segsum.py::segment_minmax_64``) compute together: Spark's NaN rule,
-the canonical NaN, ordered signed zeros and identities in empty segments.
+int64 values, and doubles, as order-preserving unsigned keys with one pass
+of 64-bit atomics over runs of 8 rows a thread, and computes what the TPU
+kernel and its caller (``ops/segsum.py::segment_minmax_64``) compute
+together: Spark's NaN rule, the canonical NaN, ordered signed zeros and
+identities in empty segments.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Dict, Tuple
 
 import torch
 
@@ -28,7 +33,7 @@ from spark_rapids_tpu_torch.kernels import (
     stream_handle,
 )
 
-#: block rows the CUDA kernel takes at most (128 threads x 8 rows)
+#: block rows the CUDA kernel takes at most (256 threads x 4 rows)
 MAX_BLOCK = 1024
 #: segments the CUDA kernel takes at most (ops/segsum.MATMUL_MAX_SEGMENTS)
 MAX_SEGMENTS = 32
@@ -43,6 +48,44 @@ _INF_BITS = 0x7FF0_0000_0000_0000
 _NAN_KEY = 0x7FF8_0000_0000_0000
 #: the key of -inf: its bits 0xfff0... xor _MAG
 _NEG_INF_KEY = 0x800F_FFFF_FFFF_FFFF - (1 << 64)
+
+
+_P, _I64, _I = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+#: the C signature of each library's entry point
+_SIGNATURES = {
+    "segreduce": ("srt_onehot_partials",
+                  [_P, _P, _P, _I64, _I, _I, _I, _I64, _I64, _I, _P]),
+    "minmax": ("srt_fused_minmax", [_P, _P, _P, _P, _I64, _I, _I, _I, _P, _P]),
+}
+_LIBS: Dict[str, ctypes.CDLL] = {}
+
+
+def _library(name: str) -> ctypes.CDLL:
+    """The loaded ``csrc/<name>.cu`` with its entry point's argument types
+    set, built at first use."""
+    lib = _LIBS.get(name)
+    if lib is None:
+        from spark_rapids_tpu_torch.kernels.build import load_library
+        lib = load_library(name)
+        fn_name, argtypes = _SIGNATURES[name]
+        fn = getattr(lib, fn_name)
+        fn.restype = ctypes.c_int
+        fn.argtypes = argtypes
+        _LIBS[name] = lib
+    return lib
+
+
+#: fused_minmax's ticket counter of each (device, stream): one int32, zeroed
+#: once; each launch leaves it 0
+_TICKETS: Dict[Tuple[int, int], torch.Tensor] = {}
+
+
+def _ticket(device: torch.device, stream: int) -> torch.Tensor:
+    key = (device.index, stream)
+    t = _TICKETS.get(key)
+    if t is None:
+        t = _TICKETS[key] = torch.zeros(1, dtype=torch.int32, device=device)
+    return t
 
 
 def onehot_partials_plain(x: torch.Tensor, gid: torch.Tensor, nseg: int,
@@ -90,17 +133,11 @@ def onehot_partials(x: torch.Tensor, gid: torch.Tensor, nseg: int, nb: int,
                          f"1..{MAX_BLOCK})")
     c = int(x.shape[1])
     out = torch.empty((nb, nseg, c), dtype=x.dtype, device=x.device)
-    from spark_rapids_tpu_torch.kernels.build import load_library
-    lib = load_library("segreduce")
-    fn = lib.srt_onehot_partials
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                   ctypes.c_int64, ctypes.c_int64, ctypes.c_int,
-                   ctypes.c_void_p]
-    rc = fn(x.data_ptr(), gid.data_ptr(), out.data_ptr(), nb, nseg, c, block,
-            x.stride(0), x.stride(1), int(x.dtype == torch.float64),
-            stream_handle(x))
+    lib = _library("segreduce")
+    rc = lib.srt_onehot_partials(
+        x.data_ptr(), gid.data_ptr(), out.data_ptr(), nb, nseg, c, block,
+        x.stride(0), x.stride(1), int(x.dtype == torch.float64),
+        stream_handle(x))
     check_launch(lib, rc, "onehot_partials")
     onehot_partials.launches += 1
     return out
@@ -177,16 +214,13 @@ def fused_minmax(is_min: bool, values: torch.Tensor, valid: torch.Tensor,
     for t, what in ((values, "values"), (valid, "valid"), (gid, "gid")):
         require_contiguous(t, f"fused_minmax {what}")
     out = torch.empty(nseg, dtype=values.dtype, device=values.device)
-    from spark_rapids_tpu_torch.kernels.build import load_library
-    lib = load_library("minmax")
-    fn = lib.srt_fused_minmax
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_int64, ctypes.c_int,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    rc = fn(values.data_ptr(), valid.data_ptr(), gid.data_ptr(),
-            out.data_ptr(), int(values.shape[0]), nseg, int(is_min),
-            int(values.dtype == torch.float64), stream_handle(values))
+    lib = _library("minmax")
+    stream = stream_handle(values)
+    rc = lib.srt_fused_minmax(
+        values.data_ptr(), valid.data_ptr(), gid.data_ptr(), out.data_ptr(),
+        int(values.shape[0]), nseg, int(is_min),
+        int(values.dtype == torch.float64),
+        _ticket(values.device, stream).data_ptr(), stream)
     check_launch(lib, rc, "fused_minmax")
     fused_minmax.launches += 1
     return out

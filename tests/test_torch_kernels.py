@@ -59,7 +59,7 @@ def _partials_case(kind, rng):
         gid = np.zeros(n, np.int64)
         x = rng.standard_normal((n, c))
     elif kind == "nseg32":
-        nseg, c = 32, 9  # two column chunks in the CUDA kernel
+        nseg, c = 32, 9  # nine columns: nine staging passes in the CUDA kernel
         gid = rng.integers(0, 32, n)
         x = rng.standard_normal((n, c)) * 1e3
     elif kind == "edges":  # -0.0, ties (one hot segment), huge magnitudes
