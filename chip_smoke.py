@@ -37,13 +37,24 @@ Phases, in order; any failure exits non-zero:
    a MIN/MAX group-by of orders and a global MIN/MAX over lineitem; cold
    and warm times, replays, peak memory and every kernel's launches in one
    warm run, each result against a numpy oracle (MIN, MAX and counts
-   exact, q2's sum rtol 1e-9);
-7. the summary lines: one ``{"kernels": [...]}`` JSON line, the card line,
-   and last ``{"ok": true, "device": {...}}``.
+   exact, q2's sum rtol 1e-9), and every kernel launch of that warm run
+   held against its plain version on the inputs it was given;
+7. the other 17 corpus queries the port runs (q1, q3-q5, q9-q20, q22) on
+   the same tables, each as ``scale_test.py`` writes it: cold and warm
+   times, replays, peak memory, host syncs, sorts and every kernel's
+   launches in one warm run, each result against a numpy oracle (keys,
+   counts, int64 and decimal sums and strings exact, f64 rtol 1e-9),
+   every kernel launch of that warm run against its plain version as in
+   phase 6, and a JSON summary line of them all;
+8. the summary lines: one ``{"kernels": [...]}`` JSON line (launches of
+   the main path: q1's, sparse q3's probes, q8's MIN/MAX, plus every
+   phase-7 query's), the card line, and last
+   ``{"ok": true, "device": {...}}``.
 
-It needs one CUDA card and exits non-zero without one. ``--profile DIR``
-also writes a torch.profiler table and trace of one warm run of q1, of
-each q3 form and of each phase-6 query.
+Each phase logs its wall time. It needs one CUDA card and exits non-zero
+without one. ``--profile DIR`` also writes a torch.profiler table and
+trace of one warm run of q1, of each q3 form and of each phase-6 and
+phase-7 query.
 """
 
 from __future__ import annotations
@@ -1280,14 +1291,14 @@ KERNEL_FAMILIES = {
 def trace_times(path):
     """(device busy ms, span ms from the first device event to the end of
     the last, {family: ms of its kernels}) of a chrome trace's kernels,
-    copies and memsets."""
+    copies and memsets; None when the trace holds no device event."""
     with open(path) as f:
         events = json.load(f)
     events = events["traceEvents"] if isinstance(events, dict) else events
     dev = [e for e in events if e.get("ph") == "X" and e.get("cat") in (
         "kernel", "gpu_memcpy", "gpu_memset")]
     if not dev:
-        fail(f"{path}: no device event in the trace")
+        return None
     busy = sum(e["dur"] for e in dev) / 1e3
     span = (max(e["ts"] + e["dur"] for e in dev)
             - min(e["ts"] for e in dev)) / 1e3
@@ -1297,25 +1308,36 @@ def trace_times(path):
     return busy, span, families
 
 
-def profile_run(name, run, out_dir) -> None:
+def profile_run(name, run, out_dir) -> dict:
     """One warm run of ``run`` under torch.profiler: the table of device
     time by operator and a chrome trace under ``out_dir``, and the run's
-    device busy time, idle share and sort share from that trace."""
+    device busy time, idle share and sort share from that trace (the
+    first two returned)."""
     from torch.profiler import ProfilerActivity, profile
     os.makedirs(out_dir, exist_ok=True)
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        run()
-        torch.cuda.synchronize()
-    table_txt = prof.key_averages().table(sort_by="cuda_time_total",
-                                          row_limit=40)
     tag = "_".join("".join(ch if ch.isalnum() else " "
                            for ch in name).split())
+    trace = os.path.join(out_dir, f"{tag}_trace.json")
+    # the profiler now and then exports a trace without its device events
+    # (CUPTI's buffers): profile the run again, at most twice more
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        prof.export_chrome_trace(trace)
+        times = trace_times(trace)
+        if times is not None:
+            break
+        log(f"  {name}: the trace of profile attempt {attempt + 1} holds "
+            "no device event")
+    else:
+        fail(f"{trace}: no device event in three profiled runs")
+    busy, span, families = times
+    table_txt = prof.key_averages().table(sort_by="cuda_time_total",
+                                          row_limit=40)
     with open(os.path.join(out_dir, f"{tag}_profile.txt"), "w") as f:
         f.write(table_txt)
-    trace = os.path.join(out_dir, f"{tag}_trace.json")
-    prof.export_chrome_trace(trace)
-    busy, span, families = trace_times(trace)
     log(f"  {name}: device busy {busy:.3f} ms over a span of {span:.3f} ms "
         f"({100 * (1 - busy / span):.1f}% idle); " + ", ".join(
             f"{f} kernels {ms:.3f} ms ({100 * ms / busy:.1f}% of busy)"
@@ -1323,6 +1345,8 @@ def profile_run(name, run, out_dir) -> None:
     log(f"  profile of one warm {name} run (top by device time):")
     for line in table_txt.splitlines()[:25]:
         log("    " + line)
+    return {"busy_ms": round(busy, 3), "idle_pct": round(
+        100 * (1 - busy / span), 1)}
 
 
 # ---------------------------------------------------------------------------
@@ -1386,11 +1410,11 @@ def check_q3_result(got, oracle, what) -> None:
 def run_q3_form(what, tables, oracle, conf, expect, profile_dir,
                 time_compactions=False) -> dict:
     """Cold run (replays counted), three warm runs, and one more warm run
-    between launch-counter reads (host syncs counted); every result
+    between launch-counter reads (host syncs counted, every launch held
+    against its kernel's plain version on its inputs); every result
     against the oracle. ``time_compactions``: each compaction of that warm
     run is checked and timed again on its own inputs."""
     from spark_rapids_tpu_torch import kernels as K
-    from spark_rapids_tpu_torch.kernels.compact import gather_compact
     from spark_rapids_tpu_torch.models.tpch import q3_dataframe
     from spark_rapids_tpu_torch.runtime import speculation
     from spark_rapids_tpu_torch.session import TorchSession
@@ -1415,21 +1439,25 @@ def run_q3_form(what, tables, oracle, conf, expect, profile_dir,
         warm.append(time.perf_counter() - t0)
         check_q3_result(again, oracle, what)
         revenue_bits.add(again.columns[1].data.tobytes())
+    # before the counted run, whose recorded inputs stay allocated
+    peak = torch.cuda.max_memory_allocated()
     K.reset_launch_counts()
     syncs = sort_trace_start()
-    gather_compact.trace = []
+    K.calls = []
     with host_sync_count() as box:
         again = q3_dataframe(session, *tables).collect_table()
     torch.cuda.synchronize()
     launches = K.launch_counts()
-    compactions, gather_compact.trace = gather_compact.trace, None
+    calls, K.calls = K.calls, None
     sort_trace_end(what, syncs)
+    compactions = [args for k, args, _ in calls if k == "gather_compact"]
     log(f"  {what}: host syncs in one warm query {box['syncs']} (torch's "
         f"sync debug mode); compactions (capacity, columns, kept): "
         f"{[(c, len(d), int(k.sum())) for d, _, k, c in compactions]}")
     warm_m = session.last_metrics()
     check_q3_result(again, oracle, what)
-    peak = torch.cuda.max_memory_allocated()
+    hold_launches(what, calls)
+    del calls
     log(f"  {what}: cold {cold * 1e3:.1f} ms ({cold_m['speculationReplays']} "
         f"replays), warm median {statistics.median(warm) * 1e3:.2f} ms (runs "
         f"{[round(w * 1e3, 2) for w in warm]}), peak device memory "
@@ -1630,62 +1658,134 @@ def corpus_cases(session, tables, sparse_orders):
 CORPUS_SORTS = {"q8 inner, sparse keys": 1}
 
 
-def run_corpus(sf: float, seed: int, profile_dir) -> int:
-    """Every phase-6 query: a cold run (replays counted), three warm runs,
-    and one more warm run between launch-counter reads; each result
-    against its oracle. Returns fused_minmax's launches in one warm q8."""
+def hold_launches(name, calls) -> None:
+    """Hold each kernel launch of a query's counted run against its plain
+    version on the inputs that launch was given (``kernels.calls``):
+    onehot_partials within rtol 1e-12 of each partial's absolute mass (f32
+    within two 1024-row summation orders), every other kernel bit for
+    bit."""
+    from spark_rapids_tpu_torch.kernels.compact import gather_compact_plain
+    from spark_rapids_tpu_torch.kernels.hashprobe import probe_rowids_plain
+    from spark_rapids_tpu_torch.kernels.segreduce import (
+        fused_minmax_plain,
+        onehot_partials_plain,
+    )
+    from spark_rapids_tpu_torch.kernels.sort import sort_with_payload_plain
+    held = {}
+    for kernel, args, out in calls:
+        if kernel == "onehot_partials":
+            x, gid, nseg, nb, block = args
+            tol = 1e-12 if x.dtype == torch.float64 else \
+                2 * (block - 1) * 2.0 ** -24
+            _, rel = partials_error(out, onehot_partials_plain(*args), *args)
+            ok = rel <= tol
+            what = f"{tuple(x.shape)} {str(x.dtype)[6:]} nseg {nseg}: " \
+                f"err/mass {rel:.2e}"
+        elif kernel == "gather_compact":
+            datas, valids, keep, capacity = args
+            pairs, new_n = gather_compact_plain(*args)
+            ok = int(new_n) == int(out[1]) and all(
+                same_bits(a, b) and same_bits(va, vb)
+                for (a, va), (b, vb) in zip(out[0], pairs))
+            what = f"{capacity} rows x " + "/".join(
+                str(d.dtype)[6:] for d in datas) + f", {int(new_n)} kept"
+        elif kernel == "sort_with_payload":
+            ops, payload = args
+            ok = all(same_bits(a, b) for a, b in
+                     zip(out, sort_with_payload_plain(ops, payload)))
+            what = f"{payload.shape[0]} rows x {len(ops)} operands"
+        elif kernel == "probe_rowids":
+            ok = torch.equal(out, probe_rowids_plain(*args))
+            what = f"{args[0].shape[0]} probes, {args[4]} attempts"
+        else:
+            ok = same_bits(out, fused_minmax_plain(*args))
+            what = f"{args[1].shape[0]} rows nseg {args[4]}"
+        if not ok:
+            fail(f"{name}: {kernel} ({what}) disagrees with its plain "
+                 "version on the inputs of the counted run")
+        held.setdefault(kernel, []).append(what)
+    for kernel, whats in held.items():
+        log(f"  {name}: {kernel} agrees with its plain version on the "
+            f"inputs of each of its {len(whats)} launches in the counted "
+            f"run: {'; '.join(whats)}")
+
+
+def run_case(session, name, build, check, profile_dir) -> dict:
+    """One query: a cold run (replays counted), three warm runs, and one
+    more warm run between launch-counter reads (host syncs and sorts
+    logged, every launch's inputs recorded and then held against the
+    kernel's plain version); each result against its oracle. Returns the
+    launches of the counted run and the query's numbers."""
     from spark_rapids_tpu_torch import kernels as K
-    from spark_rapids_tpu_torch.models.corpus import corpus_tables
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    got = build().collect_table()
+    torch.cuda.synchronize()
+    cold = time.perf_counter() - t0
+    replays = session.last_metrics()["speculationReplays"]
+    check(got)
+    warm = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        again = build().collect_table()
+        torch.cuda.synchronize()
+        warm.append(time.perf_counter() - t0)
+        check(again)
+    # before the counted run, whose recorded inputs stay allocated
+    peak = torch.cuda.max_memory_allocated()
+    K.reset_launch_counts()
+    syncs = sort_trace_start()
+    K.calls = []
+    with host_sync_count() as box:
+        again = build().collect_table()
+    torch.cuda.synchronize()
+    launches = K.launch_counts()
+    calls, K.calls = K.calls, None
+    sort_trace_end(name, syncs)
+    log(f"  {name}: host syncs in one warm query {box['syncs']} "
+        "(torch's sync debug mode)")
+    warm_replays = session.last_metrics()["speculationReplays"]
+    check(again)
+    hold_launches(name, calls)
+    del calls
+    log(f"  {name}: cold {cold * 1e3:.1f} ms ({replays} replays), warm "
+        f"median {statistics.median(warm) * 1e3:.2f} ms (runs "
+        f"{[round(w * 1e3, 2) for w in warm]}), peak device memory "
+        f"{peak / 2**30:.2f} GiB, {got.num_rows} rows")
+    log(f"  {name}: launches during one warm query: {launches}")
+    if warm_replays != 0:
+        fail(f"{name}: a warm run replayed")
+    stats = {"cold_ms": round(cold * 1e3, 2),
+             "warm_ms": round(statistics.median(warm) * 1e3, 2),
+             "replays": replays, "syncs": box["syncs"],
+             "peak_gib": round(peak / 2**30, 3), "rows": got.num_rows}
+    if profile_dir:
+        stats.update(profile_run(name, lambda: build().collect_table(),
+                                 profile_dir))
+    return {"launches": launches, "stats": stats}
+
+
+def run_corpus(tables, sf: float, seed: int, profile_dir) -> int:
+    """Every phase-6 query through ``run_case``, with its oracle and its
+    expected MIN/MAX and sort launches. Returns fused_minmax's launches in
+    one warm q8."""
     from spark_rapids_tpu_torch.session import TorchSession
 
     t0 = time.perf_counter()
-    tables = corpus_tables(sf, seed)
     sparse_orders = sparse_custkey(tables["orders"])
     session = TorchSession()
     cases = corpus_cases(session, tables, sparse_orders)
-    log(f"  generated scale_test_specs({sf}) seed {seed}: "
+    log(f"  scale_test_specs({sf}) seed {seed}: "
         f"{tables['orders'].num_rows} orders, "
-        f"{tables['lineitem'].num_rows} lineitem rows (the columns q2 and "
-        f"q8 read) and the oracles in {time.perf_counter() - t0:.2f} s "
-        "(host)")
+        f"{tables['lineitem'].num_rows} lineitem rows; the oracles in "
+        f"{time.perf_counter() - t0:.2f} s (host)")
     q8_launches = None
     for name, (build, check, want_minmax) in cases.items():
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        got = build().collect_table()
-        torch.cuda.synchronize()
-        cold = time.perf_counter() - t0
-        replays = session.last_metrics()["speculationReplays"]
-        check(got)
-        warm = []
-        for _ in range(3):
-            t0 = time.perf_counter()
-            again = build().collect_table()
-            torch.cuda.synchronize()
-            warm.append(time.perf_counter() - t0)
-            check(again)
-        K.reset_launch_counts()
-        syncs = sort_trace_start()
-        with host_sync_count() as box:
-            again = build().collect_table()
-        torch.cuda.synchronize()
-        launches = K.launch_counts()
-        sort_trace_end(name, syncs)
-        log(f"  {name}: host syncs in one warm query {box['syncs']} "
-            "(torch's sync debug mode)")
-        warm_replays = session.last_metrics()["speculationReplays"]
-        check(again)
-        peak = torch.cuda.max_memory_allocated()
-        log(f"  {name}: cold {cold * 1e3:.1f} ms ({replays} replays), warm "
-            f"median {statistics.median(warm) * 1e3:.2f} ms (runs "
-            f"{[round(w * 1e3, 2) for w in warm]}), peak device memory "
-            f"{peak / 2**30:.2f} GiB, {got.num_rows} rows")
-        log(f"  {name}: launches during one warm query: {launches}")
+        launches = run_case(session, name, build, check,
+                            profile_dir)["launches"]
         log(f"  {name}: result matches the numpy oracle (MIN, MAX and "
             "counts exact, sums rtol 1e-9)")
-        if warm_replays != 0:
-            fail(f"{name}: a warm run replayed")
         if launches["fused_minmax"] != want_minmax:
             fail(f"{name}: fused_minmax launched {launches['fused_minmax']} "
                  f"times, expected {want_minmax}")
@@ -1696,9 +1796,280 @@ def run_corpus(sf: float, seed: int, profile_dir) -> int:
                  f"{want_sorts}")
         if name == "q8":
             q8_launches = launches["fused_minmax"]
-        if profile_dir:
-            profile_run(name, lambda: build().collect_table(), profile_dir)
     return q8_launches
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the rest of the ported corpus
+# ---------------------------------------------------------------------------
+
+#: the corpus queries phase 7 runs (q2 and q8 are phase 6's)
+WIDE_QUERIES = ("q1", "q3", "q4", "q5", "q9", "q10", "q11", "q12", "q13",
+                "q14", "q15", "q16", "q17", "q18", "q19", "q20", "q22")
+#: queries with no f64 sum: their integer and decimal sums must never take
+#: the one-hot partials' f64 route
+NO_F64_SUMS = ("q11", "q13", "q16", "q18", "q20", "q22")
+
+
+def group_sum(inv, ngroups, values):
+    """Per-group sums of ``values`` by group index ``inv``: exact int64
+    (np.add.at) for integers, np.bincount for doubles."""
+    if values.dtype.kind == "f":
+        return np.bincount(inv, weights=values, minlength=ngroups)
+    out = np.zeros(ngroups, dtype=np.int64)
+    np.add.at(out, inv, values.astype(np.int64))
+    return out
+
+
+def check_table(got, want, what, key=(), f64=()) -> None:
+    """The port's result against the oracle's columns ``want`` ({name:
+    values}, in the output's order): every value valid; rows in order, or
+    with ``key`` both sides sorted by those columns first (the oracle's
+    are already); ``f64`` columns within rtol 1e-9, every other column
+    exact (strings and DECIMAL128 values as Python objects)."""
+    if list(got.names) != list(want):
+        fail(f"{what}: columns {list(got.names)}, oracle {list(want)}")
+    n = len(next(iter(want.values())))
+    if got.num_rows != n:
+        fail(f"{what}: {got.num_rows} rows, oracle {n}")
+    cols = {nm: c for nm, c in zip(got.names, got.columns)}
+    for nm, c in cols.items():
+        if not c.validity.all():
+            fail(f"{what} {nm}: null results")
+    order = np.arange(n)
+    if key:
+        keys = [cols[k].data for k in key]
+        if all(k.dtype != object for k in keys):
+            order = np.lexsort(keys[::-1])
+        else:
+            order = np.array(sorted(range(n), key=lambda i: tuple(
+                k[i] for k in keys)), dtype=np.int64)
+    for nm, w in want.items():
+        g = cols[nm].data[order]
+        w = np.asarray(w) if not isinstance(w, np.ndarray) else w
+        if nm in f64:
+            if not np.allclose(g, w, rtol=1e-9, atol=0):
+                fail(f"{what} {nm}: {g[:5]} vs oracle {w[:5]} (rtol 1e-9)")
+        elif g.dtype == object or w.dtype == object:
+            if list(g) != list(w):
+                fail(f"{what} {nm}: differs from the oracle (exact)")
+        elif g.dtype != w.dtype or g.tobytes() != w.tobytes():
+            fail(f"{what} {nm}: {g[:5]} vs oracle {w[:5]} (exact)")
+
+
+def wide_oracles(tables):
+    """{query: check(got)} of every phase-7 query, each answer computed
+    in numpy from the host tables (keys are dense: every key column is a
+    row index of its parent table)."""
+    L, O, C = (host_cols(tables[t]) for t in ("lineitem", "orders",
+                                                "customer"))
+    for t in ("lineitem", "orders", "customer"):
+        for nm, c in zip(tables[t].names, tables[t].columns):
+            if not c.validity.all():
+                fail(f"oracle: {t}.{nm} holds nulls")
+    if not ((O["o_orderkey"] == np.arange(len(O["o_orderkey"]))).all()
+            and (C["c_custkey"] == np.arange(len(C["c_custkey"]))).all()):
+        fail("oracle: the primary keys are not row indices")
+    n_o, n_c = len(O["o_orderkey"]), len(C["c_custkey"])
+    l_ok = L["l_orderkey"]
+    qty, ext, disc = L["l_quantity"], L["l_extendedprice"], L["l_discount"]
+    ship = L["l_shipdate"]
+    cust_of_line = O["o_custkey"][l_ok]
+    nat_of_line = C["c_nationkey"][cust_of_line]
+    rev_all = ext * (1.0 - disc)
+    out = {}
+
+    def grouped(keys, values, mask=None):
+        """(distinct keys ascending, {name: per-group sum})."""
+        k = keys if mask is None else keys[mask]
+        uniq, inv = np.unique(k, return_inverse=True)
+        return uniq, {nm: group_sum(inv, len(uniq),
+                                    v if mask is None else v[mask])
+                      for nm, v in values.items()}
+
+    # q1: filter, two string keys, int64 and f64 sums, avg, count
+    rf_codes, rf_dict = tables["lineitem"].columns[
+        tables["lineitem"].names.index("l_returnflag")].encoded()
+    ls_codes, ls_dict = tables["lineitem"].columns[
+        tables["lineitem"].names.index("l_linestatus")].encoded()
+    m = ship <= 10500
+    gk = rf_codes.astype(np.int64) * len(ls_dict) + ls_codes
+    uniq, sums = grouped(gk, {"sum_qty": qty, "sum_base": ext,
+                              "disc": disc,
+                              "cnt": np.ones(len(qty), np.int64)}, m)
+    out["q1"] = lambda g, w={
+        "l_returnflag": rf_dict[uniq // len(ls_dict)],
+        "l_linestatus": ls_dict[uniq % len(ls_dict)],
+        "sum_qty": sums["sum_qty"], "sum_base": sums["sum_base"],
+        "avg_disc": sums["disc"] / sums["cnt"], "cnt": sums["cnt"]}: \
+        check_table(g, w, "q1", key=("l_returnflag", "l_linestatus"),
+                    f64=("sum_base", "avg_disc"))
+
+    # q3: join orders -> lineitem, group by o_custkey
+    uniq, sums = grouped(cust_of_line, {"spend": ext, "items": np.ones(
+        len(ext), np.int64)})
+    out["q3"] = lambda g, w={"o_custkey": uniq, "spend": sums["spend"],
+                             "items": sums["items"]}: \
+        check_table(g, w, "q3", key=("o_custkey",), f64=("spend",))
+
+    # q4: customer -> orders -> lineitem, group by c_nationkey
+    uniq4, s4 = grouped(nat_of_line, {"rev": ext})
+    out["q4"] = lambda g, w={"c_nationkey": uniq4, "rev": s4["rev"]}: \
+        check_table(g, w, "q4", key=("c_nationkey",), f64=("rev",))
+
+    # q5: top 100 orders by price (stable: ties in row order)
+    top = np.argsort(-O["o_totalprice"], kind="stable")[:100]
+    out["q5"] = lambda g, w={nm: O[nm][top] for nm in tables[
+        "orders"].names}: check_table(g, w, "q5")
+
+    # q9: date filter, two joins, revenue per nation, top 10
+    m9 = O["o_orderdate"][l_ok] >= 9000
+    uniq9, s9 = grouped(nat_of_line, {"revenue": rev_all}, m9)
+    top9 = np.argsort(-s9["revenue"], kind="stable")[:10]
+    out["q9"] = lambda g, w={"c_nationkey": uniq9[top9],
+                             "revenue": s9["revenue"][top9]}: \
+        check_table(g, w, "q9", f64=("revenue",))
+
+    # q10 and q17: lines below a share of their order's average quantity
+    qsum = np.bincount(l_ok, weights=qty.astype(np.float64), minlength=n_o)
+    qcnt = np.bincount(l_ok, minlength=n_o)
+    avg_q = qsum[l_ok] / qcnt[l_ok]
+    qf = qty.astype(np.float64)
+    total10 = float(np.sum(ext[qf < 0.6 * avg_q]))
+    out["q10"] = lambda g: check_table(g, {"total": np.array([total10])},
+                                       "q10", f64=("total",))
+    s17 = float(np.sum(ext[qf < 0.5 * avg_q]))
+    out["q17"] = lambda g: check_table(
+        g, {"avg_yearly": np.array([s17 / 7.0])}, "q17",
+        f64=("avg_yearly",))
+
+    # q11: exact decimal sum per nation, count, filter, sort desc
+    nat, bal = C["c_nationkey"], C["c_acctbal"]
+    uniq11, s11 = grouped(nat, {"total_bal": bal, "n": np.ones(
+        n_c, np.int64)})
+    keep = s11["n"] > 5
+    o11 = np.argsort(-s11["total_bal"][keep], kind="stable")
+    out["q11"] = lambda g, w={
+        "c_nationkey": uniq11[keep][o11],
+        "total_bal": np.array([int(v) for v in s11["total_bal"][keep][o11]],
+                              dtype=object),
+        "n": s11["n"][keep][o11]}: check_table(g, w, "q11")
+
+    # q12: shipdate window, join orders, per return flag
+    m12 = (ship >= 9000) & (ship < 10000)
+    uniq12, s12 = grouped(rf_codes, {"n": np.ones(len(ship), np.int64),
+                                     "p": O["o_totalprice"][l_ok]}, m12)
+    out["q12"] = lambda g, w={"l_returnflag": rf_dict[uniq12],
+                              "n": s12["n"],
+                              "avg_price": s12["p"] / s12["n"]}: \
+        check_table(g, w, "q12", key=("l_returnflag",), f64=("avg_price",))
+
+    # q13: distribution of orders per customer
+    per_cust = np.bincount(O["o_custkey"], minlength=n_c)
+    per_cust = per_cust[per_cust > 0]
+    uniq13, n13 = np.unique(per_cust, return_counts=True)
+    out["q13"] = lambda g, w={"c_orders": uniq13.astype(np.int64),
+                              "n_custs": n13.astype(np.int64)}: \
+        check_table(g, w, "q13")
+
+    # q14: windowed revenue, its sum, count and ratio
+    m14 = (ship >= 9500) & (ship < 9700)
+    tot14 = float(np.sum(rev_all[m14]))
+    n14 = int(m14.sum())
+    out["q14"] = lambda g: check_table(
+        g, {"avg_rev": np.array([tot14 / n14]),
+            "total_rev": np.array([tot14])}, "q14",
+        f64=("avg_rev", "total_rev"))
+
+    # q15: top 5 customers by revenue
+    uniq15, s15 = grouped(cust_of_line, {"revenue": rev_all})
+    top15 = np.argsort(-s15["revenue"], kind="stable")[:5]
+    out["q15"] = lambda g, w={"o_custkey": uniq15[top15],
+                              "revenue": s15["revenue"][top15]}: \
+        check_table(g, w, "q15", f64=("revenue",))
+
+    # q16: customers with orders, per nation
+    active = np.unique(O["o_custkey"])
+    uniq16, n16 = np.unique(nat[active], return_counts=True)
+    out["q16"] = lambda g, w={"c_nationkey": uniq16,
+                              "active_custs": n16.astype(np.int64)}: \
+        check_table(g, w, "q16")
+
+    # q18: orders over 150 units, joined with orders, top 20 by price
+    sq = np.zeros(n_o, dtype=np.int64)
+    np.add.at(sq, l_ok, qty)
+    big = np.flatnonzero(sq > 150)
+    top18 = big[np.argsort(-O["o_totalprice"][big], kind="stable")[:20]]
+    out["q18"] = lambda g, w={"l_orderkey": top18.astype(np.int64),
+                              "sum_qty": sq[top18],
+                              "o_custkey": O["o_custkey"][top18],
+                              "o_totalprice": O["o_totalprice"][top18]}: \
+        check_table(g, w, "q18")
+
+    # q19: the disjunctive predicate
+    m19 = (((qty >= 1) & (qty <= 11) & (disc > 0.02))
+           | ((qty >= 10) & (qty <= 20) & (disc < 0.06))
+           | (L["l_returnflag"] == "R00000001"))
+    rev19 = float(np.sum(rev_all[m19]))
+    out["q19"] = lambda g: check_table(g, {"revenue": np.array([rev19])},
+                                       "q19", f64=("revenue",))
+
+    # q20: customers with big orders, top 10 by count (ties by custkey:
+    # the group-by emits keys ascending and the sort is stable)
+    nbig = np.bincount(O["o_custkey"][O["o_totalprice"] > 400000.0],
+                       minlength=n_c)
+    custs = np.flatnonzero(nbig)
+    top20 = custs[np.lexsort((custs, -nbig[custs]))[:10]]
+    names = tables["customer"].columns[
+        tables["customer"].names.index("c_name")].data
+    out["q20"] = lambda g, w={"c_custkey": top20.astype(np.int64),
+                              "nbig": nbig[top20].astype(np.int64),
+                              "c_name": names[top20],
+                              "c_acctbal": bal[top20]}: \
+        check_table(g, w, "q20")
+
+    # q22: accounts above the global average, per nation
+    ab = float(sum(int(v) for v in bal)) / (n_c * 100.0)
+    m22 = (bal.astype(np.float64) / 100.0) > ab
+    uniq22, s22 = grouped(nat, {"numcust": np.ones(n_c, np.int64),
+                                "tot": bal}, m22)
+    out["q22"] = lambda g, w={
+        "c_nationkey": uniq22, "numcust": s22["numcust"],
+        "totacctbal": np.array([int(v) for v in s22["tot"]],
+                               dtype=object)}: check_table(g, w, "q22")
+    return out
+
+
+def run_corpus_wide(tables, profile_dir) -> dict:
+    """Every phase-7 query through ``run_case`` against its numpy oracle.
+    Returns every kernel's launches summed over the counted runs."""
+    from spark_rapids_tpu_torch.models.corpus import build_queries
+    from spark_rapids_tpu_torch.session import TorchSession
+
+    t0 = time.perf_counter()
+    oracles = wide_oracles(tables)
+    log(f"  the numpy oracles in {time.perf_counter() - t0:.2f} s (host)")
+    session = TorchSession()
+    queries = build_queries(session, tables)
+    total, summary = {}, {}
+    for name in WIDE_QUERIES:
+        res = run_case(session, name, queries[name], oracles[name],
+                       profile_dir)
+        launches = res["launches"]
+        log(f"  {name}: result matches the numpy oracle (keys, counts, "
+            "int64 and decimal sums and strings exact, f64 rtol 1e-9)")
+        if name in NO_F64_SUMS and launches["onehot_partials"]:
+            fail(f"{name}: an integer or decimal sum launched "
+                 "onehot_partials (the f64 route)")
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        summary[name] = dict(res["stats"], launches={
+            k: v for k, v in launches.items() if v})
+    for k in ("onehot_partials", "gather_compact", "sort_with_payload"):
+        if not total.get(k):
+            fail(f"phase 7 launched no {k}")
+    log("  phase-7 summary: " + json.dumps(summary))
+    return total
 
 
 def main(argv=None) -> int:
@@ -1724,6 +2095,7 @@ def main(argv=None) -> int:
     from spark_rapids_tpu_torch.kernels.build import SOURCES as CU_SOURCES
     from spark_rapids_tpu_torch.kernels.build import build
 
+    t_start = time.perf_counter()
     log("phase 1: the card")
     card = card_line()
     cap = torch.cuda.get_device_capability(0)
@@ -1742,6 +2114,8 @@ def main(argv=None) -> int:
             if "registers" in line or "spill" in line or "error" in line:
                 log(f"    {name}: {line.strip()}")
 
+    log(f"  phases 1-2 ran {time.perf_counter() - t_start:.1f} s")
+    t_phase = time.perf_counter()
     log("phase 3: kernels against their plain versions")
     with host_sync_count() as box:
         torch.ones(1, device=DEV).item()
@@ -1754,16 +2128,39 @@ def main(argv=None) -> int:
     capacity = bucket_for(args.rows)
     rows = [check_segreduce(capacity, args.rows, gen), check_minmax(),
             check_compact(gen), check_sort(gen), check_hashprobe(gen)]
+    log(f"  phase 3 ran {time.perf_counter() - t_phase:.1f} s")
 
+    t_phase = time.perf_counter()
     log("phase 4: TPC-H q1 through TorchSession")
     launches = run_q1(args.rows, args.profile)
+    log(f"  phase 4 ran {time.perf_counter() - t_phase:.1f} s")
 
+    t_phase = time.perf_counter()
     log("phase 5: TPC-H q3 through TorchSession, dense and sparse keys")
     launches["probe_rowids"] = run_q3(args.rows, args.profile)
+    log(f"  phase 5 ran {time.perf_counter() - t_phase:.1f} s")
 
+    from spark_rapids_tpu_torch.models.corpus import corpus_tables
+    t_phase = time.perf_counter()
+    tables = corpus_tables(args.sf, args.seed)
+    log(f"  generated scale_test_specs({args.sf}) seed {args.seed} (every "
+        f"column the ported corpus reads) in "
+        f"{time.perf_counter() - t_phase:.2f} s (host)")
+
+    t_phase = time.perf_counter()
     log("phase 6: the corpus's q2 and q8 and MIN/MAX through TorchSession")
-    launches["fused_minmax"] = run_corpus(args.sf, args.seed, args.profile)
+    launches["fused_minmax"] = run_corpus(tables, args.sf, args.seed,
+                                          args.profile)
+    log(f"  phase 6 ran {time.perf_counter() - t_phase:.1f} s")
 
+    t_phase = time.perf_counter()
+    log(f"phase 7: the other {len(WIDE_QUERIES)} ported corpus queries "
+        "through TorchSession")
+    for k, v in run_corpus_wide(tables, args.profile).items():
+        launches[k] += v
+    log(f"  phase 7 ran {time.perf_counter() - t_phase:.1f} s")
+
+    log("phase 8: summary")
     for r in rows:
         r.update(route="cuda", source=SOURCES[r["name"]],
                  replaces=TPU_KERNELS[r["name"]],

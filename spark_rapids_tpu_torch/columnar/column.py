@@ -4,7 +4,12 @@
 Device columns are torch tensors padded to a power-of-two capacity bucket;
 the live row count rides beside them. Strings are dictionary encoded per
 column with a SORTED dictionary, so int32 code order is Spark's UTF-8 byte
-order; the dictionary stays on the host.
+order; the dictionary stays on the host. Decimals are unscaled integers:
+int64 up to precision 18 (DECIMAL64), a ``(capacity, 2)`` int64 limb pair
+above it (DECIMAL128: ``[:, 0]`` the signed high 64 bits, ``[:, 1]`` the
+unsigned low 64 bits reinterpreted as int64); on the host a DECIMAL128
+column holds Python ints in an object array, as the reference's
+``ops/decimal.py::host_store`` does.
 """
 
 from __future__ import annotations
@@ -80,6 +85,39 @@ def encode_sorted_dict(values: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
     return rank[raw], dictionary
 
 
+_MASK64 = (1 << 64) - 1
+
+
+def dec128_limbs(values, validity, cap: int) -> np.ndarray:
+    """Python-int unscaled values -> (cap, 2) int64 limbs: [:, 0] the
+    signed high 64 bits, [:, 1] the unsigned low 64 bits reinterpreted as
+    int64 (the DECIMAL128 device layout); invalid and padding rows are 0."""
+    n = len(values)
+    out = np.zeros((cap, 2), dtype=np.int64)
+    if n == 0:
+        return out
+    v = np.where(np.asarray(validity[:n], dtype=bool),
+                 np.asarray(values[:n], dtype=object), 0)
+    lo = v & _MASK64
+    lo = np.where(lo >= (1 << 63), lo - (1 << 64), lo)
+    out[:n, 0] = (v >> 64).astype(np.int64)
+    out[:n, 1] = lo.astype(np.int64)
+    return out
+
+
+def dec128_unscaled(limbs: np.ndarray, validity) -> np.ndarray:
+    """(n, 2) int64 limbs -> Python-int unscaled object array (0 at
+    invalid rows)."""
+    n = len(limbs)
+    out = np.empty(n, dtype=object)
+    if n == 0:
+        return out
+    vals = ((limbs[:, 0].astype(object) << 64)
+            | (limbs[:, 1].astype(object) & _MASK64))
+    out[:] = np.where(np.asarray(validity[:n], dtype=bool), vals, 0)
+    return out
+
+
 class HostColumn:
     """A column on the host: numpy values + validity mask. STRING data is
     an object array of str (None allowed at invalid slots); everything
@@ -126,6 +164,8 @@ class HostColumn:
             if isinstance(self.dtype, T.StringType):
                 got = int(sum(len(s.encode("utf-8")) for s, v in
                               zip(self.data, self.validity) if v)) + len(self)
+            elif T.is_dec128(self.dtype):
+                got = 17 * len(self)  # two int64 limbs and a validity byte
             else:
                 got = int(self.data.nbytes + self.validity.nbytes)
             self._cache["nbytes"] = got
@@ -151,7 +191,8 @@ class HostColumn:
 class DeviceColumn:
     """A column on a torch device.
 
-    ``data``      : tensor of length ``capacity`` (the padded bucket)
+    ``data``      : tensor of length ``capacity`` (the padded bucket);
+                    ``(capacity, 2)`` int64 limbs for a DECIMAL128
     ``validity``  : bool tensor, True = valid; the padding is False at upload
     ``dictionary``: for STRING, the host object array such that row i's
                     value is dictionary[data[i]]; with ``dict_sorted`` the
@@ -189,7 +230,7 @@ class DeviceColumn:
         if capacity < n:
             raise ColumnarProcessingError(f"capacity {capacity} < rows {n}")
         if isinstance(host.dtype, (T.ArrayType, T.StructType, T.MapType,
-                                   T.DecimalType, T.NullType)):
+                                   T.NullType)):
             raise NotImplementedError(
                 f"upload of {host.dtype.simple_string()} columns is not "
                 "ported")
@@ -200,6 +241,8 @@ class DeviceColumn:
             codes, dictionary = host.encoded()
             data = np.zeros(capacity, dtype=np.int32)
             data[:n] = codes
+        elif T.is_dec128(host.dtype):
+            data = dec128_limbs(host.data, host.validity, capacity)
         else:
             data = np.zeros(capacity, dtype=host.dtype.np_dtype)
             data[:n] = host.data
@@ -221,6 +264,9 @@ class DeviceColumn:
                 vals[:] = self.dictionary[codes]
             vals[~validity] = None
             return HostColumn(self.dtype, vals, validity)
+        if T.is_dec128(self.dtype):
+            return HostColumn(self.dtype, dec128_unscaled(data, validity),
+                              validity)
         arr = np.ascontiguousarray(data)
         if arr.dtype != self.dtype.np_dtype:
             arr = arr.astype(self.dtype.np_dtype)

@@ -94,13 +94,6 @@ class DeviceTable:
             self._nrows_host = int(self.nrows_dev.item())
         return self._nrows_host
 
-    @staticmethod
-    def from_host(host: HostTable, device: torch.device,
-                  capacity: Optional[int] = None) -> "DeviceTable":
-        cap = capacity or bucket_for(host.num_rows)
-        cols = [DeviceColumn.from_host(c, cap, device) for c in host.columns]
-        return DeviceTable(host.names, cols, host.num_rows, cap, device)
-
     def row_mask(self) -> torch.Tensor:
         """Bool mask of live rows (no host sync)."""
         if self.live is not None:
@@ -193,7 +186,8 @@ def concat_device(tables: Sequence[DeviceTable]) -> DeviceTable:
                 m_d = torch.from_numpy(m).to(dev)
                 remapped.append(m_d[c.data.clamp(0, len(m) - 1).long()])
             datas = remapped
-        od = torch.zeros(out_cap + 1, dtype=c0.data.dtype, device=dev)
+        od = torch.zeros((out_cap + 1,) + tuple(c0.data.shape[1:]),
+                         dtype=c0.data.dtype, device=dev)
         ov = torch.zeros(out_cap + 1, dtype=torch.bool, device=dev)
         for d, c, tgt in zip(datas, parts, tgts):
             od[tgt] = d

@@ -14,8 +14,15 @@ padded domain product) segments:
 
 * the live count and every spec's non-null count ride one int32
   ``index_add_`` (a torch op, as the reference leaves it to XLA);
-* every f64 SUM/AVG rides one batched pass (ops/segsum.py): the one-hot
-  partials kernel up to 32 segments, one ``index_add_`` above;
+* every f64 SUM/AVG, and the mean pass of every variance and stddev,
+  rides one batched pass (ops/segsum.py): the one-hot partials kernel up
+  to 32 segments, one ``index_add_`` above; the centred squares of the
+  variances ride a second one;
+* every integer SUM (int64, wrapping on overflow as the reference's CPU
+  route does) and every decimal SUM/AVG (four 32-bit words of the
+  unscaled value, carried back to 128 bits: exact, null on overflow)
+  rides one int64 ``index_add_``, never the f64 partials: integer sums
+  are exact in any order, so they are the reference's bits on the card;
 * every MIN/MAX is one ``segment_minmax_64`` (the ``fused_minmax``
   kernel), INT and DATE values widened to int64 for it;
 * the group slots that exist are packed through the compaction kernel
@@ -38,8 +45,9 @@ validated at collect; a miss replays on the exact shrink).
 Filters fused from the input chain (execs/fuse.py) are the row weight
 mask: a dropped row, or a padding row past ``nrows``, adds to no sum,
 count, extreme or group. What the slice does not reach raises
-NotImplementedError: variance, integer sums, MIN/MAX of other types than
-LONG, DOUBLE, INT and DATE, and multi-batch merge.
+NotImplementedError: MIN/MAX of other types than LONG, DOUBLE, INT and
+DATE, variance of DECIMAL128, the other aggregate functions, and
+multi-batch merge.
 """
 
 from __future__ import annotations
@@ -56,6 +64,7 @@ from spark_rapids_tpu_torch.columnar import (
 )
 from spark_rapids_tpu_torch.execs.base import TpuExec, single_batch
 from spark_rapids_tpu_torch.ops import aggregates as agg
+from spark_rapids_tpu_torch.ops import decimal as dec
 from spark_rapids_tpu_torch.ops.expr import (
     Expression,
     PrepCtx,
@@ -87,12 +96,12 @@ def check_agg_supported(fn: agg.AggregateFunction) -> None:
     """Raise NotImplementedError for an aggregate the port does not run."""
     if isinstance(fn, agg.Count):
         return
-    if isinstance(fn, agg.Average):
-        if isinstance(fn.child.data_type, (T.NumericType,)) and not \
-                isinstance(fn.child.data_type, T.DecimalType):
+    if isinstance(fn, (agg.Average, agg.Sum)):
+        if isinstance(fn.child.data_type, T.NumericType):
             return
-    elif isinstance(fn, agg.Sum):
-        if isinstance(fn.child.data_type, (T.FloatType, T.DoubleType)):
+    elif isinstance(fn, agg._CentralMoment):
+        if isinstance(fn.child.data_type, T.NumericType) and \
+                not T.is_dec128(fn.child.data_type):
             return
     elif isinstance(fn, (agg.Min, agg.Max)):
         if isinstance(fn.child.data_type, _MINMAX_TYPES):
@@ -115,6 +124,24 @@ def _minmax(fn: agg.AggregateFunction, data: torch.Tensor,
     r = torch.where(has_any, r, torch.zeros((), dtype=r.dtype,
                                             device=r.device))
     return r.to(data.dtype), has_any
+
+
+def _exact_sum(fn: agg.AggregateFunction) -> bool:
+    """SUM of an integral type, or SUM/AVG of a decimal: an int64 segment
+    sum (of the value, or of its four 32-bit words), exact in any order."""
+    ct = fn.child.data_type
+    return ((isinstance(fn, agg.Sum) and isinstance(ct, T.IntegralType))
+            or (isinstance(fn, (agg.Sum, agg.Average))
+                and isinstance(ct, T.DecimalType)))
+
+
+def _as_f64(data: torch.Tensor, dt: T.DataType) -> torch.Tensor:
+    """Values as doubles; a DECIMAL64 unscaled value in value units, as
+    the reference's moments scale it."""
+    x = data.to(torch.float64)
+    if isinstance(dt, T.DecimalType):
+        x = x / float(10 ** dt.scale)
+    return x
 
 
 class TpuHashAggregateExec(TpuExec):
@@ -337,30 +364,20 @@ class TpuHashAggregateExec(TpuExec):
                 kdata = slot
             pairs.append((kdata, kvalid))
 
-        # every SUM/AVG rides one batched f64 pass
-        splan = [j for j, (_, fn) in enumerate(self.agg_specs)
-                 if isinstance(fn, (agg.Sum, agg.Average))]
-        zero = torch.zeros((), dtype=torch.float64, device=dev)
-        fcols = [torch.where(svs[j], vvs[j][0].data.to(torch.float64), zero)
-                 for j in splan]
-        fsums_s = batched_segment_sum_f64(fcols, gid, gpad, capacity)
-        fsums = {j: fsums_s[:, i] for i, j in enumerate(splan)}
+        def fsum(cols):
+            return batched_segment_sum_f64(cols, gid, gpad, capacity)
 
-        for j, (_, fn) in enumerate(self.agg_specs):
-            if isinstance(fn, agg.Count):
-                w = mcnt[:, 0] if fn.child is None else nonnulls[j]
-                pairs.append((w.to(torch.int64), exists))
-                continue
-            nonnull = nonnulls[j]
-            has_any = (nonnull > 0) & exists
-            if isinstance(fn, (agg.Min, agg.Max)):
-                pairs.append(_minmax(fn, vvs[j][0].data, svs[j], gid, gpad,
-                                     has_any))
-                continue
-            s = fsums[j]
-            if isinstance(fn, agg.Average):
-                s = s / nonnull.clamp(min=1).to(torch.float64)
-            pairs.append((torch.where(has_any, s, zero), has_any))
+        def isum(cols):
+            x = torch.stack(cols, dim=1)
+            out = torch.zeros((gpad, len(cols)), dtype=torch.int64,
+                              device=dev)
+            if not self.grouping:
+                out[0] = x.sum(dim=0)  # one segment: a column sum
+                return out
+            return out.index_add_(0, gid, x)
+
+        pairs += self._reduce_specs(vvs, svs, gid, mcnt[:, 0], nonnulls,
+                                    exists, fsum, isum, gpad)
 
         from spark_rapids_tpu_torch.ops.scatter32 import compact_pairs
         outs, _ = compact_pairs([d for d, _ in pairs], [v for _, v in pairs],
@@ -413,7 +430,8 @@ class TpuHashAggregateExec(TpuExec):
         outs = []
         # key columns: each group's rows share its key; scatter to the slot
         for kv in kvs:
-            kd = torch.zeros(nseg, dtype=kv.data.dtype, device=dev)
+            kd = torch.zeros((nseg,) + tuple(kv.data.shape[1:]),
+                             dtype=kv.data.dtype, device=dev)
             kvv = torch.zeros(nseg, dtype=torch.bool, device=dev)
             kd[gid] = kv.data[perm]
             kvv[gid] = kv.validity[perm]
@@ -433,26 +451,109 @@ class TpuHashAggregateExec(TpuExec):
         def seg(x):
             return segment_sum(x, gid, nseg)[:capacity]
 
-        zero = torch.zeros((), dtype=torch.float64, device=gid.device)
+        def stacked(cols):
+            return seg(torch.stack(cols, dim=1))
+
+        svs = [(vv[0].validity & live) if vv else None for vv in vvs]
+        nonnulls = {j: seg(sv.to(torch.int32))
+                    for j, sv in enumerate(svs) if sv is not None}
+        return self._reduce_specs(vvs, svs, gid.clamp(max=capacity - 1),
+                                  seg(live.to(torch.int32)), nonnulls,
+                                  group_live, stacked, stacked, capacity)
+
+    def _reduce_specs(self, vvs, svs, gid, live_cnt, nonnulls, exists,
+                      fsum, isum, nseg):
+        """(data, validity) of every spec over ``nseg`` segments.
+
+        ``svs[j]``: spec j's valid live rows; ``gid``: each row's segment
+        in [0, nseg) (a dead row's is any slot: its values are masked);
+        ``live_cnt``/``nonnulls[j]``: int32 counts of live rows and of
+        spec j's non-null ones; ``exists``: the segments that are groups.
+        ``fsum``/``isum`` sum a list of f64 / int64 (rows,) columns into
+        (nseg, k). The f64 pass holds every float SUM/AVG and the mean of
+        every moment, the int64 pass every exact sum (``_exact_sum``);
+        the moments' centred squares take a second f64 pass."""
+        dev = exists.device
+        zero = torch.zeros((), dtype=torch.float64, device=dev)
+        izero = torch.zeros((), dtype=torch.int64, device=dev)
+        fcols, fix, icols, iix = [], {}, [], {}
+        for j, (_, fn) in enumerate(self.agg_specs):
+            if isinstance(fn, (agg.Count, agg.Min, agg.Max)):
+                continue
+            x, sv, ct = vvs[j][0].data, svs[j], fn.child.data_type
+            if _exact_sum(fn):
+                iix[j] = len(icols)
+                words = dec.limb_words(x) if isinstance(
+                    ct, T.DecimalType) else [x.to(torch.int64)]
+                icols += [torch.where(sv, w, izero) for w in words]
+            else:
+                fix[j] = len(fcols)
+                fcols.append(torch.where(sv, _as_f64(x, ct), zero))
+        fs = fsum(fcols) if fcols else None
+        isums = isum(icols) if icols else None
+
+        # the moments' second pass: squares centred on the exact mean
+        means, cols = {}, []
+        for j, (_, fn) in enumerate(self.agg_specs):
+            if isinstance(fn, agg._CentralMoment):
+                means[j] = len(cols)
+                mean = fs[:, fix[j]] / nonnulls[j].clamp(min=1)
+                x = _as_f64(vvs[j][0].data, fn.child.data_type)
+                cols.append(torch.where(svs[j], (x - mean[gid]) ** 2, zero))
+        m2s = fsum(cols) if cols else None
+
         outs = []
-        for (_, fn), vv in zip(self.agg_specs, vvs):
+        for j, (_, fn) in enumerate(self.agg_specs):
             if isinstance(fn, agg.Count):
-                w = live if fn.child is None else vv[0].validity & live
-                outs.append((seg(w.to(torch.int32)).to(torch.int64),
-                             group_live))
+                w = live_cnt if fn.child is None else nonnulls[j]
+                outs.append((w.to(torch.int64), exists))
                 continue
-            sv = vv[0].validity & live
-            nonnull = seg(sv.to(torch.int32))
-            has_any = (nonnull > 0) & group_live
+            nonnull = nonnulls[j]
+            has_any = (nonnull > 0) & exists
+            ct = fn.child.data_type
             if isinstance(fn, (agg.Min, agg.Max)):
-                # dead rows are not valid, so their gid past the segments
-                # is never read
-                outs.append(_minmax(fn, vv[0].data, sv, gid, capacity,
+                outs.append(_minmax(fn, vvs[j][0].data, svs[j], gid, nseg,
                                     has_any))
-                continue
-            v = torch.where(sv, vv[0].data.to(torch.float64), zero)
-            s = seg(v)
-            if isinstance(fn, agg.Average):
-                s = s / nonnull.clamp(min=1).to(torch.float64)
-            outs.append((torch.where(has_any, s, zero), has_any))
+            elif isinstance(fn, agg._CentralMoment):
+                samp = isinstance(fn, (agg.StddevSamp, agg.VarianceSamp))
+                denom = (nonnull - 1 if samp else nonnull).clamp(min=1)
+                valid = ((nonnull > 1) & exists) if samp else has_any
+                var = m2s[:, means[j]] / denom
+                if isinstance(fn, (agg.StddevPop, agg.StddevSamp)):
+                    var = torch.sqrt(var)
+                outs.append((torch.where(valid, var, zero), valid))
+            elif not _exact_sum(fn):
+                s = fs[:, fix[j]]
+                if isinstance(fn, agg.Average):
+                    s = s / nonnull.clamp(min=1).to(torch.float64)
+                outs.append((torch.where(has_any, s, zero), has_any))
+            elif not isinstance(ct, T.DecimalType):
+                outs.append((torch.where(has_any, isums[:, iix[j]], izero),
+                             has_any))
+            else:
+                outs.append(_decimal_result(fn, isums[:, iix[j]:iix[j] + 4],
+                                            nonnull, has_any))
         return outs
+
+
+def _decimal_result(fn: agg.AggregateFunction, words: torch.Tensor,
+                    nonnull: torch.Tensor, has_any: torch.Tensor):
+    """SUM or AVG of a decimal from its four word sums (nseg, 4): the
+    128-bit sum, null on a 128-bit overflow; a SUM is also null when it
+    needs more than its type's precision; an AVG is the exact sum as a
+    double over count x 10^scale (one rounding of the sum)."""
+    hi, lo, t3 = dec.carry_words(*words.unbind(dim=1))
+    ovf = (t3 > 0x7FFFFFFF) | (t3 < -0x80000000)
+    if isinstance(fn, agg.Average):
+        valid = has_any & ~ovf
+        scale = float(10 ** fn.child.data_type.scale)
+        avg = dec.i128_to_f64(hi, lo) / (
+            nonnull.clamp(min=1).to(torch.float64) * scale)
+        return torch.where(valid, avg, torch.zeros_like(avg)), valid
+    out_t = fn.data_type
+    valid = has_any & ~ovf & dec.i128_abs_fits_pow10(hi, lo, out_t.precision)
+    zero = torch.zeros_like(lo)
+    if T.is_dec128(out_t):
+        return (torch.stack([torch.where(valid, hi, zero),
+                             torch.where(valid, lo, zero)], dim=1), valid)
+    return torch.where(valid, lo, zero), valid

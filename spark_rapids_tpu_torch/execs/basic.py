@@ -4,12 +4,13 @@ TpuProjectExec, TpuFilterExec and TpuCoalesceExec parts of
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 
 from spark_rapids_tpu_torch.columnar import (
     BucketPolicy,
+    DeviceColumn,
     DeviceTable,
     HostTable,
 )
@@ -26,29 +27,39 @@ from spark_rapids_tpu_torch.ops.expr import (
 
 
 class TpuScanExec(TpuExec):
-    """Uploads pre-built host batches. The uploaded DeviceTable is kept on
-    the host table (per device and capacity), so repeated queries over one
-    in-memory table skip the upload (the reference's default scan device
-    cache)."""
+    """Uploads pre-built host batches, or only their ``columns`` (ordinals,
+    after column pruning). Each uploaded column is kept on its host column
+    (per device and capacity), so repeated queries over one in-memory
+    table skip the upload of every column an earlier one uploaded (the
+    reference's default scan device cache, by column)."""
 
     def __init__(self, batches: Sequence[HostTable], device: torch.device,
-                 bucket_policy: BucketPolicy):
+                 bucket_policy: BucketPolicy,
+                 columns: Optional[Sequence[int]] = None):
         self.batches = list(batches)
         self.device = device
         self.bucket_policy = bucket_policy
+        self.columns = (tuple(range(len(self.batches[0].names)))
+                        if columns is None else tuple(columns))
 
     def output_schema(self):
-        return self.batches[0].schema()
+        schema = self.batches[0].schema()
+        return [schema[i] for i in self.columns]
 
     def execute(self):
         for b in self.batches:
             cap = self.bucket_policy.bucket_for(b.num_rows)
             key = ("device", str(self.device), cap)
-            dt = b._cache.get(key)
-            if dt is None:
-                dt = DeviceTable.from_host(b, self.device, cap)
-                b._cache[key] = dt
-            yield dt
+            cols = []
+            for i in self.columns:
+                hc = b.columns[i]
+                dc = hc._cache.get(key)
+                if dc is None:
+                    dc = DeviceColumn.from_host(hc, cap, self.device)
+                    hc._cache[key] = dc
+                cols.append(dc)
+            yield DeviceTable([b.names[i] for i in self.columns], cols,
+                              b.num_rows, cap, self.device)
 
 
 class TpuProjectExec(TpuExec):

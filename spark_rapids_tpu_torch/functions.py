@@ -33,3 +33,34 @@ def count(e="*"):
 def avg(e):
     return _agg.Average(_e(e))
 
+
+
+def stddev(e):
+    return _agg.StddevSamp(_e(e))
+
+
+def stddev_pop(e):
+    return _agg.StddevPop(_e(e))
+
+
+def variance(e):
+    return _agg.VarianceSamp(_e(e))
+
+
+def var_pop(e):
+    return _agg.VariancePop(_e(e))
+
+
+def isnull(e):
+    from spark_rapids_tpu_torch.ops.predicates import IsNull
+    return IsNull(_e(e))
+
+
+def isnan(e):
+    from spark_rapids_tpu_torch.ops.predicates import IsNaN
+    return IsNaN(_e(e))
+
+
+def is_in(e, *items):
+    from spark_rapids_tpu_torch.ops.predicates import In
+    return In(_e(e), [_e(i) for i in items])

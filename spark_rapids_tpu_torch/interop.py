@@ -20,12 +20,15 @@ def host_table_from_arrays(
     """A HostTable from column names, Spark type names (``'double'``,
     ``'string'``, ``'date'``, ``'bigint'``, ...) and (data, validity)
     numpy pairs holding the Spark internal representation (dates as int32
-    days, strings as object arrays of str)."""
+    days, strings as object arrays of str, decimals as unscaled integers:
+    int64 up to precision 18, Python ints in an object array above)."""
     cols = []
     for tname, (data, validity) in zip(type_names, arrays):
         dt = T.parse_type(tname)
         data = np.asarray(data)
-        if not isinstance(dt, T.StringType):
+        if T.is_dec128(dt):
+            data = np.array([int(v) for v in data], dtype=object)
+        elif not isinstance(dt, T.StringType):
             data = data.astype(dt.np_dtype, copy=False)
         cols.append(HostColumn(dt, data, np.asarray(validity, dtype=np.bool_)))
     return HostTable(list(names), cols)

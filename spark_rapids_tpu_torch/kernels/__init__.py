@@ -35,6 +35,27 @@ def _wrapper(module: str, fn: str):
         f"spark_rapids_tpu_torch.kernels.{module}"), fn)
 
 
+#: None, or a list that gets (wrapper name, inputs, outputs) of every
+#: launch, each tensor cloned, so that a caller can hold a run's launches
+#: against their plain versions on the same inputs afterwards
+calls = None
+
+
+def record(name: str, inputs: tuple, outputs) -> None:
+    """Append one launch to ``calls`` when it is a list."""
+    if calls is None:
+        return
+
+    def keep(v):
+        if isinstance(v, torch.Tensor):
+            return v.clone()
+        if isinstance(v, (list, tuple)):
+            return type(v)(keep(x) for x in v)
+        return v
+
+    calls.append((name, keep(inputs), keep(outputs)))
+
+
 def launch_counts() -> Dict[str, int]:
     """{wrapper name: launches so far} for every ported kernel."""
     return {fn: _wrapper(m, fn).launches for m, fn in KERNELS}

@@ -22,6 +22,7 @@ import torch
 
 from spark_rapids_tpu_torch.kernels import (
     check_launch,
+    record,
     require_contiguous,
     require_cuda,
     stream_handle,
@@ -172,12 +173,10 @@ def gather_compact(datas: Sequence[torch.Tensor],
                          words + 8 * _MAX_TILES, ws.next_epoch(), stream)
     check_launch(lib, rc, "gather_compact")
     gather_compact.launches += 1
-    if gather_compact.trace is not None:
-        gather_compact.trace.append((list(datas), list(valids), keep,
-                                     capacity))
-    return list(zip(outs[:n], outs[n:])), new_n
+    pairs = list(zip(outs[:n], outs[n:]))
+    record("gather_compact", (list(datas), list(valids), keep, capacity),
+           (pairs, new_n))
+    return pairs, new_n
 
 
 gather_compact.launches = 0
-#: None, or a list that gets each call's (datas, valids, keep, capacity)
-gather_compact.trace = None

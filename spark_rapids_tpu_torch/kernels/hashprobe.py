@@ -39,6 +39,7 @@ import torch
 
 from spark_rapids_tpu_torch.kernels import (
     check_launch,
+    record,
     require_contiguous,
     require_cuda,
     stream_handle,
@@ -206,6 +207,8 @@ def probe_rowids(keys: torch.Tensor, valid: torch.Tensor,
                               stream_handle(keys))
     check_launch(lib, rc, "probe_rowids")
     probe_rowids.launches += 1
+    record("probe_rowids", (keys, valid, table_row, build_keys, attempts),
+           out)
     return out
 
 

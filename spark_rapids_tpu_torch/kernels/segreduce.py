@@ -28,6 +28,7 @@ import torch
 
 from spark_rapids_tpu_torch.kernels import (
     check_launch,
+    record,
     require_contiguous,
     require_cuda,
     stream_handle,
@@ -140,6 +141,7 @@ def onehot_partials(x: torch.Tensor, gid: torch.Tensor, nseg: int, nb: int,
         stream_handle(x))
     check_launch(lib, rc, "onehot_partials")
     onehot_partials.launches += 1
+    record("onehot_partials", (x, gid, nseg, nb, block), out)
     return out
 
 
@@ -223,6 +225,7 @@ def fused_minmax(is_min: bool, values: torch.Tensor, valid: torch.Tensor,
         _ticket(values.device, stream).data_ptr(), stream)
     check_launch(lib, rc, "fused_minmax")
     fused_minmax.launches += 1
+    record("fused_minmax", (is_min, values, valid, gid, nseg), out)
     return out
 
 

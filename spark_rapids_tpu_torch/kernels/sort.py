@@ -26,6 +26,7 @@ import torch
 
 from spark_rapids_tpu_torch.kernels import (
     check_launch,
+    record,
     require_contiguous,
     require_cuda,
     stream_handle,
@@ -250,6 +251,7 @@ def sort_with_payload(operands: Sequence[torch.Tensor],
             at + 24 * n, nwords, stream)
     check_launch(lib, rc, "sort_with_payload")
     sort_with_payload.launches += 1
+    record("sort_with_payload", (list(operands), payload), outs)
     if tracing:
         sort_with_payload.trace.append((n, m, survey[:2 * m].clone()))
     return outs

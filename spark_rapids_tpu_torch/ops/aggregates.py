@@ -1,7 +1,9 @@
-"""Aggregate function declarations (port of the Sum/Min/Max/Count/Average
-part of ``spark_rapids_tpu/ops/aggregates.py``). The aggregate exec
-interprets them; Spark's result types: sum(float/double) -> DOUBLE,
-sum(integral) -> LONG, min/max -> the child's type, avg -> DOUBLE,
+"""Aggregate function declarations (port of the Sum, Min, Max, Count,
+Average, StddevPop, StddevSamp, VariancePop and VarianceSamp part of
+``spark_rapids_tpu/ops/aggregates.py``). The aggregate exec interprets
+them; Spark's result types: sum(float/double) -> DOUBLE, sum(integral) ->
+LONG, sum(decimal(p, s)) -> decimal(min(38, p + 10), s), min/max -> the
+child's type, avg, variance and stddev -> DOUBLE (also over a decimal),
 count -> LONG (never null)."""
 
 from __future__ import annotations
@@ -34,6 +36,9 @@ class Sum(AggregateFunction):
             return T.LONG
         if isinstance(ct, (T.FloatType, T.DoubleType)):
             return T.DOUBLE
+        if isinstance(ct, T.DecimalType):
+            from spark_rapids_tpu_torch.ops.decimal import sum_result_type
+            return sum_result_type(ct)
         raise NotImplementedError(f"sum of {ct.simple_string()} is not "
                                   "ported")
 
@@ -62,3 +67,28 @@ class Average(AggregateFunction):
     @property
     def data_type(self):
         return T.DOUBLE
+
+
+class _CentralMoment(AggregateFunction):
+    """Variance and standard deviation: DOUBLE, computed in two passes
+    (the mean, then the centred squares)."""
+
+    @property
+    def data_type(self):
+        return T.DOUBLE
+
+
+class StddevPop(_CentralMoment):
+    pass
+
+
+class StddevSamp(_CentralMoment):
+    pass
+
+
+class VariancePop(_CentralMoment):
+    pass
+
+
+class VarianceSamp(_CentralMoment):
+    pass

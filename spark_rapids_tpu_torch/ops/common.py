@@ -1,9 +1,25 @@
-"""Shared expression machinery: the binary base and null propagation
-(port of the parts of ``spark_rapids_tpu/ops/common.py`` the slice uses)."""
+"""Shared expression machinery: the unary and binary bases, numeric
+coercion and null propagation (port of the parts of
+``spark_rapids_tpu/ops/common.py`` the ported operators use)."""
 
 from __future__ import annotations
 
+from typing import Tuple
+
+from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.ops.expr import Expression
+
+
+class UnaryExpression(Expression):
+    def __init__(self, child: Expression):
+        self.children = (child,)
+
+    @property
+    def child(self) -> Expression:
+        return self.children[0]
+
+    def with_children(self, children):
+        return type(self)(children[0])
 
 
 class BinaryExpression(Expression):
@@ -20,6 +36,15 @@ class BinaryExpression(Expression):
 
     def with_children(self, children):
         return type(self)(children[0], children[1])
+
+
+def coerce_numeric_pair(left: Expression, right: Expression
+                        ) -> Tuple[Expression, Expression, T.DataType]:
+    """Insert casts so both sides share the promoted numeric type (Spark
+    TypeCoercion's tightest common type, ``T.promote``)."""
+    from spark_rapids_tpu_torch.ops.cast import make_cast
+    out = T.promote(left.data_type, right.data_type)
+    return make_cast(left, out), make_cast(right, out), out
 
 
 def null_and(*validities):

@@ -44,6 +44,8 @@ class NodePrep:
     out_domain: Optional[Tuple[int, int]] = None
     #: a dictionary code found on the host (string == literal)
     lookup_code: Optional[int] = None
+    #: the codes of IN's string literals in the value's dictionary
+    lookup_codes: Optional[Tuple[int, ...]] = None
 
 
 class PrepCtx:
@@ -163,24 +165,28 @@ class Expression:
         from spark_rapids_tpu_torch.ops.predicates import EqualTo
         return self._bin(EqualTo, o)
 
-    # operators of the reference that the port has not ported: raising
-    # here keeps `col(a) != lit(1)` from silently becoming a Python bool
-    def __ne__(self, o):  # type: ignore[override]
-        _not_ported("Not(EqualTo)")
-
     def __ge__(self, o):
-        _not_ported("GreaterThanOrEqual")
+        from spark_rapids_tpu_torch.ops.predicates import GreaterThanOrEqual
+        return self._bin(GreaterThanOrEqual, o)
+
+    def __ne__(self, o):  # type: ignore[override]
+        from spark_rapids_tpu_torch.ops.predicates import EqualTo, Not
+        return Not(self._bin(EqualTo, o))
 
     def __and__(self, o):
         from spark_rapids_tpu_torch.ops.predicates import And
         return self._bin(And, o)
 
     def __or__(self, o):
-        _not_ported("Or")
+        from spark_rapids_tpu_torch.ops.predicates import Or
+        return self._bin(Or, o)
 
     def __invert__(self):
-        _not_ported("Not")
+        from spark_rapids_tpu_torch.ops.predicates import Not
+        return Not(self)
 
+    # operators of the reference that the port has not ported: raising
+    # here keeps them from silently becoming something else
     def __neg__(self):
         _not_ported("UnaryMinus")
 
@@ -191,7 +197,18 @@ class Expression:
         return Alias(self, name)
 
     def cast(self, dtype) -> "Expression":
-        _not_ported("Cast")
+        from spark_rapids_tpu_torch.ops.cast import Cast
+        if isinstance(dtype, str):
+            dtype = T.parse_type(dtype)
+        return Cast(self, dtype)
+
+    def isnull(self):
+        from spark_rapids_tpu_torch.ops.predicates import IsNull
+        return IsNull(self)
+
+    def isnotnull(self):
+        from spark_rapids_tpu_torch.ops.predicates import IsNotNull
+        return IsNotNull(self)
 
 
 class AttributeReference(Expression):
@@ -263,14 +280,27 @@ class Literal(Expression):
     def with_children(self, children):
         return self
 
+    def prep(self, pctx, child_preps) -> NodePrep:
+        if isinstance(self._dtype, T.StringType):
+            # a one-entry dictionary (empty for a null literal): code 0
+            vals = [] if self.value is None else [self.value]
+            return NodePrep(out_dict=np.array(vals, dtype=object))
+        return NodePrep()
+
     def eval_dev(self, ctx: EvalCtx, child_vals, prep) -> DevVal:
         if not isinstance(self._dtype, (T.NumericType, T.DateType,
-                                        T.BooleanType)) or isinstance(
-                self._dtype, T.DecimalType):
+                                        T.BooleanType, T.StringType,
+                                        T.NullType)) or T.is_dec128(
+                self._dtype):
             _not_ported(f"{self._dtype.simple_string()} literal")
         fill = self.value if self.value is not None else 0
-        data = torch.full((ctx.capacity,), fill,
-                          dtype=T.torch_dtype(self._dtype), device=ctx.device)
+        dtype = torch.int32
+        if isinstance(self._dtype, T.StringType):
+            fill = 0
+        else:
+            dtype = T.torch_dtype(self._dtype)
+        data = torch.full((ctx.capacity,), fill, dtype=dtype,
+                          device=ctx.device)
         validity = torch.full((ctx.capacity,), self.value is not None,
                               dtype=torch.bool, device=ctx.device)
         return DevVal(data, validity)

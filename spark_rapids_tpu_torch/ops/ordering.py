@@ -10,6 +10,8 @@ order is the value order, as in the reference's CPU branch:
           after +inf (Spark's NaN-last order)
   bool -> int32
   <= 32-bit ints / dictionary codes -> unchanged
+  DECIMAL128 (n, 2) limbs -> (high limb's hi32 as int32, then three
+          uint32 words: the high limb's low word and the low limb's two)
 
 torch has few uint32 operations, so uint32 words are built and
 complemented through int32 views of the same bits."""
@@ -34,8 +36,9 @@ def _canon_float(d: torch.Tensor) -> torch.Tensor:
 
 
 def zero_invalid(data: torch.Tensor, validity: torch.Tensor) -> torch.Tensor:
-    """where(validity, data, 0)."""
-    return torch.where(validity, data, torch.zeros_like(data))
+    """where(validity, data, 0), broadcast over DECIMAL128 limb pairs."""
+    v = validity[:, None] if data.ndim == 2 else validity
+    return torch.where(v, data, torch.zeros_like(data))
 
 
 def comparable_operands(data: torch.Tensor) -> List[torch.Tensor]:
@@ -43,9 +46,11 @@ def comparable_operands(data: torch.Tensor) -> List[torch.Tensor]:
     their own null-placement flag operand; invalid slots should be zeroed
     first (zero_invalid)."""
     d = data
-    if d.ndim != 1:
-        raise NotImplementedError("sort keys of DECIMAL128 limb storage are "
-                                  "not ported")
+    if d.ndim == 2:
+        # the signed high limb orders first, then the unsigned low limb
+        hi, lo = d[:, 0], d[:, 1]
+        return [(hi >> 32).to(torch.int32), _u32(hi & 0xFFFFFFFF),
+                _u32((lo >> 32) & 0xFFFFFFFF), _u32(lo & 0xFFFFFFFF)]
     if d.dtype == torch.int64:
         return [(d >> 32).to(torch.int32), _u32(d & 0xFFFFFFFF)]
     if d.dtype == torch.float64:

@@ -1,7 +1,8 @@
 """Tag and convert plan nodes into device execs (port of the LocalScan,
 Project, Filter, Aggregate, Sort, Join and TakeOrderedAndProject rules of
-``spark_rapids_tpu/overrides/rules.py``, and of ``lore.assign_lore_ids``:
-every exec gets its plan position, pre-order from 1).
+``spark_rapids_tpu/overrides/rules.py``, the column pruning its
+``apply_overrides`` runs first, and ``lore.assign_lore_ids``: every exec
+gets its plan position, pre-order from 1).
 
 The reference tags each node and falls back to the CPU where a node or
 expression is unsupported; the port has no fallback, so tagging raises
@@ -29,6 +30,7 @@ from spark_rapids_tpu_torch.execs.sort import (
     TpuSortExec,
     TpuTakeOrderedAndProjectExec,
 )
+from spark_rapids_tpu_torch.overrides.pruning import prune_plan
 from spark_rapids_tpu_torch.plan import nodes as P
 
 
@@ -102,7 +104,7 @@ def _convert(node: P.PlanNode, conf: C.RapidsConf, device) -> TpuExec:
     children = [_convert(c, conf, device) for c in node.children]
     if isinstance(node, P.LocalScan):
         policy = BucketPolicy(conf.get_entry(C.SHAPE_BUCKETS_MIN))
-        return TpuScanExec(node.batches, device, policy)
+        return TpuScanExec(node.batches, device, policy, node.columns)
     if isinstance(node, P.Project):
         return TpuProjectExec(children[0], node.exprs, node.names)
     if isinstance(node, P.Filter):
@@ -118,9 +120,10 @@ def _convert(node: P.PlanNode, conf: C.RapidsConf, device) -> TpuExec:
 
 
 def convert(node: P.PlanNode, conf: C.RapidsConf, device) -> TpuExec:
-    """The device exec tree for ``node``, every exec numbered by its plan
-    position (pre-order from 1)."""
-    root = _convert(node, conf, device)
+    """The device exec tree for ``node`` after column pruning (where the
+    reference's ``apply_overrides`` prunes), every exec numbered by its
+    plan position (pre-order from 1)."""
+    root = _convert(prune_plan(node), conf, device)
     counter = [0]
 
     def number(e: TpuExec) -> None:

@@ -38,18 +38,32 @@ class PlanNode:
 
 
 class LocalScan(PlanNode):
-    """In-memory scan over pre-built host batches."""
+    """In-memory scan over pre-built host batches. ``columns`` (ordinals of
+    the batches' columns, set by column pruning) narrows the scan to those
+    columns: no other column is uploaded."""
 
-    def __init__(self, batches: Sequence[HostTable]):
+    def __init__(self, batches: Sequence[HostTable],
+                 columns: Optional[Sequence[int]] = None):
         if not batches:
             raise ColumnarProcessingError("LocalScan needs at least one batch")
         self.batches = list(batches)
+        self.columns = None if columns is None else tuple(columns)
+
+    def with_columns(self, columns: Sequence[int]) -> "LocalScan":
+        base = self.columns or tuple(range(len(self.batches[0].names)))
+        return LocalScan(self.batches, [base[i] for i in columns])
 
     def output_schema(self):
-        return self.batches[0].schema()
+        schema = self.batches[0].schema()
+        if self.columns is None:
+            return schema
+        return [schema[i] for i in self.columns]
 
     def estimate_bytes(self):
-        return sum(b.nbytes() for b in self.batches)
+        if self.columns is None:
+            return sum(b.nbytes() for b in self.batches)
+        return sum(b.columns[i].nbytes() for b in self.batches
+                   for i in self.columns)
 
 
 class Project(PlanNode):

@@ -14,6 +14,8 @@ Device mapping (how each Spark type lives in device memory as a torch tensor):
   StringType             -> torch.int32 dictionary codes (order-preserving,
                             per batch) + host-side dictionary; see columnar/
   DecimalType(p<=18, s)  -> torch.int64 unscaled value
+  DecimalType(p>18, s)   -> (capacity, 2) torch.int64 limbs: the signed high
+                            64 bits, then the unsigned low 64 bits as int64
   NullType               -> torch.int8 (all-null)
 """
 
@@ -124,12 +126,9 @@ class NullType(DataType):
 
 @dataclass(frozen=True)
 class DecimalType(FractionalType):
-    """Decimal with precision/scale. p<=18 fits an int64 unscaled value.
-
-    The reference uses 128-bit decimals via JNI DecimalUtils for p>18
-    (SURVEY.md §2.9); we represent p<=18 natively and 19..38 as a
-    (hi int64, lo uint64-as-int64) pair on device (phase: later).
-    """
+    """Decimal with precision/scale. p<=18 fits an int64 unscaled value;
+    19..38 is a (hi int64, lo uint64-as-int64) limb pair on the device and
+    a Python int on the host (see columnar/column.py)."""
 
     precision: int = 10
     scale: int = 0

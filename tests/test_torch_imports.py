@@ -96,21 +96,26 @@ def test_unported_pieces_raise_not_implemented():
     from spark_rapids_tpu_torch.conf import RapidsConf
     from spark_rapids_tpu_torch.ops.expr import col, lit
     from spark_rapids_tpu_torch.plan import from_host_table
-    with pytest.raises(NotImplementedError, match="EqualTo"):
-        col("a") != lit(1)  # noqa: B015
+    with pytest.raises(NotImplementedError, match="UnaryMinus"):
+        -col("a")  # noqa: B015
     with pytest.raises(NotImplementedError, match="conf keys"):
         RapidsConf({"spark.rapids.sql.enabled": "false"})
     s = TorchSession(device="cpu")
-    t = HostTable(["k", "v"], [
+    t = HostTable(["k", "v", "d"], [
         HostColumn(spark_rapids_tpu_torch.types.LONG,
                    np.arange(10, dtype=np.int64)),
-        HostColumn(spark_rapids_tpu_torch.types.DOUBLE, np.ones(10))])
+        HostColumn(spark_rapids_tpu_torch.types.DOUBLE, np.ones(10)),
+        HostColumn(spark_rapids_tpu_torch.types.DecimalType(12, 2),
+                   np.arange(10, dtype=np.int64))])
     df = from_host_table(t, s)
     # the global aggregate is ported: one row
     assert df.agg(F.sum(col("v")), F.max(col("k"))).collect() == [(10.0, 9)]
     with pytest.raises(NotImplementedError, match="Min over boolean"):
         df.group_by("k").agg(F.min(col("k") > lit(3))).collect_table()
-    with pytest.raises(NotImplementedError, match="Sum"):
-        df.group_by("k").agg(F.sum(col("k"))).collect_table()
-    with pytest.raises(NotImplementedError, match="double arithmetic"):
-        df.select((col("k") + col("v")).alias("x"))
+    with pytest.raises(NotImplementedError, match="Max over decimal"):
+        df.group_by("k").agg(F.max(col("d"))).collect_table()
+    with pytest.raises(NotImplementedError, match="DecimalAdd"):
+        df.select((col("k") + col("d")).alias("x"))
+    with pytest.raises(NotImplementedError, match="cast from bigint to "
+                                                  "string"):
+        df.select(col("k").cast("string").alias("x"))

@@ -132,6 +132,27 @@ def test_wrapper_on_cpu_is_the_plain_version_and_launches_nothing():
                                  "sort_with_payload": 0, "probe_rowids": 0}
 
 
+def test_record_clones_each_launch_only_while_calls_is_a_list():
+    """``kernels.record`` (which every wrapper calls after a launch) keeps
+    nothing while ``kernels.calls`` is None, and otherwise appends the
+    launch with every tensor cloned, nested lists and tuples kept."""
+    x = torch.arange(4, dtype=torch.float64)
+    assert K.calls is None
+    K.record("onehot_partials", (x, [x, 3]), (x, x))
+    K.calls = []
+    try:
+        K.record("onehot_partials", (x, [x, 3]), (x, x))
+        calls = K.calls
+    finally:
+        K.calls = None
+    [(name, (a, (b, n)), (c, d))] = calls
+    x += 1
+    assert name == "onehot_partials" and n == 3
+    assert isinstance(calls[0][1][1], list) and isinstance(calls[0][2], tuple)
+    for t in (a, b, c, d):
+        assert torch.equal(t, torch.arange(4, dtype=torch.float64))
+
+
 # ---------------------------------------------------------------------------
 # compact.gather_compact
 # ---------------------------------------------------------------------------

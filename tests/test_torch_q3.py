@@ -375,8 +375,8 @@ def test_sort_segment_aggregate_speculative_shrink(monkeypatch):
 
 def test_conf_keys_and_unported_shapes():
     """The slice's conf keys are accepted with the reference's names; an
-    attempts value outside [1, 8] raises when read; a bare LIMIT and a
-    non-inner join refuse by name."""
+    attempts value outside [1, 8] raises when read; a bare LIMIT, a
+    non-inner join and an unported operator refuse by name."""
     from spark_rapids_tpu_torch import conf as C
     from spark_rapids_tpu_torch.ops.expr import col
     from spark_rapids_tpu_torch.plan import from_host_table
@@ -403,8 +403,8 @@ def test_conf_keys_and_unported_shapes():
     with pytest.raises(NotImplementedError, match="inner"):
         from_host_table(t, sess).join(from_host_table(t, sess), on="k",
                                       how="left").collect_table()
-    with pytest.raises(NotImplementedError, match="Not"):
-        col("k") != 3
+    with pytest.raises(NotImplementedError, match="Remainder"):
+        col("k") % 3  # noqa: B018
 
 
 def test_q3_without_speculation_and_with_coalesced_builds():
