@@ -46,15 +46,22 @@ Phases, in order; any failure exits non-zero:
    counts, int64 and decimal sums and strings exact, f64 rtol 1e-9),
    every kernel launch of that warm run against its plain version as in
    phase 6, and a JSON summary line of them all;
-8. the summary lines: one ``{"kernels": [...]}`` JSON line (launches of
+8. the corpus's window and exchange queries, q6 (row_number per
+   customer, a pre-window group limit), q21 (row_number per nation) and
+   q7 (a hash repartition into 8, then a group-by), on the same tables as
+   in phase 7, with the numbers and checks of phase 7 (the windows against
+   a stable ranking in numpy, q7's counts and sums exact), after the
+   murmur3 partition ids of l_returnflag (every lineitem row) and
+   o_custkey (every order) against the numpy murmur3;
+9. the summary lines: one ``{"kernels": [...]}`` JSON line (launches of
    the main path: q1's, sparse q3's probes, q8's MIN/MAX, plus every
-   phase-7 query's), the card line, and last
+   phase-7 and phase-8 query's), the card line, and last
    ``{"ok": true, "device": {...}}``.
 
 Each phase logs its wall time. It needs one CUDA card and exits non-zero
 without one. ``--profile DIR`` also writes a torch.profiler table and
-trace of one warm run of q1, of each q3 form and of each phase-6 and
-phase-7 query.
+trace of one warm run of q1, of each q3 form and of each phase-6, phase-7
+and phase-8 query.
 """
 
 from __future__ import annotations
@@ -2072,6 +2079,137 @@ def run_corpus_wide(tables, profile_dir) -> dict:
     return total
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the window and exchange queries (q6, q21, q7)
+# ---------------------------------------------------------------------------
+
+#: the corpus queries phase 8 runs, with the radix sorts each warm run
+#: makes: q6's group limit and its window over the survivors, q21's window
+#: (its pruning Project keeps the group limit out, as in the reference);
+#: q7's group-by has a dictionary key and sorts nothing
+WINDOW_QUERIES = {"q6": 2, "q7": 0, "q21": 1}
+
+
+def stable_row_number(part, order):
+    """row_number over ``part`` ordered by ``order``, ties by input row
+    (the port's sorts are stable), in input row order (int32)."""
+    n = len(part)
+    idx = np.lexsort((np.arange(n), order, part))
+    ps = part[idx]
+    start = np.r_[True, ps[1:] != ps[:-1]]
+    pos = np.arange(n)
+    seg = np.maximum.accumulate(np.where(start, pos, 0))
+    rn = np.empty(n, dtype=np.int32)
+    rn[idx] = pos - seg + 1
+    return rn
+
+
+def window_oracles(tables):
+    """{query: check(got)} of q6, q7 and q21 in numpy: stable ranking for
+    the windows (the kept rows in input order, every column exact), exact
+    counts and int64 sums for q7."""
+    O, C = host_cols(tables["orders"]), host_cols(tables["customer"])
+    out = {}
+    rn = stable_row_number(O["o_custkey"], O["o_totalprice"])
+    keep = np.flatnonzero(rn <= 3)
+    want = {nm: O[nm][keep] for nm in tables["orders"].names}
+    want["rn"] = rn[keep]
+    out["q6"] = lambda g, w=want: check_table(g, w, "q6")
+    rn = stable_row_number(C["c_nationkey"], C["c_custkey"])
+    keep = np.flatnonzero(rn <= 2)
+    want = {"c_nationkey": C["c_nationkey"][keep],
+            "c_custkey": C["c_custkey"][keep], "rn": rn[keep]}
+    out["q21"] = lambda g, w=want: check_table(g, w, "q21")
+    li = tables["lineitem"]
+    codes, dictionary = li.columns[li.names.index("l_returnflag")].encoded()
+    qty = host_cols(li)["l_quantity"].astype(np.int64)
+    counts = np.bincount(codes, minlength=len(dictionary))
+    sums = np.zeros(len(dictionary), dtype=np.int64)
+    np.add.at(sums, codes, qty)
+    present = np.flatnonzero(counts)
+    want = {"l_returnflag": np.asarray(dictionary, dtype=object)[present],
+            "c": counts[present].astype(np.int64), "s": sums[present]}
+    out["q7"] = lambda g, w=want: check_table(g, w, "q7",
+                                             key=("l_returnflag",))
+    return out
+
+
+def check_partition_ids(tables) -> None:
+    """Murmur3 partition ids on the card (HashPartitioner over every row
+    of the scanned batch) against the port's numpy murmur3
+    (``murmur3_hash_host``, Python integers) over the live rows: q7's
+    l_returnflag at 8 partitions, o_custkey at 8 and 200."""
+    from spark_rapids_tpu_torch.columnar import BucketPolicy
+    from spark_rapids_tpu_torch.execs.basic import TpuScanExec
+    from spark_rapids_tpu_torch.ops.expr import col
+    from spark_rapids_tpu_torch.shuffle.hashing import murmur3_hash_host
+    from spark_rapids_tpu_torch.shuffle.partitioning import HashPartitioner
+    for tname, cname, nparts in (("lineitem", "l_returnflag", (8,)),
+                                 ("orders", "o_custkey", (8, 200))):
+        t = tables[tname]
+        hc = t.columns[t.names.index(cname)]
+        scan = TpuScanExec([t], DEV, BucketPolicy())
+        batch = next(scan.execute())
+        key = col(cname).bind(scan.output_schema())
+        t0 = time.perf_counter()
+        if hc.dtype.simple_string() == "string":
+            inv, uniq = hc.encoded()
+        else:
+            uniq, inv = np.unique(hc.data, return_inverse=True)
+        hashes = np.array([murmur3_hash_host([(v, True, hc.dtype)])
+                           for v in uniq], dtype=np.int64)
+        host_s = time.perf_counter() - t0
+        for n in nparts:
+            got = HashPartitioner([key], n).partition_ids(batch)
+            torch.cuda.synchronize()
+            want = np.mod(hashes, n)[inv].astype(np.int32)
+            live = got[:t.num_rows].cpu().numpy()
+            if not np.array_equal(live, want):
+                bad = int(np.flatnonzero(live != want)[0])
+                fail(f"murmur3 partition ids of {cname} (n={n}) row {bad}: "
+                     f"{live[bad]} vs numpy {want[bad]}")
+            log(f"  murmur3 partition ids of {cname} at n={n}: "
+                f"{t.num_rows} rows in a {batch.capacity}-row batch equal "
+                f"the numpy murmur3 ({len(uniq)} distinct keys hashed on "
+                f"the host in {host_s:.2f} s); rows per partition "
+                f"{np.bincount(want, minlength=n)[:8].tolist()}"
+                f"{'...' if n > 8 else ''}")
+
+
+def run_corpus_window(tables, profile_dir) -> dict:
+    """q6, q7 and q21 through ``run_case`` against their numpy oracles, and
+    the murmur3 partition ids against the numpy murmur3. Returns every
+    kernel's launches summed over the counted runs."""
+    from spark_rapids_tpu_torch.models.corpus import build_queries
+    from spark_rapids_tpu_torch.session import TorchSession
+
+    t0 = time.perf_counter()
+    oracles = window_oracles(tables)
+    log(f"  the numpy oracles in {time.perf_counter() - t0:.2f} s (host)")
+    check_partition_ids(tables)
+    session = TorchSession()
+    queries = build_queries(session, tables)
+    total, summary = {}, {}
+    for name, sorts in WINDOW_QUERIES.items():
+        res = run_case(session, name, queries[name], oracles[name],
+                       profile_dir)
+        launches = res["launches"]
+        log(f"  {name}: result matches the numpy oracle (stable ranks, "
+            "counts and int64 sums exact)")
+        if launches["sort_with_payload"] != sorts:
+            fail(f"{name}: sort_with_payload launched "
+                 f"{launches['sort_with_payload']} times, expected {sorts}")
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        summary[name] = dict(res["stats"], launches={
+            k: v for k, v in launches.items() if v})
+    for k in ("gather_compact", "sort_with_payload"):
+        if not total.get(k):
+            fail(f"phase 8 launched no {k}")
+    log("  phase-8 summary: " + json.dumps(summary))
+    return total
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rows", type=int, default=6_001_215,
@@ -2160,7 +2298,14 @@ def main(argv=None) -> int:
         launches[k] += v
     log(f"  phase 7 ran {time.perf_counter() - t_phase:.1f} s")
 
-    log("phase 8: summary")
+    t_phase = time.perf_counter()
+    log("phase 8: the window and exchange queries (q6, q21, q7) through "
+        "TorchSession")
+    for k, v in run_corpus_window(tables, args.profile).items():
+        launches[k] += v
+    log(f"  phase 8 ran {time.perf_counter() - t_phase:.1f} s")
+
+    log("phase 9: summary")
     for r in rows:
         r.update(route="cuda", source=SOURCES[r["name"]],
                  replaces=TPU_KERNELS[r["name"]],

@@ -5,6 +5,9 @@ padded to one capacity bucket, with the live row count as a 0-d int32
 tensor on the device (``nrows_dev``, read on the host only when needed).
 A MASKED table (``live`` set) keeps its live rows at their original slots;
 ``compacted()`` packs them into the prefix through the compaction kernel.
+The masked views of one repartition share their buffers and carry the
+split's token (``split_group``), so a consumer that re-groups every row
+anyway merges them back into one batch (``merge_split_views``).
 """
 
 from __future__ import annotations
@@ -68,7 +71,7 @@ class DeviceTable:
     ``num_rows`` reads it on the host (a sync for a device count)."""
 
     __slots__ = ("names", "columns", "nrows_dev", "_nrows_host", "capacity",
-                 "live", "device")
+                 "live", "device", "split_group")
 
     def __init__(self, names: Sequence[str], columns: Sequence[DeviceColumn],
                  nrows, capacity: int, device: torch.device, live=None):
@@ -76,6 +79,10 @@ class DeviceTable:
         self.columns: Tuple[DeviceColumn, ...] = tuple(columns)
         self.live = live
         self.device = torch.device(device)
+        #: the token of the split execution this masked view came from
+        #: (None: not a split's view); views carrying one token have
+        #: DISJOINT masks by construction and may merge
+        self.split_group = None
         caps = {c.capacity for c in self.columns}
         if len(caps) > 1:
             raise ColumnarProcessingError(f"ragged capacities {caps}")
@@ -133,6 +140,44 @@ class DeviceTable:
             return self.compacted().to_host()
         n = self.num_rows
         return HostTable(self.names, [c.to_host(n) for c in self.columns])
+
+
+def mergeable_views(a: DeviceTable, b: DeviceTable) -> bool:
+    """May two masked views merge by mask union? Requires the SAME device
+    buffers AND the same split token: the same buffers alone are not
+    enough (two filters of one scan share buffers with OVERLAPPING masks;
+    OR-ing those would drop duplicates)."""
+    return (a.split_group is not None and a.split_group is b.split_group
+            and a.live is not None and b.live is not None
+            and a.capacity == b.capacity
+            and len(a.columns) == len(b.columns)
+            and all(x.data is y.data and x.validity is y.validity
+                    for x, y in zip(a.columns, b.columns)))
+
+
+def union_views(a: DeviceTable, b: DeviceTable) -> DeviceTable:
+    """Two views of one split as one: their masks OR-ed, no data moved.
+    The masks are disjoint, so the row counts add."""
+    out = DeviceTable(a.names, a.columns, a.nrows_dev + b.nrows_dev,
+                      a.capacity, a.device, live=a.live | b.live)
+    out.split_group = a.split_group
+    return out
+
+
+def merge_split_views(batches):
+    """Generator: mask-union consecutive views of one split. For consumers
+    that re-group every row anyway (the aggregate), a repartition's k
+    per-partition views collapse back into ONE masked batch."""
+    cur = None
+    for b in batches:
+        if cur is not None and mergeable_views(cur, b):
+            cur = union_views(cur, b)
+        else:
+            if cur is not None:
+                yield cur
+            cur = b
+    if cur is not None:
+        yield cur
 
 
 def _union_domain(cols: Sequence[DeviceColumn]):

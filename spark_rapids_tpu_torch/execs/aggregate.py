@@ -168,7 +168,12 @@ class TpuHashAggregateExec(TpuExec):
         return out
 
     def execute(self):
-        table = single_batch(self.children[0].execute_masked(), "aggregate")
+        from spark_rapids_tpu_torch.columnar.table import merge_split_views
+        # the aggregate re-groups every row: a repartition's views of one
+        # split mask-union back into one batch (no data moves)
+        table = single_batch(
+            merge_split_views(self.children[0].execute_masked()),
+            "aggregate")
         if table is not None:
             yield self._aggregate(table)
 

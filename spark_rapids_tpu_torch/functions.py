@@ -34,7 +34,6 @@ def avg(e):
     return _agg.Average(_e(e))
 
 
-
 def stddev(e):
     return _agg.StddevSamp(_e(e))
 
@@ -64,3 +63,25 @@ def isnan(e):
 def is_in(e, *items):
     from spark_rapids_tpu_torch.ops.predicates import In
     return In(_e(e), [_e(i) for i in items])
+
+
+# ranking window functions (ops/window.py): row_number().over(spec)
+def row_number():
+    from spark_rapids_tpu_torch.ops.window import RowNumber
+    return RowNumber()
+
+
+def rank():
+    from spark_rapids_tpu_torch.ops.window import Rank
+    return Rank()
+
+
+def dense_rank():
+    from spark_rapids_tpu_torch.ops.window import DenseRank
+    return DenseRank()
+
+
+# hash functions (ops/hashfns.py)
+def hash(*exprs):  # noqa: A001
+    from spark_rapids_tpu_torch.ops.hashfns import Murmur3Hash
+    return Murmur3Hash(*[_e(x) for x in exprs])

@@ -1,9 +1,8 @@
 """The golden ScaleTest corpus through the port (port of
-``scale_test.py::build_queries``, as far as the port runs it): 19 of its
-22 queries, each written exactly as the reference writes it, over the
-tables of ``datagen.scale_test_specs``. q6 and q21 need the window execs
-(``row_number``) and q7 the exchange (``repartition``), which are not
-ported: looking them up raises NotImplementedError naming them."""
+``scale_test.py::build_queries``): all 22 of its queries, each written
+exactly as the reference writes it, over the tables of
+``datagen.scale_test_specs``. Looking up a name outside the corpus raises
+KeyError."""
 
 from __future__ import annotations
 
@@ -14,8 +13,8 @@ from spark_rapids_tpu_torch.datagen import scale_test_specs
 
 #: the corpus's query names (scale_test.py: q1-q22)
 CORPUS = tuple(f"q{i}" for i in range(1, 23))
-#: the queries the port runs
-PORTED = tuple(q for q in CORPUS if q not in ("q6", "q7", "q21"))
+#: the queries the port runs: all of them
+PORTED = CORPUS
 #: the columns the ported queries read, by table
 COLUMNS = {
     "customer": ("c_custkey", "c_name", "c_nationkey", "c_acctbal"),
@@ -27,14 +26,10 @@ COLUMNS = {
 
 
 class Queries(dict):
-    """{name: () -> DataFrame} of the ported queries; looking up another
-    corpus query raises NotImplementedError naming it."""
+    """{name: () -> DataFrame} of the corpus queries; any other name
+    raises KeyError."""
 
     def __missing__(self, name):
-        if name in CORPUS:
-            raise NotImplementedError(
-                f"corpus query {name} is not ported (the port runs "
-                f"{', '.join(PORTED)})")
         raise KeyError(name)
 
 
@@ -87,6 +82,20 @@ def build_queries(s, tables: Dict[str, HostTable]) -> Queries:
 
     def q5():  # sort + limit (TakeOrderedAndProject)
         return (orders().sort("o_totalprice", ascending=False).limit(100))
+
+    def q6():  # window: rank orders per customer by price
+        from spark_rapids_tpu_torch.functions import row_number
+        from spark_rapids_tpu_torch.ops.window import Window as W
+        return orders().with_windows(
+            rn=row_number().over(
+                W.partition_by("o_custkey").order_by("o_totalprice")))\
+            .filter(col("rn") <= lit(3))
+
+    def q7():  # repartition + agg (shuffle exercise)
+        return (li().repartition(8, "l_returnflag")
+                .group_by("l_returnflag")
+                .agg(F.count("l_quantity").alias("c"),
+                     F.sum("l_quantity").alias("s")))
 
     def q8():  # distinct-ish: group by high-cardinality key
         return (orders().group_by("o_custkey")
@@ -224,6 +233,15 @@ def build_queries(s, tables: Dict[str, HostTable]) -> Queries:
             on=["c_custkey"], how="inner")
         return (j.select("c_custkey", "nbig", "c_name", "c_acctbal")
                 .sort("nbig", ascending=False).limit(10))
+
+    def q21():  # TPC-H q21-like: per-nation top accounts via window rank
+        from spark_rapids_tpu_torch.functions import row_number
+        from spark_rapids_tpu_torch.ops.window import Window as W
+        return (cust().with_windows(
+            rn=row_number().over(
+                W.partition_by("c_nationkey").order_by("c_custkey")))
+            .filter(col("rn") <= lit(2))
+            .select("c_nationkey", "c_custkey", "rn"))
 
     def q22():  # TPC-H q22-like: accounts above the global average
         avg_t = (cust().select(col("c_acctbal"))

@@ -27,6 +27,12 @@ class AggregateFunction(Expression):
     def with_children(self, children):
         return type(self)(children[0]) if children else type(self)()
 
+    def over(self, spec):
+        """agg OVER window-spec -> WindowExpression (ops/window.py); the
+        port's overrides raise for aggregate windows."""
+        from spark_rapids_tpu_torch.ops.window import WindowExpression
+        return WindowExpression(self, spec)
+
 
 class Sum(AggregateFunction):
     @property

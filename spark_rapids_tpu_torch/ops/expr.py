@@ -33,9 +33,10 @@ class DevVal(NamedTuple):
 
 @dataclass
 class NodePrep:
-    """Host-side per-batch preparation result for one expression node
-    (the reference also registers aux device arrays here; no ported
-    expression needs one)."""
+    """Host-side per-batch preparation result for one expression node,
+    with the device inputs its evaluation reads beside its children
+    (``aux``: the reference's aux arrays, here tensors on the batch's
+    device)."""
 
     out_dict: Optional[np.ndarray] = None  # dictionary if output is STRING
     dict_sorted: bool = True
@@ -46,6 +47,8 @@ class NodePrep:
     lookup_code: Optional[int] = None
     #: the codes of IN's string literals in the value's dictionary
     lookup_codes: Optional[Tuple[int, ...]] = None
+    #: device tensors the node reads (the hash's string bytes, by child)
+    aux: Optional[dict] = None
 
 
 class PrepCtx:

@@ -1,5 +1,6 @@
-"""Row compaction dispatch point (port of
-``spark_rapids_tpu/ops/scatter32.py::compact_pairs``).
+"""Row compaction dispatch point and the window's scatter back to input
+row order (port of ``compact_pairs`` and ``scatter_pair`` of
+``spark_rapids_tpu/ops/scatter32.py``).
 
 The reference splits 64-bit payloads into 32-bit scatters on the TPU; its
 CPU backend scatters natively, which is what the port reproduces: every
@@ -13,6 +14,23 @@ from __future__ import annotations
 from typing import List, Sequence, Tuple
 
 import torch
+
+
+def scatter_pair(out_len: int, tgt: torch.Tensor, data: torch.Tensor,
+                 validity: torch.Tensor
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Scatter one column's (data, validity) to slots ``tgt`` of zeroed
+    outputs of ``out_len`` rows; targets outside [0, out_len) are dropped
+    (the reference's ``mode="drop"``)."""
+    dev = data.device
+    tgt = tgt.to(torch.int64)
+    tgt = torch.where((tgt >= 0) & (tgt < out_len), tgt, out_len)
+    od = torch.zeros((out_len + 1,) + tuple(data.shape[1:]),
+                     dtype=data.dtype, device=dev)
+    ov = torch.zeros(out_len + 1, dtype=torch.bool, device=dev)
+    od[tgt] = data
+    ov[tgt] = validity
+    return od[:out_len], ov[:out_len]
 
 
 def compact_pairs(datas: Sequence[torch.Tensor], valids: Sequence[torch.Tensor],

@@ -1,8 +1,10 @@
 """Tag and convert plan nodes into device execs (port of the LocalScan,
-Project, Filter, Aggregate, Sort, Join and TakeOrderedAndProject rules of
-``spark_rapids_tpu/overrides/rules.py``, the column pruning its
-``apply_overrides`` runs first, and ``lore.assign_lore_ids``: every exec
-gets its plan position, pre-order from 1).
+Project, Filter, Aggregate, Sort, Join, TakeOrderedAndProject, WindowNode,
+WindowGroupLimit and Exchange rules of
+``spark_rapids_tpu/overrides/rules.py``, the column pruning and the
+window group-limit rewrite its ``apply_overrides`` runs first, and
+``lore.assign_lore_ids``: every exec gets its plan position, pre-order
+from 1).
 
 The reference tags each node and falls back to the CPU where a node or
 expression is unsupported; the port has no fallback, so tagging raises
@@ -50,10 +52,112 @@ def _tag(node: P.PlanNode) -> None:
     elif isinstance(node, P.Limit):
         raise NotImplementedError("a LIMIT without an ORDER BY (CollectLimit) "
                                   "is not ported")
+    elif isinstance(node, P.WindowNode):
+        _tag_window(node)
+    elif isinstance(node, P.Exchange):
+        _tag_exchange(node)
     elif not isinstance(node, (P.LocalScan, P.Project, P.Filter, P.Sort,
-                               P.TakeOrderedAndProject)):
+                               P.TakeOrderedAndProject, P.WindowGroupLimit)):
         raise NotImplementedError(
             f"plan node {node.name} is not ported to spark_rapids_tpu_torch")
+
+
+def _tag_window(node: P.WindowNode) -> None:
+    from spark_rapids_tpu_torch.execs.window import unsupported_reasons
+    reasons = [f"window {name}: {r}" for name, w in node.window_cols
+               for r in unsupported_reasons(w)]
+    if reasons:
+        raise NotImplementedError("; ".join(reasons))
+
+
+def _convert_window(node: P.WindowNode, child: TpuExec) -> TpuExec:
+    """The reference's batched window (every spec over the same partition
+    keys) over a one-batch input. Its other branches are not ported."""
+    from spark_rapids_tpu_torch.execs.window import TpuWindowExec
+    from spark_rapids_tpu_torch.ops.window import expr_key
+    specs = [w.spec for _, w in node.window_cols]
+    keys0 = [expr_key(p) for p in specs[0].partition_exprs]
+    if not keys0:
+        raise NotImplementedError(
+            "a window without PARTITION BY (the reference's streamed "
+            "running window or coalesced single-batch window) is not ported")
+    if any([expr_key(p) for p in s.partition_exprs] != keys0 for s in specs):
+        raise NotImplementedError(
+            "window columns over different partition keys (the reference's "
+            "coalesced single-batch window) are not ported")
+    return TpuWindowExec(child, node.window_cols)
+
+
+def _tag_exchange(node: P.Exchange) -> None:
+    if node.partitioning not in ("hash", "range", "roundrobin", "single"):
+        raise NotImplementedError(
+            f"partitioning {node.partitioning} is not supported")
+    if node.partitioning == "hash" and not node.keys:
+        raise NotImplementedError("hash partitioning requires keys")
+    if node.partitioning == "range":
+        raise NotImplementedError(
+            "range partitioning (RangePartitioner's sampled bounds) is not "
+            "ported")
+
+
+def _insert_window_group_limits(node: P.PlanNode) -> P.PlanNode:
+    """The WindowGroupLimit rewrite (Spark 3.5's InsertWindowGroupLimit):
+    Filter(rank_col <= k, < k or = k) directly above a WindowNode whose
+    rank_col is row_number, rank or dense_rank admits a pre-window group
+    limit, as long as EVERY window column of the node is a ranking
+    function over the same spec (a sibling over another spec, or a
+    non-ranking function, would see only the surviving rows). Builds a
+    new tree: plan nodes are shared across collects."""
+    import copy
+
+    from spark_rapids_tpu_torch.ops.expr import BoundReference, Literal
+    from spark_rapids_tpu_torch.ops.predicates import (
+        EqualTo,
+        LessThan,
+        LessThanOrEqual,
+    )
+    from spark_rapids_tpu_torch.ops.window import RANK_KINDS
+
+    new_children = [_insert_window_group_limits(c) for c in node.children]
+    if any(a is not b for a, b in zip(new_children, node.children)):
+        node = copy.copy(node)
+        node.children = tuple(new_children)
+    if not isinstance(node, P.Filter) or not isinstance(
+            node.children[0], P.WindowNode):
+        return node
+    cond = node.condition
+    if not isinstance(cond, (LessThan, LessThanOrEqual, EqualTo)):
+        return node
+    lhs, rhs = cond.children
+    if not (isinstance(lhs, BoundReference) and isinstance(rhs, Literal)):
+        return node
+    win = node.children[0]
+    wi = lhs.ordinal - len(win.children[0].output_schema())
+    if not 0 <= wi < len(win.window_cols):
+        return node
+    w = win.window_cols[wi][1]
+    kind = RANK_KINDS.get(type(w.function))
+    if kind is None or not w.spec.orders:
+        return node
+    for _, other in win.window_cols:
+        if type(other.function) not in RANK_KINDS or \
+                other.spec.key() != w.spec.key():
+            return node
+    try:
+        k = int(rhs.value)
+    except (TypeError, ValueError):
+        return node
+    if isinstance(cond, LessThan):
+        k -= 1  # (rank = k admits keeping rank <= k as it is)
+    if k < 1:
+        return node
+    wgl = P.WindowGroupLimit(win.children[0], w.spec.partition_exprs,
+                             w.spec.orders, kind, k)
+    new_win = copy.copy(win)
+    new_win.children = (wgl,)
+    new_filter = copy.copy(node)
+    new_filter.children = (new_win,)
+    return new_filter
 
 
 def _convert_aggregate(node: P.Aggregate, child: TpuExec,
@@ -116,14 +220,31 @@ def _convert(node: P.PlanNode, conf: C.RapidsConf, device) -> TpuExec:
     if isinstance(node, P.TakeOrderedAndProject):
         return TpuTakeOrderedAndProjectExec(children[0], node.orders,
                                             node.limit)
+    if isinstance(node, P.WindowNode):
+        return _convert_window(node, children[0])
+    if isinstance(node, P.WindowGroupLimit):
+        from spark_rapids_tpu_torch.execs.window import (
+            TpuWindowGroupLimitExec,
+        )
+        return TpuWindowGroupLimitExec(children[0], node.partition_exprs,
+                                       node.orders, node.rank_kind,
+                                       node.limit)
+    if isinstance(node, P.Exchange):
+        from spark_rapids_tpu_torch.execs.exchange import (
+            TpuShuffleExchangeExec,
+        )
+        return TpuShuffleExchangeExec(children[0], node.partitioning,
+                                      node.num_partitions, node.keys)
     return TpuSortExec(children[0], node.orders)
 
 
 def convert(node: P.PlanNode, conf: C.RapidsConf, device) -> TpuExec:
-    """The device exec tree for ``node`` after column pruning (where the
-    reference's ``apply_overrides`` prunes), every exec numbered by its
-    plan position (pre-order from 1)."""
-    root = _convert(prune_plan(node), conf, device)
+    """The device exec tree for ``node`` after column pruning and the
+    window group-limit rewrite (where and in the order the reference's
+    ``apply_overrides`` runs them), every exec numbered by its plan
+    position (pre-order from 1)."""
+    root = _convert(_insert_window_group_limits(prune_plan(node)), conf,
+                    device)
     counter = [0]
 
     def number(e: TpuExec) -> None:

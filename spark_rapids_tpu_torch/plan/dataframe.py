@@ -1,6 +1,7 @@
 """DataFrame API (port of the DataFrame/GroupedData/from_host_table part
 of ``spark_rapids_tpu/plan/dataframe.py``: select, with_column, filter,
-group_by, agg, sort, limit, join on column names): builds plan nodes; a
+group_by, agg, sort, limit, join on column names, with_windows and
+repartition): builds plan nodes; a
 session executes them."""
 
 from __future__ import annotations
@@ -68,6 +69,26 @@ class DataFrame:
                 "condition) is not ported")
         return self._wrap(P.Join(self.plan, other.plan, how,
                                  [col(k) for k in on], [col(k) for k in on]))
+
+    def with_windows(self, **named_exprs) -> "DataFrame":
+        """Append window-function columns:
+        ``df.with_windows(rn=F.row_number().over(W.partition_by("k")
+        .order_by("v")))``. Built-in window functions only: the
+        reference's windowed pandas UDFs (WindowInPandas) are not
+        ported."""
+        from spark_rapids_tpu_torch.ops.window import WindowExpression
+        for n, e in named_exprs.items():
+            if not isinstance(e, WindowExpression):
+                raise NotImplementedError(
+                    f"window column {n}: {type(e).__name__} is not a "
+                    "built-in window expression (windowed pandas UDFs are "
+                    "not ported)")
+        return self._wrap(P.WindowNode(self.plan, list(named_exprs.items())))
+
+    def repartition(self, num_partitions: int, *keys) -> "DataFrame":
+        keys = [col(k) if isinstance(k, str) else k for k in keys]
+        mode = "hash" if keys else "roundrobin"
+        return self._wrap(P.Exchange(self.plan, mode, num_partitions, keys))
 
     def collect_table(self) -> HostTable:
         if self.session is None:

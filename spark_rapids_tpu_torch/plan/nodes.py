@@ -1,6 +1,6 @@
 """Plan nodes (port of the LocalScan, Project, Filter, Aggregate, Sort,
-SortOrder, Limit, Join and TakeOrderedAndProject parts of
-``spark_rapids_tpu/plan/nodes.py``). Nodes bind their
+SortOrder, Limit, Join, TakeOrderedAndProject, WindowNode,
+WindowGroupLimit and Exchange parts of ``spark_rapids_tpu/plan/nodes.py``). Nodes bind their
 expressions against the child's schema at construction; the overrides
 layer (overrides/rules.py) turns them into device execs. The reference's
 CPU execution of these nodes is not ported: the port has no CPU
@@ -219,3 +219,58 @@ class TakeOrderedAndProject(PlanNode):
 
     def output_schema(self):
         return self.children[0].output_schema()
+
+
+class WindowNode(PlanNode):
+    """Appends window-function columns (``[(name, WindowExpression)]``,
+    bound against the child's schema) to the child's output."""
+
+    def __init__(self, child: PlanNode, window_cols):
+        self.children = (child,)
+        schema = child.output_schema()
+        self.window_cols = [(name, w.bind(schema)) for name, w in window_cols]
+
+    def output_schema(self):
+        return (self.children[0].output_schema()
+                + [(n, w.data_type) for n, w in self.window_cols])
+
+
+class WindowGroupLimit(PlanNode):
+    """Pre-window group limit (Spark 3.5's WindowGroupLimit): under a
+    ``rank_col <= k`` filter right above a window, at most k (plus ties)
+    rows per partition need to enter it. The overrides insert it (bound
+    partition expressions and orders of the window's spec); the exact
+    filter above stays."""
+
+    def __init__(self, child: PlanNode, partition_exprs, orders,
+                 rank_kind: str, limit: int):
+        self.children = (child,)
+        self.partition_exprs = list(partition_exprs)
+        self.orders = list(orders)
+        self.rank_kind = rank_kind  # rownumber | rank | denserank
+        self.limit = int(limit)
+
+    def output_schema(self):
+        return self.children[0].output_schema()
+
+    def estimate_bytes(self):
+        return self.children[0].estimate_bytes()
+
+
+class Exchange(PlanNode):
+    """Repartition (``hash`` on keys, ``roundrobin``, ``range`` or
+    ``single``) into ``num_partitions`` partitions; rows are unchanged."""
+
+    def __init__(self, child: PlanNode, partitioning: str,
+                 num_partitions: int, keys: Sequence[Expression] = ()):
+        self.children = (child,)
+        self.partitioning = partitioning
+        self.num_partitions = num_partitions
+        schema = child.output_schema()
+        self.keys = [bind(k, schema) for k in keys]
+
+    def output_schema(self):
+        return self.children[0].output_schema()
+
+    def estimate_bytes(self):
+        return self.children[0].estimate_bytes()

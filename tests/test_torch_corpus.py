@@ -162,16 +162,14 @@ def test_q2_and_q8_match_reference(sf, seed):
 
 
 def test_other_corpus_queries_raise_naming_them():
-    """The window queries (q6, q21) and the exchange query (q7) are the
-    corpus's unported ones; a name outside the corpus is a KeyError."""
+    """Every corpus query is ported, the window queries (q6, q21) and the
+    exchange query (q7) last; a name outside the corpus is a KeyError."""
     tq = tcorpus.build_queries(TorchSession(device="cpu"), {})
-    assert sorted(tq) == sorted(f"q{i}" for i in range(1, 23)
-                                if i not in (6, 7, 21))
-    for name in ("q6", "q7", "q21"):
-        with pytest.raises(NotImplementedError, match=name):
+    assert sorted(tq) == sorted(f"q{i}" for i in range(1, 23))
+    assert sorted(tcorpus.PORTED) == sorted(tq)
+    for name in ("q23", "q0"):
+        with pytest.raises(KeyError, match=name):
             tq[name]
-    with pytest.raises(KeyError):
-        tq["q23"]
 
 
 def _sparse_custkey(tabs):

@@ -1,12 +1,14 @@
-"""The golden corpus's other 17 ported queries (q1, q3-q5, q9-q20, q22)
-through the port's session on the CPU against the JAX package's
-TpuSession, on the same tables: ``datagen.scale_test_specs(0.02)``, seeds
-0 and 1 (q2 and q8 are in tests/test_torch_corpus.py).
+"""The golden corpus's queries other than q2 and q8 (which are in
+tests/test_torch_corpus.py) through the port's session on the CPU against
+the JAX package's TpuSession, on the same tables:
+``datagen.scale_test_specs(0.02)``, seeds 0 and 1. With those two, this is
+the port's corpus runner: all 22 queries.
 
 Comparators, named per query:
 - ``scale_test.tables_differ`` (bitwise, in order) for the queries whose
-  every value is exact: keys, counts, int64 and decimal sums, strings and
-  ordered top-k rows (q5, q11, q13, q16, q18, q20, q22);
+  every value is exact: keys, counts, int64 and decimal sums, strings,
+  ordered top-k rows and window ranks (q5, q6, q7, q11, q13, q16, q18,
+  q20, q21, q22);
 - ``scale_test.tables_close`` (rtol 1e-9, only for f64 sums, which the
   port adds in another order: one-hot block partials or ``index_add_``
   against the reference's row-order sum) for q1, q3, q4, q9, q10, q12,
@@ -33,7 +35,8 @@ from spark_rapids_tpu_torch.session import TorchSession
 SF = 0.02
 SEEDS = (0, 1)
 
-EXACT = ("q5", "q11", "q13", "q16", "q18", "q20", "q22")
+EXACT = ("q5", "q6", "q7", "q11", "q13", "q16", "q18", "q20", "q21",
+         "q22")
 F64_SUMS = ("q1", "q3", "q4", "q9", "q10", "q12", "q14", "q15", "q17",
             "q19")
 QUERIES = sorted(EXACT + F64_SUMS, key=lambda q: int(q[1:]))
@@ -91,7 +94,8 @@ def _reference(name, seed):
 
 
 def test_the_comparators_cover_the_ported_queries():
-    assert sorted(QUERIES + ["q2", "q8"]) == sorted(tcorpus.PORTED)
+    assert sorted(QUERIES + ["q2", "q8"]) == sorted(tcorpus.PORTED) \
+        == sorted(f"q{i}" for i in range(1, 23))
     assert not set(EXACT) & set(F64_SUMS)
 
 
