@@ -53,15 +53,27 @@ Phases, in order; any failure exits non-zero:
    a stable ranking in numpy, q7's counts and sums exact), after the
    murmur3 partition ids of l_returnflag (every lineitem row) and
    o_custkey (every order) against the numpy murmur3;
-9. the summary lines: one ``{"kernels": [...]}`` JSON line (launches of
+9. the SQL front end on the same tables: the corpus's 22 texts
+   (``models/corpus.py::sql_texts``) over temp views of phases 6-8's
+   tables, then TPC-H ``Q1_SQL`` and ``Q3_SQL`` (dense, and sparse with 4
+   hash-probe attempts) over phases 4-5's, each through
+   ``TorchSession.sql`` with the numbers and checks of phase 7 plus the
+   host time of ``session.sql(text)`` alone (parse, analyse, lower):
+   each result against its DSL form's (bit for bit; rtol 1e-9 for the
+   f64 sums over more than 32 segments of q3, q15 and Q3_SQL) and its
+   numpy oracle, each kernel launched as often as in the DSL form; and
+   one conditional query (CASE, IF, COALESCE, GREATEST, a string-valued
+   CASE as the group key) over the 10,000,000 lineitem rows against a
+   numpy oracle;
+10. the summary lines: one ``{"kernels": [...]}`` JSON line (launches of
    the main path: q1's, sparse q3's probes, q8's MIN/MAX, plus every
-   phase-7 and phase-8 query's), the card line, and last
+   phase-7, phase-8 and phase-9 query's), the card line, and last
    ``{"ok": true, "device": {...}}``.
 
 Each phase logs its wall time. It needs one CUDA card and exits non-zero
 without one. ``--profile DIR`` also writes a torch.profiler table and
-trace of one warm run of q1, of each q3 form and of each phase-6, phase-7
-and phase-8 query.
+trace of one warm run of q1, of each q3 form, of each phase-6, phase-7
+and phase-8 query and of phase 9's conditional query.
 """
 
 from __future__ import annotations
@@ -1219,7 +1231,11 @@ def check_q1_result(got, oracle) -> None:
             fail(f"q1 {name}: {c.data} vs oracle {want} (exact)")
 
 
-def run_q1(rows: int, profile_dir) -> dict:
+def run_q1(rows: int, profile_dir, keep=None) -> dict:
+    """q1 through the DSL against its oracle. With ``keep`` (a dict),
+    ``keep["TPC-H q1"]`` holds what phase 9 holds the SQL form to: the
+    table, the builder, the result, the oracle check, the launches and
+    the warm median."""
     from spark_rapids_tpu_torch import kernels as K
     from spark_rapids_tpu_torch.models.tpch import lineitem_table, q1_dataframe
     from spark_rapids_tpu_torch.session import TorchSession
@@ -1269,6 +1285,12 @@ def run_q1(rows: int, profile_dir) -> dict:
         f"{peak / 2**30:.2f} GiB")
     if profile_dir:
         profile_q1(session, table, profile_dir)
+    if keep is not None:
+        keep["TPC-H q1"] = {
+            "tables": (table,), "result": got, "launches": dict(launches),
+            "build": lambda: q1_dataframe(session, table),
+            "check": lambda g: check_q1_result(g, oracle),
+            "warm_ms": round(statistics.median(warm) * 1e3, 2)}
     return launches
 
 
@@ -1415,12 +1437,15 @@ def check_q3_result(got, oracle, what) -> None:
 
 
 def run_q3_form(what, tables, oracle, conf, expect, profile_dir,
-                time_compactions=False) -> dict:
+                time_compactions=False, keep=None) -> dict:
     """Cold run (replays counted), three warm runs, and one more warm run
     between launch-counter reads (host syncs counted, every launch held
     against its kernel's plain version on its inputs); every result
     against the oracle. ``time_compactions``: each compaction of that warm
-    run is checked and timed again on its own inputs."""
+    run is checked and timed again on its own inputs. With ``keep`` (a
+    dict), ``keep[what]`` holds the tables, the builder, the counted run's
+    result and launches, the oracle check and the warm median (phase
+    9)."""
     from spark_rapids_tpu_torch import kernels as K
     from spark_rapids_tpu_torch.models.tpch import q3_dataframe
     from spark_rapids_tpu_torch.runtime import speculation
@@ -1493,13 +1518,21 @@ def run_q3_form(what, tables, oracle, conf, expect, profile_dir,
     if profile_dir:
         profile_run(what, lambda: q3_dataframe(session, *tables)
                     .collect_table(), profile_dir)
+    if keep is not None:
+        keep[what] = {
+            "tables": tables, "result": again, "launches": dict(launches),
+            "build": lambda: q3_dataframe(session, *tables),
+            "check": lambda g: check_q3_result(g, oracle, what),
+            "warm_ms": round(statistics.median(warm) * 1e3, 2)}
     return launches
 
 
-def run_q3(rows: int, profile_dir) -> int:
+def run_q3(rows: int, profile_dir, keep=None) -> int:
     """Dense q3, sparse q3 with the default 4 hash-probe attempts, and
     sparse q3 with 8. Returns probe_rowids' launches in one warm run of
-    the 8-attempt sparse form (the form in which both joins probe)."""
+    the 8-attempt sparse form (the form in which both joins probe).
+    ``keep``: as in ``run_q3_form``, for the dense and the default sparse
+    forms."""
     from spark_rapids_tpu_torch.models.tpch import q3_tables
     t0 = time.perf_counter()
     dense = q3_tables(rows, seed=0)
@@ -1514,11 +1547,12 @@ def run_q3(rows: int, profile_dir) -> int:
     run_q3_form("q3 dense", dense, o_dense, None,
                 {"speculationReplays": (0,), "probe_rowids": (0,),
                  "sort_with_payload": (1,)},
-                profile_dir, time_compactions=True)
+                profile_dir, time_compactions=True, keep=keep)
     default = run_q3_form("q3 sparse", sparse, o_sparse, None,
                           {"speculationReplays": (1, 2),
                            "probe_rowids": (2, 4),
-                           "sort_with_payload": (2, 4)}, profile_dir)
+                           "sort_with_payload": (2, 4)}, profile_dir,
+                          keep=keep)
     eight = run_q3_form(
         "q3 sparse, 8 attempts", sparse, o_sparse,
         {"spark.rapids.tpu.kernels.hashprobe.attempts": "8"},
@@ -1717,12 +1751,14 @@ def hold_launches(name, calls) -> None:
             f"run: {'; '.join(whats)}")
 
 
-def run_case(session, name, build, check, profile_dir) -> dict:
+def run_case(session, name, build, check, profile_dir, keep=None) -> dict:
     """One query: a cold run (replays counted), three warm runs, and one
     more warm run between launch-counter reads (host syncs and sorts
     logged, every launch's inputs recorded and then held against the
     kernel's plain version); each result against its oracle. Returns the
-    launches of the counted run and the query's numbers."""
+    launches of the counted run and the query's numbers. With ``keep`` (a
+    dict), ``keep[name]`` holds the builder, the counted run's result and
+    launches, the oracle check and the warm median (phase 9)."""
     from spark_rapids_tpu_torch import kernels as K
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1770,10 +1806,15 @@ def run_case(session, name, build, check, profile_dir) -> dict:
     if profile_dir:
         stats.update(profile_run(name, lambda: build().collect_table(),
                                  profile_dir))
+    if keep is not None:
+        keep[name] = {"result": again, "launches": dict(launches),
+                      "check": check, "warm_ms": stats["warm_ms"],
+                      "build": build}
     return {"launches": launches, "stats": stats}
 
 
-def run_corpus(tables, sf: float, seed: int, profile_dir) -> int:
+def run_corpus(tables, sf: float, seed: int, profile_dir,
+               keep=None) -> int:
     """Every phase-6 query through ``run_case``, with its oracle and its
     expected MIN/MAX and sort launches. Returns fused_minmax's launches in
     one warm q8."""
@@ -1789,8 +1830,8 @@ def run_corpus(tables, sf: float, seed: int, profile_dir) -> int:
         f"{time.perf_counter() - t0:.2f} s (host)")
     q8_launches = None
     for name, (build, check, want_minmax) in cases.items():
-        launches = run_case(session, name, build, check,
-                            profile_dir)["launches"]
+        launches = run_case(session, name, build, check, profile_dir,
+                            keep)["launches"]
         log(f"  {name}: result matches the numpy oracle (MIN, MAX and "
             "counts exact, sums rtol 1e-9)")
         if launches["fused_minmax"] != want_minmax:
@@ -2047,7 +2088,7 @@ def wide_oracles(tables):
     return out
 
 
-def run_corpus_wide(tables, profile_dir) -> dict:
+def run_corpus_wide(tables, profile_dir, keep=None) -> dict:
     """Every phase-7 query through ``run_case`` against its numpy oracle.
     Returns every kernel's launches summed over the counted runs."""
     from spark_rapids_tpu_torch.models.corpus import build_queries
@@ -2061,7 +2102,7 @@ def run_corpus_wide(tables, profile_dir) -> dict:
     total, summary = {}, {}
     for name in WIDE_QUERIES:
         res = run_case(session, name, queries[name], oracles[name],
-                       profile_dir)
+                       profile_dir, keep)
         launches = res["launches"]
         log(f"  {name}: result matches the numpy oracle (keys, counts, "
             "int64 and decimal sums and strings exact, f64 rtol 1e-9)")
@@ -2176,7 +2217,7 @@ def check_partition_ids(tables) -> None:
                 f"{'...' if n > 8 else ''}")
 
 
-def run_corpus_window(tables, profile_dir) -> dict:
+def run_corpus_window(tables, profile_dir, keep=None) -> dict:
     """q6, q7 and q21 through ``run_case`` against their numpy oracles, and
     the murmur3 partition ids against the numpy murmur3. Returns every
     kernel's launches summed over the counted runs."""
@@ -2192,7 +2233,7 @@ def run_corpus_window(tables, profile_dir) -> dict:
     total, summary = {}, {}
     for name, sorts in WINDOW_QUERIES.items():
         res = run_case(session, name, queries[name], oracles[name],
-                       profile_dir)
+                       profile_dir, keep)
         launches = res["launches"]
         log(f"  {name}: result matches the numpy oracle (stable ranks, "
             "counts and int64 sums exact)")
@@ -2207,6 +2248,229 @@ def run_corpus_window(tables, profile_dir) -> dict:
         if not total.get(k):
             fail(f"phase 8 launched no {k}")
     log("  phase-8 summary: " + json.dumps(summary))
+    return total
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the SQL front end (TorchSession.sql)
+# ---------------------------------------------------------------------------
+
+#: SQL forms (Q3_SQL as "TPC-H q3 ...") whose f64 sums run over more
+#: than 32 segments, through ``index_add_``, whose atomics add in another
+#: order from run to run: held to their DSL forms within rtol 1e-9; every
+#: other SQL form bit for bit
+SQL_RTOL = ("q3", "q15", "TPC-H q3 dense", "TPC-H q3 sparse")
+
+#: the conditional query over the corpus's lineitem: two counted CASE
+#: sums split on l_discount (TPC-H q12's high/low line counts), a
+#: string-valued CASE over l_returnflag as the group key, COALESCE over
+#: IF, and GREATEST
+CONDITIONAL_SQL = """
+SELECT CASE WHEN l_returnflag = 'R00000000' THEN 'flag0'
+            WHEN l_returnflag = 'R00000001' THEN l_linestatus
+            ELSE 'rest' END AS flag_class,
+       SUM(CASE WHEN l_discount > 0.05 THEN 1 ELSE 0 END) AS high_lines,
+       SUM(CASE WHEN l_discount <= 0.05 THEN 1 ELSE 0 END) AS low_lines,
+       SUM(COALESCE(IF(l_discount < 0.08, l_extendedprice, NULL), 0.0))
+           AS kept_price,
+       MAX(GREATEST(l_extendedprice * l_discount, l_quantity)) AS top,
+       COUNT(*) AS n
+FROM lineitem
+GROUP BY 1
+ORDER BY 1
+"""
+
+
+def same_table(got, want, what, rtol) -> None:
+    """The SQL form's result against its DSL form's: names, rows, types
+    and validity exact; values bit for bit over valid rows (strings and
+    DECIMAL128 by value), floats within ``rtol`` where it is given."""
+    if list(got.names) != list(want.names) or got.num_rows != want.num_rows:
+        fail(f"{what}: {list(got.names)} x {got.num_rows} rows, DSL form "
+             f"{list(want.names)} x {want.num_rows}")
+    for name, g, w in zip(got.names, got.columns, want.columns):
+        if type(g.dtype) is not type(w.dtype) or not np.array_equal(
+                g.validity, w.validity):
+            fail(f"{what} {name}: type or validity differs")
+        gv, wv = g.data[g.validity], w.data[w.validity]
+        if gv.dtype == object or wv.dtype == object:
+            ok = list(gv) == list(wv)
+        elif rtol and gv.dtype.kind == "f":
+            ok = np.allclose(gv, wv, rtol=rtol, atol=0, equal_nan=True)
+        else:
+            ok = gv.dtype == wv.dtype and gv.tobytes() == wv.tobytes()
+        if not ok:
+            fail(f"{what} {name}: differs from the DSL form "
+                 f"({'rtol ' + str(rtol) if rtol else 'bitwise'})")
+
+
+def run_sql_case(session, name, text, dsl, profile_dir) -> dict:
+    """One SQL form through ``run_case``: each result against the oracle
+    of its DSL form (``dsl['check']``) and against the DSL form's result;
+    the counted run's launches must equal the DSL form's. Adds the host
+    time of ``session.sql(text)`` alone (parse, analyse, lower)."""
+    front = []
+
+    def build():
+        t0 = time.perf_counter()
+        df = session.sql(text)
+        front.append(time.perf_counter() - t0)
+        return df
+
+    rtol = 1e-9 if name in SQL_RTOL else 0.0
+
+    def check(got):
+        dsl["check"](got)
+        same_table(got, dsl["result"], f"{name} SQL", rtol)
+
+    res = run_case(session, f"{name} SQL", build, check, profile_dir)
+    launches = res["launches"]
+    if launches != dsl["launches"]:
+        fail(f"{name} SQL launched {launches}, its DSL form "
+             f"{dsl['launches']}")
+    front_ms = [f * 1e3 for f in front[:5]]
+    # the two forms in turns (DSL, SQL, SQL, DSL, ...), and the DSL
+    # form's host syncs, in this phase beside the SQL form's
+    paired = {"dsl": [], "sql": []}
+    for order in (("dsl", "sql"), ("sql", "dsl")) * 2:
+        for form in order:
+            t0 = time.perf_counter()
+            (dsl["build"] if form == "dsl" else build)().collect_table()
+            torch.cuda.synchronize()
+            paired[form].append(time.perf_counter() - t0)
+    with host_sync_count() as box:
+        dsl["build"]().collect_table()
+    torch.cuda.synchronize()
+    stats = dict(res["stats"], dsl_warm_ms=dsl["warm_ms"],
+                 paired_sql_ms=round(statistics.median(paired["sql"]) * 1e3,
+                                     2),
+                 paired_dsl_ms=round(statistics.median(paired["dsl"]) * 1e3,
+                                     2),
+                 dsl_syncs=box["syncs"],
+                 front_cold_ms=round(front_ms[0], 3),
+                 front_ms=round(statistics.median(front_ms[1:]), 3),
+                 launches={k: v for k, v in launches.items() if v})
+    log(f"  {name} SQL: warm {stats['warm_ms']} ms (the DSL form's "
+        f"{dsl['warm_ms']} ms in its phase); in turns SQL "
+        f"{stats['paired_sql_ms']} ms, DSL {stats['paired_dsl_ms']} ms "
+        f"(medians of 4); host syncs SQL {stats['syncs']}, DSL "
+        f"{box['syncs']}; front end (parse, analyse, lower) "
+        f"{stats['front_ms']} ms warm, {stats['front_cold_ms']} ms cold; "
+        f"result equals the DSL form's "
+        f"({'rtol 1e-9' if rtol else 'bitwise'}) and its numpy oracle; "
+        "launches equal the DSL form's")
+    return {"launches": launches, "stats": stats}
+
+
+def conditional_oracle(lineitem):
+    """CONDITIONAL_SQL in numpy, on the dictionary codes of l_returnflag
+    and l_linestatus: counts and int64 sums exact, MAX bit for bit,
+    kept_price rtol 1e-9."""
+    cols = host_cols(lineitem)
+    rf_codes, rf_dict = lineitem.columns[
+        lineitem.names.index("l_returnflag")].encoded()
+    ls_codes, ls_dict = lineitem.columns[
+        lineitem.names.index("l_linestatus")].encoded()
+    # the class of each (flag, status) code pair, then each row's class
+    pair = {}
+    for i, f in enumerate(rf_dict):
+        for j, st in enumerate(ls_dict):
+            pair[(i, j)] = ("flag0" if f == "R00000000"
+                            else st if f == "R00000001" else "rest")
+    classes = sorted(set(pair.values()))
+    table = np.zeros((len(rf_dict), len(ls_dict)), dtype=np.int64)
+    for (i, j), c in pair.items():
+        table[i, j] = classes.index(c)
+    inv = table[rf_codes, ls_codes]
+    k = len(classes)
+    disc, price = cols["l_discount"], cols["l_extendedprice"]
+    qty = cols["l_quantity"].astype(np.float64)
+    prod = price * disc
+    top_row = np.where(qty > prod, qty, prod)
+    top = np.full(k, -np.inf)
+    np.maximum.at(top, inv, top_row)
+    want = {
+        "flag_class": np.array(classes, dtype=object),
+        "high_lines": np.bincount(inv[disc > 0.05], minlength=k)
+        .astype(np.int64),
+        "low_lines": np.bincount(inv[disc <= 0.05], minlength=k)
+        .astype(np.int64),
+        "kept_price": np.bincount(inv, weights=np.where(
+            disc < 0.08, price, 0.0), minlength=k),
+        "top": top,
+        "n": np.bincount(inv, minlength=k).astype(np.int64)}
+    present = want["n"] > 0
+    want = {n: v[present] for n, v in want.items()}
+    return lambda g: check_table(g, want, "conditional query",
+                                 f64=("kept_price",))
+
+
+def run_sql(tables, dsl, profile_dir) -> dict:
+    """Phase 9: the 22 corpus texts over temp views of the phase 6-8
+    tables, the conditional query, Q1_SQL and Q3_SQL (dense, and sparse
+    with the default 4 attempts) over the phase 4-5 tables, each through
+    ``run_sql_case`` against its DSL form (``dsl``: what phases 4-8
+    kept). Returns every kernel's launches summed over the counted
+    runs."""
+    from spark_rapids_tpu_torch.models import tpch
+    from spark_rapids_tpu_torch.models.corpus import (
+        CORPUS,
+        build_sql_queries,
+        sql_texts,
+    )
+    from spark_rapids_tpu_torch.plan import from_host_table
+    from spark_rapids_tpu_torch.runtime import speculation
+    from spark_rapids_tpu_torch.session import TorchSession
+
+    total, summary = {}, {}
+
+    def add(name, res):
+        for k, v in res["launches"].items():
+            total[k] = total.get(k, 0) + v
+        summary[name] = res["stats"]
+
+    # the corpus first: the speculation blocklist stands as phases 6-8
+    # saw it
+    session = TorchSession()
+    build_sql_queries(session, tables)
+    texts = sql_texts()
+    for name in CORPUS:
+        add(name, run_sql_case(session, name, texts[name], dsl[name], None))
+
+    t0 = time.perf_counter()
+    check = conditional_oracle(tables["lineitem"])
+    log(f"  conditional query: the numpy oracle in "
+        f"{time.perf_counter() - t0:.2f} s (host)")
+    res = run_case(session, "conditional query",
+                   lambda: session.sql(CONDITIONAL_SQL), check, profile_dir)
+    log("  conditional query: result matches the numpy oracle (counts, "
+        "int64 sums and MAX exact, kept_price rtol 1e-9)")
+    for k in ("onehot_partials", "fused_minmax", "gather_compact",
+              "sort_with_payload"):
+        if not res["launches"][k]:
+            fail(f"the conditional query launched no {k}")
+    add("conditional query", dict(res, stats=dict(
+        res["stats"], launches={k: v for k, v in res["launches"].items()
+                                if v})))
+
+    # TPC-H: each form after clearing the blocklist, as phases 4-5 ran it
+    forms = (("TPC-H q1", "TPC-H q1", tpch.Q1_SQL, ("lineitem",)),
+             ("TPC-H q3 dense", "q3 dense", tpch.Q3_SQL,
+              ("customer", "orders", "lineitem")),
+             ("TPC-H q3 sparse", "q3 sparse", tpch.Q3_SQL,
+              ("customer", "orders", "lineitem")))
+    for name, dsl_name, text, views in forms:
+        speculation.clear_blocklist()
+        sess = TorchSession()
+        for view, table in zip(views, dsl[dsl_name]["tables"]):
+            from_host_table(table, sess).create_or_replace_temp_view(view)
+        add(name, run_sql_case(sess, name, text.format(segment="BUILDING"),
+                               dsl[dsl_name], None))
+    for k in ("onehot_partials", "fused_minmax", "gather_compact",
+              "sort_with_payload", "probe_rowids"):
+        if not total.get(k):
+            fail(f"phase 9 launched no {k}")
+    log("  phase-9 summary: " + json.dumps(summary))
     return total
 
 
@@ -2268,14 +2532,16 @@ def main(argv=None) -> int:
             check_compact(gen), check_sort(gen), check_hashprobe(gen)]
     log(f"  phase 3 ran {time.perf_counter() - t_phase:.1f} s")
 
+    #: what phases 4-8 keep of each DSL form for phase 9's SQL forms
+    dsl = {}
     t_phase = time.perf_counter()
     log("phase 4: TPC-H q1 through TorchSession")
-    launches = run_q1(args.rows, args.profile)
+    launches = run_q1(args.rows, args.profile, dsl)
     log(f"  phase 4 ran {time.perf_counter() - t_phase:.1f} s")
 
     t_phase = time.perf_counter()
     log("phase 5: TPC-H q3 through TorchSession, dense and sparse keys")
-    launches["probe_rowids"] = run_q3(args.rows, args.profile)
+    launches["probe_rowids"] = run_q3(args.rows, args.profile, dsl)
     log(f"  phase 5 ran {time.perf_counter() - t_phase:.1f} s")
 
     from spark_rapids_tpu_torch.models.corpus import corpus_tables
@@ -2288,24 +2554,32 @@ def main(argv=None) -> int:
     t_phase = time.perf_counter()
     log("phase 6: the corpus's q2 and q8 and MIN/MAX through TorchSession")
     launches["fused_minmax"] = run_corpus(tables, args.sf, args.seed,
-                                          args.profile)
+                                          args.profile, dsl)
     log(f"  phase 6 ran {time.perf_counter() - t_phase:.1f} s")
 
     t_phase = time.perf_counter()
     log(f"phase 7: the other {len(WIDE_QUERIES)} ported corpus queries "
         "through TorchSession")
-    for k, v in run_corpus_wide(tables, args.profile).items():
+    for k, v in run_corpus_wide(tables, args.profile, dsl).items():
         launches[k] += v
     log(f"  phase 7 ran {time.perf_counter() - t_phase:.1f} s")
 
     t_phase = time.perf_counter()
     log("phase 8: the window and exchange queries (q6, q21, q7) through "
         "TorchSession")
-    for k, v in run_corpus_window(tables, args.profile).items():
+    for k, v in run_corpus_window(tables, args.profile, dsl).items():
         launches[k] += v
     log(f"  phase 8 ran {time.perf_counter() - t_phase:.1f} s")
 
-    log("phase 9: summary")
+    t_phase = time.perf_counter()
+    log("phase 9: the SQL front end: the corpus's 22 texts, a conditional "
+        "query, Q1_SQL and Q3_SQL through TorchSession.sql")
+    for k, v in run_sql(tables, dsl, args.profile).items():
+        launches[k] += v
+    del dsl
+    log(f"  phase 9 ran {time.perf_counter() - t_phase:.1f} s")
+
+    log("phase 10: summary")
     for r in rows:
         r.update(route="cuda", source=SOURCES[r["name"]],
                  replaces=TPU_KERNELS[r["name"]],

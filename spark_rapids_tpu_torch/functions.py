@@ -1,9 +1,11 @@
 """PySpark-style function namespace: the expression constructors the
-ported slice has."""
+ported slices have, ``expr`` (one SQL expression) and the process-wide
+SQL function registrations."""
 
 from __future__ import annotations
 
 from spark_rapids_tpu_torch.ops import aggregates as _agg
+from spark_rapids_tpu_torch.ops import conditional as _cond
 from spark_rapids_tpu_torch.ops.expr import Expression, col, lit  # noqa: F401
 
 
@@ -85,3 +87,99 @@ def dense_rank():
 def hash(*exprs):  # noqa: A001
     from spark_rapids_tpu_torch.ops.hashfns import Murmur3Hash
     return Murmur3Hash(*[_e(x) for x in exprs])
+
+
+# conditionals (ops/conditional.py)
+def when(cond, value):
+    return WhenBuilder().when(cond, value)
+
+
+class WhenBuilder:
+    """``when(c0, v0).when(c1, v1).otherwise(v)`` -> CaseWhen;
+    ``.end()`` leaves the ELSE null."""
+
+    def __init__(self):
+        self._branches = []
+
+    def when(self, cond, value):
+        self._branches.extend([_e(cond), _e(value)])
+        return self
+
+    def otherwise(self, value):
+        return _cond.CaseWhen(*self._branches, _e(value))
+
+    def end(self):
+        return _cond.CaseWhen(*self._branches)
+
+
+def coalesce(*exprs):
+    return _cond.Coalesce(*[_e(e) for e in exprs])
+
+
+def greatest(*exprs):
+    return _cond.Greatest(*[_e(e) for e in exprs])
+
+
+def least(*exprs):
+    return _cond.Least(*[_e(e) for e in exprs])
+
+
+def nanvl(a, b):
+    return _cond.NaNvl(_e(a), _e(b))
+
+
+def if_(cond, a, b):
+    return _cond.If(_e(cond), _e(a), _e(b))
+
+
+# -- SQL front end hooks ------------------------------------------------------
+
+def expr(sql_text: str) -> Expression:
+    """Parse one SQL expression into an engine Expression (PySpark's
+    F.expr): ``expr("l_extendedprice * (1.0 - l_discount)")``. Column
+    references resolve when the expression lands in a plan node, as
+    ``col()``'s do."""
+    from spark_rapids_tpu_torch.sql.analyzer import Analyzer, Scope
+    from spark_rapids_tpu_torch.sql.parser import parse_expression
+
+    node = parse_expression(sql_text)
+    analyzer = Analyzer(None, sql_text)
+
+    class _AnyContains(list):
+        def __contains__(self, item):
+            return True
+
+    class _OpenScope(Scope):
+        """Unbound scope: any identifier resolves to an
+        AttributeReference."""
+
+        def __init__(self):
+            pass
+
+        @property
+        def columns(self):
+            return _AnyContains()
+
+        aliases: dict = {}
+        visible: list = []
+
+    return analyzer.lower_expr(node, _OpenScope())
+
+
+#: process-wide SQL-callable function registrations
+_SQL_FUNCTIONS = {}
+
+
+def register_sql_function(name: str, builder) -> None:
+    """Make ``builder(*arg_exprs) -> Expression`` callable from SQL text
+    under ``name`` in every session, e.g.
+    ``register_sql_function("twice", lambda e: e * lit(2))``."""
+    _SQL_FUNCTIONS[name.lower()] = builder
+
+
+def unregister_sql_function(name: str) -> None:
+    _SQL_FUNCTIONS.pop(name.lower(), None)
+
+
+def registered_sql_function(name: str):
+    return _SQL_FUNCTIONS.get(name.lower())

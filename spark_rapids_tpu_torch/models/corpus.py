@@ -1,6 +1,7 @@
 """The golden ScaleTest corpus through the port (port of
-``scale_test.py::build_queries``): all 22 of its queries, each written
-exactly as the reference writes it, over the tables of
+``scale_test.py::build_queries``, ``sql_texts`` and
+``build_sql_queries``): all 22 of its queries, each written exactly as the
+reference writes it, as DataFrames and as SQL text, over the tables of
 ``datagen.scale_test_specs``. Looking up a name outside the corpus raises
 KeyError."""
 
@@ -258,6 +259,215 @@ def build_queries(s, tables: Dict[str, HostTable]) -> Queries:
 
     return Queries({name: fn for name, fn in locals().items()
                     if name in PORTED})
+
+
+def sql_texts():
+    """q1-q22 as SQL text, each copied from ``scale_test.py::sql_texts``
+    (the port cannot import ``scale_test``): each lowers onto the same
+    plan shape as its ``build_queries`` form (nested selects mirror
+    select/with_column chains; USING joins mirror on=[key] joins)."""
+    import datetime as _dt
+
+    def _iso(days):
+        return (_dt.date(1970, 1, 1) + _dt.timedelta(days=days)).isoformat()
+
+    cutoff = _iso(10500)
+    cut9 = _iso(9000)
+    return {
+        "q1": f"""
+            SELECT l_returnflag, l_linestatus,
+                   SUM(l_quantity) AS sum_qty,
+                   SUM(l_extendedprice) AS sum_base,
+                   AVG(l_discount) AS avg_disc,
+                   COUNT(l_quantity) AS cnt
+            FROM lineitem
+            WHERE l_shipdate <= DATE '{cutoff}'
+            GROUP BY l_returnflag, l_linestatus""",
+        "q2": """
+            SELECT SUM(revenue) AS total FROM (
+                SELECT l_extendedprice * l_discount AS revenue
+                FROM lineitem
+                WHERE l_discount > 0.05 AND l_quantity < 25)""",
+        "q3": """
+            SELECT o_custkey, SUM(l_extendedprice) AS spend,
+                   COUNT(l_quantity) AS items
+            FROM lineitem
+            JOIN (SELECT o_orderkey, o_custkey, o_orderdate,
+                         o_orderkey AS l_orderkey
+                  FROM (SELECT o_orderkey, o_custkey, o_orderdate
+                        FROM orders))
+              USING (l_orderkey)
+            GROUP BY o_custkey""",
+        "q4": """
+            SELECT c_nationkey, SUM(l_extendedprice) AS rev
+            FROM (SELECT *, o_custkey AS c_custkey
+                  FROM (SELECT l_orderkey, l_extendedprice FROM lineitem)
+                  JOIN (SELECT o_orderkey, o_custkey,
+                               o_orderkey AS l_orderkey
+                        FROM (SELECT o_orderkey, o_custkey FROM orders))
+                    USING (l_orderkey))
+            JOIN (SELECT c_custkey, c_nationkey FROM customer)
+              USING (c_custkey)
+            GROUP BY c_nationkey""",
+        "q5": """
+            SELECT * FROM orders ORDER BY o_totalprice DESC LIMIT 100""",
+        "q6": """
+            SELECT * FROM (
+                SELECT *, ROW_NUMBER() OVER (PARTITION BY o_custkey
+                                             ORDER BY o_totalprice) AS rn
+                FROM orders)
+            WHERE rn <= 3""",
+        "q7": """
+            SELECT /*+ REPARTITION(8, l_returnflag) */
+                   l_returnflag, COUNT(l_quantity) AS c,
+                   SUM(l_quantity) AS s
+            FROM lineitem GROUP BY l_returnflag""",
+        "q8": """
+            SELECT COUNT(m) AS n_custs FROM (
+                SELECT o_custkey, MAX(o_totalprice) AS m
+                FROM orders GROUP BY o_custkey)""",
+        "q9": f"""
+            SELECT c_nationkey, SUM(rev) AS revenue FROM (
+                SELECT c_nationkey,
+                       l_extendedprice * (1.0 - l_discount) AS rev
+                FROM (SELECT *, o_custkey AS c_custkey
+                      FROM (SELECT l_orderkey, l_extendedprice, l_discount
+                            FROM lineitem)
+                      JOIN (SELECT o_orderkey, o_custkey,
+                                   o_orderkey AS l_orderkey
+                            FROM (SELECT o_orderkey, o_custkey FROM orders
+                                  WHERE o_orderdate >= DATE '{cut9}'))
+                        USING (l_orderkey))
+                JOIN (SELECT c_custkey, c_nationkey FROM customer)
+                  USING (c_custkey))
+            GROUP BY c_nationkey
+            ORDER BY revenue DESC LIMIT 10""",
+        "q10": """
+            SELECT SUM(l_extendedprice) AS total
+            FROM (SELECT l_orderkey, l_quantity, l_extendedprice
+                  FROM lineitem)
+            JOIN (SELECT l_orderkey, AVG(l_quantity) AS avg_qty
+                  FROM lineitem GROUP BY l_orderkey)
+              USING (l_orderkey)
+            WHERE CAST(l_quantity AS double) < 0.6 * avg_qty""",
+        "q11": """
+            SELECT * FROM (
+                SELECT c_nationkey, SUM(c_acctbal) AS total_bal,
+                       COUNT(c_custkey) AS n
+                FROM customer GROUP BY c_nationkey)
+            WHERE n > 5
+            ORDER BY total_bal DESC""",
+        "q12": f"""
+            SELECT l_returnflag, COUNT(l_orderkey) AS n,
+                   AVG(o_totalprice) AS avg_price
+            FROM (SELECT l_orderkey, l_returnflag FROM lineitem
+                  WHERE l_shipdate >= DATE '{_iso(9000)}'
+                    AND l_shipdate < DATE '{_iso(10000)}')
+            JOIN (SELECT o_orderkey, o_totalprice,
+                         o_orderkey AS l_orderkey
+                  FROM (SELECT o_orderkey, o_totalprice FROM orders))
+              USING (l_orderkey)
+            GROUP BY l_returnflag""",
+        "q13": """
+            SELECT c_orders, COUNT(o_custkey) AS n_custs FROM (
+                SELECT o_custkey, COUNT(o_orderkey) AS c_orders
+                FROM orders GROUP BY o_custkey)
+            GROUP BY c_orders ORDER BY c_orders""",
+        "q14": f"""
+            SELECT total_rev / n AS avg_rev, total_rev FROM (
+                SELECT SUM(rev) AS total_rev, COUNT(rev) AS n FROM (
+                    SELECT l_extendedprice * (1.0 - l_discount) AS rev
+                    FROM lineitem
+                    WHERE l_shipdate >= DATE '{_iso(9500)}'
+                      AND l_shipdate < DATE '{_iso(9700)}'))""",
+        "q15": """
+            SELECT o_custkey, SUM(rev) AS revenue FROM (
+                SELECT o_custkey,
+                       l_extendedprice * (1.0 - l_discount) AS rev
+                FROM (SELECT l_orderkey, l_extendedprice, l_discount
+                      FROM lineitem)
+                JOIN (SELECT o_orderkey, o_custkey,
+                             o_orderkey AS l_orderkey
+                      FROM (SELECT o_orderkey, o_custkey FROM orders))
+                  USING (l_orderkey))
+            GROUP BY o_custkey ORDER BY revenue DESC LIMIT 5""",
+        "q16": """
+            SELECT c_nationkey, COUNT(c_custkey) AS active_custs
+            FROM (SELECT *, o_custkey AS c_custkey FROM (
+                    SELECT o_custkey, COUNT(o_custkey) AS x
+                    FROM (SELECT o_custkey FROM orders)
+                    GROUP BY o_custkey))
+            JOIN (SELECT c_custkey, c_nationkey FROM customer)
+              USING (c_custkey)
+            GROUP BY c_nationkey ORDER BY c_nationkey""",
+        "q17": """
+            SELECT s / 7.0 AS avg_yearly FROM (
+                SELECT SUM(l_extendedprice) AS s
+                FROM (SELECT l_orderkey, l_quantity, l_extendedprice
+                      FROM lineitem)
+                JOIN (SELECT l_orderkey, AVG(l_quantity) AS aq
+                      FROM lineitem GROUP BY l_orderkey)
+                  USING (l_orderkey)
+                WHERE CAST(l_quantity AS double) < 0.5 * aq)""",
+        "q18": """
+            SELECT l_orderkey, sum_qty, o_custkey, o_totalprice FROM (
+                SELECT *, l_orderkey AS o_orderkey FROM (
+                    SELECT l_orderkey, SUM(l_quantity) AS sum_qty
+                    FROM lineitem GROUP BY l_orderkey)
+                WHERE sum_qty > 150)
+            JOIN (SELECT o_orderkey, o_custkey, o_totalprice FROM orders)
+              USING (o_orderkey)
+            ORDER BY o_totalprice DESC LIMIT 20""",
+        "q19": """
+            SELECT SUM(rev) AS revenue FROM (
+                SELECT l_extendedprice * (1.0 - l_discount) AS rev
+                FROM lineitem
+                WHERE (l_quantity >= 1 AND l_quantity <= 11
+                       AND l_discount > 0.02)
+                   OR (l_quantity >= 10 AND l_quantity <= 20
+                       AND l_discount < 0.06)
+                   OR l_returnflag = 'R00000001')""",
+        "q20": """
+            SELECT c_custkey, nbig, c_name, c_acctbal FROM (
+                SELECT *, o_custkey AS c_custkey FROM (
+                    SELECT o_custkey, COUNT(o_custkey) AS nbig
+                    FROM (SELECT o_custkey FROM orders
+                          WHERE o_totalprice > 400000.0)
+                    GROUP BY o_custkey))
+            JOIN (SELECT c_custkey, c_name, c_acctbal FROM customer)
+              USING (c_custkey)
+            ORDER BY nbig DESC LIMIT 10""",
+        "q21": """
+            SELECT c_nationkey, c_custkey, rn FROM (
+                SELECT *, ROW_NUMBER() OVER (PARTITION BY c_nationkey
+                                             ORDER BY c_custkey) AS rn
+                FROM customer)
+            WHERE rn <= 2""",
+        "q22": """
+            SELECT c_nationkey, COUNT(c_custkey) AS numcust,
+                   SUM(c_acctbal) AS totacctbal
+            FROM (SELECT *, 1 AS k
+                  FROM (SELECT c_custkey, c_nationkey, c_acctbal
+                        FROM customer))
+            JOIN (SELECT *, 1 AS k
+                  FROM (SELECT AVG(c_acctbal) AS ab FROM customer))
+              USING (k)
+            WHERE CAST(c_acctbal AS double) > ab
+            GROUP BY c_nationkey ORDER BY c_nationkey""",
+    }
+
+
+def build_sql_queries(s, tables: Dict[str, HostTable]) -> Queries:
+    """The corpus queries from SQL text through ``s.sql()`` over temp views
+    of ``tables`` ({name: HostTable}): the same queries as
+    ``build_queries``, entering through the parser and the analyzer.
+    (The reference's ``paths=`` form, views over parquet scans, waits for
+    the IO layer.)"""
+    from spark_rapids_tpu_torch.plan import from_host_table
+    for name, table in tables.items():
+        from_host_table(table, s).create_or_replace_temp_view(name)
+    return Queries({name: (lambda text=text: s.sql(text))
+                    for name, text in sql_texts().items()})
 
 
 def corpus_tables(scale_factor: float, seed: int) -> Dict[str, HostTable]:

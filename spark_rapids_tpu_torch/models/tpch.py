@@ -1,5 +1,6 @@
-"""TPC-H q1 and q3 through the port's engine (port of the lineitem/q1 and
-q3 parts of ``spark_rapids_tpu/models/tpch.py``). The generators are the
+"""TPC-H q1 and q3 through the port's engine, as DataFrames and as SQL
+text (port of the lineitem/q1 and q3 parts of
+``spark_rapids_tpu/models/tpch.py``). The generators are the
 reference's, draw for draw, so one seed gives the same tables in both
 packages."""
 
@@ -67,6 +68,39 @@ def q1_dataframe(session, table: HostTable, num_batches: int = 1):
         )
         .sort("l_returnflag", "l_linestatus")
     )
+
+
+#: q1 as SQL text (the reference's ``Q1_SQL``, text for text): lowers onto
+#: the same plan shape as q1_dataframe (Sort over Aggregate over Project
+#: over Filter)
+Q1_SQL = """
+SELECT l_returnflag, l_linestatus,
+       SUM(l_quantity) AS sum_qty,
+       SUM(l_extendedprice) AS sum_base_price,
+       SUM(disc_price) AS sum_disc_price,
+       SUM(charge) AS sum_charge,
+       AVG(l_quantity) AS avg_qty,
+       AVG(l_extendedprice) AS avg_price,
+       AVG(l_discount) AS avg_disc,
+       COUNT(*) AS count_order
+FROM (SELECT l_returnflag, l_linestatus, l_quantity, l_extendedprice,
+             l_discount,
+             l_extendedprice * (1.0 - l_discount) AS disc_price,
+             l_extendedprice * (1.0 - l_discount) * (1.0 + l_tax) AS charge
+      FROM lineitem
+      WHERE l_shipdate <= DATE '1998-09-02')
+GROUP BY l_returnflag, l_linestatus
+ORDER BY l_returnflag, l_linestatus
+"""
+
+
+def q1_sql(session, table: HostTable, num_batches: int = 1):
+    """q1 from SQL text through ``session.sql()`` over a ``lineitem`` temp
+    view; plans as q1_dataframe does."""
+    from spark_rapids_tpu_torch.plan import from_host_table
+    from_host_table(table, session, num_batches)\
+        .create_or_replace_temp_view("lineitem")
+    return session.sql(Q1_SQL)
 
 
 # ---------------------------------------------------------------------------
@@ -139,3 +173,32 @@ def q3_dataframe(session, cust, orders, lineitem, segment: str = "BUILDING"):
                  F.count().alias("n"))
             .sort(P_REV_DESC())
             .limit(10))
+
+
+#: q3 as SQL text (the reference's ``Q3_SQL``, text for text); nested
+#: selects mirror the filter/with_column/join chain of q3_dataframe
+Q3_SQL = """
+SELECT l_orderkey, SUM(volume) AS revenue, COUNT(*) AS n FROM (
+    SELECT l_orderkey, o_orderdate,
+           l_extendedprice * (1.0 - l_discount) AS volume
+    FROM (SELECT * FROM lineitem WHERE l_shipdate > DATE '1995-03-15')
+    JOIN (SELECT *, o_orderkey AS l_orderkey
+          FROM orders WHERE o_orderdate < DATE '1995-03-15')
+      USING (l_orderkey)
+    JOIN (SELECT *, c_custkey AS o_custkey
+          FROM customer WHERE c_mktsegment = '{segment}')
+      USING (o_custkey))
+GROUP BY l_orderkey
+ORDER BY revenue DESC LIMIT 10
+"""
+
+
+def q3_sql(session, cust, orders, lineitem, segment: str = "BUILDING"):
+    """q3 from SQL text through ``session.sql()`` over ``customer``,
+    ``orders`` and ``lineitem`` temp views; plans as q3_dataframe does."""
+    from spark_rapids_tpu_torch.plan import from_host_table
+    from_host_table(cust, session).create_or_replace_temp_view("customer")
+    from_host_table(orders, session).create_or_replace_temp_view("orders")
+    from_host_table(lineitem, session)\
+        .create_or_replace_temp_view("lineitem")
+    return session.sql(Q3_SQL.format(segment=segment))

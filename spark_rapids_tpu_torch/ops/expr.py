@@ -98,6 +98,16 @@ class Expression:
     def with_children(self, children: Sequence["Expression"]) -> "Expression":
         raise NotImplementedError(type(self).__name__)
 
+    def key(self) -> tuple:
+        """A structural key: equal keys compute the same column (the SQL
+        analyzer matches GROUP BY expressions to select items by it; the
+        window rules compare specs by it). Every attribute beside the
+        children is part of it."""
+        attrs = tuple(sorted((k, repr(v)) for k, v in vars(self).items()
+                             if k != "children"))
+        return (type(self).__name__, attrs,
+                tuple(c.key() for c in self.children))
+
     def __repr__(self):
         args = ", ".join(repr(c) for c in self.children)
         return f"{self.name}({args})"

@@ -20,15 +20,6 @@ from spark_rapids_tpu_torch.ops.expr import Expression
 from spark_rapids_tpu_torch.plan.nodes import SortOrder
 
 
-def expr_key(e: Expression) -> tuple:
-    """A structural key of an expression: equal keys compute the same
-    column (the window rules compare specs by it, as the reference compares
-    ``Expression.key()``)."""
-    attrs = tuple(sorted((k, repr(v)) for k, v in vars(e).items()
-                         if k != "children"))
-    return (type(e).__name__, attrs, tuple(expr_key(c) for c in e.children))
-
-
 class WindowSpec:
     """A window spec, built up as Window.partition_by(...).order_by(...)."""
 
@@ -75,8 +66,8 @@ class WindowSpec:
     def key(self) -> tuple:
         """(partition keys, orders): two specs with equal keys rank rows
         alike."""
-        return (tuple(expr_key(e) for e in self.partition_exprs),
-                tuple((expr_key(o.expr), o.ascending,
+        return (tuple(e.key() for e in self.partition_exprs),
+                tuple((o.expr.key(), o.ascending,
                        o.resolved_nulls_first()) for o in self.orders))
 
 

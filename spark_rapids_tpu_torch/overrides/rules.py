@@ -74,14 +74,13 @@ def _convert_window(node: P.WindowNode, child: TpuExec) -> TpuExec:
     """The reference's batched window (every spec over the same partition
     keys) over a one-batch input. Its other branches are not ported."""
     from spark_rapids_tpu_torch.execs.window import TpuWindowExec
-    from spark_rapids_tpu_torch.ops.window import expr_key
     specs = [w.spec for _, w in node.window_cols]
-    keys0 = [expr_key(p) for p in specs[0].partition_exprs]
+    keys0 = [p.key() for p in specs[0].partition_exprs]
     if not keys0:
         raise NotImplementedError(
             "a window without PARTITION BY (the reference's streamed "
             "running window or coalesced single-batch window) is not ported")
-    if any([expr_key(p) for p in s.partition_exprs] != keys0 for s in specs):
+    if any([p.key() for p in s.partition_exprs] != keys0 for s in specs):
         raise NotImplementedError(
             "window columns over different partition keys (the reference's "
             "coalesced single-batch window) are not ported")

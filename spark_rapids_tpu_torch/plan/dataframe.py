@@ -1,7 +1,7 @@
 """DataFrame API (port of the DataFrame/GroupedData/from_host_table part
 of ``spark_rapids_tpu/plan/dataframe.py``: select, with_column, filter,
-group_by, agg, sort, limit, join on column names, with_windows and
-repartition): builds plan nodes; a
+group_by, agg, sort, limit, join on column names, with_windows,
+repartition, columns, schema and temp views): builds plan nodes; a
 session executes them."""
 
 from __future__ import annotations
@@ -20,6 +20,28 @@ class DataFrame:
 
     def _wrap(self, plan: P.PlanNode) -> "DataFrame":
         return DataFrame(plan, self.session)
+
+    @property
+    def schema(self):
+        """[(name, DataType)] of the output."""
+        return self.plan.output_schema()
+
+    @property
+    def columns(self):
+        return [n for n, _ in self.plan.output_schema()]
+
+    def create_or_replace_temp_view(self, name: str) -> None:
+        """Register this DataFrame's plan as temp view ``name`` in its
+        session's catalog (``session.sql`` reads it)."""
+        if self.session is None:
+            raise ValueError("a temp view needs a DataFrame bound to a "
+                             "session")
+        self.session.catalog.create_or_replace_temp_view(name, self)
+
+    def union(self, other: "DataFrame") -> "DataFrame":
+        raise NotImplementedError(
+            "union (the reference's Union plan node and its exec) is not "
+            "ported to spark_rapids_tpu_torch yet")
 
     def select(self, *exprs) -> "DataFrame":
         exprs = [col(e) if isinstance(e, str) else e for e in exprs]
@@ -59,7 +81,9 @@ class DataFrame:
 
     def join(self, other: "DataFrame", on=None,
              how: str = "inner") -> "DataFrame":
-        """Equi-join on one or more column names present on both sides."""
+        """Equi-join on one or more column names present on both sides,
+        of any ``how``: the overrides raise for the join types the port
+        lacks (outer, semi, anti) when the plan runs."""
         if isinstance(on, str):
             on = [on]
         if not (isinstance(on, (list, tuple)) and on

@@ -2,7 +2,8 @@
 execs, drains them under speculative sizing and downloads the result (the
 reference's TpuSession and the drain of its runtime/placement.py, without
 the recovery ladder, event log, executable cache and AQE, none of which
-is ported yet)."""
+is ported yet), with its SQL entry points (``sql``, ``table``,
+``catalog``)."""
 
 from __future__ import annotations
 
@@ -30,6 +31,29 @@ class TorchSession:
         self.conf = RapidsConf(conf)
         self._last_root: Optional[TpuExec] = None
         self._last_replays = 0
+        self._catalog = None
+
+    # -- SQL front end -------------------------------------------------------
+    @property
+    def catalog(self):
+        """The session's temp views."""
+        if self._catalog is None:
+            from spark_rapids_tpu_torch.sql.catalog import SessionCatalog
+            self._catalog = SessionCatalog(self)
+        return self._catalog
+
+    def sql(self, text: str):
+        """One SQL statement (SELECT, CREATE [OR REPLACE] TEMP VIEW, DROP
+        VIEW) through the parser and the analyzer onto the plan layer: a
+        DataFrame bound to this session, and so to its device, that runs
+        through pruning, the overrides and the execs exactly as a
+        DSL-built one does."""
+        from spark_rapids_tpu_torch.sql import lower_statement
+        return lower_statement(self, text)
+
+    def table(self, name: str):
+        """DataFrame over a temp view."""
+        return self.catalog.table(name)
 
     def execute(self, plan: P.PlanNode) -> HostTable:
         """Run ``plan``. Under speculative sizing (the default) every
