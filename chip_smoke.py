@@ -65,20 +65,32 @@ Phases, in order; any failure exits non-zero:
    one conditional query (CASE, IF, COALESCE, GREATEST, a string-valued
    CASE as the group key) over the 10,000,000 lineitem rows against a
    numpy oracle;
-10. the summary lines: one ``{"kernels": [...]}`` JSON line (launches of
+10. the join types on the same tables: J1-J12 (``JOIN_QUERIES``: left,
+   right and full outer, semi, anti, cross and conditioned joins, the
+   nested-loop NOT IN, a bare LIMIT) through ``TorchSession.sql``, J3 and
+   J12 again over o_orderkey/l_orderkey mapped by ``sparse_keys`` (the
+   hash probe, at 8 attempts), J1 and J8 with their builds
+   sub-partitioned (8 MiB and 2 MiB) and J7 with every nested-loop tile
+   its own partial aggregate (the streaming merge), with the numbers and
+   checks of phase 7: each result against a numpy oracle (sparse J3's
+   over the mapped keys; sparse J12 against the dense result), the
+   sub-partitioned ones against their unsplit results;
+11. the summary lines: one ``{"kernels": [...]}`` JSON line (launches of
    the main path: q1's, sparse q3's probes, q8's MIN/MAX, plus every
-   phase-7, phase-8 and phase-9 query's), the card line, and last
-   ``{"ok": true, "device": {...}}``.
+   phase-7, phase-8, phase-9 and phase-10 query's), the card line, and
+   last ``{"ok": true, "device": {...}}``.
 
 Each phase logs its wall time. It needs one CUDA card and exits non-zero
 without one. ``--profile DIR`` also writes a torch.profiler table and
 trace of one warm run of q1, of each q3 form, of each phase-6, phase-7
-and phase-8 query and of phase 9's conditional query.
+and phase-8 query, of phase 9's conditional query and of J1, J7, J8 and
+J9.
 """
 
 from __future__ import annotations
 
 import argparse
+import collections
 import contextlib
 import ctypes
 import json
@@ -451,7 +463,8 @@ def no_host_sync():
 def host_sync_count():
     """Count the synchronizing torch CUDA calls inside the block (torch's
     sync debug mode: item/tolist/cpu reads, pageable copies, stream
-    syncs); ``box["syncs"]`` holds the count afterwards."""
+    syncs); ``box["syncs"]`` holds the count afterwards, ``box["sites"]``
+    the count per calling ``file:line`` (paths under the repo relative)."""
     box = {"syncs": None}
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
@@ -460,9 +473,12 @@ def host_sync_count():
             yield box
         finally:
             torch.cuda.set_sync_debug_mode("default")
-    box["messages"] = [str(w.message) for w in caught
-                       if "called a synchronizing" in str(w.message)]
-    box["syncs"] = len(box["messages"])
+    syncs = [w for w in caught if "called a synchronizing" in str(w.message)]
+    root = os.path.dirname(os.path.abspath(__file__))
+    box["messages"] = [str(w.message) for w in syncs]
+    box["syncs"] = len(syncs)
+    box["sites"] = collections.Counter(
+        f"{os.path.relpath(w.filename, root)}:{w.lineno}" for w in syncs)
 
 
 def watchdog(seconds: float, what: str) -> threading.Timer:
@@ -1746,9 +1762,10 @@ def hold_launches(name, calls) -> None:
                  "version on the inputs of the counted run")
         held.setdefault(kernel, []).append(what)
     for kernel, whats in held.items():
+        more = f"; and {len(whats) - 8} more" if len(whats) > 8 else ""
         log(f"  {name}: {kernel} agrees with its plain version on the "
             f"inputs of each of its {len(whats)} launches in the counted "
-            f"run: {'; '.join(whats)}")
+            f"run: {'; '.join(whats[:8])}{more}")
 
 
 def run_case(session, name, build, check, profile_dir, keep=None) -> dict:
@@ -1787,7 +1804,8 @@ def run_case(session, name, build, check, profile_dir, keep=None) -> dict:
     calls, K.calls = K.calls, None
     sort_trace_end(name, syncs)
     log(f"  {name}: host syncs in one warm query {box['syncs']} "
-        "(torch's sync debug mode)")
+        "(torch's sync debug mode), most by site: " + ", ".join(
+            f"{site} {n}" for site, n in box["sites"].most_common(4)))
     warm_replays = session.last_metrics()["speculationReplays"]
     check(again)
     hold_launches(name, calls)
@@ -2474,6 +2492,354 @@ def run_sql(tables, dsl, profile_dir) -> dict:
     return total
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the join types
+# ---------------------------------------------------------------------------
+
+#: the join query set: SQL texts in the shapes Spark users write for
+#: TPC-H (q13's outer count, q18's IN, q22's NOT EXISTS and scalar AVG,
+#: q15's = MAX, q16's NOT IN, a period-over-period full outer join, q12's
+#: date test in the ON clause, a bare LIMIT, a CROSS JOIN with a one-row
+#: table, a filtered left outer join); ``{cut}`` is J7's blocklist cut
+#: (``join_texts``)
+JOIN_QUERIES = {
+    "J1": "SELECT c_count, COUNT(*) AS custdist FROM (SELECT c_custkey, "
+          "COUNT(o_orderkey) AS c_count FROM customer LEFT OUTER JOIN orders "
+          "ON c_custkey = o_custkey GROUP BY c_custkey) c_orders GROUP BY "
+          "c_count ORDER BY custdist DESC, c_count DESC",
+    "J2": "SELECT c_count, COUNT(*) AS custdist FROM (SELECT c_custkey, "
+          "COUNT(o_orderkey) AS c_count FROM orders RIGHT OUTER JOIN "
+          "customer ON c_custkey = o_custkey GROUP BY c_custkey) c_orders "
+          "GROUP BY c_count ORDER BY custdist DESC, c_count DESC",
+    "J3": "SELECT o_orderkey, o_custkey, o_totalprice FROM orders WHERE "
+          "o_orderkey IN (SELECT l_orderkey FROM lineitem GROUP BY "
+          "l_orderkey HAVING SUM(l_quantity) > 150) ORDER BY o_totalprice "
+          "DESC, o_orderkey LIMIT 100",
+    "J4": "SELECT c_nationkey, COUNT(*) AS numcust, SUM(c_acctbal) AS "
+          "totacctbal FROM customer LEFT ANTI JOIN orders ON c_custkey = "
+          "o_custkey GROUP BY c_nationkey ORDER BY c_nationkey",
+    "J5": "SELECT c_nationkey, COUNT(*) AS numcust, SUM(c_acctbal) AS "
+          "totacctbal FROM customer WHERE c_acctbal > (SELECT AVG(c_acctbal) "
+          "FROM customer WHERE c_acctbal > 0.0) GROUP BY c_nationkey ORDER BY "
+          "c_nationkey",
+    "J6": "SELECT o_custkey, n FROM (SELECT o_custkey, COUNT(*) AS n FROM "
+          "orders GROUP BY o_custkey) r WHERE n = (SELECT MAX(n) FROM (SELECT "
+          "o_custkey, COUNT(*) AS n FROM orders GROUP BY o_custkey) r2) ORDER "
+          "BY o_custkey",
+    "J7": "SELECT COUNT(*) AS n, SUM(o_totalprice) AS total FROM orders "
+          "WHERE o_custkey NOT IN (SELECT c_custkey FROM customer WHERE "
+          "c_acctbal > {cut})",
+    "J8": "SELECT COUNT(*) AS n, COUNT(a_cust) AS na, COUNT(b_cust) AS nb, "
+          "SUM(a_n) AS sa, SUM(b_n) AS sb FROM (SELECT o_custkey AS a_cust, "
+          "COUNT(*) AS a_n FROM orders WHERE o_orderdate < DATE '1995-06-01' "
+          "GROUP BY o_custkey) a FULL OUTER JOIN (SELECT o_custkey AS b_cust, "
+          "COUNT(*) AS b_n FROM orders WHERE o_orderdate >= DATE '1995-06-01' "
+          "AND o_totalprice > 300000.0 GROUP BY o_custkey) b ON a_cust = "
+          "b_cust",
+    "J9": "SELECT l_returnflag, COUNT(*) AS n, SUM(l_quantity) AS q FROM "
+          "lineitem JOIN orders ON l_orderkey = o_orderkey AND l_shipdate > "
+          "o_orderdate GROUP BY l_returnflag ORDER BY l_returnflag",
+    "J10": "SELECT l_orderkey, l_quantity FROM lineitem WHERE l_quantity > "
+           "45 LIMIT 1000",
+    "J11": "SELECT c_custkey, n_lo FROM customer CROSS JOIN (SELECT "
+           "MIN(o_orderdate) AS n_lo FROM orders) m WHERE c_nationkey = 3 "
+           "ORDER BY c_custkey LIMIT 5",
+    "J12": "SELECT l_returnflag, COUNT(*) AS n, COUNT(o_orderkey) AS "
+           "matched, SUM(l_quantity) AS qty FROM lineitem LEFT OUTER JOIN "
+           "(SELECT o_orderkey FROM orders WHERE o_orderdate < DATE "
+           "'1995-06-01') o ON l_orderkey = o_orderkey GROUP BY l_returnflag "
+           "ORDER BY l_returnflag",
+}
+#: the forms beside the dense texts: J3 and J12 over o_orderkey and
+#: l_orderkey mapped by ``sparse_keys`` (their unique builds then take the
+#: hash probe), J1 and J8 with their builds sub-partitioned
+SPARSE_JOIN_QUERIES = ("J3", "J12")
+SPARSE_JOIN_KEYS = ("o_orderkey", "l_orderkey")
+#: the sparse forms' conf: at sf 10 their builds (489,061 and 1,067,916
+#: unique keys in 2^23-slot tables) leave 3 and 118 rows homeless at the
+#: default 4 attempts, which replays them onto the sort-based probe (as
+#: sparse q3's join 1); at 8 attempts every row places. Likely cause:
+#: ``sparse_keys``'s multiplier is also the probe's first salt
+#: (kernels/hashprobe.py::_SALTS), not the tables' 0.06-0.14 load
+SPARSE_JOIN_CONF = {"spark.rapids.tpu.kernels.hashprobe.attempts": "8"}
+SUBPARTITIONED_JOIN_QUERIES = ("J1", "J8")
+#: ``spark.rapids.sql.join.subPartition.targetBytes`` of the sub-partitioned
+#: forms at sf 10: J1's build (orders' two key columns, 2^22 slots, 72 MiB
+#: of device columns) splits at 8 MiB; J8's (the late-order aggregate over
+#: o_custkey's 2^18 domain slots, two int64 columns: 4.5 MiB) at 2 MiB
+SUBPARTITION_BYTES = {"J1": 8 << 20, "J8": 2 << 20}
+
+
+def join_texts(sf: float) -> dict:
+    """JOIN_QUERIES with J7's cut filled in for ``sf``: 9995.0 at sf 10
+    (about 113 customers), 9900.0 below it (11 customers at sf 0.02,
+    seed 0)."""
+    cut = "9995.0" if sf >= 10 else "9900.0"
+    return {k: v.replace("{cut}", cut) for k, v in JOIN_QUERIES.items()}
+
+
+def sparse_join_tables(tables, mapper):
+    """``tables`` with o_orderkey and l_orderkey mapped by ``mapper``
+    (int64 numpy array -> int64 numpy array)."""
+    from spark_rapids_tpu_torch.columnar import HostColumn, HostTable
+    out = {}
+    for name, t in tables.items():
+        cols = [HostColumn(c.dtype, mapper(c.data.astype(np.int64)),
+                           c.validity) if n in SPARSE_JOIN_KEYS else c
+                for n, c in zip(t.names, t.columns)]
+        out[name] = HostTable(t.names, cols)
+    return out
+
+
+def join_oracles(tables, sf: float):
+    """{query: check(got)} of J1-J12 in numpy over the dense host tables
+    (every primary key is its row index; no column holds a null, so SQL's
+    null rules never fire here: COUNT(col) counts every row, NOT IN is a
+    plain set difference): counts, keys, int64 and decimal sums, dates
+    and strings exact, J7's f64 SUM rtol 1e-9."""
+    import datetime as dt
+    L, O, C = (host_cols(tables[t]) for t in ("lineitem", "orders",
+                                                "customer"))
+    for t in ("lineitem", "orders", "customer"):
+        for nm, c in zip(tables[t].names, tables[t].columns):
+            if not c.validity.all():
+                fail(f"join oracle: {t}.{nm} holds nulls")
+    n_o, n_c = len(O["o_orderkey"]), len(C["c_custkey"])
+    if not ((O["o_orderkey"] == np.arange(n_o)).all()
+            and (C["c_custkey"] == np.arange(n_c)).all()):
+        fail("join oracle: the primary keys are not row indices")
+    i64 = np.int64
+    cut_day = (dt.date(1995, 6, 1) - dt.date(1970, 1, 1)).days
+    o_cust, o_date, o_price = O["o_custkey"], O["o_orderdate"], \
+        O["o_totalprice"]
+    acct = C["c_acctbal"].astype(i64)  # decimal(12,2), unscaled
+    li = tables["lineitem"]
+    rf_codes, rf_dict = li.columns[li.names.index("l_returnflag")].encoded()
+    flags = np.asarray(rf_dict, dtype=object)
+    l_ok, l_qty = L["l_orderkey"], L["l_quantity"].astype(i64)
+    out = {}
+
+    def by_flag(mask, *values):
+        """Per l_returnflag (in dictionary order, present flags only):
+        the row count and each value's int64 sum over ``mask``."""
+        k = len(flags)
+        n = np.bincount(rf_codes[mask], minlength=k).astype(i64)
+        sums = []
+        for v in values:
+            acc = np.zeros(k, dtype=i64)
+            np.add.at(acc, rf_codes[mask], v[mask])
+            sums.append(acc)
+        keep = n > 0
+        return flags[keep], n[keep], [x[keep] for x in sums]
+
+    def dec(values):
+        return np.array([int(v) for v in values], dtype=object)
+
+    # J1/J2: orders per customer (0 without), then customers per count
+    per_cust = np.bincount(o_cust, minlength=n_c).astype(i64)
+    c_count, custdist = np.unique(per_cust, return_counts=True)
+    order = np.lexsort((-c_count, -custdist))
+    want = {"c_count": c_count[order].astype(i64),
+            "custdist": custdist[order].astype(i64)}
+    out["J1"] = out["J2"] = lambda g, w=want: check_table(g, w, "J1/J2")
+    out["J3"] = j3_oracle(tables)
+    # J4: customers without an order, per nation
+    nation = C["c_nationkey"]
+
+    def per_nation(mask):
+        k = int(nation.max()) + 1
+        n = np.bincount(nation[mask], minlength=k).astype(i64)
+        s = np.zeros(k, dtype=i64)
+        np.add.at(s, nation[mask], acct[mask])
+        keep = np.flatnonzero(n)
+        return {"c_nationkey": keep.astype(i64), "numcust": n[keep],
+                "totacctbal": dec(s[keep])}
+
+    want = per_nation(per_cust == 0)
+    out["J4"] = lambda g, w=want: check_table(g, w, "J4")
+    # J5: above the average positive balance (as the port computes it:
+    # the exact sum as a double over count x 100)
+    val = acct / 100.0
+    pos = val > 0.0
+    avg = float(acct[pos].sum()) / (float(pos.sum()) * 100.0)
+    want = per_nation(val > avg)
+    out["J5"] = lambda g, w=want: check_table(g, w, "J5")
+    # J6: the customers with the most orders
+    have = np.flatnonzero(per_cust)
+    top = have[per_cust[have] == per_cust[have].max()]
+    want = {"o_custkey": top.astype(i64), "n": per_cust[top]}
+    out["J6"] = lambda g, w=want: check_table(g, w, "J6")
+    # J7: orders of customers outside the blocklist
+    cut = float(join_texts(sf)["J7"].rsplit(">", 1)[1].strip(" )"))
+    blocked = np.zeros(n_c, dtype=bool)
+    blocked[C["c_custkey"][val > cut]] = True
+    keep = ~blocked[o_cust]
+    want = {"n": np.array([keep.sum()], dtype=i64),
+            "total": np.array([o_price[keep].sum()])}
+    out["J7"] = lambda g, w=want: check_table(g, w, "J7", f64=("total",))
+    log(f"  J7: {int(blocked.sum())} customers in the NOT IN list "
+        f"(c_acctbal > {cut})")
+    # J8: early order counts against late large ones, full outer
+    a = np.bincount(o_cust[o_date < cut_day], minlength=n_c)
+    b = np.bincount(o_cust[(o_date >= cut_day) & (o_price > 300000.0)],
+                    minlength=n_c)
+    want = {"n": [int(((a > 0) | (b > 0)).sum())], "na": [int((a > 0).sum())],
+            "nb": [int((b > 0).sum())], "sa": [int(a.sum())],
+            "sb": [int(b.sum())]}
+    want = {k: np.array(v, dtype=i64) for k, v in want.items()}
+    out["J8"] = lambda g, w=want: check_table(g, w, "J8")
+    # J9: lines shipped after their order date, per flag
+    f, n, (q,) = by_flag(L["l_shipdate"] > o_date[l_ok], l_qty)
+    want = {"l_returnflag": f, "n": n, "q": q}
+    out["J9"] = lambda g, w=want: check_table(g, w, "J9")
+    # J10: the first 1000 lines with more than 45 items, in row order
+    rows = np.flatnonzero(l_qty > 45)[:1000]
+    want = {"l_orderkey": l_ok[rows], "l_quantity": L["l_quantity"][rows]}
+    out["J10"] = lambda g, w=want: check_table(g, w, "J10")
+    # J11: nation 3's first five customers beside the earliest order date
+    five = C["c_custkey"][nation == 3][:5]
+    want = {"c_custkey": five,
+            "n_lo": np.full(len(five), o_date.min(), dtype=o_date.dtype)}
+    out["J11"] = lambda g, w=want: check_table(g, w, "J11")
+    # J12: every line, those of early orders counted, per flag
+    ones = np.ones(len(l_ok), dtype=bool)
+    f, n, (matched, qty) = by_flag(ones, (o_date[l_ok] < cut_day).astype(
+        i64), l_qty)
+    want = {"l_returnflag": f, "n": n, "matched": matched, "qty": qty}
+    out["J12"] = lambda g, w=want: check_table(g, w, "J12")
+    return out
+
+
+def j3_oracle(tables, key_map=None):
+    """J3's check: the orders whose lines sum past 150 items, the first
+    100 by o_totalprice descending, then o_orderkey (mapped by
+    ``key_map`` for the sparse form: o_totalprice ties, as the values
+    clipped at the top of its range, break by the mapped key)."""
+    L, O = host_cols(tables["lineitem"]), host_cols(tables["orders"])
+    okeys = O["o_orderkey"] if key_map is None else key_map(
+        O["o_orderkey"].astype(np.int64))
+    qsum = np.bincount(L["l_orderkey"], weights=L["l_quantity"],
+                       minlength=len(okeys))
+    sel = np.flatnonzero(qsum > 150)
+    price = O["o_totalprice"]
+    top = sel[np.lexsort((okeys[sel], -price[sel]))][:100]
+    want = {"o_orderkey": okeys[top], "o_custkey": O["o_custkey"][top],
+            "o_totalprice": price[top]}
+    what = "J3" if key_map is None else "J3 sparse"
+    return lambda g: check_table(g, want, what)
+
+
+def run_joins(tables, sf: float, profile_dir) -> dict:
+    """Phase 10: J1-J12 over temp views of phases 6-9's tables, J3 and J12
+    again over o_orderkey/l_orderkey mapped by ``sparse_keys`` on the card
+    at 8 hash-probe attempts (which must reach ``probe_rowids``), and J1
+    and J8 with their builds
+    sub-partitioned (``SUBPARTITION_BYTES``; ``subPartitions`` above 1),
+    and J7 with the aggregate's input coalesce at a 1-byte target (every
+    nested-loop tile its own partial, then the merge), each through
+    ``run_case`` against its numpy oracle (sparse J3's over the mapped
+    keys, sparse J12 against the dense result bit for bit), the
+    sub-partitioned ones against their unsplit results bit for bit.
+    ``--profile`` traces J1,
+    J7, J8 and J9. Returns every kernel's launches summed over the counted
+    runs."""
+    from spark_rapids_tpu_torch.plan import from_host_table
+    from spark_rapids_tpu_torch.session import TorchSession
+
+    def on_card(a):
+        return sparse_keys(torch.from_numpy(a).to(DEV)).cpu().numpy()
+
+    t0 = time.perf_counter()
+    oracles = join_oracles(tables, sf)
+    log(f"  the numpy oracles in {time.perf_counter() - t0:.2f} s (host)")
+    t0 = time.perf_counter()
+    sparse = sparse_join_tables(tables, on_card)
+    log(f"  o_orderkey and l_orderkey mapped by sparse_keys on the card in "
+        f"{time.perf_counter() - t0:.2f} s")
+    texts = join_texts(sf)
+    total, summary, results = {}, {}, {}
+
+    def session_over(tabs, conf=None):
+        sess = TorchSession(conf)
+        for name, t in tabs.items():
+            from_host_table(t, sess).create_or_replace_temp_view(name)
+        return sess
+
+    def run(sess, name, query, check):
+        prof = profile_dir if name in ("J1", "J7", "J8", "J9") else None
+        res = run_case(sess, name, lambda: sess.sql(texts[query]), check,
+                       prof)
+        results[name] = res
+        for k, v in res["launches"].items():
+            total[k] = total.get(k, 0) + v
+        m = sess.last_metrics()
+        summary[name] = dict(res["stats"], launches={
+            k: v for k, v in res["launches"].items() if v},
+            metrics={k: v for k, v in m.items() if k in (
+                "directJoinBatches", "hashProbeBatches", "subPartitions",
+                "nestedLoopTiles", "concatBatches", "partialAggBatches",
+                "probeBatches")})
+        return res, m
+
+    dense = session_over(tables)
+    kept = {}
+    for q in JOIN_QUERIES:
+        def check(g, q=q):
+            oracles[q](g)
+            kept[q] = g
+        run(dense, q, q, check)
+        log(f"  {q}: result matches the numpy oracle")
+    # the sparse forms: J3's rows (o_orderkey among them) against its
+    # oracle over the mapped keys, J12's (no key column) against the dense
+    # result bit for bit
+    sparse_checks = {
+        "J3": j3_oracle(tables, on_card),
+        "J12": lambda g: same_table(g, kept["J12"], "J12 sparse", 0.0)}
+    for q in SPARSE_JOIN_QUERIES:
+        sess = session_over(sparse, SPARSE_JOIN_CONF)
+        res, _ = run(sess, f"{q} sparse", q, sparse_checks[q])
+        if not res["launches"]["probe_rowids"]:
+            fail(f"{q} sparse launched no probe_rowids")
+        log(f"  {q} sparse: matches ({'its numpy oracle over the mapped '
+            'keys' if q == 'J3' else 'the dense result bit for bit'}); "
+            f"probe_rowids launched {res['launches']['probe_rowids']} times")
+    for q in SUBPARTITIONED_JOIN_QUERIES:
+        sess = session_over(tables, {
+            "spark.rapids.sql.join.subPartition.targetBytes":
+                str(SUBPARTITION_BYTES[q])})
+        _, m = run(sess, f"{q} sub-partitioned", q, lambda g, q=q: same_table(
+            g, kept[q], f"{q} sub-partitioned", 0.0))
+        if m.get("subPartitions", 0) <= 1:
+            fail(f"{q} sub-partitioned: subPartitions {m.get('subPartitions')}")
+        log(f"  {q} sub-partitioned: {m['subPartitions']} partitions, equal "
+            "to the unsplit result bit for bit")
+    # the aggregate's input coalesce (1 GiB) concatenates J7's tiles into
+    # one batch; at a 1-byte target each tile is its own partial, and the
+    # streaming merge runs on the card against the same oracle
+    from spark_rapids_tpu_torch.execs import basic as xbasic
+    target, xbasic.BATCH_SIZE_BYTES = xbasic.BATCH_SIZE_BYTES, 1
+    try:
+        _, m = run(session_over(tables), "J7 per-tile partials", "J7",
+                   oracles["J7"])
+    finally:
+        xbasic.BATCH_SIZE_BYTES = target
+    if m.get("partialAggBatches") != m.get("nestedLoopTiles"):
+        fail(f"J7 per-tile partials: {m.get('partialAggBatches')} partials "
+             f"over {m.get('nestedLoopTiles')} tiles")
+    log(f"  J7 per-tile partials: {m['partialAggBatches']} partials merged, "
+        "matches the numpy oracle")
+    for q, kernel in (("J6", "fused_minmax"), ("J11", "fused_minmax"),
+                      ("J7", "onehot_partials")):
+        if not results[q]["launches"][kernel]:
+            fail(f"{q} launched no {kernel}")
+    for k in ("onehot_partials", "fused_minmax", "gather_compact",
+              "sort_with_payload", "probe_rowids"):
+        if not total.get(k):
+            fail(f"phase 10 launched no {k}")
+    log("  phase-10 summary: " + json.dumps(summary))
+    return total
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rows", type=int, default=6_001_215,
@@ -2579,7 +2945,14 @@ def main(argv=None) -> int:
     del dsl
     log(f"  phase 9 ran {time.perf_counter() - t_phase:.1f} s")
 
-    log("phase 10: summary")
+    t_phase = time.perf_counter()
+    log("phase 10: the join types (J1-J12, sparse J3 and J12, "
+        "sub-partitioned J1 and J8) through TorchSession.sql")
+    for k, v in run_joins(tables, args.sf, args.profile).items():
+        launches[k] += v
+    log(f"  phase 10 ran {time.perf_counter() - t_phase:.1f} s")
+
+    log("phase 11: summary")
     for r in rows:
         r.update(route="cuda", source=SOURCES[r["name"]],
                  replaces=TPU_KERNELS[r["name"]],

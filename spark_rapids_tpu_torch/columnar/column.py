@@ -118,6 +118,29 @@ def dec128_unscaled(limbs: np.ndarray, validity) -> np.ndarray:
     return out
 
 
+def null_data_array(dt: T.DataType, capacity: int,
+                    device) -> torch.Tensor:
+    """All-null device data in ``dt``'s storage: int32 codes for a string
+    (its column carries an empty dictionary), a ``(capacity, 2)`` limb
+    pair for a DECIMAL128, else ``capacity`` zeros of the type's dtype
+    (the null side of an outer join, a cast NULL literal)."""
+    if T.is_dec128(dt):
+        return torch.zeros((capacity, 2), dtype=torch.int64, device=device)
+    if isinstance(dt, T.StringType):
+        return torch.zeros(capacity, dtype=torch.int32, device=device)
+    return torch.zeros(capacity, dtype=T.torch_dtype(dt), device=device)
+
+
+def null_column(dt: T.DataType, capacity: int, device) -> "DeviceColumn":
+    """An all-null device column of ``dt`` (strings: an empty
+    dictionary)."""
+    return DeviceColumn(
+        dt, null_data_array(dt, capacity, device),
+        torch.zeros(capacity, dtype=torch.bool, device=device),
+        dictionary=(np.array([], dtype=object)
+                    if isinstance(dt, T.StringType) else None))
+
+
 class HostColumn:
     """A column on the host: numpy values + validity mask. STRING data is
     an object array of str (None allowed at invalid slots); everything

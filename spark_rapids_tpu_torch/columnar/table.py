@@ -142,6 +142,13 @@ class DeviceTable:
         return HostTable(self.names, [c.to_host(n) for c in self.columns])
 
 
+def empty_host_table(schema) -> HostTable:
+    """A zero-row HostTable of ``schema`` ([(name, DataType)])."""
+    cols = [HostColumn(dt, np.zeros(0, dtype=dt.np_dtype),
+                       np.zeros(0, dtype=np.bool_)) for _, dt in schema]
+    return HostTable([n for n, _ in schema], cols)
+
+
 def mergeable_views(a: DeviceTable, b: DeviceTable) -> bool:
     """May two masked views merge by mask union? Requires the SAME device
     buffers AND the same split token: the same buffers alone are not

@@ -88,6 +88,18 @@ KERNELS_HASHPROBE_ATTEMPTS = _conf(
     "failure flag and the join replays on the sort-based probe. Must lie "
     "in [1, 8].", _attempts)
 
+JOIN_SUBPARTITION_BYTES = _conf(
+    "spark.rapids.sql.join.subPartition.targetBytes", 1 << 30,
+    "Build sides larger than this sub-partition by Spark-exact key hash "
+    "into ceil(size/target) buckets; probe batches split the same way and "
+    "bucket pairs join independently. The reference also caps it by its "
+    "memory manager's scan chunk; the port, which has no memory manager, "
+    "uses this value alone. 0 disables.", int)
+
+JOIN_MAX_SUBPARTITIONS = _conf(
+    "spark.rapids.sql.join.maxSubPartitions", 64,
+    "Upper bound on hash sub-partitions when a join's build side exceeds "
+    "the sub-partitioning threshold.", int)
 
 
 class RapidsConf:

@@ -42,12 +42,26 @@ aggregate is a segment sum over the input capacity. Its output keeps the
 input capacity, which the aggregate SPECULATES down to a quarter (a flag
 validated at collect; a miss replays on the exact shrink).
 
+MULTI-BATCH MERGE (the reference's streaming merge): each input batch
+aggregates to a partial and shrinks to its groups' bucket (one host read
+a batch), the partials concatenate, one merge aggregation re-groups them
+and a finalize projection gives each result (``_merge_plan``: COUNT ->
+SUM of counts, SUM -> SUM of sums, MIN/MAX -> themselves, AVG -> SUM and
+COUNT then their quotient, variance and stddev -> COUNT, SUM and
+VariancePop then the Chan combination ``MergeMoments``). Integer and
+decimal sums stay exact; a decimal SUM's merged sum keeps the SUM's type
+and is held to its precision, as one batch's is, and a partial that
+overflowed nulls the result. A single batch takes the one-pass path. As
+in the reference, the aggregate's input first coalesces to the batch-size
+target (overrides/rules.py, ``execs/basic.py::BATCH_SIZE_BYTES``), so
+only an input past it, or an exchange's views of several splits, reaches
+the merge.
+
 Filters fused from the input chain (execs/fuse.py) are the row weight
 mask: a dropped row, or a padding row past ``nrows``, adds to no sum,
 count, extreme or group. What the slice does not reach raises
 NotImplementedError: MIN/MAX of other types than LONG, DOUBLE, INT and
-DATE, variance of DECIMAL128, the other aggregate functions, and
-multi-batch merge.
+DATE, variance of DECIMAL128 and the other aggregate functions.
 """
 
 from __future__ import annotations
@@ -62,7 +76,7 @@ from spark_rapids_tpu_torch.columnar import (
     DeviceTable,
     bucket_for,
 )
-from spark_rapids_tpu_torch.execs.base import TpuExec, single_batch
+from spark_rapids_tpu_torch.execs.base import TpuExec
 from spark_rapids_tpu_torch.ops import aggregates as agg
 from spark_rapids_tpu_torch.ops import decimal as dec
 from spark_rapids_tpu_torch.ops.expr import (
@@ -94,7 +108,7 @@ _MINMAX_TYPES = (T.LongType, T.DoubleType, T.IntegerType, T.DateType)
 
 def check_agg_supported(fn: agg.AggregateFunction) -> None:
     """Raise NotImplementedError for an aggregate the port does not run."""
-    if isinstance(fn, agg.Count):
+    if isinstance(fn, (agg.Count, agg.MergeMoments)):
         return
     if isinstance(fn, (agg.Average, agg.Sum)):
         if isinstance(fn.child.data_type, T.NumericType):
@@ -168,14 +182,143 @@ class TpuHashAggregateExec(TpuExec):
         return out
 
     def execute(self):
-        from spark_rapids_tpu_torch.columnar.table import merge_split_views
+        from itertools import chain
+
+        from spark_rapids_tpu_torch.columnar.table import (
+            concat_device,
+            merge_split_views,
+        )
+        from spark_rapids_tpu_torch.ops.expr import bind, compile_project
         # the aggregate re-groups every row: a repartition's views of one
         # split mask-union back into one batch (no data moves)
-        table = single_batch(
-            merge_split_views(self.children[0].execute_masked()),
-            "aggregate")
-        if table is not None:
-            yield self._aggregate(table)
+        it = merge_split_views(self.children[0].execute_masked())
+        first = next(it, None)
+        if first is None:
+            return
+        second = next(it, None)
+        if second is None:
+            yield self._aggregate(first)
+            return
+        plan = self._merge_plan()
+        partial = self._stage(self.grouping, plan.partial_specs,
+                              self.filters)
+        partials = []
+        for batch in chain([first, second], it):
+            # shrink each partial to its groups' bucket before it buffers
+            # (one host read of its row count): unshrunk, N partials would
+            # concatenate into an N-fold input-sized table
+            partials.append(partial._aggregate(batch).shrink())
+            self.add_metric("partialAggBatches", 1)
+        merge = self._stage(plan.merge_grouping, plan.merge_specs, [])
+        mt = merge._aggregate(concat_device(partials))
+        schema = [(n, c.dtype) for n, c in zip(mt.names, mt.columns)]
+        cols = compile_project([bind(e, schema) for e in plan.final_exprs],
+                               mt)
+        names = self.grouping_names + [n for n, _ in self.agg_specs]
+        yield DeviceTable(names, cols, mt.nrows_dev, mt.capacity, mt.device)
+
+    def _stage(self, grouping, agg_specs, filters) -> "TpuHashAggregateExec":
+        """The partial or merge aggregation of the multi-batch path: an
+        aggregate of this one's layout limits and plan position."""
+        stage = TpuHashAggregateExec(
+            self.children[0], grouping, agg_specs, self.grouping_names,
+            filters=filters, max_dict_groups=self.max_dict_groups,
+            max_domain_groups=self.max_domain_groups)
+        stage._lore_id = self._lore_id
+        return stage
+
+    def _merge_plan(self):
+        """(partial specs, merge grouping and specs, finalize expressions)
+        of the multi-batch path (the reference's decomposition):
+
+          Count   -> partial Count        ; merge Sum             ; identity
+          Sum     -> partial Sum          ; merge Sum             ; identity
+                     (a decimal SUM also counts its partials' overflows:
+                     a null partial sum over rows nulls the result)
+          Min/Max -> partial Min/Max      ; merge Min/Max         ; identity
+          Avg     -> partial Sum + Count  ; merge Sum each        ; s / n
+          Var*/   -> partial Count + Sum + VariancePop ; merge Sum of the
+          Stddev*    counts and MergeMoments (Chan) ; m2 / N or m2 / (N-1)
+                     (+ sqrt)"""
+        from types import SimpleNamespace
+
+        from spark_rapids_tpu_torch.ops.cast import Cast
+        from spark_rapids_tpu_torch.ops.conditional import If
+        from spark_rapids_tpu_torch.ops.expr import (
+            BoundReference,
+            Literal,
+            col,
+            lit,
+        )
+        from spark_rapids_tpu_torch.ops.math import Sqrt
+        from spark_rapids_tpu_torch.ops.predicates import IsNull
+
+        pschema = [(n, g.data_type)
+                   for n, g in zip(self.grouping_names, self.grouping)]
+        partial_specs, merge_specs = [], []
+        final_exprs = [col(n) for n in self.grouping_names]
+
+        def add_partial(pname, pfn):
+            partial_specs.append((pname, pfn))
+            pschema.append((pname, pfn.data_type))
+            return BoundReference(len(pschema) - 1, pfn.data_type,
+                                  name_hint=pname)
+
+        for j, (name, fn) in enumerate(self.agg_specs):
+            if isinstance(fn, agg.Count):
+                c = add_partial(f"__p{j}c", agg.Count(fn.child))
+                merge_specs.append((name, agg.Sum(c)))
+                final_exprs.append(col(name))
+            elif isinstance(fn, agg.Sum) and isinstance(fn.data_type,
+                                                        T.DecimalType):
+                s = add_partial(f"__p{j}s", agg.Sum(fn.child))
+                n = add_partial(f"__p{j}n", agg.Count(fn.child))
+                merge_specs.append((f"__m{j}s", agg.Sum(s, fn.data_type)))
+                merge_specs.append((f"__m{j}o", agg.Sum(
+                    If(IsNull(s) & (n > lit(0)), lit(1), lit(0)))))
+                final_exprs.append(If(col(f"__m{j}o") > lit(0),
+                                      Literal(None, fn.data_type),
+                                      col(f"__m{j}s")).alias(name))
+            elif isinstance(fn, agg.Sum):
+                s = add_partial(f"__p{j}s", agg.Sum(fn.child))
+                merge_specs.append((name, agg.Sum(s)))
+                final_exprs.append(col(name))
+            elif isinstance(fn, (agg.Min, agg.Max)):
+                m = add_partial(f"__p{j}m", type(fn)(fn.child))
+                merge_specs.append((name, type(fn)(m)))
+                final_exprs.append(col(name))
+            elif isinstance(fn, agg.Average):
+                s = add_partial(f"__p{j}s", agg.Sum(fn.child))
+                n = add_partial(f"__p{j}n", agg.Count(fn.child))
+                merge_specs.append((f"__m{j}s", agg.Sum(s)))
+                merge_specs.append((f"__m{j}n", agg.Sum(n)))
+                final_exprs.append(
+                    (col(f"__m{j}s").cast(T.DOUBLE)
+                     / col(f"__m{j}n").cast(T.DOUBLE)).alias(name))
+            else:  # variance and stddev (check_agg_supported ran)
+                n = add_partial(f"__p{j}n", agg.Count(fn.child))
+                s = add_partial(f"__p{j}s", agg.Sum(Cast(fn.child,
+                                                         T.DOUBLE)))
+                v = add_partial(f"__p{j}v", agg.VariancePop(fn.child))
+                merge_specs.append((f"__m{j}n", agg.Sum(n)))
+                merge_specs.append((f"__m{j}m", agg.MergeMoments(
+                    n, s, v * Cast(n, T.DOUBLE))))
+                count = col(f"__m{j}n").cast(T.DOUBLE)
+                if isinstance(fn, (agg.StddevPop, agg.VariancePop)):
+                    var = col(f"__m{j}m") / count
+                else:
+                    var = col(f"__m{j}m") / (count - lit(1.0))
+                out = Sqrt(var) if isinstance(
+                    fn, (agg.StddevPop, agg.StddevSamp)) else var
+                final_exprs.append(out.alias(name))
+        merge_grouping = [
+            BoundReference(i, g.data_type, name_hint=n)
+            for i, (g, n) in enumerate(zip(self.grouping,
+                                           self.grouping_names))]
+        return SimpleNamespace(partial_specs=partial_specs,
+                               merge_specs=merge_specs,
+                               merge_grouping=merge_grouping,
+                               final_exprs=final_exprs)
 
     def _prep_all(self, table: DeviceTable):
         pctx = PrepCtx(table)
@@ -333,7 +476,7 @@ class TpuHashAggregateExec(TpuExec):
                                               dtype=torch.int32, device=dev))
             gid = gid + code * strides[i]
 
-        svs = [(vv[0].validity & live) if vv else None for vv in vvs]
+        svs = _spec_valids(vvs, live)
 
         # one int32 segment sum for the live count + every spec's nonnull
         # count (a torch op: the reference leaves it to XLA)
@@ -459,7 +602,7 @@ class TpuHashAggregateExec(TpuExec):
         def stacked(cols):
             return seg(torch.stack(cols, dim=1))
 
-        svs = [(vv[0].validity & live) if vv else None for vv in vvs]
+        svs = _spec_valids(vvs, live)
         nonnulls = {j: seg(sv.to(torch.int32))
                     for j, sv in enumerate(svs) if sv is not None}
         return self._reduce_specs(vvs, svs, gid.clamp(max=capacity - 1),
@@ -482,8 +625,16 @@ class TpuHashAggregateExec(TpuExec):
         zero = torch.zeros((), dtype=torch.float64, device=dev)
         izero = torch.zeros((), dtype=torch.int64, device=dev)
         fcols, fix, icols, iix = [], {}, [], {}
+        def moments(j):  # MergeMoments' (n, s, m2) partial columns
+            return [torch.where(svs[j], v.data.to(torch.float64), zero)
+                    for v in vvs[j]]
+
         for j, (_, fn) in enumerate(self.agg_specs):
             if isinstance(fn, (agg.Count, agg.Min, agg.Max)):
+                continue
+            if isinstance(fn, agg.MergeMoments):
+                fix[j] = len(fcols)
+                fcols += moments(j)[:2]
                 continue
             x, sv, ct = vvs[j][0].data, svs[j], fn.child.data_type
             if _exact_sum(fn):
@@ -497,10 +648,17 @@ class TpuHashAggregateExec(TpuExec):
         fs = fsum(fcols) if fcols else None
         isums = isum(icols) if icols else None
 
-        # the moments' second pass: squares centred on the exact mean
+        # the moments' second pass: squares centred on the exact mean; the
+        # merge's Chan terms m2_i + n_i (mean_i - mean)^2
         means, cols = {}, []
         for j, (_, fn) in enumerate(self.agg_specs):
-            if isinstance(fn, agg._CentralMoment):
+            if isinstance(fn, agg.MergeMoments):
+                means[j] = len(cols)
+                n, sm, m2 = moments(j)
+                mean = fs[:, fix[j] + 1] / fs[:, fix[j]].clamp(min=1.0)
+                term = m2 + n * (sm / n.clamp(min=1.0) - mean[gid]) ** 2
+                cols.append(torch.where(svs[j], term, zero))
+            elif isinstance(fn, agg._CentralMoment):
                 means[j] = len(cols)
                 mean = fs[:, fix[j]] / nonnulls[j].clamp(min=1)
                 x = _as_f64(vvs[j][0].data, fn.child.data_type)
@@ -515,6 +673,10 @@ class TpuHashAggregateExec(TpuExec):
                 continue
             nonnull = nonnulls[j]
             has_any = (nonnull > 0) & exists
+            if isinstance(fn, agg.MergeMoments):
+                outs.append((torch.where(has_any, m2s[:, means[j]], zero),
+                             has_any))
+                continue
             ct = fn.child.data_type
             if isinstance(fn, (agg.Min, agg.Max)):
                 outs.append(_minmax(fn, vvs[j][0].data, svs[j], gid, nseg,
@@ -539,6 +701,20 @@ class TpuHashAggregateExec(TpuExec):
                 outs.append(_decimal_result(fn, isums[:, iix[j]:iix[j] + 4],
                                             nonnull, has_any))
         return outs
+
+
+def _spec_valids(vvs, live: torch.Tensor):
+    """Per spec, its live rows whose every value is non-null (None for
+    COUNT(*))."""
+    out = []
+    for vv in vvs:
+        sv = None
+        if vv:
+            sv = live
+            for v in vv:
+                sv = sv & v.validity
+        out.append(sv)
+    return out
 
 
 def _decimal_result(fn: agg.AggregateFunction, words: torch.Tensor,

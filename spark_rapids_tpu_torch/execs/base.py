@@ -50,8 +50,8 @@ class TpuExec:
 
 
 def single_batch(batches: Iterator[DeviceTable], what: str):
-    """The one batch of ``batches`` (None when there is none). The port
-    has no multi-batch merge yet: a second batch raises."""
+    """The one batch of ``batches`` (None when there is none). A second
+    batch raises: the window has no keyed batching yet."""
     first = next(batches, None)
     if first is not None and next(batches, None) is not None:
         raise NotImplementedError(f"{what} over more than one input batch "

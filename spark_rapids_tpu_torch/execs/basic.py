@@ -1,6 +1,6 @@
-"""Scan, project, filter and coalesce execs (port of the TpuScanExec,
-TpuProjectExec, TpuFilterExec and TpuCoalesceExec parts of
-``spark_rapids_tpu/execs/basic.py``)."""
+"""Scan, project, filter, coalesce and limit execs (port of the
+TpuScanExec, TpuProjectExec, TpuFilterExec, TpuCoalesceExec and
+TpuLimitExec parts of ``spark_rapids_tpu/execs/basic.py``)."""
 
 from __future__ import annotations
 
@@ -96,14 +96,24 @@ class TpuFilterExec(TpuExec):
 
     def execute_masked(self):
         for table in self.children[0].execute_masked():
-            preps = prep_expr(self.condition, PrepCtx(table))
-            pred = eval_expr(self.condition, preps, table_vals(table),
-                             table.nrows_dev, table.capacity, table.device,
-                             live=table.live)
-            keep = pred.data & pred.validity & table.row_mask()
-            new_n = keep.sum(dtype=torch.int32)
-            yield DeviceTable(table.names, table.columns, new_n,
-                              table.capacity, table.device, live=keep)
+            yield filter_table(table, self.condition)
+
+
+def filter_table(table: DeviceTable, condition: Expression) -> DeviceTable:
+    """``table`` MASKED to the rows where ``condition`` is non-null true:
+    the keep-mask and its live count, no compaction."""
+    preps = prep_expr(condition, PrepCtx(table))
+    pred = eval_expr(condition, preps, table_vals(table), table.nrows_dev,
+                     table.capacity, table.device, live=table.live)
+    keep = pred.data & pred.validity & table.row_mask()
+    return DeviceTable(table.names, table.columns,
+                       keep.sum(dtype=torch.int32), table.capacity,
+                       table.device, live=keep)
+
+
+#: the reference's default ``spark.rapids.sql.batchSizeBytes``: the target
+#: of the coalesce in front of an aggregate and of a sort
+BATCH_SIZE_BYTES = 1 << 30
 
 
 class TpuCoalesceExec(TpuExec):
@@ -111,7 +121,10 @@ class TpuCoalesceExec(TpuExec):
     up to a target size. The port has no spill framework or memory budget
     yet, so batches are held as device tables; a lone batch passes
     through as it is (masked or not), and several concatenate on the
-    device (columnar/table.concat_device)."""
+    device (columnar/table.concat_device). Under a target size, the
+    masked views of one exchange split (``DeviceTable.split_group``)
+    pass through one by one, as the reference's: concatenating views of
+    one table would only multiply its capacity."""
 
     produces_masked = True
 
@@ -127,6 +140,13 @@ class TpuCoalesceExec(TpuExec):
     def execute_masked(self):
         pending, pending_bytes = [], 0
         for batch in self.children[0].execute_masked():
+            if batch.split_group is not None and not self.require_single:
+                if pending:
+                    yield self._flush(pending)
+                    pending, pending_bytes = [], 0
+                self.add_metric("maskedPassthrough", 1)
+                yield batch
+                continue
             pending.append(batch)
             pending_bytes += device_nbytes(batch)
             if not self.require_single and pending_bytes >= self.target_bytes:
@@ -140,6 +160,36 @@ class TpuCoalesceExec(TpuExec):
             return batches[0]
         self.add_metric("concatBatches", len(batches))
         return concat_device(batches)
+
+
+class TpuLimitExec(TpuExec):
+    """LIMIT n without an ordering (the reference's CollectLimit): the
+    first n rows of the child's compacted batches in order, one host read
+    of each batch's row count until the limit is reached; later batches
+    are not pulled."""
+
+    def __init__(self, child: TpuExec, limit: int):
+        self.children = (child,)
+        self.limit = int(limit)
+
+    def output_schema(self):
+        return self.children[0].output_schema()
+
+    def execute(self):
+        remaining = self.limit
+        if remaining <= 0:
+            return
+        for batch in self.children[0].execute():
+            n = batch.num_rows  # host sync, per batch up to the limit
+            take = min(n, remaining)
+            if take == n:
+                yield batch
+            else:
+                yield DeviceTable(batch.names, batch.columns, take,
+                                  batch.capacity, batch.device)
+            remaining -= take
+            if remaining <= 0:
+                return
 
 
 def device_nbytes(table: DeviceTable) -> int:

@@ -1,31 +1,46 @@
-"""Inner equi-join (port of the inner-join parts of
-``spark_rapids_tpu/execs/join.py``: ``_dense_rank_ops``, ``JoinKernel``'s
-probe and inner expand, ``_DirectJoinKernel``, ``_ColumnGather`` and
-``TpuJoinExec``'s ``_join_batch``, ``_try_direct``, ``_try_hashprobe`` and
-``_size_flag``).
+"""Equi-joins and cross joins (port of ``spark_rapids_tpu/execs/join.py``:
+``_dense_rank_ops``, ``JoinKernel``'s probe and its inner and left-outer
+expansions, ``_DirectJoinKernel``, ``_ColumnGather`` and ``TpuJoinExec``
+with every join type, the residual condition, the sub-partitioned build
+and the cross join).
 
 The build side is one prefix table; probe batches stream through, each
 joined by the first route that applies, as in the reference:
 
-1. DIRECT (torch ops): a single integer key whose build values span less
-   than ``directTableMultiplier`` x the build capacity scatters build
-   rowids into a table indexed by ``key - min(key)``; each probe row
-   gathers its match. The output stays MASKED at the probe's capacity (no
+1. DIRECT (torch ops; inner, left outer, left semi and left anti): a
+   single integer key whose build values span less than
+   ``directTableMultiplier`` x the build capacity scatters build rowids
+   into a table indexed by ``key - min(key)``; each probe row gathers its
+   match. The output stays MASKED at the probe's capacity (no
    compaction). Device flags for "keys too sparse" and "a build key
-   repeats" are validated at collect (runtime/speculation.py); a failure
-   blocklists the site and the query replays.
+   repeats" (semi and anti joins too, as the reference) are validated at
+   collect (runtime/speculation.py); a failure blocklists the site and
+   the query replays.
 2. HASH PROBE (kernels/hashprobe.py, the CUDA probe): a single integer
-   key, any spread. Its ``fail`` flag (a homeless build row or a
-   duplicated build key) is validated the same way.
+   key, any spread, any join type. Its ``fail`` flag (a homeless build
+   row or a duplicated build key) is validated the same way.
 3. SORT-BASED: both sides' keys are dense-ranked into one code space
    through the sort kernel; per-code build counts and their exclusive
    prefix give each probe row its match range, and ranges expand into
    (left, right) gather maps at a speculative output capacity (the probe
    side's bucket; a miss replays on the exact size read on the host).
 
-Only INNER joins with equi keys are ported: other join types, join
-conditions, cross joins and the build side's sub-partitioning raise
-NotImplementedError.
+Join types: inner; left outer (an unmatched probe row emits one row with
+a null build side); right outer as a left outer with the sides swapped
+(the left child builds) and the output columns put back in order; full
+outer as a left outer per probe batch, a build-match bitmap accumulated
+across batches and one batch of the unmatched build rows at the end
+(never a speculated size); left semi and left anti from the probe's
+``matched`` flags (masked output); cross (``_cross``). A residual
+condition post-filters inner and cross joins; the overrides refuse it on
+the other types, as the reference does.
+
+A build side larger than ``spark.rapids.sql.join.subPartition.targetBytes``
+splits by Spark's murmur3 key hash into ceil(size / target) partitions
+(at most ``maxSubPartitions``); each probe batch splits the same way and
+partition pairs join independently. The reference also caps the target
+by its memory manager's scan chunk; the port has no memory manager and
+uses the conf value alone.
 """
 
 from __future__ import annotations
@@ -149,13 +164,13 @@ def sort_probe(lkeys: Sequence[KeyVal], rkeys: Sequence[KeyVal],
 
 
 def expand_inner(lo, counts, rs_perm, out_cap: int):
-    """(li, ri, nout) gather maps of an inner join at a static output
-    capacity: output slot j belongs to the first probe row whose inclusive
-    count prefix exceeds j (a binary search of the prefix; the reference
-    scatters row indices at their start offsets and takes a running max,
-    the same rows), and its offset within that row's range picks the
-    build row through ``rs_perm``. Output slots at and past the total are
-    dead (index 0)."""
+    """(li, ri, out_live, nout) gather maps of an inner join at a static
+    output capacity: output slot j belongs to the first probe row whose
+    inclusive count prefix exceeds j (a right-sided binary search of the
+    prefix; the reference scatters row indices at their start offsets and
+    takes a running max, the same rows), and its offset within that row's
+    range picks the build row through ``rs_perm``. Output slots at and
+    past the total are dead (index 0)."""
     dev = lo.device
     cap_l, cap_r = int(lo.shape[0]), int(rs_perm.shape[0])
     csum = torch.cumsum(counts.to(torch.int64), 0)
@@ -169,23 +184,41 @@ def expand_inner(lo, counts, rs_perm, out_cap: int):
     out_live = j < total
     zero = torch.zeros((), dtype=torch.int64, device=dev)
     return (torch.where(out_live, i, zero), torch.where(out_live, ri, zero),
-            total.to(torch.int32))
+            out_live, total.to(torch.int32))
+
+
+def expand_left_outer(lo, counts, rs_perm, live_l, out_cap: int):
+    """(li, ri, out_live, null_r, nout) of a left outer join: every live
+    probe row without a match counts one output row, whose build side is
+    null (``null_r``)."""
+    one = torch.ones((), dtype=counts.dtype, device=counts.device)
+    counts2 = torch.where(live_l & (counts == 0), one, counts)
+    li, ri, out_live, nout = expand_inner(lo, counts2, rs_perm, out_cap)
+    null_r = (counts[li] == 0) & out_live
+    ri = torch.where(null_r, torch.zeros_like(ri), ri)
+    return li, ri, out_live, null_r, nout
 
 
 def gather_columns(table: DeviceTable, idx: torch.Tensor,
-                   out_live: torch.Tensor) -> List[DeviceColumn]:
+                   out_live: torch.Tensor,
+                   null_mask: Optional[torch.Tensor] = None
+                   ) -> List[DeviceColumn]:
     """Every column of ``table`` gathered at ``idx`` (the reference's
-    ``_ColumnGather``); dead output slots are invalid."""
-    return [c.with_arrays(c.data[idx], c.validity[idx] & out_live)
+    ``_ColumnGather``); dead output slots, and slots under ``null_mask``
+    (an outer join's null side), are invalid in every storage."""
+    valid = out_live if null_mask is None else out_live & ~null_mask
+    return [c.with_arrays(c.data[idx], c.validity[idx] & valid)
             for c in table.columns]
 
 
-def direct_join(lt: DeviceTable, rt: DeviceTable, lkey: KeyVal,
+def direct_join(jt: str, lt: DeviceTable, rt: DeviceTable, lkey: KeyVal,
                 rkey: KeyVal, H: int):
-    """The direct-address inner join (the reference's
-    ``_DirectJoinKernel`` for 'inner' with a masked output). Returns
-    ([(data, validity)...] of the left then right columns at the probe's
-    capacity, keep mask, nout, fail)."""
+    """The direct-address join (the reference's ``_DirectJoinKernel`` with
+    a masked output) for ``jt`` in inner, left outer, left semi and left
+    anti. Returns ([(data, validity)...] of the output columns at the
+    probe's capacity: the left then right ones, the left ones alone for
+    semi and anti; the live mask (None: the probe's own prefix); nout;
+    fail)."""
     dev = lt.device
     (ld, lv), (rd, rv) = lkey, rkey
     live_l, live_r = lt.row_mask(), rt.row_mask()
@@ -211,11 +244,17 @@ def direct_join(lt: DeviceTable, rt: DeviceTable, lkey: KeyVal,
     ri = rowid[p.clamp(0, H - 1)]
     matched = inb & (ri >= 0)
     fail = ~(fits & unique)
-    safe_ri = torch.where(matched, ri, torch.zeros_like(ri)).to(torch.int64)
     outs = [(c.data, c.validity) for c in lt.columns]
+    if jt in ("leftsemi", "leftanti"):
+        keep = matched if jt == "leftsemi" else live_l & ~matched
+        return outs, keep, keep.sum(dtype=torch.int32), fail
+    safe_ri = torch.where(matched, ri, torch.zeros_like(ri)).to(torch.int64)
     outs += [(c.data[safe_ri], c.validity[safe_ri] & matched)
              for c in rt.columns]
-    return outs, matched, matched.sum(dtype=torch.int32), fail
+    if jt == "inner":
+        return outs, matched, matched.sum(dtype=torch.int32), fail
+    # left outer: every live probe row emits exactly one row, in place
+    return outs, lt.live, lt.nrows_dev, fail
 
 
 def _unify_string_keys(lcol: DeviceColumn, rcol: DeviceColumn):
@@ -239,31 +278,76 @@ def _integer_key(k: KeyVal) -> bool:
     return k[0].ndim == 1 and k[0].dtype in _INT_DTYPES
 
 
+#: join types by their one name (the plan's Join node normalizes them)
+OUTER_TYPES = ("left", "right", "full")
+SEMI_ANTI = ("leftsemi", "leftanti")
+#: the types the direct route takes (``_DirectJoinKernel.SUPPORTED``)
+DIRECT_TYPES = ("inner", "left", "leftsemi", "leftanti")
+
+
+def compact_table(table: DeviceTable, keep: torch.Tensor) -> DeviceTable:
+    """The rows under ``keep`` moved to the prefix at the table's capacity
+    (the compaction kernel through ops/scatter32.py)."""
+    from spark_rapids_tpu_torch.ops.scatter32 import compact_pairs
+    outs, new_n = compact_pairs([c.data for c in table.columns],
+                                [c.validity for c in table.columns], keep,
+                                table.capacity)
+    cols = [c.with_arrays(d, v) for c, (d, v) in zip(table.columns, outs)]
+    return DeviceTable(table.names, cols, new_n, table.capacity,
+                       table.device)
+
+
+def null_columns(schema, capacity: int, device) -> List[DeviceColumn]:
+    """All-null columns of ``schema`` (an outer join's missing side)."""
+    from spark_rapids_tpu_torch.columnar.column import null_column
+    return [null_column(dt, capacity, device) for _, dt in schema]
+
+
+def unmatched_build_batch(bt: DeviceTable, matched: torch.Tensor,
+                          probe_schema, swapped: bool,
+                          names) -> DeviceTable:
+    """A full outer join's tail: the build rows no probe row matched,
+    beside an all-null probe side (the build's columns first when the
+    sides are swapped)."""
+    part = compact_table(bt, bt.row_mask() & ~matched)
+    nulls = null_columns(probe_schema, part.capacity, part.device)
+    cols = (list(part.columns) + nulls if swapped
+            else nulls + list(part.columns))
+    return DeviceTable(names, cols, part.nrows_dev, part.capacity,
+                       part.device)
+
+
 class TpuJoinExec(TpuExec):
-    """Inner equi-join: the build (right) child is one table, probe (left)
-    batches stream through ``_join_batch``. The output is the left columns
-    then the right ones."""
+    """Equi-join of any type, or a cross join: the build child is one
+    table (the LEFT child for a right outer join, else the right one),
+    probe batches stream through ``_join_batch``. The output is the left
+    columns then the right ones (the left ones alone for semi and anti
+    joins). ``join_type`` is the plan's one name for it
+    (plan/nodes.py::normalize_join_type)."""
 
     produces_masked = True
 
     def __init__(self, left: TpuExec, right: TpuExec, join_type: str,
                  left_keys: Sequence[Expression],
-                 right_keys: Sequence[Expression], left_schema,
+                 right_keys: Sequence[Expression],
+                 condition: Optional[Expression], left_schema,
                  right_schema, direct_table_mult: int = 4,
-                 hashprobe_attempts: int = 4):
+                 hashprobe_attempts: int = 4,
+                 subpartition_bytes: int = 1 << 30,
+                 max_subpartitions: int = 64):
         self.children = (left, right)
-        self.join_type = join_type.lower().replace("_", "")
-        if self.join_type != "inner":
-            raise NotImplementedError(
-                f"{join_type} join is not ported (inner joins only)")
+        self.join_type = join_type
         self.left_keys = list(left_keys)
         self.right_keys = list(right_keys)
+        self.condition = condition
         self._left_schema = list(left_schema)
         self._right_schema = list(right_schema)
         self.left_names = [n for n, _ in left_schema]
         self.right_names = [n for n, _ in right_schema]
         self.direct_table_mult = direct_table_mult
         self.hashprobe_attempts = hashprobe_attempts
+        self.subpartition_bytes = subpartition_bytes
+        self.max_subpartitions = max_subpartitions
         self._site_base = "join:{}:{}:{}:{}:{}".format(
             self.join_type, tuple(repr(k) for k in self.left_keys),
             tuple(repr(k) for k in self.right_keys), tuple(self.left_names),
@@ -277,75 +361,219 @@ class TpuJoinExec(TpuExec):
         return f"{self._site_base}:op{self._lore_id}"
 
     def output_schema(self):
+        if self.join_type in SEMI_ANTI:
+            return list(self._left_schema)
         return self._left_schema + self._right_schema
 
+    def _names(self):
+        if self.join_type in SEMI_ANTI:
+            return self.left_names
+        return self.left_names + self.right_names
+
     def execute_masked(self):
-        builds = list(self.children[1].execute())
+        jt = self.join_type
+        swapped = jt == "right"
+        build_child = self.children[0] if swapped else self.children[1]
+        probe_child = self.children[1] if swapped else self.children[0]
+        build = self._single(build_child)
+        from spark_rapids_tpu_torch.execs.basic import device_nbytes
+        nbytes = device_nbytes(build)
+        sub = self.subpartition_bytes
+        if jt != "cross" and sub > 0 and nbytes > sub:
+            nparts = min(-(-nbytes // sub), self.max_subpartitions)
+            if nparts > 1:
+                yield from self._execute_subpartitioned(
+                    build, probe_child, swapped, int(nparts))
+                return
+        full_outer = jt == "full"
+        r_matched_accum = None
+        for pb in probe_child.execute_masked():
+            out, r_matched = self._join_batch(pb, build, swapped)
+            if full_outer:
+                r_matched_accum = (r_matched if r_matched_accum is None
+                                   else r_matched_accum | r_matched)
+            yield self._apply_condition(out)
+            self.add_metric("probeBatches", 1)
+        if full_outer:
+            if r_matched_accum is None:
+                r_matched_accum = torch.zeros(build.capacity,
+                                              dtype=torch.bool,
+                                              device=build.device)
+            yield self._unmatched_build_batch(build, r_matched_accum,
+                                              swapped)
+
+    def _execute_subpartitioned(self, build: DeviceTable, probe_child,
+                                swapped: bool, nparts: int):
+        """The build table splits by Spark's key hash into ``nparts``
+        partitions; each probe batch splits the same way, and partition
+        pairs join independently (a full outer join keeps one match
+        bitmap per partition and ends with each partition's unmatched
+        build rows)."""
+        from spark_rapids_tpu_torch.shuffle.partitioning import (
+            HashPartitioner,
+        )
+        full_outer = self.join_type == "full"
+        build_keys = self.left_keys if swapped else self.right_keys
+        probe_keys = self.right_keys if swapped else self.left_keys
+        build_parts = self._split(build, HashPartitioner(build_keys, nparts))
+        pparter = HashPartitioner(probe_keys, nparts)
+        self.add_metric("subPartitions", nparts)
+        r_matched = [None] * nparts
+        for pb in probe_child.execute_masked():
+            for p, pp in enumerate(self._split(pb, pparter)):
+                out, rm = self._join_batch(pp, build_parts[p], swapped)
+                if full_outer:
+                    r_matched[p] = (rm if r_matched[p] is None
+                                    else r_matched[p] | rm)
+                yield self._apply_condition(out)
+            self.add_metric("probeBatches", 1)
+        if full_outer:
+            for p, bt in enumerate(build_parts):
+                rm = r_matched[p]
+                if rm is None:
+                    rm = torch.zeros(bt.capacity, dtype=torch.bool,
+                                     device=bt.device)
+                yield self._unmatched_build_batch(bt, rm, swapped)
+
+    @staticmethod
+    def _split(table: DeviceTable, parter) -> List[DeviceTable]:
+        """Per-partition compacted tables, each re-bucketed to its live
+        size (one host read of the count vector)."""
+        pids = parter.partition_ids(table).to(torch.int64)
+        live = table.row_mask()
+        n = parter.num_partitions
+        cnt = torch.zeros(n, dtype=torch.int32, device=table.device)
+        cnt.index_add_(0, pids.clamp(0, n - 1), live.to(torch.int32))
+        counts = cnt.tolist()  # host sync
+        parts = []
+        for p in range(n):
+            part = compact_table(table, (pids == p) & live)
+            k = bucket_for(max(counts[p], 1))
+            if k < part.capacity:
+                part = DeviceTable(part.names, [c.sliced_rows(k)
+                                                for c in part.columns],
+                                   counts[p], k, part.device)
+            parts.append(part)
+        return parts
+
+    def _apply_condition(self, out: DeviceTable) -> DeviceTable:
+        """The residual condition of an inner or cross join as a filter
+        over the joined batch (a masked output)."""
+        if self.condition is None or self.join_type not in ("inner",
+                                                            "cross"):
+            return out
+        from spark_rapids_tpu_torch.execs.basic import filter_table
+        return filter_table(out, self.condition)
+
+    @staticmethod
+    def _single(child: TpuExec) -> DeviceTable:
+        builds = list(child.execute())
         if len(builds) != 1:
             raise ColumnarProcessingError("join requires a coalesced build "
                                           "side")
-        build = builds[0]
-        for pb in self.children[0].execute_masked():
-            yield self._join_batch(pb, build)
-            self.add_metric("probeBatches", 1)
+        return builds[0]
 
-    def _join_batch(self, lt: DeviceTable, rt: DeviceTable) -> DeviceTable:
-        """Join ONE probe batch (lt) against the build table (rt)."""
+    def _keys(self, lt: DeviceTable, rt: DeviceTable, swapped: bool):
+        """(probe key (data, validity)s, build key ones): string keys in
+        their union dictionary's codes."""
+        lkeys_e, rkeys_e = ((self.right_keys, self.left_keys) if swapped
+                            else (self.left_keys, self.right_keys))
         lkeys, rkeys = [], []
-        for lc, rc in zip(compile_project(self.left_keys, lt),
-                          compile_project(self.right_keys, rt)):
+        for lc, rc in zip(compile_project(lkeys_e, lt),
+                          compile_project(rkeys_e, rt)):
             if isinstance(lc.dtype, T.StringType):
                 lk, rk = _unify_string_keys(lc, rc)
             else:
                 lk, rk = (lc.data, lc.validity), (rc.data, rc.validity)
             lkeys.append(lk)
             rkeys.append(rk)
+        return lkeys, rkeys
 
-        direct = self._try_direct(lt, rt, lkeys, rkeys)
+    def _join_batch(self, lt: DeviceTable, rt: DeviceTable, swapped: bool):
+        """Join ONE probe batch (lt) against the build table (rt). Returns
+        (the output table, the build-match bitmap of a full outer join or
+        None)."""
+        jt = self.join_type
+        if jt == "cross":
+            return self._cross(lt, rt), None
+        lkeys, rkeys = self._keys(lt, rt, swapped)
+        full_outer = jt == "full"
+        direct = self._try_direct(jt, lt, rt, lkeys, rkeys)
         if direct is not None:
-            return direct
+            return direct, None
         live_l, live_r = lt.row_mask(), rt.row_mask()
         probe = self._try_hashprobe(lt, rt, lkeys, rkeys, live_l, live_r)
         if probe is None:
             probe = sort_probe(lkeys, rkeys, live_l, live_r)
-        lo, counts, total, _, rs_perm = probe
+        lo, counts, total, matched_l, rs_perm = probe
+
+        r_matched = (self._right_matched(lo, counts, rs_perm, rt.capacity)
+                     if full_outer else None)
+        if jt in SEMI_ANTI:
+            keep = (matched_l if jt == "leftsemi" else ~matched_l) & live_l
+            return DeviceTable(lt.names, lt.columns,
+                               keep.sum(dtype=torch.int32), lt.capacity,
+                               lt.device, live=keep), None
 
         size_site = self._site_key + ":size"
-        ctx = spec.allowed(size_site)
+        # a full outer join never speculates its size
+        ctx = None if full_outer else spec.allowed(size_site)
         if ctx is not None:
             # speculative static bound, the foreign-key join's shape: the
             # output fits the probe side's bucket; the exact total stays
             # on the device and a miss replays on the exact path below
             out_cap = bucket_for(max(lt.capacity, 1))
-            ctx.add_flag(size_site, total > out_cap)
+            ctx.add_flag(size_site, self._size_flag(total, counts, live_l,
+                                                    out_cap))
         else:
-            out_cap = bucket_for(max(int(total.item()), 1))  # host sync
-        li, ri, nout = expand_inner(lo, counts, rs_perm, out_cap)
-        out_live = torch.arange(out_cap, dtype=torch.int32,
-                                device=lt.device) < nout
-        cols = gather_columns(lt, li, out_live) + gather_columns(rt, ri,
-                                                                 out_live)
-        return DeviceTable(self.left_names + self.right_names, cols, nout,
-                           out_cap, lt.device)
+            upper = int(total.item())  # host sync
+            if jt in OUTER_TYPES:
+                # each unmatched probe row adds at most one output row:
+                # the probe capacity bounds them without a second read
+                upper += lt.capacity
+            out_cap = bucket_for(max(upper, 1))
+        null_r = None
+        if jt == "inner":
+            li, ri, out_live, nout = expand_inner(lo, counts, rs_perm,
+                                                  out_cap)
+        else:  # left and right outer per batch; a full outer join's
+            # unmatched build rows come in the last batch
+            li, ri, out_live, null_r, nout = expand_left_outer(
+                lo, counts, rs_perm, live_l, out_cap)
+        lcols = gather_columns(lt, li, out_live)
+        rcols = gather_columns(rt, ri, out_live, null_r)
+        cols = rcols + lcols if swapped else lcols + rcols
+        return DeviceTable(self._names(), cols, nout, out_cap,
+                           lt.device), r_matched
 
-    def _try_direct(self, lt, rt, lkeys, rkeys) -> Optional[DeviceTable]:
+    def _size_flag(self, total, counts, live_l, out_cap: int):
+        """Device bool: the speculative ``out_cap`` was too small (int64
+        throughout, so a many-to-many total cannot wrap)."""
+        tot = total.to(torch.int64)
+        if self.join_type in OUTER_TYPES:
+            tot = tot + (live_l & (counts == 0)).sum(dtype=torch.int64)
+        return tot > out_cap
+
+    def _try_direct(self, jt, lt, rt, lkeys, rkeys) -> Optional[DeviceTable]:
         """The direct-address route, or None when the shape does not
-        qualify (several keys, a non-integer key, a blocklisted site)."""
-        if len(lkeys) != 1 or not (_integer_key(lkeys[0])
-                                   and _integer_key(rkeys[0])):
+        qualify (several keys, a non-integer key, a right or full outer
+        join, a blocklisted site)."""
+        if (jt not in DIRECT_TYPES or len(lkeys) != 1
+                or not (_integer_key(lkeys[0]) and _integer_key(rkeys[0]))):
             return None
         site = self._site_key + ":direct"
         ctx = spec.allowed(site)
         if ctx is None:
             return None
         H = bucket_for(max(self.direct_table_mult * rt.capacity, 1))
-        outs, keep, nout, fail = direct_join(lt, rt, lkeys[0], rkeys[0], H)
+        outs, keep, nout, fail = direct_join(jt, lt, rt, lkeys[0], rkeys[0],
+                                             H)
         ctx.add_flag(site, fail)
         self.add_metric("directJoinBatches", 1)
         cols = [c.with_arrays(d, v) for c, (d, v) in
                 zip(list(lt.columns) + list(rt.columns), outs)]
-        return DeviceTable(self.left_names + self.right_names, cols, nout,
-                           lt.capacity, lt.device, live=keep)
+        return DeviceTable(self._names(), cols, nout, lt.capacity,
+                           lt.device, live=keep)
 
     def _try_hashprobe(self, lt, rt, lkeys, rkeys, live_l, live_r):
         """The hash-probe route's range-form probe, or None when the shape
@@ -365,3 +593,43 @@ class TpuJoinExec(TpuExec):
         ctx.add_flag(site, fail)
         self.add_metric("hashProbeBatches", 1)
         return lo, counts, total, matched, rs_perm
+
+    @staticmethod
+    def _right_matched(lo, counts, rs_perm, cap_r: int) -> torch.Tensor:
+        """Which build rows matched at least one probe row: +1 at each
+        range's start and -1 at its end in sorted order (a buffer one slot
+        longer takes the ends at ``cap_r``), a running sum over 0 marks
+        the covered sorted slots, scattered back through ``rs_perm``."""
+        dev = lo.device
+        hit = (counts > 0).to(torch.int32)
+        lo64 = lo.to(torch.int64)
+        marks = torch.zeros(cap_r + 1, dtype=torch.int32, device=dev)
+        marks.index_add_(0, lo64.clamp(0, cap_r), hit)
+        marks.index_add_(0, (lo64 + counts).clamp(0, cap_r), -hit)
+        covered = torch.cumsum(marks[:-1], 0) > 0
+        out = torch.zeros(cap_r, dtype=torch.bool, device=dev)
+        out[rs_perm.to(torch.int64)] = covered
+        return out
+
+    def _unmatched_build_batch(self, rt: DeviceTable, r_matched,
+                               swapped: bool) -> DeviceTable:
+        probe_schema = self._right_schema if swapped else self._left_schema
+        return unmatched_build_batch(rt, r_matched, probe_schema, swapped,
+                                     self._names())
+
+    def _cross(self, lt: DeviceTable, rt: DeviceTable) -> DeviceTable:
+        """Every (left, right) pair: output slot j holds left row
+        j // nr and right row j % nr (int64 maps), at the bucket of
+        nl * nr (both counts read on the host)."""
+        lt = lt.compacted()  # the pair maps need the prefix form
+        nl, nr = lt.num_rows, rt.num_rows
+        n = nl * nr
+        out_cap = bucket_for(max(n, 1))
+        j = torch.arange(out_cap, dtype=torch.int64, device=lt.device)
+        out_live = j < n
+        zero = torch.zeros((), dtype=torch.int64, device=lt.device)
+        li = torch.where(out_live, j // max(nr, 1), zero)
+        ri = torch.where(out_live, j % max(nr, 1), zero)
+        cols = gather_columns(lt, li, out_live) + gather_columns(
+            rt, ri, out_live)
+        return DeviceTable(self._names(), cols, n, out_cap, lt.device)

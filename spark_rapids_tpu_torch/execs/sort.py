@@ -6,7 +6,15 @@ Each sort key becomes ascending 32-bit operands (ops/ordering.py): a
 null-placement flag first, descending order by complement. Padding and
 dead rows park last through a leading liveness operand, so the sort also
 compacts a masked input. An int32 row-index payload gives the permutation
-that gathers every output column."""
+that gathers every output column.
+
+The sort reads its input through a coalesce that stops at
+``OUT_OF_CORE_THRESHOLD_BYTES`` (overrides/rules.py), as the reference's
+pre-sort coalesce stops at its out-of-core threshold. Batches that reach
+the sort (an exchange's views pass the coalesce) concatenate on the
+device while their total stays under the threshold; past it the
+reference sorts batches into host runs and merges them, which the port
+does not have, so the sort raises naming that merge."""
 
 from __future__ import annotations
 
@@ -15,7 +23,7 @@ from typing import List, Sequence
 import torch
 
 from spark_rapids_tpu_torch.columnar import DeviceTable, bucket_for
-from spark_rapids_tpu_torch.execs.base import TpuExec, single_batch
+from spark_rapids_tpu_torch.execs.base import TpuExec
 from spark_rapids_tpu_torch.ops.expr import (
     PrepCtx,
     eval_expr,
@@ -23,6 +31,12 @@ from spark_rapids_tpu_torch.ops.expr import (
     table_vals,
 )
 from spark_rapids_tpu_torch.plan.nodes import SortOrder
+
+
+#: the reference's default ``spark.rapids.sql.sort.outOfCoreThresholdBytes``
+#: (and ``spark.rapids.sql.batchSizeBytes``): the pre-sort coalesce's
+#: target, past which a sort would merge sorted runs out of core
+OUT_OF_CORE_THRESHOLD_BYTES = 1 << 30
 
 
 def _directional(data: torch.Tensor, validity: torch.Tensor, ascending: bool,
@@ -57,9 +71,19 @@ class TpuSortExec(TpuExec):
         return self.children[0].output_schema()
 
     def execute(self):
-        table = single_batch(self.children[0].execute_masked(), "sort")
-        if table is not None:
-            yield self._sort(table)
+        from spark_rapids_tpu_torch.columnar.table import concat_device
+        from spark_rapids_tpu_torch.execs.basic import device_nbytes
+        batches, total = [], 0
+        for batch in self.children[0].execute_masked():
+            batches.append(batch)
+            total += device_nbytes(batch)
+            if len(batches) > 1 and total > OUT_OF_CORE_THRESHOLD_BYTES:
+                raise NotImplementedError(
+                    "a sort over more than spark.rapids.sql.sort."
+                    "outOfCoreThresholdBytes of input (the reference's "
+                    "out-of-core sorted-run merge) is not ported")
+        if batches:
+            yield self._sort(concat_device(batches))
 
     def _sort(self, table: DeviceTable) -> DeviceTable:
         perm = self._sorted_perm(table)

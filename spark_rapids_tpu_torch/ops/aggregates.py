@@ -1,10 +1,11 @@
 """Aggregate function declarations (port of the Sum, Min, Max, Count,
-Average, StddevPop, StddevSamp, VariancePop and VarianceSamp part of
-``spark_rapids_tpu/ops/aggregates.py``). The aggregate exec interprets
-them; Spark's result types: sum(float/double) -> DOUBLE, sum(integral) ->
-LONG, sum(decimal(p, s)) -> decimal(min(38, p + 10), s), min/max -> the
-child's type, avg, variance and stddev -> DOUBLE (also over a decimal),
-count -> LONG (never null)."""
+Average, StddevPop, StddevSamp, VariancePop, VarianceSamp and MergeMoments
+part of ``spark_rapids_tpu/ops/aggregates.py``). The aggregate exec
+interprets them; Spark's result types: sum(float/double) -> DOUBLE,
+sum(integral) -> LONG, sum(decimal(p, s)) -> decimal(min(38, p + 10), s),
+min/max -> the child's type, avg, variance and stddev -> DOUBLE (also
+over a decimal), count -> LONG (never null). MergeMoments is internal to
+the multi-batch merge (execs/aggregate.py ``_merge_plan``)."""
 
 from __future__ import annotations
 
@@ -35,8 +36,22 @@ class AggregateFunction(Expression):
 
 
 class Sum(AggregateFunction):
+    """``result_type`` (internal, the multi-batch merge's sum of decimal
+    partial sums): the type of the original SUM, so the merged sum is
+    held to its precision as one batch's would be."""
+
+    def __init__(self, child: Optional[Expression] = None,
+                 result_type: Optional[T.DataType] = None):
+        super().__init__(child)
+        self.result_type = result_type
+
+    def with_children(self, children):
+        return Sum(children[0], self.result_type)
+
     @property
     def data_type(self):
+        if self.result_type is not None:
+            return self.result_type
         ct = self.child.data_type
         if isinstance(ct, T.IntegralType):
             return T.LONG
@@ -98,3 +113,25 @@ class VariancePop(_CentralMoment):
 
 class VarianceSamp(_CentralMoment):
     pass
+
+
+class MergeMoments(AggregateFunction):
+    """INTERNAL (the multi-batch merge only): combines per-batch moment
+    partials. Children are (count, sum, m2) over the concatenated partial
+    table; the result is Chan's combination
+    ``m2_total = sum(m2_i) + sum(n_i * (mean_i - mean_total)^2)``."""
+
+    def __init__(self, count_expr: Expression, sum_expr: Expression,
+                 m2_expr: Expression):
+        self.children = (count_expr, sum_expr, m2_expr)
+
+    @property
+    def data_type(self):
+        return T.DOUBLE
+
+    @property
+    def child(self):
+        return None
+
+    def with_children(self, children):
+        return MergeMoments(children[0], children[1], children[2])

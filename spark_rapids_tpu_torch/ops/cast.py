@@ -15,9 +15,11 @@ implements them:
 
 The pairs are those the reference's ``cast_supported`` admits: DECIMAL128
 only to float/double, a decimal -> decimal rescale by at most 18 digits,
-and no float/double -> decimal. Casts to or from strings, dates and
-timestamps are not ported; every unported pair raises NotImplementedError
-when it binds.
+and no float/double -> decimal. A NULL literal (``void``) casts to any
+type as an all-null column in that type's storage (``T.promote`` coerces
+a NULL operand to the other operand's type). Casts to or from strings,
+dates and timestamps are not ported; every unported pair raises
+NotImplementedError when it binds.
 """
 
 from __future__ import annotations
@@ -43,7 +45,7 @@ _SIMPLE = (T.BooleanType, T.ByteType, T.ShortType, T.IntegerType,
 
 def cast_supported(src: T.DataType, dst: T.DataType) -> bool:
     """The numeric pairs of the reference's ``cast_supported``."""
-    if src == dst:
+    if src == dst or isinstance(src, T.NullType):
         return True
     dec_max = T.DecimalType.MAX_LONG_DIGITS
     if isinstance(src, T.DecimalType) or isinstance(dst, T.DecimalType):
@@ -155,6 +157,10 @@ class Cast(Expression):
         return Cast(bound[0], self._dtype)
 
     def prep(self, pctx, child_preps):
+        if isinstance(self.children[0].data_type, T.NullType) and \
+                isinstance(self._dtype, T.StringType):
+            # all-null codes over an empty dictionary
+            return NodePrep(out_dict=np.array([], dtype=object))
         # an integral widening keeps every value, so the (min, max) domain
         # carries over
         if _is_widening(self.children[0].data_type, self._dtype):
@@ -166,6 +172,12 @@ class Cast(Expression):
         src, dst = self.children[0].data_type, self._dtype
         if src == dst:
             return c
+        if isinstance(src, T.NullType):
+            from spark_rapids_tpu_torch.columnar.column import (
+                null_data_array,
+            )
+            return DevVal(null_data_array(dst, ctx.capacity, ctx.device),
+                          torch.zeros_like(c.validity))
         if isinstance(src, T.DecimalType) or isinstance(dst, T.DecimalType):
             return _cast_decimal(c, src, dst)
         data = _cast_simple(c.data, src, dst)

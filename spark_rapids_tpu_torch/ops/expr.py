@@ -303,9 +303,17 @@ class Literal(Expression):
     def eval_dev(self, ctx: EvalCtx, child_vals, prep) -> DevVal:
         if not isinstance(self._dtype, (T.NumericType, T.DateType,
                                         T.BooleanType, T.StringType,
-                                        T.NullType)) or T.is_dec128(
-                self._dtype):
+                                        T.NullType)) or (
+                T.is_dec128(self._dtype) and self.value is not None):
             _not_ported(f"{self._dtype.simple_string()} literal")
+        if self.value is None:
+            from spark_rapids_tpu_torch.columnar.column import (
+                null_data_array,
+            )
+            return DevVal(null_data_array(self._dtype, ctx.capacity,
+                                          ctx.device),
+                          torch.zeros(ctx.capacity, dtype=torch.bool,
+                                      device=ctx.device))
         fill = self.value if self.value is not None else 0
         dtype = torch.int32
         if isinstance(self._dtype, T.StringType):

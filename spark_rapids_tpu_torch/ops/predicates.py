@@ -5,7 +5,10 @@ and In; the reference's InSet, which no API of the port builds, is not
 ported).
 
 Comparison operands of different numeric types meet at their promoted
-type through Casts (``coerce_numeric_pair``). Floats compare in Spark's
+type through Casts (``coerce_numeric_pair``); a NULL literal operand
+(``void``) is cast to the other operand's type, as ``T.promote`` coerces
+it, so ``x = NULL`` is null on every row and ``x <=> NULL`` is
+``x IS NULL``. Floats compare in Spark's
 total order: NaN equals NaN and is greater than every other value, and
 -0.0 equals 0.0. DECIMAL128 limb pairs compare by a three-way sign (the
 high limbs signed, then the low limbs unsigned). ``==``/``<=>`` between a
@@ -82,11 +85,13 @@ def _compare(op, ld: torch.Tensor, rd: torch.Tensor) -> torch.Tensor:
 
 def _string_literal_side(left, right):
     """(string column side, literal value) when one side is a string
-    literal and the other a string expression, else None."""
+    literal (or a NULL one) and the other a string expression, else
+    None."""
     for c, other in ((left, right), (right, left)):
         if (isinstance(c.data_type, T.StringType)
                 and isinstance(other, Literal)
-                and isinstance(other.data_type, T.StringType)):
+                and isinstance(other.data_type, (T.StringType,
+                                                 T.NullType))):
             return c, other.value
     return None
 
@@ -374,6 +379,8 @@ class StringEqualsLiteral(Expression):
         v = child_vals[0]
         eq = (v.data == prep.lookup_code) & v.validity
         if not self.null_safe:
+            if self.value is None:  # = NULL is null on every row
+                return DevVal(eq, torch.zeros_like(v.validity))
             return DevVal(eq, v.validity)
         if self.value is None:
             eq = ~v.validity  # null <=> null

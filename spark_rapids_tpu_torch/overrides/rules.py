@@ -1,6 +1,6 @@
 """Tag and convert plan nodes into device execs (port of the LocalScan,
-Project, Filter, Aggregate, Sort, Join, TakeOrderedAndProject, WindowNode,
-WindowGroupLimit and Exchange rules of
+Project, Filter, Aggregate, Sort, Join, Limit, TakeOrderedAndProject,
+WindowNode, WindowGroupLimit and Exchange rules of
 ``spark_rapids_tpu/overrides/rules.py``, the column pruning and the
 window group-limit rewrite its ``apply_overrides`` runs first, and
 ``lore.assign_lore_ids``: every exec gets its plan position, pre-order
@@ -18,16 +18,22 @@ from spark_rapids_tpu_torch.execs.aggregate import (
     TpuHashAggregateExec,
     check_agg_supported,
 )
+from spark_rapids_tpu_torch.execs import basic as xbasic
 from spark_rapids_tpu_torch.execs.base import TpuExec
 from spark_rapids_tpu_torch.execs.basic import (
     TpuCoalesceExec,
     TpuFilterExec,
+    TpuLimitExec,
     TpuProjectExec,
     TpuScanExec,
 )
-from spark_rapids_tpu_torch.execs.broadcast import TpuBroadcastExchangeExec
+from spark_rapids_tpu_torch.execs.broadcast import (
+    TpuBroadcastExchangeExec,
+    TpuNestedLoopJoinExec,
+)
 from spark_rapids_tpu_torch.execs.fuse import peel_input_chain
 from spark_rapids_tpu_torch.execs.join import TpuJoinExec
+from spark_rapids_tpu_torch.execs import sort as xsort
 from spark_rapids_tpu_torch.execs.sort import (
     TpuSortExec,
     TpuTakeOrderedAndProjectExec,
@@ -36,30 +42,58 @@ from spark_rapids_tpu_torch.overrides.pruning import prune_plan
 from spark_rapids_tpu_torch.plan import nodes as P
 
 
-def _tag(node: P.PlanNode) -> None:
+def _tag(node: P.PlanNode, conf: C.RapidsConf) -> None:
     if isinstance(node, P.Aggregate):
         for _, fn in node.agg_specs:
             check_agg_supported(fn)
     elif isinstance(node, P.Sort) and not node.global_sort:
         raise NotImplementedError("a per-partition (local) sort is not ported")
     elif isinstance(node, P.Join):
-        jt = node.join_type.lower().replace("_", "")
-        if jt != "inner" or not node.left_keys or node.condition is not None:
-            raise NotImplementedError(
-                f"{node.join_type} join"
-                f"{' with a condition' if node.condition is not None else ''}"
-                " is not ported (inner equi-joins only)")
-    elif isinstance(node, P.Limit):
-        raise NotImplementedError("a LIMIT without an ORDER BY (CollectLimit) "
-                                  "is not ported")
+        _tag_join(node, conf)
     elif isinstance(node, P.WindowNode):
         _tag_window(node)
     elif isinstance(node, P.Exchange):
         _tag_exchange(node)
     elif not isinstance(node, (P.LocalScan, P.Project, P.Filter, P.Sort,
-                               P.TakeOrderedAndProject, P.WindowGroupLimit)):
+                               P.Limit, P.TakeOrderedAndProject,
+                               P.WindowGroupLimit)):
         raise NotImplementedError(
             f"plan node {node.name} is not ported to spark_rapids_tpu_torch")
+
+
+def _tag_join(node: P.Join, conf: C.RapidsConf) -> None:
+    """The reference's join tag: where it falls back to the CPU, the port
+    raises with its reason."""
+    from spark_rapids_tpu_torch import types as T
+    jt = node.join_type
+    if len(node.left_keys) != len(node.right_keys):
+        raise NotImplementedError(
+            f"join key count mismatch: {len(node.left_keys)} vs "
+            f"{len(node.right_keys)}")
+    for lk, rk in zip(node.left_keys, node.right_keys):
+        if lk.data_type != rk.data_type:
+            try:
+                T.promote(lk.data_type, rk.data_type)
+            except TypeError:
+                raise NotImplementedError(
+                    f"join key types {lk.data_type} vs {rk.data_type} "
+                    "incompatible") from None
+    if node.condition is not None and not node.left_keys:
+        # keyless nested-loop join: the build side is broadcast whole; a
+        # KNOWN oversized build must not exhaust the device
+        build = node.children[0 if jt == "right" else 1]
+        est = build.estimate_bytes()
+        limit = 8 * conf.get_entry(C.BROADCAST_SIZE_BYTES)
+        if est is not None and est > limit:
+            raise NotImplementedError(
+                f"nested-loop build side estimate {est}B exceeds "
+                f"8x broadcastSizeBytes ({limit}B)")
+    if node.condition is not None and node.left_keys and \
+            jt not in ("inner", "cross"):
+        # equi keys + a residual condition on an outer, semi or anti join:
+        # a post-filter would change which rows match
+        raise NotImplementedError(
+            f"non-equi condition on equi {jt} join is not supported")
 
 
 def _tag_window(node: P.WindowNode) -> None:
@@ -162,23 +196,28 @@ def _insert_window_group_limits(node: P.PlanNode) -> P.PlanNode:
 def _convert_aggregate(node: P.Aggregate, child: TpuExec,
                        conf: C.RapidsConf) -> TpuExec:
     # the Project/Filter chain below fuses into the aggregate (the
-    # reference's spark.rapids.tpu.agg.fuseInput default)
+    # reference's spark.rapids.tpu.agg.fuseInput default); its input then
+    # coalesces to the batch-size target, so only inputs past it stream
+    # through the partial-per-batch merge
     ngroup = len(node.grouping)
     exprs = list(node.grouping) + [fn for _, fn in node.agg_specs]
     child, exprs, filters = peel_input_chain(child, exprs)
     grouping = exprs[:ngroup]
     agg_specs = [(n, fn) for (n, _), fn in zip(node.agg_specs, exprs[ngroup:])]
     return TpuHashAggregateExec(
-        child, grouping, agg_specs, node.grouping_names, filters=filters,
+        TpuCoalesceExec(child, target_bytes=xbasic.BATCH_SIZE_BYTES),
+        grouping, agg_specs, node.grouping_names, filters=filters,
         max_dict_groups=conf.get_entry(C.AGG_MAX_DICT_GROUPS),
         max_domain_groups=conf.get_entry(C.AGG_MAX_KEY_DOMAIN_GROUPS))
 
 
 def _convert_join(node: P.Join, children, conf: C.RapidsConf) -> TpuExec:
-    """The build (right) side is broadcast when its size estimate is under
-    the threshold, else coalesced into one batch; the probe (left) side
-    streams through a coalesce. Key pairs of different types cast to
-    their common type."""
+    """A keyless join with a condition, or a keyless join of any type but
+    cross, runs as a broadcast nested-loop join. Otherwise the build side
+    (the left one for a right outer join, else the right one) is broadcast
+    when its size estimate is under the threshold, else coalesced into one
+    batch, and the probe side streams through a coalesce. Key pairs of
+    different types cast to their common type."""
     from spark_rapids_tpu_torch import types as T
     from spark_rapids_tpu_torch.ops.cast import Cast, check_cast
     lkeys, rkeys = list(node.left_keys), list(node.right_keys)
@@ -189,21 +228,41 @@ def _convert_join(node: P.Join, children, conf: C.RapidsConf) -> TpuExec:
                 if k.data_type != target:
                     check_cast(k.data_type, target)
                     keys[i] = Cast(k, target)
-    est = node.children[1].estimate_bytes()
-    if est is not None and est <= conf.get_entry(C.BROADCAST_SIZE_BYTES):
-        right = TpuBroadcastExchangeExec(children[1])
+    jt = node.join_type
+    swapped = jt == "right"
+    lschema = node.children[0].output_schema()
+    rschema = node.children[1].output_schema()
+    if not lkeys and (node.condition is not None or jt != "cross"):
+        if swapped:
+            left = TpuBroadcastExchangeExec(children[0])
+            right = TpuCoalesceExec(children[1])
+        else:
+            left = TpuCoalesceExec(children[0])
+            right = TpuBroadcastExchangeExec(children[1])
+        return TpuNestedLoopJoinExec(left, right, node.join_type,
+                                     node.condition, lschema, rschema)
+    build_node = node.children[0] if swapped else node.children[1]
+    est = build_node.estimate_bytes()
+
+    def wrap_build(child):
+        if est is not None and est <= conf.get_entry(C.BROADCAST_SIZE_BYTES):
+            return TpuBroadcastExchangeExec(child)
+        return TpuCoalesceExec(child, require_single=True)
+
+    if swapped:
+        left, right = wrap_build(children[0]), TpuCoalesceExec(children[1])
     else:
-        right = TpuCoalesceExec(children[1], require_single=True)
-    left = TpuCoalesceExec(children[0])
+        left, right = TpuCoalesceExec(children[0]), wrap_build(children[1])
     return TpuJoinExec(
-        left, right, node.join_type, lkeys, rkeys,
-        node.children[0].output_schema(), node.children[1].output_schema(),
-        direct_table_mult=conf.get_entry(C.JOIN_DIRECT_TABLE_MULT),
-        hashprobe_attempts=conf.get_entry(C.KERNELS_HASHPROBE_ATTEMPTS))
+        left, right, node.join_type, lkeys, rkeys, node.condition, lschema,
+        rschema, direct_table_mult=conf.get_entry(C.JOIN_DIRECT_TABLE_MULT),
+        hashprobe_attempts=conf.get_entry(C.KERNELS_HASHPROBE_ATTEMPTS),
+        subpartition_bytes=conf.get_entry(C.JOIN_SUBPARTITION_BYTES),
+        max_subpartitions=conf.get_entry(C.JOIN_MAX_SUBPARTITIONS))
 
 
 def _convert(node: P.PlanNode, conf: C.RapidsConf, device) -> TpuExec:
-    _tag(node)
+    _tag(node, conf)
     children = [_convert(c, conf, device) for c in node.children]
     if isinstance(node, P.LocalScan):
         policy = BucketPolicy(conf.get_entry(C.SHAPE_BUCKETS_MIN))
@@ -216,6 +275,8 @@ def _convert(node: P.PlanNode, conf: C.RapidsConf, device) -> TpuExec:
         return _convert_aggregate(node, children[0], conf)
     if isinstance(node, P.Join):
         return _convert_join(node, children, conf)
+    if isinstance(node, P.Limit):
+        return TpuLimitExec(children[0], node.limit)
     if isinstance(node, P.TakeOrderedAndProject):
         return TpuTakeOrderedAndProjectExec(children[0], node.orders,
                                             node.limit)
@@ -234,7 +295,12 @@ def _convert(node: P.PlanNode, conf: C.RapidsConf, device) -> TpuExec:
         )
         return TpuShuffleExchangeExec(children[0], node.partitioning,
                                       node.num_partitions, node.keys)
-    return TpuSortExec(children[0], node.orders)
+    # the pre-sort coalesce stops at the out-of-core threshold, as the
+    # reference's (past it, the sort raises)
+    return TpuSortExec(TpuCoalesceExec(
+        children[0], target_bytes=min(xbasic.BATCH_SIZE_BYTES,
+                                      xsort.OUT_OF_CORE_THRESHOLD_BYTES)),
+        node.orders)
 
 
 def convert(node: P.PlanNode, conf: C.RapidsConf, device) -> TpuExec:

@@ -1,6 +1,7 @@
 """DataFrame API (port of the DataFrame/GroupedData/from_host_table part
 of ``spark_rapids_tpu/plan/dataframe.py``: select, with_column, filter,
-group_by, agg, sort, limit, join on column names, with_windows,
+group_by, agg, sort, limit, join (on column names, on a condition, or
+a cross join), with_windows,
 repartition, columns, schema and temp views): builds plan nodes; a
 session executes them."""
 
@@ -77,20 +78,26 @@ class DataFrame:
             # top-k, no full sorted materialization: Spark's planner rule)
             return self._wrap(P.TakeOrderedAndProject(
                 self.plan.children[0], self.plan.orders, n))
+        # LIMIT without ordering: the reference's CollectLimit
         return self._wrap(P.Limit(self.plan, n))
 
     def join(self, other: "DataFrame", on=None,
              how: str = "inner") -> "DataFrame":
-        """Equi-join on one or more column names present on both sides,
-        of any ``how``: the overrides raise for the join types the port
-        lacks (outer, semi, anti) when the plan runs."""
+        """``on=None``: a cross join; ``on=<Expression>``: a keyless join
+        of type ``how`` on that condition over both sides (the nested-loop
+        join); ``on=<name or names>``: an equi-join on columns present on
+        both sides."""
+        if on is None:
+            return self._wrap(P.Join(self.plan, other.plan, "cross", [], []))
+        if isinstance(on, Expression):
+            return self._wrap(P.Join(self.plan, other.plan, how, [], [],
+                                     condition=on))
         if isinstance(on, str):
             on = [on]
         if not (isinstance(on, (list, tuple)) and on
                 and all(isinstance(k, str) for k in on)):
-            raise NotImplementedError(
-                "join without column-name keys (a cross join or a join "
-                "condition) is not ported")
+            raise ValueError("join `on` must be a column name, a list of "
+                             "names, or a condition Expression")
         return self._wrap(P.Join(self.plan, other.plan, how,
                                  [col(k) for k in on], [col(k) for k in on]))
 

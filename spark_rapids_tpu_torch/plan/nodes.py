@@ -167,8 +167,9 @@ class Sort(PlanNode):
 
 
 class Limit(PlanNode):
-    """LIMIT n without an ordering (the port plans ORDER BY + LIMIT as
-    TakeOrderedAndProject and has no exec for a bare limit yet)."""
+    """LIMIT n without an ordering: the reference's CollectLimit (the
+    first n rows in batch order; ORDER BY + LIMIT plans as
+    TakeOrderedAndProject)."""
 
     def __init__(self, child: PlanNode, limit: int):
         self.children = (child,)
@@ -181,16 +182,39 @@ class Limit(PlanNode):
         return self.children[0].estimate_bytes()
 
 
+#: Spark's spellings of each join type (lower case, "_" removed) -> the
+#: one name the plan and the execs use
+_JOIN_TYPE_NAMES = {
+    "inner": "inner", "cross": "cross",
+    "left": "left", "leftouter": "left",
+    "right": "right", "rightouter": "right",
+    "full": "full", "fullouter": "full", "outer": "full",
+    "leftsemi": "leftsemi", "leftanti": "leftanti"}
+
+
+def normalize_join_type(join_type: str) -> str:
+    """The one name (inner, cross, left, right, full, leftsemi, leftanti)
+    of a join type in any of Spark's spellings."""
+    jt = _JOIN_TYPE_NAMES.get(join_type.lower().replace("_", ""))
+    if jt is None:
+        raise NotImplementedError(f"join type {join_type} is not supported")
+    return jt
+
+
 class Join(PlanNode):
-    """Equi-join. The output schema is the left schema then the right one
-    (a join on a column name keeps both key columns, as the reference)."""
+    """Join of any type (inner, cross, left, right, full, leftsemi,
+    leftanti; ``join_type`` in any of Spark's spellings, kept as its one
+    name) on equi keys and/or a condition over both sides. The output
+    schema is the left schema then the right one (a join on a column name
+    keeps both key columns, as the reference); semi and anti joins output
+    the left side only."""
 
     def __init__(self, left: PlanNode, right: PlanNode, join_type: str,
                  left_keys: Sequence[Expression],
                  right_keys: Sequence[Expression],
                  condition: Optional[Expression] = None):
         self.children = (left, right)
-        self.join_type = join_type
+        self.join_type = normalize_join_type(join_type)
         ls, rs = left.output_schema(), right.output_schema()
         self.left_keys = [bind(k, ls) for k in left_keys]
         self.right_keys = [bind(k, rs) for k in right_keys]

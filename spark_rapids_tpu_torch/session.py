@@ -12,7 +12,7 @@ from typing import Dict, Optional
 from spark_rapids_tpu_torch import resolve_device
 from spark_rapids_tpu_torch.columnar import HostTable
 from spark_rapids_tpu_torch.conf import SPECULATIVE_SIZING, RapidsConf
-from spark_rapids_tpu_torch.execs.base import TpuExec, single_batch
+from spark_rapids_tpu_torch.execs.base import TpuExec
 from spark_rapids_tpu_torch.plan import nodes as P
 from spark_rapids_tpu_torch.runtime import speculation as spec
 
@@ -73,14 +73,14 @@ class TorchSession:
                     table = _drain(root)
                     spec.current().validate_remaining()
                     self._last_replays = attempt
-                    return table.to_host()
+                    return table
                 except spec.SpeculationFailed as sf:
                     spec.blocklist(sf.sites)
                 finally:
                     spec.deactivate(tok)
             self._last_replays = MAX_ATTEMPTS
         _reset_metrics(root)
-        return _drain(root).to_host()
+        return _drain(root)
 
     def last_metrics(self) -> Dict[str, int]:
         """Metrics of the most recent execute(): the replay count and every
@@ -96,10 +96,17 @@ class TorchSession:
         return out
 
 
-def _drain(root: TpuExec):
-    # a LocalScan holds at least one batch and every ported exec yields
-    # one batch per input batch
-    return single_batch(root.execute(), "a query result")
+def _drain(root: TpuExec) -> HostTable:
+    """The root's batches concatenated on the device and downloaded (an
+    empty table of the root's schema when it yields none)."""
+    from spark_rapids_tpu_torch.columnar.table import (
+        concat_device,
+        empty_host_table,
+    )
+    batches = list(root.execute())
+    if not batches:
+        return empty_host_table(root.output_schema())
+    return concat_device(batches).to_host()
 
 
 def _reset_metrics(root: TpuExec) -> None:

@@ -25,11 +25,13 @@ Unsupported constructs raise SqlAnalysisError with the query position
 and an overrides-style per-construct reason.
 
 In the port, a construct whose plan node exists lowers exactly as in the
-reference, and the overrides raise for it at collect as they do for the
-DSL (outer, semi, anti and cross joins, join conditions, IN and scalar
-subqueries, a bare LIMIT). A construct whose node or expression the port
-lacks raises NotImplementedError naming it while it is lowered: UNION,
-SELECT without FROM, DATE +/- INTERVAL, LIKE/RLIKE and ``||``."""
+reference and runs as the DSL's form does (outer, semi, anti and cross
+joins, join conditions, IN and NOT IN and scalar subqueries, a bare
+LIMIT); where the reference falls back to its CPU (an outer, semi or
+anti join with equi keys plus a residual condition), the overrides raise
+at collect. A construct whose node or expression the port lacks raises
+NotImplementedError naming it while it is lowered: UNION, SELECT without
+FROM, DATE +/- INTERVAL, LIKE/RLIKE and ``||``."""
 
 from __future__ import annotations
 
@@ -244,8 +246,7 @@ class Analyzer:
         how = rel.how
         if how == "cross":
             rs, _ = self._disambiguate_right(ls, rs)
-            # the Join node itself (the DataFrame's join takes column-name
-            # keys only): the overrides raise for it at collect
+            # the Join node itself, as the reference builds it
             df = DataFrame(P.Join(ls.df.plan, rs.df.plan, "cross", [], []),
                            self.session)
             return Scope(df, {**ls.aliases, **rs.aliases},

@@ -255,6 +255,28 @@ def test_repartition_then_group_by_matches_reference(how):
         "roundrobin_at_the_limit": 32}[how]
 
 
+@pytest.mark.parametrize("how", ["hash", "roundrobin"])
+def test_repartition_then_sort_matches_reference(how):
+    """repartition -> sort: the split's views pass the pre-sort coalesce
+    one by one and the sort concatenates them (rows in the reference's
+    order, every column a sort key)."""
+    arrays = _li()
+
+    def q(frm, session):
+        df = frm(
+            _reference_table(*arrays) if frm is jfrom
+            else host_table_from_arrays(*arrays), session)
+        df = df.repartition(8, "k") if how == "hash" else df.repartition(5)
+        return df.sort("flag", "qty", "k")
+
+    ref = q(jfrom, TpuSession()).collect_table()
+    s = TorchSession(device="cpu")
+    got = q(tfrom, s).collect_table()
+    assert tables_differ(_as_reference(got), ref) is None
+    assert s.last_metrics()["maskedPassthrough"] == {"hash": 8,
+                                                     "roundrobin": 5}[how]
+
+
 def _split_views(table, nparts, token):
     pids = torch.arange(table.capacity) % nparts
     views = []
@@ -292,8 +314,9 @@ def test_views_merge_only_within_one_split():
 
 def test_aggregate_over_two_filter_views_is_not_merged():
     """An aggregate whose input yields two unsplit views of one batch
-    keeps them apart: the port's aggregate then raises for a second
-    batch (multi-batch merge is not ported) instead of OR-ing masks."""
+    keeps them apart: it aggregates each as its own batch and merges the
+    partials (rows 0-59 and 40-99: 120 rows counted, the 20 shared rows
+    twice) instead of OR-ing the masks (which would count 100)."""
     from spark_rapids_tpu_torch.execs.aggregate import TpuHashAggregateExec
     from spark_rapids_tpu_torch.execs.base import TpuExec
     from spark_rapids_tpu_torch.ops import aggregates as A
@@ -313,9 +336,9 @@ def test_aggregate_over_two_filter_views_is_not_merged():
     schema = TwoFilters().output_schema()
     agg = TpuHashAggregateExec(TwoFilters(), [], [
         ("c", A.Count(tcol("qty").bind(schema)))], [])
-    with pytest.raises(NotImplementedError, match="more than one input "
-                                                  "batch"):
-        list(agg.execute())
+    (out,) = agg.execute()
+    assert out.to_host().columns[0].data.tolist() == [120]
+    assert agg.metrics["partialAggBatches"] == 2
 
 
 def test_execute_yields_each_partition_compacted():

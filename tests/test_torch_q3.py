@@ -373,36 +373,53 @@ def test_sort_segment_aggregate_speculative_shrink(monkeypatch):
         assert tsess.last_metrics()["speculationReplays"] == replays
 
 
-def test_conf_keys_and_unported_shapes():
+def test_conf_keys_and_unported_shapes(monkeypatch):
     """The slice's conf keys are accepted with the reference's names; an
-    attempts value outside [1, 8] raises when read; a bare LIMIT, a
-    non-inner join and an unported operator refuse by name."""
+    attempts value outside [1, 8] raises when read; an outer join with
+    equi keys plus a residual condition, a sort past the out-of-core
+    threshold and an unported operator refuse by name."""
     from spark_rapids_tpu_torch import conf as C
+    from spark_rapids_tpu_torch.execs import sort as xsort
     from spark_rapids_tpu_torch.ops.expr import col
     from spark_rapids_tpu_torch.plan import from_host_table
+    from spark_rapids_tpu_torch.plan import nodes as P
 
     conf = C.RapidsConf({
         "spark.rapids.tpu.join.directTableMultiplier": "2",
         "spark.rapids.tpu.speculativeSizing.enabled": "false",
         "spark.rapids.sql.broadcastSizeBytes": "0",
         "spark.rapids.tpu.agg.maxKeyDomainGroups": "0",
-        "spark.rapids.tpu.kernels.hashprobe.attempts": "8"})
+        "spark.rapids.tpu.kernels.hashprobe.attempts": "8",
+        "spark.rapids.sql.join.subPartition.targetBytes": "4096",
+        "spark.rapids.sql.join.maxSubPartitions": "8"})
     assert conf.get_entry(C.JOIN_DIRECT_TABLE_MULT) == 2
     assert conf.get_entry(C.SPECULATIVE_SIZING) is False
     assert conf.get_entry(C.KERNELS_HASHPROBE_ATTEMPTS) == 8
+    assert conf.get_entry(C.JOIN_SUBPARTITION_BYTES) == 4096
+    assert conf.get_entry(C.JOIN_MAX_SUBPARTITIONS) == 8
+    assert C.RapidsConf().get_entry(C.JOIN_SUBPARTITION_BYTES) == 1 << 30
+    assert C.RapidsConf().get_entry(C.JOIN_MAX_SUBPARTITIONS) == 64
     for bad in ("0", "9"):
         with pytest.raises(ValueError, match="attempts"):
             C.RapidsConf({"spark.rapids.tpu.kernels.hashprobe.attempts":
                           bad}).get_entry(C.KERNELS_HASHPROBE_ATTEMPTS)
 
     sess = TorchSession(device="cpu")
-    t = host_table_from_arrays(["k"], ["bigint"],
-                               [(np.arange(10, dtype=np.int64), _ones(10))])
-    with pytest.raises(NotImplementedError, match="LIMIT"):
-        from_host_table(t, sess).limit(3).collect_table()
-    with pytest.raises(NotImplementedError, match="inner"):
-        from_host_table(t, sess).join(from_host_table(t, sess), on="k",
-                                      how="left").collect_table()
+    t = host_table_from_arrays(["k", "v"], ["bigint", "bigint"],
+                               [(np.arange(10, dtype=np.int64), _ones(10)),
+                                (np.arange(10, dtype=np.int64), _ones(10))])
+    df = from_host_table(t, sess)
+    outer = df._wrap(P.Join(df.plan, df.plan, "left", [col("k")],
+                            [col("k")], condition=col("v") > col("k")))
+    with pytest.raises(NotImplementedError,
+                       match="non-equi condition on equi left join"):
+        outer.collect_table()
+    # three batches of 2,304 device bytes (128-row buckets), each past a
+    # 256-byte threshold: the pre-sort coalesce passes them on one by one,
+    # and the sort refuses the second
+    monkeypatch.setattr(xsort, "OUT_OF_CORE_THRESHOLD_BYTES", 256)
+    with pytest.raises(NotImplementedError, match="outOfCoreThresholdBytes"):
+        from_host_table(t, sess, num_batches=3).sort("v").collect_table()
     with pytest.raises(NotImplementedError, match="Remainder"):
         col("k") % 3  # noqa: B018
 
