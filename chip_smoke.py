@@ -75,16 +75,25 @@ Phases, in order; any failure exits non-zero:
    checks of phase 7: each result against a numpy oracle (sparse J3's
    over the mapped keys; sparse J12 against the dense result), the
    sub-partitioned ones against their unsplit results;
-11. the summary lines: one ``{"kernels": [...]}`` JSON line (launches of
+11. the operator queries O1-O8 (``OPS_QUERIES``) on the same tables and
+   ``lineitem_dec`` (lineitem with DECIMAL(15,2) quantity, price,
+   discount and tax, a TIMESTAMP and a comment, built on the host): TPC-H
+   q1's text over the decimals (its DECIMAL128 products on the card),
+   MIN/MAX of every type, FIRST/LAST per customer, UNION ALL and UNION,
+   modular and sign arithmetic, a 2^26-row range and a SELECT without
+   FROM, a 1% sample and a cached filter read twice, with the numbers and
+   checks of phase 7 against numpy oracles (decimals, counts, MIN/MAX and
+   FIRST/LAST exact, f64 sums rtol 1e-9);
+12. the summary lines: one ``{"kernels": [...]}`` JSON line (launches of
    the main path: q1's, sparse q3's probes, q8's MIN/MAX, plus every
-   phase-7, phase-8, phase-9 and phase-10 query's), the card line, and
-   last ``{"ok": true, "device": {...}}``.
+   phase-7, phase-8, phase-9, phase-10 and phase-11 query's), the card
+   line, and last ``{"ok": true, "device": {...}}``.
 
 Each phase logs its wall time. It needs one CUDA card and exits non-zero
 without one. ``--profile DIR`` also writes a torch.profiler table and
 trace of one warm run of q1, of each q3 form, of each phase-6, phase-7
-and phase-8 query, of phase 9's conditional query and of J1, J7, J8 and
-J9.
+and phase-8 query, of phase 9's conditional query, of J1, J7, J8 and J9
+and of O1, O2, O3, O4a, O5, O6a and O7.
 """
 
 from __future__ import annotations
@@ -2840,6 +2849,457 @@ def run_joins(tables, sf: float, profile_dir) -> dict:
     return total
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the operator queries (decimal arithmetic, MIN/MAX of every
+# type, FIRST/LAST, UNION, range, sample and cache)
+# ---------------------------------------------------------------------------
+
+#: the corpus q1's shipdate cutoff (days since 1970), O1's and O7's
+OPS_CUTOFF_DAY = 10500
+#: O6's range: 64 batches of 2^20 rows (512 MiB of ids)
+OPS_RANGE_ROWS = 1 << 26
+#: O8's cached filter
+OPS_CACHE_PRICE = 250000.0
+
+
+def _iso(day: int) -> str:
+    import datetime as dt
+    return (dt.date(1970, 1, 1) + dt.timedelta(days=day)).isoformat()
+
+
+#: the SQL texts of the operator query set: O1 is TPC-H q1 as the
+#: specification writes it (the integer 1 in its arithmetic) over the
+#: DECIMAL(15,2) view; O2 the MIN/MAX of every type; O4 the UNIONs; O6b
+#: a SELECT without FROM
+OPS_SQL = {
+    "O1": f"""
+SELECT l_returnflag, l_linestatus,
+       SUM(l_quantity) AS sum_qty,
+       SUM(l_extendedprice) AS sum_base_price,
+       SUM(l_extendedprice * (1 - l_discount)) AS sum_disc_price,
+       SUM(l_extendedprice * (1 - l_discount) * (1 + l_tax)) AS sum_charge,
+       AVG(l_quantity) AS avg_qty,
+       AVG(l_extendedprice) AS avg_price,
+       AVG(l_discount) AS avg_disc,
+       COUNT(*) AS count_order
+FROM lineitem_dec
+WHERE l_shipdate <= DATE '{_iso(OPS_CUTOFF_DAY)}'
+GROUP BY l_returnflag, l_linestatus
+ORDER BY l_returnflag, l_linestatus""",
+    "O2": """
+SELECT l_returnflag, l_linestatus,
+       MIN(CAST(l_quantity AS TINYINT)) AS min_q8,
+       MAX(CAST(l_quantity AS TINYINT)) AS max_q8,
+       MIN(CAST(l_quantity AS SMALLINT)) AS min_q16,
+       MAX(CAST(l_quantity AS SMALLINT)) AS max_q16,
+       MIN(CAST(l_tax AS FLOAT)) AS min_tax,
+       MAX(CAST(l_tax AS FLOAT)) AS max_tax,
+       MIN(l_tax > 0.04) AS min_high_tax,
+       MAX(l_tax > 0.04) AS max_high_tax,
+       MIN(l_shipts) AS first_ship,
+       MAX(l_shipts) AS last_ship,
+       MIN(l_comment) AS min_comment,
+       MAX(l_comment) AS max_comment,
+       MIN(l_extendedprice) AS min_price,
+       MAX(l_extendedprice) AS max_price,
+       MIN(l_extendedprice * l_quantity) AS min_volume,
+       MAX(l_extendedprice * l_quantity) AS max_volume
+FROM lineitem_dec
+GROUP BY l_returnflag, l_linestatus
+ORDER BY l_returnflag, l_linestatus""",
+    "O4a": f"""
+SELECT l_returnflag, SUM(l_quantity) AS sum_qty,
+       SUM(l_extendedprice) AS sum_price, COUNT(*) AS n
+FROM (SELECT l_returnflag, l_quantity, l_extendedprice FROM lineitem
+      WHERE l_shipdate < DATE '{_iso(8500)}'
+      UNION ALL
+      SELECT l_returnflag, l_quantity, l_extendedprice FROM lineitem
+      WHERE l_shipdate >= DATE '{_iso(10500)}')
+GROUP BY l_returnflag
+ORDER BY l_returnflag""",
+    "O4b": f"""
+SELECT COUNT(*) AS n
+FROM (SELECT o_custkey FROM orders WHERE o_orderdate < DATE '{_iso(8200)}'
+      UNION
+      SELECT o_custkey FROM orders WHERE o_totalprice > 450000.0)""",
+    "O6b": "SELECT 1 + 2 AS three, abs(-3) AS abs3, -(4) AS neg4",
+}
+
+#: the order phase 11 runs them in
+OPS_QUERIES = ("O1", "O2", "O3", "O4a", "O4b", "O5", "O6a", "O6b", "O7",
+               "O8a", "O8b")
+
+
+def port_api():
+    """The port's expression constructors, as ``ops_queries`` takes them
+    (a test passes the reference package's instead)."""
+    from types import SimpleNamespace
+
+    from spark_rapids_tpu_torch import functions as F
+    from spark_rapids_tpu_torch.ops import arithmetic as A
+    from spark_rapids_tpu_torch.ops.expr import col, lit
+    return SimpleNamespace(F=F, col=col, lit=lit, Pmod=A.Pmod,
+                           IntegralDivide=A.IntegralDivide)
+
+
+def lineitem_dec(tables, seed: int):
+    """The lineitem rows of ``tables`` with l_quantity, l_extendedprice,
+    l_discount and l_tax as DECIMAL(15,2) (unscaled ``round(v * 100)``: the
+    discount falls in 0.00-0.10 and the tax in 0.00-0.08, as dbgen's),
+    l_shipts (a TIMESTAMP: l_shipdate's midnight plus a seeded second of
+    the day) and l_comment (up to 24 characters, 2% null, drawn from 2^16
+    strings made by the datagen's generator). l_tax comes from the
+    lineitem spec's own generator at ``seed``. A port HostTable."""
+    from spark_rapids_tpu_torch.datagen import RandomString, scale_test_specs
+    from spark_rapids_tpu_torch.interop import host_table_from_arrays
+    li = tables["lineitem"]
+    L = host_cols(li)
+    n = li.num_rows
+    spec = scale_test_specs(1.0)["lineitem"]
+    tax = dict(spec.columns)["l_tax"].generate(n, seed, "lineitem",
+                                               "l_tax").data
+    rng = np.random.default_rng(seed + 1000)
+    pool = np.array(RandomString(max_len=24).values(1 << 16, rng),
+                    dtype=object)
+    comment = pool[rng.integers(0, len(pool), n)]
+    comment_ok = rng.random(n) >= 0.02
+    ship_ts = (L["l_shipdate"].astype(np.int64) * 86_400_000_000
+               + rng.integers(0, 86_400, n) * 1_000_000)
+
+    def cents(v):
+        return np.round(np.asarray(v, dtype=np.float64) * 100).astype(
+            np.int64)
+
+    ones = np.ones(n, bool)
+    cols = {
+        "l_returnflag": ("string", L["l_returnflag"]),
+        "l_linestatus": ("string", L["l_linestatus"]),
+        "l_quantity": ("decimal(15,2)", cents(L["l_quantity"])),
+        "l_extendedprice": ("decimal(15,2)", cents(L["l_extendedprice"])),
+        "l_discount": ("decimal(15,2)", cents(L["l_discount"])),
+        "l_tax": ("decimal(15,2)", cents(tax)),
+        "l_shipdate": ("date", L["l_shipdate"]),
+        "l_shipts": ("timestamp", ship_ts),
+        "l_comment": ("string", comment),
+    }
+    return host_table_from_arrays(
+        list(cols), [t for t, _ in cols.values()],
+        [(v, comment_ok if name == "l_comment" else ones)
+         for name, (_, v) in cols.items()])
+
+
+def ops_queries(session, api, range_rows: int = OPS_RANGE_ROWS):
+    """{name: () -> DataFrame} of O1-O8 over ``session``'s temp views
+    lineitem, orders and lineitem_dec, built with ``api``'s constructors
+    (``port_api``, or the reference package's in a test). O8's cached
+    filter is made once here: its first run materializes it, and every
+    later run of O8a and O8b scans the kept table."""
+    import datetime as dt
+    F, col, lit = api.F, api.col, api.lit
+    cutoff = dt.date(1970, 1, 1) + dt.timedelta(days=OPS_CUTOFF_DAY)
+    cached = session.table("orders").filter(
+        col("o_totalprice") > lit(OPS_CACHE_PRICE)).cache()
+
+    def sql(name):
+        return lambda: session.sql(OPS_SQL[name])
+
+    def o3():
+        return session.table("orders").group_by("o_custkey").agg(
+            F.first("o_orderdate").alias("first_date"),
+            F.last("o_totalprice").alias("last_price"),
+            F.first("o_orderkey").alias("first_order"),
+            F.count("*").alias("n"))
+
+    def o5():
+        key = col("l_orderkey")
+        return session.table("lineitem").group_by(
+            (key % lit(16)).alias("bucket")).agg(
+            F.sum(-col("l_quantity")).alias("neg_qty"),
+            F.max(F.abs(col("l_extendedprice") - lit(50000.0))).alias(
+                "max_dev"),
+            F.sum(api.Pmod(key - lit(5000000), lit(7))).alias("pmod_sum"),
+            F.max(api.IntegralDivide(key, lit(1000))).alias("max_div"),
+            F.count("*").alias("n")).sort("bucket")
+
+    def o6a():
+        ids = col("id")
+        return session.range(0, range_rows).agg(
+            F.sum(ids % lit(7)).alias("sum_mod7"),
+            F.max(-ids).alias("max_neg"), F.count("*").alias("n"))
+
+    def o7():
+        return (session.table("lineitem").sample(0.01, seed=7)
+                .filter(col("l_shipdate") <= lit(cutoff))
+                .group_by("l_returnflag", "l_linestatus")
+                .agg(F.sum("l_quantity").alias("sum_qty"),
+                     F.sum("l_extendedprice").alias("sum_base"),
+                     F.avg("l_discount").alias("avg_disc"),
+                     F.count("l_quantity").alias("cnt")))
+
+    def o8a():
+        return cached.group_by("o_custkey").agg(
+            F.count("*").alias("n"), F.max("o_totalprice").alias("top"))
+
+    def o8b():
+        return cached.agg(F.sum("o_totalprice").alias("total"),
+                          F.min("o_orderdate").alias("first_date"),
+                          F.count("*").alias("n"))
+
+    out = {"O1": sql("O1"), "O2": sql("O2"), "O3": o3, "O4a": sql("O4a"),
+           "O4b": sql("O4b"), "O5": o5, "O6a": o6a, "O6b": sql("O6b"),
+           "O7": o7, "O8a": o8a, "O8b": o8b}
+    out["cached"] = cached
+    return out
+
+
+def ops_oracles(tables, dec, range_rows: int = OPS_RANGE_ROWS):
+    """{query: check(got)} of O1-O8 in numpy from the host tables and the
+    decimal view: decimals (as Python ints where the result is DECIMAL128),
+    counts, MIN/MAX and FIRST/LAST exact, the AVG of a decimal as the
+    port computes it (the exact sum as a double over count x 100), f64
+    sums rtol 1e-9."""
+    L, O, D = (host_cols(t) for t in (tables["lineitem"], tables["orders"],
+                                       dec))
+    i64 = np.int64
+    out = {}
+
+    def codes(table, name):
+        c = table.columns[table.names.index(name)]
+        return c.encoded()
+
+    rf, rf_dict = codes(dec, "l_returnflag")
+    ls, ls_dict = codes(dec, "l_linestatus")
+    nls = len(ls_dict)
+
+    def flag_groups(mask):
+        """(group index of each masked row, the present groups' flag and
+        status strings, the group count) in (flag, status) order."""
+        g = rf[mask].astype(i64) * nls + ls[mask]
+        present, inv = np.unique(g, return_inverse=True)
+        return (inv, np.asarray(rf_dict, dtype=object)[present // nls],
+                np.asarray(ls_dict, dtype=object)[present % nls],
+                len(present))
+
+    def pyints(v):
+        return np.array([int(x) for x in v], dtype=object)
+
+    sorted_by = {}
+
+    def per_group(inv, k, values, fn):
+        """``fn`` (a ufunc) reduced over each of ``inv``'s k groups (every
+        group present), with one argsort per grouping."""
+        key = id(inv)
+        if key not in sorted_by:
+            order = np.argsort(inv, kind="stable")
+            sorted_by[key] = (inv, order, np.searchsorted(inv[order],
+                                                          np.arange(k)))
+        _, order, starts = sorted_by[key]
+        return fn.reduceat(values[order], starts)
+
+    # O1: q1 over DECIMAL(15,2), unscaled int64 sums (below 1.2e18 at
+    # sf 10: 10.5e6 x 100 x 108 a row)
+    m = D["l_shipdate"] <= OPS_CUTOFF_DAY
+    inv, f, s, k = flag_groups(m)
+    qty, price = D["l_quantity"][m], D["l_extendedprice"][m]
+    disc, tax = D["l_discount"][m], D["l_tax"][m]
+    n = np.bincount(inv, minlength=k).astype(i64)
+
+    def isum(v):
+        return per_group(inv, k, v.astype(i64), np.add)
+
+    def avg(total):
+        return np.array([float(int(t)) / (float(c) * 100.0)
+                         for t, c in zip(total, n)])
+
+    sq, sp, sd = isum(qty), isum(price), isum(disc)
+    want = {"l_returnflag": f, "l_linestatus": s, "sum_qty": pyints(sq),
+            "sum_base_price": pyints(sp),
+            "sum_disc_price": pyints(isum(price * (100 - disc))),
+            "sum_charge": pyints(isum(price * (100 - disc) * (100 + tax))),
+            "avg_qty": avg(sq), "avg_price": avg(sp), "avg_disc": avg(sd),
+            "count_order": n}
+    out["O1"] = lambda g, w=want: check_table(g, w, "O1")
+    # O2: MIN/MAX of every type per (flag, status)
+    inv, f, s, k = flag_groups(np.ones(len(rf), bool))
+    qd, tx = D["l_quantity"], D["l_tax"]
+    ctab = dec.columns[dec.names.index("l_comment")]
+    ccodes, cdict = ctab.encoded()
+    cok = ctab.validity
+    big = np.iinfo(i64).max
+    want = {"l_returnflag": f, "l_linestatus": s}
+    vals = {"q8": (qd // 100).astype(np.int8),
+            "q16": (qd // 100).astype(np.int16),
+            "tax": (tx.astype(np.float64) / 100.0).astype(np.float32),
+            "high_tax": tx.astype(np.float64) / 100.0 > 0.04,
+            "ship": D["l_shipts"]}
+    for tag, (lo_name, hi_name) in {
+            "q8": ("min_q8", "max_q8"), "q16": ("min_q16", "max_q16"),
+            "tax": ("min_tax", "max_tax"),
+            "high_tax": ("min_high_tax", "max_high_tax"),
+            "ship": ("first_ship", "last_ship")}.items():
+        want[lo_name] = per_group(inv, k, vals[tag], np.minimum)
+        want[hi_name] = per_group(inv, k, vals[tag], np.maximum)
+    ccodes = ccodes.astype(i64)
+    cmin = per_group(inv, k, np.where(cok, ccodes, big), np.minimum)
+    cmax = per_group(inv, k, np.where(cok, ccodes, -1), np.maximum)
+    want["min_comment"] = np.asarray(cdict, dtype=object)[cmin]
+    want["max_comment"] = np.asarray(cdict, dtype=object)[cmax]
+    want["min_price"] = per_group(inv, k, D["l_extendedprice"], np.minimum)
+    want["max_price"] = per_group(inv, k, D["l_extendedprice"], np.maximum)
+    volume = D["l_extendedprice"] * qd
+    want["min_volume"] = pyints(per_group(inv, k, volume, np.minimum))
+    want["max_volume"] = pyints(per_group(inv, k, volume, np.maximum))
+    out["O2"] = lambda g, w=want: check_table(g, w, "O2")
+    # O3: the first and last order of each customer, in row order
+    cust = O["o_custkey"]
+    keys, first = np.unique(cust, return_index=True)
+    last = len(cust) - 1 - np.unique(cust[::-1], return_index=True)[1]
+    want = {"o_custkey": keys, "first_date": O["o_orderdate"][first],
+            "last_price": O["o_totalprice"][last],
+            "first_order": O["o_orderkey"][first],
+            "n": np.bincount(cust)[keys].astype(i64)}
+    out["O3"] = lambda g, w=want: check_table(g, w, "O3",
+                                              key=("o_custkey",))
+    # O4a: the two date arms, per flag
+    li = tables["lineitem"]
+    lrf, lrf_dict = codes(li, "l_returnflag")
+    m = (L["l_shipdate"] < 8500) | (L["l_shipdate"] >= 10500)
+    present, inv = np.unique(lrf[m], return_inverse=True)
+    k = len(present)
+    want = {"l_returnflag": np.asarray(lrf_dict, dtype=object)[present],
+            "sum_qty": per_group(inv, k, L["l_quantity"][m].astype(i64),
+                                 np.add),
+            "sum_price": np.bincount(inv, weights=L["l_extendedprice"][m],
+                                     minlength=k),
+            "n": np.bincount(inv, minlength=k).astype(i64)}
+    out["O4a"] = lambda g, w=want: check_table(g, w, "O4a",
+                                               f64=("sum_price",))
+    # O4b: distinct customers of the two order filters
+    m = (O["o_orderdate"] < 8200) | (O["o_totalprice"] > 450000.0)
+    want = {"n": np.array([len(np.unique(cust[m]))], dtype=i64)}
+    out["O4b"] = lambda g, w=want: check_table(g, w, "O4b")
+    # O5: buckets of l_orderkey (all non-negative)
+    ok = L["l_orderkey"].astype(i64)
+    bucket = ok % 16
+    present, inv = np.unique(bucket, return_inverse=True)
+    k = len(present)
+
+    def bsum(v):
+        return per_group(inv, k, v, np.add)
+
+    dev = np.abs(L["l_extendedprice"] - 50000.0)
+    want = {"bucket": present, "neg_qty": bsum(-L["l_quantity"].astype(i64)),
+            "max_dev": per_group(inv, k, dev, np.maximum),
+            "pmod_sum": bsum(np.mod(ok - 5000000, 7)),
+            "max_div": per_group(inv, k, ok // 1000, np.maximum),
+            "n": np.bincount(inv, minlength=k).astype(i64)}
+    out["O5"] = lambda g, w=want: check_table(g, w, "O5")
+    # O6: the range's closed forms, and the constant row
+    full, rest = divmod(range_rows, 7)
+    want = {"sum_mod7": np.array([full * 21 + rest * (rest - 1) // 2],
+                                 dtype=i64),
+            "max_neg": np.array([0], dtype=i64),
+            "n": np.array([range_rows], dtype=i64)}
+    out["O6a"] = lambda g, w=want: check_table(g, w, "O6a")
+    want = {"three": np.array([3], dtype=np.int32),
+            "abs3": np.array([3], dtype=np.int32),
+            "neg4": np.array([-4], dtype=np.int32)}
+    out["O6b"] = lambda g, w=want: check_table(g, w, "O6b")
+    # O7: the reference's draw (one batch), then the corpus q1's aggregate
+    keep = np.random.default_rng(7).random(li.num_rows) < 0.01
+    m = keep & (L["l_shipdate"] <= OPS_CUTOFF_DAY)
+    g = lrf[m].astype(i64) * 2 + codes(li, "l_linestatus")[0][m]
+    present, inv = np.unique(g, return_inverse=True)
+    k = len(present)
+    ls_dict_li = codes(li, "l_linestatus")[1]
+    acc = per_group(inv, k, L["l_quantity"][m].astype(i64), np.add)
+    cnt = np.bincount(inv, minlength=k).astype(i64)
+    want = {"l_returnflag": np.asarray(lrf_dict, dtype=object)[present // 2],
+            "l_linestatus": np.asarray(ls_dict_li, dtype=object)[present % 2],
+            "sum_qty": acc,
+            "sum_base": np.bincount(inv, weights=L["l_extendedprice"][m],
+                                    minlength=k),
+            "avg_disc": np.bincount(inv, weights=L["l_discount"][m],
+                                    minlength=k) / cnt,
+            "cnt": cnt}
+    out["O7"] = lambda g, w=want: check_table(
+        g, w, "O7", key=("l_returnflag", "l_linestatus"),
+        f64=("sum_base", "avg_disc"))
+    # O8: the cached filter, grouped and global
+    m = O["o_totalprice"] > OPS_CACHE_PRICE
+    keys, inv = np.unique(cust[m], return_inverse=True)
+    want = {"o_custkey": keys,
+            "n": np.bincount(inv).astype(i64),
+            "top": per_group(inv, len(keys), O["o_totalprice"][m],
+                             np.maximum)}
+    out["O8a"] = lambda g, w=want: check_table(g, w, "O8a",
+                                               key=("o_custkey",))
+    want = {"total": np.array([O["o_totalprice"][m].sum()]),
+            "first_date": np.array([O["o_orderdate"][m].min()],
+                                   dtype=O["o_orderdate"].dtype),
+            "n": np.array([int(m.sum())], dtype=i64)}
+    out["O8b"] = lambda g, w=want: check_table(g, w, "O8b", f64=("total",))
+    return out
+
+
+def run_ops(tables, sf: float, seed: int, profile_dir) -> dict:
+    """Phase 11: O1-O8 (``OPS_QUERIES``) over temp views of phases 6-10's
+    tables and ``lineitem_dec``, each through ``run_case`` against its
+    numpy oracle; fused_minmax must run in O2 (MIN/MAX of every type) and
+    O3 (FIRST/LAST), and O8b must scan O8a's kept table (no filter exec).
+    ``--profile`` traces O1, O2, O3, O4a, O5, O6a and O7. Returns every
+    kernel's launches summed over the counted runs."""
+    from spark_rapids_tpu_torch.execs.basic import TpuFilterExec
+    from spark_rapids_tpu_torch.plan import from_host_table
+    from spark_rapids_tpu_torch.session import TorchSession
+
+    t0 = time.perf_counter()
+    dec = lineitem_dec(tables, seed)
+    log(f"  lineitem_dec ({dec.num_rows} rows, DECIMAL(15,2) quantity, "
+        "price, discount and tax, a TIMESTAMP and a comment) in "
+        f"{time.perf_counter() - t0:.2f} s (host)")
+    t0 = time.perf_counter()
+    oracles = ops_oracles(tables, dec, OPS_RANGE_ROWS)
+    log(f"  the numpy oracles in {time.perf_counter() - t0:.2f} s (host)")
+    session = TorchSession()
+    for name, t in (("lineitem", tables["lineitem"]),
+                    ("orders", tables["orders"]), ("lineitem_dec", dec)):
+        from_host_table(t, session).create_or_replace_temp_view(name)
+    queries = ops_queries(session, port_api(), OPS_RANGE_ROWS)
+    total, summary, results = {}, {}, {}
+    for name in OPS_QUERIES:
+        prof = profile_dir if name in ("O1", "O2", "O3", "O4a", "O5", "O6a",
+                                       "O7") else None
+        res = run_case(session, name, queries[name], oracles[name], prof)
+        results[name] = res
+        for k, v in res["launches"].items():
+            total[k] = total.get(k, 0) + v
+        summary[name] = dict(res["stats"], launches={
+            k: v for k, v in res["launches"].items() if v})
+        log(f"  {name}: result matches the numpy oracle")
+
+    def execs(e):
+        yield e
+        for c in e.children:
+            yield from execs(c)
+
+    if any(isinstance(e, TpuFilterExec)
+           for e in execs(session._last_root)):
+        fail("O8b ran the cached filter again")
+    if queries["cached"].plan._table is None:
+        fail("O8's cached relation did not materialize")
+    log("  O8b: scans the table O8a's first run kept (no filter exec)")
+    for q in ("O2", "O3"):
+        if not results[q]["launches"]["fused_minmax"]:
+            fail(f"{q} launched no fused_minmax")
+    for k in ("onehot_partials", "fused_minmax", "gather_compact",
+              "sort_with_payload"):
+        if not total.get(k):
+            fail(f"phase 11 launched no {k}")
+    log("  phase-11 summary: " + json.dumps(summary))
+    return total
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rows", type=int, default=6_001_215,
@@ -2952,7 +3412,14 @@ def main(argv=None) -> int:
         launches[k] += v
     log(f"  phase 10 ran {time.perf_counter() - t_phase:.1f} s")
 
-    log("phase 11: summary")
+    t_phase = time.perf_counter()
+    log("phase 11: the operator queries (O1-O8: DECIMAL(15,2) q1, MIN/MAX "
+        "of every type, FIRST/LAST, UNION, range, sample, cache)")
+    for k, v in run_ops(tables, args.sf, args.seed, args.profile).items():
+        launches[k] += v
+    log(f"  phase 11 ran {time.perf_counter() - t_phase:.1f} s")
+
+    log("phase 12: summary")
     for r in rows:
         r.update(route="cuda", source=SOURCES[r["name"]],
                  replaces=TPU_KERNELS[r["name"]],

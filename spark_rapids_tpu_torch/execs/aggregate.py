@@ -24,7 +24,18 @@ padded domain product) segments:
   rides one int64 ``index_add_``, never the f64 partials: integer sums
   are exact in any order, so they are the reference's bits on the card;
 * every MIN/MAX is one ``segment_minmax_64`` (the ``fused_minmax``
-  kernel), INT and DATE values widened to int64 for it;
+  kernel): BYTE, SHORT, INT, BOOLEAN, DATE, TIMESTAMP, DECIMAL64 and a
+  string's sorted-dictionary codes widen to its int64 keys, FLOAT to
+  f64, and narrow back; a DECIMAL128 is two launches, the signed high
+  limbs, then the low limbs (unsigned, through a top-bit flip) of the
+  rows that tie on the winning high limb (the reference's
+  ``_dec128_minmax_segments``). A string over an unsorted dictionary
+  raises;
+* every FIRST/LAST picks a row position per segment, the least or the
+  greatest live (with ``ignore_nulls``, non-null) row's, through the
+  same kernel over int64 positions, and gathers its value: the no-sort
+  path keeps input order, the sort-segment path's stable sort keeps it
+  within a group;
 * the group slots that exist are packed through the compaction kernel
   (ops/scatter32.py).
 
@@ -46,7 +57,8 @@ MULTI-BATCH MERGE (the reference's streaming merge): each input batch
 aggregates to a partial and shrinks to its groups' bucket (one host read
 a batch), the partials concatenate, one merge aggregation re-groups them
 and a finalize projection gives each result (``_merge_plan``: COUNT ->
-SUM of counts, SUM -> SUM of sums, MIN/MAX -> themselves, AVG -> SUM and
+SUM of counts, SUM -> SUM of sums, MIN/MAX and FIRST/LAST ->
+themselves (the partials concatenate in batch order), AVG -> SUM and
 COUNT then their quotient, variance and stddev -> COUNT, SUM and
 VariancePop then the Chan combination ``MergeMoments``). Integer and
 decimal sums stay exact; a decimal SUM's merged sum keeps the SUM's type
@@ -60,8 +72,9 @@ the merge.
 Filters fused from the input chain (execs/fuse.py) are the row weight
 mask: a dropped row, or a padding row past ``nrows``, adds to no sum,
 count, extreme or group. What the slice does not reach raises
-NotImplementedError: MIN/MAX of other types than LONG, DOUBLE, INT and
-DATE, variance of DECIMAL128 and the other aggregate functions.
+NotImplementedError: variance of DECIMAL128, MIN/MAX over an unsorted
+string dictionary and the other aggregate functions (collect_list,
+collect_set, percentile).
 """
 
 from __future__ import annotations
@@ -102,8 +115,11 @@ EMBED_NROWS_CAP = 1 << 16
 _INT_KEY_TYPES = (T.ByteType, T.ShortType, T.IntegerType, T.LongType,
                   T.DateType, T.TimestampType)
 
-#: value types MIN/MAX take (INT and DATE widen to int64 for the kernel)
-_MINMAX_TYPES = (T.LongType, T.DoubleType, T.IntegerType, T.DateType)
+#: value types MIN/MAX and FIRST/LAST take (MIN/MAX widen each to the
+#: kernel's int64 or f64)
+_VALUE_TYPES = (T.LongType, T.DoubleType, T.IntegerType, T.DateType,
+                T.ByteType, T.ShortType, T.BooleanType, T.FloatType,
+                T.TimestampType, T.DecimalType, T.StringType)
 
 
 def check_agg_supported(fn: agg.AggregateFunction) -> None:
@@ -117,8 +133,8 @@ def check_agg_supported(fn: agg.AggregateFunction) -> None:
         if isinstance(fn.child.data_type, T.NumericType) and \
                 not T.is_dec128(fn.child.data_type):
             return
-    elif isinstance(fn, (agg.Min, agg.Max)):
-        if isinstance(fn.child.data_type, _MINMAX_TYPES):
+    elif isinstance(fn, (agg.Min, agg.Max, agg._Pick)):
+        if isinstance(fn.child.data_type, _VALUE_TYPES):
             return
     raise NotImplementedError(
         f"aggregate {fn.name} over "
@@ -126,18 +142,54 @@ def check_agg_supported(fn: agg.AggregateFunction) -> None:
         " is not ported")
 
 
+def _widen(data: torch.Tensor) -> torch.Tensor:
+    """Values as the kernel's keys: f32 as f64 (exact), every other
+    1-D type (bool, int8 .. int64, string codes) as int64."""
+    if data.dtype in (torch.int64, torch.float64):
+        return data
+    return data.to(torch.float64 if data.dtype == torch.float32
+                   else torch.int64)
+
+
 def _minmax(fn: agg.AggregateFunction, data: torch.Tensor,
             valid: torch.Tensor, gid: torch.Tensor, nseg: int,
             has_any: torch.Tensor):
-    """(data, validity) of one MIN/MAX over ``nseg`` segments: INT and DATE
-    values widen to int64 for the kernel and narrow back; slots without a
-    non-null value hold 0 and are null."""
-    wide = data if data.dtype in (torch.int64, torch.float64) else \
-        data.to(torch.int64)
-    r = segment_minmax_64(isinstance(fn, agg.Min), wide, valid, gid, nseg)
+    """(data, validity) of one MIN/MAX over ``nseg`` segments: values
+    widen to int64 or f64 for the kernel and narrow back (exact: the
+    result is one of the inputs); a DECIMAL128 is the reference's two-limb
+    reduction. Slots without a non-null value hold 0 and are null."""
+    is_min = isinstance(fn, agg.Min)
+    if data.ndim == 2:
+        # the kernel reads contiguous (n,) columns
+        hi, lo = data[:, 0].contiguous(), data[:, 1]
+        hi_m = segment_minmax_64(is_min, hi, valid, gid, nseg)
+        tie = valid & (hi == hi_m[gid.to(torch.int64)])
+        lo_m = segment_minmax_64(is_min, lo ^ dec._TOP64, tie, gid,
+                                 nseg) ^ dec._TOP64
+        r = torch.stack([hi_m, lo_m], dim=1)
+        return torch.where(has_any[:, None], r, torch.zeros_like(r)), has_any
+    r = segment_minmax_64(is_min, _widen(data), valid, gid, nseg)
     r = torch.where(has_any, r, torch.zeros((), dtype=r.dtype,
                                             device=r.device))
     return r.to(data.dtype), has_any
+
+
+def _pick(fn: agg.AggregateFunction, data: torch.Tensor, valid, live,
+          gid: torch.Tensor, nseg: int, exists: torch.Tensor):
+    """(data, validity) of one FIRST/LAST over ``nseg`` segments: the least
+    (FIRST) or greatest (LAST) row position among the segment's live rows
+    (with ``ignore_nulls``, its non-null ones), then that row's value;
+    null where the segment has no such row or its value is null."""
+    n = data.shape[0]
+    pos = torch.arange(n, dtype=torch.int64, device=data.device)
+    chosen = segment_minmax_64(isinstance(fn, agg.First), pos,
+                               valid if fn.ignore_nulls else live, gid, nseg)
+    got = (chosen >= 0) & (chosen < n) & exists
+    safe = chosen.clamp(0, n - 1)
+    validity = got & valid[safe]
+    out = data[safe]
+    mask = validity[:, None] if out.ndim == 2 else validity
+    return torch.where(mask, out, torch.zeros_like(out)), validity
 
 
 def _exact_sum(fn: agg.AggregateFunction) -> bool:
@@ -236,6 +288,8 @@ class TpuHashAggregateExec(TpuExec):
                      (a decimal SUM also counts its partials' overflows:
                      a null partial sum over rows nulls the result)
           Min/Max -> partial Min/Max      ; merge Min/Max         ; identity
+          First/  -> partial First/Last   ; merge First/Last      ; identity
+          Last       (the partials concatenate in batch order)
           Avg     -> partial Sum + Count  ; merge Sum each        ; s / n
           Var*/   -> partial Count + Sum + VariancePop ; merge Sum of the
           Stddev*    counts and MergeMoments (Chan) ; m2 / N or m2 / (N-1)
@@ -286,6 +340,10 @@ class TpuHashAggregateExec(TpuExec):
             elif isinstance(fn, (agg.Min, agg.Max)):
                 m = add_partial(f"__p{j}m", type(fn)(fn.child))
                 merge_specs.append((name, type(fn)(m)))
+                final_exprs.append(col(name))
+            elif isinstance(fn, agg._Pick):
+                f = add_partial(f"__p{j}f", fn)
+                merge_specs.append((name, type(fn)(f, fn.ignore_nulls)))
                 final_exprs.append(col(name))
             elif isinstance(fn, agg.Average):
                 s = add_partial(f"__p{j}s", agg.Sum(fn.child))
@@ -376,6 +434,16 @@ class TpuHashAggregateExec(TpuExec):
 
     def _aggregate(self, table: DeviceTable) -> DeviceTable:
         filter_preps, key_preps, val_preps = self._prep_all(table)
+        # a string aggregate's result keeps its value's dictionary; MIN/MAX
+        # compare codes, so that dictionary must be sorted
+        value_dicts = [per_child[0][-1] if per_child else None
+                       for per_child in val_preps]
+        for (_, fn), root in zip(self.agg_specs, value_dicts):
+            if isinstance(fn, (agg.Min, agg.Max)) and root is not None \
+                    and root.out_dict is not None and not root.dict_sorted:
+                raise NotImplementedError(
+                    f"aggregate {fn.name} over a string with an unsorted "
+                    "dictionary is not ported")
         fast = self._fast_layout(key_preps, table.capacity)
         if fast is None:
             out_arrays, ngroups = self._sort_kernel(
@@ -395,7 +463,13 @@ class TpuHashAggregateExec(TpuExec):
                                          domain=root.out_domain))
         for j, (_, fn) in enumerate(self.agg_specs):
             data, validity = out_arrays[len(self.grouping) + j]
-            out_cols.append(DeviceColumn(fn.data_type, data, validity))
+            root = value_dicts[j]
+            if isinstance(fn.data_type, T.StringType):
+                out_cols.append(DeviceColumn(fn.data_type, data, validity,
+                                             dictionary=root.out_dict,
+                                             dict_sorted=root.dict_sorted))
+            else:
+                out_cols.append(DeviceColumn(fn.data_type, data, validity))
         names = self.grouping_names + [n for n, _ in self.agg_specs]
         out = DeviceTable(names, out_cols, ngroups, out_capacity,
                           table.device)
@@ -524,8 +598,8 @@ class TpuHashAggregateExec(TpuExec):
                 return out
             return out.index_add_(0, gid, x)
 
-        pairs += self._reduce_specs(vvs, svs, gid, mcnt[:, 0], nonnulls,
-                                    exists, fsum, isum, gpad)
+        pairs += self._reduce_specs(vvs, svs, live, gid, mcnt[:, 0],
+                                    nonnulls, exists, fsum, isum, gpad)
 
         from spark_rapids_tpu_torch.ops.scatter32 import compact_pairs
         outs, _ = compact_pairs([d for d, _ in pairs], [v for _, v in pairs],
@@ -605,15 +679,17 @@ class TpuHashAggregateExec(TpuExec):
         svs = _spec_valids(vvs, live)
         nonnulls = {j: seg(sv.to(torch.int32))
                     for j, sv in enumerate(svs) if sv is not None}
-        return self._reduce_specs(vvs, svs, gid.clamp(max=capacity - 1),
+        return self._reduce_specs(vvs, svs, live,
+                                  gid.clamp(max=capacity - 1),
                                   seg(live.to(torch.int32)), nonnulls,
                                   group_live, stacked, stacked, capacity)
 
-    def _reduce_specs(self, vvs, svs, gid, live_cnt, nonnulls, exists,
-                      fsum, isum, nseg):
+    def _reduce_specs(self, vvs, svs, live, gid, live_cnt, nonnulls,
+                      exists, fsum, isum, nseg):
         """(data, validity) of every spec over ``nseg`` segments.
 
-        ``svs[j]``: spec j's valid live rows; ``gid``: each row's segment
+        ``svs[j]``: spec j's valid live rows; ``live``: the live rows (in
+        the order FIRST/LAST read); ``gid``: each row's segment
         in [0, nseg) (a dead row's is any slot: its values are masked);
         ``live_cnt``/``nonnulls[j]``: int32 counts of live rows and of
         spec j's non-null ones; ``exists``: the segments that are groups.
@@ -630,7 +706,7 @@ class TpuHashAggregateExec(TpuExec):
                     for v in vvs[j]]
 
         for j, (_, fn) in enumerate(self.agg_specs):
-            if isinstance(fn, (agg.Count, agg.Min, agg.Max)):
+            if isinstance(fn, (agg.Count, agg.Min, agg.Max, agg._Pick)):
                 continue
             if isinstance(fn, agg.MergeMoments):
                 fix[j] = len(fcols)
@@ -681,6 +757,9 @@ class TpuHashAggregateExec(TpuExec):
             if isinstance(fn, (agg.Min, agg.Max)):
                 outs.append(_minmax(fn, vvs[j][0].data, svs[j], gid, nseg,
                                     has_any))
+            elif isinstance(fn, agg._Pick):
+                outs.append(_pick(fn, vvs[j][0].data, svs[j], live, gid,
+                                  nseg, exists))
             elif isinstance(fn, agg._CentralMoment):
                 samp = isinstance(fn, (agg.StddevSamp, agg.VarianceSamp))
                 denom = (nonnull - 1 if samp else nonnull).clamp(min=1)

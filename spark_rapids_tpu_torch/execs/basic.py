@@ -1,13 +1,16 @@
-"""Scan, project, filter, coalesce and limit execs (port of the
-TpuScanExec, TpuProjectExec, TpuFilterExec, TpuCoalesceExec and
-TpuLimitExec parts of ``spark_rapids_tpu/execs/basic.py``)."""
+"""Scan, range, project, filter, union, expand, coalesce, limit and
+sample execs (port of the TpuScanExec, TpuRangeExec, TpuProjectExec,
+TpuFilterExec, TpuUnionExec, TpuExpandExec, TpuCoalesceExec, TpuLimitExec
+and TpuSampleExec parts of ``spark_rapids_tpu/execs/basic.py``)."""
 
 from __future__ import annotations
 
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 
+from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.columnar import (
     BucketPolicy,
     DeviceColumn,
@@ -62,6 +65,44 @@ class TpuScanExec(TpuExec):
                               b.num_rows, cap, self.device)
 
 
+class TpuRangeExec(TpuExec):
+    """spark.range made on the device: batches of ``batch_rows`` rows (the
+    last one shorter), each an arange in its capacity bucket; a range with
+    no rows yields one empty batch, as the reference's."""
+
+    def __init__(self, start: int, end: int, step: int, batch_rows: int,
+                 name: str, device: torch.device,
+                 bucket_policy: BucketPolicy):
+        self.start, self.end, self.step = start, end, step
+        self.batch_rows = batch_rows
+        self.col_name = name
+        self.device = device
+        self.bucket_policy = bucket_policy
+
+    def output_schema(self):
+        return [(self.col_name, T.LONG)]
+
+    def execute(self):
+        total = max(0, -(-(self.end - self.start) // self.step))
+        pos = 0
+        while True:
+            cnt = min(self.batch_rows, total - pos)
+            cap = self.bucket_policy.bucket_for(max(cnt, 1))
+            rows = torch.arange(cap, dtype=torch.int64, device=self.device)
+            data = rows * self.step + (self.start + pos * self.step)
+            validity = rows < cnt
+            data = torch.where(validity, data, torch.zeros_like(data))
+            col = DeviceColumn(T.LONG, data, validity)
+            # the row count made on the device (a host int would upload)
+            nrows = torch.full((), cnt, dtype=torch.int32, device=self.device)
+            out = DeviceTable([self.col_name], [col], nrows, cap, self.device)
+            out._nrows_host = cnt
+            yield out
+            pos += cnt
+            if pos >= total:
+                break
+
+
 class TpuProjectExec(TpuExec):
     produces_masked = True
 
@@ -109,6 +150,86 @@ def filter_table(table: DeviceTable, condition: Expression) -> DeviceTable:
     return DeviceTable(table.names, table.columns,
                        keep.sum(dtype=torch.int32), table.capacity,
                        table.device, live=keep)
+
+
+class TpuUnionExec(TpuExec):
+    """UNION ALL: each child's batches in turn (masked ones stay masked),
+    under the first child's column names."""
+
+    produces_masked = True
+
+    def __init__(self, children: Sequence[TpuExec]):
+        self.children = tuple(children)
+
+    def output_schema(self):
+        return self.children[0].output_schema()
+
+    def execute_masked(self):
+        names = [n for n, _ in self.output_schema()]
+        for c in self.children:
+            for b in c.execute_masked():
+                out = DeviceTable(names, b.columns, b.nrows_dev, b.capacity,
+                                  b.device, live=b.live)
+                out._nrows_host = b._nrows_host
+                yield out
+
+
+class TpuExpandExec(TpuExec):
+    """Each input batch yields one output batch per projection, masked as
+    the input is (the reference's GpuExpandExec)."""
+
+    produces_masked = True
+
+    def __init__(self, child: TpuExec,
+                 projections: Sequence[Sequence[Expression]],
+                 names: Sequence[str]):
+        self.children = (child,)
+        self.projections = [list(p) for p in projections]
+        self.names = list(names)
+
+    def output_schema(self):
+        return [(n, e.data_type)
+                for n, e in zip(self.names, self.projections[0])]
+
+    def execute_masked(self):
+        for batch in self.children[0].execute_masked():
+            for proj in self.projections:
+                cols = compile_project(proj, batch)
+                yield DeviceTable(self.names, cols, batch.nrows_dev,
+                                  batch.capacity, batch.device,
+                                  live=batch.live)
+
+
+class TpuSampleExec(TpuExec):
+    """Bernoulli sample: each prefix batch's keep-mask is drawn on the host
+    from ``numpy.random.default_rng(seed)`` (one stream over the batches,
+    ``rng.random(n) < fraction`` for its n rows, exactly as the
+    reference's), uploaded, and the kept rows compact through the
+    compaction kernel. The row count is read on the host once a batch."""
+
+    def __init__(self, child: TpuExec, fraction: float, seed: int):
+        self.children = (child,)
+        self.fraction = float(fraction)
+        self.seed = int(seed)
+
+    def output_schema(self):
+        return self.children[0].output_schema()
+
+    def execute(self):
+        from spark_rapids_tpu_torch.ops.scatter32 import compact_pairs
+        rng = np.random.default_rng(self.seed)
+        for batch in self.children[0].execute():
+            n = batch.num_rows  # host sync: the draw needs the row count
+            keep_host = np.zeros(batch.capacity, dtype=np.bool_)
+            keep_host[:n] = rng.random(n) < self.fraction
+            keep = torch.from_numpy(keep_host).to(batch.device)
+            outs, new_n = compact_pairs([c.data for c in batch.columns],
+                                        [c.validity for c in batch.columns],
+                                        keep, batch.capacity)
+            cols = [c.with_arrays(d, v)
+                    for c, (d, v) in zip(batch.columns, outs)]
+            yield DeviceTable(batch.names, cols, new_n, batch.capacity,
+                              batch.device)
 
 
 #: the reference's default ``spark.rapids.sql.batchSizeBytes``: the target

@@ -52,6 +52,19 @@ def var_pop(e):
     return _agg.VariancePop(_e(e))
 
 
+def first(e, ignore_nulls=False):
+    return _agg.First(_e(e), ignore_nulls)
+
+
+def last(e, ignore_nulls=False):
+    return _agg.Last(_e(e), ignore_nulls)
+
+
+def abs(e):  # noqa: A001
+    from spark_rapids_tpu_torch.ops.arithmetic import Abs
+    return Abs(_e(e))
+
+
 def isnull(e):
     from spark_rapids_tpu_torch.ops.predicates import IsNull
     return IsNull(_e(e))

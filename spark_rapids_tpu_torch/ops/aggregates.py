@@ -1,10 +1,11 @@
 """Aggregate function declarations (port of the Sum, Min, Max, Count,
-Average, StddevPop, StddevSamp, VariancePop, VarianceSamp and MergeMoments
-part of ``spark_rapids_tpu/ops/aggregates.py``). The aggregate exec
-interprets them; Spark's result types: sum(float/double) -> DOUBLE,
-sum(integral) -> LONG, sum(decimal(p, s)) -> decimal(min(38, p + 10), s),
-min/max -> the child's type, avg, variance and stddev -> DOUBLE (also
-over a decimal), count -> LONG (never null). MergeMoments is internal to
+Average, First, Last, StddevPop, StddevSamp, VariancePop, VarianceSamp and
+MergeMoments part of ``spark_rapids_tpu/ops/aggregates.py``). The
+aggregate exec interprets them; Spark's result types: sum(float/double)
+-> DOUBLE, sum(integral) -> LONG, sum(decimal(p, s)) ->
+decimal(min(38, p + 10), s), min/max/first/last -> the child's type, avg,
+variance and stddev -> DOUBLE (also over a decimal), count -> LONG (never
+null). MergeMoments is internal to
 the multi-batch merge (execs/aggregate.py ``_merge_plan``)."""
 
 from __future__ import annotations
@@ -88,6 +89,34 @@ class Average(AggregateFunction):
     @property
     def data_type(self):
         return T.DOUBLE
+
+
+class _Pick(AggregateFunction):
+    """First and Last: one row's value per group, picked by position."""
+
+    def __init__(self, child=None, ignore_nulls: bool = False):
+        super().__init__(child)
+        self.ignore_nulls = ignore_nulls
+
+    def with_children(self, children):
+        return type(self)(children[0], self.ignore_nulls)
+
+    @property
+    def data_type(self):
+        return self.child.data_type
+
+    def __repr__(self):
+        return f"{self.name}({self.child!r}, ignore_nulls={self.ignore_nulls})"
+
+
+class First(_Pick):
+    """The value of each group's first row (in input order); with
+    ``ignore_nulls``, its first non-null value."""
+
+
+class Last(_Pick):
+    """The value of each group's last row; with ``ignore_nulls``, its last
+    non-null value."""
 
 
 class _CentralMoment(AggregateFunction):

@@ -1,14 +1,21 @@
-"""Arithmetic with Spark's (non-ANSI, Java) semantics (port of the Add,
-Subtract, Multiply and Divide part of ``spark_rapids_tpu/ops/
-arithmetic.py``).
+"""Arithmetic with Spark's (non-ANSI, Java) semantics (port of
+``spark_rapids_tpu/ops/arithmetic.py``: Add, Subtract, Multiply, Divide,
+IntegralDivide, Remainder, Pmod, UnaryMinus, UnaryPositive and Abs).
 
 Operands of different numeric types meet at their promoted type through
 Casts (``coerce_numeric_pair``); integer results wrap on overflow (two's
 complement, like Java). Divide casts both sides to DOUBLE and returns
-NULL on a zero divisor. A decimal operand beside a float or double casts
-to DOUBLE (Spark's coercion); arithmetic between decimals, or between a
-decimal and an integral type, needs the reference's decimal operators
-(``DecimalAdd``, ...), which are not ported and raise naming themselves.
+NULL on a zero divisor; IntegralDivide casts both sides to LONG and
+truncates toward zero; Remainder and Pmod take Java's % (the sign of the
+dividend) and return NULL on a zero divisor. A decimal operand beside a
+float or double casts to DOUBLE (Spark's coercion); between decimals, or a
+decimal and an integral type (cast through ``decimal_for``), the
+arithmetic becomes the reference's decimal operator (ops/decimal.py).
+
+Integer division and fmod by zero, and INT_MIN by -1, trap on the CPU:
+every divisor is made safe first (a zero divisor's row is null, and x % -1
+is 0 and x div -1 is -x, wrapped, without dividing). Negation and abs
+wrap at INT_MIN as Java's do.
 """
 
 from __future__ import annotations
@@ -18,6 +25,7 @@ import torch
 from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.ops.common import (
     BinaryExpression,
+    UnaryExpression,
     coerce_numeric_pair,
     null_and,
 )
@@ -34,19 +42,97 @@ def _check_numeric(name: str, lt: T.DataType, rt: T.DataType) -> None:
                 "is not ported (numeric operands only)")
 
 
-def _decimal_to_double(name: str, bound):
-    """Spark's coercion of a decimal operand: with a float or double
-    beside it, both sides become DOUBLE; otherwise the reference's decimal
-    operator, which raises."""
+def _as_decimals(name: str, bound):
+    """Both operands as decimals: an integral one cast to its
+    ``decimal_for`` type (Spark's coercion)."""
+    from spark_rapids_tpu_torch.errors import ColumnarProcessingError
     from spark_rapids_tpu_torch.ops import decimal as dec
     from spark_rapids_tpu_torch.ops.cast import make_cast
+    out = []
+    for e in bound:
+        d = dec.decimal_for(e.data_type)
+        if d is None:
+            raise ColumnarProcessingError(
+                f"cannot mix {e.data_type.simple_string()} with decimal "
+                f"{name} (cast explicitly)")
+        out.append(make_cast(e, d))
+    return out
+
+
+def _unary(expr, child):
+    if not isinstance(child.data_type, T.NumericType):
+        raise NotImplementedError(
+            f"{expr.name} of {child.data_type.simple_string()} is not "
+            "ported (numeric operands only)")
+    return type(expr)(child)
+
+
+def _decimal_operands(bound):
+    """None when no operand is a decimal; the operands cast to DOUBLE when
+    a float or double meets a decimal; else ``()``: decimal arithmetic."""
+    from spark_rapids_tpu_torch.ops.cast import make_cast
     lt, rt = bound[0].data_type, bound[1].data_type
+    if not (isinstance(lt, T.DecimalType) or isinstance(rt, T.DecimalType)):
+        return None
     if isinstance(lt, _FLOATS) or isinstance(rt, _FLOATS):
         return [make_cast(e, T.DOUBLE) for e in bound]
-    dec.decimal_binary(name, lt, rt)
+    return ()
+
+
+def _not_zero(x: torch.Tensor) -> torch.Tensor:
+    return x != 0
+
+
+def _safe_divisor(d: torch.Tensor, integral: bool) -> torch.Tensor:
+    """``d`` with every zero (and, for integers, every -1) replaced by 1:
+    division by those traps on the CPU; callers handle their rows."""
+    bad = d == 0
+    if integral:
+        bad = bad | (d == -1)
+    return torch.where(bad, torch.ones_like(d), d)
+
+
+def _wrap_neg(x: torch.Tensor) -> torch.Tensor:
+    """-x with two's-complement wrap for integers (-INT_MIN == INT_MIN)."""
+    if x.is_floating_point():
+        return -x
+    return ~x + 1
+
+
+#: (bits dtype, quiet bit, default NaN bits: the sign set) of a float
+_NAN_BITS = {torch.float64: (torch.int64, 1 << 51, -(1 << 51)),
+             torch.float32: (torch.int32, 1 << 22, -(1 << 22))}
+
+
+def _c_fmod_nan(r: torch.Tensor, a: torch.Tensor,
+                b: torch.Tensor) -> torch.Tensor:
+    """fmod's NaN results with the bits of the C library's fmod on x86
+    (numpy's and XLA's on the CPU, the reference's): the dividend's NaN,
+    else the divisor's, quieted, else the default NaN (its sign set).
+    torch's own NaN bits differ by backend and from these."""
+    bits, quiet, default = _NAN_BITS[r.dtype]
+    dflt = torch.full((), default, dtype=bits, device=r.device).view(
+        r.dtype)
+    pick = torch.where(torch.isnan(a), a, torch.where(torch.isnan(b), b,
+                                                        dflt))
+    pick = (pick.view(bits) | quiet).view(r.dtype)
+    return torch.where(torch.isnan(r), pick, r)
+
+
+def _java_mod(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Java's % (fmod: the sign of the dividend); rows with b == 0 are the
+    caller's to null; x % -1 is 0."""
+    if a.is_floating_point():
+        b = _safe_divisor(b, False)
+        return _c_fmod_nan(torch.fmod(a, b), a, b)
+    r = torch.fmod(a, _safe_divisor(b, True))
+    return torch.where(b == -1, torch.zeros_like(r), r)
 
 
 class BinaryArithmetic(BinaryExpression):
+    #: the reference's decimal operator this one becomes over decimals
+    decimal_impl = None
+
     @property
     def data_type(self):
         return self.left.data_type
@@ -54,11 +140,19 @@ class BinaryArithmetic(BinaryExpression):
     def resolve(self, bound):
         lt, rt = bound[0].data_type, bound[1].data_type
         _check_numeric(self.name, lt, rt)
-        if isinstance(lt, T.DecimalType) or isinstance(rt, T.DecimalType):
-            left, right = _decimal_to_double(self.name, bound)
+        dec_ops = _decimal_operands(bound)
+        if dec_ops == ():
+            left, right = _as_decimals(self.name, bound)
+            return self._decimal_impl()(left, right).resolve([left, right])
+        if dec_ops is not None:
+            left, right = dec_ops
         else:
             left, right, _ = coerce_numeric_pair(*bound)
         return type(self)(left, right)
+
+    def _decimal_impl(self):
+        from spark_rapids_tpu_torch.ops import decimal as dec
+        return getattr(dec, self.decimal_impl)
 
     def _dev_op(self, ld, rd):
         raise NotImplementedError
@@ -72,22 +166,30 @@ class BinaryArithmetic(BinaryExpression):
 
 
 class Add(BinaryArithmetic):
+    decimal_impl = "DecimalAdd"
+
     def _dev_op(self, ld, rd):
         return ld + rd
 
 
 class Subtract(BinaryArithmetic):
+    decimal_impl = "DecimalSubtract"
+
     def _dev_op(self, ld, rd):
         return ld - rd
 
 
 class Multiply(BinaryArithmetic):
+    decimal_impl = "DecimalMultiply"
+
     def _dev_op(self, ld, rd):
         return ld * rd
 
 
 class Divide(BinaryArithmetic):
     """Double division; NULL on a zero divisor (Spark non-ANSI)."""
+
+    decimal_impl = "DecimalDivide"
 
     @property
     def data_type(self):
@@ -97,10 +199,10 @@ class Divide(BinaryArithmetic):
         from spark_rapids_tpu_torch.ops.cast import make_cast
         lt, rt = bound[0].data_type, bound[1].data_type
         _check_numeric(self.name, lt, rt)
-        if isinstance(lt, T.DecimalType) or isinstance(rt, T.DecimalType):
-            left, right = _decimal_to_double(self.name, bound)
-        else:
-            left, right = (make_cast(e, T.DOUBLE) for e in bound)
+        dec_ops = _decimal_operands(bound)
+        if dec_ops == ():
+            return super().resolve(bound)
+        left, right = (make_cast(e, T.DOUBLE) for e in bound)
         return Divide(left, right)
 
     def eval_dev(self, ctx, child_vals, prep):
@@ -110,3 +212,126 @@ class Divide(BinaryArithmetic):
         safe = torch.where(nonzero, rval.data, torch.ones_like(rval.data))
         return DevVal(torch.where(validity, lval.data / safe,
                                   torch.zeros_like(lval.data)), validity)
+
+
+class IntegralDivide(BinaryArithmetic):
+    """``div``: both operands cast to LONG, truncating division, NULL on a
+    zero divisor; over decimals the exact decimal quotient (DecimalDivide)
+    truncated to LONG (7.5 div 0.5 is 15)."""
+
+    @property
+    def data_type(self):
+        return T.LONG
+
+    def resolve(self, bound):
+        from spark_rapids_tpu_torch.ops import decimal as dec
+        from spark_rapids_tpu_torch.ops.cast import make_cast
+        _check_numeric(self.name, bound[0].data_type, bound[1].data_type)
+        if any(isinstance(e.data_type, T.DecimalType) for e in bound):
+            out = []
+            for e in bound:
+                if dec.decimal_for(e.data_type) is None:
+                    e = make_cast(e, T.LONG)
+                out.append(make_cast(e, dec.decimal_for(e.data_type)))
+            quotient = dec.DecimalDivide(out[0], out[1]).resolve(out)
+            return make_cast(quotient, T.LONG)
+        return IntegralDivide(*(make_cast(e, T.LONG) for e in bound))
+
+    def eval_dev(self, ctx, child_vals, prep):
+        lval, rval = child_vals
+        a, b = lval.data, rval.data
+        validity = lval.validity & rval.validity & _not_zero(b)
+        q = torch.div(a, _safe_divisor(b, True), rounding_mode="trunc")
+        q = torch.where(b == -1, _wrap_neg(a), q)
+        return DevVal(torch.where(validity, q, torch.zeros_like(q)),
+                      validity)
+
+
+class Remainder(BinaryArithmetic):
+    """% with Java semantics (the sign of the dividend), NULL on a zero
+    divisor."""
+
+    decimal_impl = "DecimalRemainder"
+
+    def eval_dev(self, ctx, child_vals, prep):
+        lval, rval = child_vals
+        validity = lval.validity & rval.validity & _not_zero(rval.data)
+        data = _java_mod(lval.data, rval.data)
+        return DevVal(torch.where(validity, data, torch.zeros_like(data)),
+                      validity)
+
+
+class Pmod(BinaryArithmetic):
+    """Positive modulus: ((a % b) + b) % b with Java %, NULL on zero."""
+
+    decimal_impl = "DecimalPmod"
+
+    def eval_dev(self, ctx, child_vals, prep):
+        lval, rval = child_vals
+        b = rval.data
+        validity = lval.validity & rval.validity & _not_zero(b)
+        safe = torch.where(b == 0, torch.ones_like(b), b)
+        data = _java_mod(_java_mod(lval.data, safe) + safe, safe)
+        return DevVal(torch.where(validity, data, torch.zeros_like(data)),
+                      validity)
+
+
+class UnaryMinus(UnaryExpression):
+    """-x; an integer wraps at its MIN (Java); a DECIMAL128 negates its
+    128-bit value (the reference's CPU route)."""
+
+    @property
+    def data_type(self):
+        return self.child.data_type
+
+    def resolve(self, bound):
+        return _unary(self, bound[0])
+
+    def eval_dev(self, ctx, child_vals, prep):
+        (c,) = child_vals
+        if c.data.ndim == 2:
+            from spark_rapids_tpu_torch.ops.decimal import i128_neg
+            hi, lo = i128_neg(c.data[:, 0], c.data[:, 1])
+            data = torch.stack([hi, lo], dim=1)
+            return DevVal(torch.where(c.validity[:, None], data,
+                                      torch.zeros_like(data)), c.validity)
+        return DevVal(torch.where(c.validity, _wrap_neg(c.data),
+                                  torch.zeros_like(c.data)), c.validity)
+
+
+class UnaryPositive(UnaryExpression):
+    @property
+    def data_type(self):
+        return self.child.data_type
+
+    def resolve(self, bound):
+        return _unary(self, bound[0])
+
+    def eval_dev(self, ctx, child_vals, prep):
+        return child_vals[0]
+
+
+class Abs(UnaryExpression):
+    """Java Math.abs: wraps at integer MIN_VALUE (non-ANSI); a DECIMAL128
+    takes its 128-bit magnitude."""
+
+    @property
+    def data_type(self):
+        return self.child.data_type
+
+    def resolve(self, bound):
+        return _unary(self, bound[0])
+
+    def eval_dev(self, ctx, child_vals, prep):
+        (c,) = child_vals
+        if c.data.ndim == 2:
+            from spark_rapids_tpu_torch.ops.decimal import i128_abs
+            hi, lo, _ = i128_abs(c.data[:, 0], c.data[:, 1])
+            data = torch.stack([hi, lo], dim=1)
+            return DevVal(torch.where(c.validity[:, None], data,
+                                      torch.zeros_like(data)), c.validity)
+        x = c.data
+        data = x.abs() if x.is_floating_point() else \
+            torch.where(x < 0, _wrap_neg(x), x)
+        return DevVal(torch.where(c.validity, data, torch.zeros_like(data)),
+                      c.validity)

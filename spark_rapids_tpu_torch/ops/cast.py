@@ -13,13 +13,15 @@ implements them:
   (a DECIMAL128 value combines its limbs in f64 first, as the reference
   does).
 
-The pairs are those the reference's ``cast_supported`` admits: DECIMAL128
-only to float/double, a decimal -> decimal rescale by at most 18 digits,
-and no float/double -> decimal. A NULL literal (``void``) casts to any
-type as an all-null column in that type's storage (``T.promote`` coerces
-a NULL operand to the other operand's type). Casts to or from strings,
-dates and timestamps are not ported; every unported pair raises
-NotImplementedError when it binds.
+The pairs are those the reference's ``cast_supported`` admits, plus the
+integral -> decimal and decimal -> decimal casts with a DECIMAL128 side or
+a rescale past 18 digits, where the reference takes its exact host route
+(the port computes them exactly in base-2^16 digits, ops/decimal.py):
+DECIMAL128 -> integral and float/double -> decimal stay unported. A NULL
+literal (``void``) casts to any type as an all-null column in that type's
+storage (``T.promote`` coerces a NULL operand to the other operand's
+type). Casts to or from strings, dates and timestamps are not ported;
+every unported pair raises NotImplementedError when it binds.
 """
 
 from __future__ import annotations
@@ -50,11 +52,9 @@ def cast_supported(src: T.DataType, dst: T.DataType) -> bool:
     dec_max = T.DecimalType.MAX_LONG_DIGITS
     if isinstance(src, T.DecimalType) or isinstance(dst, T.DecimalType):
         if isinstance(src, T.DecimalType) and isinstance(dst, T.DecimalType):
-            return (src.precision <= dec_max and dst.precision <= dec_max
-                    and abs(src.scale - dst.scale) <= 18)
+            return True
         if isinstance(dst, T.DecimalType):
-            return (dst.precision <= dec_max
-                    and isinstance(src, T.IntegralType))
+            return isinstance(src, T.IntegralType)
         if isinstance(dst, (T.DoubleType, T.FloatType)):
             return True
         return (src.precision <= dec_max
@@ -111,15 +111,24 @@ def _cast_decimal(c: DevVal, src: T.DataType, dst: T.DataType) -> DevVal:
     from spark_rapids_tpu_torch.ops.decimal import (
         _POW10,
         dev_rescale_checked,
+        digits_rescale,
         i128_to_f64,
+        sign_magnitude,
+        store_decimal,
     )
-    if isinstance(src, T.DecimalType) and isinstance(dst, T.DecimalType):
-        return dev_rescale_checked(c.data, c.validity, src.scale, dst.scale,
-                                   dst.precision)
     if isinstance(dst, T.DecimalType):
         # integral -> decimal: a rescale from scale 0
-        return dev_rescale_checked(c.data.to(torch.int64), c.validity, 0,
-                                   dst.scale, dst.precision)
+        from_scale = src.scale if isinstance(src, T.DecimalType) else 0
+        data = c.data if c.data.ndim == 2 else c.data.to(torch.int64)
+        if T.is_dec128(src) or T.is_dec128(dst) or \
+                abs(dst.scale - from_scale) > 18:
+            # exact in base-2^16 digits (the reference's host route)
+            neg, mag = sign_magnitude(data)
+            return store_decimal(neg, digits_rescale(mag, dst.scale -
+                                                     from_scale),
+                                 c.validity, dst)
+        return dev_rescale_checked(data, c.validity, from_scale, dst.scale,
+                                   dst.precision)
     scale = _POW10[src.scale]
     if isinstance(dst, (T.DoubleType, T.FloatType)):
         if T.is_dec128(src):

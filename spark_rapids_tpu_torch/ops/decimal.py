@@ -1,10 +1,8 @@
-"""Decimal helpers with Spark semantics (port of the parts of
-``spark_rapids_tpu/ops/decimal.py`` that the port's sums, casts and
-overflow checks need: sum's result type, the 128-bit helpers and the
-DECIMAL64 rescale, and the UnscaledValue, MakeDecimal and CheckOverflow
-expressions). The other result-type rules and the exact host (Python-int)
-helpers serve the decimal binary operators and the reference's CPU
-evaluation, neither of which is ported.
+"""Decimal arithmetic with Spark semantics (port of
+``spark_rapids_tpu/ops/decimal.py``: the result-type rules, the 128-bit
+helpers, the UnscaledValue, MakeDecimal and CheckOverflow expressions and
+the decimal binary operators DecimalAdd, DecimalSubtract,
+DecimalMultiply, DecimalDivide, DecimalRemainder and DecimalPmod).
 
 Storage (columnar/column.py): precision <= 18 is an int64 unscaled value
 (DECIMAL64); 19..38 is a ``(capacity, 2)`` int64 limb pair (DECIMAL128:
@@ -18,12 +16,30 @@ precision p <= 18 exactly when |v| < 10^(p - d), and a scale-down is one
 int64 division with its remainder (HALF_UP), so both give the reference's
 two-limb results bit for bit. Overflow gives null (non-ANSI).
 
-The decimal binary operators (DecimalAdd, DecimalSubtract,
-DecimalMultiply, DecimalDivide, DecimalRemainder, DecimalPmod) are not
-ported: arithmetic with a decimal operand raises naming them.
+Every binary operator computes the reference's exact result: its
+``_host_op`` (Python ints) plus the overflow check (null where |v| >=
+10^p), which its device forms (``eval_dev``) equal wherever they run.
+Where every intermediate fits int64 (DECIMAL64 operands whose rescaled
+values and result stay below 10^18), one int64 form does it; otherwise
+the value runs as a sign and a magnitude in base-2^16 digits (a
+``(k, n)`` int64 tensor, digit-major): products of two digits stay below
+2^32, so no torch int64 product overflows, and the magnitude is exact at
+any width a decimal(38) product needs (up to 256 bits) before the
+HALF_UP division by 10^down that Spark's ``_adjust`` asks for and the
+check against 10^p.
+DecimalDivide, DecimalRemainder and DecimalPmod over a DECIMAL128
+operand or result (or, for the last two, a rescaled operand past 18
+digits) are not ported and raise naming themselves.
+
+DecimalDivide follows the reference's device form, which rounds the
+magnitude (HALF_UP away from zero); the reference's host form
+``_round_half_up_div`` mis-rounds a quotient with a negative divisor
+(7 / -2 gives -3 there; -4 here and on its device).
 """
 
 from __future__ import annotations
+
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -40,6 +56,59 @@ _TOP64 = -0x8000000000000000
 def sum_result_type(a: T.DecimalType) -> T.DecimalType:
     """Spark's sum(decimal(p, s)): decimal(min(38, p + 10), s)."""
     return T.DecimalType(min(a.precision + 10, MAX_PRECISION), a.scale)
+
+
+# ---------------------------------------------------------------------------
+# result-type rules (Spark DecimalPrecision + adjustPrecisionScale)
+# ---------------------------------------------------------------------------
+
+def _adjust(p: int, s: int) -> Tuple[int, int]:
+    """Spark adjustPrecisionScale (allowPrecisionLoss=true default)."""
+    if p <= MAX_PRECISION:
+        return p, s
+    int_digits = p - s
+    min_scale = min(s, 6)
+    adjusted_scale = max(MAX_PRECISION - int_digits, min_scale)
+    return MAX_PRECISION, adjusted_scale
+
+
+def add_result_type(a: T.DecimalType, b: T.DecimalType) -> T.DecimalType:
+    s = max(a.scale, b.scale)
+    p = max(a.precision - a.scale, b.precision - b.scale) + s + 1
+    return T.DecimalType(*_adjust(p, s))
+
+
+def mul_result_type(a: T.DecimalType, b: T.DecimalType) -> T.DecimalType:
+    return T.DecimalType(*_adjust(a.precision + b.precision + 1,
+                                  a.scale + b.scale))
+
+
+def div_result_type(a: T.DecimalType, b: T.DecimalType) -> T.DecimalType:
+    s = max(6, a.scale + b.precision + 1)
+    p = a.precision - a.scale + b.scale + s
+    return T.DecimalType(*_adjust(p, s))
+
+
+def rem_result_type(a: T.DecimalType, b: T.DecimalType) -> T.DecimalType:
+    """Remainder and pmod: s = max(s1, s2), p = min(p1 - s1, p2 - s2) + s."""
+    s = max(a.scale, b.scale)
+    p = min(a.precision - a.scale, b.precision - b.scale) + s
+    return T.DecimalType(*_adjust(max(p, 1), s))
+
+
+def decimal_for(dt: T.DataType) -> Optional[T.DecimalType]:
+    """Implicit integral -> decimal promotion used by Spark's coercion."""
+    if isinstance(dt, T.DecimalType):
+        return dt
+    if isinstance(dt, T.ByteType):
+        return T.DecimalType(3, 0)
+    if isinstance(dt, T.ShortType):
+        return T.DecimalType(5, 0)
+    if isinstance(dt, T.IntegerType):
+        return T.DecimalType(10, 0)
+    if isinstance(dt, T.LongType):
+        return T.DecimalType(20, 0)
+    return None
 
 
 # ---------------------------------------------------------------------------
@@ -241,16 +310,386 @@ class CheckOverflow(Expression):
                                    self._dtype.scale, self._dtype.precision)
 
 
-#: the reference's decimal binary operators, none of them ported
-UNPORTED_BINARY = {"Add": "DecimalAdd", "Subtract": "DecimalSubtract",
-                   "Multiply": "DecimalMultiply", "Divide": "DecimalDivide",
-                   "Remainder": "DecimalRemainder", "Pmod": "DecimalPmod"}
+# ---------------------------------------------------------------------------
+# sign and magnitude in base-2^16 digits: exact at any width
+# ---------------------------------------------------------------------------
+
+_DBITS = 16
+_DMASK = (1 << _DBITS) - 1
 
 
-def decimal_binary(op_name: str, left: T.DataType, right: T.DataType):
-    """Raise for arithmetic between decimals (or a decimal and an
-    integral type), naming the reference's operator."""
-    name = UNPORTED_BINARY.get(op_name, f"Decimal{op_name}")
-    raise NotImplementedError(
-        f"{name} ({left.simple_string()}, {right.simple_string()}) is not "
-        "ported to spark_rapids_tpu_torch yet")
+def _const_digits(v: int) -> List[int]:
+    """A non-negative Python int's base-2^16 digits, least significant
+    first (at least one)."""
+    out = []
+    while True:
+        out.append(v & _DMASK)
+        v >>= _DBITS
+        if not v:
+            return out
+
+
+def sign_magnitude(data: torch.Tensor):
+    """(negative, digits) of decimal storage: DECIMAL64 (|v| < 10^18) as 4
+    digits, a DECIMAL128 limb pair as 8; ``digits`` is a (k, n) int64
+    tensor of base-2^16 digits, least significant first (digit-major, so
+    each digit's row is contiguous)."""
+    if data.ndim == 2:
+        ahi, alo, neg = i128_abs(data[:, 0], data[:, 1])
+        words = torch.stack([alo, ahi])
+    else:
+        v = data.to(torch.int64)
+        neg = v < 0
+        words = torch.where(neg, -v, v)[None]
+    shifts = torch.arange(0, 64, _DBITS, dtype=torch.int64,
+                          device=data.device)
+    digits = (words[:, None, :] >> shifts[None, :, None]) & _DMASK
+    return neg, digits.reshape(-1, data.shape[0])
+
+
+def _carry(cols: torch.Tensor) -> torch.Tensor:
+    """Non-negative digit sums (k, n), each below 2^62, carried into
+    digits in place; the top row's carry must be 0 (callers size the
+    rows)."""
+    carry = torch.zeros_like(cols[0])
+    for j in range(cols.shape[0]):
+        t = cols[j] + carry
+        carry = t >> _DBITS
+        torch.bitwise_and(t, _DMASK, out=cols[j])
+    return cols
+
+
+def _pad(a: torch.Tensor, k: int) -> torch.Tensor:
+    if a.shape[0] >= k:
+        return a
+    return torch.cat([a, a.new_zeros((k - a.shape[0], a.shape[1]))])
+
+
+def digits_mul(a: torch.Tensor, b) -> torch.Tensor:
+    """Product of magnitudes ``a`` (ka, n) and ``b`` ((kb, n) digits, or a
+    non-negative Python int, whose digits stay on the host): (ka + kb, n)
+    digits. Each digit product is below 2^32 and each row sums at most 16
+    of them."""
+    if isinstance(b, int):
+        cd = _const_digits(b)
+        cols = a.new_zeros((a.shape[0] + len(cd), a.shape[1]))
+        for i, d in enumerate(cd):
+            if d:
+                cols[i:i + a.shape[0]] += a * d
+        return _carry(cols)
+    if a.shape[0] < b.shape[0]:
+        a, b = b, a
+    ka, kb = a.shape[0], b.shape[0]
+    cols = a.new_zeros((ka + kb, a.shape[1]))
+    for i in range(kb):
+        cols[i:i + ka] += a * b[i]
+    return _carry(cols)
+
+
+def _digits_add_const(a: torch.Tensor, c: int) -> torch.Tensor:
+    cd = _const_digits(c)
+    cols = _pad(a, max(a.shape[0], len(cd)) + 1).clone()
+    for j, d in enumerate(cd):
+        if d:
+            cols[j] += d
+    return _carry(cols)
+
+
+def _digits_div_small(a: torch.Tensor, d: int) -> torch.Tensor:
+    """floor(a / d) for 0 < d < 2^31, by long division from the top digit
+    (each step's dividend stays below 2^47)."""
+    rem = torch.zeros_like(a[0])
+    q = torch.empty_like(a)
+    for j in range(a.shape[0] - 1, -1, -1):
+        acc = (rem << _DBITS) | a[j]
+        torch.div(acc, d, rounding_mode="floor", out=q[j])
+        rem = acc - q[j] * d
+    return q
+
+
+def digits_div_pow10_half_up(a: torch.Tensor, down: int) -> torch.Tensor:
+    """HALF_UP(a / 10^down) of a magnitude: floor((a + 10^down / 2) /
+    10^down), the floor division in steps of at most 10^9."""
+    if down <= 0:
+        return a
+    a = _digits_add_const(a, 5 * _POW10[down - 1])
+    while down > 0:
+        step = min(down, 9)
+        a = _digits_div_small(a, _POW10[step])
+        down -= step
+    return a
+
+
+def digits_rescale(a: torch.Tensor, d: int) -> torch.Tensor:
+    """A magnitude moved by ``d`` decimal places: times 10^d, or HALF_UP
+    over 10^-d (the reference's ``rescale_int`` on |v|)."""
+    if d > 0:
+        return digits_mul(a, _POW10[d])
+    return digits_div_pow10_half_up(a, -d)
+
+
+def _digits_cmp(a: torch.Tensor, b):
+    """(a < b, a == b) of two magnitudes with as many digits; ``b`` may be
+    a list of Python ints (a constant's digits)."""
+    lt = torch.zeros_like(a[0], dtype=torch.bool)
+    eq = torch.ones_like(lt)
+    for j in range(a.shape[0] - 1, -1, -1):
+        lt = lt | (eq & (a[j] < b[j]))
+        eq = eq & (a[j] == b[j])
+    return lt, eq
+
+
+def digits_lt_pow10(a: torch.Tensor, p: int) -> torch.Tensor:
+    """magnitude < 10^p."""
+    cd = _const_digits(_POW10[p])
+    if len(cd) > a.shape[0]:
+        return torch.ones_like(a[0], dtype=torch.bool)
+    return _digits_cmp(a, cd + [0] * (a.shape[0] - len(cd)))[0]
+
+
+def signed_add(na, a, nb, b):
+    """(negative, magnitude) of (-1)^na a + (-1)^nb b: one sum where the
+    signs agree, else the larger magnitude less the smaller, with its
+    sign (a zero result is positive)."""
+    k = max(a.shape[0], b.shape[0]) + 1
+    a, b = _pad(a, k), _pad(b, k)
+    total = _carry(a + b)
+    a_lt, _ = _digits_cmp(a, b)
+    big = torch.where(a_lt, b, a)
+    diff = torch.where(a_lt, a, b)
+    borrow = torch.zeros_like(a[0])
+    for j in range(k):
+        t = big[j] - diff[j] - borrow
+        borrow = (t < 0).to(torch.int64)
+        torch.add(t, borrow << _DBITS, out=diff[j])
+    same = na == nb
+    mag = torch.where(same, total, diff)
+    neg = torch.where(same, na, torch.where(a_lt, nb, na))
+    return neg & (mag != 0).any(dim=0), mag
+
+
+def digits_to_i128(neg: torch.Tensor, a: torch.Tensor):
+    """The signed (hi, lo) limbs of a magnitude below 2^127 (its low 8
+    digits)."""
+    a = _pad(a, 8)
+    lo = a[0] | (a[1] << 16) | (a[2] << 32) | (a[3] << 48)
+    hi = a[4] | (a[5] << 16) | (a[6] << 32) | (a[7] << 48)
+    nhi, nlo = i128_neg(hi, lo)
+    return torch.where(neg, nhi, hi), torch.where(neg, nlo, lo)
+
+
+def store_decimal(neg: torch.Tensor, mag: torch.Tensor,
+                  validity: torch.Tensor, dtype: T.DecimalType) -> DevVal:
+    """A sign and magnitude as ``dtype``'s storage, null where |v| >= 10^p
+    (the reference's CheckOverflow, non-ANSI)."""
+    valid = validity & digits_lt_pow10(mag, dtype.precision)
+    hi, lo = digits_to_i128(neg, mag)
+    zero = torch.zeros_like(lo)
+    lo = torch.where(valid, lo, zero)
+    if T.is_dec128(dtype):
+        return DevVal(torch.stack([torch.where(valid, hi, zero), lo], dim=1),
+                      valid)
+    return DevVal(lo, valid)
+
+
+def as_storage(v: torch.Tensor, validity: torch.Tensor,
+               dtype: T.DecimalType) -> DevVal:
+    """int64 values known to fit ``dtype`` as its storage."""
+    v = torch.where(validity, v, torch.zeros_like(v))
+    if T.is_dec128(dtype):
+        return DevVal(torch.stack([v >> 63, v], dim=1), validity)
+    return DevVal(v, validity)
+
+
+# ---------------------------------------------------------------------------
+# the decimal binary operators
+# ---------------------------------------------------------------------------
+
+class DecimalBinary(Expression):
+    """Base: both operands are decimals (the arithmetic's coercion casts
+    an integral operand through ``decimal_for`` first)."""
+
+    def __init__(self, left: Expression, right: Expression):
+        self.children = (left, right)
+
+    @property
+    def left(self):
+        return self.children[0]
+
+    @property
+    def right(self):
+        return self.children[1]
+
+    @property
+    def data_type(self) -> T.DecimalType:
+        return self._result_type(self.left.data_type,
+                                 self.right.data_type)
+
+    def with_children(self, children):
+        return type(self)(children[0], children[1])
+
+    def resolve(self, bound):
+        out = type(self)(bound[0], bound[1])
+        out._check_ported()
+        return out
+
+    def _check_ported(self) -> None:
+        pass
+
+    def _result_type(self, a, b) -> T.DecimalType:
+        raise NotImplementedError
+
+    def _raise(self, why: str):
+        lt, rt = self.left.data_type, self.right.data_type
+        raise NotImplementedError(
+            f"{self.name} ({lt.simple_string()}, {rt.simple_string()} -> "
+            f"{self.data_type.simple_string()}): {why} is not ported to "
+            "spark_rapids_tpu_torch yet")
+
+
+def _fits_i64_digits(*ps: int) -> bool:
+    return all(p <= T.DecimalType.MAX_LONG_DIGITS for p in ps)
+
+
+class DecimalAdd(DecimalBinary):
+    """Both operands rescaled (HALF_UP where ``_adjust`` cut the scale)
+    to the result scale, then added; null where |v| >= 10^p."""
+
+    _sign = 1
+
+    def _result_type(self, a, b):
+        return add_result_type(a, b)
+
+    def eval_dev(self, ctx, child_vals, prep):
+        lt, rt, out = self.left.data_type, self.right.data_type, \
+            self.data_type
+        s = out.scale
+        validity = child_vals[0].validity & child_vals[1].validity
+        dl, dr = s - lt.scale, s - rt.scale
+        if dl >= 0 and dr >= 0 and _fits_i64_digits(
+                lt.precision - lt.scale + s, rt.precision - rt.scale + s):
+            # each rescaled operand stays below 10^18: one int64 sum
+            a = child_vals[0].data * _POW10[dl]
+            b = child_vals[1].data * _POW10[dr]
+            v = a + b if self._sign > 0 else a - b
+            if out.precision <= T.DecimalType.MAX_LONG_DIGITS:
+                validity = validity & _in_bound(v, _POW10[out.precision])
+            return as_storage(v, validity, out)
+        na, a = sign_magnitude(child_vals[0].data)
+        nb, b = sign_magnitude(child_vals[1].data)
+        if self._sign < 0:
+            nb = ~nb
+        neg, mag = signed_add(na, digits_rescale(a, dl),
+                              nb, digits_rescale(b, dr))
+        return store_decimal(neg, mag, validity, out)
+
+
+class DecimalSubtract(DecimalAdd):
+    _sign = -1
+
+
+class DecimalMultiply(DecimalBinary):
+    """The exact product at scale s1 + s2, HALF_UP down to the result
+    scale; null where |v| >= 10^p."""
+
+    def _result_type(self, a, b):
+        return mul_result_type(a, b)
+
+    def eval_dev(self, ctx, child_vals, prep):
+        lt, rt, out = self.left.data_type, self.right.data_type, \
+            self.data_type
+        validity = child_vals[0].validity & child_vals[1].validity
+        raw_scale = lt.scale + rt.scale
+        if _fits_i64_digits(lt.precision + rt.precision, out.precision):
+            # the raw product stays below 10^18: int64, then one rescale
+            raw = child_vals[0].data * child_vals[1].data
+            return dev_rescale_checked(raw, validity, raw_scale, out.scale,
+                                       out.precision)
+        na, a = sign_magnitude(child_vals[0].data)
+        nb, b = sign_magnitude(child_vals[1].data)
+        mag = digits_div_pow10_half_up(digits_mul(a, b),
+                                       raw_scale - out.scale)
+        return store_decimal(na ^ nb, mag, validity, out)
+
+
+class DecimalDivide(DecimalBinary):
+    """DECIMAL64 operands and result: the reference's device form, the
+    numerator |l| x 10^up over |r|, HALF_UP, with the sign of l / r; null
+    on a zero divisor. There p = p1 + up <= 18, so the numerator fits
+    int64."""
+
+    def _result_type(self, a, b):
+        return div_result_type(a, b)
+
+    def _up(self) -> int:
+        return self.data_type.scale + self.right.data_type.scale - \
+            self.left.data_type.scale
+
+    def _check_ported(self):
+        if T.is_dec128(self.left.data_type) or T.is_dec128(
+                self.right.data_type) or T.is_dec128(self.data_type):
+            self._raise("a DECIMAL128 operand or result")
+        if not (0 <= self._up() and self.left.data_type.precision
+                + self._up() <= T.DecimalType.MAX_LONG_DIGITS):
+            self._raise("a numerator past 18 digits")
+
+    def eval_dev(self, ctx, child_vals, prep):
+        lv, rv = child_vals[0].data, child_vals[1].data
+        zero_div = rv == 0
+        divisor = torch.where(zero_div, torch.ones_like(rv), rv)
+        num = lv * _POW10[self._up()]
+        nmag, dmag = num.abs(), divisor.abs()
+        q = torch.div(nmag, dmag, rounding_mode="floor")
+        r = nmag - q * dmag
+        q = q + (2 * r >= dmag).to(torch.int64)
+        data = torch.where((num < 0) ^ (divisor < 0), -q, q)
+        validity = child_vals[0].validity & child_vals[1].validity & \
+            ~zero_div & _in_bound(data, _POW10[self.data_type.precision])
+        return DevVal(torch.where(validity, data, torch.zeros_like(data)),
+                      validity)
+
+
+class DecimalRemainder(DecimalBinary):
+    """Java % over decimals at the common scale s = max(s1, s2): the sign
+    of the dividend; null on a zero divisor. Both operands rescaled to s
+    must stay within 18 digits (the reference's device form)."""
+
+    _java_sign = True
+
+    def _result_type(self, a, b):
+        return rem_result_type(a, b)
+
+    def _check_ported(self):
+        lt, rt = self.left.data_type, self.right.data_type
+        s = self.data_type.scale
+        if T.is_dec128(lt) or T.is_dec128(rt):
+            self._raise("a DECIMAL128 operand")
+        if not _fits_i64_digits(lt.precision - lt.scale + s,
+                                rt.precision - rt.scale + s):
+            self._raise("an operand rescaled past 18 digits")
+
+    def eval_dev(self, ctx, child_vals, prep):
+        lt, rt = self.left.data_type, self.right.data_type
+        s = self.data_type.scale
+        a = child_vals[0].data * _POW10[s - lt.scale]
+        b = child_vals[1].data * _POW10[s - rt.scale]
+        zero = b == 0
+        safe = torch.where(zero, torch.ones_like(b), b)
+
+        def jmod(x, y):
+            r = torch.remainder(x.abs(), y.abs())
+            return torch.where(x < 0, -r, r)
+
+        data = jmod(a, safe)
+        if not self._java_sign:
+            # Spark pmod: ((a % b) + b) % b with Java %
+            data = jmod(data + safe, safe)
+        validity = child_vals[0].validity & child_vals[1].validity & ~zero
+        return DevVal(torch.where(validity, data, torch.zeros_like(data)),
+                      validity)
+
+
+class DecimalPmod(DecimalRemainder):
+    """pmod: ((a % b) + b) % b with Java %."""
+
+    _java_sign = False

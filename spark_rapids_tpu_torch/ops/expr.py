@@ -198,13 +198,13 @@ class Expression:
         from spark_rapids_tpu_torch.ops.predicates import Not
         return Not(self)
 
-    # operators of the reference that the port has not ported: raising
-    # here keeps them from silently becoming something else
-    def __neg__(self):
-        _not_ported("UnaryMinus")
-
     def __mod__(self, o):
-        _not_ported("Remainder")
+        from spark_rapids_tpu_torch.ops.arithmetic import Remainder
+        return self._bin(Remainder, o)
+
+    def __neg__(self):
+        from spark_rapids_tpu_torch.ops.arithmetic import UnaryMinus
+        return UnaryMinus(self)
 
     def alias(self, name: str) -> "Alias":
         return Alias(self, name)

@@ -170,7 +170,31 @@ def _visit(node: P.PlanNode, required: FrozenSet[int]) -> P.PlanNode:
     if isinstance(node, P.Limit):
         return P.Limit(_visit(node.children[0], required), node.limit)
 
-    # conservative default: keep the node whole, prune nothing below it
+    if isinstance(node, P.Sample):
+        return P.Sample(_visit(node.children[0], required), node.fraction,
+                        node.seed)
+
+    if isinstance(node, P.Union):
+        # each child now outputs exactly sorted(required): schemas align
+        return P.Union([_visit(c, required) for c in node.children])
+
+    if isinstance(node, P.Expand):
+        creq = set()
+        for proj in node.projections:
+            for i in kept:
+                _collect_refs(proj[i], creq)
+        child = _visit(node.children[0], frozenset(creq))
+        cmap = {o: i for i, o in enumerate(_kept_of(creq,
+                                                    node.children[0]))}
+        new = P.Expand.__new__(P.Expand)
+        new.children = (child,)
+        new.projections = [[_remap(proj[i], cmap) for i in kept]
+                           for proj in node.projections]
+        new.names = [node.names[i] for i in kept]
+        return new
+
+    # conservative default (a RangeNode, a CachedRelation, whose child
+    # is pruned when it runs): keep the node whole, prune nothing below it
     if kept == list(range(nall)):
         return node
     return _keep_project(node, kept)

@@ -1,6 +1,7 @@
 """Tag and convert plan nodes into device execs (port of the LocalScan,
-Project, Filter, Aggregate, Sort, Join, Limit, TakeOrderedAndProject,
-WindowNode, WindowGroupLimit and Exchange rules of
+RangeNode, Project, Filter, Aggregate, Sort, Join, Limit, Union, Expand,
+Sample, CachedRelation, TakeOrderedAndProject, WindowNode,
+WindowGroupLimit and Exchange rules of
 ``spark_rapids_tpu/overrides/rules.py``, the column pruning and the
 window group-limit rewrite its ``apply_overrides`` runs first, and
 ``lore.assign_lore_ids``: every exec gets its plan position, pre-order
@@ -56,7 +57,8 @@ def _tag(node: P.PlanNode, conf: C.RapidsConf) -> None:
         _tag_exchange(node)
     elif not isinstance(node, (P.LocalScan, P.Project, P.Filter, P.Sort,
                                P.Limit, P.TakeOrderedAndProject,
-                               P.WindowGroupLimit)):
+                               P.WindowGroupLimit, P.RangeNode, P.Union,
+                               P.Expand, P.Sample, P.CachedRelation)):
         raise NotImplementedError(
             f"plan node {node.name} is not ported to spark_rapids_tpu_torch")
 
@@ -151,6 +153,8 @@ def _insert_window_group_limits(node: P.PlanNode) -> P.PlanNode:
     )
     from spark_rapids_tpu_torch.ops.window import RANK_KINDS
 
+    if isinstance(node, P.CachedRelation):
+        return node  # its child is planned when it materializes
     new_children = [_insert_window_group_limits(c) for c in node.children]
     if any(a is not b for a, b in zip(new_children, node.children)):
         node = copy.copy(node)
@@ -263,10 +267,24 @@ def _convert_join(node: P.Join, children, conf: C.RapidsConf) -> TpuExec:
 
 def _convert(node: P.PlanNode, conf: C.RapidsConf, device) -> TpuExec:
     _tag(node, conf)
+    policy = BucketPolicy(conf.get_entry(C.SHAPE_BUCKETS_MIN))
+    if isinstance(node, P.CachedRelation):
+        # a planning leaf: its child ran (once) through the session
+        return TpuScanExec([node.materialize()], device, policy)
     children = [_convert(c, conf, device) for c in node.children]
     if isinstance(node, P.LocalScan):
-        policy = BucketPolicy(conf.get_entry(C.SHAPE_BUCKETS_MIN))
         return TpuScanExec(node.batches, device, policy, node.columns)
+    if isinstance(node, P.RangeNode):
+        return xbasic.TpuRangeExec(node.start, node.end, node.step,
+                                   node.batch_rows, node.col_name, device,
+                                   policy)
+    if isinstance(node, P.Union):
+        return xbasic.TpuUnionExec(children)
+    if isinstance(node, P.Expand):
+        return xbasic.TpuExpandExec(children[0], node.projections,
+                                    node.names)
+    if isinstance(node, P.Sample):
+        return xbasic.TpuSampleExec(children[0], node.fraction, node.seed)
     if isinstance(node, P.Project):
         return TpuProjectExec(children[0], node.exprs, node.names)
     if isinstance(node, P.Filter):

@@ -4,4 +4,5 @@ from spark_rapids_tpu_torch.plan.dataframe import (  # noqa: F401
     DataFrame,
     GroupedData,
     from_host_table,
+    range_df,
 )

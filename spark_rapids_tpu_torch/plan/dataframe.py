@@ -1,13 +1,13 @@
-"""DataFrame API (port of the DataFrame/GroupedData/from_host_table part
-of ``spark_rapids_tpu/plan/dataframe.py``: select, with_column, filter,
-group_by, agg, sort, limit, join (on column names, on a condition, or
-a cross join), with_windows,
+"""DataFrame API (port of the DataFrame/GroupedData/from_host_table/
+range_df part of ``spark_rapids_tpu/plan/dataframe.py``: select,
+with_column, filter, group_by, agg, sort, limit, union, sample, cache,
+join (on column names, on a condition, or a cross join), with_windows,
 repartition, columns, schema and temp views): builds plan nodes; a
 session executes them."""
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 from spark_rapids_tpu_torch.columnar import HostTable
 from spark_rapids_tpu_torch.ops.expr import Expression, col
@@ -40,9 +40,18 @@ class DataFrame:
         self.session.catalog.create_or_replace_temp_view(name, self)
 
     def union(self, other: "DataFrame") -> "DataFrame":
-        raise NotImplementedError(
-            "union (the reference's Union plan node and its exec) is not "
-            "ported to spark_rapids_tpu_torch yet")
+        """UNION ALL (by position; the column types must match)."""
+        return self._wrap(P.Union([self.plan, other.plan]))
+
+    def sample(self, fraction: float, seed: int = 0) -> "DataFrame":
+        """Bernoulli sample, the same rows as the reference's for the same
+        batches and seed."""
+        return self._wrap(P.Sample(self.plan, fraction, seed))
+
+    def cache(self) -> "DataFrame":
+        """Run this DataFrame once, when a query first reads it, and serve
+        later queries from the kept result."""
+        return self._wrap(P.CachedRelation(self.plan, self.session))
 
     def select(self, *exprs) -> "DataFrame":
         exprs = [col(e) if isinstance(e, str) else e for e in exprs]
@@ -151,3 +160,11 @@ def from_host_table(table: HostTable, session=None,
         batches = [table.slice(i * per, min(per, table.num_rows - i * per))
                    for i in range(num_batches) if i * per < table.num_rows]
     return DataFrame(P.LocalScan(batches), session)
+
+
+def range_df(start: int, end: Optional[int] = None, step: int = 1,
+             session=None) -> DataFrame:
+    """spark.range: ``range_df(n)`` is 0 .. n - 1 in a LONG column ``id``."""
+    if end is None:
+        start, end = 0, start
+    return DataFrame(P.RangeNode(start, end, step), session)

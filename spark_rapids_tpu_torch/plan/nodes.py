@@ -1,6 +1,7 @@
-"""Plan nodes (port of the LocalScan, Project, Filter, Aggregate, Sort,
-SortOrder, Limit, Join, TakeOrderedAndProject, WindowNode,
-WindowGroupLimit and Exchange parts of ``spark_rapids_tpu/plan/nodes.py``). Nodes bind their
+"""Plan nodes (port of the LocalScan, RangeNode, Project, Filter,
+Aggregate, Sort, SortOrder, Limit, Union, Expand, Join, Sample,
+TakeOrderedAndProject, CachedRelation, WindowNode, WindowGroupLimit and
+Exchange parts of ``spark_rapids_tpu/plan/nodes.py``). Nodes bind their
 expressions against the child's schema at construction; the overrides
 layer (overrides/rules.py) turns them into device execs. The reference's
 CPU execution of these nodes is not ported: the port has no CPU
@@ -64,6 +65,29 @@ class LocalScan(PlanNode):
             return sum(b.nbytes() for b in self.batches)
         return sum(b.columns[i].nbytes() for b in self.batches
                    for i in self.columns)
+
+
+class RangeNode(PlanNode):
+    """spark.range: one LONG column ``name`` of start, start + step, ...
+    below ``end`` (above it for a negative step), in batches of
+    ``batch_rows`` rows (the reference's GpuRangeExec)."""
+
+    def __init__(self, start: int, end: int, step: int = 1,
+                 batch_rows: int = 1 << 20, name: str = "id"):
+        if step == 0:
+            raise ColumnarProcessingError("range step must not be 0")
+        self.start, self.end, self.step = int(start), int(end), int(step)
+        self.batch_rows = int(batch_rows)
+        self.col_name = name
+
+    def num_rows(self) -> int:
+        return max(0, -(-(self.end - self.start) // self.step))
+
+    def output_schema(self):
+        return [(self.col_name, T.LONG)]
+
+    def estimate_bytes(self):
+        return 9 * self.num_rows()
 
 
 class Project(PlanNode):
@@ -179,6 +203,92 @@ class Limit(PlanNode):
         return self.children[0].output_schema()
 
     def estimate_bytes(self):
+        return self.children[0].estimate_bytes()
+
+
+class Union(PlanNode):
+    """UNION ALL: the children's batches one after another; every child
+    has the first child's column types (its names are the output's)."""
+
+    def __init__(self, children: Sequence[PlanNode]):
+        self.children = tuple(children)
+        s0 = self.children[0].output_schema()
+        for c in self.children[1:]:
+            if [dt for _, dt in c.output_schema()] != [dt for _, dt in s0]:
+                raise ColumnarProcessingError("UNION schema mismatch")
+
+    def output_schema(self):
+        return self.children[0].output_schema()
+
+    def estimate_bytes(self):
+        ests = [c.estimate_bytes() for c in self.children]
+        return None if any(e is None for e in ests) else sum(ests)
+
+
+class Expand(PlanNode):
+    """Each input row through N projections, one output row each (the
+    reference's GpuExpandExec; Spark plans ROLLUP, CUBE and GROUPING SETS
+    with it, though no DataFrame or SQL entry point of either package
+    builds one)."""
+
+    def __init__(self, child: PlanNode,
+                 projections: Sequence[Sequence[Expression]],
+                 names: Sequence[str]):
+        self.children = (child,)
+        schema = child.output_schema()
+        self.projections = [[bind(e, schema) for e in proj]
+                            for proj in projections]
+        self.names = list(names)
+
+    def output_schema(self):
+        return [(n, e.data_type)
+                for n, e in zip(self.names, self.projections[0])]
+
+
+class Sample(PlanNode):
+    """Bernoulli sample without replacement: each batch's rows kept where
+    a draw of ``numpy.random.default_rng(seed)`` (one stream over the
+    batches, in order) falls below ``fraction``, as the reference's."""
+
+    def __init__(self, child: PlanNode, fraction: float, seed: int = 0):
+        self.children = (child,)
+        self.fraction = float(fraction)
+        self.seed = int(seed)
+
+    def output_schema(self):
+        return self.children[0].output_schema()
+
+    def estimate_bytes(self):
+        return self.children[0].estimate_bytes()
+
+
+class CachedRelation(PlanNode):
+    """``df.cache()``: the child runs once, through the session, when a
+    query first reads it; later queries scan the kept host table, whose
+    uploads stay cached on the device by column (the reference's
+    InMemoryTableScan). A planning leaf: its child is planned and run by
+    ``materialize``."""
+
+    def __init__(self, child: PlanNode, session=None):
+        self.children = (child,)
+        self._session = session
+        self._table: Optional[HostTable] = None
+
+    def materialize(self) -> HostTable:
+        if self._table is None:
+            if self._session is None:
+                raise ValueError("a cached DataFrame runs through a "
+                                 "session: the port has no CPU execution "
+                                 "of plans")
+            self._table = self._session.execute(self.children[0])
+        return self._table
+
+    def output_schema(self):
+        return self.children[0].output_schema()
+
+    def estimate_bytes(self):
+        if self._table is not None:
+            return self._table.nbytes()
         return self.children[0].estimate_bytes()
 
 

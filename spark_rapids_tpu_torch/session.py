@@ -55,6 +55,12 @@ class TorchSession:
         """DataFrame over a temp view."""
         return self.catalog.table(name)
 
+    def range(self, start: int, end: Optional[int] = None, step: int = 1):
+        """spark.range: a LONG column ``id`` made on the device in batches
+        of 2^20 rows."""
+        from spark_rapids_tpu_torch.plan.dataframe import range_df
+        return range_df(start, end, step, self)
+
     def execute(self, plan: P.PlanNode) -> HostTable:
         """Run ``plan``. Under speculative sizing (the default) every
         speculation flag of an attempt is read at once when it collects;

@@ -27,11 +27,12 @@ and an overrides-style per-construct reason.
 In the port, a construct whose plan node exists lowers exactly as in the
 reference and runs as the DSL's form does (outer, semi, anti and cross
 joins, join conditions, IN and NOT IN and scalar subqueries, a bare
-LIMIT); where the reference falls back to its CPU (an outer, semi or
-anti join with equi keys plus a residual condition), the overrides raise
-at collect. A construct whose node or expression the port lacks raises
-NotImplementedError naming it while it is lowered: UNION, SELECT without
-FROM, DATE +/- INTERVAL, LIKE/RLIKE and ``||``."""
+LIMIT, UNION [ALL | DISTINCT], SELECT without FROM over the reference's
+one-row range); where the reference falls back to its CPU (an outer,
+semi or anti join with equi keys plus a residual condition), the
+overrides raise at collect. A construct whose node or expression the
+port lacks raises NotImplementedError naming it while it is lowered:
+DATE +/- INTERVAL, LIKE/RLIKE and ``||``."""
 
 from __future__ import annotations
 
@@ -176,7 +177,7 @@ class Analyzer:
                 raise self.err(
                     f"UNION arms have {len(left.columns)} vs "
                     f"{len(right.columns)} columns", body)
-            out = left.union(right)  # raises: UNION is not ported
+            out = left.union(right)
             if body.op == "union":      # UNION DISTINCT
                 out = self._distinct(out)
             return out
@@ -402,10 +403,11 @@ class Analyzer:
         # FROM (the reference evaluates a FROM-less select over one
         # synthetic row)
         if sel.from_ is None:
-            raise NotImplementedError(
-                "SELECT without FROM (the reference's one-row RangeNode) is "
-                "not ported to spark_rapids_tpu_torch yet")
-        scope = self.lower_relation(sel.from_)
+            from spark_rapids_tpu_torch.plan import DataFrame
+            scope = Scope(DataFrame(P.RangeNode(0, 1, 1), self.session),
+                          {}, visible=[])
+        else:
+            scope = self.lower_relation(sel.from_)
 
         # hints (the DSL's .repartition escape hatch)
         for hname, hargs in sel.hints:

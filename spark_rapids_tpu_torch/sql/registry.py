@@ -25,9 +25,7 @@ Builder = Callable[[List[Expression]], Expression]
 
 _UNPORTED_BY_MODULE = {
     "ops/aggregates.py": (
-        "first", "last", "collect_list", "collect_set", "percentile",
-        "approx_percentile"),
-    "ops/arithmetic.py": ("abs",),
+        "collect_list", "collect_set", "percentile", "approx_percentile"),
     "ops/math.py": (
         "sqrt", "exp", "log", "ln", "log10", "log2", "pow", "power", "ceil",
         "ceiling", "floor", "round", "bround", "signum", "sign",
@@ -79,6 +77,7 @@ def _build_table() -> Dict[str, Builder]:
     from spark_rapids_tpu_torch.ops import conditional as _cond
     from spark_rapids_tpu_torch.ops import predicates as _pred
     from spark_rapids_tpu_torch.ops import window as _win
+    from spark_rapids_tpu_torch.ops.arithmetic import Abs
     from spark_rapids_tpu_torch.ops.hashfns import Murmur3Hash
 
     table: Dict[str, Builder] = {}
@@ -105,6 +104,11 @@ def _build_table() -> Dict[str, Builder]:
     reg("stddev_pop", _agg.StddevPop, 1)
     reg(("variance", "var_samp"), _agg.VarianceSamp, 1)
     reg("var_pop", _agg.VariancePop, 1)
+    reg("first", lambda e: _agg.First(e, False), 1)
+    reg("last", lambda e: _agg.Last(e, False), 1)
+
+    # arithmetic
+    reg("abs", Abs, 1)
 
     # conditionals / null handling
     reg("coalesce", _cond.Coalesce, 1, None)

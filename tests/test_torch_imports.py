@@ -96,8 +96,6 @@ def test_unported_pieces_raise_not_implemented():
     from spark_rapids_tpu_torch.conf import RapidsConf
     from spark_rapids_tpu_torch.ops.expr import col, lit
     from spark_rapids_tpu_torch.plan import from_host_table
-    with pytest.raises(NotImplementedError, match="UnaryMinus"):
-        -col("a")  # noqa: B015
     with pytest.raises(NotImplementedError, match="conf keys"):
         RapidsConf({"spark.rapids.sql.enabled": "false"})
     s = TorchSession(device="cpu")
@@ -110,12 +108,39 @@ def test_unported_pieces_raise_not_implemented():
     df = from_host_table(t, s)
     # the global aggregate is ported: one row
     assert df.agg(F.sum(col("v")), F.max(col("k"))).collect() == [(10.0, 9)]
-    with pytest.raises(NotImplementedError, match="Min over boolean"):
-        df.group_by("k").agg(F.min(col("k") > lit(3))).collect_table()
-    with pytest.raises(NotImplementedError, match="Max over decimal"):
-        df.group_by("k").agg(F.max(col("d"))).collect_table()
-    with pytest.raises(NotImplementedError, match="DecimalAdd"):
-        df.select((col("k") + col("d")).alias("x"))
     with pytest.raises(NotImplementedError, match="cast from bigint to "
                                                   "string"):
         df.select(col("k").cast("string").alias("x"))
+    # DECIMAL128 quotients and variances, and TIMESTAMP literals, are not
+    # ported
+    with pytest.raises(NotImplementedError, match="DecimalDivide"):
+        df.select((col("d") / col("d")).alias("x"))
+    with pytest.raises(NotImplementedError,
+                       match="VarianceSamp over decimal"):
+        df.agg(F.variance(col("d") * col("d"))).collect_table()
+    import datetime
+    with pytest.raises(NotImplementedError, match="TIMESTAMP literal"):
+        lit(datetime.datetime(2020, 1, 1))
+    # the pieces this test once held to raising (negation, MIN over
+    # BOOLEAN, MAX over a decimal, a decimal sum) run, and equal the
+    # reference's answers
+    from spark_rapids_tpu import functions as JF
+    from spark_rapids_tpu import types as JT
+    from spark_rapids_tpu.columnar import HostColumn as JHostColumn
+    from spark_rapids_tpu.columnar import HostTable as JHostTable
+    from spark_rapids_tpu.ops.expr import col as jcol
+    from spark_rapids_tpu.ops.expr import lit as jlit
+    from spark_rapids_tpu.plan import from_host_table as jfrom
+    from spark_rapids_tpu.session import TpuSession
+    jt = JHostTable(t.names, [JHostColumn(JT.parse_type(
+        c.dtype.simple_string()), c.data, c.validity) for c in t.columns])
+    jdf = jfrom(jt, TpuSession())
+
+    def query(d, F, c, lt):
+        return [d.select((-c("k")).alias("n"),
+                         (c("k") + c("d")).alias("x")).collect(),
+                sorted(d.group_by("k").agg(
+                    F.min(c("k") > lt(3)).alias("b"),
+                    F.max(c("d")).alias("m")).collect())]
+
+    assert query(df, F, col, lit) == query(jdf, JF, jcol, jlit)

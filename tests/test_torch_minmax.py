@@ -168,7 +168,9 @@ def test_nan_rule_deviation_from_the_reference_default_route():
     """A group holding {1.0, NaN}: the reference's default CPU aggregate
     route (splitF64 off: plain segment_min) gives NaN for min; its split
     route gives 1.0, Spark's rule; the port gives 1.0 on every device.
-    max is NaN on every route."""
+    max is NaN on every route. A FLOAT column: the reference reduces f32
+    by plain segment_min on both routes (NaN); the port widens it to f64
+    for the same kernel and gives Spark's 1.0."""
     from spark_rapids_tpu import functions as JF
     from spark_rapids_tpu import types as JT
     from spark_rapids_tpu.columnar import HostColumn as JHostColumn
@@ -183,22 +185,30 @@ def test_nan_rule_deviation_from_the_reference_default_route():
 
     k = np.array([0, 0, 1, 1], dtype=np.int64)
     v = np.array([1.0, np.nan, 2.0, 3.0])
-    jt = JHostTable(["k", "v"], [JHostColumn(JT.LONG, k),
-                                 JHostColumn(JT.DOUBLE, v)])
-    tt = HostTable(["k", "v"], [HostColumn(TT.LONG, k),
-                                HostColumn(TT.DOUBLE, v)])
+    f = v.astype(np.float32)
+    jt = JHostTable(["k", "v", "f"], [JHostColumn(JT.LONG, k),
+                                      JHostColumn(JT.DOUBLE, v),
+                                      JHostColumn(JT.FLOAT, f)])
+    tt = HostTable(["k", "v", "f"], [HostColumn(TT.LONG, k),
+                                     HostColumn(TT.DOUBLE, v),
+                                     HostColumn(TT.FLOAT, f)])
 
     def ref(conf):
         return jfrom(jt, TpuSession(conf)).group_by("k").agg(
-            JF.min("v").alias("lo"), JF.max("v").alias("hi")).collect()
+            JF.min("v").alias("lo"), JF.max("v").alias("hi"),
+            JF.min("f").alias("flo"), JF.max("f").alias("fhi")).collect()
 
     got = tfrom(tt, TorchSession(device="cpu")).group_by("k").agg(
-        TF.min("v").alias("lo"), TF.max("v").alias("hi")).collect()
+        TF.min("v").alias("lo"), TF.max("v").alias("hi"),
+        TF.min("f").alias("flo"), TF.max("f").alias("fhi")).collect()
     default = ref(None)
     split = ref({"spark.rapids.tpu.sum.splitF64": "true"})
-    assert np.isnan(default[0][1]) and default[1] == (1, 2.0, 3.0)
+    assert np.isnan(default[0][1]) and default[1] == (1, 2.0, 3.0, 2.0, 3.0)
     assert split[0][1] == 1.0 and np.isnan(split[0][2])
     assert got[0][1] == 1.0 and np.isnan(got[0][2]) and got[1] == split[1]
+    for route in (default, split):
+        assert np.isnan(route[0][3]) and np.isnan(route[0][4])
+    assert got[0][3] == 1.0 and np.isnan(got[0][4])
 
 
 @pytest.mark.parametrize("is_min", [True, False], ids=["min", "max"])
@@ -279,3 +289,136 @@ def test_wrapper_checks_its_inputs():
     meta = torch.device("meta")
     with pytest.raises(RuntimeError, match="CUDA or CPU"):
         tseg.fused_minmax(True, v.to(meta), ok.to(meta), g.to(meta), 8)
+
+
+# ---------------------------------------------------------------------------
+# MIN/MAX of every type through the aggregate, on each of its layouts
+# ---------------------------------------------------------------------------
+
+#: the aggregate's layouts: the no-sort key-domain path, the sort-segment
+#: path (no dictionary or domain groups allowed) and the global aggregate
+LAYOUTS = {"no-sort": None,
+           "sort-segment": {"spark.rapids.tpu.agg.maxDictGroups": "0"},
+           "global": None}
+
+
+def _typed_values(type_name, n, rng):
+    """(data, validity) of ``n`` seeded values of ``type_name``, a tenth
+    null. FLOAT holds no NaN and no zero (the NaN rule is pinned above;
+    the reference's f32 reduction orders +-0.0 by row)."""
+    valid = rng.random(n) > 0.1
+    if type_name == "tinyint":
+        return rng.integers(-128, 128, n).astype(np.int8), valid
+    if type_name == "smallint":
+        return rng.integers(-2 ** 15, 2 ** 15, n).astype(np.int16), valid
+    if type_name == "boolean":
+        return rng.random(n) > 0.7, valid
+    if type_name == "float":
+        x = (rng.standard_normal(n) * 1e3).astype(np.float32)
+        x[x == 0] = 1.5
+        x[:2] = [np.inf, -np.inf]
+        return x, valid
+    if type_name == "timestamp":
+        return rng.integers(-2 ** 50, 2 ** 50, n).astype(np.int64), valid
+    if type_name == "decimal(15,2)":
+        return rng.integers(-10 ** 15 + 1, 10 ** 15, n), valid
+    if type_name == "decimal(38,6)":
+        hi = rng.integers(-10 ** 18, 10 ** 18, n)
+        lo = rng.integers(0, 10 ** 18, n)
+        vals = np.array([int(h) * 10 ** 19 + int(v) for h, v in zip(hi, lo)],
+                        dtype=object)
+        # ties on the high limb with different low limbs, and signs that
+        # straddle zero within one high-limb value
+        vals[:6] = [2 ** 64 + 5, 2 ** 64 + 3, -(2 ** 64) - 5, -(2 ** 64) - 3,
+                    7, -7]
+        return vals, valid
+    words = np.array(["", "a", "ab", "b", "zz", "Ab", "\u00e9t\u00e9",
+                      "m"], dtype=object)
+    return words[rng.integers(0, len(words), n)], valid
+
+
+MINMAX_TYPES = ["tinyint", "smallint", "boolean", "float", "timestamp",
+                "decimal(15,2)", "decimal(38,6)", "string"]
+
+
+@pytest.mark.parametrize("layout", list(LAYOUTS))
+@pytest.mark.parametrize("type_name", MINMAX_TYPES)
+def test_minmax_of_every_type_matches_the_reference(type_name, layout):
+    """MIN and MAX of BYTE, SHORT, BOOLEAN, FLOAT, TIMESTAMP, DECIMAL64,
+    DECIMAL128 (two launches: the high limbs, then the tied rows' low
+    limbs unsigned) and strings (sorted-dictionary codes), with nulls, an
+    all-null group and a group of one row, against the reference on the
+    same layout. Comparator: ``tables_differ_unordered`` (a bitwise row
+    multiset)."""
+    from scale_test import tables_differ_unordered
+    from spark_rapids_tpu import functions as JF
+    from spark_rapids_tpu import types as JT
+    from spark_rapids_tpu.columnar import HostColumn as JHostColumn
+    from spark_rapids_tpu.columnar import HostTable as JHostTable
+    from spark_rapids_tpu.plan import from_host_table as jfrom
+    from spark_rapids_tpu.session import TpuSession
+    from spark_rapids_tpu_torch import functions as TF
+    from spark_rapids_tpu_torch.interop import host_table_from_arrays
+    from spark_rapids_tpu_torch.plan import from_host_table as tfrom
+    from spark_rapids_tpu_torch.session import TorchSession
+
+    rng = np.random.default_rng(MINMAX_TYPES.index(type_name))
+    n = 300
+    k = rng.integers(0, 9, n).astype(np.int64)
+    v, valid = _typed_values(type_name, n, rng)
+    valid[k == 7] = False  # an all-null group
+    k[-1], valid[-1] = 11, True  # a group of one row
+    arrays = [(k, np.ones(n, bool)), (v, valid)]
+    names, types = ["k", "v"], ["bigint", type_name]
+    conf = LAYOUTS[layout]
+
+    def run(frm, F, session, table):
+        df = frm(table, session)
+        aggs = [F.min("v").alias("lo"), F.max("v").alias("hi")]
+        if layout == "global":
+            return df.agg(*aggs).collect_table()
+        return df.group_by("k").agg(*aggs).collect_table()
+
+    ref = run(jfrom, JF, TpuSession(conf), JHostTable(names, [
+        JHostColumn(JT.parse_type(t), d, vv)
+        for t, (d, vv) in zip(types, arrays)]))
+    got = run(tfrom, TF, TorchSession(conf, device="cpu"),
+              host_table_from_arrays(names, types, arrays))
+    got = JHostTable(got.names, [JHostColumn(JT.parse_type(
+        c.dtype.simple_string()), c.data, c.validity) for c in got.columns])
+    assert tables_differ_unordered(got, ref) is None, \
+        tables_differ_unordered(got, ref)
+
+
+def test_minmax_over_an_unsorted_dictionary_raises():
+    """MIN/MAX compare dictionary codes, so a string over an unsorted
+    dictionary (no ported operator makes one yet) raises instead of
+    answering by code order."""
+    from spark_rapids_tpu_torch import types as TT
+    from spark_rapids_tpu_torch.columnar import DeviceColumn, DeviceTable
+    from spark_rapids_tpu_torch.execs.aggregate import TpuHashAggregateExec
+    from spark_rapids_tpu_torch.execs.base import TpuExec
+    from spark_rapids_tpu_torch.ops import aggregates as tagg
+    from spark_rapids_tpu_torch.ops.expr import BoundReference
+
+    codes = torch.tensor([0, 1, 2, 1], dtype=torch.int32)
+    col = DeviceColumn(TT.STRING, codes, torch.ones(4, dtype=torch.bool),
+                       dictionary=np.array(["b", "a", "c"], dtype=object),
+                       dict_sorted=False)
+
+    class _One(TpuExec):
+        def output_schema(self):
+            return [("s", TT.STRING)]
+
+        def execute(self):
+            yield DeviceTable(["s"], [col], 4, 4, torch.device("cpu"))
+
+    ref = BoundReference(0, TT.STRING)
+    for fn in (tagg.Min(ref), tagg.Max(ref)):
+        ex = TpuHashAggregateExec(_One(), [], [("m", fn)], [])
+        with pytest.raises(NotImplementedError, match="unsorted dictionary"):
+            list(ex.execute())
+    # FIRST needs no order: it runs
+    ex = TpuHashAggregateExec(_One(), [], [("f", tagg.First(ref))], [])
+    out = next(ex.execute()).to_host()
+    assert out.columns[0].to_pylist() == ["b"]

@@ -420,8 +420,10 @@ def test_conf_keys_and_unported_shapes(monkeypatch):
     monkeypatch.setattr(xsort, "OUT_OF_CORE_THRESHOLD_BYTES", 256)
     with pytest.raises(NotImplementedError, match="outOfCoreThresholdBytes"):
         from_host_table(t, sess, num_batches=3).sort("v").collect_table()
-    with pytest.raises(NotImplementedError, match="Remainder"):
-        col("k") % 3  # noqa: B018
+    # % is ported since; a DECIMAL128 quotient is not
+    with pytest.raises(NotImplementedError, match="DecimalDivide"):
+        df.select((col("k").cast("decimal(38,0)")
+                   / col("v").cast("decimal(38,0)")).alias("q"))
 
 
 def test_q3_without_speculation_and_with_coalesced_builds():
