@@ -84,16 +84,29 @@ Phases, in order; any failure exits non-zero:
    FROM, a 1% sample and a cached filter read twice, with the numbers and
    checks of phase 7 against numpy oracles (decimals, counts, MIN/MAX and
    FIRST/LAST exact, f64 sums rtol 1e-9);
-12. the summary lines: one ``{"kernels": [...]}`` JSON line (launches of
-   the main path: q1's, sparse q3's probes, q8's MIN/MAX, plus every
-   phase-7, phase-8, phase-9, phase-10 and phase-11 query's), the card
-   line, and last ``{"ok": true, "device": {...}}``.
+12. the scalar query set S1-S8 (``SCALAR_QUERIES``) through
+   ``TorchSession.sql`` on the same tables and ``lineitem_dec``: DECIMAL128
+   quotients, remainders and pmods on each of 10M rows and a ratio of
+   decimal sums (the DECIMAL128 division kernel), LIKE, RLIKE, ``||`` and
+   the string functions, date arithmetic and DATE +/- INTERVAL, a DST
+   zone's timestamps, math, md5, xxhash64 and the DECIMAL128 byte hash,
+   ``rand`` and a float32 top-100, with the numbers and checks of phase 7
+   against oracles in numpy and Python ints (transcendental doubles within
+   2 ulp); then the DECIMAL128 division kernel bit for bit against its
+   plain version on S1's operands (sampled to 2^20 rows) and on an edge
+   set, also against Python ints, and its time at S1's shape against its
+   byte bound;
+13. the summary lines: one ``{"kernels": [...]}`` JSON line (the five TPU
+   kernels and the DECIMAL128 division kernel, CUDA work beyond them;
+   launches of the main path: q1's, sparse q3's probes, q8's MIN/MAX, plus
+   every phase-7 to phase-12 query's), the card line, and last
+   ``{"ok": true, "device": {...}}``.
 
 Each phase logs its wall time. It needs one CUDA card and exits non-zero
 without one. ``--profile DIR`` also writes a torch.profiler table and
 trace of one warm run of q1, of each q3 form, of each phase-6, phase-7
-and phase-8 query, of phase 9's conditional query, of J1, J7, J8 and J9
-and of O1, O2, O3, O4a, O5, O6a and O7.
+and phase-8 query, of phase 9's conditional query, of J1, J7, J8 and J9,
+of O1, O2, O3, O4a, O5, O6a and O7 and of S1, S2, S5, S7 and S8.
 """
 
 from __future__ import annotations
@@ -131,6 +144,10 @@ TPU_KERNELS = {
     "gather_compact": "spark_rapids_tpu/kernels/compact.py:112",
     "sort_with_payload": "spark_rapids_tpu/kernels/sort.py:84",
     "probe_rowids": "spark_rapids_tpu/kernels/hashprobe.py:139",
+    # CUDA work beyond the five TPU kernels: the reference divides
+    # DECIMAL128 values on its host (DecimalDivide and DecimalRemainder's
+    # _host_op)
+    "dec128_divide": "spark_rapids_tpu/ops/decimal.py:427",
 }
 SOURCES = {
     "onehot_partials": "spark_rapids_tpu_torch/kernels/csrc/segreduce.cu",
@@ -138,6 +155,7 @@ SOURCES = {
     "gather_compact": "spark_rapids_tpu_torch/kernels/csrc/compact.cu",
     "sort_with_payload": "spark_rapids_tpu_torch/kernels/csrc/sort.cu",
     "probe_rowids": "spark_rapids_tpu_torch/kernels/csrc/hashprobe.cu",
+    "dec128_divide": "spark_rapids_tpu_torch/kernels/csrc/dec128div.cu",
 }
 
 
@@ -1339,6 +1357,7 @@ KERNEL_FAMILIES = {
     "partials": ("partials_block", "onehot_partials_kernel"),
     "minmax": ("minmax_runs", "minmax_finish", "minmax_rows",
                "fill_identity", "keys_to_f64"),
+    "dec128div": ("dec128div_kernel",),
 }
 
 
@@ -1728,8 +1747,8 @@ def hold_launches(name, calls) -> None:
     """Hold each kernel launch of a query's counted run against its plain
     version on the inputs that launch was given (``kernels.calls``):
     onehot_partials within rtol 1e-12 of each partial's absolute mass (f32
-    within two 1024-row summation orders), every other kernel bit for
-    bit."""
+    within two 1024-row summation orders), every other kernel (the
+    DECIMAL128 division too) bit for bit."""
     from spark_rapids_tpu_torch.kernels.compact import gather_compact_plain
     from spark_rapids_tpu_torch.kernels.hashprobe import probe_rowids_plain
     from spark_rapids_tpu_torch.kernels.segreduce import (
@@ -1763,6 +1782,13 @@ def hold_launches(name, calls) -> None:
         elif kernel == "probe_rowids":
             ok = torch.equal(out, probe_rowids_plain(*args))
             what = f"{args[0].shape[0]} probes, {args[4]} attempts"
+        elif kernel == "dec128_divide":
+            from spark_rapids_tpu_torch.kernels.decimal import (
+                dec128_divide_plain,
+            )
+            ok = all(torch.equal(a, b) for a, b in
+                     zip(out, dec128_divide_plain(*args)))
+            what = f"{args[0]} of {args[1].shape[0]} rows"
         else:
             ok = same_bits(out, fused_minmax_plain(*args))
             what = f"{args[1].shape[0]} rows nseg {args[4]}"
@@ -2942,6 +2968,11 @@ def port_api():
                            IntegralDivide=A.IntegralDivide)
 
 
+#: lineitem_dec by (lineitem table, seed): phases 11 and 12 share one, so
+#: its strings are encoded on the host once
+_DEC_TABLES: dict = {}
+
+
 def lineitem_dec(tables, seed: int):
     """The lineitem rows of ``tables`` with l_quantity, l_extendedprice,
     l_discount and l_tax as DECIMAL(15,2) (unscaled ``round(v * 100)``: the
@@ -2949,7 +2980,18 @@ def lineitem_dec(tables, seed: int):
     l_shipts (a TIMESTAMP: l_shipdate's midnight plus a seeded second of
     the day) and l_comment (up to 24 characters, 2% null, drawn from 2^16
     strings made by the datagen's generator). l_tax comes from the
-    lineitem spec's own generator at ``seed``. A port HostTable."""
+    lineitem spec's own generator at ``seed``. A port HostTable, made once
+    per (lineitem table, seed)."""
+    key = (id(tables["lineitem"]), seed)
+    hit = _DEC_TABLES.get(key)
+    if hit is not None and hit[0] is tables["lineitem"]:
+        return hit[1]
+    dec = _lineitem_dec(tables, seed)
+    _DEC_TABLES[key] = (tables["lineitem"], dec)
+    return dec
+
+
+def _lineitem_dec(tables, seed: int):
     from spark_rapids_tpu_torch.datagen import RandomString, scale_test_specs
     from spark_rapids_tpu_torch.interop import host_table_from_arrays
     li = tables["lineitem"]
@@ -3300,6 +3342,734 @@ def run_ops(tables, sf: float, seed: int, profile_dir) -> dict:
     return total
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the scalar functions (strings, dates and timestamps, math,
+# hashes) and DECIMAL128 division as TPC-H-style queries S1-S8
+# ---------------------------------------------------------------------------
+
+#: S5's zone (a DST zone: the transition-table lookup), and the fixed
+#: offset S5 takes where the machine's zoneinfo database lacks it
+SCALAR_ZONE = "America/Los_Angeles"
+SCALAR_FIXED_ZONE = "+05:30"
+
+#: the SQL texts of the scalar query set (``{zone}`` is S5's zone); pmod
+#: and bitand are global SQL registrations (``register_scalar_functions``),
+#: as neither package's builtin table has them
+SCALAR_SQL = {
+    "S1": """
+SELECT l_returnflag, l_linestatus,
+       SUM(l_extendedprice * (1 - l_discount) / l_quantity) AS sum_unit_net,
+       MAX(l_extendedprice * (1 - l_discount) % l_quantity) AS max_rem,
+       MIN(pmod(l_extendedprice * (1 - l_discount), l_quantity)) AS min_pmod,
+       COUNT(*) AS n
+FROM lineitem_dec
+GROUP BY l_returnflag, l_linestatus
+ORDER BY l_returnflag, l_linestatus""",
+    "S2": """
+SELECT month(l_shipdate) AS m,
+       SUM(CASE WHEN l_comment LIKE 'P%'
+                THEN l_extendedprice * (1 - l_discount)
+                ELSE CAST(0 AS DECIMAL(32,4)) END)
+         / SUM(l_extendedprice * (1 - l_discount)) AS promo_share,
+       COUNT(*) AS n
+FROM lineitem_dec
+WHERE l_shipdate >= DATE '1995-01-01'
+  AND l_shipdate < DATE '1995-01-01' + INTERVAL 1 YEAR
+GROUP BY month(l_shipdate)
+ORDER BY m""",
+    "S3": """
+SELECT year(o_orderdate) AS y, substring(c_name, 16, 2) AS tail,
+       COUNT(*) AS n, MAX(o_totalprice) AS top,
+       MIN(o_orderkey) AS first_order
+FROM orders JOIN customer ON o_custkey = c_custkey
+WHERE quarter(o_orderdate) IN (1, 4)
+  AND upper(c_name) LIKE 'CUSTOMER#000%'
+GROUP BY year(o_orderdate), substring(c_name, 16, 2)
+ORDER BY y, tail""",
+    "S4": """
+SELECT dayofweek(o_orderdate) AS dow, COUNT(*) AS n,
+       SUM(datediff(l_shipdate, o_orderdate)) AS delay,
+       MAX(last_day(add_months(o_orderdate, 1))) AS last_next,
+       MIN(date_add(l_shipdate, 7)) AS first_week
+FROM lineitem JOIN orders ON l_orderkey = o_orderkey
+WHERE l_shipdate >= o_orderdate + INTERVAL 30 DAY
+  AND o_orderdate < DATE '1996-01-01' - INTERVAL 3 MONTH
+GROUP BY dayofweek(o_orderdate)
+ORDER BY dow""",
+    "S5": """
+SELECT hour(from_utc_timestamp(l_shipts, '{zone}')) AS h, COUNT(*) AS n,
+       MIN(minute(from_utc_timestamp(l_shipts, '{zone}'))) AS min_minute,
+       MAX(second(from_utc_timestamp(l_shipts, '{zone}'))) AS max_second,
+       SUM(minute(from_utc_timestamp(l_shipts, '{zone}'))) AS sum_minute,
+       SUM(unix_timestamp(l_shipts)) AS sum_unix,
+       MAX(to_date(l_shipts)) AS last_date
+FROM lineitem_dec
+GROUP BY hour(from_utc_timestamp(l_shipts, '{zone}'))
+ORDER BY h""",
+    "S6a": """
+SELECT floor(log10(o_totalprice)) AS band, COUNT(*) AS n,
+       MAX(round(o_totalprice, 2)) AS max_round,
+       MIN(bround(o_totalprice, -2)) AS min_bround,
+       MAX(ceil(sqrt(o_totalprice))) AS max_ceil_sqrt,
+       MAX(pow(o_totalprice, 0.25)) AS max_pow,
+       MIN(exp(o_totalprice / 1000000.0)) AS min_exp,
+       SUM(bitand(shiftleft(o_custkey, 3), 255)) AS sum_bits
+FROM orders
+GROUP BY floor(log10(o_totalprice))
+ORDER BY band""",
+    "S6b": """
+SELECT o_orderkey, CAST(o_totalprice AS FLOAT) AS price32
+FROM orders
+ORDER BY price32, o_orderkey
+LIMIT 100""",
+    "S7": """
+SELECT length(l_comment) AS len, COUNT(*) AS n,
+       SUM(CASE WHEN l_comment LIKE '%ab%' THEN 1 ELSE 0 END) AS n_ab,
+       SUM(CASE WHEN l_comment RLIKE '^[0-9]' THEN 1 ELSE 0 END) AS n_digit,
+       MAX(trim(l_comment)) AS max_trim,
+       MIN(lpad(l_comment, 30, '*')) AS min_pad,
+       MAX(replace(l_comment, 'a', 'A')) AS max_rep,
+       MAX(md5(l_comment)) AS max_md5
+FROM lineitem_dec
+GROUP BY length(l_comment)
+ORDER BY len""",
+    "S8": """
+SELECT concat_ws('|', 'flag', l_returnflag) AS label,
+       l_linestatus || '#' AS status,
+       SUM(xxhash64(l_extendedprice, l_shipdate) % 1000) AS xx,
+       SUM(hash(l_extendedprice * l_quantity) % 1000) AS mm,
+       SUM(CASE WHEN rand(7) < 0.5 THEN 1 ELSE 0 END) AS heads,
+       COUNT(*) AS n
+FROM lineitem_dec
+GROUP BY concat_ws('|', 'flag', l_returnflag), l_linestatus || '#'
+ORDER BY label DESC, status""",
+}
+
+#: the order phase 12 runs them in
+SCALAR_QUERIES = ("S1", "S2", "S3", "S4", "S5", "S6a", "S6b", "S7", "S8")
+#: the transcendental double columns, held within 2 ulp of the oracle
+#: (XLA's CPU, torch's CPU and CUDA's libm differ by an ulp); every other
+#: value is exact
+SCALAR_ULP_COLUMNS = {"S6a": ("max_pow", "min_exp")}
+
+
+def register_scalar_functions(F, ops) -> None:
+    """``pmod`` and ``bitand`` as global SQL functions of the package whose
+    ``functions`` module is ``F`` (``ops``: its Pmod and BitwiseAnd)."""
+    F.register_sql_function("pmod", ops.Pmod)
+    F.register_sql_function("bitand", ops.BitwiseAnd)
+
+
+def scalar_texts(zone: str = SCALAR_ZONE) -> dict:
+    return {k: v.replace("{zone}", zone) for k, v in SCALAR_SQL.items()}
+
+
+def zone_available(zone: str) -> bool:
+    """Whether the machine's zoneinfo database has ``zone``."""
+    try:
+        from zoneinfo import ZoneInfo
+        ZoneInfo(zone)
+        return True
+    except Exception:
+        return False
+
+
+def check_rows(got, want, what, ulps=()) -> None:
+    """The result against the oracle's columns ``want`` ({name: list of
+    Python values, None for null}, in order): every value exact (strings,
+    ints, unscaled decimals, dates as days, doubles bit for bit), the
+    ``ulps`` columns within 2 ulp."""
+    if list(got.names) != list(want):
+        fail(f"{what}: columns {list(got.names)}, oracle {list(want)}")
+    for name, c in zip(got.names, got.columns):
+        g, w = c.to_pylist(), list(want[name])
+        if len(g) != len(w):
+            fail(f"{what}: {len(g)} rows, oracle {len(w)}")
+        for i, (a, b) in enumerate(zip(g, w)):
+            if a is None or b is None:
+                ok = a is None and b is None
+            elif name in ulps:
+                ok = abs(int(np.float64(a).view(np.int64))
+                         - int(np.float64(b).view(np.int64))) <= 2
+            elif isinstance(b, float):
+                ok = np.float64(a).tobytes() == np.float64(b).tobytes()
+            else:
+                ok = a == b
+            if not ok:
+                fail(f"{what} {name} row {i}: {a!r}, oracle {b!r}"
+                     f"{' (2 ulp)' if name in ulps else ' (exact)'}")
+
+
+def _groups(keys):
+    """(group index of each row, (k, len(keys)) distinct key tuples in
+    ascending order) of parallel small-range integer key arrays: one
+    mixed-radix code a row and a bincount."""
+    keys = [np.asarray(k, dtype=np.int64) for k in keys]
+    los = [int(k.min()) for k in keys]
+    spans = [int(k.max()) - lo + 1 for k, lo in zip(keys, los)]
+    code = np.zeros(len(keys[0]), dtype=np.int64)
+    for k, lo, span in zip(keys, los, spans):
+        code = code * span + (k - lo)
+    present = np.flatnonzero(np.bincount(code))
+    rank = np.zeros(int(code.max()) + 1, dtype=np.int64)
+    rank[present] = np.arange(len(present))
+    uniq = np.empty((len(present), len(keys)), dtype=np.int64)
+    rest = present.copy()
+    for j in range(len(keys) - 1, -1, -1):
+        uniq[:, j] = rest % spans[j] + los[j]
+        rest //= spans[j]
+    return rank[code], uniq
+
+
+def _reduce(inv, k, values, fn, empty):
+    out = np.full(k, empty, dtype=values.dtype)
+    fn.at(out, inv, values)
+    return out
+
+
+def _big_sum(inv, k, v):
+    """Exact per-group sums of non-negative int64 values as Python ints
+    (two int64 sums of 32-bit halves)."""
+    lo_s = np.zeros(k, dtype=np.int64)
+    hi_s = np.zeros(k, dtype=np.int64)
+    np.add.at(lo_s, inv, v & 0xFFFFFFFF)
+    np.add.at(hi_s, inv, v >> 32)
+    return [int(h) * (1 << 32) + int(lo) for h, lo in zip(hi_s, lo_s)]
+
+
+def _half_up(num: int, den: int) -> int:
+    q, r = divmod(abs(num), abs(den))
+    q += 2 * r >= abs(den)
+    return -q if (num < 0) != (den < 0) else q
+
+
+def _np_murmur3_bytes(rows, lens, seed=42):
+    """Spark's murmur3 hashUnsafeBytes of each row's first ``lens`` bytes
+    (``rows`` (n, L) uint8), numpy uint32 arithmetic: the oracle of the
+    DECIMAL128 byte hash."""
+    def rotl(x, r):
+        return (x << np.uint32(r)) | (x >> np.uint32(32 - r))
+
+    def mix(h, k):
+        k = k * np.uint32(0xCC9E2D51)
+        k = rotl(k, 15) * np.uint32(0x1B873593)
+        h = rotl(h ^ k, 13)
+        return h * np.uint32(5) + np.uint32(0xE6546B64)
+
+    out = np.zeros(len(lens), dtype=np.uint32)
+    for L in np.unique(lens):
+        m = lens == L
+        b = rows[m].astype(np.uint32)
+        h = np.full(int(m.sum()), seed, dtype=np.uint32)
+        aligned = L - L % 4
+        for i in range(0, aligned, 4):
+            h = mix(h, b[:, i] | (b[:, i + 1] << np.uint32(8))
+                    | (b[:, i + 2] << np.uint32(16))
+                    | (b[:, i + 3] << np.uint32(24)))
+        for i in range(aligned, L):
+            sb = b[:, i].astype(np.int32)
+            sb = np.where(sb >= 128, sb - 256, sb).astype(np.int64)
+            h = mix(h, (sb & 0xFFFFFFFF).astype(np.uint32))
+        h = h ^ np.uint32(L)
+        h = h ^ (h >> np.uint32(16))
+        h = h * np.uint32(0x85EBCA6B)
+        h = h ^ (h >> np.uint32(13))
+        h = h * np.uint32(0xC2B2AE35)
+        out[m] = h ^ (h >> np.uint32(16))
+    return out.view(np.int32)
+
+
+_XP = (0x9E3779B185EBCA87, 0xC2B2AE3D27D4EB4F, 0x165667B19E3779F9,
+       0x85EBCA77C2B2AE63, 0x27D4EB2F165667C5)
+
+
+def _np_xx(value, seed, width):
+    """Spark's XXH64 hashLong (width 8, ``value`` int64) or hashInt (width
+    4, ``value`` int32) with per-row ``seed`` (uint64), numpy uint64."""
+    P1, P2, P3, P4, P5 = (np.uint64(p) for p in _XP)
+
+    def rotl(x, r):
+        return (x << np.uint64(r)) | (x >> np.uint64(64 - r))
+
+    h = seed + P5 + np.uint64(width)
+    if width == 8:
+        k = rotl(value.astype(np.int64).view(np.uint64) * P2, 31) * P1
+        h = rotl(h ^ k, 27) * P1 + P4
+    else:
+        k = value.astype(np.int32).view(np.uint32).astype(np.uint64) * P1
+        h = rotl(h ^ k, 23) * P2 + P3
+    h = h ^ (h >> np.uint64(33))
+    h = h * P2
+    h = h ^ (h >> np.uint64(29))
+    h = h * P3
+    return h ^ (h >> np.uint64(32))
+
+
+def _dict_rank_max(codes, valid, dictionary, fn, inv, k, use_max=True):
+    """Per group of ``inv`` the MAX (or MIN) of ``fn`` over each valid
+    row's dictionary entry, None for a group with no valid row: ``fn``
+    runs once per entry, the rows compare by the rank of its result."""
+    vals = np.array([fn(s) for s in dictionary], dtype=object)
+    uniq, rank = np.unique(vals, return_inverse=True)
+    r = rank.reshape(-1)[codes].astype(np.int64)
+    if use_max:
+        best = _reduce(inv, k, np.where(valid, r, -1), np.maximum, -1)
+    else:
+        big = len(uniq)
+        best = _reduce(inv, k, np.where(valid, r, big), np.minimum, big)
+    return [None if b < 0 or b >= len(uniq) else uniq[b] for b in best]
+
+
+def scalar_oracles(tables, dec, zone: str = SCALAR_ZONE) -> dict:
+    """{query: check(got)} of S1-S8 in numpy and Python ints from the host
+    tables and ``lineitem_dec``: decimals (HALF_UP in Python ints),
+    integers, dates, strings and hashes exact; S6a's transcendental
+    doubles (``SCALAR_ULP_COLUMNS``) within 2 ulp."""
+    import datetime as dt
+    import hashlib
+    L, O, C, D = (host_cols(t) for t in (tables["lineitem"], tables["orders"],
+                                          tables["customer"], dec))
+    i64 = np.int64
+    out = {}
+
+    def col(table, name):
+        return table.columns[table.names.index(name)]
+
+    def day(iso):
+        return (dt.date.fromisoformat(iso) - dt.date(1970, 1, 1)).days
+
+    def done(name, want):
+        out[name] = lambda g, w=want, n=name: check_rows(
+            g, w, n, SCALAR_ULP_COLUMNS.get(n, ()))
+
+    rf, rf_dict = col(dec, "l_returnflag").encoded()
+    ls, ls_dict = col(dec, "l_linestatus").encoded()
+    price, disc = D["l_extendedprice"].astype(i64), D["l_discount"].astype(i64)
+    qty = D["l_quantity"].astype(i64)
+    net = price * (100 - disc)  # scale 4
+    # S1: per-row DECIMAL128 quotients (every operand positive)
+    inv, uniq = _groups([rf, ls])
+    k = len(uniq)
+    unit = (2 * net * 10 ** 6 + qty) // (2 * qty)  # HALF_UP, scale 8
+    rem = net % (qty * 100)  # scale 4: the quantity rescaled by 10^2
+    done("S1", {
+        "l_returnflag": list(rf_dict[uniq[:, 0]]),
+        "l_linestatus": list(ls_dict[uniq[:, 1]]),
+        "sum_unit_net": _big_sum(inv, k, unit),
+        "max_rem": [int(v) for v in _reduce(inv, k, rem, np.maximum, -1)],
+        "min_pmod": [int(v) for v in _reduce(inv, k, rem, np.minimum,
+                                             np.iinfo(i64).max)],
+        "n": [int(v) for v in np.bincount(inv, minlength=k)]})
+    # S2: the promotional share of 1995's net revenue by month
+    ship = D["l_shipdate"].astype(i64)
+    m = (ship >= day("1995-01-01")) & (ship < day("1996-01-01"))
+    month = ship[m].astype("datetime64[D]").astype("datetime64[M]").astype(
+        i64) % 12 + 1
+    ccodes, cdict = col(dec, "l_comment").encoded()
+    cok = col(dec, "l_comment").validity
+    promo_entry = np.array([s.startswith("P") for s in cdict], dtype=bool)
+    promo = cok & promo_entry[ccodes]
+    minv, months = _groups([month])
+    months = months[:, 0]
+    total = np.zeros(len(months), dtype=i64)
+    part = np.zeros(len(months), dtype=i64)
+    np.add.at(total, minv, net[m])
+    np.add.at(part, minv, np.where(promo[m], net[m], 0))
+    done("S2", {
+        "m": [int(v) for v in months],
+        "promo_share": [_half_up(int(a) * 10 ** 6, int(b))
+                        for a, b in zip(part, total)],
+        "n": [int(v) for v in np.bincount(minv)]})
+    # S3: orders of '000' customers in the first and last quarters (the
+    # string tests once a customer)
+    ckey = C["c_custkey"].astype(i64)
+    picked_c = np.zeros(int(ckey.max()) + 1, dtype=bool)
+    tail_c = np.zeros(int(ckey.max()) + 1, dtype=i64)
+    picked_c[ckey] = [n.upper().startswith("CUSTOMER#000")
+                      for n in C["c_name"]]
+    tail_u, tail_i = np.unique(np.array([n[15:17] for n in C["c_name"]],
+                                        dtype=object), return_inverse=True)
+    tail_c[ckey] = tail_i.reshape(-1)
+    cust = O["o_custkey"].astype(i64)
+    known = (cust >= 0) & (cust < len(picked_c))
+    cidx = np.clip(cust, 0, len(picked_c) - 1)
+    od = O["o_orderdate"].astype(i64)
+    odates = od.astype("datetime64[D]")
+    year = odates.astype("datetime64[Y]").astype(i64) + 1970
+    mon = odates.astype("datetime64[M]").astype(i64) % 12 + 1
+    quarter = (mon - 1) // 3 + 1
+    m = known & picked_c[cidx] & ((quarter == 1) | (quarter == 4))
+    inv, uniq = _groups([year[m], tail_c[cidx[m]]])
+    k = len(uniq)
+    done("S3", {
+        "y": [int(v) for v in uniq[:, 0]],
+        "tail": list(tail_u[uniq[:, 1]]),
+        "n": [int(v) for v in np.bincount(inv, minlength=k)],
+        "top": [float(v) for v in _reduce(inv, k, O["o_totalprice"][m],
+                                          np.maximum, -np.inf)],
+        "first_order": [int(v) for v in _reduce(
+            inv, k, O["o_orderkey"][m].astype(i64), np.minimum,
+            np.iinfo(i64).max)]})
+    # S4: the ship delay of orders placed before 1995-10-01
+    okey = O["o_orderkey"].astype(i64)
+    date_of = np.full(int(okey.max()) + 1, np.iinfo(i64).max, dtype=i64)
+    date_of[okey] = od
+    lkey = L["l_orderkey"].astype(i64)
+    inside = (lkey >= 0) & (lkey < len(date_of))
+    lod = np.where(inside, date_of[np.clip(lkey, 0, len(date_of) - 1)],
+                   np.iinfo(i64).max)
+    lship = L["l_shipdate"].astype(i64)
+    m = (lod != np.iinfo(i64).max) & (lship >= lod + 30) & \
+        (lod < day("1995-10-01"))
+    dow = (lod[m] + 4) % 7 + 1
+    last_next = (lod[m].astype("datetime64[D]").astype("datetime64[M]")
+                 + np.timedelta64(2, "M")).astype("datetime64[D]").astype(
+        i64) - 1
+    inv, dows = _groups([dow])
+    dows, k = dows[:, 0], len(dows)
+    delay = np.zeros(k, dtype=i64)
+    np.add.at(delay, inv, lship[m] - lod[m])
+    done("S4", {
+        "dow": [int(v) for v in dows],
+        "n": [int(v) for v in np.bincount(inv, minlength=k)],
+        "delay": [int(v) for v in delay],
+        "last_next": [int(v) for v in _reduce(inv, k, last_next, np.maximum,
+                                              np.iinfo(i64).min)],
+        "first_week": [int(v) + 7 for v in _reduce(
+            inv, k, lship[m], np.minimum, np.iinfo(i64).max)]})
+    # S5: local hours of the ship timestamps (the offset of each UTC hour
+    # from zoneinfo, or the fixed offset)
+    ts = D["l_shipts"].astype(i64)
+    hour_us = 3_600_000_000
+    utc_hour = ts // hour_us
+    if zone == SCALAR_ZONE:
+        from zoneinfo import ZoneInfo
+        tz = ZoneInfo(zone)
+        hinv, hours = _groups([utc_hour])
+        hours = hours[:, 0]
+        offs = np.array([int(dt.datetime.fromtimestamp(
+            int(h) * 3600, dt.timezone.utc).astimezone(tz).utcoffset()
+            .total_seconds()) * 1_000_000 for h in hours], dtype=i64)
+        local = ts + offs[hinv.reshape(-1)]
+    else:
+        sign = -1 if zone.startswith("-") else 1
+        hh, mm = zone[1:].split(":")
+        local = ts + sign * (int(hh) * 3600 + int(mm) * 60) * 1_000_000
+    lh = (local // hour_us) % 24
+    lmin = (local // 60_000_000) % 60
+    lsec = (local // 1_000_000) % 60
+    inv, hs = _groups([lh])
+    hs, k = hs[:, 0], len(hs)
+    s_min = np.zeros(k, dtype=i64)
+    s_unix = np.zeros(k, dtype=i64)
+    np.add.at(s_min, inv, lmin)
+    np.add.at(s_unix, inv, ts // 1_000_000)
+    done("S5", {
+        "h": [int(v) for v in hs],
+        "n": [int(v) for v in np.bincount(inv, minlength=k)],
+        "min_minute": [int(v) for v in _reduce(inv, k, lmin, np.minimum,
+                                               60)],
+        "max_second": [int(v) for v in _reduce(inv, k, lsec, np.maximum,
+                                               -1)],
+        "sum_minute": [int(v) for v in s_min],
+        "sum_unix": [int(v) for v in s_unix],
+        "last_date": [int(v) for v in _reduce(
+            inv, k, ts // 86_400_000_000, np.maximum, np.iinfo(i64).min)]})
+    # S6a: price bands, IEEE-exact rounding, transcendentals within 2 ulp
+    p = O["o_totalprice"].astype(np.float64)
+    band = np.floor(np.log10(p)).astype(i64)
+    inv, bands = _groups([band])
+    bands, k = bands[:, 0], len(bands)
+    x = p * 100.0
+    rnd = np.where(x >= 0, np.floor(x + 0.5), np.ceil(x - 0.5)) / 100.0
+    brnd = np.rint(p * 0.01) / 0.01
+    bits = np.zeros(k, dtype=i64)
+    np.add.at(bits, inv, (cust << 3) & 255)
+    done("S6a", {
+        "band": [int(v) for v in bands],
+        "n": [int(v) for v in np.bincount(inv, minlength=k)],
+        "max_round": [float(v) for v in _reduce(inv, k, rnd, np.maximum,
+                                                -np.inf)],
+        "min_bround": [float(v) for v in _reduce(inv, k, brnd, np.minimum,
+                                                 np.inf)],
+        "max_ceil_sqrt": [int(v) for v in _reduce(
+            inv, k, np.ceil(np.sqrt(p)).astype(i64), np.maximum, -1)],
+        "max_pow": [float(v) for v in _reduce(inv, k, np.power(p, 0.25),
+                                              np.maximum, -np.inf)],
+        "min_exp": [float(v) for v in _reduce(inv, k, np.exp(p / 1e6),
+                                              np.minimum, np.inf)],
+        "sum_bits": [int(v) for v in bits]})
+    # S6b: the 100 cheapest orders by their float32 price
+    p32 = p.astype(np.float32)
+    top = np.lexsort((okey, p32))[:100]
+    done("S6b", {"o_orderkey": [int(v) for v in okey[top]],
+                 "price32": [float(v) for v in p32[top]]})
+    # S7: the comment scan by comment length (null comments: a null group)
+    lens = np.array([len(s) for s in cdict], dtype=i64)[ccodes]
+    key = np.where(cok, lens, -1)
+    inv, keys = _groups([key])
+    keys, k = keys[:, 0], len(keys)
+
+    def count_where(entry_pred):
+        hit = cok & np.array([entry_pred(s) for s in cdict],
+                             dtype=bool)[ccodes]
+        return [int(v) for v in np.bincount(inv, weights=hit.astype(i64),
+                                            minlength=k).astype(i64)]
+
+    def md5(s):
+        return hashlib.md5(s.encode("utf-8")).hexdigest()
+
+    def lpad30(s):
+        return s[:30] if len(s) >= 30 else ("*" * 30)[:30 - len(s)] + s
+
+    done("S7", {
+        "len": [None if v < 0 else int(v) for v in keys],
+        "n": [int(v) for v in np.bincount(inv, minlength=k)],
+        "n_ab": count_where(lambda s: "ab" in s),
+        "n_digit": count_where(lambda s: s[:1].isdigit() and s[:1].isascii()),
+        "max_trim": _dict_rank_max(ccodes, cok, cdict, lambda s: s.strip(" "),
+                                   inv, k),
+        "min_pad": _dict_rank_max(ccodes, cok, cdict, lpad30, inv, k,
+                                  use_max=False),
+        "max_rep": _dict_rank_max(ccodes, cok, cdict,
+                                  lambda s: s.replace("a", "A"), inv, k),
+        "max_md5": _dict_rank_max(ccodes, cok, cdict, md5, inv, k)})
+    # S8: labels, the two row hashes and rand(7) (one stream in row order)
+    xx = _np_xx(D["l_shipdate"], _np_xx(price, np.full(
+        len(price), 42, dtype=np.uint64), 8), 4).view(i64)
+    vol = price * qty  # decimal(31,4), positive: its minimal bytes
+    bitlen = np.frexp(vol.astype(np.float64))[1].astype(i64)  # exact < 2^53
+    nbytes = bitlen // 8 + 1
+    rows = np.zeros((len(vol), 8), dtype=np.uint8)
+    for j in range(8):  # big-endian, left-aligned to each row's length
+        shift = (nbytes - 1 - j) * 8
+        rows[:, j] = np.where(j < nbytes, (vol >> np.clip(shift, 0, 63))
+                              & 0xFF, 0)
+    mm = _np_murmur3_bytes(rows, nbytes)
+    heads = np.random.default_rng(7).random(len(vol)) < 0.5
+    inv, uniq = _groups([rf, ls])
+    k = len(uniq)
+    # ORDER BY label DESC, status: two stable sorts
+    order = sorted(range(k), key=lambda g: ls_dict[uniq[g, 1]])
+    order = sorted(order, key=lambda g: rf_dict[uniq[g, 0]], reverse=True)
+    xs = np.zeros(k, dtype=i64)
+    ms = np.zeros(k, dtype=i64)
+    np.add.at(xs, inv, np.fmod(xx, 1000))
+    np.add.at(ms, inv, np.fmod(mm.astype(i64), 1000))
+    hs = np.bincount(inv, weights=heads.astype(i64), minlength=k).astype(i64)
+    n = np.bincount(inv, minlength=k)
+    done("S8", {
+        "label": ["flag|" + rf_dict[uniq[g, 0]] for g in order],
+        "status": [ls_dict[uniq[g, 1]] + "#" for g in order],
+        "xx": [int(xs[g]) for g in order],
+        "mm": [int(ms[g]) for g in order],
+        "heads": [int(hs[g]) for g in order],
+        "n": [int(n[g]) for g in order]})
+    return out
+
+
+def dec128_edges():
+    """The edge set of the DECIMAL128 division, as (mode, a, b, pow_a,
+    pow_b, precision, what) with Python-int operands: a zero divisor,
+    negative operands of each sign, a quotient at 10^38 - 1 and at 10^38,
+    decimal(38,0) / decimal(38,38) (a 273-bit numerator) and 256-bit
+    remainder operands."""
+    big = 10 ** 38 - 1
+    vals = [0, 1, -1, 7, -7, 2, -2, big, -big, 10 ** 19 + 3, -(2 ** 64),
+            2 ** 63, 12345678901234567890123, 5 * 10 ** 37]
+    pairs = [(a, b) for a in vals for b in vals]
+    return [
+        ("divide", pairs, 10 ** 6, 1, 38, "decimal(32,4)/decimal(15,2)"),
+        ("divide", pairs, 10 ** 44, 1, 38, "decimal(38,0)/decimal(38,38)"),
+        ("divide", pairs + [(big, 10), (-big, 10), (10 ** 37, 1),
+                            (-(10 ** 37), 1), (big, 1)], 10, 1, 38,
+         "quotients at 10^38 - 1 and 10^38"),
+        ("remainder", pairs, 10 ** 38, 1, 38, "decimal(38,0)%decimal(38,38)"),
+        ("remainder", pairs, 1, 10 ** 38, 38, "256-bit divisors"),
+        ("pmod", pairs, 10 ** 38, 1, 38, "pmod at 256 bits"),
+        ("pmod", pairs, 1, 100, 17, "decimal(32,4) pmod decimal(15,2)"),
+    ]
+
+
+def dec128_oracle(mode, a, b, pow_a, pow_b, precision):
+    """The Python-int (Python ``decimal``-free) value of one row, None for
+    null: HALF_UP on the magnitude with the sign of a / b, Java's %."""
+    big_a, big_b = abs(a) * pow_a, abs(b) * pow_b
+    if big_b == 0:
+        return None
+    if mode == "divide":
+        q, r = divmod(big_a, big_b)
+        q += 2 * r >= big_b
+        v = -q if (a < 0) != (b < 0) else q
+    else:
+        r = big_a % big_b
+        v = -r if a < 0 else r
+        if mode == "pmod" and r and (a < 0) != (b < 0):
+            v = (big_b - r) * (-1 if b < 0 else 1)
+    return v if abs(v) < 10 ** precision else None
+
+
+def _limb_streams(values):
+    m64 = (1 << 64) - 1
+    hi = torch.tensor([v >> 64 for v in values], dtype=torch.int64)
+    lo = torch.tensor([(v & m64) - (1 << 64) if v & m64 >= 1 << 63
+                       else v & m64 for v in values], dtype=torch.int64)
+    return hi.to(DEV), lo.to(DEV)
+
+
+def check_dec128div(s1_args) -> dict:
+    """The DECIMAL128 division kernel bit for bit against its plain version
+    on the card, at S1's three launches' operands sampled to 2^20 rows and
+    on the edge set (both also against Python ints), then its time at
+    S1's divide shape (CUDA events, median of 15, and 20 back to back)
+    beside the plain version's and the byte bound."""
+    from spark_rapids_tpu_torch.kernels.decimal import (
+        dec128_divide,
+        dec128_divide_plain,
+    )
+    m64 = (1 << 64) - 1
+    sample = 1 << 20
+    for args in s1_args:
+        mode, streams, rest = args[0], args[1:6], args[6:]
+        n = streams[0].shape[0]
+        idx = torch.randperm(n, device=DEV)[:sample].sort().values
+        cut = [t[idx].contiguous() for t in streams]
+        got = dec128_divide(mode, *cut, *rest)
+        want = dec128_divide_plain(mode, *cut, *rest)
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            fail(f"dec128_divide ({mode}, S1's operands, {len(idx)} rows) "
+                 "differs from its plain version")
+        # a few hundred rows against Python ints too
+        host = [t[:512].tolist() for t in cut]
+        for i in range(len(host[0])):
+            a = (host[0][i] << 64) | (host[1][i] & m64)
+            b = (host[2][i] << 64) | (host[3][i] & m64)
+            w = dec128_oracle(mode, a, b, *rest) if host[4][i] else None
+            g = ((int(got[0][i]) << 64) | (int(got[1][i]) & m64)) \
+                if bool(got[2][i]) else None
+            if g != w:
+                fail(f"dec128_divide ({mode}) row {i}: {g}, Python ints {w}")
+        log(f"  dec128_divide ({mode}): bit for bit with its plain version "
+            f"on {len(idx)} sampled rows of S1's operands, and with Python "
+            "ints on 512 of them")
+    n_edges = 0
+    for mode, pairs, pow_a, pow_b, prec, what in dec128_edges():
+        a_hi, a_lo = _limb_streams([a for a, _ in pairs])
+        b_hi, b_lo = _limb_streams([b for _, b in pairs])
+        valid = torch.ones(len(pairs), dtype=torch.bool, device=DEV)
+        got = dec128_divide(mode, a_hi, a_lo, b_hi, b_lo, valid, pow_a,
+                            pow_b, prec)
+        want = dec128_divide_plain(mode, a_hi, a_lo, b_hi, b_lo, valid,
+                                   pow_a, pow_b, prec)
+        if not all(torch.equal(x, y) for x, y in zip(got, want)):
+            fail(f"dec128_divide edge set {what}: differs from its plain "
+                 "version")
+        hi, lo, ok = (t.tolist() for t in got)
+        for i, (a, b) in enumerate(pairs):
+            g = ((hi[i] << 64) | (lo[i] & m64)) if ok[i] else None
+            if g != dec128_oracle(mode, a, b, pow_a, pow_b, prec):
+                fail(f"dec128_divide edge {what} ({a}, {b}): {g}")
+        n_edges += len(pairs)
+    log(f"  dec128_divide: the edge set ({n_edges} rows: zero divisors, "
+        "negative operands, quotients at 10^38 - 1 and 10^38, a 273-bit "
+        "numerator, 256-bit remainder operands) bit for bit with its plain "
+        "version and with Python ints")
+    mode, streams, rest = s1_args[0][0], s1_args[0][1:6], s1_args[0][6:]
+    n = streams[0].shape[0]
+
+    def kernel():
+        return dec128_divide(mode, *streams, *rest)
+
+    def plain():
+        return dec128_divide_plain(mode, *streams, *rest)
+
+    before = dec128_divide.launches
+    ms = time_ms(kernel)
+    ms_b2b = time_ms(kernel, calls=BACK_TO_BACK)
+    plain_ms = time_ms(plain, iters=3, warmup=1)
+    dec128_divide.launches = before
+    # each row reads two (hi, lo) operands and a validity byte and writes
+    # a (hi, lo) result and a validity byte; the operations (a 4-word
+    # numerator over a 2-word divisor: about 200 32-bit integer
+    # operations a row) stay below the bytes' time
+    nbytes = n * (2 * 16 + 1 + 16 + 1)
+    bnd, by = bound_ms(nbytes, 200 * n, INT32_OPS_PER_S)
+    log(f"  dec128_divide time at S1's divide ({n} rows, decimal(32,4) / "
+        f"decimal(15,2)): kernel {ms:.4f} ms [{ms_b2b:.4f} {BACK_TO_BACK} "
+        f"back to back], plain version {plain_ms:.2f} ms, bound "
+        f"{bnd:.4f} ms ({by}), no PyTorch call computes it")
+    return {"name": "dec128_divide", "max_abs_err": 0.0, "ms": ms_b2b,
+            "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
+            "library_ms": None}
+
+
+def scalar_session(tables, dec, session):
+    """Temp views lineitem, orders, customer and lineitem_dec on
+    ``session`` (the port's; a test passes the reference's too)."""
+    from spark_rapids_tpu_torch.plan import from_host_table
+    for name in ("lineitem", "orders", "customer"):
+        from_host_table(tables[name], session).create_or_replace_temp_view(
+            name)
+    from_host_table(dec, session).create_or_replace_temp_view("lineitem_dec")
+
+
+def run_scalars(tables, sf: float, seed: int, profile_dir) -> tuple:
+    """Phase 12: S1-S8 (``SCALAR_QUERIES``) over temp views of phases
+    6-11's tables through ``TorchSession.sql``, each through ``run_case``
+    against its oracle; S1 must launch the DECIMAL128 division kernel
+    three times a run (divide, remainder, pmod), whose launches are then
+    checked and timed (``check_dec128div``). Returns (every kernel's
+    launches summed over the counted runs, the inputs of S1's division
+    launches: divide first)."""
+    from spark_rapids_tpu_torch import functions as F
+    from spark_rapids_tpu_torch import kernels as K
+    from spark_rapids_tpu_torch.ops import arithmetic as A
+    from spark_rapids_tpu_torch.ops import math as M
+    from spark_rapids_tpu_torch.session import TorchSession
+    from types import SimpleNamespace
+
+    zone = SCALAR_ZONE if zone_available(SCALAR_ZONE) else SCALAR_FIXED_ZONE
+    log(f"  S5's zone: {zone}" + ("" if zone == SCALAR_ZONE else
+                                  f" ({SCALAR_ZONE} is not in this "
+                                  "machine's zoneinfo database)"))
+    t0 = time.perf_counter()
+    dec = lineitem_dec(tables, seed)
+    log(f"  lineitem_dec ({dec.num_rows} rows) in "
+        f"{time.perf_counter() - t0:.2f} s (host)")
+    t0 = time.perf_counter()
+    oracles = scalar_oracles(tables, dec, zone)
+    log(f"  the oracles in {time.perf_counter() - t0:.2f} s (host)")
+    register_scalar_functions(F, SimpleNamespace(Pmod=A.Pmod,
+                                                 BitwiseAnd=M.BitwiseAnd))
+    session = TorchSession()
+    scalar_session(tables, dec, session)
+    texts = scalar_texts(zone)
+    total, summary = {}, {}
+    for name in SCALAR_QUERIES:
+        prof = profile_dir if name in ("S1", "S2", "S5", "S7", "S8") else None
+        res = run_case(session, name, lambda t=texts[name]: session.sql(t),
+                       oracles[name], prof)
+        for k, v in res["launches"].items():
+            total[k] = total.get(k, 0) + v
+        summary[name] = dict(res["stats"], launches={
+            k: v for k, v in res["launches"].items() if v})
+        log(f"  {name}: result matches its oracle")
+    got = summary["S1"]["launches"].get("dec128_divide")
+    if got != 3:
+        fail(f"S1 launched dec128_divide {got} times, want 3 (divide, "
+             "remainder, pmod)")
+    log("  phase-12 summary: " + json.dumps(summary))
+    # S1 once more, its division launches' inputs kept for the kernel's
+    # checks and times (launches outside the counted runs)
+    K.calls = []
+    session.sql(texts["S1"]).collect_table()
+    s1_args = sorted((inputs for kernel, inputs, _ in K.calls
+                      if kernel == "dec128_divide"),
+                     key=lambda a: a[0] != "divide")
+    K.calls = None
+    return total, s1_args
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rows", type=int, default=6_001_215,
@@ -3419,7 +4189,19 @@ def main(argv=None) -> int:
         launches[k] += v
     log(f"  phase 11 ran {time.perf_counter() - t_phase:.1f} s")
 
-    log("phase 12: summary")
+    t_phase = time.perf_counter()
+    log("phase 12: the scalar queries (S1-S8: DECIMAL128 division, "
+        "strings, dates and timestamps, math, hashes) through "
+        "TorchSession.sql")
+    totals, s1_args = run_scalars(tables, args.sf, args.seed, args.profile)
+    for k, v in totals.items():
+        launches[k] = launches.get(k, 0) + v
+    rows.append(check_dec128div(s1_args))
+    log(f"  phase 12 ran {time.perf_counter() - t_phase:.1f} s")
+
+    log("phase 13: summary")
+    log("  dec128_divide is CUDA work beyond the five TPU kernels: the "
+        "reference divides DECIMAL128 values on its host")
     for r in rows:
         r.update(route="cuda", source=SOURCES[r["name"]],
                  replaces=TPU_KERNELS[r["name"]],

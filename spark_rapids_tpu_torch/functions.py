@@ -6,11 +6,20 @@ from __future__ import annotations
 
 from spark_rapids_tpu_torch.ops import aggregates as _agg
 from spark_rapids_tpu_torch.ops import conditional as _cond
+from spark_rapids_tpu_torch.ops import datetime as _dt
+from spark_rapids_tpu_torch.ops import math as _math
+from spark_rapids_tpu_torch.ops import misc as _misc
+from spark_rapids_tpu_torch.ops import strings as _str
 from spark_rapids_tpu_torch.ops.expr import Expression, col, lit  # noqa: F401
 
 
 def _e(x) -> Expression:
     return x if isinstance(x, Expression) else col(x) if isinstance(x, str) else lit(x)
+
+
+def _lit(x) -> Expression:
+    """A value as a literal (a string is a value here, not a column)."""
+    return x if isinstance(x, Expression) else lit(x)
 
 
 def sum(e):  # noqa: A001
@@ -102,6 +111,11 @@ def hash(*exprs):  # noqa: A001
     return Murmur3Hash(*[_e(x) for x in exprs])
 
 
+def xxhash64(*exprs):
+    from spark_rapids_tpu_torch.ops.hashfns import XxHash64
+    return XxHash64(*[_e(x) for x in exprs])
+
+
 # conditionals (ops/conditional.py)
 def when(cond, value):
     return WhenBuilder().when(cond, value)
@@ -143,6 +157,284 @@ def nanvl(a, b):
 
 def if_(cond, a, b):
     return _cond.If(_e(cond), _e(a), _e(b))
+
+
+# math functions (ops/math.py)
+def sqrt(e):
+    return _math.Sqrt(_e(e))
+
+
+def exp(e):
+    return _math.Exp(_e(e))
+
+
+def log(e):
+    return _math.Log(_e(e))
+
+
+def log10(e):
+    return _math.Log10(_e(e))
+
+
+def log2(e):
+    return _math.Log2(_e(e))
+
+
+def pow(a, b):  # noqa: A001
+    return _math.Pow(_e(a), _e(b))
+
+
+def ceil(e):
+    return _math.Ceil(_e(e))
+
+
+def floor(e):
+    return _math.Floor(_e(e))
+
+
+def round(e, scale=0):  # noqa: A001
+    return _math.Round(_e(e), lit(scale))
+
+
+def bround(e, scale=0):
+    return _math.BRound(_e(e), lit(scale))
+
+
+def signum(e):
+    return _math.Signum(_e(e))
+
+
+def shiftleft(e, n):
+    return _math.ShiftLeft(_e(e), _e(n))
+
+
+def shiftright(e, n):
+    return _math.ShiftRight(_e(e), _e(n))
+
+
+# string functions (ops/strings.py)
+def upper(e):
+    return _str.Upper(_e(e))
+
+
+def lower(e):
+    return _str.Lower(_e(e))
+
+
+def length(e):
+    return _str.Length(_e(e))
+
+
+def bit_length(e):
+    return _str.BitLength(_e(e))
+
+
+def octet_length(e):
+    return _str.OctetLength(_e(e))
+
+
+def ascii(e):  # noqa: A001
+    return _str.Ascii(_e(e))
+
+
+def reverse(e):
+    return _str.Reverse(_e(e))
+
+
+def initcap(e):
+    return _str.InitCap(_e(e))
+
+
+def trim(e):
+    return _str.StringTrim(_e(e))
+
+
+def ltrim(e):
+    return _str.StringTrimLeft(_e(e))
+
+
+def rtrim(e):
+    return _str.StringTrimRight(_e(e))
+
+
+def substring(e, pos, length):  # noqa: A002
+    return _str.Substring(_e(e), lit(pos), lit(length))
+
+
+def repeat(e, n):
+    return _str.StringRepeat(_e(e), lit(n))
+
+
+def replace(e, search, replacement=""):
+    return _str.StringReplace(_e(e), lit(search), lit(replacement))
+
+
+def lpad(e, length, pad=" "):  # noqa: A002
+    return _str.StringLPad(_e(e), lit(length), lit(pad))
+
+
+def rpad(e, length, pad=" "):  # noqa: A002
+    return _str.StringRPad(_e(e), lit(length), lit(pad))
+
+
+def substring_index(e, delim, count):
+    return _str.SubstringIndex(_e(e), lit(delim), lit(count))
+
+
+def translate(e, matching, replace):  # noqa: A002
+    return _str.StringTranslate(_e(e), lit(matching), lit(replace))
+
+
+def concat(*exprs):
+    return _str.Concat(*[_e(x) for x in exprs])
+
+
+def contains(e, sub):
+    return _str.Contains(_e(e), lit(sub))
+
+
+def startswith(e, prefix):
+    return _str.StartsWith(_e(e), lit(prefix))
+
+
+def endswith(e, suffix):
+    return _str.EndsWith(_e(e), lit(suffix))
+
+
+def like(e, pattern):
+    return _str.Like(_e(e), lit(pattern))
+
+
+def rlike(e, pattern):
+    return _str.RLike(_e(e), lit(pattern))
+
+
+def instr(e, sub):
+    return _str.StringInstr(_e(e), lit(sub))
+
+
+def locate(sub, e, pos=1):
+    return _str.StringLocate(lit(sub), _e(e), lit(pos))
+
+
+def regexp_replace(e, pattern, replacement):
+    return _str.RegExpReplace(_e(e), lit(pattern), lit(replacement))
+
+
+def regexp_extract(e, pattern, idx=1):
+    return _str.RegExpExtract(_e(e), lit(pattern), lit(idx))
+
+
+# datetime functions (ops/datetime.py)
+def year(e):
+    return _dt.Year(_e(e))
+
+
+def month(e):
+    return _dt.Month(_e(e))
+
+
+def dayofmonth(e):
+    return _dt.DayOfMonth(_e(e))
+
+
+def dayofweek(e):
+    return _dt.DayOfWeek(_e(e))
+
+
+def weekday(e):
+    return _dt.WeekDay(_e(e))
+
+
+def dayofyear(e):
+    return _dt.DayOfYear(_e(e))
+
+
+def quarter(e):
+    return _dt.Quarter(_e(e))
+
+
+def last_day(e):
+    return _dt.LastDay(_e(e))
+
+
+def date_add(e, n):
+    return _dt.DateAdd(_e(e), _e(n))
+
+
+def date_sub(e, n):
+    return _dt.DateSub(_e(e), _e(n))
+
+
+def datediff(end, start):
+    return _dt.DateDiff(_e(end), _e(start))
+
+
+def add_months(e, n):
+    return _dt.AddMonths(_e(e), _e(n))
+
+
+def hour(e):
+    return _dt.Hour(_e(e))
+
+
+def minute(e):
+    return _dt.Minute(_e(e))
+
+
+def second(e):
+    return _dt.Second(_e(e))
+
+
+def to_unix_timestamp(e):
+    return _dt.UnixTimestampFromTs(_e(e))
+
+
+def timestamp_seconds(e):
+    return _dt.SecondsToTimestamp(_e(e))
+
+
+def timestamp_millis(e):
+    return _dt.MillisToTimestamp(_e(e))
+
+
+def timestamp_micros(e):
+    return _dt.MicrosToTimestamp(_e(e))
+
+
+def to_date(e):
+    return _dt.TsToDate(_e(e))
+
+
+# nondeterministic, timezone, md5 and concat_ws (ops/misc.py)
+def monotonically_increasing_id():
+    return _misc.MonotonicallyIncreasingID()
+
+
+def spark_partition_id():
+    return _misc.SparkPartitionID()
+
+
+def rand(seed: int = 0):
+    return _misc.Rand(seed)
+
+
+def md5(e):
+    return _misc.Md5(_e(e))
+
+
+def concat_ws(sep, *exprs):
+    # the separator is a VALUE (PySpark signature), not a column name
+    sep_expr = sep if isinstance(sep, Expression) else lit(sep)
+    return _misc.ConcatWs(sep_expr, *[_e(x) for x in exprs])
+
+
+def from_utc_timestamp(e, tz):
+    return _misc.FromUTCTimestamp(_e(e), _lit(tz))
+
+
+def to_utc_timestamp(e, tz):
+    return _misc.ToUTCTimestamp(_e(e), _lit(tz))
 
 
 # -- SQL front end hooks ------------------------------------------------------

@@ -1,4 +1,5 @@
-"""The port's hand-written CUDA kernels, one module per TPU kernel.
+"""The port's hand-written CUDA kernels, one module per TPU kernel, and
+``decimal`` (DECIMAL128 division, CUDA work beyond the TPU kernels).
 
 Each module holds the kernel's wrapper, its plain PyTorch version and a
 launch counter (``<wrapper>.launches``, a plain int that the wrapper
@@ -26,6 +27,7 @@ KERNELS = (
     ("compact", "gather_compact"),
     ("sort", "sort_with_payload"),
     ("hashprobe", "probe_rowids"),
+    ("decimal", "dec128_divide"),
 )
 
 

@@ -26,7 +26,8 @@ from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
-SOURCES = ("segreduce", "minmax", "compact", "sort", "hashprobe")
+SOURCES = ("segreduce", "minmax", "compact", "sort", "hashprobe",
+           "dec128div")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

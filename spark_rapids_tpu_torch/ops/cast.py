@@ -16,8 +16,9 @@ implements them:
 The pairs are those the reference's ``cast_supported`` admits, plus the
 integral -> decimal and decimal -> decimal casts with a DECIMAL128 side or
 a rescale past 18 digits, where the reference takes its exact host route
-(the port computes them exactly in base-2^16 digits, ops/decimal.py):
-DECIMAL128 -> integral and float/double -> decimal stay unported. A NULL
+(the port computes them exactly in base-2^16 digits, ops/decimal.py),
+and DECIMAL128 -> integral (the reference's host route; the same digits):
+float/double -> decimal stays unported. A NULL
 literal (``void``) casts to any type as an all-null column in that type's
 storage (``T.promote`` coerces a NULL operand to the other operand's
 type). Casts to or from strings, dates and timestamps are not ported;
@@ -49,7 +50,6 @@ def cast_supported(src: T.DataType, dst: T.DataType) -> bool:
     """The numeric pairs of the reference's ``cast_supported``."""
     if src == dst or isinstance(src, T.NullType):
         return True
-    dec_max = T.DecimalType.MAX_LONG_DIGITS
     if isinstance(src, T.DecimalType) or isinstance(dst, T.DecimalType):
         if isinstance(src, T.DecimalType) and isinstance(dst, T.DecimalType):
             return True
@@ -57,8 +57,7 @@ def cast_supported(src: T.DataType, dst: T.DataType) -> bool:
             return isinstance(src, T.IntegralType)
         if isinstance(dst, (T.DoubleType, T.FloatType)):
             return True
-        return (src.precision <= dec_max
-                and isinstance(dst, T.IntegralType))
+        return isinstance(dst, T.IntegralType)
     return isinstance(src, _SIMPLE) and isinstance(dst, _SIMPLE)
 
 
@@ -141,9 +140,24 @@ def _cast_decimal(c: DevVal, src: T.DataType, dst: T.DataType) -> DevVal:
         return DevVal(torch.where(c.validity, data, torch.zeros_like(data)),
                       c.validity)
     # integral: truncate toward zero, null when out of range
-    q = torch.div(c.data, scale, rounding_mode="trunc")
     lo, hi = _INT_BOUNDS[np.dtype(dst.np_dtype)]
-    validity = c.validity & (q >= lo) & (q <= hi)
+    if T.is_dec128(src):
+        from spark_rapids_tpu_torch.ops.decimal import (
+            _digits_div_small,
+            digits_to_i128,
+        )
+        neg, mag = sign_magnitude(c.data)
+        down = src.scale
+        while down > 0:  # floor of the magnitude: truncation toward zero
+            step = min(down, 9)
+            mag = _digits_div_small(mag, _POW10[step])
+            down -= step
+        top, q = digits_to_i128(neg, mag)
+        validity = c.validity & (top == q >> 63)
+    else:
+        q = torch.div(c.data, scale, rounding_mode="trunc")
+        validity = c.validity
+    validity = validity & (q >= lo) & (q <= hi)
     out = q.to(T.torch_dtype(dst))
     return DevVal(torch.where(validity, out, torch.zeros_like(out)),
                   validity)

@@ -87,7 +87,8 @@ def align_string_dicts_many(pctx: PrepCtx,
 
 
 def dev_remap_codes(remap: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
-    """Device side of ``align_string_dicts_many``: the codes in the merged
-    dictionary. Codes are clamped into the remap's range, so the garbage
-    codes of invalid rows cannot fault the gather."""
+    """``remap[codes]``: a table by dictionary entry gathered by code (the
+    device side of ``align_string_dicts_many`` and of the string
+    functions' dictionary transforms). Codes are clamped into the table's
+    range, so the garbage codes of invalid rows cannot fault the gather."""
     return remap.index_select(0, codes.clamp(0, remap.shape[0] - 1))

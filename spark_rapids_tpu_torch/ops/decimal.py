@@ -28,13 +28,17 @@ any width a decimal(38) product needs (up to 256 bits) before the
 HALF_UP division by 10^down that Spark's ``_adjust`` asks for and the
 check against 10^p.
 DecimalDivide, DecimalRemainder and DecimalPmod over a DECIMAL128
-operand or result (or, for the last two, a rescaled operand past 18
-digits) are not ported and raise naming themselves.
+operand or result (or, for the last two, an operand rescaled past 18
+digits) run in one launch of the DECIMAL128 division kernel
+(``kernels/decimal.py``, ``csrc/dec128div.cu``): a Divide's numerator
+|l| x 10^up reaches 10^82 < 2^273 over a divisor below 10^38; a
+Remainder's rescaled operands reach 10^76 < 2^253.
 
 DecimalDivide follows the reference's device form, which rounds the
 magnitude (HALF_UP away from zero); the reference's host form
 ``_round_half_up_div`` mis-rounds a quotient with a negative divisor
-(7 / -2 gives -3 there; -4 here and on its device).
+(7 / -2 gives -3 there; -4 here and on its device), and it computes every
+DECIMAL128 quotient.
 """
 
 from __future__ import annotations
@@ -528,23 +532,8 @@ class DecimalBinary(Expression):
     def with_children(self, children):
         return type(self)(children[0], children[1])
 
-    def resolve(self, bound):
-        out = type(self)(bound[0], bound[1])
-        out._check_ported()
-        return out
-
-    def _check_ported(self) -> None:
-        pass
-
     def _result_type(self, a, b) -> T.DecimalType:
         raise NotImplementedError
-
-    def _raise(self, why: str):
-        lt, rt = self.left.data_type, self.right.data_type
-        raise NotImplementedError(
-            f"{self.name} ({lt.simple_string()}, {rt.simple_string()} -> "
-            f"{self.data_type.simple_string()}): {why} is not ported to "
-            "spark_rapids_tpu_torch yet")
 
 
 def _fits_i64_digits(*ps: int) -> bool:
@@ -612,11 +601,36 @@ class DecimalMultiply(DecimalBinary):
         return store_decimal(na ^ nb, mag, validity, out)
 
 
+def _hi_lo(data: torch.Tensor):
+    """Contiguous (hi, lo) int64 streams of decimal storage: a
+    DECIMAL128's limbs, or a DECIMAL64 value with its sign as hi."""
+    if data.ndim == 2:
+        return data[:, 0].contiguous(), data[:, 1].contiguous()
+    v = data.to(torch.int64).contiguous()
+    return v >> 63, v
+
+
+def _wide_divide(mode: str, child_vals, pow_a: int, pow_b: int,
+                 out: T.DecimalType) -> DevVal:
+    """One launch of the DECIMAL128 division kernel over both operands,
+    stored as ``out``."""
+    from spark_rapids_tpu_torch.kernels.decimal import dec128_divide
+    valid = (child_vals[0].validity & child_vals[1].validity).contiguous()
+    hi, lo, ok = dec128_divide(mode, *_hi_lo(child_vals[0].data),
+                               *_hi_lo(child_vals[1].data), valid, pow_a,
+                               pow_b, out.precision)
+    if T.is_dec128(out):
+        return DevVal(torch.stack([hi, lo], dim=1), ok)
+    return DevVal(lo, ok)
+
+
 class DecimalDivide(DecimalBinary):
-    """DECIMAL64 operands and result: the reference's device form, the
-    numerator |l| x 10^up over |r|, HALF_UP, with the sign of l / r; null
-    on a zero divisor. There p = p1 + up <= 18, so the numerator fits
-    int64."""
+    """The reference's device form: the numerator |l| x 10^up over |r|,
+    HALF_UP, with the sign of l / r; null on a zero divisor and where
+    |q| >= 10^p. Where the operands and the result are DECIMAL64 and
+    p = p1 + up <= 18, the numerator fits int64 and one int64 form does
+    it; otherwise the DECIMAL128 division kernel. Spark's result type
+    keeps up >= 0."""
 
     def _result_type(self, a, b):
         return div_result_type(a, b)
@@ -625,15 +639,16 @@ class DecimalDivide(DecimalBinary):
         return self.data_type.scale + self.right.data_type.scale - \
             self.left.data_type.scale
 
-    def _check_ported(self):
-        if T.is_dec128(self.left.data_type) or T.is_dec128(
-                self.right.data_type) or T.is_dec128(self.data_type):
-            self._raise("a DECIMAL128 operand or result")
-        if not (0 <= self._up() and self.left.data_type.precision
-                + self._up() <= T.DecimalType.MAX_LONG_DIGITS):
-            self._raise("a numerator past 18 digits")
+    def _narrow(self) -> bool:
+        return not (T.is_dec128(self.left.data_type) or T.is_dec128(
+            self.right.data_type) or T.is_dec128(self.data_type)) and \
+            self.left.data_type.precision + self._up() <= \
+            T.DecimalType.MAX_LONG_DIGITS
 
     def eval_dev(self, ctx, child_vals, prep):
+        if not self._narrow():
+            return _wide_divide("divide", child_vals, 10 ** self._up(), 1,
+                                self.data_type)
         lv, rv = child_vals[0].data, child_vals[1].data
         zero_div = rv == 0
         divisor = torch.where(zero_div, torch.ones_like(rv), rv)
@@ -651,26 +666,24 @@ class DecimalDivide(DecimalBinary):
 
 class DecimalRemainder(DecimalBinary):
     """Java % over decimals at the common scale s = max(s1, s2): the sign
-    of the dividend; null on a zero divisor. Both operands rescaled to s
-    must stay within 18 digits (the reference's device form)."""
+    of the dividend; null on a zero divisor. Where both operands rescaled
+    to s stay within 18 digits, int64 (the reference's device form);
+    otherwise the DECIMAL128 division kernel."""
 
     _java_sign = True
+    _mode = "remainder"
 
     def _result_type(self, a, b):
         return rem_result_type(a, b)
 
-    def _check_ported(self):
-        lt, rt = self.left.data_type, self.right.data_type
-        s = self.data_type.scale
-        if T.is_dec128(lt) or T.is_dec128(rt):
-            self._raise("a DECIMAL128 operand")
-        if not _fits_i64_digits(lt.precision - lt.scale + s,
-                                rt.precision - rt.scale + s):
-            self._raise("an operand rescaled past 18 digits")
-
     def eval_dev(self, ctx, child_vals, prep):
         lt, rt = self.left.data_type, self.right.data_type
         s = self.data_type.scale
+        if T.is_dec128(lt) or T.is_dec128(rt) or not _fits_i64_digits(
+                lt.precision - lt.scale + s, rt.precision - rt.scale + s):
+            return _wide_divide(self._mode, child_vals,
+                                _POW10[s - lt.scale], _POW10[s - rt.scale],
+                                self.data_type)
         a = child_vals[0].data * _POW10[s - lt.scale]
         b = child_vals[1].data * _POW10[s - rt.scale]
         zero = b == 0
@@ -693,3 +706,4 @@ class DecimalPmod(DecimalRemainder):
     """pmod: ((a % b) + b) % b with Java %."""
 
     _java_sign = False
+    _mode = "pmod"

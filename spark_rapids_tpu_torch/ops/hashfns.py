@@ -1,37 +1,258 @@
-"""Hash expressions (port of ``Murmur3Hash`` of
-``spark_rapids_tpu/ops/hashfns.py``): Spark's ``hash()``, murmur3 with
-seed 42 over its children in order, each hash seeding the next, through
-the shuffle layer's device hash (shuffle/hashing.py). A string child's
-dictionary bytes are a device input that the prep walk uploads, as the
-reference's prep registers them as aux arrays.
+"""Hash expressions (port of ``spark_rapids_tpu/ops/hashfns.py``):
+``Murmur3Hash`` (Spark's ``hash()``), ``XxHash64`` and ``HiveHash``.
 
-Over a decimal(p > 18) child the reference falls back to the host's
-Spark-exact byte hash of the unscaled BigInteger; the port has no such
-fallback, so binding ``hash()`` over one raises. ``xxhash64`` is not
-ported."""
+Murmur3 and XxHash64 hash their children in order with seed 42, each
+column's hash seeding the next; a null child passes the running hash
+through. Murmur3 runs through the shuffle layer's device hash
+(shuffle/hashing.py). XxHash64 is Spark's XXH64 variant: a fixed-width
+value is one 8- or 4-byte round; a string the full XXH64 over its UTF-8
+bytes, gathered word by word from its dictionary's byte matrix by code
+(the reference's byte-row form). A DECIMAL128 child hashes as Spark does
+for a precision above 18: the minimal big-endian two's-complement bytes
+of the unscaled value (``BigInteger.toByteArray``), computed per row on
+the device. (The shuffle partitioner keeps hashing a DECIMAL128's two
+limbs, the reference's partitioner convention.)
+
+64-bit lanes: torch has no uint64 arithmetic, so XXH64 runs on int64,
+whose products and sums wrap to the same low 64 bits, with logical right
+shifts masked out of the arithmetic ones. ``HiveHash`` folds 31 * h + f
+in int32, which wraps as Java's int does."""
 
 from __future__ import annotations
 
+from typing import Optional
+
+import numpy as np
 import torch
 
 from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.ops.expr import DevVal, EvalCtx, Expression, \
     NodePrep, PrepCtx
 from spark_rapids_tpu_torch.shuffle.hashing import (
+    _float_bits,
+    dec128_byte_rows,
     device_string_bytes,
     murmur3_hash_device,
 )
 
+P1 = 0x9E3779B185EBCA87
+P2 = 0xC2B2AE3D27D4EB4F
+P3 = 0x165667B19E3779F9
+P4 = 0x85EBCA77C2B2AE63
+P5 = 0x27D4EB2F165667C5
+XX_SEED = 42
+_M32 = 0xFFFFFFFF
 
-class Murmur3Hash(Expression):
-    """n-ary row hash: INT, never null (a null child passes the running
-    hash through)."""
+
+def _s64(c: int) -> int:
+    """A 64-bit constant as the int64 with the same bits."""
+    return c - (1 << 64) if c >= (1 << 63) else c
+
+
+def _shr(x: torch.Tensor, r: int) -> torch.Tensor:
+    """Logical right shift of int64 bits by 0 < r < 64."""
+    return (x >> r) & ((1 << (64 - r)) - 1)
+
+
+def _rotl(x: torch.Tensor, r: int) -> torch.Tensor:
+    return (x << r) | _shr(x, 64 - r)
+
+
+def _xx_fmix(h: torch.Tensor) -> torch.Tensor:
+    h = h ^ _shr(h, 33)
+    h = h * _s64(P2)
+    h = h ^ _shr(h, 29)
+    h = h * _s64(P3)
+    return h ^ _shr(h, 32)
+
+
+def _xx_round(acc: torch.Tensor, word: torch.Tensor) -> torch.Tensor:
+    acc = acc + word * _s64(P2)
+    return _rotl(acc, 31) * _s64(P1)
+
+
+def _xx_long(v: torch.Tensor, seed: torch.Tensor) -> torch.Tensor:
+    """Spark XXH64 hashLong: one 8-byte round and the avalanche."""
+    h = seed + _s64((P5 + 8) & ((1 << 64) - 1))
+    h = h ^ _xx_round(torch.zeros_like(v), v)
+    return _xx_fmix(_rotl(h, 27) * _s64(P1) + _s64(P4))
+
+
+def _xx_int(v32: torch.Tensor, seed: torch.Tensor) -> torch.Tensor:
+    """Spark XXH64 hashInt of 32-bit words (int64 in [0, 2^32))."""
+    h = seed + _s64((P5 + 4) & ((1 << 64) - 1))
+    h = h ^ (v32 * _s64(P1))
+    return _xx_fmix(_rotl(h, 23) * _s64(P2) + _s64(P3))
+
+
+def _le_words(b: torch.Tensor, width: int) -> torch.Tensor:
+    """Little-endian words of ``width`` bytes from a (d, L) int64 byte
+    matrix (L a multiple of ``width``): (d, L / width) int64."""
+    out = torch.zeros((b.shape[0], b.shape[1] // width), dtype=torch.int64,
+                      device=b.device)
+    for k in range(width):
+        out = out | (b[:, k::width] << (8 * k))
+    return out
+
+
+def xx_hash_bytes(codes: torch.Tensor, byte_matrix: torch.Tensor,
+                  lengths: torch.Tensor, seed: torch.Tensor) -> torch.Tensor:
+    """XXH64 of each row's byte string, seeded per row: row i hashes
+    entry ``codes[i]`` of ``byte_matrix`` (d, L) uint8 (L a multiple of 8,
+    zero-padded) with ``lengths`` (d,) bytes."""
+    d, width = byte_matrix.shape
+    if width % 8:
+        byte_matrix = torch.cat([byte_matrix, byte_matrix.new_zeros(
+            (d, 8 - width % 8))], dim=1)
+        width = byte_matrix.shape[1]
+    b = byte_matrix.to(torch.int64)
+    w8, w4 = _le_words(b, 8), _le_words(b, 4)
+    c = codes.to(torch.int64).clamp(0, d - 1)
+    n_len = lengths.to(torch.int64)[c]
+
+    def word8(i):  # the 8-byte word at 8-aligned word index i of each row
+        return w8.reshape(-1)[c * w8.shape[1] + i.clamp(0, w8.shape[1] - 1)]
+
+    nstripes = n_len // 32
+    v = [seed + _s64((P1 + P2) & ((1 << 64) - 1)), seed + _s64(P2), seed,
+         seed - _s64(P1)]
+    for s in range(width // 32):
+        active = s < nstripes
+        for j in range(4):
+            nv = _xx_round(v[j], w8[:, 4 * s + j][c])
+            v[j] = torch.where(active, nv, v[j])
+    merged = _rotl(v[0], 1) + _rotl(v[1], 7) + _rotl(v[2], 12) + \
+        _rotl(v[3], 18)
+    for j in range(4):
+        merged = (merged ^ _xx_round(torch.zeros_like(merged), v[j])) * \
+            _s64(P1) + _s64(P4)
+    h = torch.where(nstripes > 0, merged, seed + _s64(P5)) + n_len
+    pos = nstripes * 32
+    for _ in range(3):  # below 32 bytes remain: at most three 8-byte words
+        active = pos + 8 <= n_len
+        k1 = _xx_round(torch.zeros_like(h), word8(pos // 8))
+        h = torch.where(active, _rotl(h ^ k1, 27) * _s64(P1) + _s64(P4), h)
+        pos = torch.where(active, pos + 8, pos)
+    active = pos + 4 <= n_len
+    word4 = w4.reshape(-1)[c * w4.shape[1] + (pos // 4).clamp(
+        0, w4.shape[1] - 1)] & _M32
+    nh = _rotl(h ^ (word4 * _s64(P1)), 23) * _s64(P2) + _s64(P3)
+    h = torch.where(active, nh, h)
+    pos = torch.where(active, pos + 4, pos)
+    for _ in range(3):
+        byte = b.reshape(-1)[c * width + pos.clamp(0, width - 1)]
+        active = pos < n_len
+        nh = _rotl(h ^ (byte * _s64(P5)), 11) * _s64(P1)
+        h = torch.where(active, nh, h)
+        pos = torch.where(active, pos + 1, pos)
+    return _xx_fmix(h)
+
+
+class _HashBase(Expression):
+    """n-ary row hash: never null; the string children's dictionary bytes
+    are a device input the prep walk uploads."""
 
     def __init__(self, *children: Expression):
         self.children = tuple(children)
 
     def with_children(self, children):
-        return Murmur3Hash(*children)
+        return type(self)(*children)
+
+    def resolve(self, bound):
+        for c in bound:
+            if isinstance(c.data_type, (T.ArrayType, T.StructType,
+                                        T.MapType)):
+                raise NotImplementedError(
+                    f"{self.name} over {c.data_type.simple_string()} is not "
+                    "ported")
+        return self.with_children(bound)
+
+    def prep(self, pctx: PrepCtx, child_preps) -> NodePrep:
+        return NodePrep(aux={
+            i: device_string_bytes(p.out_dict, pctx.table.device)
+            for i, (c, p) in enumerate(zip(self.children, child_preps))
+            if isinstance(c.data_type, T.StringType)})
+
+
+class Murmur3Hash(_HashBase):
+    """Spark's ``hash()``: INT."""
+
+    @property
+    def data_type(self):
+        return T.INT
+
+    def eval_dev(self, ctx: EvalCtx, child_vals, prep: NodePrep) -> DevVal:
+        cols = [(v.data, v.validity, c.data_type)
+                for c, v in zip(self.children, child_vals)]
+        h = murmur3_hash_device(cols, string_bytes=prep.aux,
+                                dec128_bytes=True)
+        return DevVal(h, torch.ones(ctx.capacity, dtype=torch.bool,
+                                    device=ctx.device))
+
+
+def xxhash64_device(cols, seed: int = XX_SEED,
+                    string_bytes: Optional[dict] = None) -> torch.Tensor:
+    """XxHash64 row hash over (data, validity, DataType) columns: int64."""
+    data0 = cols[0][0]
+    n = data0.shape[0]
+    h = torch.full((n,), seed, dtype=torch.int64, device=data0.device)
+    for i, (data, validity, dt) in enumerate(cols):
+        if isinstance(dt, T.StringType):
+            mat, lens = string_bytes[i]
+            nh = xx_hash_bytes(data, mat, lens, h)
+        elif T.is_dec128(dt):
+            rows, lens = dec128_byte_rows(data)
+            nh = xx_hash_bytes(torch.arange(n, device=data.device), rows,
+                               lens, h)
+        elif isinstance(dt, (T.LongType, T.TimestampType, T.DecimalType)):
+            nh = _xx_long(data.to(torch.int64), h)
+        elif isinstance(dt, T.DoubleType):
+            nh = _xx_long(_float_bits(data), h)
+        elif isinstance(dt, T.FloatType):
+            nh = _xx_int(_float_bits(data), h)
+        elif isinstance(dt, T.BooleanType):
+            nh = _xx_int(data.to(torch.int64), h)
+        else:  # byte/short/int/date: widened to int32, then its word
+            nh = _xx_int(data.to(torch.int32).to(torch.int64) & _M32, h)
+        h = torch.where(validity, nh, h)
+    return h
+
+
+class XxHash64(_HashBase):
+    """Spark's ``xxhash64()``: LONG."""
+
+    @property
+    def data_type(self):
+        return T.LONG
+
+    def eval_dev(self, ctx: EvalCtx, child_vals, prep: NodePrep) -> DevVal:
+        cols = [(v.data, v.validity, c.data_type)
+                for c, v in zip(self.children, child_vals)]
+        h = xxhash64_device(cols, string_bytes=prep.aux)
+        return DevVal(h, torch.ones(ctx.capacity, dtype=torch.bool,
+                                    device=ctx.device))
+
+
+# -- hive hash ---------------------------------------------------------------
+
+def hive_string_hash(s: str) -> int:
+    """Hive's HiveHasher.hashUnsafeBytes: a fold of the SIGNED UTF-8 bytes
+    (31 * h + byte) in int32."""
+    h = 0
+    for byte in s.encode("utf-8"):
+        signed = byte - 256 if byte >= 128 else byte
+        h = (h * 31 + signed) & 0xFFFFFFFF
+    return h - (1 << 32) if h >= (1 << 31) else h
+
+
+def _fold_long(x: torch.Tensor) -> torch.Tensor:
+    """Java's Long.hashCode: (int) (x ^ (x >>> 32))."""
+    return (x ^ ((x >> 32) & _M32)).to(torch.int32)
+
+
+class HiveHash(_HashBase):
+    """Hive's hash: row hash = fold(31 * h + fieldHash), a null field
+    hashes to 0; INT."""
 
     @property
     def data_type(self):
@@ -39,22 +260,45 @@ class Murmur3Hash(Expression):
 
     def resolve(self, bound):
         for c in bound:
-            if T.is_dec128(c.data_type):
+            if isinstance(c.data_type, T.DecimalType) or not isinstance(
+                    c.data_type, (T.NumericType, T.StringType, T.DateType,
+                                  T.TimestampType, T.BooleanType)):
                 raise NotImplementedError(
-                    f"hash() over {c.data_type.simple_string()} (Spark's "
-                    "byte hash of a decimal with precision > 18, the "
-                    "reference's host fallback) is not ported")
+                    f"hive hash of {c.data_type.simple_string()} is not "
+                    "ported")
         return self.with_children(bound)
 
     def prep(self, pctx: PrepCtx, child_preps) -> NodePrep:
-        aux = {i: device_string_bytes(p.out_dict, pctx.table.device)
-               for i, (c, p) in enumerate(zip(self.children, child_preps))
-               if isinstance(c.data_type, T.StringType)}
+        aux = {}
+        for i, (c, p) in enumerate(zip(self.children, child_preps)):
+            if isinstance(c.data_type, T.StringType):
+                d = p.out_dict if p.out_dict is not None else []
+                hashes = np.array([hive_string_hash(s) for s in d] or [0],
+                                  dtype=np.int32)
+                aux[i] = torch.from_numpy(hashes).to(pctx.table.device)
         return NodePrep(aux=aux)
 
     def eval_dev(self, ctx: EvalCtx, child_vals, prep: NodePrep) -> DevVal:
-        cols = [(v.data, v.validity, c.data_type)
-                for c, v in zip(self.children, child_vals)]
-        h = murmur3_hash_device(cols, string_bytes=prep.aux)
+        h = torch.zeros(ctx.capacity, dtype=torch.int32, device=ctx.device)
+        for j, (c, v) in enumerate(zip(self.children, child_vals)):
+            dt = c.data_type
+            if j in prep.aux:
+                tbl = prep.aux[j]
+                f = tbl.index_select(0, v.data.clamp(0, tbl.shape[0] - 1))
+            elif isinstance(dt, T.TimestampType):
+                micros = v.data.to(torch.int64)
+                seconds = micros // 1_000_000
+                nanos = (micros - seconds * 1_000_000) * 1000
+                f = _fold_long((seconds << 30) | nanos)
+            elif isinstance(dt, T.LongType):
+                f = _fold_long(v.data)
+            elif isinstance(dt, T.FloatType):
+                f = v.data.to(torch.float32).view(torch.int32)
+            elif isinstance(dt, T.DoubleType):
+                f = _fold_long(v.data.to(torch.float64).view(torch.int64))
+            else:  # boolean, byte, short, int, date
+                f = v.data.to(torch.int32)
+            f = torch.where(v.validity, f, torch.zeros_like(f))
+            h = h * 31 + f
         return DevVal(h, torch.ones(ctx.capacity, dtype=torch.bool,
                                     device=ctx.device))

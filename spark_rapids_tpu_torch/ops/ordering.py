@@ -8,6 +8,8 @@ order is the value order, as in the reference's CPU branch:
   f64  -> canonicalized (-0.0 -> 0.0, one NaN pattern), then the classic
           sortable bits as a (uint32 hi, uint32 lo) word pair; NaN sorts
           after +inf (Spark's NaN-last order)
+  f32  -> canonicalized the same way, then its sortable bits as one
+          uint32
   bool -> int32
   <= 32-bit ints / dictionary codes -> unchanged
   DECIMAL128 (n, 2) limbs -> (high limb's hi32 as int32, then three
@@ -58,7 +60,9 @@ def comparable_operands(data: torch.Tensor) -> List[torch.Tensor]:
         bits = torch.where(raw < 0, ~raw, raw ^ (-0x8000000000000000))
         return [_u32((bits >> 32) & 0xFFFFFFFF), _u32(bits & 0xFFFFFFFF)]
     if d.dtype == torch.float32:
-        raise NotImplementedError("float32 sort keys are not ported")
+        raw = _canon_float(d).view(torch.int32)
+        bits = torch.where(raw < 0, ~raw, raw ^ (-0x80000000))
+        return [bits.view(_U32)]
     if d.dtype == torch.bool:
         return [d.to(torch.int32)]
     if d.dtype in (torch.int8, torch.int16, torch.int32):

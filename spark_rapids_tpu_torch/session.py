@@ -13,6 +13,7 @@ from spark_rapids_tpu_torch import resolve_device
 from spark_rapids_tpu_torch.columnar import HostTable
 from spark_rapids_tpu_torch.conf import SPECULATIVE_SIZING, RapidsConf
 from spark_rapids_tpu_torch.execs.base import TpuExec
+from spark_rapids_tpu_torch.ops.misc import reset_nondeterministic_streams
 from spark_rapids_tpu_torch.plan import nodes as P
 from spark_rapids_tpu_torch.runtime import speculation as spec
 
@@ -74,6 +75,7 @@ class TorchSession:
         if self.conf.get_entry(SPECULATIVE_SIZING):
             for attempt in range(MAX_ATTEMPTS):
                 _reset_metrics(root)
+                reset_nondeterministic_streams()
                 tok = spec.activate()
                 try:
                     table = _drain(root)
@@ -86,6 +88,7 @@ class TorchSession:
                     spec.deactivate(tok)
             self._last_replays = MAX_ATTEMPTS
         _reset_metrics(root)
+        reset_nondeterministic_streams()
         return _drain(root)
 
     def last_metrics(self) -> Dict[str, int]:

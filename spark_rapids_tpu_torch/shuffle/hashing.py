@@ -17,9 +17,10 @@ with each column's hash seeding the next:
 
 Doubles keep their raw NaN bits, as both forms of the reference do
 (Spark's doubleToLongBits would collapse every NaN to one pattern).
-DECIMAL128 hashes its two limbs as two longs: the reference's partitioner
-convention, not Spark's byte hash (partition assignment never changes a
-result).
+DECIMAL128 hashes its two limbs as two longs in the partitioner: the
+reference's partitioner convention (partition assignment never changes a
+result); the ``hash()`` expression asks for Spark's byte hash of the
+unscaled value instead (``dec128_bytes``).
 
 Device mapping: torch has few uint32 operations and CUDA no unsigned
 multiply, so every 32-bit lane lives in an int64 in [0, 2^32): each
@@ -118,21 +119,55 @@ def _hash_string(codes: torch.Tensor, byte_matrix: torch.Tensor,
     return _fmix(h, row_len)
 
 
+def dec128_byte_rows(data: torch.Tensor) -> Tuple[torch.Tensor,
+                                                  torch.Tensor]:
+    """Spark's bytes of a DECIMAL128 unscaled value, per row: the minimal
+    big-endian two's complement (``BigInteger.toByteArray``), left-aligned
+    in a (n, 16) uint8 matrix, and the lengths (1..16)."""
+    hi, lo = data[:, 0], data[:, 1]
+    shifts = torch.arange(56, -8, -8, device=data.device)
+    be = torch.cat([(hi[:, None] >> shifts) & 0xFF,
+                    (lo[:, None] >> shifts) & 0xFF], dim=1)  # (n, 16)
+    # the magnitude bits of v >= 0, or of ~v for v < 0, set the length
+    mag = torch.where((hi < 0)[:, None], 0xFF - be, be)
+    nz = mag != 0
+    first = torch.where(nz.any(dim=1), nz.to(torch.int8).argmax(dim=1),
+                        torch.full_like(hi, 16))
+    top = mag.gather(1, first.clamp(max=15)[:, None])[:, 0]
+    top_bits = sum((top >= (1 << k)).to(torch.int64) for k in range(8))
+    bitlen = torch.where(first < 16, (15 - first) * 8 + top_bits, 0)
+    lengths = bitlen // 8 + 1
+    idx = (16 - lengths)[:, None] + torch.arange(16, device=data.device)
+    rows = be.gather(1, idx.clamp(max=15))
+    rows = torch.where(idx <= 15, rows, torch.zeros_like(rows))
+    return rows.to(torch.uint8), lengths.to(torch.int32)
+
+
+
 def murmur3_hash_device(cols: List[Tuple[torch.Tensor, torch.Tensor,
                                          T.DataType]],
                         seed: int = SPARK_SEED,
-                        string_bytes: Optional[dict] = None) -> torch.Tensor:
+                        string_bytes: Optional[dict] = None,
+                        dec128_bytes: bool = False) -> torch.Tensor:
     """Row hash over several columns: int32 (Spark's ``hash()`` value).
 
     cols: (data, validity, DataType) each; for a STRING column data is
     the code array and ``string_bytes[i] = (byte_matrix, lengths)``, the
-    device form of ``string_dict_bytes`` of its dictionary."""
+    device form of ``string_dict_bytes`` of its dictionary. A DECIMAL128
+    column hashes its two limbs as longs (the partitioner's convention),
+    or with ``dec128_bytes`` Spark's bytes of the unscaled value
+    (``dec128_byte_rows``), as the ``hash()`` expression does."""
     data0 = cols[0][0]
     h = torch.full((data0.shape[0],), seed, dtype=torch.int64,
                    device=data0.device)
     for i, (data, validity, dt) in enumerate(cols):
         if isinstance(dt, T.StringType):
             nh = _hash_string(data, *string_bytes[i], h)
+        elif T.is_dec128(dt) and dec128_bytes:
+            rows, lengths = dec128_byte_rows(data)
+            nh = _hash_string(torch.arange(data.shape[0],
+                                           device=data.device),
+                              rows, lengths, h)
         elif T.is_dec128(dt):
             nh = _hash_long(data[:, 1], _hash_long(data[:, 0], h))
         elif isinstance(dt, (T.LongType, T.TimestampType, T.DecimalType)):

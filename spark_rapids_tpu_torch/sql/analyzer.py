@@ -960,9 +960,11 @@ class Analyzer:
             out = (e >= lo) & (e <= hi)
             return ~out if node.negated else out
         if isinstance(node, A.LikeOp):
-            raise NotImplementedError(
-                f"{node.kind.upper()} (Like/RLike of ops/strings.py) is not "
-                "ported to spark_rapids_tpu_torch yet")
+            from spark_rapids_tpu_torch.ops.strings import Like, RLike
+            e = self.lower_expr(node.operand, scope)
+            pat = self.lower_expr(node.pattern, scope)
+            out = Like(e, pat) if node.kind == "like" else RLike(e, pat)
+            return ~out if node.negated else out
         if isinstance(node, A.Cast):
             try:
                 dt = T.parse_type(node.type_name)
@@ -1060,9 +1062,8 @@ class Analyzer:
         if op == "%":
             return left % right
         if op == "||":
-            raise NotImplementedError(
-                "|| (Concat of ops/strings.py) is not ported to "
-                "spark_rapids_tpu_torch yet")
+            from spark_rapids_tpu_torch.ops.strings import Concat
+            return Concat(left, right)
         if op == "=":
             return left == right
         if op == "<=>":
@@ -1084,10 +1085,22 @@ class Analyzer:
         raise self.err(f"unsupported operator {op!r}", node)
 
     def _date_interval(self, node: A.BinOp, scope: Scope) -> Expression:
-        # the reference folds it onto DateAdd/DateSub/AddMonths
-        raise NotImplementedError(
-            f"DATE {node.op} INTERVAL (DateAdd, DateSub and AddMonths of "
-            "ops/datetime.py) is not ported to spark_rapids_tpu_torch yet")
+        """date +/- INTERVAL folds onto AddMonths, then DateAdd/DateSub,
+        as the reference's analyzer does."""
+        from spark_rapids_tpu_torch.ops.datetime import (
+            AddMonths,
+            DateAdd,
+            DateSub,
+        )
+        iv: A.IntervalLiteral = node.right
+        e = self.lower_expr(node.left, scope)
+        sign = 1 if node.op == "+" else -1
+        if iv.months:
+            e = AddMonths(e, lit(sign * iv.months))
+        if iv.days:
+            e = DateAdd(e, lit(iv.days)) if node.op == "+" else \
+                DateSub(e, lit(iv.days))
+        return e
 
     def _case(self, node: A.Case, scope: Scope) -> Expression:
         from spark_rapids_tpu_torch.ops.conditional import CaseWhen

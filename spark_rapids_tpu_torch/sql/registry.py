@@ -18,7 +18,7 @@ from __future__ import annotations
 
 from typing import Callable, Dict, List, Optional, Sequence
 
-from spark_rapids_tpu_torch.ops.expr import Expression
+from spark_rapids_tpu_torch.ops.expr import Expression, Literal, lit
 from spark_rapids_tpu_torch.sql.errors import SqlAnalysisError
 
 Builder = Callable[[List[Expression]], Expression]
@@ -26,27 +26,6 @@ Builder = Callable[[List[Expression]], Expression]
 _UNPORTED_BY_MODULE = {
     "ops/aggregates.py": (
         "collect_list", "collect_set", "percentile", "approx_percentile"),
-    "ops/math.py": (
-        "sqrt", "exp", "log", "ln", "log10", "log2", "pow", "power", "ceil",
-        "ceiling", "floor", "round", "bround", "signum", "sign",
-        "shiftleft", "shiftright"),
-    "ops/strings.py": (
-        "upper", "ucase", "lower", "lcase", "length", "char_length",
-        "character_length", "bit_length", "octet_length", "ascii",
-        "reverse", "initcap", "trim", "ltrim", "rtrim", "substring",
-        "substr", "repeat", "replace", "lpad", "rpad", "substring_index",
-        "translate", "concat", "contains", "startswith", "endswith",
-        "instr", "locate", "regexp_replace", "regexp_extract"),
-    "ops/misc.py": (
-        "concat_ws", "from_utc_timestamp", "to_utc_timestamp", "md5",
-        "monotonically_increasing_id", "spark_partition_id", "rand"),
-    "ops/datetime.py": (
-        "year", "month", "day", "dayofmonth", "dayofweek", "weekday",
-        "dayofyear", "quarter", "last_day", "date_add", "date_sub",
-        "datediff", "add_months", "hour", "minute", "second",
-        "to_unix_timestamp", "unix_timestamp", "timestamp_seconds",
-        "timestamp_millis", "timestamp_micros", "to_date"),
-    "ops/hashfns.py": ("xxhash64",),
     "ops/collections.py": (
         "size", "cardinality", "array", "array_contains", "array_min",
         "array_max", "sort_array", "get_item", "element_at", "sequence",
@@ -72,13 +51,25 @@ def _need(args: Sequence, lo: int, hi: Optional[int], name: str) -> None:
             f"got {len(args)}")
 
 
+def _lit_value(e: Expression, name: str, what: str):
+    """Unwrap a literal argument (a seed: a parameter its builder takes as
+    a plain Python value)."""
+    if not isinstance(e, Literal):
+        raise SqlAnalysisError(f"function {name}: {what} must be a literal")
+    return e.value
+
+
 def _build_table() -> Dict[str, Builder]:
     from spark_rapids_tpu_torch.ops import aggregates as _agg
     from spark_rapids_tpu_torch.ops import conditional as _cond
     from spark_rapids_tpu_torch.ops import predicates as _pred
+    from spark_rapids_tpu_torch.ops import datetime as _dt
+    from spark_rapids_tpu_torch.ops import math as _math
+    from spark_rapids_tpu_torch.ops import misc as _misc
+    from spark_rapids_tpu_torch.ops import strings as _str
     from spark_rapids_tpu_torch.ops import window as _win
     from spark_rapids_tpu_torch.ops.arithmetic import Abs
-    from spark_rapids_tpu_torch.ops.hashfns import Murmur3Hash
+    from spark_rapids_tpu_torch.ops.hashfns import Murmur3Hash, XxHash64
 
     table: Dict[str, Builder] = {}
 
@@ -107,8 +98,80 @@ def _build_table() -> Dict[str, Builder]:
     reg("first", lambda e: _agg.First(e, False), 1)
     reg("last", lambda e: _agg.Last(e, False), 1)
 
-    # arithmetic
+    # math
+    reg("sqrt", _math.Sqrt, 1)
+    reg("exp", _math.Exp, 1)
+    reg(("log", "ln"), _math.Log, 1)
+    reg("log10", _math.Log10, 1)
+    reg("log2", _math.Log2, 1)
+    reg(("pow", "power"), _math.Pow, 2)
     reg("abs", Abs, 1)
+    reg(("ceil", "ceiling"), _math.Ceil, 1)
+    reg("floor", _math.Floor, 1)
+    reg("round", lambda e, s=None: _math.Round(e, s or lit(0)), 1, 2)
+    reg("bround", lambda e, s=None: _math.BRound(e, s or lit(0)), 1, 2)
+    reg(("signum", "sign"), _math.Signum, 1)
+    reg("shiftleft", _math.ShiftLeft, 2)
+    reg("shiftright", _math.ShiftRight, 2)
+
+    # strings
+    reg(("upper", "ucase"), _str.Upper, 1)
+    reg(("lower", "lcase"), _str.Lower, 1)
+    reg(("length", "char_length", "character_length"), _str.Length, 1)
+    reg("bit_length", _str.BitLength, 1)
+    reg("octet_length", _str.OctetLength, 1)
+    reg("ascii", _str.Ascii, 1)
+    reg("reverse", _str.Reverse, 1)
+    reg("initcap", _str.InitCap, 1)
+    reg("trim", _str.StringTrim, 1)
+    reg("ltrim", _str.StringTrimLeft, 1)
+    reg("rtrim", _str.StringTrimRight, 1)
+    reg(("substring", "substr"), _str.Substring, 3)
+    reg("repeat", _str.StringRepeat, 2)
+    reg("replace", lambda e, s, r=None:
+        _str.StringReplace(e, s, r or lit("")), 2, 3)
+    reg("lpad", lambda e, n, p=None:
+        _str.StringLPad(e, n, p or lit(" ")), 2, 3)
+    reg("rpad", lambda e, n, p=None:
+        _str.StringRPad(e, n, p or lit(" ")), 2, 3)
+    reg("substring_index", _str.SubstringIndex, 3)
+    reg("translate", _str.StringTranslate, 3)
+    reg("concat", _str.Concat, 1, None)
+    reg("contains", _str.Contains, 2)
+    reg("startswith", _str.StartsWith, 2)
+    reg("endswith", _str.EndsWith, 2)
+    reg("instr", _str.StringInstr, 2)
+    reg("locate", lambda s, e, p=None:
+        _str.StringLocate(s, e, p or lit(1)), 2, 3)
+    reg("regexp_replace", _str.RegExpReplace, 3)
+    reg("regexp_extract", lambda e, p, i=None:
+        _str.RegExpExtract(e, p, i or lit(1)), 2, 3)
+    reg("concat_ws", _misc.ConcatWs, 1, None)
+
+    # datetime
+    reg("year", _dt.Year, 1)
+    reg("month", _dt.Month, 1)
+    reg(("day", "dayofmonth"), _dt.DayOfMonth, 1)
+    reg("dayofweek", _dt.DayOfWeek, 1)
+    reg("weekday", _dt.WeekDay, 1)
+    reg("dayofyear", _dt.DayOfYear, 1)
+    reg("quarter", _dt.Quarter, 1)
+    reg("last_day", _dt.LastDay, 1)
+    reg("date_add", _dt.DateAdd, 2)
+    reg("date_sub", _dt.DateSub, 2)
+    reg("datediff", _dt.DateDiff, 2)
+    reg("add_months", _dt.AddMonths, 2)
+    reg("hour", _dt.Hour, 1)
+    reg("minute", _dt.Minute, 1)
+    reg("second", _dt.Second, 1)
+    reg(("to_unix_timestamp", "unix_timestamp"),
+        _dt.UnixTimestampFromTs, 1)
+    reg("timestamp_seconds", _dt.SecondsToTimestamp, 1)
+    reg("timestamp_millis", _dt.MillisToTimestamp, 1)
+    reg("timestamp_micros", _dt.MicrosToTimestamp, 1)
+    reg("to_date", _dt.TsToDate, 1)
+    reg("from_utc_timestamp", _misc.FromUTCTimestamp, 2)
+    reg("to_utc_timestamp", _misc.ToUTCTimestamp, 2)
 
     # conditionals / null handling
     reg("coalesce", _cond.Coalesce, 1, None)
@@ -121,8 +184,14 @@ def _build_table() -> Dict[str, Builder]:
     reg("isnotnull", _pred.IsNotNull, 1)
     reg("isnan", _pred.IsNaN, 1)
 
-    # hash
+    # hash / misc
     reg("hash", Murmur3Hash, 1, None)
+    reg("xxhash64", XxHash64, 1, None)
+    reg("md5", _misc.Md5, 1)
+    reg("monotonically_increasing_id", _misc.MonotonicallyIncreasingID, 0)
+    reg("spark_partition_id", _misc.SparkPartitionID, 0)
+    reg("rand", lambda seed=None: _misc.Rand(
+        0 if seed is None else _lit_value(seed, "rand", "seed")), 0, 1)
 
     # ranking window functions; aggregates used with OVER come from the
     # aggregate entries above

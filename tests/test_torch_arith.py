@@ -13,9 +13,11 @@ host route; the port computes every supported pair on its own device
 path.
 
 Comparator: ``scale_test.tables_differ`` (bitwise, in order), plus the
-result's decimal type. What the port does not run (Divide, Remainder and
-Pmod over a DECIMAL128 operand or result) raises NotImplementedError
-naming the operator."""
+result's decimal type. Divide, Remainder and Pmod over a DECIMAL128
+operand or result run in the port's DECIMAL128 division kernel (its plain
+version here); a Divide the reference computes on its host is held to it
+on the rows with a divisor >= 0 (its host rounding of a negative divisor
+is a pinned deviation) and to Python ints on every row."""
 
 import numpy as np
 import pytest
@@ -260,41 +262,65 @@ def _as_decimal(type_name):
     return JD.decimal_for(JT.parse_type(type_name))
 
 
-def _unported(op, lt, rt):
-    """The operator name the port raises with for this pair, or None: a
+def _on_the_reference_host(op, lt, rt):
+    """Whether the reference computes this pair on its host route (a
     DECIMAL128 operand or quotient for Divide, a DECIMAL128 operand or an
-    operand rescaled past 18 digits for Remainder and Pmod (the
-    reference's own rules, read from its result types)."""
+    operand rescaled past 18 digits for Remainder and Pmod, read from its
+    result types): the port's DECIMAL128 division kernel route."""
     a, b = _as_decimal(lt), _as_decimal(rt)
     if op == "divide":
         out = JD.div_result_type(a, b)
-        if max(a.precision, b.precision, out.precision) > 18:
-            return "DecimalDivide"
+        return max(a.precision, b.precision, out.precision) > 18
     if op in ("remainder", "pmod"):
         s = max(a.scale, b.scale)
-        if max(a.precision, b.precision,
-               a.precision - a.scale + s, b.precision - b.scale + s) > 18:
-            return "DecimalRemainder" if op == "remainder" else "DecimalPmod"
-    return None
+        return max(a.precision, b.precision, a.precision - a.scale + s,
+                   b.precision - b.scale + s) > 18
+    return False
+
+
+def _half_up_quotients(table, lt, rt):
+    """The Python-int quotients of the Divide of ``table``'s operands
+    (HALF_UP on the magnitude, the sign of a / b; None for a null operand,
+    a zero divisor or |q| >= 10^p)."""
+    a_t, b_t = _as_decimal(lt), _as_decimal(rt)
+    out_t = JD.div_result_type(a_t, b_t)
+    up = out_t.scale + b_t.scale - a_t.scale
+    (av, am), (bv, bm) = table[2]
+    out = []
+    for a, va, b, vb in zip(av, am, bv, bm):
+        if not (va and vb) or int(b) == 0:
+            out.append(None)
+            continue
+        q, r = divmod(abs(int(a)) * 10 ** up, abs(int(b)))
+        q += 2 * r >= abs(int(b))
+        q = -q if (int(a) < 0) != (int(b) < 0) else q
+        out.append(q if abs(q) < 10 ** out_t.precision else None)
+    return out
 
 
 @pytest.mark.parametrize("op", list(OPS))
 @pytest.mark.parametrize("lt,rt", DECIMAL_PAIRS)
 def test_decimal_operators_match_the_reference_bitwise(lt, rt, op):
+    """Every pair against the reference bit for bit. A Divide the
+    reference computes on its host: the rows with a divisor >= 0 against
+    it (its host ``_round_half_up_div`` mis-rounds a negative divisor),
+    every row against Python ints."""
     table = _edge_table(lt, rt, seed=DECIMAL_PAIRS.index((lt, rt)))
 
     def exprs(api):
         return [("x", OPS[op](api, api.col("a"), api.col("b")))]
 
-    name = _unported(op, lt, rt)
-    if name is not None:
-        with pytest.raises(NotImplementedError, match=name):
-            tfrom(host_table_from_arrays(*table),
-                  TorchSession(device="cpu")).select(
-                exprs(PORT)[0][1].alias("x"))
-        return
     got, ref = _select_both(table, exprs)
     assert got.columns[0].dtype == ref.columns[0].dtype
+    if op == "divide" and _on_the_reference_host(op, lt, rt):
+        want = _half_up_quotients(table, lt, rt)
+        g = got.columns[0]
+        assert [int(v) if ok else None for v, ok in
+                zip(g.data, g.validity)] == want
+        keep = np.array([int(b) >= 0 for b in table[2][1][0]])
+        got, ref = (JHostTable(t.names, [JHostColumn(
+            t.columns[0].dtype, t.columns[0].data[keep],
+            t.columns[0].validity[keep])]) for t in (got, ref))
     assert tables_differ(got, ref) is None, tables_differ(got, ref)
     if op in ("add", "multiply") and lt == rt == "decimal(38,0)":
         # the edges reach past 10^38: those rows are null on both sides
@@ -369,24 +395,28 @@ def test_half_up_ties_of_both_signs():
 
 def test_unported_decimal_operators_raise_naming_themselves():
     """DECIMAL128 Divide, Remainder and Pmod (and the functions built on
-    them, such as ``div`` of a bigint by a decimal) raise when they bind;
-    no route computes them elsewhere."""
+    them, such as ``div`` of a bigint by a decimal), which raised when they
+    bound until the DECIMAL128 division kernel, now run and equal the
+    reference (every divisor here positive); what still raises names
+    itself (a ceil of a decimal)."""
     t = host_table_from_arrays(
         ["a", "b", "k"], ["decimal(38,2)", "decimal(15,2)", "bigint"],
-        [(np.array([1, 2], dtype=object), np.ones(2, bool)),
+        [(np.array([1, 2 * 10 ** 30], dtype=object), np.ones(2, bool)),
          (np.array([3, 4], dtype=np.int64), np.ones(2, bool)),
          (np.array([5, 6], dtype=np.int64), np.ones(2, bool))])
+    table = t.to_arrays()
+    got, ref = _select_both(table, lambda api: [
+        ("q", api.col("a") / api.col("b")),
+        ("qq", api.col("b") / api.col("b")),
+        ("r", api.col("a") % api.col("b")),
+        ("p", api.A.Pmod(api.col("b"), api.col("a"))),
+        ("d", api.A.IntegralDivide(api.col("k"), api.col("b"))),
+        ("dd", api.A.IntegralDivide(api.col("b"),
+                                    api.col("b").cast("double")))])
+    assert tables_differ(got, ref) is None, tables_differ(got, ref)
     df = tfrom(t, TorchSession(device="cpu"))
-    for expr, name in (
-            (tcol("a") / tcol("b"), "DecimalDivide"),
-            (tcol("b") / tcol("b"), "DecimalDivide"),
-            (tcol("a") % tcol("b"), "DecimalRemainder"),
-            (TA.Pmod(tcol("b"), tcol("a")), "DecimalPmod"),
-            (TA.IntegralDivide(tcol("k"), tcol("b")), "DecimalDivide"),
-            (TA.IntegralDivide(tcol("b"), tcol("b").cast("double")),
-             "DecimalDivide")):
-        with pytest.raises(NotImplementedError, match=name):
-            df.select(expr.alias("x"))
+    with pytest.raises(NotImplementedError, match="Ceil of decimal"):
+        df.select(TF.ceil(tcol("a")).alias("x"))
     # the operator functions of the registry: abs is ported
     assert TF.abs(tcol("a")).name == "Abs"
     assert isinstance(TD.DecimalAdd(tcol("a"), tcol("b")), TD.DecimalBinary)

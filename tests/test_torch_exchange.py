@@ -191,12 +191,23 @@ def test_nan_hash_keeps_raw_bits_as_the_reference():
 
 
 def test_hash_over_decimal128_raises_naming_itself():
+    """hash() over a DECIMAL128, which raised until the port hashed
+    Spark's bytes of the unscaled value (BigInteger.toByteArray: minimal
+    big-endian two's complement) on the device, equals the reference's
+    host hash, values of every byte length and sign included."""
+    vals = [0, 1, -1, 127, 128, -128, -129, 255, 256, 2 ** 63, -(2 ** 63),
+            10 ** 29 - 1, -(10 ** 29 - 1), 123456789012345678901234567]
     arrays = (["x"], ["decimal(30,2)"],
-              [(np.array([1, -5], dtype=object), np.ones(2, bool))])
+              [(np.array(vals, dtype=object), np.ones(len(vals), bool))])
     df = tfrom(host_table_from_arrays(*arrays), TorchSession(device="cpu"))
-    with pytest.raises(NotImplementedError, match=r"hash\(\) over "
-                                                  r"decimal\(30,2\)"):
-        df.select(TF.hash(tcol("x")).alias("h"))
+    got = df.select(TF.hash(tcol("x")).alias("h")).collect()
+    ref = jfrom(JHostTable(["x"], [JHostColumn(
+        JT.parse_type("decimal(30,2)"), arrays[2][0][0],
+        arrays[2][0][1])]), TpuSession()).select(
+        JF.hash(jcol("x")).alias("h")).collect()
+    assert got == ref
+    assert [h for (h,) in got] == [jhashing.murmur3_hash_host(
+        [(v, True, JT.parse_type("decimal(30,2)"))]) for v in vals]
 
 
 # ---------------------------------------------------------------------------

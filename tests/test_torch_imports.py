@@ -111,10 +111,7 @@ def test_unported_pieces_raise_not_implemented():
     with pytest.raises(NotImplementedError, match="cast from bigint to "
                                                   "string"):
         df.select(col("k").cast("string").alias("x"))
-    # DECIMAL128 quotients and variances, and TIMESTAMP literals, are not
-    # ported
-    with pytest.raises(NotImplementedError, match="DecimalDivide"):
-        df.select((col("d") / col("d")).alias("x"))
+    # DECIMAL128 variances and TIMESTAMP literals are not ported
     with pytest.raises(NotImplementedError,
                        match="VarianceSamp over decimal"):
         df.agg(F.variance(col("d") * col("d"))).collect_table()
@@ -122,8 +119,8 @@ def test_unported_pieces_raise_not_implemented():
     with pytest.raises(NotImplementedError, match="TIMESTAMP literal"):
         lit(datetime.datetime(2020, 1, 1))
     # the pieces this test once held to raising (negation, MIN over
-    # BOOLEAN, MAX over a decimal, a decimal sum) run, and equal the
-    # reference's answers
+    # BOOLEAN, MAX over a decimal, a decimal sum, a DECIMAL128 quotient)
+    # run, and equal the reference's answers
     from spark_rapids_tpu import functions as JF
     from spark_rapids_tpu import types as JT
     from spark_rapids_tpu.columnar import HostColumn as JHostColumn
@@ -138,7 +135,8 @@ def test_unported_pieces_raise_not_implemented():
 
     def query(d, F, c, lt):
         return [d.select((-c("k")).alias("n"),
-                         (c("k") + c("d")).alias("x")).collect(),
+                         (c("k") + c("d")).alias("x"),
+                         (c("d") / (c("d") + lt(1))).alias("q")).collect(),
                 sorted(d.group_by("k").agg(
                     F.min(c("k") > lt(3)).alias("b"),
                     F.max(c("d")).alias("m")).collect())]

@@ -129,7 +129,8 @@ def test_wrapper_on_cpu_is_the_plain_version_and_launches_nothing():
     assert torch.equal(a, b)
     assert K.launch_counts() == {"onehot_partials": 0, "fused_minmax": 0,
                                  "gather_compact": 0,
-                                 "sort_with_payload": 0, "probe_rowids": 0}
+                                 "sort_with_payload": 0, "probe_rowids": 0,
+                                 "dec128_divide": 0}
 
 
 def test_record_clones_each_launch_only_while_calls_is_a_list():

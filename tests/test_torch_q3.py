@@ -420,10 +420,15 @@ def test_conf_keys_and_unported_shapes(monkeypatch):
     monkeypatch.setattr(xsort, "OUT_OF_CORE_THRESHOLD_BYTES", 256)
     with pytest.raises(NotImplementedError, match="outOfCoreThresholdBytes"):
         from_host_table(t, sess, num_batches=3).sort("v").collect_table()
-    # % is ported since; a DECIMAL128 quotient is not
-    with pytest.raises(NotImplementedError, match="DecimalDivide"):
-        df.select((col("k").cast("decimal(38,0)")
-                   / col("v").cast("decimal(38,0)")).alias("q"))
+    # % and, since the DECIMAL128 division kernel, a DECIMAL128 quotient
+    # run (decimal(38,6): k / k is 10^6 unscaled, 0 / 0 null); a rounding
+    # of a decimal does not
+    q = df.select((col("k").cast("decimal(38,0)")
+                   / col("v").cast("decimal(38,0)")).alias("q")).collect()
+    assert [r[0] for r in q] == [None] + [10 ** 6] * 9
+    from spark_rapids_tpu_torch import functions as TF
+    with pytest.raises(NotImplementedError, match="Round of decimal"):
+        df.select(TF.round(col("k").cast("decimal(38,0)"), 1).alias("r"))
 
 
 def test_q3_without_speculation_and_with_coalesced_builds():
