@@ -96,17 +96,30 @@ Phases, in order; any failure exits non-zero:
    plain version on S1's operands (sampled to 2^20 rows) and on an edge
    set, also against Python ints, and its time at S1's shape against its
    byte bound;
-13. the summary lines: one ``{"kernels": [...]}`` JSON line (the five TPU
+13. the window query set W1-W8 (``W_QUERIES``) through
+   ``TorchSession.sql`` on the same tables: lag, lead and a lag with a
+   default per customer, running sums over ROWS and RANGE frames, a ratio
+   over whole-partition aggregates, moving AVG/MIN/MAX frames, a
+   partition-less percent_rank and row_number, three specs over different
+   partition keys, a 2001-row frame's SUM and MAX, and lineitem in 4 input
+   batches through the four multi-batch routes (keyed batching, the
+   two-pass window, the bounded and the running stream over the
+   out-of-core sorted-run merge), each W8 query's route read from
+   ``last_metrics()``; with the numbers and checks of phase 7 against
+   numpy oracles (f64 sums rtol 1e-9, the wide frame within 1e-9 of its
+   mass, everything else exact);
+14. the summary lines: one ``{"kernels": [...]}`` JSON line (the five TPU
    kernels and the DECIMAL128 division kernel, CUDA work beyond them;
    launches of the main path: q1's, sparse q3's probes, q8's MIN/MAX, plus
-   every phase-7 to phase-12 query's), the card line, and last
+   every phase-7 to phase-13 query's), the card line, and last
    ``{"ok": true, "device": {...}}``.
 
 Each phase logs its wall time. It needs one CUDA card and exits non-zero
 without one. ``--profile DIR`` also writes a torch.profiler table and
 trace of one warm run of q1, of each q3 form, of each phase-6, phase-7
 and phase-8 query, of phase 9's conditional query, of J1, J7, J8 and J9,
-of O1, O2, O3, O4a, O5, O6a and O7 and of S1, S2, S5, S7 and S8.
+of O1, O2, O3, O4a, O5, O6a and O7, of S1, S2, S5, S7 and S8 and of W1,
+W3, W4, W7, W8a and W8c.
 """
 
 from __future__ import annotations
@@ -4070,6 +4083,459 @@ def run_scalars(tables, sf: float, seed: int, profile_dir) -> tuple:
     return total, s1_args
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the window queries (W1-W8)
+# ---------------------------------------------------------------------------
+
+#: the window texts of phase 13 (TPC-DS shapes: W1 q47/q57's neighbours,
+#: W2 q51's cumulative sums, W3 q12/q20/q98's ratios, W4 moving windows,
+#: W5 q49's partition-less ranks); W8a-d run over ``lineitem4``, lineitem
+#: in 4 input batches with its row number ``l_row``
+_CUST_ORDER = "PARTITION BY o_custkey ORDER BY o_orderdate, o_orderkey"
+_FLAG_ORDER = "PARTITION BY l_returnflag ORDER BY l_shipdate, l_orderkey"
+WINDOW_SQL = {
+    "W1": f"""SELECT o_orderkey,
+        LAG(o_totalprice, 1) OVER ({_CUST_ORDER}) AS prev_price,
+        LEAD(o_orderdate, 1) OVER ({_CUST_ORDER}) AS next_date,
+        LAG(o_orderkey, 2, -1) OVER ({_CUST_ORDER}) AS prev2_key
+        FROM orders""",
+    "W2": """SELECT l_shipdate,
+        SUM(l_extendedprice) OVER (PARTITION BY l_returnflag, l_linestatus
+            ORDER BY l_shipdate ROWS BETWEEN UNBOUNDED PRECEDING AND
+            CURRENT ROW) AS run_price,
+        SUM(l_quantity) OVER (PARTITION BY l_returnflag, l_linestatus
+            ORDER BY l_shipdate) AS run_qty,
+        COUNT(*) OVER (PARTITION BY l_returnflag, l_linestatus
+            ORDER BY l_shipdate) AS run_cnt
+        FROM lineitem""",
+    "W3": """SELECT o_orderkey, o_totalprice * 100 / cust_total AS pct,
+        cust_avg, cust_cnt, first_date, max_price
+        FROM (SELECT o_orderkey, o_totalprice,
+            SUM(o_totalprice) OVER (PARTITION BY o_custkey) AS cust_total,
+            AVG(o_totalprice) OVER (PARTITION BY o_custkey) AS cust_avg,
+            COUNT(*) OVER (PARTITION BY o_custkey) AS cust_cnt,
+            MIN(o_orderdate) OVER (PARTITION BY o_custkey) AS first_date,
+            MAX(o_totalprice) OVER (PARTITION BY o_custkey) AS max_price
+            FROM orders)""",
+    "W4": f"""SELECT o_orderkey,
+        AVG(o_totalprice) OVER ({_CUST_ORDER} ROWS BETWEEN 2 PRECEDING AND
+            2 FOLLOWING) AS avg5,
+        MIN(o_totalprice) OVER ({_CUST_ORDER} ROWS BETWEEN 6 PRECEDING AND
+            CURRENT ROW) AS min7,
+        MAX(o_totalprice) OVER ({_CUST_ORDER} ROWS BETWEEN CURRENT ROW AND
+            UNBOUNDED FOLLOWING) AS max_rest
+        FROM orders""",
+    "W5": """SELECT o_orderkey,
+        PERCENT_RANK() OVER (ORDER BY o_totalprice) AS pr,
+        ROW_NUMBER() OVER (ORDER BY o_totalprice, o_orderkey) AS rn
+        FROM orders""",
+    "W6": """SELECT o_orderkey,
+        RANK() OVER (PARTITION BY o_custkey ORDER BY o_totalprice DESC)
+            AS price_rank,
+        NTH_VALUE(o_orderkey, 2) OVER (PARTITION BY o_custkey
+            ORDER BY o_orderdate) AS second_key,
+        DENSE_RANK() OVER (PARTITION BY o_orderdate
+            ORDER BY o_totalprice DESC) AS day_rank
+        FROM orders""",
+    "W7": f"""SELECT l_shipdate,
+        SUM(l_extendedprice) OVER ({_FLAG_ORDER} ROWS BETWEEN 1000 PRECEDING
+            AND 1000 FOLLOWING) AS wsum,
+        MAX(l_quantity) OVER ({_FLAG_ORDER} ROWS BETWEEN 1000 PRECEDING
+            AND 1000 FOLLOWING) AS wmax
+        FROM lineitem""",
+    "W8a": """SELECT l_row, LAG(l_quantity) OVER (PARTITION BY l_orderkey
+        ORDER BY l_shipdate, l_row) AS prev_qty FROM lineitem4""",
+    "W8b": """SELECT l_row, SUM(l_extendedprice) OVER (PARTITION BY
+        l_orderkey) AS order_total FROM lineitem4""",
+    "W8c": """SELECT l_row, AVG(l_extendedprice) OVER (PARTITION BY
+        l_returnflag ORDER BY l_shipdate, l_orderkey, l_row ROWS BETWEEN 3
+        PRECEDING AND 3 FOLLOWING) AS avg7 FROM lineitem4""",
+    "W8d": """SELECT l_row, SUM(l_quantity) OVER (ORDER BY l_shipdate,
+        l_orderkey, l_row ROWS UNBOUNDED PRECEDING) AS run_qty
+        FROM lineitem4""",
+}
+#: the order phase 13 runs them in
+W_QUERIES = tuple(WINDOW_SQL)
+#: the multi-batch route each W8 query must take: its metric
+W8_ROUTES = {"W8a": "keyBatchedPartitions", "W8b": "twoPassPartitions",
+             "W8c": "boundedWindowBatches", "W8d": "runningWindowBatches"}
+#: input batches of ``lineitem4``, and the W8 session's range target
+#: (``spark.rapids.sql.window.streamTargetRows``)
+W8_BATCHES = 4
+W8_STREAM_ROWS = 1 << 21
+
+
+def lineitem4(tables):
+    """lineitem's columns W8 reads, with the row number ``l_row``."""
+    from spark_rapids_tpu_torch.columnar import HostColumn, HostTable
+    from spark_rapids_tpu_torch import types as TT
+    li = tables["lineitem"]
+    names = ("l_orderkey", "l_quantity", "l_extendedprice", "l_returnflag",
+             "l_shipdate")
+    cols = [li.columns[li.names.index(n)] for n in names]
+    row = HostColumn(TT.LONG, np.arange(li.num_rows, dtype=np.int64))
+    return HostTable(("l_row",) + names, [row] + cols)
+
+
+def window_layout(parts, orders):
+    """The sorted structure of a window spec, in numpy: rows sorted
+    stably by (partition keys, order keys; ties in input order); per
+    sorted row its segment's start and end and its peer group's start
+    and end (positions in sort order), and the sort order itself."""
+    n = len((parts or orders)[0])
+    order = _stable_order(list(parts) + list(orders), n)
+
+    def breaks(cols):
+        new = np.zeros(n, dtype=bool)
+        new[0] = True
+        for c in cols:
+            s = np.asarray(c)[order]
+            new[1:] |= s[1:] != s[:-1]
+        return new
+
+    def span(new):
+        pos = np.arange(n)
+        starts = np.flatnonzero(new)
+        gid = np.cumsum(new) - 1
+        ends = np.append(starts[1:], n) - 1
+        return starts[gid], ends[gid]
+
+    new_seg = breaks(parts)
+    seg_start, seg_end = span(new_seg)
+    peer_start, peer_last = span(new_seg | breaks(orders))
+    return {"order": order, "seg_start": seg_start, "seg_end": seg_end,
+            "peer_start": peer_start, "peer_last": peer_last,
+            "new_seg": new_seg}
+
+
+def _stable_order(keys, n):
+    """The rows in key order, ties in input order: one np.sort of int64
+    words packing each integer key's offset from its minimum and the row
+    number, when they fit in 63 bits; np.lexsort otherwise."""
+    row_bits = max(n - 1, 1).bit_length()
+    bits, packed = row_bits, []
+    for k in keys:
+        k = np.asarray(k)
+        if k.dtype.kind not in "iub":
+            packed = None
+            break
+        lo = int(k.min())
+        width = max(int(k.max()) - lo, 1).bit_length()
+        packed.append((k, lo, width))
+        bits += width
+    if packed is None or bits > 63:
+        return np.lexsort([np.arange(n)] + [np.asarray(k)
+                                            for k in reversed(keys)])
+    word = np.zeros(n, dtype=np.int64)
+    for k, lo, width in packed:
+        word = (word << width) | (k.astype(np.int64) - lo)
+    word = (word << row_bits) | np.arange(n, dtype=np.int64)
+    return np.sort(word) & ((1 << row_bits) - 1)
+
+
+def _in_input_order(lay, sorted_values):
+    out = np.empty_like(sorted_values)
+    out[lay["order"]] = sorted_values
+    return out
+
+
+def _shift(lay, values, off):
+    """(values ``off`` rows away within the segment, whether there is
+    one), both in input order."""
+    n = len(values)
+    pos = np.arange(n)
+    j = pos + off
+    ok = (j >= lay["seg_start"]) & (j <= lay["seg_end"])
+    vs = np.asarray(values)[lay["order"]]
+    got = np.where(ok, vs[np.clip(j, 0, n - 1)], np.zeros(1, vs.dtype))
+    return _in_input_order(lay, got), _in_input_order(lay, ok)
+
+
+def _offset_sum(lay, values, lo, hi):
+    """(the frame sum offset by offset in order lo..hi, the frame's row
+    count), in input order: the port's per-offset sum, bit for bit."""
+    n = len(values)
+    pos = np.arange(n)
+    vs = np.asarray(values, dtype=np.float64)[lay["order"]]
+    total = np.zeros(n)
+    cnt = np.zeros(n, dtype=np.int64)
+    for k in range(lo, hi + 1):
+        j = pos + k
+        inside = (j >= lay["seg_start"]) & (j <= lay["seg_end"])
+        total = total + np.where(inside, vs[np.clip(j, 0, n - 1)], 0.0)
+        cnt += inside
+    return _in_input_order(lay, total), _in_input_order(lay, cnt)
+
+
+def _seg_prefix(lay, values):
+    """The inclusive prefix sum within each segment, in sort order (one
+    cumsum a segment: no cancellation across segments)."""
+    vs = np.asarray(values)[lay["order"]]
+    out = np.empty(len(vs), dtype=vs.dtype)
+    starts = np.flatnonzero(lay["new_seg"])
+    for a, b in zip(starts, np.append(starts[1:], len(vs))):
+        out[a:b] = np.cumsum(vs[a:b])
+    return out
+
+
+def _range_max(values, a, b, width):
+    """max over [a, b] per row through a doubling table (b - a < width),
+    exact for integers."""
+    levels = [np.asarray(values)]
+    span = 1
+    while span < width:
+        prev = levels[-1]
+        nxt = prev.copy()
+        nxt[:-span] = np.maximum(prev[:-span], prev[span:])
+        levels.append(nxt)
+        span *= 2
+    k = np.floor(np.log2(np.maximum(b - a + 1, 1))).astype(np.int64)
+    tab = np.stack(levels)
+    return np.maximum(tab[k, a], tab[k, b - (1 << k) + 1])
+
+
+def check_window(got, want, what, order_by=None, close=(),
+                 mass=None) -> None:
+    """The result against the oracle's ``want`` ({name: (values,
+    validity)} in the output's column order, rows in input order): with
+    ``order_by`` the result's rows first sort by that column (a row
+    number); validity exact, valid values exact (doubles bit for bit),
+    the ``close`` columns within rtol 1e-9, and the ``mass`` columns
+    ({name: frame sums of |v|}) within 1e-9 of that mass."""
+    if list(got.names) != list(want):
+        fail(f"{what}: columns {list(got.names)}, oracle {list(want)}")
+    cols = dict(zip(got.names, got.columns))
+    order = slice(None)
+    if order_by is not None:
+        # a row number: its inverse permutation puts the rows in order
+        key = cols[order_by].data
+        order = np.zeros(len(key), dtype=np.int64)
+        order[np.clip(key, 0, len(key) - 1)] = np.arange(len(key))
+    mass = mass or {}
+    for name, (w, wv) in want.items():
+        c = cols[name]
+        g, gv = c.data[order], c.validity[order]
+        w = np.asarray(w)
+        wv = np.broadcast_to(np.asarray(wv, dtype=bool), g.shape)
+        if len(g) != len(w):
+            fail(f"{what}: {len(g)} rows, oracle {len(w)}")
+        if not np.array_equal(gv, wv):
+            i = int(np.flatnonzero(gv != wv)[0])
+            fail(f"{what} {name} row {i}: validity {bool(gv[i])}, oracle "
+                 f"{bool(wv[i])}")
+        g, w = g[wv], w[wv]
+        if name in mass:
+            bad = np.abs(g - w) > 1e-9 * np.asarray(mass[name])[wv]
+        elif name in close:
+            bad = ~np.isclose(g, w, rtol=1e-9, atol=0)
+        else:
+            bad = g.view(np.uint8).reshape(len(g), -1) != \
+                w.astype(g.dtype).view(np.uint8).reshape(len(w), -1)
+            bad = bad.any(axis=1)
+        if bad.any():
+            i = int(np.flatnonzero(bad)[0])
+            fail(f"{what} {name}: valid row {i} {g[i]!r}, oracle {w[i]!r}"
+                 + (" (rtol 1e-9)" if name in close or name in mass
+                    else " (exact)"))
+
+
+def w_oracles(tables, w8):
+    """{query: check(got)} of W1-W8, each computed in numpy from the host
+    tables, independently of the port: stable lexsorts, then segment
+    arithmetic (f64 sums within rtol 1e-9, W7's wide frame within 1e-9 of
+    its absolute mass, everything else exact)."""
+    o = host_cols(tables["orders"])
+    li = host_cols(tables["lineitem"])
+    lcols = dict(zip(tables["lineitem"].names, tables["lineitem"].columns))
+    rf = lcols["l_returnflag"].encoded()[0]
+    ls = lcols["l_linestatus"].encoded()[0]
+    ok_, ck, od, price = (o["o_orderkey"], o["o_custkey"], o["o_orderdate"],
+                          o["o_totalprice"])
+    n_o, n_l = len(ok_), len(li["l_orderkey"])
+    checks = {}
+
+    # W1: lag, lead and a lag with a default, per customer
+    lay = window_layout([ck], [od, ok_])
+    pp, pv = _shift(lay, price, -1)
+    nd, nv = _shift(lay, od, 1)
+    p2, p2v = _shift(lay, ok_, -2)
+    w1 = {"o_orderkey": (ok_, True), "prev_price": (pp, pv),
+          "next_date": (nd, nv), "prev2_key": (np.where(p2v, p2, -1), True)}
+    checks["W1"] = lambda got: check_window(got, w1, "W1")
+
+    # W2: running sums per (flag, status) over shipdate peers
+    lay = window_layout([rf, ls], [li["l_shipdate"]])
+    run_price = _in_input_order(lay, _seg_prefix(lay, li["l_extendedprice"]))
+    qpref = _seg_prefix(lay, li["l_quantity"].astype(np.int64))
+    pl = lay["peer_last"]
+    run_qty = _in_input_order(lay, qpref[pl])
+    run_cnt = _in_input_order(lay, (pl - lay["seg_start"] + 1).astype(
+        np.int64))
+    w2 = {"l_shipdate": (li["l_shipdate"], True),
+          "run_price": (run_price, True), "run_qty": (run_qty, True),
+          "run_cnt": (run_cnt, True)}
+    checks["W2"] = lambda got: check_window(got, w2, "W2",
+                                            close=("run_price",))
+
+    # W3: whole-partition aggregates per customer and the ratio over them
+    k = int(ck.max()) + 1
+    total = np.bincount(ck, weights=price, minlength=k)
+    cnt = np.bincount(ck, minlength=k).astype(np.int64)
+    first = np.full(k, np.iinfo(np.int32).max, dtype=np.int32)
+    np.minimum.at(first, ck, od)
+    mx = np.full(k, -np.inf)
+    np.maximum.at(mx, ck, price)
+    w3 = {"o_orderkey": (ok_, True),
+          "pct": (price * 100 / total[ck], True),
+          "cust_avg": (total[ck] / cnt[ck], True),
+          "cust_cnt": (cnt[ck], True), "first_date": (first[ck], True),
+          "max_price": (mx[ck], True)}
+    checks["W3"] = lambda got: check_window(got, w3, "W3",
+                                            close=("pct", "cust_avg"))
+
+    # W4: moving windows per customer
+    lay = window_layout([ck], [od, ok_])
+    s5, c5 = _offset_sum(lay, price, -2, 2)
+    ps = price[lay["order"]]
+    pos = np.arange(n_o)
+    m7 = np.full(n_o, np.inf)
+    for off in range(-6, 1):
+        j = pos + off
+        inside = j >= lay["seg_start"]
+        m7 = np.where(inside, np.minimum(m7, ps[np.clip(j, 0, n_o - 1)]), m7)
+    # the maximum from each row to its segment's end: a running max of
+    # (segment rank, value rank) keys over the reversed sort order
+    uniq, rank = np.unique(ps, return_inverse=True)
+    seg_rank = np.cumsum(lay["new_seg"]) - 1
+    key = (seg_rank.max() - seg_rank) * len(uniq) + rank
+    rest = uniq[np.maximum.accumulate(key[::-1])[::-1] % len(uniq)]
+    w4 = {"o_orderkey": (ok_, True), "avg5": (s5 / c5, True),
+          "min7": (_in_input_order(lay, m7), True),
+          "max_rest": (_in_input_order(lay, rest), True)}
+    checks["W4"] = lambda got: check_window(got, w4, "W4")
+
+    # W5: partition-less percent_rank and row_number
+    srt = np.sort(price, kind="stable")
+    rank = np.searchsorted(srt, price, "left") + 1
+    pr = (rank - 1.0) / max(n_o - 1.0, 1.0)
+    rn = np.empty(n_o, dtype=np.int32)
+    rn[np.lexsort((ok_, price))] = np.arange(1, n_o + 1, dtype=np.int32)
+    w5 = {"o_orderkey": (ok_, True), "pr": (pr, True), "rn": (rn, True)}
+    checks["W5"] = lambda got: check_window(got, w5, "W5")
+
+    # W6: three specs over different partition keys
+    lay = window_layout([ck], [-price])
+    price_rank = _in_input_order(
+        lay, (lay["peer_start"] - lay["seg_start"] + 1).astype(np.int32))
+    lay2 = window_layout([ck], [od])
+    at = lay2["seg_start"] + 1
+    avail = (at <= lay2["peer_last"]) & (at <= lay2["seg_end"])
+    second = np.where(avail, ok_[lay2["order"]][np.clip(at, 0, n_o - 1)], 0)
+    lay3 = window_layout([od], [-price])
+    newp = np.zeros(n_o, dtype=bool)
+    newp[lay3["peer_start"]] = True
+    dense = np.cumsum(newp) - np.cumsum(newp)[lay3["seg_start"]] + 1
+    w6 = {"o_orderkey": (ok_, True), "price_rank": (price_rank, True),
+          "second_key": (_in_input_order(lay2, second),
+                         _in_input_order(lay2, avail)),
+          "day_rank": (_in_input_order(lay3, dense.astype(np.int32)), True)}
+    checks["W6"] = lambda got: check_window(got, w6, "W6")
+
+    # W7: a 2001-row frame per return flag: prefix difference and the
+    # doubling table
+    lay = lay7 = window_layout([rf], [li["l_shipdate"], li["l_orderkey"]])
+    pos = np.arange(n_l)
+    a = np.maximum(lay["seg_start"], pos - 1000)
+    b = np.minimum(lay["seg_end"], pos + 1000)
+    pref = _seg_prefix(lay, li["l_extendedprice"])
+    before = np.where(a > lay["seg_start"], pref[np.maximum(a - 1, 0)], 0.0)
+    wsum = _in_input_order(lay, pref[b] - before)
+    q = li["l_quantity"][lay["order"]].astype(np.int16)
+    wmax = _in_input_order(lay, _range_max(q, a, b, 2001).astype(np.int64))
+    w7 = {"l_shipdate": (li["l_shipdate"], True), "wsum": (wsum, True),
+          "wmax": (wmax, True)}
+    # the prices are positive: each frame's absolute mass is its sum
+    checks["W7"] = lambda got: check_window(got, w7, "W7",
+                                            mass={"wsum": wsum})
+
+    # W8: the same shapes over lineitem4, rows compared by l_row
+    c8 = dict(zip(w8.names, w8.columns))
+    row = c8["l_row"].data
+    okey, qty = c8["l_orderkey"].data, c8["l_quantity"].data
+    ship, ext = c8["l_shipdate"].data, c8["l_extendedprice"].data
+    # (l_row, the SQL's last order key, is the oracle's input order)
+    lay = window_layout([okey], [ship])
+    prev, pv = _shift(lay, qty, -1)
+    w8a = {"l_row": (row, True), "prev_qty": (prev, pv)}
+    checks["W8a"] = lambda got: check_window(got, w8a, "W8a",
+                                             order_by="l_row")
+    tot = np.bincount(okey, weights=ext)
+    w8b = {"l_row": (row, True), "order_total": (tot[okey], True)}
+    checks["W8b"] = lambda got: check_window(
+        got, w8b, "W8b", order_by="l_row", close=("order_total",))
+    # W8c's sort is W7's: l_row is the input order lexsort breaks ties by
+    s7, c7 = _offset_sum(lay7, ext, -3, 3)
+    w8c = {"l_row": (row, True), "avg7": (s7 / c7, True)}
+    checks["W8c"] = lambda got: check_window(got, w8c, "W8c",
+                                             order_by="l_row")
+    lay = window_layout([], [ship, okey])
+    run = _in_input_order(lay, np.cumsum(qty[lay["order"]]))
+    w8d = {"l_row": (row, True), "run_qty": (run, True)}
+    checks["W8d"] = lambda got: check_window(got, w8d, "W8d",
+                                             order_by="l_row")
+    return checks
+
+
+def run_windows(tables, profile_dir) -> dict:
+    """Phase 13: W1-W8 (``W_QUERIES``) through ``TorchSession.sql``
+    over temp views of phases 6-12's tables (W8 over ``lineitem4`` in
+    ``W8_BATCHES`` input batches, on a session whose ranges hold
+    ``W8_STREAM_ROWS`` rows), each through ``run_case`` against its numpy
+    oracle; every query must launch the radix sort, and each W8 query
+    must take its route (``W8_ROUTES``, read from ``last_metrics()``).
+    ``--profile`` traces W1, W3, W4, W7, W8a and W8c. Returns every
+    kernel's launches summed over the counted runs."""
+    from spark_rapids_tpu_torch.plan import from_host_table
+    from spark_rapids_tpu_torch.session import TorchSession
+    t0 = time.perf_counter()
+    w8 = lineitem4(tables)
+    oracles = w_oracles(tables, w8)
+    log(f"  the numpy oracles in {time.perf_counter() - t0:.2f} s (host)")
+    session = TorchSession()
+    for name in ("lineitem", "orders"):
+        from_host_table(tables[name], session).create_or_replace_temp_view(
+            name)
+    s8 = TorchSession({"spark.rapids.sql.window.streamTargetRows":
+                       str(W8_STREAM_ROWS)})
+    from_host_table(w8, s8, num_batches=W8_BATCHES) \
+        .create_or_replace_temp_view("lineitem4")
+    total, summary = {}, {}
+    for name in W_QUERIES:
+        sess = s8 if name.startswith("W8") else session
+        prof = profile_dir if name in ("W1", "W3", "W4", "W7", "W8a",
+                                       "W8c") else None
+        res = run_case(sess, name, lambda t=WINDOW_SQL[name], s=sess:
+                       s.sql(t), oracles[name], prof)
+        for k, v in res["launches"].items():
+            total[k] = total.get(k, 0) + v
+        summary[name] = dict(res["stats"], launches={
+            k: v for k, v in res["launches"].items() if v})
+        if name in W8_ROUTES:
+            metrics = sess.last_metrics()
+            got = metrics.get(W8_ROUTES[name], 0)
+            if not got:
+                fail(f"{name} did not take its route: no "
+                     f"{W8_ROUTES[name]} in {metrics}")
+            summary[name]["metrics"] = {
+                k: v for k, v in metrics.items() if k != "speculationReplays"}
+            log(f"  {name}: {W8_ROUTES[name]} = {got} ({metrics})")
+        if not res["launches"].get("sort_with_payload"):
+            fail(f"{name} launched no sort_with_payload")
+        log(f"  {name}: result matches its numpy oracle")
+    log("  phase-13 summary: " + json.dumps(summary))
+    return total
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rows", type=int, default=6_001_215,
@@ -4199,7 +4665,15 @@ def main(argv=None) -> int:
     rows.append(check_dec128div(s1_args))
     log(f"  phase 12 ran {time.perf_counter() - t_phase:.1f} s")
 
-    log("phase 13: summary")
+    t_phase = time.perf_counter()
+    log("phase 13: the window queries (W1-W8: lag, lead, nth_value, "
+        "percent_rank, aggregate windows over whole, running and bounded "
+        "frames, the multi-batch routes) through TorchSession.sql")
+    for k, v in run_windows(tables, args.profile).items():
+        launches[k] = launches.get(k, 0) + v
+    log(f"  phase 13 ran {time.perf_counter() - t_phase:.1f} s")
+
+    log("phase 14: summary")
     log("  dec128_divide is CUDA work beyond the five TPU kernels: the "
         "reference divides DECIMAL128 values on its host")
     for r in rows:

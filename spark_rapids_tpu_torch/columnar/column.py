@@ -163,8 +163,13 @@ class HostColumn:
         return len(self.data)
 
     def slice(self, start: int, length: int) -> "HostColumn":
-        return HostColumn(self.dtype, self.data[start:start + length],
-                          self.validity[start:start + length])
+        out = HostColumn(self.dtype, self.data[start:start + length],
+                         self.validity[start:start + length])
+        enc = self._cache.get("encode")
+        if enc is not None:
+            # a sorted dictionary stays one for any subset of the rows
+            out._cache["encode"] = (enc[0][start:start + length], enc[1])
+        return out
 
     def encoded(self) -> Tuple[np.ndarray, np.ndarray]:
         """(codes, dictionary) of a STRING column, computed once."""

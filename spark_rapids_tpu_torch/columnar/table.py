@@ -142,6 +142,38 @@ class DeviceTable:
         return HostTable(self.names, [c.to_host(n) for c in self.columns])
 
 
+def concat_host(tables: Sequence[HostTable]) -> HostTable:
+    """Host tables of one schema, one after another. String columns whose
+    parts all carry their codes (``HostColumn.encoded``'s cache) keep
+    them, remapped into the union of the parts' sorted dictionaries."""
+    if len(tables) == 1:
+        return tables[0]
+    cols = []
+    for ci, c0 in enumerate(tables[0].columns):
+        parts = [t.columns[ci] for t in tables]
+        col = HostColumn(c0.dtype,
+                         np.concatenate([p.data for p in parts]),
+                         np.concatenate([p.validity for p in parts]))
+        encs = [p._cache.get("encode") for p in parts]
+        if isinstance(c0.dtype, T.StringType) and all(
+                e is not None for e in encs):
+            union = np.unique(np.concatenate(
+                [e[1].astype(object) for e in encs]))
+            col._cache["encode"] = (np.concatenate(
+                [np.searchsorted(union, e[1]).astype(np.int32)[e[0]]
+                 if len(e[1]) else e[0] for e in encs]), union)
+        cols.append(col)
+    return HostTable(tables[0].names, cols)
+
+
+def upload_host_table(host: HostTable, device) -> DeviceTable:
+    """``host`` on ``device`` at its rows' capacity bucket."""
+    n = host.num_rows
+    cap = bucket_for(max(n, 1))
+    return DeviceTable(host.names, [DeviceColumn.from_host(c, cap, device)
+                                    for c in host.columns], n, cap, device)
+
+
 def empty_host_table(schema) -> HostTable:
     """A zero-row HostTable of ``schema`` ([(name, DataType)])."""
     cols = [HostColumn(dt, np.zeros(0, dtype=dt.np_dtype),

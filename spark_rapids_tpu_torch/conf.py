@@ -101,6 +101,34 @@ JOIN_MAX_SUBPARTITIONS = _conf(
     "Upper bound on hash sub-partitions when a join's build side exceeds "
     "the sub-partitioning threshold.", int)
 
+WINDOW_ROWS_FRAME_MAX_BOUND = _conf(
+    "spark.rapids.sql.window.rowsFrameMaxBound", 1 << 16,
+    "Rows-frame window bounds beyond this magnitude raise (the reference "
+    "tags them to its CPU route): the sparse table's levels and the "
+    "unrolled frame's offsets grow with the frame's finite endpoints.",
+    int)
+
+WINDOW_STREAM_TARGET_ROWS = _conf(
+    "spark.rapids.sql.window.streamTargetRows", 0,
+    "Target rows per streamed range batch of the multi-batch running and "
+    "bounded-frame windows (0 = the largest input run's size).", int)
+
+VARIABLE_FLOAT_AGG = _conf(
+    "spark.rapids.sql.variableFloatAgg.enabled", True,
+    "Allow float aggregations whose result may differ in ULPs from the "
+    "CPU's because of the reduction order (here: a float window sum over "
+    "a bounded rows frame wider than 512 rows, by prefix difference).",
+    _to_bool)
+
+SORT_OOC_THRESHOLD = _conf(
+    "spark.rapids.sql.sort.outOfCoreThresholdBytes", 1 << 30,
+    "Multi-batch sorts whose input exceeds this many device bytes merge "
+    "out of core: each batch sorts on the device and moves to a host run, "
+    "sampled first-key bounds split the key space into ranges, and each "
+    "range uploads and sorts on its own. The reference also caps it by "
+    "its memory manager's scan chunk; the port, which has no memory "
+    "manager, uses this value alone.", int)
+
 
 class RapidsConf:
     """A typed view over a plain ``{key: value}`` dict."""

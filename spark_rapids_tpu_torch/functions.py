@@ -89,7 +89,7 @@ def is_in(e, *items):
     return In(_e(e), [_e(i) for i in items])
 
 
-# ranking window functions (ops/window.py): row_number().over(spec)
+# window functions (ops/window.py): row_number().over(spec)
 def row_number():
     from spark_rapids_tpu_torch.ops.window import RowNumber
     return RowNumber()
@@ -103,6 +103,26 @@ def rank():
 def dense_rank():
     from spark_rapids_tpu_torch.ops.window import DenseRank
     return DenseRank()
+
+
+def percent_rank():
+    from spark_rapids_tpu_torch.ops.window import PercentRank
+    return PercentRank()
+
+
+def nth_value(e, n: int):
+    from spark_rapids_tpu_torch.ops.window import NthValue
+    return NthValue(_e(e), n)
+
+
+def lag(e, offset: int = 1, default=None):
+    from spark_rapids_tpu_torch.ops.window import lag as _lag
+    return _lag(_e(e), offset, default)
+
+
+def lead(e, offset: int = 1, default=None):
+    from spark_rapids_tpu_torch.ops.window import lead as _lead
+    return _lead(_e(e), offset, default)
 
 
 # hash functions (ops/hashfns.py)

@@ -1,13 +1,13 @@
-"""Window specs and the ranking window functions (port of the WindowSpec,
-Window, WindowFunction, RowNumber, Rank, DenseRank and WindowExpression
-parts of ``spark_rapids_tpu/ops/window.py``).
+"""Window specs and window functions (port of
+``spark_rapids_tpu/ops/window.py``: WindowSpec, Window, RowNumber, Rank,
+DenseRank, PercentRank, NthValue, Lag, Lead and WindowExpression).
 
 Frames: ("rows" | "range", lo, hi) with None = unbounded, 0 = current row,
 negative = preceding, positive = following. Spark defaults: with an ORDER BY
 the frame is RANGE UNBOUNDED PRECEDING..CURRENT ROW; without it the frame is
-the whole partition. The port evaluates row_number, rank and dense_rank
-(execs/window.py); percent_rank, nth_value, lag, lead, aggregate windows
-and explicit frames are not ported, and the overrides raise for them.
+the whole partition. execs/window.py evaluates every function here and the
+aggregates SUM, COUNT, MIN, MAX and AVG over whole, running and bounded
+frames; ``execs/window.py::device_window_supported`` names what raises.
 The reference's numpy evaluation (``eval_window_cpu``) is not ported: the
 port has no CPU plan path."""
 
@@ -83,7 +83,7 @@ class Window:
 
 
 class WindowFunction(Expression):
-    """Base of the ranking window functions (not evaluable standalone)."""
+    """Base of the window functions (not evaluable standalone)."""
 
     children = ()
 
@@ -110,6 +110,59 @@ class DenseRank(WindowFunction):
     pass
 
 
+class PercentRank(WindowFunction):
+    """percent_rank() = (rank - 1) / (partition rows - 1); 0 for a
+    one-row partition."""
+
+    @property
+    def data_type(self):
+        return T.DOUBLE
+
+
+class NthValue(WindowFunction):
+    """nth_value(e, n) over the default running frame: the partition's
+    n-th row's value, visible once the frame reaches it."""
+
+    def __init__(self, child: Expression, n: int, ignore_nulls: bool = False):
+        self.children = (child,)
+        self.n = int(n)
+        self.ignore_nulls = bool(ignore_nulls)
+        if self.n < 1:
+            raise ValueError("nth_value n must be >= 1")
+
+    @property
+    def data_type(self):
+        return self.children[0].data_type
+
+    def with_children(self, children):
+        return NthValue(children[0], self.n, self.ignore_nulls)
+
+
+class _Offset(WindowFunction):
+    """Base of Lag and Lead: the value ``offset`` rows away in the
+    partition (``default`` where there is none)."""
+
+    def __init__(self, child: Expression, offset: int = 1, default=None):
+        self.children = (child,)
+        self.offset = offset
+        self.default = default
+
+    @property
+    def data_type(self):
+        return self.children[0].data_type
+
+    def with_children(self, children):
+        return type(self)(children[0], self.offset, self.default)
+
+
+class Lag(_Offset):
+    """The value ``offset`` rows before."""
+
+
+class Lead(_Offset):
+    """The value ``offset`` rows after."""
+
+
 #: the group limit's name of each ranking function
 RANK_KINDS = {RowNumber: "rownumber", Rank: "rank", DenseRank: "denserank"}
 
@@ -127,9 +180,29 @@ class WindowExpression(Expression):
     def data_type(self):
         return self.function.data_type
 
+    def key(self):
+        """The function, the partition keys, the orders and the resolved
+        frame: two window columns with equal keys compute the same
+        values."""
+        return ("winexpr", self.function.key(),
+                tuple(p.key() for p in self.spec.partition_exprs),
+                tuple((o.expr.key(), o.ascending, o.resolved_nulls_first())
+                      for o in self.spec.orders),
+                self.spec.resolved_frame())
+
     def bind(self, schema):
+        from spark_rapids_tpu_torch.ops import aggregates as agg
         bound = [c.bind(schema) for c in self.function.children]
         fn = self.function.with_children(bound) if bound else self.function
+        if isinstance(fn, (agg.Average, agg.StddevPop, agg.StddevSamp,
+                           agg.VariancePop, agg.VarianceSamp)) and \
+                fn.child is not None and \
+                isinstance(fn.child.data_type, T.DecimalType):
+            # a DOUBLE moment over unscaled decimal values would come out
+            # in unscaled units: the child is cast to DOUBLE here, once,
+            # for every frame and route
+            from spark_rapids_tpu_torch.ops.cast import Cast
+            fn = type(fn)(Cast(fn.child, T.DOUBLE))
         spec = WindowSpec(
             [p.bind(schema) for p in self.spec.partition_exprs],
             [SortOrder(o.expr.bind(schema), o.ascending, o.nulls_first)
@@ -148,3 +221,13 @@ def rank() -> Rank:
 
 def dense_rank() -> DenseRank:
     return DenseRank()
+
+
+def lag(e, offset: int = 1, default=None) -> Lag:
+    from spark_rapids_tpu_torch.ops.expr import col
+    return Lag(col(e) if isinstance(e, str) else e, offset, default)
+
+
+def lead(e, offset: int = 1, default=None) -> Lead:
+    from spark_rapids_tpu_torch.ops.expr import col
+    return Lead(col(e) if isinstance(e, str) else e, offset, default)

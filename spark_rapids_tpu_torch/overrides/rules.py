@@ -34,7 +34,6 @@ from spark_rapids_tpu_torch.execs.broadcast import (
 )
 from spark_rapids_tpu_torch.execs.fuse import peel_input_chain
 from spark_rapids_tpu_torch.execs.join import TpuJoinExec
-from spark_rapids_tpu_torch.execs import sort as xsort
 from spark_rapids_tpu_torch.execs.sort import (
     TpuSortExec,
     TpuTakeOrderedAndProjectExec,
@@ -52,7 +51,7 @@ def _tag(node: P.PlanNode, conf: C.RapidsConf) -> None:
     elif isinstance(node, P.Join):
         _tag_join(node, conf)
     elif isinstance(node, P.WindowNode):
-        _tag_window(node)
+        _tag_window(node, conf)
     elif isinstance(node, P.Exchange):
         _tag_exchange(node)
     elif not isinstance(node, (P.LocalScan, P.Project, P.Filter, P.Sort,
@@ -98,29 +97,59 @@ def _tag_join(node: P.Join, conf: C.RapidsConf) -> None:
             f"non-equi condition on equi {jt} join is not supported")
 
 
-def _tag_window(node: P.WindowNode) -> None:
-    from spark_rapids_tpu_torch.execs.window import unsupported_reasons
-    reasons = [f"window {name}: {r}" for name, w in node.window_cols
-               for r in unsupported_reasons(w)]
+def _tag_window(node: P.WindowNode, conf: C.RapidsConf) -> None:
+    """The reference's window tag: the frame bound from the conf, the
+    wide-float gate and a DECIMAL128 input; where it falls back to the
+    CPU, the port raises with its reason."""
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.execs.window import device_window_supported
+    vfa = conf.get_entry(C.VARIABLE_FLOAT_AGG)
+    bound = conf.get_entry(C.WINDOW_ROWS_FRAME_MAX_BOUND)
+    reasons = []
+    for name, w in node.window_cols:
+        ok, reason = device_window_supported(
+            w, variable_float_agg=vfa, rows_frame_max_bound=bound)
+        if not ok:
+            reasons.append(f"window {name}: {reason}")
+            continue
+        if any(T.is_dec128(c.data_type) for c in w.function.children):
+            reasons.append(f"window {name} over a decimal(>18) input is "
+                           "not supported")
     if reasons:
         raise NotImplementedError("; ".join(reasons))
 
 
-def _convert_window(node: P.WindowNode, child: TpuExec) -> TpuExec:
-    """The reference's batched window (every spec over the same partition
-    keys) over a one-batch input. Its other branches are not ported."""
-    from spark_rapids_tpu_torch.execs.window import TpuWindowExec
+def _convert_window(node: P.WindowNode, child: TpuExec,
+                    conf: C.RapidsConf) -> TpuExec:
+    """The reference's five routes (execs/window.py's docstring): the
+    bounded-frame stream, the two-pass window, keyed batching when every
+    column shares its partition keys, the running stream of a
+    partition-less running window, and the one-batch window for the
+    rest."""
+    from spark_rapids_tpu_torch.execs.window import (
+        TpuKeyedBatchExec,
+        TpuWindowExec,
+    )
+    target = conf.get_entry(C.WINDOW_STREAM_TARGET_ROWS)
+    probe = TpuWindowExec(child, node.window_cols, stream_target_rows=target)
+    if probe._bounded_ctx() is not None or probe._two_pass_able():
+        # each input batch becomes a sorted host run, or the aggregate
+        # and the join read the batches: no coalesce
+        return probe
     specs = [w.spec for _, w in node.window_cols]
     keys0 = [p.key() for p in specs[0].partition_exprs]
-    if not keys0:
-        raise NotImplementedError(
-            "a window without PARTITION BY (the reference's streamed "
-            "running window or coalesced single-batch window) is not ported")
-    if any([p.key() for p in s.partition_exprs] != keys0 for s in specs):
-        raise NotImplementedError(
-            "window columns over different partition keys (the reference's "
-            "coalesced single-batch window) are not ported")
-    return TpuWindowExec(child, node.window_cols)
+    if keys0 and all([p.key() for p in s.partition_exprs] == keys0
+                     for s in specs):
+        return TpuWindowExec(
+            TpuKeyedBatchExec(child, specs[0].partition_exprs),
+            node.window_cols, per_batch=True)
+    if probe._streamable():
+        coalesced = TpuCoalesceExec(child,
+                                    target_bytes=xbasic.BATCH_SIZE_BYTES)
+    else:
+        coalesced = TpuCoalesceExec(child, require_single=True)
+    return TpuWindowExec(coalesced, node.window_cols,
+                         stream_target_rows=target)
 
 
 def _tag_exchange(node: P.Exchange) -> None:
@@ -299,7 +328,7 @@ def _convert(node: P.PlanNode, conf: C.RapidsConf, device) -> TpuExec:
         return TpuTakeOrderedAndProjectExec(children[0], node.orders,
                                             node.limit)
     if isinstance(node, P.WindowNode):
-        return _convert_window(node, children[0])
+        return _convert_window(node, children[0], conf)
     if isinstance(node, P.WindowGroupLimit):
         from spark_rapids_tpu_torch.execs.window import (
             TpuWindowGroupLimitExec,
@@ -314,11 +343,11 @@ def _convert(node: P.PlanNode, conf: C.RapidsConf, device) -> TpuExec:
         return TpuShuffleExchangeExec(children[0], node.partitioning,
                                       node.num_partitions, node.keys)
     # the pre-sort coalesce stops at the out-of-core threshold, as the
-    # reference's (past it, the sort raises)
+    # reference's (past it, the sort merges sorted host runs)
+    threshold = conf.get_entry(C.SORT_OOC_THRESHOLD)
     return TpuSortExec(TpuCoalesceExec(
-        children[0], target_bytes=min(xbasic.BATCH_SIZE_BYTES,
-                                      xsort.OUT_OF_CORE_THRESHOLD_BYTES)),
-        node.orders)
+        children[0], target_bytes=min(xbasic.BATCH_SIZE_BYTES, threshold)),
+        node.orders, ooc_threshold_bytes=threshold)
 
 
 def convert(node: P.PlanNode, conf: C.RapidsConf, device) -> TpuExec:

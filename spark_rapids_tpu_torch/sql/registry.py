@@ -33,7 +33,6 @@ _UNPORTED_BY_MODULE = {
     "ops/nested.py": (
         "struct", "named_struct", "map_keys", "map_values", "map_entries"),
     "ops/json_structs.py": ("to_json",),
-    "ops/window.py": ("percent_rank", "nth_value", "lag", "lead"),
 }
 
 #: builtin function names of the reference whose expressions the port
@@ -193,11 +192,28 @@ def _build_table() -> Dict[str, Builder]:
     reg("rand", lambda seed=None: _misc.Rand(
         0 if seed is None else _lit_value(seed, "rand", "seed")), 0, 1)
 
-    # ranking window functions; aggregates used with OVER come from the
-    # aggregate entries above
+    # window functions (the rank family, offsets); aggregates used with
+    # OVER come from the aggregate entries above
     reg("row_number", _win.RowNumber, 0)
     reg("rank", _win.Rank, 0)
     reg("dense_rank", _win.DenseRank, 0)
+    reg("percent_rank", _win.PercentRank, 0)
+    table["nth_value"] = lambda args: (
+        _need(args, 2, 2, "nth_value") or
+        _win.NthValue(args[0], _lit_value(args[1], "nth_value", "n")))
+
+    def _offset_fn(cls, name):
+        def build(args):
+            _need(args, 1, 3, name)
+            off = (_lit_value(args[1], name, "offset")
+                   if len(args) > 1 else 1)
+            default = (_lit_value(args[2], name, "default")
+                       if len(args) > 2 else None)
+            return cls(args[0], off, default)
+        return build
+
+    table["lag"] = _offset_fn(_win.Lag, "lag")
+    table["lead"] = _offset_fn(_win.Lead, "lead")
     return table
 
 

@@ -376,10 +376,9 @@ def test_sort_segment_aggregate_speculative_shrink(monkeypatch):
 def test_conf_keys_and_unported_shapes(monkeypatch):
     """The slice's conf keys are accepted with the reference's names; an
     attempts value outside [1, 8] raises when read; an outer join with
-    equi keys plus a residual condition, a sort past the out-of-core
-    threshold and an unported operator refuse by name."""
+    equi keys plus a residual condition and an unported operator refuse
+    by name; a sort past the out-of-core threshold merges sorted runs."""
     from spark_rapids_tpu_torch import conf as C
-    from spark_rapids_tpu_torch.execs import sort as xsort
     from spark_rapids_tpu_torch.ops.expr import col
     from spark_rapids_tpu_torch.plan import from_host_table
     from spark_rapids_tpu_torch.plan import nodes as P
@@ -416,10 +415,14 @@ def test_conf_keys_and_unported_shapes(monkeypatch):
         outer.collect_table()
     # three batches of 2,304 device bytes (128-row buckets), each past a
     # 256-byte threshold: the pre-sort coalesce passes them on one by one,
-    # and the sort refuses the second
-    monkeypatch.setattr(xsort, "OUT_OF_CORE_THRESHOLD_BYTES", 256)
-    with pytest.raises(NotImplementedError, match="outOfCoreThresholdBytes"):
-        from_host_table(t, sess, num_batches=3).sort("v").collect_table()
+    # and the sort merges them out of core (it raised before the port had
+    # the sorted-run merge)
+    ooc = TorchSession({"spark.rapids.sql.sort.outOfCoreThresholdBytes":
+                        "256"}, device="cpu")
+    got = from_host_table(t, ooc, num_batches=3).sort(
+        "v", ascending=False).collect()
+    assert [r[1] for r in got] == list(range(9, -1, -1))
+    assert ooc.last_metrics()["sortOutOfCore"] == 1
     # % and, since the DECIMAL128 division kernel, a DECIMAL128 quotient
     # run (decimal(38,6): k / k is 10^6 unscaled, 0 / 0 null); a rounding
     # of a decimal does not

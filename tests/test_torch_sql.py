@@ -223,6 +223,25 @@ CONSTRUCTS = {
     "window group limit": (
         "SELECT * FROM (SELECT id, k, ROW_NUMBER() OVER (PARTITION BY k "
         "ORDER BY id DESC) AS rn FROM t) WHERE rn <= 1", tables_differ),
+    "lag and lead windows": (
+        "SELECT id, LAG(v) OVER (PARTITION BY k ORDER BY id) AS pv, "
+        "LEAD(d, 2) OVER (PARTITION BY k ORDER BY id) AS nd, "
+        "LAG(id, 1, -1) OVER (PARTITION BY k ORDER BY id) AS pid FROM t",
+        tables_differ),
+    "nth_value and percent_rank windows": (
+        "SELECT id, NTH_VALUE(v, 2) OVER (PARTITION BY k ORDER BY id) AS nv,"
+        " PERCENT_RANK() OVER (PARTITION BY k ORDER BY v) AS pr FROM t",
+        tables_differ),
+    "aggregate windows over frames": (
+        "SELECT id, SUM(id) OVER (PARTITION BY k ORDER BY id ROWS BETWEEN "
+        "UNBOUNDED PRECEDING AND CURRENT ROW) AS s, COUNT(*) OVER "
+        "(PARTITION BY k ORDER BY d) AS c, MAX(v) OVER (PARTITION BY k "
+        "ORDER BY id ROWS BETWEEN 1 PRECEDING AND 1 FOLLOWING) AS m, "
+        "AVG(v) OVER (PARTITION BY k) AS a FROM t", tables_differ),
+    "windows without partition by": (
+        "SELECT id, MIN(v) OVER (ORDER BY id) AS m, ROW_NUMBER() OVER "
+        "(ORDER BY v DESC, id) AS rn, RANK() OVER (PARTITION BY k ORDER BY "
+        "id) AS r FROM t", tables_differ),
     "cte": ("WITH big AS (SELECT * FROM t WHERE v > 25), "
             "two AS (SELECT k FROM big) "
             "SELECT k, COUNT(*) AS c FROM two GROUP BY k",
@@ -424,9 +443,6 @@ def test_error_positions(s):
 #: constructs whose plan node or expression the port lacks: lowering
 #: raises NotImplementedError naming the construct
 LOWERING_RAISES = {
-    "unported builtin (window)": (
-        "SELECT LAG(v, 1) OVER (ORDER BY id) AS pv FROM t",
-        "lag \\(spark_rapids_tpu/ops/window"),
     "create view using": (
         "CREATE TEMP VIEW pq USING parquet OPTIONS (path '/data/pq')",
         "file sources"),
@@ -436,9 +452,9 @@ LOWERING_RAISES = {
 
 #: constructs that raised NotImplementedError while lowered until the port
 #: had UNION, the FROM-less SELECT's range, the unary and modular
-#: arithmetic, and the string, date and hash functions with LIKE, RLIKE,
-#: || and DATE +/- INTERVAL: each now lowers as in the reference and
-#: matches its sql() result under the comparator named
+#: arithmetic, the string, date and hash functions with LIKE, RLIKE,
+#: || and DATE +/- INTERVAL, and lag/lead: each now lowers as in the
+#: reference and matches its sql() result under the comparator named
 LOWERED_NOW = {
     "union all": ("SELECT k FROM t UNION ALL SELECT k FROM u", tables_differ),
     "union distinct": ("SELECT k FROM t UNION SELECT k FROM u",
@@ -459,6 +475,8 @@ LOWERED_NOW = {
                                     tables_differ),
     "unported builtin (xxhash64)": ("SELECT xxhash64(id) AS x FROM t",
                                     tables_differ),
+    "unported builtin (window)": (
+        "SELECT LAG(v, 1) OVER (ORDER BY id) AS pv FROM t", tables_differ),
 }
 
 

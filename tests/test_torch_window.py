@@ -224,8 +224,9 @@ def test_filter_on_a_column_beside_another_spec_is_not_limited():
 
 
 def test_non_ranking_sibling_blocks_the_group_limit():
-    """An aggregate window beside the ranked column blocks the rewrite
-    (and is itself not ported: converting the plan raises)."""
+    """An aggregate window beside the ranked column blocks the rewrite;
+    the query then matches the reference (tables_differ: an integer
+    sum)."""
     from spark_rapids_tpu_torch.overrides.rules import (
         _insert_window_group_limits,
     )
@@ -242,8 +243,14 @@ def test_non_ranking_sibling_blocks_the_group_limit():
         tcol("rn") <= tlit(2))
     assert isinstance(_insert_window_group_limits(alone.plan)
                       .children[0].children[0], P.WindowGroupLimit)
-    with pytest.raises(NotImplementedError, match="aggregate window Sum"):
-        out.collect_table()
+    got = _as_reference(out.collect_table())
+    japi = _apis()[0]
+    jdf = japi.frm(japi.as_table(_window_table(50)), japi.session)
+    jw = _spec(japi, ["pi"], [("oi", True, None)])
+    ref = jdf.with_windows(rn=JF.row_number().over(jw),
+                           total=JF.sum("oi").over(jw)).filter(
+        jcol("rn") <= jlit(2)).collect_table()
+    assert tables_differ(got, ref) is None
 
 
 def test_ties_across_the_limit_keep_the_stable_order():
@@ -282,33 +289,36 @@ def test_ties_across_the_limit_keep_the_stable_order():
 
 
 @pytest.mark.parametrize("case, match", [
-    ("no_partition", "without PARTITION BY"),
-    ("mixed_partitions", "different partition keys"),
     ("no_order", "requires an ORDER BY"),
-    ("frame", "explicit window frame"),
-    ("two_batches", "more than one input batch"),
     ("not_a_window", "windowed pandas UDFs"),
+    ("nth_value_ignore_nulls", "IGNORE NULLS"),
+    ("string_default", "string default"),
+    ("range_offsets", "range frames"),
 ])
 def test_unported_windows_raise_naming_themselves(case, match):
+    """What the reference sends to its CPU route raises naming itself.
+    (A window without PARTITION BY, columns over different partition
+    keys, an explicit frame and a second input batch run:
+    ``test_torch_window_functions.py`` and ``test_torch_window_routes.py``
+    hold them against the reference.)"""
     api = _apis()[1]
     arrays = _window_table(50)
-    df = api.frm(api.as_table(arrays), api.session,
-                 num_batches=2 if case == "two_batches" else 1)
+    df = api.frm(api.as_table(arrays), api.session)
     w = _spec(api, ["pi"], [("oi", True, None)])
+    fn = TF.row_number()
     with pytest.raises(NotImplementedError, match=match):
-        if case == "no_partition":
-            w = TW.Window.order_by("oi")
-        elif case == "mixed_partitions":
-            other = _spec(api, ["ps"], [("oi", True, None)])
-            df.with_windows(a=TF.rank().over(w),
-                            b=TF.rank().over(other)).collect_table()
-        elif case == "no_order":
+        if case == "no_order":
             w = TW.Window.partition_by("pi")
-        elif case == "frame":
-            w = w.rows_between(None, 0)
         elif case == "not_a_window":
             df.with_windows(x=tcol("oi"))
-        df.with_windows(r=TF.row_number().over(w)).collect_table()
+        elif case == "nth_value_ignore_nulls":
+            fn = TW.NthValue(tcol("oi"), 2, ignore_nulls=True)
+        elif case == "string_default":
+            fn = TF.lag("os", 1, "none")
+        elif case == "range_offsets":
+            fn = TF.sum("oi")
+            w = w.range_between(-1, 0)
+        df.with_windows(r=fn.over(w)).collect_table()
 
 
 @pytest.mark.parametrize("query, table, columns", [
