@@ -108,10 +108,27 @@ Phases, in order; any failure exits non-zero:
    ``last_metrics()``; with the numbers and checks of phase 7 against
    numpy oracles (f64 sums rtol 1e-9, the wide frame within 1e-9 of its
    mass, everything else exact);
-14. the summary lines: one ``{"kernels": [...]}`` JSON line (the five TPU
+14. the memory runtime (``run_runtime``): the device manager's report
+   (``nvidia-smi``'s card line, ``mem_get_info``, the default budget and
+   scan chunk), with no budget violation, no arbiter spill and no warm
+   query with more host syncs than in the baseline run
+   (``BASELINE_WARM_SYNCS``)
+   over phases 4-13; corpus q3, J1, an ORDER BY of lineitem, W8b and W8c
+   at a quarter of each one's unsqueezed peak accounted bytes (results bit
+   for bit, q3 rtol 1e-9; no violation; peak within the budget; a spill
+   to the host each; the ORDER BY out of core), and the ORDER BY again
+   with a host tier small enough to go to disk; q1, W8a and q1's filter
+   and projection under injected RetryOOM and SplitAndRetryOOM (bit for
+   bit, the counters ``INJECTED_COUNTS``': the filter's ``with_retry``
+   splits its input on the card); q1 through a real CUDA OOM against a spillable ballast
+   (under a watchdog); four threads of q1 on two device slots; the spill
+   D2H and H2D rates of a 2^24-row, 7-column table, pinned and pageable;
+   every kernel launch of the squeezed and injected runs held against its
+   plain version;
+15. the summary lines: one ``{"kernels": [...]}`` JSON line (the five TPU
    kernels and the DECIMAL128 division kernel, CUDA work beyond them;
    launches of the main path: q1's, sparse q3's probes, q8's MIN/MAX, plus
-   every phase-7 to phase-13 query's), the card line, and last
+   every phase-7 to phase-14 query's), the card line, and last
    ``{"ok": true, "device": {...}}``.
 
 Each phase logs its wall time. It needs one CUDA card and exits non-zero
@@ -497,6 +514,12 @@ def no_host_sync():
         yield
     finally:
         torch.cuda.set_sync_debug_mode("default")
+
+
+#: host syncs of each query's counted warm run in phases 5-13 (by the
+#: name its log line carries), for phase 14's comparison with
+#: ``BASELINE_WARM_SYNCS``
+WARM_SYNCS = {}
 
 
 @contextlib.contextmanager
@@ -1540,6 +1563,7 @@ def run_q3_form(what, tables, oracle, conf, expect, profile_dir,
     calls, K.calls = K.calls, None
     sort_trace_end(what, syncs)
     compactions = [args for k, args, _ in calls if k == "gather_compact"]
+    WARM_SYNCS[what] = box["syncs"]
     log(f"  {what}: host syncs in one warm query {box['syncs']} (torch's "
         f"sync debug mode); compactions (capacity, columns, kept): "
         f"{[(c, len(d), int(k.sum())) for d, _, k, c in compactions]}")
@@ -1851,6 +1875,7 @@ def run_case(session, name, build, check, profile_dir, keep=None) -> dict:
     launches = K.launch_counts()
     calls, K.calls = K.calls, None
     sort_trace_end(name, syncs)
+    WARM_SYNCS[name] = box["syncs"]
     log(f"  {name}: host syncs in one warm query {box['syncs']} "
         "(torch's sync debug mode), most by site: " + ", ".join(
             f"{site} {n}" for site, n in box["sites"].most_common(4)))
@@ -3930,6 +3955,30 @@ def _limb_streams(values):
     return hi.to(DEV), lo.to(DEV)
 
 
+def dec128_divide_ops(streams, pow_a: int, pow_b: int) -> float:
+    """32-bit integer operations Knuth's algorithm D needs for these rows
+    (what this run's data needs, not the most it could): a row of
+    A = |a| x pow_a in m + n words over B = |b| x pow_b in n words takes
+    (m + 1) x n multiply-adds, each counted as 2 operations (the multiply
+    and the add), for the quotient's digits, as the kernel's 32-bit
+    words do; invalid rows take none. Word counts from each operand's
+    magnitude in float64 (its bit length to within one bit)."""
+    a_hi, a_lo, b_hi, b_lo, valid = streams
+
+    def bits(hi, lo):
+        lo_u = lo.to(torch.float64) + (lo < 0).to(torch.float64) * 2.0 ** 64
+        mag = hi.to(torch.float64) * 2.0 ** 64 + lo_u
+        mag = torch.where(hi < 0, -mag, mag).clamp(min=1.0)
+        return torch.floor(torch.log2(mag)) + 1
+
+    num = bits(a_hi, a_lo) + math.log2(pow_a)
+    den = bits(b_hi, b_lo) + math.log2(pow_b)
+    n = torch.clamp(torch.ceil(den / 32), min=1)
+    total = torch.maximum(torch.ceil(num / 32), n)
+    ops = 2 * (total - n + 1) * n
+    return float(torch.where(valid, ops, torch.zeros_like(ops)).sum())
+
+
 def check_dec128div(s1_args) -> dict:
     """The DECIMAL128 division kernel bit for bit against its plain version
     on the card, at S1's three launches' operands sampled to 2^20 rows and
@@ -4002,15 +4051,18 @@ def check_dec128div(s1_args) -> dict:
     plain_ms = time_ms(plain, iters=3, warmup=1)
     dec128_divide.launches = before
     # each row reads two (hi, lo) operands and a validity byte and writes
-    # a (hi, lo) result and a validity byte; the operations (a 4-word
-    # numerator over a 2-word divisor: about 200 32-bit integer
-    # operations a row) stay below the bytes' time
+    # a (hi, lo) result and a validity byte; the operations are algorithm
+    # D's multiply-adds at these rows' word counts (dec128_divide_ops);
+    # the bound is the larger of the two times
     nbytes = n * (2 * 16 + 1 + 16 + 1)
-    bnd, by = bound_ms(nbytes, 200 * n, INT32_OPS_PER_S)
+    ops = dec128_divide_ops(streams, rest[0], rest[1])
+    bnd, by = bound_ms(nbytes, ops, INT32_OPS_PER_S)
     log(f"  dec128_divide time at S1's divide ({n} rows, decimal(32,4) / "
         f"decimal(15,2)): kernel {ms:.4f} ms [{ms_b2b:.4f} {BACK_TO_BACK} "
         f"back to back], plain version {plain_ms:.2f} ms, bound "
-        f"{bnd:.4f} ms ({by}), no PyTorch call computes it")
+        f"{bnd:.4f} ms ({by}; bytes {nbytes / HBM_BYTES_PER_S * 1e3:.4f} "
+        f"ms, {ops:.0f} 32-bit operations {ops / INT32_OPS_PER_S * 1e3:.4f}"
+        " ms), no PyTorch call computes it")
     return {"name": "dec128_divide", "max_abs_err": 0.0, "ms": ms_b2b,
             "plain_ms": plain_ms, "bound_ms": bnd, "bound_by": by,
             "library_ms": None}
@@ -4536,6 +4588,577 @@ def run_windows(tables, profile_dir) -> dict:
     return total
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the memory runtime
+# ---------------------------------------------------------------------------
+
+#: host syncs in the counted warm run of each query of phases 5-13 in the
+#: last run of this script before the memory runtime existed (on an
+#: NVIDIA H100 80GB HBM3 at 700.00 W): under the default device budget
+#: the runtime may add none, so no query may take more
+BASELINE_WARM_SYNCS = {
+    'q3 dense': 12, 'q3 sparse': 15, 'q3 sparse, 8 attempts': 13, 'q8': 4,
+    'q2': 4, 'q8 inner': 6, 'q8 inner, sparse keys': 8,
+    'min/max group-by': 12, 'global min/max': 8, 'q1': 14, 'q3': 10, 'q4': 9,
+    'q5': 11, 'q9': 9, 'q10': 7, 'q11': 8, 'q12': 10, 'q13': 9, 'q14': 6,
+    'q15': 9, 'q16': 8, 'q17': 7, 'q18': 14, 'q19': 4, 'q20': 13, 'q22': 10,
+    'q6': 14, 'q7': 10, 'q21': 9, 'q1 SQL': 14, 'q2 SQL': 4, 'q3 SQL': 10,
+    'q4 SQL': 9, 'q5 SQL': 11, 'q6 SQL': 14, 'q7 SQL': 10, 'q8 SQL': 4,
+    'q9 SQL': 9, 'q10 SQL': 7, 'q11 SQL': 8, 'q12 SQL': 10, 'q13 SQL': 9,
+    'q14 SQL': 6, 'q15 SQL': 9, 'q16 SQL': 8, 'q17 SQL': 7, 'q18 SQL': 14,
+    'q19 SQL': 4, 'q20 SQL': 13, 'q21 SQL': 9, 'q22 SQL': 10,
+    'conditional query': 17, 'TPC-H q1 SQL': 22, 'TPC-H q3 dense SQL': 12,
+    'TPC-H q3 sparse SQL': 15, 'J1': 13, 'J2': 13, 'J3': 12, 'J4': 11,
+    'J5': 11, 'J6': 11, 'J7': 9, 'J8': 16, 'J9': 10, 'J10': 7, 'J11': 10,
+    'J12': 12, 'J3 sparse': 12, 'J12 sparse': 12, 'J1 sub-partitioned': 57,
+    'J8 sub-partitioned': 30, 'J7 per-tile partials': 521, 'O1': 22, 'O2': 38,
+    'O3': 12, 'O4a': 11, 'O4b': 5, 'O5': 17, 'O6a': 7, 'O6b': 7, 'O7': 15,
+    'O8a': 8, 'O8b': 8, 'S1': 14, 'S2': 11, 'S3': 16, 'S4': 16, 'S5': 19,
+    'S6a': 21, 'S6b': 7, 'S7': 21, 'S8': 15, 'W1': 11, 'W2': 12, 'W3': 16,
+    'W4': 12, 'W5': 10, 'W6': 13, 'W7': 10, 'W8a': 33, 'W8b': 39, 'W8c': 126,
+    'W8d': 93,
+}
+#: a squeezed budget is the query's unsqueezed peak accounted bytes over
+#: this
+SQUEEZE = 4
+#: the ORDER BY of phase 14's squeezed set (over ``lineitem4`` in
+#: ``W8_BATCHES`` batches; the key is unique, so every route gives one
+#: order)
+ORDER_BY_SQL = ("SELECT * FROM lineitem4 ORDER BY l_shipdate, l_orderkey, "
+                "l_row")
+#: the host tier (``spark.rapids.memory.host.spillStorageSize``) of the
+#: run whose spills must go to disk: the squeezed budget over this
+DISK_RUN_HOST_SHARE = 4
+#: the injections of phase 14 and the queries they run on
+INJECTIONS = ("retry:2", "split:1")
+#: threads and device slots (``spark.rapids.sql.concurrentGpuTasks``) of
+#: the semaphore run
+SEM_THREADS, SEM_SLOTS = 4, 2
+#: the spill-rate table: rows and int64 columns, the pinned pool of its
+#: pooled run, and the runs of each median
+SPILL_RATE_ROWS, SPILL_RATE_COLS = 1 << 24, 7
+SPILL_RATE_POOL = 256 << 20
+SPILL_RATE_RUNS = 5
+
+
+def runtime_counters() -> dict:
+    """The process-wide memory and spill counters."""
+    from spark_rapids_tpu_torch.obs.metrics import scopes_snapshot
+    snap = scopes_snapshot()
+    return {**snap.get("memory", {}), **snap.get("spill", {})}
+
+
+def fresh_device() -> None:
+    """Nothing cached on the card: the scan's device images dropped and
+    torch's free blocks returned, so a run's peak is its own."""
+    import gc
+
+    from spark_rapids_tpu_torch.columnar.table import evict_device_caches
+    evict_device_caches()
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def check_default_budget(session, before: dict) -> None:
+    """14.1: the device manager's report; then phases 4-13 under the
+    default budget: no budget violation, no arbiter spill, and no warm
+    query with more host syncs than in the baseline run."""
+    from spark_rapids_tpu_torch.runtime.memory import MEMORY
+    mgr = session.runtime
+    MEMORY.configure(session.conf)
+    free, total = torch.cuda.mem_get_info(DEV)
+    log(f"  {card_line()}")
+    log(f"  mem_get_info: total {total} B ({total / 2**30:.2f} GiB), free "
+        f"{free} B ({free / 2**30:.2f} GiB)")
+    log(f"  device budget at allocFraction 0.9 less the 640 MiB reserve: "
+        f"{mgr.info.hbm_limit_bytes} B ({mgr.info.hbm_limit_bytes / 2**30:.2f}"
+        f" GiB); the arbiter's budget {MEMORY.budget_bytes()} B, scan chunk "
+        f"{MEMORY.scan_chunk_bytes()} B ({MEMORY.scan_chunk_bytes() / 2**30:.2f}"
+        f" GiB)")
+    if MEMORY.budget_bytes() != mgr.info.hbm_limit_bytes:
+        fail("the arbiter's default budget is not the device manager's")
+    after = runtime_counters()
+    for k in ("budgetViolations", "arbiterSpills"):
+        d = after.get(k, 0) - before.get(k, 0)
+        log(f"  phases 4-13 under the default budget: {k} {d}")
+        if d:
+            fail(f"phases 4-13 counted {d} {k} under the default budget")
+    risen = {n: (c, BASELINE_WARM_SYNCS[n]) for n, c in WARM_SYNCS.items()
+             if n in BASELINE_WARM_SYNCS and c > BASELINE_WARM_SYNCS[n]}
+    fell = {n: (c, BASELINE_WARM_SYNCS[n]) for n, c in WARM_SYNCS.items()
+            if n in BASELINE_WARM_SYNCS and c < BASELINE_WARM_SYNCS[n]}
+    unmatched = sorted(set(WARM_SYNCS) ^ set(BASELINE_WARM_SYNCS))
+    log(f"  host syncs of {len(WARM_SYNCS)} warm queries against the "
+        "baseline's: "
+        f"{len(WARM_SYNCS) - len(risen) - len(fell)} equal, fewer "
+        f"{fell} (now, baseline), not in both runs {unmatched}")
+    if risen:
+        fail(f"warm queries with more host syncs than in the baseline run "
+             f"(now, baseline): {risen}")
+
+
+def counted_run(session, name, build, hold=True):
+    """One run of ``build()``: (result, last_metrics, launches, the run's
+    peak accounted bytes, seconds). With ``hold`` every kernel launch of
+    the run is held against its plain version (``hold_launches``)."""
+    from spark_rapids_tpu_torch import kernels as K
+    from spark_rapids_tpu_torch.runtime.memory import MEMORY
+    K.reset_launch_counts()
+    K.calls = [] if hold else None
+    t0 = time.perf_counter()
+    try:
+        got = build().collect_table()
+        torch.cuda.synchronize()
+    finally:
+        calls, K.calls = K.calls, None
+    dt = time.perf_counter() - t0
+    launches = K.launch_counts()
+    peak = MEMORY.peak_bytes()
+    if hold:
+        hold_launches(name, calls)
+    del calls
+    return got, session.last_metrics(), launches, peak, dt
+
+
+def squeeze_cases(tables, w8):
+    """{name: (session factory over a conf, query over a session, f64
+    rtol, the unique key a result without an order is compared in)} of
+    phase 14's squeezed set: corpus q3, J1, the ORDER BY of lineitem, W8b
+    and W8c."""
+    from spark_rapids_tpu_torch.models.corpus import build_queries
+    from spark_rapids_tpu_torch.plan import from_host_table
+    from spark_rapids_tpu_torch.session import TorchSession
+
+    def over(tabs, conf, batches=1):
+        def make(extra):
+            sess = TorchSession({**conf, **(extra or {})})
+            for n, t in tabs.items():
+                from_host_table(t, sess, num_batches=batches) \
+                    .create_or_replace_temp_view(n)
+            return sess
+        return make
+
+    w8conf = {"spark.rapids.sql.window.streamTargetRows": str(W8_STREAM_ROWS)}
+    corpus = over({}, {})
+    # J1's build (orders) goes through the single-batch coalesce, never a
+    # broadcast, at every scale (at sf 10 it is far above the broadcast
+    # threshold anyway): a broadcast build is one table whatever the budget
+    joins = over({n: tables[n] for n in ("customer", "orders")},
+                 {"spark.rapids.sql.broadcastSizeBytes": "0"})
+    li4 = over({"lineitem4": w8}, w8conf, W8_BATCHES)
+    j1 = join_texts(10.0)["J1"]
+    return {
+        "q3": (corpus, lambda s: build_queries(s, tables)["q3"](), 1e-9,
+               None),
+        "J1": (joins, lambda s: s.sql(j1), 0.0, None),
+        "ORDER BY lineitem": (li4, lambda s: s.sql(ORDER_BY_SQL), 0.0,
+                              None),
+        # W8b has no ORDER BY: its join emits rows by probe batch and, once
+        # the squeezed budget sub-partitions the build, by partition, so
+        # it is compared in l_row order; its partition sums are f64 SUMs
+        # of the two-pass aggregate, and an order whose rows straddle a
+        # chunk boundary adds two partials where it added one run
+        "W8b": (li4, lambda s: s.sql(WINDOW_SQL["W8b"]), 1e-9, "l_row"),
+        "W8c": (li4, lambda s: s.sql(WINDOW_SQL["W8c"]), 0.0, None),
+    }
+
+
+def in_key_order(table, key):
+    """``table``'s rows in the order of its unique column ``key`` (as it
+    is when ``key`` is None)."""
+    from spark_rapids_tpu_torch.columnar import HostColumn, HostTable
+    if key is None:
+        return table
+    order = np.argsort(table.columns[table.names.index(key)].data,
+                       kind="stable")
+    return HostTable(table.names, [HostColumn(c.dtype, c.data[order],
+                                              c.validity[order])
+                                   for c in table.columns])
+
+
+RUNTIME_KEYS = ("spillBytes", "unspills", "scanChunks", "sortOutOfCore",
+                "subPartitions", "budgetRaises", "oomRetries",
+                "splitRetries", "arbiterSpills", "spillDiskCount",
+                "budgetViolations")
+
+
+def runtime_metrics(m: dict) -> dict:
+    return {k: m.get(k, 0) for k in RUNTIME_KEYS}
+
+
+def run_squeezed(tables, w8, totals) -> dict:
+    """14.2: each query of ``squeeze_cases`` unsqueezed, then at a
+    ``SQUEEZE``-th of its unsqueezed peak accounted bytes: the result bit
+    for bit (the f64 sums of q3 and W8b, which add per-chunk partials,
+    rtol 1e-9; W8b, which has no ORDER BY, in l_row order), no budget
+    violation, the peak within the budget, at least one spill to the
+    host, and the ORDER BY
+    out of core; then the ORDER BY once more with a host tier of the
+    budget over ``DISK_RUN_HOST_SHARE``, whose spills go to disk and read
+    back."""
+    out = {}
+    kept = {}
+    for name, (make, build, rtol, key) in squeeze_cases(tables,
+                                                        w8).items():
+        fresh_device()
+        plain_s = make(None)
+        want, pm, _, peak, pdt = counted_run(plain_s, name,
+                                             lambda: build(plain_s), False)
+        budget = peak // SQUEEZE
+        fresh_device()
+        sq = make({"spark.rapids.memory.device.budgetBytes": str(budget)})
+        got, m, launches, sq_peak, dt = counted_run(
+            sq, f"{name} squeezed", lambda: build(sq))
+        same_table(in_key_order(got, key), in_key_order(want, key),
+                   f"{name} squeezed", rtol)
+        for k, v in launches.items():
+            totals[k] = totals.get(k, 0) + v
+        rm = runtime_metrics(m)
+        out[name] = dict(rm, unsqueezed_peak=peak, budget=budget,
+                         peak=sq_peak, ms=round(dt * 1e3, 2),
+                         unsqueezed_ms=round(pdt * 1e3, 2))
+        log(f"  {name}: unsqueezed peak {peak} B ({pdt * 1e3:.1f} ms); at a "
+            f"budget of {budget} B: peak {sq_peak} B, {dt * 1e3:.1f} ms, "
+            f"{rm}; result equals the unsqueezed one "
+            f"({'rtol 1e-9' if rtol else 'bit for bit'}"
+            f"{', in ' + key + ' order' if key else ''})")
+        if rm["budgetViolations"]:
+            fail(f"{name} squeezed: {rm['budgetViolations']} budget "
+                 "violations")
+        if sq_peak > budget:
+            fail(f"{name} squeezed: peak {sq_peak} B over the budget "
+                 f"{budget} B")
+        if rm["spillBytes"] <= 0:
+            fail(f"{name} squeezed: nothing spilled to the host")
+        if name == "ORDER BY lineitem":
+            if pm.get("sortOutOfCore") or rm["sortOutOfCore"] != 1:
+                fail(f"{name}: sortOutOfCore {pm.get('sortOutOfCore')} "
+                     f"unsqueezed, {rm['sortOutOfCore']} squeezed (want "
+                     "none, then 1)")
+            kept = {"make": make, "build": build, "want": want,
+                    "budget": budget}
+    fresh_device()
+    host_tier = kept["budget"] // DISK_RUN_HOST_SHARE
+    sess = kept["make"]({
+        "spark.rapids.memory.device.budgetBytes": str(kept["budget"]),
+        "spark.rapids.memory.host.spillStorageSize": str(host_tier)})
+    got, m, _, peak, dt = counted_run(sess, "ORDER BY lineitem, disk tier",
+                                      lambda: kept["build"](sess), False)
+    same_table(got, kept["want"], "ORDER BY lineitem, disk tier", 0.0)
+    rm = runtime_metrics(m)
+    out["ORDER BY lineitem, disk tier"] = dict(rm, peak=peak,
+                                               ms=round(dt * 1e3, 2))
+    log(f"  ORDER BY lineitem with a {host_tier} B host tier: "
+        f"{rm}, {dt * 1e3:.1f} ms; its disk frames read back bit for bit")
+    if rm["spillDiskCount"] <= 0:
+        fail("the disk-tier run wrote no disk frame")
+    return out
+
+
+def q1_filter_project(session, table):
+    """q1's filter and projection without its aggregate: its first retry
+    site is the filter's ``with_retry``, which can split its input."""
+    from spark_rapids_tpu_torch import types as TT
+    from spark_rapids_tpu_torch.models.tpch import Q1_CUTOFF_DAYS
+    from spark_rapids_tpu_torch.ops.expr import col, lit
+    from spark_rapids_tpu_torch.plan import from_host_table
+    return (from_host_table(table, session)
+            .filter(col("l_shipdate") <= lit(Q1_CUTOFF_DAYS, TT.DATE))
+            .select(col("l_returnflag"), col("l_quantity"),
+                    (col("l_extendedprice") * (lit(1.0) - col("l_discount")))
+                    .alias("disc_price")))
+
+
+#: (oomRetries, splitRetries) each injection must give, by query: q1's and
+#: W8a's first retry sites are ``retry_block``s (the coalesce's and the
+#: exchange's), where an injected split replays as a retry, as in the
+#: reference; the filter's ``with_retry`` splits its input in half
+INJECTED_COUNTS = {
+    "q1": {"retry:2": (2, 0), "split:1": (1, 0)},
+    "W8a": {"retry:2": (2, 0), "split:1": (1, 0)},
+    "q1 filter and projection": {"retry:2": (2, 0), "split:1": (0, 1)},
+}
+
+
+def run_injected(q1_keep, tables, w8, totals) -> dict:
+    """14.3: q1, W8a and q1's filter and projection with
+    ``spark.rapids.sql.test.injectRetryOOM`` at ``INJECTIONS``, each after
+    an uninjected run that fills the scan's device cache (a retry's spill
+    pass evicts it, and a cold scan's landing would be the first retry
+    site): each result bit for bit the uninjected one, and the counters
+    ``INJECTED_COUNTS``'."""
+    from spark_rapids_tpu_torch.models.tpch import q1_dataframe
+    from spark_rapids_tpu_torch.plan import from_host_table
+    from spark_rapids_tpu_torch.session import TorchSession
+    table = q1_keep["tables"][0]
+    w8conf = {"spark.rapids.sql.window.streamTargetRows": str(W8_STREAM_ROWS)}
+
+    def q1_case(conf):
+        s = TorchSession(conf)
+        return s, lambda: q1_dataframe(s, table)
+
+    def fp_case(conf):
+        s = TorchSession(conf)
+        return s, lambda: q1_filter_project(s, table)
+
+    def w8a_case(conf):
+        s = TorchSession({**w8conf, **conf})
+        from_host_table(w8, s, num_batches=W8_BATCHES) \
+            .create_or_replace_temp_view("lineitem4")
+        return s, lambda: s.sql(WINDOW_SQL["W8a"])
+
+    out = {}
+    for name, case in (("q1", q1_case), ("W8a", w8a_case),
+                       ("q1 filter and projection", fp_case)):
+        _, plain = case({})
+        want = plain().collect_table()
+        for inject in INJECTIONS:
+            plain().collect_table()  # the scan's cache filled again
+            s, build = case({"spark.rapids.sql.test.injectRetryOOM": inject})
+            got, m, launches, _, dt = counted_run(
+                s, f"{name} {inject}", build)
+            same_table(got, want, f"{name} {inject}", 0.0)
+            for k, v in launches.items():
+                totals[k] = totals.get(k, 0) + v
+            r, sp = m.get("oomRetries", 0), m.get("splitRetries", 0)
+            out[f"{name} {inject}"] = {"oomRetries": r, "splitRetries": sp,
+                                       "ms": round(dt * 1e3, 2)}
+            log(f"  {name} {inject}: oomRetries {r}, splitRetries {sp}, "
+                f"{dt * 1e3:.1f} ms; result bit for bit the uninjected one")
+            if (r, sp) != INJECTED_COUNTS[name][inject]:
+                fail(f"{name} {inject}: oomRetries {r}, splitRetries {sp}, "
+                     f"want {INJECTED_COUNTS[name][inject]}")
+    return out
+
+
+def run_real_oom(q1_keep) -> dict:
+    """14.4: a ballast SpillableBatch (and an unspillable filler) leave
+    less free memory than q1's working set; q1 must meet a real
+    torch.cuda.OutOfMemoryError, spill the ballast to the host, empty
+    torch's cache and replay, with the uninjected result bit for bit. Runs
+    under a watchdog."""
+    from spark_rapids_tpu_torch import types as TT
+    from spark_rapids_tpu_torch.columnar import DeviceColumn, DeviceTable
+    from spark_rapids_tpu_torch.models.tpch import q1_dataframe
+    from spark_rapids_tpu_torch.runtime.spill import (
+        BufferCatalog,
+        SpillableBatch,
+    )
+    from spark_rapids_tpu_torch.session import TorchSession
+    table = q1_keep["tables"][0]
+    s = TorchSession()
+    want = q1_dataframe(s, table).collect_table()  # the scan cache filled
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    again = q1_dataframe(s, table).collect_table()
+    torch.cuda.synchronize()
+    same_table(again, want, "q1 warm", 0.0)
+    work = torch.cuda.max_memory_allocated() - base
+    # the ballast frees what q1 lacks, and fits the default host tier
+    # (spark.rapids.memory.host.spillStorageSize, 2 GiB), so it spills to
+    # the host and not on to disk
+    ballast_bytes = min(max(work, 256 << 20), 3 << 29)
+    rows = ballast_bytes // 9
+    ballast = SpillableBatch(DeviceTable(
+        ["ballast"], [DeviceColumn(TT.LONG, torch.ones(rows, dtype=torch.int64,
+                                                       device=DEV),
+                                   torch.ones(rows, dtype=torch.bool,
+                                              device=DEV))],
+        rows, rows, DEV), BufferCatalog.get())
+    torch.cuda.empty_cache()
+    # less than q1 needs; with the ballast's bytes, more
+    margin = max(work // 4, work + work // 8 - ballast.device_bytes)
+    filler = None
+    for _ in range(8):  # the device's free count moves a little
+        free, _ = torch.cuda.mem_get_info(DEV)
+        try:
+            filler = torch.empty(max(free - margin, 0), dtype=torch.uint8,
+                                 device=DEV)
+            break
+        except torch.cuda.OutOfMemoryError:
+            torch.cuda.empty_cache()
+            margin += 64 << 20
+    if filler is None:
+        fail("could not allocate the filler of the real-OOM run")
+    log(f"  q1's warm working set {work} B; ballast {ballast.device_bytes} "
+        f"B in the spill catalog, a filler of {filler.numel()} B leaves "
+        f"{torch.cuda.mem_get_info(DEV)[0]} B free")
+    before = runtime_counters()
+    dog = watchdog(300, "q1 under a real CUDA OOM")
+    try:
+        t0 = time.perf_counter()
+        got = q1_dataframe(s, table).collect_table()
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    finally:
+        dog.cancel()
+    m = s.last_metrics()
+    tier = ballast.tier
+    del filler
+    ballast.release()
+    del ballast
+    torch.cuda.empty_cache()
+    retries = m.get("oomRetries", 0)
+    after = runtime_counters()
+    spilled = after.get("spillBytes", 0) - before.get("spillBytes", 0)
+    log(f"  q1 under a real CUDA OOM: oomRetries {retries}, ballast tier "
+        f"{tier}, {spilled} B spilled, {dt * 1e3:.1f} ms; result bit for bit "
+        "the unsqueezed one and phase 4's")
+    same_table(got, want, "q1 after a real CUDA OOM", 0.0)
+    same_table(got, q1_keep["result"], "q1 after a real CUDA OOM (phase 4)",
+               0.0)
+    if retries < 1 or tier != "HOST":
+        fail(f"q1 under a real CUDA OOM: oomRetries {retries}, ballast "
+             f"{tier}")
+    return {"oomRetries": retries, "ballast_tier": tier,
+            "spill_bytes": spilled, "ms": round(dt * 1e3, 2),
+            "working_set": work}
+
+
+def run_semaphore(q1_keep) -> dict:
+    """14.5: ``SEM_THREADS`` threads run q1 at once on one session with
+    ``SEM_SLOTS`` device slots: never more holders than slots, every
+    result bit for bit the single-thread one."""
+    from spark_rapids_tpu_torch.models.tpch import q1_dataframe
+    from spark_rapids_tpu_torch.obs.metrics import metric_scope
+    from spark_rapids_tpu_torch.runtime.semaphore import TpuSemaphore
+    from spark_rapids_tpu_torch.session import TorchSession
+    table = q1_keep["tables"][0]
+    s = TorchSession({"spark.rapids.sql.concurrentGpuTasks": str(SEM_SLOTS)})
+    want = q1_dataframe(s, table).collect_table()
+    sem = TpuSemaphore.current()
+    sem.reset_peak()
+    scope = metric_scope("semaphore")
+    w0, a0 = scope.get("acquireWaitTime", 0.0), scope.get("acquires", 0)
+    got, errors = [None] * SEM_THREADS, []
+
+    def run(i):
+        try:
+            got[i] = q1_dataframe(s, table).collect_table()
+            torch.cuda.synchronize()
+        except Exception as e:  # reported below
+            errors.append(repr(e))
+
+    threads = [threading.Thread(target=run, args=(i,))
+               for i in range(SEM_THREADS)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    dt = time.perf_counter() - t0
+    if errors:
+        fail(f"semaphore run: {errors}")
+    for i, g in enumerate(got):
+        same_table(g, want, f"q1 thread {i}", 0.0)
+    wait = scope.get("acquireWaitTime", 0.0) - w0
+    acquires = scope.get("acquires", 0) - a0
+    log(f"  {SEM_THREADS} threads x q1 at concurrentGpuTasks={SEM_SLOTS}: "
+        f"most holders at once {sem.peak_holders}, acquires {acquires}, "
+        f"acquireWaitTime {wait:.4f} s, {dt * 1e3:.1f} ms in all; every "
+        "result bit for bit the single-thread one")
+    if sem.peak_holders > SEM_SLOTS or sem.max_tasks != SEM_SLOTS:
+        fail(f"semaphore: {sem.peak_holders} holders over {SEM_SLOTS} slots")
+    return {"peak_holders": sem.peak_holders, "acquires": acquires,
+            "acquireWaitTime_s": wait, "ms": round(dt * 1e3, 2)}
+
+
+def spill_rates() -> dict:
+    """14.6: D2H (spill) and H2D (unspill) GB/s of a
+    ``SPILL_RATE_ROWS`` x ``SPILL_RATE_COLS`` int64 table through the
+    pinned pool (``SPILL_RATE_POOL``) and pageable (pool 0), medians of
+    ``SPILL_RATE_RUNS``; each round trip bit for bit."""
+    from spark_rapids_tpu_torch import types as TT
+    from spark_rapids_tpu_torch.columnar import DeviceColumn, DeviceTable
+    from spark_rapids_tpu_torch.runtime.spill import (
+        BufferCatalog,
+        SpillableBatch,
+    )
+    from spark_rapids_tpu_torch.session import TorchSession
+    n = SPILL_RATE_ROWS
+    base = torch.arange(n, dtype=torch.int64, device=DEV)
+    cols = [DeviceColumn(TT.LONG, base * (3 + 2 * i) + i,
+                         (base % (i + 2)) != 0)
+            for i in range(SPILL_RATE_COLS)]
+    keep = [(c.data.clone(), c.validity.clone()) for c in cols]
+    table = DeviceTable([f"c{i}" for i in range(SPILL_RATE_COLS)], cols, n,
+                        n, DEV)
+    nbytes = table.device_nbytes()
+    del cols, base
+    sb = SpillableBatch(table, BufferCatalog.get())
+    del table
+    out = {"bytes": nbytes}
+    from spark_rapids_tpu_torch.runtime.host_alloc import PinnedMemoryPool
+    for form, size in (("pinned", SPILL_RATE_POOL), ("pageable", 0)):
+        TorchSession({"spark.rapids.memory.pinnedPool.size":
+                      str(size)}).runtime  # noqa: B018 (starts the pool)
+        pool = PinnedMemoryPool.get()
+        if (pool is None) != (size == 0):
+            fail(f"pinnedPool.size {size}: pool {pool}")
+        d2h, h2d = [], []
+        for _ in range(SPILL_RATE_RUNS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            sb.spill_to_host()
+            d2h.append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            back = sb.get()
+            torch.cuda.synchronize()
+            h2d.append(time.perf_counter() - t0)
+            for c, (d, v) in zip(back.columns, keep):
+                if not (torch.equal(c.data, d) and torch.equal(c.validity, v)):
+                    fail(f"spill round trip ({form}) changed the bits")
+            del back
+        if pool is not None and not pool.hits:
+            fail("the pinned run's copies did not go through the pool")
+        out[form] = {
+            "d2h_gb_s": round(nbytes / statistics.median(d2h) / 1e9, 3),
+            "h2d_gb_s": round(nbytes / statistics.median(h2d) / 1e9, 3),
+            "d2h_ms": round(statistics.median(d2h) * 1e3, 2),
+            "h2d_ms": round(statistics.median(h2d) * 1e3, 2)}
+        log(f"  spill of {n} rows x {SPILL_RATE_COLS} int64 columns "
+            f"({nbytes} B), {form}: D2H {out[form]['d2h_gb_s']} GB/s "
+            f"({out[form]['d2h_ms']} ms), H2D {out[form]['h2d_gb_s']} GB/s "
+            f"({out[form]['h2d_ms']} ms), medians of {SPILL_RATE_RUNS} "
+            f"({card_line()}); round trips bit for bit")
+    sb.release()
+    TorchSession().runtime  # noqa: B018 (the default pool again)
+    return out
+
+
+def run_runtime(tables, q1_keep, before: dict) -> dict:
+    """Phase 14: the memory runtime (14.1-14.6). Returns every kernel's
+    launches over its counted runs."""
+    from spark_rapids_tpu_torch.session import TorchSession
+    totals, summary = {}, {}
+    t0 = time.perf_counter()
+    check_default_budget(TorchSession(), before)
+    log(f"  14.1 ran {time.perf_counter() - t0:.1f} s")
+    w8 = lineitem4(tables)
+    t0 = time.perf_counter()
+    summary["squeezed"] = run_squeezed(tables, w8, totals)
+    log(f"  14.2 ran {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    summary["injected"] = run_injected(q1_keep, tables, w8, totals)
+    log(f"  14.3 ran {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    fresh_device()
+    summary["real_oom"] = run_real_oom(q1_keep)
+    log(f"  14.4 ran {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    summary["semaphore"] = run_semaphore(q1_keep)
+    log(f"  14.5 ran {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    fresh_device()
+    summary["spill_rates"] = spill_rates()
+    log(f"  14.6 ran {time.perf_counter() - t0:.1f} s")
+    log("  phase-14 summary: " + json.dumps(summary))
+    return totals
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rows", type=int, default=6_001_215,
@@ -4596,6 +5219,9 @@ def main(argv=None) -> int:
 
     #: what phases 4-8 keep of each DSL form for phase 9's SQL forms
     dsl = {}
+    #: the memory and spill counters before phase 4 (phase 14 reads the
+    #: change over phases 4-13)
+    counters_before = runtime_counters()
     t_phase = time.perf_counter()
     log("phase 4: TPC-H q1 through TorchSession")
     launches = run_q1(args.rows, args.profile, dsl)
@@ -4638,6 +5264,7 @@ def main(argv=None) -> int:
         "query, Q1_SQL and Q3_SQL through TorchSession.sql")
     for k, v in run_sql(tables, dsl, args.profile).items():
         launches[k] += v
+    q1_keep = dsl["TPC-H q1"]
     del dsl
     log(f"  phase 9 ran {time.perf_counter() - t_phase:.1f} s")
 
@@ -4673,7 +5300,15 @@ def main(argv=None) -> int:
         launches[k] = launches.get(k, 0) + v
     log(f"  phase 13 ran {time.perf_counter() - t_phase:.1f} s")
 
-    log("phase 14: summary")
+    t_phase = time.perf_counter()
+    log("phase 14: the memory runtime (the device manager's report, "
+        "squeezed budgets, injected and real OOMs, the semaphore, spill "
+        "rates)")
+    for k, v in run_runtime(tables, q1_keep, counters_before).items():
+        launches[k] = launches.get(k, 0) + v
+    log(f"  phase 14 ran {time.perf_counter() - t_phase:.1f} s")
+
+    log("phase 15: summary")
     log("  dec128_divide is CUDA work beyond the five TPU kernels: the "
         "reference divides DECIMAL128 values on its host")
     for r in rows:

@@ -146,7 +146,7 @@ class HostColumn:
     an object array of str (None allowed at invalid slots); everything
     else holds the Spark internal representation (see types.py)."""
 
-    __slots__ = ("dtype", "data", "validity", "_cache")
+    __slots__ = ("dtype", "data", "validity", "_cache", "__weakref__")
 
     def __init__(self, dtype: T.DataType, data: np.ndarray,
                  validity: Optional[np.ndarray] = None):
@@ -233,7 +233,7 @@ class DeviceColumn:
     """
 
     __slots__ = ("dtype", "data", "validity", "dictionary", "dict_sorted",
-                 "domain")
+                 "domain", "storages", "__weakref__")
 
     def __init__(self, dtype: T.DataType, data: torch.Tensor,
                  validity: torch.Tensor,
@@ -246,14 +246,41 @@ class DeviceColumn:
         self.dictionary = dictionary
         self.dict_sorted = dict_sorted
         self.domain = domain
+        #: the memory ledger's (storage key, bytes) of ``data`` and
+        #: ``validity``, filled on first use (runtime/memory.py)
+        self.storages = None
 
     @property
     def capacity(self) -> int:
         return int(self.validity.shape[0])
 
+    def device_nbytes(self) -> int:
+        """Bytes of the data and validity tensors (their element counts,
+        tensor metadata only: no device work)."""
+        return self.data.nbytes + self.validity.nbytes
+
     @staticmethod
     def from_host(host: HostColumn, capacity: int,
                   device: torch.device) -> "DeviceColumn":
+        """``host`` on ``device`` at ``capacity`` rows: a landing, so it
+        reserves its estimated bytes with the memory arbiter first (which
+        may spill, or raise RetryOOM), then uploads and accounts the
+        column (runtime/memory.py)."""
+        from spark_rapids_tpu_torch.runtime.memory import (
+            MEMORY,
+            _device_row_bytes,
+        )
+        res = MEMORY.reserve(_device_row_bytes(host.dtype) * capacity,
+                             label="from_host")
+        try:
+            return MEMORY.account(
+                DeviceColumn._upload(host, capacity, device), res)
+        finally:
+            res.release()
+
+    @staticmethod
+    def _upload(host: HostColumn, capacity: int,
+                device: torch.device) -> "DeviceColumn":
         n = len(host)
         if capacity < n:
             raise ColumnarProcessingError(f"capacity {capacity} < rows {n}")
@@ -310,6 +337,13 @@ class DeviceColumn:
         return DeviceColumn(self.dtype, data, validity, self.dictionary,
                             self.dict_sorted, self.domain)
 
-    def sliced_rows(self, k: int) -> "DeviceColumn":
-        """The first ``k`` slots (a smaller capacity bucket)."""
+    def sliced_rows(self, k: int, copy: bool = False) -> "DeviceColumn":
+        """The first ``k`` slots (a smaller capacity bucket): views of this
+        column's buffers, or with ``copy`` buffers of their own, so that a
+        table kept for long (a spillable partial, a build partition) does
+        not hold the whole larger buffer alive, and accounted
+        (runtime/memory.py), for a few rows."""
+        if copy:
+            return self.with_arrays(self.data[:k].clone(),
+                                    self.validity[:k].clone())
         return self.with_arrays(self.data[:k], self.validity[:k])

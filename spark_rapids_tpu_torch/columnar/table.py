@@ -12,6 +12,7 @@ anyway merges them back into one batch (``merge_split_views``).
 
 from __future__ import annotations
 
+import weakref
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -71,7 +72,7 @@ class DeviceTable:
     ``num_rows`` reads it on the host (a sync for a device count)."""
 
     __slots__ = ("names", "columns", "nrows_dev", "_nrows_host", "capacity",
-                 "live", "device", "split_group")
+                 "live", "device", "split_group", "__weakref__")
 
     def __init__(self, names: Sequence[str], columns: Sequence[DeviceColumn],
                  nrows, capacity: int, device: torch.device, live=None):
@@ -101,6 +102,13 @@ class DeviceTable:
             self._nrows_host = int(self.nrows_dev.item())
         return self._nrows_host
 
+    def device_nbytes(self) -> int:
+        """Bytes of the columns' data and validity tensors, from tensor
+        metadata (no device work): the size the sort's out-of-core
+        threshold, the join's sub-partitioning and the coalesce's target
+        compare."""
+        return sum(c.device_nbytes() for c in self.columns)
+
     def row_mask(self) -> torch.Tensor:
         """Bool mask of live rows (no host sync)."""
         if self.live is not None:
@@ -122,16 +130,17 @@ class DeviceTable:
         out._nrows_host = self._nrows_host
         return out
 
-    def shrink(self) -> "DeviceTable":
+    def shrink(self, copy: bool = False) -> "DeviceTable":
         """Re-bucket to the smallest capacity holding the live rows (reads
-        the row count on the host)."""
+        the row count on the host); ``copy`` as in
+        ``DeviceColumn.sliced_rows``."""
         if self.live is not None:
-            return self.compacted().shrink()
+            return self.compacted().shrink(copy)
         n = self.num_rows
         k = bucket_for(max(n, 1))
         if k >= self.capacity:
             return self
-        return DeviceTable(self.names, [c.sliced_rows(k)
+        return DeviceTable(self.names, [c.sliced_rows(k, copy)
                                         for c in self.columns], n, k,
                            self.device)
 
@@ -167,11 +176,43 @@ def concat_host(tables: Sequence[HostTable]) -> HostTable:
 
 
 def upload_host_table(host: HostTable, device) -> DeviceTable:
-    """``host`` on ``device`` at its rows' capacity bucket."""
+    """``host`` on ``device`` at its rows' capacity bucket. Each column's
+    landing reserves and accounts through the memory arbiter
+    (``DeviceColumn.from_host``); the table is accounted over the same
+    storages, so its bytes count once."""
+    from spark_rapids_tpu_torch.runtime.memory import MEMORY
     n = host.num_rows
     cap = bucket_for(max(n, 1))
-    return DeviceTable(host.names, [DeviceColumn.from_host(c, cap, device)
-                                    for c in host.columns], n, cap, device)
+    return MEMORY.account(DeviceTable(
+        host.names, [DeviceColumn.from_host(c, cap, device)
+                     for c in host.columns], n, cap, device))
+
+
+#: host columns that hold uploaded device images in their ``_cache``
+#: (the scan's device cache, execs/basic.TpuScanExec), weakly
+_DEVICE_CACHED: "weakref.WeakSet" = weakref.WeakSet()
+
+
+def register_device_cache(host_column: HostColumn) -> None:
+    """Note that ``host_column._cache`` holds a device image, so that
+    :func:`evict_device_caches` can drop it under memory pressure."""
+    _DEVICE_CACHED.add(host_column)
+
+
+def evict_device_caches() -> int:
+    """Drop every cached device image of the scan (the lowest spill
+    priority: it re-uploads from its host column). Each image's bytes
+    return to the memory arbiter when the last table using it dies.
+    Returns the images dropped."""
+    n = 0
+    for hc in list(_DEVICE_CACHED):
+        keys = [k for k in hc._cache
+                if isinstance(k, tuple) and k and k[0] == "device"]
+        for k in keys:
+            hc._cache.pop(k, None)
+        n += len(keys)
+        _DEVICE_CACHED.discard(hc)
+    return n
 
 
 def empty_host_table(schema) -> HostTable:
@@ -206,17 +247,22 @@ def union_views(a: DeviceTable, b: DeviceTable) -> DeviceTable:
 def merge_split_views(batches):
     """Generator: mask-union consecutive views of one split. For consumers
     that re-group every row anyway (the aggregate), a repartition's k
-    per-partition views collapse back into ONE masked batch."""
-    cur = None
+    per-partition views collapse back into ONE masked batch. A batch of
+    no split passes at once: holding it while the next one is made would
+    keep two batches on the device."""
+    cur = []  # the views being merged: at most one table, popped to yield
     for b in batches:
-        if cur is not None and mergeable_views(cur, b):
-            cur = union_views(cur, b)
-        else:
-            if cur is not None:
-                yield cur
-            cur = b
-    if cur is not None:
-        yield cur
+        if cur and mergeable_views(cur[0], b):
+            cur[0] = union_views(cur[0], b)
+            continue
+        if cur:
+            yield cur.pop()
+        cur.append(b)
+        del b
+        if cur[0].split_group is None:
+            yield cur.pop()
+    if cur:
+        yield cur.pop()
 
 
 def _union_domain(cols: Sequence[DeviceColumn]):

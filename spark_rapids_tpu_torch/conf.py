@@ -92,9 +92,9 @@ JOIN_SUBPARTITION_BYTES = _conf(
     "spark.rapids.sql.join.subPartition.targetBytes", 1 << 30,
     "Build sides larger than this sub-partition by Spark-exact key hash "
     "into ceil(size/target) buckets; probe batches split the same way and "
-    "bucket pairs join independently. The reference also caps it by its "
-    "memory manager's scan chunk; the port, which has no memory manager, "
-    "uses this value alone. 0 disables.", int)
+    "bucket pairs join independently. Capped by the memory arbiter's scan "
+    "chunk (runtime/memory.py: min(this, scan_chunk_bytes())). 0 "
+    "disables.", int)
 
 JOIN_MAX_SUBPARTITIONS = _conf(
     "spark.rapids.sql.join.maxSubPartitions", 64,
@@ -125,9 +125,76 @@ SORT_OOC_THRESHOLD = _conf(
     "Multi-batch sorts whose input exceeds this many device bytes merge "
     "out of core: each batch sorts on the device and moves to a host run, "
     "sampled first-key bounds split the key space into ranges, and each "
-    "range uploads and sorts on its own. The reference also caps it by "
-    "its memory manager's scan chunk; the port, which has no memory "
-    "manager, uses this value alone.", int)
+    "range uploads and sorts on its own. Capped by the memory arbiter's "
+    "scan chunk (runtime/memory.py: min(this, scan_chunk_bytes())).", int)
+
+
+# -- the memory runtime (runtime/): the reference's keys and defaults ------
+
+CONCURRENT_GPU_TASKS = _conf(
+    "spark.rapids.sql.concurrentGpuTasks", 2,
+    "Number of tasks that may hold the device semaphore concurrently "
+    "(runtime/semaphore.py; reference: GpuSemaphore).", int)
+
+HBM_POOL_FRACTION = _conf(
+    "spark.rapids.memory.gpu.allocFraction", 0.9,
+    "Fraction of the card's memory (torch.cuda.mem_get_info's total) the "
+    "engine may use: the device budget is total x fraction less the "
+    "reserve.", float)
+
+HBM_RESERVE_BYTES = _conf(
+    "spark.rapids.memory.gpu.reserve", 640 << 20,
+    "Device memory held back from the budget for kernel workspaces and "
+    "the caching allocator's fragmentation.", int)
+
+HOST_SPILL_STORAGE_SIZE = _conf(
+    "spark.rapids.memory.host.spillStorageSize", 1 << 31,
+    "Bytes of host memory used for spilled device buffers before disk.",
+    int)
+
+PINNED_POOL_SIZE = _conf(
+    "spark.rapids.memory.pinnedPool.size", 0,
+    "Page-locked host staging pool for device-to-host spill copies "
+    "(0 = unpooled: pageable copies).", int)
+
+HOST_MEMORY_LIMIT = _conf(
+    "spark.rapids.memory.host.limit", 4 << 30,
+    "Host-memory arbiter budget for engine host buffers: here the spill "
+    "catalog's host copies. Exhaustion spills the host tier to disk, "
+    "then blocks, then raises CpuRetryOOM (runtime/host_alloc.py; "
+    "reference: HostAlloc).", int)
+
+RETRY_OOM_MAX_RETRIES = _conf(
+    "spark.rapids.memory.gpu.oomMaxRetries", 2,
+    "Synchronous-spill retries before escalating to split-and-retry.",
+    int)
+
+DEVICE_BUDGET_BYTES = _conf(
+    "spark.rapids.memory.device.budgetBytes", 0,
+    "Hard device-memory budget the memory arbiter (runtime/memory.py) "
+    "enforces on every device landing: a reservation that would exceed "
+    "it synchronously spills idle BufferCatalog entries and, when "
+    "spilling cannot make room, raises RetryOOM into the retry framework "
+    "(spill-replay, then split-and-retry). 0 = the device manager's "
+    "budget (allocFraction and reserve applied).", int)
+
+DEVICE_SCAN_CHUNK_FRACTION = _conf(
+    "spark.rapids.memory.device.scanChunkFraction", 0.25,
+    "Largest share of the device budget one scan batch may occupy: a host "
+    "batch whose estimated device bytes exceed budgetBytes * fraction "
+    "lands as several bounded partitions (chunked out-of-core scan).",
+    float)
+
+DEVICE_ORDINAL = _conf(
+    "spark.rapids.tpu.deviceOrdinal", -1,
+    "CUDA device the device manager picks: -1 = the current CUDA device; "
+    "an explicit ordinal must be below torch.cuda.device_count().", int)
+
+TEST_INJECT_RETRY_OOM = _conf(
+    "spark.rapids.sql.test.injectRetryOOM", "",
+    "Test-only: 'retry[:N]' or 'split[:N]' arms N injected RetryOOM or "
+    "SplitAndRetryOOM throws at the query's next retry blocks "
+    "(reference: RmmSpark.forceRetryOOM).", str)
 
 
 class RapidsConf:

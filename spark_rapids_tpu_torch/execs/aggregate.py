@@ -89,7 +89,12 @@ from spark_rapids_tpu_torch.columnar import (
     DeviceTable,
     bucket_for,
 )
-from spark_rapids_tpu_torch.execs.base import TpuExec
+from spark_rapids_tpu_torch.execs.base import (
+    TpuExec,
+    first_two,
+    prepend,
+    take,
+)
 from spark_rapids_tpu_torch.ops import aggregates as agg
 from spark_rapids_tpu_torch.ops import decimal as dec
 from spark_rapids_tpu_torch.ops.expr import (
@@ -234,35 +239,54 @@ class TpuHashAggregateExec(TpuExec):
         return out
 
     def execute(self):
-        from itertools import chain
-
         from spark_rapids_tpu_torch.columnar.table import (
             concat_device,
             merge_split_views,
         )
         from spark_rapids_tpu_torch.ops.expr import bind, compile_project
+        from spark_rapids_tpu_torch.runtime.retry import retry_block
+        from spark_rapids_tpu_torch.runtime.spill import (
+            BufferCatalog,
+            SpillableBatch,
+        )
         # the aggregate re-groups every row: a repartition's views of one
         # split mask-union back into one batch (no data moves)
         it = merge_split_views(self.children[0].execute_masked())
-        first = next(it, None)
-        if first is None:
+        items = first_two(it)
+        if not items:
             return
-        second = next(it, None)
-        if second is None:
-            yield self._aggregate(first)
+        if len(items) == 1:
+            first = take(items.pop())
+            out = [retry_block(lambda: self._aggregate(first))]
+            del first  # the input is not kept while the output is used
+            yield out.pop()
             return
         plan = self._merge_plan()
         partial = self._stage(self.grouping, plan.partial_specs,
                               self.filters)
+        catalog = BufferCatalog.get()
         partials = []
-        for batch in chain([first, second], it):
-            # shrink each partial to its groups' bucket before it buffers
-            # (one host read of its row count): unshrunk, N partials would
-            # concatenate into an N-fold input-sized table
-            partials.append(partial._aggregate(batch).shrink())
-            self.add_metric("partialAggBatches", 1)
-        merge = self._stage(plan.merge_grouping, plan.merge_specs, [])
-        mt = merge._aggregate(concat_device(partials))
+        batches = prepend(items, it)
+        try:
+            for batch in batches:
+                batch = take(batch)
+                # shrink each partial to its groups' bucket before it
+                # buffers (one host read of its row count): unshrunk, N
+                # partials would concatenate into an N-fold input-sized
+                # table; the partials are spillable while they buffer,
+                # each in buffers of its own
+                pt = retry_block(
+                    lambda b=batch: partial._aggregate(b).shrink(True))
+                del batch
+                partials.append(SpillableBatch(pt, catalog))
+                del pt
+                self.add_metric("partialAggBatches", 1)
+            merge = self._stage(plan.merge_grouping, plan.merge_specs, [])
+            mt = retry_block(lambda: merge._aggregate(
+                concat_device([p.get() for p in partials])))
+        finally:
+            for p in partials:
+                p.release()
         schema = [(n, c.dtype) for n, c in zip(mt.names, mt.columns)]
         cols = compile_project([bind(e, schema) for e in plan.final_exprs],
                                mt)

@@ -48,3 +48,74 @@ class TpuExec:
     def execute_masked(self) -> Iterator[DeviceTable]:
         return self.execute()
 
+    def spillable_batches(self) -> Tuple[list, int]:
+        """The output batches for a consumer that needs them whole (a
+        join's build), and the device bytes of the one table
+        ``concat_device`` would make of them: one batch comes back as its
+        DeviceTable, for the consumer to shrink or split before anything
+        accounts it; of several, each is a SpillableBatch from the
+        arrival of the second on, so they may move to the host while the
+        rest are made. The caller releases them (``take``)."""
+        from spark_rapids_tpu_torch.columnar import bucket_for
+        from spark_rapids_tpu_torch.runtime.spill import (
+            BufferCatalog,
+            SpillableBatch,
+        )
+        catalog = BufferCatalog.get()
+        items, caps, row_bytes = [], 0, 0
+        try:
+            for b in self.execute_masked():
+                caps += b.capacity
+                row_bytes = b.device_nbytes() // max(b.capacity, 1)
+                if len(items) == 1:
+                    items[0] = SpillableBatch(items[0], catalog)
+                items.append(SpillableBatch(b, catalog) if items else b)
+                del b
+        except BaseException:
+            for x in items:
+                if isinstance(x, SpillableBatch):
+                    x.release()
+            raise
+        if len(items) > 1:
+            caps = bucket_for(caps)
+        return items, caps * row_bytes
+
+
+def prepend(items: list, it: Iterator) -> Iterator:
+    """``items``, then ``it``, keeping no reference to an item once it is
+    yielded: a batch the consumer spills or drops is then free
+    (``itertools.chain`` over a list would hold the first batches for the
+    whole stream). Takes ownership of ``items``."""
+    while items:
+        yield items.pop(0)
+    yield from it
+
+
+def first_two(it: Iterator) -> list:
+    """The first two batches of ``it`` (fewer when it yields fewer), each a
+    SpillableBatch from the moment it arrives: an exec that must see two
+    batches to pick its route keeps the first where the memory arbiter
+    can move it while the second is made. ``take`` gives back a table."""
+    from spark_rapids_tpu_torch.runtime.spill import (
+        BufferCatalog,
+        SpillableBatch,
+    )
+    items = []
+    for b in it:
+        items.append(SpillableBatch(b, BufferCatalog.get()))
+        del b
+        if len(items) == 2:
+            break
+    return items
+
+
+def take(x) -> DeviceTable:
+    """A SpillableBatch's table, on the device and out of the catalog; a
+    DeviceTable as it is."""
+    from spark_rapids_tpu_torch.runtime.spill import SpillableBatch
+    if not isinstance(x, SpillableBatch):
+        return x
+    try:
+        return x.get()
+    finally:
+        x.release()

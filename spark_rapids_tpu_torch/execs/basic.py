@@ -34,7 +34,16 @@ class TpuScanExec(TpuExec):
     after column pruning). Each uploaded column is kept on its host column
     (per device and capacity), so repeated queries over one in-memory
     table skip the upload of every column an earlier one uploaded (the
-    reference's default scan device cache, by column)."""
+    reference's default scan device cache, by column); the memory
+    arbiter evicts that cache first under pressure
+    (``columnar/table.evict_device_caches``).
+
+    Out of core: a batch whose estimated device bytes exceed its share of
+    the device budget lands as bounded chunks
+    (``runtime/memory.scan_chunks``, metric ``scanChunks``), which bypass
+    the cache: a multi-chunk image would pin the budget the chunking
+    protects. Every landing runs in the OOM retry loop, so a budget
+    squeeze spills and replays instead of failing at the scan."""
 
     def __init__(self, batches: Sequence[HostTable], device: torch.device,
                  bucket_policy: BucketPolicy,
@@ -50,19 +59,46 @@ class TpuScanExec(TpuExec):
         return [schema[i] for i in self.columns]
 
     def execute(self):
+        from spark_rapids_tpu_torch.runtime.memory import scan_chunks
+        from spark_rapids_tpu_torch.runtime.retry import retry_block
         for b in self.batches:
+            view = HostTable([b.names[i] for i in self.columns],
+                             [b.columns[i] for i in self.columns])
+            chunks = scan_chunks(view)
+            if len(chunks) > 1:
+                for ch in chunks:
+                    yield retry_block(
+                        lambda c=ch: self._land(c, c.num_rows, False))
+                continue
             cap = self.bucket_policy.bucket_for(b.num_rows)
             key = ("device", str(self.device), cap)
-            cols = []
-            for i in self.columns:
-                hc = b.columns[i]
-                dc = hc._cache.get(key)
-                if dc is None:
-                    dc = DeviceColumn.from_host(hc, cap, self.device)
+            if all(key in hc._cache for hc in view.columns):
+                # a cache hit lands nothing: no retry site, as the
+                # reference's
+                yield self._land(view, b.num_rows, True)
+                continue
+            yield retry_block(lambda: self._land(view, b.num_rows, True))
+
+    def _land(self, host: HostTable, nrows: int, cached: bool
+              ) -> DeviceTable:
+        """``host`` (``nrows`` rows) on the device at its bucket; with
+        ``cached`` each column is taken from, or put into, its host
+        column's device cache."""
+        from spark_rapids_tpu_torch.columnar.table import (
+            register_device_cache,
+        )
+        cap = self.bucket_policy.bucket_for(nrows)
+        key = ("device", str(self.device), cap)
+        cols = []
+        for hc in host.columns:
+            dc = hc._cache.get(key) if cached else None
+            if dc is None:
+                dc = DeviceColumn.from_host(hc, cap, self.device)
+                if cached:
                     hc._cache[key] = dc
-                cols.append(dc)
-            yield DeviceTable([b.names[i] for i in self.columns], cols,
-                              b.num_rows, cap, self.device)
+                    register_device_cache(hc)
+            cols.append(dc)
+        return DeviceTable(host.names, cols, nrows, cap, self.device)
 
 
 class TpuRangeExec(TpuExec):
@@ -116,10 +152,16 @@ class TpuProjectExec(TpuExec):
         return [(n, e.data_type) for n, e in zip(self.names, self.exprs)]
 
     def execute_masked(self):
-        for dt in self.children[0].execute_masked():
+        from spark_rapids_tpu_torch.runtime.retry import with_retry
+
+        def run(dt):
             cols = compile_project(self.exprs, dt)
-            yield DeviceTable(self.names, cols, dt.nrows_dev, dt.capacity,
-                              dt.device, live=dt.live)
+            return DeviceTable(self.names, cols, dt.nrows_dev, dt.capacity,
+                               dt.device, live=dt.live)
+
+        for dt in self.children[0].execute_masked():
+            yield from with_retry(dt, run)
+            del dt
 
 
 class TpuFilterExec(TpuExec):
@@ -136,8 +178,11 @@ class TpuFilterExec(TpuExec):
         return self.children[0].output_schema()
 
     def execute_masked(self):
+        from spark_rapids_tpu_torch.runtime.retry import with_retry
         for table in self.children[0].execute_masked():
-            yield filter_table(table, self.condition)
+            yield from with_retry(
+                table, lambda t: filter_table(t, self.condition))
+            del table
 
 
 def filter_table(table: DeviceTable, condition: Expression) -> DeviceTable:
@@ -217,19 +262,29 @@ class TpuSampleExec(TpuExec):
 
     def execute(self):
         from spark_rapids_tpu_torch.ops.scatter32 import compact_pairs
+        from spark_rapids_tpu_torch.runtime.retry import with_retry
         rng = np.random.default_rng(self.seed)
+
+        def make_run(keep_host):
+            def run(dt):
+                keep = torch.from_numpy(keep_host).to(dt.device)
+                outs, new_n = compact_pairs([c.data for c in dt.columns],
+                                            [c.validity for c in dt.columns],
+                                            keep, dt.capacity)
+                cols = [c.with_arrays(d, v)
+                        for c, (d, v) in zip(dt.columns, outs)]
+                return DeviceTable(dt.names, cols, new_n, dt.capacity,
+                                   dt.device)
+            return run
+
         for batch in self.children[0].execute():
             n = batch.num_rows  # host sync: the draw needs the row count
             keep_host = np.zeros(batch.capacity, dtype=np.bool_)
             keep_host[:n] = rng.random(n) < self.fraction
-            keep = torch.from_numpy(keep_host).to(batch.device)
-            outs, new_n = compact_pairs([c.data for c in batch.columns],
-                                        [c.validity for c in batch.columns],
-                                        keep, batch.capacity)
-            cols = [c.with_arrays(d, v)
-                    for c, (d, v) in zip(batch.columns, outs)]
-            yield DeviceTable(batch.names, cols, new_n, batch.capacity,
-                              batch.device)
+            # the draw is made once, so a replay keeps it
+            yield from with_retry(batch, make_run(keep_host),
+                                  splittable=False)
+            del batch
 
 
 #: the reference's default ``spark.rapids.sql.batchSizeBytes``: the target
@@ -239,13 +294,16 @@ BATCH_SIZE_BYTES = 1 << 30
 
 class TpuCoalesceExec(TpuExec):
     """Concatenate child batches into one (the RequireSingleBatch goal) or
-    up to a target size. The port has no spill framework or memory budget
-    yet, so batches are held as device tables; a lone batch passes
+    up to a target size. Buffered batches are SpillableBatches, so they
+    may move to the host while more input streams in; a lone batch passes
     through as it is (masked or not), and several concatenate on the
     device (columnar/table.concat_device). Under a target size, the
-    masked views of one exchange split (``DeviceTable.split_group``)
-    pass through one by one, as the reference's: concatenating views of
-    one table would only multiply its capacity."""
+    target never exceeds the device budget's scan chunk
+    (``MEMORY.scan_chunk_bytes()``), so a coalesce cannot concatenate
+    chunked scans back into one over-budget batch; the masked views of
+    one exchange split (``DeviceTable.split_group``) pass through one by
+    one, as the reference's: concatenating views of one table would only
+    multiply its capacity."""
 
     produces_masked = True
 
@@ -259,28 +317,63 @@ class TpuCoalesceExec(TpuExec):
         return self.children[0].output_schema()
 
     def execute_masked(self):
+        from spark_rapids_tpu_torch.runtime.memory import MEMORY
+        from spark_rapids_tpu_torch.runtime.spill import (
+            BufferCatalog,
+            SpillableBatch,
+        )
+        catalog = BufferCatalog.get()
+        target = self.target_bytes
+        if not self.require_single:
+            target = min(target, MEMORY.scan_chunk_bytes())
         pending, pending_bytes = [], 0
-        for batch in self.children[0].execute_masked():
-            if batch.split_group is not None and not self.require_single:
-                if pending:
+        try:
+            for batch in self.children[0].execute_masked():
+                if batch.split_group is not None and \
+                        not self.require_single:
+                    if pending:
+                        yield self._flush(pending)
+                        pending, pending_bytes = [], 0
+                    self.add_metric("maskedPassthrough", 1)
+                    yield batch
+                    del batch
+                    continue
+                pending_bytes += batch.device_nbytes()
+                pending.append(SpillableBatch(batch, catalog))
+                del batch
+                if not self.require_single and pending_bytes >= target:
                     yield self._flush(pending)
                     pending, pending_bytes = [], 0
-                self.add_metric("maskedPassthrough", 1)
-                yield batch
-                continue
-            pending.append(batch)
-            pending_bytes += device_nbytes(batch)
-            if not self.require_single and pending_bytes >= self.target_bytes:
+            if pending:
                 yield self._flush(pending)
-                pending, pending_bytes = [], 0
-        if pending:
-            yield self._flush(pending)
+                pending = []
+        finally:
+            # abandonment (a LIMIT above stopped pulling) or an error must
+            # not leave registrations in the catalog
+            for sb in pending:
+                sb.release()
+
+    def spillable_batches(self):
+        """A single-batch coalesce hands over the batches it would
+        concatenate, unconcatenated (``TpuExec.spillable_batches``)."""
+        if not self.require_single:
+            return super().spillable_batches()
+        spills, nbytes = self.children[0].spillable_batches()
+        if len(spills) > 1:
+            self.add_metric("concatBatches", len(spills))
+        return spills, nbytes
 
     def _flush(self, batches) -> DeviceTable:
-        if len(batches) == 1:
-            return batches[0]
-        self.add_metric("concatBatches", len(batches))
-        return concat_device(batches)
+        from spark_rapids_tpu_torch.runtime.retry import retry_block
+        try:
+            if len(batches) == 1:
+                return retry_block(batches[0].get)
+            self.add_metric("concatBatches", len(batches))
+            return retry_block(
+                lambda: concat_device([b.get() for b in batches]))
+        finally:
+            for b in batches:
+                b.release()
 
 
 class TpuLimitExec(TpuExec):
@@ -311,8 +404,3 @@ class TpuLimitExec(TpuExec):
             remaining -= take
             if remaining <= 0:
                 return
-
-
-def device_nbytes(table: DeviceTable) -> int:
-    return sum(c.data.numel() * c.data.element_size() + c.validity.numel()
-               for c in table.columns)

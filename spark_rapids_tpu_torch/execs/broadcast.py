@@ -5,9 +5,11 @@ TpuBroadcastExchangeExec and TpuNestedLoopJoinExec parts of
 A join's build side whose size estimate is under the broadcast threshold
 is materialized ONCE into a single prefix table and reused by every later
 execution of the exec: a replayed attempt of the same query (runtime/
-speculation.py) does not recompute it. The reference keeps the cached
-table spillable; the port has no spill framework yet and keeps the
-DeviceTable itself.
+speculation.py) does not recompute it. The cached table is a
+SpillableBatch, as the reference's: between executions it may move to
+the host and comes back on the next one; the batches it is built from are
+spillable while they buffer, and their concatenation runs in the OOM
+retry loop. It leaves the spill catalog when the exec is dropped.
 
 The nested-loop join runs joins without equi keys (a condition over both
 sides, or none): the build table shrinks to its live rows' bucket, and
@@ -24,7 +26,8 @@ ported."""
 
 from __future__ import annotations
 
-from typing import List, Optional
+import weakref
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -50,6 +53,33 @@ from spark_rapids_tpu_torch.ops.expr import (
 PAIR_BUDGET = 1 << 20
 
 
+def _materialize_single(child: TpuExec) -> Tuple[DeviceTable, int]:
+    """The child's batches as ONE prefix table, each batch spillable
+    while the rest buffer and the concatenation in the OOM retry loop.
+    Returns (table, the number of input batches)."""
+    from spark_rapids_tpu_torch.runtime.retry import retry_block
+    from spark_rapids_tpu_torch.runtime.spill import (
+        BufferCatalog,
+        SpillableBatch,
+    )
+    catalog = BufferCatalog.get()
+    spills = []
+    try:
+        for b in child.execute():
+            spills.append(SpillableBatch(b, catalog))
+            del b
+        if not spills:
+            raise NotImplementedError(
+                "a broadcast of a child that yields no batch is not "
+                "ported")
+        table = retry_block(lambda: concat_device(
+            [sb.get() for sb in spills]).compacted())
+        return table, len(spills)
+    finally:
+        for sb in spills:
+            sb.release()
+
+
 class TpuBroadcastExchangeExec(TpuExec):
     def __init__(self, child: TpuExec):
         self.children = (child,)
@@ -59,16 +89,17 @@ class TpuBroadcastExchangeExec(TpuExec):
         return self.children[0].output_schema()
 
     def execute(self):
+        from spark_rapids_tpu_torch.runtime.retry import retry_block
+        from spark_rapids_tpu_torch.runtime.spill import (
+            BufferCatalog,
+            SpillableBatch,
+        )
         if self._cached is None:
-            batches = list(self.children[0].execute())
-            if not batches:
-                raise NotImplementedError(
-                    "a broadcast of a child that yields no batch is not "
-                    "ported")
-            table = concat_device(batches).compacted()
-            self.add_metric("broadcastBatches", len(batches))
-            self._cached = table
-        yield self._cached
+            table, n = _materialize_single(self.children[0])
+            self.add_metric("broadcastBatches", n)
+            self._cached = SpillableBatch(table, BufferCatalog.get())
+            weakref.finalize(self, self._cached.release)
+        yield retry_block(self._cached.get)
 
 
 class TpuNestedLoopJoinExec(TpuExec):
@@ -95,6 +126,7 @@ class TpuNestedLoopJoinExec(TpuExec):
         return self._left_schema + self._right_schema
 
     def execute(self):
+        from spark_rapids_tpu_torch.runtime.retry import retry_block
         jt = self.join_type
         swapped = jt == "right"
         build_child = self.children[0] if swapped else self.children[1]
@@ -107,14 +139,16 @@ class TpuNestedLoopJoinExec(TpuExec):
         # the child's capacity, so a selective filter under a large scan
         # (a NOT IN list of 113 customers out of 250,000) would cut the
         # probe into tiles of a few rows
-        build = concat_device(batches).shrink()
+        build = retry_block(lambda: concat_device(batches).shrink())
+        del batches
         full_outer = jt == "full"
         b_matched = None
         for pb in probe_child.execute():
             tile = self._tile_rows(pb.capacity, build.capacity)
             for start in range(0, pb.capacity, tile):
-                outs, bm = self._join_tile(self._slice(pb, start, tile),
-                                           build, swapped)
+                pt = self._slice(pb, start, tile)
+                outs, bm = retry_block(
+                    lambda p=pt: self._join_tile(p, build, swapped))
                 if full_outer:
                     b_matched = bm if b_matched is None else b_matched | bm
                 yield from outs

@@ -72,7 +72,10 @@ class TpuShuffleExchangeExec(TpuExec):
         batches = list(self.children[0].execute_masked())
         if not batches:
             return
-        table = concat_device(batches) if len(batches) > 1 else batches[0]
+        from spark_rapids_tpu_torch.runtime.retry import retry_block
+        table = (retry_block(lambda: concat_device(batches))
+                 if len(batches) > 1 else batches[0])
+        del batches
         parter = make_partitioner(self.mode, self.keys, self.num_partitions)
         pids = parter.partition_ids(table)
         live = table.row_mask()

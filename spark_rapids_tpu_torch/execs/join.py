@@ -38,14 +38,20 @@ the other types, as the reference does.
 A build side larger than ``spark.rapids.sql.join.subPartition.targetBytes``
 splits by Spark's murmur3 key hash into ceil(size / target) partitions
 (at most ``maxSubPartitions``); each probe batch splits the same way and
-partition pairs join independently. The reference also caps the target
-by its memory manager's scan chunk; the port has no memory manager and
-uses the conf value alone.
+partition pairs join independently. The target is capped by the memory
+arbiter's scan chunk (``min(conf, MEMORY.scan_chunk_bytes())``), as the
+reference's, so a build past the device budget's chunk share splits even
+below the conf value.
+
+The build table (each build partition when sub-partitioned) is a
+SpillableBatch, pinned only while a probe batch joins it, so between
+probe batches it may move to the host; each probe batch joins inside the
+OOM retry loop (``retry_block``).
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Tuple
+from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -57,6 +63,7 @@ from spark_rapids_tpu_torch.columnar import (
     bucket_for,
 )
 from spark_rapids_tpu_torch.errors import ColumnarProcessingError
+from spark_rapids_tpu_torch.columnar.table import concat_device
 from spark_rapids_tpu_torch.execs.base import TpuExec
 from spark_rapids_tpu_torch.ops.expr import Expression, compile_project
 from spark_rapids_tpu_torch.runtime import speculation as spec
@@ -371,90 +378,218 @@ class TpuJoinExec(TpuExec):
         return self.left_names + self.right_names
 
     def execute_masked(self):
+        from spark_rapids_tpu_torch.runtime.memory import MEMORY
+        from spark_rapids_tpu_torch.runtime.retry import retry_block
+        from spark_rapids_tpu_torch.runtime.spill import (
+            PRIORITY_ACTIVE,
+            BufferCatalog,
+            SpillableDeviceTable,
+        )
         jt = self.join_type
         swapped = jt == "right"
         build_child = self.children[0] if swapped else self.children[1]
         probe_child = self.children[1] if swapped else self.children[0]
-        build = self._single(build_child)
-        from spark_rapids_tpu_torch.execs.basic import device_nbytes
-        nbytes = device_nbytes(build)
         sub = self.subpartition_bytes
-        if jt != "cross" and sub > 0 and nbytes > sub:
-            nparts = min(-(-nbytes // sub), self.max_subpartitions)
-            if nparts > 1:
-                yield from self._execute_subpartitioned(
-                    build, probe_child, swapped, int(nparts))
-                return
+        if sub > 0:
+            sub = min(sub, MEMORY.scan_chunk_bytes())
+        if jt == "cross":
+            sub = 0
+        build, parts = self._build_side(build_child, sub)
+        if parts is not None:
+            yield from self._execute_subpartitioned(parts, probe_child,
+                                                    swapped)
+            return
+        build_sb = SpillableDeviceTable(build, BufferCatalog.get(),
+                                        priority=PRIORITY_ACTIVE)
+        build_cap, build_dev = build.capacity, build.device
+        del build
         full_outer = jt == "full"
         r_matched_accum = None
-        for pb in probe_child.execute_masked():
-            out, r_matched = self._join_batch(pb, build, swapped)
+        try:
+            for pb in probe_child.execute_masked():
+                with build_sb.pinned_batch() as bt:
+                    out, r_matched = retry_block(
+                        lambda p=pb, b=bt: self._join_batch(p, b, swapped))
+                # this frame lives on while the consumer runs: it keeps
+                # neither the build nor a batch alive
+                del pb, bt
+                if full_outer:
+                    r_matched_accum = (r_matched if r_matched_accum is None
+                                       else r_matched_accum | r_matched)
+                out = [self._apply_condition(out)]
+                yield out.pop()
+                self.add_metric("probeBatches", 1)
             if full_outer:
-                r_matched_accum = (r_matched if r_matched_accum is None
-                                   else r_matched_accum | r_matched)
-            yield self._apply_condition(out)
-            self.add_metric("probeBatches", 1)
-        if full_outer:
-            if r_matched_accum is None:
-                r_matched_accum = torch.zeros(build.capacity,
-                                              dtype=torch.bool,
-                                              device=build.device)
-            yield self._unmatched_build_batch(build, r_matched_accum,
-                                              swapped)
+                if r_matched_accum is None:
+                    r_matched_accum = torch.zeros(build_cap,
+                                                  dtype=torch.bool,
+                                                  device=build_dev)
+                with build_sb.pinned_batch() as bt:
+                    last = self._unmatched_build_batch(bt, r_matched_accum,
+                                                       swapped)
+                del bt
+                yield last
+        finally:
+            build_sb.release()
 
-    def _execute_subpartitioned(self, build: DeviceTable, probe_child,
-                                swapped: bool, nparts: int):
-        """The build table splits by Spark's key hash into ``nparts``
-        partitions; each probe batch splits the same way, and partition
-        pairs join independently (a full outer join keeps one match
-        bitmap per partition and ends with each partition's unmatched
-        build rows)."""
+    def _build_side(self, build_child: TpuExec, sub: int):
+        """(the build table, None), or (None, one SpillableBatch per hash
+        partition) when the build side is larger than ``sub`` bytes (0:
+        never split): ``ceil(size / sub)`` partitions, at most
+        ``max_subpartitions``. The build child hands over its batches
+        (``TpuExec.spillable_batches``): an unsplit build concatenates as
+        the single-batch coalesce would; a split one is partitioned batch
+        by batch, each partition then concatenated from its pieces, so the
+        whole build is never on the device at once (the reference's
+        GpuSubPartitionHashJoin partitions its build batches the same
+        way)."""
+        from spark_rapids_tpu_torch.runtime.retry import retry_block
+        from spark_rapids_tpu_torch.runtime.spill import SpillableBatch
+        build_keys = (self.left_keys if self.join_type == "right"
+                      else self.right_keys)
+        items, nbytes = build_child.spillable_batches()
+        try:
+            if not items:
+                raise ColumnarProcessingError("join requires a coalesced "
+                                              "build side")
+            nparts = self._num_parts(nbytes, sub)
+            if nparts > 1:
+                parts, items = self._partition(items, build_keys,
+                                               nparts), []
+                return None, parts
+            build = retry_block(lambda: concat_device(
+                [x.get() if isinstance(x, SpillableBatch) else x
+                 for x in items]).compacted())
+            return build, None
+        finally:
+            for x in items:
+                if isinstance(x, SpillableBatch):
+                    x.release()
+
+    def _num_parts(self, nbytes: int, sub: int) -> int:
+        if sub <= 0 or nbytes <= sub:
+            return 1
+        return int(min(-(-nbytes // sub), self.max_subpartitions))
+
+    def _partition(self, items, keys, nparts: int) -> list:
+        """Each build batch (a DeviceTable, or a SpillableBatch pinned
+        while it splits; each dropped once split) split by the key hash
+        into ``nparts`` pieces, each piece spillable in buffers of its own;
+        then each partition's pieces concatenated into one
+        SpillableBatch."""
+        import contextlib
+
+        from spark_rapids_tpu_torch.runtime.retry import retry_block
+        from spark_rapids_tpu_torch.runtime.spill import (
+            BufferCatalog,
+            SpillableBatch,
+        )
+        from spark_rapids_tpu_torch.shuffle.partitioning import (
+            HashPartitioner,
+        )
+        catalog = BufferCatalog.get()
+        parter = HashPartitioner(keys, nparts)
+        pieces = [[] for _ in range(nparts)]
+        parts = []
+        try:
+            while items:
+                x = items.pop(0)
+                with (x.pinned_batch() if isinstance(x, SpillableBatch)
+                      else contextlib.nullcontext(x)) as dt:
+                    for p, t in enumerate(self._split(dt, parter, True)):
+                        pieces[p].append(SpillableBatch(t, catalog))
+                        del t
+                del dt
+                if isinstance(x, SpillableBatch):
+                    x.release()
+                del x
+            for p in range(nparts):
+                mine, pieces[p] = pieces[p], []
+                if len(mine) == 1:
+                    parts.append(mine[0])
+                    continue
+                try:
+                    t = retry_block(lambda m=mine: concat_device(
+                        [x.get() for x in m]))
+                finally:
+                    for x in mine:
+                        x.release()
+                parts.append(SpillableBatch(t, catalog))
+                del t
+            out, parts = parts, []
+            return out
+        finally:
+            for sb in parts + [x for ps in pieces for x in ps] + [
+                    x for x in items if isinstance(x, SpillableBatch)]:
+                sb.release()
+
+    def _execute_subpartitioned(self, build_parts: list, probe_child,
+                                swapped: bool):
+        """The build's hash partitions (``_build_side``, SpillableBatches);
+        each probe batch splits the same way, and partition pairs join
+        independently (a full outer join keeps one match bitmap per
+        partition and ends with each partition's unmatched build
+        rows)."""
+        from spark_rapids_tpu_torch.runtime.retry import retry_block
         from spark_rapids_tpu_torch.shuffle.partitioning import (
             HashPartitioner,
         )
         full_outer = self.join_type == "full"
-        build_keys = self.left_keys if swapped else self.right_keys
         probe_keys = self.right_keys if swapped else self.left_keys
-        build_parts = self._split(build, HashPartitioner(build_keys, nparts))
+        nparts = len(build_parts)
         pparter = HashPartitioner(probe_keys, nparts)
         self.add_metric("subPartitions", nparts)
         r_matched = [None] * nparts
-        for pb in probe_child.execute_masked():
-            for p, pp in enumerate(self._split(pb, pparter)):
-                out, rm = self._join_batch(pp, build_parts[p], swapped)
-                if full_outer:
-                    r_matched[p] = (rm if r_matched[p] is None
-                                    else r_matched[p] | rm)
-                yield self._apply_condition(out)
-            self.add_metric("probeBatches", 1)
-        if full_outer:
-            for p, bt in enumerate(build_parts):
-                rm = r_matched[p]
-                if rm is None:
-                    rm = torch.zeros(bt.capacity, dtype=torch.bool,
-                                     device=bt.device)
-                yield self._unmatched_build_batch(bt, rm, swapped)
+        try:
+            for pb in probe_child.execute_masked():
+                for p, pp in enumerate(self._split(pb, pparter)):
+                    with build_parts[p].pinned_batch() as bt:
+                        out, rm = retry_block(
+                            lambda a=pp, b=bt: self._join_batch(a, b,
+                                                                swapped))
+                    del pp, bt
+                    if full_outer:
+                        r_matched[p] = (rm if r_matched[p] is None
+                                        else r_matched[p] | rm)
+                    out = [self._apply_condition(out)]
+                    yield out.pop()
+                del pb
+                self.add_metric("probeBatches", 1)
+            if full_outer:
+                for p, sb in enumerate(build_parts):
+                    with sb.pinned_batch() as bt:
+                        rm = r_matched[p]
+                        if rm is None:
+                            rm = torch.zeros(bt.capacity, dtype=torch.bool,
+                                             device=bt.device)
+                        last = self._unmatched_build_batch(bt, rm, swapped)
+                    del bt
+                    yield last
+        finally:
+            for sb in build_parts:
+                sb.release()
 
     @staticmethod
-    def _split(table: DeviceTable, parter) -> List[DeviceTable]:
+    def _split(table: DeviceTable, parter,
+               copy: bool = False) -> Iterator[DeviceTable]:
         """Per-partition compacted tables, each re-bucketed to its live
-        size (one host read of the count vector)."""
+        size (one host read of the count vector), made one at a time;
+        ``copy`` as in ``DeviceColumn.sliced_rows`` (a build partition is
+        kept, a probe partition is not)."""
         pids = parter.partition_ids(table).to(torch.int64)
         live = table.row_mask()
         n = parter.num_partitions
         cnt = torch.zeros(n, dtype=torch.int32, device=table.device)
         cnt.index_add_(0, pids.clamp(0, n - 1), live.to(torch.int32))
         counts = cnt.tolist()  # host sync
-        parts = []
         for p in range(n):
             part = compact_table(table, (pids == p) & live)
             k = bucket_for(max(counts[p], 1))
             if k < part.capacity:
-                part = DeviceTable(part.names, [c.sliced_rows(k)
+                part = DeviceTable(part.names, [c.sliced_rows(k, copy)
                                                 for c in part.columns],
                                    counts[p], k, part.device)
-            parts.append(part)
-        return parts
+            yield part
 
     def _apply_condition(self, out: DeviceTable) -> DeviceTable:
         """The residual condition of an inner or cross join as a filter
@@ -464,14 +599,6 @@ class TpuJoinExec(TpuExec):
             return out
         from spark_rapids_tpu_torch.execs.basic import filter_table
         return filter_table(out, self.condition)
-
-    @staticmethod
-    def _single(child: TpuExec) -> DeviceTable:
-        builds = list(child.execute())
-        if len(builds) != 1:
-            raise ColumnarProcessingError("join requires a coalesced build "
-                                          "side")
-        return builds[0]
 
     def _keys(self, lt: DeviceTable, rt: DeviceTable, swapped: bool):
         """(probe key (data, validity)s, build key ones): string keys in

@@ -15,8 +15,11 @@ as the reference's pre-sort coalesce does. Batches that reach the sort
 concatenate on the device while their total stays under the threshold;
 past it each batch sorts on the device and moves to the host as a sorted
 run, and ``sorted_run_stream`` merges the runs range by range. The
-reference also caps the threshold by its memory manager's scan chunk;
-the port has no memory manager and uses the conf value alone."""
+threshold is ``min(outOfCoreThresholdBytes, MEMORY.scan_chunk_bytes())``,
+as the reference's: under a small device budget a multi-batch sort goes
+out of core even below the conf threshold. Pending batches are
+SpillableBatches, and every device sort runs in the OOM retry loop
+(``retry_block``)."""
 
 from __future__ import annotations
 
@@ -27,7 +30,12 @@ import torch
 
 from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.columnar import DeviceTable, bucket_for
-from spark_rapids_tpu_torch.execs.base import TpuExec
+from spark_rapids_tpu_torch.execs.base import (
+    TpuExec,
+    first_two,
+    prepend,
+    take,
+)
 from spark_rapids_tpu_torch.ops.expr import (
     PrepCtx,
     eval_expr,
@@ -74,31 +82,50 @@ class TpuSortExec(TpuExec):
         return self.children[0].output_schema()
 
     def execute(self):
-        from itertools import chain
-
         from spark_rapids_tpu_torch.columnar.table import concat_device
-        from spark_rapids_tpu_torch.execs.basic import device_nbytes
+        from spark_rapids_tpu_torch.runtime.memory import MEMORY
+        from spark_rapids_tpu_torch.runtime.retry import retry_block
+        from spark_rapids_tpu_torch.runtime.spill import (
+            BufferCatalog,
+            SpillableBatch,
+        )
         it = self.children[0].execute_masked()
-        first = next(it, None)
-        if first is None:
+        items = first_two(it)
+        if not items:
             return
-        second = next(it, None)
-        if second is None:
-            yield self._sort(first)
+        if len(items) == 1:
+            first = take(items.pop())
+            out = [retry_block(lambda: self._sort(first))]
+            del first  # the input is not kept while the output is used
+            yield out.pop()
             return
+        device = items[0].device
+        catalog = BufferCatalog.get()
+        threshold = min(self.ooc_threshold_bytes, MEMORY.scan_chunk_bytes())
         pending, total = [], 0
-        batches = chain([first, second], it)
-        for batch in batches:
-            pending.append(batch)
-            total += device_nbytes(batch)
-            if total > self.ooc_threshold_bytes:
-                # out of core: every batch becomes a sorted host run
-                self.add_metric("sortOutOfCore", 1)
-                runs = sort_runs(self, chain(pending, batches))
-                yield from sorted_run_stream(runs, self.orders,
-                                             first.device)
-                return
-        yield self._sort(concat_device(pending))
+        batches = prepend(items, it)
+        try:
+            for batch in batches:
+                batch = take(batch)
+                total += batch.device_nbytes()
+                pending.append(SpillableBatch(batch, catalog))
+                del batch
+                if total > threshold:
+                    # out of core: every batch becomes a sorted host run
+                    self.add_metric("sortOutOfCore", 1)
+                    spills, pending = pending, []
+                    runs = sort_runs(self, prepend(spills, batches))
+                    yield from sorted_run_stream(runs, self.orders, device)
+                    return
+
+            def merge_and_sort():
+                return self._sort(concat_device([sb.get() for sb in pending]))
+
+            out = retry_block(merge_and_sort)
+        finally:
+            for sb in pending:
+                sb.release()
+        yield out
 
     def _sort(self, table: DeviceTable) -> DeviceTable:
         perm = self._sorted_perm(table)
@@ -163,14 +190,15 @@ class TpuTakeOrderedAndProjectExec(TpuExec):
 
     def execute(self):
         from spark_rapids_tpu_torch.columnar.table import concat_device
+        from spark_rapids_tpu_torch.runtime.retry import retry_block
         k = self.limit
-        tops = [self._sorter._topk(b, k)
+        tops = [retry_block(lambda b=b: self._sorter._topk(b, k))
                 for b in self.children[0].execute_masked()]
         if not tops:
             return
         # a single top-k batch is already sorted
-        final = tops[0] if len(tops) == 1 else self._sorter._sort(
-            concat_device(tops))
+        final = tops[0] if len(tops) == 1 else retry_block(
+            lambda: self._sorter._sort(concat_device(tops)))
         nrows = torch.clamp(final.nrows_dev, max=k).to(torch.int32)
         yield DeviceTable(final.names, final.columns, nrows, final.capacity,
                           final.device)
@@ -182,43 +210,67 @@ RUN_KEY = "__run_key"
 
 def sort_runs(sorter: TpuSortExec, batches) -> list:
     """Each batch sorted on the device and moved to the host: the sorted
-    runs of ``sorted_run_stream``. A first sort key that is not a bound
-    column is evaluated on the device before the move and rides as the
-    run's last column (``RUN_KEY``); the merge drops it again. String
-    columns keep their codes (``HostColumn.encoded``), so uploading a
-    range encodes no string again."""
+    runs of ``sorted_run_stream``, in input order. ``batches`` yields
+    DeviceTables or SpillableBatches (each pinned while it sorts, then
+    released); every sort runs in the OOM retry loop. A first sort key
+    that is not a bound column is evaluated on the device before the move
+    and rides as the run's last column (``RUN_KEY``); the merge drops it
+    again. String columns keep their codes (``HostColumn.encoded``), so
+    uploading a range encodes no string again."""
+    from spark_rapids_tpu_torch.runtime.retry import retry_block
+    from spark_rapids_tpu_torch.runtime.spill import SpillableBatch
+    runs = []
+    spills = []
+    try:
+        for b in batches:
+            if isinstance(b, SpillableBatch):
+                spills.append(b)
+                with b.pinned_batch() as dt:
+                    runs.append(retry_block(
+                        lambda d=dt: _host_run(sorter, d)))
+                del dt
+                b.release()
+            else:
+                runs.append(retry_block(lambda d=b: _host_run(sorter, d)))
+            del b
+    finally:
+        for sb in spills:
+            sb.release()
+    return runs
+
+
+def _host_run(sorter: TpuSortExec, b: DeviceTable):
+    """One batch sorted on the device, with its hidden first key, as a
+    HostTable."""
     from spark_rapids_tpu_torch.columnar import DeviceColumn, HostTable
     from spark_rapids_tpu_torch.ops.expr import BoundReference
     key = sorter.orders[0].expr
-    runs = []
-    for b in batches:
-        t = sorter._sort(b)
-        if not isinstance(key, BoundReference):
-            preps = prep_expr(key, PrepCtx(t))
-            kv = eval_expr(key, preps, table_vals(t), t.nrows_dev,
-                           t.capacity, t.device)
-            t = DeviceTable(
-                t.names + (RUN_KEY,),
-                t.columns + (DeviceColumn(
-                    key.data_type, kv.data, kv.validity,
-                    dictionary=preps[-1].out_dict,
-                    dict_sorted=preps[-1].dict_sorted),), t.nrows_dev,
-                t.capacity, t.device)
-        n = t.num_rows
-        cols = []
-        for dc in t.columns:
-            data = dc.data[:n].cpu().numpy()
-            valid = np.ascontiguousarray(dc.validity[:n].cpu().numpy())
-            hc = dc.decode_host(data, valid)
-            if isinstance(dc.dtype, T.StringType) and dc.dict_sorted \
-                    and dc.dictionary is not None and len(dc.dictionary):
-                codes = np.clip(data, 0, len(dc.dictionary) - 1)
-                hc._cache["encode"] = (
-                    np.where(valid, codes, 0).astype(np.int32),
-                    dc.dictionary)
-            cols.append(hc)
-        runs.append(HostTable(t.names, cols))
-    return runs
+    t = sorter._sort(b)
+    if not isinstance(key, BoundReference):
+        preps = prep_expr(key, PrepCtx(t))
+        kv = eval_expr(key, preps, table_vals(t), t.nrows_dev,
+                       t.capacity, t.device)
+        t = DeviceTable(
+            t.names + (RUN_KEY,),
+            t.columns + (DeviceColumn(
+                key.data_type, kv.data, kv.validity,
+                dictionary=preps[-1].out_dict,
+                dict_sorted=preps[-1].dict_sorted),), t.nrows_dev,
+            t.capacity, t.device)
+    n = t.num_rows
+    cols = []
+    for dc in t.columns:
+        data = dc.data[:n].cpu().numpy()
+        valid = np.ascontiguousarray(dc.validity[:n].cpu().numpy())
+        hc = dc.decode_host(data, valid)
+        if isinstance(dc.dtype, T.StringType) and dc.dict_sorted \
+                and dc.dictionary is not None and len(dc.dictionary):
+            codes = np.clip(data, 0, len(dc.dictionary) - 1)
+            hc._cache["encode"] = (
+                np.where(valid, codes, 0).astype(np.int32),
+                dc.dictionary)
+        cols.append(hc)
+    return HostTable(t.names, cols)
 
 
 def _first_keys(runs, ci: int):
@@ -242,14 +294,24 @@ def sorted_run_stream(runs, orders: Sequence[SortOrder], device,
     every run (a binary search per run, the runs being sorted), uploads
     it and sorts it on the device. Rows with EQUAL first keys always land
     in one output batch (the bounds are cut points), which keeps a
-    RANGE-frame window's peers whole. ``runs``: HostTables from
-    ``sort_runs``, each sorted by ``orders``; their hidden first-key
-    column, if any, is dropped from the output."""
+    RANGE-frame window's peers whole. A range aims at ``target_rows``
+    (the largest run's rows when None). A range is a landing, so under
+    the device budget it holds at most the rows of the budget's scan
+    chunk (runtime/memory.py): the target is capped to them, and a range
+    of one first key that is still larger is cut on the following keys
+    (``_tie_pieces``), each piece keeping its ties on every key (a
+    RANGE frame's peers) whole. ``runs``: HostTables from ``sort_runs``,
+    each sorted by ``orders``; their hidden first-key column, if any, is
+    dropped from the output."""
     from spark_rapids_tpu_torch.columnar.table import (
         concat_host,
         upload_host_table,
     )
     from spark_rapids_tpu_torch.ops.expr import BoundReference
+    from spark_rapids_tpu_torch.runtime.memory import (
+        MEMORY,
+        estimate_device_nbytes,
+    )
     o0 = orders[0]
     asc = o0.ascending
     nulls_first = o0.resolved_nulls_first()
@@ -272,6 +334,9 @@ def sorted_run_stream(runs, orders: Sequence[SortOrder], device,
     total = sum(k.shape[0] for k in keys)
     if target_rows is None:
         target_rows = max((r.num_rows for r in runs), default=1)
+    row_bytes = max(estimate_device_nbytes(runs[0], 1), 1)
+    max_rows = max(MEMORY.scan_chunk_bytes() // row_bytes, 1)
+    target_rows = min(target_rows, max_rows)
     nparts = max(1, -(-total // max(target_rows, 1)))
     bounds = []
     if total:
@@ -306,12 +371,21 @@ def sorted_run_stream(runs, orders: Sequence[SortOrder], device,
 
     sorter = TpuSortExec.for_orders(orders)
 
-    def emit(parts):
-        t = sorter._sort(upload_host_table(concat_host(parts), device))
+    def emit_one(host):
+        from spark_rapids_tpu_torch.runtime.retry import retry_block
+        t = retry_block(
+            lambda: sorter._sort(upload_host_table(host, device)))
         if hidden:
             t = DeviceTable(t.names[:-1], t.columns[:-1], t.nrows_dev,
                             t.capacity, t.device)
         return t
+
+    def emit(parts):
+        host = concat_host(parts)
+        pieces = (_tie_pieces(host, orders, hidden, max_rows)
+                  if host.num_rows > max_rows else None)
+        for piece in pieces or [host]:
+            yield emit_one(piece)
 
     ranges = [(bounds[i - 1] if i else None,
                bounds[i] if i < len(bounds) else None)
@@ -319,10 +393,84 @@ def sorted_run_stream(runs, orders: Sequence[SortOrder], device,
     if not asc:
         ranges = ranges[::-1]  # the larger keys first
     if nulls_first and null_parts():
-        yield emit(null_parts())
+        yield from emit(null_parts())
     for lo_b, hi_b in ranges:
         parts = run_slices(lo_b, hi_b)
         if parts:
-            yield emit(parts)
+            yield from emit(parts)
     if not nulls_first and null_parts():
-        yield emit(null_parts())
+        yield from emit(null_parts())
+
+
+def _tie_pieces(host, orders: Sequence[SortOrder], hidden: bool,
+                max_rows: int):
+    """``host`` (rows of the sorted runs) cut into consecutive pieces of
+    its sort order, each of about ``max_rows`` rows and each holding
+    every row that ties with its rows on all the sort keys; a piece keeps
+    its rows in ``host``'s order, so the device's stable sort of each
+    gives the order a sort of the whole would. None when a key after the
+    first is computed (it has no column here), and the range lands
+    whole."""
+    from spark_rapids_tpu_torch.columnar import HostColumn, HostTable
+    from spark_rapids_tpu_torch.ops.expr import BoundReference
+    keys = []
+    for i, o in enumerate(orders):
+        if i == 0 and hidden:
+            c = host.columns[-1]
+        elif isinstance(o.expr, BoundReference):
+            c = host.columns[o.expr.ordinal]
+        else:
+            return None
+        valid = np.asarray(c.validity, dtype=bool)
+        nulls_first = o.resolved_nulls_first()
+        keys.append(np.where(valid, 1, 0) if nulls_first
+                    else np.where(valid, 0, 1))
+        for k in _host_order_keys(c, valid):
+            keys.append(k if o.ascending else ~k)  # ~: order-reversing
+    # np.lexsort sorts by its last key first and is stable
+    order = np.lexsort(keys[::-1])
+    n = len(order)
+    new_group = np.zeros(n, dtype=bool)
+    new_group[0] = True
+    for k in keys:
+        ks = k[order]
+        new_group[1:] |= ks[1:] != ks[:-1]
+    starts = np.flatnonzero(new_group)
+    pieces, a = [], 0
+    while a < n:
+        j = int(np.searchsorted(starts, a + max_rows, "left"))
+        b = int(starts[j]) if j < len(starts) else n
+        rows = np.sort(order[a:b])
+        cols = []
+        for c in host.columns:
+            hc = HostColumn(c.dtype, c.data[rows], c.validity[rows])
+            enc = c._cache.get("encode")
+            if enc is not None:
+                hc._cache["encode"] = (enc[0][rows], enc[1])
+            cols.append(hc)
+        pieces.append(HostTable(host.names, cols))
+        a = b
+    return pieces
+
+
+def _host_order_keys(c, valid) -> list:
+    """int64 arrays whose lexicographic order is Spark's order of the
+    column's valid rows (0 at null rows): string codes of the sorted
+    dictionary; integers as they are; floats by their bits made
+    order-preserving, with -0.0 equal to 0.0 and every NaN one value
+    above +inf; DECIMAL128 as its signed high and unsigned low limbs."""
+    from spark_rapids_tpu_torch.columnar.column import dec128_limbs
+    if isinstance(c.dtype, T.StringType):
+        ks = [c.encoded()[0].astype(np.int64)]
+    elif T.is_dec128(c.dtype):
+        limbs = dec128_limbs(c.data, valid, len(valid))
+        # the low limb compares unsigned: flip its sign bit
+        ks = [limbs[:, 0], limbs[:, 1] ^ np.int64(-2 ** 63)]
+    elif c.data.dtype.kind == "f":
+        x = c.data.astype(np.float64) + 0.0  # -0.0 -> 0.0
+        x = np.where(np.isnan(x), np.nan, x)  # one NaN
+        bits = x.view(np.int64)
+        ks = [np.where(bits < 0, bits ^ np.int64(2 ** 63 - 1), bits)]
+    else:
+        ks = [c.data.astype(np.int64)]
+    return [np.where(valid, k, 0) for k in ks]

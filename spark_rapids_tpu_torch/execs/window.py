@@ -44,8 +44,8 @@ Several input batches take one of the reference's routes
   rows' bucket, then windowed alone (``keyBatchedPartitions``);
 - the two-pass window (whole-partition aggregates over one PARTITION BY):
   the aggregate exec over the batches, then a join back on null-safe keys
-  (``twoPassPartitions``). The reference caches its batches spillably; the
-  port has no spill catalog, so they stay on the card;
+  (``twoPassPartitions``), both passes replaying the batches from
+  SpillableBatches (``_ReplayExec``), as the reference's do;
 - the bounded-frame stream (finite ROWS frames over one spec): the input
   sorted once into host runs (execs/sort.py ``sorted_run_stream``), each
   range windowed with ``lookback`` rows of context before it while the
@@ -55,7 +55,12 @@ Several input batches take one of the reference's routes
   the same sorted ranges, each windowed with the scalar state (counts,
   sums, MIN/MAX) carried across batches as device tensors, never read
   back per batch (``runningWindowBatches``);
-- every other window concatenates its batches on the device.
+- every other window concatenates its batches on the device, each held
+  as a SpillableBatch until the concatenation.
+
+The streams' input batches are SpillableBatches while they wait for their
+sort, the bounded stream's carried context is one, and every device step
+runs in the OOM retry loop (``retry_block``), as in the reference.
 
 The group limit ranks the same way as the window and yields a MASKED
 batch keeping the rows ranked at most ``limit``."""
@@ -68,7 +73,12 @@ import torch
 
 from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.columnar import DeviceColumn, DeviceTable
-from spark_rapids_tpu_torch.execs.base import TpuExec
+from spark_rapids_tpu_torch.execs.base import (
+    TpuExec,
+    first_two,
+    prepend,
+    take,
+)
 from spark_rapids_tpu_torch.ops import aggregates as agg
 from spark_rapids_tpu_torch.ops.expr import (
     PrepCtx,
@@ -429,27 +439,28 @@ class TpuWindowExec(TpuExec):
                 + [(n, w.data_type) for n, w in self.window_cols])
 
     def execute(self):
-        from itertools import chain
-
         from spark_rapids_tpu_torch.columnar.table import concat_device
+        from spark_rapids_tpu_torch.runtime.retry import retry_block
         it = self.children[0].execute()
         if self.per_batch:
             for batch in it:
-                yield self._window(batch)
+                yield retry_block(lambda b=batch: self._window(b))
             return
         if self._streamable():
             yield from self._stream_running(it)
             return
         bctx = self._bounded_ctx()
         two_pass = bctx is None and self._two_pass_able()
-        first = next(it, None)
-        if first is None:
+        items = first_two(it)
+        if not items:
             return
-        second = next(it, None)
-        if second is None:
-            yield self._window(first)
+        if len(items) == 1:
+            first = take(items.pop())
+            out = [retry_block(lambda: self._window(first))]
+            del first  # the input is not kept while the output is used
+            yield out.pop()
             return
-        rest = chain([first, second], it)
+        rest = prepend(items, it)
         if two_pass:
             yield from self._stream_two_pass(rest)
         elif bctx is not None:
@@ -457,7 +468,13 @@ class TpuWindowExec(TpuExec):
         else:
             # whole-partition frames beside ranks, RANGE frames, lag/lead
             # over no shared partition: one batch on the device
-            yield self._window(concat_device(list(rest)))
+            spills = _spillables(rest)
+            try:
+                merged = retry_block(
+                    lambda: concat_device([sb.get() for sb in spills]))
+            finally:
+                _release(spills)
+            yield retry_block(lambda: self._window(merged))
 
     # -- route tests -------------------------------------------------------
     _RUNNING_FRAMES = (("range", None, 0), ("rows", None, 0))
@@ -560,34 +577,40 @@ class TpuWindowExec(TpuExec):
         )
         from spark_rapids_tpu_torch.execs.join import TpuJoinExec
         from spark_rapids_tpu_torch.ops.expr import BoundReference
-        cached = list(batches)
-        child_schema = self.children[0].output_schema()
-        grouping = list(self.window_cols[0][1].spec.partition_exprs)
-        agg_specs = [(f"__wa{i}", w.function)
-                     for i, (_, w) in enumerate(self.window_cols)]
-        agg_exec = TpuHashAggregateExec(
-            _TableExec(cached, child_schema), grouping, agg_specs,
-            [f"__wp{i}" for i in range(len(grouping))])
-        agg_batches = list(agg_exec.execute())
-        self.add_metric("twoPassPartitions", len(agg_batches))
-        agg_table = concat_device(agg_batches)
-        agg_schema = agg_exec.output_schema()
-        right_refs = [BoundReference(i, dt, name_hint=n)
-                      for i, (n, dt) in enumerate(agg_schema)]
-        join = TpuJoinExec(
-            _TableExec(cached, child_schema),
-            _TableExec([agg_table], agg_schema), "inner",
-            self._null_safe_keys(grouping),
-            self._null_safe_keys(right_refs[:len(grouping)]), None,
-            child_schema, agg_schema)
-        keep = len(child_schema)
-        names = [n for n, _ in child_schema] + [n for n, _ in
-                                                self.window_cols]
-        for out in join.execute_masked():
-            cols = (list(out.columns[:keep])
-                    + list(out.columns[keep + len(grouping):]))
-            yield DeviceTable(names, cols, out.nrows_dev, out.capacity,
-                              out.device, live=out.live)
+        from spark_rapids_tpu_torch.runtime.retry import retry_block
+        spills = _spillables(batches)
+        try:
+            child_schema = self.children[0].output_schema()
+            grouping = list(self.window_cols[0][1].spec.partition_exprs)
+            agg_specs = [(f"__wa{i}", w.function)
+                         for i, (_, w) in enumerate(self.window_cols)]
+            agg_exec = TpuHashAggregateExec(
+                _ReplayExec(spills, child_schema), grouping, agg_specs,
+                [f"__wp{i}" for i in range(len(grouping))])
+            agg_batches = list(agg_exec.execute())
+            self.add_metric("twoPassPartitions", len(agg_batches))
+            agg_table = retry_block(lambda: concat_device(agg_batches))
+            del agg_batches
+            agg_schema = agg_exec.output_schema()
+            right_refs = [BoundReference(i, dt, name_hint=n)
+                          for i, (n, dt) in enumerate(agg_schema)]
+            join = TpuJoinExec(
+                _ReplayExec(spills, child_schema),
+                _TableExec([agg_table], agg_schema), "inner",
+                self._null_safe_keys(grouping),
+                self._null_safe_keys(right_refs[:len(grouping)]), None,
+                child_schema, agg_schema)
+            del agg_table
+            keep = len(child_schema)
+            names = [n for n, _ in child_schema] + [n for n, _ in
+                                                    self.window_cols]
+            for out in join.execute_masked():
+                cols = (list(out.columns[:keep])
+                        + list(out.columns[keep + len(grouping):]))
+                yield DeviceTable(names, cols, out.nrows_dev, out.capacity,
+                                  out.device, live=out.live)
+        finally:
+            _release(spills)
 
     # -- the bounded-frame stream ------------------------------------------
     def _stream_bounded(self, batches, lookback: int, lookahead: int):
@@ -602,38 +625,60 @@ class TpuWindowExec(TpuExec):
             sorted_run_stream,
         )
         from spark_rapids_tpu_torch.plan.nodes import SortOrder
+        from spark_rapids_tpu_torch.runtime.retry import retry_block
+        from spark_rapids_tpu_torch.runtime.spill import (
+            BufferCatalog,
+            SpillableBatch,
+        )
         spec = self.window_cols[0][1].spec
         all_orders = ([SortOrder(e, True) for e in spec.partition_exprs]
                       + list(spec.orders))
-        batches = list(batches)
-        device = batches[0].device
-        runs = sort_runs(TpuSortExec.for_orders(all_orders), batches)
-        del batches
+        spills = _spillables(batches)
+        device = spills[0].device
+        runs = sort_runs(TpuSortExec.for_orders(all_orders), spills)
+        del spills
+        catalog = BufferCatalog.get()
         keep = lookback + lookahead
-        carry, c_n = None, 0
+        carry_sb, c_n = None, 0  # the kept context, spillable
         unemitted = 0  # trailing carry rows still waiting for lookahead
-        for dt in sorted_run_stream(runs, all_orders, device,
-                                    self.stream_target_rows or None):
-            self.add_metric("boundedWindowBatches", 1)
-            b_n = dt.num_rows
-            if carry is not None:
-                ext = concat_device([carry, dt])
-                ext = DeviceTable(ext.names, ext.columns, c_n + b_n,
-                                  ext.capacity, ext.device)
-            else:
-                ext = dt
-            ext_n = c_n + b_n
-            emit_start = c_n - unemitted
-            emit_end = max(ext_n - lookahead, emit_start)
-            if emit_end > emit_start:
-                yield _slice_rows(self._window(ext), emit_start, emit_end)
-            unemitted = ext_n - emit_end
-            cstart = max(0, ext_n - max(keep, unemitted))
-            carry = _slice_rows(ext, cstart, ext_n)
-            c_n = ext_n - cstart
-        if unemitted:
-            # the last rows: no more input, their frames end at the end
-            yield _slice_rows(self._window(carry), c_n - unemitted, c_n)
+        try:
+            for dt in sorted_run_stream(runs, all_orders, device,
+                                        self.stream_target_rows or None):
+                self.add_metric("boundedWindowBatches", 1)
+                b_n = dt.num_rows
+                if carry_sb is not None:
+                    ext = retry_block(lambda d=dt: concat_device(
+                        [carry_sb.get(), d]))
+                    ext = DeviceTable(ext.names, ext.columns, c_n + b_n,
+                                      ext.capacity, ext.device)
+                else:
+                    ext = dt
+                del dt
+                ext_n = c_n + b_n
+                emit_start = c_n - unemitted
+                emit_end = max(ext_n - lookahead, emit_start)
+                if emit_end > emit_start:
+                    out = retry_block(lambda e=ext: self._window(e))
+                    # the whole window output is dropped before the yield
+                    out = [_slice_rows(out, emit_start, emit_end)]
+                    yield out.pop()
+                unemitted = ext_n - emit_end
+                cstart = max(0, ext_n - max(keep, unemitted))
+                new_carry = retry_block(
+                    lambda e=ext, a=cstart, b=ext_n: _slice_rows(e, a, b))
+                del ext
+                if carry_sb is not None:
+                    carry_sb.release()
+                carry_sb = SpillableBatch(new_carry, catalog)
+                del new_carry
+                c_n = ext_n - cstart
+            if unemitted:
+                # the last rows: no more input, their frames end at the end
+                out = retry_block(lambda: self._window(carry_sb.get()))
+                yield _slice_rows(out, c_n - unemitted, c_n)
+        finally:
+            if carry_sb is not None:
+                carry_sb.release()
 
     # -- the running stream ------------------------------------------------
     def _stream_running(self, batches):
@@ -646,19 +691,23 @@ class TpuWindowExec(TpuExec):
             sort_runs,
             sorted_run_stream,
         )
+        from spark_rapids_tpu_torch.runtime.retry import retry_block
         orders = self.window_cols[0][1].spec.orders
-        batches = list(batches)
-        if not batches:
+        spills = _spillables(batches)
+        if not spills:
             return
-        device = batches[0].device
-        runs = sort_runs(TpuSortExec.for_orders(orders), batches)
-        del batches
+        device = spills[0].device
+        runs = sort_runs(TpuSortExec.for_orders(orders), spills)
+        del spills
         self.add_metric("runningWindowBatches", len(runs))
         state = None
         for dt in sorted_run_stream(runs, orders, device,
                                     self.stream_target_rows or None):
-            out, state = self._stream_batch(dt, state)
-            yield out
+            out, state = retry_block(
+                lambda d=dt, st=state: self._stream_batch(d, st))
+            del dt
+            out = [out]
+            yield out.pop()
 
     def _initial_state(self, device):
         zero = torch.zeros((), dtype=torch.int64, device=device)
@@ -988,9 +1037,9 @@ def _slice_rows(table: DeviceTable, a: int, b: int) -> DeviceTable:
 
 
 class _TableExec(TpuExec):
-    """Fixed device tables as an exec (the two-pass window's plumbing:
-    the reference replays spillable batches; the port keeps them on the
-    card)."""
+    """Fixed device tables as an exec, run once (the two-pass window's
+    aggregate side and the keyed batching's exchange input): each table
+    is handed over, not kept, so the consumer can free it."""
 
     def __init__(self, tables, schema):
         self.children = ()
@@ -1001,7 +1050,48 @@ class _TableExec(TpuExec):
         return self._schema
 
     def execute(self):
-        yield from self._tables
+        while self._tables:
+            yield self._tables.pop(0)
+
+
+class _ReplayExec(TpuExec):
+    """Replays SpillableBatches, pinning each while the consumer holds it
+    (the cached-batch source of the two-pass window)."""
+
+    def __init__(self, spills, schema):
+        self.children = ()
+        self._spills = list(spills)
+        self._schema = list(schema)
+
+    def output_schema(self):
+        return self._schema
+
+    def execute(self):
+        for sb in self._spills:
+            with sb.pinned_batch() as dt:
+                yield dt
+            del dt
+
+
+def _spillables(batches) -> list:
+    """Each batch as a SpillableBatch in the process's catalog (one that
+    already is one as it is)."""
+    from spark_rapids_tpu_torch.runtime.spill import (
+        BufferCatalog,
+        SpillableBatch,
+    )
+    catalog = BufferCatalog.get()
+    out = []
+    for b in batches:
+        out.append(b if isinstance(b, SpillableBatch)
+                   else SpillableBatch(b, catalog))
+        del b
+    return out
+
+
+def _release(spills) -> None:
+    for sb in spills:
+        sb.release()
 
 
 class TpuKeyedBatchExec(TpuExec):
@@ -1028,21 +1118,19 @@ class TpuKeyedBatchExec(TpuExec):
         return self.children[0].output_schema()
 
     def execute(self):
-        from itertools import chain
-
         from spark_rapids_tpu_torch.execs.exchange import (
             TpuShuffleExchangeExec,
         )
         it = self.children[0].execute()
-        first = next(it, None)
-        if first is None:
+        items = first_two(it)
+        if not items:
             return
-        second = next(it, None)
-        if second is None:
-            yield first  # one batch: no exchange
+        if len(items) == 1:
+            yield take(items.pop())  # one batch: no exchange
             return
         ex = TpuShuffleExchangeExec(
-            _TableExec(chain([first, second], it), self.output_schema()),
+            _TableExec((take(b) for b in prepend(items, it)),
+                       self.output_schema()),
             "hash", self.num_partitions, self.keys)
         self.add_metric("keyBatchedPartitions", self.num_partitions)
         for part in ex.execute():
@@ -1071,8 +1159,9 @@ class TpuWindowGroupLimitExec(TpuExec):
         return self.children[0].output_schema()
 
     def execute_masked(self):
+        from spark_rapids_tpu_torch.runtime.retry import with_retry
         for batch in self.children[0].execute_masked():
-            yield self._limit_batch(batch)
+            yield from with_retry(batch, self._limit_batch)
 
     def _limit_batch(self, table: DeviceTable) -> DeviceTable:
         perm, idx, ranks = rank_sorted(table, self.partition_exprs,

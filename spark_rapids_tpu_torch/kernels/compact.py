@@ -16,6 +16,7 @@ off its CPU backend.
 from __future__ import annotations
 
 import ctypes
+import threading
 from typing import Dict, List, Sequence, Tuple
 
 import torch
@@ -104,7 +105,9 @@ def _library():
 class _Workspace:
     """The look-back words and the ticket counter of one CUDA stream (8 MiB,
     zeroed once); each launch takes the next epoch, so the words an earlier
-    launch left read as unpublished."""
+    launch left read as unpublished. Epochs are drawn under a lock: two
+    query threads on one stream (the device semaphore admits several)
+    must never launch with one epoch."""
 
     def __init__(self, device: torch.device):
         # _MAX_TILES words, then the counter's word
@@ -113,22 +116,25 @@ class _Workspace:
         self.epoch = 0
 
     def next_epoch(self) -> int:
-        self.epoch += 1
-        if self.epoch >= 2 ** 32:  # the epochs come round: clear old words
-            self.words.zero_()
-            self.epoch = 1
-        return self.epoch
+        with _WORKSPACE_LOCK:
+            self.epoch += 1
+            if self.epoch >= 2 ** 32:  # the epochs come round: clear old
+                self.words.zero_()
+                self.epoch = 1
+            return self.epoch
 
 
 _WORKSPACES: Dict[Tuple[int, int], _Workspace] = {}
+_WORKSPACE_LOCK = threading.Lock()
 
 
 def _workspace(device: torch.device, stream: int) -> _Workspace:
     key = (device.index, stream)
-    ws = _WORKSPACES.get(key)
-    if ws is None:
-        ws = _WORKSPACES[key] = _Workspace(device)
-    return ws
+    with _WORKSPACE_LOCK:
+        ws = _WORKSPACES.get(key)
+        if ws is None:
+            ws = _WORKSPACES[key] = _Workspace(device)
+        return ws
 
 
 def gather_compact(datas: Sequence[torch.Tensor],

@@ -103,3 +103,25 @@ def clear_blocklist() -> None:
     with _BLOCKLIST_LOCK:
         _BLOCKLIST.clear()
 
+
+
+def guard_attempt(fn):
+    """Run ``fn``, dropping the speculation flags it added if it raises:
+    an attempt aborted by an OOM and replayed by the retry framework
+    (runtime/retry.py) must not leave its flags to be validated, and must
+    not consume or clear the flags of the attempt around it.
+    ``take_pending`` replaces the pending list, so the snapshot tracks
+    the list's identity: if it changed, everything pending was added
+    here."""
+    ctx = _CTX.get()
+    snap_list = ctx.pending if ctx is not None else None
+    snap_len = len(snap_list) if snap_list is not None else 0
+    try:
+        return fn()
+    except BaseException:
+        if ctx is not None:
+            if ctx.pending is snap_list:
+                del ctx.pending[snap_len:]
+            else:
+                ctx.pending.clear()
+        raise

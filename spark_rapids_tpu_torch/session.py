@@ -1,9 +1,16 @@
 """The port's session: a thin front door that converts a plan into device
-execs, drains them under speculative sizing and downloads the result (the
-reference's TpuSession and the drain of its runtime/placement.py, without
-the recovery ladder, event log, executable cache and AQE, none of which
-is ported yet), with its SQL entry points (``sql``, ``table``,
-``catalog``)."""
+execs, drains them through the placement layer (speculative sizing, the
+device semaphore) and downloads the result (the reference's TpuSession
+without the recovery ladder, event log, executable cache and AQE, none of
+which is ported yet), with its SQL entry points (``sql``, ``table``,
+``catalog``).
+
+Each session starts the process's device manager for its device
+(runtime/device_manager.py), configures the memory arbiter's budget from
+its conf per query (runtime/memory.py), arms
+``spark.rapids.sql.test.injectRetryOOM`` and sets the OOM retries; its
+``last_metrics()`` adds the query's memory, spill and semaphore
+counters."""
 
 from __future__ import annotations
 
@@ -11,15 +18,16 @@ from typing import Dict, Optional
 
 from spark_rapids_tpu_torch import resolve_device
 from spark_rapids_tpu_torch.columnar import HostTable
-from spark_rapids_tpu_torch.conf import SPECULATIVE_SIZING, RapidsConf
+from spark_rapids_tpu_torch.conf import (
+    RETRY_OOM_MAX_RETRIES,
+    TEST_INJECT_RETRY_OOM,
+    RapidsConf,
+)
 from spark_rapids_tpu_torch.execs.base import TpuExec
-from spark_rapids_tpu_torch.ops.misc import reset_nondeterministic_streams
 from spark_rapids_tpu_torch.plan import nodes as P
-from spark_rapids_tpu_torch.runtime import speculation as spec
 
-#: attempts of one query under speculation; each failed attempt
-#: blocklists its sites, so every replay makes strict progress
-MAX_ATTEMPTS = 8
+#: the process-wide metric scopes whose per-query change last_metrics adds
+RUNTIME_SCOPES = ("memory", "spill", "semaphore")
 
 
 class TorchSession:
@@ -32,7 +40,27 @@ class TorchSession:
         self.conf = RapidsConf(conf)
         self._last_root: Optional[TpuExec] = None
         self._last_replays = 0
+        self._last_runtime: Dict[str, float] = {}
         self._catalog = None
+        self._placement = None
+
+    @property
+    def runtime(self):
+        """The process's device manager for this session's device and
+        conf (started on first use)."""
+        from spark_rapids_tpu_torch.runtime.device_manager import (
+            TpuDeviceManager,
+        )
+        return TpuDeviceManager.for_session(self.conf, self.device)
+
+    @property
+    def placement(self):
+        if self._placement is None:
+            from spark_rapids_tpu_torch.runtime.placement import (
+                PlacementLayer,
+            )
+            self._placement = PlacementLayer(self)
+        return self._placement
 
     # -- SQL front end -------------------------------------------------------
     @property
@@ -63,38 +91,37 @@ class TorchSession:
         return range_df(start, end, step, self)
 
     def execute(self, plan: P.PlanNode) -> HostTable:
-        """Run ``plan``. Under speculative sizing (the default) every
-        speculation flag of an attempt is read at once when it collects;
-        a failed attempt blocklists its sites process-wide and the query
-        replays, at most ``MAX_ATTEMPTS`` times, then once without
-        speculation. The replay count is ``last_metrics()``'s
-        ``speculationReplays``."""
+        """Run ``plan`` through the placement layer's drain (speculative
+        sizing and its replays, the device semaphore). The replay count
+        is ``last_metrics()``'s ``speculationReplays``."""
+        from spark_rapids_tpu_torch.obs.metrics import scopes_snapshot
         from spark_rapids_tpu_torch.overrides.rules import convert
+        from spark_rapids_tpu_torch.runtime.memory import MEMORY
+        from spark_rapids_tpu_torch.runtime.retry import MAX_RETRIES_VAR
+        self.runtime  # noqa: B018 (starts the device manager)
+        MEMORY.configure(self.conf)
         root = convert(plan, self.conf, self.device)
         self._last_root, self._last_replays = root, 0
-        if self.conf.get_entry(SPECULATIVE_SIZING):
-            for attempt in range(MAX_ATTEMPTS):
-                _reset_metrics(root)
-                reset_nondeterministic_streams()
-                tok = spec.activate()
-                try:
-                    table = _drain(root)
-                    spec.current().validate_remaining()
-                    self._last_replays = attempt
-                    return table
-                except spec.SpeculationFailed as sf:
-                    spec.blocklist(sf.sites)
-                finally:
-                    spec.deactivate(tok)
-            self._last_replays = MAX_ATTEMPTS
-        _reset_metrics(root)
-        reset_nondeterministic_streams()
-        return _drain(root)
+        _arm_injection(str(self.conf.get_entry(TEST_INJECT_RETRY_OOM)))
+        tok = MAX_RETRIES_VAR.set(int(self.conf.get_entry(
+            RETRY_OOM_MAX_RETRIES)))
+        before = scopes_snapshot()
+        MEMORY.reset_peak()
+        try:
+            return self.placement.drain(root)
+        finally:
+            MAX_RETRIES_VAR.reset(tok)
+            self._last_runtime = _scope_delta(before, scopes_snapshot())
 
     def last_metrics(self) -> Dict[str, int]:
-        """Metrics of the most recent execute(): the replay count and every
+        """Metrics of the most recent execute(): the replay count, every
         exec's counters of the attempt that succeeded, summed by name
-        (``directJoinBatches``, ``hashProbeBatches``, ...)."""
+        (``directJoinBatches``, ``hashProbeBatches``, ...), and the
+        query's nonzero memory, spill and semaphore counters
+        (``spillBytes``, ``oomRetries``, ``budgetViolations``,
+        ``acquires``, ...; process-wide counters, so a query running
+        beside others also counts theirs). Timings are
+        ``last_timings()``'s."""
         out = {"speculationReplays": self._last_replays}
         stack = [self._last_root] if self._last_root is not None else []
         while stack:
@@ -102,23 +129,49 @@ class TorchSession:
             for k, v in e.metrics.items():
                 out[k] = out.get(k, 0) + v
             stack.extend(e.children)
+        out.update({k: v for k, v in self._last_runtime.items()
+                    if _kind(k) != "timing"})
         return out
 
-
-def _drain(root: TpuExec) -> HostTable:
-    """The root's batches concatenated on the device and downloaded (an
-    empty table of the root's schema when it yields none)."""
-    from spark_rapids_tpu_torch.columnar.table import (
-        concat_device,
-        empty_host_table,
-    )
-    batches = list(root.execute())
-    if not batches:
-        return empty_host_table(root.output_schema())
-    return concat_device(batches).to_host()
+    def last_timings(self) -> Dict[str, float]:
+        """The most recent execute()'s runtime timings in seconds
+        (``acquireWaitTime``, ``spillTime``): kept apart from
+        ``last_metrics``, whose counters repeat from run to run."""
+        return {k: v for k, v in self._last_runtime.items()
+                if _kind(k) == "timing"}
 
 
-def _reset_metrics(root: TpuExec) -> None:
-    root.metrics.clear()
-    for c in root.children:
-        _reset_metrics(c)
+def _kind(name: str) -> str:
+    from spark_rapids_tpu_torch.obs.metrics import registered_specs
+    spec = registered_specs().get(name)
+    return spec.kind if spec is not None else "count"
+
+
+def _arm_injection(spec: str) -> None:
+    """``retry[:N]`` / ``split[:N]``: arm N injected OOMs on this thread
+    (the reference's parse of spark.rapids.sql.test.injectRetryOOM)."""
+    if not spec:
+        return
+    from spark_rapids_tpu_torch.runtime.retry import RMM_TPU
+    kind, _, num = spec.partition(":")
+    count = int(num) if num else 1
+    kind = kind.strip().lower()
+    if kind == "retry":
+        RMM_TPU.force_retry_oom(count)
+    elif kind == "split":
+        RMM_TPU.force_split_and_retry_oom(count)
+    else:
+        raise ValueError(f"spark.rapids.sql.test.injectRetryOOM={spec!r}: "
+                         "want retry[:N] or split[:N]")
+
+
+def _scope_delta(before, after) -> Dict[str, float]:
+    """The nonzero change of each counter of the runtime scopes."""
+    out = {}
+    for scope in RUNTIME_SCOPES:
+        b = before.get(scope, {})
+        for k, v in after.get(scope, {}).items():
+            d = v - b.get(k, 0)
+            if d:
+                out[k] = out.get(k, 0) + d
+    return out

@@ -142,3 +142,31 @@ def test_unported_pieces_raise_not_implemented():
                     F.max(c("d")).alias("m")).collect())]
 
     assert query(df, F, col, lit) == query(jdf, JF, jcol, jlit)
+
+
+#: the memory runtime's modules (and the copies of the reference's
+#: lockorder and metrics factories they use): each must exist, import
+#: with JAX and the JAX package blocked, and import neither
+RUNTIME_MODULES = ("runtime/device_manager.py", "runtime/host_alloc.py",
+                   "runtime/spill.py", "runtime/memory.py",
+                   "runtime/retry.py", "runtime/semaphore.py",
+                   "runtime/placement.py", "lockorder.py",
+                   "obs/metrics.py")
+
+
+@pytest.mark.parametrize("rel", RUNTIME_MODULES)
+def test_runtime_module_is_the_ports_own(rel):
+    path = PORT / rel
+    assert path.exists(), rel
+    assert path in _port_files()
+    code = (
+        "import sys, importlib\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['spark_rapids_tpu'] = None\n"
+        f"importlib.import_module('spark_rapids_tpu_torch.' + "
+        f"{rel[:-3].replace('/', '.')!r})\n"
+        "assert not [m for m in sys.modules if (m.startswith('jax') or "
+        "m.startswith('spark_rapids_tpu.')) and sys.modules[m] is not None]\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
