@@ -125,10 +125,28 @@ Phases, in order; any failure exits non-zero:
    D2H and H2D rates of a 2^24-row, 7-column table, pinned and pageable;
    every kernel launch of the squeezed and injected runs held against its
    plain version;
-15. the summary lines: one ``{"kernels": [...]}`` JSON line (the five TPU
+15. Parquet files in and out (``run_files``): the host library's build
+   time and whether pyarrow and pandas are on the machine (the port
+   imports neither); the corpus tables at ``scale_test_specs(FILES_SF)``
+   (sf 1) and phase 4's lineitem written with the port's writer (SNAPPY,
+   two files per table in c000/ and c001/, a temporary directory the
+   phase removes), each read back in PERFILE, COALESCING and
+   MULTITHREADED and held against its source bit for bit, with its rows,
+   bytes on disk, write seconds, host decode seconds and rate, and upload
+   ms; TPC-H q1 over lineitem from its files against phase 4's oracle,
+   cold and warm beside phase 4's warm; the 22 corpus queries from the
+   files as DataFrames and as SQL over ``CREATE TEMP VIEW ... USING
+   parquet``, each against phase 6-8's oracles (the windows by key),
+   through ``run_case`` (every launch held against its plain version); a
+   filtered read whose pruned row groups and rows are held, a partitioned
+   write read back with its partition column's type inferred, an
+   ``input_file_name()`` GROUP BY over three files, and a write under an
+   injected ``io.write.file`` fault (aborted with no visible file, then
+   committed);
+16. the summary lines: one ``{"kernels": [...]}`` JSON line (the five TPU
    kernels and the DECIMAL128 division kernel, CUDA work beyond them;
    launches of the main path: q1's, sparse q3's probes, q8's MIN/MAX, plus
-   every phase-7 to phase-14 query's), the card line, and last
+   every phase-7 to phase-15 query's), the card line, and last
    ``{"ok": true, "device": {...}}``.
 
 Each phase logs its wall time. It needs one CUDA card and exits non-zero
@@ -2236,22 +2254,26 @@ def stable_row_number(part, order):
     return rn
 
 
-def window_oracles(tables):
+def window_oracles(tables, keyed: bool = False):
     """{query: check(got)} of q6, q7 and q21 in numpy: stable ranking for
     the windows (the kept rows in input order, every column exact), exact
-    counts and int64 sums for q7."""
+    counts and int64 sums for q7. With ``keyed`` the windows' rows may
+    come in another order (input in several batches: phase 15's files)
+    and are compared sorted by their unique key, as the oracle's are."""
     O, C = host_cols(tables["orders"]), host_cols(tables["customer"])
     out = {}
     rn = stable_row_number(O["o_custkey"], O["o_totalprice"])
     keep = np.flatnonzero(rn <= 3)
     want = {nm: O[nm][keep] for nm in tables["orders"].names}
     want["rn"] = rn[keep]
-    out["q6"] = lambda g, w=want: check_table(g, w, "q6")
+    out["q6"] = lambda g, w=want: check_table(
+        g, w, "q6", key=("o_orderkey",) if keyed else ())
     rn = stable_row_number(C["c_nationkey"], C["c_custkey"])
     keep = np.flatnonzero(rn <= 2)
     want = {"c_nationkey": C["c_nationkey"][keep],
             "c_custkey": C["c_custkey"][keep], "rn": rn[keep]}
-    out["q21"] = lambda g, w=want: check_table(g, w, "q21")
+    out["q21"] = lambda g, w=want: check_table(
+        g, w, "q21", key=("c_custkey",) if keyed else ())
     li = tables["lineitem"]
     codes, dictionary = li.columns[li.names.index("l_returnflag")].encoded()
     qty = host_cols(li)["l_quantity"].astype(np.int64)
@@ -5159,6 +5181,385 @@ def run_runtime(tables, q1_keep, before: dict) -> dict:
     return totals
 
 
+# ---------------------------------------------------------------------------
+# phase 15: Parquet files in and out
+# ---------------------------------------------------------------------------
+
+#: the file corpus's scale factor and its files per table (c000/, c001/)
+FILES_SF = 1.0
+FILES_PER_TABLE = 2
+#: row groups of the pruning check's orders files
+FILES_PRUNE_ROW_GROUP = 1 << 15
+#: the pruning check's o_orderkey range [lo, hi)
+FILES_PRUNE_KEYS = (100_000, 140_000)
+#: the phase's time budget on the card (seconds): past it, lower FILES_SF
+FILES_BUDGET_S = 120.0
+
+
+def same_host_table(got, want, what) -> None:
+    """``got`` equal to ``want`` bit for bit, column by column: names,
+    types, validity, and every valid value (floats by their bits, strings
+    and DECIMAL128 values as Python objects)."""
+    if list(got.names) != list(want.names):
+        fail(f"{what}: columns {list(got.names)}, want {list(want.names)}")
+    if got.num_rows != want.num_rows:
+        fail(f"{what}: {got.num_rows} rows, want {want.num_rows}")
+    for name, g, w in zip(got.names, got.columns, want.columns):
+        if g.dtype != w.dtype:
+            fail(f"{what} {name}: {g.dtype}, want {w.dtype}")
+        if not np.array_equal(g.validity, w.validity):
+            fail(f"{what} {name}: validity differs")
+        gv, wv = g.data[w.validity], w.data[w.validity]
+        if gv.dtype == object or wv.dtype == object:
+            ok = list(gv) == list(wv)
+        else:
+            ok = gv.dtype == wv.dtype and gv.tobytes() == wv.tobytes()
+        if not ok:
+            fail(f"{what} {name}: values differ (bit for bit)")
+
+
+def dir_bytes(path: str) -> int:
+    total = 0
+    for root, _dirs, files in os.walk(path):
+        total += sum(os.path.getsize(os.path.join(root, f)) for f in files)
+    return total
+
+
+def file_tables(tables, lineitem, base: str, card: str) -> tuple:
+    """15.2: each table written with the port's writer (SNAPPY, two files
+    in c000/ and c001/), then read back in PERFILE, COALESCING and
+    MULTITHREADED and held against its source bit for bit. Returns
+    ({name: directory}, {name: numbers})."""
+    from spark_rapids_tpu_torch.columnar.table import upload_host_table
+    from spark_rapids_tpu_torch.conf import RapidsConf
+    from spark_rapids_tpu_torch.io.parquet import ParquetScanNode
+    from spark_rapids_tpu_torch.models.corpus import write_corpus_files
+    paths, numbers = {}, {}
+    for name, t in list(tables.items()) + [("lineitem_q1", lineitem)]:
+        t0 = time.perf_counter()
+        paths.update(write_corpus_files({name: t}, base, FILES_PER_TABLE))
+        write_s = time.perf_counter() - t0
+        on_disk = dir_bytes(paths[name])
+        decode = {}
+        for mode in ("PERFILE", "COALESCING", "MULTITHREADED"):
+            scan = ParquetScanNode([paths[name]], RapidsConf(),
+                                   reader_type=mode)
+            t0 = time.perf_counter()
+            got = scan.collect_host()
+            decode[mode] = time.perf_counter() - t0
+            same_host_table(got, t, f"{name} read back ({mode})")
+        host_mb = got.nbytes() / 1e6
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dt = upload_host_table(got, DEV)
+        torch.cuda.synchronize()
+        upload_ms = (time.perf_counter() - t0) * 1e3
+        del dt, got
+        best = min(decode.values())
+        numbers[name] = {
+            "rows": t.num_rows, "bytes_on_disk": on_disk,
+            "write_s": round(write_s, 3),
+            "decode_s": {m: round(v, 3) for m, v in decode.items()},
+            "decoded_mb_per_s": round(host_mb / best, 1),
+            "host_mb": round(host_mb, 1), "upload_ms": round(upload_ms, 2)}
+        log(f"  15.2 {name}: {t.num_rows} rows, {on_disk} B on disk, write "
+            f"{write_s:.3f} s, decode (host) "
+            f"{', '.join(f'{m} {v:.3f} s' for m, v in decode.items())}, "
+            f"{host_mb / best:.1f} MB/s decoded ({host_mb:.1f} MB), upload "
+            f"{upload_ms:.2f} ms; read back bit for bit in all three modes "
+            f"[{card}]")
+    return paths, numbers
+
+
+def files_q1(paths, q1_keep, card: str) -> tuple:
+    """15.3: TPC-H q1 over lineitem read from its files, through
+    ``run_case`` (cold, warm, host syncs, every launch held against its
+    plain version), against phase 4's oracle."""
+    from spark_rapids_tpu_torch.models.tpch import q1_dataframe
+    from spark_rapids_tpu_torch.session import TorchSession
+    session = TorchSession()
+    cold = {}
+
+    def check(got):
+        # run_case checks the cold run first: keep what that run counted
+        if not cold:
+            cold.update(session.last_metrics(), **session.last_timings())
+        q1_keep["check"](got)
+
+    res = run_case(session, "q1 from files",
+                   lambda: q1_dataframe(session, session.read_parquet(
+                       paths["lineitem_q1"])), check, None)
+    log("  15.3 q1 from files, the cold run's counters and seconds: "
+        + json.dumps({k: round(v, 4) if isinstance(v, float) else v
+                      for k, v in cold.items() if v}))
+    for k in ("onehot_partials", "gather_compact", "sort_with_payload"):
+        if not res["launches"].get(k):
+            fail(f"q1 from files launched no {k}")
+    m = session.last_metrics()
+    decode_ms = round(m.get("scanDecodeTime", 0) * 1e3, 2)
+    upload_ms = round(m.get("scanUploadTime", 0) * 1e3, 2)
+    log(f"  15.3 q1 from files: cold {res['stats']['cold_ms']} ms, warm "
+        f"{res['stats']['warm_ms']} ms against phase 4's in-memory warm "
+        f"{q1_keep['warm_ms']} ms (the counted run waited {decode_ms} ms on "
+        f"the decode and uploaded for {upload_ms} ms); host syncs "
+        f"{res['stats']['syncs']}; result matches phase 4's oracle [{card}]")
+    return res["launches"], dict(res["stats"], decode_ms=decode_ms,
+                                 upload_ms=upload_ms,
+                                 in_memory_warm_ms=q1_keep["warm_ms"])
+
+
+def file_oracles(tables):
+    """{query: check(got)} of all 22 corpus queries: phase 7's oracles,
+    phase 8's (the windows compared by key: two files are two batches)
+    and phase 6's q2 and q8."""
+    from spark_rapids_tpu_torch.session import TorchSession
+    oracles = wide_oracles(tables)
+    oracles.update(window_oracles(tables, keyed=True))
+    cases = corpus_cases(TorchSession(), tables,
+                         sparse_custkey(tables["orders"]))
+    oracles["q2"] = cases["q2"][1]
+    oracles["q8"] = cases["q8"][1]
+    return oracles
+
+
+def files_corpus(tables, paths, card: str) -> tuple:
+    """15.4: the 22 corpus queries over the files, as DataFrames
+    (``build_queries(..., paths=)``) and as SQL texts over ``CREATE TEMP
+    VIEW ... USING parquet``, each through ``run_case`` against its
+    oracle. Returns (launch totals, numbers)."""
+    from spark_rapids_tpu_torch.models.corpus import (
+        CORPUS,
+        build_queries,
+        sql_texts,
+    )
+    from spark_rapids_tpu_torch.session import TorchSession
+    t0 = time.perf_counter()
+    oracles = file_oracles(tables)
+    log(f"  15.4 the oracles in {time.perf_counter() - t0:.2f} s (host)")
+    table_paths = {n: paths[n] for n in tables}
+    dsl = TorchSession()
+    queries = build_queries(dsl, tables, paths=table_paths)
+    sql = TorchSession()
+    for name, tdir in table_paths.items():
+        sql.sql(f"CREATE OR REPLACE TEMP VIEW {name} USING parquet "
+                f"OPTIONS (path '{tdir}')")
+    texts = sql_texts()
+    total, numbers = {}, {}
+    for name in CORPUS:
+        for form, session, build in (
+                ("dsl", dsl, queries[name]),
+                ("sql", sql, lambda t=texts[name]: sql.sql(t))):
+            label = f"{name} from files" + (" SQL" if form == "sql" else "")
+            res = run_case(session, label, build, oracles[name], None)
+            # the counted warm run's scan metrics (its last execute)
+            m = session.last_metrics()
+            for k, v in res["launches"].items():
+                total[k] = total.get(k, 0) + v
+            numbers[label] = {
+                "warm_ms": res["stats"]["warm_ms"],
+                "cold_ms": res["stats"]["cold_ms"],
+                "decode_ms": round(m.get("scanDecodeTime", 0) * 1e3, 2),
+                "upload_ms": round(m.get("scanUploadTime", 0) * 1e3, 2),
+                "syncs": res["stats"]["syncs"],
+                "launches": {k: v for k, v in res["launches"].items() if v}}
+    log(f"  15.4 all {2 * len(CORPUS)} corpus queries from files match their "
+        f"oracles; warm ms (of it: waiting on the decode, uploading, in the "
+        f"counted run): " + ", ".join(
+            f"{k} {v['warm_ms']} ({v['decode_ms']}, {v['upload_ms']})"
+            for k, v in numbers.items()) + f" [{card}]")
+    return total, numbers
+
+
+def files_features(tables, paths, base: str, card: str) -> dict:
+    """15.5: a filtered read across row groups (pruned row groups and rows
+    held), a partitioned write read back with its partition column's type
+    inferred, an input_file_name() GROUP BY over three files, and a write
+    under an injected io.write.file fault (aborted with no visible file,
+    then committed on the retry)."""
+    from spark_rapids_tpu_torch import functions as F
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.columnar import HostColumn, HostTable
+    from spark_rapids_tpu_torch.errors import KernelCrashError
+    from spark_rapids_tpu_torch.io import parquet_format as PF
+    from spark_rapids_tpu_torch.io.common import expand_paths
+    from spark_rapids_tpu_torch.io.committer import read_manifest
+    from spark_rapids_tpu_torch.io.parquet import write_parquet
+    from spark_rapids_tpu_torch.models.corpus import write_corpus_files
+    from spark_rapids_tpu_torch.plan import from_host_table
+    from spark_rapids_tpu_torch.plan import nodes as P
+    from spark_rapids_tpu_torch.runtime.faults import FAULTS
+    from spark_rapids_tpu_torch.session import TorchSession
+    out = {}
+    session = TorchSession()
+    # the filtered read: o_orderkey is ascending, so each row group covers
+    # its own key range
+    orders = tables["orders"]
+    rg_dir = write_corpus_files({"orders_rg": orders}, base,
+                                FILES_PER_TABLE,
+                                row_group_rows=FILES_PRUNE_ROW_GROUP)
+    lo, hi = FILES_PRUNE_KEYS
+    keys = host_cols(orders)["o_orderkey"]
+    per_file = -(-orders.num_rows // FILES_PER_TABLE)
+    want_pruned = 0
+    for f0 in range(0, orders.num_rows, per_file):
+        fkeys = keys[f0:f0 + per_file]
+        for r0 in range(0, len(fkeys), FILES_PRUNE_ROW_GROUP):
+            rk = fkeys[r0:r0 + FILES_PRUNE_ROW_GROUP]
+            want_pruned += int(rk.max() < lo or rk.min() >= hi)
+    t0 = time.perf_counter()
+    got = session.read_parquet(
+        rg_dir["orders_rg"], reader_type="PERFILE",
+        filters=[("o_orderkey", ">=", lo), ("o_orderkey", "<", hi)]
+    ).collect_table()
+    filt_s = time.perf_counter() - t0
+    pruned = session.last_metrics().get("prunedRowGroups", 0)
+    m = (keys >= lo) & (keys < hi)
+    if pruned != want_pruned:
+        fail(f"filtered read pruned {pruned} row groups, want "
+             f"{want_pruned}")
+    if not np.array_equal(host_cols(got)["o_orderkey"], keys[m]):
+        fail("filtered read: rows differ from the numpy filter")
+    out["filtered_read"] = {"rows": got.num_rows,
+                            "pruned_row_groups": pruned,
+                            "ms": round(filt_s * 1e3, 2)}
+    log(f"  15.5 filtered read: {got.num_rows} rows, {pruned} row groups "
+        f"pruned by their statistics (as computed from the layout), "
+        f"{filt_s * 1e3:.1f} ms [{card}]")
+    # the partitioned write
+    cust = tables["customer"]
+    pdir = os.path.join(base, "customer_by_nation")
+    t0 = time.perf_counter()
+    files = write_parquet(cust, pdir, partition_by=["c_nationkey"])
+    pw_s = time.perf_counter() - t0
+    back = session.read_parquet(pdir)
+    if dict(back.schema)["c_nationkey"] != T.LONG:
+        fail(f"partition column inferred as {dict(back.schema)}")
+    got = back.collect_table()
+    order = np.argsort(host_cols(got)["c_custkey"], kind="stable")
+    got = HostTable(cust.names, [
+        HostColumn(c.dtype, c.data[order], c.validity[order])
+        for c in (got.columns[got.names.index(n)] for n in cust.names)])
+    same_host_table(got, cust, "partitioned customer read back")
+    n_parts = len(np.unique(host_cols(cust)["c_nationkey"]))
+    if len(files) != n_parts:
+        fail(f"partitioned write made {len(files)} files, want {n_parts}")
+    out["partitioned_write"] = {"files": len(files),
+                                "write_s": round(pw_s, 3)}
+    log(f"  15.5 partitioned write: {len(files)} c_nationkey=... files in "
+        f"{pw_s:.3f} s, read back with c_nationkey inferred as bigint, "
+        f"rows equal by c_custkey [{card}]")
+    # input_file_name() over three files
+    three = write_corpus_files({"customer3": cust}, base, 3)["customer3"]
+    g = session.read_parquet(three).group_by(
+        F.input_file_name().alias("f")).agg(F.count().alias("c")
+                                            ).collect_table()
+    want = {p: PF.read_footer(p).num_rows for p in expand_paths([three])}
+    have = dict(zip(host_cols(g)["f"], host_cols(g)["c"].tolist()))
+    if have != want:
+        fail(f"input_file_name() GROUP BY: {have}, want {want}")
+    out["input_file_name"] = {"files": len(have)}
+    log(f"  15.5 input_file_name() GROUP BY over {len(have)} files: each "
+        f"file's row count [{card}]")
+    # the write under an injected fault
+    fdir = os.path.join(base, "faulted")
+    faulty = TorchSession({"spark.rapids.test.faults":
+                           "io.write.file:crash:1"})
+    node = P.WriteFiles(from_host_table(cust, faulty).plan, "parquet", fdir,
+                        None, {})
+    try:
+        faulty.execute(node)
+        fail("the injected io.write.file fault did not fire")
+    except KernelCrashError:
+        pass
+    visible = [f for _r, _d, fs in os.walk(fdir) for f in fs] \
+        if os.path.isdir(fdir) else []
+    if visible or read_manifest(fdir) is not None:
+        fail(f"aborted write left files: {visible}")
+    stats = faulty.execute(node)
+    FAULTS.disarm()
+    same_host_table(session.read_parquet(fdir).collect_table(), cust,
+                    "the retried write read back")
+    out["faulted_write"] = {"retry_files": int(stats.columns[0].data[0])}
+    log(f"  15.5 injected io.write.file fault: the write aborted with no "
+        f"visible file, the retry committed {int(stats.columns[0].data[0])} "
+        f"file(s), read back bit for bit [{card}]")
+    return out
+
+
+def run_files(seed: int, q1_keep) -> dict:
+    """Phase 15: Parquet files in and out (15.1-15.5). Returns every
+    kernel's launches over the counted runs."""
+    import importlib.util
+    import pathlib
+    import shutil
+    import tempfile
+
+    from spark_rapids_tpu_torch import native
+    from spark_rapids_tpu_torch.models.corpus import corpus_tables
+    card = card_line()
+    t_phase = time.perf_counter()
+    # a clean build of the host library's sources into a scratch
+    # directory times the build (the port built them at first use)
+    kept, scratch = native.BUILD_DIR, tempfile.mkdtemp(prefix="srt-host-")
+    native.BUILD_DIR = pathlib.Path(scratch)
+    try:
+        t0 = time.perf_counter()
+        built = native.build()
+        build_s = time.perf_counter() - t0
+    finally:
+        native.BUILD_DIR = kept
+        shutil.rmtree(scratch, ignore_errors=True)
+    log(f"  15.1 host library: {sorted(built)} built from source in "
+        f"{build_s:.2f} s (one g++ each, in parallel)")
+    facts = {m: importlib.util.find_spec(m) is not None
+             for m in ("pyarrow", "pandas")}
+    log(f"  15.1 on this machine: find_spec('pyarrow') "
+        f"{'found' if facts['pyarrow'] else 'None'}, find_spec('pandas') "
+        f"{'found' if facts['pandas'] else 'None'} (the port imports "
+        "neither)")
+    base = tempfile.mkdtemp(prefix="srt-files-")
+    summary = {"card": card, "import_facts": facts,
+               "host_build_s": round(build_s, 2)}
+    totals = {}
+    try:
+        t0 = time.perf_counter()
+        tables = corpus_tables(FILES_SF, seed)
+        log(f"  15.2 generated scale_test_specs({FILES_SF}) seed {seed} in "
+            f"{time.perf_counter() - t0:.2f} s (host); lineitem for q1: "
+            f"phase 4's {q1_keep['tables'][0].num_rows} rows")
+        t0 = time.perf_counter()
+        paths, summary["tables"] = file_tables(tables, q1_keep["tables"][0],
+                                               base, card)
+        log(f"  15.2 ran {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        launches, summary["q1"] = files_q1(paths, q1_keep, card)
+        for k, v in launches.items():
+            totals[k] = totals.get(k, 0) + v
+        log(f"  15.3 ran {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        launches, summary["corpus"] = files_corpus(tables, paths, card)
+        for k, v in launches.items():
+            totals[k] = totals.get(k, 0) + v
+        log(f"  15.4 ran {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        summary["features"] = files_features(tables, paths, base, card)
+        log(f"  15.5 ran {time.perf_counter() - t0:.1f} s")
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    took = time.perf_counter() - t_phase
+    summary["seconds"] = round(took, 1)
+    summary["launches"] = {k: v for k, v in totals.items() if v}
+    if took > FILES_BUDGET_S:
+        log(f"  phase 15 took {took:.1f} s, past its {FILES_BUDGET_S:.0f} s "
+            f"budget: lower FILES_SF ({FILES_SF})")
+    for k in ("onehot_partials", "gather_compact", "sort_with_payload",
+              "fused_minmax"):
+        if not totals.get(k):
+            fail(f"phase 15 launched no {k}")
+    log("  phase-15 summary: " + json.dumps(summary))
+    return totals
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rows", type=int, default=6_001_215,
@@ -5308,7 +5709,15 @@ def main(argv=None) -> int:
         launches[k] = launches.get(k, 0) + v
     log(f"  phase 14 ran {time.perf_counter() - t_phase:.1f} s")
 
-    log("phase 15: summary")
+    t_phase = time.perf_counter()
+    log("phase 15: Parquet files in and out (the port's writer and codec, "
+        "the reader modes, q1 and the corpus from files, pruning, "
+        "partitions, input_file_name, a faulted write)")
+    for k, v in run_files(args.seed, q1_keep).items():
+        launches[k] = launches.get(k, 0) + v
+    log(f"  phase 15 ran {time.perf_counter() - t_phase:.1f} s")
+
+    log("phase 16: summary")
     log("  dec128_divide is CUDA work beyond the five TPU kernels: the "
         "reference divides DECIMAL128 values on its host")
     for r in rows:

@@ -63,6 +63,10 @@ def bucket_for(n: int) -> int:
     return _DEFAULT_POLICY.bucket_for(n)
 
 
+#: distinct keys from which encode_sorted_dict ranks them in C++
+NATIVE_SORT_MIN_KEYS = 4096
+
+
 def encode_sorted_dict(values: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
     """Order-preserving dictionary encode of an object array of str.
     Returns (codes int32, sorted-unique dictionary object array). Python
@@ -77,9 +81,16 @@ def encode_sorted_dict(values: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
     raw = np.fromiter((setd(s, len(table)) for s in values),
                       dtype=np.int32, count=n)
     keys = np.fromiter(table.keys(), dtype=object, count=len(table))
-    order = np.argsort(keys)
-    rank = np.empty(len(keys), dtype=np.int32)
-    rank[order] = np.arange(len(keys), dtype=np.int32)
+    rank = None
+    if len(keys) >= NATIVE_SORT_MIN_KEYS:
+        # the host library's UTF-32 sort of native/strcodec.cpp, as the
+        # reference's native.py ranks many distinct keys
+        from spark_rapids_tpu_torch.native import sort_rank_distinct
+        rank = sort_rank_distinct(keys)
+    if rank is None:
+        order = np.argsort(keys)
+        rank = np.empty(len(keys), dtype=np.int32)
+        rank[order] = np.arange(len(keys), dtype=np.int32)
     dictionary = np.empty(len(keys), dtype=object)
     dictionary[rank] = keys
     return rank[raw], dictionary

@@ -196,6 +196,53 @@ TEST_INJECT_RETRY_OOM = _conf(
     "SplitAndRetryOOM throws at the query's next retry blocks "
     "(reference: RmmSpark.forceRetryOOM).", str)
 
+TEST_FAULTS = _conf(
+    "spark.rapids.test.faults", "",
+    "Test-only fault injection: semicolon-separated "
+    "'<point>[@<op>]:<kind>:<prob-or-count>[:<seed>]' entries armed on "
+    "the process-wide fault registry at execute() (runtime/faults.py).",
+    str)
+
+
+# -- file IO (io/): the reference's keys and defaults ----------------------
+
+PARQUET_READER_TYPE = _conf(
+    "spark.rapids.sql.format.parquet.reader.type", "AUTO",
+    "PERFILE, COALESCING, MULTITHREADED or AUTO (reference: "
+    "GpuParquetScan reader modes).", str)
+
+AVRO_READER_TYPE = _conf(
+    "spark.rapids.sql.format.avro.reader.type", "AUTO",
+    "PERFILE, COALESCING, MULTITHREADED or AUTO.", str)
+
+MULTITHREADED_READ_NUM_THREADS = _conf(
+    "spark.rapids.sql.multiThreadedRead.numThreads", 20,
+    "Thread pool for multithreaded file prefetch.", int)
+
+READER_COALESCE_TARGET_BYTES = _conf(
+    "spark.rapids.sql.reader.coalescing.targetBytes", 256 << 20,
+    "Target bytes when stitching small files/row-groups into one decode.",
+    int)
+
+FILECACHE_ENABLED = _conf(
+    "spark.rapids.filecache.enabled", False,
+    "Cache decoded file batches in host memory keyed by (path, mtime, "
+    "scan options); repeated scans skip the decode (FileCache analog).",
+    _to_bool)
+
+FILECACHE_MAX_BYTES = _conf(
+    "spark.rapids.filecache.maxBytes", 1 << 30,
+    "LRU budget for the decoded-batch file cache.", int)
+
+#: per-format kill switches of the file scans (the reference's
+#: spark.rapids.sql.exec.<ScanNode> keys); the port has no CPU route, so
+#: a disabled scan raises
+FILE_SCAN_ENABLED = {
+    fmt: _conf(f"spark.rapids.sql.exec.{cls}", True,
+               f"Enable {fmt} scans on the accelerator.", _to_bool)
+    for fmt, cls in (("parquet", "ParquetScanNode"),
+                     ("avro", "AvroScanNode"))}
+
 
 class RapidsConf:
     """A typed view over a plain ``{key: value}`` dict."""

@@ -50,3 +50,24 @@ class SpillCorruptionError(ColumnarProcessingError):
 class SemaphoreTimeoutError(RapidsTpuError, TimeoutError):
     """TpuSemaphore acquisition timed out: ``max_tasks`` queries already
     hold the device and none released within the caller's timeout."""
+
+
+class KernelCrashError(ColumnarProcessingError):
+    """A device kernel failed with a non-OOM runtime fault (an injected
+    ``crash`` fault, runtime/faults.py)."""
+
+
+class ShuffleFetchError(ColumnarProcessingError):
+    """A block fetch failed in a retryable way (an injected ``fetch``
+    fault)."""
+
+
+class ShuffleTransportError(ShuffleFetchError):
+    """The transport connection itself failed (an injected
+    ``disconnect`` fault)."""
+
+
+class DeviceLostError(RapidsTpuError):
+    """The device was lost mid-query (an injected ``device_lost``
+    fault). The port has no health monitor yet (ROADMAP item 10): the
+    query fails."""

@@ -101,6 +101,64 @@ class TpuScanExec(TpuExec):
         return DeviceTable(host.names, cols, nrows, cap, self.device)
 
 
+class TpuFileScanExec(TpuExec):
+    """File scan on the device: the scan node's reader (its PERFILE,
+    COALESCING or MULTITHREADED prefetch) yields decoded host batches,
+    which land on the device here (reference: GpuFileSourceScanExec with
+    the MultiFile*PartitionReaders). As ``TpuScanExec``'s, a batch past
+    its share of the device budget lands as bounded chunks
+    (``scanChunks``), and every landing runs in the OOM retry loop.
+    Metrics: ``scanDecodeTime`` (seconds waited for the reader's next
+    decoded batch: the host decode, less what a MULTITHREADED prefetch
+    overlapped), ``scanChunks``, ``scanUploadTime`` (seconds),
+    ``scanBatches``, ``scanRows`` and, for Parquet, ``prunedRowGroups``."""
+
+    def __init__(self, scan_node, device: torch.device,
+                 bucket_policy: BucketPolicy):
+        self.scan_node = scan_node
+        self.device = device
+        self.bucket_policy = bucket_policy
+
+    def output_schema(self):
+        return self.scan_node.output_schema()
+
+    def execute(self):
+        import time
+
+        from spark_rapids_tpu_torch.runtime.memory import scan_chunks
+        from spark_rapids_tpu_torch.runtime.retry import retry_block
+        pruned0 = getattr(self.scan_node, "pruned_row_groups", 0)
+        batches = self.scan_node.execute_host()
+        while True:
+            t0 = time.perf_counter()
+            batch = next(batches, None)
+            self.add_metric("scanDecodeTime", time.perf_counter() - t0)
+            if batch is None:
+                break
+            chunks = scan_chunks(batch)
+            del batch
+            if len(chunks) > 1:
+                self.add_metric("scanChunks", len(chunks))
+            while chunks:
+                ch = chunks.pop(0)
+                t0 = time.perf_counter()
+                out = [retry_block(lambda c=ch: self._land(c))]
+                self.add_metric("scanUploadTime", time.perf_counter() - t0)
+                self.add_metric("scanBatches", 1)
+                self.add_metric("scanRows", ch.num_rows)
+                del ch
+                yield out.pop()
+        pruned = getattr(self.scan_node, "pruned_row_groups", 0) - pruned0
+        if pruned:
+            self.add_metric("prunedRowGroups", pruned)
+
+    def _land(self, host: HostTable) -> DeviceTable:
+        cap = self.bucket_policy.bucket_for(host.num_rows)
+        cols = [DeviceColumn.from_host(hc, cap, self.device)
+                for hc in host.columns]
+        return DeviceTable(host.names, cols, host.num_rows, cap, self.device)
+
+
 class TpuRangeExec(TpuExec):
     """spark.range made on the device: batches of ``batch_rows`` rows (the
     last one shorter), each an arange in its capacity bucket; a range with

@@ -89,6 +89,24 @@ def is_in(e, *items):
     return In(_e(e), [_e(i) for i in items])
 
 
+# input-file provenance (ops/inputfile.py)
+def input_file_name():
+    """Name of the file feeding the current row ('' when no file scan is
+    in scope, Spark's semantics)."""
+    from spark_rapids_tpu_torch.ops.inputfile import InputFileName
+    return InputFileName()
+
+
+def input_file_block_start():
+    from spark_rapids_tpu_torch.ops.inputfile import InputFileBlockStart
+    return InputFileBlockStart()
+
+
+def input_file_block_length():
+    from spark_rapids_tpu_torch.ops.inputfile import InputFileBlockLength
+    return InputFileBlockLength()
+
+
 # window functions (ops/window.py): row_number().over(spec)
 def row_number():
     from spark_rapids_tpu_torch.ops.window import RowNumber

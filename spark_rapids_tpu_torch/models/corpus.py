@@ -7,7 +7,7 @@ KeyError."""
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 from spark_rapids_tpu_torch.columnar import HostTable
 from spark_rapids_tpu_torch.datagen import scale_test_specs
@@ -34,16 +34,24 @@ class Queries(dict):
         raise KeyError(name)
 
 
-def build_queries(s, tables: Dict[str, HostTable]) -> Queries:
+def build_queries(s, tables: Dict[str, HostTable],
+                  paths: Optional[Dict[str, str]] = None) -> Queries:
     """The corpus queries the port runs, over ``tables`` ({name:
-    HostTable}) through session ``s``."""
+    HostTable}) through session ``s``. With ``paths`` ({name: directory},
+    as ``write_corpus_files`` returns), each table comes from its Parquet
+    directory through the file scan instead."""
     from spark_rapids_tpu_torch import functions as F
     from spark_rapids_tpu_torch.ops.expr import col, lit
     from spark_rapids_tpu_torch.plan import from_host_table
 
-    cust = lambda: from_host_table(tables["customer"], s)  # noqa: E731
-    orders = lambda: from_host_table(tables["orders"], s)  # noqa: E731
-    li = lambda: from_host_table(tables["lineitem"], s)    # noqa: E731
+    if paths is not None:
+        cust = lambda: s.read_parquet(paths["customer"])   # noqa: E731
+        orders = lambda: s.read_parquet(paths["orders"])   # noqa: E731
+        li = lambda: s.read_parquet(paths["lineitem"])     # noqa: E731
+    else:
+        cust = lambda: from_host_table(tables["customer"], s)  # noqa: E731
+        orders = lambda: from_host_table(tables["orders"], s)  # noqa: E731
+        li = lambda: from_host_table(tables["lineitem"], s)    # noqa: E731
 
     def q1():  # pricing summary (TPC-H q1 shape)
         import datetime as _dt
@@ -457,15 +465,19 @@ def sql_texts():
     }
 
 
-def build_sql_queries(s, tables: Dict[str, HostTable]) -> Queries:
+def build_sql_queries(s, tables: Dict[str, HostTable],
+                      paths: Optional[Dict[str, str]] = None) -> Queries:
     """The corpus queries from SQL text through ``s.sql()`` over temp views
     of ``tables`` ({name: HostTable}): the same queries as
-    ``build_queries``, entering through the parser and the analyzer.
-    (The reference's ``paths=`` form, views over parquet scans, waits for
-    the IO layer.)"""
+    ``build_queries``, entering through the parser and the analyzer. With
+    ``paths`` the views are Parquet scans of those directories."""
     from spark_rapids_tpu_torch.plan import from_host_table
-    for name, table in tables.items():
-        from_host_table(table, s).create_or_replace_temp_view(name)
+    if paths is not None:
+        for name, tdir in paths.items():
+            s.read_parquet(tdir).create_or_replace_temp_view(name)
+    else:
+        for name, table in tables.items():
+            from_host_table(table, s).create_or_replace_temp_view(name)
     return Queries({name: (lambda text=text: s.sql(text))
                     for name, text in sql_texts().items()})
 
@@ -485,3 +497,30 @@ def corpus_tables(scale_factor: float, seed: int) -> Dict[str, HostTable]:
                               [g.generate(n, seed, spec.name, c)
                                for c, g in gens])
     return out
+
+
+def write_corpus_files(tables: Dict[str, HostTable], base_dir: str,
+                       files_per_table: int, **write_options
+                       ) -> Dict[str, str]:
+    """Write each table as ``files_per_table`` Parquet files with the
+    port's writer (contiguous row slices, one file per chunk directory
+    ``c000``, ``c001``, ..., so the sorted file walk keeps the row order),
+    as ``scale_test.py::write_host_corpus`` does. ``write_options`` go to
+    ``io/parquet.py::write_parquet`` (``compression``,
+    ``row_group_rows``). Returns {name: table directory}."""
+    import os
+
+    from spark_rapids_tpu_torch.io.parquet import write_parquet
+    paths = {}
+    for name, table in tables.items():
+        tdir = os.path.join(base_dir, name)
+        n = table.num_rows
+        chunk = max(1, (n + files_per_table - 1) // files_per_table)
+        start = i = 0
+        while start < n:
+            write_parquet(table.slice(start, min(chunk, n - start)),
+                          os.path.join(tdir, f"c{i:03d}"), **write_options)
+            start += chunk
+            i += 1
+        paths[name] = tdir
+    return paths

@@ -39,13 +39,16 @@ def lineitem_table(num_rows: int, seed: int = 0) -> HostTable:
     return HostTable(list(cols.keys()), list(cols.values()))
 
 
-def q1_dataframe(session, table: HostTable, num_batches: int = 1):
-    """TPC-H q1: filter -> project -> group-by aggregate -> sort."""
+def q1_dataframe(session, table, num_batches: int = 1):
+    """TPC-H q1: filter -> project -> group-by aggregate -> sort, over
+    ``table``: a HostTable (in ``num_batches`` batches) or a DataFrame,
+    such as lineitem read from Parquet files."""
     from spark_rapids_tpu_torch import functions as F
     from spark_rapids_tpu_torch.ops.expr import col, lit
-    from spark_rapids_tpu_torch.plan import from_host_table
+    from spark_rapids_tpu_torch.plan import DataFrame, from_host_table
 
-    df = from_host_table(table, session, num_batches)
+    df = (table if isinstance(table, DataFrame)
+          else from_host_table(table, session, num_batches))
     return (
         df.filter(col("l_shipdate") <= lit(Q1_CUTOFF_DAYS, T.DATE))
         .select(

@@ -7,8 +7,9 @@ carries only the columns referenced above it (plus its own keys,
 predicates and sort orders). The pass rewrites BOUND expressions
 (BoundReference ordinals) and keeps output names exactly: the root's
 schema is unchanged. Where the reference wraps a LocalScan in a Project,
-the port narrows the scan itself (``LocalScan.columns``), so a column no
-query node reads is never uploaded: a DECIMAL column, a wide string
+the port narrows the scan itself (``LocalScan.columns``, a file scan's
+``columns=``), so a column no query node reads is never uploaded (nor,
+from a file, decoded): a DECIMAL column, a wide string
 column, anything beside the keys and measures.
 """
 
@@ -52,6 +53,24 @@ def _keep_project(node: P.PlanNode, keep: List[int]) -> P.PlanNode:
     return P.Project(node, exprs)
 
 
+def _narrow_file_scan(node, names: List[str]) -> P.PlanNode:
+    """The file scan reading only ``names``: its ``columns=`` narrowed, so
+    an unread column is never decoded. The input-file columns, which the
+    scan appends as a block, stay when any is read; a Project drops what
+    the narrowed scan still carries beyond ``names``."""
+    from spark_rapids_tpu_torch.ops.inputfile import FILE_INFO_COLS
+    data = [n for n in names if n not in FILE_INFO_COLS]
+    if not data:
+        data = [n for n, _ in node.output_schema()
+                if n not in FILE_INFO_COLS][:1]
+    new = node.with_columns(data)
+    new.provide_file_info = any(n in FILE_INFO_COLS for n in names)
+    got = [n for n, _ in new.output_schema()]
+    if got == names:
+        return new
+    return _keep_project(new, [got.index(n) for n in names])
+
+
 def _kept_of(creq: set, node: P.PlanNode) -> List[int]:
     n = len(node.output_schema())
     return sorted(frozenset(o for o in creq if o < n) or {0})
@@ -71,6 +90,12 @@ def _visit(node: P.PlanNode, required: FrozenSet[int]) -> P.PlanNode:
         if kept == list(range(nall)):
             return node
         return node.with_columns(kept)
+
+    from spark_rapids_tpu_torch.io.common import FileScanNode
+    if isinstance(node, FileScanNode):
+        if kept == list(range(nall)):
+            return node
+        return _narrow_file_scan(node, [schema[i][0] for i in kept])
 
     if isinstance(node, P.Project):
         exprs = [node.exprs[i] for i in kept]

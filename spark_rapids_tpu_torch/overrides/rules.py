@@ -1,7 +1,8 @@
 """Tag and convert plan nodes into device execs (port of the LocalScan,
-RangeNode, Project, Filter, Aggregate, Sort, Join, Limit, Union, Expand,
-Sample, CachedRelation, TakeOrderedAndProject, WindowNode,
-WindowGroupLimit and Exchange rules of
+file scan (``register_file_scan``, ``_convert_file_scan``), RangeNode,
+Project, Filter, Aggregate, Sort, Join, Limit, Union, Expand, Sample,
+CachedRelation, TakeOrderedAndProject, WindowNode, WindowGroupLimit and
+Exchange rules of
 ``spark_rapids_tpu/overrides/rules.py``, the column pruning and the
 window group-limit rewrite its ``apply_overrides`` runs first, and
 ``lore.assign_lore_ids``: every exec gets its plan position, pre-order
@@ -42,8 +43,38 @@ from spark_rapids_tpu_torch.overrides.pruning import prune_plan
 from spark_rapids_tpu_torch.plan import nodes as P
 
 
+#: FileScanNode subclasses with a device rule (io/__init__.py registers
+#: them when the io package imports)
+_FILE_SCANS: dict = {}
+
+
+def register_file_scan(cls) -> None:
+    """Register a FileScanNode subclass; its kill switch is
+    ``spark.rapids.sql.exec.<ClassName>`` (conf.FILE_SCAN_ENABLED)."""
+    _FILE_SCANS[cls] = C.FILE_SCAN_ENABLED[cls.format_name]
+
+
+def _tag_file_scan(node, conf: C.RapidsConf) -> None:
+    entry = _FILE_SCANS.get(type(node))
+    if entry is None:
+        raise NotImplementedError(
+            f"{type(node).__name__} scans are not ported to "
+            "spark_rapids_tpu_torch")
+    if not conf.get_entry(entry):
+        raise NotImplementedError(
+            f"exec {type(node).__name__} is disabled by conf ({entry.key}="
+            "false) and the port has no CPU route for it")
+
+
+def _convert_file_scan(node, device, policy) -> TpuExec:
+    return xbasic.TpuFileScanExec(node, device, policy)
+
+
 def _tag(node: P.PlanNode, conf: C.RapidsConf) -> None:
-    if isinstance(node, P.Aggregate):
+    from spark_rapids_tpu_torch.io.common import FileScanNode
+    if isinstance(node, FileScanNode):
+        _tag_file_scan(node, conf)
+    elif isinstance(node, P.Aggregate):
         for _, fn in node.agg_specs:
             check_agg_supported(fn)
     elif isinstance(node, P.Sort) and not node.global_sort:
@@ -303,6 +334,8 @@ def _convert(node: P.PlanNode, conf: C.RapidsConf, device) -> TpuExec:
     children = [_convert(c, conf, device) for c in node.children]
     if isinstance(node, P.LocalScan):
         return TpuScanExec(node.batches, device, policy, node.columns)
+    if type(node) in _FILE_SCANS:
+        return _convert_file_scan(node, device, policy)
     if isinstance(node, P.RangeNode):
         return xbasic.TpuRangeExec(node.start, node.end, node.step,
                                    node.batch_rows, node.col_name, device,

@@ -2,7 +2,8 @@
 range_df part of ``spark_rapids_tpu/plan/dataframe.py``: select,
 with_column, filter, group_by, agg, sort, limit, union, sample, cache,
 join (on column names, on a condition, or a cross join), with_windows,
-repartition, columns, schema and temp views): builds plan nodes; a
+repartition, columns, schema, count, temp views and the writers,
+``write_parquet`` and ``write.format(...)``): builds plan nodes; a
 session executes them."""
 
 from __future__ import annotations
@@ -130,16 +131,84 @@ class DataFrame:
         mode = "hash" if keys else "roundrobin"
         return self._wrap(P.Exchange(self.plan, mode, num_partitions, keys))
 
+    # -- writers (reference: GpuDataWritingCommandExec) ----------------------
+    def _write(self, fmt: str, path: str, partition_by, options) -> HostTable:
+        """Run a WriteFiles command: the child runs through the overrides
+        on the device, the write commits atomically (staging, rename,
+        ``_SUCCESS``), and the stats row returns."""
+        if self.session is None:
+            raise ValueError("a write runs through a session")
+        return self.session.execute(
+            P.WriteFiles(self.plan, fmt, path, partition_by, options))
+
+    def write_parquet(self, path: str, partition_by=None, **options):
+        return self._write("parquet", path, partition_by, options)
+
+    def write_orc(self, path: str, partition_by=None, **options):
+        return self._write("orc", path, partition_by, options)
+
+    def write_csv(self, path: str, partition_by=None, **options):
+        return self._write("csv", path, partition_by, options)
+
+    def write_json(self, path: str, partition_by=None, **options):
+        return self._write("json", path, partition_by, options)
+
+    def write_hive_text(self, path: str, partition_by=None, **options):
+        return self._write("hive_text", path, partition_by, options)
+
+    @property
+    def write(self) -> "DataFrameWriter":
+        """``df.write.format("parquet").option(...).partition_by(...)
+        .save(path)``."""
+        return DataFrameWriter(self)
+
     def collect_table(self) -> HostTable:
         if self.session is None:
             raise ValueError("a DataFrame runs through a session: the port "
                              "has no CPU execution of plans")
         return self.session.execute(self.plan)
 
+    def count(self) -> int:
+        return self.collect_table().num_rows
+
     def collect(self):
         t = self.collect_table()
         cols = [c.to_pylist() for c in t.columns]
         return [tuple(c[i] for c in cols) for i in range(t.num_rows)]
+
+
+class DataFrameWriter:
+    """The pyspark writer surface over ``DataFrame._write``: Parquet
+    writes; the other formats raise naming their ROADMAP item."""
+
+    def __init__(self, df: DataFrame):
+        self._df = df
+        self._format = "parquet"
+        self._options: dict = {}
+        self._partition_by = None
+
+    def format(self, fmt: str) -> "DataFrameWriter":
+        self._format = fmt.lower()
+        return self
+
+    def option(self, key: str, value) -> "DataFrameWriter":
+        self._options[key] = value
+        return self
+
+    def options(self, **opts) -> "DataFrameWriter":
+        self._options.update(opts)
+        return self
+
+    def partition_by(self, *cols) -> "DataFrameWriter":
+        self._partition_by = list(cols)
+        return self
+
+    def save(self, path: str) -> HostTable:
+        return self._df._write(self._format, path, self._partition_by,
+                               self._options)
+
+    def parquet(self, path: str) -> HostTable:
+        return self.format("parquet").save(path)
 
 
 class GroupedData:

@@ -408,3 +408,83 @@ class Exchange(PlanNode):
 
     def estimate_bytes(self):
         return self.children[0].estimate_bytes()
+
+
+class WriteFiles(PlanNode):
+    """A data-writing command (reference: GpuDataWritingCommandExec with
+    GpuFileFormatDataWriter): the session runs the child (through the
+    overrides, on the device), writes its rows under the transactional
+    commit protocol (io/committer.py: staging under
+    ``_temporary/<job>/<attempt>/``, atomic per-file promotion at task
+    commit, a ``_SUCCESS`` manifest at job commit, full rollback on
+    abort), and returns one stats row (numFiles, numRows, numBytes).
+
+    The job id is fixed when the node is made, so running the SAME node
+    again is idempotent: a run that finds its own job id in the
+    destination's manifest returns the recorded stats and writes
+    nothing; a run after a failed one re-stages the same file names."""
+
+    def __init__(self, child: PlanNode, fmt: str, path: str,
+                 partition_by: Optional[Sequence[str]] = None,
+                 options: Optional[dict] = None):
+        import uuid
+        self.children = (child,)
+        self.fmt = fmt
+        self.path = path
+        self.partition_by = list(partition_by) if partition_by else None
+        self.options = dict(options or {})
+        #: idempotency key: stable across runs of this plan node
+        self.job_id = uuid.uuid4().hex[:16]
+        self._attempt = 0
+
+    def output_schema(self):
+        return [("numFiles", T.LONG), ("numRows", T.LONG),
+                ("numBytes", T.LONG)]
+
+    def _writer(self):
+        if self.fmt == "parquet":
+            from spark_rapids_tpu_torch.io.parquet import write_parquet
+            return write_parquet
+        from spark_rapids_tpu_torch.sources import not_ported
+        raise not_ported("hive-text" if self.fmt == "hive_text"
+                         else self.fmt)
+
+    @staticmethod
+    def _stats_row(num_files: int, num_rows: int, num_bytes: int
+                   ) -> HostTable:
+        import numpy as np
+
+        from spark_rapids_tpu_torch.columnar import HostColumn
+        return HostTable(
+            ["numFiles", "numRows", "numBytes"],
+            [HostColumn(T.LONG, np.asarray([v], dtype=np.int64))
+             for v in (num_files, num_rows, num_bytes)])
+
+    def run(self, session) -> HostTable:
+        """Run the child through ``session``, then the committed write;
+        returns the stats row."""
+        from spark_rapids_tpu_torch.io.committer import (
+            WriteJob,
+            read_manifest,
+        )
+        writer = self._writer()
+        manifest = read_manifest(self.path)
+        if manifest is not None and manifest.get("jobId") == self.job_id:
+            return self._stats_row(manifest["numFiles"],
+                                   manifest["numRows"],
+                                   manifest["numBytes"])
+        table = session.execute(self.children[0])
+        job = WriteJob(self.path, job_id=self.job_id, attempt=self._attempt)
+        self._attempt += 1
+        try:
+            writer(table, self.path, partition_by=self.partition_by,
+                   committer=job, **self.options)
+            final_files = job.commit_task()
+            manifest = job.commit_job(num_rows=table.num_rows)
+        except BaseException:
+            # any failure (an injected fault, a full disk) rolls the job
+            # back: promoted files deleted, staging swept
+            job.abort()
+            raise
+        return self._stats_row(len(final_files), table.num_rows,
+                               manifest["numBytes"])

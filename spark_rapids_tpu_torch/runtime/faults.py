@@ -1,0 +1,310 @@
+"""Fault injection and recovery bookkeeping (port of the registry part of
+``spark_rapids_tpu/runtime/faults.py``): one conf-driven registry of
+NAMED fault points (``spark.rapids.test.faults``), each armed with a
+deterministic seeded schedule and a per-point fire counter, and the
+recovery counters and backoff loop the engine's retrying readers share.
+
+* ``FAULTS``: the process-wide :class:`FaultRegistry`; sites call
+  :func:`fault_point` with a name registered in :data:`FAULT_POINTS`.
+* ``RECOVERY``: counters of every recovery action, in the ``recovery``
+  metric scope.
+* :func:`backoff_retry`: the exponential-backoff retry loop.
+
+The port declares the points its IO slice fires (the scan's per-file
+decode, the writer's per-file write, the committer's promotion and
+abort). The reference's per-operator circuit breaker and the exec fault
+boundaries demote work to a CPU path; they wait for ``health.py``
+(ROADMAP item 10), as does the ``race`` kind, which needs the Delta log
+(item 12).
+
+Spec grammar, entries separated by ``;``:
+``<point>[@<op>]:<kind>:<prob-or-count>[:<seed>]``, where an amount with
+a ``.`` is a probability in (0, 1] and one without is a count of fires.
+"""
+
+from __future__ import annotations
+
+import os
+import random
+import time
+from contextlib import contextmanager
+from typing import Dict, List, Optional
+
+from spark_rapids_tpu_torch.errors import (
+    ColumnarProcessingError,
+    DeviceLostError,
+    KernelCrashError,
+    RetryOOM,
+    ShuffleFetchError,
+    ShuffleTransportError,
+)
+from spark_rapids_tpu_torch.lockorder import ordered_lock
+
+#: injectable fault kinds and the failure each simulates
+FAULT_KINDS = (
+    "oom",          # device allocation failure (RetryOOM)
+    "crash",        # non-OOM kernel failure (KernelCrashError)
+    "fetch",        # block fetch failure (ShuffleFetchError)
+    "disconnect",   # transport connection drop (ShuffleTransportError)
+    "corrupt",      # bit-flip the bytes the site passes
+    "slow",         # a short stall (sleep)
+    "wedge",        # a long stall inside the site
+    "device_lost",  # fatal device loss (DeviceLostError)
+    "race",         # a lost optimistic-concurrency race (Delta; not ported)
+)
+
+#: registered fault points: name -> (module that hosts the call site, doc)
+FAULT_POINTS: Dict[str, tuple] = {
+    "io.read.file": (
+        "spark_rapids_tpu_torch/io/common.py",
+        "file-source per-file decode"),
+    "io.write.file": (
+        "spark_rapids_tpu_torch/io/writer.py",
+        "writer per-file write (both branches: the single file "
+        "part-00000 and every dynamic-partition file), before the staged "
+        "write"),
+    "io.write.commit": (
+        "spark_rapids_tpu_torch/io/committer.py",
+        "task commit, before each staged file's atomic promotion "
+        "(os.replace into the final destination)"),
+    "io.write.abort": (
+        "spark_rapids_tpu_torch/io/committer.py",
+        "write-job abort, before the rollback and the staging sweep"),
+}
+
+_SLOW_SLEEP_S = 0.05
+#: how long a ``wedge`` fault stalls (SRT_WEDGE_SLEEP_S overrides)
+_WEDGE_SLEEP_S = 2.0
+
+
+class _ArmedFault:
+    """One armed '<point>[@<op>]:<kind>:<prob-or-count>[:<seed>]' entry."""
+
+    __slots__ = ("point", "op", "kind", "prob", "remaining", "rng", "fired")
+
+    def __init__(self, point: str, op: Optional[str], kind: str,
+                 prob: Optional[float], count: Optional[int], seed: int):
+        self.point = point
+        self.op = op
+        self.kind = kind
+        self.prob = prob
+        self.remaining = count
+        self.rng = random.Random(seed)
+        self.fired = 0
+
+    def should_fire(self) -> bool:
+        if self.remaining is not None:
+            if self.remaining <= 0:
+                return False
+            self.remaining -= 1
+            return True
+        return self.rng.random() < (self.prob or 0.0)
+
+
+def parse_fault_spec(spec: str) -> List[_ArmedFault]:
+    """Parse the ``spark.rapids.test.faults`` value. Raises on unknown
+    points and kinds, so a mistyped schedule fails loudly."""
+    out: List[_ArmedFault] = []
+    for i, entry in enumerate(e.strip() for e in spec.split(";")):
+        if not entry:
+            continue
+        parts = entry.split(":")
+        if len(parts) not in (3, 4):
+            raise ColumnarProcessingError(
+                f"bad fault spec entry {entry!r} (want "
+                "<point>[@<op>]:<kind>:<prob-or-count>[:<seed>])")
+        target, kind, amount = parts[0], parts[1].lower(), parts[2]
+        point, _, op = target.partition("@")
+        if point not in FAULT_POINTS:
+            raise ColumnarProcessingError(
+                f"unknown fault point {point!r} (known: "
+                f"{', '.join(sorted(FAULT_POINTS))})")
+        if kind not in FAULT_KINDS:
+            raise ColumnarProcessingError(
+                f"unknown fault kind {kind!r} (known: "
+                f"{', '.join(FAULT_KINDS)})")
+        if kind == "race":
+            raise NotImplementedError(
+                "fault kind 'race' (a Delta optimistic-concurrency race) "
+                "needs the Delta log, which is not ported (ROADMAP item "
+                "12)")
+        prob = count = None
+        if "." in amount:
+            prob = float(amount)
+            if not 0.0 < prob <= 1.0:
+                raise ColumnarProcessingError(
+                    f"fault probability {prob} outside (0, 1]")
+        else:
+            count = int(amount)
+            if count < 1:
+                raise ColumnarProcessingError(
+                    f"fault count {count} must be >= 1")
+        seed = int(parts[3]) if len(parts) == 4 else i
+        out.append(_ArmedFault(point, op or None, kind, prob, count, seed))
+    return out
+
+
+class FaultRegistry:
+    """Process-wide armed faults and per-point fire counters."""
+
+    def __init__(self):
+        self._lock = ordered_lock("faults.registry")
+        self._armed: List[_ArmedFault] = []
+        self._spec = ""
+        self._counters: Dict[str, int] = {}
+
+    def arm(self, spec: str) -> None:
+        """(Re-)arm from a spec string. Re-arming the SAME spec is a no-op,
+        so per-query executes do not reset a seeded schedule or its
+        counters; a different spec replaces everything."""
+        with self._lock:
+            if spec == self._spec:
+                return
+            self._spec = spec
+            self._armed = parse_fault_spec(spec) if spec else []
+            self._counters = {}
+
+    def disarm(self) -> None:
+        with self._lock:
+            self._spec = ""
+            self._armed = []
+            self._counters = {}
+
+    @contextmanager
+    def suspended(self):
+        """Disarm for the block without losing the armed entries' random
+        state or counters."""
+        with self._lock:
+            saved = (self._spec, self._armed, self._counters)
+            self._spec, self._armed, self._counters = "", [], {}
+        try:
+            yield
+        finally:
+            with self._lock:
+                self._spec, self._armed, self._counters = saved
+
+    @property
+    def armed(self) -> bool:
+        return bool(self._armed)
+
+    def counters(self) -> Dict[str, int]:
+        with self._lock:
+            return dict(self._counters)
+
+    def fire(self, point: str, op: Optional[str] = None, data=None):
+        """Evaluate every armed entry matching ``point`` (and ``op`` when
+        the entry names one). Raises the matched kind's exception;
+        ``corrupt`` returns a damaged copy of ``data``; ``slow`` and
+        ``wedge`` sleep. Returns ``data``, possibly damaged."""
+        if not self._armed:
+            return data
+        with self._lock:
+            hits = [a for a in self._armed
+                    if a.point == point
+                    and (a.op is None or a.op == op)
+                    # corruption needs bytes: a data-less call at the
+                    # same point does not consume the schedule
+                    and (a.kind != "corrupt" or data is not None)
+                    and a.should_fire()]
+            for a in hits:
+                a.fired += 1
+                key = a.point if a.op is None else f"{a.point}@{a.op}"
+                self._counters[key] = self._counters.get(key, 0) + 1
+        for a in hits:
+            where = point if op is None else f"{point}[{op}]"
+            if a.kind == "oom":
+                raise RetryOOM(f"injected device OOM at {where}")
+            if a.kind == "crash":
+                raise KernelCrashError(f"injected kernel crash at {where}")
+            if a.kind == "fetch":
+                raise ShuffleFetchError(f"injected fetch error at {where}")
+            if a.kind == "disconnect":
+                raise ShuffleTransportError(
+                    f"injected transport disconnect at {where}")
+            if a.kind == "device_lost":
+                raise DeviceLostError(f"injected device loss at {where}")
+            if a.kind == "wedge":
+                time.sleep(float(os.environ.get("SRT_WEDGE_SLEEP_S",
+                                                _WEDGE_SLEEP_S)))
+            elif a.kind == "slow":
+                time.sleep(_SLOW_SLEEP_S)
+            elif a.kind == "corrupt" and data is not None and len(data):
+                buf = bytearray(data)
+                pos = a.rng.randrange(len(buf))
+                buf[pos] ^= 0xFF
+                data = bytes(buf)
+        return data
+
+
+FAULTS = FaultRegistry()
+
+
+def fault_point(name: str, op: Optional[str] = None, data=None):
+    """The site marker for injectable faults: every call names a point
+    registered in :data:`FAULT_POINTS`. Disarmed, it costs one attribute
+    read."""
+    if not FAULTS._armed:
+        return data
+    return FAULTS.fire(name, op=op, data=data)
+
+
+# -- recovery accounting -------------------------------------------------------
+
+class RecoveryStats:
+    """Process-wide counters of every recovery action, in the unified
+    metric registry's ``recovery`` scope (obs/metrics.py)."""
+
+    FIELDS = ("fetch_retries", "peer_exclusions", "recomputed_maps",
+              "demotions", "query_replays")
+
+    def __init__(self):
+        from spark_rapids_tpu_torch.obs.metrics import (
+            metric_scope,
+            register_metric,
+        )
+        self._lock = ordered_lock("faults.recovery")
+        self._counts = metric_scope("recovery")
+        for f in self.FIELDS:
+            register_metric(f, "count", "ESSENTIAL",
+                            f"recovery action counter ({f})")
+            self._counts.setdefault(f, 0)
+
+    def bump(self, field: str, n: int = 1) -> None:
+        if field not in self._counts:
+            raise KeyError(field)
+        with self._lock:
+            self._counts.add(field, n)
+
+    def snapshot(self) -> Dict[str, int]:
+        with self._lock:
+            return dict(self._counts)
+
+    def reset(self) -> None:
+        with self._lock:
+            for f in self.FIELDS:
+                self._counts[f] = 0
+
+
+RECOVERY = RecoveryStats()
+
+
+def backoff_retry(fn, *, max_retries: int, wait_s: float,
+                  backoff_mult: float, retryable, on_failure=None):
+    """Call ``fn`` until it succeeds: each failure of a ``retryable``
+    type bumps ``RECOVERY.fetch_retries`` and calls ``on_failure(exc,
+    attempt)`` (a truthy return stops retrying), then sleeps ``wait_s``
+    times ``backoff_mult`` to the attempt. After ``max_retries`` retries
+    the last exception re-raises."""
+    attempt = 0
+    wait = wait_s
+    while True:
+        try:
+            return fn()
+        except retryable as e:
+            attempt += 1
+            RECOVERY.bump("fetch_retries")
+            stop = on_failure(e, attempt) if on_failure is not None else False
+            if stop or attempt > max_retries:
+                raise
+            time.sleep(wait)
+            wait *= backoff_mult

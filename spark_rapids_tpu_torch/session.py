@@ -9,8 +9,14 @@ Each session starts the process's device manager for its device
 (runtime/device_manager.py), configures the memory arbiter's budget from
 its conf per query (runtime/memory.py), arms
 ``spark.rapids.sql.test.injectRetryOOM`` and sets the OOM retries; its
-``last_metrics()`` adds the query's memory, spill and semaphore
-counters."""
+``last_metrics()`` adds the query's memory, spill, semaphore and write
+counters.
+
+File sources: ``read_parquet``, ``read_avro``, ``read`` (the provider
+SPI's ``DataFrameReader``) and ``read_format``; a ``WriteFiles`` plan runs
+its child through the overrides, then the committed write, and returns the
+stats row. The other formats' readers raise naming their ROADMAP item.
+``spark.rapids.test.faults`` arms the fault registry at each execute."""
 
 from __future__ import annotations
 
@@ -27,7 +33,7 @@ from spark_rapids_tpu_torch.execs.base import TpuExec
 from spark_rapids_tpu_torch.plan import nodes as P
 
 #: the process-wide metric scopes whose per-query change last_metrics adds
-RUNTIME_SCOPES = ("memory", "spill", "semaphore")
+RUNTIME_SCOPES = ("memory", "spill", "semaphore", "write")
 
 
 class TorchSession:
@@ -90,17 +96,76 @@ class TorchSession:
         from spark_rapids_tpu_torch.plan.dataframe import range_df
         return range_df(start, end, step, self)
 
+    # -- file sources --------------------------------------------------------
+    def read_parquet(self, *paths, **options):
+        """A DataFrame over Parquet files (globs and directories expand;
+        Hive ``key=value`` directories become partition columns).
+        ``columns=``, ``filters=`` (pyarrow's forms) and ``reader_type=``
+        as the reference's."""
+        from spark_rapids_tpu_torch.io.parquet import ParquetScanNode
+        from spark_rapids_tpu_torch.plan import DataFrame
+        return DataFrame(ParquetScanNode(list(paths), self.conf, **options),
+                         self)
+
+    @property
+    def read(self):
+        """``session.read.format("parquet").load(path)``: the reader
+        surface, routed through the source provider SPI."""
+        from spark_rapids_tpu_torch.sources import DataFrameReader
+        return DataFrameReader(self)
+
+    def read_format(self, fmt: str, *paths, **options):
+        from spark_rapids_tpu_torch.plan import DataFrame
+        from spark_rapids_tpu_torch.sources import create_scan
+        return DataFrame(create_scan(fmt, list(paths), self.conf, **options),
+                         self)
+
+    def read_avro(self, *paths, **options):
+        return self.read_format("avro", *paths, **options)
+
+    def read_csv(self, *paths, **options):
+        return self.read_format("csv", *paths, **options)
+
+    def read_json(self, *paths, **options):
+        return self.read_format("json", *paths, **options)
+
+    def read_orc(self, *paths, **options):
+        return self.read_format("orc", *paths, **options)
+
+    def read_hive_text(self, *paths, **options):
+        return self.read_format("hive-text", *paths, **options)
+
+    def read_delta(self, path, **options):
+        return self.read_format("delta", path, **options)
+
+    def read_iceberg(self, path, **options):
+        return self.read_format("iceberg", path, **options)
+
     def execute(self, plan: P.PlanNode) -> HostTable:
         """Run ``plan`` through the placement layer's drain (speculative
         sizing and its replays, the device semaphore). The replay count
-        is ``last_metrics()``'s ``speculationReplays``."""
+        is ``last_metrics()``'s ``speculationReplays``. A ``WriteFiles``
+        plan runs its child so, then writes and commits its files."""
+        from spark_rapids_tpu_torch.conf import TEST_FAULTS
         from spark_rapids_tpu_torch.obs.metrics import scopes_snapshot
+        from spark_rapids_tpu_torch.overrides.input_file import (
+            rewrite_input_file_exprs,
+        )
         from spark_rapids_tpu_torch.overrides.rules import convert
+        from spark_rapids_tpu_torch.runtime.faults import FAULTS
         from spark_rapids_tpu_torch.runtime.memory import MEMORY
         from spark_rapids_tpu_torch.runtime.retry import MAX_RETRIES_VAR
+        FAULTS.arm(str(self.conf.get_entry(TEST_FAULTS) or ""))
+        if isinstance(plan, P.WriteFiles):
+            before = scopes_snapshot()
+            try:
+                return plan.run(self)
+            finally:
+                self._last_runtime = _scope_delta(before, scopes_snapshot())
         self.runtime  # noqa: B018 (starts the device manager)
         MEMORY.configure(self.conf)
-        root = convert(plan, self.conf, self.device)
+        root = convert(rewrite_input_file_exprs(plan), self.conf,
+                       self.device)
         self._last_root, self._last_replays = root, 0
         _arm_injection(str(self.conf.get_entry(TEST_INJECT_RETRY_OOM)))
         tok = MAX_RETRIES_VAR.set(int(self.conf.get_entry(

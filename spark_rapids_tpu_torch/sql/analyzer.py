@@ -133,7 +133,9 @@ class Analyzer:
             return df
         if isinstance(stmt, A.DropView):
             cat = self.session.catalog
-            if not cat.drop_temp_view(stmt.name) and not stmt.if_exists:
+            dropped_view = cat.drop_temp_view(stmt.name)
+            dropped = cat.drop_table(stmt.name) or dropped_view
+            if not dropped and not stmt.if_exists:
                 raise self.err(f"view {stmt.name!r} not found", stmt)
             import numpy as np
 

@@ -1,10 +1,13 @@
 """Session catalog: temp views (port of the temp-view part of
 ``spark_rapids_tpu/sql/catalog.py``, Spark's SessionCatalog slice).
 
-A temp view holds a plan; ``SELECT ... FROM name`` reads that plan. Views
-over file-format tables (``register_table``, ``CREATE TEMP VIEW ...
-USING fmt``) need the IO layer and session-scoped functions need
-``udf.py``; neither is ported, so both raise NotImplementedError."""
+A temp view holds a plan; ``SELECT ... FROM name`` reads that plan.
+File-format tables (``register_table``, ``CREATE TEMP VIEW ... USING
+fmt``) resolve lazily through the source provider SPI
+(``sources.create_scan``), so each lookup scans the files as they are
+then; views and tables share one name space, views first. Session-scoped
+functions need ``udf.py``, which is not ported: registering one raises
+NotImplementedError."""
 
 from __future__ import annotations
 
@@ -18,22 +21,46 @@ class SessionCatalog:
         self._session = session
         #: name -> PlanNode (shared subtree; plan nodes are not mutated)
         self._views: Dict[str, object] = {}
+        #: name -> (fmt, paths, options), resolved through sources.py
+        self._tables: Dict[str, tuple] = {}
 
     # -- temp views ----------------------------------------------------------
     def create_or_replace_temp_view(self, name: str, df) -> None:
+        # a same-name table goes, or it would outlive a later DROP VIEW
+        self._tables.pop(name.lower(), None)
         self._views[name.lower()] = getattr(df, "plan", df)
 
     def drop_temp_view(self, name: str) -> bool:
         return self._views.pop(name.lower(), None) is not None
 
+    # -- file-format tables (sources SPI) -----------------------------------
+    def register_table(self, name: str, fmt: str, *paths,
+                       **options) -> None:
+        """Register ``name`` as a lazy scan of ``paths`` in ``fmt``
+        through the source provider registry. A format with no provider,
+        or one the port has not ported, raises when it is registered."""
+        from spark_rapids_tpu_torch.sources import (
+            NOT_PORTED,
+            not_ported,
+            provider_for,
+            supported_formats,
+        )
+        if fmt.lower() in NOT_PORTED:
+            raise not_ported(fmt)
+        if provider_for(fmt) is None:
+            raise ColumnarProcessingError(
+                f"no available source provider for format {fmt!r} "
+                f"(available: {list(supported_formats())})")
+        self._views.pop(name.lower(), None)
+        self._tables[name.lower()] = (fmt, list(paths), dict(options))
+
+    def drop_table(self, name: str) -> bool:
+        return self._tables.pop(name.lower(), None) is not None
+
     def list_tables(self) -> List[str]:
-        return sorted(self._views)
+        return sorted(set(self._views) | set(self._tables))
 
     # -- what is not ported --------------------------------------------------
-    def register_table(self, name: str, fmt: str, *paths, **options):
-        raise NotImplementedError(
-            f"table {name!r} over {fmt} files: file sources (io/*, "
-            "sources.py) are not ported to spark_rapids_tpu_torch yet")
 
     def register_function(self, name: str, builder) -> None:
         raise NotImplementedError(
@@ -44,10 +71,19 @@ class SessionCatalog:
 
     # -- resolution ----------------------------------------------------------
     def lookup_relation(self, name: str):
-        """DataFrame over a temp view, else None."""
+        """DataFrame over a temp view or a registered table, else None."""
         from spark_rapids_tpu_torch.plan import DataFrame
-        plan = self._views.get(name.lower())
-        return None if plan is None else DataFrame(plan, self._session)
+        key = name.lower()
+        plan = self._views.get(key)
+        if plan is not None:
+            return DataFrame(plan, self._session)
+        entry = self._tables.get(key)
+        if entry is None:
+            return None
+        from spark_rapids_tpu_torch.sources import create_scan
+        fmt, paths, options = entry
+        return DataFrame(create_scan(fmt, paths, self._session.conf,
+                                     **options), self._session)
 
     def table(self, name: str):
         df = self.lookup_relation(name)

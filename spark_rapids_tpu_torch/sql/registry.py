@@ -197,6 +197,13 @@ def _build_table() -> Dict[str, Builder]:
     reg("row_number", _win.RowNumber, 0)
     reg("rank", _win.Rank, 0)
     reg("dense_rank", _win.DenseRank, 0)
+    # input-file provenance (ops/inputfile.py; the reference has them in
+    # functions.py only)
+    from spark_rapids_tpu_torch.ops import inputfile as _inf
+    reg("input_file_name", _inf.InputFileName, 0)
+    reg("input_file_block_start", _inf.InputFileBlockStart, 0)
+    reg("input_file_block_length", _inf.InputFileBlockLength, 0)
+
     reg("percent_rank", _win.PercentRank, 0)
     table["nth_value"] = lambda args: (
         _need(args, 2, 2, "nth_value") or

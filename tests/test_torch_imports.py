@@ -1,6 +1,7 @@
 """Import hygiene and device rules of the PyTorch port
-(spark_rapids_tpu_torch): it imports neither JAX nor the JAX package,
-never runs on the CPU unless asked, and raises NotImplementedError for
+(spark_rapids_tpu_torch): it imports neither JAX nor the JAX package, nor
+pyarrow or pandas (neither is on the card's machine: the port reads and
+writes Parquet with its own codec), never runs on the CPU unless asked, and raises NotImplementedError for
 what it has not ported instead of answering wrongly."""
 
 import ast
@@ -24,9 +25,12 @@ def _port_files():
     return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
 
 
+#: top-level modules neither the port nor chip_smoke.py may import
+FORBIDDEN = ("jax", "jaxlib", "spark_rapids_tpu", "pyarrow", "pandas")
+
+
 def _forbidden(mod: str) -> bool:
-    top = mod.split(".")[0]
-    return top in ("jax", "jaxlib", "spark_rapids_tpu")
+    return mod.split(".")[0] in FORBIDDEN
 
 
 @pytest.mark.parametrize("path", _port_files(),
@@ -43,18 +47,21 @@ def test_no_jax_or_reference_import(path):
     assert not bad, f"{path.name} imports {bad}"
 
 
+_BLOCK = "".join(f"sys.modules[{m!r}] = None\n" for m in FORBIDDEN)
+
+
 def test_every_module_imports_without_jax():
+    """Every module of the port, and chip_smoke.py, imports with JAX, the
+    JAX package, pyarrow and pandas blocked, as on the card's machine."""
     code = (
-        "import sys, pkgutil, importlib\n"
-        "sys.modules['jax'] = None\n"
-        "sys.modules['spark_rapids_tpu'] = None\n"
+        "import sys, pkgutil, importlib\n" + _BLOCK +
         "import spark_rapids_tpu_torch as p\n"
         "names = [m.name for m in pkgutil.walk_packages(p.__path__, "
         "'spark_rapids_tpu_torch.')]\n"
         "for n in names: importlib.import_module(n)\n"
         "import chip_smoke\n"
-        "assert not [m for m in sys.modules if m.startswith('jax')"
-        " and sys.modules[m] is not None]\n"
+        "assert not [m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN!r} and sys.modules[m] is not None]\n"
         "print(len(names))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
@@ -167,6 +174,31 @@ def test_runtime_module_is_the_ports_own(rel):
         f"{rel[:-3].replace('/', '.')!r})\n"
         "assert not [m for m in sys.modules if (m.startswith('jax') or "
         "m.startswith('spark_rapids_tpu.')) and sys.modules[m] is not None]\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+#: the IO slice's modules: each must exist and import with JAX, the JAX
+#: package, pyarrow and pandas blocked
+IO_MODULES = ("io/parquet_format.py", "io/parquet.py", "io/common.py",
+              "io/avro.py", "io/writer.py", "io/committer.py",
+              "io/filecache.py", "sources.py", "native/__init__.py",
+              "runtime/faults.py", "ops/inputfile.py",
+              "overrides/input_file.py")
+
+
+@pytest.mark.parametrize("rel", IO_MODULES)
+def test_io_module_is_the_ports_own(rel):
+    path = PORT / rel
+    assert path.exists(), rel
+    assert path in _port_files()
+    mod = rel[:-3].replace("/", ".").replace(".__init__", "")
+    code = (
+        "import sys, importlib\n" + _BLOCK +
+        f"importlib.import_module('spark_rapids_tpu_torch.' + {mod!r})\n"
+        "assert not [m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN!r} and sys.modules[m] is not None]\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
