@@ -134,7 +134,8 @@ Phases, in order; any failure exits non-zero:
    MULTITHREADED and held against its source bit for bit, with its rows,
    bytes on disk, write seconds, host decode seconds and rate, and upload
    ms; TPC-H q1 over lineitem from its files against phase 4's oracle,
-   cold and warm beside phase 4's warm; the 22 corpus queries from the
+   cold (with its counters, and again in two fresh processes) and warm
+   beside phase 4's warm; the 22 corpus queries from the
    files as DataFrames and as SQL over ``CREATE TEMP VIEW ... USING
    parquet``, each against phase 6-8's oracles (the windows by key),
    through ``run_case`` (every launch held against its plain version); a
@@ -143,10 +144,27 @@ Phases, in order; any failure exits non-zero:
    ``input_file_name()`` GROUP BY over three files, and a write under an
    injected ``io.write.file`` fault (aborted with no visible file, then
    committed);
-16. the summary lines: one ``{"kernels": [...]}`` JSON line (the five TPU
+16. text files in and out (``run_text``): the text codec's build time
+   and the host compiler; the corpus tables at ``scale_test_specs
+   (FILES_SF)`` written as CSV (header, their schema) and as JSON lines,
+   phase 4's lineitem as pipe-delimited headerless CSV (dbgen's layout)
+   and orders as Hive text partitioned by a low-cardinality column with
+   escape.delim set, each read back in PERFILE, COALESCING and
+   MULTITHREADED and held against its source bit for bit, with rows,
+   bytes on disk, write seconds and host decode seconds and rates by
+   mode; TPC-H q1 over the pipe-delimited lineitem against phase 4's
+   oracle, cold (with its counters) and warm beside phase 4's and phase
+   15's; the 22 corpus queries from the CSV files as
+   DataFrames and as SQL over ``CREATE TEMP VIEW ... USING csv``, and
+   from the JSON files as DataFrames, against phase 6-8's oracles, with
+   the decode's share of each warm run; the options (sep, quote, escape,
+   comment, null, custom float spellings, timestampFormat), the three
+   modes over ragged and malformed rows, JSON multiLine and
+   primitivesAsString, and a faulted CSV write then its retry;
+17. the summary lines: one ``{"kernels": [...]}`` JSON line (the five TPU
    kernels and the DECIMAL128 division kernel, CUDA work beyond them;
    launches of the main path: q1's, sparse q3's probes, q8's MIN/MAX, plus
-   every phase-7 to phase-15 query's), the card line, and last
+   every phase-7 to phase-16 query's), the card line, and last
    ``{"ok": true, "device": {...}}``.
 
 Each phase logs its wall time. It needs one CUDA card and exits non-zero
@@ -1858,10 +1876,11 @@ def hold_launches(name, calls) -> None:
             f"run: {'; '.join(whats[:8])}{more}")
 
 
-def run_case(session, name, build, check, profile_dir, keep=None) -> dict:
-    """One query: a cold run (replays counted), three warm runs, and one
-    more warm run between launch-counter reads (host syncs and sorts
-    logged, every launch's inputs recorded and then held against the
+def run_case(session, name, build, check, profile_dir, keep=None,
+             warm_runs: int = 3) -> dict:
+    """One query: a cold run (replays counted), ``warm_runs`` warm runs,
+    and one more warm run between launch-counter reads (host syncs and
+    sorts logged, every launch's inputs recorded and then held against the
     kernel's plain version); each result against its oracle. Returns the
     launches of the counted run and the query's numbers. With ``keep`` (a
     dict), ``keep[name]`` holds the builder, the counted run's result and
@@ -1876,7 +1895,7 @@ def run_case(session, name, build, check, profile_dir, keep=None) -> dict:
     replays = session.last_metrics()["speculationReplays"]
     check(got)
     warm = []
-    for _ in range(3):
+    for _ in range(warm_runs):
         t0 = time.perf_counter()
         again = build().collect_table()
         torch.cuda.synchronize()
@@ -5292,6 +5311,13 @@ def files_q1(paths, q1_keep, card: str) -> tuple:
     log("  15.3 q1 from files, the cold run's counters and seconds: "
         + json.dumps({k: round(v, 4) if isinstance(v, float) else v
                       for k, v in cold.items() if v}))
+    fresh = [fresh_cold_q1(paths["lineitem_q1"], q1_keep["result"].num_rows)
+             for _ in range(2)]
+    log(f"  15.3 q1 from files cold: {res['stats']['cold_ms']} ms in this "
+        f"process, {[f['cold_ms'] for f in fresh]} ms in two fresh "
+        "processes; their counters and seconds: "
+        + json.dumps([f["counters"] for f in fresh]) + f" [{card}]")
+    q1_keep["files_warm_ms"] = res["stats"]["warm_ms"]
     for k in ("onehot_partials", "gather_compact", "sort_with_payload"):
         if not res["launches"].get(k):
             fail(f"q1 from files launched no {k}")
@@ -5305,20 +5331,82 @@ def files_q1(paths, q1_keep, card: str) -> tuple:
         f"{res['stats']['syncs']}; result matches phase 4's oracle [{card}]")
     return res["launches"], dict(res["stats"], decode_ms=decode_ms,
                                  upload_ms=upload_ms,
-                                 in_memory_warm_ms=q1_keep["warm_ms"])
+                                 in_memory_warm_ms=q1_keep["warm_ms"],
+                                 fresh_cold_ms=[f["cold_ms"] for f in fresh])
+
+
+#: one cold TPC-H q1 over lineitem's Parquet files in a process of its
+#: own (argv: the repo root, the files' directory)
+COLD_Q1_CHILD = r"""
+import json, sys, time
+sys.path.insert(0, sys.argv[1])
+import torch
+from spark_rapids_tpu_torch.models.tpch import q1_dataframe
+from spark_rapids_tpu_torch.session import TorchSession
+s = TorchSession()
+t0 = time.perf_counter()
+got = q1_dataframe(s, s.read_parquet(sys.argv[2])).collect_table()
+torch.cuda.synchronize()
+ms = (time.perf_counter() - t0) * 1e3
+counters = dict(s.last_metrics(), **s.last_timings())
+print(json.dumps({"cold_ms": round(ms, 2), "rows": got.num_rows,
+                  "counters": {k: round(v, 4) if isinstance(v, float) else v
+                               for k, v in counters.items() if v}},
+                 default=str))
+"""
+
+
+def fresh_cold_q1(path: str, rows: int) -> dict:
+    """q1 over the Parquet files at ``path`` cold in a fresh process (its
+    time, counters and seconds; its result must have phase 4's ``rows``):
+    Queue 3's unexplained 13 s cold run, instrumented."""
+    out = subprocess.run(
+        [sys.executable, "-c", COLD_Q1_CHILD,
+         os.path.dirname(os.path.abspath(__file__)), path],
+        capture_output=True, text=True, timeout=600)
+    if out.returncode != 0:
+        fail(f"the fresh cold q1 failed: {out.stderr[-2000:]}")
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    if got["rows"] != rows:
+        fail(f"the fresh cold q1 gave {got['rows']} rows, want {rows}")
+    return got
+
+
+#: the file phases' corpus tables and oracles by (scale factor, seed):
+#: phases 15 and 16 read the same tables, made and checked once
+_FILE_CORPUS = {}
+
+
+def file_corpus(seed: int) -> dict:
+    """{"tables", "oracles"} of ``scale_test_specs(FILES_SF)`` seed
+    ``seed``, the tables generated at the first call (``oracles`` is
+    None until ``file_oracles`` fills it)."""
+    from spark_rapids_tpu_torch.models.corpus import corpus_tables
+    key = (FILES_SF, seed)
+    if key not in _FILE_CORPUS:
+        _FILE_CORPUS[key] = {"tables": corpus_tables(FILES_SF, seed),
+                             "oracles": None}
+    return _FILE_CORPUS[key]
 
 
 def file_oracles(tables):
     """{query: check(got)} of all 22 corpus queries: phase 7's oracles,
     phase 8's (the windows compared by key: two files are two batches)
-    and phase 6's q2 and q8."""
+    and phase 6's q2 and q8; computed once for tables from
+    ``file_corpus``."""
     from spark_rapids_tpu_torch.session import TorchSession
+    entry = next((e for e in _FILE_CORPUS.values()
+                  if e["tables"] is tables), None)
+    if entry is not None and entry["oracles"] is not None:
+        return entry["oracles"]
     oracles = wide_oracles(tables)
     oracles.update(window_oracles(tables, keyed=True))
     cases = corpus_cases(TorchSession(), tables,
                          sparse_custkey(tables["orders"]))
     oracles["q2"] = cases["q2"][1]
     oracles["q8"] = cases["q8"][1]
+    if entry is not None:
+        entry["oracles"] = oracles
     return oracles
 
 
@@ -5495,7 +5583,6 @@ def run_files(seed: int, q1_keep) -> dict:
     import tempfile
 
     from spark_rapids_tpu_torch import native
-    from spark_rapids_tpu_torch.models.corpus import corpus_tables
     card = card_line()
     t_phase = time.perf_counter()
     # a clean build of the host library's sources into a scratch
@@ -5523,7 +5610,7 @@ def run_files(seed: int, q1_keep) -> dict:
     totals = {}
     try:
         t0 = time.perf_counter()
-        tables = corpus_tables(FILES_SF, seed)
+        tables = file_corpus(seed)["tables"]
         log(f"  15.2 generated scale_test_specs({FILES_SF}) seed {seed} in "
             f"{time.perf_counter() - t0:.2f} s (host); lineitem for q1: "
             f"phase 4's {q1_keep['tables'][0].num_rows} rows")
@@ -5557,6 +5644,424 @@ def run_files(seed: int, q1_keep) -> dict:
         if not totals.get(k):
             fail(f"phase 15 launched no {k}")
     log("  phase-15 summary: " + json.dumps(summary))
+    return totals
+
+
+# ---------------------------------------------------------------------------
+# phase 16: text files in and out
+# ---------------------------------------------------------------------------
+
+#: the phase's time budget on the card (seconds): past it, lower FILES_SF
+TEXT_BUDGET_S = 120.0
+#: the Hive text orders table's escape.delim and its partition column
+HIVE_ESCAPE = "~"
+HIVE_BUCKETS = 4
+
+
+def text_build() -> dict:
+    """16.1: the text codec's source built from scratch into a scratch
+    directory, timed, and the host compiler's version."""
+    import pathlib
+    import shutil
+    import tempfile
+
+    from spark_rapids_tpu_torch import native
+    kept, scratch = native.BUILD_DIR, tempfile.mkdtemp(prefix="srt-text-")
+    native.BUILD_DIR = pathlib.Path(scratch)
+    try:
+        t0 = time.perf_counter()
+        native.build(["text_host"])
+        build_s = time.perf_counter() - t0
+    finally:
+        native.BUILD_DIR = kept
+        shutil.rmtree(scratch, ignore_errors=True)
+    gxx = subprocess.run([native.compiler(), "--version"],
+                         capture_output=True, text=True, timeout=60)
+    version = (gxx.stdout.splitlines() or ["?"])[0]
+    # the port's own first use (built into _build/ unless there already),
+    # so that no write or read below is timed with a build in it
+    t0 = time.perf_counter()
+    native.load("text_host")
+    load_s = time.perf_counter() - t0
+    log(f"  16.1 text_host.cpp built from source in {build_s:.2f} s by "
+        f"{version}; its first use loaded in {load_s:.2f} s")
+    return {"build_s": round(build_s, 2), "gxx": version,
+            "first_use_s": round(load_s, 2)}
+
+
+def json_expected(t):
+    """A corpus table as its JSON lines read under ``json_read_schema``: a
+    DATE as midnight micros, a decimal as its unscaled LONG."""
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.columnar import HostColumn, HostTable
+    cols = []
+    for c in t.columns:
+        if isinstance(c.dtype, T.DateType):
+            c = HostColumn(T.TIMESTAMP, np.where(
+                c.validity, c.data.astype(np.int64) * 86_400_000_000, 0),
+                c.validity)
+        elif isinstance(c.dtype, T.DecimalType):
+            c = HostColumn(T.LONG, np.where(c.validity, c.data, 0).astype(
+                np.int64), c.validity)
+        cols.append(c)
+    return HostTable(list(t.names), cols)
+
+
+def hive_orders(orders):
+    """Orders with ``o_bucket`` (o_orderkey mod HIVE_BUCKETS), the
+    low-cardinality column the Hive text table is partitioned by."""
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.columnar import HostColumn, HostTable
+    keys = host_cols(orders)["o_orderkey"]
+    return HostTable(list(orders.names) + ["o_bucket"], list(
+        orders.columns) + [HostColumn(T.LONG, keys % HIVE_BUCKETS)])
+
+
+def text_scans(fmt: str, path: str, schema, mode: str):
+    """The scan node of one written table, in reader mode ``mode``."""
+    from spark_rapids_tpu_torch.conf import RapidsConf
+    from spark_rapids_tpu_torch.io.csv import CsvScanNode
+    from spark_rapids_tpu_torch.io.hive_text import HiveTextScanNode
+    from spark_rapids_tpu_torch.io.json import JsonScanNode
+    from spark_rapids_tpu_torch.models.corpus import json_read_schema
+    if fmt == "csv":
+        return CsvScanNode([path], RapidsConf(), schema=schema,
+                           reader_type=mode)
+    if fmt == "dbgen":
+        return CsvScanNode([path], RapidsConf(), schema=schema, sep="|",
+                           header=False, reader_type=mode)
+    if fmt == "json":
+        return JsonScanNode([path], RapidsConf(),
+                            schema=json_read_schema(schema),
+                            reader_type=mode)
+    return HiveTextScanNode([path], RapidsConf(), schema=schema,
+                            escape=HIVE_ESCAPE, reader_type=mode)
+
+
+def text_tables(tables, lineitem, base: str, card: str) -> tuple:
+    """16.2: the corpus tables written as CSV (header, the tables' schema)
+    and as JSON lines, phase 4's lineitem as pipe-delimited headerless CSV
+    (dbgen's layout without its trailing |) and orders as Hive text
+    partitioned by o_bucket with escape.delim set, two files a table
+    (Hive: one a partition); each read back in PERFILE, COALESCING and
+    MULTITHREADED and held against its source bit for bit. Returns
+    ({form: {name: directory}}, {label: numbers})."""
+    from spark_rapids_tpu_torch.columnar.table import upload_host_table
+    from spark_rapids_tpu_torch.io.hive_text import write_hive_text
+    from spark_rapids_tpu_torch.models.corpus import write_corpus_files
+    jobs = [("csv", n, t, t) for n, t in tables.items()]
+    jobs += [("json", n, t, json_expected(t)) for n, t in tables.items()]
+    jobs.append(("dbgen", "lineitem_q1", lineitem, lineitem))
+    hive = hive_orders(tables["orders"])
+    jobs.append(("hive", "orders", tables["orders"], hive))
+    paths, numbers = {"csv": {}, "json": {}, "dbgen": {}, "hive": {}}, {}
+    for form, name, t, want in jobs:
+        sub = os.path.join(base, form)
+        t0 = time.perf_counter()
+        if form == "hive":
+            paths[form][name] = os.path.join(sub, name)
+            write_hive_text(hive, paths[form][name],
+                            partition_by=["o_bucket"], escape=HIVE_ESCAPE)
+        elif form == "dbgen":
+            paths[form].update(write_corpus_files(
+                {name: t}, sub, FILES_PER_TABLE, fmt="csv", header=False,
+                sep="|"))
+        else:
+            paths[form].update(write_corpus_files(
+                {name: t}, sub, FILES_PER_TABLE, fmt=form))
+        write_s = time.perf_counter() - t0
+        on_disk = dir_bytes(paths[form][name])
+        decode = {}
+        for mode in ("PERFILE", "COALESCING", "MULTITHREADED"):
+            scan = text_scans(form, paths[form][name], t.schema(), mode)
+            t0 = time.perf_counter()
+            got = scan.collect_host()
+            decode[mode] = time.perf_counter() - t0
+            if form == "hive":
+                order = np.argsort(host_cols(got)["o_orderkey"],
+                                   kind="stable")
+                got = type(got)(list(got.names), [
+                    type(c)(c.dtype, c.data[order], c.validity[order])
+                    for c in got.columns])
+            same_host_table(got, want, f"{form} {name} read back ({mode})")
+        host_mb = got.nbytes() / 1e6
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dt = upload_host_table(got, DEV)
+        torch.cuda.synchronize()
+        upload_ms = (time.perf_counter() - t0) * 1e3
+        del dt, got
+        best = min(decode.values())
+        label = f"{form} {name}"
+        numbers[label] = {
+            "rows": t.num_rows, "bytes_on_disk": on_disk,
+            "write_s": round(write_s, 3),
+            "decode_s": {m: round(v, 3) for m, v in decode.items()},
+            "decoded_mb_per_s": {m: round(host_mb / v, 1)
+                                 for m, v in decode.items()},
+            "disk_mb_per_s": round(on_disk / 1e6 / best, 1),
+            "host_mb": round(host_mb, 1), "upload_ms": round(upload_ms, 2)}
+        log(f"  16.2 {label}: {t.num_rows} rows, {on_disk} B on disk, write "
+            f"{write_s:.3f} s, decode (host) "
+            f"{', '.join(f'{m} {v:.3f} s' for m, v in decode.items())}, "
+            f"{host_mb / best:.1f} MB/s decoded ({host_mb:.1f} MB; "
+            f"{on_disk / 1e6 / best:.1f} MB/s of text), upload "
+            f"{upload_ms:.2f} ms; read back bit for bit in all three modes "
+            f"[{card}]")
+    return paths, numbers
+
+
+def text_q1(paths, lineitem, q1_keep, card: str) -> tuple:
+    """16.3: TPC-H q1 over lineitem from its pipe-delimited CSV files
+    (``schema=``), through ``run_case`` (cold, warm, host syncs, every
+    launch held against its plain version) against phase 4's oracle, with
+    the cold run's counters."""
+    from spark_rapids_tpu_torch.models.tpch import q1_dataframe
+    from spark_rapids_tpu_torch.session import TorchSession
+    session = TorchSession()
+    path = paths["dbgen"]["lineitem_q1"]
+    schema = lineitem.schema()
+    cold = {}
+
+    def check(got):
+        if not cold:
+            cold.update(session.last_metrics(), **session.last_timings())
+        q1_keep["check"](got)
+
+    res = run_case(session, "q1 from CSV",
+                   lambda: q1_dataframe(session, session.read_csv(
+                       path, schema=schema, sep="|", header=False)),
+                   check, None)
+    log("  16.3 q1 from CSV, the cold run's counters and seconds: "
+        + json.dumps({k: round(v, 4) if isinstance(v, float) else v
+                      for k, v in cold.items() if v}))
+    for k in ("onehot_partials", "gather_compact", "sort_with_payload"):
+        if not res["launches"].get(k):
+            fail(f"q1 from CSV launched no {k}")
+    m = session.last_metrics()
+    decode_ms = round(m.get("scanDecodeTime", 0) * 1e3, 2)
+    upload_ms = round(m.get("scanUploadTime", 0) * 1e3, 2)
+    peak = round(res["stats"]["peak_gib"], 3)
+    log(f"  16.3 q1 from CSV: cold {res['stats']['cold_ms']} ms, warm "
+        f"{res['stats']['warm_ms']} ms against phase 4's in-memory warm "
+        f"{q1_keep['warm_ms']} ms and phase 15's q1 from Parquet warm "
+        f"{q1_keep.get('files_warm_ms')} ms (the counted run waited "
+        f"{decode_ms} ms on the decode and uploaded for {upload_ms} ms); "
+        f"host syncs {res['stats']['syncs']}; peak {peak} GiB; result "
+        f"matches phase 4's oracle [{card}]")
+    return res["launches"], dict(
+        res["stats"], decode_ms=decode_ms, upload_ms=upload_ms,
+        in_memory_warm_ms=q1_keep["warm_ms"],
+        parquet_warm_ms=q1_keep.get("files_warm_ms"))
+
+
+def text_corpus(tables, paths, card: str) -> tuple:
+    """16.4: the 22 corpus queries over the CSV files as DataFrames and as
+    SQL over ``CREATE TEMP VIEW ... USING csv OPTIONS (path, schema)``,
+    and over the JSON files as DataFrames (``read_corpus_table``), each
+    through ``run_case`` (one warm run before the counted one) against its
+    oracle. Returns (launch totals, numbers)."""
+    from spark_rapids_tpu_torch.models.corpus import (
+        CORPUS,
+        build_queries,
+        build_sql_queries,
+    )
+    from spark_rapids_tpu_torch.session import TorchSession
+    oracles = file_oracles(tables)
+    forms = []
+    for label, fmt, sql in (("CSV", "csv", False), ("CSV SQL", "csv", True),
+                            ("JSON", "json", False)):
+        session = TorchSession()
+        build = build_sql_queries if sql else build_queries
+        forms.append((label, session, build(session, tables,
+                                            paths=paths[fmt], fmt=fmt)))
+    total, numbers = {}, {}
+    for name in CORPUS:
+        for label, session, queries in forms:
+            case = f"{name} from {label}"
+            res = run_case(session, case, queries[name], oracles[name], None,
+                           warm_runs=1)
+            m = session.last_metrics()
+            for k, v in res["launches"].items():
+                total[k] = total.get(k, 0) + v
+            decode_ms = round(m.get("scanDecodeTime", 0) * 1e3, 2)
+            numbers[case] = {
+                "warm_ms": res["stats"]["warm_ms"],
+                "cold_ms": res["stats"]["cold_ms"],
+                "decode_ms": decode_ms,
+                "upload_ms": round(m.get("scanUploadTime", 0) * 1e3, 2),
+                "decode_share": round(decode_ms / max(
+                    res["stats"]["warm_ms"], 1e-9), 3),
+                "syncs": res["stats"]["syncs"],
+                "launches": {k: v for k, v in res["launches"].items() if v}}
+    log(f"  16.4 all {len(forms) * len(CORPUS)} corpus runs from text files "
+        "match their oracles; warm ms (the decode's share of the counted "
+        "run): " + ", ".join(f"{k} {v['warm_ms']} ({v['decode_share']})"
+                             for k, v in numbers.items()) + f" [{card}]")
+    return total, numbers
+
+
+def _rows_of(df):
+    return [tuple(r) for r in df.collect()]
+
+
+def text_features(tables, base: str, card: str) -> dict:
+    """16.5: options and failures on the card, each held against rows
+    written out by hand: sep, quote, escape, comment and null; the custom
+    float spellings and a timestampFormat; PERMISSIVE, DROPMALFORMED and
+    FAILFAST over ragged and malformed rows; JSON multiLine and
+    primitivesAsString; a faulted CSV write leaving no visible file, then
+    its retry committing."""
+    import datetime
+
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.errors import KernelCrashError
+    from spark_rapids_tpu_torch.io.committer import read_manifest
+    from spark_rapids_tpu_torch.io.text_format import TextParseError
+    from spark_rapids_tpu_torch.plan import from_host_table
+    from spark_rapids_tpu_torch.plan import nodes as P
+    from spark_rapids_tpu_torch.runtime.faults import FAULTS
+    from spark_rapids_tpu_torch.session import TorchSession
+    s = TorchSession()
+    d = os.path.join(base, "options")
+    os.makedirs(d, exist_ok=True)
+
+    def put(name, text):
+        p = os.path.join(d, name)
+        with open(p, "w") as f:
+            f.write(text)
+        return p
+
+    def expect(what, got, want):
+        if got != want:
+            fail(f"16.5 {what}: {got}, want {want}")
+
+    checks = []
+    p = put("opts.csv", "# comment\na;b;c\n1;'x;y';NA\n  # mid\n"
+            "2;z\\;w;7\n3;'q r';NA\n")
+    expect("sep, quote, escape, comment, null", _rows_of(s.read_csv(
+        p, sep=";", quote="'", escape="\\", comment="#", null_value="NA",
+        schema=[("a", T.INT), ("b", T.STRING), ("c", T.INT)]).sort("a")),
+        [(1, "x;y", None), (2, "z;w", 7), (3, "q r", None)])
+    checks.append("sep/quote/escape/comment/null")
+    p = put("floats.csv", "x,t\nbad,2024/01/15 10:30:00\n1.5,1999/12/31 "
+            "23:59:59\nP_INF,2000/02/29 00:00:01\nN_INF,2024/01/15 10:30:00\n")
+    got = _rows_of(s.read_csv(
+        p, nan_value="bad", positive_inf="P_INF", negative_inf="N_INF",
+        timestamp_format="yyyy/MM/dd HH:mm:ss",
+        schema=[("x", T.DOUBLE), ("t", T.TIMESTAMP)]))
+
+    def micros(*ymdhms):
+        delta = datetime.datetime(*ymdhms) - datetime.datetime(1970, 1, 1)
+        return (delta.days * 86400 + delta.seconds) * 1_000_000
+    if not (math.isnan(got[0][0]) and got[1:] == [
+            (1.5, micros(1999, 12, 31, 23, 59, 59)),
+            (math.inf, micros(2000, 2, 29, 0, 0, 1)),
+            (-math.inf, micros(2024, 1, 15, 10, 30))]):
+        fail(f"16.5 custom floats and timestampFormat: {got}")
+    checks.append("custom floats/timestampFormat")
+    p = put("ragged.csv", "a,b\n1,2\n3\n5,6\n7,8,9\n")
+    schema = [("a", T.INT), ("b", T.INT)]
+    expect("PERMISSIVE", _rows_of(s.read_csv(p, schema=schema)),
+           [(1, 2), (5, 6), (3, None), (7, 8)])
+    expect("DROPMALFORMED", _rows_of(s.read_csv(
+        p, schema=schema, mode="DROPMALFORMED")), [(1, 2), (5, 6)])
+    for mode, path, what in (("FAILFAST", p, "a ragged row"),
+                             ("PERMISSIVE", put("bad.csv", "a,b\n1,x\n"),
+                              "a value that does not convert")):
+        try:
+            s.read_csv(path, schema=schema, mode=mode).collect()
+            fail(f"16.5 {mode} over {what} did not raise")
+        except TextParseError:
+            pass
+    checks.append("PERMISSIVE/DROPMALFORMED/FAILFAST")
+    p = put("multi.json", '[{"a": 1, "b": "x"},\n {"a": 2, "b": null}]')
+    expect("JSON multiLine", _rows_of(s.read_json(p, multi_line=True)),
+           [(1, "x"), (2, None)])
+    p = put("prim.json", '{"a": 1, "b": 2.5, "c": true}\n{"a": 7, "b": 2, '
+            '"c": null}\n{"a": null, "b": 1e-7}\n')
+    expect("JSON primitivesAsString", _rows_of(s.read_json(
+        p, primitives_as_string=True)),
+        [("1", "2.5", "true"), ("7", "2", None), (None, "1e-7", None)])
+    p = put("modes.json", '{"a": 1}\nnot json\n{"a": NaN}\n{"a": 3}\n')
+    expect("JSON PERMISSIVE", _rows_of(s.read_json(
+        p, schema=[("a", T.LONG)])), [(1,), (None,), (None,), (3,)])
+    expect("JSON DROPMALFORMED", _rows_of(s.read_json(
+        p, schema=[("a", T.LONG)], mode="DROPMALFORMED")), [(1,), (3,)])
+    checks.append("JSON multiLine/primitivesAsString/modes")
+    cust = tables["customer"]
+    fdir = os.path.join(base, "faulted_csv")
+    faulty = TorchSession({"spark.rapids.test.faults":
+                           "io.write.file:crash:1"})
+    node = P.WriteFiles(from_host_table(cust, faulty).plan, "csv", fdir,
+                        None, {})
+    try:
+        faulty.execute(node)
+        fail("the injected io.write.file fault did not fire")
+    except KernelCrashError:
+        pass
+    visible = [f for _r, _d, fs in os.walk(fdir) for f in fs] \
+        if os.path.isdir(fdir) else []
+    if visible or read_manifest(fdir) is not None:
+        fail(f"aborted CSV write left files: {visible}")
+    stats = faulty.execute(node)
+    FAULTS.disarm()
+    same_host_table(s.read_csv(fdir, schema=cust.schema()).collect_table(),
+                    cust, "the retried CSV write read back")
+    checks.append("faulted CSV write")
+    log(f"  16.5 on the card: {', '.join(checks)} held; the faulted CSV "
+        f"write aborted with no visible file and its retry committed "
+        f"{int(stats.columns[0].data[0])} file(s), read back bit for bit "
+        f"[{card}]")
+    return {"checks": checks}
+
+
+def run_text(seed: int, q1_keep) -> dict:
+    """Phase 16: text files in and out (16.1-16.5). Returns every kernel's
+    launches over the counted runs."""
+    import shutil
+    import tempfile
+
+    card = card_line()
+    t_phase = time.perf_counter()
+    summary = {"card": card, "build": text_build()}
+    base = tempfile.mkdtemp(prefix="srt-text-files-")
+    totals = {}
+    try:
+        tables = file_corpus(seed)["tables"]
+        lineitem = q1_keep["tables"][0]
+        log(f"  16.2 phase 15's scale_test_specs({FILES_SF}) seed {seed} "
+            f"tables and oracles; lineitem for q1: phase 4's "
+            f"{lineitem.num_rows} rows")
+        t0 = time.perf_counter()
+        paths, summary["tables"] = text_tables(tables, lineitem, base, card)
+        log(f"  16.2 ran {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        launches, summary["q1"] = text_q1(paths, lineitem, q1_keep, card)
+        for k, v in launches.items():
+            totals[k] = totals.get(k, 0) + v
+        log(f"  16.3 ran {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        launches, summary["corpus"] = text_corpus(tables, paths, card)
+        for k, v in launches.items():
+            totals[k] = totals.get(k, 0) + v
+        log(f"  16.4 ran {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        summary["features"] = text_features(tables, base, card)
+        log(f"  16.5 ran {time.perf_counter() - t0:.1f} s")
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    took = time.perf_counter() - t_phase
+    summary["seconds"] = round(took, 1)
+    summary["launches"] = {k: v for k, v in totals.items() if v}
+    if took > TEXT_BUDGET_S:
+        log(f"  phase 16 took {took:.1f} s, past its {TEXT_BUDGET_S:.0f} s "
+            f"budget: lower FILES_SF ({FILES_SF}) for it")
+    for k in ("onehot_partials", "gather_compact", "sort_with_payload",
+              "fused_minmax"):
+        if not totals.get(k):
+            fail(f"phase 16 launched no {k}")
+    log("  phase-16 summary: " + json.dumps(summary))
     return totals
 
 
@@ -5717,7 +6222,15 @@ def main(argv=None) -> int:
         launches[k] = launches.get(k, 0) + v
     log(f"  phase 15 ran {time.perf_counter() - t_phase:.1f} s")
 
-    log("phase 16: summary")
+    t_phase = time.perf_counter()
+    log("phase 16: text files in and out (CSV, JSON lines and Hive text "
+        "through the port's text codec, the reader modes, q1 and the "
+        "corpus from text, options and modes, a faulted write)")
+    for k, v in run_text(args.seed, q1_keep).items():
+        launches[k] = launches.get(k, 0) + v
+    log(f"  phase 16 ran {time.perf_counter() - t_phase:.1f} s")
+
+    log("phase 17: summary")
     log("  dec128_divide is CUDA work beyond the five TPU kernels: the "
         "reference divides DECIMAL128 values on its host")
     for r in rows:

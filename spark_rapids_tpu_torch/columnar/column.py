@@ -295,8 +295,7 @@ class DeviceColumn:
         n = len(host)
         if capacity < n:
             raise ColumnarProcessingError(f"capacity {capacity} < rows {n}")
-        if isinstance(host.dtype, (T.ArrayType, T.StructType, T.MapType,
-                                   T.NullType)):
+        if isinstance(host.dtype, (T.ArrayType, T.StructType, T.MapType)):
             raise NotImplementedError(
                 f"upload of {host.dtype.simple_string()} columns is not "
                 "ported")

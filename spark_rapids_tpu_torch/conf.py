@@ -215,6 +215,18 @@ AVRO_READER_TYPE = _conf(
     "spark.rapids.sql.format.avro.reader.type", "AUTO",
     "PERFILE, COALESCING, MULTITHREADED or AUTO.", str)
 
+CSV_READER_TYPE = _conf(
+    "spark.rapids.sql.format.csv.reader.type", "AUTO",
+    "PERFILE, COALESCING, MULTITHREADED or AUTO.", str)
+
+JSON_READER_TYPE = _conf(
+    "spark.rapids.sql.format.json.reader.type", "AUTO",
+    "PERFILE, COALESCING, MULTITHREADED or AUTO.", str)
+
+HIVE_TEXT_READER_TYPE = _conf(
+    "spark.rapids.sql.format.hiveText.reader.type", "AUTO",
+    "PERFILE, COALESCING, MULTITHREADED or AUTO.", str)
+
 MULTITHREADED_READ_NUM_THREADS = _conf(
     "spark.rapids.sql.multiThreadedRead.numThreads", 20,
     "Thread pool for multithreaded file prefetch.", int)
@@ -241,7 +253,9 @@ FILE_SCAN_ENABLED = {
     fmt: _conf(f"spark.rapids.sql.exec.{cls}", True,
                f"Enable {fmt} scans on the accelerator.", _to_bool)
     for fmt, cls in (("parquet", "ParquetScanNode"),
-                     ("avro", "AvroScanNode"))}
+                     ("avro", "AvroScanNode"), ("csv", "CsvScanNode"),
+                     ("json", "JsonScanNode"),
+                     ("hiveText", "HiveTextScanNode"))}
 
 
 class RapidsConf:

@@ -35,19 +35,25 @@ class Queries(dict):
 
 
 def build_queries(s, tables: Dict[str, HostTable],
-                  paths: Optional[Dict[str, str]] = None) -> Queries:
+                  paths: Optional[Dict[str, str]] = None,
+                  fmt: str = "parquet") -> Queries:
     """The corpus queries the port runs, over ``tables`` ({name:
     HostTable}) through session ``s``. With ``paths`` ({name: directory},
-    as ``write_corpus_files`` returns), each table comes from its Parquet
-    directory through the file scan instead."""
+    as ``write_corpus_files`` returns), each table comes from its
+    directory of ``fmt`` files through the file scan instead
+    (``read_corpus_table``; the text formats take their schemas from
+    ``tables``)."""
     from spark_rapids_tpu_torch import functions as F
     from spark_rapids_tpu_torch.ops.expr import col, lit
     from spark_rapids_tpu_torch.plan import from_host_table
 
     if paths is not None:
-        cust = lambda: s.read_parquet(paths["customer"])   # noqa: E731
-        orders = lambda: s.read_parquet(paths["orders"])   # noqa: E731
-        li = lambda: s.read_parquet(paths["lineitem"])     # noqa: E731
+        def _read(name):
+            return lambda: read_corpus_table(
+                s, fmt, paths[name], None if tables is None
+                else tables[name].schema())
+        cust, orders, li = (_read(n) for n in ("customer", "orders",
+                                                "lineitem"))
     else:
         cust = lambda: from_host_table(tables["customer"], s)  # noqa: E731
         orders = lambda: from_host_table(tables["orders"], s)  # noqa: E731
@@ -466,15 +472,26 @@ def sql_texts():
 
 
 def build_sql_queries(s, tables: Dict[str, HostTable],
-                      paths: Optional[Dict[str, str]] = None) -> Queries:
+                      paths: Optional[Dict[str, str]] = None,
+                      fmt: str = "parquet") -> Queries:
     """The corpus queries from SQL text through ``s.sql()`` over temp views
     of ``tables`` ({name: HostTable}): the same queries as
     ``build_queries``, entering through the parser and the analyzer. With
-    ``paths`` the views are Parquet scans of those directories."""
+    ``paths`` the views are scans of those directories: Parquet's through
+    ``read_parquet``, CSV's through ``CREATE TEMP VIEW ... USING csv
+    OPTIONS (path, schema)`` with each table's schema as DDL text."""
     from spark_rapids_tpu_torch.plan import from_host_table
-    if paths is not None:
+    if paths is not None and fmt == "csv":
         for name, tdir in paths.items():
-            s.read_parquet(tdir).create_or_replace_temp_view(name)
+            ddl = ", ".join(f"{n} {dt.simple_string()}"
+                            for n, dt in tables[name].schema())
+            s.sql(f"CREATE OR REPLACE TEMP VIEW {name} USING csv OPTIONS "
+                  f"(path '{tdir}', schema '{ddl}')")
+    elif paths is not None:
+        for name, tdir in paths.items():
+            read_corpus_table(s, fmt, tdir, None if tables is None else
+                              tables[name].schema()
+                              ).create_or_replace_temp_view(name)
     else:
         for name, table in tables.items():
             from_host_table(table, s).create_or_replace_temp_view(name)
@@ -500,17 +517,22 @@ def corpus_tables(scale_factor: float, seed: int) -> Dict[str, HostTable]:
 
 
 def write_corpus_files(tables: Dict[str, HostTable], base_dir: str,
-                       files_per_table: int, **write_options
-                       ) -> Dict[str, str]:
-    """Write each table as ``files_per_table`` Parquet files with the
-    port's writer (contiguous row slices, one file per chunk directory
-    ``c000``, ``c001``, ..., so the sorted file walk keeps the row order),
-    as ``scale_test.py::write_host_corpus`` does. ``write_options`` go to
-    ``io/parquet.py::write_parquet`` (``compression``,
-    ``row_group_rows``). Returns {name: table directory}."""
+                       files_per_table: int, fmt: str = "parquet",
+                       **write_options) -> Dict[str, str]:
+    """Write each table as ``files_per_table`` files of ``fmt`` (parquet,
+    csv or json) with the port's writers (contiguous row slices, one file
+    per chunk directory ``c000``, ``c001``, ..., so the sorted file walk
+    keeps the row order), as ``scale_test.py::write_host_corpus`` does.
+    ``write_options`` go to the writer (Parquet's ``compression``,
+    ``row_group_rows``; CSV's ``header``). Returns {name: table
+    directory}."""
     import os
 
+    from spark_rapids_tpu_torch.io.csv import write_csv
+    from spark_rapids_tpu_torch.io.json import write_json
     from spark_rapids_tpu_torch.io.parquet import write_parquet
+    write = {"parquet": write_parquet, "csv": write_csv,
+             "json": write_json}[fmt]
     paths = {}
     for name, table in tables.items():
         tdir = os.path.join(base_dir, name)
@@ -518,9 +540,41 @@ def write_corpus_files(tables: Dict[str, HostTable], base_dir: str,
         chunk = max(1, (n + files_per_table - 1) // files_per_table)
         start = i = 0
         while start < n:
-            write_parquet(table.slice(start, min(chunk, n - start)),
-                          os.path.join(tdir, f"c{i:03d}"), **write_options)
+            write(table.slice(start, min(chunk, n - start)),
+                  os.path.join(tdir, f"c{i:03d}"), **write_options)
             start += chunk
             i += 1
         paths[name] = tdir
     return paths
+
+
+def json_read_schema(schema):
+    """The schema a corpus table's JSON lines read under: the reference's
+    JSON writer renders a DATE as its text (which Arrow's JSON reader
+    takes only as a TIMESTAMP) and a decimal as its unscaled integer."""
+    from spark_rapids_tpu_torch import types as T
+    return [(n, T.TIMESTAMP if isinstance(dt, T.DateType) else
+             T.LONG if isinstance(dt, T.DecimalType) else dt)
+            for n, dt in schema]
+
+
+def read_corpus_table(s, fmt: str, path: str, schema=None):
+    """One corpus table from its directory of ``fmt`` files: Parquet as
+    written; CSV under ``schema``; JSON under ``json_read_schema`` with
+    its DATE and decimal columns cast back (a TIMESTAMP at midnight to its
+    DATE, an unscaled LONG to its decimal)."""
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.ops.decimal import MakeDecimal
+    from spark_rapids_tpu_torch.ops.expr import col
+    if fmt == "parquet":
+        return s.read_parquet(path)
+    if fmt == "csv":
+        return s.read_csv(path, schema=schema)
+    if fmt != "json":
+        raise ValueError(f"corpus files in {fmt!r}")
+    df = s.read_json(path, schema=json_read_schema(schema))
+    return df.select(*[
+        col(n).cast(T.DATE).alias(n) if isinstance(dt, T.DateType) else
+        MakeDecimal(col(n), dt.precision, dt.scale).alias(n)
+        if isinstance(dt, T.DecimalType) else col(n)
+        for n, dt in schema])

@@ -11,7 +11,15 @@ ctypes.
 - ``parquet_host.cpp``: raw Snappy decompress and compress, the RLE /
   bit-packed hybrid decoder and encoder, the PLAIN BYTE_ARRAY splitter and
   packer, and the padding of values into fixed-width rows
-  (``io/parquet_format.py``).
+  (``io/parquet_format.py``);
+- ``text_host.cpp``: the text codec of CSV, Hive text and JSON lines
+  (``io/text_format.py``): the record tokenizer and the comment-line
+  filter, the typed field parsers (integers, floats through
+  ``std::from_chars``, booleans, dates, ISO and strptime timestamps,
+  decimals) and Arrow's type inference over them, the distinct-span
+  dictionary of string fields, the JSON scanner and its line
+  normalisation, and the value formatters and row layout of the
+  writers (``std::to_chars``).
 
 Unlike the reference, which falls back to numpy, a failed build raises
 with the compiler's output. Build ahead of first use with::
@@ -34,13 +42,14 @@ import numpy as np
 
 SRC_DIR = Path(__file__).resolve().parent
 BUILD_DIR = SRC_DIR.parent / "_build"
-SOURCES = ("strcodec", "parquet_host")
+SOURCES = ("strcodec", "parquet_host", "text_host")
 GXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
+_I32 = ctypes.c_int32
 _SIGNATURES = {
     "encode_sorted_dict_u32": (_I64, [_P, _I64, _I64, _P, _P]),
     "srt_snappy_uncompressed_length": (_I64, [_P, _I64]),
@@ -52,6 +61,28 @@ _SIGNATURES = {
     "srt_byte_array_unpack": (_I64, [_P, _I64, _I64, _P, _P]),
     "srt_byte_array_pack": (_I64, [_P, _P, _I64, _P]),
     "srt_pad_rows": (_I64, [_P, _P, _P, _I64, _I64, _P, _P]),
+    "srt_filter_comment_lines": (_I64, [_P, _I64, _P, _I64, _P]),
+    "srt_csv_tokenize": (_I64, [_P, _I64, _I32, _I32, _I32, _I32, _P, _P,
+                                _P, _I64, _P, _P, _I64, _P]),
+    "srt_null_mask": (None, [_P, _P, _P, _P, _I64, _P, _P, _I32, _P]),
+    "srt_csv_infer": (_I64, [_P, _P, _P, _I64]),
+    "srt_parse": (_I64, [_P, _P, _P, _I64, _I32, _I64, _P, _P]),
+    "srt_parse_strptime": (_I64, [_P, _P, _P, _I64, _P, _I64, _P, _P]),
+    "srt_span_dedup": (_I64, [_P, _P, _P, _I64, _P, _P]),
+    "srt_gather_spans": (None, [_P, _P, _P, _I64, _P, _P]),
+    "srt_json_scan": (_I64, [_P, _I64, _I32, _P, _P, _P, _P, _P, _I64, _P,
+                             _P, _I64, _P]),
+    "srt_json_normalize": (_I64, [_P, _I64, _I32, _P]),
+    "srt_fmt_i64": (_I64, [_P, _I64, _P, _P]),
+    "srt_fmt_f64": (_I64, [_P, _I64, _I32, _P, _P]),
+    "srt_fmt_f32": (_I64, [_P, _I64, _P, _P]),
+    "srt_fmt_bool": (_I64, [_P, _I64, _P, _P]),
+    "srt_fmt_date": (_I64, [_P, _I64, _P, _P]),
+    "srt_fmt_ts": (_I64, [_P, _I64, _I32, _P, _P]),
+    "srt_fmt_decimal": (_I64, [_P, _I64, _I32, _P, _P]),
+    "srt_escape": (_I64, [_P, _P, _I64, _I32, _I32, _I32, _P, _P]),
+    "srt_assemble": (_I64, [_I32, _P, _P, _P, _P, _P, _P, _P, _I64, _P,
+                            _I64, _P, _I64, _P, _I64, _I32, _P]),
 }
 
 
@@ -280,8 +311,3 @@ def strings_from(data: np.ndarray, offsets: np.ndarray) -> np.ndarray:
         else:
             out[rows] = raw.astype(f"U{w}").astype(object)
     return out
-
-
-if __name__ == "__main__":
-    for src, secs in build().items():
-        print(f"built {src}.cpp in {secs:.1f} s into {BUILD_DIR}")

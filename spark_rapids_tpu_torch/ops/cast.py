@@ -40,6 +40,8 @@ _INT_BOUNDS = {
     np.dtype(np.int64): (-(1 << 63), (1 << 63) - 1),
 }
 
+_MICROS_PER_DAY = 86_400_000_000
+
 _WIDTH = {T.ByteType: 1, T.ShortType: 2, T.IntegerType: 4, T.LongType: 8}
 
 _SIMPLE = (T.BooleanType, T.ByteType, T.ShortType, T.IntegerType,
@@ -58,6 +60,8 @@ def cast_supported(src: T.DataType, dst: T.DataType) -> bool:
         if isinstance(dst, (T.DoubleType, T.FloatType)):
             return True
         return isinstance(dst, T.IntegralType)
+    if {type(src), type(dst)} == {T.DateType, T.TimestampType}:
+        return True
     return isinstance(src, _SIMPLE) and isinstance(dst, _SIMPLE)
 
 
@@ -66,7 +70,7 @@ def check_cast(src: T.DataType, dst: T.DataType) -> None:
         raise NotImplementedError(
             f"cast from {src.simple_string()} to {dst.simple_string()} is "
             "not ported (the port casts among the numeric types and "
-            "boolean)")
+            "boolean, and between date and timestamp)")
 
 
 def make_cast(child: Expression, dtype: T.DataType) -> Expression:
@@ -86,8 +90,14 @@ def _is_widening(src: T.DataType, dst: T.DataType) -> bool:
 def _cast_simple(data: torch.Tensor, src: T.DataType,
                  dst: T.DataType) -> torch.Tensor:
     """The reference's ``_cast_data_jnp`` for the numeric and boolean
-    types."""
+    types, and between DATE (days) and TIMESTAMP (micros: a timestamp's
+    date is its floored day)."""
     dd = T.torch_dtype(dst)
+    if isinstance(src, T.DateType) and isinstance(dst, T.TimestampType):
+        return data.to(torch.int64) * _MICROS_PER_DAY
+    if isinstance(src, T.TimestampType) and isinstance(dst, T.DateType):
+        return torch.div(data, _MICROS_PER_DAY,
+                         rounding_mode="floor").to(dd)
     if isinstance(dst, T.BooleanType):
         return data != 0
     if isinstance(src, (T.FloatType, T.DoubleType)) and \

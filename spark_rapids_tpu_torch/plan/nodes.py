@@ -445,9 +445,17 @@ class WriteFiles(PlanNode):
         if self.fmt == "parquet":
             from spark_rapids_tpu_torch.io.parquet import write_parquet
             return write_parquet
+        if self.fmt == "csv":
+            from spark_rapids_tpu_torch.io.csv import write_csv
+            return write_csv
+        if self.fmt == "json":
+            from spark_rapids_tpu_torch.io.json import write_json
+            return write_json
+        if self.fmt in ("hive_text", "hive", "hive-text", "hivetext"):
+            from spark_rapids_tpu_torch.io.hive_text import write_hive_text
+            return write_hive_text
         from spark_rapids_tpu_torch.sources import not_ported
-        raise not_ported("hive-text" if self.fmt == "hive_text"
-                         else self.fmt)
+        raise not_ported(self.fmt)
 
     @staticmethod
     def _stats_row(num_files: int, num_rows: int, num_bytes: int

@@ -5,8 +5,10 @@ probes its availability and creates scans by capability. ``TorchSession.
 read`` / ``read_format`` and ``CREATE TEMP VIEW ... USING`` route every
 lookup through it.
 
-The port's providers: ``parquet`` (its own codec, io/parquet.py) and
-``avro`` (io/avro.py). The reference's other formats are registered as
+The port's providers: ``parquet`` (its own codec, io/parquet.py),
+``avro`` (io/avro.py), and ``csv``, ``json`` and ``hive`` (also
+``hive-text``, ``hivetext``) over its text codec (io/csv.py, io/json.py,
+io/hive_text.py). The reference's other formats are registered as
 providers that raise NotImplementedError naming the format and the
 ROADMAP item that ports it."""
 
@@ -100,14 +102,40 @@ class _AvroProvider(ExternalSourceProvider):
         return AvroScanNode(list(paths), conf, **options)
 
 
+class _CsvProvider(ExternalSourceProvider):
+    name = "csv"
+    formats = ("csv",)
+    capabilities = frozenset({"read", "write"})
+
+    def create_scan_node(self, paths, conf, **options):
+        from spark_rapids_tpu_torch.io.csv import CsvScanNode
+        return CsvScanNode(list(paths), conf, **options)
+
+
+class _JsonProvider(ExternalSourceProvider):
+    name = "json"
+    formats = ("json",)
+    capabilities = frozenset({"read", "write"})
+
+    def create_scan_node(self, paths, conf, **options):
+        from spark_rapids_tpu_torch.io.json import JsonScanNode
+        return JsonScanNode(list(paths), conf, **options)
+
+
+class _HiveTextProvider(ExternalSourceProvider):
+    name = "hive-text"
+    formats = ("hive", "hive-text", "hivetext")
+    capabilities = frozenset({"read", "write"})
+
+    def create_scan_node(self, paths, conf, **options):
+        from spark_rapids_tpu_torch.io.hive_text import HiveTextScanNode
+        return HiveTextScanNode(list(paths), conf, **options)
+
+
 #: formats the port does not read yet -> the ROADMAP item that ports them
 NOT_PORTED = {
-    "csv": "Queue 1 item 8b (CSV with Spark's options matrix)",
-    "hive": "Queue 1 item 8b (Hive text, with CSV)",
-    "hive-text": "Queue 1 item 8b (Hive text, with CSV)",
-    "hivetext": "Queue 1 item 8b (Hive text, with CSV)",
-    "json": "Queue 1 item 8b (JSON)",
-    "orc": "Queue 1 item 8b (ORC)",
+    "orc": "Queue 1 item 8b (ORC with the binary codecs: ZSTD, LZ4, "
+           "BROTLI, INT96, DELTA_*)",
     "delta": "Queue 1 item 12 (delta/)",
     "iceberg": "Queue 1 item 12 (iceberg/)",
 }
@@ -130,7 +158,8 @@ class _NotPortedProvider(ExternalSourceProvider):
         raise not_ported(self.name)
 
 
-for _p in [_ParquetProvider(), _AvroProvider()] + [
+for _p in [_ParquetProvider(), _AvroProvider(), _CsvProvider(),
+           _JsonProvider(), _HiveTextProvider()] + [
         _NotPortedProvider(f) for f in NOT_PORTED]:
     register_provider(_p)
 del _p

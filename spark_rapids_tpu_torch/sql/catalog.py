@@ -38,7 +38,9 @@ class SessionCatalog:
                        **options) -> None:
         """Register ``name`` as a lazy scan of ``paths`` in ``fmt``
         through the source provider registry. A format with no provider,
-        or one the port has not ported, raises when it is registered."""
+        or one the port has not ported, raises when it is registered, and
+        so do options the format does not know (the scan is built once
+        here to check them; SQL OPTIONS values arrive as strings)."""
         from spark_rapids_tpu_torch.sources import (
             NOT_PORTED,
             not_ported,
@@ -51,6 +53,8 @@ class SessionCatalog:
             raise ColumnarProcessingError(
                 f"no available source provider for format {fmt!r} "
                 f"(available: {list(supported_formats())})")
+        from spark_rapids_tpu_torch.sources import create_scan
+        create_scan(fmt, list(paths), self._session.conf, **options)
         self._views.pop(name.lower(), None)
         self._tables[name.lower()] = (fmt, list(paths), dict(options))
 

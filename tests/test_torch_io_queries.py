@@ -131,8 +131,8 @@ def test_temp_view_using_parquet_and_register_table(corpus):
     assert set(s.catalog.list_tables()) >= {"li", "ord"}
     s.sql("DROP VIEW ord")
     assert "ord" not in s.catalog.list_tables()
-    with pytest.raises(NotImplementedError, match="csv"):
-        s.sql("CREATE TEMP VIEW c USING csv OPTIONS (path '/nowhere')")
+    with pytest.raises(NotImplementedError, match="orc"):
+        s.sql("CREATE TEMP VIEW c USING orc OPTIONS (path '/nowhere')")
 
 
 # -- input_file_name (tests/test_input_file_name.py) ---------------------------

@@ -120,11 +120,12 @@ def test_writer_surface_and_other_formats(tmp_path):
     out = str(tmp_path / "w")
     _df(s).write.format("parquet").partition_by("k").save(out)
     assert sorted(os.listdir(out)) == ["_SUCCESS", "k=k0", "k=k1", "k=k2"]
-    for fmt in ("csv", "json", "orc"):
-        with pytest.raises(NotImplementedError, match=fmt):
-            _df(s).write.format(fmt).save(str(tmp_path / fmt))
-    with pytest.raises(NotImplementedError, match="hive-text"):
-        _df(s).write_hive_text(str(tmp_path / "h"))
+    with pytest.raises(NotImplementedError, match="orc"):
+        _df(s).write.format("orc").save(str(tmp_path / "orc"))
+    for fmt, ext in (("csv", "csv"), ("json", "json"),
+                     ("hive_text", "txt")):
+        _df(s).write.format(fmt).save(str(tmp_path / fmt))
+        assert os.path.exists(str(tmp_path / fmt / f"part-00000.{ext}"))
 
 
 # -- exactly once under failures -------------------------------------------------

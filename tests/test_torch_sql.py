@@ -444,8 +444,8 @@ def test_error_positions(s):
 #: raises NotImplementedError naming the construct
 LOWERING_RAISES = {
     "create view using": (
-        "CREATE TEMP VIEW pq USING csv OPTIONS (path '/data/pq')",
-        "the csv source is not ported"),
+        "CREATE TEMP VIEW pq USING orc OPTIONS (path '/data/pq')",
+        "the orc source is not ported"),
     "mixed-type case": ("SELECT CASE WHEN id > 3 THEN 1 ELSE 2.5 END AS c "
                         "FROM t", "CaseWhen over values of types"),
 }
