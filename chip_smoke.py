@@ -161,10 +161,24 @@ Phases, in order; any failure exits non-zero:
    comment, null, custom float spellings, timestampFormat), the three
    modes over ragged and malformed rows, JSON multiLine and
    primitivesAsString, and a faulted CSV write then its retry;
-17. the summary lines: one ``{"kernels": [...]}`` JSON line (the five TPU
+17. ORC and the binary codecs (``run_orc``): the ZSTD, LZ4 and ORC host
+   sources' build time and the host compiler; phase 15's corpus tables
+   as ORC with ZSTD, phase 4's lineitem as ORC with ZSTD and with LZ4 and
+   as Parquet with ZSTD and with LZ4, each written by the port and read
+   back in PERFILE, COALESCING and MULTITHREADED bit for bit, with write
+   seconds, host decode seconds and MB/s; the port's ZSTD and LZ4 against
+   the host's libzstd and liblz4 on the corpus lineitem's uncompressed
+   ORC bytes (size and host MB/s each way); TPC-H q1 from the ORC lineitem
+   against phase 4's oracle, cold and warm, with its decode and upload
+   waits, host syncs and peak memory, beside phase 15's q1 from Parquet
+   and phase 4's in memory; the 22 corpus queries from the ORC files as
+   DataFrames and as SQL over ``CREATE TEMP VIEW ... USING orc`` against
+   phase 6-8's oracles; a faulted ORC write, and a ZSTD frame and an ORC
+   file corrupted on purpose raising;
+18. the summary lines: one ``{"kernels": [...]}`` JSON line (the five TPU
    kernels and the DECIMAL128 division kernel, CUDA work beyond them;
    launches of the main path: q1's, sparse q3's probes, q8's MIN/MAX, plus
-   every phase-7 to phase-16 query's), the card line, and last
+   every phase-7 to phase-17 query's), the card line, and last
    ``{"ok": true, "device": {...}}``.
 
 Each phase logs its wall time. It needs one CUDA card and exits non-zero
@@ -6065,6 +6079,459 @@ def run_text(seed: int, q1_keep) -> dict:
     return totals
 
 
+# ---------------------------------------------------------------------------
+# phase 17: ORC files in and out, and the binary codecs
+# ---------------------------------------------------------------------------
+
+#: the phase's time budget on the card (seconds)
+ORC_BUDGET_S = 120.0
+#: the new host sources of the phase
+ORC_SOURCES = ("zstd_host", "lz4_host", "orc_host")
+
+
+def orc_build() -> dict:
+    """17.1: the ZSTD, LZ4 and ORC host sources built from scratch into a
+    scratch directory (one g++ each, in parallel), timed, and the host
+    compiler's version."""
+    import pathlib
+    import shutil
+    import tempfile
+
+    from spark_rapids_tpu_torch import native
+    kept, scratch = native.BUILD_DIR, tempfile.mkdtemp(prefix="srt-orc-")
+    native.BUILD_DIR = pathlib.Path(scratch)
+    try:
+        t0 = time.perf_counter()
+        native.build(list(ORC_SOURCES))
+        build_s = time.perf_counter() - t0
+    finally:
+        native.BUILD_DIR = kept
+        shutil.rmtree(scratch, ignore_errors=True)
+    gxx = subprocess.run([native.compiler(), "--version"],
+                         capture_output=True, text=True, timeout=60)
+    version = (gxx.stdout.splitlines() or ["?"])[0]
+    t0 = time.perf_counter()
+    for name in ORC_SOURCES:
+        native.load(name)
+    load_s = time.perf_counter() - t0
+    log(f"  17.1 {', '.join(n + '.cpp' for n in ORC_SOURCES)} built from "
+        f"source in {build_s:.2f} s by {version}; their first use loaded "
+        f"in {load_s:.2f} s")
+    return {"build_s": round(build_s, 2), "gxx": version,
+            "first_use_s": round(load_s, 2)}
+
+
+def orc_scan(fmt: str, path: str, mode: str):
+    from spark_rapids_tpu_torch.conf import RapidsConf
+    from spark_rapids_tpu_torch.io.orc import OrcScanNode
+    from spark_rapids_tpu_torch.io.parquet import ParquetScanNode
+    cls = OrcScanNode if fmt == "orc" else ParquetScanNode
+    return cls([path], RapidsConf(), reader_type=mode)
+
+
+def orc_tables(tables, lineitem, base: str, card: str) -> tuple:
+    """17.2: the corpus tables as ORC (ZSTD) and phase 4's lineitem as ORC
+    (ZSTD, LZ4) and as Parquet (ZSTD, LZ4), two files a table, written by
+    the port and read back in PERFILE, COALESCING and MULTITHREADED, each
+    held against its source bit for bit. Returns ({name: ORC directory},
+    {label: numbers})."""
+    from spark_rapids_tpu_torch.columnar.table import upload_host_table
+    from spark_rapids_tpu_torch.models.corpus import write_corpus_files
+    jobs = [("orc", "zstd", n, t) for n, t in tables.items()]
+    jobs += [("orc", "zstd", "lineitem_q1", lineitem),
+             ("orc", "lz4", "lineitem_q1", lineitem),
+             ("parquet", "zstd", "lineitem_q1", lineitem),
+             ("parquet", "lz4", "lineitem_q1", lineitem)]
+    paths, numbers = {}, {}
+    for fmt, codec, name, t in jobs:
+        label = f"{fmt} {codec} {name}"
+        sub = os.path.join(base, f"{fmt}_{codec}")
+        t0 = time.perf_counter()
+        got_paths = write_corpus_files({name: t}, sub, FILES_PER_TABLE,
+                                       fmt=fmt, compression=codec)
+        write_s = time.perf_counter() - t0
+        path = got_paths[name]
+        if fmt == "orc" and codec == "zstd":
+            paths[name] = path
+        on_disk = dir_bytes(path)
+        decode = {}
+        for mode in ("PERFILE", "COALESCING", "MULTITHREADED"):
+            scan = orc_scan(fmt, path, mode)
+            t0 = time.perf_counter()
+            got = scan.collect_host()
+            decode[mode] = time.perf_counter() - t0
+            same_host_table(got, t, f"{label} read back ({mode})")
+        host_mb = got.nbytes() / 1e6
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dt = upload_host_table(got, DEV)
+        torch.cuda.synchronize()
+        upload_ms = (time.perf_counter() - t0) * 1e3
+        del dt, got
+        best = min(decode.values())
+        numbers[label] = {
+            "rows": t.num_rows, "bytes_on_disk": on_disk,
+            "write_s": round(write_s, 3),
+            "decode_s": {m: round(v, 3) for m, v in decode.items()},
+            "decoded_mb_per_s": {m: round(host_mb / v, 1)
+                                 for m, v in decode.items()},
+            "disk_mb_per_s": round(on_disk / 1e6 / best, 1),
+            "host_mb": round(host_mb, 1), "upload_ms": round(upload_ms, 2)}
+        log(f"  17.2 {label}: {t.num_rows} rows, {on_disk} B on disk, write "
+            f"{write_s:.3f} s, decode (host) "
+            f"{', '.join(f'{m} {v:.3f} s' for m, v in decode.items())}, "
+            f"{host_mb / best:.1f} MB/s decoded ({host_mb:.1f} MB; "
+            f"{on_disk / 1e6 / best:.1f} MB/s of file), upload "
+            f"{upload_ms:.2f} ms; read back bit for bit in all three modes "
+            f"[{card}]")
+    return paths, numbers
+
+
+#: the ZSTD level of the system library's side of the codec comparison:
+#: Arrow's default, which pyarrow and Spark's Parquet and ORC writers use
+SYSTEM_ZSTD_LEVEL = 1
+
+
+def host_cpu() -> str:
+    """The host CPU's model (``lscpu``'s, else /proc/cpuinfo's), its
+    architecture and the cores this process may use."""
+    import platform
+    model = "model unknown"
+    try:
+        out = subprocess.run(["lscpu"], capture_output=True, text=True,
+                             timeout=30).stdout
+        with open("/proc/cpuinfo") as f:
+            out += f.read()
+    except (OSError, subprocess.SubprocessError):
+        out = ""
+    for line in out.splitlines():
+        key, _, value = line.partition(":")
+        if key.strip().lower() == "model name" and value.strip():
+            model = value.strip()
+            break
+    return (f"{model}, {platform.machine()}, "
+            f"{len(os.sched_getaffinity(0))} cores")
+
+
+def system_codecs() -> dict:
+    """The host's libzstd and liblz4 through ctypes, where the machine
+    has them: {name: (compress, decompress)} for the codec comparison
+    (the port links neither)."""
+    import ctypes.util
+    size, buf = ctypes.c_size_t, ctypes.c_char_p
+    out = {}
+    path = ctypes.util.find_library("zstd")
+    if path:
+        z = ctypes.CDLL(path)
+        z.ZSTD_compressBound.restype = size
+        z.ZSTD_compressBound.argtypes = [size]
+        z.ZSTD_compress.restype = size
+        z.ZSTD_compress.argtypes = [buf, size, buf, size, ctypes.c_int]
+        z.ZSTD_decompress.restype = size
+        z.ZSTD_decompress.argtypes = [buf, size, buf, size]
+        z.ZSTD_isError.restype = ctypes.c_uint
+        z.ZSTD_isError.argtypes = [size]
+
+        def zc(src: bytes) -> bytes:
+            cap = z.ZSTD_compressBound(len(src))
+            dst = ctypes.create_string_buffer(cap)
+            k = z.ZSTD_compress(dst, cap, src, len(src), SYSTEM_ZSTD_LEVEL)
+            if z.ZSTD_isError(k):
+                raise RuntimeError("libzstd: ZSTD_compress failed")
+            return dst.raw[:k]
+
+        def zd(src: bytes, n: int) -> bytes:
+            dst = ctypes.create_string_buffer(n)
+            k = z.ZSTD_decompress(dst, n, src, len(src))
+            if z.ZSTD_isError(k) or k != n:
+                raise RuntimeError("libzstd: ZSTD_decompress failed")
+            return dst.raw
+        out[f"zstd {os.path.basename(path)} level {SYSTEM_ZSTD_LEVEL}"] = \
+            (zc, zd)
+    path = ctypes.util.find_library("lz4")
+    if path:
+        c = ctypes.CDLL(path)
+        c.LZ4_compressBound.restype = ctypes.c_int
+        c.LZ4_compressBound.argtypes = [ctypes.c_int]
+        for fn in (c.LZ4_compress_default, c.LZ4_decompress_safe):
+            fn.restype = ctypes.c_int
+            fn.argtypes = [buf, buf, ctypes.c_int, ctypes.c_int]
+
+        def lc(src: bytes) -> bytes:
+            cap = c.LZ4_compressBound(len(src))
+            dst = ctypes.create_string_buffer(cap)
+            k = c.LZ4_compress_default(src, dst, len(src), cap)
+            if k <= 0:
+                raise RuntimeError("liblz4: LZ4_compress_default failed")
+            return dst.raw[:k]
+
+        def ld(src: bytes, n: int) -> bytes:
+            dst = ctypes.create_string_buffer(n)
+            if c.LZ4_decompress_safe(src, dst, len(src), n) != n:
+                raise RuntimeError("liblz4: LZ4_decompress_safe failed")
+            return dst.raw
+        out[f"lz4 {os.path.basename(path)}"] = (lc, ld)
+    return out
+
+
+def orc_codec_rates(table, base: str, card: str, reps: int = 3) -> dict:
+    """17.2: the port's ZSTD and LZ4 (``native/zstd_host.cpp``,
+    ``lz4_host.cpp``) against the host's libzstd (Arrow's default level)
+    and liblz4, on the bytes the ORC writer compresses: ``table`` written
+    as uncompressed ORC, cut into the writer's 256 KiB blocks. Each side
+    round-trips every block, then is timed (median of ``reps``): its
+    compressed share of the input and its host MB/s each way. Host
+    numbers, not device ones; a library the machine lacks is logged as
+    not measured."""
+    from spark_rapids_tpu_torch import native
+    from spark_rapids_tpu_torch.io import orc_format as OF
+    path = os.path.join(base, "codecs.orc")
+    OF.write_table(table, path, compression="none")
+    with open(path, "rb") as f:
+        raw = f.read()
+    os.remove(path)
+    blocks = [raw[i:i + OF.BLOCK_SIZE]
+              for i in range(0, len(raw), OF.BLOCK_SIZE)]
+    sides = {"zstd port": (native.zstd_compress, native.zstd_decompress),
+             "lz4 port": (native.lz4_compress, native.lz4_decompress)}
+    sides.update(system_codecs())
+    out = {"input_bytes": len(raw), "blocks": len(blocks),
+           "rows": table.num_rows, "host": host_cpu(), "sides": {}}
+
+    def median_s(fn) -> float:
+        runs = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            runs.append(time.perf_counter() - t0)
+        return statistics.median(runs)
+
+    for name, (comp, decomp) in sides.items():
+        packed = [comp(b) for b in blocks]
+        for b, p in zip(blocks, packed):
+            if bytes(decomp(p, len(b))) != b:
+                raise AssertionError(f"17.2 codecs: {name} did not "
+                                     "round-trip a block")
+        enc = median_s(lambda: [comp(b) for b in blocks])
+        dec = median_s(lambda: [decomp(p, len(b))
+                                for b, p in zip(blocks, packed)])
+        share = sum(map(len, packed)) / len(raw)
+        out["sides"][name] = {
+            "compressed_share": round(share, 4),
+            "compress_mb_per_s": round(len(raw) / 1e6 / enc, 1),
+            "decompress_mb_per_s": round(len(raw) / 1e6 / dec, 1)}
+        log(f"  17.2 codecs, {name}: {share:.4f} of {len(raw)} B in "
+            f"{len(blocks)} blocks, compress {len(raw) / 1e6 / enc:.1f} "
+            f"MB/s, decompress {len(raw) / 1e6 / dec:.1f} MB/s (host: "
+            f"{out['host']}) [{card}]")
+    for lib in ("zstd", "lz4"):
+        if not any(n.startswith(lib) and not n.endswith("port")
+                   for n in out["sides"]):
+            log(f"  17.2 codecs: no system lib{lib} on this machine, its "
+                "side not measured")
+    return out
+
+
+def orc_q1(paths, q1_keep, card: str) -> tuple:
+    """17.3: TPC-H q1 over lineitem from its ORC (ZSTD) files through
+    ``run_case`` (cold, warm, host syncs, peak memory, every launch held
+    against its plain version) against phase 4's oracle."""
+    from spark_rapids_tpu_torch.models.tpch import q1_dataframe
+    from spark_rapids_tpu_torch.session import TorchSession
+    session = TorchSession()
+    cold = {}
+
+    def check(got):
+        if not cold:
+            cold.update(session.last_metrics(), **session.last_timings())
+        q1_keep["check"](got)
+
+    res = run_case(session, "q1 from ORC",
+                   lambda: q1_dataframe(session, session.read_orc(
+                       paths["lineitem_q1"])), check, None, warm_runs=2)
+    log("  17.3 q1 from ORC, the cold run's counters and seconds: "
+        + json.dumps({k: round(v, 4) if isinstance(v, float) else v
+                      for k, v in cold.items() if v}))
+    for k in ("onehot_partials", "gather_compact", "sort_with_payload"):
+        if not res["launches"].get(k):
+            fail(f"q1 from ORC launched no {k}")
+    m = session.last_metrics()
+    decode_ms = round(m.get("scanDecodeTime", 0) * 1e3, 2)
+    upload_ms = round(m.get("scanUploadTime", 0) * 1e3, 2)
+    log(f"  17.3 q1 from ORC: cold {res['stats']['cold_ms']} ms, warm "
+        f"{res['stats']['warm_ms']} ms against phase 15's q1 from Parquet "
+        f"warm {q1_keep.get('files_warm_ms')} ms and phase 4's in-memory "
+        f"warm {q1_keep['warm_ms']} ms (the counted run waited {decode_ms} "
+        f"ms on the decode and uploaded for {upload_ms} ms); host syncs "
+        f"{res['stats']['syncs']}; peak {res['stats']['peak_gib']} GiB; "
+        f"result matches phase 4's oracle [{card}]")
+    return res["launches"], dict(
+        res["stats"], decode_ms=decode_ms, upload_ms=upload_ms,
+        in_memory_warm_ms=q1_keep["warm_ms"],
+        parquet_warm_ms=q1_keep.get("files_warm_ms"))
+
+
+def orc_corpus(tables, paths, card: str) -> tuple:
+    """17.4: the 22 corpus queries over the ORC files as DataFrames
+    (``build_queries(..., fmt="orc")``) and as SQL over ``CREATE TEMP VIEW
+    ... USING orc``, each through ``run_case`` (one warm run before the
+    counted one) against its oracle. Returns (launch totals, numbers)."""
+    from spark_rapids_tpu_torch.models.corpus import (
+        CORPUS,
+        build_queries,
+        build_sql_queries,
+    )
+    from spark_rapids_tpu_torch.session import TorchSession
+    oracles = file_oracles(tables)
+    table_paths = {n: paths[n] for n in tables}
+    forms = []
+    for label, build in (("ORC", build_queries),
+                         ("ORC SQL", build_sql_queries)):
+        session = TorchSession()
+        forms.append((label, session, build(session, tables,
+                                            paths=table_paths, fmt="orc")))
+    total, numbers = {}, {}
+    for name in CORPUS:
+        for label, session, queries in forms:
+            case = f"{name} from {label}"
+            res = run_case(session, case, queries[name], oracles[name], None,
+                           warm_runs=1)
+            m = session.last_metrics()
+            for k, v in res["launches"].items():
+                total[k] = total.get(k, 0) + v
+            decode_ms = round(m.get("scanDecodeTime", 0) * 1e3, 2)
+            numbers[case] = {
+                "warm_ms": res["stats"]["warm_ms"],
+                "cold_ms": res["stats"]["cold_ms"],
+                "decode_ms": decode_ms,
+                "upload_ms": round(m.get("scanUploadTime", 0) * 1e3, 2),
+                "decode_share": round(decode_ms / max(
+                    res["stats"]["warm_ms"], 1e-9), 3),
+                "syncs": res["stats"]["syncs"],
+                "launches": {k: v for k, v in res["launches"].items() if v}}
+    log(f"  17.4 all {len(forms) * len(CORPUS)} corpus runs from ORC files "
+        "match their oracles; warm ms (the decode's share of the counted "
+        "run): " + ", ".join(f"{k} {v['warm_ms']} ({v['decode_share']})"
+                             for k, v in numbers.items()) + f" [{card}]")
+    return total, numbers
+
+
+def orc_faults(tables, paths, base: str, card: str) -> dict:
+    """17.5: an ORC write under an injected io.write.file fault (aborted
+    with no visible file, then committed on the retry and read back bit
+    for bit), a ZSTD frame with one byte flipped and one cut short, and
+    an ORC file cut short, each raising ColumnarProcessingError."""
+    from spark_rapids_tpu_torch import native
+    from spark_rapids_tpu_torch.errors import (
+        ColumnarProcessingError,
+        KernelCrashError,
+    )
+    from spark_rapids_tpu_torch.io import orc_format as OF
+    from spark_rapids_tpu_torch.io.committer import read_manifest
+    from spark_rapids_tpu_torch.io.common import expand_paths
+    from spark_rapids_tpu_torch.plan import from_host_table
+    from spark_rapids_tpu_torch.plan import nodes as P
+    from spark_rapids_tpu_torch.runtime.faults import FAULTS
+    from spark_rapids_tpu_torch.session import TorchSession
+    cust = tables["customer"]
+    fdir = os.path.join(base, "orc_faulted")
+    faulty = TorchSession({"spark.rapids.test.faults":
+                           "io.write.file:crash:1"})
+    node = P.WriteFiles(from_host_table(cust, faulty).plan, "orc", fdir,
+                        None, {"compression": "zstd"})
+    try:
+        faulty.execute(node)
+        fail("the injected io.write.file fault did not fire (ORC)")
+    except KernelCrashError:
+        pass
+    visible = [f for _r, _d, fs in os.walk(fdir) for f in fs] \
+        if os.path.isdir(fdir) else []
+    if visible or read_manifest(fdir) is not None:
+        fail(f"aborted ORC write left files: {visible}")
+    stats = faulty.execute(node)
+    FAULTS.disarm()
+    same_host_table(TorchSession().read_orc(fdir).collect_table(), cust,
+                    "the retried ORC write read back")
+    text = ("|".join(str(i) for i in range(20000))).encode()
+    frame = bytearray(native.zstd_compress(text, checksum=True))
+    raised = []
+    for what, bad in (("a flipped byte", bytes(frame[:len(frame) // 2])
+                       + bytes([frame[len(frame) // 2] ^ 0x10])
+                       + bytes(frame[len(frame) // 2 + 1:])),
+                      ("a cut frame", bytes(frame[:len(frame) - 7]))):
+        try:
+            native.zstd_decompress(bad)
+            fail(f"a ZSTD frame with {what} decoded")
+        except ColumnarProcessingError as e:
+            raised.append(f"{what}: {e}")
+    one = expand_paths([paths["customer"]])[0]
+    raw = open(one, "rb").read()
+    cut = os.path.join(base, "cut.orc")
+    with open(cut, "wb") as f:
+        f.write(raw[:len(raw) // 2])
+    try:
+        OF.read_table(cut)
+        fail("an ORC file cut in half decoded")
+    except ColumnarProcessingError as e:
+        raised.append(f"a cut ORC file: {e}")
+    log(f"  17.5 injected io.write.file fault on an ORC write: aborted with "
+        f"no visible file, the retry committed "
+        f"{int(stats.columns[0].data[0])} file(s), read back bit for bit; "
+        f"corrupt input raised ColumnarProcessingError: {raised} [{card}]")
+    return {"retry_files": int(stats.columns[0].data[0]),
+            "raised": len(raised)}
+
+
+def run_orc(seed: int, q1_keep) -> dict:
+    """Phase 17: ORC files in and out and the binary codecs (17.1-17.5).
+    Returns every kernel's launches over the counted runs."""
+    import shutil
+    import tempfile
+
+    card = card_line()
+    t_phase = time.perf_counter()
+    summary = {"card": card, "build": orc_build()}
+    base = tempfile.mkdtemp(prefix="srt-orc-files-")
+    totals = {}
+    try:
+        tables = file_corpus(seed)["tables"]
+        lineitem = q1_keep["tables"][0]
+        log(f"  17.2 phase 15's scale_test_specs({FILES_SF}) seed {seed} "
+            f"tables and oracles; lineitem for q1: phase 4's "
+            f"{lineitem.num_rows} rows")
+        t0 = time.perf_counter()
+        paths, summary["tables"] = orc_tables(tables, lineitem, base, card)
+        summary["codecs"] = orc_codec_rates(tables["lineitem"], base, card)
+        log(f"  17.2 ran {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        launches, summary["q1"] = orc_q1(paths, q1_keep, card)
+        for k, v in launches.items():
+            totals[k] = totals.get(k, 0) + v
+        log(f"  17.3 ran {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        launches, summary["corpus"] = orc_corpus(tables, paths, card)
+        for k, v in launches.items():
+            totals[k] = totals.get(k, 0) + v
+        log(f"  17.4 ran {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        summary["faults"] = orc_faults(tables, paths, base, card)
+        log(f"  17.5 ran {time.perf_counter() - t0:.1f} s")
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    took = time.perf_counter() - t_phase
+    summary["seconds"] = round(took, 1)
+    summary["launches"] = {k: v for k, v in totals.items() if v}
+    if took > ORC_BUDGET_S:
+        log(f"  phase 17 took {took:.1f} s, past its {ORC_BUDGET_S:.0f} s "
+            f"budget: lower FILES_SF ({FILES_SF}) for it")
+    for k in ("onehot_partials", "gather_compact", "sort_with_payload",
+              "fused_minmax"):
+        if not totals.get(k):
+            fail(f"phase 17 launched no {k}")
+    log("  phase-17 summary: " + json.dumps(summary))
+    return totals
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rows", type=int, default=6_001_215,
@@ -6230,7 +6697,16 @@ def main(argv=None) -> int:
         launches[k] = launches.get(k, 0) + v
     log(f"  phase 16 ran {time.perf_counter() - t_phase:.1f} s")
 
-    log("phase 17: summary")
+    t_phase = time.perf_counter()
+    log("phase 17: ORC files in and out and the binary codecs (ZSTD and "
+        "LZ4 of the port's own, ORC's run-length streams; ORC and Parquet "
+        "with ZSTD and LZ4 read back in the reader modes, q1 and the "
+        "corpus from ORC, a faulted ORC write, corrupt input)")
+    for k, v in run_orc(args.seed, q1_keep).items():
+        launches[k] = launches.get(k, 0) + v
+    log(f"  phase 17 ran {time.perf_counter() - t_phase:.1f} s")
+
+    log("phase 18: summary")
     log("  dec128_divide is CUDA work beyond the five TPU kernels: the "
         "reference divides DECIMAL128 values on its host")
     for r in rows:

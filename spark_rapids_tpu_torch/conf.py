@@ -223,6 +223,11 @@ JSON_READER_TYPE = _conf(
     "spark.rapids.sql.format.json.reader.type", "AUTO",
     "PERFILE, COALESCING, MULTITHREADED or AUTO.", str)
 
+ORC_READER_TYPE = _conf(
+    "spark.rapids.sql.format.orc.reader.type", "AUTO",
+    "PERFILE, COALESCING, MULTITHREADED or AUTO (reference: GpuOrcScan "
+    "reader modes).", str)
+
 HIVE_TEXT_READER_TYPE = _conf(
     "spark.rapids.sql.format.hiveText.reader.type", "AUTO",
     "PERFILE, COALESCING, MULTITHREADED or AUTO.", str)
@@ -253,6 +258,7 @@ FILE_SCAN_ENABLED = {
     fmt: _conf(f"spark.rapids.sql.exec.{cls}", True,
                f"Enable {fmt} scans on the accelerator.", _to_bool)
     for fmt, cls in (("parquet", "ParquetScanNode"),
+                     ("orc", "OrcScanNode"),
                      ("avro", "AvroScanNode"), ("csv", "CsvScanNode"),
                      ("json", "JsonScanNode"),
                      ("hiveText", "HiveTextScanNode"))}

@@ -1,12 +1,13 @@
 """File IO: scans and writers (port of ``spark_rapids_tpu/io``: the
-Parquet, Avro, CSV, Hive text and JSON scans over the three reader modes,
-the Parquet, CSV, Hive text and JSON writers and the transactional
-committer).
+Parquet, ORC, Avro, CSV, Hive text and JSON scans over the three reader
+modes, the Parquet, ORC, CSV, Hive text and JSON writers and the
+transactional committer).
 
 Decoding runs on the host, as in the reference, but through the port's
-own codecs: Parquet in ``parquet_format.py``, the text formats in
-``text_format.py`` (no pyarrow for either), Avro in pure Python. ORC waits
-for ROADMAP item 8b and raises through the source SPI (sources.py).
+own codecs: Parquet in ``parquet_format.py``, ORC in ``orc_format.py``,
+the text formats in ``text_format.py`` (no pyarrow for any), Avro in pure
+Python; ZSTD, LZ4, Snappy and the run-length streams in the host library
+(``native/``).
 """
 
 from spark_rapids_tpu_torch.io.avro import AvroScanNode
@@ -18,10 +19,11 @@ from spark_rapids_tpu_torch.io.hive_text import (
     write_hive_text,
 )
 from spark_rapids_tpu_torch.io.json import JsonScanNode, write_json
+from spark_rapids_tpu_torch.io.orc import OrcScanNode, write_orc
 from spark_rapids_tpu_torch.io.parquet import ParquetScanNode, write_parquet
 from spark_rapids_tpu_torch.overrides.rules import register_file_scan
 
-for _cls in (ParquetScanNode, AvroScanNode, CsvScanNode, JsonScanNode,
+for _cls in (ParquetScanNode, OrcScanNode, AvroScanNode, CsvScanNode, JsonScanNode,
              HiveTextScanNode):
     register_file_scan(_cls)
 del _cls
@@ -32,6 +34,7 @@ __all__ = [
     "FileScanNode",
     "HiveTextScanNode",
     "JsonScanNode",
+    "OrcScanNode",
     "ParquetScanNode",
     "ReaderMode",
     "WriteJob",
@@ -39,5 +42,6 @@ __all__ = [
     "write_csv",
     "write_hive_text",
     "write_json",
+    "write_orc",
     "write_parquet",
 ]

@@ -4,16 +4,21 @@ the card's machine does not have): the Thrift compact protocol of the
 footer and the page headers, the page decoder and the file writer.
 
 Reading covers flat schemas of REQUIRED and OPTIONAL columns: BOOLEAN,
-INT32, INT64, FLOAT, DOUBLE, BYTE_ARRAY and FIXED_LEN_BYTE_ARRAY, with the
-annotations signed ``Int`` 8/16/32/64, STRING/UTF8, DATE, TIMESTAMP
-(MILLIS and MICROS) and DECIMAL, each mapped to the Spark type
-``io/arrow_convert.py:21-47`` maps pyarrow's type to; the encodings PLAIN,
-PLAIN_DICTIONARY, RLE_DICTIONARY, RLE and BIT_PACKED; DATA_PAGE v1 and v2
-pages after an optional dictionary page (a chunk may fall back to PLAIN
-after it); the codecs UNCOMPRESSED, SNAPPY and GZIP. Everything else
-raises NotImplementedError naming itself: ZSTD, LZ4, LZ4_RAW, BROTLI and
-LZO, INT96, the DELTA_* encodings and BYTE_STREAM_SPLIT, repeated and
-nested columns, TIMESTAMP NANOS, unsigned integers and plain binary.
+INT32, INT64, INT96, FLOAT, DOUBLE, BYTE_ARRAY and FIXED_LEN_BYTE_ARRAY,
+with the annotations signed ``Int`` 8/16/32/64, STRING/UTF8, DATE,
+TIMESTAMP (MILLIS, MICROS and NANOS) and DECIMAL, each mapped to the Spark
+type ``io/arrow_convert.py:21-47`` maps pyarrow's type to (INT96 and NANOS
+as micros: a sub-microsecond remainder raises, as the reference's safe
+cast does); the encodings PLAIN, PLAIN_DICTIONARY, RLE_DICTIONARY, RLE,
+BIT_PACKED, DELTA_BINARY_PACKED, DELTA_LENGTH_BYTE_ARRAY, DELTA_BYTE_ARRAY
+and BYTE_STREAM_SPLIT; DATA_PAGE v1 and v2 pages after an optional
+dictionary page (a chunk may fall back to another encoding after it); the
+codecs UNCOMPRESSED, SNAPPY, GZIP, ZSTD, LZ4_RAW and LZ4 (Hadoop-framed
+blocks, else one raw block, as Arrow reads it). Everything else raises
+NotImplementedError naming itself: BROTLI (its decoder needs RFC 7932's
+static dictionary, which is not in the repository) and LZO (nothing the
+port can test against writes it), repeated and nested columns, unsigned
+integers and plain binary.
 
 Values come out in the host layout of ``interop.host_table_from_arrays``:
 dates as int32 days, timestamps as int64 micros, DECIMAL64 as int64
@@ -21,14 +26,16 @@ unscaled, DECIMAL128 as Python ints. A string column's chunks merge into
 one sorted dictionary whose codes seed the column's ``encoded()`` cache
 (equal to what ``encode_sorted_dict`` gives for the same rows), and its
 values are ``dictionary[codes]``, which makes no new str objects.
-Decoding is vectorised: the host library (``native/parquet_host.cpp``)
-for Snappy, the RLE / bit-packed hybrid and BYTE_ARRAY values, numpy for
-the rest.
+Decoding is vectorised: the host library for Snappy, the RLE /
+bit-packed hybrid, BYTE_ARRAY values and the DELTA encodings
+(``native/parquet_host.cpp``), ZSTD (``native/zstd_host.cpp``) and LZ4
+(``native/lz4_host.cpp``), numpy for the rest.
 
 Writing makes version-1 data pages with RLE definition levels (every
 column OPTIONAL, as Spark writes), RLE_DICTIONARY for strings and PLAIN
 for every other type, statistics (min, max, null count) on every chunk,
-SNAPPY (the default), GZIP or no compression, ``row_group_rows`` rows a
+SNAPPY (the default), GZIP, ZSTD, LZ4 (as pyarrow writes ``"lz4"``: the
+LZ4_RAW codec) or no compression, ``row_group_rows`` rows a
 row group and pages of about ``page_bytes``. Types are written as pyarrow
 writes the reference's tables: BYTE and SHORT as annotated INT32, DATE as
 INT32 (Date), TIMESTAMP as INT64 micros adjusted to UTC, DECIMAL as the
@@ -57,12 +64,13 @@ PHYSICAL_NAMES = ("BOOLEAN", "INT32", "INT64", "INT96", "FLOAT", "DOUBLE",
 # repetition
 REQUIRED, OPTIONAL, REPEATED = range(3)
 # compression codecs
-UNCOMPRESSED, SNAPPY, GZIP = 0, 1, 2
+UNCOMPRESSED, SNAPPY, GZIP, LZO, BROTLI, LZ4, ZSTD, LZ4_RAW = range(8)
 CODEC_NAMES = ("UNCOMPRESSED", "SNAPPY", "GZIP", "LZO", "BROTLI", "LZ4",
                "ZSTD", "LZ4_RAW")
 # encodings
 PLAIN, PLAIN_DICTIONARY, RLE, BIT_PACKED = 0, 2, 3, 4
-RLE_DICTIONARY = 8
+DELTA_BINARY_PACKED, DELTA_LENGTH_BYTE_ARRAY, DELTA_BYTE_ARRAY = 5, 6, 7
+RLE_DICTIONARY, BYTE_STREAM_SPLIT = 8, 9
 ENCODING_NAMES = {0: "PLAIN", 2: "PLAIN_DICTIONARY", 3: "RLE",
                   4: "BIT_PACKED", 5: "DELTA_BINARY_PACKED",
                   6: "DELTA_LENGTH_BYTE_ARRAY", 7: "DELTA_BYTE_ARRAY",
@@ -72,6 +80,8 @@ DATA_PAGE, INDEX_PAGE, DICTIONARY_PAGE, DATA_PAGE_V2 = range(4)
 # converted types (the legacy annotations)
 CT_UTF8, CT_ENUM, CT_DECIMAL, CT_DATE = 0, 4, 5, 6
 CT_TIMESTAMP_MILLIS, CT_TIMESTAMP_MICROS = 9, 10
+#: the Julian day of 1970-01-01 (INT96 timestamps count Julian days)
+JULIAN_UNIX_EPOCH = 2440588
 CT_UINT = (11, 12, 13, 14)
 CT_INT_8, CT_INT_16, CT_INT_32, CT_INT_64 = 15, 16, 17, 18
 CT_JSON = 19
@@ -243,7 +253,7 @@ class Leaf:
     ``unsupported`` naming why, for a column the port cannot read)."""
 
     __slots__ = ("name", "physical", "type_length", "optional", "spark",
-                 "ts_scale", "unsupported")
+                 "ts_scale", "ts_nanos", "unsupported")
 
     def __init__(self, el: Dict[int, object]):
         self.name = el[4].decode("utf-8")
@@ -251,6 +261,7 @@ class Leaf:
         self.type_length = el.get(2, 0)
         self.optional = el.get(3, REQUIRED) == OPTIONAL
         self.ts_scale = 1
+        self.ts_nanos = False
         self.unsupported = None
         try:
             self.spark = _spark_type(el, self)
@@ -270,9 +281,8 @@ def _spark_type(el: Dict[int, object], leaf: Leaf) -> T.DataType:
     ct = el.get(6)
     lt = el.get(10) or {}
     if phys == INT96:
-        raise NotImplementedError(
-            f"Parquet INT96 timestamps (column {name!r}) are not supported "
-            "by the port's Parquet reader")
+        # Julian day and nanos of day, decoded to micros in _plain
+        return T.TIMESTAMP
     if 5 in lt or ct == CT_DECIMAL:
         dec = lt.get(5) or {}
         precision = dec.get(2, el.get(8))
@@ -284,10 +294,7 @@ def _spark_type(el: Dict[int, object], leaf: Leaf) -> T.DataType:
         return T.DecimalType(int(precision), int(scale))
     if 8 in lt or ct in (CT_TIMESTAMP_MILLIS, CT_TIMESTAMP_MICROS):
         unit = (lt.get(8) or {}).get(2) or {}
-        if 3 in unit:
-            raise NotImplementedError(
-                f"Parquet TIMESTAMP(NANOS) (column {name!r}) is not "
-                "supported by the port's Parquet reader")
+        leaf.ts_nanos = 3 in unit
         millis = 1 in unit or (not unit and ct == CT_TIMESTAMP_MILLIS)
         leaf.ts_scale = 1000 if millis else 1
         if phys != INT64:
@@ -413,6 +420,51 @@ def read_footer(path: str) -> FileMeta:
 
 # -- decoding -----------------------------------------------------------------
 
+#: why the codecs the port's readers (Parquet's and ORC's) do not take
+#: are not taken, by name
+CODEC_REASONS = {
+    "BROTLI": "its decoder needs RFC 7932's 122,784-byte static "
+              "dictionary, which is not in the repository",
+    "LZO": "pyarrow writes LZO for neither Parquet nor ORC, so nothing the "
+           "port can test against writes it"}
+
+
+def unsupported_codec(fmt: str, names: Sequence[str], codec: int,
+                      where: str) -> NotImplementedError:
+    """The error for codec id ``codec`` (named by ``names``) that the
+    port's ``fmt`` (Parquet or ORC) ``where`` (reader, writer) does not
+    take, with the reason."""
+    name = names[codec] if 0 <= codec < len(names) else str(codec)
+    why = CODEC_REASONS.get(name, "an unknown codec id")
+    return NotImplementedError(
+        f"{fmt} codec {name} is not supported by the port's {fmt} "
+        f"{where}: {why}")
+
+
+def _lz4_hadoop(data, size: int):
+    """Parquet's legacy LZ4 page as Arrow reads it: blocks each behind
+    big-endian (decompressed, compressed) lengths, else one raw block."""
+    mv = memoryview(data)
+    parts, pos, total = [], 0, 0
+    try:
+        while len(mv) - pos >= 8:
+            want, clen = struct.unpack_from(">II", mv, pos)
+            pos += 8
+            if clen > len(mv) - pos or total + want > size:
+                raise ColumnarProcessingError("not Hadoop-framed")
+            got = N.lz4_decompress(mv[pos:pos + clen], want)
+            if len(got) != want:
+                raise ColumnarProcessingError("not Hadoop-framed")
+            parts.append(got)
+            total += want
+            pos += clen
+        if pos != len(mv) or not parts:
+            raise ColumnarProcessingError("not Hadoop-framed")
+    except ColumnarProcessingError:
+        return N.lz4_decompress(data, size)
+    return parts[0] if len(parts) == 1 else np.concatenate(parts)
+
+
 def _decompress(codec: int, data, size: int):
     if codec == UNCOMPRESSED:
         return data
@@ -420,14 +472,22 @@ def _decompress(codec: int, data, size: int):
         return N.snappy_decompress(data)
     if codec == GZIP:
         return zlib.decompress(bytes(data), 32 + zlib.MAX_WBITS)
-    name = CODEC_NAMES[codec] if codec < len(CODEC_NAMES) else str(codec)
-    raise NotImplementedError(
-        f"Parquet codec {name} is not supported by the port's Parquet "
-        "reader (UNCOMPRESSED, SNAPPY and GZIP are)")
+    if codec == ZSTD:
+        return N.zstd_decompress(data, size)
+    if codec == LZ4_RAW:
+        return N.lz4_decompress(data, size)
+    if codec == LZ4:
+        return _lz4_hadoop(data, size)
+    raise unsupported_codec("Parquet", CODEC_NAMES, codec, "reader")
+
+
+_ENCODINGS = (PLAIN, PLAIN_DICTIONARY, RLE_DICTIONARY, RLE, BIT_PACKED,
+              DELTA_BINARY_PACKED, DELTA_LENGTH_BYTE_ARRAY, DELTA_BYTE_ARRAY,
+              BYTE_STREAM_SPLIT)
 
 
 def _check_encoding(enc: int) -> None:
-    if enc in (PLAIN, PLAIN_DICTIONARY, RLE_DICTIONARY, RLE, BIT_PACKED):
+    if enc in _ENCODINGS:
         return
     raise NotImplementedError(
         f"Parquet encoding {ENCODING_NAMES.get(enc, enc)} is not supported "
@@ -442,6 +502,13 @@ def _plain(buf, count: int, leaf: Leaf):
     (count, type_length) uint8 matrix for FIXED_LEN_BYTE_ARRAY, or
     (data, offsets) for BYTE_ARRAY."""
     phys = leaf.physical
+    if phys == INT96:
+        raw = np.frombuffer(buf, dtype=np.uint8, count=12 * count)
+        raw = raw.reshape(count, 12)
+        nanos = raw[:, :8].copy().view("<i8").reshape(-1)
+        days = raw[:, 8:].copy().view("<i4").reshape(-1).astype(np.int64)
+        return _nanos_to_micros(
+            (days - JULIAN_UNIX_EPOCH) * 86_400_000_000_000 + nanos, leaf)
     if phys == BOOLEAN:
         bits = np.unpackbits(np.frombuffer(buf, dtype=np.uint8,
                                            count=(count + 7) // 8),
@@ -457,6 +524,64 @@ def _plain(buf, count: int, leaf: Leaf):
         data, offsets, _ = N.byte_array_unpack(buf, count)
         return data, offsets
     raise NotImplementedError(f"Parquet {PHYSICAL_NAMES[phys]} values")
+
+
+def _nanos_to_micros(nanos: np.ndarray, leaf: Leaf) -> np.ndarray:
+    """Nanosecond timestamps -> micros; a sub-microsecond remainder
+    raises, as the reference's safe cast of pyarrow's nanoseconds does."""
+    if len(nanos) and (nanos % 1000).any():
+        raise ColumnarProcessingError(
+            f"Parquet column {leaf.name!r}: a nanosecond timestamp would "
+            "lose data as microseconds (the reference's safe cast raises)")
+    return nanos // 1000
+
+
+def _delta_values(buf, count: int, leaf: Leaf):
+    """``count`` values of a DELTA_* page body, as _plain gives them."""
+    phys = leaf.physical
+    if phys in (INT32, INT64):
+        vals, _ = N.delta_binary_decode(buf, count)
+        return vals.astype(np.int32) if phys == INT32 else vals
+    raise NotImplementedError(
+        f"Parquet DELTA_BINARY_PACKED for {PHYSICAL_NAMES[phys]} values")
+
+
+def _delta_lengths(buf, count: int) -> Tuple[np.ndarray, np.ndarray, int]:
+    """DELTA_LENGTH_BYTE_ARRAY: (data, offsets, bytes consumed)."""
+    lens, used = N.delta_binary_decode(buf, count)
+    offsets = np.zeros(count + 1, dtype=np.int64)
+    np.cumsum(lens, out=offsets[1:])
+    body = np.frombuffer(buf, dtype=np.uint8)[used:]
+    if (count and int(lens.min()) < 0) or offsets[-1] > len(body):
+        raise ColumnarProcessingError("corrupt DELTA_LENGTH_BYTE_ARRAY data")
+    return body[:offsets[-1]], offsets, used + int(offsets[-1])
+
+
+def _byte_array_values(data: np.ndarray, offsets: np.ndarray, leaf: Leaf):
+    """(data, offsets) as _plain gives a BYTE_ARRAY or FLBA leaf."""
+    if leaf.physical == FLBA:
+        tl = leaf.type_length
+        if (np.diff(offsets) != tl).any():
+            raise ColumnarProcessingError(
+                f"FIXED_LEN_BYTE_ARRAY values of another length than {tl}")
+        return data.reshape(-1, tl)
+    return data, offsets
+
+
+def _byte_stream_split(buf, count: int, leaf: Leaf):
+    """BYTE_STREAM_SPLIT: byte k of every value in stream k."""
+    phys = leaf.physical
+    width = (leaf.type_length if phys == FLBA
+             else np.dtype(_NP_PLAIN[phys]).itemsize if phys in _NP_PLAIN
+             else None)
+    if width is None:
+        raise NotImplementedError(
+            f"Parquet BYTE_STREAM_SPLIT for {PHYSICAL_NAMES[phys]} values")
+    raw = np.frombuffer(buf, dtype=np.uint8, count=count * width)
+    rows = np.ascontiguousarray(raw.reshape(width, count).T)
+    if phys == FLBA:
+        return rows
+    return rows.view(_NP_PLAIN[phys]).reshape(-1)
 
 
 def _levels(buf, encoding: int, count: int, prefixed: bool
@@ -584,6 +709,18 @@ def _decode_chunk(raw, cm: ChunkMeta, leaf: Leaf, values: _ChunkValues
             n_bytes = struct.unpack_from("<I", vbuf, 0)[0]
             bits, _ = N.rle_decode(memoryview(vbuf)[4:4 + n_bytes], 1, k)
             values.add_plain(bits.astype(np.bool_))
+        elif enc == DELTA_BINARY_PACKED:
+            values.add_plain(_delta_values(vbuf, k, leaf))
+        elif enc == DELTA_LENGTH_BYTE_ARRAY and leaf.physical == BYTE_ARRAY:
+            data, offsets, _ = _delta_lengths(vbuf, k)
+            values.add_plain((data, offsets))
+        elif enc == DELTA_BYTE_ARRAY and leaf.physical in (BYTE_ARRAY, FLBA):
+            prefix, used = N.delta_binary_decode(vbuf, k)
+            sdata, soffs, _ = _delta_lengths(memoryview(vbuf)[used:], k)
+            data, offsets = N.delta_byte_array(prefix, sdata, soffs)
+            values.add_plain(_byte_array_values(data, offsets, leaf))
+        elif enc == BYTE_STREAM_SPLIT:
+            values.add_plain(_byte_stream_split(vbuf, k, leaf))
         else:
             raise NotImplementedError(
                 f"Parquet encoding {ENCODING_NAMES.get(enc, enc)} for "
@@ -650,6 +787,8 @@ def _to_spark(phys_vals, leaf: Leaf) -> np.ndarray:
             return out
         return vals
     if isinstance(dt, T.TimestampType):
+        if leaf.ts_nanos:
+            return _nanos_to_micros(phys_vals.astype(np.int64), leaf)
         return phys_vals.astype(np.int64) * leaf.ts_scale
     return phys_vals.astype(dt.np_dtype, copy=False)
 
@@ -796,7 +935,7 @@ def stat_value(raw: Optional[bytes], leaf: Leaf):
         if phys in _NP_PLAIN:
             v = np.frombuffer(raw, dtype=_NP_PLAIN[phys], count=1)[0].item()
             if isinstance(dt, T.TimestampType):
-                return v * leaf.ts_scale
+                return v // 1000 if leaf.ts_nanos else v * leaf.ts_scale
             return v
         if isinstance(dt, T.DecimalType):
             return int.from_bytes(raw, "big", signed=True) if raw else 0
@@ -863,6 +1002,10 @@ def _compress(codec: int, data: bytes) -> bytes:
         return data
     if codec == SNAPPY:
         return N.snappy_compress(data)
+    if codec == ZSTD:
+        return N.zstd_compress(data)
+    if codec == LZ4_RAW:
+        return N.lz4_compress(data)
     c = zlib.compressobj(6, zlib.DEFLATED, 16 + zlib.MAX_WBITS)
     return c.compress(data) + c.flush()
 
@@ -1026,7 +1169,9 @@ def _write_chunk(f, name: str, col: HostColumn, phys: int,
     return [(2, _I64, start), (3, _STRUCT, meta)], usize_total, csize_total
 
 
-CODECS = {"snappy": SNAPPY, "gzip": GZIP, "none": UNCOMPRESSED,
+#: writer codec names; ``"lz4"`` is LZ4_RAW, the id pyarrow writes for it
+CODECS = {"snappy": SNAPPY, "gzip": GZIP, "zstd": ZSTD, "lz4": LZ4_RAW,
+          "lz4_raw": LZ4_RAW, "none": UNCOMPRESSED,
           "uncompressed": UNCOMPRESSED}
 
 
@@ -1035,10 +1180,14 @@ def write_table(table: HostTable, path: str, compression: str = "snappy",
                 page_bytes: int = 1 << 20) -> None:
     """Write ``table`` to the Parquet file ``path``."""
     key = (compression or "none").lower()
+    named = {"brotli": BROTLI, "lzo": LZO}
+    if key in named:
+        raise unsupported_codec("Parquet", CODEC_NAMES, named[key],
+                                "writer")
     if key not in CODECS:
         raise NotImplementedError(
             f"Parquet codec {compression!r} is not supported by the port's "
-            "Parquet writer (snappy, gzip and none are)")
+            "Parquet writer (snappy, gzip, zstd, lz4 and none are)")
     codec = CODECS[key]
     elements = [[(4, _BINARY, "schema"), (5, _I32, len(table.names))]]
     physical = []

@@ -107,13 +107,7 @@ class Spans:
 
 def gather(spans: Spans, idx: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
     """Spans ``idx`` copied contiguously: (data, offsets[len(idx) + 1])."""
-    idx = np.ascontiguousarray(idx, dtype=np.int64)
-    lens = spans.off[idx + 1] - spans.off[idx]
-    data = np.empty(max(int(lens.sum()), 1), dtype=np.uint8)
-    off = np.empty(len(idx) + 1, dtype=np.int64)
-    _lib().srt_gather_spans(_p(spans.buf), _p(spans.off), _p(idx), len(idx),
-                            _p(data), _p(off))
-    return data[:off[-1]], off
+    return N.gather_spans(spans.buf, spans.off, idx)
 
 
 def null_mask(spans: Spans, idx: np.ndarray,
@@ -177,12 +171,9 @@ def string_column(spans: Spans, idx: np.ndarray, valid: np.ndarray,
     ('l', 'r' or 'lr') strips whitespace off each value as Python's
     ``str.lstrip`` / ``rstrip`` do."""
     vidx = np.ascontiguousarray(np.asarray(idx)[valid], dtype=np.int64)
-    n = len(vidx)
-    codes = np.empty(n, dtype=np.int64)
-    first = np.empty(max(n, 1), dtype=np.int64)
-    k = _lib().srt_span_dedup(_p(spans.buf), _p(spans.off), _p(vidx), n,
-                              _p(codes), _p(first))
-    table = spans.texts(vidx[first[:k]]) if k else np.empty(0, dtype=object)
+    codes, first = N.span_dedup(spans.buf, spans.off, vidx)
+    k = len(first)
+    table = spans.texts(vidx[first]) if k else np.empty(0, dtype=object)
     if strip and k:
         fn = {"l": str.lstrip, "r": str.rstrip, "lr": str.strip}[strip]
         table = np.array([fn(s) for s in table] + [None],

@@ -478,7 +478,8 @@ def build_sql_queries(s, tables: Dict[str, HostTable],
     of ``tables`` ({name: HostTable}): the same queries as
     ``build_queries``, entering through the parser and the analyzer. With
     ``paths`` the views are scans of those directories: Parquet's through
-    ``read_parquet``, CSV's through ``CREATE TEMP VIEW ... USING csv
+    ``read_parquet``, ORC's through ``CREATE TEMP VIEW ... USING orc
+    OPTIONS (path)``, CSV's through ``CREATE TEMP VIEW ... USING csv
     OPTIONS (path, schema)`` with each table's schema as DDL text."""
     from spark_rapids_tpu_torch.plan import from_host_table
     if paths is not None and fmt == "csv":
@@ -487,6 +488,10 @@ def build_sql_queries(s, tables: Dict[str, HostTable],
                             for n, dt in tables[name].schema())
             s.sql(f"CREATE OR REPLACE TEMP VIEW {name} USING csv OPTIONS "
                   f"(path '{tdir}', schema '{ddl}')")
+    elif paths is not None and fmt == "orc":
+        for name, tdir in paths.items():
+            s.sql(f"CREATE OR REPLACE TEMP VIEW {name} USING orc OPTIONS "
+                  f"(path '{tdir}')")
     elif paths is not None:
         for name, tdir in paths.items():
             read_corpus_table(s, fmt, tdir, None if tables is None else
@@ -520,18 +525,19 @@ def write_corpus_files(tables: Dict[str, HostTable], base_dir: str,
                        files_per_table: int, fmt: str = "parquet",
                        **write_options) -> Dict[str, str]:
     """Write each table as ``files_per_table`` files of ``fmt`` (parquet,
-    csv or json) with the port's writers (contiguous row slices, one file
+    orc, csv or json) with the port's writers (contiguous row slices, one file
     per chunk directory ``c000``, ``c001``, ..., so the sorted file walk
     keeps the row order), as ``scale_test.py::write_host_corpus`` does.
     ``write_options`` go to the writer (Parquet's ``compression``,
-    ``row_group_rows``; CSV's ``header``). Returns {name: table
-    directory}."""
+    ``row_group_rows``; ORC's ``compression``; CSV's ``header``). Returns
+    {name: table directory}."""
     import os
 
     from spark_rapids_tpu_torch.io.csv import write_csv
     from spark_rapids_tpu_torch.io.json import write_json
+    from spark_rapids_tpu_torch.io.orc import write_orc
     from spark_rapids_tpu_torch.io.parquet import write_parquet
-    write = {"parquet": write_parquet, "csv": write_csv,
+    write = {"parquet": write_parquet, "orc": write_orc, "csv": write_csv,
              "json": write_json}[fmt]
     paths = {}
     for name, table in tables.items():
@@ -559,8 +565,8 @@ def json_read_schema(schema):
 
 
 def read_corpus_table(s, fmt: str, path: str, schema=None):
-    """One corpus table from its directory of ``fmt`` files: Parquet as
-    written; CSV under ``schema``; JSON under ``json_read_schema`` with
+    """One corpus table from its directory of ``fmt`` files: Parquet and
+    ORC as written; CSV under ``schema``; JSON under ``json_read_schema`` with
     its DATE and decimal columns cast back (a TIMESTAMP at midnight to its
     DATE, an unscaled LONG to its decimal)."""
     from spark_rapids_tpu_torch import types as T
@@ -568,6 +574,8 @@ def read_corpus_table(s, fmt: str, path: str, schema=None):
     from spark_rapids_tpu_torch.ops.expr import col
     if fmt == "parquet":
         return s.read_parquet(path)
+    if fmt == "orc":
+        return s.read_orc(path)
     if fmt == "csv":
         return s.read_csv(path, schema=schema)
     if fmt != "json":

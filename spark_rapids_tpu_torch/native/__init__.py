@@ -10,8 +10,17 @@ ctypes.
   (``columnar/column.py::encode_sorted_dict``);
 - ``parquet_host.cpp``: raw Snappy decompress and compress, the RLE /
   bit-packed hybrid decoder and encoder, the PLAIN BYTE_ARRAY splitter and
-  packer, and the padding of values into fixed-width rows
+  packer, the padding of values into fixed-width rows, and the
+  DELTA_BINARY_PACKED and DELTA_BYTE_ARRAY decoders
   (``io/parquet_format.py``);
+- ``zstd_host.cpp``: a Zstandard (RFC 8878) decoder of the whole frame
+  format but dictionaries, XXH64, and a simple encoder (greedy LZ77,
+  predefined FSE tables, raw literals);
+- ``lz4_host.cpp``: the LZ4 block codec (a copy of the repo-root
+  ``native/lz4codec.cpp``);
+- ``orc_host.cpp``: ORC's run-length streams (byte RLE, integer RLE v1
+  and v2, the 128-bit varints of DECIMAL), decode and encode
+  (``io/orc_format.py``);
 - ``text_host.cpp``: the text codec of CSV, Hive text and JSON lines
   (``io/text_format.py``): the record tokenizer and the comment-line
   filter, the typed field parsers (integers, floats through
@@ -36,13 +45,16 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Iterable, Tuple
+from typing import Dict, Iterable, Optional, Tuple
 
 import numpy as np
 
+from spark_rapids_tpu_torch.errors import ColumnarProcessingError
+
 SRC_DIR = Path(__file__).resolve().parent
 BUILD_DIR = SRC_DIR.parent / "_build"
-SOURCES = ("strcodec", "parquet_host", "text_host")
+SOURCES = ("strcodec", "parquet_host", "text_host", "zstd_host",
+           "lz4_host", "orc_host")
 GXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC")
 
 _LOCK = threading.Lock()
@@ -61,6 +73,21 @@ _SIGNATURES = {
     "srt_byte_array_unpack": (_I64, [_P, _I64, _I64, _P, _P]),
     "srt_byte_array_pack": (_I64, [_P, _P, _I64, _P]),
     "srt_pad_rows": (_I64, [_P, _P, _P, _I64, _I64, _P, _P]),
+    "srt_delta_binary_decode": (_I64, [_P, _I64, _I64, _P]),
+    "srt_delta_byte_array": (_I64, [_P, _I64, _P, _P, _P, _I64, _P]),
+    "srt_zstd_content_size": (_I64, [_P, _I64]),
+    "srt_zstd_decompress": (_I64, [_P, _I64, _P, _I64]),
+    "srt_zstd_compress_bound": (_I64, [_I64]),
+    "srt_zstd_compress": (_I64, [_P, _I64, _P, _I64, _I32]),
+    "srt_lz4_compress_bound": (_I64, [_I64]),
+    "srt_lz4_compress": (_I64, [_P, _I64, _P, _I64]),
+    "srt_lz4_decompress": (_I64, [_P, _I64, _P, _I64]),
+    "srt_orc_byte_rle_decode": (_I64, [_P, _I64, _I64, _P]),
+    "srt_orc_int_rle_decode": (_I64, [_P, _I64, _I64, _I32, _I32, _P]),
+    "srt_orc_varint128_decode": (_I64, [_P, _I64, _I64, _P, _P]),
+    "srt_orc_byte_rle_encode": (_I64, [_P, _I64, _P, _I64]),
+    "srt_orc_int_rle_encode": (_I64, [_P, _I64, _I32, _P, _I64]),
+    "srt_orc_varint128_encode": (_I64, [_P, _P, _I64, _P, _I64]),
     "srt_filter_comment_lines": (_I64, [_P, _I64, _P, _I64, _P]),
     "srt_csv_tokenize": (_I64, [_P, _I64, _I32, _I32, _I32, _I32, _P, _P,
                                 _P, _I64, _P, _P, _I64, _P]),
@@ -311,3 +338,236 @@ def strings_from(data: np.ndarray, offsets: np.ndarray) -> np.ndarray:
         else:
             out[rows] = raw.astype(f"U{w}").astype(object)
     return out
+
+
+def delta_binary_decode(buf, count: int) -> Tuple[np.ndarray, int]:
+    """``count`` DELTA_BINARY_PACKED values: (int64 values, bytes
+    consumed)."""
+    lib = load("parquet_host")
+    src = _u8(buf)
+    out = np.empty(max(count, 1), dtype=np.int64)
+    used = lib.srt_delta_binary_decode(_ptr(src), len(src), count, _ptr(out))
+    if used < 0:
+        raise ColumnarProcessingError(
+            f"corrupt DELTA_BINARY_PACKED data ({count} values)")
+    return out[:count], int(used)
+
+
+def delta_byte_array(prefix: np.ndarray, sdata: np.ndarray,
+                     soffsets: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """DELTA_BYTE_ARRAY values from their prefix lengths and suffixes:
+    (contiguous uint8 data, int64 offsets)."""
+    lib = load("parquet_host")
+    prefix = np.ascontiguousarray(prefix, dtype=np.int64)
+    sdata = np.ascontiguousarray(sdata, dtype=np.uint8)
+    soffsets = np.ascontiguousarray(soffsets, dtype=np.int64)
+    n = len(prefix)
+    offsets = np.empty(n + 1, dtype=np.int64)
+    cap = int(prefix.sum()) + len(sdata)
+    out = np.empty(max(cap, 1), dtype=np.uint8)
+    got = lib.srt_delta_byte_array(
+        _ptr(prefix), n, _ptr(sdata) if len(sdata) else 0, _ptr(soffsets),
+        _ptr(out), cap, _ptr(offsets))
+    if got < 0:
+        raise ColumnarProcessingError("corrupt DELTA_BYTE_ARRAY data")
+    return out[:got], offsets
+
+
+# -- text_host's span helpers -------------------------------------------------
+
+def span_dedup(data: np.ndarray, offsets: np.ndarray,
+               idx: Optional[np.ndarray] = None
+               ) -> Tuple[np.ndarray, np.ndarray]:
+    """The distinct byte values among the spans ``idx`` (all of them by
+    default) of ``data[offsets[i]:offsets[i + 1]]``, by a hash in C++:
+    (int64 code of each span of ``idx`` in first-seen order, the int64
+    position in ``idx`` of each code's first span)."""
+    lib = load("text_host")
+    data = np.ascontiguousarray(data, dtype=np.uint8)
+    buf = data if len(data) else np.zeros(1, dtype=np.uint8)
+    offsets = np.ascontiguousarray(offsets, dtype=np.int64)
+    idx = np.arange(len(offsets) - 1, dtype=np.int64) if idx is None \
+        else np.ascontiguousarray(idx, dtype=np.int64)
+    n = len(idx)
+    codes = np.empty(max(n, 1), dtype=np.int64)
+    first = np.empty(max(n, 1), dtype=np.int64)
+    k = lib.srt_span_dedup(_ptr(buf), _ptr(offsets), _ptr(idx), n,
+                           _ptr(codes), _ptr(first))
+    return codes[:n], first[:k]
+
+
+def gather_spans(data: np.ndarray, offsets: np.ndarray, idx: np.ndarray
+                 ) -> Tuple[np.ndarray, np.ndarray]:
+    """Values ``idx`` of (data, offsets) copied contiguously: (data,
+    offsets[len(idx) + 1])."""
+    lib = load("text_host")
+    data = np.ascontiguousarray(data, dtype=np.uint8)
+    buf = data if len(data) else np.zeros(1, dtype=np.uint8)
+    offsets = np.ascontiguousarray(offsets, dtype=np.int64)
+    idx = np.ascontiguousarray(idx, dtype=np.int64)
+    total = int((offsets[idx + 1] - offsets[idx]).sum()) if len(idx) else 0
+    out = np.empty(max(total, 1), dtype=np.uint8)
+    out_off = np.empty(len(idx) + 1, dtype=np.int64)
+    out_off[0] = 0
+    if len(idx):
+        lib.srt_gather_spans(_ptr(buf), _ptr(offsets), _ptr(idx), len(idx),
+                             _ptr(out), _ptr(out_off))
+    return out[:total], out_off
+
+
+# -- zstd_host ----------------------------------------------------------------
+
+_ZSTD_DICTIONARY = ("a frame needs a dictionary, which the port's decoder "
+                    "does not take")
+
+
+def zstd_decompress(buf, size: Optional[int] = None) -> np.ndarray:
+    """The bytes of the Zstandard frame(s) in ``buf``, as a uint8 array.
+    ``size`` bounds the output where the caller knows it (an ORC chunk,
+    a Parquet page); otherwise the frames' content sizes do, or the
+    buffer grows until it holds the output. A corrupt, truncated or
+    dictionary frame raises ColumnarProcessingError."""
+    lib = load("zstd_host")
+    src = _u8(buf)
+    if len(src) == 0:
+        raise ColumnarProcessingError("empty Zstandard input")
+    cap = size
+    if cap is None:
+        stated = lib.srt_zstd_content_size(_ptr(src), len(src))
+        if stated < -1:
+            raise ColumnarProcessingError(
+                "Zstandard decode failed: " + (
+                    _ZSTD_DICTIONARY if stated == -5
+                    else "corrupt Zstandard frame header"))
+        cap = stated if stated >= 0 else max(4 * len(src), 1 << 16)
+    while True:
+        out = np.empty(max(cap, 1), dtype=np.uint8)
+        got = lib.srt_zstd_decompress(_ptr(src), len(src), _ptr(out), cap)
+        if got >= 0:
+            return out[:got]
+        if got == -2 and size is None:
+            cap *= 2
+            continue
+        reason = {-2: "output larger than its stated size",
+                  -3: _ZSTD_DICTIONARY}.get(got, "corrupt or truncated data")
+        raise ColumnarProcessingError(f"Zstandard decode failed: {reason}")
+
+
+def zstd_compress(buf, checksum: bool = False) -> bytes:
+    """One Zstandard frame holding ``buf`` (its content size stated)."""
+    lib = load("zstd_host")
+    src = _u8(buf)
+    cap = lib.srt_zstd_compress_bound(len(src))
+    out = np.empty(cap, dtype=np.uint8)
+    n = lib.srt_zstd_compress(_ptr(src) if len(src) else 0, len(src),
+                              _ptr(out), cap, int(checksum))
+    if n < 0:
+        raise ColumnarProcessingError("Zstandard encode failed")
+    return out[:n].tobytes()
+
+
+# -- lz4_host -----------------------------------------------------------------
+
+def lz4_decompress(buf, size: int) -> np.ndarray:
+    """One raw LZ4 block of at most ``size`` bytes, as a uint8 array."""
+    lib = load("lz4_host")
+    src = _u8(buf)
+    out = np.empty(max(size, 1), dtype=np.uint8)
+    got = lib.srt_lz4_decompress(_ptr(src) if len(src) else 0, len(src),
+                                 _ptr(out), size)
+    if got < 0:
+        raise ColumnarProcessingError("corrupt or truncated LZ4 block")
+    return out[:got]
+
+
+def lz4_compress(buf) -> bytes:
+    lib = load("lz4_host")
+    src = _u8(buf)
+    out = np.empty(lib.srt_lz4_compress_bound(len(src)), dtype=np.uint8)
+    n = lib.srt_lz4_compress(_ptr(src) if len(src) else 0, len(src),
+                             _ptr(out), len(out))
+    if n < 0:
+        raise ColumnarProcessingError("LZ4 encode failed")
+    return out[:n].tobytes()
+
+
+# -- orc_host -----------------------------------------------------------------
+
+def _orc_fail(what: str, count: int):
+    return ColumnarProcessingError(f"corrupt or truncated ORC {what} stream "
+                                   f"({count} values)")
+
+
+def orc_byte_rle_decode(buf, count: int) -> np.ndarray:
+    lib = load("orc_host")
+    src = _u8(buf)
+    out = np.empty(max(count, 1), dtype=np.uint8)
+    if lib.srt_orc_byte_rle_decode(_ptr(src) if len(src) else 0, len(src),
+                                   count, _ptr(out)) < 0:
+        raise _orc_fail("byte RLE", count)
+    return out[:count]
+
+
+def orc_int_rle_decode(buf, count: int, version: int, signed: bool
+                       ) -> np.ndarray:
+    """``count`` integers of an RLE v1 or v2 stream, as int64."""
+    lib = load("orc_host")
+    src = _u8(buf)
+    out = np.empty(max(count, 1), dtype=np.int64)
+    if lib.srt_orc_int_rle_decode(_ptr(src) if len(src) else 0, len(src),
+                                  count, int(version), int(signed),
+                                  _ptr(out)) < 0:
+        raise _orc_fail(f"integer RLE v{version}", count)
+    return out[:count]
+
+
+def orc_varint128_decode(buf, count: int) -> Tuple[np.ndarray, np.ndarray]:
+    """``count`` zigzag varints of up to 128 bits: (low uint64 words, high
+    int64 words)."""
+    lib = load("orc_host")
+    src = _u8(buf)
+    lo = np.empty(max(count, 1), dtype=np.uint64)
+    hi = np.empty(max(count, 1), dtype=np.int64)
+    if lib.srt_orc_varint128_decode(_ptr(src) if len(src) else 0, len(src),
+                                    count, _ptr(lo), _ptr(hi)) < 0:
+        raise _orc_fail("DECIMAL varint", count)
+    return lo[:count], hi[:count]
+
+
+def orc_byte_rle_encode(values: np.ndarray) -> bytes:
+    lib = load("orc_host")
+    v = np.ascontiguousarray(values, dtype=np.uint8)
+    cap = len(v) + len(v) // 128 + 16
+    out = np.empty(cap, dtype=np.uint8)
+    n = lib.srt_orc_byte_rle_encode(_ptr(v) if len(v) else 0, len(v),
+                                    _ptr(out), cap)
+    if n < 0:
+        raise ColumnarProcessingError("ORC byte RLE encode overflow")
+    return out[:n].tobytes()
+
+
+def orc_int_rle_encode(values: np.ndarray, signed: bool) -> bytes:
+    """An integer RLE v2 stream of ``values``."""
+    lib = load("orc_host")
+    v = np.ascontiguousarray(values, dtype=np.int64)
+    cap = 9 * len(v) + 4 * (len(v) // 8 + 1) + 16
+    out = np.empty(cap, dtype=np.uint8)
+    n = lib.srt_orc_int_rle_encode(_ptr(v) if len(v) else 0, len(v),
+                                   int(signed), _ptr(out), cap)
+    if n < 0:
+        raise ColumnarProcessingError("ORC integer RLE encode overflow")
+    return out[:n].tobytes()
+
+
+def orc_varint128_encode(lo: np.ndarray, hi: np.ndarray) -> bytes:
+    lib = load("orc_host")
+    lo = np.ascontiguousarray(lo, dtype=np.uint64)
+    hi = np.ascontiguousarray(hi, dtype=np.int64)
+    cap = 19 * len(lo) + 16
+    out = np.empty(cap, dtype=np.uint8)
+    n = lib.srt_orc_varint128_encode(_ptr(lo) if len(lo) else 0,
+                                     _ptr(hi) if len(hi) else 0, len(lo),
+                                     _ptr(out), cap)
+    if n < 0:
+        raise ColumnarProcessingError("ORC varint encode overflow")
+    return out[:n].tobytes()

@@ -4,7 +4,10 @@
 // dictionary indices, PLAIN BYTE_ARRAY values (4-byte little-endian
 // lengths) to and from a contiguous buffer with offsets, and the padding
 // of variable-length values into fixed-width rows that numpy turns into
-// str objects without a Python loop.
+// str objects without a Python loop, and the DELTA encodings:
+// DELTA_BINARY_PACKED (blocks of miniblocks, little-endian bit-packed
+// deltas over a zigzag min delta) and the prefix-and-suffix rebuild of
+// DELTA_BYTE_ARRAY.
 //
 // Build: g++ -O3 -std=c++17 -shared -fPIC, at first use, by
 // spark_rapids_tpu_torch/native/__init__.py into the package's _build/.
@@ -366,6 +369,89 @@ int64_t srt_pad_rows(const uint8_t* data, const int64_t* offsets,
     flags[0] = non_ascii;
     flags[1] = trailing_nul;
     return 0;
+}
+
+// DELTA_BINARY_PACKED: `count` values into out (64-bit arithmetic that
+// wraps, which INT32 columns truncate). Returns the bytes the encoding
+// took (its last miniblock read whole, padding included), or -1.
+int64_t srt_delta_binary_decode(const uint8_t* src, int64_t n, int64_t count,
+                                int64_t* out) {
+    int64_t pos = 0;
+    uint64_t block, minis, total, first;
+    if (!get_varint(src, n, &pos, &block) || !get_varint(src, n, &pos, &minis)
+        || !get_varint(src, n, &pos, &total)
+        || !get_varint(src, n, &pos, &first))
+        return -1;
+    if (minis == 0 || block == 0 || block % minis != 0 || block > (1 << 20)
+        || static_cast<int64_t>(total) < count)
+        return -1;
+    const uint64_t per_mini = block / minis;
+    if (per_mini % 8 != 0) return -1;
+    uint64_t prev = (first >> 1) ^ (~(first & 1) + 1);
+    if (count == 0) return pos;
+    out[0] = static_cast<int64_t>(prev);
+    int64_t got = 1;
+    std::vector<uint8_t> widths(static_cast<size_t>(minis));
+    while (got < static_cast<int64_t>(total)) {
+        uint64_t zmin;
+        if (!get_varint(src, n, &pos, &zmin)) return -1;
+        const uint64_t min_delta = (zmin >> 1) ^ (~(zmin & 1) + 1);
+        if (static_cast<int64_t>(minis) > n - pos) return -1;
+        std::memcpy(widths.data(), src + pos, static_cast<size_t>(minis));
+        pos += static_cast<int64_t>(minis);
+        for (uint64_t m = 0; m < minis && got < static_cast<int64_t>(total);
+             ++m) {
+            const int w = widths[m];
+            if (w > 64) return -1;
+            const int64_t bytes = static_cast<int64_t>(per_mini * w / 8);
+            if (bytes > n - pos) return -1;
+            const uint8_t* p = src + pos;
+            for (uint64_t k = 0; k < per_mini &&
+                 got < static_cast<int64_t>(total); ++k) {
+                uint64_t v = 0;
+                const uint64_t bit = k * static_cast<uint64_t>(w);
+                for (int b = 0; b < w;) {
+                    const uint64_t at = bit + b;
+                    const int off = static_cast<int>(at & 7);
+                    const int take = (8 - off) < (w - b) ? (8 - off) : (w - b);
+                    const uint64_t chunk =
+                        (p[at >> 3] >> off) & ((1u << take) - 1);
+                    v |= chunk << b;
+                    b += take;
+                }
+                prev += min_delta + v;
+                if (got < count) out[got] = static_cast<int64_t>(prev);
+                ++got;
+            }
+            pos += bytes;
+        }
+    }
+    return pos;
+}
+
+// DELTA_BYTE_ARRAY: value i is the first prefix[i] bytes of value i - 1,
+// then suffix i (sdata[soffs[i]:soffs[i + 1]]). Writes the values
+// contiguously into out (cap bytes) with offsets[count + 1]; returns their
+// total bytes, -1 on a prefix longer than the value before, -2 when out is
+// too small.
+int64_t srt_delta_byte_array(const int64_t* prefix, int64_t count,
+                             const uint8_t* sdata, const int64_t* soffs,
+                             uint8_t* out, int64_t cap, int64_t* offsets) {
+    int64_t at = 0, prev_at = 0, prev_len = 0;
+    offsets[0] = 0;
+    for (int64_t i = 0; i < count; ++i) {
+        const int64_t pre = prefix[i];
+        const int64_t slen = soffs[i + 1] - soffs[i];
+        if (pre < 0 || pre > prev_len || slen < 0) return -1;
+        if (pre + slen > cap - at) return -2;
+        std::memmove(out + at, out + prev_at, static_cast<size_t>(pre));
+        std::memcpy(out + at + pre, sdata + soffs[i], static_cast<size_t>(slen));
+        prev_at = at;
+        prev_len = pre + slen;
+        at += prev_len;
+        offsets[i + 1] = at;
+    }
+    return at;
 }
 
 }  // extern "C"

@@ -178,8 +178,9 @@ class DataFrame:
 
 
 class DataFrameWriter:
-    """The pyspark writer surface over ``DataFrame._write``: Parquet, CSV,
-    JSON and Hive text write; ORC raises naming its ROADMAP item."""
+    """The pyspark writer surface over ``DataFrame._write``: Parquet, ORC,
+    CSV, JSON and Hive text write; another format raises naming its
+    ROADMAP item."""
 
     def __init__(self, df: DataFrame):
         self._df = df

@@ -445,6 +445,9 @@ class WriteFiles(PlanNode):
         if self.fmt == "parquet":
             from spark_rapids_tpu_torch.io.parquet import write_parquet
             return write_parquet
+        if self.fmt == "orc":
+            from spark_rapids_tpu_torch.io.orc import write_orc
+            return write_orc
         if self.fmt == "csv":
             from spark_rapids_tpu_torch.io.csv import write_csv
             return write_csv

@@ -12,10 +12,11 @@ its conf per query (runtime/memory.py), arms
 ``last_metrics()`` adds the query's memory, spill, semaphore and write
 counters.
 
-File sources: ``read_parquet``, ``read_avro``, ``read`` (the provider
+File sources: ``read_parquet``, ``read_orc``, ``read_avro``,
+``read_csv``, ``read_json``, ``read_hive_text``, ``read`` (the provider
 SPI's ``DataFrameReader``) and ``read_format``; a ``WriteFiles`` plan runs
 its child through the overrides, then the committed write, and returns the
-stats row. The other formats' readers raise naming their ROADMAP item.
+stats row. Delta and Iceberg raise naming their ROADMAP item.
 ``spark.rapids.test.faults`` arms the fault registry at each execute."""
 
 from __future__ import annotations

@@ -89,6 +89,16 @@ class _ParquetProvider(ExternalSourceProvider):
         return ParquetScanNode(list(paths), conf, **options)
 
 
+class _OrcProvider(ExternalSourceProvider):
+    name = "orc"
+    formats = ("orc",)
+    capabilities = frozenset({"read", "write"})
+
+    def create_scan_node(self, paths, conf, **options):
+        from spark_rapids_tpu_torch.io.orc import OrcScanNode
+        return OrcScanNode(list(paths), conf, **options)
+
+
 class _AvroProvider(ExternalSourceProvider):
     """The reference probes for the spark-avro jar; the reader here is
     self-contained, so the probe is trivially true."""
@@ -134,8 +144,6 @@ class _HiveTextProvider(ExternalSourceProvider):
 
 #: formats the port does not read yet -> the ROADMAP item that ports them
 NOT_PORTED = {
-    "orc": "Queue 1 item 8b (ORC with the binary codecs: ZSTD, LZ4, "
-           "BROTLI, INT96, DELTA_*)",
     "delta": "Queue 1 item 12 (delta/)",
     "iceberg": "Queue 1 item 12 (iceberg/)",
 }
@@ -158,7 +166,7 @@ class _NotPortedProvider(ExternalSourceProvider):
         raise not_ported(self.name)
 
 
-for _p in [_ParquetProvider(), _AvroProvider(), _CsvProvider(),
+for _p in [_ParquetProvider(), _OrcProvider(), _AvroProvider(), _CsvProvider(),
            _JsonProvider(), _HiveTextProvider()] + [
         _NotPortedProvider(f) for f in NOT_PORTED]:
     register_provider(_p)

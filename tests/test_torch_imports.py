@@ -1,7 +1,7 @@
 """Import hygiene and device rules of the PyTorch port
 (spark_rapids_tpu_torch): it imports neither JAX nor the JAX package, nor
 pyarrow or pandas (neither is on the card's machine: the port reads and
-writes Parquet, CSV, Hive text and JSON with its own codecs), never runs on the CPU unless asked, and raises NotImplementedError for
+writes Parquet, ORC, CSV, Hive text and JSON with its own codecs), never runs on the CPU unless asked, and raises NotImplementedError for
 what it has not ported instead of answering wrongly."""
 
 import ast
@@ -186,7 +186,8 @@ IO_MODULES = ("io/parquet_format.py", "io/parquet.py", "io/common.py",
               "io/filecache.py", "sources.py", "native/__init__.py",
               "runtime/faults.py", "ops/inputfile.py",
               "overrides/input_file.py", "io/text_format.py", "io/csv.py",
-              "io/json.py", "io/hive_text.py")
+              "io/json.py", "io/hive_text.py", "io/orc_format.py",
+              "io/orc.py")
 
 
 @pytest.mark.parametrize("rel", IO_MODULES)

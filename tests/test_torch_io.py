@@ -327,13 +327,21 @@ def test_file_cache_skips_the_decode(tmp_path):
 
 
 def test_other_formats_raise_naming_themselves(tmp_path, port):
-    for fmt in ("orc", "delta", "iceberg"):
+    for fmt in ("delta", "iceberg"):
         with pytest.raises(NotImplementedError, match=fmt):
             port.read_format(fmt, str(tmp_path))
-    with pytest.raises(NotImplementedError, match="orc"):
-        port.read_orc(str(tmp_path))
-    with pytest.raises(NotImplementedError, match="orc"):
-        port.read.format("orc").load(str(tmp_path))
+    with pytest.raises(NotImplementedError, match="delta"):
+        port.read_delta(str(tmp_path))
+    with pytest.raises(NotImplementedError, match="iceberg"):
+        port.read.format("iceberg").load(str(tmp_path))
+    # ORC reads now: every entry point gives the written table
+    from spark_rapids_tpu_torch.io.orc import write_orc
+    t = _sample_table(40)
+    orc = write_orc(t, str(tmp_path / "orc"))
+    for df in (port.read_orc(*orc), port.read.format("orc").load(*orc),
+               port.read.orc(*orc), port.read_format("orc", *orc)):
+        assert tables_differ(_as_reference(df.collect_table()),
+                             _as_reference(t)) is None
     with pytest.raises(NotImplementedError, match="ParquetScanNode"):
         paths = _write_sample(tmp_path, num_files=1, rows=10)
         TorchSession({"spark.rapids.sql.exec.ParquetScanNode": "false"},

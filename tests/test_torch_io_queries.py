@@ -112,7 +112,7 @@ def test_files_hold_the_tables_row_for_row(corpus):
                                  _as_reference(t)) is None, (name, mode)
 
 
-def test_temp_view_using_parquet_and_register_table(corpus):
+def test_temp_view_using_parquet_and_register_table(corpus, tmp_path):
     _, paths = corpus
     s = TorchSession(device="cpu")
     s.sql(f"CREATE TEMP VIEW li USING parquet OPTIONS (path "
@@ -131,8 +131,14 @@ def test_temp_view_using_parquet_and_register_table(corpus):
     assert set(s.catalog.list_tables()) >= {"li", "ord"}
     s.sql("DROP VIEW ord")
     assert "ord" not in s.catalog.list_tables()
-    with pytest.raises(NotImplementedError, match="orc"):
-        s.sql("CREATE TEMP VIEW c USING orc OPTIONS (path '/nowhere')")
+    with pytest.raises(NotImplementedError, match="delta"):
+        s.sql("CREATE TEMP VIEW c USING delta OPTIONS (path '/nowhere')")
+    # USING orc resolves through the ORC provider now
+    from spark_rapids_tpu_torch.io.orc import write_orc
+    odir = str(tmp_path / "ord_orc")
+    write_orc(tcorpus.corpus_tables(SF, 0)["orders"], odir)
+    s.sql(f"CREATE TEMP VIEW ordc USING orc OPTIONS (path '{odir}')")
+    assert s.sql("SELECT count(*) AS n FROM ordc").collect()[0][0] == n
 
 
 # -- input_file_name (tests/test_input_file_name.py) ---------------------------

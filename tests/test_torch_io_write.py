@@ -120,9 +120,9 @@ def test_writer_surface_and_other_formats(tmp_path):
     out = str(tmp_path / "w")
     _df(s).write.format("parquet").partition_by("k").save(out)
     assert sorted(os.listdir(out)) == ["_SUCCESS", "k=k0", "k=k1", "k=k2"]
-    with pytest.raises(NotImplementedError, match="orc"):
-        _df(s).write.format("orc").save(str(tmp_path / "orc"))
-    for fmt, ext in (("csv", "csv"), ("json", "json"),
+    with pytest.raises(NotImplementedError, match="delta"):
+        _df(s).write.format("delta").save(str(tmp_path / "delta"))
+    for fmt, ext in (("orc", "orc"), ("csv", "csv"), ("json", "json"),
                      ("hive_text", "txt")):
         _df(s).write.format(fmt).save(str(tmp_path / fmt))
         assert os.path.exists(str(tmp_path / fmt / f"part-00000.{ext}"))

@@ -36,6 +36,7 @@ from spark_rapids_tpu_torch import native as N
 from spark_rapids_tpu_torch import types as T
 from spark_rapids_tpu_torch.columnar import HostColumn, HostTable
 from spark_rapids_tpu_torch.columnar.column import encode_sorted_dict
+from spark_rapids_tpu_torch.errors import ColumnarProcessingError
 from spark_rapids_tpu_torch.io import parquet_format as PF
 from spark_rapids_tpu_torch.session import TorchSession
 
@@ -269,27 +270,33 @@ def _raises(path, match):
 def test_unsupported_raise_naming_themselves(tmp_path):
     t = pa.table({"x": pa.array([1, 2, 3], pa.int64()),
                   "ts": pa.array([1, 2, 3], pa.timestamp("us"))})
-    p = str(tmp_path / "zstd.parquet")
-    pq.write_table(t, p, compression="zstd")
-    _raises(p, "ZSTD")
-    p = str(tmp_path / "int96.parquet")
-    pq.write_table(t, p, use_deprecated_int96_timestamps=True)
-    _raises(p, "INT96")
-    p = str(tmp_path / "delta.parquet")
-    pq.write_table(t, p, use_dictionary=False,
-                   column_encoding={"x": "DELTA_BINARY_PACKED"})
-    _raises(p, "DELTA_BINARY_PACKED")
+    # ZSTD, INT96 and DELTA_BINARY_PACKED read now, equal to pyarrow's read
+    for name, kw in (("zstd", {"compression": "zstd"}),
+                     ("int96", {"use_deprecated_int96_timestamps": True}),
+                     ("delta", {"use_dictionary": False, "column_encoding":
+                                {"x": "DELTA_BINARY_PACKED"}})):
+        p = str(tmp_path / f"{name}.parquet")
+        pq.write_table(t, p, **kw)
+        assert tables_differ(_as_reference(PF.read_table(p)),
+                             arrow_to_host_table(pq.read_table(p))) is None
+    p = str(tmp_path / "brotli.parquet")
+    pq.write_table(t, p, compression="brotli")
+    _raises(p, "BROTLI .*RFC 7932")
     p = str(tmp_path / "list.parquet")
     pq.write_table(pa.table({"xs": pa.array([[1, 2], [3]])}), p)
     _raises(p, "nested or repeated column 'xs'")
+    # a nanosecond timestamp with a sub-microsecond remainder raises, as
+    # the reference's safe cast to micros does
     p = str(tmp_path / "nanos.parquet")
     pq.write_table(pa.table({"n": pa.array([1], pa.timestamp("ns"))}), p,
                    coerce_timestamps=None, version="2.6")
-    _raises(p, "NANOS")
-    with pytest.raises(NotImplementedError, match="brotli"):
-        PF.write_table(HostTable(["x"], [HostColumn(
-            T.LONG, np.arange(3))]), str(tmp_path / "b.parquet"),
-            compression="brotli")
+    with pytest.raises(ColumnarProcessingError, match="nanosecond"):
+        PF.read_table(p)
+    for codec in ("brotli", "lzo"):
+        with pytest.raises(NotImplementedError, match=codec.upper()):
+            PF.write_table(HostTable(["x"], [HostColumn(
+                T.LONG, np.arange(3))]), str(tmp_path / "b.parquet"),
+                compression=codec)
 
 
 def test_timestamp_millis_and_legacy_annotations(tmp_path):

@@ -444,8 +444,8 @@ def test_error_positions(s):
 #: raises NotImplementedError naming the construct
 LOWERING_RAISES = {
     "create view using": (
-        "CREATE TEMP VIEW pq USING orc OPTIONS (path '/data/pq')",
-        "the orc source is not ported"),
+        "CREATE TEMP VIEW pq USING delta OPTIONS (path '/data/pq')",
+        "the delta source is not ported"),
     "mixed-type case": ("SELECT CASE WHEN id > 3 THEN 1 ELSE 2.5 END AS c "
                         "FROM t", "CaseWhen over values of types"),
 }
@@ -498,8 +498,8 @@ def test_unported_registrations_raise(s):
         tregistry.register_hive_udf("sql_t_upper", str.upper, "string")
     with pytest.raises(NotImplementedError, match="udf.py"):
         s[0].catalog.register_function("plus_one", lambda e: e + lit(1))
-    with pytest.raises(NotImplementedError, match="the orc source"):
-        s[0].catalog.register_table("pq", "orc", "/data/pq")
+    with pytest.raises(NotImplementedError, match="the delta source"):
+        s[0].catalog.register_table("pq", "delta", "/data/pq")
 
 
 #: constructs that raised NotImplementedError at collect until the port
