@@ -175,10 +175,26 @@ Phases, in order; any failure exits non-zero:
    DataFrames and as SQL over ``CREATE TEMP VIEW ... USING orc`` against
    phase 6-8's oracles; a faulted ORC write, and a ZSTD frame and an ORC
    file corrupted on purpose raising;
-18. the summary lines: one ``{"kernels": [...]}`` JSON line (the five TPU
+18. dynamic partition pruning, the bloom filter and recovery
+   (``run_dpp_phase``): phase 4's lineitem with TPC-H's own ship dates
+   written as Parquet Hive-partitioned by ``l_shipmonth`` (84 months), and
+   q1's aggregate over its star join with a filtered month dimension
+   (``DPP_MONTHS``) from the DSL and from SQL ``USING parquet``, pruning on
+   and off, against a numpy oracle (3 files read and 81 pruned when on),
+   with warm and decode times and host syncs; a bloom filter over the 1995
+   orders' keys built on the card, bit for bit against the plain CPU
+   build, with no false negative over lineitem, and the join after it
+   against a numpy oracle; q1 at SF 1 under a transient crash, a crash
+   past ``maxFailures``, ``mem.reserve`` OOMs, a squeezed budget (the
+   memory ladder's ``retry`` and ``chunk`` rungs) and a device loss, each
+   against phase 4's oracle or raising its typed error; and a real
+   device-side assert in two child processes (``--fatal-child``: exit 20
+   with a crash report; DeviceLostError, then the latch's); every kernel
+   launch held against its plain version;
+19. the summary lines: one ``{"kernels": [...]}`` JSON line (the five TPU
    kernels and the DECIMAL128 division kernel, CUDA work beyond them;
    launches of the main path: q1's, sparse q3's probes, q8's MIN/MAX, plus
-   every phase-7 to phase-17 query's), the card line, and last
+   every phase-7 to phase-18 query's), the card line, and last
    ``{"ok": true, "device": {...}}``.
 
 Each phase logs its wall time. It needs one CUDA card and exits non-zero
@@ -6532,6 +6548,519 @@ def run_orc(seed: int, q1_keep) -> dict:
     return totals
 
 
+# ---------------------------------------------------------------------------
+# phase 18: dynamic partition pruning, the bloom filter and recovery
+# ---------------------------------------------------------------------------
+
+#: the phase's time budget on the card (seconds)
+DPP_BUDGET_S = 120.0
+#: TPC-H's own l_shipdate range (dbgen: o_orderdate from 1992-01-01 to
+#: 1998-08-02, plus 1 to 121 days): 84 months
+TPCH_SHIP_FIRST = "1992-01-02"
+TPCH_SHIP_LAST = "1998-12-01"
+#: the months the DPP query keeps (m_year = 1995 AND m_quarter = 1)
+DPP_MONTHS = (199501, 199502, 199503)
+#: rows of q1 in each fatal-error child process (18.4)
+FATAL_CHILD_ROWS = 1 << 20
+
+
+def _days(iso: str) -> int:
+    return int(np.datetime64(iso, "D").astype(np.int64))
+
+
+def dpp_lineitem(table, seed: int):
+    """Phase 4's lineitem with ``l_shipdate`` drawn again, uniformly over
+    TPC-H's own range (models/tpch.py's generator draws 1994-1999), and
+    the derived ``l_shipmonth`` LONG (yyyymm): 84 months."""
+    from spark_rapids_tpu_torch import types as TT
+    from spark_rapids_tpu_torch.columnar import HostColumn, HostTable
+    rng = np.random.default_rng(seed)
+    ship = rng.integers(_days(TPCH_SHIP_FIRST), _days(TPCH_SHIP_LAST) + 1,
+                        size=table.num_rows).astype(np.int32)
+    ym = ship.astype("datetime64[D]").astype("datetime64[M]").astype(
+        np.int64)
+    month = (ym // 12 + 1970) * 100 + ym % 12 + 1
+    cols = {n: c for n, c in zip(table.names, table.columns)}
+    cols["l_shipdate"] = HostColumn(TT.DATE, ship)
+    cols["l_shipmonth"] = HostColumn(TT.LONG, month)
+    return HostTable(list(cols), list(cols.values()))
+
+
+def months_table():
+    """The month dimension: ``m_month`` (yyyymm LONG), ``m_year`` and
+    ``m_quarter`` (INT), 1992-01 to 1998-12."""
+    from spark_rapids_tpu_torch import types as TT
+    from spark_rapids_tpu_torch.columnar import HostColumn, HostTable
+    m = np.array([y * 100 + k for y in range(1992, 1999)
+                  for k in range(1, 13)], dtype=np.int64)
+    return HostTable(["m_month", "m_year", "m_quarter"], [
+        HostColumn(TT.LONG, m),
+        HostColumn(TT.INT, (m // 100).astype(np.int32)),
+        HostColumn(TT.INT, ((m % 100 - 1) // 3 + 1).astype(np.int32))])
+
+
+def dpp_oracle(li):
+    """q1's numpy oracle over the rows of ``DPP_MONTHS``."""
+    from spark_rapids_tpu_torch.columnar import HostTable
+    keep = np.isin(li.columns[li.names.index("l_shipmonth")].data,
+                   DPP_MONTHS)
+    return q1_oracle(HostTable(li.names, [type(c)(c.dtype, c.data[keep])
+                                          for c in li.columns]))
+
+
+#: the DPP query as SQL: Q1_SQL over the star join, the dimension's filter
+#: written on its side of the join (neither package pushes a predicate
+#: through a join)
+DPP_JOIN = ("lineitem_parts JOIN (SELECT m_month FROM months WHERE "
+            "m_year = 1995 AND m_quarter = 1) m ON l_shipmonth = m.m_month")
+
+
+def dpp_forms(path, months):
+    """{form: (session -> DataFrame)} of the DPP query: q1's aggregate over
+    ``lineitem JOIN months ON l_shipmonth = m_month WHERE m_year = 1995
+    AND m_quarter = 1`` from the DSL and from SQL text over ``CREATE TEMP
+    VIEW ... USING parquet``."""
+    from spark_rapids_tpu_torch.models.tpch import Q1_SQL, q1_dataframe
+    from spark_rapids_tpu_torch.ops.expr import col, lit
+    from spark_rapids_tpu_torch.plan import from_host_table
+
+    def dsl(s):
+        dim = (from_host_table(months, s)
+               .filter((col("m_year") == lit(1995))
+                       & (col("m_quarter") == lit(1)))
+               .select(col("m_month").alias("l_shipmonth")))
+        return q1_dataframe(s, s.read_parquet(path).join(dim,
+                                                         on="l_shipmonth"))
+
+    text = Q1_SQL.replace("FROM lineitem", "FROM " + DPP_JOIN)
+
+    def sql(s):
+        s.sql(f"CREATE OR REPLACE TEMP VIEW lineitem_parts USING parquet "
+              f"OPTIONS (path '{path}')")
+        from_host_table(months, s).create_or_replace_temp_view("months")
+        return s.sql(text)
+
+    return {"DSL": dsl, "SQL": sql}
+
+
+def run_dpp(li, base: str, card: str) -> tuple:
+    """18.1: the SF 1 lineitem written Hive-partitioned by l_shipmonth (84
+    directories), then the DPP query from each form with pruning on and
+    off, each through ``run_case`` (every launch held against its plain
+    version, the host syncs of a warm run counted, the provider's
+    read-back among them) against the numpy oracle; on, the scan reads 3
+    files and prunes 81. Returns (launch totals, numbers)."""
+    from spark_rapids_tpu_torch.io.common import expand_paths
+    from spark_rapids_tpu_torch.plan import from_host_table
+    from spark_rapids_tpu_torch.session import TorchSession
+    path = os.path.join(base, "lineitem_by_month")
+    t0 = time.perf_counter()
+    from_host_table(li, TorchSession()).write_parquet(
+        path, partition_by=["l_shipmonth"])
+    write_s = time.perf_counter() - t0
+    files = expand_paths([path])
+    log(f"  18.1 wrote {li.num_rows} lineitem rows as {len(files)} Parquet "
+        f"files under l_shipmonth=yyyymm in {write_s:.2f} s "
+        f"({dir_bytes(path)} B) [{card}]")
+    if len(files) != 84:
+        fail(f"the partitioned lineitem has {len(files)} files, want 84")
+    oracle = dpp_oracle(li)
+    months = months_table()
+    totals, numbers = {}, {"write_s": round(write_s, 3), "files": len(files)}
+    for form, build in dpp_forms(path, months).items():
+        for on in (True, False):
+            name = f"DPP q1 {form} {'on' if on else 'off'}"
+            session = TorchSession(
+                {} if on else {"spark.rapids.sql.dpp.enabled": "false"})
+            res = run_case(session, name, lambda s=session: build(s),
+                           lambda g: check_q1_result(g, oracle), None,
+                           warm_runs=2)
+            m = session.last_metrics()
+            for k, v in res["launches"].items():
+                totals[k] = totals.get(k, 0) + v
+            for k in ("onehot_partials", "gather_compact",
+                      "sort_with_payload"):
+                if not res["launches"].get(k):
+                    fail(f"{name} launched no {k}")
+            scanned, pruned = m.get("dppScannedFiles"), m.get("dppPrunedFiles")
+            if (scanned, pruned) != ((3, 81) if on else (None, None)):
+                fail(f"{name}: dppScannedFiles {scanned}, dppPrunedFiles "
+                     f"{pruned}")
+            numbers[name] = dict(
+                res["stats"], decode_ms=round(
+                    m.get("scanDecodeTime", 0) * 1e3, 2),
+                upload_ms=round(m.get("scanUploadTime", 0) * 1e3, 2),
+                scanned=scanned if on else len(files), pruned=pruned or 0,
+                launches={k: v for k, v in res["launches"].items() if v})
+            log(f"  18.1 {name}: warm {res['stats']['warm_ms']} ms, cold "
+                f"{res['stats']['cold_ms']} ms, {numbers[name]['decode_ms']} "
+                f"ms on the decode; files read {numbers[name]['scanned']}, "
+                f"pruned {numbers[name]['pruned']}; host syncs "
+                f"{res['stats']['syncs']}; matches the oracle [{card}]")
+    return totals, numbers
+
+
+def run_bloom(tables, card: str) -> tuple:
+    """18.2: a bloom filter over the keys of the 1995 orders at the
+    default 2^20 bits and 3 hashes, built on the card; its bits against
+    the plain build on the CPU over the same keys, bit for bit; every
+    lineitem row of a 1995 order kept by ``might_contain``; the join
+    after the pre-filter (through ``run_case``) against a numpy oracle,
+    beside the join without it. Returns (launch totals, numbers)."""
+    from spark_rapids_tpu_torch import functions as F
+    from spark_rapids_tpu_torch import types as TT
+    from spark_rapids_tpu_torch.ops.bloom import build_bits
+    from spark_rapids_tpu_torch.ops.expr import col, lit
+    from spark_rapids_tpu_torch.plan import from_host_table
+    from spark_rapids_tpu_torch.session import TorchSession
+    orders, li = tables["orders"], tables["lineitem"]
+    lo, hi = _days("1995-01-01"), _days("1996-01-01")
+    s = TorchSession()
+    od = from_host_table(orders, s).filter(
+        (col("o_orderdate") >= lit(lo, TT.DATE))
+        & (col("o_orderdate") < lit(hi, TT.DATE)))
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        bloom = F.build_bloom_filter(od, "o_orderkey")
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    o = {n: c.data for n, c in zip(orders.names, orders.columns)}
+    keys = o["o_orderkey"][(o["o_orderdate"] >= lo) & (o["o_orderdate"] < hi)]
+    plain = build_bits(torch.from_numpy(keys.astype(np.int64)),
+                       torch.ones(len(keys), dtype=torch.bool),
+                       bloom.num_bits, bloom.num_hashes)
+    if bloom.bits.device.type != DEV.type or not torch.equal(
+            bloom.bits.cpu(), plain):
+        fail("the bloom filter's bits differ from the plain CPU build")
+    lcol = {n: c for n, c in zip(li.names, li.columns)}
+    truth = np.isin(lcol["l_orderkey"].data, keys)
+    kept = from_host_table(li, s).filter(F.might_contain(
+        bloom, col("l_orderkey"))).collect_table()
+    kept_keys = kept.columns[kept.names.index("l_orderkey")].data
+    if int(np.isin(kept_keys, keys).sum()) != int(truth.sum()):
+        fail("might_contain dropped a lineitem row of a 1995 order")
+    rf, ls = lcol["l_returnflag"].data[truth], lcol["l_linestatus"].data[truth]
+    want = collections.Counter(zip(rf, ls))
+    qty = collections.defaultdict(int)
+    price = collections.defaultdict(float)
+    for a, b, q, p in zip(rf, ls, lcol["l_quantity"].data[truth],
+                          lcol["l_extendedprice"].data[truth]):
+        qty[(a, b)] += int(q)
+        price[(a, b)] += float(p)
+
+    def check(got):
+        rows = list(zip(*[c.data for c in got.columns]))
+        if [(r[0], r[1]) for r in rows] != sorted(want) or any(
+                r[2] != want[(r[0], r[1])] or r[3] != qty[(r[0], r[1])]
+                or not math.isclose(r[4], price[(r[0], r[1])], rel_tol=1e-9)
+                for r in rows):
+            fail(f"the bloom pre-filtered join: {rows}")
+
+    def join(pre):
+        def build():
+            df = from_host_table(li, s)
+            if pre:
+                df = df.filter(F.might_contain(bloom, col("l_orderkey")))
+            return (df.join(od.select(col("o_orderkey").alias("l_orderkey")),
+                            on="l_orderkey")
+                    .group_by("l_returnflag", "l_linestatus")
+                    .agg(F.count().alias("c"), F.sum("l_quantity").alias("q"),
+                         F.sum("l_extendedprice").alias("p"))
+                    .sort("l_returnflag", "l_linestatus"))
+        return build
+
+    totals, numbers = {}, {}
+    for pre in (True, False):
+        name = f"join of 1995 orders {'after' if pre else 'without'} the " \
+               "bloom pre-filter"
+        res = run_case(s, name, join(pre), check, None, warm_runs=2)
+        for k, v in res["launches"].items():
+            totals[k] = totals.get(k, 0) + v
+        numbers["prefiltered" if pre else "plain"] = res["stats"]
+    numbers.update(
+        build_ms=round(statistics.median(times) * 1e3, 3),
+        build_cold_ms=round(times[0] * 1e3, 3), keys=int(len(keys)),
+        set_bits=bloom.approx_set_bits(), kept=kept.num_rows,
+        true_matches=int(truth.sum()),
+        false_positives=kept.num_rows - int(truth.sum()))
+    log(f"  18.2 bloom filter over {len(keys)} keys of the 1995 orders "
+        f"({bloom.num_bits} bits, {bloom.num_hashes} hashes, "
+        f"{numbers['set_bits']} set): built in {numbers['build_ms']} ms warm "
+        f"({numbers['build_cold_ms']} cold), bits equal the plain CPU build; "
+        f"might_contain keeps {kept.num_rows} of {li.num_rows} lineitem rows "
+        f"({numbers['false_positives']} false positives, no false negative); "
+        f"the join warm {numbers['prefiltered']['warm_ms']} ms after the "
+        f"pre-filter, {numbers['plain']['warm_ms']} ms without [{card}]")
+    return totals, numbers
+
+
+def _recovery_run(session, name, build, expect=None):
+    """One run of ``build()`` with every kernel launch recorded and held
+    against its plain version: (result or the expected exception,
+    last_metrics, launches, seconds)."""
+    from spark_rapids_tpu_torch import kernels as K
+    K.reset_launch_counts()
+    K.calls = []
+    t0 = time.perf_counter()
+    try:
+        out = build().collect_table()
+        torch.cuda.synchronize()
+        if expect is not None:
+            fail(f"{name}: no {expect.__name__} raised")
+    except Exception as e:  # noqa: BLE001 (the expected one is kept)
+        if expect is None or not isinstance(e, expect):
+            raise
+        out = e
+    finally:
+        calls, K.calls = K.calls, None
+    dt = time.perf_counter() - t0
+    hold_launches(name, calls)
+    return out, session.last_metrics(), K.launch_counts(), dt
+
+
+def squeeze_ballast(table, budget: int):
+    """An unspillable accounted tensor on the card (a co-resident query's
+    pinned working set) that leaves three quarters of one scan chunk of
+    ``table`` free under ``budget``: q1's landing and rung ``retry``'s
+    same-shape replay do not fit, rung ``chunk``'s half chunks do."""
+    from spark_rapids_tpu_torch import types as TT
+    from spark_rapids_tpu_torch.columnar import DeviceColumn, DeviceTable
+    from spark_rapids_tpu_torch.columnar import bucket_for
+    from spark_rapids_tpu_torch.runtime.memory import (
+        MEMORY,
+        estimate_device_nbytes,
+    )
+    cap = bucket_for(table.num_rows)
+    per_row = estimate_device_nbytes(table, cap) / cap
+    rows = 128
+    while rows * 2 <= int(budget * 0.25 / per_row):
+        rows *= 2
+    chunk = int(per_row * rows)
+    occupied = MEMORY.snapshot()["occupancyBytes"]
+    n = max(1, (budget - 3 * chunk // 4 - occupied) // 9)
+    ballast = DeviceTable(["ballast"], [DeviceColumn(
+        TT.LONG, torch.ones(n, dtype=torch.int64, device=DEV),
+        torch.ones(n, dtype=torch.bool, device=DEV))], n, n, DEV)
+    MEMORY.account(ballast)
+    return ballast, chunk
+
+
+def run_recovery(q1_keep, base: str, card: str) -> tuple:
+    """18.3: q1 at SF 1 (phase 4's table and oracle) under injected and
+    real faults, each run's launches held against their plain versions:
+    a transient crash at the aggregate (one replay), a crash past
+    ``maxFailures`` (KernelCrashError with ``fault_op``, the breaker
+    tripped), ``mem.reserve`` OOMs past the retries (rung ``retry``), a
+    squeezed budget (rungs ``retry`` then ``chunk``) and an injected
+    device loss (a crash report, DeviceLostError, then the next q1 on the
+    card). Returns (launch totals, numbers)."""
+    from spark_rapids_tpu_torch.errors import DeviceLostError, KernelCrashError
+    from spark_rapids_tpu_torch.models.tpch import q1_dataframe
+    from spark_rapids_tpu_torch.runtime.faults import CIRCUIT_BREAKER, FAULTS
+    from spark_rapids_tpu_torch.runtime.health import HEALTH
+    from spark_rapids_tpu_torch.runtime.memory import estimate_device_nbytes
+    from spark_rapids_tpu_torch.runtime.spill import BufferCatalog
+    from spark_rapids_tpu_torch.session import TorchSession
+    table, check = q1_keep["tables"][0], q1_keep["check"]
+    totals, numbers = {}, {}
+
+    def case(name, conf, expect=None, ms_of=True):
+        session = TorchSession(conf)
+        out, m, launches, dt = _recovery_run(
+            session, name, lambda: q1_dataframe(session, table), expect)
+        for k, v in launches.items():
+            totals[k] = totals.get(k, 0) + v
+        if expect is None:
+            check(out)
+        numbers[name] = {"ms": round(dt * 1e3, 2), **{
+            k: m[k] for k in ("runtimeFaultReplays", "query_replays",
+                              "oomRetries", "memoryPressure",
+                              "memoryChunkedReexecutions", "deviceLost",
+                              "deviceReinits") if m.get(k)}}
+        return out, m
+
+    faults = "spark.rapids.test.faults"
+    _, m = case("q1 exec.execute@Aggregate:crash:1",
+                {faults: "exec.execute@Aggregate:crash:1"})
+    if m["runtimeFaultReplays"] != 1:
+        fail(f"q1 crash:1 replayed {m['runtimeFaultReplays']} times")
+    err, _ = case("q1 exec.execute@Aggregate:crash:99",
+                  {faults: "exec.execute@Aggregate:crash:99"},
+                  expect=KernelCrashError)
+    if err.fault_op != "Aggregate" or "circuit breaker" not in str(err):
+        fail(f"q1 crash:99 raised {err!r} (fault_op {err.fault_op})")
+    numbers["q1 exec.execute@Aggregate:crash:99"]["raised"] = str(err)
+    CIRCUIT_BREAKER.reset()
+    fresh_device()
+    _, m = case("q1 mem.reserve:oom:3", {faults: "mem.reserve:oom:3"})
+    if (m.get("memoryPressure"), m.get("memoryChunkedReexecutions")) != \
+            (1, None):
+        fail(f"q1 mem.reserve:oom:3: {m}")
+    fresh_device()
+    BufferCatalog.get().spill_all_device()
+    budget = estimate_device_nbytes(table)
+    ballast, chunk = squeeze_ballast(table, budget)
+    try:
+        _, m = case("q1 squeezed", {
+            "spark.rapids.memory.device.budgetBytes": str(budget)})
+    finally:
+        del ballast
+    numbers["q1 squeezed"].update(budget=budget, chunk=chunk)
+    if (m.get("memoryPressure"), m.get("memoryChunkedReexecutions")) != \
+            (2, 1):
+        fail(f"q1 squeezed: {m}")
+    fresh_device()
+    dump = os.path.join(base, "crash")
+    err, m = case("q1 exec.execute:device_lost:1", {
+        faults: "exec.execute:device_lost:1",
+        "spark.rapids.memory.crashDump.dir": dump}, expect=DeviceLostError)
+    report = json.load(open(err.report_path))
+    if "TpuHashAggregateExec" not in report["plan"] or \
+            (m.get("deviceLost"), m.get("deviceReinits")) != (1, 1):
+        fail(f"the device loss: {m}, plan {report['plan']!r}")
+    FAULTS.disarm()
+    case("q1 after the device loss", {})
+    if HEALTH.snapshot()["consecutiveLosses"] != 0:
+        fail("the q1 after the device loss did not reset the health monitor")
+    log("  18.3 recovery on q1 at SF 1 (phase 4's warm "
+        f"{q1_keep['warm_ms']} ms): " + "; ".join(
+            f"{k}: {v}" for k, v in numbers.items()) + f" [{card}]")
+    return totals, numbers
+
+
+def fatal_child(mode: str, dump_dir: str) -> int:
+    """18.4's child process: q1 warm, then an out-of-bounds index on the
+    card (a device-side assert that poisons the context), then q1 twice
+    more; prints what each later run raised as one JSON line. Under
+    ``exit`` the session has ``spark.rapids.fatalError.exit`` set and the
+    process should exit 20 before printing."""
+    from spark_rapids_tpu_torch.models.tpch import lineitem_table, q1_dataframe
+    from spark_rapids_tpu_torch.session import TorchSession
+    table = lineitem_table(FATAL_CHILD_ROWS, seed=0)
+    oracle = q1_oracle(table)
+    conf = {"spark.rapids.memory.crashDump.dir": dump_dir}
+    if mode == "exit":
+        conf["spark.rapids.fatalError.exit"] = "true"
+    s = TorchSession(conf)
+    for _ in range(2):
+        check_q1_result(q1_dataframe(s, table).collect_table(), oracle)
+    out = {"mode": mode}
+    try:
+        x = torch.zeros(4, device=DEV)
+        x[torch.full((1,), 1 << 20, dtype=torch.int64, device=DEV)]
+    except Exception as e:  # noqa: BLE001 (reported, not expected)
+        out["poison"] = f"{type(e).__name__}: {e}"
+    for run in ("second", "third"):
+        try:
+            q1_dataframe(s, table).collect_table()
+            out[run] = "ran"
+        except Exception as e:  # noqa: BLE001 (each run's outcome)
+            out[run] = f"{type(e).__name__}: {e}"
+    print(json.dumps(out), flush=True)
+    os._exit(0)
+
+
+def run_fatal_children(base: str, card: str) -> dict:
+    """18.4: the two fatal-error children, run together: under
+    ``spark.rapids.fatalError.exit`` the child exits 20 and leaves a
+    report naming the plan and the CUDA error; without it, its q1 after
+    the poison raises DeviceLostError and the next one the latch's."""
+    procs = {}
+    for mode in ("exit", "latch"):
+        d = os.path.join(base, f"fatal_{mode}")
+        os.makedirs(d, exist_ok=True)
+        procs[mode] = (d, subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--fatal-child",
+             mode, "--fatal-dir", d], stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True))
+    out = {}
+    for mode, (d, p) in procs.items():
+        try:
+            so, se = p.communicate(timeout=300)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            so, se = p.communicate()
+            fail(f"the fatal-error child ({mode}) did not finish")
+        reports = sorted(f for f in os.listdir(d) if f.startswith("crash_"))
+        report = json.load(open(os.path.join(d, reports[-1]))) \
+            if reports else {}
+        out[mode] = {"rc": p.returncode, "reports": len(reports),
+                     "exception": report.get("exception", "")[:200],
+                     "stdout": so.strip().splitlines()[-1:] if so else []}
+        cuda = "device-side assert" in report.get("exception", "") or \
+            "device-side assert" in report.get("traceback", "")
+        if not reports or "TpuHashAggregateExec" not in report.get(
+                "plan", "") or not cuda:
+            fail(f"the fatal-error child ({mode}) left no report naming the "
+                 f"plan and the CUDA error: rc {p.returncode}, stderr "
+                 f"{se[-2000:]}")
+        if mode == "exit" and p.returncode != 20:
+            fail(f"the fatal-error child (exit) returned {p.returncode}, "
+                 f"want 20; stderr {se[-2000:]}")
+        if mode == "latch":
+            res = json.loads(so.strip().splitlines()[-1]) if p.returncode \
+                == 0 and so.strip() else {}
+            if not (res.get("second", "").startswith("DeviceLostError")
+                    and res.get("third", "").startswith("DeviceLostError")
+                    and "latched" in res.get("third", "")):
+                fail(f"the fatal-error child (latch): rc {p.returncode}, "
+                     f"{res}, stderr {se[-2000:]}")
+            out[mode].update(second=res["second"][:200],
+                             third=res["third"][:200])
+    log(f"  18.4 fatal CUDA errors in two child processes: {out} [{card}]")
+    return out
+
+
+def run_dpp_phase(seed: int, q1_keep) -> dict:
+    """Phase 18: DPP at SF 1 (18.1), the bloom filter (18.2), recovery on
+    q1 (18.3) and a real fatal CUDA error in two children (18.4).
+    Returns every kernel's launches over the counted runs."""
+    import shutil
+    import tempfile
+
+    card = card_line()
+    t_phase = time.perf_counter()
+    summary = {"card": card}
+    base = tempfile.mkdtemp(prefix="srt-dpp-")
+    totals = {}
+    try:
+        t0 = time.perf_counter()
+        li = dpp_lineitem(q1_keep["tables"][0], seed)
+        launches, summary["dpp"] = run_dpp(li, base, card)
+        del li
+        for k, v in launches.items():
+            totals[k] = totals.get(k, 0) + v
+        log(f"  18.1 ran {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        launches, summary["bloom"] = run_bloom(file_corpus(seed)["tables"],
+                                               card)
+        for k, v in launches.items():
+            totals[k] = totals.get(k, 0) + v
+        log(f"  18.2 ran {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        launches, summary["recovery"] = run_recovery(q1_keep, base, card)
+        for k, v in launches.items():
+            totals[k] = totals.get(k, 0) + v
+        log(f"  18.3 ran {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        summary["fatal"] = run_fatal_children(base, card)
+        log(f"  18.4 ran {time.perf_counter() - t0:.1f} s")
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    took = time.perf_counter() - t_phase
+    summary["seconds"] = round(took, 1)
+    summary["launches"] = {k: v for k, v in totals.items() if v}
+    if took > DPP_BUDGET_S:
+        log(f"  phase 18 took {took:.1f} s, past its {DPP_BUDGET_S:.0f} s "
+            "budget")
+    for k in ("onehot_partials", "gather_compact", "sort_with_payload"):
+        if not totals.get(k):
+            fail(f"phase 18 launched no {k}")
+    log("  phase-18 summary: " + json.dumps(summary))
+    return totals
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rows", type=int, default=6_001_215,
@@ -6545,12 +7074,17 @@ def main(argv=None) -> int:
                     help="directory for torch.profiler tables and traces of "
                          "one warm run of q1, of each q3 form and of each "
                          "phase-6 query")
+    ap.add_argument("--fatal-child", choices=("exit", "latch"),
+                    help=argparse.SUPPRESS)
+    ap.add_argument("--fatal-dir", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device: this script runs on the card",
               file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    if args.fatal_child:
+        return fatal_child(args.fatal_child, args.fatal_dir)
     from spark_rapids_tpu_torch.columnar import bucket_for
     from spark_rapids_tpu_torch.kernels.build import SOURCES as CU_SOURCES
     from spark_rapids_tpu_torch.kernels.build import build
@@ -6706,7 +7240,16 @@ def main(argv=None) -> int:
         launches[k] = launches.get(k, 0) + v
     log(f"  phase 17 ran {time.perf_counter() - t_phase:.1f} s")
 
-    log("phase 18: summary")
+    t_phase = time.perf_counter()
+    log("phase 18: dynamic partition pruning at SF 1 (84 month partitions, "
+        "the DSL and SQL forms, on and off), the bloom runtime filter, "
+        "recovery on q1 (replay, the breaker, the memory ladder, device "
+        "loss) and a real fatal CUDA error in two child processes")
+    for k, v in run_dpp_phase(args.seed, q1_keep).items():
+        launches[k] = launches.get(k, 0) + v
+    log(f"  phase 18 ran {time.perf_counter() - t_phase:.1f} s")
+
+    log("phase 19: summary")
     log("  dec128_divide is CUDA work beyond the five TPU kernels: the "
         "reference divides DECIMAL128 values on its host")
     for r in rows:

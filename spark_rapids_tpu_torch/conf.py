@@ -7,6 +7,8 @@ keep off the device."""
 
 from __future__ import annotations
 
+import os
+import tempfile
 from dataclasses import dataclass
 from typing import Any, Callable, Dict, Optional
 
@@ -202,6 +204,59 @@ TEST_FAULTS = _conf(
     "'<point>[@<op>]:<kind>:<prob-or-count>[:<seed>]' entries armed on "
     "the process-wide fault registry at execute() (runtime/faults.py).",
     str)
+
+# -- recovery (runtime/{faults,health,crash_handler}.py) --------------------
+
+RUNTIME_FALLBACK_ENABLED = _conf(
+    "spark.rapids.sql.runtimeFallback.enabled", True,
+    "Per-operator circuit breaker: a non-OOM device failure "
+    "(KernelCrashError) replays the query, and after maxFailures failures "
+    "of the same operator the breaker trips. The reference then demotes "
+    "the operator to its CPU path; the port has none, so a tripped "
+    "operator raises KernelCrashError naming the breaker. Disable to "
+    "surface every crash without a replay.", _to_bool)
+
+RUNTIME_FALLBACK_MAX_FAILURES = _conf(
+    "spark.rapids.sql.runtimeFallback.maxFailures", 2,
+    "Non-OOM device failures of the same operator before the circuit "
+    "breaker trips.", int)
+
+DEVICE_LOSS_MAX_REINITS = _conf(
+    "spark.rapids.service.deviceLoss.maxReinits", 3,
+    "Consecutive device losses (fatal non-OOM device errors with no "
+    "successful query between them) tolerated before the process latches: "
+    "every later execute raises DeviceLostError (the reference latches "
+    "CPU-only mode instead).", int)
+
+CRASH_DUMP_DIR = _conf(
+    "spark.rapids.memory.crashDump.dir",
+    os.path.join(tempfile.gettempdir(), "rapids_tpu_crash"),
+    "Directory for fatal-device-error crash reports "
+    "(GpuCoreDumpHandler analog).", str)
+
+EXIT_ON_FATAL = _conf(
+    "spark.rapids.fatalError.exit", False,
+    "Exit the process with code 20 on a fatal device error so the "
+    "scheduler replaces this executor (reference Plugin.scala:669-694).",
+    _to_bool)
+
+# -- dynamic partition pruning and the bloom filter --------------------------
+
+DPP_ENABLED = _conf(
+    "spark.rapids.sql.dpp.enabled", True,
+    "Dynamic partition pruning: when a broadcast join's probe side scans "
+    "a Hive-partitioned source keyed on a partition column, prune the "
+    "scan's file list to the build side's distinct key values before "
+    "reading (GpuFileSourceScanExec DynamicPruningExpression analog).",
+    _to_bool)
+
+BLOOM_DEFAULT_NUM_BITS = _conf(
+    "spark.rapids.tpu.bloomFilter.numBits", 1 << 20,
+    "Default bit-array size for build_bloom_filter.", int)
+
+BLOOM_DEFAULT_NUM_HASHES = _conf(
+    "spark.rapids.tpu.bloomFilter.numHashes", 3,
+    "Default hash-function count for build_bloom_filter.", int)
 
 
 # -- file IO (io/): the reference's keys and defaults ----------------------

@@ -42,11 +42,6 @@ class ColumnarProcessingError(RapidsTpuError):
     """An operator failed on device in a way that is not an OOM."""
 
 
-class SpillCorruptionError(ColumnarProcessingError):
-    """A disk-tier spill frame failed its CRC footer on unspill (bit rot,
-    a torn write). The corrupt frame is dropped, never served."""
-
-
 class SemaphoreTimeoutError(RapidsTpuError, TimeoutError):
     """TpuSemaphore acquisition timed out: ``max_tasks`` queries already
     hold the device and none released within the caller's timeout."""
@@ -54,7 +49,16 @@ class SemaphoreTimeoutError(RapidsTpuError, TimeoutError):
 
 class KernelCrashError(ColumnarProcessingError):
     """A device kernel failed with a non-OOM runtime fault (an injected
-    ``crash`` fault, runtime/faults.py)."""
+    ``crash`` fault, runtime/faults.py). Carries ``fault_op``, the
+    plan-node class of the nearest enclosing operator, which feeds the
+    circuit breaker; the session replays the query on it."""
+
+
+class SpillCorruptionError(KernelCrashError):
+    """A disk-tier spill frame failed its CRC footer on unspill (bit rot,
+    a torn write, an injected ``mem.unspill`` corruption). The corrupt
+    frame is dropped, never served; a KernelCrashError on purpose, as in
+    the reference, so that a query replay re-lands the data."""
 
 
 class ShuffleFetchError(ColumnarProcessingError):
@@ -68,6 +72,10 @@ class ShuffleTransportError(ShuffleFetchError):
 
 
 class DeviceLostError(RapidsTpuError):
-    """The device was lost mid-query (an injected ``device_lost``
-    fault). The port has no health monitor yet (ROADMAP item 10): the
-    query fails."""
+    """The device was lost mid-query: an injected ``device_lost`` fault,
+    or a fatal CUDA error classified by
+    ``runtime.crash_handler.is_fatal_device_error``. By the time the
+    caller sees it, the health monitor (runtime/health.py) has written a
+    crash report, dropped the device caches and probed the context: the
+    next query runs on the card, or, once the process latched, raises
+    this again naming the latch."""

@@ -26,6 +26,11 @@ class TpuExec:
     #: operators stay distinct, and a repeated query gets the same ids
     _lore_id = 0
 
+    #: the plan-node class this exec was converted from (set by
+    #: overrides/rules.py; None on a helper exec such as a coalesce
+    #: wrapper): the circuit breaker's unit (runtime/faults.py)
+    _plan_origin = None
+
     @property
     def metrics(self) -> Dict[str, int]:
         m = self.__dict__.get("_metrics")

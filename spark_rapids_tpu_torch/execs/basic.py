@@ -111,13 +111,22 @@ class TpuFileScanExec(TpuExec):
     Metrics: ``scanDecodeTime`` (seconds waited for the reader's next
     decoded batch: the host decode, less what a MULTITHREADED prefetch
     overlapped), ``scanChunks``, ``scanUploadTime`` (seconds),
-    ``scanBatches``, ``scanRows`` and, for Parquet, ``prunedRowGroups``."""
+    ``scanBatches``, ``scanRows``, for Parquet ``prunedRowGroups``, and
+    under dynamic partition pruning ``dppPrunedFiles`` and
+    ``dppScannedFiles``."""
 
     def __init__(self, scan_node, device: torch.device,
                  bucket_policy: BucketPolicy):
         self.scan_node = scan_node
         self.device = device
         self.bucket_policy = bucket_policy
+        #: execution-scoped dynamic partition pruning filters, owned by
+        #: THIS converted exec and never by the shared scan node
+        #: (overrides/rules.py::_maybe_install_dpp)
+        self._dynamic_prunes: list = []
+
+    def install_dynamic_pruning(self, part_col: str, provider) -> None:
+        self._dynamic_prunes.append((part_col, provider))
 
     def output_schema(self):
         return self.scan_node.output_schema()
@@ -128,7 +137,9 @@ class TpuFileScanExec(TpuExec):
         from spark_rapids_tpu_torch.runtime.memory import scan_chunks
         from spark_rapids_tpu_torch.runtime.retry import retry_block
         pruned0 = getattr(self.scan_node, "pruned_row_groups", 0)
-        batches = self.scan_node.execute_host()
+        batches = self.scan_node.execute_host(
+            dynamic_prunes=self._dynamic_prunes or None,
+            metrics=self.metrics)
         while True:
             t0 = time.perf_counter()
             batch = next(batches, None)

@@ -80,6 +80,24 @@ def _materialize_single(child: TpuExec) -> Tuple[DeviceTable, int]:
             sb.release()
 
 
+#: the broadcast execs holding a cached batch (evict_broadcast_caches)
+_CACHED_BROADCASTS: "weakref.WeakSet" = weakref.WeakSet()
+
+
+def evict_broadcast_caches() -> int:
+    """Release every cached broadcast batch (device-loss recovery: a batch
+    on a lost context must not serve a later execution). Returns the
+    batches released."""
+    n = 0
+    for b in list(_CACHED_BROADCASTS):
+        cached, b._cached = b._cached, None
+        if cached is not None:
+            cached.release()
+            n += 1
+    _CACHED_BROADCASTS.clear()
+    return n
+
+
 class TpuBroadcastExchangeExec(TpuExec):
     def __init__(self, child: TpuExec):
         self.children = (child,)
@@ -99,6 +117,7 @@ class TpuBroadcastExchangeExec(TpuExec):
             self.add_metric("broadcastBatches", n)
             self._cached = SpillableBatch(table, BufferCatalog.get())
             weakref.finalize(self, self._cached.release)
+            _CACHED_BROADCASTS.add(self)
         yield retry_block(self._cached.get)
 
 

@@ -154,6 +154,19 @@ def xxhash64(*exprs):
     return XxHash64(*[_e(x) for x in exprs])
 
 
+# the bloom runtime filter (ops/bloom.py)
+def build_bloom_filter(df, column, num_bits=None, num_hashes=None):
+    """bloom_filter_agg: aggregate a DataFrame's integral column into a
+    BloomFilter on the session's device."""
+    from spark_rapids_tpu_torch.ops.bloom import build_bloom_filter as _b
+    return _b(df, column, num_bits=num_bits, num_hashes=num_hashes)
+
+
+def might_contain(bloom, e):
+    from spark_rapids_tpu_torch.ops.bloom import BloomFilterMightContain
+    return BloomFilterMightContain(bloom, _e(e))
+
+
 # conditionals (ops/conditional.py)
 def when(cond, value):
     return WhenBuilder().when(cond, value)

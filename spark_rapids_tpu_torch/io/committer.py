@@ -12,20 +12,22 @@ and sweeps the staging tree, so a failed write never leaves a torn file a
 scan would read. The ``write`` metric scope counts files, bytes, commits,
 aborts and swept staging files.
 
-Not ported: the reference's crash-handler and atexit sweep of jobs still
-in flight when the process dies (it waits for ``crash_handler.py``,
-ROADMAP item 10), and the vacuum protection and Delta retry keys (Delta,
-item 12)."""
+Jobs still in flight when the process dies are aborted by
+``sweep_active_jobs``: at exit, and on the crash handler's exit-20 path
+(runtime/crash_handler.py). Not ported: the vacuum protection and Delta
+retry keys (Delta, ROADMAP item 12)."""
 
 from __future__ import annotations
 
+import atexit
 import json
 import os
 import shutil
 import time
 import uuid
-from typing import List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
+from spark_rapids_tpu_torch.lockorder import ordered_lock
 from spark_rapids_tpu_torch.obs.metrics import metric_scope, register_metric
 from spark_rapids_tpu_torch.runtime.faults import fault_point
 
@@ -53,6 +55,28 @@ for _name, _kind, _doc in (
 del _name, _kind, _doc
 
 
+#: the write jobs in flight in this process, by (destination, job id)
+_ACTIVE_JOBS: Dict[Tuple[str, str], "WriteJob"] = {}
+_ACTIVE_LOCK = ordered_lock("io.committer.jobs")
+
+
+def sweep_active_jobs() -> int:
+    """Abort every write job in flight: the crash handler's exit path
+    (``os._exit`` skips the unwinding that would abort them). Each abort
+    runs the full rollback. Returns the jobs swept."""
+    with _ACTIVE_LOCK:
+        jobs = list(_ACTIVE_JOBS.values())
+    for job in jobs:
+        try:
+            job.abort()
+        except Exception:
+            pass  # an armed io.write.abort fault must not stop the sweep
+    return len(jobs)
+
+
+atexit.register(sweep_active_jobs)
+
+
 class WriteJob:
     """One transactional write job over a destination directory.
 
@@ -74,6 +98,8 @@ class WriteJob:
         self._promoted: List[Tuple[str, Optional[str]]] = []
         self._done = False
         os.makedirs(self.staging, exist_ok=True)
+        with _ACTIVE_LOCK:
+            _ACTIVE_JOBS[(self.path, self.job_id)] = self
 
     # -- task side -----------------------------------------------------------
     def stage_path(self, rel: str) -> str:
@@ -137,7 +163,7 @@ class WriteJob:
         # routine cleanup (the .backup copies of overwritten files), not
         # a failure signal
         self._sweep_staging(record=False)
-        self._done = True
+        self._finish()
         WRITE_METRICS.add("filesWritten", len(rels))
         WRITE_METRICS.add("bytesWritten", num_bytes)
         WRITE_METRICS.add("jobsCommitted", 1)
@@ -165,10 +191,15 @@ class WriteJob:
                     pass
             self._promoted = []
             self._sweep_staging()
-            self._done = True
+            self._finish()
             WRITE_METRICS.add("jobsAborted", 1)
 
     # -- internals -----------------------------------------------------------
+    def _finish(self) -> None:
+        self._done = True
+        with _ACTIVE_LOCK:
+            _ACTIVE_JOBS.pop((self.path, self.job_id), None)
+
     def _sweep_staging(self, record: bool = True) -> None:
         job_root = os.path.join(self.path, TEMP_DIR, self.job_id)
         swept = 0

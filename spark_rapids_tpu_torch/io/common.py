@@ -15,8 +15,10 @@ reference; the batches upload in ``execs/basic.py::TpuFileScanExec``.
 Hive-style ``key=value`` directory components come back as partition
 columns with their types inferred (long, then double, then string).
 
-Not ported: the reference's multi-host cluster route (ROADMAP item 11) and
-dynamic partition pruning (item 6d); the scan takes the local modes.
+Dynamic partition pruning (``_effective_paths``) drops the files whose
+partition value a broadcast join's build side cannot match. Not ported:
+the reference's multi-host cluster route (ROADMAP item 11); the scan
+takes the local modes.
 """
 
 from __future__ import annotations
@@ -314,10 +316,60 @@ class FileScanNode(PlanNode):
         out = HostTable(out_names, [by_name[nm] for nm in out_names])
         return self._attach_file_info(out, path)
 
+    def _effective_paths(self, dynamic_prunes) -> List[str]:
+        """The file list after dynamic partition pruning
+        (GpuFileSourceScanExec partitionFilters with a
+        DynamicPruningExpression). ``dynamic_prunes`` is a list of
+        (partition column name, provider), where ``provider()`` gives the
+        set of allowed values; it is execution-scoped state owned by the
+        calling exec (``execs/basic.py::TpuFileScanExec``), never by this
+        shared plan node, so a prune does not leak into another query
+        over the same scan. A null partition is kept; a raw partition
+        value converts by the column's inferred type before the
+        membership test."""
+        paths = list(self.paths)
+        if not dynamic_prunes:
+            return paths
+        self._resolve_schemas()
+        part_types = dict(self._partition_schema or [])
+        for part_col, provider in dynamic_prunes:
+            dt = part_types.get(part_col)
+            if dt is None:
+                continue
+            allowed = provider()
+            kept = []
+            for p in paths:
+                raw = dict(partition_spec_of(p)).get(part_col)
+                if raw is None:
+                    kept.append(p)  # a null partition: kept (null-safe)
+                    continue
+                if isinstance(dt, T.StringType):
+                    val = raw
+                elif isinstance(dt, T.DoubleType):
+                    val = float(raw)
+                else:
+                    val = int(raw)
+                if val in allowed:
+                    kept.append(p)
+            paths = kept
+        return paths
+
     # -- reading --------------------------------------------------------------
-    def execute_host(self) -> Iterator[HostTable]:
-        """The decoded host batches in file order, in the reader mode."""
-        paths = self.paths
+    def execute_host(self, dynamic_prunes=None,
+                     metrics: Optional[dict] = None) -> Iterator[HostTable]:
+        """The decoded host batches in file order, in the reader mode,
+        over the files ``dynamic_prunes`` keeps (``dppPrunedFiles`` and
+        ``dppScannedFiles`` into ``metrics`` when it prunes); one empty
+        batch of the output schema when it keeps none."""
+        paths = self._effective_paths(dynamic_prunes)
+        if metrics is not None and dynamic_prunes:
+            metrics["dppPrunedFiles"] = len(self.paths) - len(paths)
+            metrics["dppScannedFiles"] = len(paths)
+        if not paths:
+            from spark_rapids_tpu_torch.columnar.table import (
+                empty_host_table,
+            )
+            return iter([empty_host_table(self.output_schema())])
         mode = self.reader_type
         if mode == ReaderMode.AUTO:
             mode = (ReaderMode.MULTITHREADED if len(paths) > 1

@@ -10,7 +10,12 @@ from 1).
 
 The reference tags each node and falls back to the CPU where a node or
 expression is unsupported; the port has no fallback, so tagging raises
-NotImplementedError naming what is missing, before anything runs."""
+NotImplementedError naming what is missing, before anything runs, and a
+plan node the circuit breaker tripped raises KernelCrashError there
+(runtime/faults.py). Each converted exec carries the plan-node class it
+came from (``_plan_origin``, the breaker's unit), and a broadcast inner or
+left-semi join installs dynamic partition pruning on its probe side's
+file scan (``_maybe_install_dpp``)."""
 
 from __future__ import annotations
 
@@ -72,6 +77,8 @@ def _convert_file_scan(node, device, policy) -> TpuExec:
 
 def _tag(node: P.PlanNode, conf: C.RapidsConf) -> None:
     from spark_rapids_tpu_torch.io.common import FileScanNode
+    from spark_rapids_tpu_torch.runtime.faults import CIRCUIT_BREAKER
+    CIRCUIT_BREAKER.check(type(node).__name__)
     if isinstance(node, FileScanNode):
         _tag_file_scan(node, conf)
     elif isinstance(node, P.Aggregate):
@@ -317,15 +324,104 @@ def _convert_join(node: P.Join, children, conf: C.RapidsConf) -> TpuExec:
         left, right = wrap_build(children[0]), TpuCoalesceExec(children[1])
     else:
         left, right = TpuCoalesceExec(children[0]), wrap_build(children[1])
-    return TpuJoinExec(
+    join = TpuJoinExec(
         left, right, node.join_type, lkeys, rkeys, node.condition, lschema,
         rschema, direct_table_mult=conf.get_entry(C.JOIN_DIRECT_TABLE_MULT),
         hashprobe_attempts=conf.get_entry(C.KERNELS_HASHPROBE_ATTEMPTS),
         subpartition_bytes=conf.get_entry(C.JOIN_SUBPARTITION_BYTES),
         max_subpartitions=conf.get_entry(C.JOIN_MAX_SUBPARTITIONS))
+    if isinstance(right, TpuBroadcastExchangeExec) and not swapped and \
+            conf.get_entry(C.DPP_ENABLED):
+        # only inner and leftsemi qualify (checked inside), so the probe
+        # is always the left side here
+        _maybe_install_dpp(jt, left, right, lkeys, rkeys)
+    return join
+
+
+def _maybe_install_dpp(jt: str, probe_exec, build_exec, probe_keys,
+                       build_keys) -> None:
+    """Dynamic partition pruning (reference: DynamicPruningExpression and
+    SubqueryBroadcast planned into GpuFileSourceScanExec's
+    partitionFilters; dpp_test.py): when the probe side of a BROADCAST
+    join scans a Hive-partitioned source and a join key resolves to a
+    partition column, install a pruning filter on the scan exec that
+    reads the build side's distinct non-null key values from the
+    broadcast's cached batch, so the probe skips the partitions that
+    cannot match. Only join types that drop unmatched probe rows
+    qualify. The walk goes through coalesce, filter and project execs to
+    the file scan, as the reference's does: a probe key under a Cast (a
+    key pair of different types) is no BoundReference and installs
+    nothing."""
+    from spark_rapids_tpu_torch.ops.expr import Alias, BoundReference
+
+    if jt not in ("inner", "leftsemi"):
+        return
+    for pk, bk in zip(probe_keys, build_keys):
+        e = pk
+        while isinstance(e, Alias):
+            e = e.children[0]
+        if not isinstance(e, BoundReference):
+            continue
+        ordinal = e.ordinal
+        cur = probe_exec
+        scan_exec = None
+        while True:
+            if isinstance(cur, (TpuCoalesceExec, TpuFilterExec)):
+                cur = cur.children[0]
+            elif isinstance(cur, TpuProjectExec):
+                pe = cur.exprs[ordinal]
+                while isinstance(pe, Alias):
+                    pe = pe.children[0]
+                if not isinstance(pe, BoundReference):
+                    break
+                ordinal = pe.ordinal
+                cur = cur.children[0]
+            elif isinstance(cur, xbasic.TpuFileScanExec):
+                scan_exec = cur
+                break
+            else:
+                break
+        if scan_exec is None:
+            continue
+        scan_node = scan_exec.scan_node
+        schema = scan_node.output_schema()
+        if ordinal >= len(schema):
+            continue
+        col_name = schema[ordinal][0]
+        scan_node._resolve_schemas()
+        if col_name not in {n for n, _ in scan_node._partition_schema or []}:
+            continue
+        scan_exec.install_dynamic_pruning(
+            col_name, _broadcast_key_values(build_exec, bk))
+
+
+def _broadcast_key_values(build_exec, key):
+    """The provider of a pruning filter: the build key's distinct non-null
+    values, read back from the broadcast's cached batch (a host sync by
+    design). A string key decodes through its dictionary to values."""
+    def provider():
+        from spark_rapids_tpu_torch.ops.expr import compile_project
+        allowed = set()
+        for bt in build_exec.execute():
+            host = compile_project([key], bt)[0].to_host(bt.num_rows)
+            for v, ok in zip(host.data, host.validity):
+                if ok:
+                    allowed.add(v.item() if hasattr(v, "item") else v)
+            del bt
+        return allowed
+    return provider
 
 
 def _convert(node: P.PlanNode, conf: C.RapidsConf, device) -> TpuExec:
+    out = _convert_node(node, conf, device)
+    # the runtime-failure attribution unit (runtime/faults.py): the plan
+    # node class this exec was converted from, which the circuit breaker
+    # counts; helper execs a rule builds (coalesce wrappers) carry none
+    out._plan_origin = type(node).__name__
+    return out
+
+
+def _convert_node(node: P.PlanNode, conf: C.RapidsConf, device) -> TpuExec:
     _tag(node, conf)
     policy = BucketPolicy(conf.get_entry(C.SHAPE_BUCKETS_MIN))
     if isinstance(node, P.CachedRelation):

@@ -1,21 +1,29 @@
-"""Fault injection and recovery bookkeeping (port of the registry part of
+"""Fault injection and recovery bookkeeping (port of
 ``spark_rapids_tpu/runtime/faults.py``): one conf-driven registry of
 NAMED fault points (``spark.rapids.test.faults``), each armed with a
-deterministic seeded schedule and a per-point fire counter, and the
-recovery counters and backoff loop the engine's retrying readers share.
+deterministic seeded schedule and a per-point fire counter, the recovery
+counters, the backoff loop the engine's retrying readers share, the
+per-operator circuit breaker and the exec fault boundaries.
 
 * ``FAULTS``: the process-wide :class:`FaultRegistry`; sites call
   :func:`fault_point` with a name registered in :data:`FAULT_POINTS`.
 * ``RECOVERY``: counters of every recovery action, in the ``recovery``
   metric scope.
 * :func:`backoff_retry`: the exponential-backoff retry loop.
+* ``CIRCUIT_BREAKER``: per-operator non-OOM failure counts. Where the
+  reference demotes an operator that failed
+  ``spark.rapids.sql.runtimeFallback.maxFailures`` times to its CPU path,
+  the port has no CPU path (ROADMAP item 9c): a tripped operator raises
+  :class:`KernelCrashError` naming the breaker, at the failure and at
+  every later conversion, until :meth:`CircuitBreaker.reset`.
+* :func:`install_fault_boundaries`: the ``exec.execute`` point and op
+  attribution (``fault_op``) on every exec of a converted tree.
 
-The port declares the points its IO slice fires (the scan's per-file
-decode, the writer's per-file write, the committer's promotion and
-abort). The reference's per-operator circuit breaker and the exec fault
-boundaries demote work to a CPU path; they wait for ``health.py``
-(ROADMAP item 10), as does the ``race`` kind, which needs the Delta log
-(item 12).
+The points: the scan's per-file decode, the writer's per-file write, the
+committer's promotion and abort, each exec's execute, and the memory
+runtime's reserve, spill and unspill. Not ported: the ``dispatch.*``
+points (the port has no ``dispatch.py``) and the ``race`` kind, which
+needs the Delta log (item 12).
 
 Spec grammar, entries separated by ``;``:
 ``<point>[@<op>]:<kind>:<prob-or-count>[:<seed>]``, where an amount with
@@ -70,6 +78,26 @@ FAULT_POINTS: Dict[str, tuple] = {
     "io.write.abort": (
         "spark_rapids_tpu_torch/io/committer.py",
         "write-job abort, before the rollback and the staging sweep"),
+    "exec.execute": (
+        "spark_rapids_tpu_torch/runtime/faults.py",
+        "at each exec's execute()/execute_masked() boundary (installed by "
+        "install_fault_boundaries; carries the op: the plan-node class the "
+        "exec was converted from, else the exec's class)"),
+    "mem.reserve": (
+        "spark_rapids_tpu_torch/runtime/memory.py",
+        "before the arbiter grants a device-landing reservation: 'oom' "
+        "simulates a budget squeeze mid-query (RetryOOM into the retry "
+        "framework: spill-replay, split-and-retry, then the memory "
+        "degradation ladder)"),
+    "mem.spill": (
+        "spark_rapids_tpu_torch/runtime/spill.py",
+        "before a device-to-host spill, under the batch's lock: 'crash' "
+        "simulates a failed spill (the buffer stays on the device)"),
+    "mem.unspill": (
+        "spark_rapids_tpu_torch/runtime/spill.py",
+        "at the disk-tier unspill read, under the batch's lock: 'corrupt' "
+        "flips frame bytes and the CRC footer catches it; the typed "
+        "SpillCorruptionError re-lands the data through a query replay"),
 }
 
 _SLOW_SLEEP_S = 0.05
@@ -308,3 +336,125 @@ def backoff_retry(fn, *, max_retries: int, wait_s: float,
                 raise
             time.sleep(wait)
             wait *= backoff_mult
+
+
+# -- the per-operator circuit breaker ----------------------------------------
+
+#: the ROADMAP item that brings the CPU route back (named in every raise of
+#: a rung the reference would take onto its CPU path)
+CPU_ROUTE_ITEM = "ROADMAP item 9c"
+
+
+class CircuitBreaker:
+    """Counts non-OOM device failures per PLAN-NODE class, process-wide
+    like the speculation blocklist (a kernel that crashes the shared
+    device is broken for every session). The failure that reaches
+    ``max_failures`` trips the operator and records the reason. The
+    reference then demotes the operator to its CPU path; the port has
+    none, so the session raises the failure with that reason, and
+    :meth:`check` raises it again at every later conversion of the
+    operator until :meth:`reset`."""
+
+    def __init__(self):
+        self._lock = ordered_lock("faults.breaker")
+        self._failures: Dict[str, int] = {}
+        self._reasons: Dict[str, str] = {}
+
+    def record_failure(self, op: str, exc: BaseException,
+                       max_failures: int) -> bool:
+        """Count one failure of ``op``; True when this failure tripped
+        it."""
+        first = str(exc).splitlines()[0] if str(exc) else type(exc).__name__
+        with self._lock:
+            if op in self._reasons:
+                return False
+            n = self._failures.get(op, 0) + 1
+            self._failures[op] = n
+            if n < max_failures:
+                return False
+            self._reasons[op] = (
+                f"runtime circuit breaker: {op} tripped after {n} device "
+                f"failures (last: {type(exc).__name__}: {first}); the "
+                "reference demotes it to its CPU path, which is not ported "
+                f"({CPU_ROUTE_ITEM})")
+        return True
+
+    def reason(self, op: str) -> Optional[str]:
+        with self._lock:
+            return self._reasons.get(op)
+
+    def tripped_ops(self) -> Dict[str, str]:
+        with self._lock:
+            return dict(self._reasons)
+
+    def check(self, op: str) -> None:
+        """Raise KernelCrashError for a tripped ``op`` (the conversion's
+        check, where the reference's PlanMeta.tag falls the op back)."""
+        reason = self._reasons.get(op) if self._reasons else None
+        if reason is not None:
+            err = KernelCrashError(reason)
+            err.fault_op = op
+            raise err
+
+    def reset(self) -> None:
+        with self._lock:
+            self._failures = {}
+            self._reasons = {}
+
+
+CIRCUIT_BREAKER = CircuitBreaker()
+
+
+# -- exec fault boundaries ----------------------------------------------------
+
+def _tag_fault_op(exc: BaseException, op: str) -> None:
+    """Attach op attribution to a failure the recovery acts on: the
+    innermost exec wins (the first wrapper the exception crosses sets
+    it). Retryable OOMs are left to the retry framework; a FatalDeviceOOM
+    (retries and splits exhausted) is tagged, as in the reference."""
+    from spark_rapids_tpu_torch.errors import FatalDeviceOOM
+    from spark_rapids_tpu_torch.runtime.crash_handler import (
+        is_fatal_device_error,
+    )
+    from spark_rapids_tpu_torch.runtime.retry import is_device_oom
+    if getattr(exc, "fault_op", None) is not None or is_device_oom(exc):
+        return
+    if isinstance(exc, (KernelCrashError, FatalDeviceOOM)) \
+            or is_fatal_device_error(exc):
+        exc.fault_op = op
+
+
+def _guard(fn, op: str, tag: bool):
+    def wrapped(*args, **kwargs):
+        try:
+            # inside the try: an injected crash at this exec's own
+            # boundary is tagged by this wrapper (the root has no ancestor)
+            fault_point("exec.execute", op=op)
+            yield from fn(*args, **kwargs)
+        except Exception as exc:
+            if tag:
+                _tag_fault_op(exc, op)
+            raise
+    return wrapped
+
+
+def install_fault_boundaries(root) -> None:
+    """Wrap every exec's execute()/execute_masked() in the converted tree
+    with the ``exec.execute`` fault point and op attribution for non-OOM
+    device failures, which feed the circuit breaker. The op is the
+    plan-node class the exec was converted from (``_plan_origin``, set
+    by overrides/rules.py); a helper exec (a coalesce wrapper) fires the
+    point under its own class name and leaves tagging to the nearest
+    converted ancestor. Idempotent per exec instance."""
+    stack = [root]
+    while stack:
+        e = stack.pop()
+        stack.extend(e.children)
+        if e.__dict__.get("_fault_guarded"):
+            continue
+        e._fault_guarded = True
+        origin = getattr(e, "_plan_origin", None)
+        op = origin or type(e).__name__
+        e.execute = _guard(e.execute, op, tag=origin is not None)
+        e.execute_masked = _guard(e.execute_masked, op,
+                                  tag=origin is not None)

@@ -270,7 +270,10 @@ class MemoryArbiter:
     def reserve(self, nbytes: int, label: str = "") -> MemoryReservation:
         """Grant ``nbytes`` of device budget for an imminent landing.
         Over budget: spill idle catalog entries; still over: raise
-        RetryOOM."""
+        RetryOOM (the retry framework spills more and replays, then
+        splits, then the memory ladder takes the attempt)."""
+        from spark_rapids_tpu_torch.runtime.faults import fault_point
+        fault_point("mem.reserve", op=label or None)
         nbytes = max(0, int(nbytes))
         budget = self.budget_bytes()
         with self._lock:

@@ -49,6 +49,7 @@ from spark_rapids_tpu_torch.errors import (
     SpillCorruptionError,
 )
 from spark_rapids_tpu_torch.lockorder import ordered_lock, ordered_rlock
+from spark_rapids_tpu_torch.runtime.faults import fault_point
 from spark_rapids_tpu_torch.obs.metrics import metric_scope, register_metric
 
 TIER_DEVICE = "DEVICE"
@@ -357,6 +358,10 @@ class SpillableBatch:
                     "spillable batch lost all tiers")
             with open(self._disk_path, "rb") as f:
                 frame = f.read()
+            # an injected corruption flips frame bytes before the CRC
+            # check, as bit rot or a torn write would (under the batch's
+            # lock, the region a real unspill runs in)
+            frame = fault_point("mem.unspill", data=frame)
             grant = _host_alloc(len(frame))
             body, crc_ok = _check_spill_crc(frame)
             path = self._disk_path
@@ -413,6 +418,9 @@ class SpillableBatch:
         try:
             if self._device is None or self._pinned:
                 return 0
+            # the spill-failure injection ('crash'), under the batch's
+            # lock: the demotion dies and the buffer stays on the device
+            fault_point("mem.spill")
             freed = self._device_bytes
             live = self._device.live
             grant = _host_alloc(

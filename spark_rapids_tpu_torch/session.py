@@ -1,16 +1,17 @@
 """The port's session: a thin front door that converts a plan into device
 execs, drains them through the placement layer (speculative sizing, the
-device semaphore) and downloads the result (the reference's TpuSession
-without the recovery ladder, event log, executable cache and AQE, none of
-which is ported yet), with its SQL entry points (``sql``, ``table``,
-``catalog``).
+device semaphore) under the recovery envelope (the circuit breaker's
+replays, the memory degradation ladder, device-loss handling) and
+downloads the result (the reference's TpuSession without the event log,
+executable cache, AQE and the mesh and host ladders, none of which is
+ported yet), with its SQL entry points (``sql``, ``table``, ``catalog``).
 
 Each session starts the process's device manager for its device
 (runtime/device_manager.py), configures the memory arbiter's budget from
-its conf per query (runtime/memory.py), arms
+its conf per query (runtime/memory.py), and per attempt arms
 ``spark.rapids.sql.test.injectRetryOOM`` and sets the OOM retries; its
-``last_metrics()`` adds the query's memory, spill, semaphore and write
-counters.
+``last_metrics()`` adds the query's memory, spill, semaphore, write,
+health and recovery counters.
 
 File sources: ``read_parquet``, ``read_orc``, ``read_avro``,
 ``read_csv``, ``read_json``, ``read_hive_text``, ``read`` (the provider
@@ -25,16 +26,13 @@ from typing import Dict, Optional
 
 from spark_rapids_tpu_torch import resolve_device
 from spark_rapids_tpu_torch.columnar import HostTable
-from spark_rapids_tpu_torch.conf import (
-    RETRY_OOM_MAX_RETRIES,
-    TEST_INJECT_RETRY_OOM,
-    RapidsConf,
-)
+from spark_rapids_tpu_torch.conf import RapidsConf
 from spark_rapids_tpu_torch.execs.base import TpuExec
 from spark_rapids_tpu_torch.plan import nodes as P
 
 #: the process-wide metric scopes whose per-query change last_metrics adds
-RUNTIME_SCOPES = ("memory", "spill", "semaphore", "write")
+RUNTIME_SCOPES = ("memory", "spill", "semaphore", "write", "health",
+                  "recovery")
 
 
 class TorchSession:
@@ -47,6 +45,7 @@ class TorchSession:
         self.conf = RapidsConf(conf)
         self._last_root: Optional[TpuExec] = None
         self._last_replays = 0
+        self._last_fault_replays = 0
         self._last_runtime: Dict[str, float] = {}
         self._catalog = None
         self._placement = None
@@ -143,41 +142,177 @@ class TorchSession:
         return self.read_format("iceberg", path, **options)
 
     def execute(self, plan: P.PlanNode) -> HostTable:
-        """Run ``plan`` through the placement layer's drain (speculative
-        sizing and its replays, the device semaphore). The replay count
-        is ``last_metrics()``'s ``speculationReplays``. A ``WriteFiles``
-        plan runs its child so, then writes and commits its files."""
+        """Run ``plan`` through the recovery envelope
+        (``_execute_with_recovery``) and the placement layer's drain
+        (speculative sizing and its replays, the device semaphore). The
+        replay counts are ``last_metrics()``'s ``speculationReplays`` and
+        ``runtimeFaultReplays``. A ``WriteFiles`` plan runs its child so,
+        then writes and commits its files. Once a device loss latched the
+        process, raises that DeviceLostError."""
         from spark_rapids_tpu_torch.conf import TEST_FAULTS
         from spark_rapids_tpu_torch.obs.metrics import scopes_snapshot
-        from spark_rapids_tpu_torch.overrides.input_file import (
-            rewrite_input_file_exprs,
-        )
-        from spark_rapids_tpu_torch.overrides.rules import convert
         from spark_rapids_tpu_torch.runtime.faults import FAULTS
+        from spark_rapids_tpu_torch.runtime.health import HEALTH
         from spark_rapids_tpu_torch.runtime.memory import MEMORY
-        from spark_rapids_tpu_torch.runtime.retry import MAX_RETRIES_VAR
         FAULTS.arm(str(self.conf.get_entry(TEST_FAULTS) or ""))
+        HEALTH.check_latch()
+        before = scopes_snapshot()
         if isinstance(plan, P.WriteFiles):
-            before = scopes_snapshot()
             try:
                 return plan.run(self)
             finally:
                 self._last_runtime = _scope_delta(before, scopes_snapshot())
+        MEMORY.reset_peak()
+        try:
+            return self._execute_with_recovery(plan)
+        finally:
+            self._last_runtime = _scope_delta(before, scopes_snapshot())
+
+    def _execute_with_recovery(self, plan: P.PlanNode) -> HostTable:
+        """Plan and drain ``plan``, each attempt afresh, under the port of
+        the reference's recovery layers (``session.py:563-818``, less the
+        mesh and host ladders, ROADMAP item 11):
+
+        * an OOM that escaped every retry (a FatalDeviceOOM, or a
+          retryable one wrapped as such) walks the memory ladder
+          (runtime/health.py): a full spill and a same-shape replay, then
+          a replay with the scans chunked at half their share, then the
+          FatalDeviceOOM, naming the rung the reference would take;
+        * a fatal device error writes a crash report (or exits 20 under
+          ``spark.rapids.fatalError.exit``), hands recovery to the health
+          monitor and raises DeviceLostError;
+        * a KernelCrashError replays the query (within
+          ``runtimeFallback.maxFailures`` failures of one operator, when
+          ``runtimeFallback.enabled``); the failure that trips the
+          circuit breaker raises, where the reference demotes the
+          operator to its CPU path."""
+        from contextlib import nullcontext
+
+        from spark_rapids_tpu_torch.conf import (
+            RUNTIME_FALLBACK_ENABLED,
+            RUNTIME_FALLBACK_MAX_FAILURES,
+        )
+        from spark_rapids_tpu_torch.errors import (
+            DeviceLostError,
+            FatalDeviceOOM,
+            KernelCrashError,
+        )
+        from spark_rapids_tpu_torch.runtime.crash_handler import (
+            handle_fatal,
+            is_fatal_device_error,
+            tree_string,
+        )
+        from spark_rapids_tpu_torch.runtime.faults import (
+            CIRCUIT_BREAKER,
+            RECOVERY,
+        )
+        from spark_rapids_tpu_torch.runtime.health import HEALTH
+        from spark_rapids_tpu_torch.runtime.memory import (
+            MEMORY,
+            forced_chunking,
+        )
+        from spark_rapids_tpu_torch.runtime.retry import is_device_oom
+        rf_enabled = bool(self.conf.get_entry(RUNTIME_FALLBACK_ENABLED))
+        max_failures = int(self.conf.get_entry(RUNTIME_FALLBACK_MAX_FAILURES))
+        # enough to trip every operator of a plan, never unbounded on an
+        # unattributed crash
+        max_replays = 4 * max_failures + 4
+        replays = mem_replays = 0
+        self._last_fault_replays = 0
+        force_chunk = None
+        while True:
+            chunk_ctx = (forced_chunking(force_chunk)
+                         if force_chunk is not None else nullcontext())
+            force_chunk = None
+            try:
+                with chunk_ctx:
+                    result = self._execute_attempt(plan)
+                self._last_fault_replays = replays
+                HEALTH.note_success()
+                return result
+            except Exception as exc:
+                if is_device_oom(exc) and not isinstance(exc,
+                                                         FatalDeviceOOM):
+                    # a retryable OOM that escaped every retry wrapper:
+                    # the ladder is better than failing the query
+                    wrapped = FatalDeviceOOM(
+                        f"unhandled retryable OOM escaped to the session "
+                        f"({type(exc).__name__}: {exc})")
+                    wrapped.fault_op = getattr(exc, "fault_op", None)
+                    wrapped.__cause__ = exc
+                    exc = wrapped
+                if isinstance(exc, FatalDeviceOOM):
+                    action = HEALTH.on_memory_pressure(exc, self.conf)
+                    if action == "abort":
+                        raise HEALTH.abort_error(exc) from exc
+                    mem_replays += 1
+                    RECOVERY.bump("query_replays")
+                    if action == "chunk":
+                        force_chunk = max(1, MEMORY.scan_chunk_bytes() // 2)
+                    continue
+                if is_fatal_device_error(exc):
+                    report = handle_fatal(exc, self.conf, tree_string(
+                        self._last_root or plan))
+                    state = HEALTH.on_device_loss(exc, self.conf,
+                                                  self.device, report)
+                    lost = DeviceLostError(
+                        f"device lost during execution "
+                        f"({type(exc).__name__}: "
+                        f"{str(exc).splitlines()[0] if str(exc) else ''}); "
+                        f"crash report {report or 'not written'}; " + (
+                            HEALTH.latch_reason() if state == "LATCHED"
+                            else "the context probe passed: the next "
+                                 "query runs on the card"))
+                    lost.fault_op = getattr(exc, "fault_op", None)
+                    lost.report_path = report
+                    raise lost from exc
+                if not rf_enabled or not isinstance(exc, KernelCrashError) \
+                        or replays >= max_replays \
+                        or CIRCUIT_BREAKER.reason(
+                            getattr(exc, "fault_op", None)) is not None:
+                    raise
+                op = getattr(exc, "fault_op", None)
+                if op is not None and CIRCUIT_BREAKER.record_failure(
+                        op, exc, max_failures):
+                    tripped = KernelCrashError(CIRCUIT_BREAKER.reason(op))
+                    tripped.fault_op = op
+                    raise tripped from exc
+                replays += 1
+                RECOVERY.bump("query_replays")
+
+    def _execute_attempt(self, plan: P.PlanNode) -> HostTable:
+        """One attempt: start the device manager and configure the memory
+        arbiter (a lost device raises here too, inside the recovery),
+        convert (the circuit breaker's check runs in the tag), install the
+        fault boundaries, arm ``spark.rapids.sql.test.injectRetryOOM``
+        and drain."""
+        from spark_rapids_tpu_torch.conf import (
+            RETRY_OOM_MAX_RETRIES,
+            TEST_INJECT_RETRY_OOM,
+        )
+        from spark_rapids_tpu_torch.overrides.input_file import (
+            rewrite_input_file_exprs,
+        )
+        from spark_rapids_tpu_torch.overrides.rules import convert
+        from spark_rapids_tpu_torch.runtime.faults import (
+            install_fault_boundaries,
+        )
+        from spark_rapids_tpu_torch.runtime.memory import MEMORY
+        from spark_rapids_tpu_torch.runtime.retry import MAX_RETRIES_VAR
+        self._last_root, self._last_replays = None, 0
         self.runtime  # noqa: B018 (starts the device manager)
         MEMORY.configure(self.conf)
         root = convert(rewrite_input_file_exprs(plan), self.conf,
                        self.device)
-        self._last_root, self._last_replays = root, 0
+        install_fault_boundaries(root)
+        self._last_root = root
         _arm_injection(str(self.conf.get_entry(TEST_INJECT_RETRY_OOM)))
         tok = MAX_RETRIES_VAR.set(int(self.conf.get_entry(
             RETRY_OOM_MAX_RETRIES)))
-        before = scopes_snapshot()
-        MEMORY.reset_peak()
         try:
             return self.placement.drain(root)
         finally:
             MAX_RETRIES_VAR.reset(tok)
-            self._last_runtime = _scope_delta(before, scopes_snapshot())
 
     def last_metrics(self) -> Dict[str, int]:
         """Metrics of the most recent execute(): the replay count, every
@@ -188,7 +323,8 @@ class TorchSession:
         ``acquires``, ...; process-wide counters, so a query running
         beside others also counts theirs). Timings are
         ``last_timings()``'s."""
-        out = {"speculationReplays": self._last_replays}
+        out = {"speculationReplays": self._last_replays,
+               "runtimeFaultReplays": self._last_fault_replays}
         stack = [self._last_root] if self._last_root is not None else []
         while stack:
             e = stack.pop()

@@ -179,15 +179,17 @@ def test_runtime_module_is_the_ports_own(rel):
     assert out.returncode == 0, out.stderr
 
 
-#: the IO slice's modules: each must exist and import with JAX, the JAX
-#: package, pyarrow and pandas blocked
+#: the IO slices' modules, and the bloom filter and recovery modules:
+#: each must exist and import with JAX, the JAX package, pyarrow and
+#: pandas blocked
 IO_MODULES = ("io/parquet_format.py", "io/parquet.py", "io/common.py",
               "io/avro.py", "io/writer.py", "io/committer.py",
               "io/filecache.py", "sources.py", "native/__init__.py",
               "runtime/faults.py", "ops/inputfile.py",
               "overrides/input_file.py", "io/text_format.py", "io/csv.py",
               "io/json.py", "io/hive_text.py", "io/orc_format.py",
-              "io/orc.py")
+              "io/orc.py", "ops/bloom.py", "runtime/health.py",
+              "runtime/crash_handler.py")
 
 
 @pytest.mark.parametrize("rel", IO_MODULES)

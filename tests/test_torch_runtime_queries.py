@@ -11,7 +11,7 @@ sub-partition target are capped by the budget's scan chunk in both); and
 the port counts no budget violation and peaks within the budget. Then
 injected OOMs through the session (``spark.rapids.sql.test.
 injectRetryOOM``) and a budget no retry can meet (FatalDeviceOOM, no
-fallback).
+fallback, after the memory ladder's replays).
 
 Comparators: ``scale_test.tables_differ`` (bitwise, in order) for the
 sort; ``scale_test.tables_differ_unordered`` (the bitwise row multiset)
@@ -325,8 +325,10 @@ def test_injected_ooms_through_the_session(inject, warm):
 
 def test_more_injections_than_retries_are_fatal():
     """Three injected RetryOOMs at the scan's first landing outlive its two
-    replays (``oomMaxRetries``): FatalDeviceOOM. (The reference's memory
-    ladder would replay the query instead; the port has none.)"""
+    replays (``oomMaxRetries``): FatalDeviceOOM. The memory ladder's
+    replays (runtime/health.py) arm the injection again, as the
+    reference's do, so the ladder ends in the FatalDeviceOOM too (its
+    rungs: tests/test_torch_recovery.py)."""
     s = TorchSession({"spark.rapids.sql.test.injectRetryOOM": "retry:3"},
                      device="cpu")
     with pytest.raises(FatalDeviceOOM, match="2 spill-retries"):
