@@ -338,6 +338,8 @@ class DeviceColumn:
         return HostColumn(self.dtype, arr, validity)
 
     def to_host(self, num_rows: int) -> HostColumn:
+        from spark_rapids_tpu_torch.dispatch import note_host_fetch
+        note_host_fetch()
         data = self.data[:num_rows].cpu().numpy()
         validity = np.ascontiguousarray(self.validity[:num_rows].cpu().numpy())
         return self.decode_host(data, validity)

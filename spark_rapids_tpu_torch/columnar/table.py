@@ -31,7 +31,7 @@ class HostTable:
     """Named host columns with a shared row count. ``_cache`` holds derived
     artifacts, notably the uploaded device image (execs/basic.TpuScanExec)."""
 
-    __slots__ = ("names", "columns", "_cache")
+    __slots__ = ("names", "columns", "_cache", "__weakref__")
 
     def __init__(self, names: Sequence[str], columns: Sequence[HostColumn]):
         self.names: Tuple[str, ...] = tuple(names)
@@ -149,6 +149,122 @@ class DeviceTable:
             return self.compacted().to_host()
         n = self.num_rows
         return HostTable(self.names, [c.to_host(n) for c in self.columns])
+
+
+#: byte alignment of each stream inside a pinned staging buffer
+_STAGE_ALIGN = 16
+
+
+class PendingHostTable:
+    """An ENQUEUED download (port of the reference's PendingHostTable,
+    ``columnar/table.py:531``): every column's data and validity are
+    being copied with ``non_blocking`` into pinned staging buffers of the
+    pinned pool (runtime/host_alloc.py), and a CUDA event marks the end of
+    the copies on the stream that enqueued them. :meth:`resolve` waits on
+    that event before any byte is read, decodes the HostTable and returns
+    the buffers to the pool. Reading a buffer before the event completes
+    would give stale bytes."""
+
+    __slots__ = ("_table", "_n", "_parts", "_event", "_bufs", "_pool",
+                 "_resolved")
+
+    def __init__(self, table: "DeviceTable", n: int, parts, event, bufs,
+                 pool):
+        #: keeps the device buffers alive until the copies completed
+        self._table = table
+        self._n = n
+        #: per column, (data stream, validity stream, data shape): a stream
+        #: is (dtype, [(buffer index, byte offset, element count)])
+        self._parts = parts
+        self._event = event
+        self._bufs = bufs
+        self._pool = pool
+        self._resolved = False
+
+    def resolve(self) -> HostTable:
+        if self._resolved:
+            raise ColumnarProcessingError("PendingHostTable resolved twice")
+        self._resolved = True
+        try:
+            if self._event is not None:
+                self._event.synchronize()
+            t = self._table
+            cols = []
+            for c, (dparts, vparts, shape) in zip(t.columns, self._parts):
+                data = self._gather(dparts).reshape(shape)
+                validity = self._gather(vparts)
+                cols.append(c.decode_host(data, validity))
+            return HostTable(t.names, cols)
+        finally:
+            for b in self._bufs:
+                self._pool.release(b)
+            self._bufs = []
+            self._table = None
+
+    def _gather(self, stream) -> np.ndarray:
+        """One stream's elements out of the staging buffers, as a numpy
+        array of its own (the buffers go back to the pool)."""
+        dtype, parts = stream
+        arrays = [self._bufs[bi][off:off + cnt * dtype.itemsize]
+                  .view(dtype).numpy() for bi, off, cnt in parts]
+        if not arrays:
+            return torch.empty(0, dtype=dtype).numpy()
+        return np.concatenate(arrays) if len(arrays) > 1 \
+            else arrays[0].copy()
+
+
+def enqueue_download(table: "DeviceTable", pool
+                     ) -> Optional[PendingHostTable]:
+    """Enqueue ``table``'s download into ``pool``'s pinned buffers (the
+    reference's ``to_host_pending``), or None when the pool cannot hold
+    it (the caller downloads synchronously). Reads the row count first,
+    as the synchronous download does."""
+    if table.live is not None:
+        table = table.compacted()
+    n = table.num_rows
+    streams = []
+    for c in table.columns:
+        streams.append(c.data[:n].contiguous())
+        streams.append(c.validity[:n].contiguous())
+    # plan the parts first: nothing is copied unless every buffer is had
+    size = pool.buffer_bytes
+    plan, bi, off = [], 0, 0
+    for t in streams:
+        es, count, at, parts = t.element_size(), t.numel(), 0, []
+        while at < count:
+            room = (size - off) // es
+            if room <= 0:
+                bi, off = bi + 1, 0
+                continue
+            cnt = min(room, count - at)
+            parts.append((bi, off, at, cnt))
+            at += cnt
+            off += -(-cnt * es // _STAGE_ALIGN) * _STAGE_ALIGN
+        plan.append(parts)
+    need = bi + 1 if any(plan) else 0
+    bufs = []
+    for _ in range(need):
+        b = pool.acquire(size)
+        if b is None:
+            for x in bufs:
+                pool.release(x)
+            return None
+        bufs.append(b)
+    out = []
+    for t, parts in zip(streams, plan):
+        flat = t.reshape(-1)
+        out.append((t.dtype, []))
+        for b, o, at, cnt in parts:
+            bufs[b][o:o + cnt * t.element_size()].view(t.dtype).copy_(
+                flat[at:at + cnt], non_blocking=True)
+            out[-1][1].append((b, o, cnt))
+    event = None
+    if table.device.type == "cuda":
+        event = torch.cuda.Event()
+        event.record(torch.cuda.current_stream(table.device))
+    parts = [(out[2 * i], out[2 * i + 1], tuple(streams[2 * i].shape))
+             for i in range(len(table.columns))]
+    return PendingHostTable(table, n, parts, event, bufs, pool)
 
 
 def concat_host(tables: Sequence[HostTable]) -> HostTable:

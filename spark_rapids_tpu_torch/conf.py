@@ -240,6 +240,104 @@ EXIT_ON_FATAL = _conf(
     "scheduler replaces this executor (reference Plugin.scala:669-694).",
     _to_bool)
 
+# -- observability and the warm path ---------------------------------------
+
+PROFILE_ENABLED = _conf(
+    "spark.rapids.profile.enabled", False,
+    "Collect torch.profiler traces of the card (CPU and CUDA activities, "
+    "the engine's operators and kernels as named ranges) for queries "
+    "(profiler.scala analog).", _to_bool)
+
+PROFILE_PATH = _conf(
+    "spark.rapids.profile.pathPrefix",
+    os.path.join(tempfile.gettempdir(), "rapids_tpu_profile"),
+    "Directory prefix for collected trace sessions (one query_<N> "
+    "directory per profiled query).", str)
+
+PROFILE_QUERY_RANGES = _conf(
+    "spark.rapids.profile.queryRanges", "",
+    "Query-index ranges to profile, e.g. \"0-2,5\" (empty = all queries "
+    "when profiling is enabled). RangeConfMatcher syntax.", str)
+
+TRACE_ENABLED = _conf(
+    "spark.rapids.trace.enabled", False,
+    "Collect host-side spans for every query and export a Chrome "
+    "trace-event JSON per query under spark.rapids.trace.dir (load it in "
+    "Perfetto next to the profiler's device trace).", _to_bool)
+
+TRACE_DIR = _conf(
+    "spark.rapids.trace.dir",
+    os.path.join(tempfile.gettempdir(), "rapids_tpu_trace"),
+    "Directory for exported Chrome trace JSON files (one "
+    "query_<N>.trace.json per traced query).", str)
+
+EVENT_LOG_ENABLED = _conf(
+    "spark.rapids.sql.eventLog.enabled", False,
+    "Write one structured JSONL record per executed query (plan tree "
+    "with per-op metrics, fallback/demotion reasons, recovery counters, "
+    "span attribution) under spark.rapids.sql.eventLog.dir: the input "
+    "to `python -m spark_rapids_tpu_torch.tools`.", _to_bool)
+
+EVENT_LOG_DIR = _conf(
+    "spark.rapids.sql.eventLog.dir",
+    os.path.join(tempfile.gettempdir(), "rapids_tpu_eventlog"),
+    "Directory for query event logs (one events-<session>.jsonl per "
+    "session).", str)
+
+EXECUTABLE_CACHE_ENABLED = _conf(
+    "spark.rapids.sql.executableCache.enabled", True,
+    "Cache the converted executable plan (the exec tree and the "
+    "overrides' tags) keyed on the literal-stripped structural "
+    "fingerprint (plan/fingerprint.py): a repeated query template skips "
+    "the conversion; distinct-literal variants of one template count a "
+    "template hit. Entries drop on warehouse invalidation (writes, "
+    "catalog changes) and on circuit-breaker trips. Hit/miss counters "
+    "live in the `compile` metric scope.", _to_bool)
+
+EXECUTABLE_CACHE_MAX_PLANS = _conf(
+    "spark.rapids.sql.executableCache.maxPlans", 64,
+    "LRU bound on cached plan TEMPLATES (literal-stripped fingerprints) "
+    "in the executable cache. A cached tree pins its plan's in-memory "
+    "source tables, so this bound also bounds the host memory the cache "
+    "pins.", int)
+
+EXECUTABLE_CACHE_MAX_VARIANTS = _conf(
+    "spark.rapids.sql.executableCache.maxVariantsPerPlan", 4,
+    "LRU bound on literal variants retained per cached template: each "
+    "variant pins one converted exec tree.", int)
+
+ASYNC_RESULT_FETCH = _conf(
+    "spark.rapids.sql.asyncResultFetch", True,
+    "Move the final device-to-host result copy off the device "
+    "semaphore's critical section: the copies into pinned host buffers "
+    "are ENQUEUED under the semaphore, the semaphore releases, and the "
+    "copy completes (a CUDA event) before any byte is read. A result "
+    "the pinned pool cannot hold downloads synchronously "
+    "(asyncFetchSynchronous).", _to_bool)
+
+METRICS_LEVEL = _conf(
+    "spark.rapids.sql.metrics.level", "MODERATE",
+    "ESSENTIAL, MODERATE or DEBUG metric collection.", str)
+
+LORE_DUMP_IDS = _conf(
+    "spark.rapids.sql.lore.idsToDump", "",
+    "Comma-separated LORE operator ids (the event record's plan tree "
+    "shows each operator's id) whose input batches and operator dump to "
+    "lore.dumpPath during execution; spark_rapids_tpu_torch.lore.replay() "
+    "re-executes one dumped operator, including in a fresh process.", str)
+
+LORE_DUMP_PATH = _conf(
+    "spark.rapids.sql.lore.dumpPath", "",
+    "Directory for LORE dumps (one lore-<id> subdirectory per operator).",
+    str)
+
+QUARANTINE_MAX_STRIKES = _conf(
+    "spark.rapids.service.quarantine.maxStrikes", 3,
+    "Strikes (device kills, memory-ladder actions past the plain retry) "
+    "after which a query template is quarantined: the service refuses "
+    "further submissions of it at admission (the service scheduler is "
+    "not ported: ROADMAP item 12).", int)
+
 # -- dynamic partition pruning and the bloom filter --------------------------
 
 DPP_ENABLED = _conf(
@@ -328,6 +426,10 @@ class RapidsConf:
         if unknown:
             raise NotImplementedError(
                 f"conf keys not supported by the port: {unknown}")
+
+    def to_dict(self) -> Dict[str, Any]:
+        """The explicitly set ``{key: value}`` pairs."""
+        return dict(self._settings)
 
     def get_entry(self, entry: ConfEntry):
         if entry.key in self._settings:

@@ -11,6 +11,10 @@ from __future__ import annotations
 from typing import Dict, Iterator, Tuple
 
 from spark_rapids_tpu_torch.columnar import DeviceTable
+from spark_rapids_tpu_torch.obs.metrics import (  # noqa: F401 (re-export)
+    level_allows,
+    set_metrics_level,
+)
 
 
 class TpuExec:
@@ -39,7 +43,10 @@ class TpuExec:
         return m
 
     def add_metric(self, name: str, value: int) -> None:
-        self.metrics[name] = self.metrics.get(name, 0) + value
+        """Add ``value`` to metric ``name`` when the query's metrics level
+        (``spark.rapids.sql.metrics.level``) collects it."""
+        if level_allows(name):
+            self.metrics[name] = self.metrics.get(name, 0) + value
 
     def output_schema(self):
         raise NotImplementedError

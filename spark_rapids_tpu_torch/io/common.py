@@ -168,6 +168,14 @@ class FileScanNode(PlanNode):
 
     format_name = "file"
 
+    #: lazily filled caches and counters of a scan node (footers, inferred
+    #: schemas, locks): derived from the paths and options, so the plan
+    #: fingerprint (plan/fingerprint.py) leaves them out, and a DataFrame
+    #: keeps its fingerprint once it has run
+    FINGERPRINT_SKIP = ("_lock", "_footers", "_tails", "_inferred",
+                        "_strptime", "pruned_row_groups", "_schema",
+                        "_data_schema", "_partition_schema")
+
     def __init__(self, paths: Sequence[str], conf: C.RapidsConf,
                  columns: Optional[Sequence[str]] = None,
                  reader_type: Optional[str] = None, **options):

@@ -11,6 +11,12 @@ and carries on: the reference's demotion machinery (``guarded``,
 
 Kernels launch on torch's current CUDA stream and allocate nothing; the
 wrappers allocate outputs and check device, dtype, shape and contiguity.
+
+Every launch runs inside :class:`kernel_launch`: the ``dispatch.kernel``
+and ``device.lost`` fault points fire once before it, it is a named range
+on the profiler's timeline (``runtime/profiler.py::op_range``), and a
+launch that returns counts one dispatch (``dispatch.py``). It adds no
+synchronisation and no copy.
 """
 
 from __future__ import annotations
@@ -29,6 +35,35 @@ KERNELS = (
     ("hashprobe", "probe_rowids"),
     ("decimal", "dec128_divide"),
 )
+
+
+class kernel_launch:
+    """The launch helper every wrapper runs its C call in, beside the
+    line that raises its ``.launches``: the fault points
+    ``dispatch.kernel`` and ``device.lost`` (op: the wrapper's name),
+    a named range, and one counted dispatch when the launch returns."""
+
+    __slots__ = ("name", "_range")
+
+    def __init__(self, name: str):
+        self.name = name
+        self._range = None
+
+    def __enter__(self):
+        from spark_rapids_tpu_torch.runtime.faults import fault_point
+        from spark_rapids_tpu_torch.runtime.profiler import op_range
+        fault_point("dispatch.kernel", op=self.name)
+        fault_point("device.lost", op=self.name)
+        self._range = op_range(self.name, "kernel")
+        self._range.__enter__()
+        return self
+
+    def __exit__(self, exc_type, exc, tb):
+        self._range.__exit__(exc_type, exc, tb)
+        if exc_type is None:
+            from spark_rapids_tpu_torch.dispatch import count_dispatch
+            count_dispatch()
+        return False
 
 
 def _wrapper(module: str, fn: str):

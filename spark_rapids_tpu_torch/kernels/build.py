@@ -21,11 +21,16 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
 from typing import Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
+#: where the libraries go: the package's git-ignored ``_build/``, or
+#: ``$SRT_KERNEL_BUILD_DIR`` (a fresh directory makes a process build
+#: every kernel again, as a first run on a new machine does)
+BUILD_DIR = Path(os.environ.get("SRT_KERNEL_BUILD_DIR") or
+                 Path(__file__).resolve().parent.parent / "_build")
 SOURCES = ("segreduce", "minmax", "compact", "sort", "hashprobe",
            "dec128div")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -64,6 +69,7 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, str]:
     todo = {n: _target(n) for n in names if not _target(n).is_file()}
     if not todo:
         return {}
+    t0 = time.perf_counter()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = nvcc_path()
     procs = {}
@@ -83,6 +89,9 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, str]:
         reports[name] = out
     if failures:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failures))
+    # the query's "traces" and kernelCompileTime (dispatch.py)
+    from spark_rapids_tpu_torch.dispatch import note_kernel_build
+    note_kernel_build(len(reports), time.perf_counter() - t0)
     return reports
 
 
@@ -100,8 +109,6 @@ def load_library(name: str) -> ctypes.CDLL:
 
 
 if __name__ == "__main__":
-    import time
-
     t0 = time.perf_counter()
     for src, report in build().items():
         print(f"== {src}.cu")

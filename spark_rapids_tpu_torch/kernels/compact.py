@@ -23,6 +23,7 @@ import torch
 
 from spark_rapids_tpu_torch.kernels import (
     check_launch,
+    kernel_launch,
     record,
     require_contiguous,
     require_cuda,
@@ -145,7 +146,8 @@ def gather_compact(datas: Sequence[torch.Tensor],
     0-d int32 tensor that stays on the device."""
     _check_args(datas, valids, keep, capacity)
     if keep.device.type == "cpu":
-        return gather_compact_plain(datas, valids, keep, capacity)
+        with kernel_launch("gather_compact"):
+            return gather_compact_plain(datas, valids, keep, capacity)
     require_cuda(keep, "gather_compact")
     require_contiguous(keep, "gather_compact")
     dev, n = keep.device, len(datas)
@@ -165,19 +167,20 @@ def gather_compact(datas: Sequence[torch.Tensor],
     new_n = torch.empty((), dtype=torch.int32, device=dev)
     sel = torch.empty(capacity, dtype=torch.int32, device=dev) \
         if len(streams) > MAX_STREAMS else None
-    lib = _library()
-    stream = stream_handle(keep)
-    ws = _workspace(dev, stream)
-    # (src, dst, element size) of every stream, as one host array
-    descs = (ctypes.c_int64 * max(1, 3 * len(streams)))(
-        *[t.data_ptr() for t in streams], *[t.data_ptr() for t in outs],
-        *[t.element_size() for t in streams])
-    words = ws.words.data_ptr()
-    rc = lib.srt_compact(keep.data_ptr(), capacity, descs, len(streams),
-                         new_n.data_ptr(),
-                         None if sel is None else sel.data_ptr(), words,
-                         words + 8 * _MAX_TILES, ws.next_epoch(), stream)
-    check_launch(lib, rc, "gather_compact")
+    with kernel_launch("gather_compact"):
+        lib = _library()
+        stream = stream_handle(keep)
+        ws = _workspace(dev, stream)
+        # (src, dst, element size) of every stream, as one host array
+        descs = (ctypes.c_int64 * max(1, 3 * len(streams)))(
+            *[t.data_ptr() for t in streams], *[t.data_ptr() for t in outs],
+            *[t.element_size() for t in streams])
+        words = ws.words.data_ptr()
+        rc = lib.srt_compact(keep.data_ptr(), capacity, descs, len(streams),
+                             new_n.data_ptr(),
+                             None if sel is None else sel.data_ptr(), words,
+                             words + 8 * _MAX_TILES, ws.next_epoch(), stream)
+        check_launch(lib, rc, "gather_compact")
     gather_compact.launches += 1
     pairs = list(zip(outs[:n], outs[n:]))
     record("gather_compact", (list(datas), list(valids), keep, capacity),

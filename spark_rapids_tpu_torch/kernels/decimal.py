@@ -29,6 +29,7 @@ import torch
 
 from spark_rapids_tpu_torch.kernels import (
     check_launch,
+    kernel_launch,
     record,
     require_contiguous,
     require_cuda,
@@ -90,7 +91,9 @@ def dec128_divide(mode: str, a_hi: torch.Tensor, a_lo: torch.Tensor,
     streams = (a_hi, a_lo, b_hi, b_lo, valid)
     _check_args(mode, streams, pow_a, pow_b, precision)
     if a_hi.device.type == "cpu":
-        return dec128_divide_plain(mode, *streams, pow_a, pow_b, precision)
+        with kernel_launch("dec128_divide"):
+            return dec128_divide_plain(mode, *streams, pow_a, pow_b,
+                                       precision)
     require_cuda(a_hi, "dec128_divide")
     for t in streams:
         if t.device != a_hi.device:
@@ -101,13 +104,14 @@ def dec128_divide(mode: str, a_hi: torch.Tensor, a_lo: torch.Tensor,
     o_lo = torch.empty_like(o_hi)
     o_valid = torch.empty(n, dtype=torch.bool, device=a_hi.device)
     bound = 10 ** precision
-    lib = _library()
-    rc = lib.srt_dec128_divide(
-        a_hi.data_ptr(), a_lo.data_ptr(), b_hi.data_ptr(), b_lo.data_ptr(),
-        valid.data_ptr(), o_hi.data_ptr(), o_lo.data_ptr(),
-        o_valid.data_ptr(), n, MODES[mode], *_words(pow_a, 3),
-        *_words(pow_b, 3), bound >> 64, bound & _M64, stream_handle(a_hi))
-    check_launch(lib, rc, "dec128_divide")
+    with kernel_launch("dec128_divide"):
+        lib = _library()
+        rc = lib.srt_dec128_divide(
+            a_hi.data_ptr(), a_lo.data_ptr(), b_hi.data_ptr(), b_lo.data_ptr(),
+            valid.data_ptr(), o_hi.data_ptr(), o_lo.data_ptr(),
+            o_valid.data_ptr(), n, MODES[mode], *_words(pow_a, 3),
+            *_words(pow_b, 3), bound >> 64, bound & _M64, stream_handle(a_hi))
+        check_launch(lib, rc, "dec128_divide")
     dec128_divide.launches += 1
     record("dec128_divide", (mode, *streams, pow_a, pow_b, precision),
            (o_hi, o_lo, o_valid))

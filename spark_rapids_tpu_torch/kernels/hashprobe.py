@@ -39,6 +39,7 @@ import torch
 
 from spark_rapids_tpu_torch.kernels import (
     check_launch,
+    kernel_launch,
     record,
     require_contiguous,
     require_cuda,
@@ -192,20 +193,22 @@ def probe_rowids(keys: torch.Tensor, valid: torch.Tensor,
     or invalid. ``table_row`` is ``build_table``'s over ``build_keys``."""
     H = _check_probe_args(keys, valid, table_row, build_keys, attempts)
     if keys.device.type == "cpu":
-        return probe_rowids_plain(keys, valid, table_row, build_keys,
-                                  attempts)
+        with kernel_launch("probe_rowids"):
+            return probe_rowids_plain(keys, valid, table_row, build_keys,
+                                      attempts)
     require_cuda(keys, "probe_rowids")
     for t in (keys, valid, table_row, build_keys):
         if t.device != keys.device:
             raise ValueError("probe_rowids: all tensors must share a device")
         require_contiguous(t, "probe_rowids")
     out = torch.empty(keys.shape, dtype=torch.int32, device=keys.device)
-    lib = _library()
-    rc = lib.srt_probe_rowids(keys.data_ptr(), valid.data_ptr(),
-                              table_row.data_ptr(), build_keys.data_ptr(),
-                              out.data_ptr(), int(keys.shape[0]), H, attempts,
-                              stream_handle(keys))
-    check_launch(lib, rc, "probe_rowids")
+    with kernel_launch("probe_rowids"):
+        lib = _library()
+        rc = lib.srt_probe_rowids(keys.data_ptr(), valid.data_ptr(),
+                                  table_row.data_ptr(), build_keys.data_ptr(),
+                                  out.data_ptr(), int(keys.shape[0]), H,
+                                  attempts, stream_handle(keys))
+        check_launch(lib, rc, "probe_rowids")
     probe_rowids.launches += 1
     record("probe_rowids", (keys, valid, table_row, build_keys, attempts),
            out)

@@ -28,6 +28,7 @@ import torch
 
 from spark_rapids_tpu_torch.kernels import (
     check_launch,
+    kernel_launch,
     record,
     require_contiguous,
     require_cuda,
@@ -119,7 +120,8 @@ def onehot_partials(x: torch.Tensor, gid: torch.Tensor, nseg: int, nb: int,
     if gid.dtype != torch.int32:
         raise TypeError(f"onehot_partials: gid dtype {gid.dtype}")
     if x.device.type == "cpu":
-        return onehot_partials_plain(x, gid, nseg, nb, block)
+        with kernel_launch("onehot_partials"):
+            return onehot_partials_plain(x, gid, nseg, nb, block)
     require_cuda(x, "onehot_partials")
     if gid.device != x.device:
         raise ValueError("onehot_partials: x and gid on different devices")
@@ -134,12 +136,13 @@ def onehot_partials(x: torch.Tensor, gid: torch.Tensor, nseg: int, nb: int,
                          f"1..{MAX_BLOCK})")
     c = int(x.shape[1])
     out = torch.empty((nb, nseg, c), dtype=x.dtype, device=x.device)
-    lib = _library("segreduce")
-    rc = lib.srt_onehot_partials(
-        x.data_ptr(), gid.data_ptr(), out.data_ptr(), nb, nseg, c, block,
-        x.stride(0), x.stride(1), int(x.dtype == torch.float64),
-        stream_handle(x))
-    check_launch(lib, rc, "onehot_partials")
+    with kernel_launch("onehot_partials"):
+        lib = _library("segreduce")
+        rc = lib.srt_onehot_partials(
+            x.data_ptr(), gid.data_ptr(), out.data_ptr(), nb, nseg, c, block,
+            x.stride(0), x.stride(1), int(x.dtype == torch.float64),
+            stream_handle(x))
+        check_launch(lib, rc, "onehot_partials")
     onehot_partials.launches += 1
     record("onehot_partials", (x, gid, nseg, nb, block), out)
     return out
@@ -209,21 +212,24 @@ def fused_minmax(is_min: bool, values: torch.Tensor, valid: torch.Tensor,
     if not 1 <= nseg < (1 << 31):
         raise ValueError(f"fused_minmax: {nseg} segments (takes 1..2^31-1)")
     if values.device.type == "cpu":
-        return fused_minmax_plain(is_min, values, valid, gid, nseg)
+        with kernel_launch("fused_minmax"):
+            return fused_minmax_plain(is_min, values, valid, gid, nseg)
     require_cuda(values, "fused_minmax")
     if valid.device != values.device or gid.device != values.device:
         raise ValueError("fused_minmax: inputs on different devices")
     for t, what in ((values, "values"), (valid, "valid"), (gid, "gid")):
         require_contiguous(t, f"fused_minmax {what}")
     out = torch.empty(nseg, dtype=values.dtype, device=values.device)
-    lib = _library("minmax")
-    stream = stream_handle(values)
-    rc = lib.srt_fused_minmax(
-        values.data_ptr(), valid.data_ptr(), gid.data_ptr(), out.data_ptr(),
-        int(values.shape[0]), nseg, int(is_min),
-        int(values.dtype == torch.float64),
-        _ticket(values.device, stream).data_ptr(), stream)
-    check_launch(lib, rc, "fused_minmax")
+    with kernel_launch("fused_minmax"):
+        lib = _library("minmax")
+        stream = stream_handle(values)
+        rc = lib.srt_fused_minmax(
+            values.data_ptr(), valid.data_ptr(), gid.data_ptr(),
+            out.data_ptr(),
+            int(values.shape[0]), nseg, int(is_min),
+            int(values.dtype == torch.float64),
+            _ticket(values.device, stream).data_ptr(), stream)
+        check_launch(lib, rc, "fused_minmax")
     fused_minmax.launches += 1
     record("fused_minmax", (is_min, values, valid, gid, nseg), out)
     return out

@@ -26,6 +26,7 @@ import torch
 
 from spark_rapids_tpu_torch.kernels import (
     check_launch,
+    kernel_launch,
     record,
     require_contiguous,
     require_cuda,
@@ -194,62 +195,64 @@ def sort_with_payload(operands: Sequence[torch.Tensor],
     arrs = list(operands) + [payload]
     n = _check_args(arrs)
     if payload.device.type == "cpu":
-        return sort_with_payload_plain(operands, payload)
+        with kernel_launch("sort_with_payload"):
+            return sort_with_payload_plain(operands, payload)
     require_cuda(payload, "sort_with_payload")
     for a in arrs:
         if a.device != payload.device:
             raise ValueError("sort_with_payload: all arrays must share a "
                              "device")
         require_contiguous(a, "sort_with_payload")
-    lib = _library()
-    if n > _MAX_ROWS:
-        raise ValueError(f"sort_with_payload: {n} rows (kernel takes at most "
-                         f"{_MAX_ROWS})")
-    dev, k, m = payload.device, len(arrs), len(arrs) - 1
-    # the outputs are the rows of one buffer (one allocation, not k)
-    outs = [o.view(a.dtype) for a, o in zip(
-        arrs, torch.empty((k, n), dtype=torch.int32, device=dev).unbind(0))]
-    in_ptrs = _c_array(ctypes.c_void_p, [a.data_ptr() for a in arrs])
-    out_ptrs = _c_array(ctypes.c_void_p, [o.data_ptr() for o in outs])
-    flips = _c_array(ctypes.c_uint32, [_FLIP[a.dtype] for a in arrs])
-    stream = stream_handle(payload)
-    tracing = sort_with_payload.trace is not None
-    if n <= _SMALL_ROWS:
-        # the one-CTA sort writes its survey only for a trace
-        survey = torch.empty(2 * m, dtype=torch.int32, device=dev) \
-            if tracing else None
-        rc = lib.srt_sort_small(in_ptrs, out_ptrs, flips, k, n,
-                                survey.data_ptr() if tracing else None,
-                                stream)
-    else:
-        # one workspace, taken before the sync: keys (2n uint64), row
-        # indices (2n), scratch for the most passes the survey can ask for
-        # (ceil(32 m / 8)) and the survey words
-        nwords = lib.srt_scratch_words(n, 4 * m)
-        ws = torch.empty(6 * n + nwords + 2 * m + 1, dtype=torch.int32,
-                         device=dev)
-        at = ws.data_ptr()
-        survey = ws[6 * n + nwords:]
-        plan, ands, iota = RadixPlan(0, 0, (), ()), [], False
-        if m:
-            rc = lib.srt_survey(in_ptrs, flips, k, n, survey.data_ptr(),
-                                stream)
-            check_launch(lib, rc, "sort_with_payload")
-            # the sort's one host sync: the plan needs the varying bits
-            words = survey.tolist()
-            sort_with_payload.host_syncs += 1
-            ors, ands = survey_words(words, m)
-            plan, iota = radix_plan(ors, ands), words[2 * m] != 0
-        segs = encode_segments(plan)
-        npass = len(plan.passes)
-        pw, ps, pwd = zip(*plan.passes) if npass else ((), (), ())
-        rc = lib.srt_sort_planned(
-            in_ptrs, out_ptrs, flips, k, n, _c_array(ctypes.c_uint32, segs),
-            len(segs), _c_array(ctypes.c_int, pw), _c_array(ctypes.c_int, ps),
-            _c_array(ctypes.c_int, pwd), npass,
-            _c_array(ctypes.c_uint32, ands), int(iota), at, at + 16 * n,
-            at + 24 * n, nwords, stream)
-    check_launch(lib, rc, "sort_with_payload")
+    with kernel_launch("sort_with_payload"):
+        lib = _library()
+        if n > _MAX_ROWS:
+            raise ValueError(f"sort_with_payload: {n} rows (kernel takes at most "
+                             f"{_MAX_ROWS})")
+        dev, k, m = payload.device, len(arrs), len(arrs) - 1
+        # the outputs are the rows of one buffer (one allocation, not k)
+        outs = [o.view(a.dtype) for a, o in zip(
+            arrs, torch.empty((k, n), dtype=torch.int32, device=dev).unbind(0))]
+        in_ptrs = _c_array(ctypes.c_void_p, [a.data_ptr() for a in arrs])
+        out_ptrs = _c_array(ctypes.c_void_p, [o.data_ptr() for o in outs])
+        flips = _c_array(ctypes.c_uint32, [_FLIP[a.dtype] for a in arrs])
+        stream = stream_handle(payload)
+        tracing = sort_with_payload.trace is not None
+        if n <= _SMALL_ROWS:
+            # the one-CTA sort writes its survey only for a trace
+            survey = torch.empty(2 * m, dtype=torch.int32, device=dev) \
+                if tracing else None
+            rc = lib.srt_sort_small(in_ptrs, out_ptrs, flips, k, n,
+                                    survey.data_ptr() if tracing else None,
+                                    stream)
+        else:
+            # one workspace, taken before the sync: keys (2n uint64), row
+            # indices (2n), scratch for the most passes the survey can ask for
+            # (ceil(32 m / 8)) and the survey words
+            nwords = lib.srt_scratch_words(n, 4 * m)
+            ws = torch.empty(6 * n + nwords + 2 * m + 1, dtype=torch.int32,
+                             device=dev)
+            at = ws.data_ptr()
+            survey = ws[6 * n + nwords:]
+            plan, ands, iota = RadixPlan(0, 0, (), ()), [], False
+            if m:
+                rc = lib.srt_survey(in_ptrs, flips, k, n, survey.data_ptr(),
+                                    stream)
+                check_launch(lib, rc, "sort_with_payload")
+                # the sort's one host sync: the plan needs the varying bits
+                words = survey.tolist()
+                sort_with_payload.host_syncs += 1
+                ors, ands = survey_words(words, m)
+                plan, iota = radix_plan(ors, ands), words[2 * m] != 0
+            segs = encode_segments(plan)
+            npass = len(plan.passes)
+            pw, ps, pwd = zip(*plan.passes) if npass else ((), (), ())
+            rc = lib.srt_sort_planned(
+                in_ptrs, out_ptrs, flips, k, n, _c_array(ctypes.c_uint32, segs),
+                len(segs), _c_array(ctypes.c_int, pw), _c_array(ctypes.c_int, ps),
+                _c_array(ctypes.c_int, pwd), npass,
+                _c_array(ctypes.c_uint32, ands), int(iota), at, at + 16 * n,
+                at + 24 * n, nwords, stream)
+        check_launch(lib, rc, "sort_with_payload")
     sort_with_payload.launches += 1
     record("sort_with_payload", (list(operands), payload), outs)
     if tracing:

@@ -5,9 +5,9 @@ and a collection level. Subsystems that are not operators (the memory
 arbiter, the spill catalog, the task semaphore) record into named
 process-wide scopes fetched with :func:`metric_scope`; the session reads
 a query's counters as the difference of the scopes around it
-(``TorchSession.last_metrics``). Every metric is collected: the
-reference's level filter (``spark.rapids.sql.metrics.level``) is not
-ported.
+(``TorchSession.last_metrics``). An exec's metrics honour the level
+filter (``spark.rapids.sql.metrics.level``, :func:`set_metrics_level`):
+a metric whose level is above the query's is not recorded.
 """
 
 from __future__ import annotations
@@ -51,6 +51,51 @@ def register_metric(name: str, kind: str = "count",
             return old
         spec = _SPECS[name] = MetricSpec(name, kind, level, doc)
         return spec
+
+
+def spec_for(name: str) -> MetricSpec:
+    """The spec of a metric name; an undeclared name gets an inferred one
+    (``*Time`` -> timing, ``*Bytes*`` -> bytes, else count) at MODERATE,
+    as the reference's."""
+    spec = _SPECS.get(name)
+    if spec is not None:
+        return spec
+    if name.endswith("Time") or name.endswith("TimeS"):
+        kind = "timing"
+    elif "Bytes" in name or name.endswith("bytes"):
+        kind = "bytes"
+    else:
+        kind = "count"
+    return MetricSpec(name, kind, "MODERATE")
+
+
+_LEVEL_RANK = {lvl: i for i, lvl in enumerate(METRIC_LEVELS)}
+#: the active collection level's rank (set per query by the session)
+_ACTIVE_LEVEL = [_LEVEL_RANK["MODERATE"]]
+
+
+def set_metrics_level(level: str) -> None:
+    """The query's ``spark.rapids.sql.metrics.level``: ESSENTIAL,
+    MODERATE or DEBUG; anything else raises naming the key."""
+    lvl = str(level).strip().upper()
+    if lvl not in _LEVEL_RANK:
+        raise ValueError(f"spark.rapids.sql.metrics.level={level!r}: want "
+                         f"one of {', '.join(METRIC_LEVELS)}")
+    _ACTIVE_LEVEL[0] = _LEVEL_RANK[lvl]
+
+
+def level_allows(name: str) -> bool:
+    """Is metric ``name`` collected at the active level?"""
+    return _LEVEL_RANK[spec_for(name).level] <= _ACTIVE_LEVEL[0]
+
+
+def typed(metrics: Dict[str, object]) -> Dict[str, dict]:
+    """{name: {value, kind, level}}: the event log's rendering."""
+    out = {}
+    for k, v in sorted(metrics.items()):
+        spec = spec_for(k)
+        out[k] = {"value": v, "kind": spec.kind, "level": spec.level}
+    return out
 
 
 def registered_specs() -> Dict[str, MetricSpec]:

@@ -354,6 +354,10 @@ class StringEqualsLiteral(Expression):
     prep walk finds the literal's code in the column's sorted dictionary
     (-1 when absent, so no row matches) and the device compares codes."""
 
+    #: the folded literal: a template fingerprint keeps only its type and
+    #: null-ness, as for a Literal (plan/fingerprint.py)
+    FINGERPRINT_LITERALS = ("value",)
+
     def __init__(self, child: Expression, value, null_safe: bool = False):
         self.children = (child,)
         self.value = value

@@ -484,15 +484,8 @@ def convert(node: P.PlanNode, conf: C.RapidsConf, device) -> TpuExec:
     window group-limit rewrite (where and in the order the reference's
     ``apply_overrides`` runs them), every exec numbered by its plan
     position (pre-order from 1)."""
+    from spark_rapids_tpu_torch.lore import assign_lore_ids
     root = _convert(_insert_window_group_limits(prune_plan(node)), conf,
                     device)
-    counter = [0]
-
-    def number(e: TpuExec) -> None:
-        counter[0] += 1
-        e._lore_id = counter[0]
-        for c in e.children:
-            number(c)
-
-    number(root)
+    assign_lore_ids(root)
     return root

@@ -166,6 +166,10 @@ class DataFrame:
         if self.session is None:
             raise ValueError("a DataFrame runs through a session: the port "
                              "has no CPU execution of plans")
+        sql_text = getattr(self, "sql_text", None)
+        if sql_text is not None:
+            # the event record's sqlText (TorchSession.sql sets it)
+            self.session.next_query_sql = sql_text
         return self.session.execute(self.plan)
 
     def count(self) -> int:

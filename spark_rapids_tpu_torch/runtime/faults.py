@@ -20,10 +20,12 @@ per-operator circuit breaker and the exec fault boundaries.
   attribution (``fault_op``) on every exec of a converted tree.
 
 The points: the scan's per-file decode, the writer's per-file write, the
-committer's promotion and abort, each exec's execute, and the memory
-runtime's reserve, spill and unspill. Not ported: the ``dispatch.*``
-points (the port has no ``dispatch.py``) and the ``race`` kind, which
-needs the Delta log (item 12).
+committer's promotion and abort, each exec's execute, the memory
+runtime's reserve, spill and unspill, and at each hand-written kernel's
+launch (``kernels.kernel_launch``) ``dispatch.kernel`` and
+``device.lost``. Not ported: ``dispatch.wedge``, which waits for the
+service watchdog (item 12, the only thing that can end a wedge), and the
+``race`` kind, which needs the Delta log (item 12).
 
 Spec grammar, entries separated by ``;``:
 ``<point>[@<op>]:<kind>:<prob-or-count>[:<seed>]``, where an amount with
@@ -93,6 +95,16 @@ FAULT_POINTS: Dict[str, tuple] = {
         "spark_rapids_tpu_torch/runtime/spill.py",
         "before a device-to-host spill, under the batch's lock: 'crash' "
         "simulates a failed spill (the buffer stays on the device)"),
+    "dispatch.kernel": (
+        "spark_rapids_tpu_torch/kernels/__init__.py",
+        "before each hand-written kernel's launch (kernel_launch; the op "
+        "is the wrapper's name), on the card and for the plain version "
+        "on the CPU"),
+    "device.lost": (
+        "spark_rapids_tpu_torch/kernels/__init__.py",
+        "before each hand-written kernel's launch; device_lost simulates "
+        "a fatal device loss (the health monitor's device-loss recovery, "
+        "runtime/health.py)"),
     "mem.unspill": (
         "spark_rapids_tpu_torch/runtime/spill.py",
         "at the disk-tier unspill read, under the batch's lock: 'corrupt' "

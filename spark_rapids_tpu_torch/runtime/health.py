@@ -23,17 +23,30 @@ single card needs).
   would take (``cpu_demote``, onto its CPU path). Any completed query
   resets the ladder.
 
-Not ported here: the mesh and host ladders (ROADMAP item 11) and the
-poison-query quarantine, which keys on ``plan/fingerprint.py`` (item 10's
-caching). Counters live in the ``health`` metric scope under the
-reference's names: ``deviceLost``, ``deviceReinits``, ``memoryPressure``
-and ``memoryChunkedReexecutions``."""
+* **Poison-query quarantine** (:class:`QuarantineRegistry`): a query
+  template (``plan/fingerprint.py::template_fingerprint``) that keeps
+  killing the device or forcing the memory ladder past its plain retry
+  collects strikes (the session strikes on the ``chunk`` and ``abort``
+  rungs and on device loss); at ``spark.rapids.service.quarantine.
+  maxStrikes`` it is quarantined, and ``explain`` names it a poison
+  suspect. Refusing a quarantined template at admission is the service
+  scheduler's, and the flight recorder's incident bundle is
+  ``obs/telemetry.py``'s: both wait for item 12.
+
+Not ported here: the mesh and host ladders (ROADMAP item 11). Counters
+live in the ``health`` metric scope under the reference's names:
+``deviceLost``, ``deviceReinits``, ``memoryPressure``,
+``memoryChunkedReexecutions``, ``quarantineStrikes`` and
+``quarantinedTemplates``."""
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
-from spark_rapids_tpu_torch.conf import DEVICE_LOSS_MAX_REINITS
+from spark_rapids_tpu_torch.conf import (  # noqa: F401 (re-export)
+    DEVICE_LOSS_MAX_REINITS,
+    QUARANTINE_MAX_STRIKES,
+)
 from spark_rapids_tpu_torch.errors import DeviceLostError, FatalDeviceOOM
 from spark_rapids_tpu_torch.lockorder import ordered_lock
 from spark_rapids_tpu_torch.obs.metrics import metric_scope, register_metric
@@ -52,6 +65,10 @@ register_metric("memoryPressure", "count", "ESSENTIAL",
 register_metric("memoryChunkedReexecutions", "count", "ESSENTIAL",
                 "query replays forced onto chunked scans by the memory "
                 "ladder's 'chunk' rung")
+register_metric("quarantineStrikes", "count", "MODERATE",
+                "poison-query strikes recorded against query templates")
+register_metric("quarantinedTemplates", "count", "ESSENTIAL",
+                "query templates currently quarantined")
 
 
 def _first_line(exc: BaseException) -> str:
@@ -117,6 +134,9 @@ class DeviceHealthMonitor:
             if self._latch_reason is not None:
                 return "LATCHED"
         evict_device_state()
+        # every cached converted tree may hold the lost context's state
+        from spark_rapids_tpu_torch.plan.executable_cache import EXEC_CACHE
+        EXEC_CACHE.invalidate_all()
         probe = _probe_context(device)
         with self._lock:
             if probe is None and n < max_reinits:
@@ -190,6 +210,11 @@ class DeviceHealthMonitor:
         return err
 
     # -- introspection ----------------------------------------------------------
+    def generation(self) -> int:
+        """Device losses seen: a tree converted under an older generation
+        never returns to the executable cache."""
+        return self._losses
+
     def snapshot(self) -> Dict[str, object]:
         with self._lock:
             return {
@@ -214,3 +239,75 @@ class DeviceHealthMonitor:
 
 
 HEALTH = DeviceHealthMonitor()
+
+
+class QuarantineRegistry:
+    """Strike ledger per query TEMPLATE (literal-stripped structural
+    fingerprint): a template that repeatedly kills the device, or drives
+    the memory ladder past its plain retry, is the prime poison suspect
+    whatever its literals. A plan too dynamic to fingerprint cannot be
+    quarantined (its runs are independent: it hits no cache either)."""
+
+    def __init__(self):
+        self._lock = ordered_lock("health.quarantine")
+        self._metrics = metric_scope("health")
+        #: template_fp -> ordered strike reasons
+        self._strikes: Dict[str, List[str]] = {}
+        self._quarantined: Dict[str, List[str]] = {}
+
+    def strike(self, template_fp: Optional[str], reason: str,
+               max_strikes: int) -> bool:
+        """Record one kill against ``template_fp``; True when this strike
+        quarantined the template."""
+        if template_fp is None:
+            return False
+        with self._lock:
+            history = self._strikes.setdefault(template_fp, [])
+            history.append(reason)
+            self._metrics.add("quarantineStrikes", 1)
+            quarantined = (template_fp not in self._quarantined
+                           and len(history) >= max(1, int(max_strikes)))
+            if quarantined:
+                self._quarantined[template_fp] = list(history)
+                self._metrics.add("quarantinedTemplates", 1)
+        return quarantined
+
+    def is_quarantined(self, template_fp: Optional[str]
+                       ) -> Optional[List[str]]:
+        """The strike history when quarantined, else None."""
+        if template_fp is None:
+            return None
+        with self._lock:
+            history = self._quarantined.get(template_fp)
+            return list(history) if history is not None else None
+
+    def strike_count(self, template_fp: Optional[str]) -> int:
+        if template_fp is None:
+            return 0
+        with self._lock:
+            return len(self._strikes.get(template_fp, ()))
+
+    def history(self, template_fp: Optional[str]) -> List[str]:
+        if template_fp is None:
+            return []
+        with self._lock:
+            return list(self._strikes.get(template_fp, ()))
+
+    def snapshot(self) -> dict:
+        with self._lock:
+            return {
+                "templatesWithStrikes": len(self._strikes),
+                "strikes": sum(len(v) for v in self._strikes.values()),
+                "quarantined": len(self._quarantined),
+            }
+
+    def reset(self) -> None:
+        with self._lock:
+            n = len(self._quarantined)
+            self._strikes = {}
+            self._quarantined = {}
+            if n:
+                self._metrics.add("quarantinedTemplates", -n)
+
+
+QUARANTINE = QuarantineRegistry()

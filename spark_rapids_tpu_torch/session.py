@@ -1,10 +1,27 @@
-"""The port's session: a thin front door that converts a plan into device
+"""The port's session: the front door that converts a plan into device
 execs, drains them through the placement layer (speculative sizing, the
-device semaphore) under the recovery envelope (the circuit breaker's
-replays, the memory degradation ladder, device-loss handling) and
-downloads the result (the reference's TpuSession without the event log,
-executable cache, AQE and the mesh and host ladders, none of which is
-ported yet), with its SQL entry points (``sql``, ``table``, ``catalog``).
+device semaphore, the asynchronous result fetch) under the recovery
+envelope (the circuit breaker's replays, the memory degradation ladder,
+device-loss handling, the poison-query strikes) and the query envelope
+(the reference's ``TpuSession.execute`` and ``_plan_and_drain``, less
+AQE, the mesh and host ladders and the service's cancellation):
+
+* the executable cache (plan/executable_cache.py): a repeated plan checks
+  out its converted tree and runs no conversion;
+* LORE ids and dumps (lore.py), the fault boundaries
+  (runtime/faults.py) and the observation boundaries (obs/spans.py),
+  installed in the reference's order;
+* the profiler around the drain (runtime/profiler.py,
+  ``spark.rapids.profile.*``);
+* the span tracer and the event log (obs/events.py,
+  ``spark.rapids.trace.*``, ``spark.rapids.sql.eventLog.*``): one JSONL
+  record per top-level query, with the phase times ``planS``,
+  ``executeS`` and ``collectS``, the dispatches and the compile time.
+
+A nested execute (a cached relation's materialization, a WriteFiles
+plan's child) rides the outer query's envelope: no record, no profiler
+index, no cache checkout. In-flight query state is per thread
+(``_TLQueryState``), so sessions may run queries from several threads.
 
 Each session starts the process's device manager for its device
 (runtime/device_manager.py), configures the memory arbiter's budget from
@@ -17,17 +34,20 @@ File sources: ``read_parquet``, ``read_orc``, ``read_avro``,
 ``read_csv``, ``read_json``, ``read_hive_text``, ``read`` (the provider
 SPI's ``DataFrameReader``) and ``read_format``; a ``WriteFiles`` plan runs
 its child through the overrides, then the committed write, and returns the
-stats row. Delta and Iceberg raise naming their ROADMAP item.
+stats row; every WriteFiles run, success or failure, bumps the warehouse
+invalidation epoch. Delta and Iceberg raise naming their ROADMAP item.
 ``spark.rapids.test.faults`` arms the fault registry at each execute."""
 
 from __future__ import annotations
 
+import threading
 from typing import Dict, Optional
 
 from spark_rapids_tpu_torch import resolve_device
 from spark_rapids_tpu_torch.columnar import HostTable
 from spark_rapids_tpu_torch.conf import RapidsConf
 from spark_rapids_tpu_torch.execs.base import TpuExec
+from spark_rapids_tpu_torch.lockorder import ordered_lock
 from spark_rapids_tpu_torch.plan import nodes as P
 
 #: the process-wide metric scopes whose per-query change last_metrics adds
@@ -35,10 +55,76 @@ RUNTIME_SCOPES = ("memory", "spill", "semaphore", "write", "health",
                   "recovery")
 
 
+class _TLQueryState:
+    """Per-(session, thread) in-flight query state: a session may run
+    queries from several threads at once, so what one execute() writes
+    while it runs is thread-local. ``last_*`` reads fall back to the
+    session-wide mirror of the last completed query."""
+
+    __slots__ = ("exec_depth", "next_tag", "next_sql", "phases",
+                 "executable", "dispatches", "event_record", "event_path",
+                 "exec_cache_token", "exec_cache_hit", "compile_ms")
+
+    def __init__(self):
+        for name in self.__slots__:
+            setattr(self, name, None)
+        self.exec_depth = 0
+
+
+def _tl_mirrored(tls_field: str, doc: str):
+    """Property: this thread's value, else the session-wide mirror of the
+    last completed query; a write updates both."""
+
+    def _get(self):
+        v = getattr(self._q, tls_field)
+        return v if v is not None else self._mirror.get(tls_field)
+
+    def _set(self, value):
+        setattr(self._q, tls_field, value)
+        self._mirror[tls_field] = value
+
+    return property(_get, _set, doc=doc)
+
+
+def _tl_only(tls_field: str, doc: str):
+    def _get(self):
+        return getattr(self._q, tls_field)
+
+    def _set(self, value):
+        setattr(self._q, tls_field, value)
+
+    return property(_get, _set, doc=doc)
+
+
 class TorchSession:
     """Runs plans on one torch device. ``device=None`` means the current
     CUDA device and raises when there is none; pass ``device="cpu"`` to
     run the kernels' plain torch versions on the CPU."""
+
+    next_query_tag = _tl_only(
+        "next_tag", "query tag the NEXT execute() on this thread records")
+    next_query_sql = _tl_only(
+        "next_sql", "SQL text the NEXT execute() on this thread records")
+    last_dispatches = _tl_mirrored(
+        "dispatches", "hand-written kernel launches of the last query "
+        "(dispatch.py)")
+    last_event_record = _tl_mirrored(
+        "event_record", "event-log record of the last query")
+    last_event_path = _tl_mirrored(
+        "event_path", "event-log path of the last query")
+    last_executable_cache_hit = _tl_mirrored(
+        "exec_cache_hit", "did the last query check out a cached "
+        "converted executable (plan/executable_cache.py)?")
+    last_compile_ms = _tl_mirrored(
+        "compile_ms", "milliseconds the last query spent building kernel "
+        "libraries with nvcc (dispatch.py)")
+    _last_phases = _tl_mirrored("phases", "phase times of the last query")
+    _last_executable = _tl_mirrored(
+        "executable", "executed tree of the last query")
+
+    #: the padding waste the reference records: the port pads nothing it
+    #: uploads for a compiler (dispatch.py), so it reads 0
+    last_pad_waste_rows = 0
 
     def __init__(self, conf: Optional[dict] = None, device=None):
         self.device = resolve_device(device)
@@ -49,6 +135,27 @@ class TorchSession:
         self._last_runtime: Dict[str, float] = {}
         self._catalog = None
         self._placement = None
+        self._profiler = None
+        self._tls = threading.local()
+        self._mirror: Dict[str, object] = {}
+        self._obs_lock = ordered_lock("session.obs")
+        self._obs_query_seq = 0
+        self._event_writer = None
+
+    @property
+    def _q(self) -> _TLQueryState:
+        q = getattr(self._tls, "q", None)
+        if q is None:
+            q = self._tls.q = _TLQueryState()
+        return q
+
+    @property
+    def profiler(self):
+        """The session's profiler (runtime/profiler.py)."""
+        if self._profiler is None:
+            from spark_rapids_tpu_torch.runtime.profiler import TorchProfiler
+            self._profiler = TorchProfiler(self.conf, self.device)
+        return self._profiler
 
     @property
     def runtime(self):
@@ -84,7 +191,9 @@ class TorchSession:
         through pruning, the overrides and the execs exactly as a
         DSL-built one does."""
         from spark_rapids_tpu_torch.sql import lower_statement
-        return lower_statement(self, text)
+        df = lower_statement(self, text)
+        df.sql_text = text
+        return df
 
     def table(self, name: str):
         """DataFrame over a temp view."""
@@ -142,31 +251,257 @@ class TorchSession:
         return self.read_format("iceberg", path, **options)
 
     def execute(self, plan: P.PlanNode) -> HostTable:
-        """Run ``plan`` through the recovery envelope
-        (``_execute_with_recovery``) and the placement layer's drain
-        (speculative sizing and its replays, the device semaphore). The
-        replay counts are ``last_metrics()``'s ``speculationReplays`` and
-        ``runtimeFaultReplays``. A ``WriteFiles`` plan runs its child so,
-        then writes and commits its files. Once a device loss latched the
-        process, raises that DeviceLostError."""
-        from spark_rapids_tpu_torch.conf import TEST_FAULTS
+        """Run one query: the recovery envelope (``_execute_with_recovery``)
+        and the placement layer's drain (speculative sizing and its
+        replays, the device semaphore) inside the query envelope. When the
+        event log or the span tracer is on, spans collect for the query
+        and its record is written when it succeeds. A nested execute rides
+        the outer envelope. The replay counts are ``last_metrics()``'s
+        ``speculationReplays`` and ``runtimeFaultReplays``. A
+        ``WriteFiles`` plan runs its child so, then writes and commits its
+        files. Once a device loss latched the process, raises that
+        DeviceLostError."""
+        import time
+
+        from spark_rapids_tpu_torch.conf import (
+            EVENT_LOG_ENABLED,
+            TEST_FAULTS,
+            TRACE_ENABLED,
+        )
         from spark_rapids_tpu_torch.obs.metrics import scopes_snapshot
+        from spark_rapids_tpu_torch.obs.spans import TRACER
         from spark_rapids_tpu_torch.runtime.faults import FAULTS
         from spark_rapids_tpu_torch.runtime.health import HEALTH
         from spark_rapids_tpu_torch.runtime.memory import MEMORY
         FAULTS.arm(str(self.conf.get_entry(TEST_FAULTS) or ""))
         HEALTH.check_latch()
-        before = scopes_snapshot()
-        if isinstance(plan, P.WriteFiles):
+        q = self._q
+        query_tag, q.next_tag = q.next_tag, None
+        sql_text, q.next_sql = q.next_sql, None
+        if q.exec_depth:
+            # nested query: no envelope of its own
+            q.exec_depth += 1
             try:
-                return plan.run(self)
+                return self._execute_plan(plan)
             finally:
-                self._last_runtime = _scope_delta(before, scopes_snapshot())
-        MEMORY.reset_peak()
+                q.exec_depth -= 1
+
+        ev_enabled = bool(self.conf.get_entry(EVENT_LOG_ENABLED))
+        tr_enabled = bool(self.conf.get_entry(TRACE_ENABLED))
+        obs_active = ev_enabled or tr_enabled
+        q.event_record = None
+        q.event_path = None
+        with self._obs_lock:
+            qidx = self._obs_query_seq
+            self._obs_query_seq += 1
+        before = scopes_snapshot()
+        if obs_active:
+            from spark_rapids_tpu_torch.runtime.faults import RECOVERY
+            before_recovery = RECOVERY.snapshot()
+            before_fires = FAULTS.counters()
+            before_health = HEALTH.snapshot()
+            ctx = TRACER.begin_query(qidx)
+        else:
+            # another session's observed query may be live on a worker
+            # thread: this query's spans must not be adopted into it
+            TRACER.begin_unobserved_query()
+        q.exec_depth = 1
+        t0 = time.perf_counter()
         try:
-            return self._execute_with_recovery(plan)
+            if not isinstance(plan, P.WriteFiles):
+                MEMORY.reset_peak()
+            result = self._execute_plan(plan)
+        except BaseException:
+            if obs_active:
+                TRACER.end_query()
+            # a failed run may have left the checked-out tree part
+            # drained: drop the entry
+            self._release_exec_cache(drop=True)
+            raise
         finally:
+            q.exec_depth = 0
+            if not obs_active:
+                TRACER.end_unobserved_query()
             self._last_runtime = _scope_delta(before, scopes_snapshot())
+            _bump_epoch_on_write(plan)
+        if not obs_active:
+            self._release_exec_cache()
+            return result
+        wall_s = time.perf_counter() - t0
+        spans = TRACER.end_query()
+        record = self._query_record(
+            qidx, wall_s, spans, ctx, before, before_recovery,
+            before_fires, before_health, query_tag, sql_text)
+        self.last_event_record = record
+        # the record has read the tree's metrics: the cached tree may now
+        # serve the next query (which resets them)
+        self._release_exec_cache()
+        # emission is best-effort: an unwritable log directory must not
+        # fail a query that already has its result
+        try:
+            if ev_enabled:
+                self._write_event_record(record)
+            if tr_enabled:
+                import os
+
+                from spark_rapids_tpu_torch.conf import TRACE_DIR
+                from spark_rapids_tpu_torch.obs.spans import (
+                    write_chrome_trace,
+                )
+                trace_dir = str(self.conf.get_entry(TRACE_DIR))
+                os.makedirs(trace_dir, exist_ok=True)
+                write_chrome_trace(
+                    os.path.join(trace_dir, f"query_{qidx}.trace.json"),
+                    spans, query_id=qidx)
+        except OSError as exc:
+            print(f"spark_rapids_tpu_torch: event/trace emission failed "
+                  f"(query {qidx}): {exc}")
+        return result
+
+    def _execute_plan(self, plan: P.PlanNode) -> HostTable:
+        if isinstance(plan, P.WriteFiles):
+            return plan.run(self)
+        return self._execute_with_recovery(plan)
+
+    def _query_record(self, qidx, wall_s, spans, ctx, before,
+                      before_recovery, before_fires, before_health,
+                      query_tag, sql_text) -> dict:
+        """The query's event record (obs/events.py), its deferred row
+        counts read first in one batched fetch."""
+        from spark_rapids_tpu_torch.obs import events as E
+        from spark_rapids_tpu_torch.obs.metrics import scopes_snapshot
+        from spark_rapids_tpu_torch.obs.spans import (
+            finalize_observation,
+            summarize_spans,
+        )
+        from spark_rapids_tpu_torch.runtime.faults import (
+            CIRCUIT_BREAKER,
+            FAULTS,
+            RECOVERY,
+        )
+        from spark_rapids_tpu_torch.runtime.health import HEALTH
+        from spark_rapids_tpu_torch.runtime.memory import MEMORY
+        q = self._q
+        executable = q.executable
+        if executable is not None:
+            finalize_observation(executable)
+        after_recovery = RECOVERY.snapshot()
+        after_fires = FAULTS.counters()
+        after_health = HEALTH.snapshot()
+        after = scopes_snapshot()
+
+        def _wdelta(key: str, scope: str) -> int:
+            return int(after.get(scope, {}).get(key, 0)
+                       - before.get(scope, {}).get(key, 0))
+
+        health_state = ("CPU_ONLY" if after_health["latched"] else
+                        "DEGRADED" if after_health["consecutiveLosses"]
+                        else "HEALTHY")
+        return E.build_query_record(
+            query_index=qidx,
+            wall_s=wall_s,
+            phases=q.phases or {},
+            executable=executable,
+            sql_text=sql_text,
+            query_tag=query_tag,
+            dispatches=int(q.dispatches or 0),
+            recovery_delta={k: v - before_recovery.get(k, 0)
+                            for k, v in after_recovery.items()
+                            if v - before_recovery.get(k, 0)},
+            scope_deltas=E.scope_delta(before, after),
+            fault_fires={k: v - before_fires.get(k, 0)
+                         for k, v in after_fires.items()
+                         if v - before_fires.get(k, 0)},
+            demotions=CIRCUIT_BREAKER.tripped_ops(),
+            spans_summary=summarize_spans(spans, ctx.owner_tid, wall_s),
+            fault_replays=int(self._last_fault_replays or 0),
+            compile_ms=float(q.compile_ms or 0.0),
+            executable_cache_hit=bool(q.exec_cache_hit),
+            health_state=health_state,
+            device_reinits=int(after_health["deviceReinits"]
+                               - before_health["deviceReinits"]),
+            files_written=_wdelta("filesWritten", "write"),
+            bytes_written=_wdelta("bytesWritten", "write"),
+            oom_retries=_wdelta("oomRetries", "memory"),
+            split_retries=_wdelta("splitRetries", "memory"),
+            spill_bytes=_wdelta("spillBytes", "memory"),
+            unspills=_wdelta("unspills", "memory"),
+            budget_peak=int(MEMORY.peak_bytes()))
+
+    def _write_event_record(self, record: dict) -> str:
+        """THE event-log append path: the per-session writer is made
+        lazily under the obs lock. Raises OSError on a failed write."""
+        from spark_rapids_tpu_torch.conf import EVENT_LOG_DIR
+        from spark_rapids_tpu_torch.obs import events as E
+        with self._obs_lock:
+            if self._event_writer is None:
+                self._event_writer = E.QueryEventWriter(
+                    str(self.conf.get_entry(EVENT_LOG_DIR)))
+        E.note_recent_record(record)
+        path = self._event_writer.write(record)
+        self.last_event_path = path
+        return path
+
+    def _release_exec_cache(self, drop: bool = False) -> None:
+        """Return this thread's checked-out executable-cache entry, once
+        the envelope is done with the tree (after the event record), or
+        drop it when the run failed."""
+        tok = self._q.exec_cache_token
+        self._q.exec_cache_token = None
+        if tok is not None:
+            tok.release(drop=drop)
+
+    def _strike_fault_template(self, plan: P.PlanNode, exc: BaseException,
+                               action: str, domain: str) -> None:
+        """A ladder action past the plain retry records a quarantine strike
+        against the plan's template (runtime/health.py). Best-effort:
+        strike accounting never masks recovery."""
+        try:
+            from spark_rapids_tpu_torch.plan.fingerprint import (
+                template_fingerprint,
+            )
+            from spark_rapids_tpu_torch.runtime.health import (
+                QUARANTINE,
+                QUARANTINE_MAX_STRIKES,
+            )
+            first = (str(exc).splitlines()[0] if str(exc)
+                     else type(exc).__name__)
+            QUARANTINE.strike(
+                template_fingerprint(plan, self.conf),
+                f"{domain} execution killed ({action}): "
+                f"{type(exc).__name__}: {first}",
+                int(self.conf.get_entry(QUARANTINE_MAX_STRIKES)))
+        except Exception:
+            pass
+
+    def explain(self, plan) -> str:
+        """The converted exec tree of ``plan`` (a PlanNode or DataFrame),
+        one exec a line, headed by the quarantine's verdict on its
+        template when strikes were recorded against it."""
+        from spark_rapids_tpu_torch.overrides.input_file import (
+            rewrite_input_file_exprs,
+        )
+        from spark_rapids_tpu_torch.overrides.rules import convert
+        from spark_rapids_tpu_torch.runtime.crash_handler import tree_string
+        from spark_rapids_tpu_torch.runtime.health import QUARANTINE
+        plan = getattr(plan, "plan", plan)
+        out = tree_string(convert(rewrite_input_file_exprs(plan), self.conf,
+                                  self.device))
+        if QUARANTINE.snapshot()["strikes"]:
+            from spark_rapids_tpu_torch.plan.fingerprint import (
+                template_fingerprint,
+            )
+            fp = template_fingerprint(plan, self.conf)
+            quarantined = QUARANTINE.is_quarantined(fp)
+            if quarantined is not None:
+                out = ("!! QUARANTINED template: submissions are rejected "
+                       f"({len(quarantined)} strikes: "
+                       f"{'; '.join(quarantined)})\n" + out)
+            elif QUARANTINE.strike_count(fp):
+                out = (f"! poison suspect: {QUARANTINE.strike_count(fp)} "
+                       "device kill strike(s) recorded against this "
+                       "template\n" + out)
+        return out
 
     def _execute_with_recovery(self, plan: P.PlanNode) -> HostTable:
         """Plan and drain ``plan``, each attempt afresh, under the port of
@@ -185,7 +520,11 @@ class TorchSession:
           ``runtimeFallback.maxFailures`` failures of one operator, when
           ``runtimeFallback.enabled``); the failure that trips the
           circuit breaker raises, where the reference demotes the
-          operator to its CPU path."""
+          operator to its CPU path.
+
+        The ``chunk`` and ``abort`` rungs and a device loss each strike
+        the plan's template in the quarantine. A replay drops the
+        query's executable-cache entry and plans fresh."""
         from contextlib import nullcontext
 
         from spark_rapids_tpu_torch.conf import (
@@ -243,8 +582,12 @@ class TorchSession:
                     exc = wrapped
                 if isinstance(exc, FatalDeviceOOM):
                     action = HEALTH.on_memory_pressure(exc, self.conf)
+                    if action != "retry":
+                        self._strike_fault_template(plan, exc, action,
+                                                    "memory")
                     if action == "abort":
                         raise HEALTH.abort_error(exc) from exc
+                    self._drop_cached_tree()
                     mem_replays += 1
                     RECOVERY.bump("query_replays")
                     if action == "chunk":
@@ -253,8 +596,11 @@ class TorchSession:
                 if is_fatal_device_error(exc):
                     report = handle_fatal(exc, self.conf, tree_string(
                         self._last_root or plan))
+                    self._drop_cached_tree()
                     state = HEALTH.on_device_loss(exc, self.conf,
                                                   self.device, report)
+                    self._strike_fault_template(plan, exc, "device_lost",
+                                                "device")
                     lost = DeviceLostError(
                         f"device lost during execution "
                         f"({type(exc).__name__}: "
@@ -277,18 +623,62 @@ class TorchSession:
                     tripped = KernelCrashError(CIRCUIT_BREAKER.reason(op))
                     tripped.fault_op = op
                     raise tripped from exc
+                self._drop_cached_tree()
                 replays += 1
                 RECOVERY.bump("query_replays")
 
+    def _drop_cached_tree(self) -> None:
+        """Before a replay: the failed attempt's checked-out tree is
+        suspect and a trip must re-plan, so the entry drops (top level
+        only: a nested execute holds no token of its own)."""
+        if self._q.exec_depth == 1:
+            self._release_exec_cache(drop=True)
+
     def _execute_attempt(self, plan: P.PlanNode) -> HostTable:
-        """One attempt: start the device manager and configure the memory
-        arbiter (a lost device raises here too, inside the recovery),
-        convert (the circuit breaker's check runs in the tag), install the
-        fault boundaries, arm ``spark.rapids.sql.test.injectRetryOOM``
-        and drain."""
+        """One attempt: the plan phase (its span closed on failure too),
+        then ``_plan_and_drain``."""
+        import time
+
+        from spark_rapids_tpu_torch.obs.spans import TRACER
+        t_phase = time.perf_counter()
+        plan_span = TRACER.begin("plan", "phase") if TRACER.enabled else None
+        try:
+            return self._plan_and_drain(plan, plan_span, t_phase)
+        except BaseException:
+            TRACER.end(plan_span)
+            raise
+
+    def _plan_and_drain(self, plan: P.PlanNode, plan_span,
+                        t_phase: float) -> HostTable:
+        """Prepare the placement (the device manager, a lost device raises
+        here, inside the recovery; the memory arbiter), check the plan out
+        of the executable cache or convert it (the circuit breaker's
+        check runs in the tag), number and tee it (LORE, fresh trees
+        only), install the fault and then the observation boundaries,
+        arm ``spark.rapids.sql.test.injectRetryOOM`` and drain under the
+        profiler. A fully successful run fills its cache slot."""
+        import time
+
+        from spark_rapids_tpu_torch import lore
         from spark_rapids_tpu_torch.conf import (
+            ASYNC_RESULT_FETCH,
+            EXECUTABLE_CACHE_ENABLED,
+            EXECUTABLE_CACHE_MAX_PLANS,
+            EXECUTABLE_CACHE_MAX_VARIANTS,
+            METRICS_LEVEL,
             RETRY_OOM_MAX_RETRIES,
             TEST_INJECT_RETRY_OOM,
+        )
+        from spark_rapids_tpu_torch.dispatch import (
+            compile_stats,
+            dispatch_count,
+            reset_compile_stats,
+            reset_dispatch_count,
+        )
+        from spark_rapids_tpu_torch.obs.metrics import set_metrics_level
+        from spark_rapids_tpu_torch.obs.spans import (
+            TRACER,
+            install_observation,
         )
         from spark_rapids_tpu_torch.overrides.input_file import (
             rewrite_input_file_exprs,
@@ -297,22 +687,82 @@ class TorchSession:
         from spark_rapids_tpu_torch.runtime.faults import (
             install_fault_boundaries,
         )
-        from spark_rapids_tpu_torch.runtime.memory import MEMORY
         from spark_rapids_tpu_torch.runtime.retry import MAX_RETRIES_VAR
+        q = self._q
+        top = q.exec_depth == 1
         self._last_root, self._last_replays = None, 0
-        self.runtime  # noqa: B018 (starts the device manager)
-        MEMORY.configure(self.conf)
-        root = convert(rewrite_input_file_exprs(plan), self.conf,
-                       self.device)
+        plan = rewrite_input_file_exprs(plan)
+        self.placement.prepare()
+        tok = None
+        if top and self.conf.get_entry(EXECUTABLE_CACHE_ENABLED):
+            from spark_rapids_tpu_torch.plan.executable_cache import (
+                EXEC_CACHE,
+            )
+            EXEC_CACHE.configure(
+                int(self.conf.get_entry(EXECUTABLE_CACHE_MAX_PLANS)),
+                int(self.conf.get_entry(EXECUTABLE_CACHE_MAX_VARIANTS)))
+            tok = EXEC_CACHE.checkout(plan, self.conf, self.device)
+            q.exec_cache_token = tok
+        hit = tok is not None and tok.hit
+        if top:
+            # a nested execute must not clobber the outer query's flag
+            self.last_executable_cache_hit = hit
+        if hit:
+            root = tok.executable
+        else:
+            root = convert(plan, self.conf, self.device)
+            # a cached tree keeps its ids and dumpers (the lore conf folds
+            # into its fingerprint): renumbering would shift ids past the
+            # dumpers, and install_dumpers is not idempotent
+            lore.install_dumpers(root, self.conf)
+        set_metrics_level(self.conf.get_entry(METRICS_LEVEL))
+        # fault boundaries, then the observation boundaries over them
+        # (idempotent per exec: a cached tree is not wrapped twice)
         install_fault_boundaries(root)
+        install_observation(root)
         self._last_root = root
+        self._last_executable = root
+        TRACER.end(plan_span)
+        phases = {"planS": time.perf_counter() - t_phase}
         _arm_injection(str(self.conf.get_entry(TEST_INJECT_RETRY_OOM)))
-        tok = MAX_RETRIES_VAR.set(int(self.conf.get_entry(
+        tok_r = MAX_RETRIES_VAR.set(int(self.conf.get_entry(
             RETRY_OOM_MAX_RETRIES)))
+        if top:
+            # a nested execute adds its launches and builds to the outer
+            # query's counts
+            reset_dispatch_count()
+            reset_compile_stats()
+        t_phase = time.perf_counter()
+        exec_span = TRACER.begin("execute", "phase") \
+            if TRACER.enabled else None
         try:
-            return self.placement.drain(root)
+            with self.profiler.profile_query():
+                result = self.placement.drain(
+                    root, bool(self.conf.get_entry(ASYNC_RESULT_FETCH)))
+            if top:
+                self.last_dispatches = dispatch_count()
+                root.metrics["dispatches"] = self.last_dispatches
         finally:
-            MAX_RETRIES_VAR.reset(tok)
+            MAX_RETRIES_VAR.reset(tok_r)
+            TRACER.end(exec_span)
+            phases["executeS"] = time.perf_counter() - t_phase
+            if top:
+                self._last_phases = phases
+        # the drain downloaded the result (executeS, resultFetchTime);
+        # the collect phase is the hand-off and the compile accounting
+        t_phase = time.perf_counter()
+        collect_span = TRACER.begin("collect", "phase") \
+            if TRACER.enabled else None
+        try:
+            if top:
+                _, compile_s = compile_stats()
+                self.last_compile_ms = round(compile_s * 1000.0, 3)
+        finally:
+            TRACER.end(collect_span)
+            phases["collectS"] = time.perf_counter() - t_phase
+        if tok is not None and not hit:
+            tok.fill(root, None)
+        return result
 
     def last_metrics(self) -> Dict[str, int]:
         """Metrics of the most recent execute(): the replay count, every
@@ -329,7 +779,8 @@ class TorchSession:
         while stack:
             e = stack.pop()
             for k, v in e.metrics.items():
-                out[k] = out.get(k, 0) + v
+                if k not in _PER_OPERATOR:
+                    out[k] = out.get(k, 0) + v
             stack.extend(e.children)
         out.update({k: v for k, v in self._last_runtime.items()
                     if _kind(k) != "timing"})
@@ -337,10 +788,22 @@ class TorchSession:
 
     def last_timings(self) -> Dict[str, float]:
         """The most recent execute()'s runtime timings in seconds
-        (``acquireWaitTime``, ``spillTime``): kept apart from
-        ``last_metrics``, whose counters repeat from run to run."""
-        return {k: v for k, v in self._last_runtime.items()
-                if _kind(k) == "timing"}
+        (``acquireWaitTime``, ``spillTime``) and the root's
+        ``resultFetchTime``: kept apart from ``last_metrics``, whose
+        counters repeat from run to run."""
+        out = {k: v for k, v in self._last_runtime.items()
+               if _kind(k) == "timing"}
+        root = self._last_root
+        if root is not None and "resultFetchTime" in root.metrics:
+            out["resultFetchTime"] = root.metrics["resultFetchTime"]
+        return out
+
+
+#: exec metrics that mean something per operator only (the event record's
+#: plan tree has them), left out of last_metrics()'s sums, with the
+#: root's resultFetchTime (a timing, in last_timings())
+_PER_OPERATOR = frozenset(("opTime", "numOutputRows", "numOutputBatches",
+                           "resultFetchTime"))
 
 
 def _kind(name: str) -> str:
@@ -368,12 +831,32 @@ def _arm_injection(spec: str) -> None:
 
 
 def _scope_delta(before, after) -> Dict[str, float]:
-    """The nonzero change of each counter of the runtime scopes."""
+    """The nonzero change of each counter of the runtime scopes. A name
+    that more than one scope counts is one event counted in each (the
+    spill catalog's and the arbiter's ``spillCorruptions``, as the
+    reference's record shows it once per scope): it reports the largest
+    change, never their sum."""
     out = {}
     for scope in RUNTIME_SCOPES:
         b = before.get(scope, {})
         for k, v in after.get(scope, {}).items():
             d = v - b.get(k, 0)
             if d:
-                out[k] = out.get(k, 0) + d
+                out[k] = max(out.get(k, d), d)
     return out
+
+
+def _bump_epoch_on_write(plan: P.PlanNode) -> None:
+    """A WriteFiles run, whether it succeeded or failed (a failed write
+    may have changed files on disk), stales every executable-cache entry
+    (plan/fingerprint.py's warehouse epoch)."""
+    stack = [plan]
+    while stack:
+        node = stack.pop()
+        if isinstance(node, P.WriteFiles):
+            from spark_rapids_tpu_torch.plan.fingerprint import (
+                bump_invalidation_epoch,
+            )
+            bump_invalidation_epoch("WriteFiles")
+            return
+        stack.extend(getattr(node, "children", ()))

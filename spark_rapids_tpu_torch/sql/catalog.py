@@ -16,6 +16,15 @@ from typing import Dict, List
 from spark_rapids_tpu_torch.errors import ColumnarProcessingError
 
 
+def _invalidate(reason: str) -> None:
+    """A catalog change stales every cached executable (the reference's
+    ``sql/catalog.py:22-24``)."""
+    from spark_rapids_tpu_torch.plan.fingerprint import (
+        bump_invalidation_epoch,
+    )
+    bump_invalidation_epoch(reason)
+
+
 class SessionCatalog:
     def __init__(self, session):
         self._session = session
@@ -29,9 +38,13 @@ class SessionCatalog:
         # a same-name table goes, or it would outlive a later DROP VIEW
         self._tables.pop(name.lower(), None)
         self._views[name.lower()] = getattr(df, "plan", df)
+        _invalidate(f"temp view {name}")
 
     def drop_temp_view(self, name: str) -> bool:
-        return self._views.pop(name.lower(), None) is not None
+        dropped = self._views.pop(name.lower(), None) is not None
+        if dropped:
+            _invalidate(f"drop view {name}")
+        return dropped
 
     # -- file-format tables (sources SPI) -----------------------------------
     def register_table(self, name: str, fmt: str, *paths,
@@ -57,9 +70,13 @@ class SessionCatalog:
         create_scan(fmt, list(paths), self._session.conf, **options)
         self._views.pop(name.lower(), None)
         self._tables[name.lower()] = (fmt, list(paths), dict(options))
+        _invalidate(f"table {name}")
 
     def drop_table(self, name: str) -> bool:
-        return self._tables.pop(name.lower(), None) is not None
+        dropped = self._tables.pop(name.lower(), None) is not None
+        if dropped:
+            _invalidate(f"drop table {name}")
+        return dropped
 
     def list_tables(self) -> List[str]:
         return sorted(set(self._views) | set(self._tables))

@@ -206,3 +206,41 @@ def test_io_module_is_the_ports_own(rel):
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
+
+
+#: the query envelope's modules, each covered by the scans above
+ENVELOPE_MODULES = (
+    "dispatch", "lore", "runtime/profiler", "obs/spans", "obs/events",
+    "plan/fingerprint", "plan/executable_cache", "tools/__init__",
+    "tools/__main__", "tools/report", "tools/compare", "tools/warmup")
+
+
+@pytest.mark.parametrize("name", ENVELOPE_MODULES)
+def test_envelope_modules_are_scanned(name):
+    assert PORT / f"{name}.py" in _port_files()
+
+
+def test_warmup_reaches_neither_scale_test_nor_the_reference(tmp_path):
+    """tools warmup resolves a query tag against the port's own corpus:
+    with scale_test.py and the reference's lint blocked as well, it
+    replays a log the port wrote."""
+    code = (
+        "import sys\n" + _BLOCK + "sys.modules['scale_test'] = None\n"
+        "from spark_rapids_tpu_torch.models.corpus import build_queries, "
+        "corpus_tables\n"
+        "from spark_rapids_tpu_torch.session import TorchSession\n"
+        "from spark_rapids_tpu_torch.tools.warmup import run_warmup\n"
+        f"d = {str(tmp_path)!r}\n"
+        "s = TorchSession({'spark.rapids.sql.eventLog.enabled': 'true', "
+        "'spark.rapids.sql.eventLog.dir': d}, device='cpu')\n"
+        "s.next_query_tag = 'q6'\n"
+        "build_queries(s, corpus_tables(0.005, 1))['q6']().collect_table()\n"
+        "rep = run_warmup(d, sf=0.005, seed=1, device='cpu')\n"
+        "assert rep['ok'] and rep['distinctUnits'] == 1, rep\n"
+        "assert 'scale_test' not in [m for m in sys.modules "
+        "if sys.modules[m] is not None]\n"
+        "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().splitlines()[-1] == "ok"

@@ -428,6 +428,32 @@ def test_unspill_corruption_replays_the_query(tmp_path):
     assert tables_differ(got, want) is None
 
 
+def test_a_corruption_counts_once_in_last_metrics(tmp_path):
+    """ROADMAP Queue 3 item 8: the spill catalog's ``spill`` scope and the
+    arbiter's ``memory`` scope both count one corrupt frame, as the
+    reference's event record shows it (once in each scope); the
+    session's ``last_metrics()`` reports that one corruption once, not
+    their sum."""
+    names, types, arrays = _keyed(20_000, 9)
+    pt, _ = _tables(names, types, arrays)
+    conf = {"spark.rapids.memory.device.budgetBytes": str(200_000),
+            "spark.rapids.memory.host.spillStorageSize": "1",
+            "spark.rapids.test.faults": "mem.unspill:corrupt:1:3",
+            "spark.rapids.sql.eventLog.enabled": "true",
+            "spark.rapids.sql.eventLog.dir": str(tmp_path / "log")}
+    BufferCatalog.reset(host_limit_bytes=1, disk_dir=str(tmp_path))
+    try:
+        s = TorchSession(conf, device="cpu")
+        tfrom(pt, s, num_batches=4).sort("v").collect_table()
+    finally:
+        BufferCatalog.reset()
+    assert tfaults.FAULTS.counters().get("mem.unspill") == 1
+    scopes = s.last_event_record["scopes"]
+    assert scopes["memory"]["spillCorruptions"] == 1
+    assert scopes["spill"]["spillCorruptions"] == 1
+    assert s.last_metrics()["spillCorruptions"] == 1
+
+
 # -- device loss and crash handling ---------------------------------------------
 
 CUDA_FATAL = (
