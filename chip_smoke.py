@@ -191,10 +191,23 @@ Phases, in order; any failure exits non-zero:
    device-side assert in two child processes (``--fatal-child``: exit 20
    with a crash report; DeviceLostError, then the latch's); every kernel
    launch held against its plain version;
-19. the summary lines: one ``{"kernels": [...]}`` JSON line (the five TPU
+19. the query envelope (``run_observability``): the profiler's trace of
+   q1, the event log and spans over the corpus with the tools, the
+   executable cache, warmup in fresh processes, the asynchronous result
+   fetch and the launch helper's fault points;
+20. nested types (``run_nested``) over phases 6-8's tables: N1
+   collect_list, collect_set and percentile by l_orderkey (about 2.45M
+   arrays over 10M elements each, DSL and SQL), N2 the array, struct,
+   map and higher-order functions over N1's result, N3 posexplode, an
+   aggregate by position, explode_outer, sequence and the SQL explode,
+   N4 N1's result with a struct and a map written as Parquet (two files,
+   SNAPPY), read back bit for bit in the three reader modes and queried;
+   each against a numpy oracle on flat buffers, every launch held
+   against its kernel's plain version;
+21. the summary lines: one ``{"kernels": [...]}`` JSON line (the five TPU
    kernels and the DECIMAL128 division kernel, CUDA work beyond them;
    launches of the main path: q1's, sparse q3's probes, q8's MIN/MAX, plus
-   every phase-7 to phase-18 query's), the card line, and last
+   every phase-7 to phase-20 query's), the card line, and last
    ``{"ok": true, "device": {...}}``.
 
 Each phase logs its wall time. It needs one CUDA card and exits non-zero
@@ -202,7 +215,7 @@ without one. ``--profile DIR`` also writes a torch.profiler table and
 trace of one warm run of q1, of each q3 form, of each phase-6, phase-7
 and phase-8 query, of phase 9's conditional query, of J1, J7, J8 and J9,
 of O1, O2, O3, O4a, O5, O6a and O7, of S1, S2, S5, S7 and S8 and of W1,
-W3, W4, W7, W8a and W8c.
+W3, W4, W7, W8a and W8c, and of N1 and N3's posexplode.
 """
 
 from __future__ import annotations
@@ -7622,6 +7635,444 @@ def run_observability(tables, dsl, q1_keep) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 20: nested types
+
+#: the seconds phase 20 should take (logged past it)
+NESTED_BUDGET_S = 120.0
+
+
+class _Groups:
+    """A numpy oracle's view of lineitem grouped by l_orderkey: a stable
+    sort by key (np.lexsort), the distinct keys, each group's start and
+    size, and each row's group, all flat buffers."""
+
+    def __init__(self, keys: np.ndarray):
+        self.order = np.lexsort((np.arange(len(keys)), keys))
+        sk = keys[self.order]
+        self.keys, self.starts, self.sizes = np.unique(
+            sk, return_index=True, return_counts=True)
+        self.offsets = np.zeros(len(self.keys) + 1, dtype=np.int64)
+        self.offsets[1:] = np.cumsum(self.sizes)
+        self.rid = np.repeat(np.arange(len(self.keys)), self.sizes)
+
+    def sorted_within(self, keys: np.ndarray, values: np.ndarray):
+        """``values`` sorted by (key, value), stably: each group's values
+        in ascending order."""
+        return values[np.lexsort((values, keys))]
+
+
+def n1_oracle(li) -> dict:
+    """N1's expected columns on flat buffers: each group's values in input
+    order (lists), its distinct sorted values (sets) and the linear
+    interpolated median of its prices."""
+    c = {n: col.data for n, col in zip(li.names, li.columns)}
+    keys = c["l_orderkey"]
+    g = _Groups(keys)
+    q = c["l_quantity"][g.order]
+    qs = g.sorted_within(keys, c["l_quantity"])
+    first = np.ones(len(qs), dtype=bool)
+    first[1:] = (qs[1:] != qs[:-1]) | (g.rid[1:] != g.rid[:-1])
+    set_counts = np.bincount(g.rid[first], minlength=len(g.keys))
+    set_off = np.zeros(len(g.keys) + 1, dtype=np.int64)
+    set_off[1:] = np.cumsum(set_counts)
+    ps = g.sorted_within(keys, c["l_extendedprice"])
+    k = (g.sizes - 1).astype(np.float64) * 0.5
+    lo, hi = np.floor(k).astype(np.int64), np.ceil(k).astype(np.int64)
+    vlo, vhi = ps[g.offsets[:-1] + lo], ps[g.offsets[:-1] + hi]
+    med = vlo + (vhi - vlo) * (k - lo)
+    return {"groups": g, "keys": g.keys, "offsets": g.offsets,
+            "q": q, "sd": c["l_shipdate"][g.order],
+            "pl": c["l_extendedprice"][g.order], "set_off": set_off,
+            "qs": qs[first], "med": med}
+
+
+def _flat_of(col):
+    """(int64 offsets, data, validity) of a host array column."""
+    a = col.data
+    return a.offsets.astype(np.int64), a.data, a.validity
+
+
+def check_array(col, offsets, data, what: str) -> None:
+    """A host array column equal to the oracle's (offsets, data): every
+    row valid, every element valid, the elements bit for bit."""
+    off, d, v = _flat_of(col)
+    if not col.validity.all():
+        fail(f"{what}: a null row")
+    if off.shape != offsets.shape or not np.array_equal(off, offsets):
+        fail(f"{what}: the row offsets differ from the oracle's")
+    if not v.all():
+        fail(f"{what}: a null element")
+    want = np.ascontiguousarray(data).astype(d.dtype)
+    if d.tobytes() != want.tobytes():
+        fail(f"{what}: the elements differ from the oracle's (bit for bit)")
+
+
+def check_n1(got, want) -> None:
+    names = list(got.names)
+    if names != ["l_orderkey", "q", "qs", "sd", "pl", "med"]:
+        fail(f"N1: columns {names}")
+    cols = dict(zip(names, got.columns))
+    keys = cols["l_orderkey"].data
+    order = np.argsort(keys, kind="stable")
+    if not np.array_equal(keys[order], want["keys"]):
+        fail("N1: the group keys differ from the oracle's")
+    for name in ("q", "qs", "sd", "pl"):
+        c = cols[name]
+        if not np.array_equal(order, np.arange(len(order))):
+            c = type(c)(c.dtype, c.data.take(order), c.validity[order])
+        off = want["set_off"] if name == "qs" else want["offsets"]
+        check_array(c, off, want[name], f"N1 {name}")
+    med = cols["med"].data[order]
+    if not cols["med"].validity.all() or not np.allclose(
+            med, want["med"], rtol=1e-12, atol=0.0):
+        fail("N1: the percentile differs from the oracle's (rtol 1e-12)")
+
+
+def n1_builders(session, li_df, view: str):
+    """N1 in the DSL and in SQL over ``view``."""
+    from spark_rapids_tpu_torch import functions as F
+
+    def dsl():
+        return li_df().group_by("l_orderkey").agg(
+            F.collect_list("l_quantity").alias("q"),
+            F.collect_set("l_quantity").alias("qs"),
+            F.collect_list("l_shipdate").alias("sd"),
+            F.collect_list("l_extendedprice").alias("pl"),
+            F.percentile("l_extendedprice", 0.5).alias("med"))
+
+    text = ("SELECT l_orderkey, collect_list(l_quantity) AS q, "
+            "collect_set(l_quantity) AS qs, collect_list(l_shipdate) AS sd, "
+            "collect_list(l_extendedprice) AS pl, "
+            "percentile(l_extendedprice, 0.5) AS med "
+            f"FROM {view} GROUP BY l_orderkey")
+    return {"N1 collect (DSL)": dsl,
+            "N1 collect (SQL)": lambda: session.sql(text)}
+
+
+def n2_build(n1_df):
+    from spark_rapids_tpu_torch import functions as F
+    from spark_rapids_tpu_torch.ops.expr import col, lit
+
+    def build():
+        m = F.create_map(col("l_orderkey"), col("med"))
+        return n1_df().select(
+            "l_orderkey", F.size("q").alias("n"),
+            F.array_contains("q", 25).alias("c25"),
+            F.sort_array("q", False).alias("qd"),
+            F.element_at(F.sort_array("q", False), 0).alias("qmax"),
+            F.array_min("pl").alias("pmin"), F.array_max("pl").alias("pmax"),
+            F.transform("q", lambda x: x * lit(2) + col("l_orderkey"))
+            .alias("t"),
+            F.filter("q", lambda x: x > lit(25)).alias("f"),
+            F.exists("q", lambda x: x > lit(45)).alias("ex"),
+            F.forall("q", lambda x: x > lit(1)).alias("fa"),
+            F.named_struct("k", col("l_orderkey"), "m", col("med"))
+            .getField("m").alias("sm"),
+            F.element_at(m, col("l_orderkey")).alias("mv"),
+            F.map_keys(m).alias("mk"), F.map_values(m).alias("mvs"),
+            F.transform_values(m, lambda k, v: v * lit(2.0)).alias("tv"),
+            F.map_filter(m, lambda k, v: v > lit(50000.0)).alias("mf"))
+    return build
+
+
+def n2_check(want):
+    g = want["groups"]
+    off, q, pl, med, keys = (want["offsets"], want["q"], want["pl"],
+                             want["med"], want["keys"])
+    nrows = len(keys)
+    rid = g.rid
+    qd = q[np.lexsort((-q, rid))]
+    big = q > 25
+    f_off = np.zeros(nrows + 1, dtype=np.int64)
+    f_off[1:] = np.cumsum(np.bincount(rid[big], minlength=nrows))
+    one = np.arange(nrows + 1, dtype=np.int64)
+    keep = med > 50000.0
+    mf_off = np.zeros(nrows + 1, dtype=np.int64)
+    mf_off[1:] = np.cumsum(keep)
+
+    def check(got):
+        cols = dict(zip(got.names, got.columns))
+        if not np.array_equal(cols["l_orderkey"].data, keys):
+            fail("N2: rows out of N1's order")
+        sizes = np.diff(off)
+
+        def flat(name, want_v, what):
+            c = cols[name]
+            if not c.validity.all() or not np.array_equal(c.data, want_v):
+                fail(f"N2 {what}: differs from the oracle")
+
+        flat("n", sizes.astype(np.int32), "size")
+        flat("c25", np.bincount(rid[q == 25], minlength=nrows) > 0,
+             "array_contains(q, 25)")
+        check_array(cols["qd"], off, qd, "N2 sort_array(q, false)")
+        flat("qmax", np.maximum.reduceat(q, off[:-1]), "element_at")
+        flat("pmin", np.minimum.reduceat(pl, off[:-1]), "array_min")
+        flat("pmax", np.maximum.reduceat(pl, off[:-1]), "array_max")
+        check_array(cols["t"], off, q * 2 + keys[rid], "N2 transform")
+        check_array(cols["f"], f_off, q[big], "N2 filter")
+        flat("ex", np.bincount(rid[q > 45], minlength=nrows) > 0, "exists")
+        flat("fa", np.bincount(rid[q <= 1], minlength=nrows) == 0, "forall")
+        flat("sm", med, "named_struct getField")
+        flat("mv", med, "element_at(create_map)")
+        check_array(cols["mk"], one, keys, "N2 map_keys")
+        check_array(cols["mvs"], one, med, "N2 map_values")
+        tv = cols["tv"].data
+        if not (np.array_equal(tv.offsets, one) and np.array_equal(
+                tv.kdata, keys) and np.array_equal(tv.vdata, med * 2.0)
+                and tv.vvalid.all()):
+            fail("N2 transform_values: differs from the oracle")
+        mf = cols["mf"].data
+        if not (np.array_equal(mf.offsets, mf_off) and np.array_equal(
+                mf.kdata, keys[keep]) and np.array_equal(mf.vdata,
+                                                          med[keep])):
+            fail("N2 map_filter: differs from the oracle")
+    return check
+
+
+def n3_cases(session, n1_df, view: str, want):
+    """N3's queries and checks: posexplode with l_orderkey passing
+    through (10M rows), an aggregate by position, explode_outer of the
+    filtered lists with its null rows, sequence, and the SQL form."""
+    from spark_rapids_tpu_torch import functions as F
+    from spark_rapids_tpu_torch.ops.expr import col, lit
+    g = want["groups"]
+    off, q, keys = want["offsets"], want["q"], want["keys"]
+    rid = g.rid
+    pos = (np.arange(len(q)) - off[rid]).astype(np.int32)
+    nrows = len(keys)
+
+    def posexplode():
+        return n1_df().select("l_orderkey",
+                              F.posexplode("q").alias("x"))
+
+    def check_pe(got):
+        c = dict(zip(got.names, got.columns))
+        if got.num_rows != len(q) or not (
+                np.array_equal(c["l_orderkey"].data, keys[rid])
+                and np.array_equal(c["pos"].data, pos)
+                and np.array_equal(c["x"].data, q)):
+            fail("N3 posexplode: differs from the oracle")
+
+    def by_pos():
+        return posexplode().group_by("pos").agg(
+            F.sum("x").alias("s"), F.count().alias("n")).sort("pos")
+
+    s_want = np.bincount(pos, weights=q).astype(np.int64)
+    n_want = np.bincount(pos)
+
+    def check_by_pos(got):
+        c = [x.data for x in got.columns]
+        if not (np.array_equal(c[0], np.arange(len(n_want)))
+                and np.array_equal(c[1], s_want)
+                and np.array_equal(c[2], n_want)):
+            fail("N3 aggregate by position: differs from the oracle")
+
+    big = q > 45
+    has = np.bincount(rid[big], minlength=nrows) > 0
+    o_keys = np.concatenate([keys[rid[big]], keys[~has]])
+    o_vals = q[big]
+
+    def outer():
+        return n1_df().select("l_orderkey", F.explode_outer(
+            F.filter("q", lambda x: x > lit(45))).alias("x"))
+
+    def check_outer(got):
+        c = dict(zip(got.names, got.columns))
+        k = int(big.sum())
+        xv = c["x"].validity
+        if not (np.array_equal(c["l_orderkey"].data, o_keys)
+                and xv[:k].all() and not xv[k:].any()
+                and np.array_equal(c["x"].data[:k], o_vals)):
+            fail("N3 explode_outer: differs from the oracle")
+
+    sizes = np.diff(off)
+    seq_vals = (np.arange(len(q)) - off[rid] + 1).astype(np.int64)
+
+    def seq():
+        return n1_df().select("l_orderkey", F.explode(F.sequence(
+            lit(1), F.size("q"))).alias("i"))
+
+    def check_seq(got):
+        c = dict(zip(got.names, got.columns))
+        if not (np.array_equal(c["l_orderkey"].data,
+                               np.repeat(keys, sizes))
+                and np.array_equal(c["i"].data, seq_vals)):
+            fail("N3 sequence: differs from the oracle")
+
+    text = f"SELECT l_orderkey, explode(q) AS x FROM {view}"
+
+    def check_sql(got):
+        c = dict(zip(got.names, got.columns))
+        if not (np.array_equal(c["l_orderkey"].data, keys[rid])
+                and np.array_equal(c["x"].data, q)):
+            fail("N3 explode (SQL): differs from the oracle")
+
+    return {"N3 posexplode": (posexplode, check_pe),
+            "N3 aggregate by position": (by_pos, check_by_pos),
+            "N3 explode_outer of filter": (outer, check_outer),
+            "N3 sequence": (seq, check_seq),
+            "N3 explode (SQL)": (lambda: session.sql(text), check_sql)}
+
+
+def same_nested_table(got, want, what) -> None:
+    """Two host tables equal bit for bit, nested columns buffer by
+    buffer."""
+    if list(got.names) != list(want.names) or got.num_rows != want.num_rows:
+        fail(f"{what}: {list(got.names)} x {got.num_rows}, want "
+             f"{list(want.names)} x {want.num_rows}")
+    for name, g, w in zip(got.names, got.columns, want.columns):
+        if g.dtype != w.dtype or not np.array_equal(g.validity, w.validity):
+            fail(f"{what} {name}: type or validity differs")
+        gl = g.data.leaves() if hasattr(g.data, "leaves") else (g.data,)
+        wl = w.data.leaves() if hasattr(w.data, "leaves") else (w.data,)
+        for a, b in zip(gl, wl):
+            if a.dtype != b.dtype or a.tobytes() != b.tobytes():
+                fail(f"{what} {name}: buffers differ (bit for bit)")
+
+
+def n4_files(n1_host, base: str, card: str) -> tuple:
+    """20.4: N1's result with a struct and a map column written by the
+    port's writer (SNAPPY, two files), read back in the three reader
+    modes and held against the device result bit for bit. Returns (the
+    directory, numbers)."""
+    from spark_rapids_tpu_torch import functions as F
+    from spark_rapids_tpu_torch.conf import RapidsConf
+    from spark_rapids_tpu_torch.io.parquet import ParquetScanNode
+    from spark_rapids_tpu_torch.models.corpus import write_corpus_files
+    from spark_rapids_tpu_torch.ops.expr import col
+    from spark_rapids_tpu_torch.plan import from_host_table
+    from spark_rapids_tpu_torch.session import TorchSession
+    s = TorchSession()
+    full = from_host_table(n1_host, s).select(
+        "l_orderkey", "q", "qs", "sd", "pl", "med",
+        F.named_struct("k", col("l_orderkey"), "m", col("med")).alias("st"),
+        F.create_map(col("l_orderkey"), col("med")).alias("mp"))
+    t0 = time.perf_counter()
+    device_result = full.collect_table()
+    select_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    paths = write_corpus_files({"n1": device_result}, base, 2,
+                               compression="snappy")
+    write_s = time.perf_counter() - t0
+    on_disk = dir_bytes(paths["n1"])
+    decode = {}
+    for mode in ("PERFILE", "COALESCING", "MULTITHREADED"):
+        scan = ParquetScanNode([paths["n1"]], RapidsConf(), reader_type=mode)
+        t0 = time.perf_counter()
+        got = scan.collect_host()
+        decode[mode] = time.perf_counter() - t0
+        same_nested_table(got, device_result, f"N4 read back ({mode})")
+    host_mb = got.nbytes() / 1e6
+    best = min(decode.values())
+    numbers = {"rows": device_result.num_rows, "bytes_on_disk": on_disk,
+               "select_s": round(select_s, 3), "write_s": round(write_s, 3),
+               "write_mb_per_s": round(host_mb / write_s, 1),
+               "decode_s": {m: round(v, 3) for m, v in decode.items()},
+               "decoded_mb_per_s": round(host_mb / best, 1),
+               "host_mb": round(host_mb, 1)}
+    log(f"  20.4 N1 + struct + map: {device_result.num_rows} rows, "
+        f"{on_disk} B on disk (two files, SNAPPY), write {write_s:.3f} s "
+        f"({numbers['write_mb_per_s']} MB/s), decode (host) "
+        f"{', '.join(f'{m} {v:.3f} s' for m, v in decode.items())}, "
+        f"{numbers['decoded_mb_per_s']} MB/s decoded ({host_mb:.1f} MB); "
+        f"read back bit for bit in all three modes [{card}]")
+    return paths["n1"], numbers
+
+
+def run_nested(tables, profile_dir) -> dict:
+    """Phase 20: N1 (collect_list, collect_set, percentile by
+    l_orderkey over lineitem, DSL and SQL), N2 (the array, struct and map
+    functions and the higher-order functions over N1's result), N3
+    (posexplode, an aggregate by position, explode_outer, sequence, the
+    SQL explode) and N4 (N1's result in Parquet, read back and queried),
+    each through ``run_case`` against a numpy oracle on flat buffers.
+    Returns every kernel's launches over the counted runs."""
+    import shutil
+
+    from spark_rapids_tpu_torch.plan import from_host_table
+    from spark_rapids_tpu_torch.runtime.memory import MEMORY
+    from spark_rapids_tpu_torch.session import TorchSession
+    t_phase = time.perf_counter()
+    card = card_line()
+    li = tables["lineitem"]
+    keep = ("l_orderkey", "l_quantity", "l_extendedprice", "l_shipdate")
+    li = type(li)(list(keep), [li.columns[li.names.index(n)] for n in keep])
+    t0 = time.perf_counter()
+    want = n1_oracle(li)
+    log(f"  20.0 lineitem {li.num_rows} rows, {len(want['keys'])} orders "
+        f"with lines; the numpy oracle (lexsort, unique) in "
+        f"{time.perf_counter() - t0:.2f} s (host)")
+    s = TorchSession()
+    from_host_table(li, s).create_or_replace_temp_view("nested_li")
+    totals, stats = {}, {}
+
+    def case(name, build, check, profile=False, keep=None):
+        res = run_case(s, name, build, check,
+                       profile_dir if profile else None, keep)
+        for k, v in res["launches"].items():
+            totals[k] = totals.get(k, 0) + v
+        # the ledger's peak over the counted run (the session resets it
+        # at each query's start)
+        res["stats"]["peak_accounted_mb"] = round(MEMORY.peak_bytes() / 1e6,
+                                                  1)
+        stats[name] = res["stats"]
+        log(f"  {name}: peak accounted bytes "
+            f"{res['stats']['peak_accounted_mb']} MB")
+        return res
+
+    n1_host = None
+    for name, build in n1_builders(
+            s, lambda: from_host_table(li, s), "nested_li").items():
+        keep_res = {}
+        case(name, build, lambda got: check_n1(got, want), "DSL" in name,
+             keep_res)
+        if n1_host is None:
+            n1_host = keep_res[name]["result"]
+        log(f"  {name}: {n1_host.num_rows} arrays over "
+            f"{int(want['offsets'][-1])} elements each; lists exact, sets "
+            "by their sorted values, the percentile rtol 1e-12")
+    from_host_table(n1_host, s).create_or_replace_temp_view("nested_n1")
+
+    def n1_df():
+        return from_host_table(n1_host, s)
+
+    case("N2 array, struct and map functions", n2_build(n1_df),
+         n2_check(want))
+    for name, (build, check) in n3_cases(s, n1_df, "nested_n1",
+                                         want).items():
+        case(name, build, check, profile=name == "N3 posexplode")
+    base = tempfile.mkdtemp(prefix="srt-nested-")
+    try:
+        path, numbers = n4_files(n1_host, base, card)
+        pe_build, pe_check = n3_cases(s, n1_df, "nested_n1",
+                                      want)["N3 posexplode"]
+        from spark_rapids_tpu_torch import functions as F
+        res = case("N4 posexplode from Parquet", lambda: s.read_parquet(
+            path).select("l_orderkey", F.posexplode("q").alias("x")),
+            pe_check)
+        numbers["warm_ms"] = res["stats"]["warm_ms"]
+        numbers["in_memory_warm_ms"] = stats["N3 posexplode"]["warm_ms"]
+        log(f"  20.4 N3's posexplode from the files: warm "
+            f"{numbers['warm_ms']} ms against {numbers['in_memory_warm_ms']}"
+            f" ms over N1's result in memory [{card}]")
+        stats["N4 files"] = numbers
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    took = time.perf_counter() - t_phase
+    summary = {"card": card, "seconds": round(took, 1),
+               "launches": {k: v for k, v in totals.items() if v},
+               "cases": stats}
+    if took > NESTED_BUDGET_S:
+        log(f"  phase 20 took {took:.1f} s, past its "
+            f"{NESTED_BUDGET_S:.0f} s budget")
+    for k in ("gather_compact", "sort_with_payload", "fused_minmax"):
+        if not totals.get(k):
+            fail(f"phase 20 launched no {k}")
+    log("  phase-20 summary: " + json.dumps(summary, default=str))
+    return totals
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rows", type=int, default=6_001_215,
@@ -7819,7 +8270,15 @@ def main(argv=None) -> int:
     del dsl
     log(f"  phase 19 ran {time.perf_counter() - t_phase:.1f} s")
 
-    log("phase 20: summary")
+    t_phase = time.perf_counter()
+    log("phase 20: nested types (collect_list, collect_set and percentile "
+        "by order over lineitem; the array, struct, map and higher-order "
+        "functions; the explodes; nested Parquet in and out)")
+    for k, v in run_nested(tables, args.profile).items():
+        launches[k] = launches.get(k, 0) + v
+    log(f"  phase 20 ran {time.perf_counter() - t_phase:.1f} s")
+
+    log("phase 21: summary")
     log("  dec128_divide is CUDA work beyond the five TPU kernels: the "
         "reference divides DECIMAL128 values on its host")
     for r in rows:

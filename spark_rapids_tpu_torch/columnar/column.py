@@ -9,17 +9,20 @@ int64 up to precision 18 (DECIMAL64), a ``(capacity, 2)`` int64 limb pair
 above it (DECIMAL128: ``[:, 0]`` the signed high 64 bits, ``[:, 1]`` the
 unsigned low 64 bits reinterpreted as int64); on the host a DECIMAL128
 column holds Python ints in an object array, as the reference's
-``ops/decimal.py::host_store`` does.
+``ops/decimal.py::host_store`` does. Array, struct and map columns hold a
+holder of flat buffers (columnar/nested.py) as their ``data`` on both
+sides.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from spark_rapids_tpu_torch import types as T
+from spark_rapids_tpu_torch.columnar import nested as N
 from spark_rapids_tpu_torch.errors import ColumnarProcessingError
 
 #: integer-family types whose upload carries a (min, max) domain statistic
@@ -154,7 +157,9 @@ def null_column(dt: T.DataType, capacity: int, device) -> "DeviceColumn":
 
 class HostColumn:
     """A column on the host: numpy values + validity mask. STRING data is
-    an object array of str (None allowed at invalid slots); everything
+    an object array of str (None allowed at invalid slots); an array,
+    struct or map column holds a flat holder (columnar/nested.py: given
+    one Python object per row, it is flattened once here); everything
     else holds the Spark internal representation (see types.py)."""
 
     __slots__ = ("dtype", "data", "validity", "_cache", "__weakref__")
@@ -162,9 +167,11 @@ class HostColumn:
     def __init__(self, dtype: T.DataType, data: np.ndarray,
                  validity: Optional[np.ndarray] = None):
         self.dtype = dtype
-        self.data = data
         if validity is None:
             validity = np.ones(len(data), dtype=np.bool_)
+        if N.is_nested_type(dtype) and not isinstance(data, N.NestedData):
+            data = N.from_objects(dtype, data, validity)
+        self.data = data
         self.validity = validity
         self._cache = {}
         if len(data) != len(validity):
@@ -174,6 +181,10 @@ class HostColumn:
         return len(self.data)
 
     def slice(self, start: int, length: int) -> "HostColumn":
+        if isinstance(self.data, N.NestedData):
+            return HostColumn(self.dtype,
+                              self.data.host_slice(start, length),
+                              self.validity[start:start + length])
         out = HostColumn(self.dtype, self.data[start:start + length],
                          self.validity[start:start + length])
         enc = self._cache.get("encode")
@@ -192,6 +203,13 @@ class HostColumn:
         return got
 
     def to_pylist(self):
+        if isinstance(self.data, N.NestedData):
+            rows = self.data.to_objects()
+            conv = _temporal_conv(self.dtype.element_type) if isinstance(
+                self.dtype, T.ArrayType) else None
+            return [(rows[i] if conv is None else
+                     [None if x is None else conv(x) for x in rows[i]])
+                    if ok else None for i, ok in enumerate(self.validity)]
         return [(v.item() if isinstance(v, np.generic) else v) if ok else None
                 for v, ok in zip(self.data, self.validity)]
 
@@ -203,6 +221,8 @@ class HostColumn:
             if isinstance(self.dtype, T.StringType):
                 got = int(sum(len(s.encode("utf-8")) for s, v in
                               zip(self.data, self.validity) if v)) + len(self)
+            elif isinstance(self.data, N.NestedData):
+                got = self.data.nbytes + int(self.validity.nbytes)
             elif T.is_dec128(self.dtype):
                 got = 17 * len(self)  # two int64 limbs and a validity byte
             else:
@@ -227,11 +247,27 @@ class HostColumn:
         return dom
 
 
+def _temporal_conv(dt):
+    """Python value of a DATE (days) or TIMESTAMP (microseconds) array
+    element, as the reference's ``to_pylist`` gives it; None for other
+    element types."""
+    import datetime as _dt
+    if isinstance(dt, T.DateType):
+        epoch = _dt.date(1970, 1, 1)
+        return lambda x: epoch + _dt.timedelta(days=int(x))
+    if isinstance(dt, T.TimestampType):
+        epoch_ts = _dt.datetime(1970, 1, 1)
+        return lambda x: epoch_ts + _dt.timedelta(microseconds=int(x))
+    return None
+
+
 class DeviceColumn:
     """A column on a torch device.
 
     ``data``      : tensor of length ``capacity`` (the padded bucket);
-                    ``(capacity, 2)`` int64 limbs for a DECIMAL128
+                    ``(capacity, 2)`` int64 limbs for a DECIMAL128; a
+                    nested holder of tensors for an array, struct or map
+                    (columnar/nested.py)
     ``validity``  : bool tensor, True = valid; the padding is False at upload
     ``dictionary``: for STRING, the host object array such that row i's
                     value is dictionary[data[i]]; with ``dict_sorted`` the
@@ -265,10 +301,21 @@ class DeviceColumn:
     def capacity(self) -> int:
         return int(self.validity.shape[0])
 
+    @property
+    def is_nested(self) -> bool:
+        return isinstance(self.data, N.NestedData)
+
+    def leaves(self) -> tuple:
+        """Every tensor of the column's data (one, or a nested holder's
+        buffers); the validity is apart."""
+        if isinstance(self.data, N.NestedData):
+            return self.data.leaves()
+        return (self.data,)
+
     def device_nbytes(self) -> int:
         """Bytes of the data and validity tensors (their element counts,
         tensor metadata only: no device work)."""
-        return self.data.nbytes + self.validity.nbytes
+        return sum(x.nbytes for x in self.leaves()) + self.validity.nbytes
 
     @staticmethod
     def from_host(host: HostColumn, capacity: int,
@@ -281,8 +328,10 @@ class DeviceColumn:
             MEMORY,
             _device_row_bytes,
         )
-        res = MEMORY.reserve(_device_row_bytes(host.dtype) * capacity,
-                             label="from_host")
+        est = _device_row_bytes(host.dtype) * capacity
+        if isinstance(host.data, N.NestedData):
+            est += host.data.nbytes  # the elements land at their bucket
+        res = MEMORY.reserve(est, label="from_host")
         try:
             return MEMORY.account(
                 DeviceColumn._upload(host, capacity, device), res)
@@ -295,12 +344,13 @@ class DeviceColumn:
         n = len(host)
         if capacity < n:
             raise ColumnarProcessingError(f"capacity {capacity} < rows {n}")
-        if isinstance(host.dtype, (T.ArrayType, T.StructType, T.MapType)):
-            raise NotImplementedError(
-                f"upload of {host.dtype.simple_string()} columns is not "
-                "ported")
         validity = np.zeros(capacity, dtype=np.bool_)
         validity[:n] = host.validity
+        if isinstance(host.data, N.NestedData):
+            N.check_layout(host.dtype, "an upload")
+            return DeviceColumn(
+                host.dtype, N.upload(host.data, validity, capacity, device),
+                torch.from_numpy(validity).to(device))
         dictionary = None
         if isinstance(host.dtype, T.StringType):
             codes, dictionary = host.encoded()
@@ -337,9 +387,33 @@ class DeviceColumn:
             arr = arr.astype(self.dtype.np_dtype)
         return HostColumn(self.dtype, arr, validity)
 
+    def host_leaves(self, num_rows: int, total: Optional[int]) -> tuple:
+        """The tensors a download of the first ``num_rows`` rows copies:
+        the data's (a nested one's first rows, holding ``total``
+        elements), then the validity."""
+        if isinstance(self.data, N.NestedData):
+            head = self.data.head(num_rows, total or 0).leaves()
+        else:
+            head = (self.data[:num_rows],)
+        return head + (self.validity[:num_rows],)
+
+    def decode_leaves(self, leaves: Sequence[np.ndarray]) -> HostColumn:
+        """The HostColumn from downloaded :meth:`host_leaves`."""
+        validity = np.ascontiguousarray(leaves[-1])
+        if isinstance(self.data, N.NestedData):
+            return HostColumn(self.dtype, self.data.with_leaves(
+                [np.ascontiguousarray(x) for x in leaves[:-1]]), validity)
+        return self.decode_host(leaves[0], validity)
+
     def to_host(self, num_rows: int) -> HostColumn:
         from spark_rapids_tpu_torch.dispatch import note_host_fetch
         note_host_fetch()
+        if isinstance(self.data, N.NestedData):
+            tot = N.element_total(self.data, num_rows)
+            total = None if tot is None else int(tot.item())
+            return self.decode_leaves(
+                [x.cpu().numpy() for x in self.host_leaves(num_rows,
+                                                           total)])
         data = self.data[:num_rows].cpu().numpy()
         validity = np.ascontiguousarray(self.validity[:num_rows].cpu().numpy())
         return self.decode_host(data, validity)
@@ -355,6 +429,10 @@ class DeviceColumn:
         table kept for long (a spillable partial, a build partition) does
         not hold the whole larger buffer alive, and accounted
         (runtime/memory.py), for a few rows."""
+        if isinstance(self.data, N.NestedData):
+            v = self.validity[:k]
+            return self.with_arrays(self.data.sliced_rows(k, copy),
+                                    v.clone() if copy else v)
         if copy:
             return self.with_arrays(self.data[:k].clone(),
                                     self.validity[:k].clone())

@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from spark_rapids_tpu_torch import types as T
+from spark_rapids_tpu_torch.columnar import nested as N
 from spark_rapids_tpu_torch.columnar.column import (
     DeviceColumn,
     HostColumn,
@@ -62,7 +63,8 @@ class HostTable:
         form interop.host_table_from_arrays takes back."""
         return (list(self.names),
                 [c.dtype.simple_string() for c in self.columns],
-                [(c.data, c.validity) for c in self.columns])
+                [(np.asarray(c.data) if isinstance(c.data, N.NestedData)
+                  else c.data, c.validity) for c in self.columns])
 
 
 class DeviceTable:
@@ -121,6 +123,13 @@ class DeviceTable:
         prefix table returns itself."""
         if self.live is None:
             return self
+        for n, c in zip(self.names, self.columns):
+            if c.is_nested:
+                # nested columns live in prefix batches only (a filter,
+                # sort, join, window or exchange over one raises at
+                # planning, overrides/rules.py)
+                N.not_ported_9c(f"compacting the masked rows of nested "
+                                f"column {n}")
         from spark_rapids_tpu_torch.ops.scatter32 import compact_pairs
         outs, new_n = compact_pairs([c.data for c in self.columns],
                                     [c.validity for c in self.columns],
@@ -173,8 +182,9 @@ class PendingHostTable:
         #: keeps the device buffers alive until the copies completed
         self._table = table
         self._n = n
-        #: per column, (data stream, validity stream, data shape): a stream
-        #: is (dtype, [(buffer index, byte offset, element count)])
+        #: per column, its buffers' (stream, shape), the validity's last
+        #: (``DeviceColumn.host_leaves``): a stream is (dtype, [(buffer
+        #: index, byte offset, element count)])
         self._parts = parts
         self._event = event
         self._bufs = bufs
@@ -190,10 +200,10 @@ class PendingHostTable:
                 self._event.synchronize()
             t = self._table
             cols = []
-            for c, (dparts, vparts, shape) in zip(t.columns, self._parts):
-                data = self._gather(dparts).reshape(shape)
-                validity = self._gather(vparts)
-                cols.append(c.decode_host(data, validity))
+            for c, streams in zip(t.columns, self._parts):
+                cols.append(c.decode_leaves(
+                    [self._gather(st).reshape(shape)
+                     for st, shape in streams]))
             return HostTable(t.names, cols)
         finally:
             for b in self._bufs:
@@ -222,10 +232,18 @@ def enqueue_download(table: "DeviceTable", pool
     if table.live is not None:
         table = table.compacted()
     n = table.num_rows
-    streams = []
-    for c in table.columns:
-        streams.append(c.data[:n].contiguous())
-        streams.append(c.validity[:n].contiguous())
+    # the element counts of the nested columns, in one host read beside
+    # the row count's
+    tots = [N.element_total(c.data, n) if c.is_nested else None
+            for c in table.columns]
+    read = [t for t in tots if t is not None]
+    got = iter(torch.stack(read).tolist() if read else [])
+    totals = [None if t is None else next(got) for t in tots]
+    streams, per_col = [], []
+    for c, total in zip(table.columns, totals):
+        leaves = [x.contiguous() for x in c.host_leaves(n, total)]
+        per_col.append(len(leaves))
+        streams.extend(leaves)
     # plan the parts first: nothing is copied unless every buffer is had
     size = pool.buffer_bytes
     plan, bi, off = [], 0, 0
@@ -262,8 +280,11 @@ def enqueue_download(table: "DeviceTable", pool
     if table.device.type == "cuda":
         event = torch.cuda.Event()
         event.record(torch.cuda.current_stream(table.device))
-    parts = [(out[2 * i], out[2 * i + 1], tuple(streams[2 * i].shape))
-             for i in range(len(table.columns))]
+    parts, at = [], 0
+    for k in per_col:
+        parts.append([(out[j], tuple(streams[j].shape))
+                      for j in range(at, at + k)])
+        at += k
     return PendingHostTable(table, n, parts, event, bufs, pool)
 
 
@@ -276,6 +297,11 @@ def concat_host(tables: Sequence[HostTable]) -> HostTable:
     cols = []
     for ci, c0 in enumerate(tables[0].columns):
         parts = [t.columns[ci] for t in tables]
+        if isinstance(c0.data, N.NestedData):
+            cols.append(HostColumn(
+                c0.dtype, N.concat_host([p.data for p in parts]),
+                np.concatenate([p.validity for p in parts])))
+            continue
         col = HostColumn(c0.dtype,
                          np.concatenate([p.data for p in parts]),
                          np.concatenate([p.validity for p in parts]))
@@ -333,7 +359,8 @@ def evict_device_caches() -> int:
 
 def empty_host_table(schema) -> HostTable:
     """A zero-row HostTable of ``schema`` ([(name, DataType)])."""
-    cols = [HostColumn(dt, np.zeros(0, dtype=dt.np_dtype),
+    cols = [HostColumn(dt, N.empty_host(dt) if N.is_nested_type(dt)
+                       else np.zeros(0, dtype=dt.np_dtype),
                        np.zeros(0, dtype=np.bool_)) for _, dt in schema]
     return HostTable([n for n, _ in schema], cols)
 
@@ -415,6 +442,15 @@ def concat_device(tables: Sequence[DeviceTable]) -> DeviceTable:
     for ci in range(ncols):
         parts = [t.columns[ci] for t in tables]
         c0 = parts[0]
+        if c0.is_nested:
+            if any(t.live is not None for t in tables):
+                N.not_ported_9c(f"concatenating masked batches of nested "
+                                f"column {tables[0].names[ci]}")
+            data, valid = N.concat_device([c.data for c in parts], tgts,
+                                          out_cap,
+                                          [c.validity for c in parts])
+            cols.append(DeviceColumn(c0.dtype, data, valid))
+            continue
         dictionary, dict_sorted = c0.dictionary, c0.dict_sorted
         datas = [c.data for c in parts]
         if isinstance(c0.dtype, T.StringType) and not all(

@@ -73,8 +73,20 @@ Filters fused from the input chain (execs/fuse.py) are the row weight
 mask: a dropped row, or a padding row past ``nrows``, adds to no sum,
 count, extreme or group. What the slice does not reach raises
 NotImplementedError: variance of DECIMAL128, MIN/MAX over an unsorted
-string dictionary and the other aggregate functions (collect_list,
-collect_set, percentile).
+string dictionary, and an aggregate over a nested input (naming ROADMAP
+item [9c]).
+SORT-ONLY AGGREGATES (the reference's ``SORT_ONLY_AGGS``): collect_list,
+collect_set and percentile take the sort-segment path only (a global one
+too, as one group), over one coalesced batch (overrides/rules.py), never
+the no-sort layout:
+* collect_list packs each group's non-null values, in input order (the
+  grouping sort is stable), through the compaction kernel; the element
+  buffer is the input's capacity, so no host read sizes it;
+* collect_set re-sorts (group, null flag, value words) through the sort
+  kernel and packs each group's first occurrences (-0.0 and 0.0 are one
+  value, as are NaNs: the sortable words are canonical);
+* percentile re-sorts the same way and interpolates linearly between the
+  two sorted values around (non-null count - 1) x p.
 """
 
 from __future__ import annotations
@@ -129,8 +141,26 @@ _VALUE_TYPES = (T.LongType, T.DoubleType, T.IntegerType, T.DateType,
 
 def check_agg_supported(fn: agg.AggregateFunction) -> None:
     """Raise NotImplementedError for an aggregate the port does not run."""
+    from spark_rapids_tpu_torch.columnar.nested import (
+        FIXED_ELEMENT_TYPES,
+        is_nested_type,
+        not_ported_9c,
+    )
+    if any(is_nested_type(c.data_type) for c in fn.children):
+        not_ported_9c(f"aggregate {fn.name} over a nested input "
+                      f"{fn.child.data_type.simple_string()}")
     if isinstance(fn, (agg.Count, agg.MergeMoments)):
         return
+    if isinstance(fn, (agg.CollectList, agg.CollectSet)):
+        if isinstance(fn.child.data_type, FIXED_ELEMENT_TYPES):
+            return
+        not_ported_9c(f"aggregate {fn.name} of "
+                      f"{fn.child.data_type.simple_string()} (arrays hold "
+                      "fixed-width elements)")
+    if isinstance(fn, agg.Percentile):
+        if isinstance(fn.child.data_type, T.NumericType) and \
+                not isinstance(fn.child.data_type, T.DecimalType):
+            return
     if isinstance(fn, (agg.Average, agg.Sum)):
         if isinstance(fn.child.data_type, T.NumericType):
             return
@@ -304,6 +334,16 @@ class TpuHashAggregateExec(TpuExec):
         return stage
 
     def _merge_plan(self):
+        if any(isinstance(fn, agg.SORT_ONLY_AGGS)
+               for _, fn in self.agg_specs):
+            # the reference has no merge decomposition for them either;
+            # their input coalesces to one batch (overrides/rules.py)
+            raise NotImplementedError(
+                "collect_list, collect_set and percentile over several "
+                "input batches (they take one coalesced batch)")
+        return self._merge_plan_specs()
+
+    def _merge_plan_specs(self):
         """(partial specs, merge grouping and specs, finalize expressions)
         of the multi-batch path (the reference's decomposition):
 
@@ -468,7 +508,10 @@ class TpuHashAggregateExec(TpuExec):
                 raise NotImplementedError(
                     f"aggregate {fn.name} over a string with an unsorted "
                     "dictionary is not ported")
-        fast = self._fast_layout(key_preps, table.capacity)
+        sort_only = any(isinstance(fn, agg.SORT_ONLY_AGGS)
+                        for _, fn in self.agg_specs)
+        fast = None if sort_only else self._fast_layout(key_preps,
+                                                         table.capacity)
         if fast is None:
             out_arrays, ngroups = self._sort_kernel(
                 table, filter_preps, key_preps, val_preps)
@@ -646,30 +689,37 @@ class TpuHashAggregateExec(TpuExec):
                                     kv.data), kv.validity)
                if kv.data.is_floating_point() else kv for kv in kvs]
 
-        operands = [(~live).to(torch.int32)]  # dead rows last
-        for kv in kvs:
-            operands.append((~kv.validity).to(torch.int32))
-            operands.extend(comparable_operands(zero_invalid(kv.data,
-                                                             kv.validity)))
-        payload = torch.arange(capacity, dtype=torch.int32, device=dev)
-        sorted_all = lex_sort(operands, payload)
-        perm = sorted_all[-1].to(torch.int64)
-        s_live = live[perm]
-
-        # group boundaries on the sorted (canonical) operands
-        changed = torch.arange(capacity, device=dev) == 0
-        for so in sorted_all[1:-1]:
-            s = so.view(torch.int32) if so.dtype == torch.uint32 else so
-            changed = changed | (s != torch.roll(s, 1))
-        new_group = changed & s_live
-        gid = torch.cumsum(new_group.to(torch.int64), 0) - 1
-        # dead rows add nothing; they park past the groups, each on its
-        # own segment (the reference parks them all on the last one, whose
-        # atomics would then serialize)
         rows = torch.arange(capacity, dtype=torch.int64, device=dev)
-        gid = torch.where(s_live, gid, capacity + rows)
         nseg = 2 * capacity
-        ngroups = new_group.sum(dtype=torch.int32)
+        if not kvs:
+            # a global sort-only aggregate: one group, whatever the input
+            # (the reference's sort path without keys)
+            perm, s_live = rows, live
+            gid = torch.where(live, torch.zeros_like(rows), capacity + rows)
+            ngroups = torch.ones((), dtype=torch.int32, device=dev)
+        else:
+            operands = [(~live).to(torch.int32)]  # dead rows last
+            for kv in kvs:
+                operands.append((~kv.validity).to(torch.int32))
+                operands.extend(comparable_operands(
+                    zero_invalid(kv.data, kv.validity)))
+            payload = torch.arange(capacity, dtype=torch.int32, device=dev)
+            sorted_all = lex_sort(operands, payload)
+            perm = sorted_all[-1].to(torch.int64)
+            s_live = live[perm]
+
+            # group boundaries on the sorted (canonical) operands
+            changed = torch.arange(capacity, device=dev) == 0
+            for so in sorted_all[1:-1]:
+                s = so.view(torch.int32) if so.dtype == torch.uint32 else so
+                changed = changed | (s != torch.roll(s, 1))
+            new_group = changed & s_live
+            gid = torch.cumsum(new_group.to(torch.int64), 0) - 1
+            # dead rows add nothing; they park past the groups, each on
+            # its own segment (the reference parks them all on the last
+            # one, whose atomics would then serialize)
+            gid = torch.where(s_live, gid, capacity + rows)
+            ngroups = new_group.sum(dtype=torch.int32)
         group_live = torch.arange(capacity, dtype=torch.int32,
                                   device=dev) < ngroups
 
@@ -703,10 +753,15 @@ class TpuHashAggregateExec(TpuExec):
         svs = _spec_valids(vvs, live)
         nonnulls = {j: seg(sv.to(torch.int32))
                     for j, sv in enumerate(svs) if sv is not None}
-        return self._reduce_specs(vvs, svs, live,
+        outs = self._reduce_specs(vvs, svs, live,
                                   gid.clamp(max=capacity - 1),
                                   seg(live.to(torch.int32)), nonnulls,
                                   group_live, stacked, stacked, capacity)
+        for j, (_, fn) in enumerate(self.agg_specs):
+            if isinstance(fn, agg.SORT_ONLY_AGGS):
+                outs[j] = _sort_only(fn, vvs[j][0], svs[j], gid, capacity,
+                                     nonnulls[j], group_live)
+        return outs
 
     def _reduce_specs(self, vvs, svs, live, gid, live_cnt, nonnulls,
                       exists, fsum, isum, nseg):
@@ -730,7 +785,8 @@ class TpuHashAggregateExec(TpuExec):
                     for v in vvs[j]]
 
         for j, (_, fn) in enumerate(self.agg_specs):
-            if isinstance(fn, (agg.Count, agg.Min, agg.Max, agg._Pick)):
+            if isinstance(fn, (agg.Count, agg.Min, agg.Max, agg._Pick)
+                          + agg.SORT_ONLY_AGGS):
                 continue
             if isinstance(fn, agg.MergeMoments):
                 fix[j] = len(fcols)
@@ -767,6 +823,9 @@ class TpuHashAggregateExec(TpuExec):
 
         outs = []
         for j, (_, fn) in enumerate(self.agg_specs):
+            if isinstance(fn, agg.SORT_ONLY_AGGS):
+                outs.append(None)  # the sort-segment path fills it
+                continue
             if isinstance(fn, agg.Count):
                 w = live_cnt if fn.child is None else nonnulls[j]
                 outs.append((w.to(torch.int64), exists))
@@ -804,6 +863,66 @@ class TpuHashAggregateExec(TpuExec):
                 outs.append(_decimal_result(fn, isums[:, iix[j]:iix[j] + 4],
                                             nonnull, has_any))
         return outs
+
+
+def _resort(data: torch.Tensor, valid: torch.Tensor, gid: torch.Tensor):
+    """(gid, null flag, value words) sorted through the sort kernel, the
+    ties in their order: the sorted operands, the permutation."""
+    from spark_rapids_tpu_torch.ops.ordering import (
+        comparable_operands,
+        lex_sort,
+    )
+    d = data.to(torch.int32) if data.dtype == torch.bool else data
+    ops = comparable_operands(torch.where(valid, d, torch.zeros_like(d)))
+    n = data.shape[0]
+    res = lex_sort([gid.to(torch.int32), (~valid).to(torch.int32)] + ops,
+                   torch.arange(n, dtype=torch.int32, device=data.device))
+    return res, res[-1].to(torch.int64)
+
+
+def _sort_only(fn: agg.AggregateFunction, vv, sv: torch.Tensor,
+               gid: torch.Tensor, capacity: int, nonnull: torch.Tensor,
+               group_live: torch.Tensor):
+    """(data, validity) of collect_list, collect_set or percentile over
+    rows sorted by group (stable; live groups in [0, ngroups), dead rows
+    at ``capacity + row``): the reference's sort-only route."""
+    from spark_rapids_tpu_torch.columnar.nested import (
+        ArrayData,
+        offsets_from_counts,
+    )
+    from spark_rapids_tpu_torch.ops.scatter32 import compact_pairs
+    data = vv.data
+    dev = data.device
+    if isinstance(fn, agg.Percentile):
+        res, perm = _resort(data, sv, gid)
+        sd = data[perm].to(torch.float64)
+        size = segment_sum(torch.ones_like(gid), gid, 2 * capacity)[:capacity]
+        start = torch.cumsum(size, 0) - size
+        nn = nonnull.to(torch.int64)
+        k = (nn - 1).to(torch.float64) * fn.percentage
+        klo = torch.floor(k).to(torch.int64)
+        khi = torch.ceil(k).to(torch.int64)
+        vlo = sd[(start + klo).clamp(0, capacity - 1)]
+        vhi = sd[(start + khi).clamp(0, capacity - 1)]
+        out = vlo + (vhi - vlo) * (k - klo.to(torch.float64))
+        validity = (nn > 0) & group_live
+        return torch.where(validity, out, torch.zeros_like(out)), validity
+    keep, gidv, sdv = sv, gid, data
+    if isinstance(fn, agg.CollectSet):
+        res, perm = _resort(data, sv, gid)
+        gidv = gid[perm]
+        sdv = data[perm]
+        same = torch.zeros(capacity, dtype=torch.bool, device=dev)
+        same[1:] = res[0][1:] == res[0][:-1]
+        for o in res[2:-1]:
+            o = o.view(torch.int32) if o.dtype == torch.uint32 else o
+            same[1:] &= o[1:] == o[:-1]
+        keep = (res[1] == 0) & ~same
+    counts = segment_sum(keep.to(torch.int64), gidv,
+                         2 * capacity)[:capacity]
+    pairs, _ = compact_pairs([sdv], [keep], keep, capacity)
+    # an empty array (not null) for a group whose values were all null
+    return ArrayData(offsets_from_counts(counts), *pairs[0]), group_live
 
 
 def _spec_valids(vvs, live: torch.Tensor):

@@ -221,9 +221,16 @@ class TpuProjectExec(TpuExec):
         return [(n, e.data_type) for n, e in zip(self.names, self.exprs)]
 
     def execute_masked(self):
+        from spark_rapids_tpu_torch.columnar.nested import is_nested_type
         from spark_rapids_tpu_torch.runtime.retry import with_retry
+        # compact first when outputs are NESTED: array, struct and map
+        # columns have no compaction of their own and only ever live in
+        # prefix batches (the reference's rule)
+        must_compact = any(is_nested_type(e.data_type) for e in self.exprs)
 
         def run(dt):
+            if must_compact:
+                dt = dt.compacted()
             cols = compile_project(self.exprs, dt)
             return DeviceTable(self.names, cols, dt.nrows_dev, dt.capacity,
                                dt.device, live=dt.live)

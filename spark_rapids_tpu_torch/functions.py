@@ -1,6 +1,8 @@
 """PySpark-style function namespace: the expression constructors the
 ported slices have, ``expr`` (one SQL expression) and the process-wide
-SQL function registrations."""
+SQL function registrations. A higher-order function takes its lambda as
+a Python callable, run once at plan time with symbolic variables
+(``F.transform(c, lambda x: x * 2)``), or as a LambdaFunction."""
 
 from __future__ import annotations
 
@@ -43,6 +45,27 @@ def count(e="*"):
 
 def avg(e):
     return _agg.Average(_e(e))
+
+
+def collect_list(e):
+    return _agg.CollectList(_e(e))
+
+
+def collect_set(e):
+    return _agg.CollectSet(_e(e))
+
+
+def percentile(e, p: float):
+    return _agg.Percentile(_e(e), p)
+
+
+def approx_percentile(e, percentage, accuracy: int = 10000):
+    """approx_percentile, served EXACTLY by the sort-based percentile
+    (exact satisfies every accuracy, as in the reference)."""
+    return _agg.Percentile(_e(e), percentage)
+
+
+approxPercentile = approx_percentile
 
 
 def stddev(e):
@@ -539,3 +562,198 @@ def unregister_sql_function(name: str) -> None:
 
 def registered_sql_function(name: str):
     return _SQL_FUNCTIONS.get(name.lower())
+
+
+# -- collections, structs, maps and the higher-order functions -------------
+
+def size(e):
+    from spark_rapids_tpu_torch.ops.collections import Size
+    return Size(_e(e))
+
+
+def array(*exprs):
+    from spark_rapids_tpu_torch.ops.collections import CreateArray
+    return CreateArray(*[_e(x) for x in exprs])
+
+
+def array_contains(e, value):
+    from spark_rapids_tpu_torch.ops.collections import ArrayContains
+    return ArrayContains(_e(e), _lit(value))
+
+
+def array_min(e):
+    from spark_rapids_tpu_torch.ops.collections import ArrayMin
+    return ArrayMin(_e(e))
+
+
+def array_max(e):
+    from spark_rapids_tpu_torch.ops.collections import ArrayMax
+    return ArrayMax(_e(e))
+
+
+def sort_array(e, asc: bool = True):
+    from spark_rapids_tpu_torch.ops.collections import SortArray
+    return SortArray(_e(e), lit(asc))
+
+
+def get_item(e, index):
+    """arr[index], 0-based (null out of bounds); over a map, the value
+    at key ``index``."""
+    from spark_rapids_tpu_torch.ops.collections import GetArrayItem
+    return GetArrayItem(_e(e), _lit(index))
+
+
+#: the reference's ``element_at`` is its 0-based ``get_item``
+element_at = get_item
+
+
+def sequence(start, stop, step=None):
+    from spark_rapids_tpu_torch.ops.collections import Sequence
+    args = [_e(start), _e(stop)]
+    if step is not None:
+        args.append(_e(step))
+    return Sequence(*args)
+
+
+def explode(e):
+    from spark_rapids_tpu_torch.ops.collections import Explode
+    return Explode(_e(e))
+
+
+def explode_outer(e):
+    from spark_rapids_tpu_torch.ops.collections import ExplodeOuter
+    return ExplodeOuter(_e(e))
+
+
+def posexplode(e):
+    from spark_rapids_tpu_torch.ops.collections import PosExplode
+    return PosExplode(_e(e))
+
+
+def posexplode_outer(e):
+    from spark_rapids_tpu_torch.ops.collections import PosExplodeOuter
+    return PosExplodeOuter(_e(e))
+
+
+def struct(*exprs, names=None):
+    from spark_rapids_tpu_torch.ops.expr import output_name
+    from spark_rapids_tpu_torch.ops.nested import CreateNamedStruct
+    es = [_e(x) for x in exprs]
+    if names is None:
+        names = [output_name(e, f"col{i}") for i, e in enumerate(es)]
+    return CreateNamedStruct(names, es)
+
+
+def named_struct(*name_expr_pairs):
+    from spark_rapids_tpu_torch.ops.nested import CreateNamedStruct
+    names = [name_expr_pairs[i] for i in range(0, len(name_expr_pairs), 2)]
+    es = [_e(name_expr_pairs[i])
+          for i in range(1, len(name_expr_pairs), 2)]
+    return CreateNamedStruct(names, es)
+
+
+def get_field(e, name: str):
+    from spark_rapids_tpu_torch.ops.nested import GetStructField
+    return GetStructField(_e(e), name)
+
+
+def create_map(*exprs):
+    from spark_rapids_tpu_torch.ops.nested import CreateMap
+    return CreateMap(*[_e(x) for x in exprs])
+
+
+def map_keys(e):
+    from spark_rapids_tpu_torch.ops.nested import MapKeys
+    return MapKeys(_e(e))
+
+
+def map_values(e):
+    from spark_rapids_tpu_torch.ops.nested import MapValues
+    return MapValues(_e(e))
+
+
+def map_entries(e):
+    from spark_rapids_tpu_torch.ops.nested import MapEntries
+    return MapEntries(_e(e))
+
+
+def map_concat(*exprs):
+    from spark_rapids_tpu_torch.ops.nested import MapConcat
+    return MapConcat(*[_e(x) for x in exprs])
+
+
+def get_map_value(m, key):
+    from spark_rapids_tpu_torch.ops.nested import GetMapValue
+    return GetMapValue(_e(m), _lit(key))
+
+
+def _lambda_arity(fn) -> int:
+    import builtins
+    import inspect
+
+    from spark_rapids_tpu_torch.ops.nested import LambdaFunction
+    if isinstance(fn, LambdaFunction):
+        return len(fn.var_names)
+    return builtins.max(len(inspect.signature(fn).parameters), 1)
+
+
+def _lambda(fn, n_vars: int):
+    """A LambdaFunction from a Python callable, run once with symbolic
+    variables named after its parameters."""
+    import inspect
+
+    from spark_rapids_tpu_torch.ops.nested import (
+        LambdaFunction,
+        NamedLambdaVariable,
+    )
+    if isinstance(fn, LambdaFunction):
+        return fn
+    names = list(inspect.signature(fn).parameters)[:n_vars] or \
+        [f"x{i}" for i in range(n_vars)]
+    body = fn(*[NamedLambdaVariable(n) for n in names])
+    return LambdaFunction(_lit(body), names)
+
+
+def transform(arr, fn):
+    from spark_rapids_tpu_torch.ops.nested import ArrayTransform
+    return ArrayTransform(_e(arr), _lambda(fn, 2 if _lambda_arity(fn) >= 2
+                                           else 1))
+
+
+def filter(arr, fn):  # noqa: A001
+    from spark_rapids_tpu_torch.ops.nested import ArrayFilter
+    return ArrayFilter(_e(arr), _lambda(fn, _lambda_arity(fn)))
+
+
+#: the reference's name for ``filter``
+filter_array = filter
+
+
+def exists(arr, fn):
+    from spark_rapids_tpu_torch.ops.nested import ArrayExists
+    return ArrayExists(_e(arr), _lambda(fn, 1))
+
+
+def forall(arr, fn):
+    from spark_rapids_tpu_torch.ops.nested import ArrayForAll
+    return ArrayForAll(_e(arr), _lambda(fn, 1))
+
+
+def map_filter(m, fn):
+    from spark_rapids_tpu_torch.ops.nested import MapFilter
+    return MapFilter(_e(m), _lambda(fn, 2))
+
+
+def transform_keys(m, fn):
+    from spark_rapids_tpu_torch.ops.nested import TransformKeys
+    return TransformKeys(_e(m), _lambda(fn, 2))
+
+
+def transform_values(m, fn):
+    from spark_rapids_tpu_torch.ops.nested import TransformValues
+    return TransformValues(_e(m), _lambda(fn, 2))
+
+
+def arrays_zip(*exprs):
+    from spark_rapids_tpu_torch.ops.nested import ArraysZip
+    return ArraysZip(*[_e(x) for x in exprs])

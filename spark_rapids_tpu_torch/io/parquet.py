@@ -25,6 +25,7 @@ import numpy as np
 
 from spark_rapids_tpu_torch import conf as C
 from spark_rapids_tpu_torch import types as T
+from spark_rapids_tpu_torch.columnar.nested import NestedData
 from spark_rapids_tpu_torch.columnar import HostColumn, HostTable
 from spark_rapids_tpu_torch.errors import ColumnarProcessingError
 from spark_rapids_tpu_torch.io import parquet_format as PF
@@ -213,7 +214,8 @@ class ParquetScanNode(FileScanNode):
             gone = all(any(_term_prunes(rg.chunks[name], meta.leaf(name),
                                         rg.num_rows, op, value)
                            for name, op, value in conj
-                           if name in rg.chunks)
+                           if name in rg.chunks
+                           and isinstance(meta.leaf(name), PF.Leaf))
                        for conj in self._filters)
             if gone:
                 with self._lock:
@@ -259,6 +261,10 @@ class ParquetScanNode(FileScanNode):
         cols = []
         for nm in names:
             c = t.columns[need.index(nm)]
+            if isinstance(c.data, NestedData):
+                cols.append(HostColumn(c.dtype, c.data.take(rows),
+                                       c.validity[rows]))
+                continue
             out = HostColumn(c.dtype, c.data[rows], c.validity[rows])
             enc = c._cache.get("encode")
             if enc is not None:

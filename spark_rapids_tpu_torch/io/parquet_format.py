@@ -14,11 +14,17 @@ BIT_PACKED, DELTA_BINARY_PACKED, DELTA_LENGTH_BYTE_ARRAY, DELTA_BYTE_ARRAY
 and BYTE_STREAM_SPLIT; DATA_PAGE v1 and v2 pages after an optional
 dictionary page (a chunk may fall back to another encoding after it); the
 codecs UNCOMPRESSED, SNAPPY, GZIP, ZSTD, LZ4_RAW and LZ4 (Hadoop-framed
-blocks, else one raw block, as Arrow reads it). Everything else raises
+blocks, else one raw block, as Arrow reads it). Nested columns read too
+(:class:`NestedColumn`): LIST in its 3-level form and the legacy 2-level
+form (a repeated field, bare or under a LIST group), MAP (``key_value``)
+and STRUCT groups, over fixed-width leaves; their offsets and validity at
+each level are rebuilt from the repetition and definition levels
+(:func:`list_layout`), vectorised. Everything else raises
 NotImplementedError naming itself: BROTLI (its decoder needs RFC 7932's
 static dictionary, which is not in the repository) and LZO (nothing the
-port can test against writes it), repeated and nested columns, unsigned
-integers and plain binary.
+port can test against writes it), nested columns without a device layout
+(a list of structs, a list of lists, string leaves: ROADMAP item [9c]),
+unsigned integers and plain binary.
 
 Values come out in the host layout of ``interop.host_table_from_arrays``:
 dates as int32 days, timestamps as int64 micros, DECIMAL64 as int64
@@ -36,7 +42,10 @@ column OPTIONAL, as Spark writes), RLE_DICTIONARY for strings and PLAIN
 for every other type, statistics (min, max, null count) on every chunk,
 SNAPPY (the default), GZIP, ZSTD, LZ4 (as pyarrow writes ``"lz4"``: the
 LZ4_RAW codec) or no compression, ``row_group_rows`` rows a
-row group and pages of about ``page_bytes``. Types are written as pyarrow
+row group and pages of about ``page_bytes``. Array, map and struct
+columns are written as pyarrow writes them: the 3-level LIST (``list`` /
+``element``), MAP (``key_value`` / ``key`` / ``value``) and a STRUCT
+group, each leaf with RLE repetition and definition levels. Types are written as pyarrow
 writes the reference's tables: BYTE and SHORT as annotated INT32, DATE as
 INT32 (Date), TIMESTAMP as INT64 micros adjusted to UTC, DECIMAL as the
 shortest FIXED_LEN_BYTE_ARRAY that holds its precision.
@@ -253,13 +262,17 @@ class Leaf:
     ``unsupported`` naming why, for a column the port cannot read)."""
 
     __slots__ = ("name", "physical", "type_length", "optional", "spark",
-                 "ts_scale", "ts_nanos", "unsupported")
+                 "ts_scale", "ts_nanos", "unsupported", "max_def",
+                 "max_rep")
 
     def __init__(self, el: Dict[int, object]):
         self.name = el[4].decode("utf-8")
         self.physical = el.get(1)
         self.type_length = el.get(2, 0)
         self.optional = el.get(3, REQUIRED) == OPTIONAL
+        #: the leaf's level maxima (a nested leaf's set by its column)
+        self.max_def = 1 if self.optional else 0
+        self.max_rep = 0
         self.ts_scale = 1
         self.ts_nanos = False
         self.unsupported = None
@@ -362,34 +375,189 @@ class ChunkMeta:
 
 
 class RowGroupMeta:
+    """One row group: its row count and its chunks by leaf path (a flat
+    column's path is its name; a nested leaf's is dotted,
+    ``a.list.element``)."""
+
     __slots__ = ("num_rows", "chunks")
 
-    def __init__(self, rg: Dict[int, object], names: Sequence[str]):
+    def __init__(self, rg: Dict[int, object], paths: Sequence[str]):
         self.num_rows = rg[3]
-        self.chunks = {n: ChunkMeta(cc) for n, cc in zip(names, rg[1])}
+        self.chunks = {}
+        for i, cc in enumerate(rg[1]):
+            md = cc.get(3) or {}
+            got = md.get(3)
+            key = (".".join(p.decode("utf-8") for p in got) if got
+                   else paths[i])
+            self.chunks[key] = ChunkMeta(cc)
+
+
+class _Node:
+    """A schema element with its children (the footer's flat list as a
+    tree)."""
+
+    __slots__ = ("el", "name", "rep", "children")
+
+    def __init__(self, el):
+        self.el = el
+        self.name = el[4].decode("utf-8")
+        self.rep = el.get(3, REQUIRED)
+        self.children: List["_Node"] = []
+
+
+def _schema_tree(schema) -> List[_Node]:
+    """The root's children, each with its subtree."""
+    pos = 1
+
+    def take(k):
+        nonlocal pos
+        out = []
+        for _ in range(k):
+            if pos >= len(schema):
+                raise ColumnarProcessingError("truncated Parquet schema")
+            node = _Node(schema[pos])
+            pos += 1
+            node.children = take(node.el.get(5) or 0)
+            out.append(node)
+        return out
+
+    return take(schema[0].get(5, len(schema) - 1))
+
+
+#: a column nested deeper than these shapes has no device layout
+_LIST_GROUP_NAMES = ("array",)
+
+
+class NestedColumn:
+    """One top-level nested column of a file: its Spark type and its
+    leaves, each with its dotted path and level thresholds.
+
+    ``kind`` is "array", "map" or "struct". ``d_row``: the definition
+    level from which a row is non-null; ``d_rep``: the repeated node's
+    (an element slot exists from it on; arrays and maps); each leaf's
+    ``max_def`` marks a non-null value."""
+
+    __slots__ = ("name", "kind", "spark", "optional", "d_row", "d_rep",
+                 "leaves", "unsupported", "physical")
+
+    def __init__(self, name, kind, spark, optional, d_row, d_rep, leaves,
+                 unsupported=None):
+        self.name = name
+        self.kind = kind
+        self.spark = spark
+        self.optional = optional
+        self.d_row = d_row
+        self.d_rep = d_rep
+        self.leaves = leaves
+        self.unsupported = unsupported
+        self.physical = None
+
+    def require(self) -> T.DataType:
+        if self.unsupported is not None:
+            raise NotImplementedError(self.unsupported)
+        return self.spark
+
+
+def _levels_leaf(node: _Node, path: List[str], d: int, r: int) -> tuple:
+    """(dotted path, Leaf) of a primitive node at definition level ``d``
+    and repetition level ``r`` above it."""
+    leaf = Leaf(node.el)
+    leaf.max_def = d + (node.rep != REQUIRED)
+    leaf.max_rep = r + (node.rep == REPEATED)
+    return ".".join(path + [node.name]), leaf
+
+
+def _nested_column(node: _Node, path: str) -> NestedColumn:
+    """The NestedColumn of a top-level group or repeated field."""
+    el = node.el
+    ct, lt = el.get(6), el.get(10) or {}
+    name = node.name
+    top_opt = node.rep == OPTIONAL
+    d0 = int(top_opt)
+
+    def unsupported(kind, why):
+        return NestedColumn(
+            name, kind, None, top_opt, d0, 0, [],
+            f"Parquet column {name!r} in {path}: {why}: the reference "
+            "runs it on its CPU route; the port has none (ROADMAP item "
+            "[9c])")
+
+    def fixed(leaf):
+        return leaf.spark is not None and isinstance(
+            leaf.spark, _FIXED_SPARK)
+
+    if not node.children:
+        # a bare repeated primitive: the legacy list of required elements
+        p, leaf = _levels_leaf(node, [], 0, 0)
+        if not fixed(leaf):
+            return unsupported("array", f"a list of {leaf.spark or 'an '}"
+                               "unsupported element")
+        return NestedColumn(name, "array", T.ArrayType(leaf.spark), False,
+                            0, 1, [(p, leaf)])
+    if ct == 3 or 3 in lt:  # LIST
+        if len(node.children) != 1 or node.children[0].rep != REPEATED:
+            return unsupported("array", "a LIST without one repeated child")
+        rnode = node.children[0]
+        d_rep = d0 + 1
+        if not rnode.children:
+            elem, epath = rnode, [name]  # 2-level: the repeated element
+            p, leaf = _levels_leaf(elem, epath, d0, 0)
+        elif (len(rnode.children) == 1 and rnode.name not in
+              _LIST_GROUP_NAMES and rnode.name != f"{name}_tuple"):
+            elem = rnode.children[0]
+            if elem.children:
+                return unsupported("array", "a list of structs or of lists")
+            p, leaf = _levels_leaf(elem, [name, rnode.name], d_rep, 1)
+        else:
+            return unsupported("array", "a list of structs")
+        if not fixed(leaf):
+            return unsupported("array", "a list of non-fixed-width "
+                               "elements")
+        return NestedColumn(name, "array", T.ArrayType(leaf.spark), top_opt,
+                            d0, d_rep, [(p, leaf)])
+    if ct in (1, 2) or 2 in lt:  # MAP
+        kv = node.children[0] if len(node.children) == 1 else None
+        if kv is None or kv.rep != REPEATED or len(kv.children) != 2 or \
+                any(c.children for c in kv.children):
+            return unsupported("map", "a MAP of nested keys or values")
+        d_rep = d0 + 1
+        kp, kleaf = _levels_leaf(kv.children[0], [name, kv.name], d_rep, 1)
+        vp, vleaf = _levels_leaf(kv.children[1], [name, kv.name], d_rep, 1)
+        if not (fixed(kleaf) and fixed(vleaf)):
+            return unsupported("map", "a MAP of non-fixed-width keys or "
+                               "values")
+        return NestedColumn(name, "map", T.MapType(kleaf.spark, vleaf.spark),
+                            top_opt, d0, d_rep, [(kp, kleaf), (vp, vleaf)])
+    # a STRUCT group
+    leaves = []
+    for c in node.children:
+        if c.children or c.rep == REPEATED:
+            return unsupported("struct", "a STRUCT with a nested field")
+        leaves.append(_levels_leaf(c, [name], d0, 0))
+    if not all(fixed(lf) for _, lf in leaves):
+        return unsupported("struct", "a STRUCT with non-fixed-width fields")
+    st = T.StructType([T.StructField(lf.name, lf.spark) for _, lf in leaves])
+    return NestedColumn(name, "struct", st, top_opt, d0, 0, leaves)
 
 
 class FileMeta:
-    """A file's footer: its leaves, row count and row groups."""
+    """A file's footer: its top-level columns (a flat :class:`Leaf` or a
+    :class:`NestedColumn`), row count and row groups."""
 
     def __init__(self, fm: Dict[int, object], path: str = "?"):
         schema = fm[2]
         self.num_rows = fm[3]
-        self.leaves: List[Leaf] = []
-        root = schema[0]
-        for el in schema[1:]:
-            name = el[4].decode("utf-8")
-            if el.get(5) or el.get(3) == REPEATED:
-                raise NotImplementedError(
-                    f"Parquet nested or repeated column {name!r} in {path} "
-                    "(LIST, MAP, STRUCT): nested types are not supported "
-                    "by the port's Parquet reader (ROADMAP item 9)")
-            self.leaves.append(Leaf(el))
-        if root.get(5, len(self.leaves)) != len(self.leaves):
-            raise NotImplementedError(
-                f"Parquet nested schema in {path} is not supported")
-        names = [lf.name for lf in self.leaves]
-        self.row_groups = [RowGroupMeta(rg, names) for rg in fm.get(4, [])]
+        self.leaves: List = []
+        paths: List[str] = []
+        for node in _schema_tree(schema):
+            if node.children or node.rep == REPEATED:
+                col = _nested_column(node, path)
+                self.leaves.append(col)
+                paths.extend(p for p, _ in col.leaves)
+            else:
+                self.leaves.append(Leaf(node.el))
+                paths.append(node.name)
+        self.row_groups = [RowGroupMeta(rg, paths) for rg in fm.get(4, [])]
 
     def leaf(self, name: str) -> Leaf:
         for lf in self.leaves:
@@ -584,6 +752,18 @@ def _byte_stream_split(buf, count: int, leaf: Leaf):
     return rows.view(_NP_PLAIN[phys]).reshape(-1)
 
 
+def _level_values(buf, max_level: int, count: int, prefixed: bool
+                  ) -> Tuple[np.ndarray, int]:
+    """``count`` repetition or definition levels of a nested leaf (RLE,
+    bit width of ``max_level``): (int32 levels, bytes used)."""
+    bw = max(1, int(max_level).bit_length())
+    if prefixed:
+        n = struct.unpack_from("<I", buf, 0)[0]
+        vals, _ = N.rle_decode(memoryview(buf)[4:4 + n], bw, count)
+        return vals, 4 + n
+    return N.rle_decode(buf, bw, count)
+
+
 def _levels(buf, encoding: int, count: int, prefixed: bool
             ) -> Tuple[np.ndarray, int]:
     """Definition levels of a flat OPTIONAL column (max level 1): (bool
@@ -651,10 +831,12 @@ class _ChunkValues:
             self.parts.append(self.dictionary[idx])
 
 
-def _decode_chunk(raw, cm: ChunkMeta, leaf: Leaf, values: _ChunkValues
-                  ) -> np.ndarray:
+def _decode_chunk(raw, cm: ChunkMeta, leaf: Leaf, values: _ChunkValues,
+                  levels: Optional[list] = None) -> np.ndarray:
     """Walk one column chunk's pages; non-null values go to ``values``.
-    Returns the chunk's validity."""
+    Returns the chunk's validity (one entry a level: a nested leaf's value
+    slots). A nested leaf (``levels`` given) appends each page's
+    (repetition levels, definition levels) to ``levels``."""
     pos, got = 0, 0
     valid_parts = []
     rdr = ThriftReader(raw)
@@ -679,7 +861,19 @@ def _decode_chunk(raw, cm: ChunkMeta, leaf: Leaf, values: _ChunkValues
             _check_encoding(enc)
             data = _decompress(cm.codec, page, usize)
             off = 0
-            if leaf.optional:
+            if levels is not None:
+                rl = np.zeros(n, dtype=np.int32)
+                dl = np.full(n, leaf.max_def, dtype=np.int32)
+                if leaf.max_rep:
+                    rl, used = _level_values(data, leaf.max_rep, n, True)
+                    off += used
+                if leaf.max_def:
+                    dl, used = _level_values(memoryview(data)[off:],
+                                             leaf.max_def, n, True)
+                    off += used
+                levels.append((rl, dl))
+                valid = dl == leaf.max_def
+            elif leaf.optional:
                 valid, off = _levels(data, dh.get(3, RLE), n, True)
             else:
                 valid = np.ones(n, dtype=np.bool_)
@@ -689,7 +883,15 @@ def _decode_chunk(raw, cm: ChunkMeta, leaf: Leaf, values: _ChunkValues
             n, enc = dh[1], dh[4]
             _check_encoding(enc)
             dl, rl = dh.get(5, 0), dh.get(6, 0)
-            if leaf.optional:
+            if levels is not None:
+                rls = (_level_values(page[:rl], leaf.max_rep, n, False)[0]
+                       if leaf.max_rep else np.zeros(n, dtype=np.int32))
+                dls = (_level_values(page[rl:rl + dl], leaf.max_def, n,
+                                     False)[0] if leaf.max_def
+                       else np.zeros(n, dtype=np.int32))
+                levels.append((rls, dls))
+                valid = dls == leaf.max_def
+            elif leaf.optional:
                 valid, _ = _levels(page[rl:rl + dl], RLE, n, False)
             else:
                 valid = np.ones(n, dtype=np.bool_)
@@ -793,6 +995,12 @@ def _to_spark(phys_vals, leaf: Leaf) -> np.ndarray:
     return phys_vals.astype(dt.np_dtype, copy=False)
 
 
+#: Spark types of the leaves a nested layout holds (columnar/nested.py)
+_FIXED_SPARK = (T.BooleanType, T.ByteType, T.ShortType, T.IntegerType,
+                T.LongType, T.FloatType, T.DoubleType, T.DateType,
+                T.TimestampType)
+
+
 def _fill(dt: T.DataType, n: int, valid: np.ndarray, vals) -> np.ndarray:
     """Scatter the non-null ``vals`` into an n-row array (nulls 0)."""
     if T.is_dec128(dt):
@@ -807,15 +1015,17 @@ def _fill(dt: T.DataType, n: int, valid: np.ndarray, vals) -> np.ndarray:
     return out
 
 
-def decode_column(raws: Sequence, metas: Sequence[ChunkMeta], leaf: Leaf
-                  ) -> HostColumn:
-    """One column from its chunks (one per row group read, in order)."""
+def decode_column(raws: Sequence, metas: Sequence[ChunkMeta], leaf: Leaf,
+                  levels: Optional[list] = None) -> HostColumn:
+    """One column from its chunks (one per row group read, in order); for
+    a nested leaf (``levels`` given) its value slots, one a level, with
+    the levels appended to ``levels``."""
     dt = leaf.require()
     valid_parts, table_parts, code_parts, phys_parts = [], [], [], []
     base = 0
     for raw, cm in zip(raws, metas):
         vals = _ChunkValues(leaf)
-        valid_parts.append(_decode_chunk(raw, cm, leaf, vals))
+        valid_parts.append(_decode_chunk(raw, cm, leaf, vals, levels))
         if leaf.physical == BYTE_ARRAY:
             code_parts.extend(p + base for p in vals.parts)
             table_parts.extend(vals.table)
@@ -889,6 +1099,70 @@ def _string_column(valid: np.ndarray, table: np.ndarray,
     return col
 
 
+def list_layout(rep: np.ndarray, deff: np.ndarray, d_row: int, d_rep: int
+                ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """A repeated leaf's rows from its levels: (row validity, int32
+    offsets, the definition level of each element slot). A level with
+    repetition 0 starts a row; its definition tells a null row (below
+    ``d_row``) from an empty one (below ``d_rep``) from one with
+    elements; every level at ``d_rep`` or above is an element slot, and
+    its definition tells a null element (or, in a list of structs, a null
+    struct) from a value."""
+    starts = rep == 0
+    row_of = np.cumsum(starts) - 1
+    nrows = int(starts.sum())
+    row_valid = deff[starts] >= d_row
+    slot = deff >= d_rep
+    lengths = np.bincount(row_of[slot], minlength=nrows)
+    offsets = np.zeros(nrows + 1, dtype=np.int32)
+    offsets[1:] = np.cumsum(lengths)
+    return row_valid, offsets, deff[slot]
+
+
+def _decode_nested(path: str, col: NestedColumn, rgs) -> HostColumn:
+    """A nested column from its leaves' chunks: offsets and validity at
+    each level rebuilt from the levels, the leaves' values placed at
+    their non-null slots."""
+    from spark_rapids_tpu_torch.columnar import nested as CN
+    parts = []
+    with open(path, "rb") as f:
+        for p, leaf in col.leaves:
+            raws = []
+            for rg in rgs:
+                cm = rg.chunks[p]
+                f.seek(cm.start)
+                raw = f.read(cm.length)
+                if len(raw) != cm.length:
+                    raise ColumnarProcessingError(
+                        f"{path}: truncated column chunk {p!r}")
+                raws.append(raw)
+            levels: list = []
+            slots = decode_column(raws, [rg.chunks[p] for rg in rgs], leaf,
+                                  levels)
+            rl = (np.concatenate([x for x, _ in levels]) if levels
+                  else np.zeros(0, np.int32))
+            dl = (np.concatenate([y for _, y in levels]) if levels
+                  else np.zeros(0, np.int32))
+            parts.append((leaf, slots, rl, dl))
+    if col.kind == "struct":
+        fields = [(slots.data, slots.validity) for _, slots, _, _ in parts]
+        row_valid = parts[0][3] >= col.d_row
+        return HostColumn(col.spark, CN.StructData(fields), row_valid)
+    streams = []
+    row_valid = offsets = None
+    for leaf, slots, rl, dl in parts:
+        row_valid, offsets, _ = list_layout(rl, dl, col.d_row, col.d_rep)
+        slot = dl >= col.d_rep
+        streams.append((np.ascontiguousarray(slots.data[slot]),
+                        np.ascontiguousarray(slots.validity[slot])))
+    if col.kind == "array":
+        return HostColumn(col.spark, CN.ArrayData(offsets, *streams[0]),
+                          row_valid)
+    (kd, kv), (vd, vv) = streams
+    return HostColumn(col.spark, CN.MapData(offsets, kd, kv, vd, vv),
+                      row_valid)
+
+
 def read_columns(path: str, meta: FileMeta, names: Sequence[str],
                  row_groups: Optional[Sequence[int]] = None) -> HostTable:
     """Decode ``names`` of ``path``'s row groups (all, or the listed
@@ -898,10 +1172,11 @@ def read_columns(path: str, meta: FileMeta, names: Sequence[str],
     leaves = [meta.leaf(nm) for nm in names]
     for lf in leaves:
         lf.require()
-    raws: Dict[str, list] = {nm: [] for nm in names}
+    raws: Dict[str, list] = {nm: [] for nm, lf in zip(names, leaves)
+                             if isinstance(lf, Leaf)}
     with open(path, "rb") as f:
         for rg in rgs:
-            for nm in names:
+            for nm in raws:
                 cm = rg.chunks[nm]
                 f.seek(cm.start)
                 raw = f.read(cm.length)
@@ -910,6 +1185,7 @@ def read_columns(path: str, meta: FileMeta, names: Sequence[str],
                         f"{path}: truncated column chunk {nm!r}")
                 raws[nm].append(raw)
     cols = [decode_column(raws[nm], [rg.chunks[nm] for rg in rgs], lf)
+            if isinstance(lf, Leaf) else _decode_nested(path, lf, rgs)
             for nm, lf in zip(names, leaves)]
     return HostTable(list(names), cols)
 
@@ -1169,6 +1445,143 @@ def _write_chunk(f, name: str, col: HostColumn, phys: int,
     return [(2, _I64, start), (3, _STRUCT, meta)], usize_total, csize_total
 
 
+def _set_repetition(fields, repetition: int):
+    return [(fid, ft, repetition if fid == 3 else v) for fid, ft, v in fields]
+
+
+def _nested_schema(name: str, dt) -> Tuple[list, list]:
+    """(schema elements, leaves) of one nested column as pyarrow writes
+    it: the 3-level LIST, the MAP's ``key_value`` group, a STRUCT group.
+    A leaf is (path, Spark type, physical type, max repetition, max
+    definition)."""
+    from spark_rapids_tpu_torch.columnar.nested import check_layout
+    check_layout(dt, f"writing Parquet column {name!r}")
+    if isinstance(dt, T.ArrayType):
+        phys, el = _schema_element("element", dt.element_type)
+        groups = [[(3, _I32, OPTIONAL), (4, _BINARY, name), (5, _I32, 1),
+                   (6, _I32, 3), (10, _STRUCT, [(3, _STRUCT, [])])],
+                  [(3, _I32, REPEATED), (4, _BINARY, "list"), (5, _I32, 1)],
+                  el]
+        return groups, [([name, "list", "element"], dt.element_type, phys,
+                         1, 3)]
+    if isinstance(dt, T.MapType):
+        kphys, kel = _schema_element("key", dt.key_type)
+        vphys, vel = _schema_element("value", dt.value_type)
+        groups = [[(3, _I32, OPTIONAL), (4, _BINARY, name), (5, _I32, 1),
+                   (6, _I32, 1), (10, _STRUCT, [(2, _STRUCT, [])])],
+                  [(3, _I32, REPEATED), (4, _BINARY, "key_value"),
+                   (5, _I32, 2)],
+                  _set_repetition(kel, REQUIRED), vel]
+        return groups, [([name, "key_value", "key"], dt.key_type, kphys,
+                         1, 2),
+                        ([name, "key_value", "value"], dt.value_type, vphys,
+                         1, 3)]
+    groups = [[(3, _I32, OPTIONAL), (4, _BINARY, name),
+               (5, _I32, len(dt.fields))]]
+    leaves = []
+    for f in dt.fields:
+        phys, el = _schema_element(f.name, f.data_type)
+        groups.append(el)
+        leaves.append(([name, f.name], f.data_type, phys, 0, 2))
+    return groups, leaves
+
+
+def _nested_levels(col: HostColumn) -> list:
+    """Per leaf of a nested host column, (repetition levels, definition
+    levels, slot data, slot validity), one entry a level, in the order
+    ``_nested_schema`` lists the leaves."""
+    from spark_rapids_tpu_torch.columnar import nested as CN
+    data = col.data
+    row_ok = np.asarray(col.validity, dtype=bool)
+    if isinstance(data, CN.StructData):
+        out = []
+        for d, v in data.fields:
+            v = np.asarray(v, dtype=bool) & row_ok
+            deff = np.where(row_ok, np.where(v, 2, 1), 0).astype(np.int32)
+            out.append((np.zeros(len(d), np.int32), deff, d, v))
+        return out
+    data = CN.drop_null_rows(data, row_ok)
+    off = data.offsets.astype(np.int64)
+    n = len(off) - 1
+    lens = off[1:] - off[:-1]
+    nlev = np.maximum(lens, 1)
+    total = int(nlev.sum())
+    row_of = np.repeat(np.arange(n), nlev)
+    starts = np.zeros(n + 1, dtype=np.int64)
+    starts[1:] = np.cumsum(nlev)
+    rep = np.ones(total, dtype=np.int32)
+    rep[starts[:-1]] = 0
+    is_elem = np.repeat(lens > 0, nlev)
+    empty_def = np.where(row_ok[row_of[~is_elem]], 1, 0).astype(np.int32)
+    out = []
+    streams = [(data.data, data.validity)] if isinstance(
+        data, CN.ArrayData) else [(data.kdata, None),
+                                  (data.vdata, data.vvalid)]
+    for d, v in streams:
+        deff = np.empty(total, dtype=np.int32)
+        deff[~is_elem] = empty_def
+        slot_d = np.zeros(total, dtype=d.dtype)
+        slot_d[is_elem] = d[off[0]:off[-1]]
+        if v is None:  # a map's key: REQUIRED
+            deff[is_elem] = 2
+            slot_v = is_elem.copy()
+        else:
+            ev = np.asarray(v[off[0]:off[-1]], dtype=bool)
+            deff[is_elem] = np.where(ev, 3, 2)
+            slot_v = np.zeros(total, dtype=bool)
+            slot_v[is_elem] = ev
+        out.append((rep, deff, slot_d, slot_v))
+    return out
+
+
+def _write_nested_chunk(f, path: List[str], dt, phys: int, max_rep: int,
+                        max_def: int, levels, codec: int, page_bytes: int):
+    """One leaf of a nested column as a column chunk at f's position:
+    version-1 data pages, each starting at a row, of RLE repetition and
+    definition levels and the PLAIN non-null values. Returns its
+    ColumnChunk fields and sizes."""
+    rep, deff, slot_d, slot_v = levels
+    enc = _Encoded(HostColumn(dt, slot_d, slot_v), phys, None)
+    total = len(rep)
+    start = f.tell()
+    row_starts = np.flatnonzero(rep == 0)
+    width = np.dtype(_NP_PLAIN[phys]).itemsize if phys != BOOLEAN else 1
+    per_page = max(1, page_bytes // (width + 1))
+    usize_total = csize_total = 0
+    lo = 0
+    while lo < total or lo == 0:
+        # the first row start at or past lo + per_page ends the page
+        j = np.searchsorted(row_starts, lo + per_page)
+        hi = int(row_starts[j]) if j < len(row_starts) else total
+        body = bytearray()
+        if max_rep:
+            lv = N.rle_encode(rep[lo:hi], max(1, max_rep.bit_length()))
+            body += struct.pack("<I", len(lv)) + lv
+        lv = N.rle_encode(deff[lo:hi], max(1, max_def.bit_length()))
+        body += struct.pack("<I", len(lv)) + lv
+        body += enc.plain_values(lo, hi)
+        body = bytes(body)
+        comp = _compress(codec, body)
+        head = thrift_bytes([
+            (1, _I32, DATA_PAGE), (2, _I32, len(body)), (3, _I32, len(comp)),
+            (5, _STRUCT, [(1, _I32, hi - lo), (2, _I32, PLAIN),
+                          (3, _I32, RLE), (4, _I32, RLE)])])
+        f.write(head)
+        f.write(comp)
+        usize_total += len(head) + len(body)
+        csize_total += len(head) + len(comp)
+        lo = hi
+        if total == 0:
+            break
+    stats = [(3, _I64, int(total - np.count_nonzero(slot_v))),
+             (5, _BINARY, enc.max), (6, _BINARY, enc.min)]
+    meta = [(1, _I32, phys), (2, _LIST, (_I32, [PLAIN, RLE])),
+            (3, _LIST, (_BINARY, path)), (4, _I32, codec),
+            (5, _I64, total), (6, _I64, usize_total),
+            (7, _I64, csize_total), (9, _I64, start), (12, _STRUCT, stats)]
+    return [(2, _I64, start), (3, _STRUCT, meta)], usize_total, csize_total
+
+
 #: writer codec names; ``"lz4"`` is LZ4_RAW, the id pyarrow writes for it
 CODECS = {"snappy": SNAPPY, "gzip": GZIP, "zstd": ZSTD, "lz4": LZ4_RAW,
           "lz4_raw": LZ4_RAW, "none": UNCOMPRESSED,
@@ -1191,12 +1604,20 @@ def write_table(table: HostTable, path: str, compression: str = "snappy",
     codec = CODECS[key]
     elements = [[(4, _BINARY, "schema"), (5, _I32, len(table.names))]]
     physical = []
+    n_leaves = 0
     for name, c in zip(table.names, table.columns):
+        if isinstance(c.dtype, (T.ArrayType, T.MapType, T.StructType)):
+            groups, leaves = _nested_schema(name, c.dtype)
+            elements.extend(groups)
+            physical.append(leaves)
+            n_leaves += len(leaves)
+            continue
         phys, fields = _schema_element(name, c.dtype)
         tl = (decimal_bytes(c.dtype.precision)
               if isinstance(c.dtype, T.DecimalType) else None)
         physical.append((phys, tl))
         elements.append(fields)
+        n_leaves += 1
     n = table.num_rows
     step = max(1, int(row_group_rows))
     row_groups = []
@@ -1206,13 +1627,19 @@ def write_table(table: HostTable, path: str, compression: str = "snappy",
             part = table.slice(lo, min(step, n - lo))
             rg_start = f.tell()
             chunks, usize, csize = [], 0, 0
-            for name, c, (phys, tl) in zip(part.names, part.columns,
-                                           physical):
-                cc, u, cz = _write_chunk(f, name, c, phys, tl, codec,
-                                         page_bytes)
-                chunks.append((_STRUCT, cc))
-                usize += u
-                csize += cz
+            for name, c, spec in zip(part.names, part.columns, physical):
+                if isinstance(spec, list):  # a nested column's leaves
+                    outs = [_write_nested_chunk(f, path, dt, phys, mr, md,
+                                                lv, codec, page_bytes)
+                            for (path, dt, phys, mr, md), lv in
+                            zip(spec, _nested_levels(c))]
+                else:
+                    outs = [_write_chunk(f, name, c, spec[0], spec[1],
+                                         codec, page_bytes)]
+                for cc, u, cz in outs:
+                    chunks.append((_STRUCT, cc))
+                    usize += u
+                    csize += cz
             row_groups.append([
                 (1, _LIST, (_STRUCT, [c for _, c in chunks])),
                 (2, _I64, usize), (3, _I64, part.num_rows),
@@ -1224,7 +1651,8 @@ def write_table(table: HostTable, path: str, compression: str = "snappy",
             (3, _I64, n),
             (4, _LIST, (_STRUCT, row_groups)),
             (6, _BINARY, "spark_rapids_tpu_torch"),
-            (7, _LIST, (_STRUCT, [[(1, _STRUCT, [])] for _ in physical])),
+            (7, _LIST, (_STRUCT, [[(1, _STRUCT, [])]
+                                  for _ in range(n_leaves)])),
         ])
         f.write(footer)
         f.write(struct.pack("<I", len(footer)))

@@ -19,6 +19,7 @@ from typing import Callable, List, Optional, Sequence
 import numpy as np
 
 from spark_rapids_tpu_torch.columnar import HostColumn, HostTable
+from spark_rapids_tpu_torch.columnar.nested import NestedData
 from spark_rapids_tpu_torch.errors import ColumnarProcessingError
 
 
@@ -114,8 +115,9 @@ def write_partitioned(table: HostTable, path: str,
             sub_cols = []
             for name in data_names:
                 c = table.columns[table.names.index(name)]
-                sub_cols.append(HostColumn(c.dtype, c.data[idx],
-                                           c.validity[idx]))
+                rows = (c.data.take(idx) if isinstance(c.data, NestedData)
+                        else c.data[idx])
+                sub_cols.append(HostColumn(c.dtype, rows, c.validity[idx]))
             sub = HostTable(data_names, sub_cols)
             rel = os.path.join(*[
                 f"{k}={_escape_partition_value(v)}"

@@ -5,7 +5,8 @@ aggregate exec interprets them; Spark's result types: sum(float/double)
 -> DOUBLE, sum(integral) -> LONG, sum(decimal(p, s)) ->
 decimal(min(38, p + 10), s), min/max/first/last -> the child's type, avg,
 variance and stddev -> DOUBLE (also over a decimal), count -> LONG (never
-null). MergeMoments is internal to
+null), collect_list/collect_set -> an array of the child's type (never
+null), percentile -> DOUBLE. MergeMoments is internal to
 the multi-batch merge (execs/aggregate.py ``_merge_plan``)."""
 
 from __future__ import annotations
@@ -164,3 +165,47 @@ class MergeMoments(AggregateFunction):
 
     def with_children(self, children):
         return MergeMoments(children[0], children[1], children[2])
+
+
+class CollectList(AggregateFunction):
+    """collect_list(e) -> the group's non-null values in input order (an
+    empty array, never null)."""
+
+    @property
+    def data_type(self):
+        return T.ArrayType(self.child.data_type)
+
+
+class CollectSet(AggregateFunction):
+    """collect_set(e) -> the group's distinct non-null values, in value
+    order (Spark leaves the order unspecified; the reference emits
+    value-sorted). -0.0 and 0.0 are one value, as are all NaNs; the
+    first occurrence in input order is the one kept."""
+
+    @property
+    def data_type(self):
+        return T.ArrayType(self.child.data_type)
+
+
+class Percentile(AggregateFunction):
+    """percentile(e, p): exact, linear interpolation between the sorted
+    values (``approx_percentile`` is served by it exactly)."""
+
+    def __init__(self, child: Expression, percentage: float):
+        super().__init__(child)
+        self.percentage = float(percentage)
+        if not 0.0 <= self.percentage <= 1.0:
+            raise ValueError(
+                f"percentile percentage must be in [0, 1], got {percentage}")
+
+    def with_children(self, children):
+        return Percentile(children[0], self.percentage)
+
+    @property
+    def data_type(self):
+        return T.DOUBLE
+
+
+#: aggregates that need their groups' rows contiguous and sorted: the
+#: sort-segment route only, over one coalesced batch
+SORT_ONLY_AGGS = (CollectList, CollectSet, Percentile)

@@ -71,6 +71,13 @@ class EvalCtx:
         self.live = live
         self._prep_iter: Optional[Iterator[NodePrep]] = None
 
+    def row_mask(self) -> torch.Tensor:
+        """The live slots: ``live``, else the prefix ``[0, nrows)``."""
+        if self.live is not None:
+            return self.live
+        return torch.arange(self.capacity, dtype=torch.int32,
+                            device=self.device) < self.nrows
+
     def next_prep(self) -> NodePrep:
         return next(self._prep_iter)  # type: ignore[arg-type]
 
@@ -214,6 +221,10 @@ class Expression:
         if isinstance(dtype, str):
             dtype = T.parse_type(dtype)
         return Cast(self, dtype)
+
+    def getField(self, name: str) -> "Expression":
+        from spark_rapids_tpu_torch.ops.nested import GetStructField
+        return GetStructField(self, name)
 
     def isnull(self):
         from spark_rapids_tpu_torch.ops.predicates import IsNull

@@ -218,6 +218,24 @@ def _visit(node: P.PlanNode, required: FrozenSet[int]) -> P.PlanNode:
         new.names = [node.names[i] for i in kept]
         return new
 
+    if isinstance(node, P.Generate):
+        cschema = node.children[0].output_schema()
+        cnames = [n for n, _ in cschema]
+        creq = {cnames.index(n) for n in node.required}
+        _collect_refs(node.gen_child, creq)
+        child = _visit(node.children[0], frozenset(creq))
+        cmap = {o: i for i, o in enumerate(_kept_of(creq,
+                                                    node.children[0]))}
+        new = P.Generate.__new__(P.Generate)
+        new.children = (child,)
+        new.gen_child = _remap(node.gen_child, cmap)
+        new.pos, new.outer = node.pos, node.outer
+        new.out_names = list(node.out_names)
+        new.required = list(node.required)
+        if kept != list(range(nall)):
+            new = _keep_project(new, kept)
+        return new
+
     # conservative default (a RangeNode, a CachedRelation, whose child
     # is pruned when it runs): keep the node whole, prune nothing below it
     if kept == list(range(nall)):

@@ -1,8 +1,8 @@
 """Tag and convert plan nodes into device execs (port of the LocalScan,
 file scan (``register_file_scan``, ``_convert_file_scan``), RangeNode,
 Project, Filter, Aggregate, Sort, Join, Limit, Union, Expand, Sample,
-CachedRelation, TakeOrderedAndProject, WindowNode, WindowGroupLimit and
-Exchange rules of
+CachedRelation, TakeOrderedAndProject, WindowNode, WindowGroupLimit,
+Exchange and Generate rules of
 ``spark_rapids_tpu/overrides/rules.py``, the column pruning and the
 window group-limit rewrite its ``apply_overrides`` runs first, and
 ``lore.assign_lore_ids``: every exec gets its plan position, pre-order
@@ -12,7 +12,14 @@ The reference tags each node and falls back to the CPU where a node or
 expression is unsupported; the port has no fallback, so tagging raises
 NotImplementedError naming what is missing, before anything runs, and a
 plan node the circuit breaker tripped raises KernelCrashError there
-(runtime/faults.py). Each converted exec carries the plan-node class it
+(runtime/faults.py). Nested types are gated as the reference gates them
+(its ``_tag_scan``/``_tag_project``/``_tag_generate``/``_tag_aggregate``
+and the default output check of every other rule): array, struct and map
+columns may leave a scan, a cached relation or a project; arrays may
+leave a generate or an aggregate (collect_list, collect_set); anything
+else with a nested column in its output, an array grouping key, and a
+nested column passing through a generator raise naming ROADMAP item
+[9c], where the reference runs its CPU route. Each converted exec carries the plan-node class it
 came from (``_plan_origin``, the breaker's unit), and a broadcast inner or
 left-semi join installs dynamic partition pruning on its probe side's
 file scan (``_maybe_install_dpp``)."""
@@ -75,15 +82,51 @@ def _convert_file_scan(node, device, policy) -> TpuExec:
     return xbasic.TpuFileScanExec(node, device, policy)
 
 
+def _tag_nested(node: P.PlanNode) -> None:
+    """The reference's nested-type gating (``_tag_scan``,
+    ``_tag_project``, ``_tag_generate``, ``_tag_aggregate`` and every
+    other rule's default output check): raise where it falls back."""
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.columnar.nested import (
+        is_nested_type,
+        not_ported_9c,
+    )
+    from spark_rapids_tpu_torch.io.common import FileScanNode
+    if isinstance(node, (P.LocalScan, P.CachedRelation, P.Project,
+                         FileScanNode)):
+        return
+    arrays_ok = isinstance(node, (P.Generate, P.Aggregate))
+    if isinstance(node, P.Aggregate):
+        for g in node.grouping:
+            if is_nested_type(g.data_type):
+                not_ported_9c(f"grouping key of type "
+                              f"{g.data_type.simple_string()}")
+    if isinstance(node, P.Generate):
+        child_schema = dict(node.children[0].output_schema())
+        for n in node.required:
+            if is_nested_type(child_schema[n]):
+                not_ported_9c(f"nested column {n} passing through a "
+                              "generator (prune it or explode it)")
+    for name, dt in node.output_schema():
+        if is_nested_type(dt) and not (arrays_ok
+                                       and isinstance(dt, T.ArrayType)):
+            not_ported_9c(f"{node.name} with nested output column {name} "
+                          f"({dt.simple_string()})")
+
+
 def _tag(node: P.PlanNode, conf: C.RapidsConf) -> None:
     from spark_rapids_tpu_torch.io.common import FileScanNode
     from spark_rapids_tpu_torch.runtime.faults import CIRCUIT_BREAKER
     CIRCUIT_BREAKER.check(type(node).__name__)
+    _tag_nested(node)
     if isinstance(node, FileScanNode):
         _tag_file_scan(node, conf)
     elif isinstance(node, P.Aggregate):
         for _, fn in node.agg_specs:
             check_agg_supported(fn)
+    elif isinstance(node, P.Generate):
+        from spark_rapids_tpu_torch.ops.collections import check_fixed_array
+        check_fixed_array(node.gen_child, "a generator")
     elif isinstance(node, P.Sort) and not node.global_sort:
         raise NotImplementedError("a per-partition (local) sort is not ported")
     elif isinstance(node, P.Join):
@@ -95,7 +138,8 @@ def _tag(node: P.PlanNode, conf: C.RapidsConf) -> None:
     elif not isinstance(node, (P.LocalScan, P.Project, P.Filter, P.Sort,
                                P.Limit, P.TakeOrderedAndProject,
                                P.WindowGroupLimit, P.RangeNode, P.Union,
-                               P.Expand, P.Sample, P.CachedRelation)):
+                               P.Expand, P.Sample, P.CachedRelation,
+                               P.Generate)):
         raise NotImplementedError(
             f"plan node {node.name} is not ported to spark_rapids_tpu_torch")
 
@@ -275,11 +319,25 @@ def _convert_aggregate(node: P.Aggregate, child: TpuExec,
     child, exprs, filters = peel_input_chain(child, exprs)
     grouping = exprs[:ngroup]
     agg_specs = [(n, fn) for (n, _), fn in zip(node.agg_specs, exprs[ngroup:])]
+    from spark_rapids_tpu_torch.ops.aggregates import SORT_ONLY_AGGS
+    if any(isinstance(fn, SORT_ONLY_AGGS) for _, fn in agg_specs):
+        # collect and percentile have no merge decomposition: one
+        # coalesced batch (the reference's rules.py)
+        coalesced = TpuCoalesceExec(child, require_single=True)
+    else:
+        coalesced = TpuCoalesceExec(child,
+                                    target_bytes=xbasic.BATCH_SIZE_BYTES)
     return TpuHashAggregateExec(
-        TpuCoalesceExec(child, target_bytes=xbasic.BATCH_SIZE_BYTES),
+        coalesced,
         grouping, agg_specs, node.grouping_names, filters=filters,
         max_dict_groups=conf.get_entry(C.AGG_MAX_DICT_GROUPS),
         max_domain_groups=conf.get_entry(C.AGG_MAX_KEY_DOMAIN_GROUPS))
+
+
+def _convert_generate(node: P.Generate, children) -> TpuExec:
+    from spark_rapids_tpu_torch.execs.generate import TpuGenerateExec
+    return TpuGenerateExec(children[0], node.gen_child, node.pos,
+                           node.outer, node.out_names, node.required)
 
 
 def _convert_join(node: P.Join, children, conf: C.RapidsConf) -> TpuExec:
@@ -445,6 +503,8 @@ def _convert_node(node: P.PlanNode, conf: C.RapidsConf, device) -> TpuExec:
         return xbasic.TpuSampleExec(children[0], node.fraction, node.seed)
     if isinstance(node, P.Project):
         return TpuProjectExec(children[0], node.exprs, node.names)
+    if isinstance(node, P.Generate):
+        return _convert_generate(node, children)
     if isinstance(node, P.Filter):
         return TpuFilterExec(children[0], node.condition)
     if isinstance(node, P.Aggregate):

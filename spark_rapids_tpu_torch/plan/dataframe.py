@@ -1,7 +1,8 @@
 """DataFrame API (port of the DataFrame/GroupedData/from_host_table/
 range_df part of ``spark_rapids_tpu/plan/dataframe.py``: select,
 with_column, filter, group_by, agg, sort, limit, union, sample, cache,
-join (on column names, on a condition, or a cross join), with_windows,
+join (on column names, on a condition, or a cross join), a select with
+one generator (Generate + Project), stack, replicate_rows, with_windows,
 repartition, columns, schema, count, temp views and the writers,
 ``write_parquet`` and ``write.format(...)``): builds plan nodes; a
 session executes them."""
@@ -55,8 +56,73 @@ class DataFrame:
         return self._wrap(P.CachedRelation(self.plan, self.session))
 
     def select(self, *exprs) -> "DataFrame":
+        """A projection; a select with one generator (explode, posexplode
+        [outer]) plans as Generate + Project (Spark's rule), with only
+        the columns the other select items read passing through the
+        Generate (requiredChildOutput)."""
+        from spark_rapids_tpu_torch.ops.collections import Explode
+        from spark_rapids_tpu_torch.ops.expr import (
+            Alias,
+            AttributeReference,
+            output_name,
+        )
         exprs = [col(e) if isinstance(e, str) else e for e in exprs]
-        return self._wrap(P.Project(self.plan, exprs))
+        gens = [(i, e) for i, e in enumerate(exprs)
+                if isinstance(e, Explode) or (
+                    isinstance(e, Alias)
+                    and isinstance(e.children[0], Explode))]
+        if not gens:
+            return self._wrap(P.Project(self.plan, exprs))
+        if len(gens) > 1:
+            raise ValueError("only one generator per select (Spark rule)")
+        i, e = gens[0]
+        gen = e.children[0] if isinstance(e, Alias) else e
+        names = (["pos", output_name(e, "col")] if gen.pos
+                 else [output_name(e, "col")])
+        refs = set()
+
+        def walk(x):
+            if isinstance(x, AttributeReference):
+                refs.add(x.col_name)
+            for ch in x.children:
+                walk(ch)
+
+        for j, other in enumerate(exprs):
+            if j != i:
+                walk(other)
+        g = P.Generate(self.plan, gen.children[0], gen.pos, gen.outer,
+                       names, required=sorted(refs))
+        out = exprs[:i] + [col(n) for n in names] + exprs[i + 1:]
+        return self._wrap(P.Project(g, out))
+
+    def stack(self, n: int, *exprs, names=None) -> "DataFrame":
+        """stack(n, e1..ek): n output rows a row with k/n columns (the
+        reference's rewrite of GpuGenerateExec's Stack: a UNION of n
+        projections; the order across the generated rows is unspecified,
+        as in Spark)."""
+        exprs = [col(e) if isinstance(e, str) else e for e in exprs]
+        if n <= 0 or len(exprs) % n != 0:
+            raise ValueError("stack(n, ...) needs a multiple of n exprs")
+        width = len(exprs) // n
+        if names is None:
+            names = [f"col{i}" for i in range(width)]
+        parts = [self.select(*[exprs[r * width + j].alias(names[j])
+                               for j in range(width)]).plan
+                 for r in range(n)]
+        return self._wrap(parts[0] if len(parts) == 1 else P.Union(parts))
+
+    def replicate_rows(self, n_expr) -> "DataFrame":
+        """Each row repeated n times (the reference's GpuReplicateRows
+        rewrite): explode(sequence(1, n)) with the sequence dropped; rows
+        with n <= 0 are dropped."""
+        from spark_rapids_tpu_torch import functions as F
+        from spark_rapids_tpu_torch.ops.expr import lit
+        n_expr = col(n_expr) if isinstance(n_expr, str) else n_expr
+        keep = [c for c, _ in self.plan.output_schema()]
+        exploded = self.filter(n_expr > lit(0)).select(
+            *[col(c) for c in keep],
+            F.explode(F.sequence(lit(1), n_expr)).alias("__rep"))
+        return exploded.select(*[col(c) for c in keep])
 
     def with_column(self, name: str, expr: Expression) -> "DataFrame":
         existing = [col(n) for n, _ in self.plan.output_schema() if n != name]

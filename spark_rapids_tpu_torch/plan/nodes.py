@@ -1,7 +1,7 @@
 """Plan nodes (port of the LocalScan, RangeNode, Project, Filter,
 Aggregate, Sort, SortOrder, Limit, Union, Expand, Join, Sample,
-TakeOrderedAndProject, CachedRelation, WindowNode, WindowGroupLimit and
-Exchange parts of ``spark_rapids_tpu/plan/nodes.py``). Nodes bind their
+TakeOrderedAndProject, CachedRelation, WindowNode, WindowGroupLimit,
+Exchange and Generate parts of ``spark_rapids_tpu/plan/nodes.py``). Nodes bind their
 expressions against the child's schema at construction; the overrides
 layer (overrides/rules.py) turns them into device execs. The reference's
 CPU execution of these nodes is not ported: the port has no CPU
@@ -113,6 +113,42 @@ class Project(PlanNode):
         n_in = max(len(self.children[0].output_schema()), 1)
         return int(est * max(len(self.names), 1) / n_in) \
             if len(self.names) > n_in else est
+
+
+class Generate(PlanNode):
+    """explode / posexplode [outer] of an array (reference: Generate,
+    GpuGenerateExec.scala). Output: the required child columns, then
+    [pos], then the element column. Without outer, rows with a null or
+    empty array produce nothing; with outer, one row of nulls each."""
+
+    def __init__(self, child: PlanNode, gen_child: Expression,
+                 pos: bool, outer: bool, out_names: Sequence[str],
+                 required: Optional[Sequence[str]] = None):
+        self.children = (child,)
+        schema = child.output_schema()
+        self.gen_child = bind(gen_child, schema)
+        if not isinstance(self.gen_child.data_type, T.ArrayType):
+            raise ColumnarProcessingError(
+                f"explode input must be an array, got "
+                f"{self.gen_child.data_type.simple_string()}")
+        self.pos = pos
+        self.outer = outer
+        self.out_names = list(out_names)
+        # requiredChildOutput pruning (Spark's Generate): only the child
+        # columns a consumer reads pass through
+        names = [n for n, _ in schema]
+        self.required = [n for n in names
+                         if required is None or n in set(required)]
+
+    def output_schema(self):
+        child_schema = dict(self.children[0].output_schema())
+        out = [(n, child_schema[n]) for n in self.required]
+        i = 0
+        if self.pos:
+            out.append((self.out_names[i], T.INT))
+            i += 1
+        out.append((self.out_names[i], self.gen_child.data_type.element_type))
+        return out
 
 
 class Filter(PlanNode):

@@ -100,9 +100,12 @@ def _device_row_bytes(dtype) -> int:
     codes, DECIMAL128 as a (capacity, 2) int64 limb pair, everything else
     as its numpy storage type. This agrees with the reference's table for
     every flat type (its TPU split of doubles into two f32 words is still
-    8 bytes a row); the reference's 8 + 1 for nested types has no
-    counterpart, since the port cannot land them."""
+    8 bytes a row); an array, struct or map column takes the reference's
+    8 + 1 (its row's offset or field words; a landing adds its host
+    elements' bytes, ``DeviceColumn.from_host``)."""
     from spark_rapids_tpu_torch import types as T
+    if isinstance(dtype, (T.ArrayType, T.StructType, T.MapType)):
+        return 8 + 1
     if isinstance(dtype, T.StringType):
         return 4 + 1
     if T.is_dec128(dtype):
@@ -123,13 +126,17 @@ def estimate_device_nbytes(host, capacity: Optional[int] = None) -> int:
 
 def _column_storages(c) -> tuple:
     """A DeviceColumn's (storage key, bytes) pairs, cached on it (its
-    tensors never change)."""
+    tensors never change): every buffer of its data (a nested column's
+    offsets, elements and element validity each once) and its
+    validity."""
     m = c.storages
     if m is None:
-        dev = c.data.device
-        d, v = c.data.untyped_storage(), c.validity.untyped_storage()
-        m = c.storages = (((dev, d.data_ptr()), d.nbytes()),
-                          ((dev, v.data_ptr()), v.nbytes()))
+        dev = c.validity.device
+        out = []
+        for t in c.leaves() + (c.validity,):
+            st = t.untyped_storage()
+            out.append(((dev, st.data_ptr()), st.nbytes()))
+        m = c.storages = tuple(out)
     return m
 
 

@@ -105,6 +105,10 @@ def split_device_table_in_half(dt: DeviceTable) -> List[DeviceTable]:
         raise FatalDeviceOOM(
             f"cannot split a {n}-row batch further (GpuSplitAndRetryOOM at "
             "floor)")
+    if any(c.is_nested for c in dt.columns):
+        raise FatalDeviceOOM(
+            "cannot split a batch that holds nested columns (their element "
+            "buffers are not row-split)")
     first = n // 2
     outs = []
     for start, cnt in ((0, first), (first, n - first)):

@@ -166,6 +166,15 @@ def host_to_device(a: np.ndarray, device: torch.device) -> torch.Tensor:
     return out
 
 
+def _map_data(data, fn):
+    """``fn`` of a column's data tensor, or of each buffer of a nested
+    holder (the same holder over the results)."""
+    from spark_rapids_tpu_torch.columnar.nested import NestedData
+    if isinstance(data, NestedData):
+        return data.map(fn)
+    return fn(data)
+
+
 class _RawSpill:
     """Raw-buffer host copy of a spilled DeviceTable: the exact device
     arrays as numpy, no decode and re-encode (a round trip through a
@@ -193,7 +202,8 @@ class _RawSpill:
         return total
 
     def to_device(self, device: torch.device) -> DeviceTable:
-        cols = [DeviceColumn(dt, host_to_device(data, device),
+        cols = [DeviceColumn(dt, _map_data(data, lambda a: host_to_device(
+                                 a, device)),
                              host_to_device(validity, device),
                              dictionary=dictionary, dict_sorted=srt,
                              domain=domain)
@@ -217,13 +227,26 @@ class _RawSpill:
         """The table's live rows as a HostTable, decoded from the raw
         buffers on the host (no device work): a masked batch keeps the
         rows its ``live`` mask marks, a prefix batch its first rows."""
-        from spark_rapids_tpu_torch.columnar import HostTable
+        from spark_rapids_tpu_torch.columnar import HostColumn, HostTable
+        from spark_rapids_tpu_torch.columnar.nested import (
+            NestedData,
+            element_total,
+        )
         if self.live is not None:
             rows = np.flatnonzero(self.live)
         else:
             rows = np.arange(int(self.nrows))
         cols = []
         for dt, data, validity, dictionary, srt, domain in self.cols:
+            if isinstance(data, NestedData):
+                # nested columns live in prefix batches only
+                n = len(rows)
+                total = 0 if element_total(data, n) is None else int(
+                    element_total(data, n))
+                cols.append(HostColumn(dt, data.head(n, total).map(
+                    np.ascontiguousarray), np.ascontiguousarray(
+                        validity[:n])))
+                continue
             proto = DeviceColumn(dt, None, None, dictionary=dictionary,
                                  dict_sorted=srt, domain=domain)
             cols.append(proto.decode_host(
@@ -232,7 +255,8 @@ class _RawSpill:
 
     @staticmethod
     def from_device(table: DeviceTable) -> "_RawSpill":
-        cols = [(c.dtype, device_to_host(c.data), device_to_host(c.validity),
+        cols = [(c.dtype, _map_data(c.data, device_to_host),
+                 device_to_host(c.validity),
                  c.dictionary, c.dict_sorted, c.domain)
                 for c in table.columns]
         live = None if table.live is None else device_to_host(table.live)

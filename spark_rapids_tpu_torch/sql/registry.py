@@ -12,7 +12,11 @@ UDFs are not ported: registering either raises NotImplementedError
 The reference's builtin table holds more names than the port has
 expressions for: each of those (``UNPORTED``) raises NotImplementedError
 naming the function and the reference module its expression comes from.
-A name in neither table is an undefined function (SqlAnalysisError)."""
+That is ``to_json`` (``ops/json_structs.py``, ROADMAP item [9], the next
+slice). ``map_entries`` resolves, and raises naming [9c] as it binds: the
+reference runs it on its CPU route. SQL has no lambda syntax in either
+package, so the higher-order functions are DSL-only. A name in neither
+table is an undefined function (SqlAnalysisError)."""
 
 from __future__ import annotations
 
@@ -24,14 +28,6 @@ from spark_rapids_tpu_torch.sql.errors import SqlAnalysisError
 Builder = Callable[[List[Expression]], Expression]
 
 _UNPORTED_BY_MODULE = {
-    "ops/aggregates.py": (
-        "collect_list", "collect_set", "percentile", "approx_percentile"),
-    "ops/collections.py": (
-        "size", "cardinality", "array", "array_contains", "array_min",
-        "array_max", "sort_array", "get_item", "element_at", "sequence",
-        "explode", "explode_outer", "posexplode", "posexplode_outer"),
-    "ops/nested.py": (
-        "struct", "named_struct", "map_keys", "map_values", "map_entries"),
     "ops/json_structs.py": ("to_json",),
 }
 
@@ -96,6 +92,41 @@ def _build_table() -> Dict[str, Builder]:
     reg("var_pop", _agg.VariancePop, 1)
     reg("first", lambda e: _agg.First(e, False), 1)
     reg("last", lambda e: _agg.Last(e, False), 1)
+    reg("collect_list", _agg.CollectList, 1)
+    reg("collect_set", _agg.CollectSet, 1)
+    table["percentile"] = lambda args: (
+        _need(args, 2, 2, "percentile") or
+        _agg.Percentile(args[0],
+                        _lit_value(args[1], "percentile", "percentage")))
+    table["approx_percentile"] = lambda args: (
+        _need(args, 2, 3, "approx_percentile") or
+        _agg.Percentile(args[0], _lit_value(args[1], "approx_percentile",
+                                            "percentage")))
+
+    # collections, structs and maps
+    from spark_rapids_tpu_torch import functions as F
+    from spark_rapids_tpu_torch.ops import collections as _coll
+    from spark_rapids_tpu_torch.ops import nested as _nested
+    reg(("size", "cardinality"), _coll.Size, 1)
+    reg("array", _coll.CreateArray, 1, None)
+    reg("array_contains", _coll.ArrayContains, 2)
+    reg("array_min", _coll.ArrayMin, 1)
+    reg("array_max", _coll.ArrayMax, 1)
+    reg("sort_array", lambda e, a=None:
+        _coll.SortArray(e, a or lit(True)), 1, 2)
+    reg(("get_item", "element_at"), _coll.GetArrayItem, 2)
+    reg("sequence", _coll.Sequence, 2, 3)
+    reg("explode", _coll.Explode, 1)
+    reg("explode_outer", _coll.ExplodeOuter, 1)
+    reg("posexplode", _coll.PosExplode, 1)
+    reg("posexplode_outer", _coll.PosExplodeOuter, 1)
+    table["struct"] = lambda args: F.struct(*args)
+    reg("named_struct", lambda *a: F.named_struct(
+        *[x.value if isinstance(x, Literal) and i % 2 == 0 else x
+          for i, x in enumerate(a)]), 2, None)
+    reg("map_keys", _nested.MapKeys, 1)
+    reg("map_values", _nested.MapValues, 1)
+    reg("map_entries", _nested.MapEntries, 1)
 
     # math
     reg("sqrt", _math.Sqrt, 1)

@@ -135,6 +135,18 @@ CASES = {
         _agg, lambda F, c, l, frm, t, o: frm(t).filter(
             c("k") > l(10)).group_by("k").agg(F.sum("v").alias("x")),
         None),
+    "a generator and its positional form": (
+        lambda F, c, l, frm, t, o: frm(t).select(
+            c("k"), F.explode(F.array(c("v"), c("v"))).alias("e")),
+        lambda F, c, l, frm, t, o: frm(t).select(
+            c("k"), F.posexplode(F.array(c("v"), c("v"))).alias("e")),
+        None),
+    "a lambda's literal": (
+        lambda F, c, l, frm, t, o: frm(t).select(F.transform(
+            F.array(c("v"), c("k")), lambda x: x + l(1)).alias("w")),
+        lambda F, c, l, frm, t, o: frm(t).select(F.transform(
+            F.array(c("v"), c("k")), lambda x: x + l(2)).alias("w")),
+        None),
     "a union of the same": (
         lambda F, c, l, frm, t, o: frm(t).select("v").union(
             frm(t).select("v")),

@@ -220,6 +220,17 @@ def test_envelope_modules_are_scanned(name):
     assert PORT / f"{name}.py" in _port_files()
 
 
+#: the nested types' modules: each must exist and import with JAX, the
+#: JAX package, pyarrow and pandas blocked
+NESTED_MODULES = ("columnar/nested.py", "ops/collections.py",
+                  "ops/nested.py", "execs/generate.py")
+
+
+@pytest.mark.parametrize("rel", NESTED_MODULES)
+def test_nested_module_is_the_ports_own(rel):
+    test_io_module_is_the_ports_own(rel)
+
+
 def test_warmup_reaches_neither_scale_test_nor_the_reference(tmp_path):
     """tools warmup resolves a query tag against the port's own corpus:
     with scale_test.py and the reference's lint blocked as well, it

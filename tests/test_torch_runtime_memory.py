@@ -184,9 +184,9 @@ def test_scan_chunks_match_reference(budget, fraction):
     "date", "timestamp", "string", "decimal(10,2)", "decimal(18,0)",
     "decimal(38,6)"])
 def test_row_bytes_match_reference(type_name):
-    """Every flat type lands at the reference's bytes a row (the
-    reference's 8 + 1 for nested types has no counterpart: the port
-    cannot land them)."""
+    """Every flat type lands at the reference's bytes a row (nested
+    types take the reference's 8 + 1 too: tests/
+    test_torch_nested_columns.py counts their buffers)."""
     assert tmem._device_row_bytes(TT.parse_type(type_name)) == \
         jmem._device_row_bytes(JT.parse_type(type_name))
 
