@@ -204,10 +204,24 @@ Phases, in order; any failure exits non-zero:
    SNAPPY), read back bit for bit in the three reader modes and queried;
    each against a numpy oracle on flat buffers, every launch held
    against its kernel's plain version;
-21. the summary lines: one ``{"kernels": [...]}`` JSON line (the five TPU
+21. the CPU route (``run_route``) over phases 6-8's tables with
+   l_partkey, l_tax and o_orderpriority added (``route_tables``) and
+   phases 4-5's q1 and sparse q3 tables: C1 collect_list by order into a
+   filter on the arrays' size (the filter runs on the CPU route: a
+   flat-only operator), then size and array_max, a join to orders and a
+   group-by on the device; C2 cast(o_orderdate as string) on the route,
+   grouped and sorted on the device; C3 a Python UDF the compiler rejects
+   on the route, joined and aggregated on the device; C4 q1 with its
+   charge through a compiled UDF (no CPU node, q1's launches, bit for bit
+   q1's result); C5 to_json on the route, get_json_object and from_json
+   on the device; C6 q1 and sparse q3 with spark.rapids.sql.enabled=false
+   against the device's results; each cell's CPU-route nodes, reasons,
+   transition times, launches and host syncs. Every query of phases 3-20
+   converts with 0 CPU-route nodes (``watch_cpu_route``);
+22. the summary lines: one ``{"kernels": [...]}`` JSON line (the five TPU
    kernels and the DECIMAL128 division kernel, CUDA work beyond them;
    launches of the main path: q1's, sparse q3's probes, q8's MIN/MAX, plus
-   every phase-7 to phase-20 query's), the card line, and last
+   every phase-7 to phase-21 query's), the card line, and last
    ``{"ok": true, "device": {...}}``.
 
 Each phase logs its wall time. It needs one CUDA card and exits non-zero
@@ -215,7 +229,8 @@ without one. ``--profile DIR`` also writes a torch.profiler table and
 trace of one warm run of q1, of each q3 form, of each phase-6, phase-7
 and phase-8 query, of phase 9's conditional query, of J1, J7, J8 and J9,
 of O1, O2, O3, O4a, O5, O6a and O7, of S1, S2, S5, S7 and S8 and of W1,
-W3, W4, W7, W8a and W8c, and of N1 and N3's posexplode.
+W3, W4, W7, W8a and W8c, and of N1 and N3's posexplode. ``--only 21``
+runs phases 1-3 and then phase 21 over tables it makes itself.
 """
 
 from __future__ import annotations
@@ -8073,6 +8088,465 @@ def run_nested(tables, profile_dir) -> dict:
     return totals
 
 
+# ---------------------------------------------------------------------------
+# phase 21: the CPU route
+# ---------------------------------------------------------------------------
+
+#: the seconds phase 21 should take (logged past it)
+ROUTE_BUDGET_S = 90.0
+
+#: rows of each cell's driving table (PERF.md section 4 lists the cuts):
+#: C1 groups the whole sf-10 lineitem; C2 casts every order's date; C3's
+#: row-wise UDF, C5's to_json and C6's whole-plan CPU route run their
+#: Python or numpy per row on the host, so they take a prefix
+C3_ORDERS = 500_000
+C5_ORDERS = 100_000
+C6_LINEITEM = 500_000
+
+#: TPC-H's order priorities (C1 and C3 group by them)
+PRIORITIES = np.array(["1-URGENT", "2-HIGH", "3-MEDIUM", "4-NOT SPECIFIED",
+                       "5-LOW"], dtype=object)
+
+#: C3's row-wise UDF reads this dict, which the UDF compiler rejects (a
+#: free variable)
+PRIORITY_RANK = {"1-URGENT": 1, "2-HIGH": 2, "3-MEDIUM": 3}
+
+#: the plan-node classes the CPU route ran in each converted tree while
+#: ``"expected"`` is set (phase 21); outside it any is a failure
+CPU_ROUTE = {"expected": False, "converted": 0}
+
+
+def watch_cpu_route() -> None:
+    """Count the CPU-route nodes of every converted tree of the run (the
+    overrides' ``collect_cpu_nodes``): phases 3-20 must convert with 0."""
+    from spark_rapids_tpu_torch.obs.events import collect_fallbacks
+    from spark_rapids_tpu_torch.overrides import rules
+    convert_meta = rules.convert_meta
+
+    def counted(meta, device):
+        root = convert_meta(meta, device)
+        CPU_ROUTE["converted"] += 1
+        nodes = rules.collect_cpu_nodes(root)
+        if nodes and not CPU_ROUTE["expected"]:
+            fail(f"a query converted with CPU-route nodes {nodes}: "
+                 f"{collect_fallbacks(meta)}")
+        return root
+
+    rules.convert_meta = counted
+
+
+def route_tables(tables, seed: int) -> dict:
+    """Phases 6-8's tables with the columns the cells read beyond the
+    corpus's: lineitem's l_partkey (C1) and l_tax (C4, TPC-H's 0.00-0.08),
+    orders' o_orderpriority (C1, C3), each from its own seed stream."""
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.columnar import HostColumn, HostTable
+    li, orders = tables["lineitem"], tables["orders"]
+    rng = np.random.default_rng([seed, 21])
+    n, m = li.num_rows, orders.num_rows
+    partkey = rng.integers(1, 200 * max(n // 6000, 1) + 1, n,
+                           dtype=np.int64)
+    tax = rng.integers(0, 9, n).astype(np.float64) / 100.0
+    pri = PRIORITIES[rng.integers(0, len(PRIORITIES), m)]
+    return {
+        "lineitem": HostTable(list(li.names) + ["l_partkey", "l_tax"],
+                              list(li.columns) + [
+                                  HostColumn(T.LONG, partkey),
+                                  HostColumn(T.DOUBLE, tax)]),
+        "orders": HostTable(list(orders.names) + ["o_orderpriority"],
+                            list(orders.columns) + [
+                                HostColumn(T.STRING, pri)])}
+
+
+def _cols(t, *names):
+    return [t.columns[t.names.index(n)].data for n in names]
+
+
+def _take(t, names, rows=None):
+    """``t`` narrowed to ``names`` (and its first ``rows`` rows)."""
+    cols = [t.columns[t.names.index(n)] for n in names]
+    if rows is not None:
+        cols = [c.slice(0, min(rows, len(c))) for c in cols]
+    return type(t)(list(names), cols)
+
+
+def _result(got, *names):
+    return [got.columns[got.names.index(n)] for n in names]
+
+
+def c1_oracle(li, orders):
+    """C1: per order with >= 5 lines, its line count and largest part key,
+    joined to its priority, then by priority: sum of counts, max part key,
+    orders."""
+    keys, parts = _cols(li, "l_orderkey", "l_partkey")
+    order = np.argsort(keys, kind="stable")
+    sk, sp = keys[order], parts[order]
+    uk, starts, counts = np.unique(sk, return_index=True, return_counts=True)
+    mx = np.maximum.reduceat(sp, starts)
+    keep = counts >= 5
+    ok, pri = _cols(orders, "o_orderkey", "o_orderpriority")
+    pos = np.searchsorted(ok, uk[keep])
+    if not np.array_equal(ok[pos], uk[keep]):
+        fail("C1 oracle: a lineitem order is not in orders")
+    prios = pri[pos]
+    out = {}
+    for p in PRIORITIES:
+        sel = prios == p
+        if sel.any():
+            out[p] = (int(counts[keep][sel].sum()), int(mx[keep][sel].max()),
+                      int(sel.sum()))
+    return out, int(len(uk)), int(keys.shape[0])
+
+
+def c1_build(s, li, orders):
+    from spark_rapids_tpu_torch import functions as F
+    from spark_rapids_tpu_torch.ops.expr import col, lit
+    from spark_rapids_tpu_torch.plan import from_host_table
+
+    def build():
+        arrays = from_host_table(li, s).group_by("l_orderkey").agg(
+            F.collect_list("l_partkey").alias("parts"))
+        many = arrays.filter(F.size("parts") >= lit(5))
+        per = many.select(col("l_orderkey"), F.size("parts").alias("n"),
+                          F.array_max("parts").alias("mx"))
+        o = from_host_table(orders, s).select(
+            col("o_orderkey").alias("l_orderkey"), col("o_orderpriority"))
+        return per.join(o, on="l_orderkey", how="inner").group_by(
+            "o_orderpriority").agg(F.sum("n").alias("lines"),
+                                   F.max("mx").alias("mx"),
+                                   F.count().alias("orders"))
+    return build
+
+
+def c1_check(want):
+    def check(got):
+        p, lines, mx, n = _result(got, "o_orderpriority", "lines", "mx",
+                                  "orders")
+        have = {p.data[i]: (int(lines.data[i]), int(mx.data[i]),
+                            int(n.data[i])) for i in range(got.num_rows)}
+        if have != want:
+            fail(f"C1: {have} differs from the oracle's {want}")
+    return check
+
+
+def c2_oracle(orders):
+    days, price = _cols(orders, "o_orderdate", "o_totalprice")
+    ud, inv = np.unique(days, return_inverse=True)
+    return {"ds": np.datetime_as_string(ud.astype("datetime64[D]")),
+            "c": np.bincount(inv).astype(np.int64),
+            "tp": np.bincount(inv, weights=price)}
+
+
+def c2_build(s, orders):
+    from spark_rapids_tpu_torch import functions as F
+    from spark_rapids_tpu_torch.ops.expr import col
+    from spark_rapids_tpu_torch.plan import from_host_table
+
+    def build():
+        return from_host_table(orders, s).select(
+            col("o_orderdate").cast("string").alias("ds"),
+            col("o_totalprice")).group_by("ds").agg(
+            F.count().alias("c"), F.sum("o_totalprice").alias("tp")).sort(
+            "ds")
+    return build
+
+
+def c2_check(want):
+    def check(got):
+        ds, c, tp = _result(got, "ds", "c", "tp")
+        if list(ds.data) != list(want["ds"]):
+            fail("C2: the date strings or their order differ from numpy's")
+        if not np.array_equal(c.data, want["c"]):
+            fail("C2: the counts differ")
+        if not np.allclose(tp.data, want["tp"], rtol=1e-9, atol=0.0):
+            fail("C2: the price sums differ (rtol 1e-9)")
+    return check
+
+
+def c3_oracle(li, orders):
+    lk, q = _cols(li, "l_orderkey", "l_quantity")
+    ok, pri = _cols(orders, "o_orderkey", "o_orderpriority")
+    rank = np.array([PRIORITY_RANK.get(p, 0) for p in PRIORITIES])
+    pr = rank[np.searchsorted(PRIORITIES, pri)]
+    pos = np.clip(np.searchsorted(ok, lk), 0, len(ok) - 1)
+    hit = ok[pos] == lk
+    prl = pr[pos[hit]]
+    return {int(r): (int(q[hit][prl == r].sum()), int((prl == r).sum()))
+            for r in np.unique(prl)}
+
+
+def c3_build(s, li, orders, fn):
+    from spark_rapids_tpu_torch import functions as F
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.ops.expr import col
+    from spark_rapids_tpu_torch.plan import from_host_table
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        rank = F.udf(fn, T.INT)
+
+    def build():
+        o = from_host_table(orders, s).select(
+            col("o_orderkey").alias("l_orderkey"),
+            rank(col("o_orderpriority")).alias("pr"))
+        return from_host_table(li, s).join(o, on="l_orderkey").group_by(
+            "pr").agg(F.sum("l_quantity").alias("q"),
+                      F.count().alias("c"))
+    return build
+
+
+def c3_check(want):
+    def check(got):
+        pr, q, c = _result(got, "pr", "q", "c")
+        have = {int(pr.data[i]): (int(q.data[i]), int(c.data[i]))
+                for i in range(got.num_rows)}
+        if have != want:
+            fail(f"C3: {have} differs from the oracle's {want}")
+    return check
+
+
+def q1_udf_dataframe(session, table):
+    """models/tpch.py's q1 with its charge through a compiled UDF."""
+    from spark_rapids_tpu_torch import functions as F
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.models.tpch import Q1_CUTOFF_DAYS
+    from spark_rapids_tpu_torch.ops.expr import col, lit
+    from spark_rapids_tpu_torch.plan import from_host_table
+    charge = F.udf(lambda p, d, t: p * (1.0 - d) * (1.0 + t))
+    if not charge.compiled:
+        fail("C4: the charge UDF did not compile")
+    return (from_host_table(table, session)
+            .filter(col("l_shipdate") <= lit(Q1_CUTOFF_DAYS, T.DATE))
+            .select(col("l_returnflag"), col("l_linestatus"),
+                    col("l_quantity"), col("l_extendedprice"),
+                    col("l_discount"),
+                    (col("l_extendedprice") * (lit(1.0) - col("l_discount")))
+                    .alias("disc_price"),
+                    charge(col("l_extendedprice"), col("l_discount"),
+                           col("l_tax")).alias("charge"))
+            .group_by("l_returnflag", "l_linestatus")
+            .agg(F.sum(F.col("l_quantity")).alias("sum_qty"),
+                 F.sum(F.col("l_extendedprice")).alias("sum_base_price"),
+                 F.sum(F.col("disc_price")).alias("sum_disc_price"),
+                 F.sum(F.col("charge")).alias("sum_charge"),
+                 F.avg(F.col("l_quantity")).alias("avg_qty"),
+                 F.avg(F.col("l_extendedprice")).alias("avg_price"),
+                 F.avg(F.col("l_discount")).alias("avg_disc"),
+                 F.count().alias("count_order"))
+            .sort("l_returnflag", "l_linestatus"))
+
+
+#: C5's struct of orders' columns read back by from_json (the date as the
+#: day number to_json writes)
+def c5_schema():
+    from spark_rapids_tpu_torch import types as T
+    return T.StructType([T.StructField("o_orderkey", T.LONG),
+                         T.StructField("o_totalprice", T.DOUBLE),
+                         T.StructField("o_orderdate", T.LONG)])
+
+
+def c5_build(s, orders):
+    from spark_rapids_tpu_torch import functions as F
+    from spark_rapids_tpu_torch.ops.expr import col
+    from spark_rapids_tpu_torch.plan import from_host_table
+
+    def build():
+        js = from_host_table(orders, s).select(
+            col("o_orderkey"), F.to_json(F.struct(
+                col("o_orderkey"), col("o_totalprice"),
+                col("o_orderdate"))).alias("js"))
+        parsed = js.select(
+            col("o_orderkey"),
+            F.get_json_object(col("js"), "$.o_totalprice").alias("tp_s"),
+            F.from_json(col("js"), c5_schema()).alias("st"))
+        return parsed.select(
+            col("o_orderkey"), col("tp_s"),
+            col("st").getField("o_orderkey").alias("k2"),
+            col("st").getField("o_totalprice").alias("tp"),
+            col("st").getField("o_orderdate").alias("d"))
+    return build
+
+
+def c5_check(orders):
+    ok, price, days = _cols(orders, "o_orderkey", "o_totalprice",
+                            "o_orderdate")
+
+    def render(f):
+        return json.dumps(int(f)) if float(f).is_integer() else json.dumps(
+            float(f))
+    want_s = np.array([render(f) for f in price], dtype=object)
+
+    def check(got):
+        k, tp_s, k2, tp, d = _result(got, "o_orderkey", "tp_s", "k2", "tp",
+                                     "d")
+        order = np.argsort(k.data, kind="stable")
+        if not np.array_equal(k.data[order], ok):
+            fail("C5: the order keys differ")
+        for name, c, want in (("k2", k2, ok), ("tp", tp, price),
+                              ("d", d, days.astype(np.int64))):
+            if not c.validity.all() or \
+                    c.data[order].tobytes() != want.tobytes():
+                fail(f"C5: the round trip's {name} differs from the column "
+                     "it came from (bit for bit)")
+        if list(tp_s.data[order]) != list(want_s):
+            fail("C5: get_json_object's strings differ")
+    return check
+
+
+def route_case(s, name, build, check, expect_nodes, results) -> dict:
+    """``run_case`` of one cell, then its converted tree's CPU-route nodes
+    (they must be ``expect_nodes``), the overrides' reasons, the
+    transitions' times and the warm host syncs."""
+    from spark_rapids_tpu_torch.obs.events import collect_fallbacks
+    from spark_rapids_tpu_torch.overrides.rules import collect_cpu_nodes
+    res = run_case(s, name, build, check, None)
+    nodes = collect_cpu_nodes(s._last_root)
+    reasons = collect_fallbacks(s.last_meta)
+    timings = s.last_timings()
+    if sorted(nodes) != sorted(expect_nodes):
+        fail(f"{name}: CPU-route nodes {nodes}, expected {expect_nodes}")
+    if s.conf.sql_enabled and len(reasons) != len(nodes):
+        fail(f"{name}: {len(nodes)} CPU-route nodes but {len(reasons)} "
+             "reported fallbacks")
+    stats = dict(res["stats"], cpu_nodes=nodes,
+                 reasons=[f"{r['op']}: {'; '.join(r['reasons'])}"
+                          for r in reasons],
+                 h2d_ms=round(timings.get("h2dTime", 0.0) * 1e3, 2),
+                 d2h_ms=round(timings.get("d2hTime", 0.0) * 1e3, 2),
+                 launches={k: v for k, v in res["launches"].items() if v})
+    log(f"  {name}: CPU-route nodes {nodes}; reasons {stats['reasons']}; "
+        f"h2dTime {stats['h2d_ms']} ms, d2hTime {stats['d2h_ms']} ms "
+        f"(counted run)")
+    results[name] = stats
+    return res
+
+
+def run_route(tables, q1_table, q3_sparse, seed: int) -> dict:
+    """Phase 21: C1-C6 over phases 6-8's tables (plus the columns
+    ``route_tables`` adds) and phase 4-5's q1 and sparse q3 tables, each
+    through ``route_case`` against its numpy oracle (C4 bit for bit
+    against the hand-written q1, C6 against the device's results).
+    Returns every kernel's launches over the counted runs."""
+    from spark_rapids_tpu_torch.models.tpch import q1_dataframe, q3_dataframe
+    from spark_rapids_tpu_torch.session import TorchSession
+    from spark_rapids_tpu_torch.udf import UdfCompileError
+    t_phase = time.perf_counter()
+    card = card_line()
+    t0 = time.perf_counter()
+    rt = route_tables(tables, seed)
+    li, orders = rt["lineitem"], rt["orders"]
+    log(f"  21.0 {li.num_rows} lineitem rows, {orders.num_rows} orders; "
+        f"l_partkey, l_tax and o_orderpriority added in "
+        f"{time.perf_counter() - t0:.2f} s (host)")
+    s = TorchSession()
+    totals, results = {}, {}
+    CPU_ROUTE["expected"] = True
+
+    def add(res):
+        for k, v in res["launches"].items():
+            totals[k] = totals.get(k, 0) + v
+        return res
+
+    try:
+        li1 = _take(li, ("l_orderkey", "l_partkey"))
+        o1 = _take(orders, ("o_orderkey", "o_orderpriority"))
+        want1, n_orders, n_lines = c1_oracle(li1, o1)
+        log(f"  C1: collect_list over {n_lines} lines gives {n_orders} "
+            "arrays")
+        add(route_case(s, "C1 arrays into a flat-only filter",
+                       c1_build(s, li1, o1), c1_check(want1), ["Filter"],
+                       results))
+
+        o2 = _take(orders, ("o_orderdate", "o_totalprice"))
+        add(route_case(s, "C2 cast(date as string) as a grouping key",
+                       c2_build(s, o2), c2_check(c2_oracle(o2)),
+                       ["Project"], results))
+
+        def rank_of(p):
+            return PRIORITY_RANK.get(p, 0)
+
+        from spark_rapids_tpu_torch import functions as F
+        from spark_rapids_tpu_torch.ops.expr import col
+        try:
+            F.udf(rank_of)(col("o_orderpriority"))
+            fail("C3: a dict lookup compiled")
+        except UdfCompileError as exc:
+            log(f"  C3: the UDF compiler rejects the dict lookup ({exc})")
+        o3 = _take(orders, ("o_orderkey", "o_orderpriority"), C3_ORDERS)
+        li3 = _take(li, ("l_orderkey", "l_quantity"))
+        add(route_case(s, "C3 a row-wise Python UDF",
+                       c3_build(s, li3, o3, rank_of),
+                       c3_check(c3_oracle(li3, o3)), ["Project"], results))
+
+        li4 = _take(li, ("l_returnflag", "l_linestatus", "l_quantity",
+                         "l_extendedprice", "l_discount", "l_tax",
+                         "l_shipdate"))
+        keep4 = {}
+        hand = run_case(s, "C4 q1 written by hand",
+                        lambda: q1_dataframe(s, li4), lambda got: None, None,
+                        keep4)
+        want4 = keep4["C4 q1 written by hand"]["result"]
+
+        def c4_check(got):
+            same_table(got, want4, "C4", 0.0)
+            for a, b in zip(got.columns, want4.columns):
+                if a.data.tobytes() != b.data.tobytes():
+                    fail("C4: the UDF's q1 differs from q1 (bit for bit)")
+        udf4 = add(route_case(s, "C4 q1 with a compiled UDF",
+                              lambda: q1_udf_dataframe(s, li4), c4_check,
+                              [], results))
+        if udf4["launches"] != hand["launches"]:
+            fail(f"C4: launches {udf4['launches']}, q1's "
+                 f"{hand['launches']}")
+        results["C4 q1 with a compiled UDF"]["q1_warm_ms"] = \
+            hand["stats"]["warm_ms"]
+
+        o5 = _take(orders, ("o_orderkey", "o_totalprice", "o_orderdate"),
+                   C5_ORDERS)
+        add(route_case(s, "C5 to_json, then get_json_object and from_json",
+                       c5_build(s, o5), c5_check(o5), ["Project"], results))
+
+        cpu = TorchSession({"spark.rapids.sql.enabled": "false"})
+        t6 = _take(q1_table, q1_table.names, C6_LINEITEM)
+        cust, ords, lines = q3_sparse
+        q3t = (cust, ords, _take(lines, lines.names, C6_LINEITEM))
+        for name, build in (
+                ("q1", lambda sess: q1_dataframe(sess, t6)),
+                ("sparse q3", lambda sess: q3_dataframe(sess, *q3t))):
+            dev_keep = {}
+            run_case(s, f"C6 {name} on the device", lambda: build(s),
+                     lambda got: None, None, dev_keep)
+            want6 = dev_keep[f"C6 {name} on the device"]["result"]
+            add(route_case(
+                cpu, f"C6 {name} with spark.rapids.sql.enabled=false",
+                lambda: build(cpu),
+                lambda got: same_table(got, want6, f"C6 {name}", 1e-9),
+                plan_nodes(build(cpu).plan),
+                results))
+            results[f"C6 {name} with spark.rapids.sql.enabled=false"][
+                "device_warm_ms"] = dev_keep[
+                f"C6 {name} on the device"]["warm_ms"]
+    finally:
+        CPU_ROUTE["expected"] = False
+    took = time.perf_counter() - t_phase
+    summary = {"card": card, "seconds": round(took, 1),
+               "launches": {k: v for k, v in totals.items() if v},
+               "cases": results}
+    if took > ROUTE_BUDGET_S:
+        log(f"  phase 21 took {took:.1f} s, past its "
+            f"{ROUTE_BUDGET_S:.0f} s budget")
+    log("  phase-21 summary: " + json.dumps(summary, default=str))
+    return totals
+
+
+def plan_nodes(plan) -> list:
+    """The plan-node classes of ``plan``, pre-order: what the CPU route
+    runs when spark.rapids.sql.enabled is false."""
+    out = [type(plan).__name__]
+    for c in plan.children:
+        out += plan_nodes(c)
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rows", type=int, default=6_001_215,
@@ -8086,6 +8560,9 @@ def main(argv=None) -> int:
                     help="directory for torch.profiler tables and traces of "
                          "one warm run of q1, of each q3 form and of each "
                          "phase-6 query")
+    ap.add_argument("--only", type=int, choices=(21,), default=None,
+                    help="run phases 1-3 and this phase only (its tables "
+                         "made here); a full run is the default")
     ap.add_argument("--fatal-child", choices=("exit", "latch"),
                     help=argparse.SUPPRESS)
     ap.add_argument("--fatal-dir", help=argparse.SUPPRESS)
@@ -8121,6 +8598,7 @@ def main(argv=None) -> int:
                 log(f"    {name}: {line.strip()}")
 
     log(f"  phases 1-2 ran {time.perf_counter() - t_start:.1f} s")
+    watch_cpu_route()
     t_phase = time.perf_counter()
     log("phase 3: kernels against their plain versions")
     with host_sync_count() as box:
@@ -8135,6 +8613,21 @@ def main(argv=None) -> int:
     rows = [check_segreduce(capacity, args.rows, gen), check_minmax(),
             check_compact(gen), check_sort(gen), check_hashprobe(gen)]
     log(f"  phase 3 ran {time.perf_counter() - t_phase:.1f} s")
+    if args.only == 21:
+        from spark_rapids_tpu_torch.models.corpus import corpus_tables
+        from spark_rapids_tpu_torch.models.tpch import (
+            lineitem_table,
+            q3_tables,
+        )
+        launches = {r["name"]: 0 for r in rows}
+        tables = corpus_tables(args.sf, args.seed)
+        route = run_route(tables, lineitem_table(args.rows, seed=0),
+                          tuple(sparse_form(t)
+                                for t in q3_tables(args.rows, seed=0)),
+                          args.seed)
+        for k, v in route.items():
+            launches[k] = launches.get(k, 0) + v
+        return summary_phase(rows, launches)
 
     #: what phases 4-8 keep of each DSL form for phase 9's SQL forms
     dsl = {}
@@ -8267,6 +8760,7 @@ def main(argv=None) -> int:
         "result fetch, the launch helper's fault points)")
     for k, v in run_observability(tables, dsl, q1_keep).items():
         launches[k] = launches.get(k, 0) + v
+    q3_sparse = dsl["q3 sparse"]["tables"]
     del dsl
     log(f"  phase 19 ran {time.perf_counter() - t_phase:.1f} s")
 
@@ -8278,7 +8772,23 @@ def main(argv=None) -> int:
         launches[k] = launches.get(k, 0) + v
     log(f"  phase 20 ran {time.perf_counter() - t_phase:.1f} s")
 
-    log("phase 21: summary")
+    log(f"  phases 3-20 converted {CPU_ROUTE['converted']} plans, each "
+        "with 0 CPU-route nodes")
+
+    t_phase = time.perf_counter()
+    log("phase 21: the CPU route (C1 arrays into a flat-only filter, C2 a "
+        "cast to string as a grouping key, C3 a row-wise Python UDF, C4 a "
+        "compiled UDF in q1, C5 to_json and the JSON functions, C6 q1 and "
+        "sparse q3 with spark.rapids.sql.enabled=false)")
+    for k, v in run_route(tables, q1_keep["tables"][0], q3_sparse,
+                          args.seed).items():
+        launches[k] = launches.get(k, 0) + v
+    log(f"  phase 21 ran {time.perf_counter() - t_phase:.1f} s")
+    return summary_phase(rows, launches)
+
+
+def summary_phase(rows, launches) -> int:
+    log("phase 22: summary")
     log("  dec128_divide is CUDA work beyond the five TPU kernels: the "
         "reference divides DECIMAL128 values on its host")
     for r in rows:

@@ -155,6 +155,15 @@ def null_column(dt: T.DataType, capacity: int, device) -> "DeviceColumn":
                     if isinstance(dt, T.StringType) else None))
 
 
+def _object_array(values) -> np.ndarray:
+    if isinstance(values, np.ndarray) and values.dtype == object:
+        return values
+    out = np.empty(len(values), dtype=object)
+    for i, v in enumerate(values):
+        out[i] = v
+    return out
+
+
 class HostColumn:
     """A column on the host: numpy values + validity mask. STRING data is
     an object array of str (None allowed at invalid slots); an array,
@@ -170,7 +179,13 @@ class HostColumn:
         if validity is None:
             validity = np.ones(len(data), dtype=np.bool_)
         if N.is_nested_type(dtype) and not isinstance(data, N.NestedData):
-            data = N.from_objects(dtype, data, validity)
+            if N.layout_supported(dtype):
+                data = N.from_objects(dtype, data, validity)
+            else:
+                # no device layout (arrays of structs or of arrays, string
+                # or decimal leaves): the reference's object array, which
+                # only the CPU route reads
+                data = _object_array(data)
         self.data = data
         self.validity = validity
         self._cache = {}
@@ -179,6 +194,10 @@ class HostColumn:
 
     def __len__(self) -> int:
         return len(self.data)
+
+    def take(self, rows: np.ndarray) -> "HostColumn":
+        """The column at ``rows`` (an index array)."""
+        return HostColumn(self.dtype, self.data[rows], self.validity[rows])
 
     def slice(self, start: int, length: int) -> "HostColumn":
         if isinstance(self.data, N.NestedData):
@@ -346,8 +365,11 @@ class DeviceColumn:
             raise ColumnarProcessingError(f"capacity {capacity} < rows {n}")
         validity = np.zeros(capacity, dtype=np.bool_)
         validity[:n] = host.validity
-        if isinstance(host.data, N.NestedData):
-            N.check_layout(host.dtype, "an upload")
+        if N.is_nested_type(host.dtype):
+            if not isinstance(host.data, N.NestedData):
+                raise ColumnarProcessingError(
+                    f"a {host.dtype.simple_string()} column has no device "
+                    "layout; the plan's tag keeps it on the CPU route")
             return DeviceColumn(
                 host.dtype, N.upload(host.data, validity, capacity, device),
                 torch.from_numpy(validity).to(device))

@@ -15,9 +15,11 @@ arrays on the host), never a Python object per row.
 * MAP -- :class:`MapData`: the array layout with two element streams, the
   keys (never null in a built map) and the values with their validity.
 
-Elements and fields are of the fixed-width types (``FIXED_ELEMENT_TYPES``);
-any other nested type raises NotImplementedError naming ROADMAP item
-[9c], where the reference sends it to its CPU route.
+Elements and fields are of the fixed-width types (``FIXED_ELEMENT_TYPES``).
+A nested type of any other leaves (strings, decimals, arrays of structs
+or of arrays) has no layout: its host column holds the reference's object
+array of lists, tuples and dicts, and the plan's tag keeps every operator
+that would take it to the device on the CPU route (overrides/rules.py).
 
 Every holder lists its buffers (``leaves``) and rebuilds from a list of
 the same length (``with_leaves``): the memory ledger, the spill tiers,
@@ -42,14 +44,6 @@ FIXED_ELEMENT_TYPES = (T.BooleanType, T.ByteType, T.ShortType,
                        T.DateType, T.TimestampType)
 
 NESTED_TYPES = (T.ArrayType, T.StructType, T.MapType)
-
-
-def not_ported_9c(what: str):
-    """The raise for whatever the reference sends to its CPU route over
-    nested types."""
-    raise NotImplementedError(
-        f"{what}: the reference runs this on its CPU route; the port has "
-        "none (ROADMAP item [9c])")
 
 
 def is_nested_type(dt) -> bool:
@@ -78,8 +72,9 @@ def layout_supported(dt) -> bool:
 
 def check_layout(dt, what: str) -> None:
     if not layout_supported(dt):
-        not_ported_9c(f"{what} of type {dt.simple_string()} (nested "
-                      "layouts hold fixed-width leaves only)")
+        raise ColumnarProcessingError(
+            f"{what} of type {dt.simple_string()}: nested layouts hold "
+            "fixed-width leaves only")
 
 
 def _is_torch(x) -> bool:
@@ -87,9 +82,13 @@ def _is_torch(x) -> bool:
 
 
 class NestedData:
-    """Base of the holders: a fixed list of flat buffers."""
+    """Base of the holders: a fixed list of flat buffers. On the host a
+    holder also reads as the reference's object array: ``data[i]`` is
+    row i's list, tuple or dict (the CPU route's per-row code indexes it
+    so), and ``data[rows]`` for an index or mask array, or a slice, is
+    the holder of those rows."""
 
-    __slots__ = ()
+    __slots__ = ("_objs",)
 
     def leaves(self) -> tuple:
         raise NotImplementedError
@@ -107,6 +106,26 @@ class NestedData:
 
     def __array__(self, dtype=None, copy=None):
         return self.to_objects()
+
+    def objects(self) -> np.ndarray:
+        """``to_objects()``, made once per holder."""
+        got = getattr(self, "_objs", None)
+        if got is None:
+            got = self._objs = self.to_objects()
+        return got
+
+    def __getitem__(self, i):
+        if isinstance(i, (int, np.integer)):
+            return self.objects()[i]
+        if isinstance(i, slice):
+            start, stop, step = i.indices(len(self))
+            if step == 1:
+                return self.host_slice(start, max(stop - start, 0))
+            i = np.arange(start, stop, step)
+        rows = np.asarray(i)
+        if rows.dtype == np.bool_:
+            rows = np.nonzero(rows)[0]
+        return self.take(rows)
 
 
 class _OffsetsData(NestedData):
@@ -339,8 +358,11 @@ def from_objects(dtype, objs, validity) -> NestedData:
     return MapData(offsets, kd, kv, vd, vv)
 
 
-def empty_host(dtype) -> NestedData:
-    """A zero-row host holder of ``dtype``."""
+def empty_host(dtype):
+    """A zero-row host holder of ``dtype`` (an empty object array for a
+    type without a layout)."""
+    if not layout_supported(dtype):
+        return np.empty(0, dtype=object)
     return from_objects(dtype, np.empty(0, dtype=object),
                         np.zeros(0, dtype=bool))
 

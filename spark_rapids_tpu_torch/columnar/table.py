@@ -125,11 +125,12 @@ class DeviceTable:
             return self
         for n, c in zip(self.names, self.columns):
             if c.is_nested:
-                # nested columns live in prefix batches only (a filter,
-                # sort, join, window or exchange over one raises at
-                # planning, overrides/rules.py)
-                N.not_ported_9c(f"compacting the masked rows of nested "
-                                f"column {n}")
+                # nested columns live in prefix batches only: the plan's
+                # tag sends a filter, sort, join, window or exchange over
+                # one to the CPU route (overrides/rules.py)
+                raise ColumnarProcessingError(
+                    f"masked rows of nested column {n}: a masked batch "
+                    "holds flat columns only")
         from spark_rapids_tpu_torch.ops.scatter32 import compact_pairs
         outs, new_n = compact_pairs([c.data for c in self.columns],
                                     [c.validity for c in self.columns],
@@ -444,8 +445,10 @@ def concat_device(tables: Sequence[DeviceTable]) -> DeviceTable:
         c0 = parts[0]
         if c0.is_nested:
             if any(t.live is not None for t in tables):
-                N.not_ported_9c(f"concatenating masked batches of nested "
-                                f"column {tables[0].names[ci]}")
+                raise ColumnarProcessingError(
+                    f"masked batches of nested column "
+                    f"{tables[0].names[ci]}: a masked batch holds flat "
+                    "columns only")
             data, valid = N.concat_device([c.data for c in parts], tgts,
                                           out_cap,
                                           [c.validity for c in parts])

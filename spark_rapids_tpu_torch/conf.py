@@ -1,9 +1,12 @@
 """Typed configuration (the entries of ``spark_rapids_tpu/conf.py`` that
 the ported path reads; keys and defaults are the reference's).
 
-A key the port does not know raises: silently ignoring, say,
-``spark.rapids.sql.enabled=false`` would run a query the caller asked to
-keep off the device."""
+A key the port does not know raises: silently ignoring one would run a
+query otherwise than the caller asked. ``spark.rapids.sql.enabled=false``
+runs the whole plan on the CPU route, ``spark.rapids.sql.explain`` prints
+the tagged plan, and the per-operator kill switches
+``spark.rapids.sql.exec.<Node>`` and ``spark.rapids.sql.expression.<Expr>``
+(``is_op_enabled``) send one operator there (overrides/rules.py)."""
 
 from __future__ import annotations
 
@@ -40,6 +43,16 @@ def _to_bool(v) -> bool:
     if isinstance(v, bool):
         return v
     return str(v).strip().lower() in ("true", "1", "yes", "on")
+
+
+SQL_ENABLED = _conf(
+    "spark.rapids.sql.enabled", True,
+    "Master enable for plan rewriting onto the device; false runs every "
+    "plan on the CPU route.", _to_bool)
+
+EXPLAIN = _conf(
+    "spark.rapids.sql.explain", "NONE",
+    "NONE, NOT_ON_GPU (log reasons for fallbacks) or ALL.", str)
 
 
 def _attempts(v) -> int:
@@ -404,17 +417,10 @@ FILECACHE_MAX_BYTES = _conf(
     "spark.rapids.filecache.maxBytes", 1 << 30,
     "LRU budget for the decoded-batch file cache.", int)
 
-#: per-format kill switches of the file scans (the reference's
-#: spark.rapids.sql.exec.<ScanNode> keys); the port has no CPU route, so
-#: a disabled scan raises
-FILE_SCAN_ENABLED = {
-    fmt: _conf(f"spark.rapids.sql.exec.{cls}", True,
-               f"Enable {fmt} scans on the accelerator.", _to_bool)
-    for fmt, cls in (("parquet", "ParquetScanNode"),
-                     ("orc", "OrcScanNode"),
-                     ("avro", "AvroScanNode"), ("csv", "CsvScanNode"),
-                     ("json", "JsonScanNode"),
-                     ("hiveText", "HiveTextScanNode"))}
+#: the per-operator kill switches' key prefixes (the reference registers
+#: one key per rule; any operator name is taken here)
+_KILL_SWITCH_PREFIXES = ("spark.rapids.sql.exec.",
+                         "spark.rapids.sql.expression.")
 
 
 class RapidsConf:
@@ -422,7 +428,8 @@ class RapidsConf:
 
     def __init__(self, settings: Optional[Dict[str, Any]] = None):
         self._settings = dict(settings or {})
-        unknown = sorted(k for k in self._settings if k not in _REGISTRY)
+        unknown = sorted(k for k in self._settings if k not in _REGISTRY
+                         and not k.startswith(_KILL_SWITCH_PREFIXES))
         if unknown:
             raise NotImplementedError(
                 f"conf keys not supported by the port: {unknown}")
@@ -435,3 +442,21 @@ class RapidsConf:
         if entry.key in self._settings:
             return entry.conv(self._settings[entry.key])
         return entry.default
+
+    @property
+    def sql_enabled(self) -> bool:
+        return self.get_entry(SQL_ENABLED)
+
+    @property
+    def explain_mode(self) -> str:
+        return str(self.get_entry(EXPLAIN)).upper()
+
+    def is_op_enabled(self, kind: str, name: str) -> bool:
+        """The kill switch ``spark.rapids.sql.<kind>.<name>`` (kind
+        ``exec`` or ``expression``): every operator is enabled unless the
+        conf says false."""
+        key = f"spark.rapids.sql.{kind}.{name}"
+        if key in self._settings:
+            return _to_bool(self._settings[key])
+        entry = _REGISTRY.get(key)
+        return bool(entry.default) if entry else True

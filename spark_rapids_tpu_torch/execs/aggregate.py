@@ -72,9 +72,12 @@ the merge.
 Filters fused from the input chain (execs/fuse.py) are the row weight
 mask: a dropped row, or a padding row past ``nrows``, adds to no sum,
 count, extreme or group. What the slice does not reach raises
-NotImplementedError: variance of DECIMAL128, MIN/MAX over an unsorted
-string dictionary, and an aggregate over a nested input (naming ROADMAP
-item [9c]).
+NotImplementedError: MIN/MAX over an unsorted string dictionary, and an
+aggregate over a nested input other than a count or a collect. The
+moments of a DECIMAL128, a percentile of a decimal, a count, FIRST
+or LAST over a nested input and a collect of elements without a device
+layout
+run on the CPU route (``agg_host_reason``, overrides/rules.py).
 SORT-ONLY AGGREGATES (the reference's ``SORT_ONLY_AGGS``): collect_list,
 collect_set and percentile take the sort-segment path only (a global one
 too, as one group), over one coalesced batch (overrides/rules.py), never
@@ -139,28 +142,52 @@ _VALUE_TYPES = (T.LongType, T.DoubleType, T.IntegerType, T.DateType,
                 T.TimestampType, T.DecimalType, T.StringType)
 
 
-def check_agg_supported(fn: agg.AggregateFunction) -> None:
-    """Raise NotImplementedError for an aggregate the port does not run."""
+def agg_host_reason(name: str, fn: agg.AggregateFunction):
+    """The reference's reason text where its tag sends aggregate ``name``
+    to the CPU route and that route computes it (a collect of elements
+    without a device layout, a count, FIRST or LAST over an array, the
+    moments of a DECIMAL128, a percentile of a decimal), else None."""
     from spark_rapids_tpu_torch.columnar.nested import (
         FIXED_ELEMENT_TYPES,
         is_nested_type,
-        not_ported_9c,
     )
-    if any(is_nested_type(c.data_type) for c in fn.children):
-        not_ported_9c(f"aggregate {fn.name} over a nested input "
-                      f"{fn.child.data_type.simple_string()}")
-    if isinstance(fn, (agg.Count, agg.MergeMoments)):
-        return
+    child_dt = fn.child.data_type if fn.child is not None else None
+    if child_dt is None:
+        return None
     if isinstance(fn, (agg.CollectList, agg.CollectSet)):
-        if isinstance(fn.child.data_type, FIXED_ELEMENT_TYPES):
-            return
-        not_ported_9c(f"aggregate {fn.name} of "
-                      f"{fn.child.data_type.simple_string()} (arrays hold "
-                      "fixed-width elements)")
+        if not isinstance(child_dt, FIXED_ELEMENT_TYPES):
+            return (f"output column {name} has unsupported type "
+                    f"{fn.data_type.simple_string()}")
+        return None
+    if is_nested_type(child_dt) and isinstance(fn, (agg.Count, agg._Pick)):
+        return (f"aggregate {name} over an array input is not supported "
+                "on GPU")
+    if T.is_dec128(child_dt) and isinstance(fn, agg._CentralMoment):
+        return (f"aggregate {name} over a decimal(>18) input is not "
+                "supported on GPU")
+    if isinstance(fn, agg.Percentile) and isinstance(child_dt,
+                                                     T.DecimalType):
+        return (f"aggregate {name} over a decimal input is not supported "
+                "on GPU")
+    return None
+
+
+def check_agg_supported(fn: agg.AggregateFunction) -> None:
+    """Raise NotImplementedError for an aggregate neither the device nor
+    the CPU route runs; an aggregate ``agg_host_reason`` names runs on
+    the CPU route and never reaches the device exec."""
+    from spark_rapids_tpu_torch.columnar.nested import is_nested_type
+    if agg_host_reason(fn.name, fn) is not None:
+        return
+    if any(is_nested_type(c.data_type) for c in fn.children):
+        raise NotImplementedError(
+            f"aggregate {fn.name} over a nested input "
+            f"{fn.child.data_type.simple_string()} is not ported")
+    if isinstance(fn, (agg.Count, agg.MergeMoments, agg.CollectList,
+                       agg.CollectSet)):
+        return
     if isinstance(fn, agg.Percentile):
-        if isinstance(fn.child.data_type, T.NumericType) and \
-                not isinstance(fn.child.data_type, T.DecimalType):
-            return
+        return
     if isinstance(fn, (agg.Average, agg.Sum)):
         if isinstance(fn.child.data_type, T.NumericType):
             return

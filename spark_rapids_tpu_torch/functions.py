@@ -757,3 +757,53 @@ def transform_values(m, fn):
 def arrays_zip(*exprs):
     from spark_rapids_tpu_torch.ops.nested import ArraysZip
     return ArraysZip(*[_e(x) for x in exprs])
+
+
+# -- JSON and UDFs -----------------------------------------------------------
+
+def get_json_object(e, path):
+    """get_json_object(json, path): the value at a '$'-rooted path
+    (ops/json_fns.py)."""
+    from spark_rapids_tpu_torch.ops.json_fns import GetJsonObject
+    return GetJsonObject(_e(e), path if isinstance(path, Expression)
+                         else lit(path))
+
+
+def json_tuple(e, *fields):
+    """json_tuple(json, 'f1', 'f2', ...): one top-level field extraction
+    per name, aliased c0..cN."""
+    from spark_rapids_tpu_torch.ops.json_fns import json_tuple as _jt
+    return _jt(_e(e), *fields)
+
+
+def from_json(e, schema):
+    """from_json(col, schema) -> struct (PERMISSIVE mode)."""
+    from spark_rapids_tpu_torch.ops.json_structs import JsonToStructs
+    return JsonToStructs(_e(e), schema)
+
+
+def to_json(e):
+    """to_json(struct) -> string (the CPU route)."""
+    from spark_rapids_tpu_torch.ops.json_structs import StructsToJson
+    return StructsToJson(_e(e))
+
+
+def udf(fn, return_type=None):
+    """Compile a Python lambda or function into an expression builder; one
+    that does not compile runs row by row on the CPU route (udf.py)."""
+    from spark_rapids_tpu_torch.udf import udf as _udf
+    return _udf(fn, return_type)
+
+
+def columnar_udf(fn, return_type, *args):
+    """A columnar UDF over the argument tensors, run on the device."""
+    from spark_rapids_tpu_torch.udf import columnar_udf as _cu
+    return _cu(fn, return_type, *args)
+
+
+def pandas_udf(return_type, function_type: str = "scalar"):
+    """The reference's pandas UDFs take pandas Series in and out over
+    pyarrow, and neither package is on the card's machine: not ported."""
+    raise NotImplementedError(
+        "pandas UDFs (spark_rapids_tpu/plan/pandas_udf.py) need pandas and "
+        "pyarrow, which the port does not use")

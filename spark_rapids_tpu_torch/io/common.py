@@ -396,6 +396,12 @@ class FileScanNode(PlanNode):
         """Every row of the scan in one host table."""
         return concat_host(list(self.execute_host()))
 
+    def execute_cpu(self) -> Iterator[HostTable]:
+        """The scan on the CPU route: the decoded host batches (the
+        reference's ``FileScanNode.execute_cpu``, less its cluster
+        routing)."""
+        return self.execute_host()
+
     def _cache_key_extra(self) -> tuple:
         """Subclasses add every decode-affecting option here."""
         return ()

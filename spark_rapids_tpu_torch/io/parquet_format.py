@@ -23,8 +23,9 @@ each level are rebuilt from the repetition and definition levels
 NotImplementedError naming itself: BROTLI (its decoder needs RFC 7932's
 static dictionary, which is not in the repository) and LZO (nothing the
 port can test against writes it), nested columns without a device layout
-(a list of structs, a list of lists, string leaves: ROADMAP item [9c]),
-unsigned integers and plain binary.
+(a list of structs, a list of lists, string leaves: an extension the
+reference lacks, whose reader raises on every nested Arrow type; ROADMAP
+item [9-ext]), unsigned integers and plain binary.
 
 Values come out in the host layout of ``interop.host_table_from_arrays``:
 dates as int32 days, timestamps as int64 micros, DECIMAL64 as int64
@@ -479,8 +480,9 @@ def _nested_column(node: _Node, path: str) -> NestedColumn:
         return NestedColumn(
             name, kind, None, top_opt, d0, 0, [],
             f"Parquet column {name!r} in {path}: {why}: the reference "
-            "runs it on its CPU route; the port has none (ROADMAP item "
-            "[9c])")
+            "reads no nested Parquet column (its Arrow conversion raises), "
+            "and the port reads those of fixed-width leaves only (ROADMAP "
+            "item [9-ext])")
 
     def fixed(leaf):
         return leaf.spark is not None and isinstance(
@@ -1454,8 +1456,12 @@ def _nested_schema(name: str, dt) -> Tuple[list, list]:
     it: the 3-level LIST, the MAP's ``key_value`` group, a STRUCT group.
     A leaf is (path, Spark type, physical type, max repetition, max
     definition)."""
-    from spark_rapids_tpu_torch.columnar.nested import check_layout
-    check_layout(dt, f"writing Parquet column {name!r}")
+    from spark_rapids_tpu_torch.columnar.nested import layout_supported
+    if not layout_supported(dt):
+        raise NotImplementedError(
+            f"writing Parquet column {name!r} of type {dt.simple_string()}: "
+            "the port writes nested columns of fixed-width leaves only "
+            "(ROADMAP item [9-ext])")
     if isinstance(dt, T.ArrayType):
         phys, el = _schema_element("element", dt.element_type)
         groups = [[(3, _I32, OPTIONAL), (4, _BINARY, name), (5, _I32, 1),

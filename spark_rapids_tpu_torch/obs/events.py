@@ -27,12 +27,12 @@ them while that subsystem is idle (ROADMAP Queue 3's deviations):
 * streaming (item 12): ``microBatches``, ``mvRefreshes``,
   ``mvIncrementalRefreshes``, ``mvFullRecomputes``, ``sinkCommits``,
   ``sinkReplays`` 0, ``mvEpoch`` null;
-* the overrides' fallback tags: ``fallbacks`` [] (the port has no CPU
-  route: what it cannot run raises), and AQE (item 6d): ``aqe``'s
-  counts 0;
+* AQE (item 6d): ``aqe``'s counts 0;
 * the padding waste: ``padWasteRows`` 0 (dispatch.py).
 
-``dispatches`` counts the hand-written kernels' launches and
+``fallbacks`` lists every node the overrides' tags sent to the CPU route
+with its reasons (``collect_fallbacks``). ``dispatches`` counts the
+hand-written kernels' launches and
 ``compileMs`` their nvcc builds (dispatch.py's deviations).
 """
 
@@ -114,6 +114,25 @@ def collect_aqe(executable) -> Dict[str, int]:
     return totals
 
 
+def collect_fallbacks(meta) -> List[dict]:
+    """Flatten the overrides' meta tree into [{op, reasons}] for every
+    node tagged onto the CPU route (the reference's)."""
+    out: List[dict] = []
+
+    def walk(m):
+        if m is None:
+            return
+        reasons = list(getattr(m, "reasons", ()) or ())
+        if reasons:
+            out.append({"op": type(getattr(m, "node", m)).__name__,
+                        "reasons": reasons})
+        for c in getattr(m, "children", ()) or ():
+            walk(c)
+
+    walk(meta)
+    return out
+
+
 def build_query_record(*, query_index: int, wall_s: float,
                        phases: Dict[str, float], executable,
                        sql_text: Optional[str], query_tag: Optional[str],
@@ -133,7 +152,8 @@ def build_query_record(*, query_index: int, wall_s: float,
                        split_retries: int = 0,
                        spill_bytes: int = 0,
                        unspills: int = 0,
-                       budget_peak: int = 0) -> dict:
+                       budget_peak: int = 0,
+                       fallbacks=None) -> dict:
     """Assemble one event-log record: every field JSON-native, in the
     reference's schema 11, the fields of the subsystems the port lacks at
     their idle values (the module's docstring). The shape test
@@ -187,7 +207,7 @@ def build_query_record(*, query_index: int, wall_s: float,
         "mvEpoch": None,
         "faultReplays": fault_replays,
         "plan": plan_tree(executable),
-        "fallbacks": [],
+        "fallbacks": list(fallbacks or []),
         "demotions": dict(demotions),
         "aqe": collect_aqe(executable),
         "exchanges": collect_exchanges(executable),

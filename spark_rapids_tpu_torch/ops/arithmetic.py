@@ -20,9 +20,11 @@ wrap at INT_MIN as Java's do.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from spark_rapids_tpu_torch import types as T
+from spark_rapids_tpu_torch.columnar import HostColumn, HostTable
 from spark_rapids_tpu_torch.ops.common import (
     BinaryExpression,
     UnaryExpression,
@@ -164,11 +166,26 @@ class BinaryArithmetic(BinaryExpression):
         return DevVal(torch.where(validity, data, torch.zeros_like(data)),
                       validity)
 
+    def _cpu_op(self, ld, rd):
+        raise NotImplementedError
+
+    def eval_cpu(self, table: HostTable) -> HostColumn:
+        l = self.left.eval_cpu(table)
+        r = self.right.eval_cpu(table)
+        with np.errstate(over="ignore", invalid="ignore", divide="ignore"):
+            data = self._cpu_op(l.data, r.data)
+        validity = l.validity & r.validity
+        zero = np.zeros((), dtype=data.dtype).item()
+        return HostColumn(self.data_type, np.where(validity, data, zero).astype(data.dtype), validity)
+
 
 class Add(BinaryArithmetic):
     decimal_impl = "DecimalAdd"
 
     def _dev_op(self, ld, rd):
+        return ld + rd
+
+    def _cpu_op(self, ld, rd):
         return ld + rd
 
 
@@ -178,11 +195,17 @@ class Subtract(BinaryArithmetic):
     def _dev_op(self, ld, rd):
         return ld - rd
 
+    def _cpu_op(self, ld, rd):
+        return ld - rd
+
 
 class Multiply(BinaryArithmetic):
     decimal_impl = "DecimalMultiply"
 
     def _dev_op(self, ld, rd):
+        return ld * rd
+
+    def _cpu_op(self, ld, rd):
         return ld * rd
 
 
@@ -212,6 +235,14 @@ class Divide(BinaryArithmetic):
         safe = torch.where(nonzero, rval.data, torch.ones_like(rval.data))
         return DevVal(torch.where(validity, lval.data / safe,
                                   torch.zeros_like(lval.data)), validity)
+
+    def eval_cpu(self, table):
+        l = self.left.eval_cpu(table)
+        r = self.right.eval_cpu(table)
+        validity = l.validity & r.validity & (r.data != 0.0)
+        with np.errstate(divide="ignore", invalid="ignore"):
+            data = np.where(validity, l.data / np.where(r.data != 0.0, r.data, 1.0), 0.0)
+        return HostColumn(T.DOUBLE, data, validity)
 
 
 class IntegralDivide(BinaryArithmetic):
@@ -246,6 +277,14 @@ class IntegralDivide(BinaryArithmetic):
         return DevVal(torch.where(validity, q, torch.zeros_like(q)),
                       validity)
 
+    def eval_cpu(self, table):
+        l = self.left.eval_cpu(table)
+        r = self.right.eval_cpu(table)
+        validity = l.validity & r.validity & (r.data != 0)
+        with np.errstate(over="ignore"):
+            data = _trunc_div_int(l.data, r.data)
+        return HostColumn(T.LONG, np.where(validity, data, 0), validity)
+
 
 class Remainder(BinaryArithmetic):
     """% with Java semantics (the sign of the dividend), NULL on a zero
@@ -259,6 +298,14 @@ class Remainder(BinaryArithmetic):
         data = _java_mod(lval.data, rval.data)
         return DevVal(torch.where(validity, data, torch.zeros_like(data)),
                       validity)
+
+    def eval_cpu(self, table):
+        l = self.left.eval_cpu(table)
+        r = self.right.eval_cpu(table)
+        validity = l.validity & r.validity & (r.data != 0)
+        data = _java_mod_np(l.data, r.data)
+        zero = np.zeros((), dtype=l.data.dtype).item()
+        return HostColumn(self.data_type, np.where(validity, data, zero).astype(l.data.dtype), validity)
 
 
 class Pmod(BinaryArithmetic):
@@ -274,6 +321,17 @@ class Pmod(BinaryArithmetic):
         data = _java_mod(_java_mod(lval.data, safe) + safe, safe)
         return DevVal(torch.where(validity, data, torch.zeros_like(data)),
                       validity)
+
+    def eval_cpu(self, table):
+        l = self.left.eval_cpu(table)
+        r = self.right.eval_cpu(table)
+        validity = l.validity & r.validity & (r.data != 0)
+        safe = np.where(r.data != 0, r.data, 1)
+        with np.errstate(over="ignore", invalid="ignore", divide="ignore"):
+            m = np.fmod(l.data, safe)
+            data = np.fmod(m + safe, safe)
+        zero = np.zeros((), dtype=l.data.dtype).item()
+        return HostColumn(self.data_type, np.where(validity, data, zero).astype(l.data.dtype), validity)
 
 
 class UnaryMinus(UnaryExpression):
@@ -298,6 +356,13 @@ class UnaryMinus(UnaryExpression):
         return DevVal(torch.where(c.validity, _wrap_neg(c.data),
                                   torch.zeros_like(c.data)), c.validity)
 
+    def eval_cpu(self, table):
+        c = self.child.eval_cpu(table)
+        with np.errstate(over="ignore"):
+            data = -c.data
+        zero = np.zeros((), dtype=c.data.dtype).item()
+        return HostColumn(self.data_type, np.where(c.validity, data, zero).astype(c.data.dtype), c.validity.copy())
+
 
 class UnaryPositive(UnaryExpression):
     @property
@@ -310,6 +375,8 @@ class UnaryPositive(UnaryExpression):
     def eval_dev(self, ctx, child_vals, prep):
         return child_vals[0]
 
+    def eval_cpu(self, table):
+        return self.child.eval_cpu(table)
 
 class Abs(UnaryExpression):
     """Java Math.abs: wraps at integer MIN_VALUE (non-ANSI); a DECIMAL128
@@ -335,3 +402,30 @@ class Abs(UnaryExpression):
             torch.where(x < 0, _wrap_neg(x), x)
         return DevVal(torch.where(c.validity, data, torch.zeros_like(data)),
                       c.validity)
+
+    def eval_cpu(self, table):
+        c = self.child.eval_cpu(table)
+        with np.errstate(over="ignore"):
+            data = np.abs(c.data)
+        zero = np.zeros((), dtype=c.data.dtype).item()
+        return HostColumn(self.data_type, np.where(c.validity, data, zero).astype(c.data.dtype), c.validity.copy())
+
+
+# ---------------------------------------------------------------------------
+# host evaluation helpers (the CPU route)
+# ---------------------------------------------------------------------------
+
+
+def _trunc_div_int(a, b):
+    """C/Java truncation division of integer arrays (numpy floors)."""
+    q = np.floor_divide(a, np.where(b != 0, b, 1))
+    r = a - q * np.where(b != 0, b, 1)
+    adjust = (r != 0) & ((a < 0) != (b < 0))
+    return q + adjust.astype(q.dtype)
+
+
+def _java_mod_np(a, b):
+    """Java % -- sign of the dividend. fmod matches for both ints and
+    floats."""
+    with np.errstate(invalid="ignore", divide="ignore"):
+        return np.fmod(a, np.where(b != 0, b, 1))

@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from spark_rapids_tpu_torch import types as T
+from spark_rapids_tpu_torch.columnar import HostColumn, HostTable
 from spark_rapids_tpu_torch.errors import ColumnarProcessingError
 from spark_rapids_tpu_torch.ops.expr import DevVal, EvalCtx, Expression
 
@@ -51,6 +52,13 @@ class BloomFilter:
         self.bits = bits
         self.num_bits = int(bits.shape[0])
         self.num_hashes = int(num_hashes)
+
+    def host_bits(self) -> np.ndarray:
+        """The bits on the host (the CPU route's probe), read once."""
+        got = self.__dict__.get("_host_bits")
+        if got is None:
+            got = self._host_bits = self.bits.cpu().numpy().astype(bool)
+        return got
 
     def approx_set_bits(self) -> int:
         return int(self.bits.sum().item())
@@ -132,3 +140,25 @@ class BloomFilterMightContain(Expression):
                                self.bloom.num_hashes):
             hit &= bits[idx]
         return DevVal(hit, c.validity)
+
+    def eval_cpu(self, table: HostTable) -> HostColumn:
+        c = self.children[0].eval_cpu(table)
+        bits = self.bloom.host_bits()
+        from spark_rapids_tpu_torch.ops.hashfns import xxhash64_host
+        n = len(c)
+        out = np.zeros(n, dtype=np.bool_)
+        for i in range(n):
+            if not c.validity[i]:
+                continue
+            h = xxhash64_host(
+                [(int(c.data[i]), True, T.LONG)]) & 0xFFFFFFFFFFFFFFFF
+            h1 = h & 0xFFFFFFFF
+            h2 = h >> 32
+            hit = True
+            for j in range(self.bloom.num_hashes):
+                ix = ((h1 + j * h2) & 0xFFFFFFFF) % self.bloom.num_bits
+                if not bits[ix]:
+                    hit = False
+                    break
+            out[i] = hit
+        return HostColumn(T.BOOLEAN, out, c.validity.copy())

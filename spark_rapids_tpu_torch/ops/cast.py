@@ -21,17 +21,30 @@ and DECIMAL128 -> integral (the reference's host route; the same digits):
 float/double -> decimal stays unported. A NULL
 literal (``void``) casts to any type as an all-null column in that type's
 storage (``T.promote`` coerces a NULL operand to the other operand's
-type). Casts to or from strings, dates and timestamps are not ported;
-every unported pair raises NotImplementedError when it binds.
+type). A cast the device does not run but the reference's host does
+(``host_cast_supported``: a string to or from a number, boolean, date or
+decimal, a decimal to or from any number at any precision) runs on the
+CPU route; any other pair raises NotImplementedError when it binds.
 """
 
 from __future__ import annotations
+
+import datetime
+import math
+import re
 
 import numpy as np
 import torch
 
 from spark_rapids_tpu_torch import types as T
-from spark_rapids_tpu_torch.ops.expr import DevVal, Expression, NodePrep
+from spark_rapids_tpu_torch.columnar import HostColumn, HostTable
+from spark_rapids_tpu_torch.errors import ColumnarProcessingError
+from spark_rapids_tpu_torch.ops.expr import (
+    DevVal,
+    Expression,
+    NodePrep,
+    host_only,
+)
 
 _INT_BOUNDS = {
     np.dtype(np.int8): (-(1 << 7), (1 << 7) - 1),
@@ -65,12 +78,28 @@ def cast_supported(src: T.DataType, dst: T.DataType) -> bool:
     return isinstance(src, _SIMPLE) and isinstance(dst, _SIMPLE)
 
 
+def host_cast_supported(src: T.DataType, dst: T.DataType) -> bool:
+    """The pairs the CPU route casts (the reference's ``eval_cpu``): the
+    device pairs, a string to or from a number, boolean, date or
+    decimal, and a decimal to or from any number at any precision."""
+    if cast_supported(src, dst):
+        return True
+    plain = _SIMPLE + (T.DateType, T.DecimalType)
+    if isinstance(src, T.StringType):
+        return isinstance(dst, plain)
+    if isinstance(dst, T.StringType):
+        return isinstance(src, plain)
+    numbers = _SIMPLE[1:] + (T.DecimalType,)
+    return (isinstance(src, T.DecimalType) or isinstance(dst, T.DecimalType)
+            ) and isinstance(src, numbers) and isinstance(dst, numbers)
+
+
 def check_cast(src: T.DataType, dst: T.DataType) -> None:
-    if not cast_supported(src, dst):
+    if not host_cast_supported(src, dst):
         raise NotImplementedError(
             f"cast from {src.simple_string()} to {dst.simple_string()} is "
-            "not ported (the port casts among the numeric types and "
-            "boolean, and between date and timestamp)")
+            "not ported (the port casts among the numeric types, boolean, "
+            "strings and decimals, and between date and timestamp)")
 
 
 def make_cast(child: Expression, dtype: T.DataType) -> Expression:
@@ -78,8 +107,7 @@ def make_cast(child: Expression, dtype: T.DataType) -> Expression:
     Cast."""
     if child.data_type == dtype:
         return child
-    check_cast(child.data_type, dtype)
-    return Cast(child, dtype)
+    return Cast(child, dtype).resolve([child])
 
 
 def _is_widening(src: T.DataType, dst: T.DataType) -> bool:
@@ -186,8 +214,16 @@ class Cast(Expression):
         return Cast(children[0], self._dtype)
 
     def resolve(self, bound):
-        check_cast(bound[0].data_type, self._dtype)
-        return Cast(bound[0], self._dtype)
+        src = bound[0].data_type
+        check_cast(src, self._dtype)
+        out = Cast(bound[0], self._dtype)
+        if not cast_supported(src, self._dtype):
+            # the reference's device_supported: string casts, and
+            # decimal casts beyond its decimal64 tier, run on the CPU
+            # route
+            host_only(out, f"cast from {src.simple_string()} to "
+                      f"{self._dtype.simple_string()}")
+        return out
 
     def prep(self, pctx, child_preps):
         if isinstance(self.children[0].data_type, T.NullType) and \
@@ -219,3 +255,331 @@ class Cast(Expression):
 
     def __repr__(self):
         return f"cast({self.children[0]!r} as {self._dtype.simple_string()})"
+
+    def eval_cpu(self, table: HostTable) -> HostColumn:
+        c = self.children[0].eval_cpu(table)
+        if c.dtype == self._dtype:
+            return c
+        if isinstance(c.dtype, T.DecimalType) or \
+                isinstance(self._dtype, T.DecimalType):
+            return _cpu_decimal_cast(c, self._dtype)
+        if isinstance(c.dtype, T.StringType):
+            return self._cpu_from_string(c)
+        if isinstance(self._dtype, T.StringType):
+            return self._cpu_to_string(c)
+        data = _cast_data_np(c.data, c.dtype, self._dtype)
+        zero = np.zeros((), dtype=self._dtype.np_dtype).item()
+        return HostColumn(self._dtype, np.where(c.validity, data, zero).astype(self._dtype.np_dtype),
+                          c.validity.copy())
+
+    def _cpu_from_string(self, c: HostColumn) -> HostColumn:
+        n = len(c)
+        out = np.zeros(n, dtype=self._dtype.np_dtype)
+        validity = c.validity.copy()
+        for i in range(n):
+            if validity[i]:
+                v = parse_string_cast(c.data[i], self._dtype)
+                if v is None:
+                    validity[i] = False
+                else:
+                    out[i] = v
+        return HostColumn(self._dtype, out, validity)
+
+    def _cpu_to_string(self, c: HostColumn) -> HostColumn:
+        n = len(c)
+        fast = _strings_at_once(c)
+        if fast is not None:
+            return HostColumn(T.STRING, fast, c.validity.copy())
+        out = np.empty(n, dtype=object)
+        for i in range(n):
+            out[i] = (format_value_as_string(c.data[i], c.dtype)
+                      if c.validity[i] else None)
+        return HostColumn(T.STRING, out, c.validity.copy())
+
+
+# ---------------------------------------------------------------------------
+# host evaluation helpers (the CPU route)
+# ---------------------------------------------------------------------------
+
+
+def _cast_data_np(data: np.ndarray, src: T.DataType, dst: T.DataType) -> np.ndarray:
+    sd, dd = src.np_dtype, dst.np_dtype
+    if isinstance(dst, T.BooleanType):
+        return data != 0
+    if isinstance(src, T.BooleanType):
+        return data.astype(dd)
+    if isinstance(src, (T.FloatType, T.DoubleType)) and isinstance(dst, T.IntegralType):
+        lo, hi = _INT_BOUNDS[np.dtype(dd)]
+        with np.errstate(invalid="ignore"):
+            t = np.trunc(data)
+            t = np.where(np.isnan(data), 0.0, t)
+            t = np.clip(t, float(lo), float(hi))
+        # float64 cannot represent 2^63-1 exactly; rely on clip + cast with
+        # saturation applied before conversion.
+        out = np.empty(data.shape, dtype=dd)
+        big = t >= float(hi)
+        small = t <= float(lo)
+        mid = ~(big | small)
+        out[big] = hi
+        out[small] = lo
+        out[mid] = t[mid].astype(dd)
+        return out
+    if isinstance(src, T.DateType) and isinstance(dst, T.TimestampType):
+        return data.astype(np.int64) * _MICROS_PER_DAY
+    if isinstance(src, T.TimestampType) and isinstance(dst, T.DateType):
+        return np.floor_divide(data, _MICROS_PER_DAY).astype(np.int32)
+    with np.errstate(over="ignore", invalid="ignore"):
+        return data.astype(dd)
+
+
+_JAVA_WS = "".join(chr(i) for i in range(0x21))
+
+
+_INT_RE = re.compile(r"([+-]?)(\d*)(?:\.(\d*))?")
+
+
+_DATE_RE = re.compile(r"(\d{4,5})(?:-(\d{1,2})(?:-(\d{1,2})(?:[T ].*)?)?)?")
+
+
+_TRUE_STRINGS = frozenset(("t", "true", "y", "yes", "1"))
+
+
+_FALSE_STRINGS = frozenset(("f", "false", "n", "no", "0"))
+
+
+_FLOAT_SPECIALS = {"inf": np.inf, "+inf": np.inf, "infinity": np.inf,
+                   "+infinity": np.inf, "-inf": -np.inf,
+                   "-infinity": -np.inf, "nan": np.nan}
+
+
+def parse_string_cast(s: str, dst: T.DataType):
+    """Spark-exact string -> value parse; None = cast yields null."""
+    t = s.strip(_JAVA_WS)
+    if isinstance(dst, T.IntegralType):
+        m = _INT_RE.fullmatch(t)
+        if not m or (not m.group(2) and not m.group(3)):
+            return None  # needs at least one digit somewhere
+        v = int(m.group(2) or "0")
+        if m.group(1) == "-":
+            v = -v
+        lo, hi = _INT_BOUNDS[np.dtype(dst.np_dtype)]
+        return v if lo <= v <= hi else None  # overflow -> null (toInt fails)
+    if isinstance(dst, (T.FloatType, T.DoubleType)):
+        low = t.lower()
+        if low in _FLOAT_SPECIALS:
+            v = _FLOAT_SPECIALS[low]
+        else:
+            body = t
+            # Java parseDouble accepts a trailing f/F/d/D suffix
+            if body and body[-1] in "fFdD" and any(c.isdigit() for c in body[:-1]):
+                body = body[:-1]
+            if not body or "_" in body or body.lower() in ("", "+", "-"):
+                return None
+            try:
+                v = float(body)
+            except ValueError:
+                return None
+        if isinstance(dst, T.FloatType):
+            v = float(np.float32(v))
+        return v
+    if isinstance(dst, T.BooleanType):
+        low = t.lower()
+        if low in _TRUE_STRINGS:
+            return True
+        if low in _FALSE_STRINGS:
+            return False
+        return None
+    if isinstance(dst, T.DateType):
+        m = _DATE_RE.fullmatch(t)
+        if not m:
+            return None
+        y = int(m.group(1))
+        mo = int(m.group(2)) if m.group(2) else 1
+        d = int(m.group(3)) if m.group(3) else 1
+        try:
+            return (datetime.date(y, mo, d) - datetime.date(1970, 1, 1)).days
+        except ValueError:
+            return None
+    return None
+
+
+def _java_float_str(x: float, is_float: bool) -> str:
+    """Java Float/Double.toString formatting (what Spark emits for
+    float -> string casts): positional for 1e-3 <= |x| < 1e7, otherwise
+    'd.dddE[-]e' scientific; NaN/Infinity spelled out; >=1 fractional
+    digit always present."""
+    if math.isnan(x):
+        return "NaN"
+    if math.isinf(x):
+        return "Infinity" if x > 0 else "-Infinity"
+    if x == 0.0:
+        return "-0.0" if math.copysign(1.0, x) < 0 else "0.0"
+    ax = abs(x)
+    if 1e-3 <= ax < 1e7:
+        if is_float:
+            s = np.format_float_positional(np.float32(x), unique=True,
+                                           trim="0")
+        else:
+            s = np.format_float_positional(x, unique=True, trim="0")
+        if "." not in s:
+            s += ".0"
+        if s.endswith("."):
+            s += "0"
+        return s
+    if is_float:
+        s = np.format_float_scientific(np.float32(x), unique=True, trim="0")
+    else:
+        s = np.format_float_scientific(x, unique=True, trim="0")
+    mant, _, exp = s.partition("e")
+    if "." not in mant:
+        mant += ".0"
+    if mant.endswith("."):
+        mant += "0"
+    e = int(exp)
+    return f"{mant}E{e}"
+
+
+def _strings_at_once(c: HostColumn):
+    """``format_value_as_string`` of a whole integral, boolean or date
+    column by numpy (None for other types, or dates outside years
+    1-9999, which take the per-row form); invalid rows are None."""
+    src, data = c.dtype, c.data
+    if isinstance(src, T.BooleanType):
+        out = np.where(data, "true", "false").astype(object)
+    elif isinstance(src, T.IntegralType):
+        out = data.astype(np.int64).astype(str).astype(object)
+    elif isinstance(src, T.DateType):
+        days = np.where(c.validity, data, 0).astype(np.int64)
+        if len(days) and (days.min() < -719162 or days.max() > 2932896):
+            return None
+        out = np.datetime_as_string(days.astype("datetime64[D]")) \
+            .astype(object)
+    else:
+        return None
+    out[~c.validity] = None
+    return out
+
+
+def format_value_as_string(v, src: T.DataType):
+    """Spark-exact X -> string rendering."""
+    if isinstance(src, T.BooleanType):
+        return "true" if v else "false"
+    if isinstance(src, (T.FloatType, T.DoubleType)):
+        return _java_float_str(float(v), isinstance(src, T.FloatType))
+    if isinstance(src, T.DateType):
+        return (datetime.date(1970, 1, 1)
+                + datetime.timedelta(days=int(v))).isoformat()
+    return str(int(v))
+
+
+def _cpu_decimal_cast(c: HostColumn, dst: T.DataType) -> HostColumn:
+    from decimal import Decimal, InvalidOperation
+
+    from spark_rapids_tpu_torch.ops.decimal import (
+        _POW10,
+        host_store,
+        host_unscaled,
+        rescale_int,
+    )
+    src = c.dtype
+    n = len(c.data)
+    validity = c.validity.copy()
+    if isinstance(src, T.DecimalType) and isinstance(dst, T.DecimalType):
+        vals = host_unscaled(c)
+        out = [0] * n
+        bound = _POW10[dst.precision]
+        for i in range(n):
+            if validity[i]:
+                v = rescale_int(int(vals[i]), src.scale, dst.scale)
+                if abs(v) >= bound:
+                    validity[i] = False
+                else:
+                    out[i] = v
+        return host_store(out, validity, dst)
+    if isinstance(dst, T.DecimalType):
+        if isinstance(src, T.StringType):
+            out = [0] * n
+            bound = _POW10[dst.precision]
+            for i in range(n):
+                if validity[i]:
+                    try:
+                        d = Decimal(str(c.data[i]).strip())
+                        v = int(d.scaleb(dst.scale).to_integral_value(
+                            rounding="ROUND_HALF_UP"))
+                    except (InvalidOperation, ValueError):
+                        validity[i] = False
+                        continue
+                    if abs(v) >= bound:
+                        validity[i] = False
+                    else:
+                        out[i] = v
+            return host_store(out, validity, dst)
+        if isinstance(src, (T.FloatType, T.DoubleType)):
+            # Spark: BigDecimal.valueOf(double) then HALF_UP to scale
+            out = [0] * n
+            bound = _POW10[dst.precision]
+            for i in range(n):
+                if validity[i]:
+                    f = float(c.data[i])
+                    if not np.isfinite(f):
+                        validity[i] = False
+                        continue
+                    d = Decimal(repr(f))
+                    v = int(d.scaleb(dst.scale).to_integral_value(
+                        rounding="ROUND_HALF_UP"))
+                    if abs(v) >= bound:
+                        validity[i] = False
+                    else:
+                        out[i] = v
+            return host_store(out, validity, dst)
+        # integral -> decimal
+        out = [0] * n
+        bound = _POW10[dst.precision]
+        scale = _POW10[dst.scale]
+        for i in range(n):
+            if validity[i]:
+                v = int(c.data[i]) * scale
+                if abs(v) >= bound:
+                    validity[i] = False
+                else:
+                    out[i] = v
+        return host_store(out, validity, dst)
+    # decimal -> other
+    vals = host_unscaled(c)
+    scale = _POW10[src.scale]
+    if isinstance(dst, (T.DoubleType, T.FloatType)):
+        data = np.zeros(n, dtype=dst.np_dtype)
+        for i in range(n):
+            if validity[i]:
+                data[i] = int(vals[i]) / scale
+        return HostColumn(dst, data, validity)
+    if isinstance(dst, T.StringType):
+        out = np.empty(n, dtype=object)
+        for i in range(n):
+            if not validity[i]:
+                out[i] = None
+                continue
+            v = int(vals[i])
+            if src.scale == 0:
+                out[i] = str(v)
+            else:
+                sign = "-" if v < 0 else ""
+                a = abs(v)
+                out[i] = f"{sign}{a // scale}." \
+                         f"{a % scale:0{src.scale}d}"
+        return HostColumn(T.STRING, out, validity)
+    if isinstance(dst, T.IntegralType):
+        data = np.zeros(n, dtype=dst.np_dtype)
+        info = np.iinfo(dst.np_dtype)
+        for i in range(n):
+            if validity[i]:
+                v = int(vals[i])
+                q = abs(v) // scale  # truncate toward zero
+                q = -q if v < 0 else q
+                if not (info.min <= q <= info.max):
+                    validity[i] = False  # overflow -> null (non-ANSI)
+                else:
+                    data[i] = q
+        return HostColumn(dst, data, validity)
+    raise ColumnarProcessingError(
+        f"cast {src.simple_string()} -> {dst.simple_string()} not supported")

@@ -13,13 +13,15 @@ kernel (ops/ordering.py::lex_sort). No per-row loop runs anywhere."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from spark_rapids_tpu_torch import types as T
+from spark_rapids_tpu_torch.columnar import HostColumn, HostTable
 from spark_rapids_tpu_torch.columnar.nested import (
     FIXED_ELEMENT_TYPES,
     ArrayData,
-    not_ported_9c,
+    MapData,
     offsets_from_counts,
 )
 from spark_rapids_tpu_torch.errors import ColumnarProcessingError
@@ -32,13 +34,13 @@ def is_fixed_array(dt) -> bool:
             and isinstance(dt.element_type, FIXED_ELEMENT_TYPES))
 
 
-def check_fixed_array(e: Expression, what: str) -> None:
+def check_array(e: Expression, what: str) -> None:
+    """Raise unless ``e`` is an array (one of elements without a device
+    layout is the plan tag's to route, overrides/rules.py)."""
     dt = e.data_type
     if not isinstance(dt, T.ArrayType):
         raise ColumnarProcessingError(
             f"{what} needs an array, got {dt.simple_string()}")
-    if not is_fixed_array(dt):
-        not_ported_9c(f"{what} over {dt.simple_string()}")
 
 
 def _elem_rids(offsets: torch.Tensor, ecap: int, cap: int) -> torch.Tensor:
@@ -85,13 +87,27 @@ class Size(UnaryExpression):
         dt = bound[0].data_type
         if isinstance(dt, T.MapType):
             return Size(bound[0])
-        check_fixed_array(bound[0], "size")
+        check_array(bound[0], "size")
         return Size(bound[0])
 
     def eval_dev(self, ctx, child_vals, prep) -> DevVal:
         (c,) = child_vals
         off = c.data.offsets
         return DevVal((off[1:] - off[:-1]).to(torch.int32), c.validity)
+
+    def eval_cpu(self, table: HostTable) -> HostColumn:
+        c = self.children[0].eval_cpu(table)
+        if isinstance(c.data, (ArrayData, MapData)):
+            # flat buffers: the lengths are the offsets' differences
+            off = np.asarray(c.data.offsets, dtype=np.int64)
+            out = (off[1:] - off[:-1]).astype(np.int32)
+            return HostColumn(T.INT, np.where(c.validity, out, 0),
+                              c.validity.copy())
+        out = np.zeros(len(c), dtype=np.int32)
+        for i in range(len(c)):
+            if c.validity[i]:
+                out[i] = len(c.data[i])
+        return HostColumn(T.INT, out, c.validity.copy())
 
 
 class GetArrayItem(Expression):
@@ -113,7 +129,7 @@ class GetArrayItem(Expression):
         if isinstance(bound[0].data_type, T.MapType):
             from spark_rapids_tpu_torch.ops.nested import GetMapValue
             return GetMapValue(bound[0], bound[1]).resolve(bound)
-        check_fixed_array(bound[0], "get_item")
+        check_array(bound[0], "get_item")
         if not isinstance(bound[1].data_type, T.IntegralType):
             raise ColumnarProcessingError("array index must be integral")
         return GetArrayItem(bound[0], bound[1])
@@ -130,6 +146,20 @@ class GetArrayItem(Expression):
         data = a.data[safe]
         return DevVal(torch.where(validity, data, torch.zeros_like(data)),
                       validity)
+
+    def eval_cpu(self, table):
+        c = self.children[0].eval_cpu(table)
+        idx = self.children[1].eval_cpu(table)
+        np_dt = self.data_type.np_dtype
+        out = np.zeros(len(c), dtype=np_dt)
+        validity = np.zeros(len(c), dtype=np.bool_)
+        for i in range(len(c)):
+            if c.validity[i] and idx.validity[i]:
+                k = int(idx.data[i])
+                if 0 <= k < len(c.data[i]) and c.data[i][k] is not None:
+                    out[i] = c.data[i][k]
+                    validity[i] = True
+        return HostColumn(self.data_type, out, validity)
 
 
 class ArrayContains(Expression):
@@ -148,7 +178,7 @@ class ArrayContains(Expression):
 
     def resolve(self, bound):
         from spark_rapids_tpu_torch.ops.cast import make_cast
-        check_fixed_array(bound[0], "array_contains")
+        check_array(bound[0], "array_contains")
         et = bound[0].data_type.element_type
         return ArrayContains(bound[0], make_cast(bound[1], et))
 
@@ -163,6 +193,24 @@ class ArrayContains(Expression):
         found = hits > 0
         validity = c.validity & v.validity & (found | (nulls == 0))
         return DevVal(found & validity, validity)
+
+    def eval_cpu(self, table):
+        c = self.children[0].eval_cpu(table)
+        v = self.children[1].eval_cpu(table)
+        out = np.zeros(len(c), dtype=np.bool_)
+        validity = np.zeros(len(c), dtype=np.bool_)
+        for i in range(len(c)):
+            if not (c.validity[i] and v.validity[i]):
+                continue
+            arr = c.data[i]
+            found = any(x is not None and x == v.data[i] for x in arr)
+            has_null = any(x is None for x in arr)
+            if found:
+                out[i] = True
+                validity[i] = True
+            elif not has_null:
+                validity[i] = True
+        return HostColumn(T.BOOLEAN, out, validity)
 
 
 class _ArrayMinMax(UnaryExpression):
@@ -179,7 +227,7 @@ class _ArrayMinMax(UnaryExpression):
         return self.children[0].data_type.element_type
 
     def resolve(self, bound):
-        check_fixed_array(bound[0], type(self).__name__)
+        check_array(bound[0], type(self).__name__)
         return type(self)(bound[0])
 
     def eval_dev(self, ctx, child_vals, prep) -> DevVal:
@@ -197,6 +245,26 @@ class _ArrayMinMax(UnaryExpression):
         validity = c.validity & (seg_count(use, rid, cap) > 0)
         r = torch.where(validity, r, torch.zeros_like(r)).to(d.dtype)
         return DevVal(r, validity)
+
+    def eval_cpu(self, table):
+        import math
+        c = self.children[0].eval_cpu(table)
+        np_dt = self.data_type.np_dtype
+        out = np.zeros(len(c), dtype=np_dt)
+        validity = np.zeros(len(c), dtype=np.bool_)
+
+        def isnan(x):
+            return isinstance(x, float) and math.isnan(x)
+
+        for i in range(len(c)):
+            if c.validity[i]:
+                vals = [x for x in c.data[i] if x is not None]
+                if vals:
+                    # Spark total order: NaN is the GREATEST value
+                    key = lambda x: (isnan(x), x if not isnan(x) else 0.0)  # noqa: E731
+                    out[i] = (min if self.is_min else max)(vals, key=key)
+                    validity[i] = True
+        return HostColumn(self.data_type, out, validity)
 
 
 class ArrayMin(_ArrayMinMax):
@@ -226,7 +294,7 @@ class SortArray(Expression):
                          children[1] if len(children) > 1 else None)
 
     def resolve(self, bound):
-        check_fixed_array(bound[0], "sort_array")
+        check_array(bound[0], "sort_array")
         if not isinstance(bound[1], Literal):
             raise ColumnarProcessingError(
                 "sort_array's ascending flag must be a literal")
@@ -257,6 +325,28 @@ class SortArray(Expression):
         return DevVal(ArrayData(a.offsets, a.data[perm], a.validity[perm]),
                       c.validity)
 
+    def eval_cpu(self, table):
+        import math
+        c = self.children[0].eval_cpu(table)
+        asc = bool(self.children[1].value)
+        out = np.empty(len(c), dtype=object)
+
+        def key(x):
+            # Spark total order: NaN greatest (and -0.0 == 0.0)
+            if isinstance(x, float):
+                if math.isnan(x):
+                    return (1, 0.0)
+                return (0, x + 0.0)
+            return (0, x)
+
+        for i in range(len(c)):
+            if c.validity[i]:
+                vals = sorted((x for x in c.data[i] if x is not None),
+                              key=key, reverse=not asc)
+                nulls = [None] * (len(c.data[i]) - len(vals))
+                out[i] = (nulls + vals) if asc else (vals + nulls)
+        return HostColumn(self.data_type, out, c.validity.copy())
+
 
 class CreateArray(Expression):
     """array(e1, e2, ...) -- k elements a row, in the common promoted
@@ -280,8 +370,6 @@ class CreateArray(Expression):
         for c in bound_children[1:]:
             if c.data_type != target:
                 target = T.promote(target, c.data_type)
-        if not isinstance(target, FIXED_ELEMENT_TYPES):
-            not_ported_9c(f"array() of {target.simple_string()}")
         return CreateArray(*[make_cast(c, target) for c in bound_children])
 
     def eval_dev(self, ctx, child_vals, prep) -> DevVal:
@@ -308,6 +396,16 @@ class CreateArray(Expression):
         off, pairs = pack_elements(ctx, keep, rid, [(ed, ev)], ecap)
         return DevVal(ArrayData(off, *pairs[0]), live)
 
+    def eval_cpu(self, table):
+        kids = [c.eval_cpu(table) for c in self.children]
+        n = table.num_rows
+        out = np.empty(n, dtype=object)
+        for i in range(n):
+            out[i] = [
+                (k.data[i].item() if hasattr(k.data[i], "item") else k.data[i])
+                if k.validity[i] else None for k in kids]
+        return HostColumn(self.data_type, out, np.ones(n, dtype=np.bool_))
+
 
 class Explode(UnaryExpression):
     """Generator marker: planned as a Generate node, never evaluated as a
@@ -324,6 +422,10 @@ class Explode(UnaryExpression):
         raise ColumnarProcessingError(
             "explode must be planned as a Generate node (a select with "
             "one generator)")
+
+    def eval_cpu(self, table):
+        raise ColumnarProcessingError(
+            "Explode must be planned as a Generate node")
 
 
 class PosExplode(Explode):
@@ -409,3 +511,25 @@ class Sequence(Expression):
         ed = torch.where(ev, s64[safe_rid] + pos * safe_step[safe_rid],
                          torch.zeros_like(pos))
         return DevVal(ArrayData(offsets, ed, ev), validity)
+
+    def eval_cpu(self, table: HostTable) -> HostColumn:
+        kids = [c.eval_cpu(table) for c in self.children]
+        n = table.num_rows
+        out = np.empty(n, dtype=object)
+        validity = np.zeros(n, dtype=np.bool_)
+        for i in range(n):
+            if not all(k.validity[i] for k in kids):
+                continue
+            start, stop = int(kids[0].data[i]), int(kids[1].data[i])
+            step = int(kids[2].data[i]) if len(kids) > 2 else (
+                1 if stop >= start else -1)
+            if step == 0 or (stop - start) * step < 0 and start != stop:
+                raise ColumnarProcessingError(
+                    "sequence step must move start toward stop")
+            if abs(stop - start) // abs(step) + 1 > 100_000_000:
+                raise ColumnarProcessingError(
+                    "sequence length exceeds the 1e8-element bound")
+            out[i] = list(range(start, stop + (1 if step > 0 else -1),
+                                step))
+            validity[i] = True
+        return HostColumn(self.data_type, out, validity)

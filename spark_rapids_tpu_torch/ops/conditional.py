@@ -44,6 +44,7 @@ import numpy as np
 import torch
 
 from spark_rapids_tpu_torch import types as T
+from spark_rapids_tpu_torch.columnar import HostColumn, HostTable
 from spark_rapids_tpu_torch.ops.common import (
     align_string_dicts_many,
     dev_remap_codes,
@@ -153,6 +154,15 @@ class If(Expression):
         return DevVal(torch.where(st.rows(take_a), d[1], d[2]),
                       torch.where(take_a, a.validity, b.validity))
 
+    def eval_cpu(self, table: HostTable) -> HostColumn:
+        p = self.children[0].eval_cpu(table)
+        take_a = p.validity & p.data.astype(np.bool_)
+        a = self.children[1].eval_cpu(table)
+        b = self.children[2].eval_cpu(table)
+        data = np.where(take_a, a.data, b.data)
+        validity = np.where(take_a, a.validity, b.validity)
+        return HostColumn(self.data_type, data, validity)
+
 
 class CaseWhen(Expression):
     """children = [cond0, val0, cond1, val1, ..., (else)]. An odd child
@@ -212,6 +222,32 @@ class CaseWhen(Expression):
                                    child_vals[i].validity)
         return DevVal(data, validity)
 
+    def _branches(self):
+        n = len(self.children) - (1 if self.has_else else 0)
+        return [(self.children[i], self.children[i + 1]) for i in range(0, n, 2)]
+
+    def eval_cpu(self, table):
+        n = table.num_rows
+        dtype = self.data_type
+        if isinstance(dtype, T.StringType):
+            data = np.full(n, "", dtype=object)
+        else:
+            data = np.zeros(n, dtype=dtype.np_dtype)
+        validity = np.zeros(n, dtype=np.bool_)
+        decided = np.zeros(n, dtype=np.bool_)
+        for cond, val in self._branches():
+            c = cond.eval_cpu(table)
+            v = val.eval_cpu(table)
+            take = ~decided & c.validity & c.data.astype(np.bool_)
+            data = np.where(take, v.data, data)
+            validity = np.where(take, v.validity, validity)
+            decided |= take
+        if self.has_else:
+            v = self.children[-1].eval_cpu(table)
+            data = np.where(~decided, v.data, data)
+            validity = np.where(~decided, v.validity, validity)
+        return HostColumn(dtype, data, validity)
+
 
 class Coalesce(Expression):
     def __init__(self, *children: Expression):
@@ -245,6 +281,16 @@ class Coalesce(Expression):
             data = torch.where(st.rows(take), datas[i], data)
             validity = validity | v.validity
         return DevVal(data, validity)
+
+    def eval_cpu(self, table):
+        cols = [c.eval_cpu(table) for c in self.children]
+        data = cols[0].data.copy()
+        validity = cols[0].validity.copy()
+        for c in cols[1:]:
+            take = ~validity & c.validity
+            data = np.where(take, c.data, data)
+            validity |= c.validity
+        return HostColumn(self.data_type, data, validity)
 
 
 def _dec128_pick(new: torch.Tensor, cur: torch.Tensor, greater: bool):
@@ -295,13 +341,35 @@ class _MinMaxN(Expression):
         return DevVal(torch.where(st.rows(validity), data,
                                   torch.zeros_like(data)), validity)
 
+    def eval_cpu(self, table):
+        cols = [c.eval_cpu(table) for c in self.children]
+        string = isinstance(self.data_type, T.StringType)
+        data = cols[0].data.copy()
+        if string:
+            data = np.where(cols[0].validity, data, "")
+        validity = cols[0].validity.copy()
+        for c in cols[1:]:
+            cd = np.where(c.validity, c.data, "") if string else c.data
+            better = c.validity & (~validity | type(self)._pick_cpu(cd, data))
+            data = np.where(better, cd, data)
+            validity |= c.validity
+        if string:
+            data = data.astype(object)
+            out = np.empty(len(data), dtype=object)
+            out[:] = data
+            out[~validity] = None
+            data = out
+        return HostColumn(self.data_type, data, validity)
+
 
 class Least(_MinMaxN):
     _greater = False
+    _pick_cpu = staticmethod(lambda new, cur: new < cur)
 
 
 class Greatest(_MinMaxN):
     _greater = True
+    _pick_cpu = staticmethod(lambda new, cur: new > cur)
 
 
 class NaNvl(Expression):
@@ -333,3 +401,12 @@ class NaNvl(Expression):
         take_b = a.validity & torch.isnan(ad)
         return DevVal(torch.where(take_b, bd, ad),
                       torch.where(take_b, b.validity, a.validity))
+
+    def eval_cpu(self, table):
+        a = self.children[0].eval_cpu(table)
+        b = self.children[1].eval_cpu(table)
+        take_b = a.validity & np.isnan(a.data)
+        data = np.where(take_b, b.data, a.data)
+        validity = np.where(take_b, b.validity, a.validity)
+        return HostColumn(self.data_type, data, validity)
+

@@ -12,15 +12,18 @@ The string parsers (``unix_timestamp(string, fmt)``, ``to_timestamp``)
 are dictionary transforms (ops/strings.py) with a Java SimpleDateFormat
 pattern translated by ``translate_java_format``; a pattern outside the
 translatable subset raises NotImplementedError naming itself (the
-reference's CPU route)."""
+reference's CPU route reads no format outside it either). The CPU route
+evaluates every function here on the host (``eval_cpu``)."""
 
 from __future__ import annotations
 
 import datetime as _dt
 
+import numpy as np
 import torch
 
 from spark_rapids_tpu_torch import types as T
+from spark_rapids_tpu_torch.columnar import HostColumn, HostTable
 from spark_rapids_tpu_torch.errors import ColumnarProcessingError
 from spark_rapids_tpu_torch.ops.common import (
     BinaryExpression,
@@ -90,6 +93,15 @@ class _DateField(UnaryExpression):
         out = self._field(cv.data).to(T.torch_dtype(self.data_type))
         return DevVal(torch.where(cv.validity, out, torch.zeros_like(out)),
                       cv.validity)
+
+    def eval_cpu(self, table: HostTable) -> HostColumn:
+        # the field's integer arithmetic, on host tensors over the numpy
+        # days (the reference's numpy computes the same integers)
+        c = self.children[0].eval_cpu(table)
+        days = torch.from_numpy(np.asarray(c.data, dtype=np.int32))
+        out = self._field(days).numpy().astype(np.int32)
+        return HostColumn(self.data_type, np.where(c.validity, out, 0),
+                          c.validity.copy())
 
 
 class Year(_DateField):
@@ -186,10 +198,27 @@ class DateAdd(_DateArith):
     def _op(self, d, n):
         return d + n
 
+    def eval_cpu(self, table):
+        d = self.children[0].eval_cpu(table)
+        n = self.children[1].eval_cpu(table)
+        validity = d.validity & n.validity
+        return HostColumn(T.DATE,
+                          (d.data.astype(np.int64) + n.data.astype(np.int64)
+                           ).astype(np.int32),
+                          validity)
+
 
 class DateSub(_DateArith):
     def _op(self, d, n):
         return d - n
+
+    def eval_cpu(self, table):
+        d = self.children[0].eval_cpu(table)
+        n = self.children[1].eval_cpu(table)
+        return HostColumn(T.DATE,
+                          (d.data.astype(np.int64) - n.data.astype(np.int64)
+                           ).astype(np.int32),
+                          d.validity & n.validity)
 
 
 class AddMonths(_DateArith):
@@ -203,6 +232,15 @@ class AddMonths(_DateArith):
         nm = total % 12 + 1
         last = civil_from_days(_first_of_next_month(ny, nm) - 1)[2]
         return days_from_civil(ny, nm, torch.minimum(day, last))
+
+    def eval_cpu(self, table):
+        dcol = self.children[0].eval_cpu(table)
+        ncol = self.children[1].eval_cpu(table)
+        out = self._op(torch.from_numpy(dcol.data.astype(np.int32)),
+                       torch.from_numpy(ncol.data.astype(np.int32)))
+        validity = dcol.validity & ncol.validity
+        return HostColumn(T.DATE, np.where(validity, out.numpy(), 0)
+                          .astype(np.int32), validity)
 
 
 class DateDiff(BinaryExpression):
@@ -225,6 +263,12 @@ class DateDiff(BinaryExpression):
         out = (e.data - s.data).to(torch.int32)
         return DevVal(torch.where(validity, out, torch.zeros_like(out)),
                       validity)
+
+    def eval_cpu(self, table):
+        e = self.children[0].eval_cpu(table)
+        s = self.children[1].eval_cpu(table)
+        return HostColumn(T.INT, (e.data - s.data).astype(np.int32),
+                          e.validity & s.validity)
 
 
 class _TimestampField(UnaryExpression):
@@ -253,6 +297,13 @@ class _TimestampField(UnaryExpression):
         v = v.to(torch.int32)
         return DevVal(torch.where(cv.validity, v, torch.zeros_like(v)),
                       cv.validity)
+
+    def eval_cpu(self, table):
+        c = self.children[0].eval_cpu(table)
+        v = np.floor_divide(c.data, self.divisor)
+        if self.modulus:
+            v = np.mod(v, self.modulus)
+        return HostColumn(T.INT, v.astype(np.int32), c.validity.copy())
 
 
 class Hour(_TimestampField):
@@ -298,20 +349,40 @@ class UnixTimestampFromTs(_TsUnary):
     def _op(self, x):
         return x // MICROS_PER_SECOND
 
+    def eval_cpu(self, table):
+        c = self.children[0].eval_cpu(table)
+        return HostColumn(T.LONG, np.floor_divide(c.data, MICROS_PER_SECOND),
+                          c.validity.copy())
+
 
 class SecondsToTimestamp(_TsUnary):
     def _op(self, x):
         return x * MICROS_PER_SECOND
+
+    def eval_cpu(self, table):
+        c = self.children[0].eval_cpu(table)
+        return HostColumn(T.TIMESTAMP,
+                          c.data.astype(np.int64) * MICROS_PER_SECOND,
+                          c.validity.copy())
 
 
 class MillisToTimestamp(_TsUnary):
     def _op(self, x):
         return x * 1000
 
+    def eval_cpu(self, table):
+        c = self.children[0].eval_cpu(table)
+        return HostColumn(T.TIMESTAMP, c.data.astype(np.int64) * 1000,
+                          c.validity.copy())
+
 
 class MicrosToTimestamp(_TsUnary):
     def _op(self, x):
         return x
+
+    def eval_cpu(self, table):
+        c = self.children[0].eval_cpu(table)
+        return HostColumn(T.TIMESTAMP, c.data.astype(np.int64), c.validity.copy())
 
 
 class TsToDate(_TsUnary):
@@ -321,6 +392,12 @@ class TsToDate(_TsUnary):
 
     def _op(self, x):
         return x // MICROS_PER_DAY
+
+    def eval_cpu(self, table):
+        c = self.children[0].eval_cpu(table)
+        return HostColumn(T.DATE,
+                          np.floor_divide(c.data, MICROS_PER_DAY).astype(np.int32),
+                          c.validity.copy())
 
 
 class PreciseTimestampConversion(_TsUnary):
@@ -343,6 +420,11 @@ class PreciseTimestampConversion(_TsUnary):
 
     def _op(self, x):
         return x
+
+    def eval_cpu(self, table):
+        c = self.children[0].eval_cpu(table)
+        return HostColumn(self.data_type, c.data.astype(np.int64),
+                          c.validity.copy())
 
 
 # -- string timestamp parsing (the UnixTimestamp family) ---------------------
@@ -459,3 +541,22 @@ class TimeAdd(BinaryExpression):
         out = c.data + int(m)
         return DevVal(torch.where(c.validity, out, torch.zeros_like(out)),
                       c.validity)
+
+    def _micros(self):
+        """Interval micros, or None for a null literal (null interval ->
+        null column, Spark semantics)."""
+        from spark_rapids_tpu_torch.ops.expr import Literal
+        i = self.children[1]
+        if not isinstance(i, Literal):
+            raise ColumnarProcessingError(
+                "TimeAdd interval must be a literal")
+        return None if i.value is None else int(i.value)
+
+    def eval_cpu(self, table):
+        c = self.children[0].eval_cpu(table)
+        m = self._micros()
+        if m is None:
+            return HostColumn(T.TIMESTAMP, np.zeros_like(c.data),
+                              np.zeros(len(c.data), dtype=np.bool_))
+        return HostColumn(T.TIMESTAMP, c.data + m, c.validity.copy())
+

@@ -45,9 +45,11 @@ from __future__ import annotations
 
 from typing import List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from spark_rapids_tpu_torch import types as T
+from spark_rapids_tpu_torch.columnar import HostColumn, HostTable
 from spark_rapids_tpu_torch.ops.expr import DevVal, Expression
 
 MAX_PRECISION = 38
@@ -253,6 +255,12 @@ class UnscaledValue(Expression):
         (c,) = child_vals
         return DevVal(c.data, c.validity)
 
+    def eval_cpu(self, table):
+        c = self.children[0].eval_cpu(table)
+        data = np.asarray([int(v) for v in host_unscaled(c)],
+                          dtype=np.int64)
+        return HostColumn(T.LONG, data, c.validity.copy())
+
 
 class MakeDecimal(Expression):
     """long unscaled -> decimal(p, s) (GpuMakeDecimal); null where the
@@ -280,6 +288,14 @@ class MakeDecimal(Expression):
         validity = c.validity & _in_bound(v, _POW10[self._dtype.precision])
         return DevVal(torch.where(validity, v, torch.zeros_like(v)),
                       validity)
+
+    def eval_cpu(self, table):
+        c = self.children[0].eval_cpu(table)
+        bound = _POW10[self._dtype.precision]
+        validity = c.validity & (np.abs(c.data) < bound)
+        return HostColumn(self._dtype,
+                          np.where(validity, c.data, 0).astype(np.int64),
+                          validity)
 
 
 class CheckOverflow(Expression):
@@ -312,6 +328,22 @@ class CheckOverflow(Expression):
         src = self.children[0].data_type
         return dev_rescale_checked(c.data, c.validity, src.scale,
                                    self._dtype.scale, self._dtype.precision)
+
+    def eval_cpu(self, table):
+        c = self.children[0].eval_cpu(table)
+        src: T.DecimalType = self.children[0].data_type
+        validity = c.validity.copy()
+        bound = _POW10[self._dtype.precision]
+        out = [0] * len(c.data)
+        vals = host_unscaled(c)
+        for i in range(len(out)):
+            if validity[i]:
+                v = rescale_int(int(vals[i]), src.scale, self._dtype.scale)
+                if abs(v) >= bound:
+                    validity[i] = False
+                else:
+                    out[i] = v
+        return host_store(out, validity, self._dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -535,6 +567,28 @@ class DecimalBinary(Expression):
     def _result_type(self, a, b) -> T.DecimalType:
         raise NotImplementedError
 
+    def _host_op(self, lv: int, rv: int):
+        """Exact unscaled result at the RESULT scale, or None (null)."""
+        raise NotImplementedError
+
+    def eval_cpu(self, table: HostTable) -> HostColumn:
+        l = self.left.eval_cpu(table)
+        r = self.right.eval_cpu(table)
+        validity = (l.validity & r.validity).copy()
+        ld = host_unscaled(l)
+        rd = host_unscaled(r)
+        bound = _POW10[self.data_type.precision]
+        out = [0] * len(ld)
+        for i in range(len(ld)):
+            if not validity[i]:
+                continue
+            v = self._host_op(int(ld[i]), int(rd[i]))
+            if v is None or abs(v) >= bound:
+                validity[i] = False  # CheckOverflow: null (non-ANSI)
+            else:
+                out[i] = v
+        return host_store(out, validity, self.data_type)
+
 
 def _fits_i64_digits(*ps: int) -> bool:
     return all(p <= T.DecimalType.MAX_LONG_DIGITS for p in ps)
@@ -545,6 +599,11 @@ class DecimalAdd(DecimalBinary):
     to the result scale, then added; null where |v| >= 10^p."""
 
     _sign = 1
+
+    def _host_op(self, lv, rv):
+        s = self.data_type.scale
+        return rescale_int(lv, self.left.data_type.scale, s) + \
+            self._sign * rescale_int(rv, self.right.data_type.scale, s)
 
     def _result_type(self, a, b):
         return add_result_type(a, b)
@@ -580,6 +639,11 @@ class DecimalSubtract(DecimalAdd):
 class DecimalMultiply(DecimalBinary):
     """The exact product at scale s1 + s2, HALF_UP down to the result
     scale; null where |v| >= 10^p."""
+
+    def _host_op(self, lv, rv):
+        return rescale_int(lv * rv, self.left.data_type.scale
+                           + self.right.data_type.scale,
+                           self.data_type.scale)
 
     def _result_type(self, a, b):
         return mul_result_type(a, b)
@@ -631,6 +695,15 @@ class DecimalDivide(DecimalBinary):
     p = p1 + up <= 18, the numerator fits int64 and one int64 form does
     it; otherwise the DECIMAL128 division kernel. Spark's result type
     keeps up >= 0."""
+
+    def _host_op(self, lv, rv):
+        if rv == 0:
+            return None  # Spark: null on division by zero (non-ANSI)
+        up = (self.data_type.scale + self.right.data_type.scale
+              - self.left.data_type.scale)
+        if up < 0:
+            return _round_half_up_div(lv, rv * _POW10[-up])
+        return _round_half_up_div(lv * _POW10[up], rv)
 
     def _result_type(self, a, b):
         return div_result_type(a, b)
@@ -701,9 +774,67 @@ class DecimalRemainder(DecimalBinary):
         return DevVal(torch.where(validity, data, torch.zeros_like(data)),
                       validity)
 
+    def _host_op(self, lv, rv):
+        s = self.data_type.scale
+        a = rescale_int(lv, self.left.data_type.scale, s)
+        b = rescale_int(rv, self.right.data_type.scale, s)
+        if b == 0:
+            return None
+        r = abs(a) % abs(b)
+        r = -r if a < 0 else r
+        if not self._java_sign:
+            r += b
+            r = (abs(r) % abs(b)) * (-1 if r < 0 else 1)
+        return r
+
 
 class DecimalPmod(DecimalRemainder):
     """pmod: ((a % b) + b) % b with Java %."""
 
     _java_sign = False
     _mode = "pmod"
+
+
+# ---------------------------------------------------------------------------
+# host evaluation helpers (the CPU route)
+# ---------------------------------------------------------------------------
+
+
+def host_unscaled(col: HostColumn):
+    """Column unscaled values as a Python-int object array."""
+    if col.data.dtype == object:
+        return col.data
+    return col.data.astype(object)
+
+
+def host_store(values, validity, dtype: T.DecimalType) -> HostColumn:
+    """Pack python-int unscaled values into the storage layout for
+    ``dtype`` (int64 when p<=18, object otherwise); overflowed slots must
+    already be nulled."""
+    n = len(values)
+    if dtype.precision <= T.DecimalType.MAX_LONG_DIGITS:
+        out = np.zeros(n, dtype=np.int64)
+        for i in range(n):
+            if validity[i]:
+                out[i] = values[i]
+        return HostColumn(dtype, out, validity)
+    out = np.empty(n, dtype=object)
+    for i in range(n):
+        out[i] = int(values[i]) if validity[i] else 0
+    return HostColumn(dtype, out, validity)
+
+
+def _round_half_up_div(v: int, d: int) -> int:
+    """v / d with HALF_UP rounding (Java BigDecimal's default in Spark):
+    the magnitude rounds half away from zero, the sign is the
+    quotient's."""
+    q, r = divmod(abs(v), abs(d))
+    if 2 * r >= abs(d):
+        q += 1
+    return -q if (v < 0) != (d < 0) else q
+
+
+def rescale_int(v: int, from_scale: int, to_scale: int) -> int:
+    if to_scale >= from_scale:
+        return v * _POW10[to_scale - from_scale]
+    return _round_half_up_div(v, _POW10[from_scale - to_scale])

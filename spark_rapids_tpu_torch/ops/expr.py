@@ -7,8 +7,11 @@ post-order: string dictionaries) and a device walk (``_walk_eval``)
 that consumes the preps in the same order. PyTorch runs eagerly, so there
 is no trace cache: the device walk runs the tensor ops directly.
 
-Operators the port has not ported raise NotImplementedError naming the
-operator, never a wrong answer.
+Every expression also evaluates on the host (``eval_cpu``, the
+reference's Spark-exact CPU path over numpy); the CPU route
+(overrides/rules.py, plan/nodes.py) runs it for operators tagged off the
+device. Operators the port has not ported raise NotImplementedError
+naming the operator, never a wrong answer.
 """
 
 from __future__ import annotations
@@ -20,7 +23,12 @@ import numpy as np
 import torch
 
 from spark_rapids_tpu_torch import types as T
-from spark_rapids_tpu_torch.columnar import DeviceColumn, DeviceTable
+from spark_rapids_tpu_torch.columnar import (
+    DeviceColumn,
+    DeviceTable,
+    HostColumn,
+    HostTable,
+)
 from spark_rapids_tpu_torch.errors import ColumnarProcessingError
 
 
@@ -82,6 +90,14 @@ class EvalCtx:
         return next(self._prep_iter)  # type: ignore[arg-type]
 
 
+def host_only(expr: "Expression", why: str) -> "Expression":
+    """Mark ``expr`` as a form the device does not evaluate (``why`` says
+    what, for the reader); the plan's tag sends its operator to the CPU
+    route."""
+    expr._host_only = why
+    return expr
+
+
 def _not_ported(what: str):
     raise NotImplementedError(f"{what} is not ported to "
                               "spark_rapids_tpu_torch yet")
@@ -127,6 +143,17 @@ class Expression:
     def resolve(self, bound_children: Sequence["Expression"]) -> "Expression":
         """Hook for type checks and coercion; default rebuilds."""
         return self.with_children(bound_children)
+
+    # --- CPU route (Spark-exact host evaluation) ----------------------------
+    def eval_cpu(self, table: HostTable) -> HostColumn:
+        raise NotImplementedError(f"{self.name}.eval_cpu")
+
+    @property
+    def device_supported(self) -> bool:
+        """False for a form only the CPU route evaluates (the reference's
+        ``device_supported``): overrides/rules.py tags its operator onto
+        the route with the reason "configuration is not supported"."""
+        return "_host_only" not in vars(self)
 
     # --- device path -------------------------------------------------------
     def prep(self, pctx: PrepCtx, child_preps: Sequence[NodePrep]) -> NodePrep:
@@ -286,6 +313,9 @@ class BoundReference(Expression):
     def __repr__(self):
         return f"#{self.ordinal}:{self._dtype}"
 
+    def eval_cpu(self, table: HostTable) -> HostColumn:
+        return table.columns[self.ordinal]
+
 
 class Literal(Expression):
     def __init__(self, value, dtype: Optional[T.DataType] = None):
@@ -340,6 +370,16 @@ class Literal(Expression):
     def __repr__(self):
         return f"lit({self.value!r})"
 
+    def eval_cpu(self, table: HostTable) -> HostColumn:
+        n = table.num_rows
+        validity = np.full(n, self.value is not None, dtype=np.bool_)
+        if isinstance(self._dtype, T.StringType):
+            data = np.full(n, self.value, dtype=object)
+        else:
+            fill = self.value if self.value is not None else 0
+            data = np.full(n, fill, dtype=self._dtype.np_dtype)
+        return HostColumn(self._dtype, data, validity)
+
 
 class Alias(Expression):
     def __init__(self, child: Expression, out_name: str):
@@ -361,6 +401,9 @@ class Alias(Expression):
 
     def __repr__(self):
         return f"{self.children[0]!r} AS {self.out_name}"
+
+    def eval_cpu(self, table):
+        return self.children[0].eval_cpu(table)
 
 
 def col(name: str) -> AttributeReference:
@@ -437,3 +480,11 @@ def compile_project(exprs: Sequence[Expression],
                                 dict_sorted=preps[-1].dict_sorted,
                                 domain=preps[-1].out_domain))
     return out
+
+
+def evaluate_cpu(exprs: Sequence[Expression], table: HostTable,
+                 names: Optional[Sequence[str]] = None) -> HostTable:
+    """A projection on the CPU route."""
+    out_names = list(names) if names else [
+        output_name(e, f"col{i}") for i, e in enumerate(exprs)]
+    return HostTable(out_names, [e.eval_cpu(table) for e in exprs])

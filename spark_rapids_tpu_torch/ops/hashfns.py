@@ -26,13 +26,17 @@ import numpy as np
 import torch
 
 from spark_rapids_tpu_torch import types as T
+from spark_rapids_tpu_torch.columnar import HostColumn, HostTable
 from spark_rapids_tpu_torch.ops.expr import DevVal, EvalCtx, Expression, \
     NodePrep, PrepCtx
+from spark_rapids_tpu_torch.errors import ColumnarProcessingError
 from spark_rapids_tpu_torch.shuffle.hashing import (
+    _dec128_twos_complement_bytes,
     _float_bits,
     dec128_byte_rows,
     device_string_bytes,
     murmur3_hash_device,
+    murmur3_hash_host,
 )
 
 P1 = 0x9E3779B185EBCA87
@@ -189,6 +193,16 @@ class Murmur3Hash(_HashBase):
         return DevVal(h, torch.ones(ctx.capacity, dtype=torch.bool,
                                     device=ctx.device))
 
+    def eval_cpu(self, table: HostTable) -> HostColumn:
+        cols = [c.eval_cpu(table) for c in self.children]
+        n = table.num_rows
+        out = np.empty(n, dtype=np.int32)
+        for r in range(n):
+            out[r] = murmur3_hash_host(
+                [(cols[j].data[r], bool(cols[j].validity[r]),
+                  self.children[j].data_type) for j in range(len(cols))])
+        return HostColumn(T.INT, out, np.ones(n, dtype=np.bool_))
+
 
 def xxhash64_device(cols, seed: int = XX_SEED,
                     string_bytes: Optional[dict] = None) -> torch.Tensor:
@@ -231,6 +245,16 @@ class XxHash64(_HashBase):
         h = xxhash64_device(cols, string_bytes=prep.aux)
         return DevVal(h, torch.ones(ctx.capacity, dtype=torch.bool,
                                     device=ctx.device))
+
+    def eval_cpu(self, table: HostTable) -> HostColumn:
+        cols = [c.eval_cpu(table) for c in self.children]
+        n = table.num_rows
+        out = np.empty(n, dtype=np.int64)
+        for r in range(n):
+            out[r] = xxhash64_host(
+                [(cols[j].data[r], bool(cols[j].validity[r]),
+                  self.children[j].data_type) for j in range(len(cols))])
+        return HostColumn(T.LONG, out, np.ones(n, dtype=np.bool_))
 
 
 # -- hive hash ---------------------------------------------------------------
@@ -302,3 +326,174 @@ class HiveHash(_HashBase):
             h = h * 31 + f
         return DevVal(h, torch.ones(ctx.capacity, dtype=torch.bool,
                                     device=ctx.device))
+
+    def eval_cpu(self, table: HostTable) -> HostColumn:
+        cols = [c.eval_cpu(table) for c in self.children]
+        n = table.num_rows
+        out = np.empty(n, dtype=np.int32)
+        for r in range(n):
+            h = 0
+            for j, c in enumerate(cols):
+                f = _hive_field_host(c.data[r], bool(c.validity[r]),
+                                     self.children[j].data_type)
+                h = (h * 31 + f) & 0xFFFFFFFF
+            out[r] = np.uint32(h).astype(np.int32).item() \
+                if h < (1 << 31) else h - (1 << 32)
+        return HostColumn(T.INT, out, np.ones(n, dtype=np.bool_))
+
+
+# ---------------------------------------------------------------------------
+# host evaluation helpers (the CPU route)
+# ---------------------------------------------------------------------------
+
+
+M64 = (1 << 64) - 1
+
+
+def _np_rotl64(x, r):
+    x = int(x) & M64
+    return ((x << r) | (x >> (64 - r))) & M64
+
+
+def _np_xx_fmix(h):
+    h = int(h) & M64
+    h ^= h >> 33
+    h = (h * P2) & M64
+    h ^= h >> 29
+    h = (h * P3) & M64
+    h ^= h >> 32
+    return h
+
+
+def _np_xx_long(v, seed):
+    v = int(np.int64(v)) & M64
+    h = (seed + P5 + 8) & M64
+    k1 = (v * P2) & M64
+    k1 = _np_rotl64(k1, 31)
+    k1 = (k1 * P1) & M64
+    h ^= k1
+    h = (_np_rotl64(h, 27) * P1 + P4) & M64
+    return _np_xx_fmix(h)
+
+
+def _np_xx_int(v, seed):
+    v = int(np.uint32(np.int32(v)))
+    h = (seed + P5 + 4) & M64
+    h ^= (v * P1) & M64
+    h = (_np_rotl64(h, 23) * P2 + P3) & M64
+    return _np_xx_fmix(h)
+
+
+def _np_xx_bytes(b: bytes, seed: int) -> int:
+    length = len(b)
+    if length >= 32:
+        v1 = (seed + P1 + P2) & M64
+        v2 = (seed + P2) & M64
+        v3 = seed & M64
+        v4 = (seed - P1) & M64
+        i = 0
+        while i + 32 <= length:
+            for vi, off in ((1, 0), (2, 8), (3, 16), (4, 24)):
+                w = int.from_bytes(b[i + off:i + off + 8], "little")
+                v = {1: v1, 2: v2, 3: v3, 4: v4}[vi]
+                v = (v + w * P2) & M64
+                v = _np_rotl64(v, 31)
+                v = (v * P1) & M64
+                if vi == 1:
+                    v1 = v
+                elif vi == 2:
+                    v2 = v
+                elif vi == 3:
+                    v3 = v
+                else:
+                    v4 = v
+            i += 32
+        h = (_np_rotl64(v1, 1) + _np_rotl64(v2, 7) + _np_rotl64(v3, 12)
+             + _np_rotl64(v4, 18)) & M64
+        for v in (v1, v2, v3, v4):
+            k = (v * P2) & M64
+            k = _np_rotl64(k, 31)
+            k = (k * P1) & M64
+            h ^= k
+            h = (h * P1 + P4) & M64
+        pos = i
+    else:
+        h = (seed + P5) & M64
+        pos = 0
+    h = (h + length) & M64
+    while pos + 8 <= length:
+        w = int.from_bytes(b[pos:pos + 8], "little")
+        k1 = (w * P2) & M64
+        k1 = _np_rotl64(k1, 31)
+        k1 = (k1 * P1) & M64
+        h ^= k1
+        h = (_np_rotl64(h, 27) * P1 + P4) & M64
+        pos += 8
+    if pos + 4 <= length:
+        w = int.from_bytes(b[pos:pos + 4], "little")
+        h ^= (w * P1) & M64
+        h = (_np_rotl64(h, 23) * P2 + P3) & M64
+        pos += 4
+    while pos < length:
+        h ^= (b[pos] * P5) & M64
+        h = (_np_rotl64(h, 11) * P1) & M64
+        pos += 1
+    return _np_xx_fmix(h)
+
+
+def xxhash64_host(values, seed: int = XX_SEED) -> int:
+    h = seed
+    for v, valid, dt in values:
+        if not valid:
+            continue
+        if isinstance(dt, T.StringType):
+            h = _np_xx_bytes(str(v).encode("utf-8"), h)
+        elif T.is_dec128(dt):
+            # Spark-exact: bytes of the unscaled BigInteger (see
+            # shuffle/hashing.py murmur3 dec128 note)
+            h = _np_xx_bytes(_dec128_twos_complement_bytes(int(v)), h)
+        elif isinstance(dt, (T.LongType, T.TimestampType, T.DecimalType)):
+            h = _np_xx_long(v, h)
+        elif isinstance(dt, T.DoubleType):
+            d = 0.0 if v == 0.0 else float(v)
+            h = _np_xx_long(np.float64(d).view(np.int64), h)
+        elif isinstance(dt, T.FloatType):
+            f = 0.0 if v == 0.0 else float(v)
+            h = _np_xx_int(np.float32(f).view(np.int32), h)
+        elif isinstance(dt, T.BooleanType):
+            h = _np_xx_int(1 if v else 0, h)
+        else:
+            h = _np_xx_int(int(v), h)
+    return int(np.uint64(h).view(np.int64))
+
+
+def _hive_timestamp_value(micros: int) -> int:
+    """Hive TimestampWritable.hashCode layout: (seconds << 30) | nanos,
+    before the standard long fold."""
+    seconds, rem = divmod(int(micros), 1_000_000)
+    return (seconds << 30) | (rem * 1000)
+
+
+def _hive_field_host(value, valid: bool, dtype) -> int:
+    if not valid:
+        return 0
+    if isinstance(dtype, T.BooleanType):
+        return 1 if value else 0
+    if isinstance(dtype, (T.ByteType, T.ShortType, T.IntegerType,
+                          T.DateType)):
+        return int(np.int32(value))
+    if isinstance(dtype, T.LongType):
+        v = int(np.int64(value))
+        return int(np.int32((v ^ ((v >> 32) & 0xFFFFFFFF)) & 0xFFFFFFFF))
+    if isinstance(dtype, T.FloatType):
+        bits = np.float32(value).view(np.int32)
+        return int(bits)
+    if isinstance(dtype, (T.DoubleType, T.TimestampType)):
+        if isinstance(dtype, T.TimestampType):
+            v = _hive_timestamp_value(int(np.int64(value)))
+        else:
+            v = int(np.float64(value).view(np.int64))
+        return int(np.int32((v ^ ((v >> 32) & 0xFFFFFFFF)) & 0xFFFFFFFF))
+    if isinstance(dtype, T.StringType):
+        return hive_string_hash(value)
+    raise ColumnarProcessingError(f"hive hash of {dtype} not supported")

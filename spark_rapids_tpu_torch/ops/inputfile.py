@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from spark_rapids_tpu_torch import types as T
+from spark_rapids_tpu_torch.columnar import HostColumn
 from spark_rapids_tpu_torch.ops.expr import DevVal, Expression, NodePrep
 
 #: hidden provenance column names the scan attaches
@@ -54,6 +55,15 @@ class _InputFileExpr(Expression):
         valid = torch.ones(ctx.capacity, dtype=torch.bool,
                            device=ctx.device)
         return DevVal(data, valid)
+
+    def eval_cpu(self, table):
+        n = table.num_rows
+        if isinstance(self.data_type, T.StringType):
+            data = np.empty(n, dtype=object)
+            data[:] = ""
+        else:
+            data = np.full(n, self._fill, dtype=self.data_type.np_dtype)
+        return HostColumn(self.data_type, data)
 
 
 class InputFileName(_InputFileExpr):

@@ -17,9 +17,11 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 from spark_rapids_tpu_torch import types as T
+from spark_rapids_tpu_torch.columnar import HostColumn, HostTable
 from spark_rapids_tpu_torch.ops.cast import make_cast
 from spark_rapids_tpu_torch.ops.common import (
     BinaryExpression,
@@ -78,9 +80,21 @@ class UnaryMath(UnaryExpression):
                                          torch.ones_like(c.data)))
         return _zero_invalid(data, validity)
 
+    def eval_cpu(self, table: HostTable) -> HostColumn:
+        c = self.child.eval_cpu(table)
+        validity = c.validity.copy()
+        with np.errstate(all="ignore"):
+            if type(self).null_when is not None:
+                validity &= ~type(self).null_when(c.data)
+            data = type(self).np_fn(np.where(validity, c.data, 1.0))
+        return HostColumn(T.DOUBLE, np.where(validity, data, 0.0), validity)
 
-def _mk_unary(name, fn, null_when=None):
-    cls = type(name, (UnaryMath,), {"fn": staticmethod(fn)})
+
+def _mk_unary(name, fn, np_fn, null_when=None):
+    """A UnaryMath: ``fn`` on the device, ``np_fn`` (the reference's
+    numpy function) on the CPU route."""
+    cls = type(name, (UnaryMath,), {"fn": staticmethod(fn),
+                                    "np_fn": staticmethod(np_fn)})
     if null_when is not None:
         cls.null_when = staticmethod(null_when)
     return cls
@@ -122,35 +136,35 @@ def _cbrt(x: torch.Tensor) -> torch.Tensor:
     return torch.where((x == 0) | ~torch.isfinite(x), x, y)
 
 
-Sqrt = _mk_unary("Sqrt", sqrt_rounded)
-Cbrt = _mk_unary("Cbrt", _cbrt)
-Exp = _mk_unary("Exp", torch.exp)
-Expm1 = _mk_unary("Expm1", torch.expm1)
-Sin = _mk_unary("Sin", torch.sin)
-Cos = _mk_unary("Cos", torch.cos)
-Tan = _mk_unary("Tan", torch.tan)
-Cot = _mk_unary("Cot", lambda x: 1.0 / torch.tan(x))
-Asin = _mk_unary("Asin", torch.asin)
-Acos = _mk_unary("Acos", torch.acos)
-Atan = _mk_unary("Atan", torch.atan)
-Sinh = _mk_unary("Sinh", torch.sinh)
-Cosh = _mk_unary("Cosh", torch.cosh)
-Tanh = _mk_unary("Tanh", torch.tanh)
-Asinh = _mk_unary("Asinh", torch.asinh)
-Acosh = _mk_unary("Acosh", torch.acosh)
-Atanh = _mk_unary("Atanh", torch.atanh)
-Rint = _mk_unary("Rint", torch.round)
+Sqrt = _mk_unary("Sqrt", sqrt_rounded, np.sqrt)
+Cbrt = _mk_unary("Cbrt", _cbrt, np.cbrt)
+Exp = _mk_unary("Exp", torch.exp, np.exp)
+Expm1 = _mk_unary("Expm1", torch.expm1, np.expm1)
+Sin = _mk_unary("Sin", torch.sin, np.sin)
+Cos = _mk_unary("Cos", torch.cos, np.cos)
+Tan = _mk_unary("Tan", torch.tan, np.tan)
+Cot = _mk_unary("Cot", lambda x: 1.0 / torch.tan(x), lambda x: 1.0 / np.tan(x))
+Asin = _mk_unary("Asin", torch.asin, np.arcsin)
+Acos = _mk_unary("Acos", torch.acos, np.arccos)
+Atan = _mk_unary("Atan", torch.atan, np.arctan)
+Sinh = _mk_unary("Sinh", torch.sinh, np.sinh)
+Cosh = _mk_unary("Cosh", torch.cosh, np.cosh)
+Tanh = _mk_unary("Tanh", torch.tanh, np.tanh)
+Asinh = _mk_unary("Asinh", torch.asinh, np.arcsinh)
+Acosh = _mk_unary("Acosh", torch.acosh, np.arccosh)
+Atanh = _mk_unary("Atanh", torch.atanh, np.arctanh)
+Rint = _mk_unary("Rint", torch.round, np.rint)
 # Java's signum keeps NaN and the sign of zero (torch.sign gives 0.0)
 Signum = _mk_unary("Signum", lambda x: torch.where(
-    torch.isnan(x) | (x == 0), x, torch.sign(x)))
-ToDegrees = _mk_unary("ToDegrees", lambda x: x * (180.0 / math.pi))
-ToRadians = _mk_unary("ToRadians", lambda x: x * (math.pi / 180.0))
+    torch.isnan(x) | (x == 0), x, torch.sign(x)), np.sign)
+ToDegrees = _mk_unary("ToDegrees", lambda x: x * (180.0 / math.pi), np.degrees)
+ToRadians = _mk_unary("ToRadians", lambda x: x * (math.pi / 180.0), np.radians)
 
 # Spark's log family gives NULL for a non-positive input (non-ANSI)
-Log = _mk_unary("Log", torch.log, lambda x: x <= 0.0)
-Log10 = _mk_unary("Log10", torch.log10, lambda x: x <= 0.0)
-Log2 = _mk_unary("Log2", torch.log2, lambda x: x <= 0.0)
-Log1p = _mk_unary("Log1p", torch.log1p, lambda x: x <= -1.0)
+Log = _mk_unary("Log", torch.log, np.log, lambda x: x <= 0.0)
+Log10 = _mk_unary("Log10", torch.log10, np.log10, lambda x: x <= 0.0)
+Log2 = _mk_unary("Log2", torch.log2, np.log2, lambda x: x <= 0.0)
+Log1p = _mk_unary("Log1p", torch.log1p, np.log1p, lambda x: x <= -1.0)
 
 
 _LONG_MIN, _LONG_MAX = -(1 << 63), (1 << 63) - 1
@@ -188,13 +202,30 @@ class _CeilFloorBase(UnaryExpression):
         out = torch.where(small, torch.full_like(out, _LONG_MIN), out)
         return _zero_invalid(out, c.validity)
 
+    def eval_cpu(self, table):
+        c = self.child.eval_cpu(table)
+        with np.errstate(invalid="ignore"):
+            r = type(self).np_fn(c.data)
+            r = np.where(np.isnan(c.data), 0.0, r)
+            r = np.clip(r, float(_LONG_MIN), float(_LONG_MAX))
+        out = np.empty(len(c), dtype=np.int64)
+        big = r >= float(_LONG_MAX)
+        small = r <= float(_LONG_MIN)
+        mid = ~(big | small)
+        out[big] = _LONG_MAX
+        out[small] = _LONG_MIN
+        out[mid] = r[mid].astype(np.int64)
+        return HostColumn(T.LONG, np.where(c.validity, out, 0), c.validity.copy())
+
 
 class Ceil(_CeilFloorBase):
     fn = staticmethod(torch.ceil)
+    np_fn = staticmethod(np.ceil)
 
 
 class Floor(_CeilFloorBase):
     fn = staticmethod(torch.floor)
+    np_fn = staticmethod(np.floor)
 
 
 class _RoundBase(Expression):
@@ -242,6 +273,22 @@ class _RoundBase(Expression):
         data = _true_div(r, factor).to(c.data.dtype)
         return _zero_invalid(data, c.validity)
 
+    def eval_cpu(self, table):
+        c = self.children[0].eval_cpu(table)
+        d = self._scale()
+        factor = 10.0 ** d
+        with np.errstate(all="ignore"):
+            x = c.data * factor
+            if self.half_even:
+                r = np.rint(x)
+            else:
+                r = np.where(x >= 0, np.floor(x + 0.5), np.ceil(x - 0.5))
+            data = r / factor
+        if isinstance(c.dtype, T.IntegralType):
+            data = data.astype(c.dtype.np_dtype)
+        data = np.where(c.validity, data, np.zeros((), dtype=data.dtype))
+        return HostColumn(self.data_type, data.astype(c.data.dtype), c.validity.copy())
+
 
 class Round(_RoundBase):
     half_even = False
@@ -274,14 +321,43 @@ class _RoundDirBase(_RoundBase):
         data = _true_div(type(self).fn(_floating(c.data) * factor), factor)
         return DevVal(data.to(c.data.dtype), c.validity)
 
+    def _int_exact_applicable(self, np_dtype) -> bool:
+        """Exact path only when 10^-scale is representable in the column
+        dtype — otherwise wider powers wrap (int16 at scale -5) and the
+        float path's semantics apply."""
+        return 10 ** (-self._scale()) <= int(np.iinfo(np_dtype).max)
+
+    def _int_exact(self, data):
+        """floor/ceil of integral ``data`` at 10^scale, scale <= 0, exact."""
+        p = np.asarray(10 ** (-self._scale()), dtype=data.dtype)
+        q = data // p  # floor division (toward -inf): the floor directly
+        if self._adjust_up:
+            q = q + ((data % p) != 0).astype(data.dtype)
+        return q * p
+
+    def eval_cpu(self, table):
+        c = self.children[0].eval_cpu(table)
+        if (isinstance(c.dtype, T.IntegralType) and self._scale() <= 0
+                and self._int_exact_applicable(c.dtype.np_dtype)):
+            return HostColumn(c.dtype, self._int_exact(c.data),
+                              c.validity.copy())
+        factor = 10.0 ** self._scale()
+        with np.errstate(all="ignore"):
+            data = type(self).np_fn(c.data * factor) / factor
+        if isinstance(c.dtype, T.IntegralType):
+            data = data.astype(c.dtype.np_dtype)
+        return HostColumn(c.dtype, data, c.validity.copy())
+
 
 class RoundCeil(_RoundDirBase):
     fn = staticmethod(torch.ceil)
+    np_fn = staticmethod(np.ceil)
     _adjust_up = 1
 
 
 class RoundFloor(_RoundDirBase):
     fn = staticmethod(torch.floor)
+    np_fn = staticmethod(np.floor)
 
 
 class _DoubleBinary(BinaryExpression):
@@ -304,12 +380,28 @@ class Pow(_DoubleBinary):
                          torch.where(validity, rv.data, one))
         return _zero_invalid(data, validity)
 
+    def eval_cpu(self, table):
+        l = self.left.eval_cpu(table)
+        r = self.right.eval_cpu(table)
+        validity = l.validity & r.validity
+        with np.errstate(all="ignore"):
+            data = np.power(np.where(validity, l.data, 1.0), np.where(validity, r.data, 1.0))
+        return HostColumn(T.DOUBLE, np.where(validity, data, 0.0), validity)
+
 
 class Hypot(_DoubleBinary):
     def eval_dev(self, ctx, child_vals, prep):
         lv, rv = child_vals
         validity = lv.validity & rv.validity
         return _zero_invalid(torch.hypot(lv.data, rv.data), validity)
+
+    def eval_cpu(self, table):
+        l = self.left.eval_cpu(table)
+        r = self.right.eval_cpu(table)
+        validity = l.validity & r.validity
+        with np.errstate(all="ignore"):
+            data = np.hypot(l.data, r.data)
+        return HostColumn(T.DOUBLE, np.where(validity, data, 0.0), validity)
 
 
 class Logarithm(_DoubleBinary):
@@ -324,6 +416,14 @@ class Logarithm(_DoubleBinary):
             torch.log(torch.where(validity, base.data,
                                   torch.full_like(base.data, 2.0)))
         return _zero_invalid(data, validity)
+
+    def eval_cpu(self, table):
+        base = self.left.eval_cpu(table)
+        x = self.right.eval_cpu(table)
+        validity = base.validity & x.validity & (x.data > 0) & (base.data > 0)
+        with np.errstate(all="ignore"):
+            data = np.log(np.where(validity, x.data, 1.0)) / np.log(np.where(validity, base.data, 2.0))
+        return HostColumn(T.DOUBLE, np.where(validity, data, 0.0), validity)
 
 
 # ---------------------------------------------------------------------------
@@ -355,6 +455,14 @@ class _BitwiseBinary(BinaryExpression):
         return _zero_invalid(type(self).op(lv.data, rv.data),
                              lv.validity & rv.validity)
 
+    def eval_cpu(self, table):
+        l = self.left.eval_cpu(table)
+        r = self.right.eval_cpu(table)
+        validity = l.validity & r.validity
+        data = type(self).op(torch.from_numpy(l.data),
+                             torch.from_numpy(r.data)).numpy()
+        return HostColumn(self.data_type, np.where(validity, data, 0).astype(l.data.dtype), validity)
+
 
 class BitwiseAnd(_BitwiseBinary):
     op = staticmethod(torch.bitwise_and)
@@ -381,6 +489,11 @@ class BitwiseNot(UnaryExpression):
         (c,) = child_vals
         return _zero_invalid(~c.data, c.validity)
 
+    def eval_cpu(self, table):
+        c = self.child.eval_cpu(table)
+        return HostColumn(self.data_type, np.where(c.validity, ~c.data, 0).astype(c.data.dtype),
+                          c.validity.copy())
+
 
 class _ShiftBase(BinaryExpression):
     """Java shifts: the count is masked (& 31 for int, & 63 for long); a
@@ -406,6 +519,16 @@ class _ShiftBase(BinaryExpression):
         cnt = (rv.data & (bits - 1)).to(lv.data.dtype)
         return _zero_invalid(self._shift(lv.data, cnt, bits),
                              lv.validity & rv.validity)
+
+    def eval_cpu(self, table):
+        l = self.left.eval_cpu(table)
+        r = self.right.eval_cpu(table)
+        validity = l.validity & r.validity
+        bits = 64 if l.data.dtype == np.int64 else 32
+        a = torch.from_numpy(l.data)
+        cnt = torch.from_numpy(r.data & (bits - 1)).to(a.dtype)
+        data = self._shift(a, cnt, bits).numpy()
+        return HostColumn(self.data_type, np.where(validity, data, 0).astype(l.data.dtype), validity)
 
 
 class ShiftLeft(_ShiftBase):

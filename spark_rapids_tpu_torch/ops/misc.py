@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from spark_rapids_tpu_torch import types as T
+from spark_rapids_tpu_torch.columnar import HostColumn
 from spark_rapids_tpu_torch.ops.common import UnaryExpression, dev_remap_codes
 from spark_rapids_tpu_torch.ops.expr import (
     DevVal,
@@ -35,6 +36,7 @@ from spark_rapids_tpu_torch.ops.expr import (
     Literal,
     NodePrep,
     PrepCtx,
+    host_only,
 )
 from spark_rapids_tpu_torch.ops.strings import (
     DictStringToString,
@@ -71,13 +73,25 @@ class NormalizeNaNAndZero(_Identity):
         d = torch.where(torch.isnan(c.data), torch.full_like(d, np.nan), d)
         return DevVal(d, c.validity)
 
+    def eval_cpu(self, table):
+        c = self.children[0].eval_cpu(table)
+        d = np.where(c.data == 0.0, 0.0, c.data)
+        d = np.where(np.isnan(c.data), np.nan, d)
+        return HostColumn(c.dtype, d.astype(c.data.dtype), c.validity.copy())
+
 
 class KnownFloatingPointNormalized(_Identity):
     """Planner marker: the input is already normalized (identity)."""
 
+    def eval_cpu(self, table):
+        return self.children[0].eval_cpu(table)
+
 
 class KnownNotNull(_Identity):
     """Planner marker: the input is known non-null (identity)."""
+
+    def eval_cpu(self, table):
+        return self.children[0].eval_cpu(table)
 
 
 class AtLeastNNonNulls(Expression):
@@ -102,6 +116,14 @@ class AtLeastNNonNulls(Expression):
         return DevVal(cnt >= self.n, torch.ones(ctx.capacity,
                                                 dtype=torch.bool,
                                                 device=ctx.device))
+
+    def eval_cpu(self, table):
+        kids = [c.eval_cpu(table) for c in self.children]
+        cnt = np.zeros(table.num_rows, dtype=np.int32)
+        for k in kids:
+            cnt += k.validity
+        return HostColumn(T.BOOLEAN, cnt >= self.n,
+                          np.ones(table.num_rows, dtype=np.bool_))
 
 
 # ---------------------------------------------------------------------------
@@ -164,6 +186,12 @@ class MonotonicallyIncreasingID(Expression):
         return DevVal(data, torch.ones(ctx.capacity, dtype=torch.bool,
                                        device=ctx.device))
 
+    def eval_cpu(self, table):
+        n = table.num_rows
+        base = self._offset["n"]
+        self._offset["n"] += n
+        return HostColumn(T.LONG, base + np.arange(n, dtype=np.int64))
+
 
 class SparkPartitionID(Expression):
     """The partition id of the executing task (0: one stream)."""
@@ -185,6 +213,10 @@ class SparkPartitionID(Expression):
                                  device=ctx.device),
                       torch.ones(ctx.capacity, dtype=torch.bool,
                                  device=ctx.device))
+
+    def eval_cpu(self, table):
+        return HostColumn(
+            T.INT, np.full(table.num_rows, self.pid, dtype=np.int32))
 
 
 class Rand(Expression):
@@ -226,6 +258,9 @@ class Rand(Expression):
             vals = vals.index_select(0, _row_positions(ctx))
         return DevVal(vals, torch.ones(ctx.capacity, dtype=torch.bool,
                                        device=ctx.device))
+
+    def eval_cpu(self, table):
+        return HostColumn(T.DOUBLE, self._rng.random(table.num_rows))
 
 
 # ---------------------------------------------------------------------------
@@ -269,7 +304,7 @@ def fixed_offset_micros(tz: str) -> Optional[int]:
 class _TzShift(Expression):
     """A timestamp shifted between UTC and a literal zone: a fixed offset,
     or a DST zone's transition table. A non-literal or unknown zone
-    raises (the reference's CPU route)."""
+    raises (the reference's CPU route reads a literal's value there)."""
 
     to_utc = False
 
@@ -310,6 +345,18 @@ class _TzShift(Expression):
         return DevVal(torch.where(c.validity, out, torch.zeros_like(out)),
                       c.validity)
 
+    def eval_cpu(self, table):
+        from spark_rapids_tpu_torch.ops import tzdb
+        c = self.children[0].eval_cpu(table)
+        off = fixed_offset_micros(str(self.children[1].value))
+        if off is None:
+            name = str(self.children[1].value)
+            data = np.asarray(c.data, dtype=np.int64)
+            out = (tzdb.to_utc_micros_host(data, name) if self.to_utc
+                   else tzdb.from_utc_micros_host(data, name))
+            return HostColumn(T.TIMESTAMP, out, c.validity.copy())
+        delta = -off if self.to_utc else off
+        return HostColumn(T.TIMESTAMP, c.data + delta, c.validity.copy())
 
 class FromUTCTimestamp(_TzShift):
     to_utc = False
@@ -334,9 +381,10 @@ class Md5(DictStringToString, UnaryExpression):
 class ConcatWs(Expression):
     """concat_ws(sep, e1, e2, ...): null children are SKIPPED (unlike
     concat); null only where the separator is. A dictionary transform when
-    at most one child is a non-literal string column (more raise: the
-    reference's CPU route); the output dictionary is sorted (see the
-    module's docstring)."""
+    at most one child is a non-literal string column and the separator is
+    a literal; otherwise the CPU route (the reference's) joins the values
+    row by row. The output dictionary is sorted (see the module's
+    docstring)."""
 
     def __init__(self, sep: Expression, *children: Expression):
         self.children = (sep,) + tuple(children)
@@ -356,16 +404,14 @@ class ConcatWs(Expression):
 
     def resolve(self, bound):
         out = self.with_children(bound)
-        sep = out.children[0]
-        if not isinstance(sep, Literal):
-            raise NotImplementedError(
-                "ConcatWs with a non-literal separator is not ported")
         cols = [c for c in out.children[1:] if not isinstance(c, Literal)]
-        if len(cols) > 1 or any(not isinstance(c.data_type, T.StringType)
-                                for c in cols):
+        if any(not isinstance(c.data_type, T.StringType) for c in cols):
             raise NotImplementedError(
-                "ConcatWs over more than one column, or over a non-string "
-                "column, is not ported (the reference's CPU route)")
+                "ConcatWs over a non-string column is not ported")
+        if len(cols) > 1 or not isinstance(out.children[0], Literal):
+            # the reference's CPU route
+            host_only(out, "ConcatWs over more than one column or with a "
+                      "non-literal separator")
         return out
 
     def _joined(self, value) -> str:
@@ -414,3 +460,16 @@ class ConcatWs(Expression):
                             remap.shape[0] - 1)
         return DevVal(dev_remap_codes(remap, codes),
                       torch.ones(cap, dtype=torch.bool, device=dev))
+
+    def eval_cpu(self, table):
+        kids = [c.eval_cpu(table) for c in self.children]
+        sep, vals = kids[0], kids[1:]
+        n = table.num_rows
+        out = np.empty(n, dtype=object)
+        validity = sep.validity.copy()
+        for i in range(n):
+            if validity[i]:
+                parts = [str(k.data[i]) for k in vals if k.validity[i]]
+                out[i] = str(sep.data[i]).join(parts)
+        return HostColumn(T.STRING, out, validity)
+

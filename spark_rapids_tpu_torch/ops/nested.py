@@ -13,31 +13,34 @@ columns become this node's children after the array, so every generic
 walk sees them. Element-space liveness is (slot < total elements) and the
 parent row's liveness.
 
-``MapEntries`` and ``ArraysZip`` produce arrays of structs, which have no
-device layout in either package: the reference runs them on its CPU
-route, the port raises naming ROADMAP item [9c]."""
+Every expression also evaluates on the host (``eval_cpu``, the
+reference's per-row Python over the object rows). ``MapEntries`` and
+``ArraysZip`` produce arrays of structs, which have no device layout in
+either package, and a struct or map of string or decimal leaves has none
+either: the plan's tag sends their operators to the CPU route, as the
+reference does."""
 
 from __future__ import annotations
 
 from types import SimpleNamespace
 from typing import List, Optional, Sequence
 
+import numpy as np
 import torch
 
 from spark_rapids_tpu_torch import types as T
+from spark_rapids_tpu_torch.columnar import HostColumn, HostTable
 from spark_rapids_tpu_torch.columnar import bucket_for
 from spark_rapids_tpu_torch.columnar.nested import (
     ArrayData,
     MapData,
     StructData,
-    check_layout,
     fixed_np_dtype,
-    not_ported_9c,
 )
 from spark_rapids_tpu_torch.errors import ColumnarProcessingError
 from spark_rapids_tpu_torch.ops.collections import (
     _elem_rids,
-    check_fixed_array,
+    check_array,
     pack_elements,
     seg_count,
 )
@@ -51,6 +54,7 @@ from spark_rapids_tpu_torch.ops.expr import (
     PrepCtx,
     _walk_eval,
     _walk_prep,
+    host_only,
 )
 
 
@@ -76,12 +80,22 @@ class CreateNamedStruct(Expression):
 
     def resolve(self, bound):
         out = CreateNamedStruct(self.names, bound)
-        check_layout(out.data_type, "named_struct")
         return out
 
     def eval_dev(self, ctx, child_vals, prep) -> DevVal:
         sd = StructData([(cv.data, cv.validity) for cv in child_vals])
         return DevVal(sd, ctx.row_mask())
+
+    def eval_cpu(self, table: HostTable) -> HostColumn:
+        kids = [c.eval_cpu(table) for c in self.children]
+        n = table.num_rows
+        out = np.empty(n, dtype=object)
+        for i in range(n):
+            out[i] = tuple(
+                (k.data[i].item() if hasattr(k.data[i], "item")
+                 else k.data[i]) if k.validity[i] else None
+                for k in kids)
+        return HostColumn(self.data_type, out, np.ones(n, dtype=np.bool_))
 
 
 class GetStructField(Expression):
@@ -119,6 +133,23 @@ class GetStructField(Expression):
         d, v = c.data.fields[fi]
         return DevVal(d, v & c.validity)
 
+    def eval_cpu(self, table: HostTable) -> HostColumn:
+        c = self.children[0].eval_cpu(table)
+        fi, f = self._field()
+        n = len(c)
+        npdt = fixed_np_dtype(f.data_type)
+        data = np.zeros(n, dtype=npdt if npdt is not None else object)
+        validity = np.zeros(n, dtype=np.bool_)
+        for i in range(n):
+            if c.validity[i]:
+                row = c.data[i]
+                v = row.get(self.field_name) if isinstance(row, dict) \
+                    else row[fi]
+                if v is not None:
+                    data[i] = v
+                    validity[i] = True
+        return HostColumn(f.data_type, data, validity)
+
 
 # ---------------------------------------------------------------------------
 # maps
@@ -153,7 +184,6 @@ class CreateMap(Expression):
                 if bound[i + 1].data_type != vt else vt
         out = CreateMap(*[make_cast(b, kt if i % 2 == 0 else vt)
                           for i, b in enumerate(bound)])
-        check_layout(out.data_type, "map()")
         return out
 
     def eval_dev(self, ctx, child_vals, prep) -> DevVal:
@@ -182,13 +212,30 @@ class CreateMap(Expression):
         (kd, kv), (vd, vv) = leaves
         return DevVal(MapData(off, kd, kv, vd, vv), live)
 
+    def eval_cpu(self, table: HostTable) -> HostColumn:
+        kids = [c.eval_cpu(table) for c in self.children]
+        n = table.num_rows
+        out = np.empty(n, dtype=object)
+        for i in range(n):
+            m = {}
+            for j in range(0, len(kids), 2):
+                kc, vc = kids[j], kids[j + 1]
+                if not kc.validity[i]:
+                    raise ColumnarProcessingError(
+                        "Cannot use null as map key")
+                k = kc.data[i].item() if hasattr(kc.data[i], "item") \
+                    else kc.data[i]
+                m[k] = (vc.data[i].item() if hasattr(vc.data[i], "item")
+                        else vc.data[i]) if vc.validity[i] else None
+            out[i] = m
+        return HostColumn(self.data_type, out, np.ones(n, dtype=np.bool_))
+
 
 def _check_map(e: Expression, what: str) -> None:
     dt = e.data_type
     if not isinstance(dt, T.MapType):
         raise ColumnarProcessingError(
             f"{what} needs a map, got {dt.simple_string()}")
-    check_layout(dt, what)
 
 
 class _MapUnary(UnaryExpression):
@@ -207,6 +254,14 @@ class MapKeys(_MapUnary):
         m: MapData = c.data
         return DevVal(ArrayData(m.offsets, m.kdata, m.kvalid), c.validity)
 
+    def eval_cpu(self, table):
+        c = self.children[0].eval_cpu(table)
+        out = np.empty(len(c), dtype=object)
+        for i in range(len(c)):
+            if c.validity[i]:
+                out[i] = list(c.data[i].keys())
+        return HostColumn(self.data_type, out, c.validity.copy())
+
 
 class MapValues(_MapUnary):
     @property
@@ -217,6 +272,14 @@ class MapValues(_MapUnary):
         (c,) = child_vals
         m: MapData = c.data
         return DevVal(ArrayData(m.offsets, m.vdata, m.vvalid), c.validity)
+
+    def eval_cpu(self, table):
+        c = self.children[0].eval_cpu(table)
+        out = np.empty(len(c), dtype=object)
+        for i in range(len(c)):
+            if c.validity[i]:
+                out[i] = list(c.data[i].values())
+        return HostColumn(self.data_type, out, c.validity.copy())
 
 
 class MapEntries(_MapUnary):
@@ -230,8 +293,14 @@ class MapEntries(_MapUnary):
             T.StructField("key", mt.key_type, False),
             T.StructField("value", mt.value_type)]))
 
-    def resolve(self, bound):
-        not_ported_9c("map_entries")
+
+    def eval_cpu(self, table):
+        c = self.children[0].eval_cpu(table)
+        out = np.empty(len(c), dtype=object)
+        for i in range(len(c)):
+            if c.validity[i]:
+                out[i] = [(k, v) for k, v in c.data[i].items()]
+        return HostColumn(self.data_type, out, c.validity.copy())
 
 
 class GetMapValue(Expression):
@@ -274,6 +343,23 @@ class GetMapValue(Expression):
         data = m.vdata[at]
         return DevVal(torch.where(validity, data, torch.zeros_like(data)),
                       validity)
+
+    def eval_cpu(self, table):
+        c = self.children[0].eval_cpu(table)
+        k = self.children[1].eval_cpu(table)
+        vt = self.data_type
+        npdt = fixed_np_dtype(vt)
+        n = len(c)
+        data = np.zeros(n, dtype=npdt if npdt is not None else object)
+        validity = np.zeros(n, dtype=np.bool_)
+        for i in range(n):
+            if c.validity[i] and k.validity[i]:
+                kk = k.data[i].item() if hasattr(k.data[i], "item") \
+                    else k.data[i]
+                if kk in c.data[i] and c.data[i][kk] is not None:
+                    data[i] = c.data[i][kk]
+                    validity[i] = True
+        return HostColumn(vt, data, validity)
 
 
 class MapConcat(Expression):
@@ -360,6 +446,21 @@ class MapConcat(Expression):
         (okd, okv), (ovd, ovv) = pairs
         return DevVal(MapData(off, okd, okv, ovd, ovv), validity)
 
+    def eval_cpu(self, table):
+        kids = [c.eval_cpu(table) for c in self.children]
+        n = table.num_rows
+        out = np.empty(n, dtype=object)
+        validity = np.ones(n, dtype=np.bool_)
+        for i in range(n):
+            if any(not k.validity[i] for k in kids):
+                validity[i] = False
+                continue
+            m = {}
+            for k in kids:
+                m.update(k.data[i])
+            out[i] = m
+        return HostColumn(self.data_type, out, validity)
+
 
 # ---------------------------------------------------------------------------
 # lambdas
@@ -393,6 +494,10 @@ class NamedLambdaVariable(Expression):
     def __repr__(self):
         return f"lambda {self.var_name}"
 
+    def eval_cpu(self, table):
+        raise ColumnarProcessingError(
+            f"lambda variable {self.var_name} evaluated outside a lambda")
+
 
 class LambdaFunction(Expression):
     """x -> body or (x, y) -> body; the higher-order function rebinds and
@@ -421,6 +526,9 @@ class LambdaFunction(Expression):
 
     def __repr__(self):
         return f"({', '.join(self.var_names)}) -> {self.body!r}"
+
+    def eval_cpu(self, table):
+        raise ColumnarProcessingError("LambdaFunction evaluated directly")
 
 
 def _substitute_vars(e: Expression, mapping) -> Expression:
@@ -464,7 +572,7 @@ class _HigherOrder(Expression):
                           tuple(children[1:]))
 
     def _check_input(self, child: Expression) -> None:
-        check_fixed_array(child, type(self).__name__)
+        check_array(child, type(self).__name__)
 
     def bind(self, schema):
         child = self.children[0].bind(schema)
@@ -499,12 +607,25 @@ class _HigherOrder(Expression):
         outer_children = tuple(
             BoundReference(o, schema[o][1], name_hint=schema[o][0])
             for o in outer_sorted)
+        out = type(self)(child, fn, rebind(typed), outer_children)
         for oc in outer_children:
             if fixed_np_dtype(oc.data_type) is None:
-                not_ported_9c(f"a lambda reading outer column "
-                              f"{oc.name_hint} of type "
-                              f"{oc.data_type.simple_string()}")
-        return type(self)(child, fn, rebind(typed), outer_children)
+                # the element-space gather reads fixed-width columns
+                host_only(out, f"a lambda reading outer column "
+                          f"{oc.name_hint} of type "
+                          f"{oc.data_type.simple_string()}")
+        return out
+
+    def _eval_body_cpu(self, table: HostTable, var_cols: List[HostColumn],
+                       rids: np.ndarray) -> HostColumn:
+        """The rebound body over the element rows: the variable columns,
+        then each outer column taken by element row id."""
+        cols = list(var_cols)
+        names = [f"__v{i}" for i in range(len(var_cols))]
+        for j, c in enumerate(self.children[1:]):
+            cols.append(c.eval_cpu(table).take(rids))
+            names.append(f"__o{j}")
+        return self._rebound.eval_cpu(HostTable(names, cols))
 
     def prep(self, pctx: PrepCtx, child_preps):
         cols = [SimpleNamespace(dictionary=None, dict_sorted=True,
@@ -568,17 +689,36 @@ class ArrayTransform(_ArrayLambda):
         body = self._rebound if self._rebound is not None else self.fn.body
         return T.ArrayType(body.data_type)
 
-    def bind(self, schema):
-        out = super().bind(schema)
-        check_layout(out.data_type, "transform's result")
-        return out
-
     def eval_dev(self, ctx, child_vals, prep) -> DevVal:
         a, rid, live, body, ecap = self._array_body(ctx, child_vals, prep)
         data = torch.where(body.validity & live, body.data,
                            torch.zeros_like(body.data))
         return DevVal(ArrayData(a.offsets, data, body.validity & live),
                       child_vals[0].validity)
+
+    def eval_cpu(self, table):
+        c = self.children[0].eval_cpu(table)
+        n = len(c)
+        rids, elems, evalid = _flatten_cpu(c)
+        vts = self._var_types()
+        var_cols = [HostColumn(vts[0], elems, evalid)]
+        if len(vts) > 1:
+            var_cols.append(HostColumn(T.INT, _positions_cpu(c), np.ones(
+                len(elems), dtype=np.bool_)))
+        body = self._eval_body_cpu(table, var_cols, rids)
+        out = np.empty(n, dtype=object)
+        pos = 0
+        for i in range(n):
+            if c.validity[i]:
+                ln = len(c.data[i])
+                out[i] = [
+                    (body.data[pos + j].item()
+                     if hasattr(body.data[pos + j], "item")
+                     else body.data[pos + j])
+                    if body.validity[pos + j] else None
+                    for j in range(ln)]
+                pos += ln
+        return HostColumn(self.data_type, out, c.validity.copy())
 
 
 class ArrayFilter(_ArrayLambda):
@@ -595,6 +735,27 @@ class ArrayFilter(_ArrayLambda):
         off, pairs = pack_elements(ctx, keep, rid, [(a.data, a.validity)],
                                    ecap)
         return DevVal(ArrayData(off, *pairs[0]), child_vals[0].validity)
+
+    def eval_cpu(self, table):
+        c = self.children[0].eval_cpu(table)
+        n = len(c)
+        rids, elems, evalid = _flatten_cpu(c)
+        vts = self._var_types()
+        var_cols = [HostColumn(vts[0], elems, evalid)]
+        if len(vts) > 1:
+            var_cols.append(HostColumn(T.INT, _positions_cpu(c), np.ones(
+                len(elems), dtype=np.bool_)))
+        body = self._eval_body_cpu(table, var_cols, rids)
+        out = np.empty(n, dtype=object)
+        pos = 0
+        for i in range(n):
+            if c.validity[i]:
+                ln = len(c.data[i])
+                out[i] = [c.data[i][j] for j in range(ln)
+                          if body.validity[pos + j]
+                          and bool(body.data[pos + j])]
+                pos += ln
+        return HostColumn(self.data_type, out, c.validity.copy())
 
 
 class _ArrayPredicate(_ArrayLambda):
@@ -623,6 +784,32 @@ class _ArrayPredicate(_ArrayLambda):
         data = hit if self.exists else ~hit
         return DevVal(data & validity, validity)
 
+    def eval_cpu(self, table):
+        c = self.children[0].eval_cpu(table)
+        n = len(c)
+        rids, elems, evalid = _flatten_cpu(c)
+        var_cols = [HostColumn(self._var_types()[0], elems, evalid)]
+        body = self._eval_body_cpu(table, var_cols, rids)
+        data = np.zeros(n, dtype=np.bool_)
+        validity = np.zeros(n, dtype=np.bool_)
+        pos = 0
+        for i in range(n):
+            if not c.validity[i]:
+                continue
+            ln = len(c.data[i])
+            vals = [bool(body.data[pos + j]) if body.validity[pos + j]
+                    else None for j in range(ln)]
+            pos += ln
+            hit = any(v is (True if self.exists else False) for v in vals)
+            has_null = any(v is None for v in vals)
+            if self.exists:
+                data[i], validity[i] = (True, True) if hit else \
+                    (False, not has_null)
+            else:
+                data[i], validity[i] = (False, True) if hit else \
+                    (True, not has_null)
+        return HostColumn(T.BOOLEAN, data, validity)
+
 
 class ArrayExists(_ArrayPredicate):
     exists = True
@@ -641,6 +828,27 @@ class _MapLambda(_HigherOrder):
 
     def _check_input(self, child):
         _check_map(child, type(self).__name__)
+
+    def _flatten_map_cpu(self, c):
+        rids, keys, kvalid, vals, vvalid = [], [], [], [], []
+        for i in range(len(c)):
+            if c.validity[i]:
+                for k, v in c.data[i].items():
+                    rids.append(i)
+                    keys.append(k)
+                    kvalid.append(True)
+                    vals.append(v if v is not None else 0)
+                    vvalid.append(v is not None)
+        mt = self.children[0].data_type
+        return (np.asarray(rids, dtype=np.int64),
+                HostColumn(mt.key_type,
+                           np.asarray(keys, dtype=fixed_np_dtype(
+                               mt.key_type) or object),
+                           np.asarray(kvalid, dtype=np.bool_)),
+                HostColumn(mt.value_type,
+                           np.asarray(vals, dtype=fixed_np_dtype(
+                               mt.value_type) or object),
+                           np.asarray(vvalid, dtype=np.bool_)))
 
     def _map_body(self, ctx, child_vals, prep):
         c = child_vals[0]
@@ -668,6 +876,22 @@ class MapFilter(_MapLambda):
         (kd, kv), (vd, vv) = pairs
         return DevVal(MapData(off, kd, kv, vd, vv), child_vals[0].validity)
 
+    def eval_cpu(self, table):
+        c = self.children[0].eval_cpu(table)
+        rids, kc, vc = self._flatten_map_cpu(c)
+        body = self._eval_body_cpu(table, [kc, vc], rids)
+        out = np.empty(len(c), dtype=object)
+        pos = 0
+        for i in range(len(c)):
+            if c.validity[i]:
+                m = {}
+                for k, v in c.data[i].items():
+                    if body.validity[pos] and bool(body.data[pos]):
+                        m[k] = v
+                    pos += 1
+                out[i] = m
+        return HostColumn(self.data_type, out, c.validity.copy())
+
 
 class TransformValues(_MapLambda):
     """transform_values(m, (k, v) -> f)."""
@@ -678,17 +902,30 @@ class TransformValues(_MapLambda):
         body = self._rebound if self._rebound is not None else self.fn.body
         return T.MapType(key_type=mt.key_type, value_type=body.data_type)
 
-    def bind(self, schema):
-        out = super().bind(schema)
-        check_layout(out.data_type, "transform_values' result")
-        return out
-
     def eval_dev(self, ctx, child_vals, prep) -> DevVal:
         m, rid, live, body, ecap = self._map_body(ctx, child_vals, prep)
         valid = body.validity & live
         data = torch.where(valid, body.data, torch.zeros_like(body.data))
         return DevVal(MapData(m.offsets, m.kdata, m.kvalid, data, valid),
                       child_vals[0].validity)
+
+    def eval_cpu(self, table):
+        c = self.children[0].eval_cpu(table)
+        rids, kc, vc = self._flatten_map_cpu(c)
+        body = self._eval_body_cpu(table, [kc, vc], rids)
+        out = np.empty(len(c), dtype=object)
+        pos = 0
+        for i in range(len(c)):
+            if c.validity[i]:
+                m = {}
+                for k in c.data[i]:
+                    m[k] = (body.data[pos].item()
+                            if hasattr(body.data[pos], "item")
+                            else body.data[pos]) \
+                        if body.validity[pos] else None
+                    pos += 1
+                out[i] = m
+        return HostColumn(self.data_type, out, c.validity.copy())
 
 
 class TransformKeys(_MapLambda):
@@ -702,17 +939,32 @@ class TransformKeys(_MapLambda):
         body = self._rebound if self._rebound is not None else self.fn.body
         return T.MapType(key_type=body.data_type, value_type=mt.value_type)
 
-    def bind(self, schema):
-        out = super().bind(schema)
-        check_layout(out.data_type, "transform_keys' result")
-        return out
-
     def eval_dev(self, ctx, child_vals, prep) -> DevVal:
         m, rid, live, body, ecap = self._map_body(ctx, child_vals, prep)
         valid = body.validity & live
         data = torch.where(valid, body.data, torch.zeros_like(body.data))
         return DevVal(MapData(m.offsets, data, valid, m.vdata, m.vvalid),
                       child_vals[0].validity)
+
+    def eval_cpu(self, table):
+        c = self.children[0].eval_cpu(table)
+        rids, kc, vc = self._flatten_map_cpu(c)
+        body = self._eval_body_cpu(table, [kc, vc], rids)
+        out = np.empty(len(c), dtype=object)
+        pos = 0
+        for i in range(len(c)):
+            if c.validity[i]:
+                m = {}
+                for k, v in c.data[i].items():
+                    if not body.validity[pos]:
+                        raise ColumnarProcessingError(
+                            "Cannot use null as map key")
+                    nk = body.data[pos].item() \
+                        if hasattr(body.data[pos], "item") else body.data[pos]
+                    m[nk] = v
+                    pos += 1
+                out[i] = m
+        return HostColumn(self.data_type, out, c.validity.copy())
 
 
 class ArraysZip(Expression):
@@ -732,4 +984,49 @@ class ArraysZip(Expression):
         return ArraysZip(*children)
 
     def resolve(self, bound):
-        not_ported_9c("arrays_zip")
+        for b in bound:
+            if not isinstance(b.data_type, T.ArrayType):
+                raise ColumnarProcessingError(
+                    f"arrays_zip needs arrays, got "
+                    f"{b.data_type.simple_string()}")
+        return self.with_children(bound)
+
+    def eval_cpu(self, table):
+        kids = [c.eval_cpu(table) for c in self.children]
+        n = table.num_rows
+        out = np.empty(n, dtype=object)
+        validity = np.ones(n, dtype=np.bool_)
+        for i in range(n):
+            if any(not k.validity[i] for k in kids):
+                validity[i] = False
+                continue
+            ln = max(len(k.data[i]) for k in kids)
+            out[i] = [tuple(k.data[i][j] if j < len(k.data[i]) else None
+                            for k in kids) for j in range(ln)]
+        return HostColumn(self.data_type, out, validity)
+
+# ---------------------------------------------------------------------------
+# host evaluation helpers (the CPU route)
+# ---------------------------------------------------------------------------
+
+
+def _flatten_cpu(c: HostColumn):
+    rids, elems, evalid = [], [], []
+    edt = fixed_np_dtype(c.dtype.element_type)
+    for i in range(len(c)):
+        if c.validity[i]:
+            for v in c.data[i]:
+                rids.append(i)
+                elems.append(v if v is not None else 0)
+                evalid.append(v is not None)
+    return (np.asarray(rids, dtype=np.int64),
+            np.asarray(elems, dtype=edt or object),
+            np.asarray(evalid, dtype=np.bool_))
+
+
+def _positions_cpu(c: HostColumn):
+    pos = []
+    for i in range(len(c)):
+        if c.validity[i]:
+            pos.extend(range(len(c.data[i])))
+    return np.asarray(pos, dtype=np.int32)

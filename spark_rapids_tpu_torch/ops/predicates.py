@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from spark_rapids_tpu_torch import types as T
+from spark_rapids_tpu_torch.columnar import HostColumn, HostTable
 from spark_rapids_tpu_torch.ops.common import (
     BinaryExpression,
     UnaryExpression,
@@ -132,6 +133,13 @@ class BinaryComparison(BinaryExpression):
         data = _compare(type(self).op, lval.data, rval.data)
         return DevVal(data & validity, validity)
 
+    def eval_cpu(self, table: HostTable) -> HostColumn:
+        l = self.left.eval_cpu(table)
+        r = self.right.eval_cpu(table)
+        data = _cpu_cmp_data(l, r, type(self).op).astype(np.bool_)
+        validity = l.validity & r.validity
+        return HostColumn(T.BOOLEAN, np.where(validity, data, False), validity)
+
 
 class EqualTo(BinaryComparison):
     op = staticmethod(operator.eq)
@@ -178,6 +186,15 @@ class EqualNullSafe(BinaryComparison):
         data = torch.where(both_valid, eq, both_null)
         return DevVal(data, torch.ones_like(data))
 
+    def eval_cpu(self, table):
+        l = self.left.eval_cpu(table)
+        r = self.right.eval_cpu(table)
+        both_valid = l.validity & r.validity
+        both_null = ~l.validity & ~r.validity
+        eq = _cpu_cmp_data(l, r, operator.eq).astype(np.bool_)
+        data = np.where(both_valid, eq, both_null)
+        return HostColumn(T.BOOLEAN, data, np.ones(len(l), dtype=np.bool_))
+
 
 def _check_boolean(name: str, bound) -> None:
     for b in bound:
@@ -206,6 +223,17 @@ class And(BinaryExpression):
             (lval.validity & ~lval.data) | (rval.validity & ~rval.data)
         return DevVal(ld & rd & validity, validity)
 
+    def eval_cpu(self, table):
+        l = self.left.eval_cpu(table)
+        r = self.right.eval_cpu(table)
+        lv, rv = l.validity, r.validity
+        ld = l.data.astype(np.bool_) & lv
+        rd = r.data.astype(np.bool_) & rv
+        data = ld & rd
+        # valid iff: both valid, or either side is a definite false
+        validity = (lv & rv) | (lv & ~l.data.astype(np.bool_)) | (rv & ~r.data.astype(np.bool_))
+        return HostColumn(T.BOOLEAN, np.where(validity, data, False), validity)
+
 
 class Or(BinaryExpression):
     """Kleene logic: true OR null = true."""
@@ -226,6 +254,16 @@ class Or(BinaryExpression):
         validity = (lval.validity & rval.validity) | ld | rd
         return DevVal(data & validity, validity)
 
+    def eval_cpu(self, table):
+        l = self.left.eval_cpu(table)
+        r = self.right.eval_cpu(table)
+        lv, rv = l.validity, r.validity
+        ld = l.data.astype(np.bool_) & lv
+        rd = r.data.astype(np.bool_) & rv
+        data = ld | rd
+        validity = (lv & rv) | ld | rd
+        return HostColumn(T.BOOLEAN, np.where(validity, data, False), validity)
+
 
 class Not(UnaryExpression):
     @property
@@ -240,6 +278,11 @@ class Not(UnaryExpression):
         (c,) = child_vals
         return DevVal(~c.data & c.validity, c.validity)
 
+    def eval_cpu(self, table):
+        c = self.child.eval_cpu(table)
+        data = ~c.data.astype(np.bool_)
+        return HostColumn(T.BOOLEAN, np.where(c.validity, data, False), c.validity.copy())
+
 
 class IsNull(UnaryExpression):
     @property
@@ -250,6 +293,10 @@ class IsNull(UnaryExpression):
         (c,) = child_vals
         return DevVal(~c.validity, torch.ones_like(c.validity))
 
+    def eval_cpu(self, table):
+        c = self.child.eval_cpu(table)
+        return HostColumn(T.BOOLEAN, ~c.validity, np.ones(len(c), dtype=np.bool_))
+
 
 class IsNotNull(UnaryExpression):
     @property
@@ -259,6 +306,10 @@ class IsNotNull(UnaryExpression):
     def eval_dev(self, ctx, child_vals, prep):
         (c,) = child_vals
         return DevVal(c.validity, torch.ones_like(c.validity))
+
+    def eval_cpu(self, table):
+        c = self.child.eval_cpu(table)
+        return HostColumn(T.BOOLEAN, c.validity.copy(), np.ones(len(c), dtype=np.bool_))
 
 
 class IsNaN(UnaryExpression):
@@ -277,6 +328,11 @@ class IsNaN(UnaryExpression):
         (c,) = child_vals
         return DevVal(torch.isnan(c.data) & c.validity,
                       torch.ones_like(c.validity))
+
+    def eval_cpu(self, table):
+        c = self.child.eval_cpu(table)
+        data = np.isnan(c.data) & c.validity
+        return HostColumn(T.BOOLEAN, data, np.ones(len(c), dtype=np.bool_))
 
 
 class In(Expression):
@@ -348,6 +404,24 @@ class In(Expression):
         validity = v.validity & (match | (not has_null_item))
         return DevVal(match & validity, validity)
 
+    def eval_cpu(self, table):
+        from spark_rapids_tpu_torch.ops.expr import Literal
+        v = self.value.eval_cpu(table)
+        n = len(v)
+        has_null_item = any(isinstance(i, Literal) and i.value is None for i in self.items)
+        match = np.zeros(n, dtype=np.bool_)
+        vd = v.data
+        if isinstance(v.dtype, T.StringType):
+            vd = np.where(v.validity, vd, "")
+        for item in self.items:
+            i = item.eval_cpu(table)
+            idata = i.data
+            if isinstance(v.dtype, T.StringType):
+                idata = np.where(i.validity, idata, "")
+            match |= (vd == idata) & i.validity
+        validity = v.validity & (match | ~np.full(n, has_null_item))
+        return HostColumn(T.BOOLEAN, np.where(validity, match, False), validity)
+
 
 class StringEqualsLiteral(Expression):
     """``string_column == 'literal'`` (or ``<=>`` with ``null_safe``): the
@@ -390,6 +464,52 @@ class StringEqualsLiteral(Expression):
             eq = ~v.validity  # null <=> null
         return DevVal(eq, torch.ones_like(v.validity))
 
+    def eval_cpu(self, table):
+        v = self.children[0].eval_cpu(table)
+        eq = v.validity & (np.where(v.validity, v.data, None) == self.value)
+        if not self.null_safe:
+            valid = v.validity if self.value is not None else \
+                np.zeros(len(v), dtype=np.bool_)
+            return HostColumn(T.BOOLEAN, eq & valid, valid)
+        if self.value is None:
+            eq = ~v.validity  # null <=> null
+        return HostColumn(T.BOOLEAN, eq, np.ones(len(v), dtype=np.bool_))
+
     def __repr__(self):
         op = "<=>" if self.null_safe else "="
         return f"({self.children[0]!r} {op} {self.value!r})"
+
+
+# ---------------------------------------------------------------------------
+# host evaluation helpers (the CPU route)
+# ---------------------------------------------------------------------------
+
+
+def _spark_float_cmp_np(op, ld, rd):
+    """Spark total-order float comparison: NaN == NaN is TRUE and NaN is
+    greater than every other value (SQL ref 'NaN semantics'); raw IEEE
+    compares would return false for all NaN comparisons."""
+    nl, nr = np.isnan(ld), np.isnan(rd)
+    if op is operator.eq:
+        return (ld == rd) | (nl & nr)
+    if op is operator.lt:
+        return (~nl & nr) | (ld < rd)
+    if op is operator.le:
+        return (~nl & nr) | (nl & nr) | (ld <= rd)
+    if op is operator.gt:
+        return (nl & ~nr) | (ld > rd)
+    if op is operator.ge:
+        return (nl & ~nr) | (nl & nr) | (ld >= rd)
+    return op(ld, rd)
+
+
+def _cpu_cmp_data(left: HostColumn, right: HostColumn, op):
+    ld, rd = left.data, right.data
+    if isinstance(left.dtype, T.StringType):
+        # Invalid slots may hold None; substitute "" so object comparison
+        # (Python str, code-point order == Spark UTF-8 byte order) is safe.
+        ld = np.where(left.validity, ld, "")
+        rd = np.where(right.validity, rd, "")
+    elif np.issubdtype(np.asarray(ld).dtype, np.floating):
+        return _spark_float_cmp_np(op, ld, rd)
+    return op(ld, rd)

@@ -23,8 +23,8 @@ re.ASCII so remaining classes are ASCII like Java's default):
   (?<name>...)              Java named group -> (?P<name>...)
   \\Q...\\E                   literal quoting -> re.escape'd text
 
-REJECTED (raise RegexUnsupported; the port's expression then raises
-NotImplementedError with the reason, as it has no CPU fallback):
+REJECTED (raise RegexUnsupported; the port's expression then runs on the
+CPU route over the pattern as written, the reason in its tag):
 possessive quantifiers (a*+), character-class intersection ([a-z&&[b]]),
 POSIX classes ([:alpha:]), \\p{...} properties, word boundaries \\b \\B
 (Java's ASCII \\w definition cannot be expressed), \\G \\R \\h \\H \\v

@@ -15,11 +15,13 @@ input dictionary): a warm run of a query over the same dictionary gathers
 with the tables its first run made (the reference interns its aux arrays
 the same way).
 
-What the reference sends to its CPU route raises NotImplementedError
-naming itself, as the port has no host fallback: a multi-column
-``Concat``, a parameter that is not a literal (``_LiteralParams``), and a
-regex (RLIKE, ``regexp_replace``, ``regexp_extract``) that
-``regex_transpiler.try_transpile`` rejects. Like is Spark-exact (the
+What the reference sends to its CPU route runs on the port's (the
+expression's ``device_supported`` is False, overrides/rules.py tags its
+operator there): a multi-column ``Concat``, a parameter that is not a
+literal (``_LiteralParams``: row by row over the parameters' values),
+and a regex (RLIKE, ``regexp_replace``, ``regexp_extract``) that
+``regex_transpiler.try_transpile`` rejects (Python's ``re`` over the
+pattern as written, as the reference's route). Like is Spark-exact (the
 pattern translated to an anchored Python regex, compiled once per
 pattern)."""
 
@@ -34,6 +36,7 @@ import numpy as np
 import torch
 
 from spark_rapids_tpu_torch import types as T
+from spark_rapids_tpu_torch.columnar import HostColumn, HostTable
 from spark_rapids_tpu_torch.ops.common import (
     UnaryExpression,
     dev_remap_codes,
@@ -45,6 +48,7 @@ from spark_rapids_tpu_torch.ops.expr import (
     Literal,
     NodePrep,
     PrepCtx,
+    host_only,
 )
 
 _EMPTY = np.array([], dtype=object)
@@ -132,6 +136,23 @@ class DictStringToString(Expression):
         codes = dev_remap_codes(prep.aux["remap"], cv.data)
         return DevVal(codes.clamp_min(0), cv.validity & (codes >= 0))
 
+    def eval_cpu(self, table: HostTable) -> HostColumn:
+        c = self.children[self._dict_index].eval_cpu(table)
+        n = len(c)
+        out = np.empty(n, dtype=object)
+        validity = c.validity.copy()
+        for i in range(n):
+            if validity[i]:
+                r = self.transform(c.data[i])
+                if r is None:
+                    validity[i] = False
+                    out[i] = None
+                else:
+                    out[i] = r
+            else:
+                out[i] = None
+        return HostColumn(T.STRING, out, validity)
+
 
 class DictStringToValue(Expression):
     """str -> fixed-width value via a host lookup table and a device
@@ -175,20 +196,60 @@ class DictStringToValue(Expression):
         return DevVal(dev_remap_codes(prep.aux["vals"], cv.data),
                       cv.validity & dev_remap_codes(prep.aux["ok"], cv.data))
 
+    def eval_cpu(self, table: HostTable) -> HostColumn:
+        c = self.children[0].eval_cpu(table)
+        n = len(c)
+        np_dt = self.out_type.np_dtype
+        out = np.zeros(n, dtype=np_dt)
+        validity = c.validity.copy()
+        for i in range(n):
+            if validity[i]:
+                v = self.value_of(c.data[i])
+                if v is None:
+                    validity[i] = False
+                else:
+                    out[i] = v
+        return HostColumn(self.out_type, out, validity)
+
 
 class _LiteralParams:
-    """Mixin: every child after the first must be a literal (the dictionary
-    transform folds the parameters on the host); the reference sends any
-    other to its CPU route, which the port lacks."""
+    """Mixin: every child after the first is a parameter. The dictionary
+    transform folds literal parameters on the host; with a parameter that
+    is not a literal the expression runs on the CPU route (the
+    reference's), row by row over the parameters' values."""
 
     def resolve(self, bound):
         out = super().resolve(bound)
-        for c in out.children[1:]:
-            if not isinstance(c, Literal):
-                raise NotImplementedError(
-                    f"{out.name} with a non-literal parameter ({c!r}) is "
-                    "not ported (the reference's CPU route)")
+        if not all(isinstance(c, Literal) for c in out.children[1:]):
+            host_only(out, f"{out.name} with a non-literal parameter")
         return out
+
+    def eval_cpu(self, table: HostTable) -> HostColumn:
+        if self.device_supported:
+            return super().eval_cpu(table)
+        kids = [c.eval_cpu(table) for c in self.children]
+        n = table.num_rows
+        string_out = isinstance(self.data_type, T.StringType)
+        out = (np.empty(n, dtype=object) if string_out
+               else np.zeros(n, dtype=self.data_type.np_dtype))
+        validity = np.zeros(n, dtype=np.bool_)
+        bound = {}
+        for i in range(n):
+            if not all(k.validity[i] for k in kids):
+                continue  # a null string or parameter: null
+            params = tuple(k.data[i].item() if isinstance(k.data[i],
+                                                          np.generic)
+                           else k.data[i] for k in kids[1:])
+            e = bound.get(params)
+            if e is None:
+                e = bound[params] = self.with_children(
+                    [self.children[0]] + [Literal(v, c.data_type) for v, c in
+                                          zip(params, self.children[1:])])
+            r = (e.transform if string_out else e.value_of)(kids[0].data[i])
+            if r is not None:
+                out[i] = r
+                validity[i] = True
+        return HostColumn(self.data_type, out, validity)
 
 
 # ---------------------------------------------------------------------------
@@ -317,25 +378,35 @@ class StringTranslate(_LiteralParams, _Params):
 
 
 @functools.lru_cache(maxsize=1024)
-def guarded_regex(pattern: str):
-    """The compiled Python form of a Java regex the transpiler accepts
-    (with re.ASCII, Java's default classes); NotImplementedError naming
-    the transpiler's reason for one it rejects."""
+def transpiled_regex(pattern: str):
+    """(compiled regex, reason): a Java regex the transpiler accepts
+    compiles in its Python form with re.ASCII (Java's default classes),
+    reason None; one it rejects compiles as it is (the reference's CPU
+    route, whose results may differ from Spark's) with the transpiler's
+    reason."""
     from spark_rapids_tpu_torch.ops.regex_transpiler import try_transpile
     transpiled, reason = try_transpile(pattern)
     if transpiled is None:
-        raise NotImplementedError(
-            f"regex {pattern!r} is outside the transpilable subset "
-            f"({reason}); the reference's CPU route is not ported")
-    return re.compile(transpiled, re.ASCII)
+        return re.compile(pattern), reason
+    return re.compile(transpiled, re.ASCII), None
+
+
+def guarded_regex(pattern: str):
+    return transpiled_regex(pattern)[0]
 
 
 class _Regex(_LiteralParams):
-    """Checks the pattern (child 1) when the expression binds."""
+    """A pattern (child 1) outside the transpilable subset runs on the
+    CPU route."""
 
     def resolve(self, bound):
         out = super().resolve(bound)
-        guarded_regex(out.children[1].value)
+        pattern = out.children[1]
+        if isinstance(pattern, Literal) and pattern.value is not None:
+            reason = transpiled_regex(pattern.value)[1]
+            if reason is not None:
+                host_only(out, f"regex {pattern.value!r} is outside the "
+                          f"transpilable subset ({reason})")
         return out
 
 
@@ -381,7 +452,8 @@ class RegExpExtract(_Regex, _Params):
 
 class Concat(DictStringToString):
     """concat: a dictionary transform when at most ONE child is not a
-    literal; a multi-column concat (the reference's CPU route) raises."""
+    literal; a multi-column concat runs on the CPU route (the
+    reference's)."""
 
     def __init__(self, *children: Expression):
         self.children = tuple(children)
@@ -399,11 +471,11 @@ class Concat(DictStringToString):
     def resolve(self, bound):
         out = Concat(*bound)
         non_lit = [c for c in out.children if not isinstance(c, Literal)]
+        for c in non_lit:
+            _require_string(out, c)
         if len(non_lit) > 1:
-            raise NotImplementedError(
-                f"Concat of {len(non_lit)} columns (a multi-column concat, "
-                "the reference's CPU route) is not ported")
-        _require_string(out, out.children[out._dict_index])
+            # a multi-column concat: the reference's CPU route
+            host_only(out, f"Concat of {len(non_lit)} columns")
         return out
 
     def transform(self, s):
@@ -416,6 +488,21 @@ class Concat(DictStringToString):
             else:
                 parts.append(s)
         return "".join(parts)
+
+    def eval_cpu(self, table: HostTable) -> HostColumn:
+        cols = [c.eval_cpu(table) for c in self.children]
+        n = table.num_rows
+        out = np.empty(n, dtype=object)
+        validity = np.ones(n, dtype=np.bool_)
+        for i in range(n):
+            parts = []
+            for c in cols:
+                if not c.validity[i]:
+                    validity[i] = False
+                    break
+                parts.append(str(c.data[i]))
+            out[i] = "".join(parts) if validity[i] else None
+        return HostColumn(T.STRING, out, validity)
 
 
 # ---------------------------------------------------------------------------

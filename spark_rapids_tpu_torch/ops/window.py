@@ -8,14 +8,19 @@ the frame is RANGE UNBOUNDED PRECEDING..CURRENT ROW; without it the frame is
 the whole partition. execs/window.py evaluates every function here and the
 aggregates SUM, COUNT, MIN, MAX and AVG over whole, running and bounded
 frames; ``execs/window.py::device_window_supported`` names what raises.
-The reference's numpy evaluation (``eval_window_cpu``) is not ported: the
-port has no CPU plan path."""
+The CPU route evaluates a window column with the reference's numpy
+(``eval_window_cpu``)."""
 
 from __future__ import annotations
 
 from typing import Optional, Sequence, Tuple
 
+import numpy as np
+
 from spark_rapids_tpu_torch import types as T
+from spark_rapids_tpu_torch.columnar import HostColumn, HostTable
+from spark_rapids_tpu_torch.errors import ColumnarProcessingError
+from spark_rapids_tpu_torch.ops import aggregates as agg
 from spark_rapids_tpu_torch.ops.expr import Expression
 from spark_rapids_tpu_torch.plan.nodes import SortOrder
 
@@ -209,6 +214,181 @@ class WindowExpression(Expression):
              for o in self.spec.orders],
             self.spec.frame)
         return WindowExpression(fn, spec)
+
+
+# -- the CPU route ------------------------------------------------------------
+
+def eval_window_cpu(table: HostTable, wexpr: WindowExpression) -> HostColumn:
+    """The reference's numpy evaluation of a window column (the CPU
+    route's WindowNode). Rows are processed in (partition, order) sorted
+    position, and results return in the INPUT row order, as Spark's
+    WindowExec."""
+    n = table.num_rows
+    spec = wexpr.spec
+    fn = wexpr.function
+
+    # partition codes
+    if spec.partition_exprs:
+        pcols = [p.eval_cpu(table) for p in spec.partition_exprs]
+        pkeys = []
+        for c in pcols:
+            vals = np.where(c.validity, c.data, None if c.data.dtype == object else 0)
+            pkeys.append([(bool(c.validity[i]), vals[i]) for i in range(n)])
+        part_of = {}
+        pid = np.zeros(n, dtype=np.int64)
+        for i in range(n):
+            key = tuple(pk[i] for pk in pkeys)
+            pid[i] = part_of.setdefault(key, len(part_of))
+    else:
+        pid = np.zeros(n, dtype=np.int64)
+
+    # sorted order within partitions
+    from spark_rapids_tpu_torch.plan.nodes import _stable_sort_indices
+    if spec.orders:
+        ocols = [o.expr.eval_cpu(table) for o in spec.orders]
+        order_idx = _stable_sort_indices(
+            [HostColumn(T.LONG, pid, np.ones(n, dtype=np.bool_))] + ocols,
+            [SortOrder(None, True)] + list(spec.orders), n)
+    else:
+        ocols = []
+        order_idx = np.argsort(pid, kind="stable")
+
+    frame = spec.resolved_frame()
+
+    # peer flags (for rank/range frames): equal order-key values
+    def order_tuple(i):
+        return tuple(
+            (bool(c.validity[i]), None if not c.validity[i] else c.data[i])
+            for c in ocols) if spec.orders else ()
+
+    result = np.empty(n, dtype=object)
+    valid = np.ones(n, dtype=np.bool_)
+
+    pos = 0
+    while pos < n:
+        # find partition run in sorted order
+        p = pid[order_idx[pos]]
+        end = pos
+        while end < n and pid[order_idx[end]] == p:
+            end += 1
+        rows = order_idx[pos:end]
+        m = len(rows)
+
+        if isinstance(fn, RowNumber):
+            for j, r in enumerate(rows):
+                result[r] = j + 1
+        elif isinstance(fn, (Rank, DenseRank)):
+            rank = 0
+            dense = 0
+            prev = object()
+            for j, r in enumerate(rows):
+                cur = order_tuple(r)
+                if cur != prev:
+                    rank = j + 1
+                    dense += 1
+                    prev = cur
+                result[r] = rank if isinstance(fn, Rank) else dense
+        elif isinstance(fn, PercentRank):
+            rank = 0
+            prev = object()
+            for j, r in enumerate(rows):
+                cur = order_tuple(r)
+                if cur != prev:
+                    rank = j + 1
+                    prev = cur
+                result[r] = 0.0 if m == 1 else (rank - 1) / (m - 1)
+        elif isinstance(fn, NthValue):
+            if frame != ("range", None, 0):
+                raise ColumnarProcessingError(
+                    "nth_value supports only the default running frame")
+            src = fn.children[0].eval_cpu(table)
+            # default running frame (range unbounded preceding..current):
+            # the nth partition row becomes visible at its peer group
+            pos = fn.n - 1
+            for j, r in enumerate(rows):
+                # frame end = last peer of r
+                e = j
+                while e + 1 < m and order_tuple(rows[e + 1]) == order_tuple(r):
+                    e += 1
+                if pos <= e:
+                    rr = rows[pos]
+                    result[r] = src.data[rr] if src.validity[rr] else None
+                    valid[r] = bool(src.validity[rr])
+                else:
+                    result[r] = None
+                    valid[r] = False
+        elif isinstance(fn, (Lag, Lead)):
+            src = fn.children[0].eval_cpu(table)
+            off = fn.offset if isinstance(fn, Lead) else -fn.offset
+            for j, r in enumerate(rows):
+                k = j + off
+                if 0 <= k < m:
+                    rr = rows[k]
+                    result[r] = src.data[rr] if src.validity[rr] else None
+                    valid[r] = bool(src.validity[rr])
+                else:
+                    result[r] = fn.default
+                    valid[r] = fn.default is not None
+        elif isinstance(fn, agg.AggregateFunction):
+            src = fn.child.eval_cpu(table) if fn.child is not None else None
+            kind, lo, hi = frame
+            # per-row frame bounds in sorted positions
+            if kind == "range":
+                if not ((lo is None and (hi == 0 or hi is None))):
+                    raise ColumnarProcessingError(
+                        "only UNBOUNDED..CURRENT/UNBOUNDED range frames supported")
+            for j, r in enumerate(rows):
+                if kind == "rows":
+                    a = 0 if lo is None else max(0, j + lo)
+                    b = m - 1 if hi is None else min(m - 1, j + hi)
+                else:  # range: unbounded preceding .. current-row peers / unbounded
+                    a = 0
+                    if hi is None:
+                        b = m - 1
+                    else:  # current row incl peers
+                        b = j
+                        while b + 1 < m and order_tuple(rows[b + 1]) == order_tuple(r):
+                            b += 1
+                window_rows = rows[a:b + 1] if b >= a else rows[0:0]
+                result[r], valid[r] = _agg_window_cpu(fn, src, window_rows)
+        else:
+            raise ColumnarProcessingError(
+                f"window function {type(fn).__name__} unsupported")
+        pos = end
+
+    dt = wexpr.data_type
+    if isinstance(dt, T.StringType):
+        data = np.array([result[i] if valid[i] else None for i in range(n)],
+                        dtype=object)
+        return HostColumn(dt, data, valid)
+    np_dt = dt.np_dtype
+    data = np.array([result[i] if valid[i] and result[i] is not None else 0
+                     for i in range(n)], dtype=np_dt)
+    valid = valid & np.array([result[i] is not None for i in range(n)])
+    return HostColumn(dt, data, valid)
+
+
+def _agg_window_cpu(fn, src, rows):
+    if isinstance(fn, agg.Count):
+        if fn.child is None:
+            return len(rows), True
+        return int(np.sum(src.validity[rows])), True
+    vals = [src.data[r] for r in rows if src.validity[r]]
+    if not vals:
+        return None, False
+    if isinstance(fn, agg.Sum):
+        if isinstance(fn.data_type, T.LongType):
+            # exact python sum, wrapped to int64 like Spark non-ANSI overflow
+            total = sum(int(v) for v in vals)
+            return ((total + (1 << 63)) % (1 << 64)) - (1 << 63), True
+        return float(sum(float(v) for v in vals)), True
+    if isinstance(fn, agg.Min):
+        return min(vals), True
+    if isinstance(fn, agg.Max):
+        return max(vals), True
+    if isinstance(fn, agg.Average):
+        return float(sum(float(v) for v in vals)) / len(vals), True
+    raise ColumnarProcessingError(f"window agg {type(fn).__name__}")
 
 
 def row_number() -> RowNumber:

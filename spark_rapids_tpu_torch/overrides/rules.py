@@ -1,39 +1,52 @@
-"""Tag and convert plan nodes into device execs (port of the LocalScan,
-file scan (``register_file_scan``, ``_convert_file_scan``), RangeNode,
-Project, Filter, Aggregate, Sort, Join, Limit, Union, Expand, Sample,
-CachedRelation, TakeOrderedAndProject, WindowNode, WindowGroupLimit,
-Exchange and Generate rules of
-``spark_rapids_tpu/overrides/rules.py``, the column pruning and the
-window group-limit rewrite its ``apply_overrides`` runs first, and
-``lore.assign_lore_ids``: every exec gets its plan position, pre-order
-from 1).
+"""Tag and convert plan nodes into device execs, with the per-operator
+CPU route (port of the rules, ``PlanMeta``, ``check_expr``, ``convert``
+and ``explain`` of ``spark_rapids_tpu/overrides/rules.py``, the column
+pruning and the window group-limit rewrite its ``apply_overrides`` runs
+first, and ``lore.assign_lore_ids``: every exec gets its plan position,
+pre-order from 1).
 
-The reference tags each node and falls back to the CPU where a node or
-expression is unsupported; the port has no fallback, so tagging raises
-NotImplementedError naming what is missing, before anything runs, and a
+``PlanMeta.tag`` collects, for every node, the reference's reasons to run
+it on the CPU route: an expression whose form the device does not
+evaluate (``Expression.device_supported``), a type the device holds in
+no form (nested columns of strings or decimals, arrays of structs or
+arrays; array, struct and map columns may leave only a scan, a cached
+relation or a project, and arrays a generate or an aggregate), a kill
+switch (``spark.rapids.sql.exec.<Node>``,
+``spark.rapids.sql.expression.<Expr>``), and the reference's per-rule
+gates (joins, windows, aggregates). The tags alone choose the route:
+nothing sends work to the CPU after a device failure. ``convert`` turns
+a node without reasons into its device exec and leaves a node with
+reasons as a host plan node (``execute_cpu``), with transitions where a
+device parent meets a host child and the reverse (execs/base.py).
+``explain`` renders the tagged tree (``*`` on the device, ``!`` on the
+CPU route with its reasons). What neither the device nor the CPU route
+runs raises NotImplementedError naming it, before anything runs, and a
 plan node the circuit breaker tripped raises KernelCrashError there
-(runtime/faults.py). Nested types are gated as the reference gates them
-(its ``_tag_scan``/``_tag_project``/``_tag_generate``/``_tag_aggregate``
-and the default output check of every other rule): array, struct and map
-columns may leave a scan, a cached relation or a project; arrays may
-leave a generate or an aggregate (collect_list, collect_set); anything
-else with a nested column in its output, an array grouping key, and a
-nested column passing through a generator raise naming ROADMAP item
-[9c], where the reference runs its CPU route. Each converted exec carries the plan-node class it
-came from (``_plan_origin``, the breaker's unit), and a broadcast inner or
-left-semi join installs dynamic partition pruning on its probe side's
+(runtime/faults.py). Each converted exec carries the plan-node class it
+came from (``_plan_origin``, the breaker's unit), and a broadcast inner
+or left-semi join installs dynamic partition pruning on its probe side's
 file scan (``_maybe_install_dpp``)."""
 
 from __future__ import annotations
+
+import copy
+from typing import List, Optional
 
 from spark_rapids_tpu_torch import conf as C
 from spark_rapids_tpu_torch.columnar import BucketPolicy
 from spark_rapids_tpu_torch.execs.aggregate import (
     TpuHashAggregateExec,
+    agg_host_reason,
     check_agg_supported,
 )
 from spark_rapids_tpu_torch.execs import basic as xbasic
-from spark_rapids_tpu_torch.execs.base import TpuExec
+from spark_rapids_tpu_torch.execs.base import (
+    CpuRootExec,
+    DeviceToHost,
+    HostToDevice,
+    InputAdapter,
+    TpuExec,
+)
 from spark_rapids_tpu_torch.execs.basic import (
     TpuCoalesceExec,
     TpuFilterExec,
@@ -57,102 +70,192 @@ from spark_rapids_tpu_torch.plan import nodes as P
 
 #: FileScanNode subclasses with a device rule (io/__init__.py registers
 #: them when the io package imports)
-_FILE_SCANS: dict = {}
+_FILE_SCANS: set = set()
 
 
 def register_file_scan(cls) -> None:
-    """Register a FileScanNode subclass; its kill switch is
-    ``spark.rapids.sql.exec.<ClassName>`` (conf.FILE_SCAN_ENABLED)."""
-    _FILE_SCANS[cls] = C.FILE_SCAN_ENABLED[cls.format_name]
+    """Register a FileScanNode subclass with a device rule; its kill
+    switch is ``spark.rapids.sql.exec.<ClassName>``."""
+    _FILE_SCANS.add(cls)
 
 
-def _tag_file_scan(node, conf: C.RapidsConf) -> None:
-    entry = _FILE_SCANS.get(type(node))
-    if entry is None:
-        raise NotImplementedError(
-            f"{type(node).__name__} scans are not ported to "
-            "spark_rapids_tpu_torch")
-    if not conf.get_entry(entry):
-        raise NotImplementedError(
-            f"exec {type(node).__name__} is disabled by conf ({entry.key}="
-            "false) and the port has no CPU route for it")
+#: plan nodes with a device rule
+_DEVICE_NODES = (P.LocalScan, P.RangeNode, P.Project, P.Filter,
+                 P.Aggregate, P.Sort, P.Limit, P.Union, P.Expand,
+                 P.Join, P.Generate, P.Sample, P.TakeOrderedAndProject,
+                 P.CachedRelation, P.WindowGroupLimit, P.WindowNode,
+                 P.Exchange)
 
 
-def _convert_file_scan(node, device, policy) -> TpuExec:
-    return xbasic.TpuFileScanExec(node, device, policy)
-
-
-def _tag_nested(node: P.PlanNode) -> None:
-    """The reference's nested-type gating (``_tag_scan``,
-    ``_tag_project``, ``_tag_generate``, ``_tag_aggregate`` and every
-    other rule's default output check): raise where it falls back."""
+def _host_only_type(dt, nested_ok: str) -> bool:
+    """Does the device hold no form of ``dt`` here? ``nested_ok``: which
+    nested columns the node's device exec carries ("nested": every
+    nested type with a layout, "arrays": arrays with one, "" none)."""
     from spark_rapids_tpu_torch import types as T
     from spark_rapids_tpu_torch.columnar.nested import (
         is_nested_type,
-        not_ported_9c,
+        layout_supported,
     )
-    from spark_rapids_tpu_torch.io.common import FileScanNode
-    if isinstance(node, (P.LocalScan, P.CachedRelation, P.Project,
-                         FileScanNode)):
+    if not is_nested_type(dt):
+        return False
+    if not layout_supported(dt):
+        return True
+    if nested_ok == "nested":
+        return False
+    return not (nested_ok == "arrays" and isinstance(dt, T.ArrayType))
+
+
+def check_expr(e, conf: C.RapidsConf, reasons: List[str],
+               context: str = "") -> None:
+    """The reference's ``check_expr``: append why a bound expression tree
+    cannot run on the device (its kill switch, a type the device holds in
+    no form, a form only the CPU route evaluates), recursing into the
+    children and a higher-order function's rebound lambda body."""
+    name = type(e).__name__
+    where = f"{context}{name}"
+    if not conf.is_op_enabled("expression", name):
+        reasons.append(f"expression {where} is disabled by conf")
         return
-    arrays_ok = isinstance(node, (P.Generate, P.Aggregate))
-    if isinstance(node, P.Aggregate):
-        for g in node.grouping:
-            if is_nested_type(g.data_type):
-                not_ported_9c(f"grouping key of type "
-                              f"{g.data_type.simple_string()}")
-    if isinstance(node, P.Generate):
-        child_schema = dict(node.children[0].output_schema())
-        for n in node.required:
-            if is_nested_type(child_schema[n]):
-                not_ported_9c(f"nested column {n} passing through a "
-                              "generator (prune it or explode it)")
-    for name, dt in node.output_schema():
-        if is_nested_type(dt) and not (arrays_ok
-                                       and isinstance(dt, T.ArrayType)):
-            not_ported_9c(f"{node.name} with nested output column {name} "
-                          f"({dt.simple_string()})")
+    try:
+        dt = e.data_type
+    except Exception:
+        dt = None
+    if dt is not None and _host_only_type(dt, "nested"):
+        reasons.append(f"expression {where} produces unsupported type "
+                       f"{dt.simple_string()}")
+    if not e.device_supported:
+        reasons.append(f"expression {where} configuration is not "
+                       "supported on GPU")
+    for i, c in enumerate(e.children):
+        try:
+            cdt = c.data_type
+        except Exception:
+            cdt = None
+        if cdt is not None and _host_only_type(cdt, "nested"):
+            reasons.append(f"expression {where} input {i} has unsupported "
+                           f"type {cdt.simple_string()}")
+    for c in e.children:
+        check_expr(c, conf, reasons, context)
+    body = getattr(e, "_rebound", None)
+    if body is not None:
+        check_expr(body, conf, reasons, context + "lambda body ")
 
 
-def _tag(node: P.PlanNode, conf: C.RapidsConf) -> None:
+def _check_output_schema(meta: "PlanMeta", nested_ok: str = "") -> None:
+    for name, dt in meta.node.output_schema():
+        if _host_only_type(dt, nested_ok):
+            meta.reasons.append(f"output column {name} has unsupported "
+                                f"type {dt.simple_string()}")
+
+
+def _tag_rule(meta: "PlanMeta") -> None:
+    """The rule's own checks of ``meta.node`` (the reference's
+    ``_tag_*``)."""
     from spark_rapids_tpu_torch.io.common import FileScanNode
-    from spark_rapids_tpu_torch.runtime.faults import CIRCUIT_BREAKER
-    CIRCUIT_BREAKER.check(type(node).__name__)
-    _tag_nested(node)
-    if isinstance(node, FileScanNode):
-        _tag_file_scan(node, conf)
-    elif isinstance(node, P.Aggregate):
-        for _, fn in node.agg_specs:
-            check_agg_supported(fn)
+    node, conf, reasons = meta.node, meta.conf, meta.reasons
+    if isinstance(node, (P.LocalScan, P.CachedRelation, FileScanNode)):
+        _check_output_schema(meta, "nested")
+    elif isinstance(node, P.Project):
+        _check_output_schema(meta, "nested")
+        for e in node.exprs:
+            check_expr(e, conf, reasons)
     elif isinstance(node, P.Generate):
-        from spark_rapids_tpu_torch.ops.collections import check_fixed_array
-        check_fixed_array(node.gen_child, "a generator")
-    elif isinstance(node, P.Sort) and not node.global_sort:
-        raise NotImplementedError("a per-partition (local) sort is not ported")
+        _tag_generate(meta)
+    elif isinstance(node, P.Aggregate):
+        _tag_aggregate(meta)
     elif isinstance(node, P.Join):
-        _tag_join(node, conf)
+        _tag_join(meta)
     elif isinstance(node, P.WindowNode):
-        _tag_window(node, conf)
+        _tag_window(meta)
     elif isinstance(node, P.Exchange):
-        _tag_exchange(node)
-    elif not isinstance(node, (P.LocalScan, P.Project, P.Filter, P.Sort,
-                               P.Limit, P.TakeOrderedAndProject,
-                               P.WindowGroupLimit, P.RangeNode, P.Union,
-                               P.Expand, P.Sample, P.CachedRelation,
-                               P.Generate)):
-        raise NotImplementedError(
-            f"plan node {node.name} is not ported to spark_rapids_tpu_torch")
+        _tag_exchange(meta)
+    else:
+        _check_output_schema(meta)
+        if isinstance(node, P.Filter):
+            check_expr(node.condition, conf, reasons)
+        elif isinstance(node, (P.Sort, P.TakeOrderedAndProject)):
+            if isinstance(node, P.Sort) and not node.global_sort:
+                raise NotImplementedError(
+                    "a per-partition (local) sort is not ported")
+            for o in node.orders:
+                check_expr(o.expr, conf, reasons, "sort key ")
+                dt = o.expr.data_type
+                if _host_only_type(dt, ""):
+                    reasons.append(f"sort key type {dt.simple_string()} "
+                                   "not orderable on GPU")
+        elif isinstance(node, P.Expand):
+            for proj in node.projections:
+                for e in proj:
+                    check_expr(e, conf, reasons)
+        elif isinstance(node, P.WindowGroupLimit):
+            for e in node.partition_exprs:
+                check_expr(e, conf, reasons, "group-limit partition key ")
+            for o in node.orders:
+                check_expr(o.expr, conf, reasons, "group-limit order key ")
 
 
-def _tag_join(node: P.Join, conf: C.RapidsConf) -> None:
-    """The reference's join tag: where it falls back to the CPU, the port
-    raises with its reason."""
+def _tag_generate(meta: "PlanMeta") -> None:
+    from spark_rapids_tpu_torch.columnar.nested import is_nested_type
+    from spark_rapids_tpu_torch.ops.collections import (
+        check_array,
+        is_fixed_array,
+    )
+    node = meta.node
+    check_array(node.gen_child, "a generator")
+    _check_output_schema(meta, "arrays")
+    check_expr(node.gen_child, meta.conf, meta.reasons, "generator input ")
+    if not is_fixed_array(node.gen_child.data_type):
+        meta.reasons.append(
+            f"generator over {node.gen_child.data_type.simple_string()} "
+            "requires fixed-width array elements on GPU")
+    child_schema = dict(node.children[0].output_schema())
+    for n in node.required:
+        if is_nested_type(child_schema[n]):
+            meta.reasons.append(
+                f"array column {n} passing THROUGH a generator is not "
+                "supported on GPU (prune it or explode it)")
+
+
+def _tag_aggregate(meta: "PlanMeta") -> None:
     from spark_rapids_tpu_torch import types as T
+    node = meta.node
+    _check_output_schema(meta, "arrays")
+    for g in node.grouping:
+        check_expr(g, meta.conf, meta.reasons, "grouping key ")
+        if isinstance(g.data_type, T.ArrayType):
+            meta.reasons.append("array-typed grouping keys are not "
+                                "supported on GPU")
+        elif _host_only_type(g.data_type, ""):
+            raise NotImplementedError(
+                f"a grouping key of type {g.data_type.simple_string()} "
+                "is not ported")
+    for name, fn in node.agg_specs:
+        if fn.child is not None:
+            check_expr(fn.child, meta.conf, meta.reasons,
+                       f"aggregate {name} input ")
+        reason = agg_host_reason(name, fn)
+        if reason is not None:
+            meta.reasons.append(reason)
+        else:
+            check_agg_supported(fn)
+
+
+def _tag_join(meta: "PlanMeta") -> None:
+    """The reference's join tag; its reasons send the join to the CPU
+    route."""
+    from spark_rapids_tpu_torch import types as T
+    node, reasons = meta.node, meta.reasons
+    _check_output_schema(meta)
     jt = node.join_type
     if len(node.left_keys) != len(node.right_keys):
         raise NotImplementedError(
             f"join key count mismatch: {len(node.left_keys)} vs "
             f"{len(node.right_keys)}")
+    for k in list(node.left_keys) + list(node.right_keys):
+        check_expr(k, meta.conf, reasons, "join key ")
+        if _host_only_type(k.data_type, ""):
+            reasons.append(f"join key type {k.data_type.simple_string()} "
+                           "not supported on GPU")
     for lk, rk in zip(node.left_keys, node.right_keys):
         if lk.data_type != rk.data_type:
             try:
@@ -166,39 +269,61 @@ def _tag_join(node: P.Join, conf: C.RapidsConf) -> None:
         # KNOWN oversized build must not exhaust the device
         build = node.children[0 if jt == "right" else 1]
         est = build.estimate_bytes()
-        limit = 8 * conf.get_entry(C.BROADCAST_SIZE_BYTES)
+        limit = 8 * meta.conf.get_entry(C.BROADCAST_SIZE_BYTES)
         if est is not None and est > limit:
-            raise NotImplementedError(
-                f"nested-loop build side estimate {est}B exceeds "
-                f"8x broadcastSizeBytes ({limit}B)")
-    if node.condition is not None and node.left_keys and \
-            jt not in ("inner", "cross"):
-        # equi keys + a residual condition on an outer, semi or anti join:
-        # a post-filter would change which rows match
-        raise NotImplementedError(
-            f"non-equi condition on equi {jt} join is not supported")
+            reasons.append(f"nested-loop build side estimate {est}B "
+                           f"exceeds 8x broadcastSizeBytes ({limit}B)")
+    if node.condition is not None:
+        if node.left_keys and jt not in ("inner", "cross"):
+            # equi keys + a residual condition on an outer, semi or anti
+            # join: a post-filter would change which rows match
+            reasons.append(f"non-equi condition on equi {jt} join is not "
+                           "supported on GPU")
+        else:
+            check_expr(node.condition, meta.conf, reasons,
+                       "join condition ")
 
 
-def _tag_window(node: P.WindowNode, conf: C.RapidsConf) -> None:
+#: the window gates whose columns the CPU route computes (the reference's
+#: ``eval_window_cpu`` does not run the others right: they raise)
+_HOST_WINDOW_GATES = ("rows frame bound beyond", "wide float rows frame",
+                      "ranking window function requires an ORDER BY",
+                      "lag/lead string default value")
+
+
+def _tag_window(meta: "PlanMeta") -> None:
     """The reference's window tag: the frame bound from the conf, the
-    wide-float gate and a DECIMAL128 input; where it falls back to the
-    CPU, the port raises with its reason."""
+    wide-float gate and a DECIMAL128 input. A column the CPU route
+    computes tags the node there; the others raise with the reason."""
     from spark_rapids_tpu_torch import types as T
     from spark_rapids_tpu_torch.execs.window import device_window_supported
-    vfa = conf.get_entry(C.VARIABLE_FLOAT_AGG)
-    bound = conf.get_entry(C.WINDOW_ROWS_FRAME_MAX_BOUND)
-    reasons = []
+    node = meta.node
+    _check_output_schema(meta)
+    vfa = meta.conf.get_entry(C.VARIABLE_FLOAT_AGG)
+    bound = meta.conf.get_entry(C.WINDOW_ROWS_FRAME_MAX_BOUND)
+    unported = []
     for name, w in node.window_cols:
         ok, reason = device_window_supported(
             w, variable_float_agg=vfa, rows_frame_max_bound=bound)
         if not ok:
-            reasons.append(f"window {name}: {reason}")
+            if reason.startswith(_HOST_WINDOW_GATES):
+                meta.reasons.append(f"window {name}: {reason}")
+            else:
+                unported.append(f"window {name}: {reason}")
             continue
         if any(T.is_dec128(c.data_type) for c in w.function.children):
-            reasons.append(f"window {name} over a decimal(>18) input is "
-                           "not supported")
-    if reasons:
-        raise NotImplementedError("; ".join(reasons))
+            unported.append(f"window {name} over a decimal(>18) input is "
+                            "not supported")
+        for p in w.spec.partition_exprs:
+            check_expr(p, meta.conf, meta.reasons,
+                       f"window {name} partition key ")
+        for o in w.spec.orders:
+            check_expr(o.expr, meta.conf, meta.reasons,
+                       f"window {name} order key ")
+        for c in w.function.children:
+            check_expr(c, meta.conf, meta.reasons, f"window {name} input ")
+    if unported:
+        raise NotImplementedError("; ".join(unported))
 
 
 def _convert_window(node: P.WindowNode, child: TpuExec,
@@ -234,7 +359,9 @@ def _convert_window(node: P.WindowNode, child: TpuExec,
                          stream_target_rows=target)
 
 
-def _tag_exchange(node: P.Exchange) -> None:
+def _tag_exchange(meta: "PlanMeta") -> None:
+    node = meta.node
+    _check_output_schema(meta)
     if node.partitioning not in ("hash", "range", "roundrobin", "single"):
         raise NotImplementedError(
             f"partitioning {node.partitioning} is not supported")
@@ -244,6 +371,8 @@ def _tag_exchange(node: P.Exchange) -> None:
         raise NotImplementedError(
             "range partitioning (RangePartitioner's sampled bounds) is not "
             "ported")
+    for k in node.keys:
+        check_expr(k, meta.conf, meta.reasons, "partition key ")
 
 
 def _insert_window_group_limits(node: P.PlanNode) -> P.PlanNode:
@@ -470,26 +599,104 @@ def _broadcast_key_values(build_exec, key):
     return provider
 
 
-def _convert(node: P.PlanNode, conf: C.RapidsConf, device) -> TpuExec:
-    out = _convert_node(node, conf, device)
-    # the runtime-failure attribution unit (runtime/faults.py): the plan
-    # node class this exec was converted from, which the circuit breaker
-    # counts; helper execs a rule builds (coalesce wrappers) carry none
-    out._plan_origin = type(node).__name__
-    return out
+class PlanMeta:
+    """The reference's RapidsMeta for plan nodes: the node, its reasons
+    to run on the CPU route and its advisory notes, and its children's
+    metas (a cached relation is a planning leaf: its child runs through
+    the session when it materializes)."""
+
+    def __init__(self, node: P.PlanNode, conf: C.RapidsConf,
+                 parent: Optional["PlanMeta"] = None):
+        self.node = node
+        self.conf = conf
+        self.parent = parent
+        self.reasons: List[str] = []
+        self.notes: List[str] = []
+        self.children = [] if isinstance(node, P.CachedRelation) else [
+            PlanMeta(c, conf, self) for c in node.children]
+
+    def tag(self) -> None:
+        from spark_rapids_tpu_torch.runtime.faults import CIRCUIT_BREAKER
+        name = type(self.node).__name__
+        # a tripped operator raises (the breaker's demotion onto the CPU
+        # route is not ported)
+        CIRCUIT_BREAKER.check(name)
+        if not isinstance(self.node, _DEVICE_NODES) and \
+                type(self.node) not in _FILE_SCANS:
+            self.reasons.append(f"exec {self.node.name} is not supported "
+                                "on GPU")
+        elif not self.conf.is_op_enabled("exec", name):
+            self.reasons.append(f"exec {self.node.name} is disabled by conf")
+        else:
+            _tag_rule(self)
+        for c in self.children:
+            c.tag()
+
+    @property
+    def can_run_on_gpu(self) -> bool:
+        return not self.reasons
+
+    def explain(self, indent: int = 0, only_fallback: bool = True) -> str:
+        """The reference's rendering: ``*`` on the device, ``!`` on the
+        CPU route with its reasons."""
+        mark = "*" if self.can_run_on_gpu else "!"
+        line = "  " * indent + f"{mark} {self.node.describe()}"
+        if self.reasons:
+            line += "  <-- " + "; ".join(self.reasons)
+        if self.notes:
+            line += "  (" + "; ".join(self.notes) + ")"
+        out = [line] if (not only_fallback or self.reasons or self.notes
+                         or indent == 0) else [
+            "  " * indent + f"{mark} {self.node.describe()}"]
+        for c in self.children:
+            out.append(c.explain(indent + 1, only_fallback))
+        return "\n".join(out)
 
 
-def _convert_node(node: P.PlanNode, conf: C.RapidsConf, device) -> TpuExec:
-    _tag(node, conf)
+def wrap_plan(plan: P.PlanNode, conf: C.RapidsConf) -> PlanMeta:
+    """The tagged meta tree of ``plan`` after column pruning and the
+    window group-limit rewrite (where and in the order the reference's
+    ``apply_overrides`` runs them)."""
+    meta = PlanMeta(_insert_window_group_limits(prune_plan(plan)), conf)
+    meta.tag()
+    return meta
+
+
+def _convert_meta(meta: PlanMeta, device):
+    """A device exec for a meta without reasons, else the host plan node;
+    transitions join the two sides."""
+    children = [_convert_meta(c, device) for c in meta.children]
+    if meta.can_run_on_gpu:
+        dev_children = [c if isinstance(c, TpuExec)
+                        else HostToDevice(c, device) for c in children]
+        out = _convert_node(meta.node, dev_children, meta.conf, device)
+        # the runtime-failure attribution unit (runtime/faults.py): the
+        # plan node class this exec was converted from, which the circuit
+        # breaker counts; helper execs a rule builds (coalesce wrappers)
+        # carry none
+        out._plan_origin = type(meta.node).__name__
+        return out
+    host_children = [
+        InputAdapter(DeviceToHost(c), cm.node.output_schema())
+        if isinstance(c, TpuExec) else c
+        for c, cm in zip(children, meta.children)]
+    if not host_children:
+        return meta.node
+    node = copy.copy(meta.node)
+    node.children = tuple(host_children)
+    return node
+
+
+def _convert_node(node: P.PlanNode, children, conf: C.RapidsConf,
+                  device) -> TpuExec:
     policy = BucketPolicy(conf.get_entry(C.SHAPE_BUCKETS_MIN))
     if isinstance(node, P.CachedRelation):
         # a planning leaf: its child ran (once) through the session
         return TpuScanExec([node.materialize()], device, policy)
-    children = [_convert(c, conf, device) for c in node.children]
     if isinstance(node, P.LocalScan):
         return TpuScanExec(node.batches, device, policy, node.columns)
     if type(node) in _FILE_SCANS:
-        return _convert_file_scan(node, device, policy)
+        return xbasic.TpuFileScanExec(node, device, policy)
     if isinstance(node, P.RangeNode):
         return xbasic.TpuRangeExec(node.start, node.end, node.step,
                                    node.batch_rows, node.col_name, device,
@@ -539,13 +746,52 @@ def _convert_node(node: P.PlanNode, conf: C.RapidsConf, device) -> TpuExec:
         node.orders, ooc_threshold_bytes=threshold)
 
 
-def convert(node: P.PlanNode, conf: C.RapidsConf, device) -> TpuExec:
-    """The device exec tree for ``node`` after column pruning and the
-    window group-limit rewrite (where and in the order the reference's
-    ``apply_overrides`` runs them), every exec numbered by its plan
-    position (pre-order from 1)."""
+def convert_meta(meta: PlanMeta, device) -> TpuExec:
+    """The executable of a tagged plan, every exec numbered by its plan
+    position (pre-order from 1); a root on the CPU route is collected on
+    the host (``CpuRootExec``)."""
     from spark_rapids_tpu_torch.lore import assign_lore_ids
-    root = _convert(_insert_window_group_limits(prune_plan(node)), conf,
-                    device)
+    root = _convert_meta(meta, device)
+    if not isinstance(root, TpuExec):
+        root = CpuRootExec(root)
     assign_lore_ids(root)
     return root
+
+
+def convert(node: P.PlanNode, conf: C.RapidsConf, device) -> TpuExec:
+    """Tag and convert ``node`` (``wrap_plan``, then ``convert_meta``)."""
+    return convert_meta(wrap_plan(node, conf), device)
+
+
+def collect_cpu_nodes(root) -> List[str]:
+    """The plan-node classes an executable runs on the CPU route, in plan
+    order (0 of them on a plan that runs wholly on the device)."""
+    out: List[str] = []
+
+    def host(node):
+        if isinstance(node, InputAdapter):
+            dev(node.source)
+            return
+        out.append(type(node).__name__)
+        for c in node.children:
+            host(c)
+
+    def dev(e):
+        if isinstance(e, (HostToDevice, CpuRootExec)):
+            host(e.cpu_node)
+            return
+        for c in e.children:
+            dev(c)
+
+    dev(root)
+    return out
+
+
+def explain_plan(plan: P.PlanNode, conf: C.RapidsConf) -> str:
+    """The tagged tree of ``plan`` as given (as the reference's
+    ``explain_plan``: before column pruning and the window rewrite, which
+    an execute applies first): every node in ALL mode, else the nodes
+    with reasons or notes named in full."""
+    meta = PlanMeta(plan, conf)
+    meta.tag()
+    return meta.explain(only_fallback=conf.explain_mode != "ALL")

@@ -230,8 +230,7 @@ class DataFrame:
 
     def collect_table(self) -> HostTable:
         if self.session is None:
-            raise ValueError("a DataFrame runs through a session: the port "
-                             "has no CPU execution of plans")
+            raise ValueError("a DataFrame runs through a session")
         sql_text = getattr(self, "sql_text", None)
         if sql_text is not None:
             # the event record's sqlText (TorchSession.sql sets it)

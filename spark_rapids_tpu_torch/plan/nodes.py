@@ -1,22 +1,31 @@
-"""Plan nodes (port of the LocalScan, RangeNode, Project, Filter,
-Aggregate, Sort, SortOrder, Limit, Union, Expand, Join, Sample,
-TakeOrderedAndProject, CachedRelation, WindowNode, WindowGroupLimit,
-Exchange and Generate parts of ``spark_rapids_tpu/plan/nodes.py``). Nodes bind their
+"""Plan nodes (port of ``spark_rapids_tpu/plan/nodes.py``: LocalScan,
+RangeNode, Project, Filter, Aggregate, Sort, SortOrder, Limit, Union,
+Expand, Join, Sample, TakeOrderedAndProject, CachedRelation, WindowNode,
+WindowGroupLimit, Exchange, Generate and WriteFiles). Nodes bind their
 expressions against the child's schema at construction; the overrides
-layer (overrides/rules.py) turns them into device execs. The reference's
-CPU execution of these nodes is not ported: the port has no CPU
-fallback."""
+layer (overrides/rules.py) turns them into device execs, or leaves a node
+its tag sends to the CPU route as it is: ``execute_cpu`` runs it over
+host batches with the reference's Spark-exact numpy semantics
+(``collect_cpu``: all of it as one HostTable)."""
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import List, Optional, Sequence, Tuple
+from typing import Iterator, List, Optional, Sequence, Tuple
+
+import numpy as np
 
 from spark_rapids_tpu_torch import types as T
-from spark_rapids_tpu_torch.columnar import HostTable
+from spark_rapids_tpu_torch.columnar import HostColumn, HostTable
 from spark_rapids_tpu_torch.errors import ColumnarProcessingError
 from spark_rapids_tpu_torch.ops import aggregates as agg
-from spark_rapids_tpu_torch.ops.expr import Alias, Expression, bind, output_name
+from spark_rapids_tpu_torch.ops.expr import (
+    Alias,
+    Expression,
+    bind,
+    evaluate_cpu,
+    output_name,
+)
 
 Schema = List[Tuple[str, T.DataType]]
 
@@ -26,6 +35,23 @@ class PlanNode:
 
     def output_schema(self) -> Schema:
         raise NotImplementedError
+
+    def execute_cpu(self) -> Iterator[HostTable]:
+        """The node's output batches on the CPU route."""
+        raise NotImplementedError(f"{self.name}.execute_cpu")
+
+    def collect_cpu(self) -> HostTable:
+        batches = list(self.execute_cpu())
+        if not batches:
+            from spark_rapids_tpu_torch.columnar.table import (
+                empty_host_table,
+            )
+            return empty_host_table(self.output_schema())
+        from spark_rapids_tpu_torch.columnar.table import concat_host
+        return concat_host(batches)
+
+    def describe(self) -> str:
+        return self.name
 
     def estimate_bytes(self) -> Optional[int]:
         """Rough output-size upper bound for physical planning (broadcast
@@ -60,6 +86,17 @@ class LocalScan(PlanNode):
             return schema
         return [schema[i] for i in self.columns]
 
+    def execute_cpu(self):
+        for b in self.batches:
+            if self.columns is None:
+                yield b
+            else:
+                yield HostTable([b.names[i] for i in self.columns],
+                                [b.columns[i] for i in self.columns])
+
+    def describe(self):
+        return f"LocalScan[{len(self.batches)} batches]"
+
     def estimate_bytes(self):
         if self.columns is None:
             return sum(b.nbytes() for b in self.batches)
@@ -89,6 +126,19 @@ class RangeNode(PlanNode):
     def estimate_bytes(self):
         return 9 * self.num_rows()
 
+    def execute_cpu(self):
+        total = self.num_rows()
+        pos = 0
+        while pos < total:
+            cnt = min(self.batch_rows, total - pos)
+            vals = self.start + (pos + np.arange(cnt, dtype=np.int64)) \
+                * self.step
+            yield HostTable([self.col_name], [HostColumn(T.LONG, vals)])
+            pos += cnt
+
+    def describe(self):
+        return f"Range({self.start}, {self.end}, {self.step})"
+
 
 class Project(PlanNode):
     def __init__(self, child: PlanNode, exprs: Sequence[Expression]):
@@ -103,6 +153,13 @@ class Project(PlanNode):
 
     def output_schema(self):
         return [(n, e.data_type) for n, e in zip(self.names, self.exprs)]
+
+    def execute_cpu(self):
+        for batch in self.child.execute_cpu():
+            yield evaluate_cpu(self.exprs, batch, self.names)
+
+    def describe(self):
+        return f"Project{self.names}"
 
     def estimate_bytes(self):
         # projections can WIDEN rows: scale the child's estimate by the
@@ -150,6 +207,56 @@ class Generate(PlanNode):
         out.append((self.out_names[i], self.gen_child.data_type.element_type))
         return out
 
+    def execute_cpu(self):
+        from spark_rapids_tpu_torch.columnar.nested import fixed_np_dtype
+        e_dt = self.gen_child.data_type.element_type
+        e_np = fixed_np_dtype(e_dt) or object
+        for full in self.children[0].execute_cpu():
+            arr = self.gen_child.eval_cpu(full)
+            rows = arr.data
+            rows_idx, poss, vals, vvalid, pvalid = [], [], [], [], []
+            # iterate the FULL batch: the pruned pass-through table may
+            # have no columns (explode with nothing else selected)
+            for i in range(full.num_rows):
+                if arr.validity[i] and len(rows[i]):
+                    for k, v in enumerate(rows[i]):
+                        rows_idx.append(i)
+                        poss.append(k)
+                        vals.append(v if v is not None or e_np is object
+                                    else 0)
+                        vvalid.append(v is not None)
+                        pvalid.append(True)
+                elif self.outer:
+                    rows_idx.append(i)
+                    poss.append(0)
+                    vals.append(None if e_np is object else 0)
+                    vvalid.append(False)
+                    pvalid.append(False)  # pos is null on outer null rows
+            idx = np.asarray(rows_idx, dtype=np.int64)
+            names = list(self.required)
+            cols = [full.columns[full.names.index(n)].take(idx)
+                    for n in self.required]
+            i = 0
+            if self.pos:
+                cols.append(HostColumn(T.INT, np.asarray(poss, np.int32),
+                                       np.asarray(pvalid, dtype=np.bool_)))
+                names.append(self.out_names[i])
+                i += 1
+            data = np.empty(len(vals), dtype=object) if e_np is object \
+                else np.asarray(vals, dtype=e_np)
+            if e_np is object:
+                for j, v in enumerate(vals):
+                    data[j] = v
+            cols.append(HostColumn(e_dt, data,
+                                   np.asarray(vvalid, dtype=np.bool_)))
+            names.append(self.out_names[i])
+            yield HostTable(names, cols)
+
+    def describe(self):
+        kind = ("posexplode" if self.pos else "explode") + \
+            ("_outer" if self.outer else "")
+        return f"Generate[{kind}({self.gen_child!r})]"
+
 
 class Filter(PlanNode):
     def __init__(self, child: PlanNode, condition: Expression):
@@ -168,6 +275,15 @@ class Filter(PlanNode):
 
     def estimate_bytes(self):
         return self.children[0].estimate_bytes()
+
+    def execute_cpu(self):
+        for batch in self.children[0].execute_cpu():
+            pred = self.condition.eval_cpu(batch)
+            idx = np.nonzero(pred.validity & pred.data.astype(np.bool_))[0]
+            yield HostTable(batch.names, [c.take(idx) for c in batch.columns])
+
+    def describe(self):
+        return f"Filter[{self.condition!r}]"
 
 
 class Aggregate(PlanNode):
@@ -198,6 +314,15 @@ class Aggregate(PlanNode):
         out += [(n, fn.data_type) for n, fn in self.agg_specs]
         return out
 
+    def execute_cpu(self):
+        from spark_rapids_tpu_torch.plan.cpu_agg import aggregate_cpu
+        table = self.children[0].collect_cpu()
+        yield aggregate_cpu(table, self.grouping, self.agg_specs)
+
+    def describe(self):
+        return (f"Aggregate[keys={self.grouping_names}, "
+                f"aggs={[n for n, _ in self.agg_specs]}]")
+
 
 @dataclass(eq=False)
 class SortOrder:
@@ -207,6 +332,30 @@ class SortOrder:
 
     def resolved_nulls_first(self) -> bool:
         return self.ascending if self.nulls_first is None else self.nulls_first
+
+
+def _stable_sort_indices(cols: List[HostColumn], orders: List[SortOrder],
+                         n: int) -> np.ndarray:
+    """Multi-key stable sort: keys least-significant first, each reduced
+    to a dense integer rank (strings too, and a descending order stays
+    stable), with nulls ranked before or after every value per the
+    order's nulls_first."""
+    idx = np.arange(n)
+    for col, order in reversed(list(zip(cols, orders))):
+        if isinstance(col.dtype, T.StringType):
+            vals = np.where(col.validity, col.data, "")
+        else:
+            vals = col.data
+        sub_vals = vals[idx]
+        sub_valid = col.validity[idx]
+        uniq = np.unique(sub_vals)
+        rank = np.searchsorted(uniq, sub_vals).astype(np.int64)
+        if not order.ascending:
+            rank = len(uniq) - 1 - rank
+        null_rank = -1 if order.resolved_nulls_first() else len(uniq)
+        rank = np.where(sub_valid, rank, null_rank)
+        idx = idx[np.argsort(rank, kind="stable")]
+    return idx
 
 
 class Sort(PlanNode):
@@ -225,6 +374,15 @@ class Sort(PlanNode):
     def output_schema(self):
         return self.children[0].output_schema()
 
+    def execute_cpu(self):
+        table = self.children[0].collect_cpu()
+        keys = [o.expr.eval_cpu(table) for o in self.orders]
+        idx = _stable_sort_indices(keys, self.orders, table.num_rows)
+        yield HostTable(table.names, [c.take(idx) for c in table.columns])
+
+    def describe(self):
+        return f"Sort[{len(self.orders)} keys]"
+
 
 class Limit(PlanNode):
     """LIMIT n without an ordering: the reference's CollectLimit (the
@@ -240,6 +398,18 @@ class Limit(PlanNode):
 
     def estimate_bytes(self):
         return self.children[0].estimate_bytes()
+
+    def execute_cpu(self):
+        remaining = self.limit
+        for batch in self.children[0].execute_cpu():
+            if remaining <= 0:
+                return
+            take = min(batch.num_rows, remaining)
+            yield batch if take == batch.num_rows else batch.slice(0, take)
+            remaining -= take
+
+    def describe(self):
+        return f"Limit[{self.limit}]"
 
 
 class Union(PlanNode):
@@ -259,6 +429,12 @@ class Union(PlanNode):
     def estimate_bytes(self):
         ests = [c.estimate_bytes() for c in self.children]
         return None if any(e is None for e in ests) else sum(ests)
+
+    def execute_cpu(self):
+        names = [n for n, _ in self.output_schema()]
+        for c in self.children:
+            for b in c.execute_cpu():
+                yield HostTable(names, b.columns)
 
 
 class Expand(PlanNode):
@@ -280,6 +456,11 @@ class Expand(PlanNode):
         return [(n, e.data_type)
                 for n, e in zip(self.names, self.projections[0])]
 
+    def execute_cpu(self):
+        for batch in self.children[0].execute_cpu():
+            for proj in self.projections:
+                yield evaluate_cpu(proj, batch, self.names)
+
 
 class Sample(PlanNode):
     """Bernoulli sample without replacement: each batch's rows kept where
@@ -297,6 +478,15 @@ class Sample(PlanNode):
     def estimate_bytes(self):
         return self.children[0].estimate_bytes()
 
+    def execute_cpu(self):
+        rng = np.random.default_rng(self.seed)
+        for batch in self.children[0].execute_cpu():
+            idx = np.nonzero(rng.random(batch.num_rows) < self.fraction)[0]
+            yield HostTable(batch.names, [c.take(idx) for c in batch.columns])
+
+    def describe(self):
+        return f"Sample[fraction={self.fraction}, seed={self.seed}]"
+
 
 class CachedRelation(PlanNode):
     """``df.cache()``: the child runs once, through the session, when a
@@ -312,12 +502,18 @@ class CachedRelation(PlanNode):
 
     def materialize(self) -> HostTable:
         if self._table is None:
-            if self._session is None:
-                raise ValueError("a cached DataFrame runs through a "
-                                 "session: the port has no CPU execution "
-                                 "of plans")
-            self._table = self._session.execute(self.children[0])
+            if self._session is not None:
+                self._table = self._session.execute(self.children[0])
+            else:
+                self._table = self.children[0].collect_cpu()
         return self._table
+
+    def execute_cpu(self):
+        yield self.materialize()
+
+    def describe(self):
+        state = "materialized" if self._table is not None else "lazy"
+        return f"CachedRelation[{state}]"
 
     def output_schema(self):
         return self.children[0].output_schema()
@@ -374,6 +570,19 @@ class Join(PlanNode):
             return ls
         return ls + rs
 
+    def execute_cpu(self):
+        from spark_rapids_tpu_torch.plan.cpu_join import join_cpu
+        left = self.children[0].collect_cpu()
+        right = self.children[1].collect_cpu()
+        out = join_cpu(left, right, self.join_type, self.left_keys,
+                       self.right_keys, self.condition)
+        # the output names are the plan's (a join on a column name keeps
+        # both key columns)
+        yield HostTable([n for n, _ in self.output_schema()], out.columns)
+
+    def describe(self):
+        return f"Join[{self.join_type}]"
+
 
 class TakeOrderedAndProject(PlanNode):
     """ORDER BY ... LIMIT n: per-batch top-k (the reference's optional
@@ -390,6 +599,16 @@ class TakeOrderedAndProject(PlanNode):
     def output_schema(self):
         return self.children[0].output_schema()
 
+    def execute_cpu(self):
+        table = self.children[0].collect_cpu()
+        keys = [o.expr.eval_cpu(table) for o in self.orders]
+        take = _stable_sort_indices(keys, self.orders,
+                                    table.num_rows)[:self.limit]
+        yield HostTable(table.names, [c.take(take) for c in table.columns])
+
+    def describe(self):
+        return f"TakeOrderedAndProject[limit={self.limit}]"
+
 
 class WindowNode(PlanNode):
     """Appends window-function columns (``[(name, WindowExpression)]``,
@@ -403,6 +622,18 @@ class WindowNode(PlanNode):
     def output_schema(self):
         return (self.children[0].output_schema()
                 + [(n, w.data_type) for n, w in self.window_cols])
+
+    def execute_cpu(self):
+        from spark_rapids_tpu_torch.ops.window import eval_window_cpu
+        table = self.children[0].collect_cpu()
+        names, cols = list(table.names), list(table.columns)
+        for name, w in self.window_cols:
+            cols.append(eval_window_cpu(table, w))
+            names.append(name)
+        yield HostTable(names, cols)
+
+    def describe(self):
+        return f"Window[{[n for n, _ in self.window_cols]}]"
 
 
 class WindowGroupLimit(PlanNode):
@@ -426,6 +657,13 @@ class WindowGroupLimit(PlanNode):
     def estimate_bytes(self):
         return self.children[0].estimate_bytes()
 
+    def execute_cpu(self):
+        # a pure optimization: the exact filter above stays
+        yield from self.children[0].execute_cpu()
+
+    def describe(self):
+        return f"WindowGroupLimit[{self.rank_kind} <= {self.limit}]"
+
 
 class Exchange(PlanNode):
     """Repartition (``hash`` on keys, ``roundrobin``, ``range`` or
@@ -444,6 +682,13 @@ class Exchange(PlanNode):
 
     def estimate_bytes(self):
         return self.children[0].estimate_bytes()
+
+    def execute_cpu(self):
+        # one process: rows pass through (the device splits them)
+        yield from self.children[0].execute_cpu()
+
+    def describe(self):
+        return f"Exchange[{self.partitioning}, n={self.num_partitions}]"
 
 
 class WriteFiles(PlanNode):
@@ -510,6 +755,14 @@ class WriteFiles(PlanNode):
     def run(self, session) -> HostTable:
         """Run the child through ``session``, then the committed write;
         returns the stats row."""
+        return self._write(lambda: session.execute(self.children[0]))
+
+    def execute_cpu(self):
+        yield self._write(self.children[0].collect_cpu)
+
+    def _write(self, produce) -> HostTable:
+        """The committed write of ``produce()``'s table, or the recorded
+        stats when this node's job already committed."""
         from spark_rapids_tpu_torch.io.committer import (
             WriteJob,
             read_manifest,
@@ -520,7 +773,7 @@ class WriteFiles(PlanNode):
             return self._stats_row(manifest["numFiles"],
                                    manifest["numRows"],
                                    manifest["numBytes"])
-        table = session.execute(self.children[0])
+        table = produce()
         job = WriteJob(self.path, job_id=self.job_id, attempt=self._attempt)
         self._attempt += 1
         try:
@@ -535,3 +788,8 @@ class WriteFiles(PlanNode):
             raise
         return self._stats_row(len(final_files), table.num_rows,
                                manifest["numBytes"])
+
+    def describe(self):
+        part = (f", partitionBy={self.partition_by}"
+                if self.partition_by else "")
+        return f"WriteFiles[{self.fmt} -> {self.path}{part}]"

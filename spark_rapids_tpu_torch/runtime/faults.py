@@ -13,7 +13,8 @@ per-operator circuit breaker and the exec fault boundaries.
 * ``CIRCUIT_BREAKER``: per-operator non-OOM failure counts. Where the
   reference demotes an operator that failed
   ``spark.rapids.sql.runtimeFallback.maxFailures`` times to its CPU path,
-  the port has no CPU path (ROADMAP item 9c): a tripped operator raises
+  the port does not demote yet (the CPU route exists; the demotion onto
+  it is ROADMAP Queue 1's [9c-rungs]): a tripped operator raises
   :class:`KernelCrashError` naming the breaker, at the failure and at
   every later conversion, until :meth:`CircuitBreaker.reset`.
 * :func:`install_fault_boundaries`: the ``exec.execute`` point and op
@@ -352,9 +353,9 @@ def backoff_retry(fn, *, max_retries: int, wait_s: float,
 
 # -- the per-operator circuit breaker ----------------------------------------
 
-#: the ROADMAP item that brings the CPU route back (named in every raise of
-#: a rung the reference would take onto its CPU path)
-CPU_ROUTE_ITEM = "ROADMAP item 9c"
+#: the ROADMAP item that brings the run-time demotions onto the CPU route
+#: (named in every raise of a rung the reference would take onto it)
+CPU_ROUTE_ITEM = "ROADMAP item [9c-rungs]"
 
 
 class CircuitBreaker:
@@ -362,8 +363,9 @@ class CircuitBreaker:
     like the speculation blocklist (a kernel that crashes the shared
     device is broken for every session). The failure that reaches
     ``max_failures`` trips the operator and records the reason. The
-    reference then demotes the operator to its CPU path; the port has
-    none, so the session raises the failure with that reason, and
+    reference then demotes the operator to its CPU path; the port does
+    not demote at run time yet, so the session raises the failure with
+    that reason, and
     :meth:`check` raises it again at every later conversion of the
     operator until :meth:`reset`."""
 

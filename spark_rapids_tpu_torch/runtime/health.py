@@ -13,8 +13,8 @@ single card needs).
   process latches: every later execute raises DeviceLostError naming the
   latch and the crash report. CUDA cannot re-create a context in the
   process after a sticky error, so there is no in-process backend
-  re-initialisation; the reference latches CPU-only mode instead, and the
-  port has no CPU route (ROADMAP item 9c).
+  re-initialisation; the reference latches CPU-only mode instead, which
+  the port does not yet (ROADMAP item [9c-rungs]).
 * **Memory ladder.** A FatalDeviceOOM that escaped the retry framework
   walks one rung per escalation: ``retry`` (evict the device caches, spill
   the whole device tier, replay at the same shape), then ``chunk`` (replay

@@ -9,8 +9,10 @@ included, and completes the asynchronous result fetch
 (``spark.rapids.sql.asyncResultFetch``): the root's download is enqueued
 into pinned staging buffers under the semaphore, the semaphore
 releases, and :meth:`PlacementLayer.resolve_pending` waits for the
-copies. The port has no DeviceToHost exec: its root download is
-:func:`_drain`, and only it is armed. The reference's mesh realization
+copies. The root's download is :func:`_drain`, and only it is armed: a
+mid-plan DeviceToHost transition of the CPU route (execs/base.py)
+downloads synchronously, and a root on the CPU route
+(``CpuRootExec``) is collected on the host. The reference's mesh realization
 is not ported (item 11)."""
 
 from __future__ import annotations
@@ -36,7 +38,7 @@ MAX_ATTEMPTS = 8
 def uses_device(executable) -> bool:
     """Does a converted plan contain a device exec?"""
     from spark_rapids_tpu_torch.execs.base import TpuExec
-    if isinstance(executable, TpuExec):
+    if isinstance(executable, TpuExec) and executable.runs_on_device:
         return True
     return any(uses_device(c) for c in getattr(executable, "children", ()))
 
@@ -152,6 +154,9 @@ def _drain(root, async_fetch: bool = False):
         BufferCatalog,
         SpillableBatch,
     )
+    from spark_rapids_tpu_torch.execs.base import CpuRootExec
+    if isinstance(root, CpuRootExec):
+        return root.collect()
     catalog = BufferCatalog.get()
     spills = []
     try:

@@ -63,7 +63,8 @@ class _TLQueryState:
 
     __slots__ = ("exec_depth", "next_tag", "next_sql", "phases",
                  "executable", "dispatches", "event_record", "event_path",
-                 "exec_cache_token", "exec_cache_hit", "compile_ms")
+                 "exec_cache_token", "exec_cache_hit", "compile_ms",
+                 "meta")
 
     def __init__(self):
         for name in self.__slots__:
@@ -119,6 +120,10 @@ class TorchSession:
         "compile_ms", "milliseconds the last query spent building kernel "
         "libraries with nvcc (dispatch.py)")
     _last_phases = _tl_mirrored("phases", "phase times of the last query")
+    last_meta = _tl_mirrored(
+        "meta", "the overrides' tagged plan of the last query (None when "
+        "spark.rapids.sql.enabled is false): its nodes' reasons to run on "
+        "the CPU route")
     _last_executable = _tl_mirrored(
         "executable", "executed tree of the last query")
 
@@ -426,7 +431,8 @@ class TorchSession:
             split_retries=_wdelta("splitRetries", "memory"),
             spill_bytes=_wdelta("spillBytes", "memory"),
             unspills=_wdelta("unspills", "memory"),
-            budget_peak=int(MEMORY.peak_bytes()))
+            budget_peak=int(MEMORY.peak_bytes()),
+            fallbacks=E.collect_fallbacks(q.meta))
 
     def _write_event_record(self, record: dict) -> str:
         """THE event-log append path: the per-session writer is made
@@ -475,18 +481,19 @@ class TorchSession:
             pass
 
     def explain(self, plan) -> str:
-        """The converted exec tree of ``plan`` (a PlanNode or DataFrame),
-        one exec a line, headed by the quarantine's verdict on its
-        template when strikes were recorded against it."""
+        """The tagged plan of ``plan`` (a PlanNode or DataFrame), one node
+        a line: ``*`` on the device, ``!`` on the CPU route with the
+        reasons (every node in ``spark.rapids.sql.explain=ALL``, else the
+        root and the nodes with reasons in full), headed by the
+        quarantine's verdict on its template when strikes were recorded
+        against it."""
         from spark_rapids_tpu_torch.overrides.input_file import (
             rewrite_input_file_exprs,
         )
-        from spark_rapids_tpu_torch.overrides.rules import convert
-        from spark_rapids_tpu_torch.runtime.crash_handler import tree_string
+        from spark_rapids_tpu_torch.overrides.rules import explain_plan
         from spark_rapids_tpu_torch.runtime.health import QUARANTINE
         plan = getattr(plan, "plan", plan)
-        out = tree_string(convert(rewrite_input_file_exprs(plan), self.conf,
-                                  self.device))
+        out = explain_plan(rewrite_input_file_exprs(plan), self.conf)
         if QUARANTINE.snapshot()["strikes"]:
             from spark_rapids_tpu_torch.plan.fingerprint import (
                 template_fingerprint,
@@ -502,6 +509,11 @@ class TorchSession:
                        "device kill strike(s) recorded against this "
                        "template\n" + out)
         return out
+
+    def execute_cpu_only(self, plan) -> HostTable:
+        """Run ``plan`` (a PlanNode or DataFrame) wholly on the CPU route,
+        outside the query envelope (the reference's CPU oracle)."""
+        return getattr(plan, "plan", plan).collect_cpu()
 
     def _execute_with_recovery(self, plan: P.PlanNode) -> HostTable:
         """Plan and drain ``plan``, each attempt afresh, under the port of
@@ -680,10 +692,14 @@ class TorchSession:
             TRACER,
             install_observation,
         )
+        from spark_rapids_tpu_torch.execs.base import CpuRootExec
         from spark_rapids_tpu_torch.overrides.input_file import (
             rewrite_input_file_exprs,
         )
-        from spark_rapids_tpu_torch.overrides.rules import convert
+        from spark_rapids_tpu_torch.overrides.rules import (
+            convert_meta,
+            wrap_plan,
+        )
         from spark_rapids_tpu_torch.runtime.faults import (
             install_fault_boundaries,
         )
@@ -708,13 +724,26 @@ class TorchSession:
             # a nested execute must not clobber the outer query's flag
             self.last_executable_cache_hit = hit
         if hit:
-            root = tok.executable
+            root, meta = tok.executable, tok.meta
         else:
-            root = convert(plan, self.conf, self.device)
+            if self.conf.sql_enabled:
+                # the tags choose each node's route (overrides/rules.py)
+                meta = wrap_plan(plan, self.conf)
+                root = convert_meta(meta, self.device)
+            else:
+                # spark.rapids.sql.enabled=false: the whole plan on the
+                # CPU route, untagged (the reference's CPU oracle)
+                meta, root = None, CpuRootExec(plan)
             # a cached tree keeps its ids and dumpers (the lore conf folds
             # into its fingerprint): renumbering would shift ids past the
             # dumpers, and install_dumpers is not idempotent
             lore.install_dumpers(root, self.conf)
+        if top:
+            self.last_meta = meta
+        if meta is not None and self.conf.explain_mode in ("NOT_ON_GPU",
+                                                           "ALL"):
+            print(meta.explain(
+                only_fallback=self.conf.explain_mode == "NOT_ON_GPU"))
         set_metrics_level(self.conf.get_entry(METRICS_LEVEL))
         # fault boundaries, then the observation boundaries over them
         # (idempotent per exec: a cached tree is not wrapped twice)
@@ -761,7 +790,7 @@ class TorchSession:
             TRACER.end(collect_span)
             phases["collectS"] = time.perf_counter() - t_phase
         if tok is not None and not hit:
-            tok.fill(root, None)
+            tok.fill(root, meta)
         return result
 
     def last_metrics(self) -> Dict[str, int]:
@@ -775,6 +804,17 @@ class TorchSession:
         ``last_timings()``'s."""
         out = {"speculationReplays": self._last_replays,
                "runtimeFaultReplays": self._last_fault_replays}
+        for k, v in self._exec_sums().items():
+            if _kind(k) != "timing":
+                out[k] = v
+        out.update({k: v for k, v in self._last_runtime.items()
+                    if _kind(k) != "timing"})
+        return out
+
+    def _exec_sums(self) -> Dict[str, float]:
+        """Every exec's metrics of the last query summed by name, less
+        the per-operator ones."""
+        out: Dict[str, float] = {}
         stack = [self._last_root] if self._last_root is not None else []
         while stack:
             e = stack.pop()
@@ -782,17 +822,18 @@ class TorchSession:
                 if k not in _PER_OPERATOR:
                     out[k] = out.get(k, 0) + v
             stack.extend(e.children)
-        out.update({k: v for k, v in self._last_runtime.items()
-                    if _kind(k) != "timing"})
         return out
 
     def last_timings(self) -> Dict[str, float]:
         """The most recent execute()'s runtime timings in seconds
-        (``acquireWaitTime``, ``spillTime``) and the root's
+        (``acquireWaitTime``, ``spillTime``), the transitions' of the CPU
+        route (``h2dTime``, ``d2hTime``) and the root's
         ``resultFetchTime``: kept apart from ``last_metrics``, whose
         counters repeat from run to run."""
         out = {k: v for k, v in self._last_runtime.items()
                if _kind(k) == "timing"}
+        out.update({k: v for k, v in self._exec_sums().items()
+                    if _kind(k) == "timing"})
         root = self._last_root
         if root is not None and "resultFetchTime" in root.metrics:
             out["resultFetchTime"] = root.metrics["resultFetchTime"]

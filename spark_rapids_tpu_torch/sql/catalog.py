@@ -32,6 +32,8 @@ class SessionCatalog:
         self._views: Dict[str, object] = {}
         #: name -> (fmt, paths, options), resolved through sources.py
         self._tables: Dict[str, tuple] = {}
+        #: name -> expression builder (register_function)
+        self._functions: Dict[str, object] = {}
 
     # -- temp views ----------------------------------------------------------
     def create_or_replace_temp_view(self, name: str, df) -> None:
@@ -81,14 +83,19 @@ class SessionCatalog:
     def list_tables(self) -> List[str]:
         return sorted(set(self._views) | set(self._tables))
 
-    # -- what is not ported --------------------------------------------------
+    # -- session functions ---------------------------------------------------
 
     def register_function(self, name: str, builder) -> None:
-        raise NotImplementedError(
-            f"session function {name!r}: session-scoped SQL functions "
-            "(registered Python UDFs, udf.py) are not ported to "
-            "spark_rapids_tpu_torch yet; functions.register_sql_function "
-            "registers a builder for every session")
+        """Make ``builder(*arg_exprs) -> Expression`` callable from SQL as
+        ``name(...)``: a UDF of ``functions.udf`` (compiled, or row-wise on
+        the CPU route) or an F-style composition."""
+        self._functions[name.lower()] = builder
+
+    def unregister_function(self, name: str) -> bool:
+        return self._functions.pop(name.lower(), None) is not None
+
+    def lookup_function(self, name: str):
+        return self._functions.get(name.lower())
 
     # -- resolution ----------------------------------------------------------
     def lookup_relation(self, name: str):

@@ -4,19 +4,17 @@
 Maps SQL call syntax onto the same expression classes the DataFrame API
 builds (``spark_rapids_tpu_torch.functions``), so a SQL query and its DSL
 form build identical expression trees. Lookup order in the analyzer:
-global registrations (``functions.register_sql_function``) -> this
-builtin table. Session-scoped functions (registered Python UDFs) and Hive
-UDFs are not ported: registering either raises NotImplementedError
-(``SessionCatalog.register_function``, ``register_hive_udf``).
+the session's functions (``SessionCatalog.register_function``: a
+compiled Python UDF, or a row-wise one the CPU route runs) -> global
+registrations (``functions.register_sql_function``) -> this builtin
+table. Hive UDFs are not ported: the reference's ``HiveSimpleUDF`` calls
+pandas for each batch (``hive_udf.py``), and pandas is not on the card's
+machine, so ``register_hive_udf`` raises naming pandas.
 
-The reference's builtin table holds more names than the port has
-expressions for: each of those (``UNPORTED``) raises NotImplementedError
-naming the function and the reference module its expression comes from.
-That is ``to_json`` (``ops/json_structs.py``, ROADMAP item [9], the next
-slice). ``map_entries`` resolves, and raises naming [9c] as it binds: the
-reference runs it on its CPU route. SQL has no lambda syntax in either
-package, so the higher-order functions are DSL-only. A name in neither
-table is an undefined function (SqlAnalysisError)."""
+Every builtin of the reference's table resolves (``UNPORTED`` is empty);
+``to_json`` and ``map_entries`` run on the CPU route. SQL has no lambda
+syntax in either package, so the higher-order functions are DSL-only. A
+name in no table is an undefined function (SqlAnalysisError)."""
 
 from __future__ import annotations
 
@@ -27,9 +25,7 @@ from spark_rapids_tpu_torch.sql.errors import SqlAnalysisError
 
 Builder = Callable[[List[Expression]], Expression]
 
-_UNPORTED_BY_MODULE = {
-    "ops/json_structs.py": ("to_json",),
-}
+_UNPORTED_BY_MODULE: Dict[str, tuple] = {}
 
 #: builtin function names of the reference whose expressions the port
 #: lacks -> the reference module that defines them
@@ -127,6 +123,8 @@ def _build_table() -> Dict[str, Builder]:
     reg("map_keys", _nested.MapKeys, 1)
     reg("map_values", _nested.MapValues, 1)
     reg("map_entries", _nested.MapEntries, 1)
+    from spark_rapids_tpu_torch.ops.json_structs import StructsToJson
+    reg("to_json", StructsToJson, 1)
 
     # math
     reg("sqrt", _math.Sqrt, 1)
@@ -270,12 +268,19 @@ def lookup(name: str, session=None) -> Optional[Callable]:
     lowered Expression args, or None when nothing matches. A builtin of
     the reference that the port lacks raises NotImplementedError."""
     key = name.lower()
-    # 1. global registrations (functions.register_sql_function)
+    # 1. the session's functions (registered Python UDFs)
+    cat = getattr(session, "_catalog", None) if session is not None \
+        else None
+    if cat is not None:
+        fn = cat.lookup_function(key)
+        if fn is not None:
+            return lambda args: fn(*args)
+    # 2. global registrations (functions.register_sql_function)
     from spark_rapids_tpu_torch import functions as F
     fn = F.registered_sql_function(key)
     if fn is not None:
         return lambda args: fn(*args)
-    # 2. builtins
+    # 3. builtins
     b = builtin(key)
     if b is not None:
         return b
@@ -289,7 +294,10 @@ def lookup(name: str, session=None) -> Optional[Callable]:
 def register_hive_udf(name: str, fn, return_type, generic: bool = False):
     """The reference's Hive UDF registration (``hive_udf.py``), which its
     lookup consults after the builtins: not ported, so no Hive UDF can
-    resolve and registering one raises."""
+    resolve and registering one raises. Its ``HiveSimpleUDF`` is a pandas
+    UDF (``HiveUDFExpr(PandasUDFExpr)``, pandas imported for each batch),
+    and pandas is not on the card's machine."""
     raise NotImplementedError(
-        f"Hive UDF {name!r}: Hive UDFs (spark_rapids_tpu/hive_udf.py) are "
-        "not ported to spark_rapids_tpu_torch yet")
+        f"Hive UDF {name!r}: Hive UDFs (spark_rapids_tpu/hive_udf.py) call "
+        "pandas for each batch, and pandas UDFs are not ported to "
+        "spark_rapids_tpu_torch")

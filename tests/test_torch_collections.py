@@ -5,14 +5,15 @@ route) on ``TorchSession(device="cpu")`` against the JAX package's
 counterpart of each test in ``tests/test_collections.py`` and of the
 collect_list / collect_set / percentile aggregates.
 
-Comparators: ``scale_test.tables_differ`` (bitwise, in order) where both
-packages emit one order (projections, generators over one batch, a
-sorted flat aggregate); ``tables_differ_unordered`` (the row multiset)
-for a group-by with array results (sorting them is the reference's CPU
-route, a raise in the port) and where a NaN rides in an array (``tables_differ``
-compares lists with ``!=``, and NaN != NaN; the multiset compares the
-rows' reprs, which keep NaN and -0.0). Where the reference falls back to its CPU route, the
-port raises NotImplementedError naming ROADMAP item [9c]: pinned."""
+Comparator: ``tests/torch_nested.py::nested_differ``, exact (offsets,
+validity and element bits, NaN payloads and -0.0 too): in order where
+both packages emit one order (projections, generators over one batch, a
+sorted flat aggregate), as a row multiset (each side sorted by its
+values' bits) for a group-by with array results. Where the reference
+runs on its CPU route, so does the port, equal to it and reported; where
+the reference's route fails (an array grouping key, FIRST over an
+array), the port's is held to Python and the reference's failure
+pinned."""
 
 import math
 
@@ -23,7 +24,13 @@ from scale_test import tables_differ, tables_differ_unordered
 from spark_rapids_tpu.session import TpuSession
 from spark_rapids_tpu_torch import types as TT
 from spark_rapids_tpu_torch.session import TorchSession
-from tests.torch_nested import as_reference, run_both, tables
+from tests.torch_nested import (
+    as_reference,
+    nested_differ,
+    run_both,
+    run_both_exact,
+    tables,
+)
 
 ARRAYS = [[1, 2, 3], None, [], [4, None, 6], [7], [None], [8, 9],
           [10, 2, 10], [3], None, [5, 5, 5, 5], [11, -2]]
@@ -40,10 +47,8 @@ def arr_tables():
                    ("a", TT.ArrayType(TT.INT), ARRAYS)])
 
 
-def _same(build, tabs, sessions, nb=1, cmp=tables_differ):
-    want, got = run_both(build, *tabs, *sessions, nb=nb)
-    assert cmp(want, got) is None, (cmp(want, got), got.columns[-1].data[:8])
-    return got
+def _same(build, tabs, sessions, nb=1, ordered=True):
+    return run_both_exact(build, *tabs, *sessions, nb=nb, ordered=ordered)
 
 
 def test_array_scan_roundtrip(arr_tables, sessions):
@@ -123,7 +128,7 @@ def test_sort_array_of_doubles_places_nan_as_spark(sessions):
     got = _same(lambda a, df: df.select(
         "id", a.F.sort_array(a.col("d")).alias("asc"),
         a.F.sort_array(a.col("d"), asc=False).alias("desc")),
-        tabs, sessions, cmp=tables_differ_unordered)
+        tabs, sessions, ordered=False)
     asc, desc = got.columns[1].data[0], got.columns[2].data[0]
     assert asc[0] is None and math.isnan(asc[-1]) and asc[1:4] == [
         -2.0, 0.0, 1.5]
@@ -139,7 +144,7 @@ def test_array_min_max_nan_rule(sessions):
     got = _same(lambda a, df: df.select(
         "id", a.F.array_min(a.col("d")).alias("mn"),
         a.F.array_max(a.col("d")).alias("mx")), tabs, sessions,
-        cmp=tables_differ_unordered)
+        ordered=False)
     mn = got.columns[1].data
     mx = got.columns[2].data
     assert mn[0] == -3.0 and math.isnan(mn[1]) and mn[2] == 2.0
@@ -160,31 +165,72 @@ def test_array_multi_batch(arr_tables, sessions):
           arr_tables, sessions, nb=3)
 
 
-def _raises_9c(build):
-    with pytest.raises(NotImplementedError, match=r"\[9c\]"):
-        build().collect_table()
+def _route(build, arr_tables, sessions, ordered=True):
+    """``build`` over both packages: the reference runs it on its CPU
+    route, and so does the port (tagged there, reported in the event
+    record's fallbacks), equal by ``nested_differ``."""
+    got = _same(build, arr_tables, sessions, ordered=ordered)
+    fallbacks = sessions[1].last_meta
+    from spark_rapids_tpu_torch.obs.events import collect_fallbacks
+    assert collect_fallbacks(fallbacks), "nothing ran on the CPU route"
+    return got
 
 
 def test_array_through_generator_falls_back(arr_tables, sessions):
-    """The reference runs it on its CPU route; the port raises."""
-    from spark_rapids_tpu_torch import functions as F
-    from spark_rapids_tpu_torch.plan import from_host_table
-    _raises_9c(lambda: from_host_table(arr_tables[1], sessions[1]).select(
-        "a", F.explode("a").alias("e")))
+    """An array passing through a generator: the CPU route in both."""
+    _route(lambda a, df: df.select("a", a.F.explode("a").alias("e")),
+           arr_tables, sessions)
 
 
 def test_array_grouping_key_falls_back(arr_tables, sessions):
+    """An array grouping key runs on the port's CPU route; the
+    reference's CPU route fails on it (numpy cannot order its null rows'
+    0 against lists: TypeError), so the port is held to the groups
+    counted in Python, null rows one group."""
+    import collections as _collections
+
     from spark_rapids_tpu_torch import functions as F
+    from spark_rapids_tpu_torch.obs.events import collect_fallbacks
     from spark_rapids_tpu_torch.plan import from_host_table
-    _raises_9c(lambda: from_host_table(arr_tables[1], sessions[1])
-               .group_by("a").agg(F.count().alias("c")))
+    with pytest.raises(TypeError):
+        run_both(lambda a, df: df.group_by("a").agg(
+            a.F.count().alias("c")), *arr_tables, *sessions)
+    got = from_host_table(arr_tables[1], sessions[1]).group_by("a").agg(
+        F.count().alias("c")).collect_table()
+    assert collect_fallbacks(sessions[1].last_meta) == [
+        {"op": "Aggregate", "reasons": [
+            "array-typed grouping keys are not supported on GPU"]}]
+    want = _collections.Counter(
+        None if a is None else tuple(a) for a in ARRAYS)
+    rows = np.asarray(got.columns[0].data)
+    have = _collections.Counter()
+    for i in range(got.num_rows):
+        key = tuple(rows[i]) if got.columns[0].validity[i] else None
+        have[key] += int(got.columns[1].data[i])
+    assert have == want
 
 
 def test_first_over_array_input_falls_back(arr_tables, sessions):
+    """FIRST over an array input runs on the port's CPU route; the
+    reference's CPU route fails on it (its host aggregate writes the
+    lists into a numeric array: ValueError), so the port is held to each
+    group's first array in Python."""
     from spark_rapids_tpu_torch import functions as F
+    from spark_rapids_tpu_torch.obs.events import collect_fallbacks
     from spark_rapids_tpu_torch.plan import from_host_table
-    _raises_9c(lambda: from_host_table(arr_tables[1], sessions[1])
-               .group_by("id").agg(F.first("a").alias("f")))
+    with pytest.raises(ValueError):
+        run_both(lambda a, df: df.group_by("id").agg(
+            a.F.first("a").alias("f")), *arr_tables, *sessions)
+    got = from_host_table(arr_tables[1], sessions[1]).group_by("id").agg(
+        F.first("a").alias("f")).collect_table()
+    assert collect_fallbacks(sessions[1].last_meta) == [
+        {"op": "Aggregate", "reasons": [
+            "aggregate f over an array input is not supported on GPU"]}]
+    rows = np.asarray(got.columns[1].data)
+    have = {int(got.columns[0].data[i]):
+            (list(rows[i]) if got.columns[1].validity[i] else None)
+            for i in range(got.num_rows)}
+    assert have == dict(enumerate(ARRAYS))
 
 
 @pytest.mark.parametrize("op", ["filter", "sort", "join", "window",
@@ -192,21 +238,16 @@ def test_first_over_array_input_falls_back(arr_tables, sessions):
 def test_nested_column_into_a_flat_only_operator_raises(op, arr_tables,
                                                         sessions):
     """Nested columns into a filter, sort, join, window or exchange: the
-    reference's CPU route, the port's raise naming [9c]."""
-    from spark_rapids_tpu_torch import functions as F
-    from spark_rapids_tpu_torch.ops.expr import col, lit
-    from spark_rapids_tpu_torch.ops.window import Window
-    from spark_rapids_tpu_torch.plan import from_host_table
-    df = from_host_table(arr_tables[1], sessions[1])
+    CPU route in both packages, equal row for row."""
     builds = {
-        "filter": lambda: df.filter(col("id") > lit(2)),
-        "sort": lambda: df.sort("id"),
-        "join": lambda: df.join(df.select("id"), on="id"),
-        "window": lambda: df.with_windows(r=F.row_number().over(
-            Window.partition_by("id").order_by("id"))),
-        "exchange": lambda: df.repartition(4, "id"),
+        "filter": lambda a, df: df.filter(a.col("id") > a.lit(2)),
+        "sort": lambda a, df: df.sort("id"),
+        "join": lambda a, df: df.join(df.select("id"), on="id"),
+        "window": lambda a, df: df.with_windows(r=a.F.row_number().over(
+            a.W.partition_by("id").order_by("id"))),
+        "exchange": lambda a, df: df.repartition(4, "id"),
     }
-    _raises_9c(builds[op])
+    _route(builds[op], arr_tables, sessions, ordered=op != "join")
 
 
 # -- the sort-only aggregates ----------------------------------------------
@@ -234,7 +275,7 @@ def test_collect_list_set_and_percentile_group_by(agg_tables, sessions):
         a.F.collect_list(a.col("d")).alias("dl"),
         a.F.percentile(a.col("p"), 0.5).alias("med"),
         a.F.percentile(a.col("q"), 0.25).alias("q25")),
-        agg_tables, sessions, cmp=tables_differ_unordered)
+        agg_tables, sessions, ordered=False)
 
 
 def test_collect_unsorted_group_by_is_the_row_multiset(agg_tables,
@@ -242,7 +283,7 @@ def test_collect_unsorted_group_by_is_the_row_multiset(agg_tables,
     _same(lambda a, df: df.group_by("k").agg(
         a.F.collect_list(a.col("q")).alias("ql"),
         a.F.count().alias("n")), agg_tables, sessions,
-        cmp=tables_differ_unordered)
+        ordered=False)
 
 
 def test_global_collect_and_percentile(agg_tables, sessions):
@@ -258,7 +299,7 @@ def test_collect_after_a_filter(agg_tables, sessions):
     _same(lambda a, df: df.filter(a.col("p") > a.lit(500.0)).group_by("k")
           .agg(a.F.collect_list(a.col("q")).alias("ql"),
                a.F.percentile(a.col("p"), 1.0).alias("mx")),
-          agg_tables, sessions, cmp=tables_differ_unordered)
+          agg_tables, sessions, ordered=False)
 
 
 def test_collect_set_of_nan_and_signed_zeros(sessions):
@@ -271,7 +312,7 @@ def test_collect_set_of_nan_and_signed_zeros(sessions):
     got = _same(lambda a, df: df.group_by("k").agg(
         a.F.collect_set(a.col("v")).alias("s"),
         a.F.collect_list(a.col("v")).alias("l")), tabs, sessions,
-        cmp=tables_differ_unordered)
+        ordered=False)
     order = np.argsort(got.columns[0].data)
     s = got.columns[1].data[order]
     assert len(s[0]) == 3 and repr(s[0][0]) == "-0.0" and s[0][1] == 1.0 \

@@ -20,7 +20,14 @@ from scale_test import tables_differ, tables_differ_unordered
 from spark_rapids_tpu.session import TpuSession
 from spark_rapids_tpu_torch import types as TT
 from spark_rapids_tpu_torch.session import TorchSession
-from tests.torch_nested import PORT, as_reference, run_both, tables
+from tests.torch_nested import (
+    PORT,
+    as_reference,
+    nested_differ,
+    run_both,
+    run_both_exact,
+    tables,
+)
 
 ELEMENTS = {
     "bigint": (TT.LONG, lambda r: int(r.integers(-10**12, 10**12))),
@@ -55,10 +62,8 @@ def _arrays(kind, n=300, seed=0):
                    ("a", TT.ArrayType(dt), rows)])
 
 
-def _check(build, tabs, sessions, cmp=tables_differ, nb=1):
-    want, got = run_both(build, *tabs, *sessions, nb=nb)
-    assert cmp(want, got) is None, cmp(want, got)
-    return got
+def _check(build, tabs, sessions, ordered=True, nb=1):
+    return run_both_exact(build, *tabs, *sessions, nb=nb, ordered=ordered)
 
 
 GENS = ("explode", "posexplode", "explode_outer", "posexplode_outer")
@@ -132,7 +137,7 @@ def test_stack(sessions):
     tabs = _arrays("int")
     _check(lambda a, df: df.stack(2, a.col("id"), a.col("g"), a.col("g"),
                                   a.col("id"), names=["x", "y"]),
-           tabs, sessions, cmp=tables_differ_unordered)
+           tabs, sessions, ordered=False)
 
 
 def test_replicate_rows(sessions):
@@ -177,4 +182,4 @@ def test_sql_forms(name, sessions):
                 "struct(id, g) AS s2 FROM gen_t")
     want = sessions[0].sql(text).collect_table()
     got = as_reference(sessions[1].sql(text).collect_table())
-    assert tables_differ(want, got) is None, tables_differ(want, got)
+    assert nested_differ(want, got) is None, nested_differ(want, got)

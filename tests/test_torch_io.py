@@ -342,10 +342,17 @@ def test_other_formats_raise_naming_themselves(tmp_path, port):
                port.read.orc(*orc), port.read_format("orc", *orc)):
         assert tables_differ(_as_reference(df.collect_table()),
                              _as_reference(t)) is None
-    with pytest.raises(NotImplementedError, match="ParquetScanNode"):
-        paths = _write_sample(tmp_path, num_files=1, rows=10)
-        TorchSession({"spark.rapids.sql.exec.ParquetScanNode": "false"},
-                     device="cpu").read_parquet(*paths).collect()
+    # a disabled scan reads on the CPU route, reported with its reason
+    from spark_rapids_tpu_torch.obs.events import collect_fallbacks
+    paths = _write_sample(tmp_path, num_files=1, rows=10)
+    off = TorchSession({"spark.rapids.sql.exec.ParquetScanNode": "false"},
+                       device="cpu")
+    got = off.read_parquet(*paths).collect_table()
+    assert collect_fallbacks(off.last_meta) == [{
+        "op": "ParquetScanNode",
+        "reasons": ["exec ParquetScanNode is disabled by conf"]}]
+    assert tables_differ(_as_reference(got), _as_reference(
+        port.read_parquet(*paths).collect_table())) is None
 
 
 def test_reader_surface(tmp_path, port):

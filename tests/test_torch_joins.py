@@ -289,18 +289,26 @@ def test_outer_join_null_side_decimal128_and_string(how):
 
 
 def test_equi_join_with_residual_on_outer_refuses_with_the_reason():
-    """The reference falls back to its CPU for an outer, semi or anti join
-    with equi keys plus a residual condition; the port raises with the
-    reference's reason."""
+    """An outer, semi or anti join with equi keys plus a residual
+    condition: the reference runs it on its CPU route, and so does the
+    port, tagged with the reference's reason (in the event record's
+    fallbacks); the rows equal the reference's as a multiset
+    (``tables_differ_unordered``)."""
+    from spark_rapids_tpu_torch.obs.events import collect_fallbacks
     left, right = _join_inputs("dense_int", unique_build=True)
     for how in ("LEFT", "LEFT SEMI", "FULL"):
-        ts, _ = _sessions()
+        ts, js = _sessions()
         for name, arrays in (("a", left), ("b", right)):
             tfrom(host_table_from_arrays(*arrays), ts) \
                 .create_or_replace_temp_view(name)
-        df = ts.sql(f"SELECT a.k FROM a {how} JOIN b ON a.k = b.k "
-                    "AND lv > rv")
+            jfrom(_reference_table(*arrays), js) \
+                .create_or_replace_temp_view(name)
+        text = (f"SELECT a.k FROM a {how} JOIN b ON a.k = b.k "
+                "AND lv > rv")
+        got = ts.sql(text).collect_table()
         jt = how.lower().replace(" ", "")
-        with pytest.raises(NotImplementedError,
-                           match=f"non-equi condition on equi {jt} join"):
-            df.collect_table()
+        assert collect_fallbacks(ts.last_meta) == [{"op": "Join", "reasons": [
+            f"non-equi condition on equi {jt} join is not supported on "
+            "GPU"]}]
+        want = js.sql(text).collect_table()
+        assert tables_differ_unordered(want, _as_reference(got)) is None

@@ -29,7 +29,7 @@ from spark_rapids_tpu_torch.columnar.table import (
 from spark_rapids_tpu_torch.runtime import memory as tmem
 from spark_rapids_tpu_torch.runtime import spill as tspill
 from spark_rapids_tpu_torch.session import TorchSession
-from tests.torch_nested import as_reference, run_both, tables
+from tests.torch_nested import as_reference, nested_differ, run_both, tables
 
 CPU = torch.device("cpu")
 
@@ -70,7 +70,7 @@ def _fresh_catalogs(tmp_path):
 def test_round_trip_equals_the_reference_scan(nb):
     want, got = run_both(lambda a, df: df, *_table(3), TpuSession(),
                          TorchSession(device="cpu"), nb=nb)
-    assert tables_differ(want, got) is None, tables_differ(want, got)
+    assert nested_differ(want, got) is None, nested_differ(want, got)
 
 
 def test_host_form_is_flat_and_drops_null_rows_elements():
@@ -113,10 +113,18 @@ def test_host_slice_and_concat():
 
 
 def test_masked_nested_batch_raises_9c():
+    """A filter over nested columns runs on the CPU route (the reference's
+    too), equal to the reference's row for row (``nested_differ``), so
+    no masked batch of the device ever holds a nested column: compacting
+    one is an invariant's error."""
+    from spark_rapids_tpu_torch.errors import ColumnarProcessingError
+    want, got = run_both(lambda a, df: df.filter(a.col("id") > a.lit(3)),
+                         *_table(2), TpuSession(), TorchSession(device="cpu"))
+    assert nested_differ(want, got) is None, nested_differ(want, got)
     dt = upload_host_table(_table()[1], CPU)
     masked = DeviceTable(dt.names, dt.columns, 2, dt.capacity, CPU,
                          live=torch.arange(dt.capacity) < 2)
-    with pytest.raises(NotImplementedError, match=r"\[9c\]"):
+    with pytest.raises(ColumnarProcessingError, match="flat columns only"):
         masked.compacted()
 
 
@@ -185,8 +193,20 @@ def test_a_null_map_key_raises_at_the_download():
 
 
 def test_a_nested_layout_of_strings_raises_9c():
-    with pytest.raises(NotImplementedError, match=r"\[9c\]"):
-        tables([("a", TT.ArrayType(TT.STRING), [["x"]])])
+    """An array of strings has no device layout: its host column holds the
+    reference's object array, and a projection over it runs on the CPU
+    route, equal to the reference's (``nested_differ``) and reported."""
+    from spark_rapids_tpu_torch.obs.events import collect_fallbacks
+    rows = [["x", None, "yz"], None, [], ["a"]]
+    jt, tt = tables([("id", TT.INT, [0, 1, 2, 3]),
+                     ("a", TT.ArrayType(TT.STRING), rows)])
+    assert not isinstance(tt.columns[1].data, N.NestedData)
+    ts = TorchSession(device="cpu")
+    want, got = run_both(lambda a, df: df.select(
+        "id", "a", a.F.size("a").alias("n")), jt, tt, TpuSession(), ts)
+    assert nested_differ(want, got) is None, nested_differ(want, got)
+    assert [f["op"] for f in collect_fallbacks(ts.last_meta)] == [
+        "Project", "LocalScan"]
 
 
 def test_empty_results_keep_their_nested_types():

@@ -284,13 +284,13 @@ def test_unsupported_raise_naming_themselves(tmp_path):
     _raises(p, "BROTLI .*RFC 7932")
     # a list of fixed-width elements reads now (tests/
     # test_torch_parquet_nested.py); a list of strings has no device
-    # layout and raises naming ROADMAP item [9c]
+    # layout and raises naming ROADMAP item [9-ext]
     p = str(tmp_path / "list.parquet")
     pq.write_table(pa.table({"xs": pa.array([[1, 2], [3]])}), p)
     assert PF.read_table(p).columns[0].to_pylist() == [[1, 2], [3]]
     p = str(tmp_path / "strings.parquet")
     pq.write_table(pa.table({"xs": pa.array([["a"], ["b", "c"]])}), p)
-    _raises(p, r"'xs'.*non-fixed-width.*\[9c\]")
+    _raises(p, r"'xs'.*non-fixed-width.*\[9-ext\]")
     # a nanosecond timestamp with a sub-microsecond remainder raises, as
     # the reference's safe cast to micros does
     p = str(tmp_path / "nanos.parquet")

@@ -216,7 +216,7 @@ def test_a_bare_repeated_field(tmp_path):
 
 def test_a_list_of_structs_decodes_at_every_level_and_raises_9c(tmp_path):
     """A list of structs has no device layout: reading it raises naming
-    [9c]; its leaves' levels still decode to pyarrow's offsets, struct
+    [9-ext] (an extension the reference lacks); its leaves' levels still decode to pyarrow's offsets, struct
     validity and field values (null list, empty list, null struct, null
     field)."""
     rows = [[{"x": 1, "y": 2.0}], None, [], [None, {"x": None, "y": 3.5}],
@@ -226,7 +226,7 @@ def test_a_list_of_structs_decodes_at_every_level_and_raises_9c(tmp_path):
     p = str(tmp_path / "ls.parquet")
     pq.write_table(t, p)
     meta = PF.read_footer(p)
-    with pytest.raises(NotImplementedError, match=r"\[9c\]"):
+    with pytest.raises(NotImplementedError, match=r"\[9-ext\]"):
         PF.read_columns(p, meta, ["ls"])
     rg = meta.row_groups[0]
     with open(p, "rb") as f:
@@ -293,7 +293,7 @@ def test_a_nested_write_of_strings_raises_9c(tmp_path):
                      CN.StructData([(np.zeros(1, np.int64),
                                      np.ones(1, bool))]), np.ones(1, bool))
     col.dtype = TT.StructType([("x", TT.STRING)])
-    with pytest.raises(NotImplementedError, match=r"\[9c\]"):
+    with pytest.raises(NotImplementedError, match=r"\[9-ext\]"):
         PF.write_table(HostTable(["s"], [col]), str(tmp_path / "x.parquet"))
 
 

@@ -377,7 +377,8 @@ def test_conf_keys_and_unported_shapes(monkeypatch):
     """The slice's conf keys are accepted with the reference's names; an
     attempts value outside [1, 8] raises when read; an outer join with
     equi keys plus a residual condition and an unported operator refuse
-    by name; a sort past the out-of-core threshold merges sorted runs."""
+    by name (the outer join runs on the CPU route, reported); a sort past
+    the out-of-core threshold merges sorted runs."""
     from spark_rapids_tpu_torch import conf as C
     from spark_rapids_tpu_torch.ops.expr import col
     from spark_rapids_tpu_torch.plan import from_host_table
@@ -410,9 +411,13 @@ def test_conf_keys_and_unported_shapes(monkeypatch):
     df = from_host_table(t, sess)
     outer = df._wrap(P.Join(df.plan, df.plan, "left", [col("k")],
                             [col("k")], condition=col("v") > col("k")))
-    with pytest.raises(NotImplementedError,
-                       match="non-equi condition on equi left join"):
-        outer.collect_table()
+    # the reference's CPU route, reported with its reason: v > k never
+    # holds, so every left row keeps null right columns
+    from spark_rapids_tpu_torch.obs.events import collect_fallbacks
+    got = outer.collect_table()
+    assert collect_fallbacks(sess.last_meta) == [{"op": "Join", "reasons": [
+        "non-equi condition on equi left join is not supported on GPU"]}]
+    assert got.num_rows == 10 and not got.columns[2].validity.any()
     # three batches of 2,304 device bytes (128-row buckets), each past a
     # 256-byte threshold: the pre-sort coalesce passes them on one by one,
     # and the sort merges them out of core (it raised before the port had

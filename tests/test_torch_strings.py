@@ -165,16 +165,33 @@ def test_sql_like_rlike_and_concat_operator_match_the_reference():
 
 
 def test_what_the_reference_sends_to_its_cpu_route_raises():
-    df = tfrom(host_table_from_arrays(*_table()), TorchSession(device="cpu"))
-    with pytest.raises(NotImplementedError, match="Concat of 2 columns"):
-        df.select(TF.concat("s", "t").alias("x"))
-    with pytest.raises(NotImplementedError, match="non-literal parameter"):
-        df.select(TS.Substring(tcol("s"), TF.length("t"),
-                               tlit(2)).alias("x"))
-    with pytest.raises(NotImplementedError, match="transpilable"):
-        df.select(TF.rlike("s", "\\bword").alias("x"))
-    with pytest.raises(NotImplementedError, match="ConcatWs over more"):
-        df.select(TF.concat_ws("|", "s", "t").alias("x"))
+    """What the reference sends to its CPU route runs on the port's,
+    reported: a multi-column concat, a regex outside the transpilable
+    subset and a multi-column concat_ws equal the reference's
+    (``tables_differ``); a string function with a column parameter (the
+    reference's route reads a literal's value there and fails) equals
+    Python's per row. An implicit cast of a number to a string still
+    raises, as it binds."""
+    from spark_rapids_tpu_torch.obs.events import collect_fallbacks
+    got, ref = _select_both(lambda a: [
+        ("cc", a.F.concat("s", "t")),
+        ("rl", a.F.rlike("s", "\\bword")),
+        ("cw", a.F.concat_ws("|", "s", "t"))])
+    assert tables_differ(got, ref) is None
+    ts = TorchSession(device="cpu")
+    df = tfrom(host_table_from_arrays(*_table()), ts)
+    out = df.select(TS.Substring(tcol("s"), TF.length("t"),
+                                 tlit(2)).alias("x")).collect_table()
+    assert collect_fallbacks(ts.last_meta) == [{"op": "Project", "reasons": [
+        "expression Substring configuration is not supported on GPU"]}]
+    (s, vs), (t, vt) = _table()[2]
+    for i in range(len(s)):
+        if not (vs[i] and vt[i]):
+            assert not out.columns[0].validity[i]
+            continue
+        pos = len(t[i])
+        start = pos - 1 if pos > 0 else 0
+        assert out.columns[0].data[i] == s[i][max(start, 0):start + 2]
     with pytest.raises(NotImplementedError, match="implicit cast"):
         df.select(TF.upper(tlit(3)).alias("x"))
 

@@ -296,25 +296,38 @@ def test_ties_across_the_limit_keep_the_stable_order():
     ("range_offsets", "range frames"),
 ])
 def test_unported_windows_raise_naming_themselves(case, match):
-    """What the reference sends to its CPU route raises naming itself.
-    (A window without PARTITION BY, columns over different partition
-    keys, an explicit frame and a second input batch run:
-    ``test_torch_window_functions.py`` and ``test_torch_window_routes.py``
-    hold them against the reference.)"""
-    api = _apis()[1]
+    """A ranking window without ORDER BY and a lag with a string default
+    run on the CPU route in both packages, equal (``tables_differ``: the
+    route keeps the input order) and reported with the reference's
+    reason; what neither route runs raises naming itself (the
+    reference's CPU route ignores IGNORE NULLS and raises on a RANGE
+    frame with offsets). (A window without PARTITION BY, columns over
+    different partition keys, an explicit frame and a second input batch
+    run on the device: ``test_torch_window_functions.py`` and
+    ``test_torch_window_routes.py`` hold them against the reference.)"""
     arrays = _window_table(50)
+    if case in ("no_order", "string_default"):
+        def q(api, df):
+            if case == "no_order":
+                return df.with_windows(r=api.F.row_number().over(
+                    api.W.partition_by("pi")))
+            return df.with_windows(r=api.F.lag("os", 1, "none").over(
+                _spec(api, ["pi"], [("oi", True, None)])))
+        from spark_rapids_tpu_torch.obs.events import collect_fallbacks
+        got, ref, ts = _run_both(arrays, q)
+        assert tables_differ(got, ref) is None
+        (fb,) = collect_fallbacks(ts.last_meta)
+        assert fb["op"] == "WindowNode" and match in fb["reasons"][0]
+        return
+    api = _apis()[1]
     df = api.frm(api.as_table(arrays), api.session)
     w = _spec(api, ["pi"], [("oi", True, None)])
     fn = TF.row_number()
     with pytest.raises(NotImplementedError, match=match):
-        if case == "no_order":
-            w = TW.Window.partition_by("pi")
-        elif case == "not_a_window":
+        if case == "not_a_window":
             df.with_windows(x=tcol("oi"))
         elif case == "nth_value_ignore_nulls":
             fn = TW.NthValue(tcol("oi"), 2, ignore_nulls=True)
-        elif case == "string_default":
-            fn = TF.lag("os", 1, "none")
         elif case == "range_offsets":
             fn = TF.sum("oi")
             w = w.range_between(-1, 0)

@@ -287,30 +287,51 @@ def test_explicit_frame_on_a_ranking_function_is_ignored():
     ("first_window", None, "window function First"),
 ])
 def test_gates_raise_naming_themselves(case, conf, match):
-    """The reference's tag sends these to its CPU route; the port raises
-    NotImplementedError naming each: a frame bound past
-    rowsFrameMaxBound, a float frame wider than 512 rows with
-    variableFloatAgg off, a SUM over a decimal (the reference raises
-    IndexError on it: ``test_decimal_sum_window_raises_where_the_reference_fails``),
-    a DECIMAL128 input, and an aggregate the window has no route for."""
-    api = _apis(conf)[1]
-    names, types, arrays = _table(60)
-    df = api.frm(api.as_table((names, types, arrays)), api.session)
-    w = _spec(api, ["pi"], [("oi", True, None)])
-    if case == "rows_frame_max_bound":
-        e = TF.sum("vi").over(w.rows_between(-5, 0))
-    elif case == "variable_float_agg_off":
-        e = TF.avg("vd").over(w.rows_between(-300, 300))
-    elif case == "decimal_sum":
-        e = TF.sum("vm").over(w)
-    elif case == "decimal128_input":
-        e = TF.max(tcol("vm").cast("decimal(30,2)")).over(w)
+    """The reference's tag sends these to its CPU route. A frame bound past
+    rowsFrameMaxBound and a float frame wider than 512 rows with
+    variableFloatAgg off run on the port's CPU route too, equal to the
+    reference's (``tables_differ``) and reported with the gate's reason;
+    a SUM over a decimal (the reference raises IndexError on it:
+    ``test_decimal_sum_window_raises_where_the_reference_fails``), a
+    DECIMAL128 input and an aggregate the window has no route for raise
+    NotImplementedError naming each."""
+    def build(api, df):
+        w = _spec(api, ["pi"], [("oi", True, None)])
+        if case == "rows_frame_max_bound":
+            return df.with_windows(x=api.F.sum("vi").over(
+                w.rows_between(-5, 0)))
+        if case == "variable_float_agg_off":
+            return df.with_windows(x=api.F.avg("vd").over(
+                w.rows_between(-300, 300)))
+        if case == "decimal_sum":
+            return df.with_windows(x=api.F.sum("vm").over(w))
+        if case == "decimal128_input":
+            return df.with_windows(x=api.F.max(api.col("vm").cast(
+                "decimal(30,2)")).over(w))
+        return df.with_windows(x=api.F.first("vi").over(w))
+
+    if case in ("rows_frame_max_bound", "variable_float_agg_off"):
+        from spark_rapids_tpu_torch.obs.events import collect_fallbacks
+        japi, tapi = _apis(conf)
+        arrays = _table(60)
+        ref = build(japi, japi.frm(japi.as_table(arrays),
+                                   japi.session)).collect_table()
+        got = build(tapi, tapi.frm(tapi.as_table(arrays),
+                                   tapi.session)).collect_table()
+        assert tables_differ(_as_reference(got), ref) is None
+        (fb,) = collect_fallbacks(tapi.session.last_meta)
+        assert fb["op"] == "WindowNode" and any(
+            match in r for r in fb["reasons"])
     else:
-        e = TF.first("vi").over(w)
-    with pytest.raises(NotImplementedError, match=match):
-        df.with_windows(x=e).collect_table()
+        api = _apis(conf)[1]
+        df = api.frm(api.as_table(_table(60)), api.session)
+        with pytest.raises(NotImplementedError, match=match):
+            build(api, df).collect_table()
     if case == "variable_float_agg_off":
         # 512 rows sum offset by offset: no gate
+        api = _apis(conf)[1]
+        df = api.frm(api.as_table(_table(60)), api.session)
+        w = _spec(api, ["pi"], [("oi", True, None)])
         df.with_windows(x=TF.avg("vd").over(
             w.rows_between(-255, 256))).collect_table()
 
