@@ -8097,9 +8097,8 @@ ROUTE_BUDGET_S = 90.0
 
 #: rows of each cell's driving table (PERF.md section 4 lists the cuts):
 #: C1 groups the whole sf-10 lineitem; C2 casts every order's date; C3's
-#: row-wise UDF, C5's to_json and C6's whole-plan CPU route run their
-#: Python or numpy per row on the host, so they take a prefix
-C3_ORDERS = 500_000
+#: row-wise UDF reads every order; C5's to_json and C6's whole-plan CPU
+#: route would pass the phase's budget at full size, so they take a prefix
 C5_ORDERS = 100_000
 C6_LINEITEM = 500_000
 
@@ -8471,7 +8470,7 @@ def run_route(tables, q1_table, q3_sparse, seed: int) -> dict:
             fail("C3: a dict lookup compiled")
         except UdfCompileError as exc:
             log(f"  C3: the UDF compiler rejects the dict lookup ({exc})")
-        o3 = _take(orders, ("o_orderkey", "o_orderpriority"), C3_ORDERS)
+        o3 = _take(orders, ("o_orderkey", "o_orderpriority"))
         li3 = _take(li, ("l_orderkey", "l_quantity"))
         add(route_case(s, "C3 a row-wise Python UDF",
                        c3_build(s, li3, o3, rank_of),

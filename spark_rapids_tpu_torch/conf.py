@@ -417,10 +417,49 @@ FILECACHE_MAX_BYTES = _conf(
     "spark.rapids.filecache.maxBytes", 1 << 30,
     "LRU budget for the decoded-batch file cache.", int)
 
-#: the per-operator kill switches' key prefixes (the reference registers
-#: one key per rule; any operator name is taken here)
-_KILL_SWITCH_PREFIXES = ("spark.rapids.sql.exec.",
-                         "spark.rapids.sql.expression.")
+#: the per-operator kill switches' key prefixes by kind (the reference
+#: registers one key per rule)
+_KILL_SWITCH_PREFIXES = {"exec": "spark.rapids.sql.exec.",
+                         "expression": "spark.rapids.sql.expression."}
+
+#: the modules that define the plan nodes and expressions a kill switch
+#: may name (``io`` registers the file scans)
+_OP_MODULES = ("spark_rapids_tpu_torch.plan.nodes",
+               "spark_rapids_tpu_torch.io", "spark_rapids_tpu_torch.udf",
+               "spark_rapids_tpu_torch.execs.aggregate",
+               "spark_rapids_tpu_torch.sql.analyzer")
+
+
+def _op_names(kind: str) -> set:
+    """The operator names a kill switch of ``kind`` may name: the plan
+    nodes' class names (``exec``) or the expressions' (``expression``)."""
+    import importlib
+    import pkgutil
+
+    from spark_rapids_tpu_torch import ops
+    for mod in _OP_MODULES + tuple(
+            f"spark_rapids_tpu_torch.ops.{m.name}"
+            for m in pkgutil.iter_modules(ops.__path__)):
+        importlib.import_module(mod)
+    from spark_rapids_tpu_torch.ops.expr import Expression
+    from spark_rapids_tpu_torch.plan.nodes import PlanNode
+    names, todo = set(), [PlanNode if kind == "exec" else Expression]
+    while todo:
+        cls = todo.pop()
+        names.add(cls.__name__)
+        todo.extend(cls.__subclasses__())
+    return names
+
+
+def _unknown_kill_switches(keys) -> list:
+    """The kill-switch keys among ``keys`` that name no operator."""
+    out = []
+    for kind, prefix in _KILL_SWITCH_PREFIXES.items():
+        named = [k for k in keys if k.startswith(prefix)]
+        if named:
+            known = _op_names(kind)
+            out += [k for k in named if k[len(prefix):] not in known]
+    return out
 
 
 class RapidsConf:
@@ -428,8 +467,11 @@ class RapidsConf:
 
     def __init__(self, settings: Optional[Dict[str, Any]] = None):
         self._settings = dict(settings or {})
-        unknown = sorted(k for k in self._settings if k not in _REGISTRY
-                         and not k.startswith(_KILL_SWITCH_PREFIXES))
+        free = [k for k in self._settings if k not in _REGISTRY]
+        unknown = sorted(
+            [k for k in free
+             if not k.startswith(tuple(_KILL_SWITCH_PREFIXES.values()))]
+            + _unknown_kill_switches(free))
         if unknown:
             raise NotImplementedError(
                 f"conf keys not supported by the port: {unknown}")

@@ -111,36 +111,39 @@ _I64_MIN = -(1 << 63)
 def device_window_supported(w: WindowExpression,
                             variable_float_agg: bool = True,
                             rows_frame_max_bound: int = 1 << 16
-                            ) -> Tuple[bool, str]:
-    """(whether the window column runs, why not): the reference's test,
-    and a SUM over a decimal input, which the reference computes as a
-    double and cannot download (IndexError)."""
+                            ) -> Tuple[bool, str, bool]:
+    """(whether the window column runs on the device, why not, whether
+    the CPU route computes it instead): the reference's test, and a SUM
+    over a decimal input, which the reference computes as a double and
+    cannot download (IndexError). A column neither computes raises."""
     fn = w.function
     frame = w.spec.resolved_frame()
     if isinstance(fn, (RowNumber, Rank, DenseRank, PercentRank)):
         if not w.spec.orders:
-            return False, "ranking window function requires an ORDER BY"
-        return True, ""
+            return False, "ranking window function requires an ORDER BY", True
+        return True, "", False
     if isinstance(fn, NthValue):
         if fn.ignore_nulls:
-            return False, "nth_value IGNORE NULLS is not supported"
+            return False, "nth_value IGNORE NULLS is not supported", False
         if frame != ("range", None, 0):
             return False, ("nth_value supports only the default running "
-                           "frame")
-        return True, ""
+                           "frame"), False
+        return True, "", False
     if isinstance(fn, (Lag, Lead)):
         if fn.default is not None and isinstance(fn.data_type, T.StringType):
-            return False, "lag/lead string default value is not supported"
-        return True, ""
+            return (False, "lag/lead string default value is not supported",
+                    True)
+        return True, "", False
     if isinstance(fn, DEVICE_WINDOW_AGGS):
         if isinstance(fn, agg.Sum) and fn.child is not None and \
                 isinstance(fn.child.data_type, T.DecimalType):
             return False, ("a SUM window over a decimal input is not "
                            "supported (the reference sums it as a double "
-                           "and fails to download it)")
+                           "and fails to download it)"), False
         kind, lo, hi = frame
         if kind == "range" and not (lo is None and (hi in (0, None))):
-            return False, "only UNBOUNDED..CURRENT/UNBOUNDED range frames"
+            return (False, "only UNBOUNDED..CURRENT/UNBOUNDED range frames",
+                    False)
         if kind == "rows":
             # the sparse table's levels and the unrolled offsets grow with
             # the frame's FINITE endpoints
@@ -149,7 +152,7 @@ def device_window_supported(w: WindowExpression,
                     return False, (
                         f"rows frame bound beyond {rows_frame_max_bound} "
                         "is not supported (spark.rapids.sql.window."
-                        "rowsFrameMaxBound)")
+                        "rowsFrameMaxBound)"), True
             if (lo is not None and hi is not None
                     and (hi - lo + 1) > UNROLL_MAX_ROWS
                     and isinstance(fn, (agg.Sum, agg.Average))
@@ -157,9 +160,11 @@ def device_window_supported(w: WindowExpression,
                     and not variable_float_agg):
                 return False, ("wide float rows frame uses prefix-difference "
                                "sums (reduction-order variance); enable "
-                               "spark.rapids.sql.variableFloatAgg.enabled")
-        return True, ""
-    return False, f"window function {type(fn).__name__} is not supported"
+                               "spark.rapids.sql.variableFloatAgg.enabled"
+                               ), True
+        return True, "", False
+    return (False, f"window function {type(fn).__name__} is not supported",
+            False)
 
 
 # ---------------------------------------------------------------------------

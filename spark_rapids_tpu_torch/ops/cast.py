@@ -43,7 +43,6 @@ from spark_rapids_tpu_torch.ops.expr import (
     DevVal,
     Expression,
     NodePrep,
-    host_only,
 )
 
 _INT_BOUNDS = {
@@ -216,14 +215,12 @@ class Cast(Expression):
     def resolve(self, bound):
         src = bound[0].data_type
         check_cast(src, self._dtype)
-        out = Cast(bound[0], self._dtype)
-        if not cast_supported(src, self._dtype):
-            # the reference's device_supported: string casts, and
-            # decimal casts beyond its decimal64 tier, run on the CPU
-            # route
-            host_only(out, f"cast from {src.simple_string()} to "
-                      f"{self._dtype.simple_string()}")
-        return out
+        return Cast(bound[0], self._dtype)
+
+    @property
+    def device_supported(self):
+        # string casts run on the CPU route
+        return cast_supported(self.children[0].data_type, self._dtype)
 
     def prep(self, pctx, child_preps):
         if isinstance(self.children[0].data_type, T.NullType) and \

@@ -90,14 +90,6 @@ class EvalCtx:
         return next(self._prep_iter)  # type: ignore[arg-type]
 
 
-def host_only(expr: "Expression", why: str) -> "Expression":
-    """Mark ``expr`` as a form the device does not evaluate (``why`` says
-    what, for the reader); the plan's tag sends its operator to the CPU
-    route."""
-    expr._host_only = why
-    return expr
-
-
 def _not_ported(what: str):
     raise NotImplementedError(f"{what} is not ported to "
                               "spark_rapids_tpu_torch yet")
@@ -152,8 +144,10 @@ class Expression:
     def device_supported(self) -> bool:
         """False for a form only the CPU route evaluates (the reference's
         ``device_supported``): overrides/rules.py tags its operator onto
-        the route with the reason "configuration is not supported"."""
-        return "_host_only" not in vars(self)
+        the route with the reason "configuration is not supported".
+        Computed from the bound expression's own structure, so a rebuild
+        by ``with_children`` keeps it."""
+        return True
 
     # --- device path -------------------------------------------------------
     def prep(self, pctx: PrepCtx, child_preps: Sequence[NodePrep]) -> NodePrep:

@@ -21,7 +21,7 @@ from spark_rapids_tpu_torch.errors import ColumnarProcessingError
 import numpy as np
 
 from spark_rapids_tpu_torch.columnar import HostColumn
-from spark_rapids_tpu_torch.ops.expr import Expression, Literal, host_only
+from spark_rapids_tpu_torch.ops.expr import Expression, Literal
 from spark_rapids_tpu_torch.ops.strings import DictStringToString
 
 _STEP_RE = re.compile(
@@ -112,11 +112,9 @@ class GetJsonObject(DictStringToString):
     def with_children(self, children):
         return GetJsonObject(children[0], children[1])
 
-    def resolve(self, bound):
-        out = super().resolve(bound)
-        if not isinstance(out.children[1], Literal):
-            host_only(out, "get_json_object with a non-literal path")
-        return out
+    @property
+    def device_supported(self):
+        return isinstance(self.children[1], Literal)
 
     def transform(self, s: str) -> Optional[str]:
         if self._steps is None:

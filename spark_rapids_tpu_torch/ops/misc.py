@@ -36,7 +36,6 @@ from spark_rapids_tpu_torch.ops.expr import (
     Literal,
     NodePrep,
     PrepCtx,
-    host_only,
 )
 from spark_rapids_tpu_torch.ops.strings import (
     DictStringToString,
@@ -408,11 +407,13 @@ class ConcatWs(Expression):
         if any(not isinstance(c.data_type, T.StringType) for c in cols):
             raise NotImplementedError(
                 "ConcatWs over a non-string column is not ported")
-        if len(cols) > 1 or not isinstance(out.children[0], Literal):
-            # the reference's CPU route
-            host_only(out, "ConcatWs over more than one column or with a "
-                      "non-literal separator")
         return out
+
+    @property
+    def device_supported(self):
+        # more than one column or a non-literal separator: the CPU route
+        cols = [c for c in self.children[1:] if not isinstance(c, Literal)]
+        return len(cols) <= 1 and isinstance(self.children[0], Literal)
 
     def _joined(self, value) -> str:
         """The output with the column's value (None: the column null)."""

@@ -54,7 +54,6 @@ from spark_rapids_tpu_torch.ops.expr import (
     PrepCtx,
     _walk_eval,
     _walk_prep,
-    host_only,
 )
 
 
@@ -607,14 +606,13 @@ class _HigherOrder(Expression):
         outer_children = tuple(
             BoundReference(o, schema[o][1], name_hint=schema[o][0])
             for o in outer_sorted)
-        out = type(self)(child, fn, rebind(typed), outer_children)
-        for oc in outer_children:
-            if fixed_np_dtype(oc.data_type) is None:
-                # the element-space gather reads fixed-width columns
-                host_only(out, f"a lambda reading outer column "
-                          f"{oc.name_hint} of type "
-                          f"{oc.data_type.simple_string()}")
-        return out
+        return type(self)(child, fn, rebind(typed), outer_children)
+
+    @property
+    def device_supported(self):
+        # the element-space gather reads fixed-width outer columns
+        return all(fixed_np_dtype(oc.data_type) is not None
+                   for oc in self.children[1:])
 
     def _eval_body_cpu(self, table: HostTable, var_cols: List[HostColumn],
                        rids: np.ndarray) -> HostColumn:

@@ -48,7 +48,6 @@ from spark_rapids_tpu_torch.ops.expr import (
     Literal,
     NodePrep,
     PrepCtx,
-    host_only,
 )
 
 _EMPTY = np.array([], dtype=object)
@@ -218,11 +217,9 @@ class _LiteralParams:
     is not a literal the expression runs on the CPU route (the
     reference's), row by row over the parameters' values."""
 
-    def resolve(self, bound):
-        out = super().resolve(bound)
-        if not all(isinstance(c, Literal) for c in out.children[1:]):
-            host_only(out, f"{out.name} with a non-literal parameter")
-        return out
+    @property
+    def device_supported(self):
+        return all(isinstance(c, Literal) for c in self.children[1:])
 
     def eval_cpu(self, table: HostTable) -> HostColumn:
         if self.device_supported:
@@ -399,15 +396,12 @@ class _Regex(_LiteralParams):
     """A pattern (child 1) outside the transpilable subset runs on the
     CPU route."""
 
-    def resolve(self, bound):
-        out = super().resolve(bound)
-        pattern = out.children[1]
-        if isinstance(pattern, Literal) and pattern.value is not None:
-            reason = transpiled_regex(pattern.value)[1]
-            if reason is not None:
-                host_only(out, f"regex {pattern.value!r} is outside the "
-                          f"transpilable subset ({reason})")
-        return out
+    @property
+    def device_supported(self):
+        if not super().device_supported:
+            return False
+        pattern = self.children[1].value
+        return pattern is None or transpiled_regex(pattern)[1] is None
 
 
 class RegExpReplace(_Regex, _Params):
@@ -473,10 +467,12 @@ class Concat(DictStringToString):
         non_lit = [c for c in out.children if not isinstance(c, Literal)]
         for c in non_lit:
             _require_string(out, c)
-        if len(non_lit) > 1:
-            # a multi-column concat: the reference's CPU route
-            host_only(out, f"Concat of {len(non_lit)} columns")
         return out
+
+    @property
+    def device_supported(self):
+        # a multi-column concat: the reference's CPU route
+        return sum(not isinstance(c, Literal) for c in self.children) <= 1
 
     def transform(self, s):
         parts = []

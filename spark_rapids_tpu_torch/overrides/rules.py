@@ -284,17 +284,11 @@ def _tag_join(meta: "PlanMeta") -> None:
                        "join condition ")
 
 
-#: the window gates whose columns the CPU route computes (the reference's
-#: ``eval_window_cpu`` does not run the others right: they raise)
-_HOST_WINDOW_GATES = ("rows frame bound beyond", "wide float rows frame",
-                      "ranking window function requires an ORDER BY",
-                      "lag/lead string default value")
-
-
 def _tag_window(meta: "PlanMeta") -> None:
     """The reference's window tag: the frame bound from the conf, the
     wide-float gate and a DECIMAL128 input. A column the CPU route
-    computes tags the node there; the others raise with the reason."""
+    computes tags the node there; the others raise with the reason (the
+    reference's ``eval_window_cpu`` does not run them right)."""
     from spark_rapids_tpu_torch import types as T
     from spark_rapids_tpu_torch.execs.window import device_window_supported
     node = meta.node
@@ -303,10 +297,10 @@ def _tag_window(meta: "PlanMeta") -> None:
     bound = meta.conf.get_entry(C.WINDOW_ROWS_FRAME_MAX_BOUND)
     unported = []
     for name, w in node.window_cols:
-        ok, reason = device_window_supported(
+        ok, reason, on_host = device_window_supported(
             w, variable_float_agg=vfa, rows_frame_max_bound=bound)
         if not ok:
-            if reason.startswith(_HOST_WINDOW_GATES):
+            if on_host:
                 meta.reasons.append(f"window {name}: {reason}")
             else:
                 unported.append(f"window {name}: {reason}")

@@ -288,3 +288,92 @@ def test_explain_and_fallbacks_equal_the_reference(mode, tmp_path, capsys):
                for f in fs]
     with open(path) as f:
         assert json.loads(f.readline())["fallbacks"] == want_fb
+
+
+def _host_form_data(n=200, seed=23):
+    rng = np.random.default_rng(seed)
+
+    def nulls(vals, p=0.1):
+        return [None if rng.random() < p else v for v in vals]
+    digits = [str(x) for x in rng.integers(-50, 50, n)]
+    digits[::17] = ["x1"] * len(digits[::17])  # unparsable: null
+    return tables([
+        ("d", TT.DATE, nulls(rng.integers(9000, 9012, n).tolist())),
+        ("s", TT.STRING, nulls(digits)),
+        ("a", TT.STRING, nulls([f"a{x}" for x in rng.integers(0, 6, n)])),
+        ("b", TT.STRING, nulls([f"b{x}" for x in rng.integers(0, 4, n)])),
+        ("v", TT.LONG, nulls(rng.integers(-99, 99, n).tolist())),
+    ])
+
+
+#: a form only the CPU route evaluates inside a node the column pruning
+#: rebuilds (grouping key, aggregate input, sort key): the node the route
+#: runs, and the query, over an api and a DataFrame (rows as a multiset?)
+HOST_FORMS = {
+    "group_by_cast_date_as_string": ("Aggregate", lambda a, df: df.group_by(
+        a.col("d").cast("string").alias("ds")).agg(
+        a.F.count().alias("c"), a.F.sum("v").alias("sv")), True),
+    "sum_of_cast_string_as_int": ("Aggregate", lambda a, df: df.group_by(
+        "a").agg(a.F.sum(a.col("s").cast("int")).alias("si")), True),
+    "sort_by_concat": ("Sort", lambda a, df: df.select("a", "b", "v").sort(
+        a.F.concat(a.col("a"), a.col("b")), "v"), False),
+}
+
+
+@pytest.mark.parametrize("case", list(HOST_FORMS))
+def test_host_forms_in_rebuilt_nodes_take_the_route(case):
+    """A cast to or from a string or a two-column concat keeps its tag
+    through the column pruning's rebuild: the node runs on the route,
+    explain marks it so, and the result equals the reference's."""
+    from spark_rapids_tpu_torch.overrides.rules import collect_cpu_nodes
+    node, build, unordered = HOST_FORMS[case]
+    jt, tt = _host_form_data()
+    ts = TorchSession(device="cpu")
+    df = build(PORT, PORT.frm(tt, ts))
+    text = ts.explain(df)
+    assert any(line.lstrip().startswith(f"! {node}[")
+               for line in text.splitlines()), text
+    got = df.collect_table()
+    assert node in collect_cpu_nodes(ts._last_root)
+    assert node in [f["op"] for f in collect_fallbacks(ts.last_meta)]
+    want = build(REF, REF.frm(jt, TpuSession(OFF))).collect_table()
+    diff = nested_differ(want, got, ordered=not unordered)
+    assert diff is None, diff
+
+
+@pytest.mark.parametrize("text", [
+    "SELECT CAST(d AS STRING) AS ds, COUNT(*) AS c FROM hf "
+    "GROUP BY CAST(d AS STRING)",
+    "SELECT a, SUM(CAST(s AS INT)) AS si FROM hf GROUP BY a",
+    "SELECT a, b, v FROM hf ORDER BY CONCAT(a, b), v",
+])
+def test_host_forms_in_sql_group_by_and_order_by(text):
+    jt, tt = _host_form_data()
+    js, ts = TpuSession(OFF), TorchSession(device="cpu")
+    REF.frm(jt, js).create_or_replace_temp_view("hf")
+    PORT.frm(tt, ts).create_or_replace_temp_view("hf")
+    got = ts.sql(text).collect_table()
+    assert collect_fallbacks(ts.last_meta) != []
+    want = js.sql(text).collect_table()
+    diff = nested_differ(want, got, ordered="ORDER BY" in text)
+    assert diff is None, diff
+
+
+@pytest.mark.parametrize("key, known", [
+    ("spark.rapids.sql.exec.Filter", True),
+    ("spark.rapids.sql.exec.ParquetScanNode", True),
+    ("spark.rapids.sql.expression.Upper", True),
+    ("spark.rapids.sql.exec.Fliter", False),
+    ("spark.rapids.sql.expression.Uper", False),
+])
+def test_a_kill_switch_must_name_an_operator(key, known):
+    """A kill switch naming no plan node or expression raises as any key
+    the port does not know: a misspelt one would leave its operator on
+    the device."""
+    from spark_rapids_tpu_torch.conf import RapidsConf
+    if known:
+        assert not RapidsConf({key: "false"}).is_op_enabled(
+            *key.split(".")[3:])
+    else:
+        with pytest.raises(NotImplementedError, match=key.replace(".", r"\.")):
+            RapidsConf({key: "false"})

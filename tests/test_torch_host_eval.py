@@ -119,7 +119,8 @@ CASES = {
         "exact"),
     # the reference's host division rounds a quotient with a negative
     # divisor toward the wrong side (its _round_half_up_div takes the
-    # magnitude of the dividend only): held to the device form alone
+    # magnitude of the dividend only): held to exact arithmetic
+    # (test_decimal_division_equals_exact_half_up) and the device form
     "decimal_division": (lambda a: [
         a.col("m") / a.col("m"), a.col("m") / a.col("i")],
         "device only"),
@@ -223,3 +224,42 @@ def test_eval_cpu_equals_the_device_form(case):
         assert tables_differ(host, dev) is None, tables_differ(host, dev)
     else:
         assert tables_close(host, dev, rtol=1e-12) is None
+
+
+
+def _half_up(q) -> int:
+    """A Fraction rounded half away from zero (Spark's HALF_UP)."""
+    whole, rest = divmod(abs(q.numerator), q.denominator)
+    whole += 2 * rest >= q.denominator
+    return -whole if q < 0 else whole
+
+
+@pytest.mark.parametrize("c, rhs, rhs_scale", [(0, "m", 2), (1, "i", 0)])
+def test_decimal_division_equals_exact_half_up(c, rhs, rhs_scale):
+    """The route's decimal division against exact rational arithmetic
+    (Python ints), HALF_UP at the result's scale, null on a zero divisor
+    or past the result's precision: an independent witness where the
+    reference's host form is wrong. On the rows with a positive divisor
+    the reference's device path (``TpuSession(None)``) agrees too; its
+    device path and host form alike round a negative divisor's quotient
+    toward the wrong side."""
+    from fractions import Fraction
+    _, tt = _tables()
+    got = as_reference(_select(PORT, OFF, "decimal_division")).columns[c]
+    ref = _select(REF, None, "decimal_division").columns[c]
+    lhs = tt.columns[tt.names.index("m")]
+    div = tt.columns[tt.names.index(rhs)]
+    prec, scale = got.dtype.precision, got.dtype.scale
+    for r in range(N):
+        ok = bool(lhs.validity[r] and div.validity[r] and div.data[r] != 0)
+        want = None
+        if ok:
+            q = Fraction(int(lhs.data[r]) * 10 ** rhs_scale,
+                         int(div.data[r]) * 10 ** 2) * 10 ** scale
+            want = _half_up(q)
+            ok = abs(want) < 10 ** prec
+        assert bool(got.validity[r]) == ok, r
+        if ok:
+            assert int(got.data[r]) == want, (r, int(got.data[r]), want)
+            if div.data[r] > 0:
+                assert ref.validity[r] and int(ref.data[r]) == want, r
