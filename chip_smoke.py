@@ -1,6 +1,7 @@
 """Drive the PyTorch port (spark_rapids_tpu_torch) on one CUDA card.
 
     python3 chip_smoke.py [--rows N] [--sf SF] [--seed S] [--profile DIR]
+                          [--only 21|22]
 
 Phases, in order; any failure exits non-zero:
 
@@ -189,8 +190,9 @@ Phases, in order; any failure exits non-zero:
    memory ladder's ``retry`` and ``chunk`` rungs) and a device loss, each
    against phase 4's oracle or raising its typed error; and a real
    device-side assert in two child processes (``--fatal-child``: exit 20
-   with a crash report; DeviceLostError, then the latch's); every kernel
-   launch held against its plain version;
+   with a crash report; DeviceLostError naming the CPU-only latch, then
+   two q1 answered on the CPU route); every kernel launch held against
+   its plain version;
 19. the query envelope (``run_observability``): the profiler's trace of
    q1, the event log and spans over the corpus with the tools, the
    executable cache, warmup in fresh processes, the asynchronous result
@@ -218,10 +220,24 @@ Phases, in order; any failure exits non-zero:
    against the device's results; each cell's CPU-route nodes, reasons,
    transition times, launches and host syncs. Every query of phases 3-20
    converts with 0 CPU-route nodes (``watch_cpu_route``);
-22. the summary lines: one ``{"kernels": [...]}`` JSON line (the five TPU
+22. demotion onto the CPU route at run time and the rest of planning
+   (``run_planning``), each cell cold and then warm (``run_case``): P1
+   lineitem in 4 batches through a range exchange into 16 partitions on
+   (l_shipdate, l_orderkey), and into 8 on (l_returnflag, l_orderkey),
+   then the local sort, against the global sort and a numpy lexsort, the
+   partition ids never decreasing along the output; P2 q10, q17 and q22
+   (DSL and SQL) through AQE's build against phase 7's oracles, the
+   decision against the measured bytes, again with a threshold that
+   broadcasts q10's and q17's builds and one under q17's (->shuffle); P3
+   q1 with the aggregate demoted by the circuit breaker, with the scan
+   demoted by the memory ladder's cpu_demote, and the latch child of
+   18.4 (q1 answered twice on the CPU route after the poison); P4 a
+   50-row filter reverted to the CPU route by the cost-based optimizer
+   and q1 left on the device;
+23. the summary lines: one ``{"kernels": [...]}`` JSON line (the five TPU
    kernels and the DECIMAL128 division kernel, CUDA work beyond them;
    launches of the main path: q1's, sparse q3's probes, q8's MIN/MAX, plus
-   every phase-7 to phase-21 query's), the card line, and last
+   every phase-7 to phase-22 query's), the card line, and last
    ``{"ok": true, "device": {...}}``.
 
 Each phase logs its wall time. It needs one CUDA card and exits non-zero
@@ -230,7 +246,8 @@ trace of one warm run of q1, of each q3 form, of each phase-6, phase-7
 and phase-8 query, of phase 9's conditional query, of J1, J7, J8 and J9,
 of O1, O2, O3, O4a, O5, O6a and O7, of S1, S2, S5, S7 and S8 and of W1,
 W3, W4, W7, W8a and W8c, and of N1 and N3's posexplode. ``--only 21``
-runs phases 1-3 and then phase 21 over tables it makes itself.
+(or ``22``) runs phases 1-3 and then that phase over tables it makes
+itself.
 """
 
 from __future__ import annotations
@@ -6880,13 +6897,12 @@ def squeeze_ballast(table, budget: int):
 def run_recovery(q1_keep, base: str, card: str) -> tuple:
     """18.3: q1 at SF 1 (phase 4's table and oracle) under injected and
     real faults, each run's launches held against their plain versions:
-    a transient crash at the aggregate (one replay), a crash past
-    ``maxFailures`` (KernelCrashError with ``fault_op``, the breaker
-    tripped), ``mem.reserve`` OOMs past the retries (rung ``retry``), a
-    squeezed budget (rungs ``retry`` then ``chunk``) and an injected
-    device loss (a crash report, DeviceLostError, then the next q1 on the
-    card). Returns (launch totals, numbers)."""
-    from spark_rapids_tpu_torch.errors import DeviceLostError, KernelCrashError
+    a transient crash at the aggregate (one replay; the breaker's
+    demotion is phase 22's P3), ``mem.reserve`` OOMs past the retries
+    (rung ``retry``), a squeezed budget (rungs ``retry`` then ``chunk``)
+    and an injected device loss (a crash report, DeviceLostError, then
+    the next q1 on the card). Returns (launch totals, numbers)."""
+    from spark_rapids_tpu_torch.errors import DeviceLostError
     from spark_rapids_tpu_torch.models.tpch import q1_dataframe
     from spark_rapids_tpu_torch.runtime.faults import CIRCUIT_BREAKER, FAULTS
     from spark_rapids_tpu_torch.runtime.health import HEALTH
@@ -6916,12 +6932,8 @@ def run_recovery(q1_keep, base: str, card: str) -> tuple:
                 {faults: "exec.execute@Aggregate:crash:1"})
     if m["runtimeFaultReplays"] != 1:
         fail(f"q1 crash:1 replayed {m['runtimeFaultReplays']} times")
-    err, _ = case("q1 exec.execute@Aggregate:crash:99",
-                  {faults: "exec.execute@Aggregate:crash:99"},
-                  expect=KernelCrashError)
-    if err.fault_op != "Aggregate" or "circuit breaker" not in str(err):
-        fail(f"q1 crash:99 raised {err!r} (fault_op {err.fault_op})")
-    numbers["q1 exec.execute@Aggregate:crash:99"]["raised"] = str(err)
+    # one recorded failure: a later crash of the aggregate must not trip
+    # the breaker (its demotion is phase 22's)
     CIRCUIT_BREAKER.reset()
     fresh_device()
     _, m = case("q1 mem.reserve:oom:3", {faults: "mem.reserve:oom:3"})
@@ -6962,11 +6974,17 @@ def run_recovery(q1_keep, base: str, card: str) -> tuple:
 
 def fatal_child(mode: str, dump_dir: str) -> int:
     """18.4's child process: q1 warm, then an out-of-bounds index on the
-    card (a device-side assert that poisons the context), then q1 twice
-    more; prints what each later run raised as one JSON line. Under
-    ``exit`` the session has ``spark.rapids.fatalError.exit`` set and the
-    process should exit 20 before printing."""
+    card (a device-side assert that poisons the context), then q1 three
+    more times; prints what each later run raised or answered as one JSON
+    line. Under ``exit`` the session has ``spark.rapids.fatalError.exit``
+    set and the process should exit 20 before printing. Under ``latch``
+    the second run meets the poisoned context and raises DeviceLostError
+    (its failed probe latches CPU-only mode); the third and fourth answer
+    q1's oracle on the CPU route, the latch's reason in ``explain``,
+    making no CUDA call (phase 22's P3 (c))."""
     from spark_rapids_tpu_torch.models.tpch import lineitem_table, q1_dataframe
+    from spark_rapids_tpu_torch.overrides.rules import collect_cpu_nodes
+    from spark_rapids_tpu_torch.runtime.health import HEALTH
     from spark_rapids_tpu_torch.session import TorchSession
     table = lineitem_table(FATAL_CHILD_ROWS, seed=0)
     oracle = q1_oracle(table)
@@ -6982,12 +7000,21 @@ def fatal_child(mode: str, dump_dir: str) -> int:
         x[torch.full((1,), 1 << 20, dtype=torch.int64, device=DEV)]
     except Exception as e:  # noqa: BLE001 (reported, not expected)
         out["poison"] = f"{type(e).__name__}: {e}"
-    for run in ("second", "third"):
+    for run in ("second", "third", "fourth"):
+        t0 = time.perf_counter()
         try:
-            q1_dataframe(s, table).collect_table()
-            out[run] = "ran"
+            df = q1_dataframe(s, table)
+            got = df.collect_table()
+            check_q1_result(got, oracle)
+            reason = HEALTH.cpu_only_reason()
+            out[run] = "answered"
+            out[f"{run}_ms"] = round((time.perf_counter() - t0) * 1e3, 2)
+            out[f"{run}_latch_in_explain"] = bool(reason) and \
+                reason in s.explain(df)
+            out[f"{run}_cpu_nodes"] = collect_cpu_nodes(s._last_root)
         except Exception as e:  # noqa: BLE001 (each run's outcome)
             out[run] = f"{type(e).__name__}: {e}"
+    out["cpuOnlyReason"] = HEALTH.snapshot()["cpuOnlyReason"]
     print(json.dumps(out), flush=True)
     os._exit(0)
 
@@ -6996,7 +7023,8 @@ def run_fatal_children(base: str, card: str) -> dict:
     """18.4: the two fatal-error children, run together: under
     ``spark.rapids.fatalError.exit`` the child exits 20 and leaves a
     report naming the plan and the CUDA error; without it, its q1 after
-    the poison raises DeviceLostError and the next one the latch's."""
+    the poison raises DeviceLostError naming the CPU-only latch, and the
+    next two answer q1 on the CPU route (phase 22's P3 (c))."""
     procs = {}
     for mode in ("exit", "latch"):
         d = os.path.join(base, f"fatal_{mode}")
@@ -7032,14 +7060,18 @@ def run_fatal_children(base: str, card: str) -> dict:
         if mode == "latch":
             res = json.loads(so.strip().splitlines()[-1]) if p.returncode \
                 == 0 and so.strip() else {}
+            answered = all(res.get(r) == "answered"
+                           and res.get(f"{r}_latch_in_explain")
+                           for r in ("third", "fourth"))
             if not (res.get("second", "").startswith("DeviceLostError")
-                    and res.get("third", "").startswith("DeviceLostError")
-                    and "latched" in res.get("third", "")):
+                    and "CPU-only mode latched" in res.get("second", "")
+                    and answered and res.get("cpuOnlyReason")):
                 fail(f"the fatal-error child (latch): rc {p.returncode}, "
                      f"{res}, stderr {se[-2000:]}")
-            out[mode].update(second=res["second"][:200],
-                             third=res["third"][:200])
+            out[mode].update({k: (v[:200] if isinstance(v, str) else v)
+                              for k, v in res.items() if k != "mode"})
     log(f"  18.4 fatal CUDA errors in two child processes: {out} [{card}]")
+    FATAL_RESULTS.update(out)
     return out
 
 
@@ -8391,13 +8423,14 @@ def c5_check(orders):
     return check
 
 
-def route_case(s, name, build, check, expect_nodes, results) -> dict:
+def route_case(s, name, build, check, expect_nodes, results,
+               warm_runs: int = 3) -> dict:
     """``run_case`` of one cell, then its converted tree's CPU-route nodes
     (they must be ``expect_nodes``), the overrides' reasons, the
     transitions' times and the warm host syncs."""
     from spark_rapids_tpu_torch.obs.events import collect_fallbacks
     from spark_rapids_tpu_torch.overrides.rules import collect_cpu_nodes
-    res = run_case(s, name, build, check, None)
+    res = run_case(s, name, build, check, None, warm_runs=warm_runs)
     nodes = collect_cpu_nodes(s._last_root)
     reasons = collect_fallbacks(s.last_meta)
     timings = s.last_timings()
@@ -8537,6 +8570,377 @@ def run_route(tables, q1_table, q3_sparse, seed: int) -> dict:
     return totals
 
 
+# ---------------------------------------------------------------------------
+# phase 22: demotion onto the CPU route at run time, and the rest of planning
+# ---------------------------------------------------------------------------
+
+#: the phase's budget (PERF.md section 4: about 50 s on the card)
+PLANNING_BUDGET_S = 90.0
+#: warm runs of each cell after its cold run (run_case adds the counted one)
+PLANNING_WARM_RUNS = 4
+#: P1's two range exchanges over ``lineitem4`` in ``W8_BATCHES`` batches:
+#: (name, keys, partitions)
+P1_FORMS = (("P1 range (l_shipdate, l_orderkey)",
+             ("l_shipdate", "l_orderkey"), 16),
+            ("P1 range (l_returnflag, l_orderkey)",
+             ("l_returnflag", "l_orderkey"), 8))
+#: the corpus queries whose build is an aggregate: AQE decides at run time
+AQE_QUERIES = ("q10", "q17", "q22")
+#: P2's wide threshold: every corpus aggregate build at sf 10 lands under it
+AQE_WIDE_THRESHOLD = 1 << 30
+#: rows of P4's small filter (under the cost-based optimizer's break-even)
+CBO_SMALL_ROWS = 50
+#: the latch child's output, when phase 18's 18.4 ran it (P3 (c) logs it)
+FATAL_RESULTS = {}
+
+
+def _walk_execs(root):
+    """Every exec and host plan node of a converted tree (through the
+    transitions)."""
+    out, stack = [], [root]
+    while stack:
+        e = stack.pop()
+        out.append(e)
+        stack.extend(getattr(e, "children", ()))
+        for attr in ("cpu_node", "source", "tpu_exec"):
+            if getattr(e, attr, None) is not None:
+                stack.append(getattr(e, attr))
+    return out
+
+
+def p1_plan(session, scan, keys, nparts, local: bool):
+    """``scan`` (``lineitem4`` in ``W8_BATCHES`` batches, made once, so a
+    warm run finds its uploads in the scan cache) through
+    Exchange(range, ``nparts``, keys) and Sort(global_sort=False) on the
+    same keys (``local``), or through the global sort alone."""
+    from spark_rapids_tpu_torch.ops.expr import col
+    from spark_rapids_tpu_torch.plan import nodes as P
+    from spark_rapids_tpu_torch.plan.dataframe import DataFrame
+    orders = [P.SortOrder(col(k)) for k in keys]
+    if local:
+        ex = P.Exchange(scan, "range", nparts, [col(k) for k in keys])
+        return DataFrame(P.Sort(ex, orders, global_sort=False), session)
+    return DataFrame(P.Sort(scan, orders), session)
+
+
+def p1_order(li4, keys):
+    """The row numbers of ``lineitem4`` in a stable sort by ``keys``
+    (numpy; a string key by its sorted dictionary's codes)."""
+    cols = {n: c for n, c in zip(li4.names, li4.columns)}
+    operands = [np.arange(li4.num_rows)]
+    for k in reversed(keys):
+        c = cols[k]
+        operands.append(c.encoded()[0] if c.data.dtype == object else c.data)
+    return cols["l_row"].data[np.lexsort(operands)]
+
+
+def p1_check(li4, order, name):
+    """Each run's output rows in the numpy stable sort's order (by the row
+    numbers); with ``full`` every column the row number selects too."""
+    cols = {n: c for n, c in zip(li4.names, li4.columns)}
+
+    def check(got, full=False):
+        g = {n: c for n, c in zip(got.names, got.columns)}
+        if got.num_rows != li4.num_rows or \
+                not np.array_equal(g["l_row"].data, order):
+            fail(f"{name}: the rows are not in the numpy lexsort's order")
+        for n in li4.names if full else ():
+            want = cols[n].data[order]
+            ok = (np.array_equal(g[n].data, want) if want.dtype == object
+                  else g[n].data.tobytes() == want.tobytes())
+            if not ok or not g[n].validity.all():
+                fail(f"{name}: column {n} differs from the numpy lexsort's")
+    return check
+
+
+def p1_partition_ids(li4, keys, nparts, got):
+    """Each output row's partition under the bounds the exchange drew
+    (the same sample of the same rows in the same order)."""
+    from spark_rapids_tpu_torch.columnar.table import upload_host_table
+    from spark_rapids_tpu_torch.ops.expr import col
+    from spark_rapids_tpu_torch.shuffle.partitioning import RangePartitioner
+    schema = li4.schema()
+    parter = RangePartitioner([col(k).bind(schema) for k in keys], nparts)
+    parter.compute_bounds(upload_host_table(li4, DEV))
+    pids = parter.partition_ids(upload_host_table(got, DEV))
+    return pids[:got.num_rows].cpu().numpy()
+
+
+def run_p1(tables, totals, results) -> None:
+    """P1: the range exchange and the local sort (two key forms), each
+    against the global sort and the numpy lexsort; partition ids never
+    decrease along the output."""
+    from spark_rapids_tpu_torch.plan import from_host_table
+    from spark_rapids_tpu_torch.session import TorchSession
+    li4 = lineitem4(tables)
+    s = TorchSession()
+    scan = from_host_table(li4, s, num_batches=W8_BATCHES).plan
+    for name, keys, nparts in P1_FORMS:
+        whole = p1_plan(s, scan, keys, nparts, local=False).collect_table()
+        check = p1_check(li4, p1_order(li4, keys), name)
+        check(whole, full=True)
+        keep = {}
+        res = run_case(s, name, lambda k=keys, n=nparts: p1_plan(
+            s, scan, k, n, local=True), check, None, keep,
+            warm_runs=PLANNING_WARM_RUNS)
+        got = keep[name]["result"]
+        check(got, full=True)
+        same_table(got, whole, f"{name} against the global sort", 0.0)
+        pids = p1_partition_ids(li4, keys, nparts, got)
+        if np.any(np.diff(pids) < 0):
+            fail(f"{name}: a partition id decreases along the sorted rows")
+        counts = np.bincount(pids, minlength=nparts).tolist()
+        m = s.last_metrics()
+        if m.get("localSplitParts") != nparts:
+            fail(f"{name}: localSplitParts {m.get('localSplitParts')}")
+        add_launches(totals, res["launches"])
+        results[name] = dict(res["stats"], partition_rows=counts, launches={
+            k: v for k, v in res["launches"].items() if v})
+        log(f"  {name}: equals the global sort and the numpy lexsort; "
+            f"partition ids never decrease; rows per partition {counts}")
+
+
+def add_launches(totals, launches) -> None:
+    for k, v in launches.items():
+        totals[k] = totals.get(k, 0) + v
+
+
+def aqe_build(session):
+    """The adaptive build of the session's last executed tree (or None)."""
+    from spark_rapids_tpu_torch.execs.broadcast import TpuAdaptiveBuildExec
+    builds = [e for e in _walk_execs(session._last_root)
+              if isinstance(e, TpuAdaptiveBuildExec)]
+    return builds[0] if builds else None
+
+
+def run_p2(tables, checks, totals, results) -> None:
+    """P2: q10, q17 and q22 as DSL and SQL under the default threshold,
+    q10 and q17 again under ``AQE_WIDE_THRESHOLD`` (->broadcast), and q17
+    under half its measured build (->shuffle); each against phase 7's
+    oracle (``checks``), its decision against its measured bytes, its warm
+    host syncs beside phase 7's."""
+    from spark_rapids_tpu_torch.conf import BROADCAST_SIZE_BYTES
+    from spark_rapids_tpu_torch.models.corpus import (
+        build_queries,
+        build_sql_queries,
+        sql_texts,
+    )
+    from spark_rapids_tpu_torch.session import TorchSession
+    texts = sql_texts()
+    measured = {}
+
+    def cell(s, name, build, want=None):
+        res = run_case(s, name, build, checks[name.split()[1]], None,
+                       warm_runs=PLANNING_WARM_RUNS)
+        ab = aqe_build(s)
+        if ab is None:
+            fail(f"{name}: no TpuAdaptiveBuildExec in the tree")
+        threshold = s.conf.get_entry(BROADCAST_SIZE_BYTES)
+        nbytes = ab.metrics.get("aqeMeasuredBuildBytes")
+        converted = ab.metrics.get("aqeBroadcastConverted", 0)
+        if nbytes is None or converted != int(nbytes <= threshold) or \
+                ab.converted is not bool(converted):
+            fail(f"{name}: {ab.describe()}, measured {nbytes} B against "
+                 f"{threshold} B, aqeBroadcastConverted {converted}")
+        if want is not None and ab.describe() != want:
+            fail(f"{name}: {ab.describe()}, want {want}")
+        add_launches(totals, res["launches"])
+        base = name.split()[1] + (" SQL" if name.endswith("SQL") else "")
+        results[name] = dict(res["stats"], build=ab.describe(),
+                             aqeMeasuredBuildBytes=nbytes,
+                             aqeBroadcastConverted=converted,
+                             threshold=threshold,
+                             phase7_syncs=WARM_SYNCS.get(base),
+                             launches={k: v for k, v in
+                                       res["launches"].items() if v})
+        log(f"  {name}: {ab.describe()} (aqeMeasuredBuildBytes {nbytes} B, "
+            f"threshold {threshold} B, aqeBroadcastConverted {converted}); "
+            f"warm host syncs {res['stats']['syncs']} (phase 7's "
+            f"{WARM_SYNCS.get(base, 'not measured')})")
+        measured[name] = nbytes
+
+    s = TorchSession()
+    queries = build_queries(s, tables)
+    build_sql_queries(s, tables)
+    for q in AQE_QUERIES:
+        cell(s, f"P2 {q}", queries[q],
+             "TpuAdaptiveBuild[->broadcast]" if q == "q22" else None)
+        cell(s, f"P2 {q} SQL", lambda t=texts[q]: s.sql(t),
+             "TpuAdaptiveBuild[->broadcast]" if q == "q22" else None)
+    wide = TorchSession({"spark.rapids.sql.broadcastSizeBytes":
+                         str(AQE_WIDE_THRESHOLD)})
+    wq = build_queries(wide, tables)
+    for q in ("q10", "q17"):
+        cell(wide, f"P2 {q} at broadcastSizeBytes={AQE_WIDE_THRESHOLD}",
+             wq[q], "TpuAdaptiveBuild[->broadcast]")
+    half = measured[f"P2 q17 at broadcastSizeBytes={AQE_WIDE_THRESHOLD}"] \
+        // 2
+    narrow = TorchSession({"spark.rapids.sql.broadcastSizeBytes":
+                           str(half)})
+    cell(narrow, f"P2 q17 at broadcastSizeBytes={half}",
+         build_queries(narrow, tables)["q17"], "TpuAdaptiveBuild[->shuffle]")
+
+
+def run_p3(q1_keep, totals, results) -> None:
+    """P3: the three rungs on q1 over phase 4's table: (a) the breaker's
+    demotion of the aggregate, (b) the memory ladder's ``cpu_demote``,
+    (c) the CPU-only latch in the fatal-error child."""
+    from spark_rapids_tpu_torch.conf import RUNTIME_FALLBACK_MAX_FAILURES
+    from spark_rapids_tpu_torch.models.tpch import q1_dataframe
+    from spark_rapids_tpu_torch.obs.events import collect_fallbacks
+    from spark_rapids_tpu_torch.overrides.rules import collect_cpu_nodes
+    from spark_rapids_tpu_torch.runtime.faults import CIRCUIT_BREAKER, FAULTS
+    from spark_rapids_tpu_torch.runtime.health import HEALTH
+    from spark_rapids_tpu_torch.session import TorchSession
+    table, check = q1_keep["tables"][0], q1_keep["check"]
+    faults = "spark.rapids.test.faults"
+
+    def rung(name, conf, want_nodes, want_metrics):
+        CIRCUIT_BREAKER.reset()
+        fresh_device()
+        s = TorchSession(conf)
+        t0 = time.perf_counter()
+        got = q1_dataframe(s, table).collect_table()
+        torch.cuda.synchronize()
+        cold = time.perf_counter() - t0
+        check(got)
+        m = s.last_metrics()
+        nodes = collect_cpu_nodes(s._last_root)
+        fallbacks = collect_fallbacks(s.last_meta)
+        demoted = CIRCUIT_BREAKER.demoted_ops()
+        explain = s.explain(q1_dataframe(s, table))
+        bad = {k: m.get(k, 0) for k, v in want_metrics.items()
+               if m.get(k, 0) != v}
+        if nodes != want_nodes or bad or sorted(demoted) != want_nodes or \
+                any(f["reasons"] != [demoted[f["op"]]] for f in fallbacks) \
+                or not all(r in explain for r in demoted.values()):
+            fail(f"{name}: CPU-route nodes {nodes}, metrics off {bad}, "
+                 f"demoted {demoted}, fallbacks {fallbacks}")
+        FAULTS.disarm()
+        warm = TorchSession()
+        res = route_case(warm, f"{name}, warm", lambda: q1_dataframe(
+            warm, table), check, want_nodes, results,
+            warm_runs=PLANNING_WARM_RUNS)
+        add_launches(totals, res["launches"])
+        results[f"{name}, warm"].update(
+            cold_ms=round(cold * 1e3, 2), demoted=demoted,
+            metrics={k: m.get(k, 0) for k in (
+                "runtimeFaultReplays", "query_replays", "demotions",
+                "memoryPressure", "memoryChunkedReexecutions",
+                "memoryCpuDemotions")})
+        log(f"  {name}: answered q1 (cold {cold * 1e3:.1f} ms) with "
+            f"{nodes} on the CPU route: {list(demoted.values())}")
+        CIRCUIT_BREAKER.reset()
+        again = TorchSession()
+        check(q1_dataframe(again, table).collect_table())
+        if collect_cpu_nodes(again._last_root):
+            fail(f"{name}: after the breaker's reset q1 still has CPU-route "
+                 f"nodes {collect_cpu_nodes(again._last_root)}")
+
+    CPU_ROUTE["expected"] = True
+    try:
+        max_failures = TorchSession().conf.get_entry(
+            RUNTIME_FALLBACK_MAX_FAILURES)
+        rung("P3 (a) the breaker",
+             {faults: f"exec.execute@Aggregate:crash:{max_failures}"},
+             ["Aggregate"], {"runtimeFaultReplays": max_failures,
+                             "demotions": 1})
+        rung("P3 (b) the ladder's cpu_demote",
+             {faults: "mem.reserve:oom:9"}, ["LocalScan"],
+             {"memoryPressure": 3, "memoryChunkedReexecutions": 1,
+              "memoryCpuDemotions": 1, "demotions": 1})
+    finally:
+        CPU_ROUTE["expected"] = False
+        FAULTS.disarm()
+        CIRCUIT_BREAKER.reset()
+    if HEALTH.cpu_only_reason() is not None:
+        fail("P3: the process latched CPU-only mode")
+    if not FATAL_RESULTS:
+        base = tempfile.mkdtemp(prefix="srt-latch-")
+        FATAL_RESULTS.update(run_fatal_children(base, card_line()))
+    latch = FATAL_RESULTS["latch"]
+    results["P3 (c) the latch"] = latch
+    log(f"  P3 (c) the latch child: second {latch.get('second')!r}; third "
+        f"{latch.get('third')} in {latch.get('third_ms')} ms, fourth "
+        f"{latch.get('fourth')} in {latch.get('fourth_ms')} ms on the CPU "
+        f"route ({latch.get('third_cpu_nodes')}); cpuOnlyReason "
+        f"{latch.get('cpuOnlyReason')!r}")
+
+
+def run_p4(q1_keep, totals, results) -> None:
+    """P4: under ``spark.rapids.sql.optimizer.enabled`` a small filter
+    reverts to the CPU route with a reason naming CBO, and q1 stays on the
+    device (its aggregate's row count is unknown)."""
+    from spark_rapids_tpu_torch.models.tpch import q1_dataframe
+    from spark_rapids_tpu_torch.obs.events import collect_fallbacks
+    from spark_rapids_tpu_torch.ops.expr import col, lit
+    from spark_rapids_tpu_torch.overrides.rules import collect_cpu_nodes
+    from spark_rapids_tpu_torch.plan import from_host_table
+    from spark_rapids_tpu_torch.session import TorchSession
+    table = q1_keep["tables"][0]
+    small = table.slice(0, CBO_SMALL_ROWS)
+    qty = small.columns[list(small.names).index("l_quantity")]
+    want = int((qty.data > 25.0).sum())
+    s = TorchSession({"spark.rapids.sql.optimizer.enabled": "true"})
+
+    def small_check(got):
+        if got.num_rows != want:
+            fail(f"P4 the small filter: {got.num_rows} rows, want {want}")
+
+    CPU_ROUTE["expected"] = True
+    try:
+        res = route_case(s, f"P4 a {CBO_SMALL_ROWS}-row filter", lambda:
+                         from_host_table(small, s).filter(
+                             col("l_quantity") > lit(25.0)),
+                         small_check, ["Filter", "LocalScan"], results,
+                         warm_runs=PLANNING_WARM_RUNS)
+    finally:
+        CPU_ROUTE["expected"] = False
+    reasons = [r for f in collect_fallbacks(s.last_meta)
+               for r in f["reasons"]]
+    if not reasons or not all(r.startswith("CBO: ") for r in reasons):
+        fail(f"P4: the small filter's reasons {reasons}")
+    add_launches(totals, res["launches"])
+    res = run_case(s, "P4 q1 under the optimizer", lambda: q1_dataframe(
+        s, table), q1_keep["check"], None, warm_runs=PLANNING_WARM_RUNS)
+    if collect_cpu_nodes(s._last_root) or not s.last_meta.can_run_on_gpu:
+        fail("P4: q1 left the device under the optimizer")
+    add_launches(totals, res["launches"])
+    results["P4 q1 under the optimizer"] = dict(res["stats"], launches={
+        k: v for k, v in res["launches"].items() if v})
+    log(f"  P4: the {CBO_SMALL_ROWS}-row filter on the CPU route "
+        f"({reasons[0]}); q1 on the device with 0 CPU-route nodes")
+
+
+def run_planning(tables, q1_keep, checks) -> dict:
+    """Phase 22: P1 range partitioning and the local sort, P2 AQE's build
+    (``checks``: phase 7's oracles of ``AQE_QUERIES``), P3 the three rungs
+    onto the CPU route, P4 the cost-based optimizer. Returns every
+    kernel's launches over the counted runs."""
+    t_phase = time.perf_counter()
+    card = card_line()
+    totals, results = {}, {}
+    for part in (lambda: run_p1(tables, totals, results),
+                 lambda: run_p2(tables, checks, totals, results),
+                 lambda: run_p3(q1_keep, totals, results),
+                 lambda: run_p4(q1_keep, totals, results)):
+        t0 = time.perf_counter()
+        part()
+        log(f"  ({time.perf_counter() - t0:.1f} s)")
+    for k in ("onehot_partials", "gather_compact", "sort_with_payload"):
+        if not totals.get(k):
+            fail(f"phase 22 launched no {k}")
+    took = time.perf_counter() - t_phase
+    summary = {"card": card, "seconds": round(took, 1),
+               "launches": {k: v for k, v in totals.items() if v},
+               "cases": results}
+    if took > PLANNING_BUDGET_S:
+        log(f"  phase 22 took {took:.1f} s, past its "
+            f"{PLANNING_BUDGET_S:.0f} s budget")
+    log("  phase-22 summary: " + json.dumps(summary, default=str))
+    return totals
+
+
 def plan_nodes(plan) -> list:
     """The plan-node classes of ``plan``, pre-order: what the CPU route
     runs when spark.rapids.sql.enabled is false."""
@@ -8559,7 +8963,7 @@ def main(argv=None) -> int:
                     help="directory for torch.profiler tables and traces of "
                          "one warm run of q1, of each q3 form and of each "
                          "phase-6 query")
-    ap.add_argument("--only", type=int, choices=(21,), default=None,
+    ap.add_argument("--only", type=int, choices=(21, 22), default=None,
                     help="run phases 1-3 and this phase only (its tables "
                          "made here); a full run is the default")
     ap.add_argument("--fatal-child", choices=("exit", "latch"),
@@ -8626,6 +9030,23 @@ def main(argv=None) -> int:
                           args.seed)
         for k, v in route.items():
             launches[k] = launches.get(k, 0) + v
+        return summary_phase(rows, launches)
+    if args.only == 22:
+        from spark_rapids_tpu_torch.models.corpus import corpus_tables
+        from spark_rapids_tpu_torch.models.tpch import lineitem_table
+        launches = {r["name"]: 0 for r in rows}
+        tables = corpus_tables(args.sf, args.seed)
+        table = lineitem_table(args.rows, seed=0)
+        oracle = q1_oracle(table)
+        oracles = wide_oracles(tables)
+        t_phase = time.perf_counter()
+        log("phase 22: demotion onto the CPU route and the rest of planning")
+        for k, v in run_planning(tables, {
+                "tables": (table,),
+                "check": lambda g: check_q1_result(g, oracle)},
+                {q: oracles[q] for q in AQE_QUERIES}).items():
+            launches[k] = launches.get(k, 0) + v
+        log(f"  phase 22 ran {time.perf_counter() - t_phase:.1f} s")
         return summary_phase(rows, launches)
 
     #: what phases 4-8 keep of each DSL form for phase 9's SQL forms
@@ -8760,6 +9181,7 @@ def main(argv=None) -> int:
     for k, v in run_observability(tables, dsl, q1_keep).items():
         launches[k] = launches.get(k, 0) + v
     q3_sparse = dsl["q3 sparse"]["tables"]
+    aqe_checks = {q: dsl[q]["check"] for q in AQE_QUERIES}
     del dsl
     log(f"  phase 19 ran {time.perf_counter() - t_phase:.1f} s")
 
@@ -8783,11 +9205,20 @@ def main(argv=None) -> int:
                           args.seed).items():
         launches[k] = launches.get(k, 0) + v
     log(f"  phase 21 ran {time.perf_counter() - t_phase:.1f} s")
+
+    t_phase = time.perf_counter()
+    log("phase 22: demotion onto the CPU route and the rest of planning (P1 "
+        "a range exchange and the local sort, P2 AQE's build of q10, q17 "
+        "and q22, P3 the breaker, the memory ladder's cpu_demote and the "
+        "CPU-only latch on q1, P4 the cost-based optimizer)")
+    for k, v in run_planning(tables, q1_keep, aqe_checks).items():
+        launches[k] = launches.get(k, 0) + v
+    log(f"  phase 22 ran {time.perf_counter() - t_phase:.1f} s")
     return summary_phase(rows, launches)
 
 
 def summary_phase(rows, launches) -> int:
-    log("phase 22: summary")
+    log("phase 23: summary")
     log("  dec128_divide is CUDA work beyond the five TPU kernels: the "
         "reference divides DECIMAL128 values on its host")
     for r in rows:

@@ -1,6 +1,7 @@
-"""Broadcast exchange and nested-loop join (port of the
-TpuBroadcastExchangeExec and TpuNestedLoopJoinExec parts of
-``spark_rapids_tpu/execs/broadcast.py``, with its pair views).
+"""Broadcast exchange, AQE's runtime build and nested-loop join (port of
+the TpuBroadcastExchangeExec, TpuAdaptiveBuildExec and
+TpuNestedLoopJoinExec parts of ``spark_rapids_tpu/execs/broadcast.py``,
+with its pair views).
 
 A join's build side whose size estimate is under the broadcast threshold
 is materialized ONCE into a single prefix table and reused by every later
@@ -20,9 +21,17 @@ to the front (the compaction kernel). Every join type: inner and cross
 emit the pairs; left (and right, with the sides swapped) outer also each
 tile's unmatched probe rows beside a null build side; full outer also
 the build rows no tile matched, after the last tile; left semi and left
-anti compact the probe rows with (without) a match. The reference's
-runtime broadcast decision (``TpuAdaptiveBuildExec``, AQE) is not
-ported."""
+anti compact the probe rows with (without) a match.
+
+A build side whose static estimate could not prove it broadcastable
+(an aggregate's, whose ``estimate_bytes()`` is None, or a known one past
+the threshold) decides at run time under
+``spark.rapids.sql.adaptive.enabled`` (``TpuAdaptiveBuildExec``, AQE's
+DynamicJoinSelection): the build is measured, and at or under
+``broadcastSizeBytes`` it is concatenated and cached as a SpillableBatch
+like a broadcast; past it, its batches flow on unconcatenated to the
+join's sub-partitioned path, as the single-batch coalesce hands them
+over."""
 
 from __future__ import annotations
 
@@ -119,6 +128,85 @@ class TpuBroadcastExchangeExec(TpuExec):
             weakref.finalize(self, self._cached.release)
             _CACHED_BROADCASTS.add(self)
         yield retry_block(self._cached.get)
+
+
+class TpuAdaptiveBuildExec(TpuExec):
+    """AQE's runtime join-strategy conversion for a join's build side:
+    ``spillable_batches`` measures the build (the device bytes of the
+    one table its batches concatenate into) and at or under
+    ``threshold_bytes`` caches that table as a broadcast's is cached
+    (``->broadcast``), else hands the batches over as they came
+    (``->shuffle``). Metrics ``aqeMeasuredBuildBytes`` and
+    ``aqeBroadcastConverted`` record each decision: once per query, as
+    the executable cache parks a tree without its cached batch
+    (plan/executable_cache.py), so every query measures its build
+    again."""
+
+    def __init__(self, child: TpuExec, threshold_bytes: int):
+        self.children = (child,)
+        self.threshold_bytes = int(threshold_bytes)
+        self._cached = None
+        #: None until the first execution, then True (broadcast) or False
+        self.converted: Optional[bool] = None
+
+    def output_schema(self):
+        return self.children[0].output_schema()
+
+    def spillable_batches(self):
+        from spark_rapids_tpu_torch.runtime.retry import retry_block
+        from spark_rapids_tpu_torch.runtime.spill import (
+            BufferCatalog,
+            SpillableBatch,
+        )
+        if self._cached is not None:
+            table = retry_block(self._cached.get)
+            return [table], table.device_nbytes()
+        items, nbytes = self.children[0].spillable_batches()
+        if nbytes > self.threshold_bytes:
+            self._decide(False, nbytes)
+            return items, nbytes
+        try:
+            table = retry_block(lambda: concat_device(
+                [x.get() if isinstance(x, SpillableBatch) else x
+                 for x in items]).compacted())
+        finally:
+            for x in items:
+                if isinstance(x, SpillableBatch):
+                    x.release()
+        del items
+        measured = table.device_nbytes()
+        self._decide(measured <= self.threshold_bytes, measured)
+        if self.converted:
+            self._cached = SpillableBatch(table, BufferCatalog.get())
+            weakref.finalize(self, self._cached.release)
+            _CACHED_BROADCASTS.add(self)
+        return [table], measured
+
+    def _decide(self, converted: bool, measured: int) -> None:
+        self.add_metric("aqeMeasuredBuildBytes", int(measured))
+        if converted:
+            self.add_metric("aqeBroadcastConverted", 1)
+        self.converted = converted
+
+    def execute(self):
+        from spark_rapids_tpu_torch.runtime.retry import retry_block
+        from spark_rapids_tpu_torch.runtime.spill import SpillableBatch
+        items, _ = self.spillable_batches()
+        try:
+            out = [retry_block(lambda: concat_device(
+                [x.get() if isinstance(x, SpillableBatch) else x
+                 for x in items]).compacted())]
+        finally:
+            for x in items:
+                if isinstance(x, SpillableBatch):
+                    x.release()
+        del items
+        yield out.pop()
+
+    def describe(self):
+        state = {None: "undecided", True: "->broadcast",
+                 False: "->shuffle"}[self.converted]
+        return f"TpuAdaptiveBuild[{state}]"
 
 
 class TpuNestedLoopJoinExec(TpuExec):

@@ -7,7 +7,10 @@ input, then one MASKED view per partition over the same buffers, all of
 them carrying one split token (``DeviceTable.split_group``), so a
 consumer that re-groups every row merges them back into one batch
 (columnar/table.py ``merge_split_views``). ``execute_masked()`` yields
-the views, ``execute()`` their compacted forms. The reference's other
+the views, ``execute()`` their compacted forms. A range exchange's
+bounds come from a sample over the whole concatenated input
+(shuffle/partitioning.py), as the reference samples every batch. The
+reference's other
 transports are not ported: the collective (ICI) and peer-to-peer (P2P)
 shuffles and the file-backed host shuffle. The reference takes the host
 shuffle past ``LOCAL_SPLIT_MAX_PARTITIONS`` partitions, so such a
@@ -26,6 +29,7 @@ from spark_rapids_tpu_torch.ops.expr import Expression
 from spark_rapids_tpu_torch.shuffle.partitioning import (
     HashPartitioner,
     Partitioner,
+    RangePartitioner,
     RoundRobinPartitioner,
     SinglePartitioner,
 )
@@ -38,6 +42,8 @@ def make_partitioner(mode: str, keys: Sequence[Expression],
         if not keys:
             raise ValueError("hash partitioning requires keys")
         return HashPartitioner(keys, num_partitions)
+    if mode == "range":
+        return RangePartitioner(keys, num_partitions)
     if mode == "roundrobin":
         return RoundRobinPartitioner(num_partitions)
     if mode == "single":

@@ -17,7 +17,10 @@ past it each batch sorts on the device and moves to the host as a sorted
 run, and ``sorted_run_stream`` merges the runs range by range. The
 threshold is ``min(outOfCoreThresholdBytes, MEMORY.scan_chunk_bytes())``,
 as the reference's: under a small device budget a multi-batch sort goes
-out of core even below the conf threshold. Pending batches are
+out of core even below the conf threshold. An exchange's per-partition
+views (a local sort after a range exchange) merge back into one masked
+batch first (``merge_split_views``), so they count and sort once at the
+input's capacity; the reference counts each view's capacity. Pending batches are
 SpillableBatches, and every device sort runs in the OOM retry loop
 (``retry_block``)."""
 
@@ -82,14 +85,21 @@ class TpuSortExec(TpuExec):
         return self.children[0].output_schema()
 
     def execute(self):
-        from spark_rapids_tpu_torch.columnar.table import concat_device
+        from spark_rapids_tpu_torch.columnar.table import (
+            concat_device,
+            merge_split_views,
+        )
         from spark_rapids_tpu_torch.runtime.memory import MEMORY
         from spark_rapids_tpu_torch.runtime.retry import retry_block
         from spark_rapids_tpu_torch.runtime.spill import (
             BufferCatalog,
             SpillableBatch,
         )
-        it = self.children[0].execute_masked()
+        # the views of one exchange's split share its buffers: merged back
+        # into one masked batch, they sort once at the input's capacity
+        # (k views would count k capacities against the out-of-core
+        # threshold and sort k times)
+        it = merge_split_views(self.children[0].execute_masked())
         items = first_two(it)
         if not items:
             return

@@ -27,7 +27,6 @@ them while that subsystem is idle (ROADMAP Queue 3's deviations):
 * streaming (item 12): ``microBatches``, ``mvRefreshes``,
   ``mvIncrementalRefreshes``, ``mvFullRecomputes``, ``sinkCommits``,
   ``sinkReplays`` 0, ``mvEpoch`` null;
-* AQE (item 6d): ``aqe``'s counts 0;
 * the padding waste: ``padWasteRows`` 0 (dispatch.py).
 
 ``fallbacks`` lists every node the overrides' tags sent to the CPU route
@@ -101,7 +100,9 @@ def collect_exchanges(executable) -> List[dict]:
 
 
 def collect_aqe(executable) -> Dict[str, int]:
-    """AQE's runtime re-plans over the tree (none in the port: item 6d)."""
+    """AQE's runtime re-plans over the tree: the build sides
+    ``TpuAdaptiveBuildExec`` converted to a broadcast (execs/broadcast.py);
+    the one-device split coalesces no partitions, so that count stays 0."""
     totals = {"broadcastConversions": 0, "coalescedPartitions": 0}
     for e in _walk_exec_tree(executable):
         m = getattr(e, "metrics", None)

@@ -14,23 +14,26 @@ relation or a project, and arrays a generate or an aggregate), a kill
 switch (``spark.rapids.sql.exec.<Node>``,
 ``spark.rapids.sql.expression.<Expr>``), and the reference's per-rule
 gates (joins, windows, aggregates). The tags alone choose the route:
-nothing sends work to the CPU after a device failure. ``convert`` turns
+a device failure moves work to the CPU only through the rungs' tags
+below, on the replay the recovery plans afresh. ``convert`` turns
 a node without reasons into its device exec and leaves a node with
 reasons as a host plan node (``execute_cpu``), with transitions where a
 device parent meets a host child and the reverse (execs/base.py).
 ``explain`` renders the tagged tree (``*`` on the device, ``!`` on the
 CPU route with its reasons). What neither the device nor the CPU route
-runs raises NotImplementedError naming it, before anything runs, and a
-plan node the circuit breaker tripped raises KernelCrashError there
-(runtime/faults.py). Each converted exec carries the plan-node class it
-came from (``_plan_origin``, the breaker's unit), and a broadcast inner
-or left-semi join installs dynamic partition pruning on its probe side's
+runs raises NotImplementedError naming it, before anything runs. At run
+time two rungs move work onto the route through the same tags: a plan
+node the circuit breaker demoted (runtime/faults.py) and, once a device
+loss latched CPU-only mode, every node (runtime/health.py). Each
+converted exec carries the plan-node class it came from
+(``_plan_origin``, the breaker's unit), and a broadcast inner or
+left-semi join installs dynamic partition pruning on its probe side's
 file scan (``_maybe_install_dpp``)."""
 
 from __future__ import annotations
 
 import copy
-from typing import List, Optional
+from typing import Dict, List, Optional
 
 from spark_rapids_tpu_torch import conf as C
 from spark_rapids_tpu_torch.columnar import BucketPolicy
@@ -55,6 +58,7 @@ from spark_rapids_tpu_torch.execs.basic import (
     TpuScanExec,
 )
 from spark_rapids_tpu_torch.execs.broadcast import (
+    TpuAdaptiveBuildExec,
     TpuBroadcastExchangeExec,
     TpuNestedLoopJoinExec,
 )
@@ -64,7 +68,17 @@ from spark_rapids_tpu_torch.execs.sort import (
     TpuSortExec,
     TpuTakeOrderedAndProjectExec,
 )
+from spark_rapids_tpu_torch.overrides.docs import register_exec_sig
 from spark_rapids_tpu_torch.overrides.pruning import prune_plan
+from spark_rapids_tpu_torch.overrides.typesig import (
+    COMMON_128,
+    COMMON_PLUS_ARRAYS,
+    INTEGRAL,
+    NESTED_128,
+    ExprChecks,
+    TypeSig,
+    lookup_mro,
+)
 from spark_rapids_tpu_torch.plan import nodes as P
 
 
@@ -77,6 +91,7 @@ def register_file_scan(cls) -> None:
     """Register a FileScanNode subclass with a device rule; its kill
     switch is ``spark.rapids.sql.exec.<ClassName>``."""
     _FILE_SCANS.add(cls)
+    register_exec_sig(cls, NESTED_128)
 
 
 #: plan nodes with a device rule
@@ -91,47 +106,181 @@ def _host_only_type(dt, nested_ok: str) -> bool:
     """Does the device hold no form of ``dt`` here? ``nested_ok``: which
     nested columns the node's device exec carries ("nested": every
     nested type with a layout, "arrays": arrays with one, "" none)."""
+    return not _OUTPUT_SIGS[nested_ok].supports(dt)
+
+
+#: the output signature of each ``nested_ok`` class of exec (docs.py's
+#: exec rows read them through ``register_exec_sig``)
+_OUTPUT_SIGS = {"nested": NESTED_128, "arrays": COMMON_PLUS_ARRAYS,
+                "": COMMON_128}
+
+
+#: every expression class, with the TypeSig of its OUTPUT; built once
+#: from the ops modules
+_EXPR_SIGS: Dict[type, TypeSig] = {}
+
+#: the modules whose expressions may produce (or pass through) nested
+#: columns; every other expression produces scalars
+_NESTED_OUTPUT_MODULES = frozenset(
+    f"spark_rapids_tpu_torch.{m}" for m in (
+        "ops.expr", "ops.collections", "ops.nested", "ops.json_structs",
+        "ops.conditional", "ops.cast", "ops.misc", "udf"))
+
+#: per-parameter input signatures (the reference's ExprChecks); a class
+#: absent here checks its output only
+_EXPR_CHECKS: Dict[type, ExprChecks] = {}
+
+
+def _build_expr_sigs() -> None:
+    """Register every expression class of the port's modules (one whose
+    form only the CPU route evaluates says so through its
+    ``device_supported``), then the reference's per-parameter checks."""
+    if _EXPR_SIGS:
+        return
+    from spark_rapids_tpu_torch.conf import _op_names
+    from spark_rapids_tpu_torch.ops.expr import Expression
+    _op_names("expression")  # imports every module that defines one
+    todo = [Expression]
+    while todo:
+        cls = todo.pop()
+        todo.extend(cls.__subclasses__())
+        if cls.__name__.startswith("_") or cls is Expression:
+            continue
+        _EXPR_SIGS[cls] = (NESTED_128
+                           if cls.__module__ in _NESTED_OUTPUT_MODULES
+                           else COMMON_128)
+    _register_param_checks()
+
+
+def _register_param_checks() -> None:
+    """The reference's per-parameter input signatures
+    (``_register_param_checks``): family bases cover their subclasses
+    through the MRO walk; irregular operators get entries of their own."""
     from spark_rapids_tpu_torch import types as T
-    from spark_rapids_tpu_torch.columnar.nested import (
-        is_nested_type,
-        layout_supported,
+    from spark_rapids_tpu_torch.ops import (
+        arithmetic,
+        datetime as datetime_ops,
+        hashfns,
+        math,
+        predicates,
+        strings,
     )
-    if not is_nested_type(dt):
-        return False
-    if not layout_supported(dt):
-        return True
-    if nested_ok == "nested":
-        return False
-    return not (nested_ok == "arrays" and isinstance(dt, T.ArrayType))
+    STR = TypeSig(T.StringType)
+    BOOL = TypeSig(T.BooleanType)
+    NUM_DEC = TypeSig(T.ByteType, T.ShortType, T.IntegerType, T.LongType,
+                      T.FloatType, T.DoubleType, T.DecimalType)
+    NUMERIC = TypeSig(T.ByteType, T.ShortType, T.IntegerType, T.LongType,
+                      T.FloatType, T.DoubleType)
+    DT_IN = TypeSig(T.DateType, T.TimestampType)
+    # the port negates and takes the absolute value of a decimal(>18) on
+    # the device (ops/decimal.py's digit tensors); the reference does not
+    NUM_DEC128 = TypeSig(T.ByteType, T.ShortType, T.IntegerType,
+                         T.LongType, T.FloatType, T.DoubleType,
+                         T.DecimalType,
+                         max_decimal_precision=T.DecimalType.MAX_PRECISION)
+
+    def chk(cls, *params, rest=None):
+        _EXPR_CHECKS[cls] = ExprChecks(params, rest=rest)
+
+    chk(arithmetic.BinaryArithmetic, NUM_DEC, NUM_DEC)
+    chk(math.UnaryMath, NUMERIC)
+    chk(predicates.BinaryComparison, COMMON_128, COMMON_128)
+    for cls in (arithmetic.Abs, arithmetic.UnaryMinus,
+                arithmetic.UnaryPositive):
+        chk(cls, NUM_DEC128)
+    for cls in (math.Ceil, math.Floor):
+        chk(cls, NUM_DEC)
+    for cls in (math.Pow, math.Hypot, math.Logarithm):
+        chk(cls, NUMERIC, NUMERIC)
+    for cls in (math.BitwiseAnd, math.BitwiseOr, math.BitwiseXor,
+                math.ShiftLeft, math.ShiftRight, math.ShiftRightUnsigned):
+        chk(cls, INTEGRAL, INTEGRAL)
+    chk(math.BitwiseNot, INTEGRAL)
+    for cls in (math.Round, math.BRound, math.RoundCeil, math.RoundFloor):
+        chk(cls, NUM_DEC, INTEGRAL)
+    chk(predicates.And, BOOL, BOOL)
+    chk(predicates.Or, BOOL, BOOL)
+    chk(predicates.Not, BOOL)
+    chk(predicates.IsNaN, NUMERIC)
+    chk(predicates.IsNull, NESTED_128)
+    chk(predicates.IsNotNull, NESTED_128)
+    for name in ("Upper", "Lower", "Length", "InitCap", "Reverse",
+                 "Ascii", "BitLength", "OctetLength", "StringTrim",
+                 "StringTrimLeft", "StringTrimRight"):
+        chk(getattr(strings, name), STR)
+    for name in ("Contains", "StartsWith", "EndsWith", "Like", "RLike",
+                 "StringInstr"):
+        chk(getattr(strings, name), STR, STR)
+    chk(strings.Substring, STR, INTEGRAL, INTEGRAL)
+    chk(strings.SubstringIndex, STR, STR, INTEGRAL)
+    chk(strings.StringRepeat, STR, INTEGRAL)
+    chk(strings.StringReplace, STR, STR, STR)
+    chk(strings.StringTranslate, STR, STR, STR)
+    chk(strings.StringLocate, STR, STR, INTEGRAL)
+    chk(strings.StringLPad, STR, INTEGRAL, STR)
+    chk(strings.StringRPad, STR, INTEGRAL, STR)
+    chk(strings.Concat, rest=STR)
+    chk(strings.RegExpExtract, STR, STR, INTEGRAL)
+    chk(strings.RegExpReplace, STR, STR, STR)
+    chk(strings.Conv, STR, INTEGRAL, INTEGRAL)
+    for name in ("Year", "Month", "DayOfMonth", "DayOfWeek", "DayOfYear",
+                 "Quarter", "WeekDay", "LastDay", "Hour", "Minute",
+                 "Second", "TsToDate"):
+        chk(getattr(datetime_ops, name), DT_IN)
+    # the port's hash() of a decimal(>18) is Spark's byte hash of the
+    # unscaled value on the device (shuffle/hashing.py's dec128_bytes);
+    # the reference sends it to its CPU path
+    chk(hashfns.Murmur3Hash, rest=COMMON_128)
+    chk(hashfns.XxHash64, rest=COMMON_128)
+    chk(datetime_ops.DateAdd, TypeSig(T.DateType), INTEGRAL)
+    chk(datetime_ops.DateSub, TypeSig(T.DateType), INTEGRAL)
+    chk(datetime_ops.AddMonths, TypeSig(T.DateType), INTEGRAL)
+    chk(datetime_ops.DateDiff, TypeSig(T.DateType), TypeSig(T.DateType))
+
+
+# the exec rows of the generated matrix: the output signature each rule's
+# tag checks (every other exec checks COMMON_128, docs.py's default)
+for _cls in (P.LocalScan, P.Project, P.CachedRelation):
+    register_exec_sig(_cls, NESTED_128)
+for _cls in (P.Generate, P.Aggregate):
+    register_exec_sig(_cls, COMMON_PLUS_ARRAYS)
 
 
 def check_expr(e, conf: C.RapidsConf, reasons: List[str],
                context: str = "") -> None:
     """The reference's ``check_expr``: append why a bound expression tree
-    cannot run on the device (its kill switch, a type the device holds in
-    no form, a form only the CPU route evaluates), recursing into the
-    children and a higher-order function's rebound lambda body."""
-    name = type(e).__name__
-    where = f"{context}{name}"
-    if not conf.is_op_enabled("expression", name):
+    cannot run on the device (a class without a device form, its kill
+    switch, an output or an input type outside its signatures, a form
+    only the CPU route evaluates), recursing into the children and a
+    higher-order function's rebound lambda body."""
+    _build_expr_sigs()
+    cls = type(e)
+    where = f"{context}{cls.__name__}"
+    sig = lookup_mro(_EXPR_SIGS, cls)
+    if sig is None:
+        reasons.append(f"expression {where} is not supported on GPU")
+        return
+    if not conf.is_op_enabled("expression", cls.__name__):
         reasons.append(f"expression {where} is disabled by conf")
         return
     try:
         dt = e.data_type
     except Exception:
         dt = None
-    if dt is not None and _host_only_type(dt, "nested"):
+    if dt is not None and not sig.supports(dt):
         reasons.append(f"expression {where} produces unsupported type "
                        f"{dt.simple_string()}")
     if not e.device_supported:
         reasons.append(f"expression {where} configuration is not "
                        "supported on GPU")
+    checks = lookup_mro(_EXPR_CHECKS, cls)
     for i, c in enumerate(e.children):
+        psig = checks.param_sig(i) if checks is not None else None
         try:
             cdt = c.data_type
         except Exception:
             cdt = None
-        if cdt is not None and _host_only_type(cdt, "nested"):
+        if cdt is not None and not (psig or NESTED_128).supports(cdt):
             reasons.append(f"expression {where} input {i} has unsupported "
                            f"type {cdt.simple_string()}")
     for c in e.children:
@@ -174,9 +323,6 @@ def _tag_rule(meta: "PlanMeta") -> None:
         if isinstance(node, P.Filter):
             check_expr(node.condition, conf, reasons)
         elif isinstance(node, (P.Sort, P.TakeOrderedAndProject)):
-            if isinstance(node, P.Sort) and not node.global_sort:
-                raise NotImplementedError(
-                    "a per-partition (local) sort is not ported")
             for o in node.orders:
                 check_expr(o.expr, conf, reasons, "sort key ")
                 dt = o.expr.data_type
@@ -361,10 +507,6 @@ def _tag_exchange(meta: "PlanMeta") -> None:
             f"partitioning {node.partitioning} is not supported")
     if node.partitioning == "hash" and not node.keys:
         raise NotImplementedError("hash partitioning requires keys")
-    if node.partitioning == "range":
-        raise NotImplementedError(
-            "range partitioning (RangePartitioner's sampled bounds) is not "
-            "ported")
     for k in node.keys:
         check_expr(k, meta.conf, meta.reasons, "partition key ")
 
@@ -467,9 +609,11 @@ def _convert_join(node: P.Join, children, conf: C.RapidsConf) -> TpuExec:
     """A keyless join with a condition, or a keyless join of any type but
     cross, runs as a broadcast nested-loop join. Otherwise the build side
     (the left one for a right outer join, else the right one) is broadcast
-    when its size estimate is under the threshold, else coalesced into one
-    batch, and the probe side streams through a coalesce. Key pairs of
-    different types cast to their common type."""
+    when its size estimate is under the threshold; else, under
+    ``spark.rapids.sql.adaptive.enabled``, AQE's build decides at run
+    time from its measured bytes (``TpuAdaptiveBuildExec``), and without
+    AQE it is coalesced into one batch. The probe side streams through a
+    coalesce. Key pairs of different types cast to their common type."""
     from spark_rapids_tpu_torch import types as T
     from spark_rapids_tpu_torch.ops.cast import Cast, check_cast
     lkeys, rkeys = list(node.left_keys), list(node.right_keys)
@@ -495,10 +639,13 @@ def _convert_join(node: P.Join, children, conf: C.RapidsConf) -> TpuExec:
                                      node.condition, lschema, rschema)
     build_node = node.children[0] if swapped else node.children[1]
     est = build_node.estimate_bytes()
+    threshold = conf.get_entry(C.BROADCAST_SIZE_BYTES)
 
     def wrap_build(child):
-        if est is not None and est <= conf.get_entry(C.BROADCAST_SIZE_BYTES):
+        if est is not None and est <= threshold:
             return TpuBroadcastExchangeExec(child)
+        if conf.get_entry(C.ADAPTIVE_ENABLED):
+            return TpuAdaptiveBuildExec(child, threshold)
         return TpuCoalesceExec(child, require_single=True)
 
     if swapped:
@@ -610,15 +757,25 @@ class PlanMeta:
             PlanMeta(c, conf, self) for c in node.children]
 
     def tag(self) -> None:
+        """The reference's order: a node without a device rule; the
+        CPU-only latch's reason (runtime/health.py: not gated, a latched
+        device cannot be dispatched to); the circuit breaker's demotion
+        (runtime/faults.py, gated by ``runtimeFallback.enabled``); the
+        kill switch; then the rule's own checks."""
         from spark_rapids_tpu_torch.runtime.faults import CIRCUIT_BREAKER
+        from spark_rapids_tpu_torch.runtime.health import HEALTH
         name = type(self.node).__name__
-        # a tripped operator raises (the breaker's demotion onto the CPU
-        # route is not ported)
-        CIRCUIT_BREAKER.check(name)
+        cpu_only = HEALTH.cpu_only_reason()
+        demoted = CIRCUIT_BREAKER.demotion_reason(name)
         if not isinstance(self.node, _DEVICE_NODES) and \
                 type(self.node) not in _FILE_SCANS:
             self.reasons.append(f"exec {self.node.name} is not supported "
                                 "on GPU")
+        elif cpu_only is not None:
+            self.reasons.append(cpu_only)
+        elif demoted is not None and \
+                self.conf.get_entry(C.RUNTIME_FALLBACK_ENABLED):
+            self.reasons.append(demoted)
         elif not self.conf.is_op_enabled("exec", name):
             self.reasons.append(f"exec {self.node.name} is disabled by conf")
         else:
@@ -732,8 +889,10 @@ def _convert_node(node: P.PlanNode, children, conf: C.RapidsConf,
         )
         return TpuShuffleExchangeExec(children[0], node.partitioning,
                                       node.num_partitions, node.keys)
-    # the pre-sort coalesce stops at the out-of-core threshold, as the
-    # reference's (past it, the sort merges sorted host runs)
+    # a global and a per-partition (local) sort convert alike, as the
+    # reference's: one process sorts the partitions' views together. The
+    # pre-sort coalesce stops at the out-of-core threshold (past it, the
+    # sort merges sorted host runs)
     threshold = conf.get_entry(C.SORT_OOC_THRESHOLD)
     return TpuSortExec(TpuCoalesceExec(
         children[0], target_bytes=min(xbasic.BATCH_SIZE_BYTES, threshold)),
@@ -753,8 +912,12 @@ def convert_meta(meta: PlanMeta, device) -> TpuExec:
 
 
 def convert(node: P.PlanNode, conf: C.RapidsConf, device) -> TpuExec:
-    """Tag and convert ``node`` (``wrap_plan``, then ``convert_meta``)."""
-    return convert_meta(wrap_plan(node, conf), device)
+    """Tag ``node`` (``wrap_plan``), let the cost-based optimizer revert
+    it (overrides/optimizer.py) and convert it (``convert_meta``)."""
+    from spark_rapids_tpu_torch.overrides.optimizer import apply_cbo
+    meta = wrap_plan(node, conf)
+    apply_cbo(meta, conf)
+    return convert_meta(meta, device)
 
 
 def collect_cpu_nodes(root) -> List[str]:

@@ -31,7 +31,12 @@ def _factorize_column(col: HostColumn) -> Tuple[np.ndarray, int]:
             vals[i] = tuple((x is not None, x if x is not None else 0)
                             for x in rows[i]) if col.validity[i] else ()
     elif isinstance(col.dtype, T.StringType):
-        vals = np.where(col.validity, col.data, "")
+        # the sorted dictionary encode (nulls as ""): np.unique's
+        # (uniques, inverse), without its sort of every row's object
+        codes, uniq = col.encoded()
+        codes = codes.astype(np.int64) + 1
+        codes[~col.validity] = 0
+        return codes, len(uniq) + 1
     else:
         vals = np.where(col.validity, col.data, np.zeros((), dtype=col.data.dtype))
     uniq, codes = np.unique(vals, return_inverse=True)

@@ -67,14 +67,14 @@ register_metric("executableCacheEvictions", "count", "MODERATE",
 
 def _demotions_token() -> tuple:
     """The coherency component of an entry's generation beyond the
-    warehouse epoch: the circuit breaker's tripped operators (a trip
-    makes the operator's conversion raise, where the reference demotes
-    it) and the health monitor's device-loss generation (a tree
+    warehouse epoch: the circuit breaker's demoted operators (a
+    demotion re-tags the operator onto the CPU route) and the health
+    monitor's device-loss generation (a tree
     converted before a loss never re-parks into a later pool, even though
     the recovery also cleared the cache)."""
     from spark_rapids_tpu_torch.runtime.faults import CIRCUIT_BREAKER
     from spark_rapids_tpu_torch.runtime.health import HEALTH
-    return (tuple(sorted(CIRCUIT_BREAKER.tripped_ops().items())),
+    return (tuple(sorted(CIRCUIT_BREAKER.demoted_ops().items())),
             HEALTH.generation())
 
 

@@ -10,13 +10,11 @@ per-operator circuit breaker and the exec fault boundaries.
 * ``RECOVERY``: counters of every recovery action, in the ``recovery``
   metric scope.
 * :func:`backoff_retry`: the exponential-backoff retry loop.
-* ``CIRCUIT_BREAKER``: per-operator non-OOM failure counts. Where the
-  reference demotes an operator that failed
-  ``spark.rapids.sql.runtimeFallback.maxFailures`` times to its CPU path,
-  the port does not demote yet (the CPU route exists; the demotion onto
-  it is ROADMAP Queue 1's [9c-rungs]): a tripped operator raises
-  :class:`KernelCrashError` naming the breaker, at the failure and at
-  every later conversion, until :meth:`CircuitBreaker.reset`.
+* ``CIRCUIT_BREAKER``: per-operator non-OOM failure counts. An operator
+  that failed ``spark.rapids.sql.runtimeFallback.maxFailures`` times is
+  demoted onto the CPU route: ``PlanMeta.tag`` (overrides/rules.py) tags
+  every later conversion of it with the breaker's reason, until
+  :meth:`CircuitBreaker.reset`.
 * :func:`install_fault_boundaries`: the ``exec.execute`` point and op
   attribution (``fault_op``) on every exec of a converted tree.
 
@@ -353,21 +351,13 @@ def backoff_retry(fn, *, max_retries: int, wait_s: float,
 
 # -- the per-operator circuit breaker ----------------------------------------
 
-#: the ROADMAP item that brings the run-time demotions onto the CPU route
-#: (named in every raise of a rung the reference would take onto it)
-CPU_ROUTE_ITEM = "ROADMAP item [9c-rungs]"
-
-
 class CircuitBreaker:
     """Counts non-OOM device failures per PLAN-NODE class, process-wide
     like the speculation blocklist (a kernel that crashes the shared
     device is broken for every session). The failure that reaches
-    ``max_failures`` trips the operator and records the reason. The
-    reference then demotes the operator to its CPU path; the port does
-    not demote at run time yet, so the session raises the failure with
-    that reason, and
-    :meth:`check` raises it again at every later conversion of the
-    operator until :meth:`reset`."""
+    ``max_failures`` demotes the operator onto the CPU route: its reason
+    feeds ``PlanMeta.reasons``, so ``explain`` and the event record's
+    ``fallbacks`` say why it runs there, until :meth:`reset`."""
 
     def __init__(self):
         self._lock = ordered_lock("faults.breaker")
@@ -376,8 +366,8 @@ class CircuitBreaker:
 
     def record_failure(self, op: str, exc: BaseException,
                        max_failures: int) -> bool:
-        """Count one failure of ``op``; True when this failure tripped
-        it."""
+        """Count one failure of ``op``; True when this failure crossed the
+        threshold and demoted the op (``RECOVERY.demotions``)."""
         first = str(exc).splitlines()[0] if str(exc) else type(exc).__name__
         with self._lock:
             if op in self._reasons:
@@ -387,28 +377,18 @@ class CircuitBreaker:
             if n < max_failures:
                 return False
             self._reasons[op] = (
-                f"runtime circuit breaker: {op} tripped after {n} device "
-                f"failures (last: {type(exc).__name__}: {first}); the "
-                "reference demotes it to its CPU path, which is not ported "
-                f"({CPU_ROUTE_ITEM})")
+                f"runtime circuit breaker: demoted to CPU after {n} device "
+                f"failures (last: {type(exc).__name__}: {first})")
+        RECOVERY.bump("demotions")
         return True
 
-    def reason(self, op: str) -> Optional[str]:
+    def demotion_reason(self, op: str) -> Optional[str]:
         with self._lock:
             return self._reasons.get(op)
 
-    def tripped_ops(self) -> Dict[str, str]:
+    def demoted_ops(self) -> Dict[str, str]:
         with self._lock:
             return dict(self._reasons)
-
-    def check(self, op: str) -> None:
-        """Raise KernelCrashError for a tripped ``op`` (the conversion's
-        check, where the reference's PlanMeta.tag falls the op back)."""
-        reason = self._reasons.get(op) if self._reasons else None
-        if reason is not None:
-            err = KernelCrashError(reason)
-            err.fault_op = op
-            raise err
 
     def reset(self) -> None:
         with self._lock:

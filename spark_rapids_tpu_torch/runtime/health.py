@@ -10,18 +10,21 @@ single card needs).
   (a transient or injected loss) the monitor counts a re-initialisation
   and the next query runs on the card. When it fails, or after
   ``spark.rapids.service.deviceLoss.maxReinits`` consecutive losses, the
-  process latches: every later execute raises DeviceLostError naming the
-  latch and the crash report. CUDA cannot re-create a context in the
-  process after a sticky error, so there is no in-process backend
-  re-initialisation; the reference latches CPU-only mode instead, which
-  the port does not yet (ROADMAP item [9c-rungs]).
+  process latches CPU-only mode, as the reference's does: the failing
+  query raises DeviceLostError, and every later query runs wholly on the
+  CPU route (``PlanMeta.tag`` gives every node :meth:`cpu_only_reason`).
+  CUDA cannot re-create a context in the process after a sticky error,
+  so a latched process makes no CUDA call (the session's CPU-only path,
+  session.py).
 * **Memory ladder.** A FatalDeviceOOM that escaped the retry framework
   walks one rung per escalation: ``retry`` (evict the device caches, spill
   the whole device tier, replay at the same shape), then ``chunk`` (replay
-  with the scans chunked at half the scan chunk share), then ``abort``:
-  the session re-raises the FatalDeviceOOM naming the rung the reference
-  would take (``cpu_demote``, onto its CPU path). Any completed query
-  resets the ladder.
+  with the scans chunked at half the scan chunk share), then
+  ``cpu_demote``: the attributed operator (``fault_op``) trips the
+  circuit breaker at threshold 1 and the replay plans it onto the CPU
+  route. Without an attributed operator the rung is ``abort``: the
+  session re-raises the FatalDeviceOOM. Any completed query resets the
+  ladder.
 
 * **Poison-query quarantine** (:class:`QuarantineRegistry`): a query
   template (``plan/fingerprint.py::template_fingerprint``) that keeps
@@ -36,8 +39,8 @@ single card needs).
 Not ported here: the mesh and host ladders (ROADMAP item 11). Counters
 live in the ``health`` metric scope under the reference's names:
 ``deviceLost``, ``deviceReinits``, ``memoryPressure``,
-``memoryChunkedReexecutions``, ``quarantineStrikes`` and
-``quarantinedTemplates``."""
+``memoryChunkedReexecutions``, ``memoryCpuDemotions``,
+``quarantineStrikes`` and ``quarantinedTemplates``."""
 
 from __future__ import annotations
 
@@ -47,10 +50,9 @@ from spark_rapids_tpu_torch.conf import (  # noqa: F401 (re-export)
     DEVICE_LOSS_MAX_REINITS,
     QUARANTINE_MAX_STRIKES,
 )
-from spark_rapids_tpu_torch.errors import DeviceLostError, FatalDeviceOOM
+from spark_rapids_tpu_torch.errors import FatalDeviceOOM
 from spark_rapids_tpu_torch.lockorder import ordered_lock
 from spark_rapids_tpu_torch.obs.metrics import metric_scope, register_metric
-from spark_rapids_tpu_torch.runtime.faults import CPU_ROUTE_ITEM
 
 register_metric("deviceLost", "count", "ESSENTIAL",
                 "fatal device errors observed (each drops the device "
@@ -65,6 +67,9 @@ register_metric("memoryPressure", "count", "ESSENTIAL",
 register_metric("memoryChunkedReexecutions", "count", "ESSENTIAL",
                 "query replays forced onto chunked scans by the memory "
                 "ladder's 'chunk' rung")
+register_metric("memoryCpuDemotions", "count", "ESSENTIAL",
+                "operators the memory ladder's 'cpu_demote' rung moved onto "
+                "the CPU route through the circuit breaker")
 register_metric("quarantineStrikes", "count", "MODERATE",
                 "poison-query strikes recorded against query templates")
 register_metric("quarantinedTemplates", "count", "ESSENTIAL",
@@ -110,29 +115,25 @@ class DeviceHealthMonitor:
         self.reset()
 
     # -- the latch -------------------------------------------------------------
-    def latch_reason(self) -> Optional[str]:
-        return self._latch_reason
-
-    def check_latch(self) -> None:
-        """Raise the latch's DeviceLostError once the process latched."""
-        reason = self._latch_reason
-        if reason is not None:
-            raise DeviceLostError(reason)
+    def cpu_only_reason(self) -> Optional[str]:
+        """The latch's reason once the process latched CPU-only mode (every
+        operator's tag then), else None."""
+        return self._cpu_only_reason
 
     # -- device loss ----------------------------------------------------------
     def on_device_loss(self, exc: BaseException, conf, device,
                        report: Optional[str] = None) -> str:
         """One fatal device error: count it, drop the device caches, probe
         the context. Returns ``"DEGRADED"`` (the next query runs on the
-        card) or ``"LATCHED"``."""
+        card) or ``"CPU_ONLY"`` (the process latched)."""
         max_reinits = int(conf.get_entry(DEVICE_LOSS_MAX_REINITS))
         with self._lock:
             self._losses += 1
             self._consecutive_losses += 1
             n = self._consecutive_losses
             self._metrics.add("deviceLost", 1)
-            if self._latch_reason is not None:
-                return "LATCHED"
+            if self._cpu_only_reason is not None:
+                return "CPU_ONLY"
         evict_device_state()
         # every cached converted tree may hold the lost context's state
         from spark_rapids_tpu_torch.plan.executable_cache import EXEC_CACHE
@@ -147,14 +148,11 @@ class DeviceHealthMonitor:
                    else f"{n} consecutive device losses "
                         f"(spark.rapids.service.deviceLoss.maxReinits="
                         f"{max_reinits})")
-            self._latch_reason = (
-                f"device health: the process latched after {why}; last "
-                f"loss {type(exc).__name__}: {_first_line(exc)}; crash "
-                f"report {report or 'not written'}. CUDA cannot re-create "
-                "a context in this process: restart it (the reference "
-                "latches CPU-only mode instead, which is not ported: "
-                f"{CPU_ROUTE_ITEM})")
-            return "LATCHED"
+            self._cpu_only_reason = (
+                f"device health: CPU-only mode latched after {why} (last: "
+                f"{type(exc).__name__}: {_first_line(exc)}; crash report "
+                f"{report or 'not written'})")
+            return "CPU_ONLY"
 
     def note_success(self) -> None:
         """A query completed: the consecutive-loss budget and the memory
@@ -167,7 +165,8 @@ class DeviceHealthMonitor:
     # -- the memory ladder ------------------------------------------------------
     def on_memory_pressure(self, exc: BaseException, conf) -> str:
         """One FatalDeviceOOM that escaped the retry framework: the rung
-        the session takes (``retry``, ``chunk`` or ``abort``)."""
+        the session takes (``retry``, ``chunk``, then ``cpu_demote`` for
+        an error that carries ``fault_op``, else ``abort``)."""
         from spark_rapids_tpu_torch.columnar.table import evict_device_caches
         with self._lock:
             self._mem_events += 1
@@ -194,18 +193,26 @@ class DeviceHealthMonitor:
             except Exception:
                 pass
             return "chunk"
-        return "abort"
+        op = getattr(exc, "fault_op", None)
+        if op is None:
+            return "abort"
+        from spark_rapids_tpu_torch.runtime.faults import CIRCUIT_BREAKER
+        # one recorded failure at threshold 1 trips the breaker: the
+        # replay's tag moves the operator onto the CPU route
+        CIRCUIT_BREAKER.record_failure(op, exc, max_failures=1)
+        with self._lock:
+            self._mem_cpu_demotions += 1
+            self._metrics.add("memoryCpuDemotions", 1)
+        return "cpu_demote"
 
     @staticmethod
     def abort_error(exc: BaseException) -> FatalDeviceOOM:
         """The ``abort`` rung's FatalDeviceOOM: ``exc``'s message and
-        ``fault_op``, naming the rung the reference would take."""
+        ``fault_op``, after the ladder's rungs."""
         op = getattr(exc, "fault_op", None)
         err = FatalDeviceOOM(
-            f"{exc}; memory ladder exhausted (retry, chunk): the "
-            f"reference's cpu_demote rung would move "
-            f"{op or 'the operator'} to its CPU path, which is not ported "
-            f"({CPU_ROUTE_ITEM})")
+            f"{exc}; memory ladder exhausted (retry, chunk) and no "
+            "operator to demote onto the CPU route")
         err.fault_op = op
         return err
 
@@ -221,10 +228,12 @@ class DeviceHealthMonitor:
                 "deviceLost": self._losses,
                 "deviceReinits": self._reinits,
                 "consecutiveLosses": self._consecutive_losses,
-                "latched": self._latch_reason is not None,
+                "latched": self._cpu_only_reason is not None,
+                "cpuOnlyReason": self._cpu_only_reason,
                 "memoryPressureEvents": self._mem_events,
                 "memoryConsecutive": self._mem_consecutive,
                 "memoryChunkedReexecutions": self._mem_chunked,
+                "memoryCpuDemotions": self._mem_cpu_demotions,
             }
 
     def reset(self) -> None:
@@ -232,10 +241,11 @@ class DeviceHealthMonitor:
             self._losses = 0
             self._reinits = 0
             self._consecutive_losses = 0
-            self._latch_reason: Optional[str] = None
+            self._cpu_only_reason: Optional[str] = None
             self._mem_events = 0
             self._mem_consecutive = 0
             self._mem_chunked = 0
+            self._mem_cpu_demotions = 0
 
 
 HEALTH = DeviceHealthMonitor()

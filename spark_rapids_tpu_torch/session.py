@@ -264,8 +264,8 @@ class TorchSession:
         the outer envelope. The replay counts are ``last_metrics()``'s
         ``speculationReplays`` and ``runtimeFaultReplays``. A
         ``WriteFiles`` plan runs its child so, then writes and commits its
-        files. Once a device loss latched the process, raises that
-        DeviceLostError."""
+        files. Once a device loss latched CPU-only mode, every query runs
+        wholly on the CPU route (``_execute_cpu_only``)."""
         import time
 
         from spark_rapids_tpu_torch.conf import (
@@ -279,7 +279,6 @@ class TorchSession:
         from spark_rapids_tpu_torch.runtime.health import HEALTH
         from spark_rapids_tpu_torch.runtime.memory import MEMORY
         FAULTS.arm(str(self.conf.get_entry(TEST_FAULTS) or ""))
-        HEALTH.check_latch()
         q = self._q
         query_tag, q.next_tag = q.next_tag, None
         sql_text, q.next_sql = q.next_sql, None
@@ -313,7 +312,8 @@ class TorchSession:
         q.exec_depth = 1
         t0 = time.perf_counter()
         try:
-            if not isinstance(plan, P.WriteFiles):
+            if not isinstance(plan, P.WriteFiles) and \
+                    HEALTH.cpu_only_reason() is None:
                 MEMORY.reset_peak()
             result = self._execute_plan(plan)
         except BaseException:
@@ -417,7 +417,7 @@ class TorchSession:
             fault_fires={k: v - before_fires.get(k, 0)
                          for k, v in after_fires.items()
                          if v - before_fires.get(k, 0)},
-            demotions=CIRCUIT_BREAKER.tripped_ops(),
+            demotions=CIRCUIT_BREAKER.demoted_ops(),
             spans_summary=summarize_spans(spans, ctx.owner_tid, wall_s),
             fault_replays=int(self._last_fault_replays or 0),
             compile_ms=float(q.compile_ms or 0.0),
@@ -523,20 +523,24 @@ class TorchSession:
         * an OOM that escaped every retry (a FatalDeviceOOM, or a
           retryable one wrapped as such) walks the memory ladder
           (runtime/health.py): a full spill and a same-shape replay, then
-          a replay with the scans chunked at half their share, then the
-          FatalDeviceOOM, naming the rung the reference would take;
+          a replay with the scans chunked at half their share, then a
+          replay with the attributed operator demoted onto the CPU route
+          (``cpu_demote``); without an attributed operator the
+          FatalDeviceOOM re-raises;
         * a fatal device error writes a crash report (or exits 20 under
           ``spark.rapids.fatalError.exit``), hands recovery to the health
-          monitor and raises DeviceLostError;
-        * a KernelCrashError replays the query (within
-          ``runtimeFallback.maxFailures`` failures of one operator, when
-          ``runtimeFallback.enabled``); the failure that trips the
-          circuit breaker raises, where the reference demotes the
-          operator to its CPU path.
+          monitor and raises DeviceLostError; once the monitor latched
+          CPU-only mode, every later query runs on the CPU route
+          (``_execute_cpu_only``);
+        * a KernelCrashError replays the query (when
+          ``runtimeFallback.enabled``): the circuit breaker counts the
+          failure of its operator, and the failure that reaches
+          ``runtimeFallback.maxFailures`` demotes the operator, which the
+          replay's tag plans onto the CPU route.
 
-        The ``chunk`` and ``abort`` rungs and a device loss each strike
-        the plan's template in the quarantine. A replay drops the
-        query's executable-cache entry and plans fresh."""
+        The ``chunk``, ``cpu_demote`` and ``abort`` rungs and a device loss
+        each strike the plan's template in the quarantine. A replay drops
+        the query's executable-cache entry and plans fresh."""
         from contextlib import nullcontext
 
         from spark_rapids_tpu_torch.conf import (
@@ -565,13 +569,18 @@ class TorchSession:
         from spark_rapids_tpu_torch.runtime.retry import is_device_oom
         rf_enabled = bool(self.conf.get_entry(RUNTIME_FALLBACK_ENABLED))
         max_failures = int(self.conf.get_entry(RUNTIME_FALLBACK_MAX_FAILURES))
-        # enough to trip every operator of a plan, never unbounded on an
-        # unattributed crash
-        max_replays = 4 * max_failures + 4
+        # enough to demote every operator of a plan, never unbounded on an
+        # unattributed crash; the memory ladder's replays likewise
+        max_replays = max_mem_replays = 4 * max_failures + 4
         replays = mem_replays = 0
         self._last_fault_replays = 0
         force_chunk = None
         while True:
+            if HEALTH.cpu_only_reason() is not None:
+                result = self._execute_cpu_only(plan)
+                self._last_fault_replays = replays
+                HEALTH.note_success()
+                return result
             chunk_ctx = (forced_chunking(force_chunk)
                          if force_chunk is not None else nullcontext())
             force_chunk = None
@@ -597,13 +606,16 @@ class TorchSession:
                     if action != "retry":
                         self._strike_fault_template(plan, exc, action,
                                                     "memory")
-                    if action == "abort":
+                    if action == "abort" or mem_replays >= max_mem_replays:
                         raise HEALTH.abort_error(exc) from exc
                     self._drop_cached_tree()
                     mem_replays += 1
                     RECOVERY.bump("query_replays")
                     if action == "chunk":
                         force_chunk = max(1, MEMORY.scan_chunk_bytes() // 2)
+                    # "retry" replays at the same shape after the full
+                    # spill; "cpu_demote" re-plans with the operator on
+                    # the CPU route
                     continue
                 if is_fatal_device_error(exc):
                     report = handle_fatal(exc, self.conf, tree_string(
@@ -618,26 +630,60 @@ class TorchSession:
                         f"({type(exc).__name__}: "
                         f"{str(exc).splitlines()[0] if str(exc) else ''}); "
                         f"crash report {report or 'not written'}; " + (
-                            HEALTH.latch_reason() if state == "LATCHED"
+                            f"{HEALTH.cpu_only_reason()}: the next query "
+                            "runs on the CPU route" if state == "CPU_ONLY"
                             else "the context probe passed: the next "
                                  "query runs on the card"))
                     lost.fault_op = getattr(exc, "fault_op", None)
                     lost.report_path = report
                     raise lost from exc
                 if not rf_enabled or not isinstance(exc, KernelCrashError) \
-                        or replays >= max_replays \
-                        or CIRCUIT_BREAKER.reason(
-                            getattr(exc, "fault_op", None)) is not None:
+                        or replays >= max_replays:
                     raise
                 op = getattr(exc, "fault_op", None)
-                if op is not None and CIRCUIT_BREAKER.record_failure(
-                        op, exc, max_failures):
-                    tripped = KernelCrashError(CIRCUIT_BREAKER.reason(op))
-                    tripped.fault_op = op
-                    raise tripped from exc
+                if op is not None:
+                    CIRCUIT_BREAKER.record_failure(op, exc, max_failures)
                 self._drop_cached_tree()
                 replays += 1
                 RECOVERY.bump("query_replays")
+
+    def _execute_cpu_only(self, plan: P.PlanNode) -> HostTable:
+        """A query of a process latched CPU-only (runtime/health.py): the
+        tag gives every node the latch's reason, and the host plan is
+        collected on the host. A CUDA context poisoned by a sticky error
+        raises at every CUDA call, so this path makes none: no device
+        manager, memory budget, executable cache, semaphore, profiler,
+        observation boundaries or device transitions."""
+        import time
+
+        from spark_rapids_tpu_torch.overrides.input_file import (
+            rewrite_input_file_exprs,
+        )
+        from spark_rapids_tpu_torch.overrides.rules import (
+            convert_meta,
+            wrap_plan,
+        )
+        q = self._q
+        top = q.exec_depth == 1
+        t0 = time.perf_counter()
+        self._last_root, self._last_replays = None, 0
+        meta = wrap_plan(rewrite_input_file_exprs(plan), self.conf)
+        root = convert_meta(meta, self.device)
+        if self.conf.explain_mode in ("NOT_ON_GPU", "ALL"):
+            print(meta.explain(
+                only_fallback=self.conf.explain_mode == "NOT_ON_GPU"))
+        self._last_root = self._last_executable = root
+        t1 = time.perf_counter()
+        result = root.collect()
+        if top:
+            self.last_meta = meta
+            self.last_executable_cache_hit = False
+            self.last_dispatches = 0
+            self.last_compile_ms = 0.0
+            self._last_phases = {"planS": t1 - t0,
+                                 "executeS": time.perf_counter() - t1,
+                                 "collectS": 0.0}
+        return result
 
     def _drop_cached_tree(self) -> None:
         """Before a replay: the failed attempt's checked-out tree is
@@ -696,6 +742,7 @@ class TorchSession:
         from spark_rapids_tpu_torch.overrides.input_file import (
             rewrite_input_file_exprs,
         )
+        from spark_rapids_tpu_torch.overrides.optimizer import apply_cbo
         from spark_rapids_tpu_torch.overrides.rules import (
             convert_meta,
             wrap_plan,
@@ -727,8 +774,10 @@ class TorchSession:
             root, meta = tok.executable, tok.meta
         else:
             if self.conf.sql_enabled:
-                # the tags choose each node's route (overrides/rules.py)
+                # the tags, then the cost-based optimizer, choose each
+                # node's route (overrides/rules.py, optimizer.py)
                 meta = wrap_plan(plan, self.conf)
+                apply_cbo(meta, self.conf)
                 root = convert_meta(meta, self.device)
             else:
                 # spark.rapids.sql.enabled=false: the whole plan on the

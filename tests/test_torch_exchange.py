@@ -380,13 +380,3 @@ def test_unported_shuffles_raise_naming_themselves():
     with pytest.raises(NotImplementedError, match="33 partitions"):
         df.repartition(33, "k").group_by("flag").agg(
             TF.count("qty")).collect_table()
-
-
-def test_range_partitioning_raises():
-    from spark_rapids_tpu_torch.plan import nodes as P
-    from spark_rapids_tpu_torch.plan.dataframe import DataFrame
-    df = tfrom(host_table_from_arrays(*_li(50)), TorchSession(device="cpu"))
-    ranged = DataFrame(P.Exchange(df.plan, "range", 4, [tcol("k")]),
-                       df.session)
-    with pytest.raises(NotImplementedError, match="range partitioning"):
-        ranged.collect_table()

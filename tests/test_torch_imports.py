@@ -62,11 +62,26 @@ def test_every_module_imports_without_jax():
         "import chip_smoke\n"
         "assert not [m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r} and sys.modules[m] is not None]\n"
-        "print(len(names))\n")
+        "print(' '.join(names))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip().splitlines()[-1]) >= 25
+    names = set(out.stdout.strip().splitlines()[-1].split())
+    assert len(names) >= 25
+    assert {f"spark_rapids_tpu_torch.overrides.{m}"
+            for m in PLANNING_MODULES} <= names
+
+
+#: the planning modules of the overrides (the type signatures, the
+#: generated matrix, the API audit and the cost-based optimizer)
+PLANNING_MODULES = ("typesig", "docs", "api_validation", "optimizer")
+
+
+def test_the_planning_modules_are_scanned():
+    """The AST scan above covers the overrides' planning modules."""
+    scanned = {p.relative_to(ROOT).as_posix() for p in _port_files()}
+    assert {f"spark_rapids_tpu_torch/overrides/{m}.py"
+            for m in PLANNING_MODULES} <= scanned
 
 
 def test_session_without_cuda_raises(monkeypatch):

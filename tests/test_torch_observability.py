@@ -196,7 +196,6 @@ IDLE_FIELDS = {
     "commitRetries": 0, "microBatches": 0, "mvRefreshes": 0,
     "mvIncrementalRefreshes": 0, "mvFullRecomputes": 0, "sinkCommits": 0,
     "sinkReplays": 0, "mvEpoch": None, "fallbacks": [],
-    "aqe": {"broadcastConversions": 0, "coalescedPartitions": 0},
 }
 
 

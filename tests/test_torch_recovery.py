@@ -7,9 +7,11 @@ of ``tests/test_faults_recovery.py:543-635`` (a transient crash replays,
 the switch off surfaces the crash, every fault point names an existing
 site) and ``tests/test_memory.py:254``/``:288`` (the memory ladder's unit
 walk, and end to end), the CUDA classification from constructed errors,
-the crash report's contents and the exit-20 protocol. Where the port
-raises instead of moving work to a CPU path, the test's name says so.
-Results compare with ``scale_test.tables_differ`` (bit for bit), the
+the crash report's contents and the exit-20 protocol. The three rungs
+that move work onto the CPU route at run time (the breaker's demotion,
+the ladder's ``cpu_demote``, the CPU-only latch) are held to the
+reference's answers and reasons (its "TPU" read as "GPU"). Results
+compare with ``scale_test.tables_differ`` (bit for bit), the
 chunked replay with ``scale_test.tables_close`` (its f64 sums add
 per-chunk partials)."""
 
@@ -149,7 +151,7 @@ def test_transient_crash_replays_without_tripping():
     assert ps.last_metrics()["runtimeFaultReplays"] == \
         rs.last_fault_replays == 1
     assert ps.last_metrics()["query_replays"] == 1
-    assert tfaults.CIRCUIT_BREAKER.tripped_ops() == {}
+    assert tfaults.CIRCUIT_BREAKER.demoted_ops() == {}
     assert jfaults.CIRCUIT_BREAKER.demoted_ops() == {}
 
 
@@ -164,38 +166,66 @@ def test_runtime_fallback_disabled_surfaces_the_crash():
     with pytest.raises(JKernelCrashError):
         jfrom(rt, TpuSession({**NO_CACHE, **conf})).filter(
             jcol("v") > jlit(0.5)).collect_table()
-    assert tfaults.CIRCUIT_BREAKER.tripped_ops() == {}
+    assert tfaults.CIRCUIT_BREAKER.demoted_ops() == {}
     assert jfaults.CIRCUIT_BREAKER.demoted_ops() == {}
 
 
 def test_deterministic_crash_raises_where_the_reference_demotes():
-    """A Filter that crashes every time: the reference's breaker demotes it
-    to the CPU at the second failure and the query answers; the port's
-    breaker trips at the same failure and raises KernelCrashError with
-    ``fault_op`` and the breaker's reason, and every later conversion of a
-    Filter raises it until the breaker resets."""
+    """A Filter that crashes every time: both breakers demote it at the
+    second failure, with the same reason, and the replay answers with the
+    Filter on the CPU route (its reason in ``explain`` and the event
+    record's ``fallbacks``; ``demotions`` 1). Later conversions keep it
+    there until the breaker resets; after the reset the plan has no
+    CPU-route node again. (The name predates the demotion: both packages
+    answer now.)"""
+    from spark_rapids_tpu_torch.obs.events import collect_fallbacks
+    from spark_rapids_tpu_torch.overrides.rules import collect_cpu_nodes
     conf = {"spark.rapids.test.faults": "exec.execute@Filter:crash:999",
             "spark.rapids.sql.runtimeFallback.maxFailures": "2"}
-    pt, rt = _tables(*_keyed())
-    ps = TorchSession(conf, device="cpu")
-    with pytest.raises(KernelCrashError, match="circuit breaker") as e:
-        tfrom(pt, ps).filter(col("v") > lit(0.5)).collect_table()
-    assert e.value.fault_op == "Filter"
-    assert "CPU path, which is not ported" in str(e.value)
-    reason = tfaults.CIRCUIT_BREAKER.reason("Filter")
-    assert "tripped after 2 device failures" in reason
-    assert "injected kernel crash" in reason
-    want = jfrom(rt, TpuSession({**NO_CACHE, **conf})).filter(
-        jcol("v") > jlit(0.5)).collect_table()
-    assert "Filter" in jfaults.CIRCUIT_BREAKER.demoted_ops()
-    tfaults.FAULTS.disarm()
-    with pytest.raises(KernelCrashError, match="circuit breaker"):
-        tfrom(pt, TorchSession(device="cpu")).filter(
-            col("v") > lit(0.5)).collect_table()
-    tfaults.CIRCUIT_BREAKER.reset()
-    got = tfrom(pt, TorchSession(device="cpu")).filter(
-        col("v") > lit(0.5)).collect_table()
+    got, want, ps, _ = _run_both(conf, conf, _filter_query)
     assert tables_differ(_as_reference(got), want) is None
+    assert tables_differ(got, _plain(_filter_query)) is None
+    reason = tfaults.CIRCUIT_BREAKER.demotion_reason("Filter")
+    assert reason == jfaults.CIRCUIT_BREAKER.demotion_reason("Filter")
+    assert reason.startswith("runtime circuit breaker: demoted to CPU "
+                             "after 2 device failures")
+    assert "injected kernel crash" in reason
+    m = ps.last_metrics()
+    assert (m["runtimeFaultReplays"], m["demotions"]) == (2, 1)
+    assert collect_cpu_nodes(ps._last_root) == ["Filter"]
+    assert collect_fallbacks(ps.last_meta) == [{"op": "Filter",
+                                                "reasons": [reason]}]
+    pt, _ = _tables(*_keyed())
+    s = TorchSession(device="cpu")
+    df = _filter_query(s, tfrom, col, lit, F, pt)
+    assert "! Filter[" in s.explain(df) and reason in s.explain(df)
+    tfaults.FAULTS.disarm()
+    assert tables_differ(df.collect_table(), got) is None
+    assert collect_cpu_nodes(s._last_root) == ["Filter"]
+    tfaults.CIRCUIT_BREAKER.reset()
+    assert tables_differ(df.collect_table(), got) is None
+    assert collect_cpu_nodes(s._last_root) == []
+
+
+def test_a_demotion_waits_for_the_runtime_fallback_switch():
+    """A demoted operator stays on the device while
+    ``runtimeFallback.enabled`` is false (the tag gates the breaker's
+    reason on it, as the reference's does), and moves to the CPU route
+    when it is on again."""
+    from spark_rapids_tpu_torch.overrides.rules import collect_cpu_nodes
+    conf = {"spark.rapids.test.faults": "exec.execute@Filter:crash:2",
+            "spark.rapids.sql.runtimeFallback.maxFailures": "2"}
+    got, _, _, _ = _run_both(conf, conf, _filter_query)
+    assert "Filter" in tfaults.CIRCUIT_BREAKER.demoted_ops()
+    pt, _ = _tables(*_keyed())
+    off = TorchSession({"spark.rapids.sql.runtimeFallback.enabled":
+                        "false"}, device="cpu")
+    assert tables_differ(_filter_query(off, tfrom, col, lit, F, pt)
+                         .collect_table(), got) is None
+    assert collect_cpu_nodes(off._last_root) == []
+    on = TorchSession(device="cpu")
+    _filter_query(on, tfrom, col, lit, F, pt).collect_table()
+    assert collect_cpu_nodes(on._last_root) == ["Filter"]
 
 
 def test_boundaries_tag_the_innermost_converted_exec():
@@ -265,13 +295,17 @@ def test_memory_ladder_unit_walk():
     assert H.on_memory_pressure(exc, conf) == "chunk"
     assert H.on_memory_pressure(exc, conf) == "abort"
     exc.fault_op = "SomeOp"
-    assert H.on_memory_pressure(exc, conf) == "abort"
+    assert H.on_memory_pressure(exc, conf) == "cpu_demote"
+    assert tfaults.CIRCUIT_BREAKER.demotion_reason("SomeOp").startswith(
+        "runtime circuit breaker: demoted to CPU after 1 device failures")
     err = H.abort_error(exc)
     assert isinstance(err, FatalDeviceOOM) and err.fault_op == "SomeOp"
-    assert "cpu_demote" in str(err) and "2 spill-retries" in str(err)
+    assert "memory ladder exhausted" in str(err)
+    assert "2 spill-retries" in str(err)
     snap = H.snapshot()
     assert (snap["memoryPressureEvents"], snap["memoryChunkedReexecutions"],
-            snap["memoryConsecutive"]) == (4, 1, 4)
+            snap["memoryConsecutive"], snap["memoryCpuDemotions"]) == \
+        (4, 1, 4, 1)
     H.note_success()
     assert H.snapshot()["memoryConsecutive"] == 0
     # the reference's rungs, for the same escalations: the same two, then
@@ -309,34 +343,50 @@ def test_memory_ladder_end_to_end(n, rungs):
 
 
 def test_memory_ladder_abort_raises_where_the_reference_demotes():
-    """Nine injections fail three attempts: the reference demotes the
-    attributed scan to its CPU path and answers; the port re-raises the
-    FatalDeviceOOM with its ``fault_op``, naming the rung."""
+    """Nine injections fail three attempts: the third escalation carries
+    the scan's ``fault_op``, so both ladders take ``cpu_demote`` (the
+    scan onto the CPU route) and answer alike. Without an attributed
+    operator the rung is ``abort``: the FatalDeviceOOM re-raises. (The
+    name predates the demotion.)"""
     conf = {"spark.rapids.test.faults": "mem.reserve:oom:9"}
-    pt, rt = _tables(*_keyed())
-    ps = TorchSession(conf, device="cpu")
-    with pytest.raises(FatalDeviceOOM, match="cpu_demote") as e:
-        _agg_query(ps, tfrom, col, lit, F, pt).collect_table()
-    assert e.value.fault_op == "LocalScan"
-    assert ps.last_metrics()["memoryPressure"] == 3
-    want = _agg_query(TpuSession({**NO_CACHE, **conf}), jfrom, jcol, jlit,
-                      JF, rt).collect_table()
+    got, want, ps, _ = _run_both(conf, conf)
+    assert tables_differ(_as_reference(got), want) is None
+    assert tables_differ(got, _plain()) is None
+    m = ps.last_metrics()
+    assert (m["memoryPressure"], m["memoryChunkedReexecutions"],
+            m["memoryCpuDemotions"], m["demotions"]) == (3, 1, 1, 1)
     assert jhealth.HEALTH.memory_snapshot()["memoryCpuDemotions"] == 1
-    assert tables_differ(_as_reference(_plain()), want) is None
+    assert tfaults.CIRCUIT_BREAKER.demoted_ops() == \
+        jfaults.CIRCUIT_BREAKER.demoted_ops()
+    assert list(tfaults.CIRCUIT_BREAKER.demoted_ops()) == ["LocalScan"]
+    exc = FatalDeviceOOM("no operator attributed")
+    with pytest.raises(FatalDeviceOOM, match="ladder exhausted") as e:
+        raise thealth.HEALTH.abort_error(exc)
+    assert e.value.fault_op is None
 
 
 def test_more_retryable_injections_than_retries_walk_the_ladder():
     """``injectRetryOOM`` arms its OOMs on every attempt, as the
     reference's: each attempt fails, the ladder walks retry and chunk,
-    then raises the FatalDeviceOOM."""
-    s = TorchSession({"spark.rapids.sql.test.injectRetryOOM": "retry:3"},
-                     device="cpu")
-    pt, _ = _tables(*_keyed())
-    with pytest.raises(FatalDeviceOOM, match="2 spill-retries"):
-        tfrom(pt, s).collect_table()
+    then demotes the scan the third escalation names onto the CPU route,
+    where nothing lands and the query answers, as the reference's does.
+    With ``runtimeFallback.enabled`` false the demotion cannot take
+    effect, and the ladder ends in the FatalDeviceOOM."""
+    pt, rt = _tables(*_keyed())
+    conf = {"spark.rapids.sql.test.injectRetryOOM": "retry:3"}
+    s = TorchSession(conf, device="cpu")
+    got = tfrom(pt, s).collect_table()
+    want = jfrom(rt, TpuSession({**NO_CACHE, **conf})).collect_table()
+    assert tables_differ(_as_reference(got), want) is None
     m = s.last_metrics()
     assert (m["memoryPressure"], m["memoryChunkedReexecutions"],
-            m["oomRetries"]) == (3, 1, 6)
+            m["oomRetries"], m["memoryCpuDemotions"]) == (3, 1, 6, 1)
+    assert jhealth.HEALTH.memory_snapshot()["memoryCpuDemotions"] == 1
+    _reset()
+    off = TorchSession({**conf, "spark.rapids.sql.runtimeFallback.enabled":
+                        "false"}, device="cpu")
+    with pytest.raises(FatalDeviceOOM, match="2 spill-retries"):
+        tfrom(pt, off).collect_table()
 
 
 def test_squeezed_budget_walks_the_chunk_rung():
@@ -547,26 +597,54 @@ def test_transient_device_loss_recovers_on_the_device(tmp_path):
 
 
 def test_device_loss_latch_raises_where_the_reference_demotes(tmp_path):
-    """Past ``deviceLoss.maxReinits`` consecutive losses the reference
-    latches CPU-only mode; the port latches the process, and every later
-    execute raises DeviceLostError naming the latch and the report."""
+    """Past ``deviceLoss.maxReinits`` consecutive losses both packages
+    latch CPU-only mode: the query that meets the last loss raises
+    DeviceLostError, and every later query answers on the CPU route, each
+    node tagged with the latch's reason (``explain``, ``fallbacks``,
+    ``cpuOnlyReason``), equal to the reference's latched answer. (The
+    name predates the latch's CPU route: the failing query still
+    raises.)"""
+    from spark_rapids_tpu_torch.obs.events import collect_fallbacks
+    from spark_rapids_tpu_torch.overrides.rules import collect_cpu_nodes
     conf = {"spark.rapids.test.faults": "exec.execute:device_lost:2",
             "spark.rapids.service.deviceLoss.maxReinits": "2",
             "spark.rapids.memory.crashDump.dir": str(tmp_path)}
-    pt, _ = _tables(*_keyed())
+    pt, rt = _tables(*_keyed())
     s = TorchSession(conf, device="cpu")
     with pytest.raises(DeviceLostError, match="the next query runs"):
         tfrom(pt, s).collect_table()
-    with pytest.raises(DeviceLostError, match="latched after 2 consecutive"):
+    with pytest.raises(DeviceLostError,
+                       match="CPU-only mode latched after 2 consecutive"):
         tfrom(pt, s).collect_table()
+    snap = thealth.HEALTH.snapshot()
+    assert snap["latched"] and snap["cpuOnlyReason"].startswith(
+        "device health: CPU-only mode latched after 2 consecutive device "
+        "losses")
+    rs = TpuSession({**NO_CACHE, **conf})
+    for _ in range(2):
+        with pytest.raises(JDeviceLostError):
+            _agg_query(rs, jfrom, jcol, jlit, JF, rt).collect_table()
+    assert jhealth.HEALTH.cpu_only_reason() is not None
+    want = _agg_query(rs, jfrom, jcol, jlit, JF, rt).collect_table()
     tfaults.FAULTS.disarm()
-    with pytest.raises(DeviceLostError, match="latched") as e:
-        tfrom(pt, TorchSession(device="cpu")).collect_table()
-    assert "crash report" in str(e.value) and "CPU-only" in str(e.value)
-    assert thealth.HEALTH.snapshot()["latched"]
+    for sess in (s, TorchSession(device="cpu")):
+        df = _agg_query(sess, tfrom, col, lit, F, pt)
+        got = df.collect_table()
+        assert tables_differ(_as_reference(got), want) is None
+        assert collect_cpu_nodes(sess._last_root) == \
+            ["Sort", "Aggregate", "Filter", "LocalScan"]
+        fallbacks = collect_fallbacks(sess.last_meta)
+        assert [f["reasons"] for f in fallbacks] == \
+            [[snap["cpuOnlyReason"]]] * 4
+        assert snap["cpuOnlyReason"] in sess.explain(df)
 
 
 def test_failed_context_probe_latches_at_once(tmp_path, monkeypatch):
+    """A loss whose context probe fails latches CPU-only mode at once:
+    the failing query raises DeviceLostError naming the probe, no
+    re-initialisation is counted, and the next query answers on the CPU
+    route."""
+    from spark_rapids_tpu_torch.overrides.rules import collect_cpu_nodes
     monkeypatch.setattr(thealth, "_probe_context",
                         lambda device: "RuntimeError: CUDA error: "
                                        "device-side assert triggered")
@@ -576,8 +654,19 @@ def test_failed_context_probe_latches_at_once(tmp_path, monkeypatch):
     with pytest.raises(DeviceLostError, match="context probe failed"):
         tfrom(pt, TorchSession(conf, device="cpu")).collect_table()
     assert thealth.HEALTH.snapshot()["deviceReinits"] == 0
-    with pytest.raises(DeviceLostError, match="latched"):
-        tfrom(pt, TorchSession(device="cpu")).collect_table()
+    s = TorchSession(device="cpu")
+    got = _agg_query(s, tfrom, col, lit, F, pt).collect_table()
+    assert tables_differ(got, _plain_cpu_route()) is None
+    assert collect_cpu_nodes(s._last_root) == \
+        ["Sort", "Aggregate", "Filter", "LocalScan"]
+    assert "device-side assert" in s.last_meta.reasons[0]
+
+
+def _plain_cpu_route():
+    pt, _ = _tables(*_keyed())
+    return _agg_query(TorchSession({"spark.rapids.sql.enabled": "false"},
+                                   device="cpu"),
+                      tfrom, col, lit, F, pt).collect_table()
 
 
 def test_fatal_error_exit_code_and_report(tmp_path):

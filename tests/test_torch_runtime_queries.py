@@ -327,21 +327,62 @@ def test_more_injections_than_retries_are_fatal():
     """Three injected RetryOOMs at the scan's first landing outlive its two
     replays (``oomMaxRetries``): FatalDeviceOOM. The memory ladder's
     replays (runtime/health.py) arm the injection again, as the
-    reference's do, so the ladder ends in the FatalDeviceOOM too (its
-    rungs: tests/test_torch_recovery.py)."""
-    s = TorchSession({"spark.rapids.sql.test.injectRetryOOM": "retry:3"},
-                     device="cpu")
+    reference's do; with ``runtimeFallback.enabled`` false its
+    ``cpu_demote`` rung cannot move the scan, and the ladder ends in the
+    FatalDeviceOOM. With the default the scan moves to the CPU route and
+    the query answers as the reference's (the rungs:
+    tests/test_torch_recovery.py)."""
+    inject = {"spark.rapids.sql.test.injectRetryOOM": "retry:3"}
+    s = TorchSession({**inject, "spark.rapids.sql.runtimeFallback.enabled":
+                      "false"}, device="cpu")
     with pytest.raises(FatalDeviceOOM, match="2 spill-retries"):
         tfrom(host_table_from_arrays(*_keyed(300)), s).collect()
+    _reset_recovery()
+    got = tfrom(host_table_from_arrays(*_keyed(300)),
+                TorchSession(inject, device="cpu")).collect_table()
+    want = jfrom(_reference_table(*_keyed(300)),
+                 TpuSession({**inject, **NO_CACHE})).collect_table()
+    assert tables_differ(_as_reference(got), want) is None
+    _reset_recovery()
 
 
 def test_a_budget_no_retry_meets_is_fatal():
-    """A budget smaller than one chunk's landing raises FatalDeviceOOM:
-    nothing reruns the query on the CPU."""
+    """A budget smaller than one chunk's landing raises FatalDeviceOOM
+    while ``runtimeFallback.enabled`` is false: the ladder's retry and
+    chunk rungs land the same chunks again. With the default its
+    ``cpu_demote`` rung moves the scan, then the sort, onto the CPU route,
+    and the query answers as the reference's does."""
     arrays = _keyed(3000)
-    s = TorchSession({BUDGET_KEY: "100"}, device="cpu")
+    budget = {BUDGET_KEY: "100"}
+    s = TorchSession({**budget, "spark.rapids.sql.runtimeFallback.enabled":
+                      "false"}, device="cpu")
     with pytest.raises(FatalDeviceOOM):
         tfrom(host_table_from_arrays(*arrays), s).sort("id").collect()
+    _reset_recovery()
+    got = tfrom(host_table_from_arrays(*arrays),
+                TorchSession(budget, device="cpu")).sort("id") \
+        .collect_table()
+    want = jfrom(_reference_table(*arrays),
+                 TpuSession({**budget, **NO_CACHE})).sort("id") \
+        .collect_table()
+    assert tables_differ(_as_reference(got), want) is None
+    _reset_recovery()
+
+
+NO_CACHE = {"spark.rapids.sql.executableCache.enabled": "false"}
+
+
+def _reset_recovery():
+    """Both packages' breakers and health monitors (the ladders demote
+    process-wide)."""
+    from spark_rapids_tpu.runtime import faults as jfaults
+    from spark_rapids_tpu.runtime import health as jhealth
+    from spark_rapids_tpu_torch.runtime import faults as tfaults
+    from spark_rapids_tpu_torch.runtime import health as thealth
+    for mod in (jfaults, tfaults):
+        mod.CIRCUIT_BREAKER.reset()
+    jhealth.HEALTH.reset()
+    thealth.HEALTH.reset()
 
 
 def _ties(kind: str, n=400, seed=5):
