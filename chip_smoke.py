@@ -1,7 +1,7 @@
 """Drive the PyTorch port (spark_rapids_tpu_torch) on one CUDA card.
 
     python3 chip_smoke.py [--rows N] [--sf SF] [--seed S] [--profile DIR]
-                          [--only 21|22]
+                          [--only 21|22|23]
 
 Phases, in order; any failure exits non-zero:
 
@@ -234,11 +234,34 @@ Phases, in order; any failure exits non-zero:
    18.4 (q1 answered twice on the CPU route after the poison); P4 a
    50-row filter reverted to the CPU route by the cost-based optimizer
    and q1 left on the device;
-23. the summary lines: one ``{"kernels": [...]}`` JSON line (the five TPU
+23. the query service (``run_service``), V1-V7: V1 the 22 corpus queries
+   on phases 6-8's tables, phase 4's q1 and phase 5's sparse q3 from 3
+   tenants (SQL texts for one, the DSL for the others) through a
+   ``QueryService`` of 4 workers, each (query, form) first run serially;
+   then the stream three times: once with every launch held against its
+   kernel's plain version as it is recorded (the phase's counted
+   launches), and timed with the result cache off and on (the aggregate
+   wall against the serial sum, p50/p95 latency, queue wait, hit rate);
+   every result against its serial run (``tools.loadtest.result_differs``:
+   bitwise, the named f64 sums within rtol 1e-9) and its oracle; V2 two
+   pools weighted 3:1 and a burst of 40 q1s each (the picks against the
+   charged clocks, a rejection past queueDepth); V3 a cancel and a
+   deadline of a 4-batch query held at its second landing, then q1 bit
+   for bit; V4 ``dispatch.wedge`` past ``hardTimeoutMs`` (HardTimeoutError,
+   a respawned worker, the next q1 bit for bit) and a
+   ``service.worker_crash`` (requeued, bit for bit); V5 q1's template
+   quarantined by two ``chunk``-rung strikes, one incident bundle each,
+   rendered by ``tools incident``; V6 ``GET /top`` and ``tools top --url``
+   while V1's traffic runs, the telemetry ring's samples and no host sync
+   of the sampler; V7 a child process on a fresh kernel build directory
+   (four cold q1s build each library once; then a device-side assert at
+   one launch while three other q1s run: every handle requeued and
+   FINISHED on the CPU route after the latch);
+24. the summary lines: one ``{"kernels": [...]}`` JSON line (the five TPU
    kernels and the DECIMAL128 division kernel, CUDA work beyond them;
    launches of the main path: q1's, sparse q3's probes, q8's MIN/MAX, plus
-   every phase-7 to phase-22 query's), the card line, and last
-   ``{"ok": true, "device": {...}}``.
+   every phase-7 to phase-23 query's), the script's time, the card line,
+   and last ``{"ok": true, "device": {...}}``.
 
 Each phase logs its wall time. It needs one CUDA card and exits non-zero
 without one. ``--profile DIR`` also writes a torch.profiler table and
@@ -246,8 +269,8 @@ trace of one warm run of q1, of each q3 form, of each phase-6, phase-7
 and phase-8 query, of phase 9's conditional query, of J1, J7, J8 and J9,
 of O1, O2, O3, O4a, O5, O6a and O7, of S1, S2, S5, S7 and S8 and of W1,
 W3, W4, W7, W8a and W8c, and of N1 and N3's posexplode. ``--only 21``
-(or ``22``) runs phases 1-3 and then that phase over tables it makes
-itself.
+(or ``22``, ``23``) runs phases 1-3 and then that phase over tables it
+makes itself.
 """
 
 from __future__ import annotations
@@ -256,9 +279,11 @@ import argparse
 import collections
 import contextlib
 import ctypes
+import io
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -1882,12 +1907,12 @@ def corpus_cases(session, tables, sparse_orders):
 CORPUS_SORTS = {"q8 inner, sparse keys": 1}
 
 
-def hold_launches(name, calls) -> None:
-    """Hold each kernel launch of a query's counted run against its plain
-    version on the inputs that launch was given (``kernels.calls``):
-    onehot_partials within rtol 1e-12 of each partial's absolute mass (f32
-    within two 1024-row summation orders), every other kernel (the
-    DECIMAL128 division too) bit for bit."""
+def held_call(kernel, args, out):
+    """One recorded launch against its kernel's plain version on the
+    same inputs: (agrees, what). onehot_partials within rtol 1e-12 of
+    each partial's absolute mass (f32 within two 1024-row summation
+    orders), every other kernel (the DECIMAL128 division too) bit for
+    bit."""
     from spark_rapids_tpu_torch.kernels.compact import gather_compact_plain
     from spark_rapids_tpu_torch.kernels.hashprobe import probe_rowids_plain
     from spark_rapids_tpu_torch.kernels.segreduce import (
@@ -1895,42 +1920,45 @@ def hold_launches(name, calls) -> None:
         onehot_partials_plain,
     )
     from spark_rapids_tpu_torch.kernels.sort import sort_with_payload_plain
+    if kernel == "onehot_partials":
+        x, gid, nseg, nb, block = args
+        tol = 1e-12 if x.dtype == torch.float64 else \
+            2 * (block - 1) * 2.0 ** -24
+        _, rel = partials_error(out, onehot_partials_plain(*args), *args)
+        return rel <= tol, (f"{tuple(x.shape)} {str(x.dtype)[6:]} nseg "
+                            f"{nseg}: err/mass {rel:.2e}")
+    if kernel == "gather_compact":
+        datas, valids, keep, capacity = args
+        pairs, new_n = gather_compact_plain(*args)
+        ok = int(new_n) == int(out[1]) and all(
+            same_bits(a, b) and same_bits(va, vb)
+            for (a, va), (b, vb) in zip(out[0], pairs))
+        return ok, (f"{capacity} rows x " + "/".join(
+            str(d.dtype)[6:] for d in datas) + f", {int(new_n)} kept")
+    if kernel == "sort_with_payload":
+        ops, payload = args
+        return all(same_bits(a, b) for a, b in zip(
+            out, sort_with_payload_plain(ops, payload))), \
+            f"{payload.shape[0]} rows x {len(ops)} operands"
+    if kernel == "probe_rowids":
+        return torch.equal(out, probe_rowids_plain(*args)), \
+            f"{args[0].shape[0]} probes, {args[4]} attempts"
+    if kernel == "dec128_divide":
+        from spark_rapids_tpu_torch.kernels.decimal import dec128_divide_plain
+        return all(torch.equal(a, b) for a, b in zip(
+            out, dec128_divide_plain(*args))), \
+            f"{args[0]} of {args[1].shape[0]} rows"
+    return same_bits(out, fused_minmax_plain(*args)), \
+        f"{args[1].shape[0]} rows nseg {args[4]}"
+
+
+def hold_launches(name, calls) -> None:
+    """Hold each kernel launch of a query's counted run against its plain
+    version on the inputs that launch was given (``kernels.calls``,
+    ``held_call``)."""
     held = {}
     for kernel, args, out in calls:
-        if kernel == "onehot_partials":
-            x, gid, nseg, nb, block = args
-            tol = 1e-12 if x.dtype == torch.float64 else \
-                2 * (block - 1) * 2.0 ** -24
-            _, rel = partials_error(out, onehot_partials_plain(*args), *args)
-            ok = rel <= tol
-            what = f"{tuple(x.shape)} {str(x.dtype)[6:]} nseg {nseg}: " \
-                f"err/mass {rel:.2e}"
-        elif kernel == "gather_compact":
-            datas, valids, keep, capacity = args
-            pairs, new_n = gather_compact_plain(*args)
-            ok = int(new_n) == int(out[1]) and all(
-                same_bits(a, b) and same_bits(va, vb)
-                for (a, va), (b, vb) in zip(out[0], pairs))
-            what = f"{capacity} rows x " + "/".join(
-                str(d.dtype)[6:] for d in datas) + f", {int(new_n)} kept"
-        elif kernel == "sort_with_payload":
-            ops, payload = args
-            ok = all(same_bits(a, b) for a, b in
-                     zip(out, sort_with_payload_plain(ops, payload)))
-            what = f"{payload.shape[0]} rows x {len(ops)} operands"
-        elif kernel == "probe_rowids":
-            ok = torch.equal(out, probe_rowids_plain(*args))
-            what = f"{args[0].shape[0]} probes, {args[4]} attempts"
-        elif kernel == "dec128_divide":
-            from spark_rapids_tpu_torch.kernels.decimal import (
-                dec128_divide_plain,
-            )
-            ok = all(torch.equal(a, b) for a, b in
-                     zip(out, dec128_divide_plain(*args)))
-            what = f"{args[0]} of {args[1].shape[0]} rows"
-        else:
-            ok = same_bits(out, fused_minmax_plain(*args))
-            what = f"{args[1].shape[0]} rows nseg {args[4]}"
+        ok, what = held_call(kernel, args, out)
         if not ok:
             fail(f"{name}: {kernel} ({what}) disagrees with its plain "
                  "version on the inputs of the counted run")
@@ -8489,9 +8517,11 @@ def run_route(tables, q1_table, q3_sparse, seed: int) -> dict:
                        results))
 
         o2 = _take(orders, ("o_orderdate", "o_totalprice"))
+        # the host-bound cells (C2, C3, C5) run one warm run each (their
+        # cold and counted runs too, every result checked): seconds a run
         add(route_case(s, "C2 cast(date as string) as a grouping key",
                        c2_build(s, o2), c2_check(c2_oracle(o2)),
-                       ["Project"], results))
+                       ["Project"], results, warm_runs=1))
 
         def rank_of(p):
             return PRIORITY_RANK.get(p, 0)
@@ -8507,7 +8537,8 @@ def run_route(tables, q1_table, q3_sparse, seed: int) -> dict:
         li3 = _take(li, ("l_orderkey", "l_quantity"))
         add(route_case(s, "C3 a row-wise Python UDF",
                        c3_build(s, li3, o3, rank_of),
-                       c3_check(c3_oracle(li3, o3)), ["Project"], results))
+                       c3_check(c3_oracle(li3, o3)), ["Project"], results,
+                       warm_runs=1))
 
         li4 = _take(li, ("l_returnflag", "l_linestatus", "l_quantity",
                          "l_extendedprice", "l_discount", "l_tax",
@@ -8535,7 +8566,8 @@ def run_route(tables, q1_table, q3_sparse, seed: int) -> dict:
         o5 = _take(orders, ("o_orderkey", "o_totalprice", "o_orderdate"),
                    C5_ORDERS)
         add(route_case(s, "C5 to_json, then get_json_object and from_json",
-                       c5_build(s, o5), c5_check(o5), ["Project"], results))
+                       c5_build(s, o5), c5_check(o5), ["Project"], results,
+                       warm_runs=1))
 
         cpu = TorchSession({"spark.rapids.sql.enabled": "false"})
         t6 = _take(q1_table, q1_table.names, C6_LINEITEM)
@@ -8950,6 +8982,784 @@ def plan_nodes(plan) -> list:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 23: the query service
+# ---------------------------------------------------------------------------
+
+#: the phase's aim in seconds (logged past it)
+SERVICE_BUDGET_S = 90.0
+#: V1's submitters: tenant 0 sends SQL texts, the others the DSL
+SERVICE_TENANTS = 3
+#: V1's workers (spark.rapids.service.maxConcurrentQueries)
+SERVICE_WORKERS = 4
+#: V2: two pools weighted 3:1, a burst of this many q1s from each
+V2_POOLS = "hi:weight=3;lo"
+V2_BURST = 40
+#: V4: the hard wall limit and the injected wedge's stall on the host
+V4_HARD_TIMEOUT_MS = 2000
+V4_WEDGE_S = 6.0
+#: V5: reserve OOMs that walk one q1 down to the memory ladder's chunk
+#: rung (the retry framework's retries, the rung retry, then chunk), and
+#: the strikes that quarantine its template
+V5_OOMS = 6
+V5_STRIKES = 2
+#: V7's child: lineitem rows of its q1s
+SERVICE_CHILD_ROWS = 1 << 20
+
+
+def tpch_sql(name: str) -> str:
+    """TPC-H q1 and sparse q3 as SQL over views named apart from the
+    corpus's (``tpch1_lineitem``, ``tpch3_customer`` ...)."""
+    import re
+
+    from spark_rapids_tpu_torch.models.tpch import Q1_SQL, Q3_SQL
+    if name == "TPC-H q1":
+        return re.sub(r"\blineitem\b", "tpch1_lineitem", Q1_SQL)
+    return re.sub(r"\b(customer|orders|lineitem)\b", r"tpch3_\1",
+                  Q3_SQL.format(segment="BUILDING"))
+
+
+def service_workload(session, tables, q1_table, q3_tables, sql: bool):
+    """{name: submission}: the 22 corpus queries, TPC-H q1 and sparse q3,
+    as DataFrames (``sql`` False) or SQL texts over temp views of the same
+    tables registered on ``session``."""
+    from spark_rapids_tpu_torch.models.corpus import (
+        CORPUS,
+        build_queries,
+        sql_texts,
+    )
+    from spark_rapids_tpu_torch.models.tpch import q1_dataframe, q3_dataframe
+    from spark_rapids_tpu_torch.plan import from_host_table
+    if sql:
+        for name, t in tables.items():
+            from_host_table(t, session).create_or_replace_temp_view(name)
+        from_host_table(q1_table, session).create_or_replace_temp_view(
+            "tpch1_lineitem")
+        for view, t in zip(("customer", "orders", "lineitem"), q3_tables):
+            from_host_table(t, session).create_or_replace_temp_view(
+                f"tpch3_{view}")
+        texts = sql_texts()
+        out = {n: (lambda t=texts[n]: t) for n in CORPUS}
+        out["TPC-H q1"] = lambda: tpch_sql("TPC-H q1")
+        out["TPC-H q3"] = lambda: tpch_sql("TPC-H q3")
+        return out
+    qs = build_queries(session, tables)
+    out = {n: qs[n] for n in CORPUS}
+    out["TPC-H q1"] = lambda: q1_dataframe(session, q1_table)
+    out["TPC-H q3"] = lambda: q3_dataframe(session, *q3_tables)
+    return out
+
+
+class HeldCalls(list):
+    """``kernels.calls`` of a concurrent run: each launch is held against
+    its kernel's plain version as its worker records it (one at a time),
+    and only the verdict is kept, so the recorded tensors die at once."""
+
+    def __init__(self):
+        super().__init__()
+        self.lock = threading.Lock()
+        self.held = collections.Counter()
+        self.bad = []
+
+    def append(self, call):
+        kernel, args, out = call
+        with self.lock:
+            ok, what = held_call(kernel, args, out)
+            self.held[kernel] += 1
+            if not ok:
+                self.bad.append(f"{kernel} ({what})")
+
+
+def pct(values, q):
+    vals = sorted(values)
+    return vals[min(len(vals) - 1, max(0, int(round(q * (len(vals) - 1)))))]
+
+
+def service_session(extra=None):
+    from spark_rapids_tpu_torch.session import TorchSession
+    conf = {"spark.rapids.service.maxConcurrentQueries": str(SERVICE_WORKERS),
+            "spark.rapids.service.queueDepth": "256"}
+    conf.update(extra or {})
+    return TorchSession(conf)
+
+
+def v1_stream(svc, tables, q1_table, q3_tables):
+    """(name, form, tenant, submission) of V1's stream: every tenant every
+    query, tenant 0 in SQL."""
+    forms = {f: service_workload(svc.session, tables, q1_table, q3_tables,
+                                 f == "sql") for f in ("sql", "dsl")}
+    out = []
+    for t in range(SERVICE_TENANTS):
+        form = "sql" if t == 0 else "dsl"
+        out += [(n, form, f"tenant{t}", b) for n, b in forms[form].items()]
+    return out
+
+
+def run_v1_pass(label, svc, stream, serial, checks, on_submitted=None):
+    """Submit the stream to ``svc`` and wait; every result against its
+    serial run (``tools.loadtest.result_differs``) and its oracle. Returns
+    the numbers of the pass."""
+    from spark_rapids_tpu_torch.tools.loadtest import result_differs
+    t0 = time.perf_counter()
+    handles, submit_s = [], []
+    for n, f, ten, b in stream:
+        # admission: the submit call's host time (a SQL text is parsed
+        # and analysed here)
+        t1 = time.perf_counter()
+        handles.append((n, f, svc.submit(b(), tenant=ten,
+                                         tag=f"{n}@{ten}")))
+        submit_s.append(time.perf_counter() - t1)
+    if on_submitted is not None:
+        on_submitted()
+    for n, f, h in handles:
+        if not h.wait(600):
+            fail(f"V1 {label}: {n} ({f}) still {h.state}")
+    wall = time.perf_counter() - t0
+    for n, f, h in handles:
+        if h.state != "FINISHED":
+            fail(f"V1 {label}: {n} ({f}) {h.state}: {h.error}")
+        diff = result_differs(n, serial[(n, f)], h.result_table)
+        if diff is not None:
+            fail(f"V1 {label}: {n} ({f}) differs from its serial run: "
+                 f"{diff}")
+        checks[n](h.result_table)
+    lat = [h.latency_s for _, _, h in handles]
+    qw = [h.queue_wait_s or 0.0 for _, _, h in handles]
+    serve = [h.run_s for _, _, h in handles]
+    hits = sum(h.cache_hit for _, _, h in handles)
+    return {"submissions": len(handles), "wall_s": round(wall, 4),
+            "submit_p50_ms": round(pct(submit_s, 0.5) * 1e3, 3),
+            "submit_p95_ms": round(pct(submit_s, 0.95) * 1e3, 3),
+            "serve_p50_s": round(pct(serve, 0.5), 4),
+            "serve_p95_s": round(pct(serve, 0.95), 4),
+            "latency_p50_s": round(pct(lat, 0.5), 4),
+            "latency_p95_s": round(pct(lat, 0.95), 4),
+            "queue_wait_p50_s": round(pct(qw, 0.5), 4),
+            "queue_wait_p95_s": round(pct(qw, 0.95), 4),
+            "hit_rate": round(hits / len(handles), 4)}
+
+
+def run_v1(tables, q1_table, q3_tables, checks, card: str) -> tuple:
+    """V1 (with V6 during its timed pass): serial runs of every query in
+    both forms, then three passes of the stream through the service: held
+    (every launch held against its plain version, the phase's counted
+    launches), timed with the result cache off (introspection and the
+    telemetry ring on), and timed with it on. Returns (the held pass's
+    launches, the serial q1 DSL result, the numbers)."""
+    from spark_rapids_tpu_torch import kernels as K
+    from spark_rapids_tpu_torch.service import QueryService
+    svc_held = QueryService(session=service_session(
+        {"spark.rapids.service.resultCache.enabled": "false"}))
+    stream = v1_stream(svc_held, tables, q1_table, q3_tables)
+    # the serial runs, on the held service's session before it serves:
+    # cold once, then the warm run each submission is held to
+    serial, warm_s = {}, {}
+    serial_launches = {"sql": collections.Counter(),
+                       "dsl": collections.Counter()}
+    t0 = time.perf_counter()
+    s = svc_held.session
+    for n, f, ten, build in stream[:len(stream) // SERVICE_TENANTS * 2]:
+        if (n, f) in serial:
+            continue
+        q = build()
+        run = (lambda q=q: s.sql(q).collect_table()) if f == "sql" \
+            else (lambda q=q: q.collect_table())
+        run()
+        K.reset_launch_counts()
+        t1 = time.perf_counter()
+        got = run()
+        torch.cuda.synchronize()
+        warm_s[(n, f)] = time.perf_counter() - t1
+        serial_launches[f].update({k: v for k, v in
+                                   K.launch_counts().items() if v})
+        checks[n](got)
+        serial[(n, f)] = got
+    log(f"  V1 serial: {len(serial)} (query, form) pairs cold and warm in "
+        f"{time.perf_counter() - t0:.1f} s, each against its oracle; warm "
+        f"sum {sum(warm_s.values()):.3f} s [{card}]")
+    serial_sum = sum(warm_s[(n, f)] for n, f, _, _ in stream)
+
+    # the held pass: the counted launches, each held as it is recorded
+    K.reset_launch_counts()
+    K.calls = HeldCalls()
+    try:
+        held = run_v1_pass("held", svc_held, stream, serial, checks)
+    finally:
+        calls, K.calls = K.calls, None
+    launches = K.launch_counts()
+    svc_held.shutdown()
+    if calls.bad:
+        fail(f"V1: launches disagree with their plain versions: "
+             f"{calls.bad[:5]}")
+    for k in TPU_KERNELS:
+        if k != "dec128_divide" and not launches.get(k):
+            fail(f"V1 launched no {k}")
+    if dict(calls.held) != {k: v for k, v in launches.items() if v}:
+        fail(f"V1: held {dict(calls.held)} of launches {launches}")
+    # the stream's launches are its serial runs' (one SQL tenant, the
+    # others DSL): concurrency changes no route
+    want = serial_launches["sql"] + collections.Counter(
+        {k: v * (SERVICE_TENANTS - 1)
+         for k, v in serial_launches["dsl"].items()})
+    if dict(want) != dict(calls.held):
+        fail(f"V1: the held pass launched {dict(calls.held)}, its serial "
+             f"runs {dict(want)}")
+    log(f"  V1 held pass ({SERVICE_TENANTS} tenants x "
+        f"{len(stream) // SERVICE_TENANTS} queries, {SERVICE_WORKERS} "
+        f"workers, every launch held against its plain version as "
+        f"recorded): launches {dict(calls.held)}, as the stream's serial "
+        f"runs launch; {held}")
+
+    # V6 rides the timed pass with the cache off
+    results = {"serial_warm_sum_s": round(serial_sum, 4), "held": held}
+    v6 = {}
+    for label, cache in (("timed, cache off", False),
+                         ("timed, cache on", True)):
+        extra = {"spark.rapids.service.resultCache.enabled": str(cache)
+                 .lower()}
+        if not cache:
+            extra.update({"spark.rapids.service.introspect.enabled": "true",
+                          "spark.rapids.obs.telemetry.enabled": "true",
+                          "spark.rapids.obs.telemetry.intervalMs": "50"})
+        svc = QueryService(session=service_session(extra))
+        st = v1_stream(svc, tables, q1_table, q3_tables)
+        # the views and the executable cache warm before the clock
+        for n, f, _, b in st[:len(st) // SERVICE_TENANTS * 2]:
+            q = b()
+            (svc.session.sql(q) if f == "sql" else q).collect_table()
+        res = run_v1_pass(label, svc, st, serial, checks,
+                          on_submitted=(lambda svc=svc: v6.update(
+                              v6_during(svc))) if not cache else None)
+        res["stats"] = {k: svc.stats()[k] for k in (
+            "finished", "failed", "rejected", "requeued")}
+        if cache:
+            res["resultCache"] = svc.result_cache.stats()
+        else:
+            v6.update(v6_after(svc))
+        svc.shutdown()
+        results[label] = res
+        log(f"  V1 {label}: aggregate wall {res['wall_s']:.3f} s against "
+            f"the serial sum {serial_sum:.3f} s (warm runs, one at a time); "
+            f"latency p50/p95 {res['latency_p50_s']}/"
+            f"{res['latency_p95_s']} s, queue wait p50/p95 "
+            f"{res['queue_wait_p50_s']}/{res['queue_wait_p95_s']} s, "
+            f"serve (RUNNING to done) p50/p95 {res['serve_p50_s']}/"
+            f"{res['serve_p95_s']} s, admission (a submit call) p50/p95 "
+            f"{res['submit_p50_ms']}/{res['submit_p95_ms']} ms, hit rate "
+            f"{res['hit_rate']} [{card}]")
+    if not results["timed, cache on"]["hit_rate"] > 0:
+        fail("V1: the result cache served nothing")
+    log(f"  V6 while V1's timed traffic ran: GET /top and tools top --url "
+        f"({v6}) [{card}]")
+    results["V6"] = v6
+    return launches, serial[("TPC-H q1", "dsl")], results
+
+
+def v6_during(svc) -> dict:
+    """V6 while V1's traffic runs: GET /top on 127.0.0.1, then
+    ``tools top --url``."""
+    import urllib.request
+
+    from spark_rapids_tpu_torch.tools import __main__ as tools_main
+    url = f"http://127.0.0.1:{svc.introspect_port}/top"
+    with urllib.request.urlopen(url, timeout=30) as r:
+        doc = json.loads(r.read().decode())
+    for key in ("health", "stats", "slo", "queries", "streams", "telemetry"):
+        if key not in doc:
+            fail(f"V6: /top lacks {key}")
+    live = len(doc["queries"])
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = tools_main.main(["top", "--url", url])
+    text = buf.getvalue()
+    if rc != 0 or not text.startswith("Service: "):
+        fail(f"V6: tools top --url returned {rc}: {text[:300]}")
+    return {"top_live_queries": live, "top_state": doc["health"]["state"],
+            "tools_top_first_line": text.splitlines()[0]}
+
+
+def v6_after(svc) -> dict:
+    """V6 after the timed pass: the ring holds at least 3 samples, and the
+    sampler makes no host sync in a window where only it runs."""
+    from spark_rapids_tpu_torch.obs.telemetry import TELEMETRY
+    t0 = time.perf_counter()
+    while TELEMETRY.stats()["samples"] < 3:
+        if time.perf_counter() - t0 > 30:
+            fail(f"V6: the telemetry ring holds {TELEMETRY.stats()}")
+        time.sleep(0.05)
+    before = TELEMETRY.stats()["samples"]
+    with host_sync_count() as box:
+        for _ in range(5):
+            TELEMETRY.sample_once()
+            time.sleep(0.06)
+    st = TELEMETRY.stats()
+    if box["syncs"] != 0 or st["errors"]:
+        fail(f"V6: the sampler made {box['syncs']} host syncs "
+             f"({box['sites']}), errors {st['errors']}")
+    return {"ring_samples": st["samples"], "window_samples":
+            st["samples"] - before, "window_host_syncs": box["syncs"]}
+
+
+@contextlib.contextmanager
+def scan_gate(at: int):
+    """Hold the ``at``-th scan landing (``TpuScanExec._land``) until
+    ``gate["release"]`` is set; ``gate["entered"]`` is set when a query
+    reaches it."""
+    from spark_rapids_tpu_torch.execs.basic import TpuScanExec
+    gate = {"calls": 0, "entered": threading.Event(),
+            "release": threading.Event(), "lock": threading.Lock()}
+    real = TpuScanExec._land
+
+    def land(self, *a, **k):
+        with gate["lock"]:
+            gate["calls"] += 1
+            hold = gate["calls"] == at
+        if hold:
+            gate["entered"].set()
+            gate["release"].wait(120)
+        return real(self, *a, **k)
+
+    TpuScanExec._land = land
+    try:
+        yield gate
+    finally:
+        gate["release"].set()
+        TpuScanExec._land = real
+
+
+def run_v2(q1_table, card: str) -> dict:
+    """V2: pools hi and lo weighted 3:1, a burst of V2_BURST q1s from each
+    across two tenants, one worker, the cache off: at every pick while both
+    pools wait, the picked pool's charged clock is the lesser and the two
+    stay within the largest weighted charge; a queue past queueDepth
+    raises QueryRejectedError with retry_after_ms > 0."""
+    from spark_rapids_tpu_torch.errors import QueryRejectedError
+    from spark_rapids_tpu_torch.models.tpch import q1_dataframe
+    from spark_rapids_tpu_torch.service import QueryService
+    svc = QueryService({"spark.rapids.service.pools": V2_POOLS,
+                        "spark.rapids.service.maxConcurrentQueries": "1",
+                        "spark.rapids.service.queueDepth": str(V2_BURST),
+                        "spark.rapids.service.resultCache.enabled": "false"})
+    picks, charges = [], []
+    real_pick, real_charge = svc._pick_locked, svc._charge_locked
+
+    def pick():
+        waiting = {p for p, n in svc._queued_per_pool.items() if n}
+        h = real_pick()
+        if h is not None:
+            picks.append((h.pool, dict(svc._pool_clock), waiting))
+        return h
+
+    def charge(h, elapsed):
+        charges.append(elapsed / svc.pools[h.pool])
+        real_charge(h, elapsed)
+
+    svc._pick_locked, svc._charge_locked = pick, charge
+    handles = []
+    with svc._cond:  # the worker cannot pick while the burst queues
+        for i in range(V2_BURST):
+            for pool in ("hi", "lo"):
+                handles.append(svc.submit(
+                    q1_dataframe(svc.session, q1_table), pool=pool,
+                    tenant=f"{pool}{i % 2}"))
+        try:
+            svc.submit(q1_dataframe(svc.session, q1_table), pool="hi")
+            fail("V2: a queue past queueDepth admitted")
+        except QueryRejectedError as e:
+            retry = e.retry_after_ms
+    if not retry > 0:
+        fail(f"V2: retry_after_ms {retry}")
+    for h in handles:
+        if not h.wait(600) or h.state != "FINISHED":
+            fail(f"V2: {h} {h.error}")
+    svc.shutdown()
+    # one worker: pick i follows the charges of the i picks before it
+    both = []
+    for i, (pool, clocks, waiting) in enumerate(picks):
+        if waiting != {"hi", "lo"}:
+            continue
+        both.append((pool, clocks))
+        other = "lo" if pool == "hi" else "hi"
+        bound = max(charges[:i] or [0.0])
+        if clocks[pool] > clocks[other] or \
+                abs(clocks["hi"] - clocks["lo"]) > bound + 1e-9:
+            fail(f"V2: pick {i} from {pool} at clocks {clocks} (largest "
+                 f"weighted charge so far {bound})")
+    hi = sum(p == "hi" for p, _ in both)
+    out = {"picks_both_waiting": len(both), "hi_picks": hi,
+           "lo_picks": len(both) - hi, "retry_after_ms": retry,
+           "rejected": svc.stats()["rejected"]}
+    log(f"  V2 pools 3:1, {2 * V2_BURST} q1s: while both pools waited "
+        f"{hi} picks went to hi and {len(both) - hi} to lo, each pick from "
+        f"the lesser clock, the clocks within the largest weighted charge; "
+        f"one more hi submission past queueDepth {V2_BURST} rejected with "
+        f"retry_after_ms {retry} [{card}]")
+    return out
+
+
+def run_v3(tables, q1_table, q1_result, card: str) -> dict:
+    """V3: a group-by over lineitem in 4 scan batches, cancelled while
+    RUNNING (held at its second landing): CANCELLED at that boundary;
+    again with a 300 ms deadline: TIMED_OUT; then q1 bit for bit."""
+    from spark_rapids_tpu_torch import functions as F
+    from spark_rapids_tpu_torch.models.tpch import q1_dataframe
+    from spark_rapids_tpu_torch.plan import from_host_table
+    from spark_rapids_tpu_torch.service import QueryService
+    from spark_rapids_tpu_torch.tools.loadtest import tables_differ
+    li4 = lineitem4(tables)
+    svc = QueryService({"spark.rapids.service.resultCache.enabled": "false"})
+
+    def q():
+        return from_host_table(li4, svc.session, W8_BATCHES).group_by(
+            "l_returnflag").agg(F.sum("l_quantity").alias("q"),
+                                F.count("l_orderkey").alias("n"))
+
+    out = {}
+    with scan_gate(2) as gate:
+        h = svc.submit(q())
+        if not gate["entered"].wait(120) or h.state != "RUNNING":
+            fail(f"V3: the query did not reach its second batch: {h}")
+        h.cancel()
+        gate["release"].set()
+        if not h.wait(120) or h.state != "CANCELLED":
+            fail(f"V3: cancel ended in {h.state}: {h.error}")
+        out["cancel"] = {"landings": gate["calls"],
+                         "checks": h.scope.checks}
+        if gate["calls"] != 2:
+            fail(f"V3: {gate['calls']} landings after the cancel")
+    with scan_gate(2) as gate:
+        h = svc.submit(q(), timeout_ms=300)
+        if not gate["entered"].wait(120):
+            fail("V3: the deadline query did not reach its second batch")
+        time.sleep(max(0.0, h.scope.deadline - time.monotonic()) + 0.05)
+        gate["release"].set()
+        if not h.wait(120) or h.state != "TIMED_OUT":
+            fail(f"V3: the deadline ended in {h.state}: {h.error}")
+        out["deadline"] = {"landings": gate["calls"],
+                           "run_ms": round(h.run_s * 1e3, 1)}
+    h = svc.submit(q1_dataframe(svc.session, q1_table))
+    if not h.wait(120) or h.state != "FINISHED" or tables_differ(
+            q1_result, h.result_table) is not None:
+        fail(f"V3: q1 after the cancel: {h.state} {h.error}")
+    svc.shutdown()
+    log(f"  V3: cancel while RUNNING ended CANCELLED at its next batch "
+        f"boundary ({out['cancel']}); a 300 ms deadline ended TIMED_OUT "
+        f"({out['deadline']}); then q1 bit for bit [{card}]")
+    return out
+
+
+def run_v4(q1_table, q1_result, card: str) -> dict:
+    """V4: ``dispatch.wedge`` at one launch with hardTimeoutMs: the query
+    fails HardTimeoutError, one worker respawned, the next q1 bit for bit;
+    ``service.worker_crash`` once: the query requeued and bit for bit."""
+    from spark_rapids_tpu_torch.errors import HardTimeoutError
+    from spark_rapids_tpu_torch.models.tpch import q1_dataframe
+    from spark_rapids_tpu_torch.runtime.faults import FAULTS
+    from spark_rapids_tpu_torch.service import QueryService
+    from spark_rapids_tpu_torch.tools.loadtest import tables_differ
+    out = {}
+    before = os.environ.get("SRT_WEDGE_SLEEP_S")
+    os.environ["SRT_WEDGE_SLEEP_S"] = str(V4_WEDGE_S)
+    try:
+        svc = QueryService({
+            "spark.rapids.test.faults": "dispatch.wedge:wedge:1",
+            "spark.rapids.service.hardTimeoutMs": str(V4_HARD_TIMEOUT_MS),
+            "spark.rapids.service.resultCache.enabled": "false"})
+        h = svc.submit(q1_dataframe(svc.session, q1_table))
+        if not h.wait(120) or not isinstance(h.error, HardTimeoutError):
+            fail(f"V4: the wedged q1 ended {h.state}: {h.error!r}")
+        health = svc.health()
+        if health["workersRespawned"] != 1 or health["workerCount"] != 4:
+            fail(f"V4: after the hard timeout {health}")
+        nxt = svc.submit(q1_dataframe(svc.session, q1_table))
+        if not nxt.wait(120) or nxt.state != "FINISHED" or tables_differ(
+                q1_result, nxt.result_table) is not None:
+            fail(f"V4: the q1 after the wedge: {nxt.state} {nxt.error}")
+        out["wedge"] = {"run_ms": round(h.run_s * 1e3, 1),
+                        "workersRespawned": health["workersRespawned"],
+                        "hardTimeouts": svc.stats()["hardTimeouts"]}
+        svc.shutdown()
+        # the abandoned worker ends when its stalled launch returns: wait
+        # for it, so that nothing of V4 runs beside the next cells
+        for t in threading.enumerate():
+            if t.name.startswith("rapids-svc-worker"):
+                t.join(timeout=V4_WEDGE_S + 60)
+    finally:
+        if before is None:
+            os.environ.pop("SRT_WEDGE_SLEEP_S", None)
+        else:
+            os.environ["SRT_WEDGE_SLEEP_S"] = before
+    svc = QueryService({
+        "spark.rapids.test.faults": "service.worker_crash:crash:1",
+        "spark.rapids.service.resultCache.enabled": "false"})
+    h = svc.submit(q1_dataframe(svc.session, q1_table))
+    if not h.wait(120) or h.state != "FINISHED" or tables_differ(
+            q1_result, h.result_table) is not None or h.requeues != 1:
+        fail(f"V4: the crashed worker's q1: {h.state} {h.error} requeues "
+             f"{h.requeues}")
+    out["crash"] = {k: svc.stats()[k] for k in (
+        "workersLost", "workersRespawned", "requeued")}
+    svc.shutdown()
+    FAULTS.disarm()
+    log(f"  V4: a launch wedged {V4_WEDGE_S:.0f} s on the host past "
+        f"hardTimeoutMs {V4_HARD_TIMEOUT_MS}: HardTimeoutError, "
+        f"{out['wedge']}, the next q1 bit for bit; a worker crash: "
+        f"{out['crash']}, its q1 requeued and bit for bit [{card}]")
+    return out
+
+
+def run_v5(q1_table, check_q1, base: str, card: str) -> dict:
+    """V5: q1's template takes V5_STRIKES strikes through the memory
+    ladder's chunk rung (V5_OOMS injected reserve OOMs a run); the next
+    submission raises QueryQuarantinedError with the strikes; one bundle
+    per strike, which ``tools incident`` renders."""
+    from spark_rapids_tpu_torch.columnar.table import evict_device_caches
+    from spark_rapids_tpu_torch.errors import QueryQuarantinedError
+    from spark_rapids_tpu_torch.models.tpch import q1_dataframe
+    from spark_rapids_tpu_torch.obs.telemetry import flush_incidents
+    from spark_rapids_tpu_torch.runtime.faults import CIRCUIT_BREAKER, FAULTS
+    from spark_rapids_tpu_torch.runtime.health import HEALTH, QUARANTINE
+    from spark_rapids_tpu_torch.service import QueryService
+    from spark_rapids_tpu_torch.tools.incident import (
+        load_bundles,
+        render_incident,
+    )
+    rec_dir = os.path.join(base, "flightrec")
+    svc = QueryService({
+        "spark.rapids.test.faults": f"mem.reserve:oom:{V5_OOMS}",
+        "spark.rapids.service.quarantine.maxStrikes": str(V5_STRIKES),
+        "spark.rapids.service.maxConcurrentQueries": "1",
+        "spark.rapids.service.resultCache.enabled": "false",
+        "spark.rapids.obs.flightRecorder.dir": rec_dir})
+    rungs = []
+    for _ in range(V5_STRIKES):
+        # a cold scan reserves (a cached one lands nothing); the count
+        # re-arms
+        evict_device_caches()
+        FAULTS.disarm()
+        h = svc.submit(q1_dataframe(svc.session, q1_table))
+        if not h.wait(300) or h.state != "FINISHED":
+            fail(f"V5: q1 under {V5_OOMS} reserve OOMs: {h.state} {h.error}")
+        check_q1(h.result_table)
+        m = svc.session.last_metrics()
+        rungs.append((m.get("memoryPressure"),
+                      m.get("memoryChunkedReexecutions")))
+        if m.get("memoryChunkedReexecutions") != 1:
+            fail(f"V5: q1 walked {m}")
+    try:
+        svc.submit(q1_dataframe(svc.session, q1_table))
+        fail("V5: the quarantined template was admitted")
+    except QueryQuarantinedError as e:
+        strikes = list(e.strikes)
+    svc.shutdown()
+    FAULTS.disarm()
+    flush_incidents()
+    bundles = load_bundles(rec_dir)
+    quarantine = [b for b in bundles if b.get("kind") == "quarantine"]
+    text = render_incident(bundles)
+    if len(strikes) != V5_STRIKES or len(quarantine) != V5_STRIKES or \
+            "kind=quarantine action=quarantined" not in text:
+        fail(f"V5: strikes {strikes}, {len(quarantine)} quarantine bundles "
+             f"of {len(bundles)}")
+    QUARANTINE.reset()
+    HEALTH.reset()
+    CIRCUIT_BREAKER.reset()
+    out = {"rungs": rungs, "strikes": len(strikes),
+           "bundles": {k: sum(b.get("kind") == k for b in bundles)
+                       for k in sorted({b.get("kind") for b in bundles})}}
+    log(f"  V5: {V5_STRIKES} q1s through the chunk rung (memoryPressure, "
+        f"chunked) {rungs}, each answering q1's oracle; the next submission "
+        f"QueryQuarantinedError with {len(strikes)} strikes; bundles "
+        f"{out['bundles']}; tools incident renders {len(bundles)} "
+        f"[{card}]")
+    return out
+
+
+def poison_context() -> None:
+    """An out-of-bounds index on the card: a device-side assert, sticky
+    for the whole CUDA context (18.4's poison), surfaced here."""
+    x = torch.zeros(4, device=DEV)
+    x[torch.full((1,), 1 << 20, dtype=torch.int64, device=DEV)]
+    torch.cuda.synchronize()
+
+
+def service_child(out_dir: str) -> int:
+    """V7's child, in a fresh SRT_KERNEL_BUILD_DIR: four q1s at once on a
+    cold process (one nvcc run per library, none twice), then four q1s at
+    once again, held together at their first landing, while one launch
+    poisons the context with a real device-side assert: every handle
+    requeued and FINISHED on the CPU route after the latch, each against
+    q1's oracle. Prints one JSON line."""
+    from spark_rapids_tpu_torch.dispatch import COMPILE_SCOPE
+    from spark_rapids_tpu_torch.execs.basic import TpuScanExec
+    from spark_rapids_tpu_torch.kernels.build import BUILD_DIR
+    from spark_rapids_tpu_torch.models.tpch import lineitem_table, q1_dataframe
+    from spark_rapids_tpu_torch.obs.telemetry import TELEMETRY
+    from spark_rapids_tpu_torch.runtime import faults as F
+    from spark_rapids_tpu_torch.runtime.health import HEALTH
+    from spark_rapids_tpu_torch.service import QueryService
+    table = lineitem_table(SERVICE_CHILD_ROWS, seed=0)
+    oracle = q1_oracle(table)
+    res = {"build_dir_empty": not any(BUILD_DIR.glob("*.so"))}
+    before = dict(COMPILE_SCOPE)
+    svc = QueryService({"spark.rapids.service.resultCache.enabled": "false",
+                        "spark.rapids.sql.concurrentGpuTasks": "4",
+                        # the injected poison is not the template's: a
+                        # strike budget over its four losses keeps q1
+                        # serving (the loadtest's chaos setting)
+                        "spark.rapids.service.quarantine.maxStrikes": "8",
+                        "spark.rapids.memory.crashDump.dir": out_dir})
+    t0 = time.perf_counter()
+    hs = [svc.submit(q1_dataframe(svc.session, table)) for _ in range(4)]
+    for h in hs:
+        h.wait(600)
+    res["cold"] = {"states": [h.state for h in hs],
+                   "s": round(time.perf_counter() - t0, 2),
+                   "kernelTraces": COMPILE_SCOPE.get("kernelTraces", 0)
+                   - before.get("kernelTraces", 0),
+                   "libraries": sorted(p.name.split("-")[0]
+                                       for p in BUILD_DIR.glob("*.so"))}
+    for h in hs:
+        check_q1_result(h.result_table, oracle)
+    # the poison: the first device.lost point reached indexes out of
+    # bounds on the card (a device-side assert, sticky for the context)
+    barrier = threading.Barrier(4, timeout=120)
+    real_land, real_point = TpuScanExec._land, F.fault_point
+    armed = {"n": 1, "lock": threading.Lock(), "first": set()}
+
+    def land(self, *a, **k):
+        me = threading.get_ident()
+        with armed["lock"]:
+            first = me not in armed["first"]
+            armed["first"].add(me)
+        if first and HEALTH.cpu_only_reason() is None:
+            barrier.wait()
+        return real_land(self, *a, **k)
+
+    def point(name, op=None, data=None):
+        if name == "device.lost":
+            with armed["lock"]:
+                fire, armed["n"] = armed["n"] > 0, armed["n"] - 1
+            if fire:
+                poison_context()
+        return real_point(name, op, data)
+
+    TpuScanExec._land, F.fault_point = land, point
+    t0 = time.perf_counter()
+    hs = [svc.submit(q1_dataframe(svc.session, table)) for _ in range(4)]
+    for h in hs:
+        h.wait(600)
+    res["poison"] = {"states": [h.state for h in hs],
+                     "requeues": [h.requeues for h in hs],
+                     "errors": [repr(h.error)[:160] for h in hs if h.error],
+                     "s": round(time.perf_counter() - t0, 2),
+                     "cpuOnlyReason": (HEALTH.cpu_only_reason() or "")[:300],
+                     "service": {k: svc.stats()[k] for k in (
+                         "finished", "failed", "requeued")},
+                     "health": svc.health()["state"]}
+    for h in hs:
+        if h.state == "FINISHED":
+            check_q1_result(h.result_table, oracle)
+    # the sampler in the latched process: host reads only
+    res["poison"]["sample"] = TELEMETRY.sample_once() is not None
+    svc.shutdown(wait=False)
+    print(json.dumps(res), flush=True)
+    os._exit(0)
+
+
+def start_service_child(base: str):
+    d = os.path.join(base, "service_child")
+    os.makedirs(os.path.join(d, "build"), exist_ok=True)
+    env = dict(os.environ, SRT_KERNEL_BUILD_DIR=os.path.join(d, "build"))
+    return d, subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--service-child", d],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
+
+
+def finish_v7(child, card: str) -> dict:
+    """V7's verdict over the child's JSON line."""
+    d, p = child
+    try:
+        so, se = p.communicate(timeout=600)
+    except subprocess.TimeoutExpired:
+        p.kill()
+        so, se = p.communicate()
+        fail("V7: the service child did not finish")
+    lines = so.strip().splitlines()
+    res = json.loads(lines[-1]) if p.returncode == 0 and lines else {}
+    cold, poison = res.get("cold", {}), res.get("poison", {})
+    libs = cold.get("libraries", [])
+    if not (res.get("build_dir_empty") and cold.get("states") == [
+            "FINISHED"] * 4 and libs and len(libs) == len(set(libs))
+            and cold.get("kernelTraces") == len(libs)):
+        fail(f"V7: the cold builds: rc {p.returncode} {res}; stderr "
+             f"{se[-3000:]}")
+    if not (poison.get("states") == ["FINISHED"] * 4
+            and all(r >= 1 for r in poison.get("requeues", []))
+            and poison.get("cpuOnlyReason") and poison.get("sample")
+            and poison.get("health") == "CPU_ONLY"):
+        fail(f"V7: under the poison: {poison}; stderr {se[-3000:]}")
+    log(f"  V7 (child): 4 cold q1s at once built {libs} once each "
+        f"(kernelTraces {cold['kernelTraces']}) in {cold['s']} s; a "
+        f"device-side assert at one launch while 3 other q1s ran: every "
+        f"handle requeued {poison['requeues']} and FINISHED on the CPU "
+        f"route after the latch against q1's oracle ({poison['service']}, "
+        f"{poison['s']} s) [{card}]")
+    return res
+
+
+def run_service(tables, q1_table, q1_check, q3_tables, checks) -> dict:
+    """Phase 23 (V1-V7): returns the held pass's launches."""
+    from spark_rapids_tpu_torch.runtime.speculation import clear_blocklist
+    t_phase = time.perf_counter()
+    card = card_line()
+    # from a fresh process's speculation state, as ``--only 23`` runs:
+    # earlier phases' homeless rows at 4 probe attempts put sparse q3's
+    # join sites (shared with the J-queries') on the sort-based probe
+    clear_blocklist()
+    base = tempfile.mkdtemp(prefix="srt-service-")
+    results = {}
+    try:
+        t0 = time.perf_counter()
+        launches, q1_result, results["V1"] = run_v1(
+            tables, q1_table, q3_tables, checks, card)
+        log(f"  (V1 and V6 {time.perf_counter() - t0:.1f} s)")
+        child = start_service_child(base)
+        for name, part in (
+                ("V2", lambda: run_v2(q1_table, card)),
+                ("V3", lambda: run_v3(tables, q1_table, q1_result, card)),
+                ("V4", lambda: run_v4(q1_table, q1_result, card)),
+                ("V5", lambda: run_v5(q1_table, q1_check, base, card))):
+            t0 = time.perf_counter()
+            results[name] = part()
+            log(f"  ({name} {time.perf_counter() - t0:.1f} s)")
+        t0 = time.perf_counter()
+        results["V7"] = finish_v7(child, card)
+        log(f"  (V7's wait {time.perf_counter() - t0:.1f} s)")
+    finally:
+        shutil.rmtree(base, ignore_errors=True)
+    took = time.perf_counter() - t_phase
+    summary = {"card": card, "seconds": round(took, 1),
+               "launches": {k: v for k, v in launches.items() if v},
+               "cells": results}
+    if took > SERVICE_BUDGET_S:
+        log(f"  phase 23 took {took:.1f} s, past its "
+            f"{SERVICE_BUDGET_S:.0f} s aim")
+    log("  phase-23 summary: " + json.dumps(summary, default=str))
+    return launches
+
+
+def corpus_checks(tables) -> dict:
+    """{corpus query: oracle check} of all 22 (phases 6-8's oracles)."""
+    from spark_rapids_tpu_torch.session import TorchSession
+    checks = dict(wide_oracles(tables))
+    checks.update(window_oracles(tables))
+    cases = corpus_cases(TorchSession(), tables,
+                         sparse_custkey(tables["orders"]))
+    checks.update({n: cases[n][1] for n in ("q2", "q8")})
+    return checks
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rows", type=int, default=6_001_215,
@@ -8963,12 +9773,13 @@ def main(argv=None) -> int:
                     help="directory for torch.profiler tables and traces of "
                          "one warm run of q1, of each q3 form and of each "
                          "phase-6 query")
-    ap.add_argument("--only", type=int, choices=(21, 22), default=None,
+    ap.add_argument("--only", type=int, choices=(21, 22, 23), default=None,
                     help="run phases 1-3 and this phase only (its tables "
                          "made here); a full run is the default")
     ap.add_argument("--fatal-child", choices=("exit", "latch"),
                     help=argparse.SUPPRESS)
     ap.add_argument("--fatal-dir", help=argparse.SUPPRESS)
+    ap.add_argument("--service-child", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device: this script runs on the card",
@@ -8977,6 +9788,8 @@ def main(argv=None) -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     if args.fatal_child:
         return fatal_child(args.fatal_child, args.fatal_dir)
+    if args.service_child:
+        return service_child(args.service_child)
     from spark_rapids_tpu_torch.columnar import bucket_for
     from spark_rapids_tpu_torch.kernels.build import SOURCES as CU_SOURCES
     from spark_rapids_tpu_torch.kernels.build import build
@@ -9030,7 +9843,7 @@ def main(argv=None) -> int:
                           args.seed)
         for k, v in route.items():
             launches[k] = launches.get(k, 0) + v
-        return summary_phase(rows, launches)
+        return summary_phase(rows, launches, t_start)
     if args.only == 22:
         from spark_rapids_tpu_torch.models.corpus import corpus_tables
         from spark_rapids_tpu_torch.models.tpch import lineitem_table
@@ -9047,7 +9860,33 @@ def main(argv=None) -> int:
                 {q: oracles[q] for q in AQE_QUERIES}).items():
             launches[k] = launches.get(k, 0) + v
         log(f"  phase 22 ran {time.perf_counter() - t_phase:.1f} s")
-        return summary_phase(rows, launches)
+        return summary_phase(rows, launches, t_start)
+    if args.only == 23:
+        from spark_rapids_tpu_torch.models.corpus import corpus_tables
+        from spark_rapids_tpu_torch.models.tpch import (
+            lineitem_table,
+            q3_tables,
+        )
+        launches = {r["name"]: 0 for r in rows}
+        t0 = time.perf_counter()
+        tables = corpus_tables(args.sf, args.seed)
+        table = lineitem_table(args.rows, seed=0)
+        oracle = q1_oracle(table)
+        sparse = tuple(sparse_form(t) for t in q3_tables(args.rows, seed=0))
+        o_sparse = q3_oracle(*sparse)
+        checks = corpus_checks(tables)
+        checks["TPC-H q1"] = lambda g: check_q1_result(g, oracle)
+        checks["TPC-H q3"] = lambda g: check_q3_result(g, o_sparse,
+                                                       "q3 sparse")
+        log(f"  tables and oracles in {time.perf_counter() - t0:.1f} s "
+            "(host)")
+        t_phase = time.perf_counter()
+        log("phase 23: the query service")
+        for k, v in run_service(tables, table, checks["TPC-H q1"], sparse,
+                                checks).items():
+            launches[k] = launches.get(k, 0) + v
+        log(f"  phase 23 ran {time.perf_counter() - t_phase:.1f} s")
+        return summary_phase(rows, launches, t_start)
 
     #: what phases 4-8 keep of each DSL form for phase 9's SQL forms
     dsl = {}
@@ -9182,6 +10021,10 @@ def main(argv=None) -> int:
         launches[k] = launches.get(k, 0) + v
     q3_sparse = dsl["q3 sparse"]["tables"]
     aqe_checks = {q: dsl[q]["check"] for q in AQE_QUERIES}
+    from spark_rapids_tpu_torch.models.corpus import CORPUS
+    svc_checks = {q: dsl[q]["check"] for q in CORPUS}
+    svc_checks["TPC-H q1"] = q1_keep["check"]
+    svc_checks["TPC-H q3"] = dsl["q3 sparse"]["check"]
     del dsl
     log(f"  phase 19 ran {time.perf_counter() - t_phase:.1f} s")
 
@@ -9214,11 +10057,22 @@ def main(argv=None) -> int:
     for k, v in run_planning(tables, q1_keep, aqe_checks).items():
         launches[k] = launches.get(k, 0) + v
     log(f"  phase 22 ran {time.perf_counter() - t_phase:.1f} s")
-    return summary_phase(rows, launches)
+
+    t_phase = time.perf_counter()
+    log("phase 23: the query service (V1 the corpus, q1 and sparse q3 from "
+        "3 tenants at 4 workers, V2 pools, V3 cancellation and deadlines, "
+        "V4 the watchdog and a worker's death, V5 quarantine and the "
+        "flight recorder, V6 introspection, V7 a device loss under load "
+        "in a child)")
+    for k, v in run_service(tables, q1_keep["tables"][0], q1_keep["check"],
+                            q3_sparse, svc_checks).items():
+        launches[k] = launches.get(k, 0) + v
+    log(f"  phase 23 ran {time.perf_counter() - t_phase:.1f} s")
+    return summary_phase(rows, launches, t_start)
 
 
-def summary_phase(rows, launches) -> int:
-    log("phase 23: summary")
+def summary_phase(rows, launches, t_start: float) -> int:
+    log("phase 24: summary")
     log("  dec128_divide is CUDA work beyond the five TPU kernels: the "
         "reference divides DECIMAL128 values on its host")
     for r in rows:
@@ -9228,6 +10082,7 @@ def summary_phase(rows, launches) -> int:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in rows]}))
+    log(f"  the script ran {time.perf_counter() - t_start:.1f} s")
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

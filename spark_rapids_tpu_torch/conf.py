@@ -380,8 +380,147 @@ QUARANTINE_MAX_STRIKES = _conf(
     "spark.rapids.service.quarantine.maxStrikes", 3,
     "Strikes (device kills, memory-ladder actions past the plain retry) "
     "after which a query template is quarantined: the service refuses "
-    "further submissions of it at admission (the service scheduler is "
-    "not ported: ROADMAP item 12).", int)
+    "further submissions of it at admission.", int)
+
+# -- the query service (service/*) -------------------------------------------
+
+SERVICE_POOLS = _conf(
+    "spark.rapids.service.pools", "default",
+    "Named scheduling pools: semicolon-separated 'name[:weight=W]' "
+    "entries (weight defaults to 1.0). Submissions name a pool; the "
+    "scheduler shares workers across pools by weighted fair queueing on "
+    "measured query wall time (FAIR scheduler pools analog).", str)
+
+SERVICE_MAX_CONCURRENT = _conf(
+    "spark.rapids.service.maxConcurrentQueries", 4,
+    "Worker threads executing admitted queries concurrently against the "
+    "shared session. Device residency within them is still gated by "
+    "spark.rapids.sql.concurrentGpuTasks (TpuSemaphore).", int)
+
+SERVICE_QUEUE_DEPTH = _conf(
+    "spark.rapids.service.queueDepth", 64,
+    "Max queued (not yet running) queries per pool; submission beyond it "
+    "raises QueryRejectedError with a retry_after_ms backpressure hint "
+    "instead of queueing unboundedly.", int)
+
+SERVICE_DEFAULT_TIMEOUT_MS = _conf(
+    "spark.rapids.service.defaultTimeoutMs", 0,
+    "Default per-query deadline from submission, milliseconds; expiry "
+    "times the query out while queued or cooperatively between batches "
+    "while running. 0 = no deadline; submit(timeout_ms=...) overrides per "
+    "query.", int)
+
+SERVICE_TENANT_WEIGHTS = _conf(
+    "spark.rapids.service.tenantWeights", "",
+    "Per-tenant fair-share weights inside a pool: comma-separated "
+    "'tenant=W' entries; unlisted tenants weigh 1.0. A tenant with weight "
+    "2 receives twice the service of a weight-1 tenant under contention.",
+    str)
+
+SERVICE_ADMISSION_MAX_DEVICE_BYTES = _conf(
+    "spark.rapids.service.admission.maxDeviceBytes", 0,
+    "Memory-pressure admission gate: while the memory arbiter's ledger "
+    "(or the spill catalog) holds more device bytes than this, queued "
+    "queries hold instead of dispatching (a query is always released when "
+    "nothing is running, so the gate cannot deadlock). 0 disables.", int)
+
+SERVICE_HARD_TIMEOUT_MS = _conf(
+    "spark.rapids.service.hardTimeoutMs", 0,
+    "HARD per-query wall limit from the RUNNING transition, milliseconds "
+    "- distinct from the cooperative defaultTimeoutMs/submit(timeout_ms=) "
+    "deadline, which only fires between batches: past this limit the "
+    "watchdog abandons the worker (it may be stalled inside a single "
+    "launch), fails the handle with HardTimeoutError, and spawns a "
+    "replacement worker. 0 disables the hard limit; the liveness "
+    "backstop still runs.", int)
+
+SERVICE_RESULT_CACHE_ENABLED = _conf(
+    "spark.rapids.service.resultCache.enabled", True,
+    "Serve repeated queries from the plan-fingerprint result cache "
+    "(service/result_cache.py): structurally identical plans under "
+    "result-identical conf return the cached HostTable without executing. "
+    "Invalidated by catalog mutations and table writes.", _to_bool)
+
+SERVICE_RESULT_CACHE_MAX_BYTES = _conf(
+    "spark.rapids.service.resultCache.maxBytes", 256 << 20,
+    "LRU byte bound on cached result tables (HostTable.nbytes sum); "
+    "results larger than this never cache.", int)
+
+SERVICE_INTROSPECT_ENABLED = _conf(
+    "spark.rapids.service.introspect.enabled", False,
+    "Serve the service's live surface (health/stats/SLOs/query table/"
+    "telemetry tail) as JSON on a loopback-only HTTP endpoint "
+    "(service/introspect.py) polled by `python -m spark_rapids_tpu_torch."
+    "tools top`. The bound port is QueryService.introspect_port.",
+    _to_bool)
+
+SERVICE_INTROSPECT_PORT = _conf(
+    "spark.rapids.service.introspect.port", 0,
+    "Port for the loopback introspection endpoint; 0 (default) binds an "
+    "ephemeral port, reported as QueryService.introspect_port.", int)
+
+SERVICE_DEGRADE_ON_HOST_LOSS = _conf(
+    "spark.rapids.service.degrade.onHostLoss", True,
+    "While the cluster runtime serves below its declared host strength, "
+    "the service reports DEGRADED and sheds its lowest-weight pool under "
+    "load. The port runs no cluster (ROADMAP item 11), so this never "
+    "trips; the key is kept with the reference's default.", _to_bool)
+
+SERVICE_DEGRADE_MEMORY_FRACTION = _conf(
+    "spark.rapids.service.degrade.memoryOccupancyFraction", 0.0,
+    "While the memory arbiter's live occupancy exceeds this fraction of "
+    "its device budget, the service reports DEGRADED and sheds its "
+    "lowest-weight pool under load - backpressure from the memory fault "
+    "domain into admission control. 0 (default) disables.", float)
+
+# -- the telemetry ring and the flight recorder (obs/telemetry.py) -----------
+
+TELEMETRY_ENABLED = _conf(
+    "spark.rapids.obs.telemetry.enabled", False,
+    "Run the passive background telemetry sampler: every intervalMs it "
+    "appends one bounded sample (per-scope metric deltas + health "
+    "state) to the in-memory ring obs/telemetry.py exports as JSONL, the "
+    "query service serves at /telemetry, and the flight recorder embeds "
+    "as the incident tail. The sampler takes no query-path locks and "
+    "never touches the device.", _to_bool)
+
+TELEMETRY_INTERVAL_MS = _conf(
+    "spark.rapids.obs.telemetry.intervalMs", 500,
+    "Telemetry sampling period. Each tick costs a handful of dict "
+    "snapshots on the host - no device work, no query-path locks - so the "
+    "floor is bounded at 10ms.", int)
+
+TELEMETRY_RING_SIZE = _conf(
+    "spark.rapids.obs.telemetry.ringSize", 720,
+    "Samples the telemetry ring retains (oldest dropped first); the "
+    "default holds 6 minutes at the default 500ms interval.", int)
+
+FLIGHT_RECORDER_ENABLED = _conf(
+    "spark.rapids.obs.flightRecorder.enabled", True,
+    "Dump a bounded incident bundle (trigger, ladder + fault-point state, "
+    "health, telemetry tail, recent event summaries, live query table) "
+    "on every degradation-ladder action and quarantine strike - the "
+    "black box `python -m spark_rapids_tpu_torch.tools incident` renders. "
+    "Best-effort: recording can never fail or slow the recovery it "
+    "documents.", _to_bool)
+
+FLIGHT_RECORDER_DIR = _conf(
+    "spark.rapids.obs.flightRecorder.dir",
+    os.path.join(tempfile.gettempdir(), "rapids_tpu_flightrec"),
+    "Directory for flight-recorder incident bundles (one "
+    "incident-<ms>-<seq>-<kind>.json per incident, pruned oldest-first to "
+    "flightRecorder.maxBundles).", str)
+
+FLIGHT_RECORDER_MAX_BUNDLES = _conf(
+    "spark.rapids.obs.flightRecorder.maxBundles", 64,
+    "Incident bundles retained under flightRecorder.dir; recording the "
+    "N+1st deletes the oldest (a crash-looping process must bound its own "
+    "black box).", int)
+
+FLIGHT_RECORDER_TELEMETRY_TAIL = _conf(
+    "spark.rapids.obs.flightRecorder.telemetryTail", 60,
+    "Telemetry-ring samples embedded in each incident bundle (the most "
+    "recent N - 30s of context at the default interval).", int)
 
 # -- dynamic partition pruning and the bloom filter --------------------------
 

@@ -79,3 +79,52 @@ class DeviceLostError(RapidsTpuError):
     crash report, dropped the device caches and probed the context: the
     next query runs on the card, or, once the process latched, raises
     this again naming the latch."""
+
+
+class WorkerLostError(RapidsTpuError):
+    """The service worker running this query died (its runner raised
+    outside the query) or was abandoned by the watchdog. The pool spawned
+    a replacement; the query was requeued up to its replay budget before
+    this error surfaced."""
+
+
+class QueryRejectedError(RapidsTpuError):
+    """The query service refused admission: the pool's queue is at
+    ``spark.rapids.service.queueDepth``, or a DEGRADED service sheds the
+    pool. Carries ``retry_after_ms``, the service's hint of when capacity
+    is likely free (HTTP 429's Retry-After)."""
+
+    def __init__(self, message: str, retry_after_ms: int = 100):
+        super().__init__(message)
+        self.retry_after_ms = int(retry_after_ms)
+
+
+class QueryCancelledError(RapidsTpuError):
+    """The query was cancelled through ``QueryHandle.cancel()``: raised
+    between batches at the exec boundary (service/query.py
+    ``install_cancellation``), so a running plan stops at its next pull."""
+
+
+class QueryTimeoutError(RapidsTpuError):
+    """The query's deadline (submit time plus its timeout) expired, while
+    queued or between batches while running."""
+
+
+class HardTimeoutError(QueryTimeoutError):
+    """The watchdog's hard wall limit (``spark.rapids.service.
+    hardTimeoutMs``) expired while the query was RUNNING. The cooperative
+    deadline fires at batch pulls, so a worker stalled inside one launch
+    never sees it: the watchdog abandons that worker, spawns a
+    replacement and fails the handle with this error."""
+
+
+class QueryQuarantinedError(RapidsTpuError):
+    """The query's template is quarantined: plans of its structural
+    fingerprint killed workers or the device, or drove the memory ladder
+    past its plain retry, ``spark.rapids.service.quarantine.maxStrikes``
+    times, so the service refuses it. Carries ``strikes``, the recorded
+    reasons."""
+
+    def __init__(self, message: str, strikes=None):
+        super().__init__(message)
+        self.strikes = list(strikes or ())

@@ -15,7 +15,7 @@ aborts and swept staging files.
 Jobs still in flight when the process dies are aborted by
 ``sweep_active_jobs``: at exit, and on the crash handler's exit-20 path
 (runtime/crash_handler.py). Not ported: the vacuum protection and Delta
-retry keys (Delta, ROADMAP item 12)."""
+retry keys (Delta, ROADMAP item [12b])."""
 
 from __future__ import annotations
 

@@ -12,8 +12,10 @@ and carries on: the reference's demotion machinery (``guarded``,
 Kernels launch on torch's current CUDA stream and allocate nothing; the
 wrappers allocate outputs and check device, dtype, shape and contiguity.
 
-Every launch runs inside :class:`kernel_launch`: the ``dispatch.kernel``
-and ``device.lost`` fault points fire once before it, it is a named range
+Every launch runs inside :class:`kernel_launch`: the ``dispatch.kernel``,
+``dispatch.wedge`` and ``device.lost`` fault points fire once before it, in
+that order (a wedge stalls the launching thread on the host; the card is
+never left running a kernel that does not end), it is a named range
 on the profiler's timeline (``runtime/profiler.py::op_range``), and a
 launch that returns counts one dispatch (``dispatch.py``). It adds no
 synchronisation and no copy.
@@ -40,8 +42,9 @@ KERNELS = (
 class kernel_launch:
     """The launch helper every wrapper runs its C call in, beside the
     line that raises its ``.launches``: the fault points
-    ``dispatch.kernel`` and ``device.lost`` (op: the wrapper's name),
-    a named range, and one counted dispatch when the launch returns."""
+    ``dispatch.kernel``, ``dispatch.wedge`` and ``device.lost`` (op: the
+    wrapper's name), a named range, and one counted dispatch when the
+    launch returns."""
 
     __slots__ = ("name", "_range")
 
@@ -53,6 +56,7 @@ class kernel_launch:
         from spark_rapids_tpu_torch.runtime.faults import fault_point
         from spark_rapids_tpu_torch.runtime.profiler import op_range
         fault_point("dispatch.kernel", op=self.name)
+        fault_point("dispatch.wedge", op=self.name)
         fault_point("device.lost", op=self.name)
         self._range = op_range(self.name, "kernel")
         self._range.__enter__()

@@ -14,17 +14,22 @@ query, written by ``TorchSession.execute`` when
 ``python -m spark_rapids_tpu_torch.tools profile|compare`` reads these.
 The record keeps the reference's schema, version 11, and its shape.
 
+The query service's fields come from the service when one runs the
+query (``TorchSession.next_query_service``): ``tenant``, ``pool``,
+``queueWaitS``, ``cacheHit`` and ``quarantined`` (the template carries
+strikes); ``workerRestarts`` is the query's change of the ``health``
+scope's ``workersRespawned``. Outside the service they read null, false
+and 0, as the reference's do.
+
 Fields of subsystems the port lacks are written as the reference writes
 them while that subsystem is idle (ROADMAP Queue 3's deviations):
 
-* the query service: ``tenant``, ``pool``, ``queueWaitS`` null,
-  ``cacheHit`` and ``quarantined`` false, ``workerRestarts`` 0;
 * the mesh (item 11): ``meshShape`` null, ``iciBytes``, ``shardSkew``,
   ``meshDegradations``, ``shardRetries``, ``gatherChecksFailed`` 0;
 * the cluster (item 11): ``hostTopology`` null, ``hostsLost``,
   ``hostRelands``, ``dcnExchanges`` 0, ``hostScans`` {};
-* Delta (item 12): ``commitRetries`` 0;
-* streaming (item 12): ``microBatches``, ``mvRefreshes``,
+* Delta (item [12b]): ``commitRetries`` 0;
+* streaming (item [12b]): ``microBatches``, ``mvRefreshes``,
   ``mvIncrementalRefreshes``, ``mvFullRecomputes``, ``sinkCommits``,
   ``sinkReplays`` 0, ``mvEpoch`` null;
 * the padding waste: ``padWasteRows`` 0 (dispatch.py).
@@ -147,6 +152,8 @@ def build_query_record(*, query_index: int, wall_s: float,
                        executable_cache_hit: bool = False,
                        health_state: str = "HEALTHY",
                        device_reinits: int = 0,
+                       worker_restarts: int = 0,
+                       service: Optional[dict] = None,
                        files_written: int = 0,
                        bytes_written: int = 0,
                        oom_retries: int = 0,
@@ -159,17 +166,19 @@ def build_query_record(*, query_index: int, wall_s: float,
     reference's schema 11, the fields of the subsystems the port lacks at
     their idle values (the module's docstring). The shape test
     (tests/test_torch_observability.py) holds it to the reference's
-    golden record."""
+    golden record. ``service`` is the query service's envelope (None
+    outside the service)."""
+    service = service or {}
     return {
         "schema": EVENT_SCHEMA_VERSION,
         "event": "queryCompleted",
         "queryIndex": query_index,
         "queryTag": query_tag,
         "sqlText": sql_text,
-        "tenant": None,
-        "pool": None,
-        "queueWaitS": None,
-        "cacheHit": False,
+        "tenant": service.get("tenant"),
+        "pool": service.get("pool"),
+        "queueWaitS": service.get("queueWaitS"),
+        "cacheHit": bool(service.get("cacheHit", False)),
         "wallS": round(wall_s, 6),
         "phasesS": {k: round(v, 6) for k, v in sorted(phases.items())},
         "dispatches": dispatches,
@@ -177,9 +186,9 @@ def build_query_record(*, query_index: int, wall_s: float,
         "executableCacheHit": bool(executable_cache_hit),
         "padWasteRows": 0,
         "healthState": str(health_state),
-        "quarantined": False,
+        "quarantined": bool(service.get("quarantined", False)),
         "deviceReinits": int(device_reinits),
-        "workerRestarts": 0,
+        "workerRestarts": int(worker_restarts),
         "filesWritten": int(files_written),
         "bytesWritten": int(bytes_written),
         "commitRetries": 0,
@@ -243,8 +252,7 @@ class QueryEventWriter:
 
 # ---------------------------------------------------------------------------
 # Recent-record ring (the flight recorder's "what was the engine doing
-# just before the incident" context; the flight recorder, obs/telemetry.py,
-# waits for item 12)
+# just before the incident" context, obs/telemetry.py)
 # ---------------------------------------------------------------------------
 
 #: slimmed summaries of the most recent event records, process-wide

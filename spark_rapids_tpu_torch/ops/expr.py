@@ -314,10 +314,15 @@ class BoundReference(Expression):
 class Literal(Expression):
     def __init__(self, value, dtype: Optional[T.DataType] = None):
         self._dtype = dtype if dtype is not None else T.python_to_spark_type(value)
+        # temporal literals hold the internal value (days, or UTC
+        # microseconds; a naive datetime reads as UTC, as the reference's)
         import datetime as _dt
         if isinstance(value, _dt.datetime):
-            _not_ported("TIMESTAMP literal")
-        if isinstance(value, _dt.date):
+            epoch = _dt.datetime(1970, 1, 1, tzinfo=_dt.timezone.utc)
+            v = value if value.tzinfo is not None else \
+                value.replace(tzinfo=_dt.timezone.utc)
+            value = (v - epoch) // _dt.timedelta(microseconds=1)
+        elif isinstance(value, _dt.date):
             value = (value - _dt.date(1970, 1, 1)).days
         self.value = value
 
@@ -337,8 +342,8 @@ class Literal(Expression):
 
     def eval_dev(self, ctx: EvalCtx, child_vals, prep) -> DevVal:
         if not isinstance(self._dtype, (T.NumericType, T.DateType,
-                                        T.BooleanType, T.StringType,
-                                        T.NullType)) or (
+                                        T.TimestampType, T.BooleanType,
+                                        T.StringType, T.NullType)) or (
                 T.is_dec128(self._dtype) and self.value is not None):
             _not_ported(f"{self._dtype.simple_string()} literal")
         if self.value is None:

@@ -5,8 +5,8 @@ One implementation, two variants:
 
 * **full** (``strip_literals=False``) — every non-child attribute of
   every plan node and expression folds in, INCLUDING literal values.
-  This is the result-cache key of the reference's service (not ported:
-  item 12) and, within a template, the executable cache's variant key:
+  This is the query service's result-cache key
+  (service/result_cache.py) and, within a template, the executable cache's variant key:
   two plans differing in any literal compute different tables and must
   never collide.
 * **template** (``strip_literals=True``) — ``Literal`` expression
@@ -58,8 +58,8 @@ from spark_rapids_tpu_torch.lockorder import ordered_lock
 # (:func:`epoch_snapshot`) and drop on lookup when any component moved
 # (:func:`epochs_current`). Listeners (:func:`register_epoch_listener`)
 # observe every bump (the reference's materialized-view registry rides
-# this hook; streaming is item 12). Delta's table-scoped bumps
-# (``delta_table_id``) wait for Delta (item 12).
+# this hook; streaming is item [12b]). Delta's table-scoped bumps
+# (``delta_table_id``) wait for Delta (item [12b]).
 
 _EPOCH_LOCK = ordered_lock("fingerprint.epoch")
 _EPOCH = [0]
@@ -143,7 +143,7 @@ def bump_table_epoch(table_id: str, reason: str = "") -> int:
 def plan_table_ids(plan) -> frozenset:
     """The epoch-scoped table identities a plan reads: every node carrying
     a ``table_path`` (the reference's Delta and other log-backed scans,
-    item 12). The port's file scans and in-memory tables key structurally
+    item [12b]). The port's file scans and in-memory tables key structurally
     through the fingerprint itself, so only the global epoch governs
     them, and this is empty."""
     ids = set()

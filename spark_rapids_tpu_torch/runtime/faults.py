@@ -20,11 +20,12 @@ per-operator circuit breaker and the exec fault boundaries.
 
 The points: the scan's per-file decode, the writer's per-file write, the
 committer's promotion and abort, each exec's execute, the memory
-runtime's reserve, spill and unspill, and at each hand-written kernel's
-launch (``kernels.kernel_launch``) ``dispatch.kernel`` and
-``device.lost``. Not ported: ``dispatch.wedge``, which waits for the
-service watchdog (item 12, the only thing that can end a wedge), and the
-``race`` kind, which needs the Delta log (item 12).
+runtime's reserve, spill and unspill, at each hand-written kernel's
+launch (``kernels.kernel_launch``) ``dispatch.kernel``, ``dispatch.wedge``
+(a stall on the host side of the launch that only the service watchdog's
+hard wall limit ends) and ``device.lost``, and the service worker's
+``service.worker_crash``. Not ported: the ``race`` kind, which needs the
+Delta log (ROADMAP item [12b]).
 
 Spec grammar, entries separated by ``;``:
 ``<point>[@<op>]:<kind>:<prob-or-count>[:<seed>]``, where an amount with
@@ -99,6 +100,16 @@ FAULT_POINTS: Dict[str, tuple] = {
         "before each hand-written kernel's launch (kernel_launch; the op "
         "is the wrapper's name), on the card and for the plain version "
         "on the CPU"),
+    "dispatch.wedge": (
+        "spark_rapids_tpu_torch/kernels/__init__.py",
+        "before each hand-written kernel's launch, between dispatch.kernel "
+        "and device.lost; wedge stalls on the host side of the launch, so "
+        "only the service watchdog's hard wall limit can end it"),
+    "service.worker_crash": (
+        "spark_rapids_tpu_torch/service/scheduler.py",
+        "service worker runner, after the RUNNING transition and before "
+        "the query executes: an exception here kills the WORKER (not the "
+        "query), exercising respawn and requeue"),
     "device.lost": (
         "spark_rapids_tpu_torch/kernels/__init__.py",
         "before each hand-written kernel's launch; device_lost simulates "

@@ -29,12 +29,20 @@ single card needs).
 * **Poison-query quarantine** (:class:`QuarantineRegistry`): a query
   template (``plan/fingerprint.py::template_fingerprint``) that keeps
   killing the device or forcing the memory ladder past its plain retry
-  collects strikes (the session strikes on the ``chunk`` and ``abort``
-  rungs and on device loss); at ``spark.rapids.service.quarantine.
+  collects strikes (the session strikes on the ``chunk``, ``cpu_demote``
+  and ``abort`` rungs, the query service on a worker's death or a device
+  loss under it); at ``spark.rapids.service.quarantine.
   maxStrikes`` it is quarantined, and ``explain`` names it a poison
-  suspect. Refusing a quarantined template at admission is the service
-  scheduler's, and the flight recorder's incident bundle is
-  ``obs/telemetry.py``'s: both wait for item 12.
+  suspect. The service scheduler refuses a quarantined template at
+  admission (service/scheduler.py), and the worker and device kills it
+  sees strike too.
+
+* **Flight recorder.** Every ladder action (``backend.ladder`` for a
+  device loss, ``memory.ladder`` for a memory rung) dumps one incident
+  bundle (obs/telemetry.py ``record_incident``) after the monitor's lock
+  is released; every quarantine strike dumps one on a short-lived thread
+  (``record_incident_async``: the scheduler strikes under its condition
+  lock). Recording is best-effort: it never masks the recovery.
 
 Not ported here: the mesh and host ladders (ROADMAP item 11). Counters
 live in the ``health`` metric scope under the reference's names:
@@ -80,6 +88,24 @@ def _first_line(exc: BaseException) -> str:
     return str(exc).splitlines()[0] if str(exc) else type(exc).__name__
 
 
+def _record_ladder_incident(kind: str, action: str, exc: BaseException,
+                            conf) -> None:
+    """The flight recorder's hook of every ladder action, called after
+    the monitor's lock is released (the bundle re-reads the health
+    snapshot); best-effort."""
+    try:
+        from spark_rapids_tpu_torch.obs.telemetry import record_incident
+        reason = f"{type(exc).__name__}: {_first_line(exc)}"
+        cause = exc.__cause__
+        if cause is not None and str(cause):
+            # a wrapped escalation (a FatalDeviceOOM from a RetryOOM)
+            # names the injected fault point only in its cause
+            reason += f" (cause: {_first_line(cause)})"
+        record_incident(kind, action, reason, conf=conf, error=exc)
+    except Exception:
+        pass
+
+
 def _probe_context(device) -> Optional[str]:
     """None when a tiny op on ``device`` completes, else why not."""
     import torch
@@ -114,18 +140,33 @@ class DeviceHealthMonitor:
         self._metrics = metric_scope("health")
         self.reset()
 
-    # -- the latch -------------------------------------------------------------
+    # -- the latch ------------------------------------------------------------
     def cpu_only_reason(self) -> Optional[str]:
         """The latch's reason once the process latched CPU-only mode (every
         operator's tag then), else None."""
         return self._cpu_only_reason
+
+    def state(self) -> str:
+        """HEALTHY, DEGRADED or CPU_ONLY from the device's view alone (the
+        query service folds its own worker losses in)."""
+        if self._cpu_only_reason is not None:
+            return "CPU_ONLY"
+        if self._consecutive_losses > 0:
+            return "DEGRADED"
+        return "HEALTHY"
 
     # -- device loss ----------------------------------------------------------
     def on_device_loss(self, exc: BaseException, conf, device,
                        report: Optional[str] = None) -> str:
         """One fatal device error: count it, drop the device caches, probe
         the context. Returns ``"DEGRADED"`` (the next query runs on the
-        card) or ``"CPU_ONLY"`` (the process latched)."""
+        card) or ``"CPU_ONLY"`` (the process latched). Records a
+        ``backend.ladder`` incident bundle."""
+        state = self._on_device_loss_inner(exc, conf, device, report)
+        _record_ladder_incident("backend.ladder", state, exc, conf)
+        return state
+
+    def _on_device_loss_inner(self, exc, conf, device, report) -> str:
         max_reinits = int(conf.get_entry(DEVICE_LOSS_MAX_REINITS))
         with self._lock:
             self._losses += 1
@@ -162,11 +203,17 @@ class DeviceHealthMonitor:
                 self._consecutive_losses = 0
                 self._mem_consecutive = 0
 
-    # -- the memory ladder ------------------------------------------------------
+    # -- the memory ladder ----------------------------------------------------
     def on_memory_pressure(self, exc: BaseException, conf) -> str:
         """One FatalDeviceOOM that escaped the retry framework: the rung
         the session takes (``retry``, ``chunk``, then ``cpu_demote`` for
-        an error that carries ``fault_op``, else ``abort``)."""
+        an error that carries ``fault_op``, else ``abort``). Records a
+        ``memory.ladder`` incident bundle."""
+        action = self._on_memory_pressure_inner(exc)
+        _record_ladder_incident("memory.ladder", action, exc, conf)
+        return action
+
+    def _on_memory_pressure_inner(self, exc: BaseException) -> str:
         from spark_rapids_tpu_torch.columnar.table import evict_device_caches
         with self._lock:
             self._mem_events += 1
@@ -216,7 +263,7 @@ class DeviceHealthMonitor:
         err.fault_op = op
         return err
 
-    # -- introspection ----------------------------------------------------------
+    # -- introspection --------------------------------------------------------
     def generation(self) -> int:
         """Device losses seen: a tree converted under an older generation
         never returns to the executable cache."""
@@ -274,12 +321,26 @@ class QuarantineRegistry:
         with self._lock:
             history = self._strikes.setdefault(template_fp, [])
             history.append(reason)
+            strikes = len(history)
             self._metrics.add("quarantineStrikes", 1)
             quarantined = (template_fp not in self._quarantined
-                           and len(history) >= max(1, int(max_strikes)))
+                           and strikes >= max(1, int(max_strikes)))
             if quarantined:
                 self._quarantined[template_fp] = list(history)
                 self._metrics.add("quarantinedTemplates", 1)
+        # the bundle outside the registry's lock (it re-reads this
+        # registry's snapshot) and on its own thread: the scheduler
+        # strikes under its condition lock, and a slow bundle directory
+        # must not stall submit, pick and finish
+        try:
+            from spark_rapids_tpu_torch.obs.telemetry import (
+                record_incident_async,
+            )
+            record_incident_async(
+                "quarantine", "quarantined" if quarantined else "strike",
+                reason, extra={"template": template_fp, "strikes": strikes})
+        except Exception:
+            pass
         return quarantined
 
     def is_quarantined(self, template_fp: Optional[str]
@@ -321,3 +382,58 @@ class QuarantineRegistry:
 
 
 QUARANTINE = QuarantineRegistry()
+
+
+#: the reference's mesh and host sections as it writes them with the mesh
+#: and the cluster off (ROADMAP item 11): the service's health document,
+#: the ``/topology`` route and the incident bundles keep their shape
+IDLE_MESH = {"enabled": False, "shape": None, "declaredShape": None,
+             "excludedDeviceIds": [], "degradedReason": None,
+             "generation": 0}
+IDLE_MESH_LADDER = {"meshDeviceLost": 0, "meshConsecutiveLosses": 0,
+                    "meshShrinks": 0, "meshDegradations": 0}
+IDLE_HOSTS = {"enabled": False, "declaredHosts": 0, "liveHosts": [],
+              "lostHosts": [], "excludedHosts": [],
+              "singleProcessReason": None, "degradedReason": None,
+              "generation": 0}
+IDLE_HOST_LADDER = {"hostsLost": 0, "hostConsecutiveLosses": 0,
+                    "hostShrinks": 0}
+
+
+def consistent_topology_snapshot() -> dict:
+    """One coherent view of the device health, the quarantine ledger and
+    the memory arbiter, taken with their locks held together so that the
+    sections cannot tear against each other (the reference's
+    shared-topology path; its cluster and mesh sections are idle here,
+    ROADMAP item 11). ``QueryService.health()`` and the ``/topology``
+    route read it. The locks nest in the reference's rank order (health,
+    quarantine, the arbiter's reentrant lock last)."""
+    from spark_rapids_tpu_torch.runtime.memory import MEMORY
+    with HEALTH._lock:
+        with QUARANTINE._lock:
+            with MEMORY._lock:
+                return {
+                    "generation": HEALTH._losses,
+                    "state": HEALTH.state(),
+                    "cpuOnlyReason": HEALTH.cpu_only_reason(),
+                    "backend": {
+                        "deviceLost": HEALTH._losses,
+                        "deviceReinits": HEALTH._reinits,
+                        "consecutiveLosses": HEALTH._consecutive_losses,
+                    },
+                    "hosts": {**IDLE_HOSTS, **IDLE_HOST_LADDER},
+                    "mesh": {**IDLE_MESH, **IDLE_MESH_LADDER},
+                    "memory": {
+                        **MEMORY.snapshot(),
+                        "memoryPressureEvents": HEALTH._mem_events,
+                        "memoryConsecutive": HEALTH._mem_consecutive,
+                        "memoryChunkedReexecutions": HEALTH._mem_chunked,
+                        "memoryCpuDemotions": HEALTH._mem_cpu_demotions,
+                    },
+                    "quarantine": {
+                        "templatesWithStrikes": len(QUARANTINE._strikes),
+                        "strikes": sum(len(v) for v in
+                                       QUARANTINE._strikes.values()),
+                        "quarantined": len(QUARANTINE._quarantined),
+                    },
+                }

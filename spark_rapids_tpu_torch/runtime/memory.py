@@ -240,6 +240,13 @@ class MemoryArbiter:
             return max(1, int(budget * self._chunk_fraction))
 
     # -- accounting ----------------------------------------------------------
+    def occupancy(self) -> int:
+        """Reserved plus ledger bytes: what the service's admission gate
+        and its DEGRADED check read (never the caching allocator's
+        ``memory_reserved``, which keeps freed blocks)."""
+        with self._lock:
+            return self._reserved + self._ledger_total
+
     def _note_peak_locked(self) -> None:
         occ = self._reserved + self._ledger_total
         if occ > self._peak:

@@ -603,6 +603,12 @@ class BufferCatalog:
         MEM_SCOPE.add("unspills", 1)
 
     # -- accounting ---------------------------------------------------------
+    def device_bytes(self) -> int:
+        """Device-resident bytes of the registered batches (the service's
+        admission gate reads it beside the arbiter's ledger)."""
+        with self._lock:
+            return sum(b.device_bytes for b in self._buffers.values())
+
     def host_bytes(self) -> int:
         with self._lock:
             return sum(b.host_bytes for b in self._buffers.values())

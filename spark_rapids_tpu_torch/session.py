@@ -4,13 +4,14 @@ device semaphore, the asynchronous result fetch) under the recovery
 envelope (the circuit breaker's replays, the memory degradation ladder,
 device-loss handling, the poison-query strikes) and the query envelope
 (the reference's ``TpuSession.execute`` and ``_plan_and_drain``, less
-AQE, the mesh and host ladders and the service's cancellation):
+the mesh and host ladders):
 
 * the executable cache (plan/executable_cache.py): a repeated plan checks
   out its converted tree and runs no conversion;
 * LORE ids and dumps (lore.py), the fault boundaries
-  (runtime/faults.py) and the observation boundaries (obs/spans.py),
-  installed in the reference's order;
+  (runtime/faults.py), the observation boundaries (obs/spans.py) and,
+  outermost, the cancellation boundaries (service/query.py), installed
+  in the reference's order;
 * the profiler around the drain (runtime/profiler.py,
   ``spark.rapids.profile.*``);
 * the span tracer and the event log (obs/events.py,
@@ -21,7 +22,10 @@ AQE, the mesh and host ladders and the service's cancellation):
 A nested execute (a cached relation's materialization, a WriteFiles
 plan's child) rides the outer query's envelope: no record, no profiler
 index, no cache checkout. In-flight query state is per thread
-(``_TLQueryState``), so sessions may run queries from several threads.
+(``_TLQueryState``), so sessions may run queries from several threads:
+the query service's workers (service/scheduler.py) share one session,
+and each hands its query's tenant, pool, queue wait and strikes to the
+event record through ``next_query_service``.
 
 Each session starts the process's device manager for its device
 (runtime/device_manager.py), configures the memory arbiter's budget from
@@ -61,7 +65,8 @@ class _TLQueryState:
     while it runs is thread-local. ``last_*`` reads fall back to the
     session-wide mirror of the last completed query."""
 
-    __slots__ = ("exec_depth", "next_tag", "next_sql", "phases",
+    __slots__ = ("exec_depth", "next_tag", "next_sql", "next_service",
+                 "phases",
                  "executable", "dispatches", "event_record", "event_path",
                  "exec_cache_token", "exec_cache_hit", "compile_ms",
                  "meta")
@@ -106,6 +111,10 @@ class TorchSession:
         "next_tag", "query tag the NEXT execute() on this thread records")
     next_query_sql = _tl_only(
         "next_sql", "SQL text the NEXT execute() on this thread records")
+    next_query_service = _tl_only(
+        "next_service", "service envelope (tenant, pool, queue wait, cache "
+        "hit, quarantine strikes) the NEXT execute() on this thread "
+        "records")
     last_dispatches = _tl_mirrored(
         "dispatches", "hand-written kernel launches of the last query "
         "(dispatch.py)")
@@ -279,9 +288,14 @@ class TorchSession:
         from spark_rapids_tpu_torch.runtime.health import HEALTH
         from spark_rapids_tpu_torch.runtime.memory import MEMORY
         FAULTS.arm(str(self.conf.get_entry(TEST_FAULTS) or ""))
+        # the telemetry sampler and the flight recorder follow this
+        # session's conf (a no-op when unchanged)
+        from spark_rapids_tpu_torch.obs.telemetry import TELEMETRY
+        TELEMETRY.configure(self.conf)
         q = self._q
         query_tag, q.next_tag = q.next_tag, None
         sql_text, q.next_sql = q.next_sql, None
+        service_info, q.next_service = q.next_service, None
         if q.exec_depth:
             # nested query: no envelope of its own
             q.exec_depth += 1
@@ -336,7 +350,8 @@ class TorchSession:
         spans = TRACER.end_query()
         record = self._query_record(
             qidx, wall_s, spans, ctx, before, before_recovery,
-            before_fires, before_health, query_tag, sql_text)
+            before_fires, before_health, query_tag, sql_text,
+            service_info)
         self.last_event_record = record
         # the record has read the tree's metrics: the cached tree may now
         # serve the next query (which resets them)
@@ -370,7 +385,7 @@ class TorchSession:
 
     def _query_record(self, qidx, wall_s, spans, ctx, before,
                       before_recovery, before_fires, before_health,
-                      query_tag, sql_text) -> dict:
+                      query_tag, sql_text, service_info=None) -> dict:
         """The query's event record (obs/events.py), its deferred row
         counts read first in one batched fetch."""
         from spark_rapids_tpu_torch.obs import events as E
@@ -425,6 +440,11 @@ class TorchSession:
             health_state=health_state,
             device_reinits=int(after_health["deviceReinits"]
                                - before_health["deviceReinits"]),
+            # the service's watchdog respawns workers while queries run:
+            # the health scope's delta attributes restarts to the wall
+            # they happened under
+            worker_restarts=_wdelta("workersRespawned", "health"),
+            service=service_info,
             files_written=_wdelta("filesWritten", "write"),
             bytes_written=_wdelta("bytesWritten", "write"),
             oom_retries=_wdelta("oomRetries", "memory"),
@@ -538,8 +558,9 @@ class TorchSession:
           ``runtimeFallback.maxFailures`` demotes the operator, which the
           replay's tag plans onto the CPU route.
 
-        The ``chunk``, ``cpu_demote`` and ``abort`` rungs and a device loss
-        each strike the plan's template in the quarantine. A replay drops
+        The ``chunk``, ``cpu_demote`` and ``abort`` rungs each strike the
+        plan's template in the quarantine; a device loss strikes it in the
+        query service, which requeues the query. A replay drops
         the query's executable-cache entry and plans fresh."""
         from contextlib import nullcontext
 
@@ -621,10 +642,11 @@ class TorchSession:
                     report = handle_fatal(exc, self.conf, tree_string(
                         self._last_root or plan))
                     self._drop_cached_tree()
+                    # the strike is the query service's
+                    # (service/scheduler.py::_on_device_lost), as in the
+                    # reference: one per loss
                     state = HEALTH.on_device_loss(exc, self.conf,
                                                   self.device, report)
-                    self._strike_fault_template(plan, exc, "device_lost",
-                                                "device")
                     lost = DeviceLostError(
                         f"device lost during execution "
                         f"({type(exc).__name__}: "
@@ -663,8 +685,12 @@ class TorchSession:
             convert_meta,
             wrap_plan,
         )
+        from spark_rapids_tpu_torch.service.query import check_cancelled
         q = self._q
         top = q.exec_depth == 1
+        # a host plan collects without exec pulls: the service's cancel
+        # and deadline are checked once here
+        check_cancelled()
         t0 = time.perf_counter()
         self._last_root, self._last_replays = None, 0
         meta = wrap_plan(rewrite_input_file_exprs(plan), self.conf)
@@ -751,6 +777,7 @@ class TorchSession:
             install_fault_boundaries,
         )
         from spark_rapids_tpu_torch.runtime.retry import MAX_RETRIES_VAR
+        from spark_rapids_tpu_torch.service.query import install_cancellation
         q = self._q
         top = q.exec_depth == 1
         self._last_root, self._last_replays = None, 0
@@ -798,6 +825,11 @@ class TorchSession:
         # (idempotent per exec: a cached tree is not wrapped twice)
         install_fault_boundaries(root)
         install_observation(root)
+        # cancellation outermost: it reads the executing thread's scope
+        # at every pull, so it is installed whether or not one is active
+        # (a cached tree filled outside the service still honours cancel
+        # when the service reuses it)
+        install_cancellation(root)
         self._last_root = root
         self._last_executable = root
         TRACER.end(plan_span)

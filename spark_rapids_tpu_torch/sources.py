@@ -144,8 +144,8 @@ class _HiveTextProvider(ExternalSourceProvider):
 
 #: formats the port does not read yet -> the ROADMAP item that ports them
 NOT_PORTED = {
-    "delta": "Queue 1 item 12 (delta/)",
-    "iceberg": "Queue 1 item 12 (iceberg/)",
+    "delta": "Queue 1 item [12b] (delta/)",
+    "iceberg": "Queue 1 item [12b] (iceberg/)",
 }
 
 

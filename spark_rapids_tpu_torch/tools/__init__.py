@@ -10,9 +10,10 @@ compute, transfer, shuffle and spill breakdown, span attribution);
 the kernels and fill the executable cache before traffic arrives.
 
 The report and the comparison are pure functions over the JSON records:
-no session or device is touched. ``loadtest``, ``vacuum``, ``top`` and
-``incident`` need the query service, Delta, the service's introspection
-endpoint and the flight recorder, and raise naming ROADMAP item 12.
+no session or device is touched. ``loadtest`` drives the corpus through
+the query service (service/*), ``top`` polls its introspection endpoint
+and ``incident`` renders the flight recorder's bundles; ``vacuum`` needs
+Delta and raises naming ROADMAP item [12b].
 """
 
 from spark_rapids_tpu_torch.tools.compare import (  # noqa: F401

@@ -135,11 +135,13 @@ def test_unported_pieces_raise_not_implemented():
     # the global aggregate is ported: one row
     assert df.agg(F.sum(col("v")), F.max(col("k"))).collect() == [(10.0, 9)]
     # a cast to string and a DECIMAL128 variance run on the CPU route
-    # (checked against the reference below); TIMESTAMP literals are not
-    # ported
+    # (checked against the reference below); a TIMESTAMP literal holds
+    # the reference's internal value, UTC microseconds
     import datetime
-    with pytest.raises(NotImplementedError, match="TIMESTAMP literal"):
-        lit(datetime.datetime(2020, 1, 1))
+
+    from spark_rapids_tpu.ops.expr import lit as ref_lit
+    assert lit(datetime.datetime(2020, 1, 1)).value == \
+        ref_lit(datetime.datetime(2020, 1, 1)).value == 1577836800000000
     # the pieces this test once held to raising (negation, MIN over
     # BOOLEAN, MAX over a decimal, a decimal sum, a DECIMAL128 quotient)
     # run, and equal the reference's answers

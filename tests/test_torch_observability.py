@@ -447,7 +447,10 @@ def test_the_launch_helper_fires_once_per_call(monkeypatch):
     gid = torch.zeros(8, dtype=torch.int32)
     from spark_rapids_tpu_torch.kernels.segreduce import onehot_partials
     onehot_partials(x, gid, 1, 1, 8)
+    # the reference's order (dispatch.py): the wedge stalls between the
+    # kernel point and the device loss
     assert seen == [("dispatch.kernel", "onehot_partials"),
+                    ("dispatch.wedge", "onehot_partials"),
                     ("device.lost", "onehot_partials")]
     # the CPU takes the plain version: no launch
     assert K.launch_counts()["onehot_partials"] == 0
