@@ -1,7 +1,7 @@
 """Drive the PyTorch port (spark_rapids_tpu_torch) on one CUDA card.
 
     python3 chip_smoke.py [--rows N] [--sf SF] [--seed S] [--profile DIR]
-                          [--only 21|22|23]
+                          [--only 21|22|23|24]
 
 Phases, in order; any failure exits non-zero:
 
@@ -135,7 +135,7 @@ Phases, in order; any failure exits non-zero:
    MULTITHREADED and held against its source bit for bit, with its rows,
    bytes on disk, write seconds, host decode seconds and rate, and upload
    ms; TPC-H q1 over lineitem from its files against phase 4's oracle,
-   cold (with its counters, and again in two fresh processes) and warm
+   cold (with its counters, and again in a fresh process) and warm
    beside phase 4's warm; the 22 corpus queries from the
    files as DataFrames and as SQL over ``CREATE TEMP VIEW ... USING
    parquet``, each against phase 6-8's oracles (the windows by key),
@@ -257,10 +257,38 @@ Phases, in order; any failure exits non-zero:
    (four cold q1s build each library once; then a device-side assert at
    one launch while three other q1s run: every handle requeued and
    FINISHED on the CPU route after the latch);
-24. the summary lines: one ``{"kernels": [...]}`` JSON line (the five TPU
+24. Delta Lake, Iceberg and streaming (``run_lakehouse``) over phase 4's
+   lineitem with l_orderkey, l_linenumber and l_partkey added
+   (``lake_lineitem``): D1 the Delta table (8 files, one commit each), q1
+   cold and warm against its oracle and bit for bit against q1 in memory
+   over the scan's rows, DELETE of l_partkey < 4000 through deletion
+   vectors, UPDATE of l_tax over the first file's orders, and two MERGEs
+   of 600,000 source rows keyed (l_orderkey, l_linenumber), half matched
+   and half new, with low-shuffle on and off; after each command the row
+   count, q1 against the numpy state (``LakeState``) and time travel to
+   version 0; D2 OPTIMIZE ZORDER BY (l_shipdate, l_partkey), the
+   checkpoint at version 10 replayed by a fresh log against every commit
+   file, ``table_changes`` over the DML versions (counts by change type),
+   ``rename_column`` under column mapping then q1, VACUUM dry and real,
+   and an injected ``delta.commit.race`` retried with ``commitRetries`` 1
+   in the next event record; I1 an Iceberg table of the same lineitem
+   written by this script's fixture (the port's Parquet writer, a minimal
+   Avro encoder for the manifests), q1 at its two snapshots (the second
+   with 1% positional deletes and an equality delete that applies to one
+   file by sequence number); S1 a file-watch stream over 24 Parquet files
+   at 4 a trigger through a one-worker ``QueryService`` into a Delta
+   sink (listed on ``/streams``), then the same stream in a child process
+   (``--stream-child``) stopped inside a batch's commit and killed, and
+   resumed here with one sink replay, its rows equal to the clean run's;
+   M1 a reaggregate and an append view over the sink, refreshed after
+   every commit and held bit for bit against ``recompute_at_epoch()``,
+   and a commit to D1's table leaving the service's cached result over
+   the sink. Every launch is held against its kernel's plain version
+   (``HeldCalls``), every plan converts with 0 CPU-route nodes;
+25. the summary lines: one ``{"kernels": [...]}`` JSON line (the five TPU
    kernels and the DECIMAL128 division kernel, CUDA work beyond them;
    launches of the main path: q1's, sparse q3's probes, q8's MIN/MAX, plus
-   every phase-7 to phase-23 query's), the script's time, the card line,
+   every phase-7 to phase-24 query's), the script's time, the card line,
    and last ``{"ok": true, "device": {...}}``.
 
 Each phase logs its wall time. It needs one CUDA card and exits non-zero
@@ -269,8 +297,10 @@ trace of one warm run of q1, of each q3 form, of each phase-6, phase-7
 and phase-8 query, of phase 9's conditional query, of J1, J7, J8 and J9,
 of O1, O2, O3, O4a, O5, O6a and O7, of S1, S2, S5, S7 and S8 and of W1,
 W3, W4, W7, W8a and W8c, and of N1 and N3's posexplode. ``--only 21``
-(or ``22``, ``23``) runs phases 1-3 and then that phase over tables it
-makes itself.
+(or ``22``, ``23``, ``24``) runs phases 1-3 and then that phase over
+tables it makes itself. For the time limit, phases 11-13 take one warm
+run before the counted one, 15.4 one, 16.4 none (the counted run's time
+is its warm time), and 15.3 one fresh process.
 """
 
 from __future__ import annotations
@@ -1397,15 +1427,26 @@ def check_minmax(seed: int = 3, **shape_args) -> dict:
 # phase 4: q1 end to end
 # ---------------------------------------------------------------------------
 
+def _groups_of(c, m):
+    """(sorted distinct strings, each row's index into them) of the rows
+    ``m`` of string column ``c``: by its codes when it carries them (a
+    sorted dictionary), else by sorting the strings."""
+    enc = c._cache.get("encode")
+    if enc is None:
+        u, i = np.unique(c.data[m].astype(str), return_inverse=True)
+        return u, i.reshape(-1)
+    u, i = np.unique(enc[0][m], return_inverse=True)
+    return enc[1][u].astype(str), i.reshape(-1)
+
+
 def q1_oracle(table):
     """q1 in plain numpy: rows sorted by (flag, status) with exact counts."""
     from spark_rapids_tpu_torch.models.tpch import Q1_CUTOFF_DAYS
     col = {n: c.data for n, c in zip(table.names, table.columns)}
+    by = dict(zip(table.names, table.columns))
     m = col["l_shipdate"] <= Q1_CUTOFF_DAYS
-    rf_u, rf_i = np.unique(col["l_returnflag"][m].astype(str),
-                           return_inverse=True)
-    ls_u, ls_i = np.unique(col["l_linestatus"][m].astype(str),
-                           return_inverse=True)
+    rf_u, rf_i = _groups_of(by["l_returnflag"], m)
+    ls_u, ls_i = _groups_of(by["l_linestatus"], m)
     g = rf_i * len(ls_u) + ls_i
     ng = len(rf_u) * len(ls_u)
     qty, price = col["l_quantity"][m], col["l_extendedprice"][m]
@@ -1972,7 +2013,8 @@ def hold_launches(name, calls) -> None:
 
 def run_case(session, name, build, check, profile_dir, keep=None,
              warm_runs: int = 3) -> dict:
-    """One query: a cold run (replays counted), ``warm_runs`` warm runs,
+    """One query: a cold run (replays counted), ``warm_runs`` warm runs
+    (with none, the counted run's time is the warm time),
     and one more warm run between launch-counter reads (host syncs and
     sorts logged, every launch's inputs recorded and then held against the
     kernel's plain version); each result against its oracle. Returns the
@@ -2000,9 +2042,14 @@ def run_case(session, name, build, check, profile_dir, keep=None,
     K.reset_launch_counts()
     syncs = sort_trace_start()
     K.calls = []
+    t0 = time.perf_counter()
     with host_sync_count() as box:
         again = build().collect_table()
     torch.cuda.synchronize()
+    if not warm:
+        # no warm run asked for: the counted run's time stands in (sync
+        # debug mode on and every launch's inputs recorded, so slower)
+        warm.append(time.perf_counter() - t0)
     launches = K.launch_counts()
     calls, K.calls = K.calls, None
     sort_trace_end(name, syncs)
@@ -3485,7 +3532,8 @@ def run_ops(tables, sf: float, seed: int, profile_dir) -> dict:
     for name in OPS_QUERIES:
         prof = profile_dir if name in ("O1", "O2", "O3", "O4a", "O5", "O6a",
                                        "O7") else None
-        res = run_case(session, name, queries[name], oracles[name], prof)
+        res = run_case(session, name, queries[name], oracles[name], prof,
+                       warm_runs=1)
         results[name] = res
         for k, v in res["launches"].items():
             total[k] = total.get(k, 0) + v
@@ -4248,7 +4296,7 @@ def run_scalars(tables, sf: float, seed: int, profile_dir) -> tuple:
     for name in SCALAR_QUERIES:
         prof = profile_dir if name in ("S1", "S2", "S5", "S7", "S8") else None
         res = run_case(session, name, lambda t=texts[name]: session.sql(t),
-                       oracles[name], prof)
+                       oracles[name], prof, warm_runs=1)
         for k, v in res["launches"].items():
             total[k] = total.get(k, 0) + v
         summary[name] = dict(res["stats"], launches={
@@ -4702,7 +4750,7 @@ def run_windows(tables, profile_dir) -> dict:
         prof = profile_dir if name in ("W1", "W3", "W4", "W7", "W8a",
                                        "W8c") else None
         res = run_case(sess, name, lambda t=WINDOW_SQL[name], s=sess:
-                       s.sql(t), oracles[name], prof)
+                       s.sql(t), oracles[name], prof, warm_runs=1)
         for k, v in res["launches"].items():
             total[k] = total.get(k, 0) + v
         summary[name] = dict(res["stats"], launches={
@@ -5405,11 +5453,10 @@ def files_q1(paths, q1_keep, card: str) -> tuple:
     log("  15.3 q1 from files, the cold run's counters and seconds: "
         + json.dumps({k: round(v, 4) if isinstance(v, float) else v
                       for k, v in cold.items() if v}))
-    fresh = [fresh_cold_q1(paths["lineitem_q1"], q1_keep["result"].num_rows)
-             for _ in range(2)]
+    fresh = [fresh_cold_q1(paths["lineitem_q1"], q1_keep["result"].num_rows)]
     log(f"  15.3 q1 from files cold: {res['stats']['cold_ms']} ms in this "
-        f"process, {[f['cold_ms'] for f in fresh]} ms in two fresh "
-        "processes; their counters and seconds: "
+        f"process, {[f['cold_ms'] for f in fresh]} ms in a fresh "
+        "process; its counters and seconds: "
         + json.dumps([f["counters"] for f in fresh]) + f" [{card}]")
     for f in fresh:
         log(f"  15.3 fresh cold q1's event record {f['event_log']}: "
@@ -5544,7 +5591,8 @@ def files_corpus(tables, paths, card: str) -> tuple:
                 ("dsl", dsl, queries[name]),
                 ("sql", sql, lambda t=texts[name]: sql.sql(t))):
             label = f"{name} from files" + (" SQL" if form == "sql" else "")
-            res = run_case(session, label, build, oracles[name], None)
+            res = run_case(session, label, build, oracles[name], None,
+                           warm_runs=1)
             # the counted warm run's scan metrics (its last execute)
             m = session.last_metrics()
             for k, v in res["launches"].items():
@@ -5965,8 +6013,8 @@ def text_corpus(tables, paths, card: str) -> tuple:
     """16.4: the 22 corpus queries over the CSV files as DataFrames and as
     SQL over ``CREATE TEMP VIEW ... USING csv OPTIONS (path, schema)``,
     and over the JSON files as DataFrames (``read_corpus_table``), each
-    through ``run_case`` (one warm run before the counted one) against its
-    oracle. Returns (launch totals, numbers)."""
+    through ``run_case`` (a cold and the counted run, whose time is the
+    warm time) against its oracle. Returns (launch totals, numbers)."""
     from spark_rapids_tpu_torch.models.corpus import (
         CORPUS,
         build_queries,
@@ -5986,7 +6034,7 @@ def text_corpus(tables, paths, card: str) -> tuple:
         for label, session, queries in forms:
             case = f"{name} from {label}"
             res = run_case(session, case, queries[name], oracles[name], None,
-                           warm_runs=1)
+                           warm_runs=0)
             m = session.last_metrics()
             for k, v in res["launches"].items():
                 total[k] = total.get(k, 0) + v
@@ -9749,6 +9797,879 @@ def run_service(tables, q1_table, q1_check, q3_tables, checks) -> dict:
     return launches
 
 
+# -- phase 24: Delta Lake, Iceberg and streaming ---------------------------------
+
+#: D1: the Delta table's data files (slices of phase 4's lineitem, one
+#: commit each)
+LAKE_FILES = 8
+#: D1: each MERGE's source rows, half matched (update) and half new
+#: (insert)
+LAKE_MERGE_ROWS = 600_000
+#: D1: DELETE's share of the rows (l_partkey below this of 200,000 parts)
+LAKE_DELETE_PARTKEY = 4000
+#: D1: UPDATE's orders (l_orderkey at most this: the first file's rows)
+LAKE_UPDATE_ORDERS = 100_000
+#: D2: rows of the append that loses an injected commit race
+LAKE_RACE_ROWS = 1000
+#: S1: the stream's Parquet files, their rows in all (lineitem's first
+#: rows: cut from SF 1 for the phase's time, PERF.md section 4), and
+#: files per trigger
+STREAM_FILES = 24
+STREAM_ROWS = 1_000_000
+STREAM_PER_TRIGGER = 4
+#: S1: the child process stops dead inside the commit of this batch
+STREAM_KILL_BATCH = 2
+#: the phase's aim on the usual host, seconds
+LAKE_BUDGET_S = 60.0
+LAKE_PHASE = ("phase 24: Delta Lake, Iceberg and streaming (D1 the Delta "
+              "table of lineitem: q1, DELETE by deletion vectors, UPDATE, "
+              "MERGE low-shuffle and full; D2 OPTIMIZE ZORDER, the "
+              "checkpoint's replay, the change feed, a column rename, "
+              "VACUUM, a lost commit race; I1 an Iceberg table at two "
+              "snapshots with deletes; S1 a file-watch stream into a Delta "
+              "sink, killed and resumed; M1 two views over it)")
+
+
+class LakeState:
+    """The Delta table's expected rows, kept in numpy beside every
+    command (the oracle of D1 and D2): columns by name and the live rows."""
+
+    def __init__(self, table):
+        self.names = list(table.names)
+        self.types = {n: c.dtype for n, c in zip(table.names, table.columns)}
+        self.cols = {n: np.array(c.data, copy=True)
+                     for n, c in zip(table.names, table.columns)}
+        self.alive = np.ones(table.num_rows, dtype=bool)
+        #: rows of the original table (an original row's index follows
+        #: from its key: (l_orderkey - 1) * 4 + l_linenumber - 1)
+        self.n0 = table.num_rows
+        #: each string column's (codes, sorted dictionary): the oracle
+        #: groups by codes
+        self.enc = {n: c.encoded() for n, c in zip(table.names, table.columns)
+                    if isinstance(c.data, np.ndarray) and
+                    c.data.dtype == object}
+
+    def table(self):
+        from spark_rapids_tpu_torch.columnar import HostColumn, HostTable
+        cols = []
+        for n in self.names:
+            c = HostColumn(self.types[n], self.cols[n][self.alive])
+            if n in self.enc:
+                codes, dictionary = self.enc[n]
+                c._cache["encode"] = (codes[self.alive], dictionary)
+            cols.append(c)
+        return HostTable(self.names, cols)
+
+    def index(self, orderkey, linenumber):
+        return (orderkey - 1) * 4 + linenumber.astype(np.int64) - 1
+
+    def append(self, table):
+        for n, c in zip(table.names, table.columns):
+            self.cols[n] = np.concatenate([self.cols[n], c.data])
+            if n in self.enc:
+                codes, dictionary = self.enc[n]
+                new = np.searchsorted(dictionary, c.data).astype(np.int32)
+                self.enc[n] = (np.concatenate([codes, new]), dictionary)
+        self.alive = np.concatenate(
+            [self.alive, np.ones(table.num_rows, dtype=bool)])
+
+    def merge(self, src):
+        """MERGE ... WHEN MATCHED UPDATE (quantity, price) WHEN NOT
+        MATCHED INSERT: returns (matched, inserted)."""
+        by = dict(zip(src.names, src.columns))
+        idx = self.index(by["l_orderkey"].data, by["l_linenumber"].data)
+        hit = (idx < self.n0)
+        hit[hit] = self.alive[idx[hit]]
+        for n in ("l_quantity", "l_extendedprice"):
+            self.cols[n][idx[hit]] = by[n].data[hit]
+        keep = ~hit
+        from spark_rapids_tpu_torch.columnar import HostColumn, HostTable
+        self.append(HostTable(src.names, [
+            HostColumn(c.dtype, c.data[keep]) for c in src.columns]))
+        return int(hit.sum()), int(keep.sum())
+
+
+def lake_lineitem(table, seed: int):
+    """Phase 4's lineitem with the keys the DML needs: l_orderkey (four
+    lines an order), l_linenumber and l_partkey (TPC-H SF 1's 200,000
+    parts, from its own seed stream)."""
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.columnar import HostColumn, HostTable
+    n = table.num_rows
+    rng = np.random.default_rng(seed + 24)
+    i = np.arange(n, dtype=np.int64)
+    extra = [("l_orderkey", HostColumn(T.LONG, i // 4 + 1)),
+             ("l_linenumber", HostColumn(T.INT,
+                                         (i % 4 + 1).astype(np.int32))),
+             ("l_partkey", HostColumn(T.LONG, rng.integers(1, 200_001, n)))]
+    return HostTable(list(table.names) + [e[0] for e in extra],
+                     list(table.columns) + [e[1] for e in extra])
+
+
+def lake_slices(table, k: int):
+    n = table.num_rows
+    per = -(-n // k)
+    return [table.slice(i * per, min(per, n - i * per)) for i in range(k)]
+
+
+def merge_source(table, state: LakeState, region, seed: int):
+    """LAKE_MERGE_ROWS source rows keyed (l_orderkey, l_linenumber): half
+    the original rows of ``region`` (a row range; quantity and price
+    changed), half new keys past every key of the table."""
+    from spark_rapids_tpu_torch.columnar import HostColumn, HostTable
+    rng = np.random.default_rng(seed)
+    half = LAKE_MERGE_ROWS // 2
+    hit = np.sort(rng.choice(np.arange(*region), half, replace=False))
+    new_rows = rng.integers(0, table.num_rows, LAKE_MERGE_ROWS - half)
+    rows = np.concatenate([hit, new_rows])
+    cols = {n: c.data[rows] for n, c in zip(table.names, table.columns)}
+    cols["l_quantity"] = cols["l_quantity"] + 1.0
+    cols["l_extendedprice"] = (cols["l_extendedprice"] * 1.01).round(2)
+    top = int(state.cols["l_orderkey"].max())
+    j = np.arange(LAKE_MERGE_ROWS - half, dtype=np.int64)
+    cols["l_orderkey"][half:] = top + 1 + j // 4
+    cols["l_linenumber"][half:] = (j % 4 + 1).astype(np.int32)
+    return HostTable(table.names, [HostColumn(c.dtype, cols[n])
+                                   for n, c in zip(table.names,
+                                                   table.columns)])
+
+
+def by_key(table):
+    """``table``'s columns in (l_orderkey, l_linenumber) order."""
+    from spark_rapids_tpu_torch.columnar import HostColumn, HostTable
+    by = dict(zip(table.names, table.columns))
+    order = np.lexsort((by["l_linenumber"].data, by["l_orderkey"].data))
+    return HostTable(table.names, [HostColumn(c.dtype, c.data[order],
+                                              c.validity[order])
+                                   for c in table.columns])
+
+
+def lake_count(session, path: str) -> int:
+    """The Delta table's rows through a COUNT on the card (no column
+    decoded: the files' footers and deletion vectors)."""
+    from spark_rapids_tpu_torch import functions as F
+    got = session.read_delta(path).agg(F.count().alias("n")).collect_table()
+    return int(got.columns[0].data[0])
+
+
+def lake_q1(session, df, oracle, what: str, warm: bool = True) -> dict:
+    """q1 over ``df`` against the oracle, cold then (``warm``) warm; its
+    ms, host syncs (of the warm run, else of the cold) and launches."""
+    from spark_rapids_tpu_torch import kernels as K
+    from spark_rapids_tpu_torch.models.tpch import q1_dataframe
+    before = K.launch_counts()
+    times = []
+    for _ in range(2 if warm else 1):
+        with host_sync_count() as box:
+            t0 = time.perf_counter()
+            got = q1_dataframe(session, df).collect_table()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        check_q1_result(got, oracle)
+    after = K.launch_counts()
+    return {"what": what, "cold_ms": round(times[0], 1),
+            "warm_ms": round(times[-1], 1) if warm else None,
+            "syncs": box["syncs"],
+            "launches": {k: after[k] - before[k] for k in after
+                         if after[k] - before[k]}, "result": got}
+
+
+def lake_d1(session, li, base: str, card: str, res: dict):
+    """D1: the Delta table of lineitem, q1 over it, DELETE, UPDATE and
+    two MERGEs, each checked. Returns (path, state, the change counts)."""
+    from spark_rapids_tpu_torch.columnar.table import concat_host
+    from spark_rapids_tpu_torch.models.tpch import q1_dataframe
+    from spark_rapids_tpu_torch.ops.expr import col, lit
+    from spark_rapids_tpu_torch.plan import from_host_table
+    path = os.path.join(base, "delta_lineitem")
+    slices = lake_slices(li, LAKE_FILES)
+    t0 = time.perf_counter()
+    for i, part in enumerate(slices):
+        v = from_host_table(part, session).write_delta(
+            path, mode="append" if i else "error")
+        if v != i:
+            fail(f"D1: write {i} committed version {v}")
+    write_s = time.perf_counter() - t0
+    state = LakeState(li)
+    oracle = q1_oracle(li)
+    q1 = lake_q1(session, session.read_delta(path), oracle, "D1 q1")
+    # bit for bit: q1 over the Delta scan against q1 in memory over the
+    # same rows in the scan's order (its files sorted by path: version
+    # i's file holds slice i)
+    files = [json.loads(line)["add"]["path"]
+             for v in range(LAKE_FILES)
+             for line in open(os.path.join(path, "_delta_log",
+                                           f"{v:020d}.json"))
+             if '"add"' in line]
+    in_order = concat_host([slices[i] for i in sorted(
+        range(LAKE_FILES), key=lambda i: files[i])])
+    mem = q1_dataframe(session, in_order).collect_table()
+    same_host_table(q1["result"], mem, "D1 q1 (Delta vs in memory)")
+    log(f"  D1 wrote {li.num_rows} rows in {LAKE_FILES} files (versions "
+        f"0-{LAKE_FILES - 1}) in {write_s:.1f} s; q1 cold "
+        f"{q1['cold_ms']} ms, warm {q1['warm_ms']} ms ({q1['syncs']} host "
+        f"syncs), bit for bit q1 in memory over the scan's rows "
+        f"[{card}]")
+    res["D1"] = {"write_s": round(write_s, 2), "q1": {
+        k: v for k, v in q1.items() if k != "result"}}
+    dt = session.delta_table(path)
+    dt.set_properties({"delta.enableChangeDataFeed": "true"})
+    v0 = by_key(slices[0])
+
+    def after(name, t_op, expect_rows):
+        n = lake_count(session, path)
+        if n != expect_rows:
+            fail(f"D1 {name}: {n} rows, want {expect_rows}")
+        q = lake_q1(session, session.read_delta(path),
+                    q1_oracle(state.table()), f"D1 q1 after {name}",
+                    warm=False)
+        same_host_table(by_key(session.read_delta(
+            path, version_as_of=0).collect_table()), v0,
+            f"D1 time travel to version 0 after {name}")
+        log(f"  D1 {name}: {t_op:.2f} s (host), {n} rows, q1 "
+            f"{q['cold_ms']} ms ({q['syncs']} syncs, launches "
+            f"{q['launches']}), version 0 as written")
+        res[f"D1 {name}"] = {"s": round(t_op, 2), "rows": n,
+                             "q1": {k: v for k, v in q.items()
+                                    if k != "result"}}
+
+    t0 = time.perf_counter()
+    r = dt.delete(col("l_partkey") < lit(LAKE_DELETE_PARTKEY))
+    took = time.perf_counter() - t0
+    dead = state.alive & (state.cols["l_partkey"] < LAKE_DELETE_PARTKEY)
+    state.alive &= ~dead
+    if r["num_affected_rows"] != int(dead.sum()):
+        fail(f"D1 DELETE: {r} for {int(dead.sum())} rows")
+    dvs = sum(1 for f in dt.log.snapshot().files if f.deletion_vector)
+    if dvs != LAKE_FILES:
+        fail(f"D1 DELETE: {dvs} files with a DV, want {LAKE_FILES}")
+    after("DELETE", took, int(state.alive.sum()))
+    counts = {"delete": int(dead.sum())}
+
+    t0 = time.perf_counter()
+    r = dt.update(col("l_orderkey") <= lit(LAKE_UPDATE_ORDERS),
+                  {"l_tax": lit(0.0)})
+    took = time.perf_counter() - t0
+    hit = state.alive & (state.cols["l_orderkey"] <= LAKE_UPDATE_ORDERS)
+    state.cols["l_tax"] = np.where(hit, 0.0, state.cols["l_tax"])
+    if r["num_affected_rows"] != int(hit.sum()):
+        fail(f"D1 UPDATE: {r} for {int(hit.sum())} rows")
+    after("UPDATE", took, int(state.alive.sum()))
+    counts["update"] = int(hit.sum())
+
+    per = -(-li.num_rows // LAKE_FILES)
+    for name, region, low in (("MERGE low-shuffle", (2 * per, 3 * per),
+                               "true"),
+                              ("MERGE full rewrite", (5 * per, 6 * per),
+                               "false")):
+        src = merge_source(li, state, region, seed=len(name))
+        msession = type(session)({
+            "spark.rapids.sql.delta.lowShuffleMerge.enabled": low})
+        mdt = msession.delta_table(path)
+        t0 = time.perf_counter()
+        r = (mdt.merge(from_host_table(src, msession),
+                       ["l_orderkey", "l_linenumber"])
+             .when_matched_update(set={"l_quantity": "l_quantity",
+                                       "l_extendedprice": "l_extendedprice"})
+             .when_not_matched_insert().execute())
+        took = time.perf_counter() - t0
+        matched, inserted = state.merge(src)
+        if (r["num_matched_rows"], r["num_inserted_rows"],
+                r["low_shuffle"]) != (matched, inserted, low == "true"):
+            fail(f"D1 {name}: {r}, want {matched} matched, {inserted} "
+                 "inserted")
+        after(name, took, int(state.alive.sum()))
+        res[f"D1 {name}"]["merge"] = r
+        counts["update"] += matched
+        counts["insert"] = counts.get("insert", 0) + inserted
+    return path, state, counts
+
+
+def lake_d2(session, path, state, counts, li, base: str, res: dict):
+    """D2: OPTIMIZE ZORDER, the checkpoint's replay, the change feed,
+    a rename under column mapping, VACUUM, and a lost commit race."""
+    from spark_rapids_tpu_torch import functions as F
+    from spark_rapids_tpu_torch.columnar import HostColumn, HostTable
+    from spark_rapids_tpu_torch.delta.log import DeltaLog
+    from spark_rapids_tpu_torch.ops.expr import col, lit
+    from spark_rapids_tpu_torch.plan import from_host_table
+    from spark_rapids_tpu_torch.runtime.faults import FAULTS
+    from spark_rapids_tpu_torch.session import TorchSession
+    dt = session.delta_table(path)
+    t0 = time.perf_counter()
+    r = dt.optimize(zorder_by=["l_shipdate", "l_partkey"])
+    took = time.perf_counter() - t0
+    snap = dt.log.snapshot()
+    if r["files_added"] != 1 or len(snap.files) != 1:
+        fail(f"D2 OPTIMIZE ZORDER: {r}, {len(snap.files)} live files")
+    q = lake_q1(session, session.read_delta(path), q1_oracle(state.table()),
+                "D2 q1 after OPTIMIZE", warm=False)
+    log(f"  D2 OPTIMIZE ZORDER BY (l_shipdate, l_partkey): {r} in "
+        f"{took:.2f} s (host); q1 {q['cold_ms']} ms")
+    res["D2 OPTIMIZE"] = {"s": round(took, 2), "q1": {
+        k: v for k, v in q.items() if k != "result"}}
+
+    # the checkpoint written at version 10, and a fresh log's replay from
+    # it against a replay of every commit file
+    log_dir = os.path.join(path, "_delta_log")
+    cp = DeltaLog(path)._last_checkpoint()
+    if not cp or cp["version"] != 10 or not os.path.exists(os.path.join(
+            log_dir, f"{10:020d}.checkpoint.parquet")):
+        fail(f"D2: no checkpoint at version 10 ({cp})")
+    t0 = time.perf_counter()
+    from_cp = DeltaLog(path).snapshot()
+    cp_ms = (time.perf_counter() - t0) * 1e3
+    os.rename(os.path.join(log_dir, "_last_checkpoint"),
+              os.path.join(base, "_last_checkpoint"))
+    t0 = time.perf_counter()
+    full = DeltaLog(path).snapshot()
+    full_ms = (time.perf_counter() - t0) * 1e3
+    os.rename(os.path.join(base, "_last_checkpoint"),
+              os.path.join(log_dir, "_last_checkpoint"))
+
+    def files(s):
+        return sorted((a.path, json.dumps(a.deletion_vector, sort_keys=True))
+                      for a in s.files)
+    if files(from_cp) != files(full) or \
+            from_cp.metadata.schema_json != full.metadata.schema_json:
+        fail("D2: the replay from the checkpoint differs from the full one")
+    log(f"  D2 checkpoint at version 10: a fresh DeltaLog replays from it in "
+        f"{cp_ms:.1f} ms (every commit file: {full_ms:.1f} ms), same "
+        f"snapshot")
+
+    # the change feed over the DML versions (9 DELETE .. 12 MERGE)
+    t0 = time.perf_counter()
+    feed = dt.table_changes(9, 12)
+    got = feed.group_by("_change_type").agg(F.count().alias("n")) \
+        .collect_table()
+    took = time.perf_counter() - t0
+    by = dict(zip(got.columns[0].to_pylist(), got.columns[1].to_pylist()))
+    want = {"delete": counts["delete"], "update_preimage": counts["update"],
+            "update_postimage": counts["update"], "insert": counts["insert"]}
+    if by != want:
+        fail(f"D2 table_changes(9, 12): {by}, want {want}")
+    log(f"  D2 table_changes(9, 12): {by} in {took:.2f} s")
+    res["D2 CDF"] = {"s": round(took, 2), "changes": by}
+
+    # rename under column mapping: no file rewritten, q1 reads the new name
+    before = sorted(a.path for a in dt.log.snapshot().files)
+    dt.rename_column("l_tax", "l_taxrate")
+    m = dt.log.snapshot().metadata
+    if m.column_mapping_mode() != "name" or \
+            m.physical_names()["l_taxrate"] != "l_tax" or \
+            sorted(a.path for a in dt.log.snapshot().files) != before:
+        fail("D2 rename_column: mapping or files")
+    renamed = session.read_delta(path)
+    df = renamed.select(*[col(n).alias("l_tax") if n == "l_taxrate"
+                          else col(n) for n, _ in renamed.schema])
+    q = lake_q1(session, df, q1_oracle(state.table()), "D2 q1 after rename",
+                warm=False)
+    log(f"  D2 rename_column l_tax -> l_taxrate (mode name, no file "
+        f"rewritten); q1 {q['cold_ms']} ms")
+
+    # VACUUM: dry run, then real; q1 still answers
+    t0 = time.perf_counter()
+    dry = dt.vacuum(dry_run=True)
+    real = dt.vacuum()
+    took = time.perf_counter() - t0
+    if not dry["orphans"] or real["files_deleted"] != len(dry["orphans"]):
+        fail(f"D2 VACUUM: dry {len(dry['orphans'])}, real {real}")
+    lake_q1(session, df, q1_oracle(state.table()), "D2 q1 after VACUUM",
+            warm=False)
+    log(f"  D2 VACUUM: dry run lists {len(dry['orphans'])} orphans, the real "
+        f"one deletes {real['files_deleted']} ({took:.2f} s); q1 as before")
+    res["D2 VACUUM"] = {"orphans": len(dry["orphans"]),
+                        "deleted": real["files_deleted"]}
+
+    # one injected lost race: the append rebases and retries once, and
+    # the next record on the thread carries commitRetries 1
+    ev = os.path.join(base, "race_events")
+    race = TorchSession({"spark.rapids.test.faults":
+                         "delta.commit.race:race:1",
+                         "spark.rapids.sql.eventLog.enabled": "true",
+                         "spark.rapids.sql.eventLog.dir": ev})
+    rows = li.slice(0, LAKE_RACE_ROWS)
+    top = int(state.cols["l_orderkey"].max())
+    # the appended rows get new keys, and the table's renamed column
+    extra = from_host_table(rows, race).select(
+        *[(col(n) + lit(top)).alias(n) if n == "l_orderkey" else
+          col(n).alias("l_taxrate") if n == "l_tax" else col(n)
+          for n in rows.names])
+    try:
+        v = extra.write_delta(path, mode="append")
+        n = lake_count(race, path)
+        rec = race.last_event_record
+    finally:
+        FAULTS.disarm()
+    if v != 15 or rec is None or rec["commitRetries"] != 1:
+        fail(f"D2 race: version {v} (want 15), record "
+             f"{rec and rec['commitRetries']}")
+    state.append(HostTable(rows.names, [
+        HostColumn(c.dtype, c.data + top if nm == "l_orderkey" else c.data)
+        for nm, c in zip(rows.names, rows.columns)]))
+    if n != int(state.alive.sum()):
+        fail(f"D2 race: {n} rows, want {int(state.alive.sum())}")
+    log(f"  D2 an injected delta.commit.race: the append committed version "
+        f"{v} after one retry; commitRetries {rec['commitRetries']} in the "
+        f"event record, {n} rows")
+    res["D2 race"] = {"version": v, "commitRetries": rec["commitRetries"]}
+
+
+# -- Iceberg, written by this script (the reference writes no Iceberg) ------------
+
+ICEBERG_MANIFEST = {
+    "type": "record", "name": "manifest_entry", "fields": [
+        {"name": "status", "type": "int"},
+        {"name": "sequence_number", "type": ["null", "long"]},
+        {"name": "data_file", "type": {
+            "type": "record", "name": "r2", "fields": [
+                {"name": "content", "type": "int"},
+                {"name": "file_path", "type": "string"},
+                {"name": "file_format", "type": "string"},
+                {"name": "record_count", "type": "long"},
+                {"name": "file_size_in_bytes", "type": "long"},
+                {"name": "equality_ids",
+                 "type": ["null", {"type": "array", "items": "int"}]}]}}]}
+ICEBERG_MANIFEST_LIST = {
+    "type": "record", "name": "manifest_file", "fields": [
+        {"name": "manifest_path", "type": "string"},
+        {"name": "manifest_length", "type": "long"},
+        {"name": "content", "type": "int"}]}
+ICEBERG_TYPES = {"bigint": "long", "int": "int", "double": "double",
+                 "string": "string", "date": "date"}
+
+
+def _zz(n: int) -> bytes:
+    """Avro's zigzag varint."""
+    u = (n << 1) ^ (n >> 63)
+    out = bytearray()
+    while True:
+        b = u & 0x7F
+        u >>= 7
+        out.append(b | 0x80 if u else b)
+        if not u:
+            return bytes(out)
+
+
+def _avro_value(schema, v, out: bytearray) -> None:
+    if isinstance(schema, list):  # ["null", T]
+        if v is None:
+            out += _zz(schema.index("null"))
+            return
+        i = next(k for k, b in enumerate(schema) if b != "null")
+        out += _zz(i)
+        _avro_value(schema[i], v, out)
+    elif isinstance(schema, dict) and schema["type"] == "record":
+        for f in schema["fields"]:
+            _avro_value(f["type"], v[f["name"]], out)
+    elif isinstance(schema, dict) and schema["type"] == "array":
+        if v:
+            out += _zz(len(v))
+            for x in v:
+                _avro_value(schema["items"], x, out)
+        out += _zz(0)
+    elif schema in ("int", "long"):
+        out += _zz(int(v))
+    elif schema == "string":
+        b = v.encode("utf-8")
+        out += _zz(len(b)) + b
+    else:
+        raise ValueError(f"no encoder for avro type {schema!r}")
+
+
+def avro_container(path: str, schema: dict, rows) -> None:
+    """A minimal Avro object container (null codec, one block): the
+    Iceberg fixture's manifests (a test fixture, not a port feature)."""
+    sync = b"iceberg-fixture!"
+    out = bytearray(b"Obj\x01")
+    meta = {"avro.schema": json.dumps(schema).encode(),
+            "avro.codec": b"null"}
+    out += _zz(len(meta))
+    for k, v in meta.items():
+        out += _zz(len(k)) + k.encode() + _zz(len(v)) + v
+    out += _zz(0) + sync
+    body = bytearray()
+    for r in rows:
+        _avro_value(schema, r, body)
+    out += _zz(len(rows)) + _zz(len(body)) + body + sync
+    with open(path, "wb") as f:
+        f.write(bytes(out))
+
+
+def iceberg_entry(path: str, content: int, rows: int, seq: int,
+                  equality_ids=None) -> dict:
+    return {"status": 1, "sequence_number": seq, "data_file": {
+        "content": content, "file_path": path, "file_format": "PARQUET",
+        "record_count": rows, "file_size_in_bytes": os.path.getsize(path),
+        "equality_ids": equality_ids}}
+
+
+def write_iceberg(path: str, schema, snapshots) -> None:
+    """An Iceberg v2 table at ``path``: ``schema`` [(name, type name)],
+    ``snapshots`` a list of (snapshot id, manifest entries); one manifest
+    and one manifest list a snapshot, the last snapshot current."""
+    mdir = os.path.join(path, "metadata")
+    os.makedirs(mdir, exist_ok=True)
+    snaps = []
+    for sid, entries in snapshots:
+        manifest = os.path.join(mdir, f"manifest-{sid}.avro")
+        avro_container(manifest, ICEBERG_MANIFEST, entries)
+        mlist = os.path.join(mdir, f"snap-{sid}.avro")
+        avro_container(mlist, ICEBERG_MANIFEST_LIST, [{
+            "manifest_path": manifest,
+            "manifest_length": os.path.getsize(manifest), "content": 0}])
+        snaps.append({"snapshot-id": sid, "manifest-list": mlist,
+                      "timestamp-ms": 0})
+    fields = [{"id": i + 1, "name": n, "required": False,
+               "type": ICEBERG_TYPES[t]} for i, (n, t) in enumerate(schema)]
+    meta = {"format-version": 2, "table-uuid": "chip-smoke-iceberg",
+            "location": path,
+            "schemas": [{"schema-id": 0, "type": "struct",
+                         "fields": fields}],
+            "current-schema-id": 0,
+            "partition-specs": [{"spec-id": 0, "fields": []}],
+            "default-spec-id": 0,
+            "current-snapshot-id": snapshots[-1][0], "snapshots": snaps}
+    with open(os.path.join(mdir, "v1.metadata.json"), "w") as f:
+        json.dump(meta, f)
+    with open(os.path.join(mdir, "version-hint.text"), "w") as f:
+        f.write("1")
+
+
+def iceberg_lineitem(li, base: str, parts: int = LAKE_FILES) -> dict:
+    """I1's table: ``li`` in ``parts`` data files through the port's
+    Parquet writer; snapshot 1 holds them, snapshot 2 adds 1% positional
+    deletes (every 100th row of each file, sequence 4: all files) and an
+    equality delete of l_returnflag 'R' at sequence 2, which applies to
+    the first file only (sequence 1; the others are at 3). Returns the
+    path and each snapshot's expected rows (a keep mask over ``li``)."""
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.columnar import HostColumn, HostTable
+    from spark_rapids_tpu_torch.io import parquet_format as PF
+    path = os.path.join(base, "iceberg_lineitem")
+    os.makedirs(os.path.join(path, "data"), exist_ok=True)
+    data, pos_paths, pos_rows = [], [], []
+    keep = np.ones(li.num_rows, dtype=bool)
+    start = 0
+    rf = dict(zip(li.names, li.columns))["l_returnflag"].data
+    for i, part in enumerate(lake_slices(li, parts)):
+        p = os.path.join(path, "data", f"part-{i:03d}.parquet")
+        PF.write_table(part, p)
+        data.append(iceberg_entry(p, 0, part.num_rows, 1 if i == 0 else 3))
+        pos = np.arange(0, part.num_rows, 100, dtype=np.int64)
+        pos_paths += [p] * len(pos)
+        pos_rows.append(pos)
+        keep[start + pos] = False
+        if i == 0:
+            keep[start:start + part.num_rows] &= \
+                rf[start:start + part.num_rows] != "R"
+        start += part.num_rows
+    pos_rows = np.concatenate(pos_rows)
+    dp = os.path.join(path, "data", "pos-deletes.parquet")
+    PF.write_table(HostTable(["file_path", "pos"], [
+        HostColumn(T.STRING, np.array(pos_paths, dtype=object)),
+        HostColumn(T.LONG, pos_rows)]), dp)
+    ep = os.path.join(path, "data", "eq-deletes.parquet")
+    PF.write_table(HostTable(["l_returnflag"], [
+        HostColumn(T.STRING, np.array(["R"], dtype=object))]), ep)
+    schema = [(n, c.dtype.simple_string())
+              for n, c in zip(li.names, li.columns)]
+    rf_id = 1 + list(li.names).index("l_returnflag")
+    write_iceberg(path, schema, [
+        (1, data),
+        (2, data + [iceberg_entry(dp, 1, len(pos_rows), 4),
+                    iceberg_entry(ep, 2, 1, 2, [rf_id])])])
+    return {"path": path, "keep": {1: np.ones(li.num_rows, dtype=bool),
+                                   2: keep}}
+
+
+def lake_i1(session, li, base: str, res: dict) -> None:
+    from spark_rapids_tpu_torch.delta.table import take_rows
+    t0 = time.perf_counter()
+    ice = iceberg_lineitem(li, base)
+    write_s = time.perf_counter() - t0
+    for sid in (1, 2):
+        want = take_rows(li, np.flatnonzero(ice["keep"][sid]))
+        df = session.read_iceberg(ice["path"], snapshot_id=sid)
+        n = df.count()
+        if n != want.num_rows:
+            fail(f"I1 snapshot {sid}: {n} rows, want {want.num_rows}")
+        q = lake_q1(session, df, q1_oracle(want), f"I1 q1 at snapshot {sid}",
+                    warm=sid == 2)
+        log(f"  I1 snapshot {sid}: {n} rows; q1 cold {q['cold_ms']} ms warm "
+            f"{q['warm_ms']} ms ({q['syncs']} syncs, launches "
+            f"{q['launches']})")
+        res[f"I1 snapshot {sid}"] = {"rows": n, "q1": {
+            k: v for k, v in q.items() if k != "result"}}
+    log(f"  I1 wrote the table (8 data files, a positional and an equality "
+        f"delete file, two snapshots, manifests in Avro) in {write_s:.1f} s")
+
+
+# -- S1 and M1: a stream into a Delta sink, and views over it ----------------------
+
+def stream_files(li, base: str) -> str:
+    """S1's input: ``li`` as STREAM_FILES Parquet files (the port's
+    writer)."""
+    from spark_rapids_tpu_torch.io import parquet_format as PF
+    d = os.path.join(base, "stream_in")
+    os.makedirs(d, exist_ok=True)
+    for i, part in enumerate(lake_slices(li, STREAM_FILES)):
+        PF.write_table(part, os.path.join(d, f"part-{i:03d}.parquet"))
+    return d
+
+
+def stream_transform(df):
+    """S1's micro-batch: a filter (every row passes) and a projection on
+    the card."""
+    from spark_rapids_tpu_torch.ops.expr import col, lit
+    return df.filter(col("l_quantity") > lit(0.0)).select(
+        "l_orderkey", "l_linenumber", "l_quantity", "l_extendedprice",
+        "l_discount", "l_returnflag", "l_linestatus", "l_shipdate")
+
+
+def stream_query(svc, d: str, sink: str, ck: str, name: str):
+    from spark_rapids_tpu_torch.streaming import (
+        DeltaStreamSink,
+        FileWatchSource,
+        StreamingQuery,
+    )
+    return StreamingQuery(
+        svc, FileWatchSource(os.path.join(d), svc.session.conf,
+                             max_files_per_trigger=STREAM_PER_TRIGGER),
+        DeltaStreamSink(sink, name), ck, name=name,
+        transform=stream_transform)
+
+
+def stream_child(d: str) -> int:
+    """S1's child: the stream over ``d/in`` into ``d/sink``; inside the
+    commit of batch STREAM_KILL_BATCH (its data in the log, its commit
+    marker not yet written) it prints a line and stops, for the parent to
+    kill it."""
+    from spark_rapids_tpu_torch.plan.fingerprint import (
+        delta_table_id,
+        register_epoch_listener,
+    )
+    from spark_rapids_tpu_torch.service import QueryService
+    sink = os.path.join(d, "sink")
+    svc = QueryService({"spark.rapids.service.maxConcurrentQueries": "1"})
+    seen = {"n": 0}
+
+    def stop_in_commit(table_id, epoch, reason):
+        if table_id == delta_table_id(sink):
+            seen["n"] += 1
+            if seen["n"] == STREAM_KILL_BATCH + 1:
+                print("SINK-COMMITTED", flush=True)
+                time.sleep(600)
+
+    register_epoch_listener(stop_in_commit)
+    q = stream_query(svc, os.path.join(d, "in"), sink,
+                     os.path.join(d, "ck"), "s1")
+    q.process_available()
+    print("STREAM-ENDED", flush=True)
+    return 2
+
+
+def canonical(t):
+    """``t``'s rows sorted by every column (strings by rank, floats by
+    their bits, nulls first), for a bit for bit comparison of two tables
+    of one row multiset (``same_host_table``)."""
+    from spark_rapids_tpu_torch.columnar import HostColumn, HostTable
+    keys = []
+    for c in t.columns:
+        v = c.validity
+        if c.data.dtype == object:
+            _, k = np.unique(np.where(v, c.data, "").astype(str),
+                             return_inverse=True)
+        else:
+            k = np.ascontiguousarray(c.data).view(
+                {1: np.int8, 2: np.int16, 4: np.int32, 8: np.int64}[
+                    c.data.dtype.itemsize])
+        keys += [np.where(v, k.reshape(-1), 0), v]
+    order = np.lexsort(keys[::-1]) if keys else np.zeros(0, np.int64)
+    return HostTable(t.names, [HostColumn(c.dtype, c.data[order],
+                                          c.validity[order])
+                               for c in t.columns])
+
+
+def lake_s1_m1(li, d1_path: str, base: str, res: dict) -> None:
+    """S1 (a file-watch stream into a Delta sink through a one-worker
+    service, once clean with two views maintained after every commit,
+    once killed in a child process and resumed) and M1."""
+    from spark_rapids_tpu_torch import functions as F
+    from spark_rapids_tpu_torch.ops.expr import col, lit
+    from spark_rapids_tpu_torch.plan import from_host_table
+    from spark_rapids_tpu_torch.service import QueryService
+    from spark_rapids_tpu_torch.service.introspect import _routes
+    from spark_rapids_tpu_torch.streaming import STREAM_METRICS
+    li = li.slice(0, min(li.num_rows, STREAM_ROWS))
+    t0 = time.perf_counter()
+    src_dir = stream_files(li, base)
+    write_s = time.perf_counter() - t0
+    svc = QueryService({"spark.rapids.service.maxConcurrentQueries": "1"})
+    s = svc.session
+    try:
+        sink = os.path.join(base, "sink")
+        # the sink exists (empty, CDF on) before the views register
+        empty = stream_transform(from_host_table(li.slice(0, 0), s))
+        empty.write_delta(sink)
+        s.delta_table(sink).set_properties(
+            {"delta.enableChangeDataFeed": "true"})
+        reg = svc.mv_registry()
+        sdf = s.read_delta(sink)
+        agg = reg.register("flags", sdf.group_by(
+            "l_returnflag", "l_linestatus").agg(
+            F.sum(col("l_quantity")).alias("sum_qty"),
+            F.count().alias("n"), F.max(col("l_shipdate")).alias("max_ship")))
+        app = reg.register("discounted", sdf.filter(
+            col("l_discount") > lit(0.05)).select(
+            "l_orderkey", "l_linenumber", "l_extendedprice"))
+        q = stream_query(svc, src_dir, sink, os.path.join(base, "ck"), "s1")
+        svc.register_stream(q)
+        listed = [st["name"] for st in _routes(svc, "/streams",
+                                               {})["streams"]]
+        if listed != ["s1"]:
+            fail(f"S1: /streams lists {listed}")
+        t0 = time.perf_counter()
+        batches, mv_ms = 0, []
+        while q.run_one_batch():
+            batches += 1
+            for mv in (agg, app):
+                t1 = time.perf_counter()
+                got = mv.read()
+                mv_ms.append((time.perf_counter() - t1) * 1e3)
+                same_host_table(canonical(got),
+                                canonical(mv.recompute_at_epoch()),
+                                f"M1 {mv.name} at epoch {mv.epoch()} "
+                                "against its recompute")
+        took = time.perf_counter() - t0
+        want_b = STREAM_FILES // STREAM_PER_TRIGGER
+        clean = s.read_delta(sink).collect_table()
+        if batches != want_b or clean.num_rows != li.num_rows:
+            fail(f"S1: {batches} batches, {clean.num_rows} rows")
+        modes = {mv.name: (mv.strategy, mv.incremental_refreshes,
+                           mv.full_recomputes) for mv in (agg, app)}
+        if modes != {"flags": ("reaggregate", want_b, 1),
+                     "discounted": ("append", want_b, 1)}:
+            fail(f"M1: {modes}")
+        for mv in (agg, app):
+            if f"strategy={mv.strategy}" not in mv.explain():
+                fail(f"M1 {mv.name}: explain() {mv.explain()}")
+        log(f"  S1 {want_b} micro-batches of {STREAM_PER_TRIGGER} files "
+            f"({STREAM_FILES} files of {-(-li.num_rows // STREAM_FILES)} "
+            f"rows written in "
+            f"{write_s:.1f} s) through a one-worker QueryService into the "
+            f"Delta sink in {took:.1f} s, /streams {listed}; M1 after every "
+            f"commit: {modes} bit for bit against recompute_at_epoch() "
+            f"(refresh and serve {statistics.median(mv_ms):.1f} ms median)")
+        res["S1"] = {"batches": batches, "s": round(took, 2),
+                     "write_s": round(write_s, 2)}
+        res["M1"] = {"modes": modes,
+                     "serve_ms": round(statistics.median(mv_ms), 1)}
+
+        # a commit to D1's table leaves the cached result over the sink
+        over_sink = s.read_delta(sink).group_by("l_returnflag").agg(
+            F.count().alias("n"))
+        svc.submit(over_sink).result(timeout=600)
+        h0 = svc.result_cache.stats()["hits"]
+        s.delta_table(d1_path).set_properties({"chip_smoke": "cache"})
+        svc.submit(over_sink).result(timeout=600)
+        if svc.result_cache.stats()["hits"] != h0 + 1:
+            fail("M1: a commit to D1's table evicted the result over the "
+                 "sink")
+        log("  M1 a commit to D1's table left the cached result over S1's "
+            "sink in the service's cache (one more hit)")
+
+        # the same stream in a child process, killed inside the commit of
+        # batch STREAM_KILL_BATCH, then resumed here
+        cd = os.path.join(base, "stream_child")
+        os.makedirs(cd)
+        os.symlink(src_dir, os.path.join(cd, "in"))
+        t0 = time.perf_counter()
+        child = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--stream-child",
+             cd], stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        line = child.stdout.readline().strip()
+        child.kill()
+        _, err = child.communicate(timeout=120)
+        if line != "SINK-COMMITTED":
+            fail(f"S1: the child printed {line!r}; stderr {err[-3000:]}")
+        replays = STREAM_METRICS.get("sinkReplays", 0)
+        rq = stream_query(svc, src_dir, os.path.join(cd, "sink"),
+                          os.path.join(cd, "ck"), "s1")
+        resumed = rq.process_available()
+        s.next_query_tag = "after-resume"
+        killed = s.read_delta(os.path.join(cd, "sink")).collect_table()
+        got_replays = STREAM_METRICS.get("sinkReplays", 0) - replays
+        took = time.perf_counter() - t0
+        if resumed != want_b - STREAM_KILL_BATCH or got_replays != 1:
+            fail(f"S1 resume: {resumed} batches, sinkReplays {got_replays}")
+        same_host_table(by_key(killed), by_key(clean),
+                        "S1 the resumed sink against the clean run's")
+        log(f"  S1 a child killed inside batch {STREAM_KILL_BATCH}'s commit; "
+            f"resumed here: {resumed} batches (the first replayed through "
+            f"the txn watermark: sinkReplays {got_replays}), the sink's "
+            f"{killed.num_rows} rows equal the clean run's ({took:.1f} s "
+            "with the child)")
+        res["S1 kill"] = {"resumed": resumed, "sinkReplays": got_replays,
+                          "s": round(took, 2)}
+    finally:
+        svc.shutdown()
+
+
+def run_lakehouse(table, seed: int) -> dict:
+    """Phase 24 (D1, D2, I1, S1, M1) over phase 4's lineitem: returns the
+    phase's launches, every one held against its kernel's plain version."""
+    from spark_rapids_tpu_torch import kernels as K
+    from spark_rapids_tpu_torch.session import TorchSession
+    t_phase = time.perf_counter()
+    card = card_line()
+    base = tempfile.mkdtemp(prefix="srt-lake-")
+    li = lake_lineitem(table, seed)
+    converted = CPU_ROUTE["converted"]
+    res = {}
+    K.reset_launch_counts()
+    K.calls = held = HeldCalls()
+    try:
+        session = TorchSession()
+        parts = {}
+        t0 = time.perf_counter()
+        path, state, counts = lake_d1(session, li, base, card, res)
+        parts["D1"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        lake_d2(session, path, state, counts, li, base, res)
+        parts["D2"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        lake_i1(session, li, base, res)
+        parts["I1"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        lake_s1_m1(li, path, base, res)
+        parts["S1+M1"] = time.perf_counter() - t0
+    finally:
+        K.calls = None
+        shutil.rmtree(base, ignore_errors=True)
+    launches = K.launch_counts()
+    if held.bad:
+        fail(f"phase 24: launches disagree with their plain versions: "
+             f"{held.bad[:8]}")
+    for name in ("onehot_partials", "gather_compact", "sort_with_payload",
+                 "fused_minmax"):
+        if launches[name] < 1:
+            fail(f"phase 24 did not launch {name}")
+    took = time.perf_counter() - t_phase
+    log(f"  phase 24: every launch held against its plain version "
+        f"({dict(held.held)}); {CPU_ROUTE['converted'] - converted} plans "
+        f"converted with 0 CPU-route nodes; parts "
+        f"{ {k: round(v, 1) for k, v in parts.items()} } s")
+    summary = {"card": card, "seconds": round(took, 1),
+               "launches": {k: v for k, v in launches.items() if v},
+               "cells": res}
+    if took > LAKE_BUDGET_S:
+        log(f"  phase 24 took {took:.1f} s, past its {LAKE_BUDGET_S:.0f} s "
+            "aim")
+    log("  phase-24 summary: " + json.dumps(summary, default=str))
+    return launches
+
+
 def corpus_checks(tables) -> dict:
     """{corpus query: oracle check} of all 22 (phases 6-8's oracles)."""
     from spark_rapids_tpu_torch.session import TorchSession
@@ -9773,13 +10694,15 @@ def main(argv=None) -> int:
                     help="directory for torch.profiler tables and traces of "
                          "one warm run of q1, of each q3 form and of each "
                          "phase-6 query")
-    ap.add_argument("--only", type=int, choices=(21, 22, 23), default=None,
+    ap.add_argument("--only", type=int, choices=(21, 22, 23, 24),
+                    default=None,
                     help="run phases 1-3 and this phase only (its tables "
                          "made here); a full run is the default")
     ap.add_argument("--fatal-child", choices=("exit", "latch"),
                     help=argparse.SUPPRESS)
     ap.add_argument("--fatal-dir", help=argparse.SUPPRESS)
     ap.add_argument("--service-child", help=argparse.SUPPRESS)
+    ap.add_argument("--stream-child", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device: this script runs on the card",
@@ -9790,6 +10713,8 @@ def main(argv=None) -> int:
         return fatal_child(args.fatal_child, args.fatal_dir)
     if args.service_child:
         return service_child(args.service_child)
+    if args.stream_child:
+        return stream_child(args.stream_child)
     from spark_rapids_tpu_torch.columnar import bucket_for
     from spark_rapids_tpu_torch.kernels.build import SOURCES as CU_SOURCES
     from spark_rapids_tpu_torch.kernels.build import build
@@ -9886,6 +10811,16 @@ def main(argv=None) -> int:
                                 checks).items():
             launches[k] = launches.get(k, 0) + v
         log(f"  phase 23 ran {time.perf_counter() - t_phase:.1f} s")
+        return summary_phase(rows, launches, t_start)
+    if args.only == 24:
+        from spark_rapids_tpu_torch.models.tpch import lineitem_table
+        launches = {r["name"]: 0 for r in rows}
+        table = lineitem_table(args.rows, seed=0)
+        t_phase = time.perf_counter()
+        log(LAKE_PHASE)
+        for k, v in run_lakehouse(table, args.seed).items():
+            launches[k] = launches.get(k, 0) + v
+        log(f"  phase 24 ran {time.perf_counter() - t_phase:.1f} s")
         return summary_phase(rows, launches, t_start)
 
     #: what phases 4-8 keep of each DSL form for phase 9's SQL forms
@@ -10068,11 +11003,17 @@ def main(argv=None) -> int:
                             q3_sparse, svc_checks).items():
         launches[k] = launches.get(k, 0) + v
     log(f"  phase 23 ran {time.perf_counter() - t_phase:.1f} s")
+
+    t_phase = time.perf_counter()
+    log(LAKE_PHASE)
+    for k, v in run_lakehouse(q1_keep["tables"][0], args.seed).items():
+        launches[k] = launches.get(k, 0) + v
+    log(f"  phase 24 ran {time.perf_counter() - t_phase:.1f} s")
     return summary_phase(rows, launches, t_start)
 
 
 def summary_phase(rows, launches, t_start: float) -> int:
-    log("phase 24: summary")
+    log("phase 25: summary")
     log("  dec128_divide is CUDA work beyond the five TPU kernels: the "
         "reference divides DECIMAL128 values on its host")
     for r in rows:

@@ -395,12 +395,22 @@ class DeviceColumn:
                 raise ColumnarProcessingError("string column missing "
                                               "dictionary")
             # padding/invalid slots may hold arbitrary codes
-            codes = np.clip(data, 0, max(len(self.dictionary) - 1, 0))
+            d = self.dictionary
+            codes = np.clip(data, 0, max(len(d) - 1, 0))
             vals = np.empty(len(data), dtype=object)
-            if len(self.dictionary):
-                vals[:] = self.dictionary[codes]
+            if len(d):
+                vals[:] = d[codes]
             vals[~validity] = None
-            return HostColumn(self.dtype, vals, validity)
+            col = HostColumn(self.dtype, vals, validity)
+            if self.dict_sorted and len(d) and (
+                    len(d) == 1 or bool(np.all(d[:-1] < d[1:]))):
+                # a strictly increasing dictionary is an encoding of the
+                # downloaded rows already: a re-upload or a write of them
+                # does not sort their strings again (null rows' codes are
+                # 0; nothing reads them)
+                col._cache["encode"] = (
+                    np.where(validity, codes, 0).astype(np.int32), d)
+            return col
         if T.is_dec128(self.dtype):
             return HostColumn(self.dtype, dec128_unscaled(data, validity),
                               validity)

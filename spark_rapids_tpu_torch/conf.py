@@ -588,6 +588,63 @@ FILECACHE_MAX_BYTES = _conf(
     "spark.rapids.filecache.maxBytes", 1 << 30,
     "LRU budget for the decoded-batch file cache.", int)
 
+# -- Delta Lake and streaming (delta/, streaming/) --------------------------
+
+DELTA_CHECKPOINT_INTERVAL = _conf(
+    "spark.rapids.delta.checkpointInterval", 10,
+    "Write a delta checkpoint every N commits.", int)
+
+WRITE_MAX_COMMIT_RETRIES = _conf(
+    "spark.rapids.sql.write.maxCommitRetries", 10,
+    "Bound on the Delta optimistic-commit retry loop: a blind append "
+    "that keeps losing the version race rebases and retries at most "
+    "this many times before raising "
+    "DeltaConcurrentModificationException.", int)
+
+WRITE_COMMIT_RETRY_WAIT_MS = _conf(
+    "spark.rapids.sql.write.commitRetryWaitMs", 5,
+    "Sleep between Delta optimistic-commit retries, milliseconds.", int)
+
+DELTA_VACUUM_RETENTION_HOURS = _conf(
+    "spark.rapids.delta.vacuum.retentionHours", 0.0,
+    "Vacuum retention window: un-referenced files younger than this many "
+    "hours are kept (a concurrent uncommitted writer may still reference "
+    "them). 0 disables the age check and removes every orphan.", float)
+
+DELTA_LOW_SHUFFLE_MERGE = _conf(
+    "spark.rapids.sql.delta.lowShuffleMerge.enabled", True,
+    "MERGE rewrites only the TOUCHED ROWS of matched files: matched target "
+    "rows die via a deletion vector and updated versions land in a small "
+    "new file (GpuLowShuffleMergeCommand analog). Disable for full-file "
+    "rewrites.", _to_bool)
+
+STREAMING_POOL = _conf(
+    "spark.rapids.streaming.pool", "default",
+    "Scheduling pool StreamingQuery micro-batches submit to on the query "
+    "service (falls back to the service's first pool when it names none "
+    "configured).", str)
+
+STREAMING_TRIGGER_INTERVAL_MS = _conf(
+    "spark.rapids.streaming.triggerIntervalMs", 50,
+    "Micro-batch trigger cadence: how long a running stream sleeps "
+    "between an empty poll and the next source check.", int)
+
+STREAMING_MAX_FILES_PER_TRIGGER = _conf(
+    "spark.rapids.streaming.maxFilesPerTrigger", 16,
+    "File-watch source batch bound: at most this many newly seen files "
+    "enter one micro-batch.", int)
+
+STREAMING_MV_INCREMENTAL = _conf(
+    "spark.rapids.streaming.mv.incremental.enabled", True,
+    "Maintain materialized views from the CDF delta (append for "
+    "projections and filters, touched-group re-aggregation for "
+    "aggregates). Off: every refresh is a full recompute.", _to_bool)
+
+STREAMING_MV_MAX_TOUCHED_GROUPS = _conf(
+    "spark.rapids.streaming.mv.maxTouchedGroups", 64,
+    "Re-aggregation bound: a refresh whose CDF delta touches more "
+    "distinct group keys than this falls back to a full recompute.", int)
+
 #: the per-operator kill switches' key prefixes by kind (the reference
 #: registers one key per rule)
 _KILL_SWITCH_PREFIXES = {"exec": "spark.rapids.sql.exec.",

@@ -14,8 +14,12 @@ aborts and swept staging files.
 
 Jobs still in flight when the process dies are aborted by
 ``sweep_active_jobs``: at exit, and on the crash handler's exit-20 path
-(runtime/crash_handler.py). Not ported: the vacuum protection and Delta
-retry keys (Delta, ROADMAP item [12b])."""
+(runtime/crash_handler.py). The vacuum protection
+(:func:`vacuum_protection`) keeps what a writer in flight owns: a job's
+staging tree and promoted files, and the data files a Delta transaction
+staged before its log commit (:func:`protect_files`). The Delta
+transaction's counters share the scope (``commitRetries``,
+``commitConflicts``, ``vacuumedFiles``)."""
 
 from __future__ import annotations
 
@@ -25,6 +29,7 @@ import os
 import shutil
 import time
 import uuid
+import weakref
 from typing import Dict, List, Optional, Tuple
 
 from spark_rapids_tpu_torch.lockorder import ordered_lock
@@ -47,8 +52,15 @@ for _name, _kind, _doc in (
         ("jobsAborted", "count", "write jobs rolled back (promoted files "
                                  "deleted, staging swept)"),
         ("stagingFilesSwept", "count", "staged files removed by a write "
-                                       "job's abort (the write path's "
+                                       "job's abort and by failed Delta "
+                                       "transactions (the write path's "
                                        "failure signal)"),
+        ("vacuumedFiles", "count", "un-referenced files removed by vacuum"),
+        ("commitRetries", "count", "Delta optimistic commits rebased and "
+                                   "retried after losing the version race"),
+        ("commitConflicts", "count", "Delta commit conflicts observed "
+                                     "(retried blind appends plus typed "
+                                     "metadata or overlap raises)"),
 ):
     register_metric(_name, _kind, "ESSENTIAL", _doc)
     WRITE_METRICS.setdefault(_name, 0)
@@ -58,6 +70,24 @@ del _name, _kind, _doc
 #: the write jobs in flight in this process, by (destination, job id)
 _ACTIVE_JOBS: Dict[Tuple[str, str], "WriteJob"] = {}
 _ACTIVE_LOCK = ordered_lock("io.committer.jobs")
+
+#: files other in-flight writers own, owner -> (base path, full paths): a
+#: Delta transaction writes data files into the table directory before
+#: its log commit lands, and vacuum must not sweep them from under it.
+#: Weak keys: an abandoned transaction's protection expires with it.
+_PROTECTED_OWNERS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
+def protect_files(owner, base_path: str, full_paths) -> None:
+    """Shield ``full_paths`` (under ``base_path``) from vacuum for the
+    owner's lifetime (or until :func:`unprotect_files`)."""
+    with _ACTIVE_LOCK:
+        _PROTECTED_OWNERS[owner] = (base_path, set(full_paths))
+
+
+def unprotect_files(owner) -> None:
+    with _ACTIVE_LOCK:
+        _PROTECTED_OWNERS.pop(owner, None)
 
 
 def sweep_active_jobs() -> int:
@@ -226,3 +256,66 @@ def read_manifest(path: str) -> Optional[dict]:
         return m if isinstance(m, dict) and "jobId" in m else None
     except (OSError, ValueError):
         return None
+
+
+def vacuum_protection(path: str, retention_hours: float):
+    """THE keep-predicate of both vacuums (tools/vacuum.py and
+    delta/commands.vacuum_table): a file is kept when it belongs to a
+    writer in flight in this process (a job's staging tree or promoted
+    files, a Delta transaction's staged data files) or is younger than
+    the retention window (unreadable mtimes count as young). Returns
+    ``protected(full_path) -> bool``."""
+    with _ACTIVE_LOCK:
+        staging = [j.staging for j in _ACTIVE_JOBS.values()
+                   if j.path == path]
+        promoted = {p for j in _ACTIVE_JOBS.values() if j.path == path
+                    for p, _backup in list(j._promoted)}
+        promoted |= {p for bp, paths in _PROTECTED_OWNERS.values()
+                     if bp == path for p in paths}
+    cutoff = (time.time() - retention_hours * 3600.0
+              if retention_hours > 0 else None)
+
+    def protected(full: str) -> bool:
+        if full in promoted or any(
+                full.startswith(s + os.sep) for s in staging):
+            return True
+        if cutoff is not None:
+            try:
+                return os.path.getmtime(full) > cutoff
+            except OSError:
+                return True
+        return False
+
+    return protected
+
+
+def unlink_and_prune(base: str, rels, keep_dirs=()) -> int:
+    """Delete ``rels`` (relative to ``base``), then prune emptied
+    directories bottom-up; a directory whose path holds a ``keep_dirs``
+    name is never pruned. Returns the count deleted."""
+    deleted = 0
+    for rel in rels:
+        try:
+            os.unlink(os.path.join(base, rel))
+            deleted += 1
+        except OSError:
+            pass
+    for root, _dirs, _files in os.walk(base, topdown=False):
+        if root == base or any(k in root.split(os.sep) for k in keep_dirs):
+            continue
+        try:
+            os.rmdir(root)
+        except OSError:
+            pass
+    return deleted
+
+
+def find_staging_orphans(path: str) -> List[str]:
+    """Every file under ``<path>/_temporary/``: staged output of jobs
+    that died without an abort (vacuum removes these)."""
+    root = os.path.join(path, TEMP_DIR)
+    out: List[str] = []
+    for dirpath, _dirs, files in os.walk(root):
+        for f in sorted(files):
+            out.append(os.path.join(dirpath, f))
+    return out

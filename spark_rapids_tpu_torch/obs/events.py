@@ -21,6 +21,14 @@ strikes); ``workerRestarts`` is the query's change of the ``health``
 scope's ``workersRespawned``. Outside the service they read null, false
 and 0, as the reference's do.
 
+Delta's ``commitRetries`` is the query's change of the ``write`` scope's
+counter; the streaming fields (``microBatches``, ``mvRefreshes``,
+``mvIncrementalRefreshes``, ``mvFullRecomputes``, ``sinkCommits``,
+``sinkReplays``) are the ``streaming`` scope's change plus what the
+streaming subsystem staged on the thread between envelopes
+(``TorchSession.stage_stream_delta``), and ``mvEpoch`` is the serving
+materialized view's epoch (null otherwise), as the reference writes them.
+
 Fields of subsystems the port lacks are written as the reference writes
 them while that subsystem is idle (ROADMAP Queue 3's deviations):
 
@@ -28,10 +36,6 @@ them while that subsystem is idle (ROADMAP Queue 3's deviations):
   ``meshDegradations``, ``shardRetries``, ``gatherChecksFailed`` 0;
 * the cluster (item 11): ``hostTopology`` null, ``hostsLost``,
   ``hostRelands``, ``dcnExchanges`` 0, ``hostScans`` {};
-* Delta (item [12b]): ``commitRetries`` 0;
-* streaming (item [12b]): ``microBatches``, ``mvRefreshes``,
-  ``mvIncrementalRefreshes``, ``mvFullRecomputes``, ``sinkCommits``,
-  ``sinkReplays`` 0, ``mvEpoch`` null;
 * the padding waste: ``padWasteRows`` 0 (dispatch.py).
 
 ``fallbacks`` lists every node the overrides' tags sent to the CPU route
@@ -161,7 +165,15 @@ def build_query_record(*, query_index: int, wall_s: float,
                        spill_bytes: int = 0,
                        unspills: int = 0,
                        budget_peak: int = 0,
-                       fallbacks=None) -> dict:
+                       fallbacks=None,
+                       commit_retries: int = 0,
+                       micro_batches: int = 0,
+                       mv_refreshes: int = 0,
+                       mv_incremental_refreshes: int = 0,
+                       mv_full_recomputes: int = 0,
+                       sink_commits: int = 0,
+                       sink_replays: int = 0,
+                       mv_epoch: Optional[int] = None) -> dict:
     """Assemble one event-log record: every field JSON-native, in the
     reference's schema 11, the fields of the subsystems the port lacks at
     their idle values (the module's docstring). The shape test
@@ -191,7 +203,7 @@ def build_query_record(*, query_index: int, wall_s: float,
         "workerRestarts": int(worker_restarts),
         "filesWritten": int(files_written),
         "bytesWritten": int(bytes_written),
-        "commitRetries": 0,
+        "commitRetries": int(commit_retries),
         "meshShape": None,
         "iciBytes": 0,
         "shardSkew": 0.0,
@@ -208,13 +220,13 @@ def build_query_record(*, query_index: int, wall_s: float,
         "spillBytes": int(spill_bytes),
         "unspills": int(unspills),
         "budgetPeak": int(budget_peak),
-        "microBatches": 0,
-        "mvRefreshes": 0,
-        "mvIncrementalRefreshes": 0,
-        "mvFullRecomputes": 0,
-        "sinkCommits": 0,
-        "sinkReplays": 0,
-        "mvEpoch": None,
+        "microBatches": int(micro_batches),
+        "mvRefreshes": int(mv_refreshes),
+        "mvIncrementalRefreshes": int(mv_incremental_refreshes),
+        "mvFullRecomputes": int(mv_full_recomputes),
+        "sinkCommits": int(sink_commits),
+        "sinkReplays": int(sink_replays),
+        "mvEpoch": None if mv_epoch is None else int(mv_epoch),
         "faultReplays": fault_replays,
         "plan": plan_tree(executable),
         "fallbacks": list(fallbacks or []),

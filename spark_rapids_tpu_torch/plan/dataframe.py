@@ -222,6 +222,16 @@ class DataFrame:
     def write_hive_text(self, path: str, partition_by=None, **options):
         return self._write("hive_text", path, partition_by, options)
 
+    def write_delta(self, path: str, mode: str = "error",
+                    partition_by=None, merge_schema: bool = False) -> int:
+        """Write as a Delta table; returns the committed version
+        (delta/table.py::write_delta). ``merge_schema`` allows adding
+        columns (Spark's mergeSchema)."""
+        from spark_rapids_tpu_torch.delta import write_delta
+        return write_delta(self.plan, self.session, path, mode=mode,
+                           partition_by=partition_by,
+                           merge_schema=merge_schema)
+
     @property
     def write(self) -> "DataFrameWriter":
         """``df.write.format("parquet").option(...).partition_by(...)

@@ -57,9 +57,8 @@ from spark_rapids_tpu_torch.lockorder import ordered_lock
 # Cache entries snapshot the vector they were filled under
 # (:func:`epoch_snapshot`) and drop on lookup when any component moved
 # (:func:`epochs_current`). Listeners (:func:`register_epoch_listener`)
-# observe every bump (the reference's materialized-view registry rides
-# this hook; streaming is item [12b]). Delta's table-scoped bumps
-# (``delta_table_id``) wait for Delta (item [12b]).
+# observe every bump (the materialized-view registry, streaming/mv.py,
+# rides this hook). ``DeltaLog.commit`` bumps its table's epoch.
 
 _EPOCH_LOCK = ordered_lock("fingerprint.epoch")
 _EPOCH = [0]
@@ -140,19 +139,24 @@ def bump_table_epoch(table_id: str, reason: str = "") -> int:
     return new
 
 
+def delta_table_id(table_path: str) -> str:
+    """Canonical epoch identity of a Delta table (path-normalized so the
+    commit path and the scan walk agree on relative paths)."""
+    return "delta:" + os.path.abspath(table_path)
+
+
 def plan_table_ids(plan) -> frozenset:
-    """The epoch-scoped table identities a plan reads: every node carrying
-    a ``table_path`` (the reference's Delta and other log-backed scans,
-    item [12b]). The port's file scans and in-memory tables key structurally
-    through the fingerprint itself, so only the global epoch governs
-    them, and this is empty."""
+    """The epoch-scoped table identities a plan reads: every node
+    carrying a ``table_path`` (DeltaScanNode, IcebergScanNode). File
+    scans and in-memory tables key structurally through the fingerprint
+    itself, so only the global epoch governs them."""
     ids = set()
     stack = [plan]
     while stack:
         n = stack.pop()
         tp = getattr(n, "table_path", None)
         if isinstance(tp, str) and tp:
-            ids.add("table:" + os.path.abspath(tp))
+            ids.add(delta_table_id(tp))
         stack.extend(getattr(n, "children", ()))
     return frozenset(ids)
 

@@ -738,8 +738,10 @@ class WriteFiles(PlanNode):
         if self.fmt in ("hive_text", "hive", "hive-text", "hivetext"):
             from spark_rapids_tpu_torch.io.hive_text import write_hive_text
             return write_hive_text
-        from spark_rapids_tpu_torch.sources import not_ported
-        raise not_ported(self.fmt)
+        raise NotImplementedError(
+            f"WriteFiles has no {self.fmt!r} writer (nor has the "
+            "reference's); a Delta table is written with "
+            "DataFrame.write_delta")
 
     @staticmethod
     def _stats_row(num_files: int, num_rows: int, num_bytes: int

@@ -24,8 +24,10 @@ runtime's reserve, spill and unspill, at each hand-written kernel's
 launch (``kernels.kernel_launch``) ``dispatch.kernel``, ``dispatch.wedge``
 (a stall on the host side of the launch that only the service watchdog's
 hard wall limit ends) and ``device.lost``, and the service worker's
-``service.worker_crash``. Not ported: the ``race`` kind, which needs the
-Delta log (ROADMAP item [12b]).
+``service.worker_crash``, the Delta log's ``delta.commit.race`` (kind
+``race``: a lost optimistic-concurrency race, so the commit's rebase and
+retry run without a concurrent writer), and the streams'
+``stream.batch`` and ``stream.sink.commit``.
 
 Spec grammar, entries separated by ``;``:
 ``<point>[@<op>]:<kind>:<prob-or-count>[:<seed>]``, where an amount with
@@ -60,7 +62,7 @@ FAULT_KINDS = (
     "slow",         # a short stall (sleep)
     "wedge",        # a long stall inside the site
     "device_lost",  # fatal device loss (DeviceLostError)
-    "race",         # a lost optimistic-concurrency race (Delta; not ported)
+    "race",         # a lost optimistic-concurrency race (Delta)
 )
 
 #: registered fault points: name -> (module that hosts the call site, doc)
@@ -115,6 +117,22 @@ FAULT_POINTS: Dict[str, tuple] = {
         "before each hand-written kernel's launch; device_lost simulates "
         "a fatal device loss (the health monitor's device-loss recovery, "
         "runtime/health.py)"),
+    "delta.commit.race": (
+        "spark_rapids_tpu_torch/delta/log.py",
+        "immediately before the atomic commit-file create; kind 'race' "
+        "injects a DeltaConcurrentModificationException so the optimistic "
+        "rebase-and-retry loop runs without a real concurrent writer, "
+        "'crash' dies mid-commit"),
+    "stream.batch": (
+        "spark_rapids_tpu_torch/streaming/query.py",
+        "after a micro-batch's offsets are durably logged, before it "
+        "executes (a crash here leaves a pending batch; resume re-runs the "
+        "SAME offsets)"),
+    "stream.sink.commit": (
+        "spark_rapids_tpu_torch/streaming/sink.py",
+        "after the sink's replay check, before the transactional commit (a "
+        "crash here re-runs the batch; the txn watermark dedupes the "
+        "replay)"),
     "mem.unspill": (
         "spark_rapids_tpu_torch/runtime/spill.py",
         "at the disk-tier unspill read, under the batch's lock: 'corrupt' "
@@ -173,11 +191,6 @@ def parse_fault_spec(spec: str) -> List[_ArmedFault]:
             raise ColumnarProcessingError(
                 f"unknown fault kind {kind!r} (known: "
                 f"{', '.join(FAULT_KINDS)})")
-        if kind == "race":
-            raise NotImplementedError(
-                "fault kind 'race' (a Delta optimistic-concurrency race) "
-                "needs the Delta log, which is not ported (ROADMAP item "
-                "12)")
         prob = count = None
         if "." in amount:
             prob = float(amount)
@@ -273,6 +286,12 @@ class FaultRegistry:
                     f"injected transport disconnect at {where}")
             if a.kind == "device_lost":
                 raise DeviceLostError(f"injected device loss at {where}")
+            if a.kind == "race":
+                from spark_rapids_tpu_torch.delta.log import (
+                    DeltaConcurrentModificationException,
+                )
+                raise DeltaConcurrentModificationException(
+                    f"injected optimistic-concurrency race at {where}")
             if a.kind == "wedge":
                 time.sleep(float(os.environ.get("SRT_WEDGE_SLEEP_S",
                                                 _WEDGE_SLEEP_S)))

@@ -19,7 +19,7 @@ Routes (all GET, all JSON):
 * ``/slo``        — rolling per-pool / per-tenant p50/p95 latency and
   run-time percentiles over recently FINISHED handles;
 * ``/queries``    — the live query table (running + queued handles);
-* ``/streams``    — the recurring streams (none until [12b] streaming);
+* ``/streams``    — the recurring streams (streaming/query.py);
 * ``/telemetry``  — the telemetry ring tail (``?n=`` bounds it);
 * ``/top``        — all of the above in one document (what the CLI
   polls — one round trip per refresh).

@@ -15,7 +15,8 @@ Correctness over hit rate:
 * a plan the fingerprint cannot prove stable (a UDF closure, a
   WriteFiles node) is uncacheable: a miss, never a wrong hit;
 * every catalog mutation and every write bumps the process-wide
-  invalidation epoch (``bump_invalidation_epoch``); an entry remembers
+  invalidation epoch (``bump_invalidation_epoch``), and a Delta commit
+  bumps only its TABLE's epoch (``bump_table_epoch``); an entry remembers
   the epoch vector (global plus one per table its plan read,
   ``epoch_snapshot(plan_table_ids(plan))``) it was filled under, and a
   stale entry is dropped on lookup, never served;
@@ -36,6 +37,8 @@ from spark_rapids_tpu_torch.obs.metrics import metric_scope, register_metric
 from spark_rapids_tpu_torch.plan.fingerprint import (  # noqa: F401
     GLOBAL_EPOCH_KEY,
     bump_invalidation_epoch,
+    bump_table_epoch,
+    delta_table_id,
     epoch_snapshot,
     epochs_current,
     fingerprint,

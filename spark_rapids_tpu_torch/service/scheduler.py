@@ -47,9 +47,10 @@ itself:
 
 Written as the reference writes them with the mesh and the cluster off
 (ROADMAP item 11): no mesh gate, ``meshShape`` and ``hostTopology`` null
-in records, and the host-loss degrade never trips. Recurring streams and
-materialized views wait for [12b] streaming: ``streams()`` is empty and
-``register_stream``/``mv_registry`` raise.
+in records, and the host-loss degrade never trips. Recurring streams
+(streaming/query.py) register with the service (``register_stream``,
+``streams()``), and ``mv_registry()`` keeps the materialized views over
+its session (streaming/mv.py).
 """
 
 from __future__ import annotations
@@ -84,7 +85,7 @@ from spark_rapids_tpu_torch.errors import (
     QueryTimeoutError,
     WorkerLostError,
 )
-from spark_rapids_tpu_torch.lockorder import ordered_condition
+from spark_rapids_tpu_torch.lockorder import ordered_condition, ordered_lock
 from spark_rapids_tpu_torch.runtime.faults import fault_point
 from spark_rapids_tpu_torch.runtime.health import HEALTH, QUARANTINE
 from spark_rapids_tpu_torch.service.query import (
@@ -99,11 +100,6 @@ from spark_rapids_tpu_torch.service.result_cache import (
     plan_table_ids,
 )
 from spark_rapids_tpu_torch.service.watchdog import WorkerWatchdog, _Worker
-
-#: the item that the stream registry and the materialized views wait for
-_STREAMING = ("[12b] streaming (streaming/*) is not ported: the service "
-              "keeps no stream registry or materialized views yet")
-
 
 def _mem_budget_peak() -> int:
     """The memory arbiter's peak accounted device bytes, for the cache-hit
@@ -232,6 +228,12 @@ class QueryService:
                 int(self.conf.get_entry(SERVICE_RESULT_CACHE_MAX_BYTES)))
         #: injectable for tests; production reads the ledger
         self._memory_probe = _default_memory_probe
+        #: recurring tenants (a StreamingQuery registers itself for its
+        #: lifetime): name -> stream object exposing describe(), surfaced
+        #: by streams(), /streams and ``tools top``
+        self._streams_lock = ordered_lock("service.scheduler.streams")
+        self._streams: Dict[str, object] = {}
+        self._mvs = None
 
         self._cond = ordered_condition("service.scheduler.cond")
         #: (pool, tenant) -> FIFO of queued handles
@@ -873,6 +875,19 @@ class QueryService:
         if self.introspect is not None:
             self.introspect.shutdown()
             self.introspect = None
+        # stop recurring streams and detach the MV registry's epoch
+        # listener so neither outlives the service
+        with self._streams_lock:
+            streams, mvs = list(self._streams.values()), self._mvs
+            self._streams.clear()
+            self._mvs = None
+        for st in streams:
+            try:
+                st.stop(wait=wait)
+            except Exception:
+                pass
+        if mvs is not None:
+            mvs.close()
 
     def __enter__(self) -> "QueryService":
         return self
@@ -1046,17 +1061,39 @@ class QueryService:
             out["resultCache"] = self.result_cache.stats()
         return out
 
-    # -- recurring streams ([12b] streaming) ----------------------------------
+    # -- recurring streams ---------------------------------------------------
     def register_stream(self, stream) -> None:
-        raise NotImplementedError(_STREAMING)
+        """Register a recurring tenant (a StreamingQuery) for the
+        introspection surfaces; the latest registration wins a name."""
+        with self._streams_lock:
+            self._streams[stream.name] = stream
 
     def unregister_stream(self, name: str) -> None:
-        raise NotImplementedError(_STREAMING)
+        with self._streams_lock:
+            self._streams.pop(name, None)
 
     def streams(self) -> List[dict]:
-        """Descriptors of the registered recurring streams: none until
-        [12b] streaming."""
-        return []
+        """Descriptors of every registered recurring stream (name, source
+        kind, pool and tenant, batch and offset progress, state):
+        rendered by ``tools top`` and served on /streams and /top."""
+        with self._streams_lock:
+            items = sorted(self._streams.items())
+        out = []
+        for _, st in items:
+            try:
+                out.append(st.describe())
+            except Exception:
+                pass  # a dying stream must not break introspection
+        return out
 
     def mv_registry(self):
-        raise NotImplementedError(_STREAMING)
+        """The service's MaterializedViewRegistry (streaming/mv.py),
+        created on first use over the shared session and torn down with
+        the service (its epoch listener must not outlive it)."""
+        with self._streams_lock:
+            if self._mvs is None:
+                from spark_rapids_tpu_torch.streaming.mv import (
+                    MaterializedViewRegistry,
+                )
+                self._mvs = MaterializedViewRegistry(self.session)
+            return self._mvs

@@ -39,7 +39,8 @@ File sources: ``read_parquet``, ``read_orc``, ``read_avro``,
 SPI's ``DataFrameReader``) and ``read_format``; a ``WriteFiles`` plan runs
 its child through the overrides, then the committed write, and returns the
 stats row; every WriteFiles run, success or failure, bumps the warehouse
-invalidation epoch. Delta and Iceberg raise naming their ROADMAP item.
+invalidation epoch. ``read_delta``, ``delta_table`` and ``read_iceberg``
+read the table formats (delta/, iceberg/).
 ``spark.rapids.test.faults`` arms the fault registry at each execute."""
 
 from __future__ import annotations
@@ -66,7 +67,7 @@ class _TLQueryState:
     session-wide mirror of the last completed query."""
 
     __slots__ = ("exec_depth", "next_tag", "next_sql", "next_service",
-                 "phases",
+                 "next_mv_epoch", "stream_deltas", "phases",
                  "executable", "dispatches", "event_record", "event_path",
                  "exec_cache_token", "exec_cache_hit", "compile_ms",
                  "meta")
@@ -115,6 +116,23 @@ class TorchSession:
         "next_service", "service envelope (tenant, pool, queue wait, cache "
         "hit, quarantine strikes) the NEXT execute() on this thread "
         "records")
+    next_query_mv_epoch = _tl_only(
+        "next_mv_epoch", "materialized-view epoch (the maintained table's "
+        "Delta version) the NEXT execute() on this thread records as "
+        "mvEpoch: set by the MV serve path, null otherwise")
+
+    def stage_stream_delta(self, key: str, n: int = 1) -> None:
+        """Attribute streaming work (microBatches, mvRefreshes, ...,
+        sinkReplays) and a Delta commit's retries (commitRetries) to the
+        NEXT execute() on this thread: that bookkeeping runs between query
+        envelopes, so the process-wide scope's change alone would never
+        land inside a record's window. Drained by the next record built
+        on this thread."""
+        q = self._q
+        d = q.stream_deltas or {}
+        d[key] = d.get(key, 0) + n
+        q.stream_deltas = d
+
     last_dispatches = _tl_mirrored(
         "dispatches", "hand-written kernel launches of the last query "
         "(dispatch.py)")
@@ -258,11 +276,24 @@ class TorchSession:
     def read_hive_text(self, *paths, **options):
         return self.read_format("hive-text", *paths, **options)
 
-    def read_delta(self, path, **options):
-        return self.read_format("delta", path, **options)
+    def read_delta(self, path, version_as_of=None, **options):
+        return self.read_format("delta", path, version_as_of=version_as_of,
+                                **options)
 
-    def read_iceberg(self, path, **options):
-        return self.read_format("iceberg", path, **options)
+    def delta_table(self, path):
+        """The ``DeltaTable`` API over the Delta table at ``path``
+        (through the provider SPI, as the reference's)."""
+        from spark_rapids_tpu_torch.errors import ColumnarProcessingError
+        from spark_rapids_tpu_torch.sources import provider_for
+        p = provider_for("delta")
+        if p is None:
+            raise ColumnarProcessingError(
+                "delta source provider is not available")
+        return p.create_table_api(self, path)
+
+    def read_iceberg(self, path, snapshot_id=None, **options):
+        return self.read_format("iceberg", path, snapshot_id=snapshot_id,
+                                **options)
 
     def execute(self, plan: P.PlanNode) -> HostTable:
         """Run one query: the recovery envelope (``_execute_with_recovery``)
@@ -296,6 +327,8 @@ class TorchSession:
         query_tag, q.next_tag = q.next_tag, None
         sql_text, q.next_sql = q.next_sql, None
         service_info, q.next_service = q.next_service, None
+        mv_epoch, q.next_mv_epoch = q.next_mv_epoch, None
+        stream_deltas, q.stream_deltas = (q.stream_deltas or {}), None
         if q.exec_depth:
             # nested query: no envelope of its own
             q.exec_depth += 1
@@ -351,7 +384,7 @@ class TorchSession:
         record = self._query_record(
             qidx, wall_s, spans, ctx, before, before_recovery,
             before_fires, before_health, query_tag, sql_text,
-            service_info)
+            service_info, mv_epoch, stream_deltas)
         self.last_event_record = record
         # the record has read the tree's metrics: the cached tree may now
         # serve the next query (which resets them)
@@ -385,7 +418,8 @@ class TorchSession:
 
     def _query_record(self, qidx, wall_s, spans, ctx, before,
                       before_recovery, before_fires, before_health,
-                      query_tag, sql_text, service_info=None) -> dict:
+                      query_tag, sql_text, service_info=None,
+                      mv_epoch=None, stream_deltas=None) -> dict:
         """The query's event record (obs/events.py), its deferred row
         counts read first in one batched fetch."""
         from spark_rapids_tpu_torch.obs import events as E
@@ -414,6 +448,7 @@ class TorchSession:
             return int(after.get(scope, {}).get(key, 0)
                        - before.get(scope, {}).get(key, 0))
 
+        stream = stream_deltas or {}
         health_state = ("CPU_ONLY" if after_health["latched"] else
                         "DEGRADED" if after_health["consecutiveLosses"]
                         else "HEALTHY")
@@ -452,7 +487,17 @@ class TorchSession:
             spill_bytes=_wdelta("spillBytes", "memory"),
             unspills=_wdelta("unspills", "memory"),
             budget_peak=int(MEMORY.peak_bytes()),
-            fallbacks=E.collect_fallbacks(q.meta))
+            fallbacks=E.collect_fallbacks(q.meta),
+            # a Delta commit runs after its write's query: its retries
+            # are staged for the next record on this thread
+            commit_retries=_wdelta("commitRetries", "write")
+            + stream.get("commitRetries", 0),
+            # streaming attribution: the scope's change (work done inside
+            # this window) plus what the streaming subsystem staged on
+            # this thread between envelopes
+            mv_epoch=mv_epoch,
+            **{arg: _wdelta(key, "streaming") + stream.get(key, 0)
+               for arg, key in _STREAM_FIELDS})
 
     def _write_event_record(self, record: dict) -> str:
         """THE event-log append path: the per-session writer is made
@@ -926,6 +971,15 @@ class TorchSession:
 #: root's resultFetchTime (a timing, in last_timings())
 _PER_OPERATOR = frozenset(("opTime", "numOutputRows", "numOutputBatches",
                            "resultFetchTime"))
+
+
+#: (build_query_record argument, streaming scope counter) of the record's
+#: streaming fields
+_STREAM_FIELDS = (
+    ("micro_batches", "microBatches"), ("mv_refreshes", "mvRefreshes"),
+    ("mv_incremental_refreshes", "mvIncrementalRefreshes"),
+    ("mv_full_recomputes", "mvFullRecomputes"),
+    ("sink_commits", "sinkCommits"), ("sink_replays", "sinkReplays"))
 
 
 def _kind(name: str) -> str:

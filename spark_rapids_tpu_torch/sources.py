@@ -6,11 +6,10 @@ read`` / ``read_format`` and ``CREATE TEMP VIEW ... USING`` route every
 lookup through it.
 
 The port's providers: ``parquet`` (its own codec, io/parquet.py),
-``avro`` (io/avro.py), and ``csv``, ``json`` and ``hive`` (also
+``orc``, ``avro`` (io/avro.py), ``csv``, ``json`` and ``hive`` (also
 ``hive-text``, ``hivetext``) over its text codec (io/csv.py, io/json.py,
-io/hive_text.py). The reference's other formats are registered as
-providers that raise NotImplementedError naming the format and the
-ROADMAP item that ports it."""
+io/hive_text.py), ``delta`` (delta/: time travel and the ``DeltaTable``
+API) and ``iceberg`` (iceberg/: snapshot selection), as the reference's."""
 
 from __future__ import annotations
 
@@ -142,33 +141,41 @@ class _HiveTextProvider(ExternalSourceProvider):
         return HiveTextScanNode(list(paths), conf, **options)
 
 
-#: formats the port does not read yet -> the ROADMAP item that ports them
-NOT_PORTED = {
-    "delta": "Queue 1 item [12b] (delta/)",
-    "iceberg": "Queue 1 item [12b] (iceberg/)",
-}
+def _single_path(paths, fmt: str) -> str:
+    if len(paths) != 1:
+        raise ColumnarProcessingError(
+            f"{fmt} source takes exactly one table path, got {list(paths)}")
+    return paths[0]
 
 
-def not_ported(fmt: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"the {fmt} source is not ported to spark_rapids_tpu_torch yet "
-        f"(ROADMAP {NOT_PORTED[fmt.lower()]})")
-
-
-class _NotPortedProvider(ExternalSourceProvider):
-    capabilities = frozenset({"read", "write"})
-
-    def __init__(self, fmt: str):
-        self.name = fmt
-        self.formats = (fmt,)
+class _DeltaProvider(ExternalSourceProvider):
+    name = "delta"
+    formats = ("delta",)
+    capabilities = frozenset({"read", "write", "time-travel", "table-api"})
 
     def create_scan_node(self, paths, conf, **options):
-        raise not_ported(self.name)
+        from spark_rapids_tpu_torch.delta import DeltaScanNode
+        return DeltaScanNode(_single_path(paths, "delta"), conf, **options)
+
+    def create_table_api(self, session, path):
+        from spark_rapids_tpu_torch.delta import DeltaTable
+        return DeltaTable(session, path)
+
+
+class _IcebergProvider(ExternalSourceProvider):
+    name = "iceberg"
+    formats = ("iceberg",)
+    capabilities = frozenset({"read", "snapshot-id"})
+
+    def create_scan_node(self, paths, conf, **options):
+        from spark_rapids_tpu_torch.iceberg import IcebergScanNode
+        return IcebergScanNode(_single_path(paths, "iceberg"), conf,
+                               **options)
 
 
 for _p in [_ParquetProvider(), _OrcProvider(), _AvroProvider(), _CsvProvider(),
-           _JsonProvider(), _HiveTextProvider()] + [
-        _NotPortedProvider(f) for f in NOT_PORTED]:
+           _JsonProvider(), _HiveTextProvider(), _DeltaProvider(),
+           _IcebergProvider()]:
     register_provider(_p)
 del _p
 

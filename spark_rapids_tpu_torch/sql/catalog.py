@@ -52,18 +52,14 @@ class SessionCatalog:
     def register_table(self, name: str, fmt: str, *paths,
                        **options) -> None:
         """Register ``name`` as a lazy scan of ``paths`` in ``fmt``
-        through the source provider registry. A format with no provider,
-        or one the port has not ported, raises when it is registered, and
-        so do options the format does not know (the scan is built once
-        here to check them; SQL OPTIONS values arrive as strings)."""
+        through the source provider registry. A format with no provider
+        raises when it is registered, and so do options the format does
+        not know (the scan is built once here to check them; SQL OPTIONS
+        values arrive as strings)."""
         from spark_rapids_tpu_torch.sources import (
-            NOT_PORTED,
-            not_ported,
             provider_for,
             supported_formats,
         )
-        if fmt.lower() in NOT_PORTED:
-            raise not_ported(fmt)
         if provider_for(fmt) is None:
             raise ColumnarProcessingError(
                 f"no available source provider for format {fmt!r} "

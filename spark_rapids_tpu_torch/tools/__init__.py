@@ -12,8 +12,9 @@ the kernels and fill the executable cache before traffic arrives.
 The report and the comparison are pure functions over the JSON records:
 no session or device is touched. ``loadtest`` drives the corpus through
 the query service (service/*), ``top`` polls its introspection endpoint
-and ``incident`` renders the flight recorder's bundles; ``vacuum`` needs
-Delta and raises naming ROADMAP item [12b].
+and ``incident`` renders the flight recorder's bundles; ``vacuum`` finds
+and removes the orphans of a Delta table or a committed write
+directory.
 """
 
 from spark_rapids_tpu_torch.tools.compare import (  # noqa: F401

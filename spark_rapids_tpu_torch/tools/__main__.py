@@ -20,7 +20,10 @@ Subcommands:
   introspection endpoint (``spark.rapids.service.introspect.enabled``).
 * ``incident``: render the flight recorder's bundles
   (``spark.rapids.obs.flightRecorder.dir``).
-* ``vacuum``: needs Delta and raises naming ROADMAP item [12b].
+* ``vacuum <dir>``: find un-referenced or staged output files (Delta
+  orphans against the latest snapshot, a committed write directory's
+  against its ``_SUCCESS`` manifest, ``_temporary/`` staging of jobs that
+  died); a dry run unless ``--delete``.
 
 ``--json`` emits the raw report dict; ``profile`` exits 2 when a query's
 span coverage falls below ``--coverage-floor`` (default 0.95).
@@ -31,12 +34,6 @@ from __future__ import annotations
 import argparse
 import json
 import sys
-
-#: the reference's subcommands that need what the port lacks
-NOT_PORTED = {
-    "vacuum": "Delta (delta/*)",
-}
-
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
@@ -150,16 +147,31 @@ def main(argv=None) -> int:
     inc.add_argument("--json", action="store_true",
                      help="emit the raw bundle list JSON")
 
-    for name in NOT_PORTED:
-        np_ = sub.add_parser(name, help=f"not ported ({NOT_PORTED[name]})")
-        np_.add_argument("rest", nargs=argparse.REMAINDER)
+    v = sub.add_parser(
+        "vacuum",
+        help="find (and with --delete, remove) un-referenced or staged "
+             "output files under a table or write directory; dry-run by "
+             "default")
+    v.add_argument("path", help="delta table or write output directory")
+    v.add_argument("--delete", action="store_true",
+                   help="actually remove the orphans (default: report only)")
+    v.add_argument("--retention-hours", type=float, default=None,
+                   help="keep orphans younger than this (default: "
+                        "spark.rapids.delta.vacuum.retentionHours)")
+    v.add_argument("--json", action="store_true",
+                   help="emit the raw report JSON")
 
     args = ap.parse_args(argv)
 
-    if args.cmd in NOT_PORTED:
-        raise NotImplementedError(
-            f"tools {args.cmd} is not ported: it needs "
-            f"{NOT_PORTED[args.cmd]} (ROADMAP item [12b] Delta)")
+    if args.cmd == "vacuum":
+        from spark_rapids_tpu_torch.tools.vacuum import (
+            render_vacuum,
+            run_vacuum,
+        )
+        report = run_vacuum(args.path, delete=args.delete,
+                            retention_hours=args.retention_hours)
+        print(json.dumps(report) if args.json else render_vacuum(report))
+        return 0
 
     if args.cmd == "top":
         from spark_rapids_tpu_torch.tools.top import run_top

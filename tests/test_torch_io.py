@@ -327,13 +327,21 @@ def test_file_cache_skips_the_decode(tmp_path):
 
 
 def test_other_formats_raise_naming_themselves(tmp_path, port):
-    for fmt in ("delta", "iceberg"):
-        with pytest.raises(NotImplementedError, match=fmt):
-            port.read_format(fmt, str(tmp_path))
-    with pytest.raises(NotImplementedError, match="delta"):
+    # Delta and Iceberg read ([12b]): over a directory that is neither,
+    # every entry point raises the reference's error
+    from spark_rapids_tpu.errors import ColumnarProcessingError as JCPE
+    ref = TpuSession()
+    for fmt, match in (("delta", "no delta log"),
+                       ("iceberg", "is not an iceberg table")):
+        for sess, err in ((port, ColumnarProcessingError), (ref, JCPE)):
+            with pytest.raises(err, match=match):
+                sess.read_format(fmt, str(tmp_path))
+            with pytest.raises(err, match=match):
+                sess.read.format(fmt).load(str(tmp_path))
+    with pytest.raises(ColumnarProcessingError, match="no delta log"):
         port.read_delta(str(tmp_path))
-    with pytest.raises(NotImplementedError, match="iceberg"):
-        port.read.format("iceberg").load(str(tmp_path))
+    with pytest.raises(ColumnarProcessingError, match="not an iceberg"):
+        port.read_iceberg(str(tmp_path))
     # ORC reads now: every entry point gives the written table
     from spark_rapids_tpu_torch.io.orc import write_orc
     t = _sample_table(40)

@@ -131,7 +131,10 @@ def test_temp_view_using_parquet_and_register_table(corpus, tmp_path):
     assert set(s.catalog.list_tables()) >= {"li", "ord"}
     s.sql("DROP VIEW ord")
     assert "ord" not in s.catalog.list_tables()
-    with pytest.raises(NotImplementedError, match="delta"):
+    # USING delta resolves through the Delta provider now: a path with no
+    # log raises the reference's error
+    from spark_rapids_tpu_torch.errors import ColumnarProcessingError
+    with pytest.raises(ColumnarProcessingError, match="no delta log"):
         s.sql("CREATE TEMP VIEW c USING delta OPTIONS (path '/nowhere')")
     # USING orc resolves through the ORC provider now
     from spark_rapids_tpu_torch.io.orc import write_orc

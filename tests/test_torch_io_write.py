@@ -256,8 +256,22 @@ def test_fault_spec_parsing_and_validation():
         parse_fault_spec("io.read.file")
     with pytest.raises(ColumnarProcessingError, match="outside"):
         parse_fault_spec("io.read.file:oom:1.5")
-    with pytest.raises(NotImplementedError, match="Delta"):
-        parse_fault_spec("io.write.commit:race:1")
+    # the race kind (a lost Delta commit race) parses in both packages
+    # and fires as DeltaConcurrentModificationException, as the
+    # reference's does
+    from spark_rapids_tpu_torch.delta.log import (
+        DeltaConcurrentModificationException,
+    )
+    from spark_rapids_tpu_torch.runtime.faults import FaultRegistry
+    for parse in (parse_fault_spec, jfaults.parse_fault_spec):
+        assert [a.kind for a in parse("delta.commit.race:race:1")] == \
+            ["race"]
+    reg = FaultRegistry()
+    reg.arm("delta.commit.race:race:1")
+    with pytest.raises(DeltaConcurrentModificationException,
+                       match="delta.commit.race"):
+        reg.fire("delta.commit.race")
+    assert reg.fire("delta.commit.race") is None
 
 
 def _schedule(registry, spec, point, n, data=None):

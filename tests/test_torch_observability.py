@@ -185,8 +185,11 @@ def test_lore_ids_match_the_reference_on_the_corpus():
 
 # -- the event record -------------------------------------------------------
 
-#: fields of subsystems the port lacks, written as the reference writes
-#: them while that subsystem is idle
+#: fields of subsystems the port lacks (the mesh, the cluster), written as
+#: the reference writes them while that subsystem is idle, and fields of
+#: subsystems that are live but quiet outside a service, a Delta commit or
+#: a stream (the streaming fields and commitRetries, live since [12b]:
+#: tests/test_torch_streaming.py holds them under a stream)
 IDLE_FIELDS = {
     "tenant": None, "pool": None, "queueWaitS": None, "cacheHit": False,
     "quarantined": False, "workerRestarts": 0, "meshShape": None,

@@ -548,11 +548,23 @@ def test_service_needs_a_card_unless_asked_for_the_cpu(monkeypatch):
     with _cpu_service() as svc:
         assert svc.session.device.type == "cpu"
         assert svc.streams() == []
-        for call in (lambda: svc.register_stream(object()),
-                     lambda: svc.unregister_stream("s"),
-                     svc.mv_registry):
-            with pytest.raises(NotImplementedError, match=r"\[12b\]"):
-                call()
+
+        class _Stream:
+            name = "s"
+
+            def describe(self):
+                return {"name": self.name, "state": "RUNNING"}
+
+            def stop(self, wait=True):
+                pass
+
+        # the stream registry and the MV registry run ([12b] streaming)
+        svc.register_stream(_Stream())
+        assert svc.streams() == [{"name": "s", "state": "RUNNING"}]
+        svc.unregister_stream("s")
+        assert svc.streams() == []
+        mvs = svc.mv_registry()
+        assert mvs is svc.mv_registry() and mvs.names() == []
 
 
 # -- the loadtest and its comparator ------------------------------------------

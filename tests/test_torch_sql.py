@@ -443,9 +443,6 @@ def test_error_positions(s):
 #: constructs whose plan node or expression the port lacks: lowering
 #: raises NotImplementedError naming the construct
 LOWERING_RAISES = {
-    "create view using": (
-        "CREATE TEMP VIEW pq USING delta OPTIONS (path '/data/pq')",
-        "the delta source is not ported"),
     "mixed-type case": ("SELECT CASE WHEN id > 3 THEN 1 ELSE 2.5 END AS c "
                         "FROM t", "CaseWhen over values of types"),
 }
@@ -480,10 +477,32 @@ LOWERED_NOW = {
 }
 
 
-@pytest.mark.parametrize("name", sorted({**LOWERING_RAISES, **LOWERED_NOW}))
+#: constructs that raised NotImplementedError until the port had their
+#: source (Delta, [12b]): each now raises the reference's own error for
+#: the input given, in both packages
+RAISES_AS_REFERENCE = {
+    "create view using": (
+        "CREATE TEMP VIEW pq USING delta OPTIONS (path '/data/pq')",
+        "no delta log at /data/pq"),
+}
+
+
+@pytest.mark.parametrize("name", sorted({**LOWERING_RAISES, **LOWERED_NOW,
+                                         **RAISES_AS_REFERENCE}))
 def test_unported_construct_raises_when_lowered(s, name):
     """A construct the port lacks raises naming itself; one it has since
-    ported (``LOWERED_NOW``) is held to the reference's sql() result."""
+    ported (``LOWERED_NOW``) is held to the reference's sql() result, or,
+    where the input has no answer (``RAISES_AS_REFERENCE``), to its
+    error."""
+    if name in RAISES_AS_REFERENCE:
+        from spark_rapids_tpu.errors import ColumnarProcessingError as JCPE
+        from spark_rapids_tpu_torch.errors import ColumnarProcessingError
+        sql, match = RAISES_AS_REFERENCE[name]
+        with pytest.raises(ColumnarProcessingError, match=match):
+            s[0].sql(sql)
+        with pytest.raises(JCPE, match=match):
+            s[1].sql(sql)
+        return
     if name in LOWERED_NOW:
         sql, comparator = LOWERED_NOW[name]
         check(s, sql, comparator)
@@ -494,17 +513,25 @@ def test_unported_construct_raises_when_lowered(s, name):
 
 
 def test_unported_registrations_raise(s):
-    """A Hive UDF (a pandas UDF in the reference) and a Delta table still
-    raise naming themselves; a session function resolves in SQL and
-    equals the reference's (``tables_differ``)."""
+    """A Hive UDF (a pandas UDF in the reference) still raises naming
+    itself; a session function resolves in SQL and equals the reference's
+    (``tables_differ``); a Delta table with no log raises the
+    reference's error (the port's at registration, where it builds the
+    scan to check the options; the reference's when read)."""
     with pytest.raises(NotImplementedError, match="hive_udf.py.*pandas"):
         tregistry.register_hive_udf("sql_t_upper", str.upper, "string")
     s[0].catalog.register_function("plus_one", lambda e: e + lit(1))
     from spark_rapids_tpu.ops.expr import lit as jlit
     s[1].catalog.register_function("plus_one", lambda e: e + jlit(1))
     check(s, "SELECT id, plus_one(id) AS p FROM t")
-    with pytest.raises(NotImplementedError, match="the delta source"):
+    from spark_rapids_tpu.errors import ColumnarProcessingError as JCPE
+    from spark_rapids_tpu_torch.errors import ColumnarProcessingError
+    with pytest.raises(ColumnarProcessingError, match="no delta log"):
         s[0].catalog.register_table("pq", "delta", "/data/pq")
+    # the reference registers lazily and raises when the table is read
+    s[1].catalog.register_table("pq", "delta", "/data/pq")
+    with pytest.raises(JCPE, match="no delta log"):
+        s[1].sql("SELECT * FROM pq").collect()
 
 
 #: constructs that raised NotImplementedError at collect until the port

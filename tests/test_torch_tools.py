@@ -3,7 +3,8 @@ reference's: ``profile`` and ``compare`` are pure functions over the JSON
 records, so both packages must give equal reports and equal rendered
 text for the same JSONL (compared with ``==``). ``warmup`` replays the
 log's plans: corpus tags and SQL text match, anything else is reported
-unmatched; the CLI's subcommands, and the one that waits for [12b]."""
+unmatched; the CLI's subcommands, vacuum's report against the
+reference's."""
 
 import json
 import os
@@ -90,12 +91,19 @@ def test_cli_profile_and_compare(logs, capsys):
 
 @pytest.mark.parametrize("cmd", ["loadtest", "vacuum", "top", "incident"])
 def test_unported_subcommands_raise_naming_item_12(cmd, tmp_path, capsys):
-    """Of item 12's subcommands, the serving half's (loadtest, top,
-    incident) are ported; vacuum waits for [12b] Delta and raises."""
+    """Item 12's subcommands all run in the port (vacuum since [12b]
+    Delta): vacuum's dry-run report over a write directory with a dead
+    job's staging equals the reference's."""
     if cmd == "vacuum":
-        with pytest.raises(NotImplementedError,
-                           match=r"ROADMAP item \[12b\] Delta"):
-            tmain.main([cmd])
+        from spark_rapids_tpu.tools.vacuum import run_vacuum as jrun
+        stage = tmp_path / "_temporary" / "job" / "0"
+        stage.mkdir(parents=True)
+        (stage / "part-0.parquet").write_bytes(b"x")
+        assert tmain.main([cmd, str(tmp_path), "--json"]) == 0
+        got = json.loads(capsys.readouterr().out)
+        assert got == jrun(str(tmp_path))
+        assert got["mode"] == "staging-only" and got["orphans"] == [
+            os.path.join("_temporary", "job", "0", "part-0.parquet")]
     elif cmd == "top":
         # no endpoint named: the usage error, not a raise
         assert tmain.main([cmd]) == 2
