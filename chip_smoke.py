@@ -1427,26 +1427,29 @@ def check_minmax(seed: int = 3, **shape_args) -> dict:
 # phase 4: q1 end to end
 # ---------------------------------------------------------------------------
 
-def _groups_of(c, m):
-    """(sorted distinct strings, each row's index into them) of the rows
-    ``m`` of string column ``c``: by its codes when it carries them (a
-    sorted dictionary), else by sorting the strings."""
-    enc = c._cache.get("encode")
-    if enc is None:
-        u, i = np.unique(c.data[m].astype(str), return_inverse=True)
-        return u, i.reshape(-1)
-    u, i = np.unique(enc[0][m], return_inverse=True)
-    return enc[1][u].astype(str), i.reshape(-1)
+def string_codes(table, names) -> dict:
+    """{name: (sorted distinct strings, each row's index into them)} of
+    the string columns ``names``, by ``np.unique`` over their values."""
+    by = dict(zip(table.names, table.columns))
+    out = {}
+    for n in names:
+        u, i = np.unique(by[n].data.astype(str), return_inverse=True)
+        out[n] = (u, i.reshape(-1))
+    return out
 
 
-def q1_oracle(table):
-    """q1 in plain numpy: rows sorted by (flag, status) with exact counts."""
+def q1_oracle(table, codes=None):
+    """q1 in plain numpy: rows sorted by (flag, status) with exact counts.
+    ``codes`` maps l_returnflag and l_linestatus to (sorted distinct
+    strings, each row's index into them), as ``np.unique`` gives them over
+    the table's strings (``string_codes``); without it they are made
+    here."""
     from spark_rapids_tpu_torch.models.tpch import Q1_CUTOFF_DAYS
     col = {n: c.data for n, c in zip(table.names, table.columns)}
-    by = dict(zip(table.names, table.columns))
+    codes = codes or string_codes(table, ("l_returnflag", "l_linestatus"))
     m = col["l_shipdate"] <= Q1_CUTOFF_DAYS
-    rf_u, rf_i = _groups_of(by["l_returnflag"], m)
-    ls_u, ls_i = _groups_of(by["l_linestatus"], m)
+    rf_u, rf_i = codes["l_returnflag"][0], codes["l_returnflag"][1][m]
+    ls_u, ls_i = codes["l_linestatus"][0], codes["l_linestatus"][1][m]
     g = rf_i * len(ls_u) + ls_i
     ng = len(rf_u) * len(ls_u)
     qty, price = col["l_quantity"][m], col["l_extendedprice"][m]
@@ -2014,7 +2017,7 @@ def hold_launches(name, calls) -> None:
 def run_case(session, name, build, check, profile_dir, keep=None,
              warm_runs: int = 3) -> dict:
     """One query: a cold run (replays counted), ``warm_runs`` warm runs
-    (with none, the counted run's time is the warm time),
+    (with none, no warm time: the counted run's stands as ``counted_ms``),
     and one more warm run between launch-counter reads (host syncs and
     sorts logged, every launch's inputs recorded and then held against the
     kernel's plain version); each result against its oracle. Returns the
@@ -2046,10 +2049,9 @@ def run_case(session, name, build, check, profile_dir, keep=None,
     with host_sync_count() as box:
         again = build().collect_table()
     torch.cuda.synchronize()
-    if not warm:
-        # no warm run asked for: the counted run's time stands in (sync
-        # debug mode on and every launch's inputs recorded, so slower)
-        warm.append(time.perf_counter() - t0)
+    # the counted run: sync debug mode on and every launch's inputs
+    # recorded, so slower than a warm run
+    counted = time.perf_counter() - t0
     launches = K.launch_counts()
     calls, K.calls = K.calls, None
     sort_trace_end(name, syncs)
@@ -2061,15 +2063,18 @@ def run_case(session, name, build, check, profile_dir, keep=None,
     check(again)
     hold_launches(name, calls)
     del calls
-    log(f"  {name}: cold {cold * 1e3:.1f} ms ({replays} replays), warm "
-        f"median {statistics.median(warm) * 1e3:.2f} ms (runs "
-        f"{[round(w * 1e3, 2) for w in warm]}), peak device memory "
-        f"{peak / 2**30:.2f} GiB, {got.num_rows} rows")
+    timed = (f"warm median {statistics.median(warm) * 1e3:.2f} ms (runs "
+             f"{[round(w * 1e3, 2) for w in warm]})" if warm else
+             f"no warm run, the counted run {counted * 1e3:.2f} ms")
+    log(f"  {name}: cold {cold * 1e3:.1f} ms ({replays} replays), {timed}, "
+        f"peak device memory {peak / 2**30:.2f} GiB, {got.num_rows} rows")
     log(f"  {name}: launches during one warm query: {launches}")
     if warm_replays != 0:
         fail(f"{name}: a warm run replayed")
     stats = {"cold_ms": round(cold * 1e3, 2),
-             "warm_ms": round(statistics.median(warm) * 1e3, 2),
+             "warm_ms": round(statistics.median(warm) * 1e3, 2)
+             if warm else None,
+             "counted_ms": round(counted * 1e3, 2),
              "replays": replays, "syncs": box["syncs"],
              "peak_gib": round(peak / 2**30, 3), "rows": got.num_rows}
     if profile_dir:
@@ -5346,8 +5351,9 @@ def run_runtime(tables, q1_keep, before: dict) -> dict:
 # phase 15: Parquet files in and out
 # ---------------------------------------------------------------------------
 
-#: the file corpus's scale factor and its files per table (c000/, c001/)
-FILES_SF = 1.0
+#: the file corpus's scale factor (cut from 1.0 for the script's time
+#: limit, PERF.md section 4) and its files per table (c000/, c001/)
+FILES_SF = 0.5
 FILES_PER_TABLE = 2
 #: row groups of the pruning check's orders files
 FILES_PRUNE_ROW_GROUP = 1 << 15
@@ -6013,8 +6019,8 @@ def text_corpus(tables, paths, card: str) -> tuple:
     """16.4: the 22 corpus queries over the CSV files as DataFrames and as
     SQL over ``CREATE TEMP VIEW ... USING csv OPTIONS (path, schema)``,
     and over the JSON files as DataFrames (``read_corpus_table``), each
-    through ``run_case`` (a cold and the counted run, whose time is the
-    warm time) against its oracle. Returns (launch totals, numbers)."""
+    through ``run_case`` (a cold and the counted run; no warm run) against
+    its oracle. Returns (launch totals, numbers)."""
     from spark_rapids_tpu_torch.models.corpus import (
         CORPUS,
         build_queries,
@@ -6040,17 +6046,18 @@ def text_corpus(tables, paths, card: str) -> tuple:
                 total[k] = total.get(k, 0) + v
             decode_ms = round(m.get("scanDecodeTime", 0) * 1e3, 2)
             numbers[case] = {
-                "warm_ms": res["stats"]["warm_ms"],
+                "counted_ms": res["stats"]["counted_ms"],
                 "cold_ms": res["stats"]["cold_ms"],
                 "decode_ms": decode_ms,
                 "upload_ms": round(m.get("scanUploadTime", 0) * 1e3, 2),
                 "decode_share": round(decode_ms / max(
-                    res["stats"]["warm_ms"], 1e-9), 3),
+                    res["stats"]["counted_ms"], 1e-9), 3),
                 "syncs": res["stats"]["syncs"],
                 "launches": {k: v for k, v in res["launches"].items() if v}}
     log(f"  16.4 all {len(forms) * len(CORPUS)} corpus runs from text files "
-        "match their oracles; warm ms (the decode's share of the counted "
-        "run): " + ", ".join(f"{k} {v['warm_ms']} ({v['decode_share']})"
+        "match their oracles; ms of the counted run (sync debug mode, "
+        "launches recorded; no warm run) and the decode's share of it: "
+        + ", ".join(f"{k} {v['counted_ms']} ({v['decode_share']})"
                              for k, v in numbers.items()) + f" [{card}]")
     return total, numbers
 
@@ -9812,8 +9819,8 @@ LAKE_UPDATE_ORDERS = 100_000
 #: D2: rows of the append that loses an injected commit race
 LAKE_RACE_ROWS = 1000
 #: S1: the stream's Parquet files, their rows in all (lineitem's first
-#: rows: cut from SF 1 for the phase's time, PERF.md section 4), and
-#: files per trigger
+#: rows: cut from SF 1 for the script's time limit, PERF.md section 4),
+#: and files per trigger
 STREAM_FILES = 24
 STREAM_ROWS = 1_000_000
 STREAM_PER_TRIGGER = 4
@@ -9832,7 +9839,11 @@ LAKE_PHASE = ("phase 24: Delta Lake, Iceberg and streaming (D1 the Delta "
 
 class LakeState:
     """The Delta table's expected rows, kept in numpy beside every
-    command (the oracle of D1 and D2): columns by name and the live rows."""
+    command (the oracle of D1 and D2): columns by name, the live rows, and
+    q1's string columns as ``np.unique`` codes over the same rows."""
+
+    #: the string columns q1 groups by
+    GROUPED = ("l_returnflag", "l_linestatus")
 
     def __init__(self, table):
         self.names = list(table.names)
@@ -9843,22 +9854,18 @@ class LakeState:
         #: rows of the original table (an original row's index follows
         #: from its key: (l_orderkey - 1) * 4 + l_linenumber - 1)
         self.n0 = table.num_rows
-        #: each string column's (codes, sorted dictionary): the oracle
-        #: groups by codes
-        self.enc = {n: c.encoded() for n, c in zip(table.names, table.columns)
-                    if isinstance(c.data, np.ndarray) and
-                    c.data.dtype == object}
+        self.codes = string_codes(table, self.GROUPED)
 
     def table(self):
         from spark_rapids_tpu_torch.columnar import HostColumn, HostTable
-        cols = []
-        for n in self.names:
-            c = HostColumn(self.types[n], self.cols[n][self.alive])
-            if n in self.enc:
-                codes, dictionary = self.enc[n]
-                c._cache["encode"] = (codes[self.alive], dictionary)
-            cols.append(c)
-        return HostTable(self.names, cols)
+        return HostTable(self.names, [
+            HostColumn(self.types[n], self.cols[n][self.alive])
+            for n in self.names])
+
+    def q1(self):
+        """q1's oracle over the live rows."""
+        return q1_oracle(self.table(), {
+            n: (u, i[self.alive]) for n, (u, i) in self.codes.items()})
 
     def index(self, orderkey, linenumber):
         return (orderkey - 1) * 4 + linenumber.astype(np.int64) - 1
@@ -9866,10 +9873,13 @@ class LakeState:
     def append(self, table):
         for n, c in zip(table.names, table.columns):
             self.cols[n] = np.concatenate([self.cols[n], c.data])
-            if n in self.enc:
-                codes, dictionary = self.enc[n]
-                new = np.searchsorted(dictionary, c.data).astype(np.int32)
-                self.enc[n] = (np.concatenate([codes, new]), dictionary)
+        for n, (u, i) in self.codes.items():
+            vals = self.cols[n][len(i):].astype(str)
+            new = np.searchsorted(u, vals)
+            if (new >= len(u)).any() or (u[np.minimum(new, len(u) - 1)]
+                                         != vals).any():
+                fail(f"LakeState: a new {n} value outside {list(u)}")
+            self.codes[n] = (u, np.concatenate([i, new]))
         self.alive = np.concatenate(
             [self.alive, np.ones(table.num_rows, dtype=bool)])
 
@@ -9991,7 +10001,7 @@ def lake_d1(session, li, base: str, card: str, res: dict):
             fail(f"D1: write {i} committed version {v}")
     write_s = time.perf_counter() - t0
     state = LakeState(li)
-    oracle = q1_oracle(li)
+    oracle = state.q1()
     q1 = lake_q1(session, session.read_delta(path), oracle, "D1 q1")
     # bit for bit: q1 over the Delta scan against q1 in memory over the
     # same rows in the scan's order (its files sorted by path: version
@@ -10021,7 +10031,7 @@ def lake_d1(session, li, base: str, card: str, res: dict):
         if n != expect_rows:
             fail(f"D1 {name}: {n} rows, want {expect_rows}")
         q = lake_q1(session, session.read_delta(path),
-                    q1_oracle(state.table()), f"D1 q1 after {name}",
+                    state.q1(), f"D1 q1 after {name}",
                     warm=False)
         same_host_table(by_key(session.read_delta(
             path, version_as_of=0).collect_table()), v0,
@@ -10102,7 +10112,7 @@ def lake_d2(session, path, state, counts, li, base: str, res: dict):
     snap = dt.log.snapshot()
     if r["files_added"] != 1 or len(snap.files) != 1:
         fail(f"D2 OPTIMIZE ZORDER: {r}, {len(snap.files)} live files")
-    q = lake_q1(session, session.read_delta(path), q1_oracle(state.table()),
+    q = lake_q1(session, session.read_delta(path), state.q1(),
                 "D2 q1 after OPTIMIZE", warm=False)
     log(f"  D2 OPTIMIZE ZORDER BY (l_shipdate, l_partkey): {r} in "
         f"{took:.2f} s (host); q1 {q['cold_ms']} ms")
@@ -10124,18 +10134,32 @@ def lake_d2(session, path, state, counts, li, base: str, res: dict):
     t0 = time.perf_counter()
     full = DeltaLog(path).snapshot()
     full_ms = (time.perf_counter() - t0) * 1e3
+    full10 = DeltaLog(path).snapshot(10)
     os.rename(os.path.join(base, "_last_checkpoint"),
               os.path.join(log_dir, "_last_checkpoint"))
 
-    def files(s):
-        return sorted((a.path, json.dumps(a.deletion_vector, sort_keys=True))
-                      for a in s.files)
-    if files(from_cp) != files(full) or \
+    def files(adds):
+        return sorted((a.path, json.dumps(a.partition_values, sort_keys=True),
+                       a.size, a.stats,
+                       json.dumps(a.deletion_vector, sort_keys=True))
+                      for a in adds)
+    if files(from_cp.files) != files(full.files) or \
             from_cp.metadata.schema_json != full.metadata.schema_json:
         fail("D2: the replay from the checkpoint differs from the full one")
-    log(f"  D2 checkpoint at version 10: a fresh DeltaLog replays from it in "
-        f"{cp_ms:.1f} ms (every commit file: {full_ms:.1f} ms), same "
-        f"snapshot")
+    # the checkpoint file itself, read by the record codec (a replay falls
+    # back to the commit files when it cannot read it): version 10's
+    # files, their stats and DVs, and the schema, as the commit files give
+    # them
+    cp_meta, cp_adds = DeltaLog(path)._read_checkpoint(10)
+    if files(cp_adds.values()) != files(full10.files) or \
+            cp_meta.schema_json != full10.metadata.schema_json or \
+            cp_meta.configuration != full10.metadata.configuration:
+        fail("D2: the checkpoint's actions differ from a replay of "
+             "versions 0-10")
+    log(f"  D2 checkpoint at version 10: its {len(cp_adds)} add actions and "
+        f"metadata equal a replay of versions 0-10; a fresh DeltaLog "
+        f"replays from it in {cp_ms:.1f} ms (every commit file: "
+        f"{full_ms:.1f} ms), same snapshot")
 
     # the change feed over the DML versions (9 DELETE .. 12 MERGE)
     t0 = time.perf_counter()
@@ -10162,7 +10186,7 @@ def lake_d2(session, path, state, counts, li, base: str, res: dict):
     renamed = session.read_delta(path)
     df = renamed.select(*[col(n).alias("l_tax") if n == "l_taxrate"
                           else col(n) for n, _ in renamed.schema])
-    q = lake_q1(session, df, q1_oracle(state.table()), "D2 q1 after rename",
+    q = lake_q1(session, df, state.q1(), "D2 q1 after rename",
                 warm=False)
     log(f"  D2 rename_column l_tax -> l_taxrate (mode name, no file "
         f"rewritten); q1 {q['cold_ms']} ms")
@@ -10174,7 +10198,7 @@ def lake_d2(session, path, state, counts, li, base: str, res: dict):
     took = time.perf_counter() - t0
     if not dry["orphans"] or real["files_deleted"] != len(dry["orphans"]):
         fail(f"D2 VACUUM: dry {len(dry['orphans'])}, real {real}")
-    lake_q1(session, df, q1_oracle(state.table()), "D2 q1 after VACUUM",
+    lake_q1(session, df, state.q1(), "D2 q1 after VACUUM",
             warm=False)
     log(f"  D2 VACUUM: dry run lists {len(dry['orphans'])} orphans, the real "
         f"one deletes {real['files_deleted']} ({took:.2f} s); q1 as before")
@@ -10383,18 +10407,24 @@ def iceberg_lineitem(li, base: str, parts: int = LAKE_FILES) -> dict:
                                    2: keep}}
 
 
-def lake_i1(session, li, base: str, res: dict) -> None:
-    from spark_rapids_tpu_torch.delta.table import take_rows
+def lake_i1(session, li, state: LakeState, base: str, res: dict) -> None:
+    """I1 over ``li``; ``state``'s codes of its first rows are li's."""
+    from spark_rapids_tpu_torch.columnar import HostColumn, HostTable
     t0 = time.perf_counter()
     ice = iceberg_lineitem(li, base)
     write_s = time.perf_counter() - t0
     for sid in (1, 2):
-        want = take_rows(li, np.flatnonzero(ice["keep"][sid]))
+        rows = np.flatnonzero(ice["keep"][sid])
+        want = HostTable(li.names, [HostColumn(c.dtype, c.data[rows])
+                                    for c in li.columns])
+        codes = {n: (u, i[:state.n0][rows])
+                 for n, (u, i) in state.codes.items()}
         df = session.read_iceberg(ice["path"], snapshot_id=sid)
         n = df.count()
         if n != want.num_rows:
             fail(f"I1 snapshot {sid}: {n} rows, want {want.num_rows}")
-        q = lake_q1(session, df, q1_oracle(want), f"I1 q1 at snapshot {sid}",
+        q = lake_q1(session, df, q1_oracle(want, codes),
+                    f"I1 q1 at snapshot {sid}",
                     warm=sid == 2)
         log(f"  I1 snapshot {sid}: {n} rows; q1 cold {q['cold_ms']} ms warm "
             f"{q['warm_ms']} ms ({q['syncs']} syncs, launches "
@@ -10496,6 +10526,7 @@ def lake_s1_m1(li, d1_path: str, base: str, res: dict) -> None:
     service, once clean with two views maintained after every commit,
     once killed in a child process and resumed) and M1."""
     from spark_rapids_tpu_torch import functions as F
+    from spark_rapids_tpu_torch.columnar import HostColumn, HostTable
     from spark_rapids_tpu_torch.ops.expr import col, lit
     from spark_rapids_tpu_torch.plan import from_host_table
     from spark_rapids_tpu_torch.service import QueryService
@@ -10546,6 +10577,15 @@ def lake_s1_m1(li, d1_path: str, base: str, res: dict) -> None:
         clean = s.read_delta(sink).collect_table()
         if batches != want_b or clean.num_rows != li.num_rows:
             fail(f"S1: {batches} batches, {clean.num_rows} rows")
+        # exactly once: the sink holds the input's rows through the
+        # batch's filter and projection, done here in numpy
+        by = dict(zip(li.names, li.columns))
+        keep = by["l_quantity"].validity & (by["l_quantity"].data > 0.0)
+        fed = HostTable(clean.names, [
+            HostColumn(by[n].dtype, by[n].data[keep], by[n].validity[keep])
+            for n in clean.names])
+        same_host_table(by_key(clean), by_key(fed),
+                        "S1 the clean run's sink against its input rows")
         modes = {mv.name: (mv.strategy, mv.incremental_refreshes,
                            mv.full_recomputes) for mv in (agg, app)}
         if modes != {"flags": ("reaggregate", want_b, 1),
@@ -10603,8 +10643,8 @@ def lake_s1_m1(li, d1_path: str, base: str, res: dict) -> None:
         took = time.perf_counter() - t0
         if resumed != want_b - STREAM_KILL_BATCH or got_replays != 1:
             fail(f"S1 resume: {resumed} batches, sinkReplays {got_replays}")
-        same_host_table(by_key(killed), by_key(clean),
-                        "S1 the resumed sink against the clean run's")
+        same_host_table(by_key(killed), by_key(fed),
+                        "S1 the resumed sink against its input rows")
         log(f"  S1 a child killed inside batch {STREAM_KILL_BATCH}'s commit; "
             f"resumed here: {resumed} batches (the first replayed through "
             f"the txn watermark: sinkReplays {got_replays}), the sink's "
@@ -10639,7 +10679,7 @@ def run_lakehouse(table, seed: int) -> dict:
         lake_d2(session, path, state, counts, li, base, res)
         parts["D2"] = time.perf_counter() - t0
         t0 = time.perf_counter()
-        lake_i1(session, li, base, res)
+        lake_i1(session, li, state, base, res)
         parts["I1"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         lake_s1_m1(li, path, base, res)

@@ -164,6 +164,17 @@ def _object_array(values) -> np.ndarray:
     return out
 
 
+def subset_codes(enc, rows: np.ndarray):
+    """A string column's (codes, sorted dictionary) restricted to ``rows``
+    (the dictionary narrowed to the codes they use)."""
+    codes, dictionary = enc
+    sub = codes[rows]
+    used = np.zeros(len(dictionary), dtype=bool)
+    used[sub] = True
+    remap = np.cumsum(used) - 1
+    return remap[sub].astype(np.int32), dictionary[used]
+
+
 class HostColumn:
     """A column on the host: numpy values + validity mask. STRING data is
     an object array of str (None allowed at invalid slots); an array,
@@ -196,8 +207,14 @@ class HostColumn:
         return len(self.data)
 
     def take(self, rows: np.ndarray) -> "HostColumn":
-        """The column at ``rows`` (an index array)."""
-        return HostColumn(self.dtype, self.data[rows], self.validity[rows])
+        """The column at ``rows`` (an index array); a string column's
+        codes come along (``subset_codes``), so an upload or a write of
+        the rows does not sort their strings again."""
+        out = HostColumn(self.dtype, self.data[rows], self.validity[rows])
+        enc = self._cache.get("encode")
+        if enc is not None:
+            out._cache["encode"] = subset_codes(enc, rows)
+        return out
 
     def slice(self, start: int, length: int) -> "HostColumn":
         if isinstance(self.data, N.NestedData):

@@ -55,6 +55,10 @@ class HostTable:
         return HostTable(self.names,
                          [c.slice(start, length) for c in self.columns])
 
+    def take(self, rows: np.ndarray) -> "HostTable":
+        """The table at ``rows`` (an index array), as ``HostColumn.take``."""
+        return HostTable(self.names, [c.take(rows) for c in self.columns])
+
     def nbytes(self) -> int:
         return sum(c.nbytes() for c in self.columns)
 

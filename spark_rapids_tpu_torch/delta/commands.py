@@ -565,7 +565,7 @@ class DeltaTable:
                          if c in [n for n, _ in data_schema]]
                 if zcols:
                     order = zorder_sort_indexes(merged, zcols)
-                    merged = _mask_permute(merged, order)
+                    merged = merged.take(order)
             pv = dict(key)
             subdir = os.path.dirname(batch[0].path)
             new_add = _write_data_file(self.table_path, merged, pv, subdir,
@@ -658,11 +658,6 @@ def vacuum_table(table_path: str, conf=None, dry_run: bool = False,
     return {"files_deleted": deleted, "orphans": orphans,
             "dry_run": bool(dry_run),
             "retention_hours": retention_hours}
-
-
-def _mask_permute(table: HostTable, order: np.ndarray) -> HostTable:
-    from spark_rapids_tpu_torch.delta.table import take_rows
-    return take_rows(table, order)
 
 
 def _key_codes(cols, n: int = -1) -> np.ndarray:

@@ -257,22 +257,7 @@ class DeltaScanNode(FileScanNode):
 
 
 def _mask_table(table: HostTable, keep: np.ndarray) -> HostTable:
-    return take_rows(table, np.flatnonzero(keep))
-
-
-def take_rows(table: HostTable, rows: np.ndarray) -> HostTable:
-    """``table`` at ``rows`` (an index array); a string column keeps its
-    codes (the decoder's sorted dictionary, narrowed), so the upload and
-    the writer do not encode it again."""
-    from spark_rapids_tpu_torch.io.parquet import _subset_codes
-    cols = []
-    for c in table.columns:
-        out = HostColumn(c.dtype, c.data[rows], c.validity[rows])
-        enc = c._cache.get("encode")
-        if enc is not None:
-            out._cache["encode"] = _subset_codes(enc, rows)
-        cols.append(out)
-    return HostTable(list(table.names), cols)
+    return table.take(np.flatnonzero(keep))
 
 
 # -- write transaction -------------------------------------------------------

@@ -272,14 +272,8 @@ def _host_run(sorter: TpuSortExec, b: DeviceTable):
     for dc in t.columns:
         data = dc.data[:n].cpu().numpy()
         valid = np.ascontiguousarray(dc.validity[:n].cpu().numpy())
-        hc = dc.decode_host(data, valid)
-        if isinstance(dc.dtype, T.StringType) and dc.dict_sorted \
-                and dc.dictionary is not None and len(dc.dictionary):
-            codes = np.clip(data, 0, len(dc.dictionary) - 1)
-            hc._cache["encode"] = (
-                np.where(valid, codes, 0).astype(np.int32),
-                dc.dictionary)
-        cols.append(hc)
+        # a sorted dictionary's codes come along (``decode_host``)
+        cols.append(dc.decode_host(data, valid))
     return HostTable(t.names, cols)
 
 
@@ -421,7 +415,6 @@ def _tie_pieces(host, orders: Sequence[SortOrder], hidden: bool,
     gives the order a sort of the whole would. None when a key after the
     first is computed (it has no column here), and the range lands
     whole."""
-    from spark_rapids_tpu_torch.columnar import HostColumn, HostTable
     from spark_rapids_tpu_torch.ops.expr import BoundReference
     keys = []
     for i, o in enumerate(orders):
@@ -451,14 +444,7 @@ def _tie_pieces(host, orders: Sequence[SortOrder], hidden: bool,
         j = int(np.searchsorted(starts, a + max_rows, "left"))
         b = int(starts[j]) if j < len(starts) else n
         rows = np.sort(order[a:b])
-        cols = []
-        for c in host.columns:
-            hc = HostColumn(c.dtype, c.data[rows], c.validity[rows])
-            enc = c._cache.get("encode")
-            if enc is not None:
-                hc._cache["encode"] = (enc[0][rows], enc[1])
-            cols.append(hc)
-        pieces.append(HostTable(host.names, cols))
+        pieces.append(host.take(rows))
         a = b
     return pieces
 

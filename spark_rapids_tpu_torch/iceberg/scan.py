@@ -147,9 +147,8 @@ class IcebergScanNode(FileScanNode):
         if not proj:
             from spark_rapids_tpu_torch.io.common import row_carrier_table
             return row_carrier_table(int(keep.sum()))
-        from spark_rapids_tpu_torch.delta.table import take_rows
-        return take_rows(HostTable(proj, [by[n] for n in proj]),
-                         np.flatnonzero(keep))
+        return HostTable(proj, [by[n] for n in proj]).take(
+            np.flatnonzero(keep))
 
     def execute_host(self, dynamic_prunes=None, metrics=None):
         if self._empty:

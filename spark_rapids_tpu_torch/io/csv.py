@@ -52,16 +52,6 @@ _KNOWN = ("schema", "header", "delimiter", "sep", "quote", "escape",
           "columns", "reader_type")
 
 
-def take_rows(col: HostColumn, rows: np.ndarray) -> HostColumn:
-    """``col`` at ``rows``, a string column's seeded codes kept."""
-    from spark_rapids_tpu_torch.io.parquet import _subset_codes
-    out = HostColumn(col.dtype, col.data[rows], col.validity[rows])
-    enc = col._cache.get("encode")
-    if enc is not None:
-        out._cache["encode"] = _subset_codes(enc, rows)
-    return out
-
-
 class CsvScanNode(FileScanNode):
     format_name = "csv"
 
@@ -264,7 +254,7 @@ class CsvScanNode(FileScanNode):
                 drop |= bad
         if self.mode == "DROPMALFORMED" and drop.any():
             keep = np.flatnonzero(~drop)
-            cols = [take_rows(c, keep) for c in cols]
+            cols = [c.take(keep) for c in cols]
         return HostTable(host.names, cols)
 
     def _convert_custom_floats(self, c: HostColumn, dt):

@@ -262,14 +262,9 @@ class ParquetScanNode(FileScanNode):
         for nm in names:
             c = t.columns[need.index(nm)]
             if isinstance(c.data, NestedData):
-                cols.append(HostColumn(c.dtype, c.data.take(rows),
-                                       c.validity[rows]))
+                cols.append(c.take(rows))
                 continue
-            out = HostColumn(c.dtype, c.data[rows], c.validity[rows])
-            enc = c._cache.get("encode")
-            if enc is not None:
-                out._cache["encode"] = _subset_codes(enc, rows)
-            cols.append(_widen(out, want[nm]))
+            cols.append(_widen(c.take(rows), want[nm]))
         return HostTable(names, cols)
 
     def read_file(self, path: str) -> HostTable:
@@ -318,17 +313,6 @@ def _widen(col: HostColumn, want: T.DataType) -> HostColumn:
     else:
         data = col.data.astype(want.np_dtype)
     return HostColumn(want, data, col.validity)
-
-
-def _subset_codes(enc, rows: np.ndarray):
-    """A string column's seeded (codes, dictionary) restricted to ``rows``
-    (the dictionary narrowed to the codes they use)."""
-    codes, dictionary = enc
-    sub = codes[rows]
-    used = np.zeros(len(dictionary), dtype=bool)
-    used[sub] = True
-    remap = np.cumsum(used) - 1
-    return remap[sub].astype(np.int32), dictionary[used]
 
 
 def write_parquet(table: HostTable, path: str,

@@ -786,3 +786,38 @@ def test_read_only_latest_after_copy_of_reference_table(tmp_path):
     shutil.copytree(src, dst)
     same_rows(j.read(src).collect_table(), t.read(dst).collect_table())
     assert ref_form(t.read(dst).collect_table()).num_rows == 30
+
+
+@pytest.mark.parametrize("how", ["index", "mask", "table"])
+def test_take_keeps_a_string_columns_codes(how):
+    """``HostColumn.take`` (the deletion-vector mask, the Iceberg deletes,
+    MERGE's permutation, the Parquet and CSV readers) carries a string
+    column's codes: the narrowed dictionary is strictly increasing, holds
+    the taken rows' distinct strings (``np.unique``) and decodes every
+    valid row to its string."""
+    from spark_rapids_tpu_torch import types as T
+    from spark_rapids_tpu_torch.columnar import HostColumn, HostTable
+    rng = np.random.default_rng(3)
+    n = 500
+    vals = np.array([f"v{int(x):02d}" for x in rng.integers(0, 40, n)],
+                    dtype=object)
+    valid = rng.random(n) > 0.1
+    vals[~valid] = None
+    c = HostColumn(T.STRING, vals, valid)
+    c.encoded()
+    if how == "mask":
+        rows = rng.random(n) < 0.3
+    else:
+        rows = rng.permutation(n)[:120]
+        rows = np.concatenate([rows, rows[:10]])
+    got = (HostTable(["s"], [c]).take(rows).columns[0] if how == "table"
+           else c.take(rows))
+    want, want_valid = vals[rows], valid[rows]
+    assert list(got.data) == list(want)
+    assert (got.validity == want_valid).all()
+    codes, dictionary = got._cache["encode"]
+    assert len(codes) == len(want)
+    assert (dictionary[:-1] < dictionary[1:]).all()
+    live = want[want_valid]
+    assert set(dictionary) - {""} == set(np.unique(live.astype(str)))
+    assert list(dictionary[codes[want_valid]]) == list(live)
