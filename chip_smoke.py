@@ -1,7 +1,7 @@
 """Drive the PyTorch port (spark_rapids_tpu_torch) on one CUDA card.
 
     python3 chip_smoke.py [--rows N] [--sf SF] [--seed S] [--profile DIR]
-                          [--only 21|22|23|24]
+                          [--only 21|22|23|24|25]
 
 Phases, in order; any failure exits non-zero:
 
@@ -285,10 +285,27 @@ Phases, in order; any failure exits non-zero:
    and a commit to D1's table leaving the service's cached result over
    the sink. Every launch is held against its kernel's plain version
    (``HeldCalls``), every plan converts with 0 CPU-route nodes;
-25. the summary lines: one ``{"kernels": [...]}`` JSON line (the five TPU
+25. distribution (``run_distribution``): X1 the host shuffle over phase
+   15's tables, q7 (its device split off) and lineitem hash repartitioned
+   into 200 then grouped, under MULTITHREADED with lz4 and under P2P over
+   TCP loopback, each against its numpy oracle and the single-device
+   result, with the shuffle's bytes, codec, fetches, host syncs and the
+   serialization, codec and download times; X2 a LOGICAL mesh of 8 shards
+   on the one card (the log says so: no copy crosses between two cards):
+   q1, sparse q3, q7 through the all-to-all exchange and q8, cold and warm,
+   against phases 4-8's single-device results (bit for bit; q3's f64
+   revenue within rtol 1e-9), ``meshHostUploads`` 0 warm; X3 mesh chaos
+   (device_lost x3 at mesh.ici.exchange shrinks the mesh to 7, a corrupt
+   gather re-lands, the mesh restored); X4 2 executor processes scanning
+   Parquet files by host (q1, q3, q8, q12 equal to the single-process scan;
+   neither executor made a CUDA context); X5 host chaos (device_lost at
+   host.dispatch walks the host ladder; a SIGKILL mid-query, its detection
+   in ms, the respawned executor's rejoin in s); every executor reaped in a
+   finally. Every launch is held against its kernel's plain version;
+26. the summary lines: one ``{"kernels": [...]}`` JSON line (the five TPU
    kernels and the DECIMAL128 division kernel, CUDA work beyond them;
    launches of the main path: q1's, sparse q3's probes, q8's MIN/MAX, plus
-   every phase-7 to phase-24 query's), the script's time, the card line,
+   every phase-7 to phase-25 query's), the script's time, the card line,
    and last ``{"ok": true, "device": {...}}``.
 
 Each phase logs its wall time. It needs one CUDA card and exits non-zero
@@ -297,7 +314,7 @@ trace of one warm run of q1, of each q3 form, of each phase-6, phase-7
 and phase-8 query, of phase 9's conditional query, of J1, J7, J8 and J9,
 of O1, O2, O3, O4a, O5, O6a and O7, of S1, S2, S5, S7 and S8 and of W1,
 W3, W4, W7, W8a and W8c, and of N1 and N3's posexplode. ``--only 21``
-(or ``22``, ``23``, ``24``) runs phases 1-3 and then that phase over
+(or ``22``, ``23``, ``24``, ``25``) runs phases 1-3 and then that phase over
 tables it makes itself. For the time limit, phases 11-13 take one warm
 run before the counted one, 15.4 one, 16.4 none (the counted run's time
 is its warm time), and 15.3 one fresh process.
@@ -10710,6 +10727,547 @@ def run_lakehouse(table, seed: int) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 25: distribution (X1-X5)
+# ---------------------------------------------------------------------------
+
+#: phase 25's aim on the slower card hosts (seconds)
+DIST_BUDGET_S = 60.0
+DIST_PHASE = ("phase 25: distribution (X1 the host shuffle, MULTITHREADED "
+              "with lz4 and P2P over TCP loopback; X2 a logical mesh of 8 "
+              "shards on the card; X3 mesh chaos; X4 the cluster of 2 "
+              "executor processes over Parquet files; X5 host chaos and a "
+              "SIGKILL)")
+#: X1's repartition: its partitions (Spark's spark.sql.shuffle.partitions)
+X1_PARTITIONS = 200
+#: X2's logical devices, all on the one card
+MESH_SHARDS = 8
+#: X4's corpus queries over the files (q1 and three more), each with the
+#: tolerance of its f64 columns against the single-process scan: q3's and
+#: q12's sums over many groups are index_add_'s, whose bits vary from run
+#: to run on the card (ROADMAP Queue 3, item 1); everything else bitwise
+CLUSTER_QUERIES = {"q1": 0.0, "q3": 1e-9, "q8": 0.0, "q12": 1e-9}
+#: X4's files a table
+CLUSTER_FILES = 4
+
+
+def _scope(name: str) -> dict:
+    from spark_rapids_tpu_torch.obs.metrics import scopes_snapshot
+    return dict(scopes_snapshot().get(name, {}))
+
+
+def _scope_change(before: dict, after: dict) -> dict:
+    return {k: round(after[k] - before.get(k, 0), 6) for k in after
+            if after[k] != before.get(k, 0)}
+
+
+def dist_x1(ftables, foracles, res) -> None:
+    """X1: over phase 15's tables (FILES_SF), q7 (its device split off, so
+    that its 8 partitions take the host shuffle) and lineitem hash
+    repartitioned into 200 by l_orderkey then grouped by l_returnflag,
+    under MULTITHREADED with lz4 and under P2P over TCP loopback; each
+    against its numpy oracle and the single-device result (q7's device
+    split; the group-by without the repartition), bit for bit."""
+    from spark_rapids_tpu_torch import functions as F
+    from spark_rapids_tpu_torch.models.corpus import build_queries
+    from spark_rapids_tpu_torch.plan import from_host_table
+    from spark_rapids_tpu_torch.session import TorchSession
+    li = ftables["lineitem"]
+    L = host_cols(li)
+    oracle = grouped_oracle(L["l_returnflag"], {
+        "n": (np.add, np.ones(li.num_rows, dtype=np.int64)),
+        "qty": (np.add, L["l_quantity"]),
+        "max_price": (np.maximum, L["l_extendedprice"])})
+
+    def rep200(s, partitions=True):
+        df = from_host_table(li, s).select(
+            "l_orderkey", "l_quantity", "l_extendedprice", "l_returnflag")
+        if partitions:
+            df = df.repartition(X1_PARTITIONS, "l_orderkey")
+        return df.group_by("l_returnflag").agg(
+            F.count("l_quantity").alias("n"),
+            F.sum("l_quantity").alias("qty"),
+            F.max("l_extendedprice").alias("max_price"))
+    single = TorchSession()
+    want = {"q7": build_queries(single, ftables)["q7"]().collect_table(),
+            "rep200": rep200(single, False).collect_table()}
+    foracles["q7"](want["q7"])
+    check_grouped(want["rep200"], oracle, "X1 group-by (single device)")
+    modes = {
+        "MULTITHREADED lz4": {
+            "spark.rapids.shuffle.compression.codec": "lz4",
+            "spark.rapids.shuffle.localDeviceSplit.enabled": "false"},
+        "P2P tcp": {"spark.rapids.shuffle.mode": "P2P",
+                    "spark.rapids.shuffle.p2p.transport": "tcp"}}
+    for mode, conf in modes.items():
+        s = TorchSession(conf)
+        cases = {"q7": lambda: build_queries(s, ftables)["q7"](),
+                 "rep200": lambda: rep200(s)}
+        for name, build in cases.items():
+            before = _scope("shuffle")
+            requests = p2p_requests()
+            with host_sync_count() as box:
+                t0 = time.perf_counter()
+                got = build().collect_table()
+                wall = time.perf_counter() - t0
+            m, tm = s.last_metrics(), s._exec_sums()
+            if name == "q7":
+                foracles["q7"](got)
+            else:
+                check_grouped(got, oracle, f"X1 {name} ({mode})")
+            same_table(got, want[name], f"X1 {name} ({mode}) against the "
+                       "single-device result", 0.0)
+            if not m.get("shuffleMapOutputs"):
+                fail(f"X1 {name} ({mode}) did not take the host shuffle")
+            sc = _scope_change(before, _scope("shuffle"))
+            nparts = X1_PARTITIONS if name == "rep200" else 8
+            fetches = (p2p_requests() - requests if mode.startswith("P2P")
+                       else m["shuffleMapOutputs"] * nparts)
+            stats = {
+                "rows": li.num_rows, "partitions": nparts,
+                "codec": "lz4" if "lz4" in mode else "none",
+                "wall_ms": round(wall * 1e3, 2),
+                "bytes_written": m["shuffleBytesWritten"],
+                "bytes_read": m["shuffleBytesRead"],
+                "map_outputs": m["shuffleMapOutputs"],
+                "fetches": fetches,
+                "map_downloads": m["shuffleMapDownloads"],
+                "download_bytes": m["shuffleDownloadBytes"],
+                "host_syncs": box["syncs"],
+                "split_download_ms": round(tm.get("shuffleSplitTime", 0.0)
+                                           * 1e3, 2),
+                "write_ms": round(tm.get("shuffleWriteTime", 0.0) * 1e3, 2),
+                "serialize_ms": round(sc.get("serializeTime", 0.0) * 1e3, 2),
+                "pack_thread_ms": round(sc.get("packThreadTime", 0.0) * 1e3,
+                                        2),
+                "codec_thread_ms": round(sc.get("codecThreadTime", 0.0)
+                                         * 1e3, 2),
+                "read_ms": round(tm.get("shuffleReadTime", 0.0) * 1e3, 2),
+                "upload_ms": round(tm.get("shuffleUploadTime", 0.0) * 1e3,
+                                   2),
+                "coalesced": m.get("aqeCoalescedPartitions", 0)}
+            res[f"X1 {name} {mode}"] = stats
+            log(f"  X1 {name} ({mode}): equals its numpy oracle and the "
+                f"single-device result bit for bit; {json.dumps(stats)}")
+
+
+def p2p_requests() -> int:
+    """Metadata requests every P2P server of the process answered."""
+    from spark_rapids_tpu_torch.shuffle import p2p
+    return sum(e.server.requests_served for e in p2p._P2P_ENVS.values())
+
+
+def mesh_cases(s, q1_keep, q3_keep, corpus_keep, tables):
+    """{name: (builder, kept single-device result, rtol)} of X2."""
+    from spark_rapids_tpu_torch.models.corpus import build_queries
+    from spark_rapids_tpu_torch.models.tpch import q1_dataframe, q3_dataframe
+    q = build_queries(s, tables)
+    q1t, = q1_keep["tables"]
+    # q3's f64 revenue sums over its many orders are index_add_'s, whose
+    # bits vary from run to run on the card (ROADMAP Queue 3, item 1)
+    return {"TPC-H q1": (lambda: q1_dataframe(s, q1t), q1_keep, 0.0),
+            "q3 sparse": (lambda: q3_dataframe(s, *q3_keep["tables"]),
+                          q3_keep, 1e-9),
+            "q7": (q["q7"], corpus_keep["q7"], 0.0),
+            "q8": (q["q8"], corpus_keep["q8"], 0.0)}
+
+
+def dist_x2(q1_keep, q3_keep, corpus_keep, tables, res) -> dict:
+    """X2: a mesh of MESH_SHARDS logical devices on the card: q1, sparse q3
+    at the default 4 probe attempts, q7 through the all-to-all exchange
+    and q8, each cold then warm, against its oracle and the port's own
+    single-device result of phases 4-8 (bit for bit, q3's f64 revenue
+    within rtol 1e-9); meshHostUploads 0 on every warm run. Returns
+    {name: result} for X3."""
+    from spark_rapids_tpu_torch.parallel import mesh as PM
+    from spark_rapids_tpu_torch.runtime import speculation
+    from spark_rapids_tpu_torch.session import TorchSession
+    PM.declare_logical_devices(MESH_SHARDS)
+    devs = PM.logical_devices()
+    log(f"  X2: a LOGICAL mesh of {MESH_SHARDS} shards over "
+        f"{PM.physical_count(devs)} physical card(s) "
+        f"({sorted({str(d) for d in devs})}): the sharded landing, the "
+        "exchange's bucketing and order, the re-land and its checks and "
+        "the ladder run on the card, but no copy crosses between two "
+        "cards")
+    # earlier phases may have put sparse q3's probe on the sort
+    speculation.clear_blocklist()
+    s = TorchSession({"spark.rapids.mesh.enabled": "true"})
+    out = {}
+    for name, (build, keep, rtol) in mesh_cases(s, q1_keep, q3_keep,
+                                                corpus_keep, tables).items():
+        t0 = time.perf_counter()
+        cold = build().collect_table()
+        cold_ms = (time.perf_counter() - t0) * 1e3
+        mc = s.last_metrics()
+        before = _scope("mesh")
+        t0 = time.perf_counter()
+        warm = build().collect_table()
+        warm_ms = (time.perf_counter() - t0) * 1e3
+        mw = s.last_metrics()
+        mesh_w = _scope_change(before, _scope("mesh"))
+        for label, got in (("cold", cold), ("warm", warm)):
+            keep["check"](got)
+            same_table(got, keep["result"], f"X2 {name} ({label}) against "
+                       "the single-device result", rtol)
+        if mesh_w.get("meshHostUploads", 0):
+            fail(f"X2 {name}: {mesh_w['meshHostUploads']} host uploads in "
+                 "the mesh's dispatch on the warm run")
+        if not mc.get("shardsDispatched"):
+            fail(f"X2 {name}: no sharded landing")
+        if name == "q7" and not mw.get("iciExchanges"):
+            fail("X2 q7 did not take the all-to-all exchange")
+        stats = {"cold_ms": round(cold_ms, 2), "warm_ms": round(warm_ms, 2),
+                 "single_device_warm_ms": keep.get("warm_ms"),
+                 "mesh_warm": mesh_w, "shards": mc.get("shardsDispatched")}
+        res[f"X2 {name}"] = stats
+        out[name] = (warm, keep, rtol)
+        log(f"  X2 {name}: cold and warm equal the single-device result "
+            f"({'bit for bit' if not rtol else 'f64 sums rtol 1e-9'}) and "
+            f"the oracle; {json.dumps(stats)}")
+    return out
+
+
+def dist_x3(q1_keep, q3_keep, corpus_keep, tables, x2, res) -> None:
+    """X3: three device_lost faults at mesh.ici.exchange under q7 walk the
+    mesh ladder (retry, a single-device replay, then a shrink to 7
+    shards); a corrupt gather under q1 trips the re-land's check and
+    re-lands; results equal X2's; the mesh is restored to 8 at the end."""
+    from spark_rapids_tpu_torch.parallel import mesh as PM
+    from spark_rapids_tpu_torch.runtime import faults as tfaults
+    from spark_rapids_tpu_torch.runtime.health import HEALTH
+    from spark_rapids_tpu_torch.session import TorchSession
+    tfaults.FAULTS.disarm()
+    s = TorchSession({"spark.rapids.mesh.enabled": "true",
+                      "spark.rapids.test.faults":
+                          "mesh.ici.exchange:device_lost:3:15"})
+    cases = mesh_cases(s, q1_keep, q3_keep, corpus_keep, tables)
+    before = HEALTH.mesh_snapshot()
+    t0 = time.perf_counter()
+    for _ in range(2):
+        got = cases["q7"][0]().collect_table()
+        same_table(got, x2["q7"][0], "X3 q7 against X2's", 0.0)
+    snap = PM.MESH.health_snapshot()
+    ladder = HEALTH.mesh_snapshot()
+    if snap["shape"] != str(MESH_SHARDS - 1) or ladder["meshShrinks"] != \
+            before["meshShrinks"] + 1:
+        fail(f"X3: the mesh ladder did not shrink to "
+             f"{MESH_SHARDS - 1}: {snap} {ladder}")
+    if "mesh degraded" not in s.explain(cases["q7"][0]()):
+        fail("X3: explain does not name the degraded mesh")
+    lost_ms = (time.perf_counter() - t0) * 1e3
+    tfaults.FAULTS.disarm()
+    s2 = TorchSession({"spark.rapids.mesh.enabled": "true",
+                       "spark.rapids.test.faults": "mesh.gather:corrupt:1:13"})
+    b = _scope("mesh")
+    got = mesh_cases(s2, q1_keep, q3_keep, corpus_keep,
+                     tables)["TPC-H q1"][0]().collect_table()
+    d = _scope_change(b, _scope("mesh"))
+    same_table(got, x2["TPC-H q1"][0], "X3 q1 (corrupt gather) against "
+               "X2's", 0.0)
+    if d.get("gatherChecksFailed") != 1 or d.get("shardRetries") != 1:
+        fail(f"X3: the corrupt gather was not caught and re-landed: {d}")
+    tfaults.FAULTS.disarm()
+    PM.MESH.restore("X3 done")
+    s3 = TorchSession({"spark.rapids.mesh.enabled": "true"})
+    s3.placement.prepare()
+    if PM.MESH.health_snapshot()["shape"] != str(MESH_SHARDS):
+        fail("X3: the mesh was not restored")
+    res["X3"] = {"ladder": ladder, "shrunk_shape": snap["shape"],
+                 "device_lost_ms": round(lost_ms, 2), "corrupt_gather": d}
+    log(f"  X3: device_lost x3 at mesh.ici.exchange walked retry, "
+        f"single_device and a shrink to {snap['shape']} shards, q7 equal "
+        f"to X2's throughout ({lost_ms:.0f} ms); a corrupt gather tripped "
+        f"the check and re-landed ({d}); the mesh restored to "
+        f"{MESH_SHARDS}; {json.dumps(ladder)}")
+
+
+def dist_mesh_off() -> None:
+    from spark_rapids_tpu_torch.parallel import mesh as PM
+    from spark_rapids_tpu_torch.session import TorchSession
+    PM.MESH.restore("phase 25 done")
+    PM.reset_logical_devices()
+    TorchSession().placement.prepare()
+
+
+def cluster_files(ftables, base: str) -> dict:
+    """X4's files: lineitem, orders and customer of phase 15's tables, each
+    in CLUSTER_FILES Parquet files; {table: directory}."""
+    from spark_rapids_tpu_torch.models.corpus import write_corpus_files
+    return write_corpus_files({n: ftables[n] for n in (
+        "lineitem", "orders", "customer")}, base, CLUSTER_FILES)
+
+
+def ping_executor(driver, host: str) -> dict:
+    from spark_rapids_tpu_torch.runtime.cluster import _recv_msg, _send_msg
+    ch = driver._channel(host)
+    with ch.lock:
+        _send_msg(ch.sock, {"type": "ping"})
+        reply, _ = _recv_msg(ch.sock)
+    return reply
+
+
+def dist_x4_x5(ftables, foracles, base: str, res) -> None:
+    """X4: a driver and 2 executor processes (each binds nothing and
+    connects to the driver's loopback port; neither may make a CUDA
+    context); q1 and three corpus queries over Parquet files scanned by
+    host, each equal to the single-process scan of the same files bit for
+    bit and to its oracle. X5: device_lost at host.dispatch walks the host
+    ladder (retry, re-land on the survivor); then one executor is killed
+    (SIGKILL) at its dispatch in the middle of a query: the loss is
+    detected (ms), the query converges on the survivor, a respawned
+    executor rejoins (s) and the topology is back at full strength.
+    Every executor is reaped in the finally."""
+    from spark_rapids_tpu_torch.conf import RapidsConf
+    from spark_rapids_tpu_torch.models.corpus import build_queries
+    from spark_rapids_tpu_torch.runtime import faults as tfaults
+    from spark_rapids_tpu_torch.runtime.cluster import (
+        CLUSTER,
+        ClusterDriver,
+        host_scan_stats,
+        spawn_executor,
+    )
+    from spark_rapids_tpu_torch.runtime.health import HEALTH
+    from spark_rapids_tpu_torch.session import TorchSession
+    t0 = time.perf_counter()
+    paths = cluster_files(ftables, base)
+    write_s = time.perf_counter() - t0
+    hb = 200
+    cconf = {"spark.rapids.cluster.enabled": "true",
+             "spark.rapids.cluster.hosts": "2",
+             "spark.rapids.cluster.heartbeatIntervalMs": str(hb),
+             "spark.rapids.cluster.missedBeats": "150"}
+    driver = ClusterDriver(2, RapidsConf(cconf))
+    executors = {}
+    try:
+        t0 = time.perf_counter()
+        for h in ("h0", "h1"):
+            executors[h] = spawn_executor(driver.address, h, heartbeat_ms=hb)
+        driver.wait_ready(2, timeout_s=120.0)
+        spawn_s = time.perf_counter() - t0
+        CLUSTER.attach_driver(driver)
+        single = TorchSession()
+        clus = TorchSession(cconf)
+        qs = build_queries(single, ftables, paths=paths)
+        cq = build_queries(clus, ftables, paths=paths)
+        want, x4 = {}, {}
+        for name in CLUSTER_QUERIES:
+            want[name] = qs[name]().collect_table()
+            foracles[name](want[name])
+            before = _scope("cluster")
+            t1 = time.perf_counter()
+            got = cq[name]().collect_table()
+            wall = time.perf_counter() - t1
+            d = _scope_change(before, _scope("cluster"))
+            foracles[name](got)
+            same_table(got, want[name], f"X4 {name} against the "
+                       "single-process scan", CLUSTER_QUERIES[name])
+            if not d.get("hostShardsLanded"):
+                fail(f"X4 {name}: no batch came from an executor")
+            x4[name] = {"wall_ms": round(wall * 1e3, 2),
+                        "frames": d["hostShardsLanded"],
+                        "host_scans": {
+                            h: {k: v[k] for k in ("files", "bytes")}
+                            for h, v in host_scan_stats().items()}}
+        for h in ("h0", "h1"):
+            reply = ping_executor(driver, h)
+            if reply["cudaInitialized"] or reply["forbiddenModules"]:
+                fail(f"X4: executor {h} made a CUDA context or imported "
+                     f"{reply['forbiddenModules']}")
+        res["X4"] = {"files_write_s": round(write_s, 2),
+                     "spawn_s": round(spawn_s, 2), "queries": x4}
+        log(f"  X4: 2 executor processes (spawned and registered in "
+            f"{spawn_s:.1f} s; neither made a CUDA context, neither "
+            f"imported JAX, pyarrow or pandas); "
+            f"{', '.join(CLUSTER_QUERIES)} over {CLUSTER_FILES} files a "
+            f"table scanned by host equal the single-process scan (bit for "
+            f"bit; q3's and q12's f64 sums within rtol 1e-9) and their "
+            f"oracles; {json.dumps(x4)}")
+
+        # X5 (a): device_lost at the dispatch walks the host ladder
+        tfaults.FAULTS.disarm()
+        faulted = TorchSession(dict(cconf, **{
+            "spark.rapids.test.faults": "host.dispatch:device_lost:2:3"}))
+        before = HEALTH.host_snapshot()
+        got = build_queries(faulted, ftables, paths=paths)["q1"]()\
+            .collect_table()
+        tfaults.FAULTS.disarm()
+        same_table(got, want["q1"], "X5 q1 (host.dispatch device_lost) "
+                   "against the single-process scan", 0.0)
+        ladder = HEALTH.host_snapshot()
+        if ladder["hostsLost"] - before["hostsLost"] != 2:
+            fail(f"X5: the host ladder did not walk retry and reland: "
+                 f"{ladder}")
+        if not wait_for(lambda: not CLUSTER.health_snapshot()["lostHosts"],
+                        30.0):
+            fail("X5: the marked host was not restored")
+        # X5 (b): SIGKILL of h1 at its dispatch, mid-query
+        killed = {}
+        scan_host = driver.scan_host
+
+        def kill_at_dispatch(host_id, scan_node, sub):
+            if host_id == "h1" and not killed:
+                executors["h1"].proc.kill()
+                t_kill = time.perf_counter()
+                # the beat connection's EOF declares the host lost
+                if not wait_for(lambda: "h1" in CLUSTER.health_snapshot()[
+                        "lostHosts"], 30.0):
+                    fail("X5: the killed executor was not declared lost")
+                killed["ms"] = (time.perf_counter() - t_kill) * 1e3
+                executors["h1"].proc.wait(timeout=10)
+            return scan_host(host_id, scan_node, sub)
+        driver.scan_host = kill_at_dispatch
+        try:
+            got = cq["q1"]().collect_table()
+        finally:
+            driver.scan_host = scan_host
+        if "ms" not in killed:
+            fail("X5: the query never dispatched to h1")
+        detect_ms = killed["ms"]
+        same_table(got, want["q1"], "X5 q1 (SIGKILL mid-query) against the "
+                   "single-process scan", 0.0)
+        t1 = time.perf_counter()
+        executors["h1"] = spawn_executor(driver.address, "h1",
+                                         heartbeat_ms=hb)
+        if not wait_for(lambda: CLUSTER.topology_str() == "2"
+                        and not CLUSTER.health_snapshot()["lostHosts"],
+                        120.0):
+            fail("X5: the respawned executor did not rejoin")
+        rejoin_s = time.perf_counter() - t1
+        got = cq["q3"]().collect_table()
+        same_table(got, want["q3"], "X5 q3 at full strength again",
+                   CLUSTER_QUERIES["q3"])
+        if clus.last_event_record and clus.last_event_record.get(
+                "hostTopology") not in (None, "2"):
+            fail("X5: not at full strength after the rejoin")
+        res["X5"] = {"ladder": ladder, "kill_detect_ms": round(detect_ms, 2),
+                     "rejoin_s": round(rejoin_s, 2),
+                     "cluster_scope": _scope("cluster")}
+        log(f"  X5: device_lost x2 at host.dispatch walked retry and "
+            f"reland ({json.dumps(ladder)}), the host restored by the "
+            f"sweep; a SIGKILL of h1 at its dispatch was detected "
+            f"{detect_ms:.1f} ms after the kill (the query converged on h0, "
+            f"equal to the single-process scan), the respawned h1 rejoined "
+            f"in {rejoin_s:.2f} s and q3 ran at full strength")
+    finally:
+        CLUSTER.attach_driver(None)
+        driver.shutdown()
+        for h in executors.values():
+            try:
+                h.terminate()
+            except Exception:
+                pass
+        left = [h for h, e in executors.items() if e.alive()]
+        if left:
+            fail(f"phase 25: executors {left} outlived their kill")
+
+
+def wait_for(predicate, timeout_s: float) -> bool:
+    deadline = time.monotonic() + timeout_s
+    while time.monotonic() < deadline:
+        if predicate():
+            return True
+        time.sleep(0.02)
+    return predicate()
+
+
+def only_distribution_keep(rows: int, sf: float, seed: int) -> dict:
+    """``--only 25``: phase 25's inputs made here, as phases 4-8 keep them
+    in a full run (the tables, and each X2 query's single-device result
+    and oracle check)."""
+    from spark_rapids_tpu_torch.models.corpus import (
+        build_queries,
+        corpus_tables,
+    )
+    from spark_rapids_tpu_torch.models.tpch import (
+        lineitem_table,
+        q1_dataframe,
+        q3_dataframe,
+        q3_tables,
+    )
+    from spark_rapids_tpu_torch.session import TorchSession
+    t0 = time.perf_counter()
+    s = TorchSession()
+    tables = corpus_tables(sf, seed)
+    li = lineitem_table(rows, seed=0)
+    o1 = q1_oracle(li)
+    sparse = tuple(sparse_form(t) for t in q3_tables(rows, seed=0))
+    o3 = q3_oracle(*sparse)
+    q = build_queries(s, tables)
+    keep = {
+        "tables": tables,
+        "TPC-H q1": {"tables": (li,),
+                     "result": q1_dataframe(s, li).collect_table(),
+                     "check": lambda g: check_q1_result(g, o1)},
+        "q3 sparse": {"tables": sparse,
+                      "result": q3_dataframe(s, *sparse).collect_table(),
+                      "check": lambda g: check_q3_result(g, o3, "q3 sparse")},
+        "q7": {"result": q["q7"]().collect_table(),
+               "check": window_oracles(tables)["q7"]},
+        "q8": {"result": q["q8"]().collect_table(),
+               "check": corpus_cases(s, tables, sparse_custkey(
+                   tables["orders"]))["q8"][1]}}
+    log(f"  phase 25's tables and single-device results made in "
+        f"{time.perf_counter() - t0:.1f} s")
+    return keep
+
+
+def run_distribution(q1_keep, q3_keep, corpus_keep, tables, seed) -> dict:
+    """Phase 25 (X1-X5): returns the phase's launches, every one held
+    against its kernel's plain version."""
+    from spark_rapids_tpu_torch import kernels as K
+    t_phase = time.perf_counter()
+    card = card_line()
+    ftables = file_corpus(seed)["tables"]
+    foracles = file_oracles(ftables)
+    base = tempfile.mkdtemp(prefix="srt-dist-")
+    converted = CPU_ROUTE["converted"]
+    res, parts = {}, {}
+    K.reset_launch_counts()
+    K.calls = held = HeldCalls()
+    try:
+        t0 = time.perf_counter()
+        dist_x1(ftables, foracles, res)
+        parts["X1"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        try:
+            x2 = dist_x2(q1_keep, q3_keep, corpus_keep, tables, res)
+            parts["X2"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            dist_x3(q1_keep, q3_keep, corpus_keep, tables, x2, res)
+            parts["X3"] = time.perf_counter() - t0
+        finally:
+            dist_mesh_off()
+        t0 = time.perf_counter()
+        dist_x4_x5(ftables, foracles, base, res)
+        parts["X4+X5"] = time.perf_counter() - t0
+    finally:
+        K.calls = None
+        shutil.rmtree(base, ignore_errors=True)
+    launches = K.launch_counts()
+    if held.bad:
+        fail(f"phase 25: launches disagree with their plain versions: "
+             f"{held.bad[:8]}")
+    for name in ("onehot_partials", "gather_compact", "sort_with_payload",
+                 "fused_minmax", "probe_rowids"):
+        if launches[name] < 1:
+            fail(f"phase 25 did not launch {name}")
+    took = time.perf_counter() - t_phase
+    log(f"  phase 25: every launch held against its plain version "
+        f"({dict(held.held)}); {CPU_ROUTE['converted'] - converted} plans "
+        f"converted with 0 CPU-route nodes; parts "
+        f"{ {k: round(v, 1) for k, v in parts.items()} } s")
+    summary = {"card": card, "seconds": round(took, 1),
+               "parts_s": {k: round(v, 2) for k, v in parts.items()},
+               "launches": {k: v for k, v in launches.items() if v},
+               "cells": res}
+    if took > DIST_BUDGET_S:
+        log(f"  phase 25 took {took:.1f} s, past its {DIST_BUDGET_S:.0f} s "
+            "aim")
+    log("  phase-25 summary: " + json.dumps(summary, default=str))
+    return launches
+
+
 def corpus_checks(tables) -> dict:
     """{corpus query: oracle check} of all 22 (phases 6-8's oracles)."""
     from spark_rapids_tpu_torch.session import TorchSession
@@ -10734,7 +11292,7 @@ def main(argv=None) -> int:
                     help="directory for torch.profiler tables and traces of "
                          "one warm run of q1, of each q3 form and of each "
                          "phase-6 query")
-    ap.add_argument("--only", type=int, choices=(21, 22, 23, 24),
+    ap.add_argument("--only", type=int, choices=(21, 22, 23, 24, 25),
                     default=None,
                     help="run phases 1-3 and this phase only (its tables "
                          "made here); a full run is the default")
@@ -10861,6 +11419,17 @@ def main(argv=None) -> int:
         for k, v in run_lakehouse(table, args.seed).items():
             launches[k] = launches.get(k, 0) + v
         log(f"  phase 24 ran {time.perf_counter() - t_phase:.1f} s")
+        return summary_phase(rows, launches, t_start)
+    if args.only == 25:
+        launches = {r["name"]: 0 for r in rows}
+        keep = only_distribution_keep(args.rows, args.sf, args.seed)
+        t_phase = time.perf_counter()
+        log(DIST_PHASE)
+        for k, v in run_distribution(keep["TPC-H q1"], keep["q3 sparse"],
+                                     keep, keep["tables"],
+                                     args.seed).items():
+            launches[k] = launches.get(k, 0) + v
+        log(f"  phase 25 ran {time.perf_counter() - t_phase:.1f} s")
         return summary_phase(rows, launches, t_start)
 
     #: what phases 4-8 keep of each DSL form for phase 9's SQL forms
@@ -11000,6 +11569,8 @@ def main(argv=None) -> int:
     svc_checks = {q: dsl[q]["check"] for q in CORPUS}
     svc_checks["TPC-H q1"] = q1_keep["check"]
     svc_checks["TPC-H q3"] = dsl["q3 sparse"]["check"]
+    # phase 25's mesh holds these against the single-device results
+    dist_keep = {k: dsl[k] for k in ("q3 sparse", "q7", "q8")}
     del dsl
     log(f"  phase 19 ran {time.perf_counter() - t_phase:.1f} s")
 
@@ -11049,11 +11620,18 @@ def main(argv=None) -> int:
     for k, v in run_lakehouse(q1_keep["tables"][0], args.seed).items():
         launches[k] = launches.get(k, 0) + v
     log(f"  phase 24 ran {time.perf_counter() - t_phase:.1f} s")
+
+    t_phase = time.perf_counter()
+    log(DIST_PHASE)
+    for k, v in run_distribution(q1_keep, dist_keep["q3 sparse"], dist_keep,
+                                 tables, args.seed).items():
+        launches[k] = launches.get(k, 0) + v
+    log(f"  phase 25 ran {time.perf_counter() - t_phase:.1f} s")
     return summary_phase(rows, launches, t_start)
 
 
 def summary_phase(rows, launches, t_start: float) -> int:
-    log("phase 25: summary")
+    log("phase 26: summary")
     log("  dec128_divide is CUDA work beyond the five TPU kernels: the "
         "reference divides DECIMAL128 values on its host")
     for r in rows:

@@ -463,8 +463,7 @@ SERVICE_DEGRADE_ON_HOST_LOSS = _conf(
     "spark.rapids.service.degrade.onHostLoss", True,
     "While the cluster runtime serves below its declared host strength, "
     "the service reports DEGRADED and sheds its lowest-weight pool under "
-    "load. The port runs no cluster (ROADMAP item 11), so this never "
-    "trips; the key is kept with the reference's default.", _to_bool)
+    "load (runtime/cluster.py's host topology).", _to_bool)
 
 SERVICE_DEGRADE_MEMORY_FRACTION = _conf(
     "spark.rapids.service.degrade.memoryOccupancyFraction", 0.0,
@@ -644,6 +643,168 @@ STREAMING_MV_MAX_TOUCHED_GROUPS = _conf(
     "spark.rapids.streaming.mv.maxTouchedGroups", 64,
     "Re-aggregation bound: a refresh whose CDF delta touches more "
     "distinct group keys than this falls back to a full recompute.", int)
+
+# -- distribution: the host shuffle, the device mesh and the cluster --------
+# (shuffle/, parallel/, runtime/cluster.py; keys and defaults are the
+# reference's)
+
+SHUFFLE_MANAGER_MODE = _conf(
+    "spark.rapids.shuffle.mode", "MULTITHREADED",
+    "MULTITHREADED (threaded host serialization over local shuffle files), "
+    "ICI (the all-to-all exchange over the device mesh when every "
+    "partition maps onto one mesh device), or P2P (cached map output "
+    "served to peers through the bounce-buffer transport).", str)
+
+SHUFFLE_LOCAL_DEVICE_SPLIT = _conf(
+    "spark.rapids.shuffle.localDeviceSplit.enabled", True,
+    "Single-process repartitions of at most 32 partitions split ON DEVICE "
+    "into per-partition masked views instead of serializing through the "
+    "shuffle manager (MULTITHREADED mode only). Disable to force the "
+    "file-backed shuffle.", _to_bool)
+
+MASKED_BATCHES_ENABLED = _conf(
+    "spark.rapids.tpu.maskedBatches.enabled", True,
+    "Masked batches (a liveness mask over shared buffers). The port reads "
+    "it at the shuffle exchange only: false takes the host shuffle where "
+    "the device split's masked views would run.", _to_bool)
+
+P2P_TRANSPORT = _conf(
+    "spark.rapids.shuffle.p2p.transport", "inprocess",
+    "P2P shuffle wire: tcp (length-prefixed frames over loopback or "
+    "network sockets) or inprocess (direct calls).", str)
+
+P2P_BOUNCE_BUFFER_SIZE = _conf(
+    "spark.rapids.shuffle.p2p.bounceBufferSize", 4 << 20,
+    "Bytes per bounce buffer; also the transfer window size.", int)
+
+P2P_BOUNCE_BUFFERS = _conf(
+    "spark.rapids.shuffle.p2p.bounceBuffers", 4,
+    "Bounce buffers per pool (bounds in-flight transfer memory).", int)
+
+P2P_CACHE_LIMIT = _conf(
+    "spark.rapids.shuffle.p2p.cacheLimitBytes", 1 << 30,
+    "Host bytes of cached shuffle blocks before spilling to disk.", int)
+
+SHUFFLE_MT_WRITER_THREADS = _conf(
+    "spark.rapids.shuffle.multiThreaded.writer.threads", 8,
+    "Thread pool size for multithreaded shuffle writes.", int)
+
+SHUFFLE_MT_READER_THREADS = _conf(
+    "spark.rapids.shuffle.multiThreaded.reader.threads", 8,
+    "Thread pool size for multithreaded shuffle reads.", int)
+
+SHUFFLE_COMPRESSION_CODEC = _conf(
+    "spark.rapids.shuffle.compression.codec", "none",
+    "Codec for serialized shuffle batches: none, zlib, lz4 or zstd (both "
+    "through the port's host library, native/lz4_host.cpp and "
+    "native/zstd_host.cpp).", str)
+
+SHUFFLE_FETCH_MAX_RETRIES = _conf(
+    "spark.rapids.shuffle.fetch.maxRetries", 3,
+    "Retries per shuffle block fetch before the map output is declared "
+    "lost and recomputed from the retained plan.", int)
+
+SHUFFLE_FETCH_RETRY_WAIT_MS = _conf(
+    "spark.rapids.shuffle.fetch.retryWaitMs", 50,
+    "Initial backoff between shuffle fetch retries, in milliseconds.", int)
+
+SHUFFLE_FETCH_BACKOFF_MULT = _conf(
+    "spark.rapids.shuffle.fetch.backoffMultiplier", 2.0,
+    "Multiplier applied to the fetch retry wait after each failed "
+    "attempt.", float)
+
+SHUFFLE_CONNECT_TIMEOUT_MS = _conf(
+    "spark.rapids.shuffle.fetch.connectTimeoutMs", 30000,
+    "Timeout for a transport connection to a shuffle peer; a timed-out "
+    "connect is a retryable fetch failure.", int)
+
+SHUFFLE_BOUNCE_ACQUIRE_TIMEOUT_MS = _conf(
+    "spark.rapids.shuffle.p2p.bounceAcquireTimeoutMs", 60000,
+    "Timeout waiting for a free bounce buffer; expiry raises a retryable "
+    "ShuffleFetchError.", int)
+
+HEARTBEAT_INTERVAL_S = _conf(
+    "spark.rapids.shuffle.heartbeat.intervalSeconds", 5.0,
+    "Executor -> driver shuffle heartbeat period (peer discovery).", float)
+
+AQE_SKEW_FACTOR = _conf(
+    "spark.rapids.sql.adaptive.skewJoin.skewedPartitionFactor", 4.0,
+    "A reduce partition whose measured map-output bytes exceed this "
+    "multiple of the median is counted skewed (skewedPartitions).", float)
+
+AQE_COALESCE_PARTITIONS = _conf(
+    "spark.rapids.sql.adaptive.coalescePartitions.enabled", True,
+    "Adjacent undersized reduce partitions of the host shuffle share "
+    "output batches at read time, from the measured map-output sizes.",
+    _to_bool)
+
+MESH_ENABLED = _conf(
+    "spark.rapids.mesh.enabled", False,
+    "Mesh-native execution: scans land their rows as shards over the "
+    "mesh's logical devices (parallel/mesh.py), filters and projections "
+    "run shard by shard, a hash exchange whose partitions fit the mesh "
+    "runs the all-to-all exchange, and every other consumer re-lands its "
+    "input onto the session's device first (execs/mesh.py).", _to_bool)
+
+MESH_SHAPE = _conf(
+    "spark.rapids.mesh.shape", "",
+    "Mesh topology: '' (every logical device on one axis), 'N', or 'DxI' "
+    "(a dcn x ici grid, exchanged over as one flat axis). At most the "
+    "declared logical device count (parallel/mesh.py "
+    "declare_logical_devices).", str)
+
+MESH_AXIS = _conf(
+    "spark.rapids.mesh.axis", "data",
+    "Name of the row axis of a 1-D mesh (a 'DxI' shape names its axes "
+    "('dcn', 'ici')).", str)
+
+MESH_MAX_SHARD_RETRIES = _conf(
+    "spark.rapids.mesh.maxShardRetries", 2,
+    "Re-gathers a mesh gather boundary may pay after a failed row-count "
+    "and checksum check before raising MeshGatherError.", int)
+
+MESH_DEGRADE_MAX_SHRINKS = _conf(
+    "spark.rapids.mesh.degrade.maxShrinks", 2,
+    "Mesh shrinks onto the surviving logical devices the mesh ladder may "
+    "take after repeated partial device losses before the device-loss "
+    "ladder.", int)
+
+MESH_GATHER_VERIFY = _conf(
+    "spark.rapids.mesh.gather.verify", True,
+    "Row-count and checksum check at the mesh's gather boundaries (the "
+    "re-land and the exchange's count read); a mismatch re-gathers from "
+    "the intact source.", _to_bool)
+
+CLUSTER_ENABLED = _conf(
+    "spark.rapids.cluster.enabled", False,
+    "Multi-process cluster execution: file scans partition their files BY "
+    "HOST and dispatch each host's files to its executor process "
+    "(runtime/cluster.py), landing the returned batches in path order. "
+    "Needs an attached ClusterDriver with live executors.", _to_bool)
+
+CLUSTER_NUM_HOSTS = _conf(
+    "spark.rapids.cluster.hosts", 0,
+    "Declared executor-host count; 0 takes the attached driver's expected "
+    "hosts.", int)
+
+CLUSTER_HEARTBEAT_MS = _conf(
+    "spark.rapids.cluster.heartbeatIntervalMs", 250,
+    "Executor heartbeat period against the driver's ledger.", int)
+
+CLUSTER_MISSED_BEATS = _conf(
+    "spark.rapids.cluster.missedBeats", 3,
+    "Heartbeat intervals an executor may miss before the driver's sweep "
+    "declares its host lost.", int)
+
+CLUSTER_MAX_HOST_LOSSES = _conf(
+    "spark.rapids.cluster.maxHostLosses", 2,
+    "Topology shrinks the host ladder may take before latching "
+    "single-process execution.", int)
+
+CLUSTER_DISPATCH_TIMEOUT_MS = _conf(
+    "spark.rapids.cluster.dispatchTimeoutMs", 30000,
+    "Socket timeout of one driver -> executor round trip; a timeout is a "
+    "host loss.", int)
 
 #: the per-operator kill switches' key prefixes by kind (the reference
 #: registers one key per rule)

@@ -62,13 +62,36 @@ class SpillCorruptionError(KernelCrashError):
 
 
 class ShuffleFetchError(ColumnarProcessingError):
-    """A block fetch failed in a retryable way (an injected ``fetch``
-    fault)."""
+    """A shuffle block fetch failed in a retryable way (a peer's error
+    frame, a short transfer, an exhausted bounce pool, an injected
+    ``fetch`` fault): the fetch-retry loop replays it with backoff before
+    the map output is declared lost."""
 
 
 class ShuffleTransportError(ShuffleFetchError):
-    """The transport connection itself failed (an injected
-    ``disconnect`` fault)."""
+    """The transport connection itself failed (a socket error, a peer's
+    disconnect, an injected ``disconnect`` fault); the connection is
+    evicted so that the retry reconnects."""
+
+
+class CorruptFrameError(ShuffleFetchError):
+    """A serialized frame failed its integrity checks (bad TPAK magic or
+    version, a CRC mismatch, a truncated buffer). Retryable: its source
+    (the catalog's blob, the shuffle file, the upstream lineage) is
+    intact."""
+
+
+class MapOutputLostError(RapidsTpuError):
+    """A shuffle map output is unreachable: a fetch exhausted its retries
+    or its peer was evicted. Carries ``executor_id`` (the lost peer, ''
+    when local) and ``map_ids`` (None: unknown, recompute every map). The
+    exchange recomputes the missing maps from the retained plan."""
+
+    def __init__(self, message: str, executor_id: str = "",
+                 map_ids=None):
+        super().__init__(message)
+        self.executor_id = executor_id
+        self.map_ids = None if map_ids is None else sorted(set(map_ids))
 
 
 class DeviceLostError(RapidsTpuError):
@@ -79,6 +102,41 @@ class DeviceLostError(RapidsTpuError):
     crash report, dropped the device caches and probed the context: the
     next query runs on the card, or, once the process latched, raises
     this again naming the latch."""
+
+
+class MeshDeviceLostError(DeviceLostError):
+    """A PARTIAL device loss: one logical device of the mesh died while the
+    process's device as a whole is alive (an injected ``device_lost`` at a
+    ``mesh.*`` point). Recovery walks the mesh ladder
+    (runtime/health.py ``on_mesh_device_loss``: retry, a single-device
+    replay, a shrink excluding the device, then the device-loss ladder).
+    ``device_id`` is the logical id when known (None: the ladder excludes
+    the mesh's last device)."""
+
+    def __init__(self, message: str, device_id=None):
+        super().__init__(message)
+        self.device_id = device_id
+
+
+class HostLostError(DeviceLostError):
+    """A whole executor process of the cluster died or went unreachable (a
+    dead dispatch socket, a missed-heartbeat eviction, an injected
+    ``device_lost`` at a ``host.*`` point). Recovery walks the host ladder
+    (runtime/health.py ``on_host_loss``: retry, re-land on the survivors,
+    shrink, single process, then the device-loss ladder). ``host_id`` is
+    the host when known (None: the ladder marks the last usable one)."""
+
+    def __init__(self, message: str, host_id=None):
+        super().__init__(message)
+        self.host_id = host_id
+
+
+class MeshGatherError(KernelCrashError):
+    """The row-count and checksum check at a mesh gather boundary (the
+    re-land, or the exchange's count read) kept failing past
+    ``spark.rapids.mesh.maxShardRetries`` re-gathers. A KernelCrashError
+    on purpose: the sharded source is intact, so a query replay re-lands
+    it rather than serving wrong rows."""
 
 
 class WorkerLostError(RapidsTpuError):

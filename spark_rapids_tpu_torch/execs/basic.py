@@ -59,12 +59,25 @@ class TpuScanExec(TpuExec):
         return [schema[i] for i in self.columns]
 
     def execute(self):
+        from spark_rapids_tpu_torch.parallel.mesh import (
+            land_shards,
+            scan_mesh,
+        )
         from spark_rapids_tpu_torch.runtime.memory import scan_chunks
         from spark_rapids_tpu_torch.runtime.retry import retry_block
+        mesh, gen = scan_mesh(self)
         for b in self.batches:
             view = HostTable([b.names[i] for i in self.columns],
                              [b.columns[i] for i in self.columns])
             chunks = scan_chunks(view)
+            if mesh is not None:
+                # mesh-native: each batch (or chunk) lands as row shards
+                # over the mesh's logical devices
+                for ch in chunks:
+                    yield retry_block(lambda c=ch: land_shards(
+                        self, c, mesh, gen, self.bucket_policy,
+                        cached=len(chunks) == 1))
+                continue
             if len(chunks) > 1:
                 for ch in chunks:
                     yield retry_block(
@@ -136,6 +149,11 @@ class TpuFileScanExec(TpuExec):
 
         from spark_rapids_tpu_torch.runtime.memory import scan_chunks
         from spark_rapids_tpu_torch.runtime.retry import retry_block
+        from spark_rapids_tpu_torch.parallel.mesh import (
+            land_shards,
+            scan_mesh,
+        )
+        mesh, gen = scan_mesh(self)
         pruned0 = getattr(self.scan_node, "pruned_row_groups", 0)
         batches = self.scan_node.execute_host(
             dynamic_prunes=self._dynamic_prunes or None,
@@ -153,7 +171,11 @@ class TpuFileScanExec(TpuExec):
             while chunks:
                 ch = chunks.pop(0)
                 t0 = time.perf_counter()
-                out = [retry_block(lambda c=ch: self._land(c))]
+                if mesh is not None:
+                    out = [retry_block(lambda c=ch: land_shards(
+                        self, c, mesh, gen, self.bucket_policy, False))]
+                else:
+                    out = [retry_block(lambda c=ch: self._land(c))]
                 self.add_metric("scanUploadTime", time.perf_counter() - t0)
                 self.add_metric("scanBatches", 1)
                 self.add_metric("scanRows", ch.num_rows)
@@ -236,8 +258,24 @@ class TpuProjectExec(TpuExec):
                                dt.device, live=dt.live)
 
         for dt in self.children[0].execute_masked():
-            yield from with_retry(dt, run)
+            if is_sharded(dt):
+                yield map_shards(dt, run)
+            else:
+                yield from with_retry(dt, run)
             del dt
+
+
+def is_sharded(batch) -> bool:
+    """A mesh-native scan's batch (parallel/mesh.py ShardedTable)?"""
+    return type(batch).__name__ == "ShardedTable"
+
+
+def map_shards(batch, fn):
+    """``fn`` over each shard of a ShardedTable, in the OOM retry loop:
+    the narrow operators run shard by shard (each shard on its logical
+    device), which leaves every row where it is."""
+    from spark_rapids_tpu_torch.runtime.retry import retry_block
+    return retry_block(lambda: batch.map(fn))
 
 
 class TpuFilterExec(TpuExec):
@@ -256,8 +294,12 @@ class TpuFilterExec(TpuExec):
     def execute_masked(self):
         from spark_rapids_tpu_torch.runtime.retry import with_retry
         for table in self.children[0].execute_masked():
-            yield from with_retry(
-                table, lambda t: filter_table(t, self.condition))
+            if is_sharded(table):
+                yield map_shards(
+                    table, lambda t: filter_table(t, self.condition))
+            else:
+                yield from with_retry(
+                    table, lambda t: filter_table(t, self.condition))
             del table
 
 

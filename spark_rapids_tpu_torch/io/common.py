@@ -16,9 +16,11 @@ Hive-style ``key=value`` directory components come back as partition
 columns with their types inferred (long, then double, then string).
 
 Dynamic partition pruning (``_effective_paths``) drops the files whose
-partition value a broadcast join's build side cannot match. Not ported:
-the reference's multi-host cluster route (ROADMAP item 11); the scan
-takes the local modes.
+partition value a broadcast join's build side cannot match. With an
+active cluster (runtime/cluster.py) a Parquet scan partitions its files
+BY HOST and each executor process decodes its own, shipping one batch a
+file back in path order; a format the executors cannot rebuild, or
+hive-partitioned paths, scan locally (``clusterScanFallbacks``).
 """
 
 from __future__ import annotations
@@ -378,6 +380,12 @@ class FileScanNode(PlanNode):
                 empty_host_table,
             )
             return iter([empty_host_table(self.output_schema())])
+        # the cluster route: each executor decodes its host's files and
+        # ships the batches back, one a file, in path order
+        from spark_rapids_tpu_torch.runtime.cluster import CLUSTER
+        routed = CLUSTER.scan_route(self, paths)
+        if routed is not None:
+            return routed
         mode = self.reader_type
         if mode == ReaderMode.AUTO:
             mode = (ReaderMode.MULTITHREADED if len(paths) > 1
@@ -398,8 +406,8 @@ class FileScanNode(PlanNode):
 
     def execute_cpu(self) -> Iterator[HostTable]:
         """The scan on the CPU route: the decoded host batches (the
-        reference's ``FileScanNode.execute_cpu``, less its cluster
-        routing)."""
+        reference's ``FileScanNode.execute_cpu``), through the cluster
+        when one is active."""
         return self.execute_host()
 
     def _cache_key_extra(self) -> tuple:

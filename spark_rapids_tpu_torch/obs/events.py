@@ -29,14 +29,15 @@ streaming subsystem staged on the thread between envelopes
 (``TorchSession.stage_stream_delta``), and ``mvEpoch`` is the serving
 materialized view's epoch (null otherwise), as the reference writes them.
 
-Fields of subsystems the port lacks are written as the reference writes
-them while that subsystem is idle (ROADMAP Queue 3's deviations):
-
-* the mesh (item 11): ``meshShape`` null, ``iciBytes``, ``shardSkew``,
-  ``meshDegradations``, ``shardRetries``, ``gatherChecksFailed`` 0;
-* the cluster (item 11): ``hostTopology`` null, ``hostsLost``,
-  ``hostRelands``, ``dcnExchanges`` 0, ``hostScans`` {};
-* the padding waste: ``padWasteRows`` 0 (dispatch.py).
+The mesh's fields (record v7): ``meshShape`` (the active mesh, null when
+off), ``iciBytes``, ``shardRetries``, ``gatherChecksFailed`` (the ``mesh``
+scope's change), ``meshDegradations`` (the ``health`` scope's) and
+``shardSkew`` (over the query's mesh exchanges, the largest
+max/median of the per-partition bytes). The cluster's (record v8):
+``hostTopology`` (null when off), ``hostsLost``, ``hostRelands``,
+``dcnExchanges`` (the ``cluster`` scope's change) and ``hostScans`` (the
+per-host scan attribution of runtime/cluster.py). ``padWasteRows`` is 0
+(dispatch.py: the port pads nothing for a compiler).
 
 ``fallbacks`` lists every node the overrides' tags sent to the CPU route
 with its reasons (``collect_fallbacks``). ``dispatches`` counts the
@@ -173,14 +174,28 @@ def build_query_record(*, query_index: int, wall_s: float,
                        mv_full_recomputes: int = 0,
                        sink_commits: int = 0,
                        sink_replays: int = 0,
-                       mv_epoch: Optional[int] = None) -> dict:
+                       mv_epoch: Optional[int] = None,
+                       mesh_shape: Optional[str] = None,
+                       ici_bytes: int = 0,
+                       mesh_degradations: int = 0,
+                       shard_retries: int = 0,
+                       gather_checks_failed: int = 0,
+                       host_topology: Optional[str] = None,
+                       hosts_lost: int = 0,
+                       host_relands: int = 0,
+                       dcn_exchanges: int = 0,
+                       host_scans: Optional[dict] = None) -> dict:
     """Assemble one event-log record: every field JSON-native, in the
-    reference's schema 11, the fields of the subsystems the port lacks at
-    their idle values (the module's docstring). The shape test
+    reference's schema 11 (the module's docstring). The shape test
     (tests/test_torch_observability.py) holds it to the reference's
     golden record. ``service`` is the query service's envelope (None
     outside the service)."""
     service = service or {}
+    shard_skew = 0.0
+    for e in collect_exchanges(executable):
+        if "iciBytes" in e and e.get("mapOutputBytesMedian"):
+            shard_skew = max(shard_skew, e["mapOutputBytesMax"]
+                             / max(e["mapOutputBytesMedian"], 1))
     return {
         "schema": EVENT_SCHEMA_VERSION,
         "event": "queryCompleted",
@@ -204,17 +219,17 @@ def build_query_record(*, query_index: int, wall_s: float,
         "filesWritten": int(files_written),
         "bytesWritten": int(bytes_written),
         "commitRetries": int(commit_retries),
-        "meshShape": None,
-        "iciBytes": 0,
-        "shardSkew": 0.0,
-        "meshDegradations": 0,
-        "shardRetries": 0,
-        "gatherChecksFailed": 0,
-        "hostTopology": None,
-        "hostsLost": 0,
-        "hostRelands": 0,
-        "dcnExchanges": 0,
-        "hostScans": {},
+        "meshShape": mesh_shape,
+        "iciBytes": int(ici_bytes),
+        "shardSkew": round(float(shard_skew), 4),
+        "meshDegradations": int(mesh_degradations),
+        "shardRetries": int(shard_retries),
+        "gatherChecksFailed": int(gather_checks_failed),
+        "hostTopology": host_topology,
+        "hostsLost": int(hosts_lost),
+        "hostRelands": int(host_relands),
+        "dcnExchanges": int(dcn_exchanges),
+        "hostScans": dict(host_scans or {}),
         "oomRetries": int(oom_retries),
         "splitRetries": int(split_retries),
         "spillBytes": int(spill_bytes),

@@ -22,7 +22,9 @@ that loads in Perfetto beside the profiler's trace.
   batched read, and the session calls it only when the event log or
   tracing is on, so a query with both off gains no host sync.
 
-Not ported: ``add_remote_spans`` (executor hosts' spans, item 11).
+* :meth:`SpanTracer.add_remote_spans`: span summaries a cluster executor
+  ships back with its scan (runtime/cluster.py) merge into the query's
+  trace on one ``executor-<host>`` lane a host.
 """
 
 from __future__ import annotations
@@ -269,6 +271,50 @@ class SpanTracer:
         if not self.enabled:
             return _NOOP
         return _LiveSpan(self, self.begin(name, cat, **args))
+
+    def add_remote_spans(self, source: str, payload, anchor_t0: float,
+                         cap: int = 256) -> int:
+        """Merge span summaries shipped back by a cluster EXECUTOR into
+        this thread's active query context (runtime/cluster.py scan
+        replies). Each payload entry is ``{name, cat, t0, dur[, args]}``
+        with ``t0`` relative to the executor's scan start; spans land on
+        a synthetic per-source thread row (``executor-<host>``) so the
+        Chrome trace shows one lane per executor host next to the
+        driver's lanes. The executor clock is a DIFFERENT perf_counter
+        domain — ``anchor_t0`` (the driver's dispatch-send time) anchors
+        the remote window, so remote spans are positioned relative to
+        the dispatch, exact in duration, approximate in offset by the
+        one-way wire latency. Returns the number of spans merged."""
+        if not self.enabled or not payload:
+            return 0
+        ctx = self._ctx()
+        if ctx is None:
+            return 0
+        # stable synthetic tid per source, far above real thread idents'
+        # typical range and deterministic across runs of one process
+        tid = 0x52000000 + (hash(str(source)) & 0xFFFFF)
+        tname = f"executor-{source}"
+        merged = 0
+        with self._lock:
+            if ctx.closed:
+                return 0
+            for p in payload[:max(0, int(cap))]:
+                if len(ctx.spans) >= _MAX_SPANS:
+                    ctx.dropped += 1
+                    continue
+                try:
+                    t0 = anchor_t0 + float(p["t0"])
+                    dur = max(0.0, float(p["dur"]))
+                    name = str(p["name"])
+                except (KeyError, TypeError, ValueError):
+                    continue  # a malformed entry degrades the trace only
+                self._next_id += 1
+                sp = Span(self._next_id, name, str(p.get("cat", "remote")),
+                          t0, tid, tname, None, p.get("args") or None, ctx)
+                sp.t1 = t0 + dur
+                ctx.spans.append(sp)
+                merged += 1
+        return merged
 
 
 TRACER = SpanTracer()

@@ -28,10 +28,10 @@ half of observability:
   best-effort: an unwritable directory never masks the recovery it
   documents.
 
-As the reference writes them with the mesh and the cluster off (ROADMAP
-item 11): ``meshShape`` and ``hostTopology`` are null, and the bundle's
-``mesh``, ``cluster`` and ladder sections hold their idle values. The
-port has no kernel demotion (a hand-written kernel fails, never gives way
+A sample's ``meshShape`` and ``hostTopology`` and the bundle's ``mesh``,
+``cluster``, ``meshLadder`` and ``hostLadder`` sections are the mesh's and
+the cluster's (parallel/mesh.py, runtime/cluster.py): null and idle while
+they are off. The port has no kernel demotion (a hand-written kernel fails, never gives way
 to another route), so the bundle's ``demotions`` hold only the circuit
 breaker's (``_kernel_demotions`` gives ``{}``).
 """
@@ -150,6 +150,8 @@ class TelemetryRing:
         the health view. Every read is a bounded host-side snapshot; no
         device call, no query-path lock."""
         try:
+            from spark_rapids_tpu_torch.parallel.mesh import MESH
+            from spark_rapids_tpu_torch.runtime.cluster import CLUSTER
             from spark_rapids_tpu_torch.runtime.faults import FAULTS
             from spark_rapids_tpu_torch.runtime.health import HEALTH
             from spark_rapids_tpu_torch.runtime.memory import MEMORY
@@ -159,8 +161,8 @@ class TelemetryRing:
                 "t": round(time.time(), 3),
                 "deltas": _scope_delta(self._prev_scopes, snap),
                 "health": HEALTH.state(),
-                "meshShape": None,
-                "hostTopology": None,
+                "meshShape": MESH.shape_str(),
+                "hostTopology": CLUSTER.topology_str(),
                 "faultFires": sum(FAULTS.counters().values()),
                 "memOccupancy": mem["occupancyBytes"],
                 "memBudget": mem["budgetBytes"],
@@ -329,14 +331,9 @@ def build_bundle(kind: str, action: str, reason: str, seq: int,
         FAULTS,
         RECOVERY,
     )
-    from spark_rapids_tpu_torch.runtime.health import (
-        HEALTH,
-        IDLE_HOST_LADDER,
-        IDLE_HOSTS,
-        IDLE_MESH,
-        IDLE_MESH_LADDER,
-        QUARANTINE,
-    )
+    from spark_rapids_tpu_torch.parallel.mesh import MESH
+    from spark_rapids_tpu_torch.runtime.cluster import CLUSTER
+    from spark_rapids_tpu_torch.runtime.health import HEALTH, QUARANTINE
     reason = str(reason)
     m = _FAULT_POINT_RE.search(reason)
     snap = HEALTH.snapshot()
@@ -356,14 +353,14 @@ def build_bundle(kind: str, action: str, reason: str, seq: int,
             "cpuOnlyReason": HEALTH.cpu_only_reason(),
             "backend": {k: snap[k] for k in (
                 "deviceLost", "deviceReinits", "consecutiveLosses")},
-            "meshLadder": dict(IDLE_MESH_LADDER),
-            "hostLadder": dict(IDLE_HOST_LADDER),
+            "meshLadder": HEALTH.mesh_snapshot(),
+            "hostLadder": HEALTH.host_snapshot(),
             "memoryLadder": {k: snap[k] for k in (
                 "memoryPressureEvents", "memoryConsecutive",
                 "memoryChunkedReexecutions", "memoryCpuDemotions")},
         },
-        "mesh": dict(IDLE_MESH),
-        "cluster": dict(IDLE_HOSTS),
+        "mesh": MESH.health_snapshot(),
+        "cluster": CLUSTER.health_snapshot(),
         "memory": _memory_snapshot(),
         "quarantine": QUARANTINE.snapshot(),
         "demotions": {**CIRCUIT_BREAKER.demoted_ops(),

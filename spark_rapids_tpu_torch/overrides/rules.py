@@ -509,6 +509,44 @@ def _tag_exchange(meta: "PlanMeta") -> None:
         raise NotImplementedError("hash partitioning requires keys")
     for k in node.keys:
         check_expr(k, meta.conf, meta.reasons, "partition key ")
+    if not meta.reasons:
+        # the exchange still runs on the device, but a mesh-requested
+        # exchange that takes the host shuffle states why here; the exec
+        # acts on the same static reason (hostShuffleFallbacks)
+        from spark_rapids_tpu_torch.execs.exchange import (
+            collective_applicable,
+            ici_demotion_reason,
+            ici_requested,
+        )
+        if ici_requested(meta.conf) and collective_applicable(
+                node.partitioning, node.num_partitions):
+            reason = ici_demotion_reason(
+                meta.conf, node.partitioning, node.num_partitions,
+                node.children[0].output_schema())
+            if reason is not None:
+                meta.notes.append(f"host-shuffle fallback: {reason}")
+
+
+def _mesh_root_notes(meta: "PlanMeta") -> None:
+    """The root's advisory mesh notes (the query still runs on the
+    device): an attempt the mesh ladder suppressed to single-device
+    landing, or a mesh running below its declared strength."""
+    from spark_rapids_tpu_torch.parallel.mesh import (
+        MESH,
+        suppression_reason,
+    )
+    if not bool(meta.conf.get_entry(C.MESH_ENABLED)):
+        return
+    sup = suppression_reason()
+    degraded = MESH.degraded_reason()
+    if sup is not None:
+        meta.notes.append(f"mesh demoted: {sup}")
+    elif degraded is not None:
+        snap = MESH.health_snapshot()
+        meta.notes.append(
+            f"mesh degraded: running on the {snap['shape']}-device "
+            f"surviving mesh (excluded device ids "
+            f"{snap['excludedDeviceIds']}): {degraded}")
 
 
 def _insert_window_group_limits(node: P.PlanNode) -> P.PlanNode:
@@ -766,6 +804,8 @@ class PlanMeta:
         from spark_rapids_tpu_torch.runtime.health import HEALTH
         name = type(self.node).__name__
         cpu_only = HEALTH.cpu_only_reason()
+        if self.parent is None:
+            _mesh_root_notes(self)
         demoted = CIRCUIT_BREAKER.demotion_reason(name)
         if not isinstance(self.node, _DEVICE_NODES) and \
                 type(self.node) not in _FILE_SCANS:
@@ -808,6 +848,10 @@ def wrap_plan(plan: P.PlanNode, conf: C.RapidsConf) -> PlanMeta:
     """The tagged meta tree of ``plan`` after column pruning and the
     window group-limit rewrite (where and in the order the reference's
     ``apply_overrides`` runs them)."""
+    # the mesh must reflect THIS conf before tagging: the exchange's
+    # demotion reasons read its size
+    from spark_rapids_tpu_torch.parallel.mesh import MESH
+    MESH.configure(conf)
     meta = PlanMeta(_insert_window_group_limits(prune_plan(plan)), conf)
     meta.tag()
     return meta
@@ -888,7 +932,9 @@ def _convert_node(node: P.PlanNode, children, conf: C.RapidsConf,
             TpuShuffleExchangeExec,
         )
         return TpuShuffleExchangeExec(children[0], node.partitioning,
-                                      node.num_partitions, node.keys)
+                                      node.num_partitions, node.keys, conf,
+                                      target_batch_bytes=xbasic.
+                                      BATCH_SIZE_BYTES)
     # a global and a per-partition (local) sort convert alike, as the
     # reference's: one process sorts the partitions' views together. The
     # pre-sort coalesce stops at the out-of-core threshold (past it, the
@@ -904,10 +950,18 @@ def convert_meta(meta: PlanMeta, device) -> TpuExec:
     position (pre-order from 1); a root on the CPU route is collected on
     the host (``CpuRootExec``)."""
     from spark_rapids_tpu_torch.lore import assign_lore_ids
+    from spark_rapids_tpu_torch.parallel.mesh import MESH
     root = _convert_meta(meta, device)
     if not isinstance(root, TpuExec):
         root = CpuRootExec(root)
     assign_lore_ids(root)
+    if MESH.enabled:
+        # mesh-native execution: sharded batches flow only into the narrow
+        # operators and the exchange; every other consumer re-lands them
+        # (execs/mesh.py). Part of the converted tree, so the executable
+        # cache keeps it with the mesh generation it was planned under
+        from spark_rapids_tpu_torch.execs.mesh import insert_mesh_relands
+        root = insert_mesh_relands(root, device)
     return root
 
 
@@ -949,6 +1003,8 @@ def explain_plan(plan: P.PlanNode, conf: C.RapidsConf) -> str:
     ``explain_plan``: before column pruning and the window rewrite, which
     an execute applies first): every node in ALL mode, else the nodes
     with reasons or notes named in full."""
+    from spark_rapids_tpu_torch.parallel.mesh import MESH
+    MESH.configure(conf)
     meta = PlanMeta(plan, conf)
     meta.tag()
     return meta.explain(only_fallback=conf.explain_mode != "ALL")

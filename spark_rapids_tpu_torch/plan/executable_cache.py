@@ -71,11 +71,15 @@ def _demotions_token() -> tuple:
     demotion re-tags the operator onto the CPU route) and the health
     monitor's device-loss generation (a tree
     converted before a loss never re-parks into a later pool, even though
-    the recovery also cleared the cache)."""
+    the recovery also cleared the cache), the mesh's generation (a tree
+    planned under one mesh neither serves nor re-parks under another) and
+    the cluster's."""
+    from spark_rapids_tpu_torch.parallel.mesh import MESH
+    from spark_rapids_tpu_torch.runtime.cluster import CLUSTER
     from spark_rapids_tpu_torch.runtime.faults import CIRCUIT_BREAKER
     from spark_rapids_tpu_torch.runtime.health import HEALTH
     return (tuple(sorted(CIRCUIT_BREAKER.demoted_ops().items())),
-            HEALTH.generation())
+            HEALTH.generation(), MESH.generation(), CLUSTER.generation())
 
 
 def _reset_for_reuse(executable) -> None:

@@ -404,6 +404,13 @@ def fingerprint(plan, conf, *, strip_literals: bool = False,
     h = hashlib.sha1()
     h.update(plan_tok.encode())
     h.update(repr(conf_items).encode())
+    # the mesh's identity (its shape, axes and members) and the cluster's
+    # host topology fold in beyond their conf keys: a plan cached against
+    # one placement never serves another (a shrunk mesh, a lost host)
+    from spark_rapids_tpu_torch.parallel.mesh import MESH
+    from spark_rapids_tpu_torch.runtime.cluster import CLUSTER
+    h.update(MESH.identity_token().encode())
+    h.update(CLUSTER.identity_token().encode())
     # the reference folds its mesh and cluster identities and its Pallas
     # demotions here; the port has none of the three (one card, no
     # demotion), and the executable cache folds the session's device in

@@ -27,7 +27,10 @@ hard wall limit ends) and ``device.lost``, and the service worker's
 ``service.worker_crash``, the Delta log's ``delta.commit.race`` (kind
 ``race``: a lost optimistic-concurrency race, so the commit's rebase and
 retry run without a concurrent writer), and the streams'
-``stream.batch`` and ``stream.sink.commit``.
+``stream.batch`` and ``stream.sink.commit``; the host shuffle's
+``shuffle.*``, the mesh's ``mesh.*`` and the cluster's ``host.*`` points
+(``device_lost`` at a ``mesh.*`` point raises MeshDeviceLostError, at a
+``host.*`` point HostLostError).
 
 Spec grammar, entries separated by ``;``:
 ``<point>[@<op>]:<kind>:<prob-or-count>[:<seed>]``, where an amount with
@@ -138,6 +141,70 @@ FAULT_POINTS: Dict[str, tuple] = {
         "at the disk-tier unspill read, under the batch's lock: 'corrupt' "
         "flips frame bytes and the CRC footer catches it; the typed "
         "SpillCorruptionError re-lands the data through a query replay"),
+    # -- the host shuffle (shuffle/): fetch, fetch_disconnect, corrupt and
+    # slow are absorbed by the fetch-retry loops and, past them, by the
+    # exchange's recompute of the lost map outputs
+    "shuffle.write.map": (
+        "spark_rapids_tpu_torch/shuffle/manager.py",
+        "before a map output's data file is written"),
+    "shuffle.read.partition": (
+        "spark_rapids_tpu_torch/shuffle/manager.py",
+        "before one map output's segment of a reduce partition is read"),
+    "shuffle.transport.request": (
+        "spark_rapids_tpu_torch/shuffle/transport.py",
+        "before a request round trip on a P2P connection"),
+    "shuffle.transport.stream": (
+        "spark_rapids_tpu_torch/shuffle/transport.py",
+        "per received data window of a P2P transfer (corrupt damages the "
+        "window before reassembly)"),
+    "shuffle.fetch.metadata": (
+        "spark_rapids_tpu_torch/shuffle/client_server.py",
+        "before a P2P client's metadata request"),
+    "shuffle.fetch.stream": (
+        "spark_rapids_tpu_torch/shuffle/client_server.py",
+        "before a P2P block transfer, and per completed block (corrupt "
+        "damages the block; the TPAK CRC catches it)"),
+    # -- the mesh: device_lost at any mesh.* point raises the PARTIAL
+    # MeshDeviceLostError that walks the mesh ladder (runtime/health.py
+    # on_mesh_device_loss)
+    "mesh.shard.put": (
+        "spark_rapids_tpu_torch/parallel/mesh.py",
+        "per sharded landing: every mesh-native scan batch and every "
+        "exchange input put onto the mesh, before the transfer"),
+    "mesh.ici.exchange": (
+        "spark_rapids_tpu_torch/parallel/exchange.py",
+        "the all-to-all exchange: before the exchange (crash, device_lost, "
+        "slow) and at its checksummed read of the per-target counts "
+        "(corrupt flips the read bytes; the digest catches it and the "
+        "counts are read again)"),
+    "mesh.gather": (
+        "spark_rapids_tpu_torch/execs/mesh.py",
+        "the re-land onto the session's device: corrupt damages the landed "
+        "copy, the row-count and checksum check trips, and the intact "
+        "shards re-land"),
+    "mesh.dict.upload": (
+        "spark_rapids_tpu_torch/parallel/exchange.py",
+        "the per-mesh upload of a string dictionary's bytes for hashing, "
+        "before the copies"),
+    # -- the cluster: device_lost at any host.* point raises HostLostError,
+    # which walks the host ladder (runtime/health.py on_host_loss)
+    "host.dispatch": (
+        "spark_rapids_tpu_torch/runtime/cluster.py",
+        "driver -> executor scan dispatch, before the round trip"),
+    "host.shard.land": (
+        "spark_rapids_tpu_torch/runtime/cluster.py",
+        "per landed TPAK frame of an executor's scan reply (corrupt damages "
+        "the landed copy; the CRC catches it and the intact frame re-lands, "
+        "hostShardRetries)"),
+    "host.dcn.exchange": (
+        "spark_rapids_tpu_torch/runtime/cluster.py",
+        "before an all-to-all exchange whose mesh spans more than one "
+        "cluster host group"),
+    "host.heartbeat": (
+        "spark_rapids_tpu_torch/runtime/cluster.py",
+        "an executor heartbeat's receipt at the driver: a fault drops the "
+        "beat (executorBeatsDropped); enough of them and the sweep "
+        "declares the host lost"),
 }
 
 _SLOW_SLEEP_S = 0.05
@@ -285,6 +352,17 @@ class FaultRegistry:
                 raise ShuffleTransportError(
                     f"injected transport disconnect at {where}")
             if a.kind == "device_lost":
+                if point.startswith("host."):
+                    # a whole executor process died: the host ladder
+                    from spark_rapids_tpu_torch.errors import HostLostError
+                    raise HostLostError(f"injected host loss at {where}")
+                if point.startswith("mesh."):
+                    # one logical device died: the mesh ladder
+                    from spark_rapids_tpu_torch.errors import (
+                        MeshDeviceLostError,
+                    )
+                    raise MeshDeviceLostError(
+                        f"injected mesh device loss at {where}")
                 raise DeviceLostError(f"injected device loss at {where}")
             if a.kind == "race":
                 from spark_rapids_tpu_torch.delta.log import (

@@ -44,11 +44,25 @@ single card needs).
   (``record_incident_async``: the scheduler strikes under its condition
   lock). Recording is best-effort: it never masks the recovery.
 
-Not ported here: the mesh and host ladders (ROADMAP item 11). Counters
-live in the ``health`` metric scope under the reference's names:
+* **Mesh ladder** (``on_mesh_device_loss``, a MeshDeviceLostError: one
+  logical device of the mesh lost, the process's device alive): ``retry``
+  on the unchanged mesh, then ``single_device`` (the replay lands with the
+  mesh suppressed, parallel/mesh.py ``suppressed_mesh``), then ``shrink``
+  (the mesh excludes the logical id, ``spark.rapids.mesh.degrade.
+  maxShrinks`` times), then the device-loss ladder above. Bundles:
+  ``mesh.ladder``.
+* **Host ladder** (``on_host_loss``, a HostLostError: a cluster executor
+  process lost): ``retry``, then ``reland`` (the host is marked lost and
+  the replay's scans re-land its files on the survivors), then ``shrink``
+  (the host leaves the topology, ``spark.rapids.cluster.maxHostLosses``
+  times), then ``single_process`` (every scan local until a host
+  rejoins), then the device-loss ladder. Bundles: ``host.ladder``.
+
+Counters live in the ``health`` metric scope under the reference's names:
 ``deviceLost``, ``deviceReinits``, ``memoryPressure``,
-``memoryChunkedReexecutions``, ``memoryCpuDemotions``,
-``quarantineStrikes`` and ``quarantinedTemplates``."""
+``memoryChunkedReexecutions``, ``memoryCpuDemotions``, ``meshDeviceLost``,
+``meshDegradations``, ``meshShrinks``, ``quarantineStrikes`` and
+``quarantinedTemplates``."""
 
 from __future__ import annotations
 
@@ -78,6 +92,15 @@ register_metric("memoryChunkedReexecutions", "count", "ESSENTIAL",
 register_metric("memoryCpuDemotions", "count", "ESSENTIAL",
                 "operators the memory ladder's 'cpu_demote' rung moved onto "
                 "the CPU route through the circuit breaker")
+register_metric("meshDeviceLost", "count", "ESSENTIAL",
+                "partial device losses observed (one logical device of the "
+                "mesh lost, the process's device alive; the mesh ladder)")
+register_metric("meshDegradations", "count", "ESSENTIAL",
+                "times the mesh ladder demoted mesh execution (a "
+                "single-device replay or a shrink)")
+register_metric("meshShrinks", "count", "ESSENTIAL",
+                "mesh reconfigurations onto the surviving logical devices "
+                "(bounded by spark.rapids.mesh.degrade.maxShrinks)")
 register_metric("quarantineStrikes", "count", "MODERATE",
                 "poison-query strikes recorded against query templates")
 register_metric("quarantinedTemplates", "count", "ESSENTIAL",
@@ -120,11 +143,13 @@ def _probe_context(device) -> Optional[str]:
 
 
 def evict_device_state() -> None:
-    """Drop every cache that holds device memory: the scan's device images
-    and the cached broadcast batches."""
+    """Drop every cache that holds device memory: the scan's device images,
+    the cached broadcast batches and the mesh's interned dictionaries."""
     from spark_rapids_tpu_torch.columnar.table import evict_device_caches
     from spark_rapids_tpu_torch.execs.broadcast import evict_broadcast_caches
-    for fn in (evict_device_caches, evict_broadcast_caches):
+    from spark_rapids_tpu_torch.parallel.exchange import clear_mesh_caches
+    for fn in (evict_device_caches, evict_broadcast_caches,
+               clear_mesh_caches):
         try:
             fn()
         except Exception:
@@ -195,13 +220,159 @@ class DeviceHealthMonitor:
                 f"{report or 'not written'})")
             return "CPU_ONLY"
 
-    def note_success(self) -> None:
+    def note_success(self, mesh_native: bool = False,
+                     cluster_native: bool = False) -> None:
         """A query completed: the consecutive-loss budget and the memory
-        ladder refill."""
-        if self._consecutive_losses or self._mem_consecutive:
+        ladder refill; the mesh ladder only on a mesh-NATIVE success and
+        the host ladder only on a cluster-native one (a suppressed replay
+        proves nothing about the mesh or the hosts)."""
+        if (self._consecutive_losses or self._mem_consecutive
+                or (mesh_native and self._mesh_consecutive)
+                or (cluster_native and self._host_consecutive)):
             with self._lock:
                 self._consecutive_losses = 0
                 self._mem_consecutive = 0
+                if mesh_native:
+                    self._mesh_consecutive = 0
+                if cluster_native:
+                    self._host_consecutive = 0
+
+    # -- the mesh ladder ------------------------------------------------------
+    def on_mesh_device_loss(self, exc: BaseException, conf,
+                            device=None) -> str:
+        """One partial device loss (a ``mesh.*`` point's device_lost):
+        ``retry``, ``single_device``, ``shrink`` (at most ``spark.rapids.
+        mesh.degrade.maxShrinks`` times), then the device-loss ladder's
+        ``DEGRADED`` or ``CPU_ONLY``. Records a ``mesh.ladder`` bundle."""
+        action = self._on_mesh_device_loss_inner(exc, conf, device)
+        _record_ladder_incident("mesh.ladder", action, exc, conf)
+        return action
+
+    def _on_mesh_device_loss_inner(self, exc, conf, device) -> str:
+        from spark_rapids_tpu_torch.conf import MESH_DEGRADE_MAX_SHRINKS
+        from spark_rapids_tpu_torch.parallel.mesh import MESH
+        max_shrinks = int(conf.get_entry(MESH_DEGRADE_MAX_SHRINKS))
+        with self._lock:
+            if self._cpu_only_reason is not None:
+                return "CPU_ONLY"
+            self._mesh_losses += 1
+            self._mesh_consecutive += 1
+            n = self._mesh_consecutive
+            self._metrics.add("meshDeviceLost", 1)
+            if n == 1:
+                return "retry"
+            if n == 2:
+                self._mesh_degradations += 1
+                self._metrics.add("meshDegradations", 1)
+                return "single_device"
+            # reserve the shrink slot under the lock: two workers must not
+            # both pass the budget check
+            budget = self._mesh_shrinks < max(0, max_shrinks)
+            if budget:
+                self._mesh_shrinks += 1
+        shrunk = False
+        if budget:
+            reason = (f"mesh degraded after {n} consecutive mesh-device "
+                      f"losses (last: {type(exc).__name__}: "
+                      f"{_first_line(exc)})")
+            shrunk = MESH.shrink_excluding(getattr(exc, "device_id", None),
+                                           reason)
+            if not shrunk:
+                with self._lock:
+                    self._mesh_shrinks -= 1  # nothing to shrink
+        if shrunk:
+            with self._lock:
+                self._mesh_degradations += 1
+                # a fresh ladder for the smaller mesh
+                self._mesh_consecutive = 0
+                self._metrics.add("meshShrinks", 1)
+                self._metrics.add("meshDegradations", 1)
+            return "shrink"
+        return self.on_device_loss(exc, conf, device)
+
+    def mesh_demotion_note(self) -> str:
+        """The reason a single-device replay carries (explain, the
+        exchange's demotion)."""
+        with self._lock:
+            return (f"mesh degraded to single-device landing after "
+                    f"{self._mesh_consecutive} consecutive mesh-device "
+                    f"losses")
+
+    def mesh_snapshot(self) -> Dict[str, int]:
+        with self._lock:
+            return self._mesh_snapshot_locked()
+
+    def _mesh_snapshot_locked(self) -> Dict[str, int]:
+        return {"meshDeviceLost": self._mesh_losses,
+                "meshConsecutiveLosses": self._mesh_consecutive,
+                "meshShrinks": self._mesh_shrinks,
+                "meshDegradations": self._mesh_degradations}
+
+    # -- the host ladder ------------------------------------------------------
+    def on_host_loss(self, exc: BaseException, conf, device=None) -> str:
+        """One host loss (a ``host.*`` point's device_lost, a dead
+        dispatch socket, the sweep's verdict): ``retry``, ``reland``,
+        ``shrink`` (at most ``spark.rapids.cluster.maxHostLosses``
+        times), ``single_process``, then the device-loss ladder. Records
+        a ``host.ladder`` bundle."""
+        action = self._on_host_loss_inner(exc, conf, device)
+        _record_ladder_incident("host.ladder", action, exc, conf)
+        return action
+
+    def _on_host_loss_inner(self, exc, conf, device) -> str:
+        from spark_rapids_tpu_torch.conf import CLUSTER_MAX_HOST_LOSSES
+        from spark_rapids_tpu_torch.runtime.cluster import CLUSTER
+        max_losses = int(conf.get_entry(CLUSTER_MAX_HOST_LOSSES))
+        host_id = getattr(exc, "host_id", None)
+        already_latched = (
+            CLUSTER.health_snapshot()["singleProcessReason"] is not None)
+        budget = False
+        with self._lock:
+            if self._cpu_only_reason is not None:
+                return "CPU_ONLY"
+            self._host_losses += 1
+            self._host_consecutive += 1
+            n = self._host_consecutive
+            if not already_latched and n >= 3:
+                budget = self._host_shrinks < max(0, max_losses)
+                if budget:
+                    self._host_shrinks += 1
+        if already_latched:
+            # hosts keep being lost with the cluster out of the picture:
+            # the device-loss ladder owns it
+            return self.on_device_loss(exc, conf, device)
+        reason = (f"cluster degraded after {n} consecutive host losses "
+                  f"(last: {type(exc).__name__}: {_first_line(exc)})")
+        if n == 1:
+            return "retry"
+        if n == 2:
+            CLUSTER.mark_host_lost(host_id, reason)
+            return "reland"
+        if budget:
+            if CLUSTER.shrink_excluding(host_id, reason):
+                with self._lock:
+                    self._host_consecutive = 0  # a fresh ladder
+                return "shrink"
+            with self._lock:
+                self._host_shrinks -= 1  # nothing to shrink
+        CLUSTER.latch_single_process(
+            f"cluster latched single-process after {n} consecutive "
+            f"host losses (last: {type(exc).__name__}: {_first_line(exc)})")
+        return "single_process"
+
+    def host_demotion_note(self) -> str:
+        with self._lock:
+            return (f"cluster degraded after {self._host_consecutive} "
+                    f"consecutive host losses")
+
+    def host_snapshot(self) -> Dict[str, int]:
+        with self._lock:
+            return self._host_snapshot_locked()
+
+    def _host_snapshot_locked(self) -> Dict[str, int]:
+        return {"hostsLost": self._host_losses,
+                "hostConsecutiveLosses": self._host_consecutive,
+                "hostShrinks": self._host_shrinks}
 
     # -- the memory ladder ----------------------------------------------------
     def on_memory_pressure(self, exc: BaseException, conf) -> str:
@@ -293,6 +464,13 @@ class DeviceHealthMonitor:
             self._mem_consecutive = 0
             self._mem_chunked = 0
             self._mem_cpu_demotions = 0
+            self._mesh_consecutive = 0
+            self._mesh_losses = 0
+            self._mesh_shrinks = 0
+            self._mesh_degradations = 0
+            self._host_consecutive = 0
+            self._host_losses = 0
+            self._host_shrinks = 0
 
 
 HEALTH = DeviceHealthMonitor()
@@ -384,9 +562,8 @@ class QuarantineRegistry:
 QUARANTINE = QuarantineRegistry()
 
 
-#: the reference's mesh and host sections as it writes them with the mesh
-#: and the cluster off (ROADMAP item 11): the service's health document,
-#: the ``/topology`` route and the incident bundles keep their shape
+#: the mesh and host sections as written while the mesh and the cluster
+#: are off (their runtimes report these values then)
 IDLE_MESH = {"enabled": False, "shape": None, "declaredShape": None,
              "excludedDeviceIds": [], "degradedReason": None,
              "generation": 0}
@@ -402,14 +579,20 @@ IDLE_HOST_LADDER = {"hostsLost": 0, "hostConsecutiveLosses": 0,
 
 def consistent_topology_snapshot() -> dict:
     """One coherent view of the device health, the quarantine ledger and
-    the memory arbiter, taken with their locks held together so that the
-    sections cannot tear against each other (the reference's
-    shared-topology path; its cluster and mesh sections are idle here,
-    ROADMAP item 11). ``QueryService.health()`` and the ``/topology``
-    route read it. The locks nest in the reference's rank order (health,
-    quarantine, the arbiter's reentrant lock last)."""
+    the memory arbiter, the mesh and the cluster, taken with their locks
+    held together so that the sections cannot tear against each other
+    (the reference's shared-topology path). ``QueryService.health()`` and
+    the ``/topology`` route read it. The locks nest in the reference's
+    rank order (cluster, health, mesh, quarantine, the arbiter's
+    reentrant lock last)."""
+    from spark_rapids_tpu_torch.parallel.mesh import MESH
+    from spark_rapids_tpu_torch.runtime.cluster import CLUSTER
     from spark_rapids_tpu_torch.runtime.memory import MEMORY
-    with HEALTH._lock:
+    with CLUSTER._lock, HEALTH._lock, MESH._lock:
+        hosts = {**CLUSTER._health_snapshot_locked(),
+                 **HEALTH._host_snapshot_locked()}
+        mesh = {**MESH._health_snapshot_locked(),
+                **HEALTH._mesh_snapshot_locked()}
         with QUARANTINE._lock:
             with MEMORY._lock:
                 return {
@@ -421,8 +604,8 @@ def consistent_topology_snapshot() -> dict:
                         "deviceReinits": HEALTH._reinits,
                         "consecutiveLosses": HEALTH._consecutive_losses,
                     },
-                    "hosts": {**IDLE_HOSTS, **IDLE_HOST_LADDER},
-                    "mesh": {**IDLE_MESH, **IDLE_MESH_LADDER},
+                    "hosts": hosts,
+                    "mesh": mesh,
                     "memory": {
                         **MEMORY.snapshot(),
                         "memoryPressureEvents": HEALTH._mem_events,

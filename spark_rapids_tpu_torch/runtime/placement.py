@@ -12,8 +12,9 @@ releases, and :meth:`PlacementLayer.resolve_pending` waits for the
 copies. The root's download is :func:`_drain`, and only it is armed: a
 mid-plan DeviceToHost transition of the CPU route (execs/base.py)
 downloads synchronously, and a root on the CPU route
-(``CpuRootExec``) is collected on the host. The reference's mesh realization
-is not ported (item 11)."""
+(``CpuRootExec``) is collected on the host. ``prepare`` realizes the
+mesh and the cluster for the query (parallel/mesh.py, runtime/cluster.py)
+and pushes the mesh's gather tunables."""
 
 from __future__ import annotations
 
@@ -54,11 +55,24 @@ class PlacementLayer:
         """Realize the placement config for the coming query, before its
         fingerprint and its plan: the device manager for the session's
         device and conf (a lost device raises here, inside the recovery)
-        and the memory arbiter's budget. The reference configures its
-        mesh and cluster here too (item 11)."""
+        and the memory arbiter's budget, then the cluster's host topology
+        and the mesh (before the fingerprint, which folds both identities
+        in) with the mesh's gather tunables
+        (``spark.rapids.mesh.maxShardRetries``, ``.gather.verify``)."""
+        from spark_rapids_tpu_torch.conf import (
+            MESH_GATHER_VERIFY,
+            MESH_MAX_SHARD_RETRIES,
+        )
+        from spark_rapids_tpu_torch.parallel import mesh as PM
+        from spark_rapids_tpu_torch.runtime.cluster import CLUSTER
         from spark_rapids_tpu_torch.runtime.memory import MEMORY
+        conf = self._session.conf
         self._session.runtime  # noqa: B018 (starts the device manager)
-        MEMORY.configure(self._session.conf)
+        MEMORY.configure(conf)
+        CLUSTER.configure(conf)
+        PM.MESH.configure(conf)
+        PM.MAX_SHARD_RETRIES = int(conf.get_entry(MESH_MAX_SHARD_RETRIES))
+        PM.GATHER_VERIFY = bool(conf.get_entry(MESH_GATHER_VERIFY))
 
     def drain(self, root, async_fetch: bool = False) -> HostTable:
         """Drain ``root`` into a HostTable. Under speculative sizing (the

@@ -45,9 +45,13 @@ itself:
   route (``TorchSession._execute_cpu_only``). No worker catches a device
   failure and re-runs the query on the CPU itself.
 
-Written as the reference writes them with the mesh and the cluster off
-(ROADMAP item 11): no mesh gate, ``meshShape`` and ``hostTopology`` null
-in records, and the host-loss degrade never trips. Recurring streams
+* **Mesh and cluster.** A service whose conf turns the mesh on
+  serializes its workers' launch windows (the mesh gate, taken before the
+  RUNNING transition, so a wait counts as queue time); a cached serve's
+  record carries the live ``meshShape`` and ``hostTopology``; a cluster
+  below its declared host strength (or latched single-process) degrades
+  the service (``spark.rapids.service.degrade.onHostLoss``). Recurring
+  streams
 (streaming/query.py) register with the service (``register_stream``,
 ``streams()``), and ``mv_registry()`` keeps the materialized views over
 its session (streaming/mv.py).
@@ -100,6 +104,19 @@ from spark_rapids_tpu_torch.service.result_cache import (
     plan_table_ids,
 )
 from spark_rapids_tpu_torch.service.watchdog import WorkerWatchdog, _Worker
+
+def _mesh_shape():
+    """The active mesh's shape for serve-time records (None when off)."""
+    from spark_rapids_tpu_torch.parallel.mesh import MESH
+    return MESH.shape_str()
+
+
+def _host_topology():
+    """The active cluster's host topology for serve-time records (None
+    when off)."""
+    from spark_rapids_tpu_torch.runtime.cluster import CLUSTER
+    return CLUSTER.topology_str()
+
 
 def _mem_budget_peak() -> int:
     """The memory arbiter's peak accounted device bytes, for the cache-hit
@@ -222,6 +239,15 @@ class QueryService:
             self.conf.get_entry(SERVICE_ADMISSION_MAX_DEVICE_BYTES))
         self._degrade_memory_fraction = float(
             self.conf.get_entry(SERVICE_DEGRADE_MEMORY_FRACTION))
+        self._degrade_on_host_loss = bool(
+            self.conf.get_entry(SERVICE_DEGRADE_ON_HOST_LOSS))
+        # the mesh gate: a mesh service serializes its workers' launch
+        # windows (the reference's collective rendezvous rule, kept so a
+        # mesh query's exchange and re-lands run as one unit)
+        from spark_rapids_tpu_torch.conf import MESH_ENABLED
+        self._mesh_gate = (ordered_lock("service.mesh_gate")
+                           if bool(self.conf.get_entry(MESH_ENABLED))
+                           else None)
         self.result_cache: Optional[ResultCache] = None
         if bool(self.conf.get_entry(SERVICE_RESULT_CACHE_ENABLED)):
             self.result_cache = ResultCache(
@@ -716,6 +742,16 @@ class QueryService:
                         return
 
     def _run(self, handle: QueryHandle):
+        # a mesh service serializes the whole launch window BEFORE the
+        # RUNNING transition: the hard wall measures from RUNNING, so the
+        # gate's wait books as queue time
+        if self._mesh_gate is not None:
+            with self._mesh_gate:
+                self._run_exclusive(handle)
+        else:
+            self._run_exclusive(handle)
+
+    def _run_exclusive(self, handle: QueryHandle):
         if not handle._transition(QueryState.RUNNING):
             return
         # an exception here is the WORKER dying (outside the query's own
@@ -821,13 +857,13 @@ class QueryService:
             "quarantined": self._handle_has_strikes(handle),
             "deviceReinits": 0,
             "workerRestarts": 0,
-            "meshShape": None,
+            "meshShape": _mesh_shape(),
             "iciBytes": 0,
             "shardSkew": 0.0,
             "meshDegradations": 0,
             "shardRetries": 0,
             "gatherChecksFailed": 0,
-            "hostTopology": None,
+            "hostTopology": _host_topology(),
             "hostsLost": 0,
             "hostRelands": 0,
             "dcnExchanges": 0,
@@ -977,10 +1013,24 @@ class QueryService:
         return out
 
     def _fleet_degraded_reason(self) -> Optional[str]:
-        """The shedding input beside the service's own worker losses: the
-        memory arbiter's occupancy over its fraction of the budget. The
-        reference's host-strength input needs a cluster (ROADMAP item 11)
-        and never trips here."""
+        """The shedding input beside the service's own worker losses: a
+        cluster below its declared host strength (or latched
+        single-process), and the memory arbiter's occupancy over its
+        fraction of the budget."""
+        if self._degrade_on_host_loss:
+            from spark_rapids_tpu_torch.runtime.cluster import CLUSTER
+            hosts = CLUSTER.health_snapshot()
+            if hosts["enabled"]:
+                if hosts["singleProcessReason"]:
+                    return ("cluster latched single-process: "
+                            f"{hosts['singleProcessReason']}")
+                if hosts["lostHosts"] or hosts["excludedHosts"]:
+                    return (
+                        "cluster below declared strength: "
+                        f"{len(hosts['liveHosts'])}/"
+                        f"{hosts['declaredHosts']} live (lost="
+                        f"{hosts['lostHosts']}, excluded="
+                        f"{hosts['excludedHosts']})")
         frac = self._degrade_memory_fraction
         if frac > 0.0:
             from spark_rapids_tpu_torch.runtime.memory import MEMORY

@@ -3,8 +3,8 @@ execs, drains them through the placement layer (speculative sizing, the
 device semaphore, the asynchronous result fetch) under the recovery
 envelope (the circuit breaker's replays, the memory degradation ladder,
 device-loss handling, the poison-query strikes) and the query envelope
-(the reference's ``TpuSession.execute`` and ``_plan_and_drain``, less
-the mesh and host ladders):
+(the reference's ``TpuSession.execute`` and ``_plan_and_drain``, the
+mesh and host ladders included):
 
 * the executable cache (plan/executable_cache.py): a repeated plan checks
   out its converted tree and runs no conversion;
@@ -57,7 +57,7 @@ from spark_rapids_tpu_torch.plan import nodes as P
 
 #: the process-wide metric scopes whose per-query change last_metrics adds
 RUNTIME_SCOPES = ("memory", "spill", "semaphore", "write", "health",
-                  "recovery")
+                  "recovery", "mesh", "cluster", "shuffle")
 
 
 class _TLQueryState:
@@ -330,7 +330,8 @@ class TorchSession:
         mv_epoch, q.next_mv_epoch = q.next_mv_epoch, None
         stream_deltas, q.stream_deltas = (q.stream_deltas or {}), None
         if q.exec_depth:
-            # nested query: no envelope of its own
+            # nested query: no envelope of its own (its host scans count
+            # into the outer query's attribution)
             q.exec_depth += 1
             try:
                 return self._execute_plan(plan)
@@ -346,6 +347,11 @@ class TorchSession:
             qidx = self._obs_query_seq
             self._obs_query_seq += 1
         before = scopes_snapshot()
+        # fresh per-host scan attribution for this top-level query
+        from spark_rapids_tpu_torch.runtime.cluster import (
+            reset_host_scan_stats,
+        )
+        reset_host_scan_stats()
         if obs_active:
             from spark_rapids_tpu_torch.runtime.faults import RECOVERY
             before_recovery = RECOVERY.snapshot()
@@ -424,6 +430,8 @@ class TorchSession:
         counts read first in one batched fetch."""
         from spark_rapids_tpu_torch.obs import events as E
         from spark_rapids_tpu_torch.obs.metrics import scopes_snapshot
+        from spark_rapids_tpu_torch.parallel import mesh as PM
+        from spark_rapids_tpu_torch.runtime import cluster as CL
         from spark_rapids_tpu_torch.obs.spans import (
             finalize_observation,
             summarize_spans,
@@ -496,6 +504,16 @@ class TorchSession:
             # this window) plus what the streaming subsystem staged on
             # this thread between envelopes
             mv_epoch=mv_epoch,
+            mesh_shape=PM.MESH.shape_str(),
+            ici_bytes=_wdelta("iciBytes", "mesh"),
+            mesh_degradations=_wdelta("meshDegradations", "health"),
+            shard_retries=_wdelta("shardRetries", "mesh"),
+            gather_checks_failed=_wdelta("gatherChecksFailed", "mesh"),
+            host_topology=CL.CLUSTER.topology_str(),
+            hosts_lost=_wdelta("hostsLost", "cluster"),
+            host_relands=_wdelta("hostRelands", "cluster"),
+            dcn_exchanges=_wdelta("dcnExchanges", "cluster"),
+            host_scans=CL.host_scan_stats(),
             **{arg: _wdelta(key, "streaming") + stream.get(key, 0)
                for arg, key in _STREAM_FIELDS})
 
@@ -582,8 +600,7 @@ class TorchSession:
 
     def _execute_with_recovery(self, plan: P.PlanNode) -> HostTable:
         """Plan and drain ``plan``, each attempt afresh, under the port of
-        the reference's recovery layers (``session.py:563-818``, less the
-        mesh and host ladders, ROADMAP item 11):
+        the reference's recovery layers (``session.py:563-818``):
 
         * an OOM that escaped every retry (a FatalDeviceOOM, or a
           retryable one wrapped as such) walks the memory ladder
@@ -603,21 +620,37 @@ class TorchSession:
           ``runtimeFallback.maxFailures`` demotes the operator, which the
           replay's tag plans onto the CPU route.
 
-        The ``chunk``, ``cpu_demote`` and ``abort`` rungs each strike the
-        plan's template in the quarantine; a device loss strikes it in the
-        query service, which requeues the query. A replay drops
-        the query's executable-cache entry and plans fresh."""
+        * a MeshDeviceLostError (one logical device of the mesh) walks the
+          mesh ladder (``retry``, ``single_device``: the replay lands with
+          the mesh suppressed, ``shrink``, then the device-loss ladder);
+          a HostLostError (a cluster executor) the host ladder (``retry``,
+          ``reland``, ``shrink``, ``single_process``: the replay's scans
+          stay local, then the device-loss ladder), each within a replay
+          budget that walks every rung.
+
+        The ``chunk``, ``cpu_demote`` and ``abort`` rungs and every mesh
+        and host rung past ``retry`` strike the plan's template in the
+        quarantine; a device loss strikes it in the query service, which
+        requeues the query. A replay drops the query's executable-cache
+        entry and plans fresh."""
         from contextlib import nullcontext
 
         from spark_rapids_tpu_torch.conf import (
+            CLUSTER_MAX_HOST_LOSSES,
+            DEVICE_LOSS_MAX_REINITS,
+            MESH_DEGRADE_MAX_SHRINKS,
             RUNTIME_FALLBACK_ENABLED,
             RUNTIME_FALLBACK_MAX_FAILURES,
         )
         from spark_rapids_tpu_torch.errors import (
             DeviceLostError,
             FatalDeviceOOM,
+            HostLostError,
             KernelCrashError,
+            MeshDeviceLostError,
         )
+        from spark_rapids_tpu_torch.parallel import mesh as PM
+        from spark_rapids_tpu_torch.runtime import cluster as CL
         from spark_rapids_tpu_torch.runtime.crash_handler import (
             handle_fatal,
             is_fatal_device_error,
@@ -638,9 +671,17 @@ class TorchSession:
         # enough to demote every operator of a plan, never unbounded on an
         # unattributed crash; the memory ladder's replays likewise
         max_replays = max_mem_replays = 4 * max_failures + 4
-        replays = mem_replays = 0
+        # the mesh and host ladders: enough to walk every rung (each
+        # shrink, each reinit) and no more
+        reinits = int(self.conf.get_entry(DEVICE_LOSS_MAX_REINITS))
+        max_mesh_replays = int(self.conf.get_entry(
+            MESH_DEGRADE_MAX_SHRINKS)) + reinits + 6
+        max_host_replays = int(self.conf.get_entry(
+            CLUSTER_MAX_HOST_LOSSES)) + reinits + 6
+        replays = mem_replays = mesh_replays = host_replays = 0
         self._last_fault_replays = 0
         force_chunk = None
+        suppress_mesh = suppress_cluster = None
         while True:
             if HEALTH.cpu_only_reason() is not None:
                 result = self._execute_cpu_only(plan)
@@ -649,14 +690,60 @@ class TorchSession:
                 return result
             chunk_ctx = (forced_chunking(force_chunk)
                          if force_chunk is not None else nullcontext())
-            force_chunk = None
+            mesh_ctx = (PM.suppressed_mesh(suppress_mesh)
+                        if suppress_mesh is not None else nullcontext())
+            cluster_ctx = (CL.suppressed_cluster(suppress_cluster)
+                           if suppress_cluster is not None
+                           else nullcontext())
+            was_msup = suppress_mesh is not None
+            was_csup = suppress_cluster is not None
+            force_chunk = suppress_mesh = suppress_cluster = None
             try:
-                with chunk_ctx:
+                with chunk_ctx, mesh_ctx, cluster_ctx:
                     result = self._execute_attempt(plan)
                 self._last_fault_replays = replays
-                HEALTH.note_success()
+                # the mesh ladder resets only on a mesh-NATIVE success,
+                # the host ladder only on a cluster-native one
+                HEALTH.note_success(
+                    mesh_native=not was_msup and PM.MESH.enabled,
+                    cluster_native=not was_csup and CL.CLUSTER.active())
                 return result
             except Exception as exc:
+                if isinstance(exc, HostLostError):
+                    # a cluster executor died (the local device is fine)
+                    action = HEALTH.on_host_loss(exc, self.conf,
+                                                 self.device)
+                    if action != "retry":
+                        self._strike_fault_template(plan, exc, action,
+                                                    "host")
+                    if host_replays >= max_host_replays:
+                        raise
+                    self._drop_cached_tree()
+                    host_replays += 1
+                    RECOVERY.bump("query_replays")
+                    if action in ("single_process", "DEGRADED",
+                                  "CPU_ONLY"):
+                        # the replay's scans stay local even if a host
+                        # rejoins mid-attempt
+                        suppress_cluster = HEALTH.host_demotion_note()
+                    continue
+                if isinstance(exc, MeshDeviceLostError):
+                    # one logical device of the mesh lost
+                    action = HEALTH.on_mesh_device_loss(exc, self.conf,
+                                                        self.device)
+                    if action != "retry":
+                        self._strike_fault_template(plan, exc, action,
+                                                    "mesh")
+                    if mesh_replays >= max_mesh_replays:
+                        raise
+                    self._drop_cached_tree()
+                    mesh_replays += 1
+                    RECOVERY.bump("query_replays")
+                    if action == "single_device":
+                        suppress_mesh = HEALTH.mesh_demotion_note()
+                    # retry, shrink, DEGRADED and CPU_ONLY replay plain:
+                    # the re-plan sees the shrunk mesh or the latch
+                    continue
                 if is_device_oom(exc) and not isinstance(exc,
                                                          FatalDeviceOOM):
                     # a retryable OOM that escaped every retry wrapper:

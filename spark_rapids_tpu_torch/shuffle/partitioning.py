@@ -1,7 +1,8 @@
-"""Device partitioners (port of ``Partitioner``, ``HashPartitioner``,
-``RoundRobinPartitioner``, ``SinglePartitioner`` and ``RangePartitioner``
-of ``spark_rapids_tpu/shuffle/partitioning.py``): each gives every row of
-a batch its partition id on the device.
+"""Device partitioners and the host shuffle's map-side split (port of
+``Partitioner``, ``HashPartitioner``, ``RoundRobinPartitioner``,
+``SinglePartitioner``, ``RangePartitioner`` and ``split_by_partition`` of
+``spark_rapids_tpu/shuffle/partitioning.py``): each partitioner gives
+every row of a batch its partition id on the device.
 
 ``RangePartitioner`` takes its bounds from a host sample of the key
 columns, drawn with the reference's generator (``default_rng(42)``,
@@ -200,3 +201,71 @@ def _comparable_bounds(bcol, dev_col, device):
             torch.from_numpy(np.asarray(bcol.validity, dtype=np.bool_))
             .to(device)[None, :],
             torch.from_numpy(exact).to(device)[None, :])
+
+
+def _download_packed(tensors) -> List[np.ndarray]:
+    """Every tensor of ``tensors`` (on one device) on the host in ONE copy:
+    their bytes concatenated on the device, read back, cut and viewed
+    with their dtypes and shapes again."""
+    if not tensors:
+        return []
+    flat = [t.contiguous().view(-1).view(torch.uint8) if t.dtype != torch.bool
+            else t.contiguous().view(-1).to(torch.uint8) for t in tensors]
+    host = torch.cat(flat).cpu().numpy()
+    out, pos = [], 0
+    for t, f in zip(tensors, flat):
+        n = f.shape[0]
+        raw = host[pos:pos + n]
+        pos += n
+        if t.dtype == torch.bool:
+            arr = raw.astype(np.bool_)
+        else:
+            arr = raw.view(T.numpy_dtype(t.dtype))
+        out.append(arr.reshape(tuple(t.shape)))
+    return out
+
+
+def split_by_partition(table: DeviceTable, partitioner: Partitioner,
+                       metrics=None) -> list:
+    """The map side of the host shuffle for one batch (port of the
+    reference's ``split_by_partition``): the partition ids, one stable
+    sort of them carrying the row slots (the hand-written
+    ``sort_with_payload``; dead rows sort last), each partition's run from
+    the sorted ids, a read of the per-partition counts, then the live
+    rows gathered in partition order and downloaded in ONE copy (a host
+    sync by design, counted as ``shuffleMapDownloads`` on ``metrics``),
+    cut into one HostTable per partition on the host."""
+    from spark_rapids_tpu_torch.columnar import HostTable
+    from spark_rapids_tpu_torch.columnar.column import bucket_for
+    from spark_rapids_tpu_torch.dispatch import note_host_fetch
+    from spark_rapids_tpu_torch.kernels.sort import sort_with_payload
+    nparts = partitioner.num_partitions
+    cap = table.capacity
+    pids = partitioner.partition_ids(table).to(torch.int32)
+    live = table.row_mask()
+    spid = torch.where(live, pids, torch.full_like(pids, nparts))
+    iota = torch.arange(cap, dtype=torch.int32, device=table.device)
+    sorted_pid, rows = sort_with_payload([spid], iota)
+    targets = torch.arange(nparts + 1, dtype=torch.int32,
+                           device=table.device)
+    starts = torch.searchsorted(sorted_pid, targets)
+    note_host_fetch()
+    starts = starts.cpu().numpy()
+    n = int(starts[-1])
+    k = min(bucket_for(max(n, 1)), cap)
+    idx = rows[:k].long()
+    leaves = []
+    for c in table.columns:
+        leaves.append(c.data[idx])
+        leaves.append(c.validity[idx])
+    note_host_fetch()
+    host = _download_packed(leaves)
+    if metrics is not None:
+        metrics.add_metric("shuffleMapDownloads", 1)
+        metrics.add_metric("shuffleDownloadBytes",
+                           sum(int(a.nbytes) for a in host))
+    cols = [c.decode_host(host[2 * i][:n], host[2 * i + 1][:n])
+            for i, c in enumerate(table.columns)]
+    whole = HostTable(table.names, cols)
+    return [whole.slice(int(starts[p]), int(starts[p + 1] - starts[p]))
+            for p in range(nparts)]

@@ -374,9 +374,15 @@ def test_execute_yields_each_partition_compacted():
 
 
 def test_unported_shuffles_raise_naming_themselves():
-    """Past 32 partitions the reference takes the host shuffle, which is
-    not ported."""
-    df = tfrom(host_table_from_arrays(*_li(50)), TorchSession(device="cpu"))
-    with pytest.raises(NotImplementedError, match="33 partitions"):
-        df.repartition(33, "k").group_by("flag").agg(
-            TF.count("qty")).collect_table()
+    """Past 32 partitions the exchange takes the host shuffle, as the
+    reference's does: a repartition into 33 partitions runs (it no longer
+    raises) and its group-by equals the reference's
+    (``tables_differ``)."""
+    arrays = _li(50)
+    s = TorchSession(device="cpu")
+    got = tfrom(host_table_from_arrays(*arrays), s).repartition(
+        33, "k").group_by("flag").agg(TF.count("qty")).collect_table()
+    assert s.last_metrics().get("shuffleMapOutputs") == 1
+    want = jfrom(_reference_table(*arrays), TpuSession()).repartition(
+        33, "k").group_by("flag").agg(JF.count("qty")).collect_table()
+    assert tables_differ(_as_reference(got), want) is None

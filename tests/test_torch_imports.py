@@ -77,6 +77,64 @@ def test_every_module_imports_without_jax():
 PLANNING_MODULES = ("typesig", "docs", "api_validation", "optimizer")
 
 
+#: the distribution's modules: the host shuffle, the mesh, the re-land,
+#: the cluster and its executor entry point
+DISTRIBUTION_MODULES = (
+    "shuffle.serializer", "shuffle.catalogs", "shuffle.manager",
+    "shuffle.transport", "shuffle.client_server", "shuffle.heartbeat",
+    "shuffle.p2p", "parallel", "parallel.mesh", "parallel.exchange",
+    "execs.mesh", "runtime.cluster", "runtime.cluster_exec")
+
+
+@pytest.mark.parametrize("mod", DISTRIBUTION_MODULES)
+def test_the_distribution_modules_are_scanned(mod):
+    """The AST scan and the blocked import above cover every module of the
+    distribution, the executor's entry point included."""
+    scanned = {p.relative_to(ROOT).as_posix() for p in _port_files()}
+    path = "spark_rapids_tpu_torch/" + mod.replace(".", "/")
+    assert f"{path}.py" in scanned or f"{path}/__init__.py" in scanned
+
+
+def test_an_executor_scans_with_the_forbidden_modules_blocked(tmp_path):
+    """At run time too: a driver and an executor (thread mode, in a process
+    where JAX, the JAX package, pyarrow and pandas cannot import) scan a
+    Parquet file by host; nothing forbidden gets imported and no CUDA
+    context is made."""
+    code = (
+        "import sys\n" + _BLOCK +
+        "import numpy as np, torch\n"
+        "from spark_rapids_tpu_torch.interop import host_table_from_arrays\n"
+        "from spark_rapids_tpu_torch.plan import from_host_table\n"
+        "from spark_rapids_tpu_torch.session import TorchSession\n"
+        "from spark_rapids_tpu_torch.runtime import cluster as C\n"
+        "import os\n"
+        f"d = {str(tmp_path)!r}\n"
+        "t = host_table_from_arrays(['k'], ['bigint'], "
+        "[(np.arange(50, dtype=np.int64), np.ones(50, bool))])\n"
+        "from_host_table(t, TorchSession(device='cpu')).write_parquet(d)\n"
+        "paths = sorted(os.path.join(d, f) for f in os.listdir(d) "
+        "if f.endswith('.parquet'))\n"
+        "drv = C.ClusterDriver(1)\n"
+        "ex = C.spawn_executor(drv.address, 'h0', mode='thread')\n"
+        "try:\n"
+        "    drv.wait_ready(1, 30)\n"
+        "    C.CLUSTER.attach_driver(drv)\n"
+        "    s = TorchSession({'spark.rapids.cluster.enabled': 'true'}, "
+        "device='cpu')\n"
+        "    assert s.read_parquet(*paths).collect_table().num_rows == 50\n"
+        "    assert s.last_metrics()['hostShardsLanded'] == len(paths)\n"
+        "finally:\n"
+        "    ex.terminate(); drv.shutdown()\n"
+        "assert not torch.cuda.is_initialized()\n"
+        "assert not [m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN!r} and sys.modules[m] is not None]\n"
+        "print('ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")
+
+
 def test_the_planning_modules_are_scanned():
     """The AST scan above covers the overrides' planning modules."""
     scanned = {p.relative_to(ROOT).as_posix() for p in _port_files()}
