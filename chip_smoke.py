@@ -1,7 +1,7 @@
 """Drive the PyTorch port (spark_rapids_tpu_torch) on one CUDA card.
 
     python3 chip_smoke.py [--rows N] [--sf SF] [--seed S] [--profile DIR]
-                          [--only 21|22|23|24|25]
+                          [--only 21|22|23|24|25|26]
 
 Phases, in order; any failure exits non-zero:
 
@@ -302,10 +302,22 @@ Phases, in order; any failure exits non-zero:
    host.dispatch walks the host ladder; a SIGKILL mid-query, its detection
    in ms, the respawned executor's rejoin in s); every executor reaped in a
    finally. Every launch is held against its kernel's plain version;
-26. the summary lines: one ``{"kernels": [...]}`` JSON line (the five TPU
+26. static analysis (``run_static_analysis``): every tree phases 3-25
+   convert is verified as ``spark.rapids.sql.planVerify.mode=error`` would
+   verify it (the hook ``watch_cpu_route`` installs on
+   ``rules.convert_meta``; one diagnostic fails the run), with the count
+   of trees and the verifier's host ms; q1 and sparse q3 through a
+   ``TorchSession`` in error mode against their oracles; a hand-broken
+   converted plan (a Limit exec over a host node) raising
+   PlanVerificationError with the launch counters unchanged; and
+   ``python -m spark_rapids_tpu_torch.lint --json`` in a subprocess on the
+   card (repo lint, registry audit, the 88 golden plans converted for
+   ``cuda:0``, the executed metrics slice), which must exit 0. Every
+   launch is held against its kernel's plain version;
+27. the summary lines: one ``{"kernels": [...]}`` JSON line (the five TPU
    kernels and the DECIMAL128 division kernel, CUDA work beyond them;
    launches of the main path: q1's, sparse q3's probes, q8's MIN/MAX, plus
-   every phase-7 to phase-25 query's), the script's time, the card line,
+   every phase-7 to phase-26 query's), the script's time, the card line,
    and last ``{"ok": true, "device": {...}}``.
 
 Each phase logs its wall time. It needs one CUDA card and exits non-zero
@@ -314,8 +326,8 @@ trace of one warm run of q1, of each q3 form, of each phase-6, phase-7
 and phase-8 query, of phase 9's conditional query, of J1, J7, J8 and J9,
 of O1, O2, O3, O4a, O5, O6a and O7, of S1, S2, S5, S7 and S8 and of W1,
 W3, W4, W7, W8a and W8c, and of N1 and N3's posexplode. ``--only 21``
-(or ``22``, ``23``, ``24``, ``25``) runs phases 1-3 and then that phase over
-tables it makes itself. For the time limit, phases 11-13 take one warm
+(or ``22``, ``23``, ``24``, ``25``, ``26``) runs phases 1-3 and then that
+phase over tables it makes itself. For the time limit, phases 11-13 take one warm
 run before the counted one, 15.4 one, 16.4 none (the counted run's time
 is its warm time), and 15.3 one fresh process.
 """
@@ -8247,9 +8259,20 @@ PRIORITY_RANK = {"1-URGENT": 1, "2-HIGH": 2, "3-MEDIUM": 3}
 CPU_ROUTE = {"expected": False, "converted": 0}
 
 
+#: the plan verifier over every converted tree of the run (the hook
+#: ``watch_cpu_route`` installs): trees verified, the verifier's host ms
+#: (the service's workers convert concurrently: VERIFY_LOCK)
+VERIFY = {"trees": 0, "ms": 0.0}
+VERIFY_LOCK = threading.Lock()
+
+
 def watch_cpu_route() -> None:
     """Count the CPU-route nodes of every converted tree of the run (the
-    overrides' ``collect_cpu_nodes``): phases 3-20 must convert with 0."""
+    overrides' ``collect_cpu_nodes``): phases 3-20 must convert with 0.
+    Each tree is also verified as ``spark.rapids.sql.planVerify.mode=
+    error`` would verify it (lint/plan_verifier.py, its host time in
+    ``VERIFY``): one diagnostic fails the run."""
+    from spark_rapids_tpu_torch.lint.plan_verifier import verify_converted
     from spark_rapids_tpu_torch.obs.events import collect_fallbacks
     from spark_rapids_tpu_torch.overrides import rules
     convert_meta = rules.convert_meta
@@ -8261,6 +8284,14 @@ def watch_cpu_route() -> None:
         if nodes and not CPU_ROUTE["expected"]:
             fail(f"a query converted with CPU-route nodes {nodes}: "
                  f"{collect_fallbacks(meta)}")
+        t0 = time.perf_counter()
+        diags = verify_converted(root, meta, meta.conf)
+        with VERIFY_LOCK:
+            VERIFY["ms"] += (time.perf_counter() - t0) * 1e3
+            VERIFY["trees"] += 1
+        if diags:
+            fail(f"the plan verifier found {len(diags)} diagnostic(s) in "
+                 f"a converted tree: {'; '.join(map(str, diags[:8]))}")
         return root
 
     rules.convert_meta = counted
@@ -11268,6 +11299,156 @@ def run_distribution(q1_keep, q3_keep, corpus_keep, tables, seed) -> dict:
     return launches
 
 
+STATIC_BUDGET_S = 60.0
+#: the lint CLI's subprocess on the card (repo lint, registry audit, the 88
+#: golden plans converted for cuda:0, the executed metrics slice)
+STATIC_CLI_TIMEOUT_S = 300
+STATIC_PHASE = ("phase 26: static analysis (every converted tree of phases "
+                "3-25 verified, q1 and sparse q3 through a session with "
+                "planVerify.mode=error, a hand-broken plan raising before "
+                "any launch, the lint CLI on the card)")
+
+
+def only_static_keep(rows: int) -> dict:
+    """``--only 26``: phase 26's inputs made here, as phases 4-5 keep them
+    in a full run (q1's table and sparse q3's tables, each with its
+    oracle check)."""
+    from spark_rapids_tpu_torch.models.tpch import lineitem_table, q3_tables
+    li = lineitem_table(rows, seed=0)
+    o1 = q1_oracle(li)
+    sparse = tuple(sparse_form(t) for t in q3_tables(rows, seed=0))
+    o3 = q3_oracle(*sparse)
+    return {"TPC-H q1": {"tables": (li,),
+                         "check": lambda g: check_q1_result(g, o1)},
+            "q3 sparse": {"tables": sparse,
+                          "check": lambda g: check_q3_result(
+                              g, o3, "q3 sparse")}}
+
+
+def run_static_analysis(q1_keep, q3_keep) -> dict:
+    """Phase 26: 26.1 the verifier's count over every converted tree so
+    far; 26.2 q1 and sparse q3 through a session in error mode, each
+    verified and held to its oracle; 26.3 a hand-broken converted plan
+    (a Limit exec over a host node) raising PlanVerificationError before
+    any launch; 26.4 ``python -m spark_rapids_tpu_torch.lint --json`` in a
+    subprocess on the card. Returns the phase's launches, every one held
+    against its kernel's plain version."""
+    from spark_rapids_tpu_torch import kernels as K
+    from spark_rapids_tpu_torch.errors import PlanVerificationError
+    from spark_rapids_tpu_torch.execs.basic import TpuLimitExec
+    from spark_rapids_tpu_torch.lint import plan_verifier
+    from spark_rapids_tpu_torch.models.tpch import q1_dataframe, q3_dataframe
+    from spark_rapids_tpu_torch.overrides import rules
+    from spark_rapids_tpu_torch.plan import nodes as P
+    from spark_rapids_tpu_torch.session import TorchSession
+    t_phase = time.perf_counter()
+    card = card_line()
+    trees, ms = VERIFY["trees"], VERIFY["ms"]
+    log(f"  26.1 the plan verifier over every tree converted so far: "
+        f"{trees} trees, 0 diagnostics, {ms:.1f} ms of host time in all "
+        f"({ms / max(trees, 1):.3f} ms a tree; {card})")
+    res = {"verifiedTrees": trees, "verifierMs": round(ms, 3)}
+
+    # 26.2: the session's own path
+    session_ms = []
+    orig = plan_verifier.verify_converted
+
+    def timed(root, meta=None, conf=None):
+        t0 = time.perf_counter()
+        try:
+            return orig(root, meta, conf)
+        finally:
+            session_ms.append((time.perf_counter() - t0) * 1e3)
+
+    s = TorchSession({"spark.rapids.sql.planVerify.mode": "error"})
+    K.reset_launch_counts()
+    K.calls = held = HeldCalls()
+    plan_verifier.verify_converted = timed
+    try:
+        for name, make, keep in (
+                ("TPC-H q1", lambda: q1_dataframe(s, *q1_keep["tables"]),
+                 q1_keep),
+                ("q3 sparse", lambda: q3_dataframe(s, *q3_keep["tables"]),
+                 q3_keep)):
+            n0 = len(session_ms)
+            t0 = time.perf_counter()
+            got = make().collect_table()
+            wall = (time.perf_counter() - t0) * 1e3
+            keep["check"](got)
+            verified = session_ms[n0:]
+            if not verified:
+                fail(f"26.2 {name}: the session ran a tree it did not "
+                     "verify")
+            res[name] = {"ms": round(wall, 2), "verifications": len(verified),
+                         "verifyMs": round(sum(verified), 3),
+                         "replays": s.last_metrics().get(
+                             "speculationReplays", 0)}
+            log(f"  26.2 {name} with planVerify.mode=error: oracle ok, "
+                f"{len(verified)} tree(s) verified in {sum(verified):.2f} "
+                f"ms, {wall:.1f} ms cold")
+    finally:
+        plan_verifier.verify_converted = orig
+        K.calls = None
+    launches = K.launch_counts()
+    if held.bad:
+        fail(f"phase 26: launches disagree with their plain versions: "
+             f"{held.bad[:8]}")
+    if not any(launches.values()):
+        fail("phase 26 launched no kernel")
+
+    # 26.3: a hand-broken converted plan raises before anything runs
+    broken = TorchSession({"spark.rapids.sql.planVerify.mode": "error",
+                           "spark.rapids.sql.executableCache.enabled":
+                               "false"})
+    before = K.launch_counts()
+    hooked = rules.convert_meta
+    rules.convert_meta = lambda meta, device: TpuLimitExec(
+        P.RangeNode(0, 10), 5)
+    try:
+        q1_dataframe(broken, *q1_keep["tables"]).collect_table()
+    except PlanVerificationError as exc:
+        ids = sorted({d.rule_id for d in exc.diagnostics})
+    else:
+        fail("26.3: a Limit exec over a host node ran in error mode")
+    finally:
+        rules.convert_meta = hooked
+    if "PV-TRANSITION" not in ids or K.launch_counts() != before:
+        fail(f"26.3: the broken plan gave {ids}, launches "
+             f"{before} -> {K.launch_counts()}")
+    log(f"  26.3 a Limit exec over a host node: PlanVerificationError "
+        f"{ids} before any launch (launch counters unchanged)")
+    res["broken"] = ids
+
+    # 26.4: the CLI on the card
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "spark_rapids_tpu_torch.lint", "--json"],
+        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+        text=True, timeout=STATIC_CLI_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    if out.returncode != 0:
+        fail(f"26.4: the lint CLI exited {out.returncode}: "
+             f"{out.stdout[-3000:]} {out.stderr[-3000:]}")
+    rep = json.loads(out.stdout)
+    if not rep["ok"] or sorted(rep["phases"]) != [
+            "exec_metrics", "plans", "registry", "repo"] or \
+            any(rep["phases"].values()):
+        fail(f"26.4: the lint CLI reported {rep}")
+    log(f"  26.4 python -m spark_rapids_tpu_torch.lint --json on the card: "
+        f"exit 0, phases {rep['phases']}, {wall:.1f} s wall ({card})")
+    res["cli"] = {"phases": rep["phases"], "wallS": round(wall, 2)}
+
+    took = time.perf_counter() - t_phase
+    summary = {"card": card, "seconds": round(took, 1),
+               "launches": {k: v for k, v in launches.items() if v},
+               "held": dict(held.held), "cells": res}
+    if took > STATIC_BUDGET_S:
+        log(f"  phase 26 took {took:.1f} s, past its {STATIC_BUDGET_S:.0f} "
+            "s aim")
+    log("  phase-26 summary: " + json.dumps(summary, default=str))
+    return launches
+
+
 def corpus_checks(tables) -> dict:
     """{corpus query: oracle check} of all 22 (phases 6-8's oracles)."""
     from spark_rapids_tpu_torch.session import TorchSession
@@ -11292,7 +11473,7 @@ def main(argv=None) -> int:
                     help="directory for torch.profiler tables and traces of "
                          "one warm run of q1, of each q3 form and of each "
                          "phase-6 query")
-    ap.add_argument("--only", type=int, choices=(21, 22, 23, 24, 25),
+    ap.add_argument("--only", type=int, choices=(21, 22, 23, 24, 25, 26),
                     default=None,
                     help="run phases 1-3 and this phase only (its tables "
                          "made here); a full run is the default")
@@ -11430,6 +11611,16 @@ def main(argv=None) -> int:
                                      args.seed).items():
             launches[k] = launches.get(k, 0) + v
         log(f"  phase 25 ran {time.perf_counter() - t_phase:.1f} s")
+        return summary_phase(rows, launches, t_start)
+    if args.only == 26:
+        launches = {r["name"]: 0 for r in rows}
+        keep = only_static_keep(args.rows)
+        t_phase = time.perf_counter()
+        log(STATIC_PHASE)
+        for k, v in run_static_analysis(keep["TPC-H q1"],
+                                        keep["q3 sparse"]).items():
+            launches[k] = launches.get(k, 0) + v
+        log(f"  phase 26 ran {time.perf_counter() - t_phase:.1f} s")
         return summary_phase(rows, launches, t_start)
 
     #: what phases 4-8 keep of each DSL form for phase 9's SQL forms
@@ -11627,11 +11818,17 @@ def main(argv=None) -> int:
                                  tables, args.seed).items():
         launches[k] = launches.get(k, 0) + v
     log(f"  phase 25 ran {time.perf_counter() - t_phase:.1f} s")
+
+    t_phase = time.perf_counter()
+    log(STATIC_PHASE)
+    for k, v in run_static_analysis(q1_keep, dist_keep["q3 sparse"]).items():
+        launches[k] = launches.get(k, 0) + v
+    log(f"  phase 26 ran {time.perf_counter() - t_phase:.1f} s")
     return summary_phase(rows, launches, t_start)
 
 
 def summary_phase(rows, launches, t_start: float) -> int:
-    log("phase 26: summary")
+    log("phase 27: summary")
     log("  dec128_divide is CUDA work beyond the five TPU kernels: the "
         "reference divides DECIMAL128 values on its host")
     for r in rows:

@@ -375,6 +375,24 @@ class DeviceColumn:
             res.release()
 
     @staticmethod
+    def from_array(dtype: T.DataType, data: np.ndarray,
+                   device: torch.device) -> "DeviceColumn":
+        """A full-capacity host array whose every slot is valid (an
+        operand an exec draws on the host: a sample's keep mask,
+        ``rand``'s values) on ``device``: a landing like ``from_host``'s,
+        reserved and accounted with the memory arbiter, in one copy (the
+        validity is made on the device)."""
+        from spark_rapids_tpu_torch.runtime.memory import MEMORY
+        n = len(data)
+        res = MEMORY.reserve(data.nbytes + n, label="from_array")
+        try:
+            return MEMORY.account(DeviceColumn(
+                dtype, torch.from_numpy(data).to(device),
+                torch.ones(n, dtype=torch.bool, device=device)), res)
+        finally:
+            res.release()
+
+    @staticmethod
     def _upload(host: HostColumn, capacity: int,
                 device: torch.device) -> "DeviceColumn":
         n = len(host)

@@ -54,6 +54,14 @@ EXPLAIN = _conf(
     "spark.rapids.sql.explain", "NONE",
     "NONE, NOT_ON_GPU (log reasons for fallbacks) or ALL.", str)
 
+PLAN_VERIFY_MODE = _conf(
+    "spark.rapids.sql.planVerify.mode", "off",
+    "Static plan verification of every converted plan before execution "
+    "(spark_rapids_tpu_torch.lint): off, warn (print diagnostics and "
+    "continue), or error (raise PlanVerificationError). `python -m "
+    "spark_rapids_tpu_torch.lint` runs the same verifier over the TPC-H "
+    "golden suite plus the registry/repo audits.", str)
+
 
 def _attempts(v) -> int:
     n = int(v)
@@ -819,9 +827,9 @@ _OP_MODULES = ("spark_rapids_tpu_torch.plan.nodes",
                "spark_rapids_tpu_torch.sql.analyzer")
 
 
-def _op_names(kind: str) -> set:
-    """The operator names a kill switch of ``kind`` may name: the plan
-    nodes' class names (``exec``) or the expressions' (``expression``)."""
+def _import_op_modules() -> None:
+    """Import every module that defines a plan node or an expression a
+    kill switch may name."""
     import importlib
     import pkgutil
 
@@ -830,12 +838,22 @@ def _op_names(kind: str) -> set:
             f"spark_rapids_tpu_torch.ops.{m.name}"
             for m in pkgutil.iter_modules(ops.__path__)):
         importlib.import_module(mod)
+
+
+def _op_names(kind: str) -> set:
+    """The operator names a kill switch of ``kind`` may name: the plan
+    node classes (``exec``) or the expression classes (``expression``)
+    whose switch the tag consults (``overrides/rules.py::has_rule``); a
+    switch naming any other class would switch nothing."""
+    _import_op_modules()
     from spark_rapids_tpu_torch.ops.expr import Expression
+    from spark_rapids_tpu_torch.overrides.rules import has_rule
     from spark_rapids_tpu_torch.plan.nodes import PlanNode
     names, todo = set(), [PlanNode if kind == "exec" else Expression]
     while todo:
         cls = todo.pop()
-        names.add(cls.__name__)
+        if has_rule(kind, cls):
+            names.add(cls.__name__)
         todo.extend(cls.__subclasses__())
     return names
 
@@ -849,6 +867,51 @@ def _unknown_kill_switches(keys) -> list:
             known = _op_names(kind)
             out += [k for k in named if k[len(prefix):] not in known]
     return out
+
+
+def registry() -> Dict[str, ConfEntry]:
+    """Every declared key (a copy)."""
+    return dict(_REGISTRY)
+
+
+def _import_package() -> None:
+    """Import every module of the port, so the keys a module declares at
+    import are in the registry (``__main__`` entry points run on import
+    and are skipped)."""
+    import importlib
+    import pkgutil
+
+    import spark_rapids_tpu_torch
+    for m in pkgutil.walk_packages(spark_rapids_tpu_torch.__path__,
+                                   "spark_rapids_tpu_torch."):
+        if not m.name.endswith(".__main__"):
+            importlib.import_module(m.name)
+
+
+def generate_docs() -> str:
+    """The port's configuration reference as markdown: one row per
+    declared key (the reference's ``generate_docs``; committed as
+    ``spark_rapids_tpu_torch/docs/CONFIGS.md``)."""
+    _import_package()
+    lines = [
+        "# spark_rapids_tpu_torch configuration",
+        "",
+        "Generated from the conf registry "
+        "(`spark_rapids_tpu_torch.conf.generate_docs`); regenerate with "
+        "`python -m spark_rapids_tpu_torch.lint --write-docs`. A key not "
+        "listed here raises, except the per-operator kill switches "
+        "`spark.rapids.sql.exec.<Node>` and "
+        "`spark.rapids.sql.expression.<Expr>` (default true), one for "
+        "every operator of `SUPPORTED_OPS.md`.",
+        "",
+        "| Key | Default | Description |",
+        "|---|---|---|",
+    ]
+    for key in sorted(_REGISTRY):
+        e = _REGISTRY[key]
+        lines.append(f"| `{e.key}` | `{e.default}` | {e.doc} |")
+    lines.append("")
+    return "\n".join(lines)
 
 
 class RapidsConf:

@@ -94,6 +94,19 @@ class MapOutputLostError(RapidsTpuError):
         self.map_ids = None if map_ids is None else sorted(set(map_ids))
 
 
+class PlanVerificationError(RapidsTpuError):
+    """A converted plan violated a structural invariant
+    (spark.rapids.sql.planVerify.mode=error). Carries the structured
+    diagnostics in ``.diagnostics``; the message lists rule id + plan
+    path per finding."""
+
+    def __init__(self, diagnostics):
+        self.diagnostics = list(diagnostics)
+        super().__init__(
+            "plan verification failed:\n" +
+            "\n".join(f"  {d}" for d in self.diagnostics))
+
+
 class DeviceLostError(RapidsTpuError):
     """The device was lost mid-query: an injected ``device_lost`` fault,
     or a fatal CUDA error classified by

@@ -126,6 +126,14 @@ from spark_rapids_tpu_torch.ops.segsum import (
 )
 from spark_rapids_tpu_torch.runtime import speculation as spec
 
+#: the aggregate functions the device exec computes (the reference's
+#: ``DEVICE_SUPPORTED_AGGS``; the plan verifier's PV-AGG and the registry
+#: audit's RA-SQL-EXPOSURE read it)
+DEVICE_SUPPORTED_AGGS = (agg.Sum, agg.Min, agg.Max, agg.Count, agg.Average,
+                         agg.First, agg.Last, agg.StddevPop, agg.StddevSamp,
+                         agg.VariancePop, agg.VarianceSamp,
+                         agg.CollectList, agg.CollectSet, agg.Percentile)
+
 #: sort-segment outputs up to this capacity keep their size (the
 #: reference's DeviceTable.EMBED_NROWS_CAP, below which it does not
 #: speculate a shrink)

@@ -385,10 +385,13 @@ class TpuSampleExec(TpuExec):
 
         def make_run(keep_host):
             def run(dt):
-                keep = torch.from_numpy(keep_host).to(dt.device)
+                # the draw lands like a column (reserved and accounted
+                # with the memory arbiter) for as long as it is used
+                keep_col = DeviceColumn.from_array(T.BOOLEAN, keep_host,
+                                                   dt.device)
                 outs, new_n = compact_pairs([c.data for c in dt.columns],
                                             [c.validity for c in dt.columns],
-                                            keep, dt.capacity)
+                                            keep_col.data, dt.capacity)
                 cols = [c.with_arrays(d, v)
                         for c, (d, v) in zip(dt.columns, outs)]
                 return DeviceTable(dt.names, cols, new_n, dt.capacity,

@@ -26,7 +26,7 @@ import numpy as np
 import torch
 
 from spark_rapids_tpu_torch import types as T
-from spark_rapids_tpu_torch.columnar import HostColumn, HostTable
+from spark_rapids_tpu_torch.columnar import DeviceColumn, HostColumn, HostTable
 from spark_rapids_tpu_torch.errors import ColumnarProcessingError
 from spark_rapids_tpu_torch.ops.expr import DevVal, EvalCtx, Expression
 
@@ -97,10 +97,11 @@ def build_bloom_filter(df, column: str, num_bits: int = None,
             f"bloom filter column {column} must be integral, got "
             f"{dt.simple_string()}")
     host = sel.collect_table().columns[0]
-    values = torch.from_numpy(np.ascontiguousarray(
-        host.data, dtype=np.int64)).to(session.device)
-    valid = torch.from_numpy(np.ascontiguousarray(
-        host.validity)).to(session.device)
+    # the build column lands like a scan's: reserved and accounted with
+    # the memory arbiter while the bits are built
+    col = DeviceColumn.from_host(host, len(host), session.device)
+    values = col.data.to(torch.int64)
+    valid = col.validity
     return BloomFilter(build_bits(values, valid, int(num_bits),
                                   int(num_hashes)), num_hashes)
 

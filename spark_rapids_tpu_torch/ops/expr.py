@@ -110,6 +110,16 @@ class Expression:
     def name(self) -> str:
         return type(self).__name__
 
+    @property
+    def nullable(self) -> bool:
+        """May the expression produce a null (the reference's derived
+        contract: nullable when any child is, a leaf nullable unless it
+        says otherwise)? A null-suppressing operator overrides the
+        property; the plan verifier's PV-NULLABLE flags a plain class
+        attribute that shadows it."""
+        return any(c.nullable for c in self.children) \
+            if self.children else True
+
     def with_children(self, children: Sequence["Expression"]) -> "Expression":
         raise NotImplementedError(type(self).__name__)
 
@@ -330,6 +340,10 @@ class Literal(Expression):
     def data_type(self):
         return self._dtype
 
+    @property
+    def nullable(self):
+        return self.value is None
+
     def with_children(self, children):
         return self
 
@@ -388,6 +402,10 @@ class Alias(Expression):
     @property
     def data_type(self):
         return self.children[0].data_type
+
+    @property
+    def nullable(self):
+        return self.children[0].nullable
 
     def with_children(self, children):
         return Alias(children[0], self.out_name)

@@ -28,7 +28,7 @@ import numpy as np
 import torch
 
 from spark_rapids_tpu_torch import types as T
-from spark_rapids_tpu_torch.columnar import HostColumn
+from spark_rapids_tpu_torch.columnar import DeviceColumn, HostColumn
 from spark_rapids_tpu_torch.ops.common import UnaryExpression, dev_remap_codes
 from spark_rapids_tpu_torch.ops.expr import (
     DevVal,
@@ -248,8 +248,10 @@ class Rand(Expression):
         table = pctx.table
         vals = np.zeros(table.capacity)
         vals[:table.num_rows] = self._rng.random(table.num_rows)
-        return NodePrep(aux={"vals": torch.from_numpy(vals).to(
-            table.device)})
+        # a row-sized landing: reserved and accounted with the memory
+        # arbiter like a column, for as long as the prep holds it
+        col = DeviceColumn.from_array(T.DOUBLE, vals, table.device)
+        return NodePrep(aux={"vals": col.data, "column": col})
 
     def eval_dev(self, ctx, child_vals, prep):
         vals = prep.aux["vals"]

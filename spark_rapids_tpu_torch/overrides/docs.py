@@ -4,7 +4,9 @@
 the same registries the tagging reads (overrides/rules.py's device
 nodes, file scans, ``_EXPR_SIGS`` and ``_EXPR_CHECKS``), so the document
 cannot drift from the fallbacks. ``generate_supported_ops()`` returns it
-as a string; the port commits no copy."""
+as a string; ``python -m spark_rapids_tpu_torch.lint --write-docs``
+commits it as ``spark_rapids_tpu_torch/docs/SUPPORTED_OPS.md``, which the
+registry audit's RA-DOC-DRIFT-OPS holds to this generator."""
 
 from __future__ import annotations
 
@@ -50,12 +52,16 @@ def generate_supported_ops() -> str:
     """The matrix as markdown: one row per exec, one per expression (and
     per parameter where per-parameter checks exist), an S or NS cell per
     type column."""
-    import spark_rapids_tpu_torch.io  # noqa: F401 (registers the scans)
+    from spark_rapids_tpu_torch.conf import _import_package
     from spark_rapids_tpu_torch.overrides import rules as R
     from spark_rapids_tpu_torch.overrides.typesig import (
         COMMON_128,
         lookup_mro,
     )
+    # every file scan registers at its module's import (io/, delta/,
+    # iceberg/): the whole package, so the document does not depend on
+    # what the process imported first
+    _import_package()
     R._build_expr_sigs()
     header = ("| Operator | " + " | ".join(n for n, _ in _TYPE_COLUMNS)
               + " | Notes |")

@@ -137,9 +137,9 @@ def _build_expr_sigs() -> None:
     ``device_supported``), then the reference's per-parameter checks."""
     if _EXPR_SIGS:
         return
-    from spark_rapids_tpu_torch.conf import _op_names
+    from spark_rapids_tpu_torch.conf import _import_op_modules
     from spark_rapids_tpu_torch.ops.expr import Expression
-    _op_names("expression")  # imports every module that defines one
+    _import_op_modules()
     todo = [Expression]
     while todo:
         cls = todo.pop()
@@ -244,6 +244,18 @@ for _cls in (P.LocalScan, P.Project, P.CachedRelation):
     register_exec_sig(_cls, NESTED_128)
 for _cls in (P.Generate, P.Aggregate):
     register_exec_sig(_cls, COMMON_PLUS_ARRAYS)
+
+
+def has_rule(kind: str, cls: type) -> bool:
+    """Does the tag consult the kill switch
+    ``spark.rapids.sql.<kind>.<cls name>``? An exec: a device plan node (or
+    a subclass) or a registered file scan (``PlanMeta.tag``); an
+    expression: a class with a signature of its own or of a base
+    (``check_expr``)."""
+    if kind == "exec":
+        return issubclass(cls, _DEVICE_NODES) or cls in _FILE_SCANS
+    _build_expr_sigs()
+    return lookup_mro(_EXPR_SIGS, cls) is not None
 
 
 def check_expr(e, conf: C.RapidsConf, reasons: List[str],

@@ -177,7 +177,11 @@ class ClusterRuntime:
     hosts the shrink rung evicted (their device group leaves the dcn
     axis until restore), and ``_single_process_reason`` is the
     bottom-rung latch — the driver scans everything locally until a
-    host rejoins."""
+    host rejoins. A host the re-land rung marked is also in
+    ``_awaiting_reland`` until a scan has routed its work onto the
+    survivors (``take_relands``): the sweep's restore on evidence of
+    health waits for that, so the replay the rung was taken for
+    re-lands however fast the sweep runs."""
 
     def __init__(self):
         self._lock = ordered_lock("cluster.runtime")
@@ -188,6 +192,7 @@ class ClusterRuntime:
         self._driver: Optional["ClusterDriver"] = None
         self._lost: set = set()
         self._excluded: set = set()
+        self._awaiting_reland: set = set()
         self._single_process_reason: Optional[str] = None
         self._degraded_reason: Optional[str] = None
         #: (generation, {device id -> host index}) — the collective
@@ -222,6 +227,7 @@ class ClusterRuntime:
             if driver is None:
                 self._lost = set()
                 self._excluded = set()
+                self._awaiting_reland = set()
                 self._single_process_reason = None
                 self._degraded_reason = None
             self._generation += 1
@@ -336,17 +342,20 @@ class ClusterRuntime:
         return mapping
 
     # -- the host degradation ladder's cluster half --------------------------
-    def mark_host_lost(self, host_id: Optional[str], reason: str) -> Optional[str]:
+    def mark_host_lost(self, host_id: Optional[str], reason: str,
+                       reland: bool = False) -> Optional[str]:
         """Declare one host lost (the sweep's missed-beat verdict, a
-        dead dispatch socket, or the ladder's re-land rung). With no
-        host named (injected losses), the LAST usable host is the
-        deterministic choice. Subsequent scans re-land the host's
+        dead dispatch socket, or the ladder's re-land rung: ``reland``).
+        With no host named (injected losses), the LAST usable host is
+        the deterministic choice. Subsequent scans re-land the host's
         shards onto survivors; the host rejoins via restore_host.
         Returns the host id marked, or None when nothing usable is
         left to mark."""
         with self._lock:
             if host_id is not None and host_id in self._declared_ids_locked():
                 if host_id in self._lost or host_id in self._excluded:
+                    if reland and host_id in self._lost:
+                        self._awaiting_reland.add(host_id)
                     return host_id  # already marked; never pick a second victim
             else:
                 usable = self._usable_hosts_locked()
@@ -354,6 +363,8 @@ class ClusterRuntime:
                     return None
                 host_id = usable[-1]
             self._lost.add(host_id)
+            if reland:
+                self._awaiting_reland.add(host_id)
             self._degraded_reason = reason
             self._generation += 1
         CLUSTER_SCOPE.add("hostsLost", 1)
@@ -377,6 +388,7 @@ class ClusterRuntime:
                 host_id = (lost_first or candidates)[-1]
             self._excluded.add(host_id)
             self._lost.discard(host_id)
+            self._awaiting_reland.discard(host_id)
             self._degraded_reason = reason
             self._generation += 1
         CLUSTER_SCOPE.add("hostShrinks", 1)
@@ -411,6 +423,7 @@ class ClusterRuntime:
             restore_mesh = host_id in self._excluded
             self._lost.discard(host_id)
             self._excluded.discard(host_id)
+            self._awaiting_reland.discard(host_id)
             self._single_process_reason = None
             if not self._lost and not self._excluded:
                 self._degraded_reason = None
@@ -433,6 +446,7 @@ class ClusterRuntime:
             lost_mesh = bool(self._excluded)
             self._lost = set()
             self._excluded = set()
+            self._awaiting_reland = set()
             self._single_process_reason = None
             self._degraded_reason = None
             if had:
@@ -441,6 +455,20 @@ class ClusterRuntime:
             from spark_rapids_tpu_torch.parallel.mesh import MESH
             MESH.restore("cluster topology restored")
         return had
+
+    def restorable_lost_hosts(self) -> List[str]:
+        """The lost hosts the sweep may restore on evidence of health:
+        all but those whose re-land no scan has taken yet."""
+        with self._lock:
+            return sorted(self._lost - self._awaiting_reland)
+
+    def take_relands(self) -> int:
+        """A scan routes around the lost hosts: how many there are (the
+        scan's ``hostRelands``), and the re-land rung's marks are
+        consumed, so the sweep may restore those hosts from now on."""
+        with self._lock:
+            self._awaiting_reland = set()
+            return len(self._lost)
 
     def degraded_reason(self) -> Optional[str]:
         with self._lock:
@@ -819,13 +847,13 @@ class ClusterDriver:
                 host_id,
                 f"host {host_id} missed {self.missed_beats} heartbeats "
                 f"({self.heartbeat_ms}ms interval)")
-        snap = CLUSTER.health_snapshot()
-        if snap["lostHosts"]:
+        lost = CLUSTER.restorable_lost_hosts()
+        if lost:
             alive = set(self._hb.live_executors())
             with self._lock:
                 beating = set(self._beat_alive)
                 have = set(self._channels)
-            for host_id in snap["lostHosts"]:
+            for host_id in lost:
                 if (host_id in alive and host_id in beating
                         and host_id in have):
                     CLUSTER.restore_host(host_id)
@@ -967,7 +995,7 @@ class ClusterDriver:
         # around, pending a rejoin); EXCLUDED hosts left the topology
         # deliberately via the shrink rung — steady-state scans on the
         # shrunk cluster are not degradation events
-        relanded = len(CLUSTER.health_snapshot()["lostHosts"])
+        relanded = CLUSTER.take_relands()
         if relanded > 0:
             CLUSTER_SCOPE.add("hostRelands", relanded)
         # contiguous slices in host order preserve global path order

@@ -346,7 +346,7 @@ class DeviceHealthMonitor:
         if n == 1:
             return "retry"
         if n == 2:
-            CLUSTER.mark_host_lost(host_id, reason)
+            CLUSTER.mark_host_lost(host_id, reason, reland=True)
             return "reland"
         if budget:
             if CLUSTER.shrink_excluding(host_id, reason):

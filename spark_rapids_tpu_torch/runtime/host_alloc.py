@@ -6,9 +6,11 @@ and PinnedMemoryPool).
 limit first free host memory (the spill catalog's host tier goes to
 disk), then wait a bounded time for other tasks to release, then raise
 ``CpuRetryOOM``, which the retry framework handles like a device OOM.
-Its consumer here is the spill catalog: every host copy of a spilled
-batch holds a grant (runtime/spill.py). The reference's other consumer,
-the shuffle manager's host buffers, is not ported.
+Its consumers are the reference's two: the spill catalog, where every
+host copy of a spilled batch holds a grant (runtime/spill.py), and the
+shuffle manager, whose serialized map output holds one until it is
+flushed, when it is written and when it is rewritten for recovery
+(shuffle/manager.py ``write_partitions``, ``rewrite_map``).
 ``PinnedMemoryPool`` hands out page-locked torch buffers
 (``torch.empty(..., dtype=torch.uint8, pin_memory=True)``) for
 device-to-host spill copies (``spark.rapids.memory.pinnedPool.size``);

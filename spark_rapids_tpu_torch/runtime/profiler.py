@@ -222,14 +222,18 @@ class TorchProfiler:
 
 
 _NVTX = []
+_NVTX_LOCK = ordered_lock("profiler.nvtx")
 
 
 def _nvtx_enabled() -> bool:
     """NVTX ranges where CUDA is available; a CPU-only torch has no NVTX
-    library (its ``torch.cuda.nvtx`` raises when called)."""
+    library (its ``torch.cuda.nvtx`` raises when called). Decided once,
+    by the first caller (query workers pull execs concurrently)."""
     if not _NVTX:
         import torch
-        _NVTX.append(torch.cuda.is_available())
+        with _NVTX_LOCK:
+            if not _NVTX:
+                _NVTX.append(torch.cuda.is_available())
     return _NVTX[0]
 
 

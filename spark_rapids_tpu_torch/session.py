@@ -801,6 +801,34 @@ class TorchSession:
                 replays += 1
                 RECOVERY.bump("query_replays")
 
+    def _verify_plan(self, root, meta) -> None:
+        """``spark.rapids.sql.planVerify.mode``: off, warn (print each
+        diagnostic) or error (raise PlanVerificationError, which no
+        recovery layer catches); any other value raises. Runs on a fresh
+        conversion only (a cache hit was verified when it was made), and
+        not at all with ``spark.rapids.sql.enabled=false`` (no meta). The
+        verifier reads structure only: no CUDA call, no host sync."""
+        from spark_rapids_tpu_torch.conf import PLAN_VERIFY_MODE
+        from spark_rapids_tpu_torch.errors import (
+            ColumnarProcessingError,
+            PlanVerificationError,
+        )
+        mode = str(self.conf.get_entry(PLAN_VERIFY_MODE)).lower()
+        if mode not in ("off", "warn", "error"):
+            raise ColumnarProcessingError(
+                f"spark.rapids.sql.planVerify.mode must be off, warn or "
+                f"error, got {mode!r}")
+        if mode == "off" or meta is None:
+            return
+        from spark_rapids_tpu_torch.lint.plan_verifier import (
+            verify_converted,
+        )
+        diags = verify_converted(root, meta, self.conf)
+        if diags and mode == "error":
+            raise PlanVerificationError(diags)
+        for d in diags:
+            print(f"planVerify: {d}")
+
     def _execute_cpu_only(self, plan: P.PlanNode) -> HostTable:
         """A query of a process latched CPU-only (runtime/health.py): the
         tag gives every node the latch's reason, and the host plan is
@@ -942,6 +970,10 @@ class TorchSession:
                 # spark.rapids.sql.enabled=false: the whole plan on the
                 # CPU route, untagged (the reference's CPU oracle)
                 meta, root = None, CpuRootExec(plan)
+            # static plan verification (lint/plan_verifier.py): the
+            # converted tree's cross-layer invariants, proved before it
+            # runs (the reference's session.py:925-944)
+            self._verify_plan(root, meta)
             # a cached tree keeps its ids and dumpers (the lore conf folds
             # into its fingerprint): renumbering would shift ids past the
             # dumpers, and install_dumpers is not idempotent

@@ -5,9 +5,11 @@ A temp view holds a plan; ``SELECT ... FROM name`` reads that plan.
 File-format tables (``register_table``, ``CREATE TEMP VIEW ... USING
 fmt``) resolve lazily through the source provider SPI
 (``sources.create_scan``), so each lookup scans the files as they are
-then; views and tables share one name space, views first. Session-scoped
-functions need ``udf.py``, which is not ported: registering one raises
-NotImplementedError."""
+then; views and tables share one name space, views first.
+``register_function`` makes a session-scoped function callable from SQL
+(a UDF of ``functions.udf``, compiled or row-wise on the CPU route, or an
+F-style composition); the analyzer looks it up before the global and
+builtin tables (sql/registry.py)."""
 
 from __future__ import annotations
 

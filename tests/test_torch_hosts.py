@@ -212,19 +212,19 @@ def test_executors_import_nothing_forbidden_and_make_no_cuda_call(cluster2):
 def test_host_loss_walks_the_ladder_and_converges(cluster2, corpus, point):
     """device_lost twice at a host.* point: the typed HostLostError walks
     retry then re-land on the survivor; the result is unchanged, the
-    ladder's counters the reference's walk, and the marked host (whose
-    process never died) is restored by the sweep."""
+    replay's scan re-lands the marked host's files (the sweep restores a
+    re-land rung's host only after a scan has routed around it), the
+    ladder's counters are the reference's walk, and the marked host
+    (whose process never died) is restored by the sweep."""
     s = _session({"spark.rapids.test.faults": f"{point}:device_lost:2:3"})
     before = _cluster_scope()
     got = _agg(s, corpus).collect_table()
     assert tables_differ(_ref(got), _expected(corpus, "agg")) is None
     snap = thealth.HEALTH.host_snapshot()
     assert snap["hostsLost"] == 2
-    # (whether the replay's scan still saw the host lost races the sweep,
-    # which restores a host whose process never died: the SIGKILL test
-    # below holds the re-land's count)
     after = _cluster_scope()
     assert after.get("hostsLost", 0) - before.get("hostsLost", 0) == 1
+    assert after.get("hostRelands", 0) - before.get("hostRelands", 0) >= 1
     assert s.last_metrics()["runtimeFaultReplays"] == 0
     assert _wait_for(
         lambda: not CLUSTER.health_snapshot()["lostHosts"], 20.0), \

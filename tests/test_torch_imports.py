@@ -332,3 +332,27 @@ def test_warmup_reaches_neither_scale_test_nor_the_reference(tmp_path):
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().splitlines()[-1] == "ok"
+
+
+#: the static-analysis layer's modules: each must exist and import with
+#: JAX, the JAX package, pyarrow and pandas blocked
+LINT_MODULES = (
+    "lint/__init__.py", "lint/__main__.py", "lint/diagnostics.py",
+    "lint/plan_verifier.py", "lint/golden.py", "lint/registry_audit.py",
+    "lint/repo_lint.py", "lint/rules/__init__.py", "lint/rules/common.py",
+    "lint/rules/conf_keys.py", "lint/rules/determinism.py",
+    "lint/rules/fault_points.py", "lint/rules/io_write.py",
+    "lint/rules/obs_passive.py", "lint/rules/streaming_epoch.py",
+    "lint/rules/thread_shared.py", "lint/rules/device_residency.py")
+
+
+@pytest.mark.parametrize("rel", LINT_MODULES)
+def test_lint_module_is_the_ports_own(rel):
+    test_io_module_is_the_ports_own(rel)
+
+
+def test_the_lint_package_is_whole():
+    """Every module of the port's lint/ is in the list above."""
+    have = sorted(p.relative_to(PORT).as_posix()
+                  for p in (PORT / "lint").rglob("*.py"))
+    assert have == sorted(LINT_MODULES)
