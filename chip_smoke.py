@@ -234,7 +234,7 @@ Phases, in order; any failure exits non-zero:
    18.4 (q1 answered twice on the CPU route after the poison); P4 a
    50-row filter reverted to the CPU route by the cost-based optimizer
    and q1 left on the device;
-23. the query service (``run_service``), V1-V7: V1 the 22 corpus queries
+23. the query service (``run_service``), V1-V8: V1 the 22 corpus queries
    on phases 6-8's tables, phase 4's q1 and phase 5's sparse q3 from 3
    tenants (SQL texts for one, the DSL for the others) through a
    ``QueryService`` of 4 workers, each (query, form) first run serially;
@@ -256,7 +256,15 @@ Phases, in order; any failure exits non-zero:
    of the sampler; V7 a child process on a fresh kernel build directory
    (four cold q1s build each library once; then a device-side assert at
    one launch while three other q1s run: every handle requeued and
-   FINISHED on the CPU route after the latch);
+   FINISHED on the CPU route after the latch); V8 the runtime lock
+   witness under load: a service of 3 workers with
+   ``spark.rapids.lint.lockWitness=true`` in its conf and a device budget
+   of q1's peak accounted bytes over ``SQUEEZE`` serves 4 q1s and 4 dense
+   q3s at once, each result held to its serial run (q1 V1's) and each
+   launch to its kernel's plain version, then 0 witness violations, the
+   main thread's held stack empty and the witness disarmed; the locks the
+   witness built, then the burst's wall in turns without and with the
+   witness (plain, witnessed, witnessed, plain), during V7's child;
 24. Delta Lake, Iceberg and streaming (``run_lakehouse``) over phase 4's
    lineitem with l_orderkey, l_linenumber and l_partkey added
    (``lake_lineitem``): D1 the Delta table (8 files, one commit each), q1
@@ -312,9 +320,14 @@ Phases, in order; any failure exits non-zero:
    PlanVerificationError with the launch counters unchanged; and
    ``python -m spark_rapids_tpu_torch.lint --json`` in a subprocess on the
    card (repo lint, registry audit, the 88 golden plans converted for
-   ``cuda:0``, the executed metrics slice), which must exit 0. Every
-   launch is held against its kernel's plain version;
-27. the summary lines: one ``{"kernels": [...]}`` JSON line (the five TPU
+   ``cuda:0``, the executed metrics slice; RL-LOCK-* and
+   RA-DOC-DRIFT-LOCKS among its rules), which must exit 0; then the lock
+   contract in this process: the CLI's rule ids against the reference's
+   (its ``lint/diagnostics.py`` read as text), RL-LOCK-DECL, RL-LOCK-ORDER
+   and RL-LOCK-EFFECT timed over the port's sources with 0 diagnostics,
+   ``docs/LOCKS.md`` as generated. Every launch is held against its
+   kernel's plain version;
+27. the summary lines: the lock table's size and V8's result; one ``{"kernels": [...]}`` JSON line (the five TPU
    kernels and the DECIMAL128 division kernel, CUDA work beyond them;
    launches of the main path: q1's, sparse q3's probes, q8's MIN/MAX, plus
    every phase-7 to phase-26 query's), the script's time, the card line,
@@ -4265,7 +4278,10 @@ def check_dec128div(s1_args) -> dict:
     before = dec128_divide.launches
     ms = time_ms(kernel)
     ms_b2b = time_ms(kernel, calls=BACK_TO_BACK)
-    plain_ms = time_ms(plain, iters=3, warmup=1)
+    # the plain version ran on the sampled rows above: warm, and 2.6 s a
+    # call at this shape, so two calls (a third and a warm-up cost 5 s of
+    # the script's limit)
+    plain_ms = time_ms(plain, iters=2, warmup=0)
     dec128_divide.launches = before
     # each row reads two (hi, lo) operands and a validity byte and writes
     # a (hi, lo) result and a validity byte; the operations are algorithm
@@ -9811,8 +9827,202 @@ def finish_v7(child, card: str) -> dict:
     return res
 
 
-def run_service(tables, q1_table, q1_check, q3_tables, checks) -> dict:
-    """Phase 23 (V1-V7): returns the held pass's launches."""
+#: V8: the witnessed service's workers, and the q1s and dense q3s of its
+#: burst (each)
+V8_WORKERS = 3
+V8_EACH = 4
+#: V8's aim in seconds (logged past it)
+V8_BUDGET_S = 20.0
+#: V8's numbers, for phase 27's summary (filled when phase 23 runs)
+V8_RESULT: dict = {}
+
+
+def v8_burst(svc, q1_table, q3_tables, want: dict, checks: dict,
+             held: bool):
+    """One burst of V8: ``V8_EACH`` q1s and dense q3s, interleaved,
+    submitted together; every result held to its oracle and to its serial
+    run in ``want``. Under the squeezed budget the scans land in chunks
+    and the coalesce stops at a chunk (``execs/basic.py``'s coalesce
+    target), so both queries add per-chunk partials, as phase 14's
+    squeezed q3 and W8b do: q1's floats within rtol 1e-9 and every other
+    column bitwise (``same_table``), q3's revenue within rtol 1e-9 and the
+    rest bitwise (V1's comparator, ``result_differs``). Returns (wall
+    seconds, the launches' HeldCalls or None)."""
+    from spark_rapids_tpu_torch import kernels as K
+    from spark_rapids_tpu_torch.models.tpch import q1_dataframe, q3_dataframe
+    from spark_rapids_tpu_torch.tools.loadtest import result_differs
+    make = {"TPC-H q1": lambda: q1_dataframe(svc.session, q1_table),
+            "TPC-H q3": lambda: q3_dataframe(svc.session, *q3_tables)}
+    calls = None
+    if held:
+        K.reset_launch_counts()
+        K.calls = calls = HeldCalls()
+    try:
+        t0 = time.perf_counter()
+        handles = [(n, svc.submit(make[n](), tag=f"V8 {n} {i}"))
+                   for i in range(V8_EACH) for n in make]
+        for n, h in handles:
+            if not h.wait(600):
+                fail(f"V8: {n} still {h.state}")
+        wall = time.perf_counter() - t0
+    finally:
+        if held:
+            K.calls = None
+    for n, h in handles:
+        if h.state != "FINISHED":
+            fail(f"V8: {n} {h.state}: {h.error}")
+        checks[n](h.result_table)
+        if n == "TPC-H q1":
+            same_table(h.result_table, want[n], "V8 TPC-H q1 against its "
+                       "serial run", 1e-9)
+            continue
+        diff = result_differs(n, want[n], h.result_table)
+        if diff is not None:
+            fail(f"V8: {n} differs from its serial run: {diff}")
+    return wall, calls
+
+
+def run_v8(q1_table, q1_result, q1_check, q3_dense, card: str) -> dict:
+    """V8: the runtime lock witness under load. A service of ``V8_WORKERS``
+    workers with ``spark.rapids.lint.lockWitness=true`` in its conf and a
+    device budget of q1's unsqueezed peak accounted bytes over
+    ``SQUEEZE`` (the arbiter, the spill catalog, the batches' locks and
+    the host arbiter taken under load) serves ``V8_EACH`` TPC-H q1s and
+    dense q3s at once: each result held to its serial run (q1 V1's), each
+    launch to its kernel's plain version, then 0 witness violations, an
+    empty held stack on this thread and the witness disarmed. Then the
+    same burst timed in turns, without and with the witness (plain,
+    witnessed, witnessed, plain; no launch held). Returns the held
+    burst's launches."""
+    from spark_rapids_tpu_torch import kernels as K
+    from spark_rapids_tpu_torch import lockorder
+    from spark_rapids_tpu_torch.models.tpch import q1_dataframe, q3_dataframe
+    from spark_rapids_tpu_torch.runtime.host_alloc import HostMemoryArbiter
+    from spark_rapids_tpu_torch.runtime.memory import MEM_SCOPE, MEMORY
+    from spark_rapids_tpu_torch.service import QueryService
+    from spark_rapids_tpu_torch.tools.loadtest import result_differs
+    t_v8 = time.perf_counter()
+    base = {"spark.rapids.service.maxConcurrentQueries": str(V8_WORKERS),
+            "spark.rapids.sql.concurrentGpuTasks": "1",
+            "spark.rapids.service.resultCache.enabled": "false"}
+    # q1's unsqueezed peak and dense q3's serial result
+    s = service_session(base)
+    fresh_device()
+    MEMORY.reset_peak()
+    got = q1_dataframe(s, q1_table).collect_table()
+    torch.cuda.synchronize()
+    peak = MEMORY.peak_bytes()
+    diff = result_differs("TPC-H q1", q1_result, got)
+    if diff is not None:
+        fail(f"V8: q1 differs from V1's serial run: {diff}")
+    q3_serial = q3_dataframe(s, *q3_dense["tables"]).collect_table()
+    q3_dense["check"](q3_serial)
+    want = {"TPC-H q1": q1_result, "TPC-H q3": q3_serial}
+    checks = {"TPC-H q1": q1_check, "TPC-H q3": q3_dense["check"]}
+    del s, got
+    budget = peak // SQUEEZE
+    squeezed = dict(base, **{
+        "spark.rapids.memory.device.budgetBytes": str(budget)})
+    host_limit = HostMemoryArbiter.get().limit_bytes
+
+    def burst(witnessed: bool, held: bool):
+        conf = dict(squeezed)
+        if witnessed:
+            conf["spark.rapids.lint.lockWitness"] = "true"
+        fresh_device()
+        svc = QueryService(session=service_session(conf))
+        if lockorder.witness_armed() != witnessed:
+            fail(f"V8: the service's conf left the witness "
+                 f"{'off' if witnessed else 'on'}")
+        if witnessed:
+            # the host arbiter is process state built before (raw):
+            # re-made here, as a device manager's restart makes it, its
+            # condition is witnessed under the batches' locks
+            HostMemoryArbiter.reset(host_limit)
+        try:
+            return v8_burst(svc, q1_table, q3_dense["tables"], want, checks,
+                            held)
+        finally:
+            svc.shutdown()
+
+    # the held burst: every lock built from here on is witnessed and
+    # counted by name
+    built = collections.Counter()
+    real_init = lockorder._WitnessedLock.__init__
+
+    def counting_init(self, inner, decl):
+        built[decl.name] += 1
+        real_init(self, inner, decl)
+
+    v0 = lockorder.witness_violations()
+    mem0 = {k: MEM_SCOPE.get(k, 0) for k in RUNTIME_KEYS}
+    walls = {"plain": [], "witnessed": []}
+    try:
+        lockorder._WitnessedLock.__init__ = counting_init
+        try:
+            _, calls = burst(True, True)
+        finally:
+            lockorder._WitnessedLock.__init__ = real_init
+        launches = K.launch_counts()
+        mem = {k: MEM_SCOPE.get(k, 0) - v for k, v in mem0.items()}
+        for witnessed in (False, True, True, False):
+            wall, _ = burst(witnessed, False)
+            walls["witnessed" if witnessed else "plain"].append(wall)
+    finally:
+        lockorder.disarm_witness()
+        HostMemoryArbiter.reset(host_limit)
+    violations = lockorder.witness_violations() - v0
+    if violations:
+        fail(f"V8: {violations} lock witness violations: "
+             f"{lockorder.witness_violation_records()}")
+    if lockorder.held_snapshot() != []:
+        fail(f"V8: the main thread holds {lockorder.held_snapshot()}")
+    if lockorder.witness_armed():
+        fail("V8: the witness is still armed")
+    if calls.bad:
+        fail(f"V8: launches disagree with their plain versions: "
+             f"{calls.bad[:5]}")
+    if dict(calls.held) != {k: v for k, v in launches.items() if v}:
+        fail(f"V8: held {dict(calls.held)} of launches {launches}")
+    for k in ("onehot_partials", "gather_compact", "sort_with_payload"):
+        if not launches.get(k):
+            fail(f"V8 launched no {k}")
+    for name in ("service.scheduler.cond", "service.handle", "spill.batch",
+                 "host_alloc.cv"):
+        if not built[name]:
+            fail(f"V8: no witnessed {name} was built ({dict(built)})")
+    if mem["budgetViolations"]:
+        fail(f"V8: {mem['budgetViolations']} budget violations")
+    took = time.perf_counter() - t_v8
+    res = {"budget": budget, "unsqueezed_peak": peak,
+           "witnessed_locks": sum(built.values()), "by_name": dict(built),
+           "walls_witnessed_s": [round(w, 4) for w in walls["witnessed"]],
+           "walls_plain_s": [round(w, 4) for w in walls["plain"]],
+           "violations": violations,
+           "memory": {k: v for k, v in mem.items() if v},
+           "seconds": round(took, 1)}
+    V8_RESULT.update(res)
+    log(f"  V8 {V8_EACH} q1s and {V8_EACH} dense q3s at once, "
+        f"{V8_WORKERS} workers, a budget of {budget} B (q1's unsqueezed "
+        f"peak {peak} B over {SQUEEZE}): every result against its oracle "
+        f"and its serial run (floats within rtol 1e-9: per-chunk partials), "
+        f"launches {dict(calls.held)} held against their plain versions, "
+        f"memory {res['memory']}; "
+        f"{sum(built.values())} witnessed locks built ({dict(built)}), 0 "
+        f"violations over 3 witnessed bursts, the main thread's held stack "
+        f"empty, the witness disarmed after")
+    log(f"  V8 wall of the burst in turns (plain, witnessed, witnessed, "
+        f"plain; no launch held): witnessed {res['walls_witnessed_s']} s, "
+        f"plain {res['walls_plain_s']} s [{card}]")
+    if took > V8_BUDGET_S:
+        log(f"  V8 took {took:.1f} s, past its {V8_BUDGET_S:.0f} s aim")
+    return launches
+
+
+def run_service(tables, q1_table, q1_check, q3_tables, checks,
+                q3_dense) -> dict:
+    """Phase 23 (V1-V8): returns V1's held pass's launches and V8's.
+    ``q3_dense``: dense q3's tables and oracle check (V8)."""
     from spark_rapids_tpu_torch.runtime.speculation import clear_blocklist
     t_phase = time.perf_counter()
     card = card_line()
@@ -9822,6 +10032,7 @@ def run_service(tables, q1_table, q1_check, q3_tables, checks) -> dict:
     clear_blocklist()
     base = tempfile.mkdtemp(prefix="srt-service-")
     results = {}
+    child = None
     try:
         t0 = time.perf_counter()
         launches, q1_result, results["V1"] = run_v1(
@@ -9836,10 +10047,21 @@ def run_service(tables, q1_table, q1_check, q3_tables, checks) -> dict:
             t0 = time.perf_counter()
             results[name] = part()
             log(f"  ({name} {time.perf_counter() - t0:.1f} s)")
+        # V8 runs while V7's child builds its libraries and serves (the
+        # parent waited for it idle before)
+        t0 = time.perf_counter()
+        for k, v in run_v8(q1_table, q1_result, q1_check, q3_dense,
+                           card).items():
+            launches[k] = launches.get(k, 0) + v
+        results["V8"] = dict(V8_RESULT)
+        log(f"  (V8 {time.perf_counter() - t0:.1f} s)")
         t0 = time.perf_counter()
         results["V7"] = finish_v7(child, card)
         log(f"  (V7's wait {time.perf_counter() - t0:.1f} s)")
     finally:
+        if child is not None and child[1].poll() is None:
+            child[1].kill()  # a failed cell leaves no child behind
+            child[1].communicate()
         shutil.rmtree(base, ignore_errors=True)
     took = time.perf_counter() - t_phase
     summary = {"card": card, "seconds": round(took, 1),
@@ -11306,7 +11528,8 @@ STATIC_CLI_TIMEOUT_S = 300
 STATIC_PHASE = ("phase 26: static analysis (every converted tree of phases "
                 "3-25 verified, q1 and sparse q3 through a session with "
                 "planVerify.mode=error, a hand-broken plan raising before "
-                "any launch, the lint CLI on the card)")
+                "any launch, the lint CLI on the card, the lock contract's "
+                "RL-LOCK-* and LOCKS.md)")
 
 
 def only_static_keep(rows: int) -> dict:
@@ -11331,8 +11554,10 @@ def run_static_analysis(q1_keep, q3_keep) -> dict:
     verified and held to its oracle; 26.3 a hand-broken converted plan
     (a Limit exec over a host node) raising PlanVerificationError before
     any launch; 26.4 ``python -m spark_rapids_tpu_torch.lint --json`` in a
-    subprocess on the card. Returns the phase's launches, every one held
-    against its kernel's plain version."""
+    subprocess on the card (RL-LOCK-* and RA-DOC-DRIFT-LOCKS among its
+    rules); 26.5 the lock contract timed in this process
+    (``static_lock_contract``). Returns the phase's launches, every one
+    held against its kernel's plain version."""
     from spark_rapids_tpu_torch import kernels as K
     from spark_rapids_tpu_torch.errors import PlanVerificationError
     from spark_rapids_tpu_torch.execs.basic import TpuLimitExec
@@ -11419,17 +11644,24 @@ def run_static_analysis(q1_keep, q3_keep) -> dict:
         f"{ids} before any launch (launch counters unchanged)")
     res["broken"] = ids
 
-    # 26.4: the CLI on the card
+    # 26.4: the CLI on the card, in a child; 26.5 runs here meanwhile
     t0 = time.perf_counter()
-    out = subprocess.run(
+    cli = subprocess.Popen(
         [sys.executable, "-m", "spark_rapids_tpu_torch.lint", "--json"],
-        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
-        text=True, timeout=STATIC_CLI_TIMEOUT_S)
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        res["locks"], locks_line = static_lock_contract(card)
+        stdout, stderr = cli.communicate(timeout=STATIC_CLI_TIMEOUT_S)
+    finally:
+        if cli.poll() is None:
+            cli.kill()
+            cli.communicate()
     wall = time.perf_counter() - t0
-    if out.returncode != 0:
-        fail(f"26.4: the lint CLI exited {out.returncode}: "
-             f"{out.stdout[-3000:]} {out.stderr[-3000:]}")
-    rep = json.loads(out.stdout)
+    if cli.returncode != 0:
+        fail(f"26.4: the lint CLI exited {cli.returncode}: "
+             f"{stdout[-3000:]} {stderr[-3000:]}")
+    rep = json.loads(stdout)
     if not rep["ok"] or sorted(rep["phases"]) != [
             "exec_metrics", "plans", "registry", "repo"] or \
             any(rep["phases"].values()):
@@ -11437,6 +11669,7 @@ def run_static_analysis(q1_keep, q3_keep) -> dict:
     log(f"  26.4 python -m spark_rapids_tpu_torch.lint --json on the card: "
         f"exit 0, phases {rep['phases']}, {wall:.1f} s wall ({card})")
     res["cli"] = {"phases": rep["phases"], "wallS": round(wall, 2)}
+    log(locks_line)
 
     took = time.perf_counter() - t_phase
     summary = {"card": card, "seconds": round(took, 1),
@@ -11447,6 +11680,63 @@ def run_static_analysis(q1_keep, q3_keep) -> dict:
             "s aim")
     log("  phase-26 summary: " + json.dumps(summary, default=str))
     return launches
+
+
+def static_lock_contract(card: str) -> dict:
+    """26.5: the lock contract in this process. The CLI's rule ids equal
+    the reference's (read from its ``lint/diagnostics.py`` as text: this
+    script imports nothing of it); RL-LOCK-DECL, RL-LOCK-ORDER and
+    RL-LOCK-EFFECT over the port's sources, timed, 0 diagnostics;
+    RA-DOC-DRIFT-LOCKS over ``spark_rapids_tpu_torch/docs/LOCKS.md``
+    clean. Returns (the numbers, the line to log)."""
+    import ast
+
+    from spark_rapids_tpu_torch import lockorder
+    from spark_rapids_tpu_torch.lint.__main__ import main as lint_main
+    from spark_rapids_tpu_torch.lint.concurrency import check_concurrency
+    from spark_rapids_tpu_torch.lint.registry_audit import _audit_doc_drift
+    from spark_rapids_tpu_torch.lint.rules.common import (
+        _iter_source_files,
+        _rel,
+    )
+    root = os.path.dirname(os.path.abspath(__file__))
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = lint_main(["--list-rules"])
+    ids = sorted(line.split()[0] for line in buf.getvalue().splitlines())
+    ref = os.path.join(root, "spark_rapids_tpu", "lint", "diagnostics.py")
+    with open(ref, encoding="utf-8") as f:
+        tree = ast.parse(f.read())
+    want = next(sorted(ast.literal_eval(node.value)) for node in tree.body
+                if isinstance(node, ast.AnnAssign)
+                and getattr(node.target, "id", "") == "RULES")
+    if rc != 0 or ids != want:
+        fail(f"26.5: the CLI lists {ids}, the reference {want}")
+    t0 = time.perf_counter()
+    trees = {}
+    for path in _iter_source_files(root):
+        with open(path, encoding="utf-8") as f:
+            trees[_rel(root, path)] = ast.parse(f.read())
+    parse_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    diags = []
+    check_concurrency(trees, diags)
+    lock_s = time.perf_counter() - t0
+    drift = []
+    _audit_doc_drift(drift, root)
+    if diags or drift:
+        fail(f"26.5: {[str(d) for d in diags + drift][:8]}")
+    line = (f"  26.5 the lock contract (while the CLI ran): the CLI's "
+            f"{len(ids)} rule ids are the reference's; "
+            f"RL-LOCK-DECL/ORDER/EFFECT over {len(trees)} files in "
+            f"{lock_s:.2f} s ({parse_s:.2f} s to parse), 0 diagnostics; "
+            f"{len(lockorder.LOCK_ORDER)} declared locks, "
+            f"{len(lockorder.DEVIATIONS)} deviations from the reference's "
+            f"table; docs/LOCKS.md as generated ({card})")
+    return {"ruleIds": len(ids), "files": len(trees),
+            "lockPassS": round(lock_s, 3), "parseS": round(parse_s, 3),
+            "declared": len(lockorder.LOCK_ORDER),
+            "deviations": len(lockorder.DEVIATIONS)}, line
 
 
 def corpus_checks(tables) -> dict:
@@ -11576,8 +11866,11 @@ def main(argv=None) -> int:
         tables = corpus_tables(args.sf, args.seed)
         table = lineitem_table(args.rows, seed=0)
         oracle = q1_oracle(table)
-        sparse = tuple(sparse_form(t) for t in q3_tables(args.rows, seed=0))
-        o_sparse = q3_oracle(*sparse)
+        dense = q3_tables(args.rows, seed=0)
+        sparse = tuple(sparse_form(t) for t in dense)
+        o_sparse, o_dense = q3_oracle(*sparse), q3_oracle(*dense)
+        q3_dense = {"tables": dense, "check": lambda g: check_q3_result(
+            g, o_dense, "q3 dense")}
         checks = corpus_checks(tables)
         checks["TPC-H q1"] = lambda g: check_q1_result(g, oracle)
         checks["TPC-H q3"] = lambda g: check_q3_result(g, o_sparse,
@@ -11587,7 +11880,7 @@ def main(argv=None) -> int:
         t_phase = time.perf_counter()
         log("phase 23: the query service")
         for k, v in run_service(tables, table, checks["TPC-H q1"], sparse,
-                                checks).items():
+                                checks, q3_dense).items():
             launches[k] = launches.get(k, 0) + v
         log(f"  phase 23 ran {time.perf_counter() - t_phase:.1f} s")
         return summary_phase(rows, launches, t_start)
@@ -11762,6 +12055,8 @@ def main(argv=None) -> int:
     svc_checks["TPC-H q3"] = dsl["q3 sparse"]["check"]
     # phase 25's mesh holds these against the single-device results
     dist_keep = {k: dsl[k] for k in ("q3 sparse", "q7", "q8")}
+    # phase 23's V8 serves dense q3 over phase 5's tables
+    q3_dense = {k: dsl["q3 dense"][k] for k in ("tables", "check")}
     del dsl
     log(f"  phase 19 ran {time.perf_counter() - t_phase:.1f} s")
 
@@ -11800,9 +12095,9 @@ def main(argv=None) -> int:
         "3 tenants at 4 workers, V2 pools, V3 cancellation and deadlines, "
         "V4 the watchdog and a worker's death, V5 quarantine and the "
         "flight recorder, V6 introspection, V7 a device loss under load "
-        "in a child)")
+        "in a child, V8 the lock witness under a squeezed budget)")
     for k, v in run_service(tables, q1_keep["tables"][0], q1_keep["check"],
-                            q3_sparse, svc_checks).items():
+                            q3_sparse, svc_checks, q3_dense).items():
         launches[k] = launches.get(k, 0) + v
     log(f"  phase 23 ran {time.perf_counter() - t_phase:.1f} s")
 
@@ -11828,9 +12123,15 @@ def main(argv=None) -> int:
 
 
 def summary_phase(rows, launches, t_start: float) -> int:
+    from spark_rapids_tpu_torch import lockorder
     log("phase 27: summary")
     log("  dec128_divide is CUDA work beyond the five TPU kernels: the "
         "reference divides DECIMAL128 values on its host")
+    log(f"  the lock table: {len(lockorder.LOCK_ORDER)} declared locks, "
+        f"{len(lockorder.DEVIATIONS)} deviations from the reference's "
+        f"({sorted(lockorder.DEVIATIONS)}); V8: "
+        + (json.dumps({k: v for k, v in V8_RESULT.items() if k != "by_name"})
+           if V8_RESULT else "not run (phase 23 did not run)"))
     for r in rows:
         r.update(route="cuda", source=SOURCES[r["name"]],
                  replaces=TPU_KERNELS[r["name"]],

@@ -62,6 +62,17 @@ PLAN_VERIFY_MODE = _conf(
     "spark_rapids_tpu_torch.lint` runs the same verifier over the TPC-H "
     "golden suite plus the registry/repo audits.", str)
 
+LOCK_WITNESS = _conf(
+    "spark.rapids.lint.lockWitness", False,
+    "Arm the runtime lock witness: locks constructed through the "
+    "lockorder.py factories while armed are wrapped so every blocking "
+    "acquisition is checked against the declared LOCK_ORDER rank "
+    "hierarchy, raising typed LockOrderViolation on an inversion the "
+    "static RL-LOCK-ORDER pass's bounded call graph missed. "
+    "Construction-time election (locks built before arming stay raw); "
+    "off by default. TorchSession and QueryService arm or disarm it from "
+    "their conf before they build their locks.", _to_bool)
+
 
 def _attempts(v) -> int:
     n = int(v)

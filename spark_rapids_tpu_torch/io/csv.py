@@ -27,7 +27,6 @@ and boolean options take 'true'/'false' strings (SQL OPTIONS).
 
 from __future__ import annotations
 
-import threading
 from typing import List, Optional, Sequence
 
 import numpy as np
@@ -40,6 +39,7 @@ from spark_rapids_tpu_torch.errors import ColumnarProcessingError
 from spark_rapids_tpu_torch.io import text_format as TF
 from spark_rapids_tpu_torch.io.common import FileScanNode, row_carrier_table
 from spark_rapids_tpu_torch.io.writer import write_partitioned
+from spark_rapids_tpu_torch.lockorder import ordered_lock
 from spark_rapids_tpu_torch.plan.nodes import Schema
 
 CSV_READER_TYPE = C.CSV_READER_TYPE
@@ -94,7 +94,7 @@ class CsvScanNode(FileScanNode):
         #: the first file's tokens and inferred columns, kept from schema
         #: inference for its read
         self._inferred = {}
-        self._lock = threading.Lock()
+        self._lock = ordered_lock("io.scan.csv")
         super().__init__(paths, conf, columns=columns,
                          reader_type=reader_type)
 

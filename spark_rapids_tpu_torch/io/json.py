@@ -23,7 +23,6 @@ and boolean options take 'true'/'false' strings (SQL OPTIONS).
 from __future__ import annotations
 
 import json as _json
-import threading
 from typing import List, Optional, Sequence
 
 import numpy as np
@@ -34,6 +33,7 @@ from spark_rapids_tpu_torch.columnar import HostTable
 from spark_rapids_tpu_torch.io import text_format as TF
 from spark_rapids_tpu_torch.io.common import FileScanNode, row_carrier_table
 from spark_rapids_tpu_torch.io.writer import write_partitioned
+from spark_rapids_tpu_torch.lockorder import ordered_lock
 from spark_rapids_tpu_torch.plan.nodes import Schema
 
 JSON_READER_TYPE = C.JSON_READER_TYPE
@@ -58,7 +58,7 @@ class JsonScanNode(FileScanNode):
         if self.mode not in ("PERMISSIVE", "DROPMALFORMED", "FAILFAST"):
             raise ValueError(f"unknown JSON mode {mode!r}")
         self._inferred = {}
-        self._lock = threading.Lock()
+        self._lock = ordered_lock("io.scan.json")
         super().__init__(paths, conf, columns=columns,
                          reader_type=reader_type)
 

@@ -10,7 +10,6 @@ schema; a later file's column of another type widens losslessly to it
 from __future__ import annotations
 
 import os
-import threading
 from typing import Iterator, List, Optional, Sequence
 
 from spark_rapids_tpu_torch import conf as C
@@ -20,6 +19,7 @@ from spark_rapids_tpu_torch.io import orc_format as OF
 from spark_rapids_tpu_torch.io.common import FileScanNode, row_carrier_table
 from spark_rapids_tpu_torch.io.parquet import _widen, _widens
 from spark_rapids_tpu_torch.io.writer import write_partitioned
+from spark_rapids_tpu_torch.lockorder import ordered_lock
 from spark_rapids_tpu_torch.plan.nodes import Schema
 
 ORC_READER_TYPE = C.ORC_READER_TYPE
@@ -31,7 +31,7 @@ class OrcScanNode(FileScanNode):
     def __init__(self, paths, conf: C.RapidsConf, columns=None,
                  reader_type=None, **options):
         self._tails = {}
-        self._lock = threading.Lock()
+        self._lock = ordered_lock("io.scan.orc")
         super().__init__(paths, conf, columns=columns,
                          reader_type=reader_type, **options)
 

@@ -18,7 +18,6 @@ import datetime
 import decimal
 import operator
 import os
-import threading
 from typing import Iterator, List, Optional, Sequence
 
 import numpy as np
@@ -31,6 +30,7 @@ from spark_rapids_tpu_torch.errors import ColumnarProcessingError
 from spark_rapids_tpu_torch.io import parquet_format as PF
 from spark_rapids_tpu_torch.io.common import FileScanNode, row_carrier_table
 from spark_rapids_tpu_torch.io.writer import write_partitioned
+from spark_rapids_tpu_torch.lockorder import ordered_lock
 from spark_rapids_tpu_torch.plan.nodes import Schema
 
 _OPS = {"=": operator.eq, "==": operator.eq, "!=": operator.ne,
@@ -176,7 +176,7 @@ class ParquetScanNode(FileScanNode):
         self.filters = filters
         self._filters = normalize_filters(filters)
         self._footers = {}
-        self._lock = threading.Lock()
+        self._lock = ordered_lock("io.scan.parquet")
         #: row groups the statistics ruled out, over every read
         self.pruned_row_groups = 0
         super().__init__(paths, conf, columns=columns,

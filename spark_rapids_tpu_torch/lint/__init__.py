@@ -18,14 +18,18 @@ Three tools, one diagnostic format:
 * ``repo_lint.lint_repo`` — a Python-AST lint of ``spark_rapids_tpu_torch/``
   and ``chip_smoke.py`` enforcing what the type system can't (host
   syncs in hot paths, torch outside the device layers, undeclared conf
-  keys, nondeterminism in kernels, dead lambdas, raw device landings...).
+  keys, nondeterminism in kernels, dead lambdas, raw device landings...)
+  and, over the whole tree, the lock-order contract of ``lockorder.py``
+  (``concurrency.check_concurrency``: RL-LOCK-DECL, RL-LOCK-ORDER,
+  RL-LOCK-EFFECT).
 
 All three run from one CLI (``python -m spark_rapids_tpu_torch.lint``;
 ``--device cpu`` off the card) and from ``tests/test_torch_lint.py``. The
 plan verifier also runs inline on every fresh conversion of a
 ``TorchSession`` under ``spark.rapids.sql.planVerify.mode =
-off|warn|error``. The lock-order contract (RL-LOCK-*, the witness) is not
-ported yet.
+off|warn|error``, and the runtime lock witness checks every acquisition
+of the locks a session or a query service builds while
+``spark.rapids.lint.lockWitness`` arms it.
 """
 
 from spark_rapids_tpu_torch.lint.diagnostics import Diagnostic, RULES, rule_ids

@@ -1,7 +1,8 @@
 """CLI: ``python -m spark_rapids_tpu_torch.lint`` (port of
 ``spark_rapids_tpu/lint/__main__.py``).
 
-Runs the repo lint, the registry auditor, the golden-suite plan
+Runs the repo lint (the lock-order contract's RL-LOCK-* among its
+rules), the registry auditor, the golden-suite plan
 verification (TPC-H q1-q22, DSL + SQL, AQE on/off, converted for
 ``--device``) and the executed metrics slice, and exits non-zero on any
 diagnostic — the correctness gate every change runs under. ``--device``
@@ -28,7 +29,8 @@ import sys
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
         prog="python -m spark_rapids_tpu_torch.lint",
-        description="plan verifier + registry auditor + repo lint")
+        description="plan verifier + registry auditor + repo lint "
+                    "(with the lock-order contract)")
     ap.add_argument("--skip-repo", action="store_true",
                     help="skip the Python-AST repo lint")
     ap.add_argument("--skip-registry", action="store_true",
@@ -56,9 +58,10 @@ def main(argv=None) -> int:
                          "the installed checkout; the smoke tests "
                          "point it at tiny synthetic trees)")
     ap.add_argument("--write-docs", action="store_true",
-                    help="regenerate the port's SUPPORTED_OPS.md and "
-                         "CONFIGS.md (spark_rapids_tpu_torch/docs/) from "
-                         "the registries, then exit")
+                    help="regenerate the port's SUPPORTED_OPS.md, "
+                         "CONFIGS.md and LOCKS.md "
+                         "(spark_rapids_tpu_torch/docs/) from the "
+                         "registries, then exit")
     args = ap.parse_args(argv)
 
     from spark_rapids_tpu_torch.lint.diagnostics import RULES

@@ -6,8 +6,10 @@ location path (a plan path like ``Join.left.Project`` for the verifier, a
 ``file:line`` for the repo lint, a registry coordinate for the auditor)
 and a human message. Rule ids are registered here so the CLI can list
 them and tests can assert the id surface is complete. The ids and the
-format are the reference's; ``RULES`` holds the rules the port runs (the
-lock-order contract, RL-LOCK-* and RA-DOC-DRIFT-LOCKS, is not ported)."""
+format are the reference's, and ``RULES`` holds every one of them: the
+lock-order contract's RL-LOCK-* (``lint/concurrency.py``) and
+RA-DOC-DRIFT-LOCKS over ``spark_rapids_tpu_torch/docs/LOCKS.md``
+included."""
 
 from __future__ import annotations
 
@@ -68,6 +70,9 @@ RULES: Dict[str, str] = {
                             "output",
     "RA-CONF-ORPHAN": "conf key declared in the registry but never "
                       "read by the engine or its harnesses",
+    "RA-DOC-DRIFT-LOCKS": "committed spark_rapids_tpu_torch/docs/"
+                          "LOCKS.md differs from the lockorder registry "
+                          "generator output",
     "RA-ESSENTIAL-METRICS": "an executed exec failed to emit the "
                             "ESSENTIAL opTime/numOutputRows/"
                             "numOutputBatches metrics after a "
@@ -126,6 +131,26 @@ RULES: Dict[str, str] = {
                    "invalidation-epoch API (bump_table_epoch/"
                    "epoch listeners) so cache coherence has exactly "
                    "one write path",
+    "RL-LOCK-DECL": "threading.Lock/RLock/Condition/Semaphore "
+                    "constructed in a concurrent package outside the "
+                    "lockorder.py ordered_* factories, a "
+                    "factory called with a non-literal/undeclared "
+                    "name or at a site other than the declared one, "
+                    "or a LOCK_ORDER entry with no construction site "
+                    "(the rank hierarchy must cover every lock)",
+    "RL-LOCK-ORDER": "a code path blocking-acquires a declared lock "
+                     "while holding one of equal or higher rank (or "
+                     "the acquisition graph closes a cycle) — "
+                     "acquisition must strictly ascend the LOCK_ORDER "
+                     "ranks; try-acquires (blocking=False) are exempt",
+    "RL-LOCK-EFFECT": "a blocking operation (host sync: .cpu(), "
+                      ".item()/.tolist()/.numpy() on a torch value, "
+                      "host_fetch, .synchronize(); socket send/recv, "
+                      "subprocess, fault_point raise site, "
+                      "record_incident, wait on a different "
+                      "Condition) runs while a declared lock is held "
+                      "— move the effect outside the critical "
+                      "section or allowlist it with a justification",
 }
 
 

@@ -11,9 +11,9 @@ Cross-checks the port's registries, one Diagnostic per disagreement
 * the per-op kill switches the conf accepts against the rule registries;
 * the device aggregates against the SQL function registry;
 * the declared conf keys against their readers;
-* the port's committed ``spark_rapids_tpu_torch/docs/SUPPORTED_OPS.md`` and
-  ``CONFIGS.md`` against their generators (the root's documents belong to
-  the reference and are never read or written here);
+* the port's committed ``spark_rapids_tpu_torch/docs/SUPPORTED_OPS.md``,
+  ``CONFIGS.md`` and ``LOCKS.md`` against their generators (the root's
+  documents belong to the reference and are never read or written here);
 * and, executed, the ESSENTIAL exec metrics of a golden-corpus slice.
 """
 
@@ -189,9 +189,11 @@ def _audit_sql_exposure(diags: List[Diagnostic]) -> None:
 def _generators():
     """(file name, generator, drift rule) of the port's documents."""
     from spark_rapids_tpu_torch.conf import generate_docs
+    from spark_rapids_tpu_torch.lockorder import generate_locks_md
     from spark_rapids_tpu_torch.overrides.docs import generate_supported_ops
     return (("SUPPORTED_OPS.md", generate_supported_ops, "RA-DOC-DRIFT-OPS"),
-            ("CONFIGS.md", generate_docs, "RA-DOC-DRIFT-CONFIGS"))
+            ("CONFIGS.md", generate_docs, "RA-DOC-DRIFT-CONFIGS"),
+            ("LOCKS.md", generate_locks_md, "RA-DOC-DRIFT-LOCKS"))
 
 
 def _audit_doc_drift(diags: List[Diagnostic], root: str) -> None:
@@ -220,7 +222,7 @@ def _audit_doc_drift(diags: List[Diagnostic], root: str) -> None:
 
 
 def regenerate_docs(repo_root: Optional[str] = None) -> List[str]:
-    """Write the port's SUPPORTED_OPS.md and CONFIGS.md (under
+    """Write the port's SUPPORTED_OPS.md, CONFIGS.md and LOCKS.md (under
     ``spark_rapids_tpu_torch/docs/``) from their generators; returns the
     files written (the CLI's --write-docs). The root's documents are the
     reference's and are not touched."""

@@ -18,7 +18,9 @@ so a test that patches an allowlist dict in place patches the rule).
 Rules (RL-*): RL-HOST-SYNC, RL-JNP-SCOPE, RL-CONF-KEY,
 RL-NONDETERMINISM, RL-DEAD-LAMBDA, RL-FAULT-POINT, RL-THREAD-SHARED,
 RL-MESH-HOST, RL-WRITE-COMMIT, RL-KERNEL-HOST, RL-OBS-PASSIVE,
-RL-MEM-ACCOUNT, RL-MV-EPOCH.
+RL-MEM-ACCOUNT, RL-MV-EPOCH, and the concurrency contract's RL-LOCK-DECL,
+RL-LOCK-ORDER and RL-LOCK-EFFECT (``lint/concurrency.py``, a finalizer
+over every parsed tree).
 """
 
 from __future__ import annotations

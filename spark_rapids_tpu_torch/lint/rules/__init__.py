@@ -6,7 +6,7 @@ package assembles them into one ordered registry so the runner
 (``repo_lint.lint_repo``) is pure orchestration: parse each source
 file once, hand the tree to every per-file check, then run the
 cross-file finalizers (registry audits that need the whole repo seen —
-the fault points).
+the fault points, the concurrency lock graph).
 
 A registry entry is ``(rule_ids, file_check, finalizer)``:
 
@@ -14,8 +14,9 @@ A registry entry is ``(rule_ids, file_check, finalizer)``:
   with the shared :class:`LintContext`;
 * ``finalizer(ctx, diags)`` — called once after every file was walked.
 
-The reference's concurrency finalizer (RL-LOCK-DECL, RL-LOCK-ORDER,
-RL-LOCK-EFFECT over the lock rank table) is not ported yet.
+The concurrency finalizer (``lint/concurrency.py``: RL-LOCK-DECL,
+RL-LOCK-ORDER, RL-LOCK-EFFECT over ``lockorder.LOCK_ORDER``) runs last,
+over every parsed tree.
 """
 
 from __future__ import annotations
@@ -24,6 +25,7 @@ import ast
 from dataclasses import dataclass, field
 from typing import Callable, Dict, List, Optional, Set, Tuple
 
+from spark_rapids_tpu_torch.lint.diagnostics import Diagnostic
 from spark_rapids_tpu_torch.lint.rules import (conf_keys, determinism,
                                                device_residency,
                                                fault_points, io_write,
@@ -39,7 +41,8 @@ class LintContext:
     declared: Set[str] = field(default_factory=set)
     #: fault_point name -> ["rel:line", ...] (RL-FAULT-POINT)
     fault_calls: Dict[str, List[str]] = field(default_factory=dict)
-    #: every parsed tree, rel -> ast
+    #: every parsed tree, rel -> ast (the concurrency pass's whole-repo
+    #: call graph needs all of them)
     trees: Dict[str, ast.AST] = field(default_factory=dict)
 
 
@@ -48,6 +51,11 @@ class LintRule:
     rule_ids: Tuple[str, ...]
     file_check: Optional[Callable[..., None]] = None
     finalizer: Optional[Callable[..., None]] = None
+
+
+def _concurrency_finalizer(ctx: LintContext, diags: List[Diagnostic]):
+    from spark_rapids_tpu_torch.lint.concurrency import check_concurrency
+    check_concurrency(ctx.trees, diags)
 
 
 #: ordered registry — per-file checks run in this order for each file,
@@ -95,4 +103,6 @@ REGISTRY: Tuple[LintRule, ...] = (
                                              diags),
              lambda ctx, diags:
              fault_points._check_fault_registry(ctx.fault_calls, diags)),
+    LintRule(("RL-LOCK-DECL", "RL-LOCK-ORDER", "RL-LOCK-EFFECT"),
+             None, _concurrency_finalizer),
 )

@@ -582,41 +582,47 @@ def consistent_topology_snapshot() -> dict:
     the memory arbiter, the mesh and the cluster, taken with their locks
     held together so that the sections cannot tear against each other
     (the reference's shared-topology path). ``QueryService.health()`` and
-    the ``/topology`` route read it. The locks nest in the reference's
-    rank order (cluster, health, mesh, quarantine, the arbiter's
-    reentrant lock last)."""
+    the ``/topology`` route read it. The locks nest in declared ascending
+    rank, as the reference's do: cluster.runtime(300) ->
+    health.monitor(400) -> health.quarantine(410) -> mesh.runtime(530) ->
+    memory.arbiter(740, the port's reentrant lock, so ``MEMORY.snapshot()``
+    may re-take it inside the nest)."""
     from spark_rapids_tpu_torch.parallel.mesh import MESH
     from spark_rapids_tpu_torch.runtime.cluster import CLUSTER
     from spark_rapids_tpu_torch.runtime.memory import MEMORY
-    with CLUSTER._lock, HEALTH._lock, MESH._lock:
-        hosts = {**CLUSTER._health_snapshot_locked(),
-                 **HEALTH._host_snapshot_locked()}
-        mesh = {**MESH._health_snapshot_locked(),
-                **HEALTH._mesh_snapshot_locked()}
-        with QUARANTINE._lock:
-            with MEMORY._lock:
-                return {
-                    "generation": HEALTH._losses,
-                    "state": HEALTH.state(),
-                    "cpuOnlyReason": HEALTH.cpu_only_reason(),
-                    "backend": {
-                        "deviceLost": HEALTH._losses,
-                        "deviceReinits": HEALTH._reinits,
-                        "consecutiveLosses": HEALTH._consecutive_losses,
-                    },
-                    "hosts": hosts,
-                    "mesh": mesh,
-                    "memory": {
-                        **MEMORY.snapshot(),
-                        "memoryPressureEvents": HEALTH._mem_events,
-                        "memoryConsecutive": HEALTH._mem_consecutive,
-                        "memoryChunkedReexecutions": HEALTH._mem_chunked,
-                        "memoryCpuDemotions": HEALTH._mem_cpu_demotions,
-                    },
-                    "quarantine": {
-                        "templatesWithStrikes": len(QUARANTINE._strikes),
-                        "strikes": sum(len(v) for v in
-                                       QUARANTINE._strikes.values()),
-                        "quarantined": len(QUARANTINE._quarantined),
-                    },
-                }
+    with CLUSTER._lock:
+        with HEALTH._lock:
+            with QUARANTINE._lock:
+                with MESH._lock:
+                    with MEMORY._lock:
+                        return _topology_locked(CLUSTER, MESH, MEMORY)
+
+
+def _topology_locked(cluster, mesh, memory) -> dict:
+    """The snapshot's sections, read with every owning lock held."""
+    return {
+        "generation": HEALTH._losses,
+        "state": HEALTH.state(),
+        "cpuOnlyReason": HEALTH.cpu_only_reason(),
+        "backend": {
+            "deviceLost": HEALTH._losses,
+            "deviceReinits": HEALTH._reinits,
+            "consecutiveLosses": HEALTH._consecutive_losses,
+        },
+        "hosts": {**cluster._health_snapshot_locked(),
+                  **HEALTH._host_snapshot_locked()},
+        "mesh": {**mesh._health_snapshot_locked(),
+                 **HEALTH._mesh_snapshot_locked()},
+        "memory": {
+            **memory.snapshot(),
+            "memoryPressureEvents": HEALTH._mem_events,
+            "memoryConsecutive": HEALTH._mem_consecutive,
+            "memoryChunkedReexecutions": HEALTH._mem_chunked,
+            "memoryCpuDemotions": HEALTH._mem_cpu_demotions,
+        },
+        "quarantine": {
+            "templatesWithStrikes": len(QUARANTINE._strikes),
+            "strikes": sum(len(v) for v in QUARANTINE._strikes.values()),
+            "quarantined": len(QUARANTINE._quarantined),
+        },
+    }

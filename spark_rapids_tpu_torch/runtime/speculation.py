@@ -16,10 +16,11 @@ repeated query shape replays at most once per site.
 from __future__ import annotations
 
 import contextvars
-import threading
 from typing import List, Optional, Tuple
 
 import torch
+
+from spark_rapids_tpu_torch.lockorder import ordered_lock
 
 
 class SpeculationFailed(Exception):
@@ -69,7 +70,7 @@ _CTX: contextvars.ContextVar[Optional[SpecContext]] = contextvars.ContextVar(
 _BLOCKLIST = set()
 #: guards _BLOCKLIST writes from concurrent sessions (membership reads
 #: stay lock-free: a stale read costs one extra speculative attempt)
-_BLOCKLIST_LOCK = threading.Lock()
+_BLOCKLIST_LOCK = ordered_lock("speculation.blocklist")
 
 
 def current() -> Optional[SpecContext]:

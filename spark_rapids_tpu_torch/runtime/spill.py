@@ -271,9 +271,14 @@ def _host_alloc(nbytes: int):
     """A grant of ``nbytes`` of host memory for a spill's host copy
     (``spark.rapids.memory.host.limit``): past the limit the host arbiter
     first moves the catalog's host tier to disk, then waits, then raises
-    CpuRetryOOM, which the retry framework handles like a device OOM."""
+    CpuRetryOOM, which the retry framework handles like a device OOM.
+    Callers hold the batch's RLock: the host arbiter's locks rank above
+    spill.batch (lockorder.DEVIATIONS)."""
     from spark_rapids_tpu_torch.runtime.host_alloc import HostMemoryArbiter
-    return HostMemoryArbiter.get().alloc(nbytes)
+    # bound to a name, so that RL-LOCK-* resolves ``alloc`` (and sees its
+    # wait on the arbiter's condition) from the batch's locked regions
+    arbiter = HostMemoryArbiter.get()
+    return arbiter.alloc(nbytes)
 
 
 def _check_spill_crc(frame: bytes):

@@ -224,6 +224,11 @@ class QueryService:
                 "reads its knobs from the session's conf)")
         self.session = session
         self.conf: RapidsConf = session.conf
+        # arm the runtime lock witness FIRST (construction-time election):
+        # every lock this __init__ builds (the scheduler condition, the
+        # streams lock, the result cache's) is wrapped iff the conf arms it
+        from spark_rapids_tpu_torch import lockorder
+        lockorder.configure(self.conf)
         self.pools = parse_pools(self.conf.get_entry(SERVICE_POOLS))
         self.tenant_weights = parse_tenant_weights(
             self.conf.get_entry(SERVICE_TENANT_WEIGHTS))
@@ -245,9 +250,9 @@ class QueryService:
         # windows (the reference's collective rendezvous rule, kept so a
         # mesh query's exchange and re-lands run as one unit)
         from spark_rapids_tpu_torch.conf import MESH_ENABLED
-        self._mesh_gate = (ordered_lock("service.mesh_gate")
-                           if bool(self.conf.get_entry(MESH_ENABLED))
-                           else None)
+        self._mesh_gate = None
+        if bool(self.conf.get_entry(MESH_ENABLED)):
+            self._mesh_gate = ordered_lock("service.mesh_gate")
         self.result_cache: Optional[ResultCache] = None
         if bool(self.conf.get_entry(SERVICE_RESULT_CACHE_ENABLED)):
             self.result_cache = ResultCache(

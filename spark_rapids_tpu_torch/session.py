@@ -323,6 +323,10 @@ class TorchSession:
         # session's conf (a no-op when unchanged)
         from spark_rapids_tpu_torch.obs.telemetry import TELEMETRY
         TELEMETRY.configure(self.conf)
+        # the runtime lock witness (construction-time election: locks
+        # built after this point are wrapped iff the conf arms it)
+        from spark_rapids_tpu_torch import lockorder
+        lockorder.configure(self.conf)
         q = self._q
         query_tag, q.next_tag = q.next_tag, None
         sql_text, q.next_sql = q.next_sql, None

@@ -339,6 +339,7 @@ def test_warmup_reaches_neither_scale_test_nor_the_reference(tmp_path):
 LINT_MODULES = (
     "lint/__init__.py", "lint/__main__.py", "lint/diagnostics.py",
     "lint/plan_verifier.py", "lint/golden.py", "lint/registry_audit.py",
+    "lint/concurrency.py",
     "lint/repo_lint.py", "lint/rules/__init__.py", "lint/rules/common.py",
     "lint/rules/conf_keys.py", "lint/rules/determinism.py",
     "lint/rules/fault_points.py", "lint/rules/io_write.py",

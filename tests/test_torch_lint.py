@@ -145,13 +145,22 @@ def test_committed_docs_are_byte_identical_to_generators():
     """The port's documents (never the root's, which are the
     reference's) equal their generators: regenerate with
     ``python -m spark_rapids_tpu_torch.lint --write-docs``."""
+    from spark_rapids_tpu.lockorder import (
+        generate_locks_md as j_generate_locks_md,
+    )
     from spark_rapids_tpu_torch.conf import generate_docs
+    from spark_rapids_tpu_torch.lockorder import generate_locks_md
     from spark_rapids_tpu_torch.overrides.docs import generate_supported_ops
     docs = os.path.join(ROOT, PKG, "docs")
     with open(os.path.join(docs, "SUPPORTED_OPS.md")) as f:
         assert f.read() == generate_supported_ops()
     with open(os.path.join(docs, "CONFIGS.md")) as f:
         assert f.read() == generate_docs()
+    with open(os.path.join(docs, "LOCKS.md")) as f:
+        assert f.read() == generate_locks_md()
+    # the root's LOCKS.md stays the reference's own
+    with open(os.path.join(ROOT, "LOCKS.md")) as f:
+        assert f.read() == j_generate_locks_md()
 
 
 def test_write_docs_writes_the_ports_documents_only(tmp_path):
@@ -159,6 +168,7 @@ def test_write_docs_writes_the_ports_documents_only(tmp_path):
     written = regenerate_docs(str(tmp_path))
     assert sorted(os.path.relpath(p, tmp_path) for p in written) == [
         os.path.join(PKG, "docs", "CONFIGS.md"),
+        os.path.join(PKG, "docs", "LOCKS.md"),
         os.path.join(PKG, "docs", "SUPPORTED_OPS.md")]
     assert sorted(os.listdir(tmp_path)) == [PKG]
 
@@ -167,15 +177,15 @@ def test_cli_lists_every_rule(capsys):
     from spark_rapids_tpu_torch.lint.__main__ import main
     assert main(["--list-rules"]) == 0
     out = capsys.readouterr().out.splitlines()
-    assert len(out) == len(RULES) == 31
+    assert len(out) == len(RULES) == 35
     assert [line.split()[0] for line in out] == sorted(RULES)
 
 
-def test_rule_ids_are_the_references_less_the_lock_contract():
+def test_rule_ids_are_the_references():
+    """The lock-order contract is ported: the port's rule ids are the
+    reference's, RL-LOCK-* and RA-DOC-DRIFT-LOCKS included."""
     from spark_rapids_tpu.lint.diagnostics import RULES as JRULES
-    assert set(RULES) == set(JRULES) - {
-        "RL-LOCK-DECL", "RL-LOCK-ORDER", "RL-LOCK-EFFECT",
-        "RA-DOC-DRIFT-LOCKS"}
+    assert set(RULES) == set(JRULES)
 
 
 # ---------------------------------------------------------------------------
@@ -629,6 +639,20 @@ def test_ra_doc_drift(tmp_path):
                and "differs from the generator" in d.message for d in diags)
     assert any(d.rule_id == "RA-DOC-DRIFT-CONFIGS"
                and "missing" in d.message for d in diags)
+    # LOCKS.md missing, then stale in its first table row
+    assert any(d.rule_id == "RA-DOC-DRIFT-LOCKS"
+               and d.path == f"{PKG}/docs/LOCKS.md"
+               and "missing" in d.message for d in diags)
+    from spark_rapids_tpu_torch.lockorder import generate_locks_md
+    lines = generate_locks_md().splitlines(keepends=True)
+    row = next(i for i, line in enumerate(lines) if line.startswith("| 100 "))
+    lines[row] = lines[row].replace("| 100 ", "| 101 ")
+    (docs / "LOCKS.md").write_text("".join(lines))
+    diags = []
+    _audit_doc_drift(diags, str(tmp_path))
+    assert any(d.rule_id == "RA-DOC-DRIFT-LOCKS"
+               and d.path == f"{PKG}/docs/LOCKS.md:{row + 1}"
+               for d in diags), [str(d) for d in diags]
 
 
 # ---------------------------------------------------------------------------
@@ -1072,6 +1096,112 @@ def test_rl_mv_epoch():
           "    bump_table_epoch('delta:' + path, 'refresh')\n")
     assert _run_rl(_check_mv_epoch, f"{PKG}/streaming/mv.py", ok) == []
     assert _run_rl(_check_mv_epoch, f"{PKG}/service/scheduler.py", src) == []
+
+
+def _port_trees(rels=None, edits=None):
+    """The port's parsed sources (what ``lint_repo`` walks), or those of
+    ``rels``, with ``{rel: [(old, new), ...]}`` text edits applied."""
+    from spark_rapids_tpu_torch.lint.rules.common import (
+        _iter_source_files,
+        _rel,
+    )
+    trees = {}
+    for path in _iter_source_files(ROOT):
+        rel = _rel(ROOT, path)
+        if rels is not None and rel not in rels:
+            continue
+        with open(path, encoding="utf-8") as f:
+            src = f.read()
+        for old, new in (edits or {}).get(rel, ()):
+            assert src.count(old) == 1, (rel, old)
+            src = src.replace(old, new)
+        trees[rel] = ast.parse(src)
+    return trees
+
+
+def _concurrency(trees):
+    from spark_rapids_tpu_torch.lint.concurrency import check_concurrency
+    diags = []
+    check_concurrency(trees, diags)
+    return diags
+
+
+#: the mesh gate's construction as committed, and its former shape (one
+#: conditional expression)
+_MESH_GATE = (
+    "        self._mesh_gate = None\n"
+    "        if bool(self.conf.get_entry(MESH_ENABLED)):\n"
+    '            self._mesh_gate = ordered_lock("service.mesh_gate")',
+    '        self._mesh_gate = (ordered_lock("service.mesh_gate")\n'
+    "                           if bool(self.conf.get_entry(MESH_ENABLED))\n"
+    "                           else None)")
+
+
+def test_rl_lock_decl_pins_the_ports_repairs():
+    """RL-LOCK-DECL over the port's modules (the whole tree lints clean:
+    ``test_repo_lints_clean``): the mesh gate's former one-expression
+    construction binds nothing (unbound, then stale), and a raw lock back
+    in a scope directory is raw (and leaves its declaration stale)."""
+    sched = f"{PKG}/service/scheduler.py"
+    assert _concurrency(_port_trees({sched})) == []
+    diags = _concurrency(_port_trees({sched}, {sched: [_MESH_GATE]}))
+    assert {d.rule_id for d in diags} == {"RL-LOCK-DECL"}
+    assert any("<unbound>" in d.message and d.path.startswith(sched)
+               for d in diags)
+    assert any(d.path == "lockorder.LOCK_ORDER['service.mesh_gate']"
+               and "stale" in d.message for d in diags)
+    spec = f"{PKG}/runtime/speculation.py"
+    diags = _concurrency(_port_trees({spec}, {spec: [(
+        'ordered_lock("speculation.blocklist")', "threading.Lock()")]}))
+    assert len(diags) == 2 and {d.rule_id for d in diags} == {"RL-LOCK-DECL"}
+    assert any(d.path.startswith(spec)
+               and "raw threading.Lock()" in d.message for d in diags)
+    assert any(d.path == "lockorder.LOCK_ORDER['speculation.blocklist']"
+               for d in diags)
+
+
+def test_rl_lock_order_pins_the_topology_nest():
+    """The topology snapshot's former nest (quarantine taken under the
+    mesh's lock) is an RL-LOCK-ORDER finding over the port's tree."""
+    rel = f"{PKG}/runtime/health.py"
+    # the nest's owners: the pass resolves their singletons there
+    owners = {rel} | {f"{PKG}/{m}.py" for m in (
+        "runtime/cluster", "parallel/mesh", "runtime/memory")}
+    assert _concurrency(_port_trees(owners)) == []
+    diags = _concurrency(_port_trees(owners, {rel: [(
+        "            with QUARANTINE._lock:\n"
+        "                with MESH._lock:",
+        "            with MESH._lock:\n"
+        "                with QUARANTINE._lock:")]}))
+    hits = _find(diags, "RL-LOCK-ORDER")
+    assert any(d.path.startswith(rel) and "'health.quarantine' (rank 410) "
+               "while holding 'mesh.runtime' (rank 530)" in d.message
+               for d in hits), [str(d) for d in diags]
+
+
+def test_rl_lock_effect_allowlists_name_live_functions():
+    """RL-LOCK-EFFECT: every allowlisted holder is a function of the
+    port's tree (a stale key silences nothing it names), and a host sync
+    under a declared lock is a finding."""
+    from spark_rapids_tpu_torch.lint import concurrency as C
+    from spark_rapids_tpu_torch.lockorder import LOCK_ORDER
+    idx = C._Indexes(_port_trees(), LOCK_ORDER)
+    for key in list(C._LOCK_EFFECT_ALLOWLIST) + list(
+            C._LOCK_ORDER_ALLOWLIST):
+        rel, qual = key.split(":")
+        assert (rel, qual) in idx.funcs, key
+    rel = f"{PKG}/io/filecache.py"
+    trees = {rel: ast.parse(
+        "from spark_rapids_tpu_torch.lockorder import ordered_lock\n"
+        "class _FileCache:\n"
+        "    def __init__(self):\n"
+        '        self._lock = ordered_lock("io.filecache")\n'
+        "    def peek(self, t):\n"
+        "        with self._lock:\n"
+        "            return t.cpu()\n")}
+    hits = _find(_concurrency(trees), "RL-LOCK-EFFECT")
+    assert any(d.path == f"{rel}:7" and "host sync .cpu() while holding "
+               "lock 'io.filecache'" in d.message for d in hits)
 
 
 def test_every_rule_has_a_negative_test():
