@@ -1,7 +1,7 @@
 """Drive the PyTorch port (spark_rapids_tpu_torch) on one CUDA card.
 
     python3 chip_smoke.py [--rows N] [--sf SF] [--seed S] [--profile DIR]
-                          [--only 21|22|23|24|25|26]
+                          [--only 21|22|23|24|25|26|27]
 
 Phases, in order; any failure exits non-zero:
 
@@ -327,10 +327,27 @@ Phases, in order; any failure exits non-zero:
    and RL-LOCK-EFFECT timed over the port's sources with 0 diagnostics,
    ``docs/LOCKS.md`` as generated. Every launch is held against its
    kernel's plain version;
-27. the summary lines: the lock table's size and V8's result; one ``{"kernels": [...]}`` JSON line (the five TPU
+27. ANSI mode and the user surface (``run_user_surface``): A1 q1 and
+   dense q3 with ``spark.sql.ansi.enabled`` bit for bit ANSI off's, with
+   their warm times and host syncs (equal) beside ANSI off's; A2 four
+   violations over the same rows (an integral overflow of sparse q3's
+   l_orderkey, a cast overflow of q1's l_extendedprice * 1e18 to bigint,
+   a remainder by zero, a raising filter predicate), each raising
+   AnsiViolation with the reference's message on the card and on the CPU
+   route, then the recovery state unchanged and the next q1 bit for bit;
+   A3 a guarded CASE WHEN over q1's zero discounts and an overflow only
+   filtered-out rows would hit, against numpy; S1 a pivot of
+   l_linestatus over l_returnflag against numpy; S2 q1 and sparse q3
+   through ``to_device_arrays`` (on ``cuda:0``, equal to
+   ``collect_table``, host syncs counted) and the bloom filter over
+   o_orderkey through the export against the download-and-upload build;
+   S3 q1 under ``spark.rapids.sql.mode=explainOnly`` (its tagged plan
+   printed, 0 launches). Every launch is held against its kernel's plain
+   version;
+28. the summary lines: the lock table's size and V8's result; one ``{"kernels": [...]}`` JSON line (the five TPU
    kernels and the DECIMAL128 division kernel, CUDA work beyond them;
    launches of the main path: q1's, sparse q3's probes, q8's MIN/MAX, plus
-   every phase-7 to phase-26 query's), the script's time, the card line,
+   every phase-7 to phase-27 query's), the script's time, the card line,
    and last ``{"ok": true, "device": {...}}``.
 
 Each phase logs its wall time. It needs one CUDA card and exits non-zero
@@ -339,7 +356,7 @@ trace of one warm run of q1, of each q3 form, of each phase-6, phase-7
 and phase-8 query, of phase 9's conditional query, of J1, J7, J8 and J9,
 of O1, O2, O3, O4a, O5, O6a and O7, of S1, S2, S5, S7 and S8 and of W1,
 W3, W4, W7, W8a and W8c, and of N1 and N3's posexplode. ``--only 21``
-(or ``22``, ``23``, ``24``, ``25``, ``26``) runs phases 1-3 and then that
+(or ``22``, ``23``, ``24``, ``25``, ``26``, ``27``) runs phases 1-3 and then that
 phase over tables it makes itself. For the time limit, phases 11-13 take one warm
 run before the counted one, 15.4 one, 16.4 none (the counted run's time
 is its warm time), and 15.3 one fresh process.
@@ -376,6 +393,8 @@ INT32_OPS_PER_S = 33.5e12
 
 #: every tensor of the script lives on the card
 DEV = torch.device("cuda")
+#: where the device export's tensors must be (phase 27)
+CUDA0 = torch.device("cuda", 0)
 
 TPU_KERNELS = {
     "onehot_partials": "spark_rapids_tpu/kernels/segreduce.py:145",
@@ -6901,6 +6920,10 @@ def run_bloom(tables, card: str) -> tuple:
         bloom = F.build_bloom_filter(od, "o_orderkey")
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
+    # the build's host syncs: the column stays on the card (the export)
+    with host_sync_count() as box:
+        F.build_bloom_filter(od, "o_orderkey")
+        torch.cuda.synchronize()
     o = {n: c.data for n, c in zip(orders.names, orders.columns)}
     keys = o["o_orderkey"][(o["o_orderdate"] >= lo) & (o["o_orderdate"] < hi)]
     plain = build_bits(torch.from_numpy(keys.astype(np.int64)),
@@ -6955,6 +6978,7 @@ def run_bloom(tables, card: str) -> tuple:
             totals[k] = totals.get(k, 0) + v
         numbers["prefiltered" if pre else "plain"] = res["stats"]
     numbers.update(
+        build_syncs=box["syncs"],
         build_ms=round(statistics.median(times) * 1e3, 3),
         build_cold_ms=round(times[0] * 1e3, 3), keys=int(len(keys)),
         set_bits=bloom.approx_set_bits(), kept=kept.num_rows,
@@ -6963,7 +6987,8 @@ def run_bloom(tables, card: str) -> tuple:
     log(f"  18.2 bloom filter over {len(keys)} keys of the 1995 orders "
         f"({bloom.num_bits} bits, {bloom.num_hashes} hashes, "
         f"{numbers['set_bits']} set): built in {numbers['build_ms']} ms warm "
-        f"({numbers['build_cold_ms']} cold), bits equal the plain CPU build; "
+        f"({numbers['build_cold_ms']} cold, {numbers['build_syncs']} host "
+        "syncs), bits equal the plain CPU build; "
         f"might_contain keeps {kept.num_rows} of {li.num_rows} lineitem rows "
         f"({numbers['false_positives']} false positives, no false negative); "
         f"the join warm {numbers['prefiltered']['warm_ms']} ms after the "
@@ -11750,6 +11775,413 @@ def corpus_checks(tables) -> dict:
     return checks
 
 
+# ---------------------------------------------------------------------------
+# phase 27: ANSI mode and the user surface
+# ---------------------------------------------------------------------------
+
+USER_PHASE = ("phase 27: ANSI and the user surface (A1 q1 and dense q3 with "
+              "spark.sql.ansi.enabled, A2 four violations on the card and "
+              "on the CPU route, A3 guards, S1 a pivot, S2 the device export "
+              "and the bloom build through it, S3 explainOnly)")
+#: phase 27's aim in seconds (logged when passed)
+USER_BUDGET_S = 30.0
+ANSI_ON = {"spark.sql.ansi.enabled": "true"}
+ANSI_CPU = {**ANSI_ON, "spark.rapids.sql.enabled": "false"}
+
+
+def only_user_keep(rows: int) -> dict:
+    """``--only 27``: phase 27's inputs made here, as phases 4-5 keep them
+    in a full run (q1's table, dense and sparse q3's tables, each with its
+    oracle check)."""
+    from spark_rapids_tpu_torch.models.tpch import lineitem_table, q3_tables
+    li = lineitem_table(rows, seed=0)
+    o1 = q1_oracle(li)
+    dense = q3_tables(rows, seed=0)
+    sparse = tuple(sparse_form(t) for t in dense)
+    od, osp = q3_oracle(*dense), q3_oracle(*sparse)
+    return {"TPC-H q1": {"tables": (li,),
+                         "check": lambda g: check_q1_result(g, o1)},
+            "q3 dense": {"tables": dense,
+                         "check": lambda g: check_q3_result(
+                             g, od, "q3 dense")},
+            "q3 sparse": {"tables": sparse,
+                          "check": lambda g: check_q3_result(
+                              g, osp, "q3 sparse")}}
+
+
+@contextlib.contextmanager
+def recorded(held):
+    """Record the block's kernel launches (``kernels.calls``: inputs and
+    outputs cloned on the card, no host sync) and hold each against its
+    kernel's plain version when the block ends, outside any timed or
+    sync-counted window the block holds."""
+    from spark_rapids_tpu_torch import kernels as K
+    K.calls = []
+    try:
+        yield
+    finally:
+        calls, K.calls = K.calls, None
+        for call in calls:
+            held.append(call)
+
+
+def _warm_counted(make, held, runs: int = 3):
+    """One converting run, ``runs`` warm runs (their median ms) and one
+    more under the sync counter, every launch held after its run:
+    (result of the counted run, warm median ms, host syncs)."""
+    with recorded(held):
+        make().collect_table()
+    times = []
+    for _ in range(runs):
+        with recorded(held):
+            t0 = time.perf_counter()
+            make().collect_table()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+    with recorded(held), host_sync_count() as box:
+        got = make().collect_table()
+        torch.cuda.synchronize()
+    return got, round(statistics.median(times), 3), box["syncs"]
+
+
+def _expect_ansi(make, want: str, what: str) -> float:
+    """``make().collect_table()`` must raise AnsiViolation with message
+    ``want``; returns the ms it took to raise."""
+    from spark_rapids_tpu_torch.errors import AnsiViolation
+    t0 = time.perf_counter()
+    try:
+        make().collect_table()
+    except AnsiViolation as e:
+        if str(e) != want:
+            fail(f"A2 {what}: AnsiViolation {str(e)!r}, want {want!r}")
+    else:
+        fail(f"A2 {what}: no AnsiViolation")
+    torch.cuda.synchronize()
+    return round((time.perf_counter() - t0) * 1e3, 2)
+
+
+def _recovery_state():
+    """What an ANSI error must leave as it was: the speculation blocklist,
+    the recovery counters (replays, demotions), the health monitor, the
+    quarantine and the circuit breaker."""
+    from spark_rapids_tpu_torch.runtime import speculation as spec
+    from spark_rapids_tpu_torch.runtime.faults import (
+        CIRCUIT_BREAKER,
+        RECOVERY,
+    )
+    from spark_rapids_tpu_torch.runtime.health import HEALTH, QUARANTINE
+    return (sorted(spec._BLOCKLIST), RECOVERY.snapshot(), HEALTH.snapshot(),
+            QUARANTINE.snapshot(), dict(CIRCUIT_BREAKER._failures))
+
+
+def run_ansi(q1_keep, q3_dense, res, held) -> dict:
+    """A1-A3 and the state check after A2 (``run_user_surface``); returns
+    A1's ANSI results by query."""
+    from spark_rapids_tpu_torch import functions as F
+    from spark_rapids_tpu_torch.models.tpch import q1_dataframe, q3_dataframe
+    from spark_rapids_tpu_torch.ops.expr import col, lit
+    from spark_rapids_tpu_torch.plan import from_host_table
+    from spark_rapids_tpu_torch.session import TorchSession
+    li = q1_keep["tables"][0]
+    dense = q3_dense["tables"]
+    off, on = TorchSession(), TorchSession(ANSI_ON)
+    results = {}
+    # dense q3's f64 revenue sums over more than 32 groups by atomics,
+    # whose last bits vary from run to run (ROADMAP Queue 3 item 1): it
+    # is held within rtol 1e-9, every other value bit for bit
+    for name, make, check, rtol in (
+            ("TPC-H q1", lambda s: q1_dataframe(s, li), q1_keep["check"],
+             None),
+            ("q3 dense", lambda s: q3_dataframe(s, *dense),
+             q3_dense["check"], 1e-9)):
+        cell = {}
+        for label, s in (("off", off), ("on", on)):
+            got, ms, syncs = _warm_counted(lambda s=s: make(s), held)
+            check(got)
+            cell[label] = (got, ms, syncs)
+        same_table(cell["on"][0], cell["off"][0], f"A1 {name} ANSI on",
+                   rtol)
+        if cell["on"][2] != cell["off"][2]:
+            fail(f"A1 {name}: {cell['on'][2]} host syncs with ANSI on, "
+                 f"{cell['off'][2]} with it off")
+        results[name] = cell["on"][0]
+        res["A1"][name] = {"warmMsOff": cell["off"][1],
+                           "warmMsOn": cell["on"][1],
+                           "syncs": cell["on"][2]}
+        how = ("bit for bit" if rtol is None else
+               "f64 sums within rtol 1e-9, the rest bit for bit")
+        log(f"  A1 {name} with spark.sql.ansi.enabled: ANSI off's result "
+            f"({how}), oracle ok, warm {cell['on'][1]} ms (off "
+            f"{cell['off'][1]} ms), host syncs {cell['on'][2]} (off "
+            f"{cell['off'][2]})")
+
+    # A2: violations over the same rows, on the card and the CPU route
+    q3li = dense[2]
+    kmax = int(q3li.columns[q3li.names.index("l_orderkey")].data.max())
+    big = (1 << 63) - 1 - kmax + 1
+    cases = {
+        "integral overflow": (
+            lambda s: from_host_table(q3li, s).select(
+                (col("l_orderkey") + lit(big)).alias("y")),
+            "integer overflow in +"),
+        "cast overflow": (
+            lambda s: from_host_table(li, s).select(
+                (col("l_extendedprice") * lit(1e18)).cast("bigint")
+                .alias("y")),
+            "cast overflow to bigint"),
+        "divide by zero": (
+            lambda s: from_host_table(li, s).select(
+                (col("l_quantity") % (col("l_quantity")
+                                      - col("l_quantity"))).alias("y")),
+            "divide by zero"),
+        "filter predicate": (
+            lambda s: from_host_table(q3li, s).filter(
+                (col("l_orderkey") + lit(big)) > lit(0)),
+            "integer overflow in +"),
+    }
+    before = _recovery_state()
+    cpu = TorchSession(ANSI_CPU)
+    for what, (make, label) in cases.items():
+        with recorded(held):
+            dev_ms = _expect_ansi(lambda: make(on), f"[ANSI] {label}", what)
+        m = on.last_metrics()
+        if m.get("speculationReplays", 0) or m.get("runtimeFaultReplays", 0):
+            fail(f"A2 {what}: replays {m}")
+        cpu_ms = _expect_ansi(lambda: make(cpu),
+                              f"{label} (spark.sql.ansi.enabled)", what)
+        res["A2"][what] = {"deviceMs": dev_ms, "cpuRouteMs": cpu_ms}
+        log(f"  A2 {what}: AnsiViolation '[ANSI] {label}' on the card in "
+            f"{dev_ms} ms, '{label} (spark.sql.ansi.enabled)' on the CPU "
+            f"route in {cpu_ms} ms")
+    after = _recovery_state()
+    if after != before:
+        fail(f"A2 changed the recovery state: {before} -> {after}")
+    with recorded(held):
+        again = q1_dataframe(on, li).collect_table()
+    same_table(again, results["TPC-H q1"], "q1 after A2", None)
+    log("  after A2: 0 replays, the blocklist, the recovery counters "
+        "(demotions), the health monitor, the quarantine and the breaker "
+        "unchanged; the next q1 bit for bit")
+
+    # A3: guards
+    p = li.columns[li.names.index("l_extendedprice")].data
+    d = li.columns[li.names.index("l_discount")].data
+    want = np.where(d != 0, p / np.where(d != 0, d, 1.0), 0.0)
+    for label, s in (("card", on), ("CPU route", cpu)):
+        with recorded(held):
+            got = from_host_table(li, s).select(
+                F.when(col("l_discount") != lit(0.0),
+                       col("l_extendedprice") / col("l_discount"))
+                .otherwise(lit(0.0)).alias("r")).collect_table()
+        r = got.columns[0]
+        if not (r.validity.all() and r.data.tobytes() == want.tobytes()):
+            fail(f"A3 CASE WHEN on the {label}: not the numpy oracle")
+    ok = q3li.columns[q3li.names.index("l_orderkey")].data
+    below = ok[ok < kmax]
+    for label, s in (("card", on), ("CPU route", cpu)):
+        with recorded(held):
+            got = from_host_table(q3li, s).filter(
+                col("l_orderkey") < lit(kmax)).select(
+                (col("l_orderkey") + lit(big)).alias("y")).agg(
+                F.max("y").alias("m"), F.count().alias("n")).collect_table()
+        m, n = (c.data[0] for c in got.columns)
+        if int(m) != int(below.max()) + big or int(n) != len(below):
+            fail(f"A3 filtered overflow on the {label}: {m}, {n}")
+    zeros = int((d == 0).sum())
+    res["A3"] = {"zeroDiscounts": zeros, "filteredRows": int(len(ok) -
+                                                             len(below))}
+    log(f"  A3 CASE WHEN l_discount != 0 THEN l_extendedprice / l_discount "
+        f"ELSE 0 over {len(d)} rows ({zeros} zero discounts): the numpy "
+        f"oracle bit for bit, on the card and the CPU route; l_orderkey + "
+        f"{big} past a filter that drops the {len(ok) - len(below)} rows it "
+        "would overflow: max and count as numpy's, no raise")
+    return results
+
+
+def run_surface(q1_keep, q3_dense, q3_sparse, results, res, held) -> None:
+    """S1-S3 (``run_user_surface``)."""
+    from spark_rapids_tpu_torch import functions as F
+    from spark_rapids_tpu_torch import kernels as K
+    from spark_rapids_tpu_torch.columnar import DeviceColumn
+    from spark_rapids_tpu_torch.models.tpch import q1_dataframe, q3_dataframe
+    from spark_rapids_tpu_torch.ops.bloom import build_bits
+    from spark_rapids_tpu_torch.plan import from_host_table
+    from spark_rapids_tpu_torch.runtime import speculation as spec
+    from spark_rapids_tpu_torch.session import TorchSession
+    li = q1_keep["tables"][0]
+    s = TorchSession()
+
+    # S1: the pivot
+    before = K.launch_counts()
+    with recorded(held):
+        t0 = time.perf_counter()
+        got = from_host_table(li, s).group_by("l_returnflag").pivot(
+            "l_linestatus", ["F", "O"]).agg(
+            F.sum("l_quantity").alias("q"),
+            F.sum("l_extendedprice").alias("p"),
+            F.count().alias("n")).sort("l_returnflag").collect_table()
+        torch.cuda.synchronize()
+        pivot_ms = round((time.perf_counter() - t0) * 1e3, 2)
+    pl = {k: K.launch_counts()[k] - before[k] for k in before}
+    c = {n: li.columns[li.names.index(n)].data for n in li.names}
+    flags = sorted(set(c["l_returnflag"]))
+    want_names = ["l_returnflag"] + [f"{v}_{a}" for v in ("F", "O")
+                                     for a in ("q", "p", "n")]
+    if list(got.names) != want_names or \
+            list(got.columns[0].data) != flags:
+        fail(f"S1 pivot: {list(got.names)} {list(got.columns[0].data)}")
+    for i, rf in enumerate(flags):
+        for j, ls in enumerate(("F", "O")):
+            sel = (c["l_returnflag"] == rf) & (c["l_linestatus"] == ls)
+            q, pr, n = (got.columns[1 + 3 * j + k].data[i] for k in range(3))
+            if int(n) != int(sel.sum()) or not math.isclose(
+                    q, c["l_quantity"][sel].sum(), rel_tol=1e-9) or \
+                    not math.isclose(pr, c["l_extendedprice"][sel].sum(),
+                                     rel_tol=1e-9):
+                fail(f"S1 pivot ({rf}, {ls}): {q}, {pr}, {n}")
+    if pl["onehot_partials"] < 1:
+        fail(f"S1 pivot launched no partial sums: {pl}")
+    res["S1"] = {"ms": pivot_ms, "launches": {k: v for k, v in pl.items()
+                                              if v}}
+    log(f"  S1 pivot of l_linestatus (F, O) over l_returnflag, sums and "
+        f"count(*): the numpy oracle (counts exact, sums rtol 1e-9), "
+        f"{pivot_ms} ms cold, launches {res['S1']['launches']}")
+
+    # S2: the device export (sparse q3 from a clear blocklist: earlier
+    # phases may have put its hash probe on the sort)
+    spec.clear_blocklist()
+    # sparse q3's f64 revenue: as in A1, within rtol 1e-9
+    for name, make, check, rtol in (
+            ("TPC-H q1", lambda ss: q1_dataframe(ss, li), q1_keep["check"],
+             None),
+            ("q3 sparse", lambda ss: q3_dataframe(ss, *q3_sparse["tables"]),
+             q3_sparse["check"], 1e-9)):
+        ss = TorchSession()
+        table, _, collect_syncs = _warm_counted(lambda: make(ss), held,
+                                                runs=1)
+        check(table)
+        with recorded(held):
+            make(ss).to_device_arrays()
+        with recorded(held), host_sync_count() as box:
+            arrays, n = make(ss).to_device_arrays()
+            torch.cuda.synchronize()
+        if n != table.num_rows:
+            fail(f"S2 {name}: {n} rows exported, {table.num_rows} collected")
+        for cname, hc in zip(table.names, table.columns):
+            parts = arrays[cname]
+            if any(t.device != CUDA0 for t in parts[:2]):
+                fail(f"S2 {name} {cname}: not on {CUDA0}")
+            data = parts[0][:n].cpu().numpy()
+            valid = parts[1][:n].cpu().numpy()
+            if len(parts) == 3:
+                data = np.asarray(parts[2], dtype=object)[data]
+            got, want = data[valid], hc.data[hc.validity]
+            if data.dtype == object:
+                same = list(got) == list(want)
+            elif rtol and data.dtype.kind == "f":
+                same = np.allclose(got, want, rtol=rtol, atol=0)
+            else:
+                same = got.tobytes() == want.tobytes()
+            if not np.array_equal(valid, hc.validity) or not same:
+                fail(f"S2 {name} {cname}: the export differs from "
+                     "collect_table")
+        if box["syncs"] > collect_syncs:
+            fail(f"S2 {name}: the export made {box['syncs']} host syncs, "
+                 f"the collect {collect_syncs}")
+        res["S2"][name] = {"exportSyncs": box["syncs"],
+                           "collectSyncs": collect_syncs, "rows": n}
+        log(f"  S2 {name}: to_device_arrays on cuda:0 equals collect_table "
+            f"column for column ({n} rows); host syncs {box['syncs']} "
+            f"(collect {collect_syncs}: no result download)")
+    spec.clear_blocklist()
+
+    # the bloom build through the export against the download-and-upload
+    orders = q3_dense["tables"][1]
+    od = from_host_table(orders, s)
+    with recorded(held):
+        F.build_bloom_filter(od, "o_orderkey")
+    with recorded(held), host_sync_count() as box:
+        bloom = F.build_bloom_filter(od, "o_orderkey")
+        torch.cuda.synchronize()
+    with recorded(held), host_sync_count() as old:
+        host = od.select("o_orderkey").collect_table().columns[0]
+        dc = DeviceColumn.from_host(host, len(host), DEV)
+        bits = build_bits(dc.data.to(torch.int64), dc.validity,
+                          bloom.num_bits, bloom.num_hashes)
+        torch.cuda.synchronize()
+    if not torch.equal(bits, bloom.bits):
+        fail("S2 the bloom filter through the export differs from the "
+             "download-and-upload build")
+    res["S2"]["bloom"] = {"keys": orders.num_rows, "syncs": box["syncs"],
+                          "oldSyncs": old["syncs"]}
+    log(f"  S2 build_bloom_filter over {orders.num_rows} o_orderkey through "
+        f"the export: bits equal the download-and-upload build's; host "
+        f"syncs {box['syncs']} (the old path {old['syncs']}: its download "
+        "and its upload)")
+
+    # S3: explainOnly
+    ex = TorchSession({"spark.rapids.sql.mode": "explainOnly",
+                       "spark.rapids.sql.explain": "ALL"})
+    before = K.launch_counts()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        got = q1_dataframe(ex, li).collect_table()
+    ms = round((time.perf_counter() - t0) * 1e3, 1)
+    if K.launch_counts() != before or ex.last_dispatches:
+        fail("S3 explainOnly launched a kernel")
+    q1_keep["check"](got)
+    text = buf.getvalue()
+    if "Aggregate" not in text or ex.last_meta is None:
+        fail(f"S3 explainOnly printed no tagged plan: {text[:300]!r}")
+    same_table(got, results["TPC-H q1"], "S3 q1 explainOnly", 1e-9)
+    res["S3"] = {"ms": ms, "planLines": len(text.splitlines())}
+    log(f"  S3 q1 with spark.rapids.sql.mode=explainOnly: the tagged plan "
+        f"printed ({len(text.splitlines())} lines), 0 launches, the result "
+        f"from the CPU route in {ms} ms (the oracle's; the card's within "
+        "rtol 1e-9)")
+
+
+def run_user_surface(q1_keep, q3_dense, q3_sparse) -> dict:
+    """Phase 27: ANSI mode (A1-A3) and the rest of the user surface
+    (S1-S3) over phase 4's lineitem and phase 5's tables. Returns the
+    phase's launches, every one held against its kernel's plain version
+    after the run that made it (``recorded``)."""
+    from spark_rapids_tpu_torch import kernels as K
+    t_phase = time.perf_counter()
+    card = card_line()
+    res = {"A1": {}, "A2": {}, "S2": {}}
+    K.reset_launch_counts()
+    held = HeldCalls()
+    CPU_ROUTE["expected"] = True
+    try:
+        results = run_ansi(q1_keep, q3_dense, res, held)
+        run_surface(q1_keep, q3_dense, q3_sparse, results, res, held)
+    finally:
+        K.calls = None
+        CPU_ROUTE["expected"] = False
+    if sum(held.held.values()) != sum(K.launch_counts().values()):
+        fail(f"phase 27 held {dict(held.held)} of launches "
+             f"{K.launch_counts()}")
+    launches = K.launch_counts()
+    if held.bad:
+        fail(f"phase 27: launches disagree with their plain versions: "
+             f"{held.bad[:8]}")
+    for k in ("onehot_partials", "gather_compact", "sort_with_payload",
+              "probe_rowids"):
+        if not launches.get(k):
+            fail(f"phase 27 launched no {k}")
+    took = time.perf_counter() - t_phase
+    summary = {"card": card, "seconds": round(took, 1),
+               "launches": {k: v for k, v in launches.items() if v},
+               "held": dict(held.held), "cells": res}
+    if took > USER_BUDGET_S:
+        log(f"  phase 27 took {took:.1f} s, past its {USER_BUDGET_S:.0f} s "
+            "aim")
+    log("  phase-27 summary: " + json.dumps(summary, default=str))
+    return launches
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rows", type=int, default=6_001_215,
@@ -11763,7 +12195,8 @@ def main(argv=None) -> int:
                     help="directory for torch.profiler tables and traces of "
                          "one warm run of q1, of each q3 form and of each "
                          "phase-6 query")
-    ap.add_argument("--only", type=int, choices=(21, 22, 23, 24, 25, 26),
+    ap.add_argument("--only", type=int,
+                    choices=(21, 22, 23, 24, 25, 26, 27),
                     default=None,
                     help="run phases 1-3 and this phase only (its tables "
                          "made here); a full run is the default")
@@ -11914,6 +12347,16 @@ def main(argv=None) -> int:
                                         keep["q3 sparse"]).items():
             launches[k] = launches.get(k, 0) + v
         log(f"  phase 26 ran {time.perf_counter() - t_phase:.1f} s")
+        return summary_phase(rows, launches, t_start)
+    if args.only == 27:
+        launches = {r["name"]: 0 for r in rows}
+        keep = only_user_keep(args.rows)
+        t_phase = time.perf_counter()
+        log(USER_PHASE)
+        for k, v in run_user_surface(keep["TPC-H q1"], keep["q3 dense"],
+                                     keep["q3 sparse"]).items():
+            launches[k] = launches.get(k, 0) + v
+        log(f"  phase 27 ran {time.perf_counter() - t_phase:.1f} s")
         return summary_phase(rows, launches, t_start)
 
     #: what phases 4-8 keep of each DSL form for phase 9's SQL forms
@@ -12119,12 +12562,19 @@ def main(argv=None) -> int:
     for k, v in run_static_analysis(q1_keep, dist_keep["q3 sparse"]).items():
         launches[k] = launches.get(k, 0) + v
     log(f"  phase 26 ran {time.perf_counter() - t_phase:.1f} s")
+
+    t_phase = time.perf_counter()
+    log(USER_PHASE)
+    for k, v in run_user_surface(q1_keep, q3_dense,
+                                 dist_keep["q3 sparse"]).items():
+        launches[k] = launches.get(k, 0) + v
+    log(f"  phase 27 ran {time.perf_counter() - t_phase:.1f} s")
     return summary_phase(rows, launches, t_start)
 
 
 def summary_phase(rows, launches, t_start: float) -> int:
     from spark_rapids_tpu_torch import lockorder
-    log("phase 27: summary")
+    log("phase 28: summary")
     log("  dec128_divide is CUDA work beyond the five TPU kernels: the "
         "reference divides DECIMAL128 values on its host")
     log(f"  the lock table: {len(lockorder.LOCK_ORDER)} declared locks, "

@@ -206,6 +206,62 @@ class HostColumn:
     def __len__(self) -> int:
         return len(self.data)
 
+    @property
+    def all_valid(self) -> bool:
+        """No null row (computed once)."""
+        got = self._cache.get("all_valid")
+        if got is None:
+            got = self._cache["all_valid"] = bool(self.validity.all())
+        return got
+
+    @property
+    def null_count(self) -> int:
+        return int(len(self.validity) - self.validity.sum())
+
+    @staticmethod
+    def from_numpy(values: np.ndarray, validity: Optional[np.ndarray] = None,
+                   dtype: Optional[T.DataType] = None) -> "HostColumn":
+        """A column over ``values`` as they are, typed by their numpy dtype
+        unless ``dtype`` names one."""
+        if dtype is None:
+            dtype = T.from_numpy(values.dtype)
+        return HostColumn(dtype, values, validity)
+
+    @staticmethod
+    def from_pylist(values, dtype: Optional[T.DataType] = None
+                    ) -> "HostColumn":
+        """A column of Python values (None is null; dates, datetimes and
+        DECIMAL128 unscaled ints converted to the internal form), typed by
+        the first non-null value unless ``dtype`` names one: the
+        reference's ``from_pylist``. A numpy array of a plain dtype is
+        taken as a whole (its values are never null)."""
+        if isinstance(values, np.ndarray) and values.dtype != object:
+            dt = dtype if dtype is not None else T.from_numpy(values.dtype)
+            if not (N.is_nested_type(dt) or T.is_dec128(dt)
+                    or isinstance(dt, T.StringType)):
+                return HostColumn(dt, values.astype(dt.np_dtype, copy=False))
+            values = values.tolist()
+        if dtype is None:
+            sample = next((v for v in values if v is not None), None)
+            dtype = (T.python_to_spark_type(sample) if sample is not None
+                     else T.NULL)
+        validity = np.array([v is not None for v in values], dtype=np.bool_)
+        if isinstance(dtype, T.ArrayType):
+            conv = _element_conv(dtype.element_type)
+            return HostColumn(dtype, _object_array([
+                [conv(x) if x is not None else None for x in v]
+                if v is not None else None for v in values]), validity)
+        if N.is_nested_type(dtype) or isinstance(dtype, T.StringType):
+            return HostColumn(dtype, _object_array(list(values)), validity)
+        if T.is_dec128(dtype):
+            return HostColumn(dtype, _object_array(
+                [int(v) if v is not None else 0 for v in values]), validity)
+        conv = _element_conv(dtype)
+        fill = np.zeros((), dtype=dtype.np_dtype).item()
+        data = np.array([conv(v) if v is not None else fill for v in values],
+                        dtype=dtype.np_dtype)
+        return HostColumn(dtype, data, validity)
+
     def take(self, rows: np.ndarray) -> "HostColumn":
         """The column at ``rows`` (an index array); a string column's
         codes come along (``subset_codes``), so an upload or a write of
@@ -281,6 +337,34 @@ class HostColumn:
                 dom = (int(vals.min()), int(vals.max()))
         self._cache["int_domain"] = dom
         return dom
+
+
+def _element_conv(dt):
+    """A Python value into the internal form of ``dt``: a date (or a
+    datetime's date) to epoch days, a datetime to UTC epoch microseconds
+    (a naive one read as UTC); any other value as it is."""
+    import datetime as _dt
+    if isinstance(dt, T.DateType):
+        epoch = _dt.date(1970, 1, 1)
+
+        def conv(v):
+            if isinstance(v, _dt.datetime):  # datetime subclasses date
+                v = v.date()
+            return (v - epoch).days if isinstance(v, _dt.date) else v
+        return conv
+    if isinstance(dt, T.TimestampType):
+        epoch_ts = _dt.datetime(1970, 1, 1, tzinfo=_dt.timezone.utc)
+
+        def conv(v):
+            if isinstance(v, _dt.datetime):
+                if v.tzinfo is None:
+                    v = v.replace(tzinfo=_dt.timezone.utc)
+                d = v - epoch_ts
+                return (d.days * 86_400_000_000 + d.seconds * 1_000_000
+                        + d.microseconds)
+            return v
+        return conv
+    return lambda v: v
 
 
 def _temporal_conv(dt):

@@ -51,6 +51,32 @@ class HostTable:
     def schema(self) -> List[Tuple[str, T.DataType]]:
         return [(n, c.dtype) for n, c in zip(self.names, self.columns)]
 
+    @property
+    def num_columns(self) -> int:
+        return len(self.columns)
+
+    def column(self, name: str) -> HostColumn:
+        return self.columns[self.names.index(name)]
+
+    @staticmethod
+    def from_pydict(data, dtypes=None) -> "HostTable":
+        """``{name: values}`` (lists or numpy arrays) as a table, each
+        column through ``HostColumn.from_pylist`` with its ``dtypes``
+        entry."""
+        return HostTable(list(data), [
+            HostColumn.from_pylist(v, (dtypes or {}).get(n))
+            for n, v in data.items()])
+
+    def to_pydict(self) -> dict:
+        return {n: c.to_pylist() for n, c in zip(self.names, self.columns)}
+
+    @staticmethod
+    def concat(tables: Sequence["HostTable"]) -> "HostTable":
+        """Tables of one schema one after another (``concat_host``)."""
+        if not tables:
+            raise ColumnarProcessingError("concat of zero tables")
+        return concat_host(list(tables))
+
     def slice(self, start: int, length: int) -> "HostTable":
         return HostTable(self.names,
                          [c.slice(start, length) for c in self.columns])
@@ -107,6 +133,16 @@ class DeviceTable:
         if self._nrows_host is None:
             self._nrows_host = int(self.nrows_dev.item())
         return self._nrows_host
+
+    @property
+    def num_columns(self) -> int:
+        return len(self.columns)
+
+    def schema(self) -> List[Tuple[str, T.DataType]]:
+        return [(n, c.dtype) for n, c in zip(self.names, self.columns)]
+
+    def column(self, name: str) -> DeviceColumn:
+        return self.columns[self.names.index(name)]
 
     def device_nbytes(self) -> int:
         """Bytes of the columns' data and validity tensors, from tensor

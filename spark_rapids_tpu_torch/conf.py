@@ -45,6 +45,14 @@ def _to_bool(v) -> bool:
     return str(v).strip().lower() in ("true", "1", "yes", "on")
 
 
+def _sql_mode(v) -> str:
+    mode = str(v).strip().lower()
+    if mode not in ("executeongpu", "explainonly"):
+        raise ValueError(f"spark.rapids.sql.mode must be executeongpu or "
+                         f"explainonly, got {v!r}")
+    return mode
+
+
 SQL_ENABLED = _conf(
     "spark.rapids.sql.enabled", True,
     "Master enable for plan rewriting onto the device; false runs every "
@@ -53,6 +61,28 @@ SQL_ENABLED = _conf(
 EXPLAIN = _conf(
     "spark.rapids.sql.explain", "NONE",
     "NONE, NOT_ON_GPU (log reasons for fallbacks) or ALL.", str)
+
+SQL_MODE = _conf(
+    "spark.rapids.sql.mode", "executeongpu",
+    "executeongpu: rewrite and run on the device; explainonly: tag the "
+    "plan, print it per spark.rapids.sql.explain and run it wholly on "
+    "the CPU route (no kernel launches). Case-insensitive.",
+    _sql_mode)
+
+BATCH_SIZE_BYTES = _conf(
+    "spark.rapids.sql.batchSizeBytes", 1 << 30,
+    "Target device batch size in bytes for coalescing (the aggregate's "
+    "input, the sort's, the streamed running window's, the exchange's "
+    "output and a join's probe side).", int)
+
+ANSI_ENABLED = _conf(
+    "spark.sql.ansi.enabled", False,
+    "ANSI SQL mode: integral overflow, divide by zero, invalid numeric "
+    "casts and out-of-bounds array indexes raise AnsiViolation instead "
+    "of wrapping or returning null. Each device walk records a violation "
+    "flag per check; under speculative sizing the flags ride the "
+    "result's row-count read, so ANSI checking adds no host sync.",
+    _to_bool)
 
 PLAN_VERIFY_MODE = _conf(
     "spark.rapids.sql.planVerify.mode", "off",
@@ -94,6 +124,18 @@ AGG_MAX_KEY_DOMAIN_GROUPS = _conf(
     "path (keys whose (min, max) is known from upload-time column "
     "statistics); wider domains take the sort-segment path. 0 disables.",
     int)
+
+AGG_FUSE_INPUT = _conf(
+    "spark.rapids.tpu.agg.fuseInput", True,
+    "Fuse Project/Filter chains feeding an aggregate into the aggregate: "
+    "predicates become weight masks (no row compaction) and value "
+    "expressions evaluate inline.", _to_bool)
+
+SCAN_DEVICE_CACHE = _conf(
+    "spark.rapids.tpu.scan.deviceCache", True,
+    "Cache the uploaded device image of in-memory scan batches on the host "
+    "table (by column); evicted first under device memory pressure.",
+    _to_bool)
 
 SPECULATIVE_SIZING = _conf(
     "spark.rapids.tpu.speculativeSizing.enabled", True,
@@ -159,6 +201,12 @@ JOIN_SUBPARTITION_BYTES = _conf(
     "bucket pairs join independently. Capped by the memory arbiter's scan "
     "chunk (runtime/memory.py: min(this, scan_chunk_bytes())). 0 "
     "disables.", int)
+
+NLJ_PAIR_BUDGET = _conf(
+    "spark.rapids.sql.nestedLoopJoin.pairBudget", 1 << 20,
+    "Max probe-tile x build-row pairs materialized per nested-loop join "
+    "tile: bounds device memory for conditioned joins regardless of input "
+    "sizes.", int)
 
 JOIN_MAX_SUBPARTITIONS = _conf(
     "spark.rapids.sql.join.maxSubPartitions", 64,
@@ -939,6 +987,13 @@ class RapidsConf:
             raise NotImplementedError(
                 f"conf keys not supported by the port: {unknown}")
 
+    def set(self, key: str, value: Any) -> "RapidsConf":
+        """A new conf with ``key`` set to ``value`` (an unknown key
+        raises, as at construction)."""
+        s = dict(self._settings)
+        s[key] = value
+        return RapidsConf(s)
+
     def to_dict(self) -> Dict[str, Any]:
         """The explicitly set ``{key: value}`` pairs."""
         return dict(self._settings)
@@ -955,6 +1010,14 @@ class RapidsConf:
     @property
     def explain_mode(self) -> str:
         return str(self.get_entry(EXPLAIN)).upper()
+
+    @property
+    def is_explain_only(self) -> bool:
+        return self.get_entry(SQL_MODE) == "explainonly"
+
+    @property
+    def batch_size_bytes(self) -> int:
+        return int(self.get_entry(BATCH_SIZE_BYTES))
 
     def is_op_enabled(self, kind: str, name: str) -> bool:
         """The kill switch ``spark.rapids.sql.<kind>.<name>`` (kind

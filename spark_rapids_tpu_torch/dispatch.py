@@ -25,6 +25,7 @@ stall (the port keeps constants as Python ints), and ``pallas_program``,
 
 from __future__ import annotations
 
+import contextvars
 import threading
 from typing import Tuple
 
@@ -57,6 +58,11 @@ class _ThreadFloat(threading.local):
     def __init__(self):
         self.v = 0.0
 
+
+#: ``spark.sql.ansi.enabled``, set per query by the placement layer in the
+#: thread that runs it (runtime/placement.py::ansi_mode)
+ANSI_MODE: "contextvars.ContextVar[bool]" = contextvars.ContextVar(
+    "rapids_torch_ansi_mode", default=False)
 
 _DISPATCHES = _ThreadCounter()
 _HOST_FETCHES = _ThreadCounter()

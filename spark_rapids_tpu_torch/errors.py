@@ -199,3 +199,12 @@ class QueryQuarantinedError(RapidsTpuError):
     def __init__(self, message: str, strikes=None):
         super().__init__(message)
         self.strikes = list(strikes or ())
+
+
+class AnsiViolation(RapidsTpuError, ArithmeticError):
+    """ANSI mode (``spark.sql.ansi.enabled``) runtime error: overflow,
+    divide by zero, an invalid cast or an array index out of bounds (the
+    engine's SparkArithmeticException). A device walk records the
+    violation as a device flag that rides the result's read (like a
+    speculation flag); the CPU route raises at evaluation. A user error:
+    no recovery layer replays, demotes or strikes on it."""

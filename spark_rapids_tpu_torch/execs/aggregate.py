@@ -605,24 +605,36 @@ class TpuHashAggregateExec(TpuExec):
 
     def _eval_live(self, table, filter_preps) -> torch.Tensor:
         """Row-liveness: in-bounds (or the input's mask) AND every fused
-        predicate non-null true."""
+        predicate non-null true. In ANSI mode the predicates run from the
+        lowest filter up, each checked only on the rows the filters below
+        it kept, as the unfused plan evaluates them."""
+        from spark_rapids_tpu_torch.dispatch import ANSI_MODE
         live = table.row_mask()
         cols = table_vals(table)
-        for f, preps in zip(self.filters, filter_preps):
+        ansi = ANSI_MODE.get()
+        fs = list(zip(self.filters, filter_preps))
+        if ansi:
+            fs.reverse()
+        for f, preps in fs:
             pred = eval_expr(f, preps, cols, table.nrows_dev,
-                             table.capacity, table.device, live=table.live)
+                             table.capacity, table.device, live=table.live,
+                             guard=live if ansi else None)
             live = live & pred.data & pred.validity
         return live
 
     def _eval_all(self, table, filter_preps, key_preps, val_preps):
-        """(live, key DevVals, per-spec value DevVals)."""
+        """(live, key DevVals, per-spec value DevVals); in ANSI mode the
+        keys and values are checked only on the rows the fused filters
+        kept."""
+        from spark_rapids_tpu_torch.dispatch import ANSI_MODE
         cols = table_vals(table)
+        live = self._eval_live(table, filter_preps)
+        guard = live if ANSI_MODE.get() and self.filters else None
 
         def ev(e, preps):
             return eval_expr(e, preps, cols, table.nrows_dev, table.capacity,
-                             table.device, live=table.live)
+                             table.device, live=table.live, guard=guard)
 
-        live = self._eval_live(table, filter_preps)
         kvs = [ev(g, p) for g, p in zip(self.grouping, key_preps)]
         vvs = [[ev(c, p) for c, p in zip(fn.children, per_child)]
                for (_, fn), per_child in zip(self.agg_specs, val_preps)]

@@ -47,10 +47,14 @@ class TpuScanExec(TpuExec):
 
     def __init__(self, batches: Sequence[HostTable], device: torch.device,
                  bucket_policy: BucketPolicy,
-                 columns: Optional[Sequence[int]] = None):
+                 columns: Optional[Sequence[int]] = None,
+                 device_cache: bool = True):
         self.batches = list(batches)
         self.device = device
         self.bucket_policy = bucket_policy
+        #: ``spark.rapids.tpu.scan.deviceCache``: false lands every batch
+        #: afresh and keeps nothing on its host columns
+        self.device_cache = bool(device_cache)
         self.columns = (tuple(range(len(self.batches[0].names)))
                         if columns is None else tuple(columns))
 
@@ -76,7 +80,7 @@ class TpuScanExec(TpuExec):
                 for ch in chunks:
                     yield retry_block(lambda c=ch: land_shards(
                         self, c, mesh, gen, self.bucket_policy,
-                        cached=len(chunks) == 1))
+                        cached=len(chunks) == 1 and self.device_cache))
                 continue
             if len(chunks) > 1:
                 for ch in chunks:
@@ -85,12 +89,13 @@ class TpuScanExec(TpuExec):
                 continue
             cap = self.bucket_policy.bucket_for(b.num_rows)
             key = ("device", str(self.device), cap)
-            if all(key in hc._cache for hc in view.columns):
+            cached = self.device_cache
+            if cached and all(key in hc._cache for hc in view.columns):
                 # a cache hit lands nothing: no retry site, as the
                 # reference's
                 yield self._land(view, b.num_rows, True)
                 continue
-            yield retry_block(lambda: self._land(view, b.num_rows, True))
+            yield retry_block(lambda: self._land(view, b.num_rows, cached))
 
     def _land(self, host: HostTable, nrows: int, cached: bool
               ) -> DeviceTable:
@@ -409,7 +414,9 @@ class TpuSampleExec(TpuExec):
 
 
 #: the reference's default ``spark.rapids.sql.batchSizeBytes``: the target
-#: of the coalesce in front of an aggregate and of a sort
+#: of the coalesce in front of an aggregate, a sort, a streamed window, a
+#: join's probe side and of an exchange's output, where the conf does not
+#: set the key (overrides/rules.py::batch_size_bytes)
 BATCH_SIZE_BYTES = 1 << 30
 
 

@@ -218,9 +218,12 @@ class TpuNestedLoopJoinExec(TpuExec):
 
     def __init__(self, left: TpuExec, right: TpuExec, join_type: str,
                  condition: Optional[Expression], left_schema,
-                 right_schema):
+                 right_schema, pair_budget: Optional[int] = None):
         self.children = (left, right)
         self.join_type = join_type
+        #: ``spark.rapids.sql.nestedLoopJoin.pairBudget`` where the conf
+        #: sets it, else the module's ``PAIR_BUDGET``
+        self.pair_budget = pair_budget
         self.condition = condition
         self._left_schema = list(left_schema)
         self._right_schema = list(right_schema)
@@ -267,12 +270,13 @@ class TpuNestedLoopJoinExec(TpuExec):
                                         device=build.device)
             yield self._unmatched_build(build, b_matched, swapped)
 
-    @staticmethod
-    def _tile_rows(cap_p: int, cap_b: int) -> int:
+    def _tile_rows(self, cap_p: int, cap_b: int) -> int:
         """Probe rows per tile: a power of two rounded DOWN so that
         tile * cap_b never exceeds the pair budget (a huge build side gets
         1-row tiles: slow, but bounded)."""
-        t = max(PAIR_BUDGET // max(cap_b, 1), 1)
+        budget = PAIR_BUDGET if self.pair_budget is None \
+            else int(self.pair_budget)
+        t = max(budget // max(cap_b, 1), 1)
         return min(1 << (t.bit_length() - 1), cap_p)
 
     @staticmethod

@@ -223,8 +223,8 @@ _PASS_THROUGH = {
     "TpuMeshRelandExec", "TpuKeyedBatchExec",
     "TpuTakeOrderedAndProjectExec", "DeviceToHost", "HostToDevice",
     "CpuRootExec", "InputAdapter",
-    "Filter", "Sort", "Limit", "Exchange", "Sample", "WindowGroupLimit",
-    "TakeOrderedAndProject",
+    "Filter", "Sort", "Limit", "CollectLimit", "Exchange", "Sample",
+    "WindowGroupLimit", "TakeOrderedAndProject",
 }
 
 

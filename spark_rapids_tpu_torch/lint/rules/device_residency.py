@@ -87,6 +87,10 @@ _HOST_SYNC_ALLOWLIST: dict = {
     "spark_rapids_tpu_torch/ops/bloom.py:BloomFilter.host_bits":
         "the CPU route's might_contain probes the filter's bits on the "
         "host: one read per filter, kept",
+    "spark_rapids_tpu_torch/ops/expr.py:deliver_ansi_flags":
+        "ANSI mode with speculative sizing off: one read of a device "
+        "walk's violation flags (with speculation they ride the result's "
+        "row-count read instead); never with ANSI off",
     "spark_rapids_tpu_torch/ops/math.py:_BitwiseBinary.eval_cpu":
         "no device involved: the CPU route runs torch's bitwise ops over "
         "host tensors (torch.from_numpy) and reads them back as numpy",

@@ -1,4 +1,4 @@
-"""Arithmetic with Spark's (non-ANSI, Java) semantics (port of
+"""Arithmetic with Spark's (Java) semantics and its ANSI mode (port of
 ``spark_rapids_tpu/ops/arithmetic.py``: Add, Subtract, Multiply, Divide,
 IntegralDivide, Remainder, Pmod, UnaryMinus, UnaryPositive and Abs).
 
@@ -16,6 +16,13 @@ Integer division and fmod by zero, and INT_MIN by -1, trap on the CPU:
 every divisor is made safe first (a zero divisor's row is null, and x % -1
 is 0 and x div -1 is -x, wrapped, without dividing). Negation and abs
 wrap at INT_MIN as Java's do.
+
+Under ``spark.sql.ansi.enabled`` (``dispatch.ANSI_MODE``) an integral
++, -, *, negation or abs that overflows, and a zero divisor of /, div, %
+or pmod, raise AnsiViolation instead: the device walk records a flag
+(``EvalCtx.ansi_check``), the CPU route raises at once. Pmod's check is
+Spark's; the reference has none (it returns null), a deviation the tests
+pin.
 """
 
 from __future__ import annotations
@@ -131,9 +138,33 @@ def _java_mod(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return torch.where(b == -1, torch.zeros_like(r), r)
 
 
+def _ansi() -> bool:
+    from spark_rapids_tpu_torch.dispatch import ANSI_MODE
+    return ANSI_MODE.get()
+
+
+def _ansi_raise(what: str) -> None:
+    """The CPU route's ANSI error (the reference's message)."""
+    from spark_rapids_tpu_torch.errors import AnsiViolation
+    raise AnsiViolation(f"{what} (spark.sql.ansi.enabled)")
+
+
+def _ansi_div_zero_dev(ctx, lval, rval) -> None:
+    if ctx.ansi:
+        ctx.ansi_check("divide by zero",
+                       lval.validity & rval.validity & (rval.data == 0))
+
+
+def _ansi_div_zero_cpu(l, r) -> None:
+    if _ansi() and (l.validity & r.validity & (r.data == 0)).any():
+        _ansi_raise("divide by zero")
+
+
 class BinaryArithmetic(BinaryExpression):
     #: the reference's decimal operator this one becomes over decimals
     decimal_impl = None
+    #: ANSI overflow check of integral operands: the label's symbol
+    ansi_symbol = None
 
     @property
     def data_type(self):
@@ -159,10 +190,24 @@ class BinaryArithmetic(BinaryExpression):
     def _dev_op(self, ld, rd):
         raise NotImplementedError
 
+    def _dev_overflow(self, ld, rd, res):
+        raise NotImplementedError
+
+    def _cpu_overflow(self, ld, rd, res):
+        """The rows whose exact result leaves the type's range: the device
+        form's sign test over numpy, exact for a wrapped sum or
+        difference; a product is recomputed in Python integers (the
+        reference's form)."""
+        return self._dev_overflow(ld, rd, res)
+
     def eval_dev(self, ctx, child_vals, prep):
         lval, rval = child_vals
         validity = null_and(lval.validity, rval.validity)
         data = self._dev_op(lval.data, rval.data)
+        if ctx.ansi and self.ansi_symbol and \
+                isinstance(self.data_type, T.IntegralType):
+            bad = self._dev_overflow(lval.data, rval.data, data) & validity
+            ctx.ansi_check(f"integer overflow in {self.ansi_symbol}", bad)
         return DevVal(torch.where(validity, data, torch.zeros_like(data)),
                       validity)
 
@@ -175,15 +220,24 @@ class BinaryArithmetic(BinaryExpression):
         with np.errstate(over="ignore", invalid="ignore", divide="ignore"):
             data = self._cpu_op(l.data, r.data)
         validity = l.validity & r.validity
+        if _ansi() and self.ansi_symbol and \
+                isinstance(self.data_type, T.IntegralType) and \
+                (validity & self._cpu_overflow(l.data, r.data, data)).any():
+            _ansi_raise(f"integer overflow in {self.ansi_symbol}")
         zero = np.zeros((), dtype=data.dtype).item()
         return HostColumn(self.data_type, np.where(validity, data, zero).astype(data.dtype), validity)
 
 
 class Add(BinaryArithmetic):
     decimal_impl = "DecimalAdd"
+    ansi_symbol = "+"
 
     def _dev_op(self, ld, rd):
         return ld + rd
+
+    def _dev_overflow(self, ld, rd, res):
+        # operands of one sign whose wrapped sum has the other
+        return ((ld >= 0) == (rd >= 0)) & ((res >= 0) != (ld >= 0))
 
     def _cpu_op(self, ld, rd):
         return ld + rd
@@ -191,9 +245,13 @@ class Add(BinaryArithmetic):
 
 class Subtract(BinaryArithmetic):
     decimal_impl = "DecimalSubtract"
+    ansi_symbol = "-"
 
     def _dev_op(self, ld, rd):
         return ld - rd
+
+    def _dev_overflow(self, ld, rd, res):
+        return ((ld >= 0) != (rd >= 0)) & ((res >= 0) != (ld >= 0))
 
     def _cpu_op(self, ld, rd):
         return ld - rd
@@ -201,9 +259,28 @@ class Subtract(BinaryArithmetic):
 
 class Multiply(BinaryArithmetic):
     decimal_impl = "DecimalMultiply"
+    ansi_symbol = "*"
 
     def _dev_op(self, ld, rd):
         return ld * rd
+
+    def _cpu_overflow(self, ld, rd, res):
+        wide = ld.astype(object) * rd.astype(object)
+        info = np.iinfo(res.dtype)
+        return np.fromiter((not (info.min <= w <= info.max) for w in wide),
+                           dtype=np.bool_, count=len(wide))
+
+    def _dev_overflow(self, ld, rd, res):
+        # divide back (exact for floor division too: a wrapped product
+        # differs from the true one by a multiple of 2^bits); a divisor
+        # of 0 or -1 is never divided by (INT_MIN / -1 traps on the CPU)
+        info = torch.iinfo(res.dtype)
+        odd = (rd == 0) | (rd == -1)
+        safe = torch.where(odd, torch.ones_like(rd), rd)
+        back = ~odd & (torch.div(res, safe, rounding_mode="floor") != ld)
+        min_neg = ((ld == info.min) & (rd == -1)) | \
+            ((rd == info.min) & (ld == -1))
+        return back | min_neg
 
     def _cpu_op(self, ld, rd):
         return ld * rd
@@ -230,6 +307,7 @@ class Divide(BinaryArithmetic):
 
     def eval_dev(self, ctx, child_vals, prep):
         lval, rval = child_vals
+        _ansi_div_zero_dev(ctx, lval, rval)
         nonzero = rval.data != 0.0
         validity = lval.validity & rval.validity & nonzero
         safe = torch.where(nonzero, rval.data, torch.ones_like(rval.data))
@@ -239,6 +317,7 @@ class Divide(BinaryArithmetic):
     def eval_cpu(self, table):
         l = self.left.eval_cpu(table)
         r = self.right.eval_cpu(table)
+        _ansi_div_zero_cpu(l, r)
         validity = l.validity & r.validity & (r.data != 0.0)
         with np.errstate(divide="ignore", invalid="ignore"):
             data = np.where(validity, l.data / np.where(r.data != 0.0, r.data, 1.0), 0.0)
@@ -270,6 +349,7 @@ class IntegralDivide(BinaryArithmetic):
 
     def eval_dev(self, ctx, child_vals, prep):
         lval, rval = child_vals
+        _ansi_div_zero_dev(ctx, lval, rval)
         a, b = lval.data, rval.data
         validity = lval.validity & rval.validity & _not_zero(b)
         q = torch.div(a, _safe_divisor(b, True), rounding_mode="trunc")
@@ -280,6 +360,7 @@ class IntegralDivide(BinaryArithmetic):
     def eval_cpu(self, table):
         l = self.left.eval_cpu(table)
         r = self.right.eval_cpu(table)
+        _ansi_div_zero_cpu(l, r)
         validity = l.validity & r.validity & (r.data != 0)
         with np.errstate(over="ignore"):
             data = _trunc_div_int(l.data, r.data)
@@ -294,6 +375,7 @@ class Remainder(BinaryArithmetic):
 
     def eval_dev(self, ctx, child_vals, prep):
         lval, rval = child_vals
+        _ansi_div_zero_dev(ctx, lval, rval)
         validity = lval.validity & rval.validity & _not_zero(rval.data)
         data = _java_mod(lval.data, rval.data)
         return DevVal(torch.where(validity, data, torch.zeros_like(data)),
@@ -302,6 +384,7 @@ class Remainder(BinaryArithmetic):
     def eval_cpu(self, table):
         l = self.left.eval_cpu(table)
         r = self.right.eval_cpu(table)
+        _ansi_div_zero_cpu(l, r)
         validity = l.validity & r.validity & (r.data != 0)
         data = _java_mod_np(l.data, r.data)
         zero = np.zeros((), dtype=l.data.dtype).item()
@@ -315,6 +398,7 @@ class Pmod(BinaryArithmetic):
 
     def eval_dev(self, ctx, child_vals, prep):
         lval, rval = child_vals
+        _ansi_div_zero_dev(ctx, lval, rval)
         b = rval.data
         validity = lval.validity & rval.validity & _not_zero(b)
         safe = torch.where(b == 0, torch.ones_like(b), b)
@@ -325,6 +409,7 @@ class Pmod(BinaryArithmetic):
     def eval_cpu(self, table):
         l = self.left.eval_cpu(table)
         r = self.right.eval_cpu(table)
+        _ansi_div_zero_cpu(l, r)
         validity = l.validity & r.validity & (r.data != 0)
         safe = np.where(r.data != 0, r.data, 1)
         with np.errstate(over="ignore", invalid="ignore", divide="ignore"):
@@ -353,11 +438,17 @@ class UnaryMinus(UnaryExpression):
             data = torch.stack([hi, lo], dim=1)
             return DevVal(torch.where(c.validity[:, None], data,
                                       torch.zeros_like(data)), c.validity)
+        if ctx.ansi and isinstance(self.data_type, T.IntegralType):
+            ctx.ansi_check("integer overflow in negate", c.validity & (
+                c.data == torch.iinfo(c.data.dtype).min))
         return DevVal(torch.where(c.validity, _wrap_neg(c.data),
                                   torch.zeros_like(c.data)), c.validity)
 
     def eval_cpu(self, table):
         c = self.child.eval_cpu(table)
+        if _ansi() and isinstance(self.data_type, T.IntegralType) and (
+                c.validity & (c.data == np.iinfo(c.data.dtype).min)).any():
+            _ansi_raise("integer overflow in negate")
         with np.errstate(over="ignore"):
             data = -c.data
         zero = np.zeros((), dtype=c.data.dtype).item()
@@ -398,6 +489,9 @@ class Abs(UnaryExpression):
             return DevVal(torch.where(c.validity[:, None], data,
                                       torch.zeros_like(data)), c.validity)
         x = c.data
+        if ctx.ansi and not x.is_floating_point():
+            ctx.ansi_check("integer overflow in abs", c.validity & (
+                x == torch.iinfo(x.dtype).min))
         data = x.abs() if x.is_floating_point() else \
             torch.where(x < 0, _wrap_neg(x), x)
         return DevVal(torch.where(c.validity, data, torch.zeros_like(data)),
@@ -405,6 +499,9 @@ class Abs(UnaryExpression):
 
     def eval_cpu(self, table):
         c = self.child.eval_cpu(table)
+        if _ansi() and np.issubdtype(c.data.dtype, np.integer) and (
+                c.validity & (c.data == np.iinfo(c.data.dtype).min)).any():
+            _ansi_raise("integer overflow in abs")
         with np.errstate(over="ignore"):
             data = np.abs(c.data)
         zero = np.zeros((), dtype=c.data.dtype).item()

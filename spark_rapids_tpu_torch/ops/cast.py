@@ -25,6 +25,11 @@ type). A cast the device does not run but the reference's host does
 (``host_cast_supported``: a string to or from a number, boolean, date or
 decimal, a decimal to or from any number at any precision) runs on the
 CPU route; any other pair raises NotImplementedError when it binds.
+
+Under ``spark.sql.ansi.enabled`` a float or double that is NaN or out of
+an integral target's range, a narrowing integral cast out of range and a
+string that does not parse raise AnsiViolation instead (the device walk
+records a flag; a string cast runs on the CPU route, which raises).
 """
 
 from __future__ import annotations
@@ -200,6 +205,22 @@ def _cast_decimal(c: DevVal, src: T.DataType, dst: T.DataType) -> DevVal:
                   validity)
 
 
+def _ansi_bad(data, validity, src: T.DataType, dst: T.DataType, isnan):
+    """The valid rows whose ANSI cast to the integral ``dst`` errors (a
+    NaN or out-of-range float, a narrowing integral out of range), or
+    None when no row of ``src`` can (the reference's bounds: a float is
+    compared with the bounds as floats). Over torch or numpy arrays
+    (``isnan`` of the library)."""
+    info = np.iinfo(np.dtype(dst.np_dtype))
+    if isinstance(src, (T.FloatType, T.DoubleType)):
+        return validity & (isnan(data) | (data < float(info.min))
+                           | (data > float(info.max)))
+    if isinstance(src, T.IntegralType) and \
+            np.dtype(dst.np_dtype).itemsize < np.dtype(src.np_dtype).itemsize:
+        return validity & ((data < info.min) | (data > info.max))
+    return None
+
+
 class Cast(Expression):
     def __init__(self, child: Expression, dtype: T.DataType):
         self.children = (child,)
@@ -246,6 +267,11 @@ class Cast(Expression):
                           torch.zeros_like(c.validity))
         if isinstance(src, T.DecimalType) or isinstance(dst, T.DecimalType):
             return _cast_decimal(c, src, dst)
+        if ctx.ansi and isinstance(dst, T.IntegralType):
+            bad = _ansi_bad(c.data, c.validity, src, dst, torch.isnan)
+            if bad is not None:
+                ctx.ansi_check(f"cast overflow to {dst.simple_string()}",
+                               bad)
         data = _cast_simple(c.data, src, dst)
         return DevVal(torch.where(c.validity, data, torch.zeros_like(data)),
                       c.validity)
@@ -260,10 +286,26 @@ class Cast(Expression):
         if isinstance(c.dtype, T.DecimalType) or \
                 isinstance(self._dtype, T.DecimalType):
             return _cpu_decimal_cast(c, self._dtype)
+        from spark_rapids_tpu_torch.dispatch import ANSI_MODE
+        from spark_rapids_tpu_torch.errors import AnsiViolation
         if isinstance(c.dtype, T.StringType):
-            return self._cpu_from_string(c)
+            out = self._cpu_from_string(c)
+            if ANSI_MODE.get() and (c.validity & ~out.validity).any():
+                raise AnsiViolation(
+                    f"invalid input for cast to "
+                    f"{self._dtype.simple_string()} "
+                    "(spark.sql.ansi.enabled)")
+            return out
         if isinstance(self._dtype, T.StringType):
             return self._cpu_to_string(c)
+        if ANSI_MODE.get() and isinstance(self._dtype, T.IntegralType):
+            with np.errstate(invalid="ignore"):
+                bad = _ansi_bad(c.data, c.validity, c.dtype, self._dtype,
+                                np.isnan)
+            if bad is not None and bad.any():
+                raise AnsiViolation(
+                    f"cast overflow to {self._dtype.simple_string()} "
+                    "(spark.sql.ansi.enabled)")
         data = _cast_data_np(c.data, c.dtype, self._dtype)
         zero = np.zeros((), dtype=self._dtype.np_dtype).item()
         return HostColumn(self._dtype, np.where(c.validity, data, zero).astype(self._dtype.np_dtype),

@@ -112,7 +112,8 @@ class Size(UnaryExpression):
 
 class GetArrayItem(Expression):
     """arr[i] -- 0-based (the reference's ``get_item``/``element_at``);
-    out-of-bounds or negative index -> null. Over a map it is the value
+    out-of-bounds or negative index -> null (AnsiViolation under
+    ``spark.sql.ansi.enabled``). Over a map it is the value
     lookup (:class:`~spark_rapids_tpu_torch.ops.nested.GetMapValue`)."""
 
     def __init__(self, child: Expression, index: Expression):
@@ -141,6 +142,9 @@ class GetArrayItem(Expression):
         off = a.offsets.to(torch.int64)
         pos = off[:-1] + k
         inb = (k >= 0) & (pos < off[1:])
+        if ctx.ansi:
+            ctx.ansi_check("array index out of bounds",
+                           c.validity & ix.validity & ~inb)
         safe = pos.clamp(0, a.data.shape[0] - 1)
         validity = c.validity & ix.validity & inb & a.validity[safe]
         data = a.data[safe]
@@ -148,17 +152,25 @@ class GetArrayItem(Expression):
                       validity)
 
     def eval_cpu(self, table):
+        from spark_rapids_tpu_torch.dispatch import ANSI_MODE
+        from spark_rapids_tpu_torch.errors import AnsiViolation
         c = self.children[0].eval_cpu(table)
         idx = self.children[1].eval_cpu(table)
+        ansi = ANSI_MODE.get()
         np_dt = self.data_type.np_dtype
         out = np.zeros(len(c), dtype=np_dt)
         validity = np.zeros(len(c), dtype=np.bool_)
         for i in range(len(c)):
             if c.validity[i] and idx.validity[i]:
                 k = int(idx.data[i])
-                if 0 <= k < len(c.data[i]) and c.data[i][k] is not None:
-                    out[i] = c.data[i][k]
-                    validity[i] = True
+                if 0 <= k < len(c.data[i]):
+                    if c.data[i][k] is not None:
+                        out[i] = c.data[i][k]
+                        validity[i] = True
+                elif ansi:
+                    raise AnsiViolation(
+                        f"array index {k} out of bounds "
+                        "(spark.sql.ansi.enabled)")
         return HostColumn(self.data_type, out, validity)
 
 

@@ -31,10 +31,12 @@ and converts the other branches' values to it when the result downloads
 branches to a common type: binding raises NotImplementedError naming the
 case.
 
-The port has no ANSI mode, so the reference's guarded branch walks
-(``eval_walk``: a branch evaluated only on the rows that select it, so
-an unselected row cannot raise) and its lazy CPU evaluation are not
-ported."""
+In ANSI mode (``spark.sql.ansi.enabled``) If and CaseWhen walk their own
+children (``eval_walk``): each branch value evaluates under
+``EvalCtx.guarded`` of the rows that select it, so a row the branch does
+not select cannot raise; the CPU route evaluates each branch over its
+selected rows only (the reference's ``_eval_cpu_ansi``). With ANSI off
+every route is the plain one."""
 
 from __future__ import annotations
 
@@ -146,6 +148,22 @@ class If(Expression):
     def prep(self, pctx, child_preps):
         return _string_prep(pctx, self, child_preps, (1, 2))
 
+    def eval_walk(self, ctx):
+        """The device walk: under ANSI each branch is checked only on the
+        rows that take it."""
+        from spark_rapids_tpu_torch.ops.expr import _walk_eval
+        p = _walk_eval(self.children[0], ctx)
+        if ctx.ansi:
+            take_a = p.validity & p.data
+            with ctx.guarded(take_a):
+                a = _walk_eval(self.children[1], ctx)
+            with ctx.guarded(~take_a):
+                b = _walk_eval(self.children[2], ctx)
+        else:
+            a = _walk_eval(self.children[1], ctx)
+            b = _walk_eval(self.children[2], ctx)
+        return self.eval_dev(ctx, (p, a, b), ctx.next_prep())
+
     def eval_dev(self, ctx, child_vals, prep):
         p, a, b = child_vals
         st = _Storage(self.data_type, ctx)
@@ -155,10 +173,16 @@ class If(Expression):
                       torch.where(take_a, a.validity, b.validity))
 
     def eval_cpu(self, table: HostTable) -> HostColumn:
+        from spark_rapids_tpu_torch.dispatch import ANSI_MODE
         p = self.children[0].eval_cpu(table)
         take_a = p.validity & p.data.astype(np.bool_)
-        a = self.children[1].eval_cpu(table)
-        b = self.children[2].eval_cpu(table)
+        if ANSI_MODE.get():
+            # Spark evaluates the branches lazily: each over its rows
+            a = _eval_branch_cpu(self.children[1], table, take_a)
+            b = _eval_branch_cpu(self.children[2], table, ~take_a)
+        else:
+            a = self.children[1].eval_cpu(table)
+            b = self.children[2].eval_cpu(table)
         data = np.where(take_a, a.data, b.data)
         validity = np.where(take_a, a.validity, b.validity)
         return HostColumn(self.data_type, data, validity)
@@ -200,6 +224,31 @@ class CaseWhen(Expression):
         return _string_prep(pctx, self, child_preps,
                             self._value_child_indices())
 
+    def eval_walk(self, ctx):
+        """The device walk: under ANSI each value (and the ELSE) is
+        checked only on the rows its condition selects first."""
+        from spark_rapids_tpu_torch.ops.expr import _walk_eval
+        if not ctx.ansi:
+            vals = [_walk_eval(c, ctx) for c in self.children]
+            return self.eval_dev(ctx, vals, ctx.next_prep())
+        vals = []
+        decided = None
+        n_branch = len(self.children) - (1 if self.has_else else 0)
+        for i in range(0, n_branch, 2):
+            c = _walk_eval(self.children[i], ctx)
+            vals.append(c)
+            take = c.validity & c.data
+            if decided is not None:
+                take = take & ~decided
+            with ctx.guarded(take):
+                vals.append(_walk_eval(self.children[i + 1], ctx))
+            decided = take if decided is None else decided | take
+        if self.has_else:
+            # a CaseWhen has at least one branch: ``decided`` is set
+            with ctx.guarded(~decided):
+                vals.append(_walk_eval(self.children[-1], ctx))
+        return self.eval_dev(ctx, vals, ctx.next_prep())
+
     def eval_dev(self, ctx, child_vals, prep):
         st = _Storage(self.data_type, ctx)
         vals = _branch_data(st, prep, self.children, child_vals,
@@ -227,6 +276,7 @@ class CaseWhen(Expression):
         return [(self.children[i], self.children[i + 1]) for i in range(0, n, 2)]
 
     def eval_cpu(self, table):
+        from spark_rapids_tpu_torch.dispatch import ANSI_MODE
         n = table.num_rows
         dtype = self.data_type
         if isinstance(dtype, T.StringType):
@@ -235,18 +285,42 @@ class CaseWhen(Expression):
             data = np.zeros(n, dtype=dtype.np_dtype)
         validity = np.zeros(n, dtype=np.bool_)
         decided = np.zeros(n, dtype=np.bool_)
+        ansi = ANSI_MODE.get()
         for cond, val in self._branches():
             c = cond.eval_cpu(table)
-            v = val.eval_cpu(table)
+            if ansi:
+                # Spark evaluates the branches lazily: each value over
+                # the rows its condition selects first
+                take = ~decided & c.validity & c.data.astype(np.bool_)
+                v = _eval_branch_cpu(val, table, take)
+            else:
+                v = val.eval_cpu(table)
             take = ~decided & c.validity & c.data.astype(np.bool_)
             data = np.where(take, v.data, data)
             validity = np.where(take, v.validity, validity)
             decided |= take
         if self.has_else:
-            v = self.children[-1].eval_cpu(table)
+            v = _eval_branch_cpu(self.children[-1], table, ~decided) \
+                if ansi else self.children[-1].eval_cpu(table)
             data = np.where(~decided, v.data, data)
             validity = np.where(~decided, v.validity, validity)
         return HostColumn(dtype, data, validity)
+
+
+def _eval_branch_cpu(expr: Expression, table: HostTable,
+                     mask: np.ndarray) -> HostColumn:
+    """``expr`` evaluated over the rows of ``mask`` only (ANSI's lazy
+    branches), scattered back to the table's length; the other rows are
+    null."""
+    idx = np.nonzero(mask)[0]
+    part = expr.eval_cpu(table.take(idx))
+    n = table.num_rows
+    data = np.full(n, None, dtype=object) if part.data.dtype == object \
+        else np.zeros((n,) + part.data.shape[1:], dtype=part.data.dtype)
+    validity = np.zeros(n, dtype=np.bool_)
+    data[idx] = part.data
+    validity[idx] = part.validity
+    return HostColumn(part.dtype, data, validity)
 
 
 class Coalesce(Expression):

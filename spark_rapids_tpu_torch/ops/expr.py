@@ -16,6 +16,7 @@ naming the operator, never a wrong answer.
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 from typing import Iterator, List, NamedTuple, Optional, Sequence, Tuple
 
@@ -68,15 +69,24 @@ class PrepCtx:
 
 class EvalCtx:
     """Device-side context handed to eval_dev. ``live`` carries a masked
-    batch's liveness (DeviceTable.live)."""
+    batch's liveness (DeviceTable.live). With ``ansi`` (ANSI mode) the
+    checks append ``(label, 0-d device bool)`` pairs to ``ansi_errors``
+    for violations in live rows; ``eval_expr`` delivers them."""
 
     def __init__(self, cols: Sequence[DevVal], nrows: torch.Tensor,
-                 capacity: int, device: torch.device, live=None):
+                 capacity: int, device: torch.device, live=None,
+                 ansi: bool = False):
         self.cols = tuple(cols)
         self.nrows = nrows
         self.capacity = capacity
         self.device = device
         self.live = live
+        self.ansi = ansi
+        self.ansi_errors: List[Tuple[str, torch.Tensor]] = []
+        #: the branch-selection mask: inside a CASE WHEN or IF branch only
+        #: the rows the branch selects may raise (Spark evaluates branches
+        #: lazily; the walk evaluates every branch and guards the check)
+        self.ansi_guard: Optional[torch.Tensor] = None
         self._prep_iter: Optional[Iterator[NodePrep]] = None
 
     def row_mask(self) -> torch.Tensor:
@@ -85,6 +95,25 @@ class EvalCtx:
             return self.live
         return torch.arange(self.capacity, dtype=torch.int32,
                             device=self.device) < self.nrows
+
+    def ansi_check(self, label: str, bad: torch.Tensor) -> None:
+        """Record an ANSI violation flag (True anywhere is an error) over
+        ``bad``, which the caller masks to valid rows; this masks it to
+        the live rows and the current branch guard."""
+        if self.ansi_guard is not None:
+            bad = bad & self.ansi_guard
+        self.ansi_errors.append((label, (bad & self.row_mask()).any()))
+
+    @contextlib.contextmanager
+    def guarded(self, mask: torch.Tensor):
+        """Scope ``ansi_check`` to the rows of ``mask`` (ANDed with an
+        enclosing guard: nested conditionals)."""
+        prev = self.ansi_guard
+        self.ansi_guard = mask if prev is None else (prev & mask)
+        try:
+            yield
+        finally:
+            self.ansi_guard = prev
 
     def next_prep(self) -> NodePrep:
         return next(self._prep_iter)  # type: ignore[arg-type]
@@ -457,6 +486,11 @@ def _walk_prep(expr: Expression, pctx: PrepCtx, out: List[NodePrep]) -> NodePrep
 
 
 def _walk_eval(expr: Expression, ctx: EvalCtx) -> DevVal:
+    walk = getattr(expr, "eval_walk", None)
+    if walk is not None:
+        # a conditional evaluates its own children (its branches under
+        # ANSI guards), consuming the preps in the same post-order
+        return walk(ctx)
     child_vals = [_walk_eval(c, ctx) for c in expr.children]
     p = ctx.next_prep()
     return expr.eval_dev(ctx, child_vals, p)
@@ -474,11 +508,40 @@ def prep_expr(expr: Expression, pctx: PrepCtx) -> List[NodePrep]:
 
 
 def eval_expr(expr: Expression, preps: List[NodePrep], cols, nrows,
-              capacity: int, device, live=None) -> DevVal:
-    """One device walk of ``expr`` over prepared ``preps``."""
-    ctx = EvalCtx(cols, nrows, capacity, device, live=live)
+              capacity: int, device, live=None, guard=None) -> DevVal:
+    """One device walk of ``expr`` over prepared ``preps``; in ANSI mode
+    the walk's violation flags are delivered (``deliver_ansi_flags``),
+    checked only on the rows of ``guard`` when one is given (a fused
+    filter's survivors). Every device walk of the port runs through
+    here."""
+    from spark_rapids_tpu_torch.dispatch import ANSI_MODE
+    ctx = EvalCtx(cols, nrows, capacity, device, live=live,
+                  ansi=ANSI_MODE.get())
+    ctx.ansi_guard = guard
     ctx._prep_iter = iter(preps)
-    return _walk_eval(expr, ctx)
+    out = _walk_eval(expr, ctx)
+    deliver_ansi_flags(ctx.ansi_errors)
+    return out
+
+
+def deliver_ansi_flags(errors: Sequence[Tuple[str, torch.Tensor]]) -> None:
+    """Route a walk's ANSI flags: into the active speculation context,
+    whose read of the result's row count carries them (no host sync of
+    their own), or, with speculative sizing off, one immediate read of
+    the walk's flags. With ANSI off there are none: nothing is read."""
+    if not errors:
+        return
+    from spark_rapids_tpu_torch.runtime import speculation as spec
+    ctx = spec.current()
+    if ctx is not None:
+        for label, flag in errors:
+            ctx.add_flag(spec.ANSI_PREFIX + label, flag)
+        return
+    from spark_rapids_tpu_torch.dispatch import note_host_fetch
+    note_host_fetch()
+    vals = torch.stack([f for _, f in errors]).cpu().tolist()
+    spec.check_flag_values([spec.ANSI_PREFIX + label for label, _ in errors],
+                           vals)
 
 
 def compile_project(exprs: Sequence[Expression],

@@ -644,9 +644,16 @@ class _HigherOrder(Expression):
         cols = list(var_vals)
         for ov in outer_vals:
             cols.append(DevVal(ov.data[safe], ov.validity[safe] & (rid < cap)))
-        ectx = EvalCtx(cols, total, ecap, ctx.device, live=elem_live)
+        ectx = EvalCtx(cols, total, ecap, ctx.device, live=elem_live,
+                       ansi=ctx.ansi)
+        if ctx.ansi_guard is not None:
+            # a branch's guard over rows, carried to their elements
+            ectx.ansi_guard = ctx.ansi_guard[safe] & (rid < cap)
         ectx._prep_iter = iter(prep.aux["body"])
-        return _walk_eval(self._rebound, ectx)
+        out = _walk_eval(self._rebound, ectx)
+        # the body's ANSI flags are the enclosing walk's
+        ctx.ansi_errors.extend(ectx.ansi_errors)
+        return out
 
     def _elements(self, ctx, c):
         """(rid, element liveness, total) of an array or map child."""

@@ -193,7 +193,7 @@ def _visit(node: P.PlanNode, required: FrozenSet[int]) -> P.PlanNode:
         return new
 
     if isinstance(node, P.Limit):
-        return P.Limit(_visit(node.children[0], required), node.limit)
+        return type(node)(_visit(node.children[0], required), node.limit)
 
     if isinstance(node, P.Sample):
         return P.Sample(_visit(node.children[0], required), node.fraction,

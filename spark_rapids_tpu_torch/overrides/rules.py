@@ -96,8 +96,9 @@ def register_file_scan(cls) -> None:
 
 #: plan nodes with a device rule
 _DEVICE_NODES = (P.LocalScan, P.RangeNode, P.Project, P.Filter,
-                 P.Aggregate, P.Sort, P.Limit, P.Union, P.Expand,
-                 P.Join, P.Generate, P.Sample, P.TakeOrderedAndProject,
+                 P.Aggregate, P.Sort, P.Limit, P.CollectLimit, P.Union,
+                 P.Expand, P.Join, P.Generate, P.Sample,
+                 P.TakeOrderedAndProject,
                  P.CachedRelation, P.WindowGroupLimit, P.WindowNode,
                  P.Exchange)
 
@@ -478,6 +479,16 @@ def _tag_window(meta: "PlanMeta") -> None:
         raise NotImplementedError("; ".join(unported))
 
 
+def batch_size_bytes(conf: C.RapidsConf) -> int:
+    """``spark.rapids.sql.batchSizeBytes`` where the conf sets it, else
+    ``execs/basic.py::BATCH_SIZE_BYTES`` (the reference's default): the
+    coalesce target of the aggregate, the sort, the streamed window, a
+    join's probe side and the exchange."""
+    if C.BATCH_SIZE_BYTES.key in conf.to_dict():
+        return conf.batch_size_bytes
+    return xbasic.BATCH_SIZE_BYTES
+
+
 def _convert_window(node: P.WindowNode, child: TpuExec,
                     conf: C.RapidsConf) -> TpuExec:
     """The reference's five routes (execs/window.py's docstring): the
@@ -504,7 +515,7 @@ def _convert_window(node: P.WindowNode, child: TpuExec,
             node.window_cols, per_batch=True)
     if probe._streamable():
         coalesced = TpuCoalesceExec(child,
-                                    target_bytes=xbasic.BATCH_SIZE_BYTES)
+                                    target_bytes=batch_size_bytes(conf))
     else:
         coalesced = TpuCoalesceExec(child, require_single=True)
     return TpuWindowExec(coalesced, node.window_cols,
@@ -625,15 +636,19 @@ def _insert_window_group_limits(node: P.PlanNode) -> P.PlanNode:
 
 def _convert_aggregate(node: P.Aggregate, child: TpuExec,
                        conf: C.RapidsConf) -> TpuExec:
-    # the Project/Filter chain below fuses into the aggregate (the
-    # reference's spark.rapids.tpu.agg.fuseInput default); its input then
+    # under spark.rapids.tpu.agg.fuseInput (the default) the Project/
+    # Filter chain below fuses into the aggregate; its input then
     # coalesces to the batch-size target, so only inputs past it stream
     # through the partial-per-batch merge
     ngroup = len(node.grouping)
-    exprs = list(node.grouping) + [fn for _, fn in node.agg_specs]
-    child, exprs, filters = peel_input_chain(child, exprs)
-    grouping = exprs[:ngroup]
-    agg_specs = [(n, fn) for (n, _), fn in zip(node.agg_specs, exprs[ngroup:])]
+    grouping, agg_specs, filters = (list(node.grouping),
+                                    list(node.agg_specs), [])
+    if conf.get_entry(C.AGG_FUSE_INPUT):
+        exprs = grouping + [fn for _, fn in agg_specs]
+        child, exprs, filters = peel_input_chain(child, exprs)
+        grouping = exprs[:ngroup]
+        agg_specs = [(n, fn) for (n, _), fn in
+                     zip(node.agg_specs, exprs[ngroup:])]
     from spark_rapids_tpu_torch.ops.aggregates import SORT_ONLY_AGGS
     if any(isinstance(fn, SORT_ONLY_AGGS) for _, fn in agg_specs):
         # collect and percentile have no merge decomposition: one
@@ -641,7 +656,7 @@ def _convert_aggregate(node: P.Aggregate, child: TpuExec,
         coalesced = TpuCoalesceExec(child, require_single=True)
     else:
         coalesced = TpuCoalesceExec(child,
-                                    target_bytes=xbasic.BATCH_SIZE_BYTES)
+                                    target_bytes=batch_size_bytes(conf))
     return TpuHashAggregateExec(
         coalesced,
         grouping, agg_specs, node.grouping_names, filters=filters,
@@ -678,15 +693,19 @@ def _convert_join(node: P.Join, children, conf: C.RapidsConf) -> TpuExec:
     swapped = jt == "right"
     lschema = node.children[0].output_schema()
     rschema = node.children[1].output_schema()
+    target = batch_size_bytes(conf)
     if not lkeys and (node.condition is not None or jt != "cross"):
         if swapped:
             left = TpuBroadcastExchangeExec(children[0])
-            right = TpuCoalesceExec(children[1])
+            right = TpuCoalesceExec(children[1], target_bytes=target)
         else:
-            left = TpuCoalesceExec(children[0])
+            left = TpuCoalesceExec(children[0], target_bytes=target)
             right = TpuBroadcastExchangeExec(children[1])
+        budget = (conf.get_entry(C.NLJ_PAIR_BUDGET)
+                  if C.NLJ_PAIR_BUDGET.key in conf.to_dict() else None)
         return TpuNestedLoopJoinExec(left, right, node.join_type,
-                                     node.condition, lschema, rschema)
+                                     node.condition, lschema, rschema,
+                                     pair_budget=budget)
     build_node = node.children[0] if swapped else node.children[1]
     est = build_node.estimate_bytes()
     threshold = conf.get_entry(C.BROADCAST_SIZE_BYTES)
@@ -699,9 +718,11 @@ def _convert_join(node: P.Join, children, conf: C.RapidsConf) -> TpuExec:
         return TpuCoalesceExec(child, require_single=True)
 
     if swapped:
-        left, right = wrap_build(children[0]), TpuCoalesceExec(children[1])
+        left = wrap_build(children[0])
+        right = TpuCoalesceExec(children[1], target_bytes=target)
     else:
-        left, right = TpuCoalesceExec(children[0]), wrap_build(children[1])
+        left = TpuCoalesceExec(children[0], target_bytes=target)
+        right = wrap_build(children[1])
     join = TpuJoinExec(
         left, right, node.join_type, lkeys, rkeys, node.condition, lschema,
         rschema, direct_table_mult=conf.get_entry(C.JOIN_DIRECT_TABLE_MULT),
@@ -897,11 +918,14 @@ def _convert_meta(meta: PlanMeta, device):
 def _convert_node(node: P.PlanNode, children, conf: C.RapidsConf,
                   device) -> TpuExec:
     policy = BucketPolicy(conf.get_entry(C.SHAPE_BUCKETS_MIN))
+    cache = bool(conf.get_entry(C.SCAN_DEVICE_CACHE))
     if isinstance(node, P.CachedRelation):
         # a planning leaf: its child ran (once) through the session
-        return TpuScanExec([node.materialize()], device, policy)
+        return TpuScanExec([node.materialize()], device, policy,
+                           device_cache=cache)
     if isinstance(node, P.LocalScan):
-        return TpuScanExec(node.batches, device, policy, node.columns)
+        return TpuScanExec(node.batches, device, policy, node.columns,
+                           device_cache=cache)
     if type(node) in _FILE_SCANS:
         return xbasic.TpuFileScanExec(node, device, policy)
     if isinstance(node, P.RangeNode):
@@ -945,15 +969,15 @@ def _convert_node(node: P.PlanNode, children, conf: C.RapidsConf,
         )
         return TpuShuffleExchangeExec(children[0], node.partitioning,
                                       node.num_partitions, node.keys, conf,
-                                      target_batch_bytes=xbasic.
-                                      BATCH_SIZE_BYTES)
+                                      target_batch_bytes=batch_size_bytes(
+                                          conf))
     # a global and a per-partition (local) sort convert alike, as the
     # reference's: one process sorts the partitions' views together. The
     # pre-sort coalesce stops at the out-of-core threshold (past it, the
     # sort merges sorted host runs)
     threshold = conf.get_entry(C.SORT_OOC_THRESHOLD)
     return TpuSortExec(TpuCoalesceExec(
-        children[0], target_bytes=min(xbasic.BATCH_SIZE_BYTES, threshold)),
+        children[0], target_bytes=min(batch_size_bytes(conf), threshold)),
         node.orders, ooc_threshold_bytes=threshold)
 
 

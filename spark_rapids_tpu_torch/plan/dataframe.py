@@ -1,11 +1,14 @@
-"""DataFrame API (port of the DataFrame/GroupedData/from_host_table/
-range_df part of ``spark_rapids_tpu/plan/dataframe.py``: select,
-with_column, filter, group_by, agg, sort, limit, union, sample, cache,
-join (on column names, on a condition, or a cross join), a select with
-one generator (Generate + Project), stack, replicate_rows, with_windows,
-repartition, columns, schema, count, temp views and the writers,
-``write_parquet`` and ``write.format(...)``): builds plan nodes; a
-session executes them."""
+"""DataFrame API (port of the DataFrame/GroupedData/PivotedData/
+from_host_table/from_pydict/range_df part of
+``spark_rapids_tpu/plan/dataframe.py``: select, with_column, filter,
+group_by, agg, pivot, sort, limit, union, sample, cache, join (on column
+names, on a condition, or a cross join), a select with one generator
+(Generate + Project), stack, replicate_rows, with_windows, repartition,
+columns, schema, count, explain, collect, to_pydict, the device export
+``to_device_arrays``, temp views and the writers, ``write_parquet`` and
+``write.format(...)``): builds plan nodes; a session executes them. The
+pandas surface (to_pandas, from_pandas, the pandas UDF frames) is not
+ported: pandas is not a dependency of the port."""
 
 from __future__ import annotations
 
@@ -155,7 +158,7 @@ class DataFrame:
             return self._wrap(P.TakeOrderedAndProject(
                 self.plan.children[0], self.plan.orders, n))
         # LIMIT without ordering: the reference's CollectLimit
-        return self._wrap(P.Limit(self.plan, n))
+        return self._wrap(P.CollectLimit(self.plan, n))
 
     def join(self, other: "DataFrame", on=None,
              how: str = "inner") -> "DataFrame":
@@ -255,6 +258,45 @@ class DataFrame:
         cols = [c.to_pylist() for c in t.columns]
         return [tuple(c[i] for c in cols) for i in range(t.num_rows)]
 
+    def to_pydict(self) -> dict:
+        return self.collect_table().to_pydict()
+
+    def explain(self) -> str:
+        """The session's tagged plan (``TorchSession.explain``), or the
+        plan's tree without a session; a SQL-made frame is headed by its
+        text on one line (``-- SQL: ...``)."""
+        out = (self.session.explain(self.plan) if self.session is not None
+               else self.plan.tree_string())
+        sql_text = getattr(self, "sql_text", None)
+        if sql_text:
+            return f"-- SQL: {' '.join(sql_text.split())}\n{out}"
+        return out
+
+    def to_device_arrays(self, device=None):
+        """The ColumnarRdd analog (the reference's export for ML): run the
+        plan and hand back its result ON THE DEVICE, ``({name: (data,
+        validity)}, live row count)``, a string column as ``(codes,
+        validity, dictionary)``; the tensors are padded to a capacity
+        bucket past the row count. The result's batches concatenate on
+        the device and nothing downloads. A frame without a session runs
+        on the CPU route and its result uploads once to ``device``
+        (default: the current CUDA device)."""
+        if self.session is not None:
+            table = self.session.execute_to_device(self.plan)
+        else:
+            from spark_rapids_tpu_torch import resolve_device
+            from spark_rapids_tpu_torch.columnar.table import (
+                upload_host_table,
+            )
+            table = upload_host_table(self.plan.collect_cpu(),
+                                      resolve_device(device))
+        out = {}
+        for name, c in zip(table.names, table.columns):
+            out[name] = ((c.data, c.validity, c.dictionary)
+                         if c.dictionary is not None
+                         else (c.data, c.validity))
+        return out, table.num_rows
+
 
 class DataFrameWriter:
     """The pyspark writer surface over ``DataFrame._write``: Parquet, ORC,
@@ -298,6 +340,52 @@ class GroupedData:
 
     def agg(self, *aggs) -> DataFrame:
         return self.df._wrap(P.Aggregate(self.df.plan, self.keys, list(aggs)))
+
+    def pivot(self, pivot_col: str, values) -> "PivotedData":
+        """``group_by(k).pivot(c, [v1, v2]).agg(...)``: each (pivot value,
+        aggregate) pair becomes one aggregate over the rows where ``c``
+        equals the value (the rewrite Spark applies before PivotFirst);
+        no kernel of its own."""
+        return PivotedData(self, pivot_col, list(values))
+
+
+class PivotedData:
+    """``group_by(...).pivot(col, values)``, awaiting its aggregates."""
+
+    def __init__(self, grouped: GroupedData, pivot_col: str, values):
+        self.grouped = grouped
+        self.pivot_col = pivot_col
+        self.values = values
+
+    def agg(self, *aggs) -> DataFrame:
+        """One column per (value, aggregate): ``agg(when(c == v, x))``,
+        ``count(*)`` counting the matching rows; named ``v`` for one
+        aggregate, else ``v_name``."""
+        from spark_rapids_tpu_torch.ops import aggregates as A
+        from spark_rapids_tpu_torch.ops.conditional import CaseWhen
+        from spark_rapids_tpu_torch.ops.expr import Alias, lit, output_name
+        out = []
+        for pv in self.values:
+            match = col(self.pivot_col) == lit(pv)
+            for i, a in enumerate(aggs):
+                name = output_name(a, f"agg{i}")
+                fn = a.children[0] if isinstance(a, Alias) else a
+                if not isinstance(fn, A.AggregateFunction):
+                    raise ValueError(f"pivot agg must be an aggregate: {a!r}")
+                if fn.child is None:
+                    masked = A.Count(CaseWhen(match, lit(1)))
+                else:
+                    masked = fn.with_children([CaseWhen(match, fn.child)])
+                label = f"{pv}" if len(aggs) == 1 else f"{pv}_{name}"
+                out.append(Alias(masked, label))
+        return self.grouped.agg(*out)
+
+
+def from_pydict(data, dtypes=None, session=None,
+                num_batches: int = 1) -> DataFrame:
+    """A DataFrame over ``{name: values}`` (``HostTable.from_pydict``)."""
+    return from_host_table(HostTable.from_pydict(data, dtypes), session,
+                           num_batches)
 
 
 def from_host_table(table: HostTable, session=None,

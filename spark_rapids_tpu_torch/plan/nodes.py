@@ -53,6 +53,14 @@ class PlanNode:
     def describe(self) -> str:
         return self.name
 
+    def tree_string(self, indent: int = 0) -> str:
+        """The plan one node a line, children indented (a session-less
+        ``DataFrame.explain``)."""
+        s = "  " * indent + self.describe() + "\n"
+        for c in self.children:
+            s += c.tree_string(indent + 1)
+        return s
+
     def estimate_bytes(self) -> Optional[int]:
         """Rough output-size upper bound for physical planning (broadcast
         or not). None = unknown. Row-preserving or shrinking unary nodes
@@ -410,6 +418,16 @@ class Limit(PlanNode):
 
     def describe(self):
         return f"Limit[{self.limit}]"
+
+
+class CollectLimit(Limit):
+    """``DataFrame.limit`` without an ordering (the reference's
+    CollectLimit, GpuCollectLimitExec): the first n rows in batch order,
+    converted as Limit is; its kill switch is
+    ``spark.rapids.sql.exec.CollectLimit``."""
+
+    def describe(self):
+        return f"CollectLimit[{self.limit}]"
 
 
 class Union(PlanNode):

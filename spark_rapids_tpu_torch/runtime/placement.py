@@ -18,6 +18,8 @@ and pushes the mesh's gather tunables."""
 
 from __future__ import annotations
 
+import contextlib
+
 from spark_rapids_tpu_torch.columnar import HostTable
 from spark_rapids_tpu_torch.obs.metrics import register_metric
 
@@ -34,6 +36,20 @@ register_metric("asyncFetchSynchronous", "count", "ESSENTIAL",
 #: attempts of one query under speculation; each failed attempt
 #: blocklists its sites, so every replay makes strict progress
 MAX_ATTEMPTS = 8
+
+
+@contextlib.contextmanager
+def ansi_mode(conf):
+    """``spark.sql.ansi.enabled`` as ``dispatch.ANSI_MODE`` for the query
+    run inside, in the thread that runs it (a service worker's too),
+    reset after."""
+    from spark_rapids_tpu_torch.conf import ANSI_ENABLED
+    from spark_rapids_tpu_torch.dispatch import ANSI_MODE
+    tok = ANSI_MODE.set(bool(conf.get_entry(ANSI_ENABLED)))
+    try:
+        yield
+    finally:
+        ANSI_MODE.reset(tok)
 
 
 def uses_device(executable) -> bool:
@@ -74,14 +90,18 @@ class PlacementLayer:
         PM.MAX_SHARD_RETRIES = int(conf.get_entry(MESH_MAX_SHARD_RETRIES))
         PM.GATHER_VERIFY = bool(conf.get_entry(MESH_GATHER_VERIFY))
 
-    def drain(self, root, async_fetch: bool = False) -> HostTable:
+    def drain(self, root, async_fetch: bool = False,
+              keep_on_device: bool = False) -> HostTable:
         """Drain ``root`` into a HostTable. Under speculative sizing (the
         default) every speculation flag of an attempt is read at once when
         it collects; a failed attempt blocklists its sites process-wide
         and the query replays, at most ``MAX_ATTEMPTS`` times, then once
         without speculation. Each drain holds the device semaphore; with
         ``async_fetch`` the result's copies are enqueued under it and
-        waited for after it released, inside the speculation attempt."""
+        waited for after it released, inside the speculation attempt.
+        With ``keep_on_device`` (the device export) a result on the device
+        stays there as a prefix DeviceTable with its row count read.
+        ``spark.sql.ansi.enabled`` holds for the drain (``ansi_mode``)."""
         from spark_rapids_tpu_torch.conf import (
             CONCURRENT_GPU_TASKS,
             SPECULATIVE_SIZING,
@@ -105,24 +125,25 @@ class PlacementLayer:
             _reset_metrics(root)
             reset_nondeterministic_streams()
             with acquired(sem):
-                out = _drain(root, async_fetch)
+                out = _drain(root, async_fetch, keep_on_device)
             return self.resolve_pending(root, out)
 
         session._last_replays = 0
-        if conf.get_entry(SPECULATIVE_SIZING):
-            for attempt in range(MAX_ATTEMPTS):
-                tok = spec.activate()
-                try:
-                    table = drain_once()
-                    spec.current().validate_remaining()
-                    session._last_replays = attempt
-                    return table
-                except spec.SpeculationFailed as sf:
-                    spec.blocklist(sf.sites)
-                finally:
-                    spec.deactivate(tok)
-            session._last_replays = MAX_ATTEMPTS
-        return drain_once()
+        with ansi_mode(conf):
+            if conf.get_entry(SPECULATIVE_SIZING):
+                for attempt in range(MAX_ATTEMPTS):
+                    tok = spec.activate()
+                    try:
+                        table = drain_once()
+                        spec.current().validate_remaining()
+                        session._last_replays = attempt
+                        return table
+                    except spec.SpeculationFailed as sf:
+                        spec.blocklist(sf.sites)
+                    finally:
+                        spec.deactivate(tok)
+                session._last_replays = MAX_ATTEMPTS
+            return drain_once()
 
 
     def resolve_pending(self, root, out) -> HostTable:
@@ -147,7 +168,7 @@ class PlacementLayer:
         return out
 
 
-def _drain(root, async_fetch: bool = False):
+def _drain(root, async_fetch: bool = False, keep_on_device: bool = False):
     """The root's batches concatenated on the device and downloaded (an
     empty table of the root's schema when it yields none). Each batch is
     a SpillableBatch while the rest are drained, so a result larger than
@@ -182,6 +203,11 @@ def _drain(root, async_fetch: bool = False):
         if all(sb.tier == TIER_DEVICE for sb in spills):
             table = retry_block(lambda: concat_device(
                 [sb.get() for sb in spills]))
+            table = _read_count_with_ansi(table)
+            if keep_on_device:
+                table = table.compacted()
+                table.num_rows  # noqa: B018 (the export's row count)
+                return table
             if async_fetch:
                 pending = _enqueue(table)
                 if pending is not None:
@@ -191,6 +217,25 @@ def _drain(root, async_fetch: bool = False):
     finally:
         for sb in spills:
             sb.release()
+
+
+def _read_count_with_ansi(table):
+    """ANSI mode under speculative sizing: the result's row count, which
+    its download reads anyway, is read in one copy with the query's
+    pending ANSI flags (``SpecContext.read_with_ansi``), so the flags add
+    no host sync. Returns the table to download (compacted when it was
+    masked and read here). Without pending ANSI flags, or with the count
+    already on the host, the table returns as it is."""
+    from spark_rapids_tpu_torch.runtime import speculation as spec
+    ctx = spec.current()
+    if ctx is None or not ctx.has_pending_ansi():
+        return table
+    if table.live is not None:
+        # the download compacts first: its count is the compaction's
+        table = table.compacted()
+    if table._nrows_host is None:
+        table._nrows_host = ctx.read_with_ansi(table.nrows_dev)
+    return table
 
 
 def _enqueue(table):

@@ -31,12 +31,21 @@ class SpeculationFailed(Exception):
         self.sites = list(sites)
 
 
+#: the site prefix of an ANSI violation flag (ops/expr.py::
+#: deliver_ansi_flags): a user error, never a sizing miss
+ANSI_PREFIX = "ansi:"
+
+
 class SpecContext:
-    """Per-query-execution collection of pending speculation flags (0-d
-    bool tensors, True when the speculation they guard FAILED)."""
+    """Per-query-execution collection of pending flags (0-d bool tensors,
+    True when the speculation they guard FAILED, or, for an ``ansi:``
+    site, when an ANSI check found a violation). ``read`` holds the
+    ANSI flags already read with the result's row count
+    (``read_with_ansi``), validated with the rest."""
 
     def __init__(self):
         self.pending: List[Tuple[str, torch.Tensor]] = []
+        self.read: List[Tuple[str, bool]] = []
 
     def add_flag(self, site_key: str, flag: torch.Tensor) -> None:
         self.pending.append((site_key, flag))
@@ -46,20 +55,51 @@ class SpecContext:
         self.pending = []
         return out
 
+    def read_with_ansi(self, count: torch.Tensor) -> int:
+        """``count`` (a 0-d device integer: the result's row count) read
+        in ONE copy with every pending ANSI flag, which a query with ANSI
+        off has none of; the flags' values wait in ``read`` for
+        ``validate_remaining``, so a sizing miss still wins."""
+        ansi = [(s, f) for s, f in self.pending if s.startswith(ANSI_PREFIX)]
+        if ansi:
+            self.pending = [(s, f) for s, f in self.pending
+                            if not s.startswith(ANSI_PREFIX)]
+        vals = torch.stack([count.reshape(()).to(torch.int64)] + [
+            f.reshape(()).to(torch.int64) for _, f in ansi]).cpu().tolist()
+        self.read.extend((s, bool(v)) for (s, _), v in zip(ansi, vals[1:]))
+        return int(vals[0])
+
+    def has_pending_ansi(self) -> bool:
+        return any(s.startswith(ANSI_PREFIX) for s, _ in self.pending)
+
     def validate_remaining(self) -> None:
-        """Read every pending flag in one device-to-host copy and raise
-        SpeculationFailed naming the failed sites."""
+        """Read every pending flag in one device-to-host copy (none when
+        nothing is pending) and check them with the ones already read:
+        SpeculationFailed naming the failed sites, else AnsiViolation."""
         pending = self.take_pending()
-        if not pending:
+        read, self.read = self.read, []
+        if not pending and not read:
             return
-        vals = torch.stack([f.reshape(()) for _, f in pending]).cpu()
-        check_flag_values([s for s, _ in pending], vals.tolist())
+        vals = torch.stack([f.reshape(()) for _, f in pending]).cpu() \
+            .tolist() if pending else []
+        check_flag_values([s for s, _ in pending] + [s for s, _ in read],
+                          list(vals) + [v for _, v in read])
 
 
 def check_flag_values(sites: List[str], values) -> None:
+    """Raise for the set flags: a sizing miss first (its data, and any
+    ANSI flag computed from it, is suspect: the exact replay computes
+    the flags again over correct data), else an ANSI violation, a user
+    error that a replay could not change."""
     failed = [s for s, v in zip(sites, values) if bool(v)]
-    if failed:
-        raise SpeculationFailed(failed)
+    if not failed:
+        return
+    sizing = [s for s in failed if not s.startswith(ANSI_PREFIX)]
+    if sizing:
+        raise SpeculationFailed(sizing)
+    from spark_rapids_tpu_torch.errors import AnsiViolation
+    ansi = [s[len(ANSI_PREFIX):] for s in failed]
+    raise AnsiViolation("[ANSI] " + "; ".join(sorted(set(ansi))))
 
 
 _CTX: contextvars.ContextVar[Optional[SpecContext]] = contextvars.ContextVar(

@@ -70,7 +70,7 @@ class _TLQueryState:
                  "next_mv_epoch", "stream_deltas", "phases",
                  "executable", "dispatches", "event_record", "event_path",
                  "exec_cache_token", "exec_cache_hit", "compile_ms",
-                 "meta")
+                 "meta", "export")
 
     def __init__(self):
         for name in self.__slots__:
@@ -206,6 +206,36 @@ class TorchSession:
             )
             self._placement = PlacementLayer(self)
         return self._placement
+
+    def set_conf(self, key: str, value) -> "TorchSession":
+        """Set one conf key for the session's later queries (an unknown
+        key raises, as at construction); returns the session."""
+        self.conf = self.conf.set(key, value)
+        # the profiler reads its conf when it is made
+        self._profiler = None
+        return self
+
+    # -- data sources --------------------------------------------------------
+    def create_dataframe(self, data, dtypes=None, num_batches: int = 1):
+        """A DataFrame over in-memory data: a ``{name: values}`` dict
+        (numpy arrays or Python lists, ``dtypes`` naming a column's type
+        where the values do not) or a HostTable, split into
+        ``num_batches`` scan batches. A pandas frame raises: pandas is
+        not a dependency of the port."""
+        from spark_rapids_tpu_torch.plan.dataframe import (
+            from_host_table,
+            from_pydict,
+        )
+        if isinstance(data, HostTable):
+            return from_host_table(data, self, num_batches)
+        if isinstance(data, dict):
+            return from_pydict(data, dtypes, self, num_batches)
+        if type(data).__module__.split(".")[0] == "pandas":
+            raise NotImplementedError(
+                "create_dataframe from a pandas DataFrame is not ported: "
+                "pandas is not a dependency of the port (pass a dict of "
+                "numpy arrays or a HostTable)")
+        raise TypeError(f"cannot create a DataFrame from {type(data)}")
 
     # -- SQL front end -------------------------------------------------------
     @property
@@ -420,6 +450,24 @@ class TorchSession:
             print(f"spark_rapids_tpu_torch: event/trace emission failed "
                   f"(query {qidx}): {exc}")
         return result
+
+    def execute_to_device(self, plan: P.PlanNode):
+        """Run one query as ``execute`` does, but keep its result on the
+        device: the root's batches concatenate there and nothing
+        downloads (``DataFrame.to_device_arrays``). Returns a prefix
+        DeviceTable whose row count is on the host; a result the CPU
+        route collected (explainOnly, a latched process, a host root)
+        uploads once."""
+        from spark_rapids_tpu_torch.columnar.table import upload_host_table
+        q = self._q
+        q.export = True
+        try:
+            out = self.execute(plan)
+        finally:
+            q.export = None
+        if isinstance(out, HostTable):
+            out = upload_host_table(out, self.device)
+        return out
 
     def _execute_plan(self, plan: P.PlanNode) -> HostTable:
         if isinstance(plan, P.WriteFiles):
@@ -687,7 +735,8 @@ class TorchSession:
         force_chunk = None
         suppress_mesh = suppress_cluster = None
         while True:
-            if HEALTH.cpu_only_reason() is not None:
+            if HEALTH.cpu_only_reason() is not None or \
+                    self.conf.is_explain_only:
                 result = self._execute_cpu_only(plan)
                 self._last_fault_replays = replays
                 HEALTH.note_success()
@@ -839,7 +888,10 @@ class TorchSession:
         collected on the host. A CUDA context poisoned by a sticky error
         raises at every CUDA call, so this path makes none: no device
         manager, memory budget, executable cache, semaphore, profiler,
-        observation boundaries or device transitions."""
+        observation boundaries or device transitions. Under
+        ``spark.rapids.sql.mode=explainOnly`` the plan is tagged (and
+        printed per ``spark.rapids.sql.explain``, ``last_meta`` holding
+        the tags) and then runs wholly on the route: no kernel launches."""
         import time
 
         from spark_rapids_tpu_torch.overrides.input_file import (
@@ -849,6 +901,7 @@ class TorchSession:
             convert_meta,
             wrap_plan,
         )
+        from spark_rapids_tpu_torch.runtime.placement import ansi_mode
         from spark_rapids_tpu_torch.service.query import check_cancelled
         q = self._q
         top = q.exec_depth == 1
@@ -857,14 +910,24 @@ class TorchSession:
         check_cancelled()
         t0 = time.perf_counter()
         self._last_root, self._last_replays = None, 0
-        meta = wrap_plan(rewrite_input_file_exprs(plan), self.conf)
-        root = convert_meta(meta, self.device)
+        plan = rewrite_input_file_exprs(plan)
+        meta = wrap_plan(plan, self.conf)
+        if self.conf.is_explain_only:
+            # the tags (and the cost-based optimizer's) as an execute
+            # would plan them; then the whole plan on the route
+            from spark_rapids_tpu_torch.execs.base import CpuRootExec
+            from spark_rapids_tpu_torch.overrides.optimizer import apply_cbo
+            apply_cbo(meta, self.conf)
+            root = CpuRootExec(plan)
+        else:
+            root = convert_meta(meta, self.device)
         if self.conf.explain_mode in ("NOT_ON_GPU", "ALL"):
             print(meta.explain(
                 only_fallback=self.conf.explain_mode == "NOT_ON_GPU"))
         self._last_root = self._last_executable = root
         t1 = time.perf_counter()
-        result = root.collect()
+        with ansi_mode(self.conf):
+            result = root.collect()
         if top:
             self.last_meta = meta
             self.last_executable_cache_hit = False
@@ -1016,7 +1079,8 @@ class TorchSession:
         try:
             with self.profiler.profile_query():
                 result = self.placement.drain(
-                    root, bool(self.conf.get_entry(ASYNC_RESULT_FETCH)))
+                    root, bool(self.conf.get_entry(ASYNC_RESULT_FETCH)),
+                    keep_on_device=top and bool(q.export))
             if top:
                 self.last_dispatches = dispatch_count()
                 root.metrics["dispatches"] = self.last_dispatches

@@ -77,7 +77,10 @@ QUERIES = {
         a.F.sum("v").alias("sv"), a.F.count().alias("c"),
         a.F.max("x").alias("mx")), True),
     "Sort": (lambda a, df: df.select("k", "v").sort("v", "k"), False),
-    "Limit": (lambda a, df: df.select("k", "v").limit(17), False),
+    # df.limit plans CollectLimit; SQL's and the DSL's LIMIT node is Limit
+    "Limit": (lambda a, df: type(df)(a.P.Limit(df.select("k", "v").plan,
+                                               17), df.session), False),
+    "CollectLimit": (lambda a, df: df.select("k", "v").limit(17), False),
     "Union": (lambda a, df: df.select("k").union(df.select("k")), False),
     "Expand": (lambda a, df: _expand(a, df.select("k", "v")), False),
     "Join": (lambda a, df: df.select("k", "v").join(
